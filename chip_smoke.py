@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -12,28 +13,47 @@ and the script exits non-zero:
               once, with each kernel's register / shared-memory report;
 3. kernels  — every kernel of ``ops/cuda/registry.py`` against its
               plain PyTorch version on the card (f32 and bf16, the CPU
-              test cases and full-width shapes; padding must be exact
-              zeros), then timed with CUDA events against that plain
-              version and against its bound (bytes at 3.35 TB/s or
-              operations at the dense peak, whichever is larger);
+              test cases and full-width shapes, forward and every
+              gradient; ragged padding must be exact zeros, backward
+              reductions bitwise repeatable; flash attention and
+              LayerNorm held to their plain versions computed in f32
+              on the same values, see ``_parity``), then timed
+              (CUDA-graph replay after an L2 flush) against that plain
+              version, against its bound (bytes at 3.35 TB/s or
+              operations at the dense peak, whichever is larger) and,
+              where one exists, against the one PyTorch call computing
+              the same function (a backward that recomputes its forward,
+              as the library calls and LayerNorm's plain version do, is
+              timed as forward + backward less forward);
 4. exactness — a gpt_tiny-width 2-layer model in f32: the paged engine's
               greedy output must equal greedy decoding with the dense
               forward token for token, with the kernel launched on every
               layer of every step;
-5. serving  — GPT-124M (random weights from a seed, bf16) behind the
+5. train exactness — three AdamW TrainSteps of a 2-layer, hidden-128
+              model in f32 on the card against the same steps on the
+              port's CPU path, with the flash-attention and LayerNorm
+              kernels launched on every layer of every step;
+6. serving  — GPT-124M (random weights from a seed, bf16) behind the
               engine at block_size 16, max_batch 8, token_budget 256,
               prefix caching on: warmup, then 16 requests (8 sharing a
               256-token prefix, 64 new tokens each, 2 of them sampled);
               every request must finish by length with 64 tokens and
               the kernel's launch count must equal num_layers x the
               engine's launches;
-6. profile  — a window of batch-8 decode steps on the same engine,
+7. profile  — a window of batch-8 decode steps on the same engine,
               wall time per step against device time under
-              torch.profiler.
+              torch.profiler;
+8. training — GPT-124M in O2 bf16 with AdamW and global-norm clipping
+              on one 8 x 1024 batch: 3 warm-up and 10 timed steps (ms
+              per step, tokens/s, MFU, peak memory), one step under
+              torch.profiler; the loss must fall and every attention
+              and LayerNorm of every timed step launch its kernels.
 
-The second-to-last line is the ``kernels`` JSON record; the last line
-is ``{"ok": true, "device": {...}}``.  The script imports only torch,
-numpy and the port.
+The launches in the ``kernels`` line are those of each kernel's main
+path: the serving burst for ragged attention, the timed training steps
+for the others.  The second-to-last line is that JSON record; the last
+line is ``{"ok": true, "device": {...}}``.  The script imports only
+torch, numpy and the port.
 """
 
 import json
@@ -248,7 +268,314 @@ def ragged_attention_phase(entry, dev):
             "library_ms": None}
 
 
-PARITY_PHASES = {"paged_ragged_attention": ragged_attention_phase}
+# ---------------------------------------------------- flash attention --
+BF16_RTOL, BF16_RMS_TOL = 1e-2, 1e-3
+
+
+def _parity(got, want, f32_tol):
+    """A kernel output against its plain version, which the phases
+    compute in f32 on the same input values.  An f32 output must lie
+    within ``f32_tol * max(1, max|want|)`` (summation order); a bf16
+    output, every element within ``1e-2 |want| + 1e-3 rms(want)`` (its
+    own rounding is 2^-9 relative; the kernels compute in f32).  Returns
+    (max |err|, ||err|| / ||want||, the largest err / limit, ok)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if got.dtype == torch.bfloat16:
+        limit = BF16_RTOL * w.abs() + BF16_RMS_TOL * w.pow(2).mean().sqrt()
+    else:
+        limit = f32_tol * max(1.0, float(w.abs().max()))
+    over = float((err / limit).max())
+    rel = float(err.norm() / w.norm())
+    return (float(err.max()), rel, over,
+            over <= 1.0 and bool(torch.isfinite(got).all()))
+
+
+def _say_parity(kernel, label, dtype, report, **extra):
+    say("kernel_parity", kernel=kernel, case=label, dtype=str(dtype),
+        max_abs_err={n: r[0] for n, r in report.items()},
+        rel_l2_err={n: r[1] for n, r in report.items()},
+        err_over_limit={n: r[2] for n, r in report.items()}, **extra)
+
+
+def _flash_inputs(dev, dtype, b, s, n, d, seed, packed=False):
+    """q, k, v [B, S, N, D] and a dO, seeded; ``packed`` gives q, k, v
+    as the strided views of one [B, S, 3, N, D] projection, the layout
+    GPT hands the kernel."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    if packed:
+        qkv = torch.as_tensor(rng.randn(b, s, 3, n, d).astype(np.float32),
+                              device=dev).to(dtype)
+        q, k, v = qkv.unbind(dim=2)
+    else:
+        q, k, v = (torch.as_tensor(rng.randn(b, s, n, d).astype(np.float32),
+                                   device=dev).to(dtype) for _ in range(3))
+    dout = torch.as_tensor(rng.randn(b, s, n, d).astype(np.float32),
+                           device=dev).to(dtype)
+    return q, k, v, dout
+
+
+def _attention_pairs(b, s, n, d, causal):
+    return n * b * (s * (s + 1) // 2 if causal else s * s)
+
+
+def _flash_bound(q, causal, backward):
+    """Least time: forward reads q, k, v and writes out and lse, with
+    4*D FLOPs per visible (query, key) pair (QK^T and PV); backward
+    reads q, k, v, out, dO and lse, writes dq, dk, dv, with 10*D FLOPs
+    per visible pair (S, dP, dV, dK, dQ)."""
+    b, s, n, d = q.shape
+    isz = q.element_size()
+    pairs = _attention_pairs(b, s, n, d, causal)
+    elems = b * s * n * d
+    if backward:
+        nbytes, flops = 8 * elems * isz + 4 * b * n * s, 10.0 * d * pairs
+    else:
+        nbytes, flops = 4 * elems * isz + 4 * b * n * s, 4.0 * d * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(q.dtype)] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def flash_attention_phase(entries, dev):
+    """B2 and B3 (forward kernel; dq + dk/dv pair) against their plain
+    versions on the card, f32 and bf16, forward and every gradient, on
+    the CPU test shapes and GPT-124M's; then timed at GPT-124M's training
+    shape against the bound, the plain versions and PyTorch's
+    ``scaled_dot_product_attention`` (a yardstick only)."""
+    import torch
+
+    fwd = entries["flash_attention_fwd"]
+    bwd = entries["flash_attention_bwd"]
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [   # label, dtype, (B, S, N, D), causal, packed
+        ("cpu_2x128x2x64", f32, (2, 128, 2, 64), False, False),
+        ("cpu_2x128x2x64_causal", f32, (2, 128, 2, 64), True, False),
+        ("cpu_1x256x4x32", f32, (1, 256, 4, 32), False, False),
+        ("cpu_1x256x4x32_causal", f32, (1, 256, 4, 32), True, False),
+        ("cpu_grads_1x128x2x32", f32, (1, 128, 2, 32), False, False),
+        ("cpu_grads_1x128x2x32_causal", f32, (1, 128, 2, 32), True, False),
+        ("cpu_uneven_1x192x2x32_causal", f32, (1, 192, 2, 32), True, False),
+        ("cpu_bf16_1x128x2x64_causal", bf16, (1, 128, 2, 64), True, False),
+        ("gpt124m_8x1024x12x64_causal", bf16, (8, 1024, 12, 64), True, True),
+        ("gpt124m_f32_2x1024x12x64_causal", f32, (2, 1024, 12, 64), True,
+         True),
+        ("noncausal_2x512x12x64", bf16, (2, 512, 12, 64), False, False),
+        ("tail_2x1000x12x64_causal", bf16, (2, 1000, 12, 64), True, False),
+        ("tail_f32_1x1000x4x64_causal", f32, (1, 1000, 4, 64), True, False),
+        ("d128_1x300x2x128_causal", bf16, (1, 300, 2, 128), True, False),
+    ]
+    main_err = {}
+    for i, (label, dtype, shape, causal, packed) in enumerate(cases):
+        q, k, v, dout = _flash_inputs(dev, dtype, *shape, seed=40 + i,
+                                      packed=packed)
+        scale = 1.0 / float(np.sqrt(shape[-1]))
+        out, lse = fwd.kernel(q, k, v, causal, scale)
+        grads = bwd.kernel(q, k, v, out, lse, dout, causal, scale)
+        again = bwd.kernel(q, k, v, out, lse, dout, causal, scale)
+        torch.cuda.synchronize()
+        # the plain versions in f32 on the same values, so a bf16 case is
+        # held to its inputs' exact function, not to a composition that
+        # rounds its probabilities to bf16; the backward's inputs include
+        # the forward kernel's out and lse, as the backward kernel's do
+        q32, k32, v32, do32 = (x.float() for x in (q, k, v, dout))
+        want_out, want_lse = fwd.plain(q32, k32, v32, causal, scale)
+        want_grads = bwd.plain(q32, k32, v32, out.float(), lse, do32,
+                               causal, scale)
+        pairs = {"out": (out, want_out, 1e-4), "lse": (lse, want_lse, 1e-4)}
+        pairs.update({f"d{n}": (g, w, 5e-4)
+                      for n, g, w in zip("qkv", grads, want_grads)})
+        report = {name: _parity(*p) for name, p in pairs.items()}
+        deterministic = all(torch.equal(a, b) for a, b in zip(grads, again))
+        _say_parity("flash_attention", label, dtype, report, causal=causal,
+                    strided_qkv=packed,
+                    backward_bitwise_repeatable=deterministic)
+        if not (all(r[3] for r in report.values()) and deterministic):
+            raise RuntimeError(f"flash attention {label}: {report}, "
+                               f"repeatable {deterministic}")
+        if label.startswith("gpt124m_8x"):
+            main_err["fwd"] = max(report["out"][0], report["lse"][0])
+            main_err["bwd"] = max(report[n][0] for n in ("dq", "dk", "dv"))
+
+    # timing at GPT-124M's training shape: causal, bf16, strided qkv views
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    q, k, v, dout = _flash_inputs(dev, bf16, 8, 1024, 12, 64, seed=99,
+                                  packed=True)
+    scale = 0.125
+    out, lse = fwd.kernel(q, k, v, True, scale)
+    ms_f = time_ms(lambda: fwd.kernel(q, k, v, True, scale), flush)
+    ms_b = time_ms(lambda: bwd.kernel(q, k, v, out, lse, dout, True, scale),
+                   flush)
+    plain_f = time_ms(lambda: fwd.plain(q, k, v, True, scale), flush)
+    plain_b = time_ms(lambda: bwd.plain(q, k, v, out, lse, dout, True,
+                                        scale), flush)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dt = dout.transpose(1, 2)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+
+    lib_f = time_ms(sdpa, flush)
+    lib_fb = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dt),
+                     flush)
+    records = []
+    for entry, ms, plain_ms, lib, backward, err in (
+            (fwd, ms_f, plain_f, lib_f, False, main_err["fwd"]),
+            (bwd, ms_b, plain_b, lib_fb - lib_f, True, main_err["bwd"])):
+        bound_ms, bound_by = _flash_bound(q, True, backward)
+        say("kernel_time", kernel=entry.name, shape="8x1024x12x64 bf16 "
+            "causal, strided qkv", kernel_ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+            library="F.scaled_dot_product_attention" + (
+                " backward (forward+backward minus forward)" if backward
+                else ""))
+        records.append({"name": entry.name, "route": "cuda",
+                        "source": entry.source, "replaces": entry.replaces,
+                        "launches": None, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": lib})
+    return records
+
+
+# ---------------------------------------------------------- layernorm --
+def _ln_bound(x2d, backward):
+    """Least time: forward reads x, gamma, beta and writes y, mu, rstd
+    (about 7 operations an element); backward reads x, dy, gamma, mu,
+    rstd and writes dx, dgamma, dbeta (about 12 an element)."""
+    rows, c = x2d.shape
+    isz = x2d.element_size()
+    if backward:
+        nbytes = 3 * rows * c * isz + c * isz + 8 * rows + 8 * c
+        flops = 12.0 * rows * c
+    else:
+        nbytes = 2 * rows * c * isz + 2 * c * isz + 8 * rows
+        flops = 7.0 * rows * c
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(x2d.dtype)] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _ln_inputs(dev, dtype, rows, c, seed):
+    import torch
+
+    rng = np.random.RandomState(seed)
+
+    def put(a):
+        return torch.as_tensor(a.astype(np.float32), device=dev).to(dtype)
+
+    return (put(rng.randn(rows, c) * 2 + 0.5), put(1 + 0.1 * rng.randn(c)),
+            put(0.1 * rng.randn(c)), put(rng.randn(rows, c)))
+
+
+def layernorm_phase(entries, dev):
+    """B4 (forward kernel; backward row pass + partials reduction)
+    against its plain versions on the card, f32 and bf16, y / mu / rstd
+    and dx / dgamma / dbeta, on the CPU test shape and GPT-124M's
+    (8192 x 768, and 8190 rows that no block divides); then timed at
+    8192 x 768 bf16 against the bound, the plain versions and
+    ``torch.nn.functional.layer_norm`` (a yardstick only)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda.layernorm_kernel import layer_norm_plain
+
+    fwd = entries["layernorm_fwd"]
+    bwd = entries["layernorm_bwd"]
+    f32, bf16 = torch.float32, torch.bfloat16
+    eps = 1e-5
+    cases = [("cpu_256x128", f32, 256, 128), ("gpt124m_8192x768", bf16,
+                                              8192, 768),
+             ("gpt124m_f32_8192x768", f32, 8192, 768),
+             ("ragged_rows_8190x768", bf16, 8190, 768),
+             ("c2048_1000x2048", bf16, 1000, 2048)]
+    main_err = {}
+    for i, (label, dtype, rows, c) in enumerate(cases):
+        x, g, b, dy = _ln_inputs(dev, dtype, rows, c, seed=70 + i)
+        y, mu, rstd = fwd.kernel(x, g, b, eps)
+        dx, dg, db = bwd.kernel(x, g, mu, rstd, dy)
+        _, dg2, db2 = bwd.kernel(x, g, mu, rstd, dy)
+        torch.cuda.synchronize()
+        # the plain versions in f32 on the same values (see _parity)
+        x32, g32, b32, dy32 = (t.float() for t in (x, g, b, dy))
+        wy, wmu, wrstd = fwd.plain(x32, g32, b32, eps)
+        wdx, wdg, wdb = bwd.plain(x32, g32, wmu, wrstd, dy32, eps)
+        report = {name: _parity(got, want, f32_tol)
+                  for name, got, want, f32_tol in (
+                      ("y", y, wy, 1e-5), ("mu", mu, wmu, 1e-5),
+                      ("rstd", rstd, wrstd, 1e-5), ("dx", dx, wdx, 1e-4),
+                      ("dgamma", dg, wdg, 1e-4), ("dbeta", db, wdb, 1e-4))}
+        deterministic = torch.equal(dg, dg2) and torch.equal(db, db2)
+        _say_parity("layernorm", label, dtype, report,
+                    dgamma_dbeta_bitwise_repeatable=deterministic)
+        if not (all(r[3] for r in report.values()) and deterministic):
+            raise RuntimeError(f"layernorm {label}: {report}, repeatable "
+                               f"{deterministic}")
+        if label == "gpt124m_8192x768":
+            main_err["fwd"] = max(report[n][0] for n in ("y", "mu", "rstd"))
+            main_err["bwd"] = max(report[n][0]
+                                  for n in ("dx", "dgamma", "dbeta"))
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    x, g, b, dy = _ln_inputs(dev, bf16, 8192, 768, seed=98)
+    y, mu, rstd = fwd.kernel(x, g, b, eps)
+    ms_f = time_ms(lambda: fwd.kernel(x, g, b, eps), flush)
+    ms_b = time_ms(lambda: bwd.kernel(x, g, mu, rstd, dy), flush)
+    plain_f = time_ms(lambda: fwd.plain(x, g, b, eps), flush)
+    # as for flash attention: the backward's plain version less the
+    # forward it recomputes under autograd
+    plain_fb = time_ms(lambda: bwd.plain(x, g, mu, rstd, dy, eps), flush)
+    xl, gl, bl = (t.detach().requires_grad_() for t in (x, g, b))
+
+    def plain_graph_fwd():
+        with torch.enable_grad():
+            return layer_norm_plain(xl, (768,), gl, bl, eps)
+
+    plain_b = plain_fb - time_ms(plain_graph_fwd, flush)
+
+    def lib():
+        return torch.nn.functional.layer_norm(xl, (768,), gl, bl, eps)
+
+    lib_f = time_ms(lib, flush)
+    lib_fb = time_ms(lambda: torch.autograd.grad(lib(), (xl, gl, bl), dy),
+                     flush)
+    records = []
+    for entry, ms, plain_ms, lib_ms, backward, err in (
+            (fwd, ms_f, plain_f, lib_f, False, main_err["fwd"]),
+            (bwd, ms_b, plain_b, lib_fb - lib_f, True, main_err["bwd"])):
+        bound_ms, bound_by = _ln_bound(x, backward)
+        say("kernel_time", kernel=entry.name, shape="8192x768 bf16",
+            kernel_ms=ms, plain_ms=plain_ms,
+            plain_with_forward_ms=plain_fb if backward else None,
+            bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib_ms,
+            library="F.layer_norm" + (" backward (forward+backward minus "
+                                      "forward)" if backward else ""))
+        records.append({"name": entry.name, "route": "cuda",
+                        "source": entry.source, "replaces": entry.replaces,
+                        "launches": None, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": lib_ms})
+    return records
+
+
+def _ragged_phase(entries, dev):
+    return [ragged_attention_phase(entries["paged_ragged_attention"], dev)]
+
+
+# kernel names of ops/cuda/registry.py -> the phase that holds them to
+# their plain versions; each phase returns one record per kernel
+PARITY_PHASES = {
+    ("paged_ragged_attention",): _ragged_phase,
+    ("flash_attention_fwd", "flash_attention_bwd"): flash_attention_phase,
+    ("layernorm_fwd", "layernorm_bwd"): layernorm_phase,
+}
 
 
 # ------------------------------------------------------------ phases --
@@ -303,8 +630,7 @@ def exactness_phase(dev):
     for p, out in zip(prompts, outs):
         ref = model.greedy_decode(p, 8)
         if not np.array_equal(out, ref):
-            raise RuntimeError(f"engine {out.tolist()} != dense greedy "
-                               f"{ref.tolist()}")
+            _report_first_flip(model, out, ref, dev)
     want = eng.num_layers * eng.stats["launches"]
     say("exactness", prompts=len(prompts), steps=eng.stats["steps"],
         mixed_steps=eng.stats["mixed_steps"],
@@ -316,6 +642,22 @@ def exactness_phase(dev):
                            "phases")
 
 
+def _report_first_flip(model, out, ref, dev):
+    """Raise with the dense forward's logits of the two tokens at the
+    first position where the engine and dense greedy decoding differ."""
+    import torch
+
+    i = int(np.argmax(out != ref))
+    with torch.no_grad():
+        logits = model.eval()(torch.as_tensor(ref[None, :i], device=dev))
+    row = logits[0, -1].float()
+    raise RuntimeError(
+        f"engine {out.tolist()} != dense greedy {ref.tolist()}; first "
+        f"difference at position {i}: dense logit {float(row[ref[i]])} for "
+        f"token {int(ref[i])}, {float(row[out[i]])} for the engine's "
+        f"{int(out[i])}")
+
+
 def serving_phase(dev):
     import torch
 
@@ -324,7 +666,7 @@ def serving_phase(dev):
     from paddle_tpu_torch.ops.cuda import registry
 
     t0 = time.perf_counter()
-    model = gpt_124m(device=dev, seed=0, dtype=torch.bfloat16)
+    model = gpt_124m(device=dev, seed=0, dtype=torch.bfloat16).eval()
     eng = LLMEngine(model, device=dev, dtype="bfloat16", block_size=16,
                     max_batch=8, token_budget=256,
                     enable_prefix_caching=True)
@@ -376,7 +718,8 @@ def serving_phase(dev):
         if i in sampled:
             continue
         ids = torch.as_tensor(prompts[i], device=dev)[None]
-        logits = model(ids)[0, -1].float()
+        with torch.no_grad():
+            logits = model(ids)[0, -1].float()
         if not torch.isfinite(logits).all():
             raise RuntimeError("dense forward produced non-finite logits")
         top = logits.topk(3).indices.tolist()
@@ -413,7 +756,6 @@ def decode_profile_phase(eng, dev, window=16):
     device time.  Outside the main path: its launches are not counted
     in the ``kernels`` line."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.RandomState(99)
@@ -434,23 +776,171 @@ def decode_profile_phase(eng, dev, window=16):
         for _ in range(window):
             eng.step()
         torch.cuda.synchronize(dev)
-    # device-side entries only (kernels, memcpy, memset): an operator's
-    # own row would count its kernels a second time
+    say("decode_profile", batch=eng.max_batch, steps=window,
+        **_device_profile(prof, window, wall_ms))
+    while eng.has_unfinished():
+        eng.step()
+
+
+def _device_profile(prof, steps, wall_ms):
+    """Device ms per step, its share of the unprofiled wall ms per step,
+    and the device ops that take the most time, from a torch.profiler
+    window of ``steps`` steps.  Only device-side entries (kernels,
+    memcpy, memset) count: an operator's own row would count its
+    kernels a second time."""
+    from torch.autograd import DeviceType
+
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in events)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    say("decode_profile", batch=eng.max_batch, steps=window,
-        wall_ms_per_step=wall_ms,
-        device_ms_per_step=(device_us / 1e3 / window if device_us
-                            else None),
-        device_busy_share=(device_us / 1e3 / window / wall_ms
-                           if device_us else None),
-        top_device_us_per_step={e.key[:60]: e.self_device_time_total
-                                / window for e in top})
-    while eng.has_unfinished():
-        eng.step()
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_ms_per_step": wall_ms,
+            "device_ms_per_step": (device_us / 1e3 / steps if device_us
+                                   else None),
+            "device_busy_share": (device_us / 1e3 / steps / wall_ms
+                                  if device_us else None),
+            "top_device_us_per_step": {e.key[:60]: e.self_device_time_total
+                                       / steps for e in top}}
+
+
+TRAIN_LR = 1e-4
+_TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+                  "layernorm_fwd", "layernorm_bwd")
+
+
+def _expected_train_launches(num_layers, steps):
+    """Per step: one flash forward and one backward per layer; two
+    LayerNorms per block plus ``ln_f``, each forward and backward."""
+    return {"flash_attention_fwd": num_layers * steps,
+            "flash_attention_bwd": num_layers * steps,
+            "layernorm_fwd": (2 * num_layers + 1) * steps,
+            "layernorm_bwd": (2 * num_layers + 1) * steps}
+
+
+def _trainer(model, lr):
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+
+    opt = optimizer.AdamW(learning_rate=lr, parameters=model.parameters(),
+                          grad_clip=optimizer.ClipGradByGlobalNorm(1.0))
+    return TrainStep(model, lambda logits, labels: model.loss(logits, labels),
+                     opt)
+
+
+def train_exactness_phase(dev):
+    """Three TrainSteps of AdamW with global-norm clipping on the card
+    against the same three on the port's CPU path, from the same weights
+    and batch: a 2-layer model at hidden 128 (head_dim 32, C 128, so both
+    kernels launch), seq 64, f32.  The loss must agree to 1e-5 relative
+    at every step; every parameter to 1e-5, except that Adam moves an
+    element whose gradient is near 0 by about +-lr, so where the two
+    gradients differ in sign it may differ by up to 2 * lr * steps, on
+    at most 0.1% of the elements (tests/test_torch_train.py).  Every
+    attention and LayerNorm of every step must launch its kernels."""
+    import torch
+
+    from paddle_tpu_torch.models.gpt import gpt_tiny
+    from paddle_tpu_torch.ops.cuda import registry
+
+    cfg = dict(num_layers=2, hidden_size=128, num_attention_heads=4,
+               max_position_embeddings=64)
+    cpu = gpt_tiny(device="cpu", seed=0, **cfg)
+    card = gpt_tiny(device=dev, seed=1, **cfg)
+    card.set_state_dict({k: v.detach() for k, v in cpu.named_parameters()})
+    rng = np.random.RandomState(5)
+    ids = torch.as_tensor(rng.randint(0, 128, (4, 64)))
+    labels = torch.as_tensor(rng.randint(0, 128, (4, 64)))
+    lr, steps = 1e-3, 3
+    step_cpu, step_card = _trainer(cpu, lr), _trainer(card, lr)
+    ids_d, labels_d = ids.to(dev), labels.to(dev)
+    registry.reset_counts()
+    losses = []
+    for _ in range(steps):
+        losses.append((step_cpu(ids, labels).item(),
+                       step_card(ids_d, labels_d).item()))
+    launches = {k: registry.counts()[k] for k in _TRAIN_KERNELS}
+    want = _expected_train_launches(cfg["num_layers"], steps)
+    cpu_params = dict(cpu.named_parameters())
+    worst, off, total = 0.0, 0, 0
+    for name, p in card.named_parameters():
+        d = (p.detach().cpu() - cpu_params[name].detach()).abs()
+        worst = max(worst, float(d.max()))
+        off += int((d > 1e-5).sum())
+        total += d.numel()
+    loss_rel = max(abs(a - b) / abs(a) for a, b in losses)
+    say("train_exactness", model="2 layers, hidden 128, 4 heads",
+        seq=64, batch=4, dtype="float32", steps=steps,
+        losses_cpu_card=losses, max_loss_rel_err=loss_rel,
+        max_param_abs_err=worst, params_beyond_1e_5=off,
+        params_total=total, kernel_launches=launches,
+        expected_launches=want)
+    if loss_rel > 1e-5 or worst > 2 * lr * steps or off > 1e-3 * total:
+        raise RuntimeError("card training diverged from the CPU path")
+    if launches != want:
+        raise RuntimeError(f"kernel launches {launches} != {want}")
+
+
+def training_phase(dev, warmup=3, steps=10):
+    """GPT-124M trained as ``bench.py`` sets it up: bf16 through
+    ``amp.decorate(level="O2")``, dropout 0, ``AdamW(learning_rate=
+    1e-4)`` plus ``ClipGradByGlobalNorm(1.0)``, one batch of 8 x 1024
+    seeded random ids and labels every step; ``warmup`` steps, then
+    ``steps`` timed ones (the main path: counts are reset just before
+    and read just after), then one step under torch.profiler.  The loss
+    must stay finite and end below where it began, and every attention
+    and LayerNorm of every timed step must launch its kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import gpt_124m
+    from paddle_tpu_torch.ops.cuda import registry
+
+    t0 = time.perf_counter()
+    model = gpt_124m(device=dev, seed=0, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    model = amp.decorate(model, level="O2", dtype="bfloat16")
+    step = _trainer(model, TRAIN_LR)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(2024)
+    batch, seq, vocab = 8, 1024, model.config.vocab_size
+    ids = torch.as_tensor(rng.randint(0, vocab, (batch, seq)), device=dev)
+    labels = torch.as_tensor(rng.randint(0, vocab, (batch, seq)),
+                             device=dev)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [step(ids, labels).item() for _ in range(warmup)]
+    registry.reset_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    timed = [step(ids, labels) for _ in range(steps)]
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {k: registry.counts()[k] for k in _TRAIN_KERNELS}
+    losses += [x.item() for x in timed]
+    peak = torch.cuda.max_memory_allocated(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(ids, labels)
+        torch.cuda.synchronize(dev)
+    ms_per_step = wall / steps * 1e3
+    tokens_per_s = batch * seq * steps / wall
+    want = _expected_train_launches(model.config.num_layers, steps)
+    say("training", model="gpt_124m", dtype="bfloat16 (O2)",
+        optimizer="AdamW(1e-4) + ClipGradByGlobalNorm(1.0)", batch=batch,
+        seq=seq, warmup_steps=warmup, timed_steps=steps, params=n_params,
+        losses=losses, ms_per_step=ms_per_step, tokens_per_s=tokens_per_s,
+        mfu=6.0 * n_params * tokens_per_s / PEAK_FLOPS["torch.bfloat16"],
+        peak_memory_bytes=peak, setup_s=setup_s, kernel_launches=launches,
+        expected_launches=want)
+    say("training_profile", steps=1, **_device_profile(prof, 1,
+                                                       ms_per_step))
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise RuntimeError(f"training loss did not fall: {losses}")
+    if launches != want:
+        raise RuntimeError(f"kernel launches {launches} != {want}")
+    return launches
 
 
 def main():
@@ -465,14 +955,20 @@ def main():
     build_phase()
     from paddle_tpu_torch.ops.cuda import registry
 
+    covered = [k for names in PARITY_PHASES for k in names]
+    missing = sorted(set(registry.KERNELS) - set(covered))
+    if missing:
+        raise RuntimeError(f"kernels {missing} have no parity phase")
     records = []
-    for kname, entry in registry.KERNELS.items():
-        if kname not in PARITY_PHASES:
-            raise RuntimeError(f"kernel {kname} has no parity phase")
-        records.append(PARITY_PHASES[kname](entry, dev))
+    for names, phase in PARITY_PHASES.items():
+        records += phase({k: registry.KERNELS[k] for k in names}, dev)
     exactness_phase(dev)
+    train_exactness_phase(dev)
     launches, eng = serving_phase(dev)
     decode_profile_phase(eng, dev)
+    del eng
+    torch.cuda.empty_cache()
+    launches.update(training_phase(dev))
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if not rec["launches"]:

@@ -1,15 +1,19 @@
-"""GPT causal LM — the flagship model, as the serving engine consumes it.
+"""GPT causal LM — the flagship model, trained and served.
 
 Pre-LN transformer, learned positions, tied LM head.  Parameters keep
 the JAX package's state-dict names and Paddle's ``[in, out]`` Linear
 weight layout (the engine computes ``hh @ W``), so
-``functional_decompose()`` yields exactly the JAX schema and
-``load_stacked`` carries weights across from it as numpy arrays.
+``functional_decompose()`` yields exactly the JAX schema, and weights
+carry across from the JAX model as numpy arrays: ``load_stacked`` takes
+the stacked schema, ``set_state_dict`` the flat state dict by name.
 
-``forward`` is a dense causal forward used as a reference (tests, the
-chip smoke's exactness phase).  Its attention is the plain masked
-composition (einsum, f32 softmax); it becomes the flash-attention
-kernel path with the training slice.
+``forward`` is the training forward: attention goes through
+``F.scaled_dot_product_attention(is_causal=True)`` and every LayerNorm
+through ``F.layer_norm``, which reach the flash-attention and LayerNorm
+kernels on the card; dropout applies in ``train()`` mode where the JAX
+model applies it, drawing from the model's ``torch.Generator``.
+``greedy_decode`` runs the same forward in eval mode without autograd,
+as the reference the paged engine is held to.
 """
 
 import math
@@ -19,13 +23,14 @@ import torch
 from torch import nn
 
 from ..framework.device import resolve_device
-from ..incubate.nn import _layernorm
+from ..nn import functional as F
 
 
 class GPTConfig:
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_attention_heads=12, intermediate_size=None,
-                 max_position_embeddings=1024, initializer_range=0.02,
+                 max_position_embeddings=1024, hidden_dropout_prob=0.1,
+                 attention_probs_dropout_prob=0.1, initializer_range=0.02,
                  layer_norm_epsilon=1e-5):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -33,6 +38,8 @@ class GPTConfig:
         self.num_attention_heads = num_attention_heads
         self.intermediate_size = intermediate_size or 4 * hidden_size
         self.max_position_embeddings = max_position_embeddings
+        self.hidden_dropout_prob = hidden_dropout_prob
+        self.attention_probs_dropout_prob = attention_probs_dropout_prob
         self.initializer_range = initializer_range
         self.layer_norm_epsilon = layer_norm_epsilon
 
@@ -42,14 +49,14 @@ class GPTConfig:
 
 
 def _param(shape, device, dtype, generator, std=None, fill=0.0):
-    """A frozen parameter: ``Normal(0, std)`` from ``generator``, or
+    """A trainable parameter: ``Normal(0, std)`` from ``generator``, or
     ``fill`` when ``std`` is None."""
     p = torch.empty(shape, device=device, dtype=dtype)
     if std is None:
         p.fill_(fill)
     else:
         p.normal_(0.0, std, generator=generator)
-    return nn.Parameter(p, requires_grad=False)
+    return nn.Parameter(p)
 
 
 class Linear(nn.Module):
@@ -61,7 +68,7 @@ class Linear(nn.Module):
         self.bias = _param((dout,), **kw)
 
     def forward(self, x):
-        return x @ self.weight + self.bias
+        return F.linear(x, self.weight, self.bias)
 
 
 class LayerNorm(nn.Module):
@@ -72,7 +79,7 @@ class LayerNorm(nn.Module):
         self.bias = _param((h,), **kw)
 
     def forward(self, x):
-        return _layernorm(x, self.weight, self.bias, self.eps)
+        return F.layer_norm(x, x.shape[-1], self.weight, self.bias, self.eps)
 
 
 class Embedding(nn.Module):
@@ -81,22 +88,20 @@ class Embedding(nn.Module):
         self.weight = _param((n, h), std=std, **kw)
 
     def forward(self, ids):
-        return self.weight[ids]
+        return F.embedding(ids, self.weight)
 
 
-def _dense_attention(q, k, v):
-    """Causal attention on [B, T, N, H]: scores and context accumulate
-    in f32 from the input dtype's values, the softmax runs in f32."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("btnh,bsnh->bnts", q.float(), k.float()) * scale
-    t, s = logits.shape[-2], logits.shape[-1]
-    causal = torch.ones((t, s), dtype=torch.bool,
-                        device=q.device).tril(diagonal=s - t)
-    logits = torch.where(causal, logits, torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bnts,bsnh->btnh", probs.to(q.dtype).float(),
-                       v.float())
-    return out.to(q.dtype)
+class Dropout(nn.Module):
+    """``upscale_in_train`` dropout drawing from the model's generator."""
+
+    def __init__(self, p, generator):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout(x, self.p, training=self.training,
+                         generator=self.generator)
 
 
 class GPTAttention(nn.Module):
@@ -109,12 +114,19 @@ class GPTAttention(nn.Module):
         self.qkv = Linear(h, 3 * h, std, **kw)
         self.proj = Linear(h, h, std / math.sqrt(2 * config.num_layers),
                            **kw)
+        self.dropout_p = config.attention_probs_dropout_prob
+        self.generator = kw["generator"]
+        self.resid_drop = Dropout(config.hidden_dropout_prob, kw["generator"])
 
     def forward(self, x):
         b, t, _ = x.shape
         qkv = self.qkv(x).reshape(b, t, 3, self.num_heads, self.head_dim)
-        out = _dense_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
-        return self.proj(out.reshape(b, t, self.num_heads * self.head_dim))
+        q, k, v = qkv.unbind(dim=2)
+        out = F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, dropout_p=self.dropout_p,
+            training=self.training, generator=self.generator)
+        out = out.reshape(b, t, self.num_heads * self.head_dim)
+        return self.resid_drop(self.proj(out))
 
 
 class GPTMLP(nn.Module):
@@ -125,10 +137,10 @@ class GPTMLP(nn.Module):
         self.fc_in = Linear(h, inter, std, **kw)
         self.fc_out = Linear(inter, h,
                              std / math.sqrt(2 * config.num_layers), **kw)
+        self.drop = Dropout(config.hidden_dropout_prob, kw["generator"])
 
     def forward(self, x):
-        return self.fc_out(nn.functional.gelu(self.fc_in(x),
-                                              approximate="tanh"))
+        return self.drop(self.fc_out(F.gelu(self.fc_in(x), approximate=True)))
 
 
 class GPTBlock(nn.Module):
@@ -153,11 +165,12 @@ class GPTEmbeddings(nn.Module):
                                          config.hidden_size, std, **kw)
         self.position_embeddings = Embedding(
             config.max_position_embeddings, config.hidden_size, std, **kw)
+        self.dropout = Dropout(config.hidden_dropout_prob, kw["generator"])
 
     def forward(self, input_ids):
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
-        return (self.word_embeddings(input_ids)
-                + self.position_embeddings(pos))
+        return self.dropout(self.word_embeddings(input_ids)
+                            + self.position_embeddings(pos))
 
 
 class GPTModel(nn.Module):
@@ -177,12 +190,14 @@ class GPTModel(nn.Module):
 
 
 class GPTForCausalLM(nn.Module):
-    """GPT with a tied LM head; ``forward`` returns logits [B, T, V].
+    """GPT with a tied LM head; ``forward`` returns logits [B, T, V] and
+    ``loss`` is the shifted-label cross entropy.
 
     Weights are drawn from ``Normal(0, initializer_range)`` (the two
     output projections scaled by ``1/sqrt(2 * num_layers)``) out of an
     explicit ``torch.Generator`` seeded with ``seed``, on ``device``
-    (``None``: cuda, raising when CUDA is missing)."""
+    (``None``: cuda, raising when CUDA is missing); dropout draws from
+    the same generator afterwards."""
 
     def __init__(self, config, device=None, seed=0, dtype=torch.float32):
         super().__init__()
@@ -196,21 +211,32 @@ class GPTForCausalLM(nn.Module):
     def device(self):
         return self.gpt.ln_f.weight.device
 
-    @torch.no_grad()
     def forward(self, input_ids):
         hidden = self.gpt(input_ids)
-        return hidden @ self.gpt.embeddings.word_embeddings.weight.T
+        return F.linear(hidden, self.gpt.embeddings.word_embeddings.weight.T)
+
+    def loss(self, logits, labels):
+        """Causal LM loss: logits[:, :-1] vs labels[:, 1:]."""
+        return F.cross_entropy(
+            logits[:, :-1, :].reshape(-1, logits.shape[-1]),
+            labels[:, 1:].reshape(-1))
 
     @torch.no_grad()
     def greedy_decode(self, prompt_ids, max_new_tokens):
         """Greedy decoding by re-running the dense forward over the whole
-        sequence each step (no cache) — the reference the paged engine
-        is held to token for token.  Returns prompt + new as int64."""
+        sequence each step (no cache, eval mode) — the reference the
+        paged engine is held to token for token.  Returns prompt + new
+        as int64."""
         ids = torch.as_tensor(np.asarray(prompt_ids, np.int64),
                               device=self.device)[None]
-        for _ in range(max_new_tokens):
-            nxt = self.forward(ids)[0, -1].argmax()
-            ids = torch.cat([ids, nxt.view(1, 1)], dim=1)
+        was_training = self.training
+        self.eval()
+        try:
+            for _ in range(max_new_tokens):
+                nxt = self.forward(ids)[0, -1].argmax()
+                ids = torch.cat([ids, nxt.view(1, 1)], dim=1)
+        finally:
+            self.train(was_training)
         return ids[0].cpu().numpy()
 
     # ---- the stacked form the serving engine consumes ----
@@ -255,11 +281,30 @@ class GPTForCausalLM(nn.Module):
             for k, v in params["blocks"].items():
                 put(sd[k], v[i])
 
+    @torch.no_grad()
+    def set_state_dict(self, state_dict):
+        """Write a flat state dict (the JAX ``GPTForCausalLM.state_dict()``
+        names, ``gpt.h.<i>.ln_1.weight`` and so on, as numpy arrays or
+        tensors) into the model by name, casting to each parameter's
+        dtype and device.  Raises KeyError unless the names are exactly
+        the model's."""
+        params = dict(self.named_parameters())
+        missing = sorted(set(params) - set(state_dict))
+        unexpected = sorted(set(state_dict) - set(params))
+        if missing or unexpected:
+            raise KeyError(f"state dict names differ: missing {missing}, "
+                           f"unexpected {unexpected}")
+        for name, value in state_dict.items():
+            if not isinstance(value, torch.Tensor):
+                value = torch.from_numpy(np.array(value))
+            params[name].copy_(value)
+
 
 def gpt_tiny(device=None, seed=0, dtype=torch.float32, **kw):
-    """Test config: a few tiny layers."""
+    """Test config: a few tiny layers, no dropout."""
     cfg = dict(vocab_size=128, hidden_size=64, num_layers=4,
-               num_attention_heads=4, max_position_embeddings=64)
+               num_attention_heads=4, max_position_embeddings=64,
+               hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
     cfg.update(kw)
     return GPTForCausalLM(GPTConfig(**cfg), device=device, seed=seed,
                           dtype=dtype)

@@ -9,7 +9,7 @@ here, so the smoke's ``kernels`` line lists every ported kernel.
 
 from dataclasses import dataclass
 
-from . import ragged_attention_kernel
+from . import flash_attention_kernel, layernorm_kernel, ragged_attention_kernel
 
 
 @dataclass(frozen=True)
@@ -20,14 +20,15 @@ class KernelEntry:
     parity: str         # the CPU test holding the plain version to the JAX package
     source: str         # CUDA source, repo-relative
     replaces: str       # the Pallas kernel's entry function, file:line
-    counter: object     # module whose ``launches`` counts kernel launches
+    counter: object     # module whose ``count`` attribute counts launches
+    count: str = "launches"
 
     @property
     def launches(self):
-        return self.counter.launches
+        return getattr(self.counter, self.count)
 
     def reset(self):
-        self.counter.launches = 0
+        setattr(self.counter, self.count, 0)
 
 
 def _ragged_plain(q, k_pages, v_pages, block_tables, row_start, row_qlen,
@@ -52,6 +53,38 @@ KERNELS = {
         source="paddle_tpu_torch/csrc/ragged_attention.cu",
         replaces="paddle_tpu/ops/pallas/ragged_attention_kernel.py:229",
         counter=ragged_attention_kernel),
+    "flash_attention_fwd": KernelEntry(
+        name="flash_attention_fwd",
+        kernel=flash_attention_kernel.flash_attention_fwd_cuda,
+        plain=flash_attention_kernel.flash_fwd_plain,
+        parity="tests/test_torch_flash_attention.py",
+        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        replaces="paddle_tpu/ops/pallas/attention_kernel.py:95",
+        counter=flash_attention_kernel, count="fwd_launches"),
+    "flash_attention_bwd": KernelEntry(
+        name="flash_attention_bwd",
+        kernel=flash_attention_kernel.flash_attention_bwd_cuda,
+        plain=flash_attention_kernel.flash_bwd_plain,
+        parity="tests/test_torch_flash_attention.py",
+        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        replaces="paddle_tpu/ops/pallas/attention_kernel.py:207",
+        counter=flash_attention_kernel, count="bwd_launches"),
+    "layernorm_fwd": KernelEntry(
+        name="layernorm_fwd",
+        kernel=layernorm_kernel.layernorm_fwd_cuda,
+        plain=layernorm_kernel.layernorm_fwd_plain,
+        parity="tests/test_torch_layernorm.py",
+        source="paddle_tpu_torch/csrc/layernorm.cu",
+        replaces="paddle_tpu/ops/pallas/layernorm_kernel.py:73",
+        counter=layernorm_kernel, count="fwd_launches"),
+    "layernorm_bwd": KernelEntry(
+        name="layernorm_bwd",
+        kernel=layernorm_kernel.layernorm_bwd_cuda,
+        plain=layernorm_kernel.layernorm_bwd_plain,
+        parity="tests/test_torch_layernorm.py",
+        source="paddle_tpu_torch/csrc/layernorm.cu",
+        replaces="paddle_tpu/ops/pallas/layernorm_kernel.py:99",
+        counter=layernorm_kernel, count="bwd_launches"),
 }
 
 

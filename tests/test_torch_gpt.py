@@ -106,7 +106,7 @@ def test_dense_forward_matches_jax(carried, batch, seq):
     jm, pm, _ = carried
     ids = np.random.RandomState(seq).randint(0, 128, size=(batch, seq))
     want = jm(paddle.to_tensor(ids.astype(np.int32))).numpy()
-    got = pm(torch.from_numpy(ids)).numpy()
+    got = pm(torch.from_numpy(ids)).detach().numpy()
     assert got.shape == (batch, seq, 128)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
@@ -116,8 +116,30 @@ def test_greedy_decode_extends_by_argmax(carried):
     prompt = [3, 14, 15, 92]
     out = pm.greedy_decode(prompt, 5)
     assert out.dtype == np.int64 and list(out[:4]) == prompt
-    logits = pm(torch.from_numpy(out[None, :-1]))[0]
+    with torch.no_grad():
+        logits = pm(torch.from_numpy(out[None, :-1]))[0]
     np.testing.assert_array_equal(logits[3:].argmax(-1).numpy(), out[4:])
+    assert pm.training
+
+
+def test_jax_state_dict_carries_bitwise_by_name():
+    """The JAX model's flat ``state_dict()`` loads into the port by name
+    (``set_state_dict``), bitwise, and the port's own state dict has
+    exactly the same names."""
+    paddle.seed(1)
+    jm = jax_gpt_tiny(num_layers=2)
+    sd = {k: v.numpy() for k, v in jm.state_dict().items()}
+    pm = gpt_tiny(device="cpu", num_layers=2, seed=7)
+    pm.set_state_dict(sd)
+    got = dict(pm.named_parameters())
+    assert set(got) == set(sd)
+    assert "gpt.h.1.ln_1.weight" in got
+    for name, v in sd.items():
+        assert got[name].dtype == torch.float32
+        np.testing.assert_array_equal(got[name].detach().numpy(), v)
+    with pytest.raises(KeyError, match="missing"):
+        pm.set_state_dict({k: v for k, v in sd.items()
+                           if k != "gpt.ln_f.bias"})
 
 
 def test_default_device_is_cuda(monkeypatch):

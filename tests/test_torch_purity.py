@@ -37,6 +37,11 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import paddle_tpu_torch, paddle_tpu_torch.inference.llm\n"
         "import paddle_tpu_torch.models.gpt\n"
         "import paddle_tpu_torch.ops.cuda.registry\n"
+        "import paddle_tpu_torch.nn.functional, paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.amp, paddle_tpu_torch.jit\n"
+        "import paddle_tpu_torch.ops.attention\n"
+        "import paddle_tpu_torch.ops.cuda.flash_attention_kernel\n"
+        "import paddle_tpu_torch.ops.cuda.layernorm_kernel\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.'))\n"
