@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, decoding and training paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -14,12 +14,12 @@ and the script exits non-zero:
 3. kernels  — every kernel of ``ops/cuda/registry.py`` against its
               plain PyTorch version on the card (f32 and bf16, the CPU
               test cases and full-width shapes, forward and every
-              gradient; ragged padding must be exact zeros, backward
-              reductions bitwise repeatable; flash attention and
-              LayerNorm held to their plain versions computed in f32
-              on the same values, see ``_parity``), then timed
-              (CUDA-graph replay after an L2 flush) against that plain
-              version, against its bound (bytes at 3.35 TB/s or
+              gradient; ragged padding, dead rows and empty decode
+              sequences must be exact zeros, backward reductions bitwise
+              repeatable; every kernel but B1 held to its plain version
+              computed in f32 on the same values, see ``_parity``), then
+              timed (CUDA-graph replay after an L2 flush) against that
+              plain version, against its bound (bytes at 3.35 TB/s or
               operations at the dense peak, whichever is larger) and,
               where one exists, against the one PyTorch call computing
               the same function (a backward that recomputes its forward,
@@ -28,7 +28,12 @@ and the script exits non-zero:
 4. exactness — a gpt_tiny-width 2-layer model in f32: the paged engine's
               greedy output must equal greedy decoding with the dense
               forward token for token, with the kernel launched on every
-              layer of every step;
+              layer of every step; the int8 engine's greedy tokens must
+              be the argmax of the dense forward with the same int8
+              weights and K/V round trip (``quality.engine_logits``),
+              with the int8 kernel on every layer of every step; and
+              FusedMultiTransformer's greedy output must equal both, with
+              the decode kernel on every layer of every decode step;
 5. train exactness — three AdamW TrainSteps of a 2-layer, hidden-128
               model in f32 on the card against the same steps on the
               port's CPU path, with the flash-attention and LayerNorm
@@ -39,21 +44,35 @@ and the script exits non-zero:
               256-token prefix, 64 new tokens each, 2 of them sampled);
               every request must finish by length with 64 tokens and
               the kernel's launch count must equal num_layers x the
-              engine's launches;
-7. profile  — a window of batch-8 decode steps on the same engine,
+              engine's launches; then a window of batch-8 decode steps,
               wall time per step against device time under
               torch.profiler;
-8. training — GPT-124M in O2 bf16 with AdamW and global-norm clipping
+7. int8 serving — the same model and burst with ``quantize="int8"``
+              on the int8 kernel; its resident bytes must be the memory
+              model's weights + pool within 1%, the bf16 engine's
+              weights + 2.5 sequences as ``memory_budget`` must admit at
+              least twice the bf16 batch, ``quality_report`` against the
+              bf16 engine must be finite; then its decode window;
+8. dense decode — FusedMultiTransformer over GPT-124M in bf16 (batch 8,
+              128-token prompts, 64 new tokens) and Llama-160M in f32
+              (batch 8, 32 prompt tokens through ``decode_step`` into a
+              2048-slot cache, then 32 greedy tokens, every logit within
+              rtol 2e-3 / atol 2e-4 of the dense forward), each with the
+              decode kernel on every layer of every decode step, ms per
+              step and the kernel's share of a profiled window;
+9. training — GPT-124M in O2 bf16 with AdamW and global-norm clipping
               on one 8 x 1024 batch: 3 warm-up and 10 timed steps (ms
               per step, tokens/s, MFU, peak memory), one step under
               torch.profiler; the loss must fall and every attention
               and LayerNorm of every timed step launch its kernels.
 
 The launches in the ``kernels`` line are those of each kernel's main
-path: the serving burst for ragged attention, the timed training steps
-for the others.  The second-to-last line is that JSON record; the last
-line is ``{"ok": true, "device": {...}}``.  The script imports only
-torch, numpy and the port.
+path, each run with the counts at 0 just before and read just after:
+the bf16 serving burst for ragged attention, the int8 burst for its
+int8 twin, the FMT and Llama decode runs (summed) for the decode
+kernel, the timed training steps for the others.  The second-to-last
+line is that JSON record; the last line is ``{"ok": true, "device":
+{...}}``.  The script imports only torch, numpy and the port.
 """
 
 import json
@@ -162,12 +181,12 @@ def _full_width_tables(seed, rows=8, pages=64, nb=512):
         .reshape(rows, pages)
 
 
-def _ragged_bound(args):
+def _ragged_bound(q, kp, bt, rs, rq, rp, scale_bytes=0):
     """Least time for this call: each input byte read once (q of live
-    tokens, the K/V pages the rows' contexts cover, tables and
-    descriptors), the output written once, against the FLOPs of
+    tokens, the K/V pages the rows' contexts cover — and, for an int8
+    pool, ``scale_bytes`` per (slot, kv head) of those pages — tables
+    and descriptors), the output written once, against the FLOPs of
     QK^T and PV over each live token's context."""
-    q, kp, _vp, bt, rs, rq, rp = args
     t, nq, d = q.shape
     _, bs, nkv, _ = kp.shape
     isz = q.element_size()
@@ -183,7 +202,8 @@ def _ragged_bound(args):
         ctx = rp[r] + np.arange(1, rq[r] + 1)
         flops += 4.0 * d * nq * float(ctx.sum())
     nbytes = (live * nq * d * isz                       # q
-              + 2 * len(pages) * bs * nkv * d * isz     # K and V pages
+              + 2 * len(pages) * bs * nkv * d * kp.element_size()
+              + 2 * len(pages) * bs * nkv * scale_bytes  # int8 scales
               + 4 * (bt.numel() + 3 * len(rs))          # tables, descriptors
               + t * nq * d * isz)                       # output
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -251,7 +271,8 @@ def ragged_attention_phase(entry, dev):
     for label, args in (("decode_T8", decode), ("mixed_T256", mixed)):
         ms = time_ms(lambda: entry.kernel(*args), flush)
         plain_ms = time_ms(lambda: entry.plain(*args), flush)
-        bound_ms, bound_by = _ragged_bound(args)
+        q, kp, _vp, bt, rs, rq, rp = args
+        bound_ms, bound_by = _ragged_bound(q, kp, bt, rs, rq, rp)
         timings[label] = (ms, plain_ms, bound_ms, bound_by)
         say("kernel_time", kernel=entry.name, shape=label, kernel_ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -569,10 +590,239 @@ def _ragged_phase(entries, dev):
     return [ragged_attention_phase(entries["paged_ragged_attention"], dev)]
 
 
+# ------------------------------------ int8 ragged paged attention --
+def _quantized(args, dtype):
+    """A ragged case over int8 pools: the f32 pools of ``args``
+    quantized per (slot, kv head) as the engine's append quantizes them
+    (int8 [NB, bs, Nkv, D] and f32 scales [NB, Nkv, bs]); q in
+    ``dtype``."""
+    from paddle_tpu_torch.inference.llm.quant import quantize_kv_rows
+
+    q, kp, vp, bt, rs, rq, rp = args
+    kq, ks = quantize_kv_rows(kp)
+    vq, vs = quantize_kv_rows(vp)
+    return (q.to(dtype), kq, vq, ks.transpose(1, 2).contiguous(),
+            vs.transpose(1, 2).contiguous(), bt, rs, rq, rp)
+
+
+# the CPU test battery of the int8 kernel
+# (tests/test_torch_quant_serving.py::QCASES), same layout as _CPU_CASES
+_QUANT_CPU_CASES = [
+    (6, 8, 4, 2, 16, 16, 70, [[5, 2, 0], [4, 1, 3], [0, 3, 5], [2, 2, 2]],
+     [0, 1, 7, 0], [1, 6, 3, 0], [9, 5, 3, 0]),
+    (6, 8, 4, 2, 16, 8, 72, None, list(range(8)), [0] + [1] * 7,
+     [0, 12, 23, 4, 0, 7, 15, 8]),
+    (6, 8, 8, 2, 16, 8, 74, [[1, 4, 2], [3, 0, 5]], [0, 3], [3, 5],
+     [6, 0]),
+    (6, 8, 4, 2, 16, 8, 76, [[3, 1, 0], [3, 1, 5]], [0, 4], [4, 4],
+     [10, 17]),
+    (6, 8, 4, 2, 16, 16, 78, [[3, 1, 4, 0], [2, 5, 0, 1]], [0, 10],
+     [10, 4], [5, 12]),
+]
+
+
+def ragged_quant_phase(entries, dev):
+    """B5 (the int8-pool twin of B1) against its plain version on the
+    card: f32 and bf16 q over genuinely quantized int8 pools, on the CPU
+    test cases and GPT-124M's geometry (12 kv heads, D 64, bs 16: decode
+    T=8 at depth 600-1000 and a mixed T=256 step), with exact zeros for
+    padding and dead rows; the plain version runs in f32 on the same
+    values (``_parity``).  Then timed at the two GPT-124M shapes with bf16
+    q, the engine's serving dtype, against its bytes bound."""
+    import torch
+
+    entry = entries["paged_ragged_attention_quant"]
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def check(label, args):
+        got = entry.kernel(*args)
+        torch.cuda.synchronize()
+        want = entry.plain(args[0].float(), *args[1:])
+        report = {"out": _parity(got, want, 1e-4)}
+        live = torch.zeros(args[0].shape[0], dtype=torch.bool, device=dev)
+        for st, n in zip(args[6].tolist(), args[7].tolist()):
+            live[st:st + n] = True
+        pad_zero = bool((got[~live] == 0).all())
+        _say_parity(entry.name, label, got.dtype, report,
+                    padding_exact_zero=pad_zero)
+        if not (report["out"][3] and pad_zero):
+            raise RuntimeError(f"{entry.name} {label}: {report}, padding "
+                               f"zero {pad_zero}")
+        return report["out"][0]
+
+    for i, (nb, bs, nq, nkv, d, t, seed, bt, rs, rq, rp) in \
+            enumerate(_QUANT_CPU_CASES):
+        base = _ragged_case(dev, f32, nb, bs, nq, nkv, d, t, bt, rs, rq, rp,
+                            seed)
+        for dtype in (f32, bf16):
+            check(f"cpu_case_{i}_{str(dtype)[6:]}", _quantized(base, dtype))
+    # GPT-124M geometry, the B1 phase's cases over quantized pools
+    mixed = _ragged_case(dev, f32, 512, 16, 12, 12, 64, 256,
+                         _full_width_tables(1),
+                         [0, 1, 201, 205, 205, 205, 205, 205],
+                         [1, 200, 4, 0, 0, 0, 0, 0],
+                         [900, 37, 500, 0, 0, 0, 0, 0], seed=2)
+    pos = np.random.RandomState(3).randint(600, 1000, size=8)
+    decode = _ragged_case(dev, f32, 512, 16, 12, 12, 64, 8,
+                          _full_width_tables(4), list(range(8)), [1] * 8,
+                          pos, seed=5)
+    gqa = _ragged_case(dev, f32, 512, 16, 32, 8, 128, 64,
+                       _full_width_tables(6)[:4], [0, 1, 41, 41],
+                       [1, 40, 7, 0], [700, 90, 15, 0], seed=7)
+    main = {}
+    for label, base in (("gpt124m_mixed_T256", mixed),
+                        ("gpt124m_decode_T8", decode), ("gqa4_d128", gqa)):
+        for dtype in (f32, bf16):
+            args = _quantized(base, dtype)
+            err = check(f"{label}_{str(dtype)[6:]}", args)
+            if dtype == bf16:
+                main[label] = (args, err)
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    timings = {}
+    for label in ("gpt124m_decode_T8", "gpt124m_mixed_T256"):
+        args = main[label][0]
+        ms = time_ms(lambda: entry.kernel(*args), flush)
+        plain_ms = time_ms(lambda: entry.plain(*args), flush)
+        q, kq, _vq, _ks, _vs, bt, rs, rq, rp = args
+        bound_ms, bound_by = _ragged_bound(q, kq, bt, rs, rq, rp,
+                                           scale_bytes=4)
+        timings[label] = (ms, plain_ms, bound_ms, bound_by)
+        say("kernel_time", kernel=entry.name, shape=label + " bf16 q, int8 "
+            "pools", kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None,
+            call_ms=call_ms(lambda: entry.kernel(*args)))
+    ms, plain_ms, bound_ms, bound_by = timings["gpt124m_decode_T8"]
+    return [{"name": entry.name, "route": "cuda", "source": entry.source,
+             "replaces": entry.replaces, "launches": None,
+             "max_abs_err": max(main["gpt124m_mixed_T256"][1],
+                                main["gpt124m_decode_T8"][1]),
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by,
+             # no single PyTorch call computes ragged paged attention
+             "library_ms": None}]
+
+
+# ------------------------------------------- dense-cache decode (B6) --
+def _decode_case(dev, dtype, b, nq, nkv, d, s, lengths, seed):
+    import torch
+
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.as_tensor(rng.randn(*shape).astype(np.float32),
+                               device=dev).to(dtype)
+               for shape in ((b, nq, d), (b, s, nkv, d), (b, s, nkv, d)))
+    if lengths is None:
+        lengths = rng.randint(1, s + 1, b)
+    return q, k, v, torch.as_tensor(np.asarray(lengths, np.int32),
+                                    device=dev)
+
+
+def _full_lengths(seed, b, s):
+    """Lengths across 0..S_max for a batch of ``b``: one empty
+    sequence, one full one, the rest drawn."""
+    lens = np.random.RandomState(seed).randint(1, s + 1, b)
+    lens[0], lens[-1] = 0, s
+    return lens
+
+
+def _decode_bound(q, k, lengths):
+    """Least time: the valid prefix of K and V read once, q read and the
+    output written once, against 4*D FLOPs per (query head, valid
+    key)."""
+    b, nq, d = q.shape
+    s, nkv = k.shape[1], k.shape[2]
+    valid = float(np.minimum(np.maximum(lengths.cpu().numpy(), 0), s).sum())
+    isz = q.element_size()
+    nbytes = (2 * valid * nkv * d * k.element_size() + 2 * b * nq * d * isz
+              + 4 * b)
+    flops = 4.0 * d * nq * valid
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(q.dtype)] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def decode_attention_phase(entries, dev):
+    """B6 against its plain version on the card, f32 and bf16: the CPU
+    test cases, GPT-124M's FMT decode shape (B 8, S_max 1024, 12/12
+    heads) and Llama-160M's (B 8, S_max 2048, 12 query heads on 4 kv
+    heads), lengths across 0..S_max with 0 included (exact zeros), and
+    a group of 16 at D 128.  Then timed at the GPT shape in bf16 and the
+    Llama shape in f32 (their decode paths' dtypes) against the bytes
+    bound and ``F.scaled_dot_product_attention`` with a length mask and
+    ``enable_gqa=True`` (a yardstick only)."""
+    import torch
+
+    entry = entries["decode_attention"]
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def check(label, args):
+        got = entry.kernel(*args)
+        torch.cuda.synchronize()
+        q, k, v, lens = args
+        want = entry.plain(q.float(), k.float(), v.float(), lens)
+        report = {"out": _parity(got, want, 1e-4)}
+        empty = lens <= 0
+        zero = bool((got[empty] == 0).all())
+        _say_parity(entry.name, label, got.dtype, report,
+                    empty_rows=int(empty.sum()), empty_rows_exact_zero=zero)
+        if not (report["out"][3] and zero):
+            raise RuntimeError(f"{entry.name} {label}: {report}, empty "
+                               f"rows zero {zero}")
+        return report["out"][0]
+
+    cases = [   # label, (B, Nq, Nkv, D, S_max), lengths, seed
+        ("cpu_ragged_gqa_4_2", (3, 4, 2, 16, 64), None, 0),
+        ("cpu_mha_tiny_lengths", (3, 2, 2, 16, 64), [1, 64, 33], 1),
+        ("cpu_empty_rows", (3, 4, 2, 16, 64), [0, 17, 0], 3),
+        ("cpu_gqa_group_of_three", (4, 6, 2, 32, 40), [40, 1, 0, 23], 4),
+        ("gpt124m_fmt", (8, 12, 12, 64, 1024), _full_lengths(20, 8, 1024),
+         20),
+        ("llama160m", (8, 12, 4, 64, 2048), _full_lengths(21, 8, 2048), 21),
+        ("group16_d128", (2, 16, 1, 128, 300), [300, 129], 22),
+    ]
+    inputs, errs = {}, {}
+    for label, (b, nq, nkv, d, s), lens, seed in cases:
+        for dtype in (f32, bf16):
+            args = _decode_case(dev, dtype, b, nq, nkv, d, s, lens, seed)
+            errs[label, dtype] = check(f"{label}_{str(dtype)[6:]}", args)
+            inputs[label, dtype] = args
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for label, dtype in (("llama160m", f32), ("gpt124m_fmt", bf16)):
+        q, k, v, lens = args = inputs[label, dtype]
+        ms = time_ms(lambda: entry.kernel(*args), flush)
+        plain_ms = time_ms(lambda: entry.plain(*args), flush)
+        bound_ms, bound_by = _decode_bound(q, k, lens)
+        qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        mask = (torch.arange(k.shape[1], device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+        lib_ms = time_ms(sdpa, flush)
+        say("kernel_time", kernel=entry.name, shape=f"{label} "
+            f"{str(dtype)[6:]}, lengths 0..S_max", kernel_ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=lib_ms, library="F.scaled_dot_product_attention "
+            "(length mask, enable_gqa=True)",
+            call_ms=call_ms(lambda: entry.kernel(*args)))
+    # the record: the last shape, FMT's GPT-124M decode in bf16
+    return [{"name": entry.name, "route": "cuda", "source": entry.source,
+             "replaces": entry.replaces, "launches": None,
+             "max_abs_err": errs["gpt124m_fmt", bf16], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": lib_ms}]
+
+
 # kernel names of ops/cuda/registry.py -> the phase that holds them to
 # their plain versions; each phase returns one record per kernel
 PARITY_PHASES = {
     ("paged_ragged_attention",): _ragged_phase,
+    ("paged_ragged_attention_quant",): ragged_quant_phase,
+    ("decode_attention",): decode_attention_phase,
     ("flash_attention_fwd", "flash_attention_bwd"): flash_attention_phase,
     ("layernorm_fwd", "layernorm_bwd"): layernorm_phase,
 }
@@ -612,16 +862,9 @@ def build_phase():
 
 def exactness_phase(dev):
     from paddle_tpu_torch.inference.llm import LLMEngine
-    from paddle_tpu_torch.models.gpt import gpt_tiny
     from paddle_tpu_torch.ops.cuda import registry
 
-    model = gpt_tiny(device=dev, num_layers=2, seed=0,
-                     initializer_range=0.1)
-    rng = np.random.RandomState(11)
-    shared = list(rng.randint(0, 128, 16))
-    prompts = [list(rng.randint(0, 128, 5)),
-               list(rng.randint(0, 128, 23)),      # chunked: > budget
-               shared + [7, 9, 2], shared + [4, 4]]
+    model, prompts = _exactness_model_and_prompts(dev)
     eng = LLMEngine(model, device=dev, block_size=8, max_batch=4,
                     token_budget=16)
     registry.reset_counts()
@@ -642,6 +885,91 @@ def exactness_phase(dev):
                            "phases")
 
 
+def _exactness_model_and_prompts(dev):
+    from paddle_tpu_torch.models.gpt import gpt_tiny
+
+    model = gpt_tiny(device=dev, num_layers=2, seed=0,
+                     initializer_range=0.1)
+    rng = np.random.RandomState(11)
+    shared = list(rng.randint(0, 128, 16))
+    prompts = [list(rng.randint(0, 128, 5)),
+               list(rng.randint(0, 128, 23)),      # chunked: > budget
+               shared + [7, 9, 2], shared + [4, 4]]
+    return model, prompts
+
+
+def int8_exactness_phase(dev):
+    """The int8 engine (int8 weights and K/V) on the exactness phase's
+    model and prompts: at every generated position its greedy token must
+    be the argmax of ``quality.engine_logits`` — the dense forward with
+    the same int8 weights and the same per-(token, head) K/V round trip
+    — so the paged int8 path computes what the int8 model means.  B5
+    must launch on every layer of every step, B1 never."""
+    from paddle_tpu_torch.inference.llm import LLMEngine
+    from paddle_tpu_torch.inference.llm.quality import engine_logits
+    from paddle_tpu_torch.ops.cuda import registry
+
+    model, prompts = _exactness_model_and_prompts(dev)
+    eng = LLMEngine(model, device=dev, block_size=8, max_batch=4,
+                    token_budget=16, quantize="int8")
+    registry.reset_counts()
+    outs = eng.generate(prompts, max_new_tokens=8)
+    launches = registry.counts()
+    for p, out in zip(prompts, outs):
+        logits = engine_logits(eng, out)
+        want = np.argmax(logits[len(p) - 1:-1], axis=-1)
+        got = out[len(p):]
+        if not np.array_equal(got, want):
+            i = int(np.argmax(got != want))
+            row = logits[len(p) - 1 + i]
+            raise RuntimeError(
+                f"int8 engine {got.tolist()} != dense int8 argmax "
+                f"{want.tolist()}; first difference at generated position "
+                f"{i}: dense logit {float(row[want[i]])} for token "
+                f"{int(want[i])}, {float(row[got[i]])} for the engine's "
+                f"{int(got[i])}")
+    want = eng.num_layers * eng.stats["launches"]
+    say("int8_exactness", prompts=len(prompts), steps=eng.stats["steps"],
+        mixed_steps=eng.stats["mixed_steps"], kernel_launches=launches,
+        expected_quant_launches=want)
+    if (launches["paged_ragged_attention_quant"] != want
+            or launches["paged_ragged_attention"]):
+        raise RuntimeError("the int8 run did not go through the int8 kernel "
+                           "on every layer of every step")
+
+
+def fmt_exactness_phase(dev):
+    """FusedMultiTransformer on the exactness phase's f32 model, one
+    prompt at a time: its greedy output must equal the paged engine's and
+    the dense ``greedy_decode``'s token for token, with B6 launched on
+    every layer of every decode step."""
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.inference.llm import LLMEngine
+    from paddle_tpu_torch.ops.cuda import registry
+
+    model, prompts = _exactness_model_and_prompts(dev)
+    fmt = FusedMultiTransformer(model, max_length=64, device=dev)
+    registry.reset_counts()
+    refs = [fmt.generate(np.asarray(p)[None], max_new_tokens=8)[0]
+            for p in prompts]
+    launches = registry.counts()["decode_attention"]
+    want = fmt.num_layers * fmt.decode_steps
+    eng = LLMEngine(model, device=dev, block_size=8, max_batch=4,
+                    token_budget=16)
+    outs = eng.generate(prompts, max_new_tokens=8)
+    for p, ref, out in zip(prompts, refs, outs):
+        dense = model.greedy_decode(p, 8)
+        if not np.array_equal(ref, dense):
+            _report_first_flip(model, ref, dense, dev)
+        if not np.array_equal(out, ref):
+            _report_first_flip(model, out, dense, dev)
+    say("fmt_exactness", prompts=len(prompts),
+        decode_steps=fmt.decode_steps, kernel_launches=launches,
+        expected_launches=want)
+    if launches != want:
+        raise RuntimeError(f"decode kernel launches {launches} != {want}")
+
+
 def _report_first_flip(model, out, ref, dev):
     """Raise with the dense forward's logits of the two tokens at the
     first position where the engine and dense greedy decoding differ."""
@@ -658,19 +986,13 @@ def _report_first_flip(model, out, ref, dev):
         f"{int(out[i])}")
 
 
-def serving_phase(dev):
-    import torch
+_SERVE_ENGINE = dict(dtype="bfloat16", block_size=16, max_batch=8,
+                     token_budget=256, enable_prefix_caching=True)
 
-    from paddle_tpu_torch.inference.llm import LLMEngine
-    from paddle_tpu_torch.models.gpt import gpt_124m
-    from paddle_tpu_torch.ops.cuda import registry
 
-    t0 = time.perf_counter()
-    model = gpt_124m(device=dev, seed=0, dtype=torch.bfloat16).eval()
-    eng = LLMEngine(model, device=dev, dtype="bfloat16", block_size=16,
-                    max_batch=8, token_budget=256,
-                    enable_prefix_caching=True)
-    setup_s = time.perf_counter() - t0
+def _burst_prompts():
+    """The 16-request burst: 32-600 prompt tokens, 8 of them behind one
+    256-token prefix; request index -> seed of the 2 sampled ones."""
     rng = np.random.RandomState(1234)
     vocab = 50257
     prefix = list(rng.randint(0, vocab, 256))
@@ -682,9 +1004,21 @@ def serving_phase(dev):
             prompts.append(prefix + list(rng.randint(0, vocab, n - 256)))
         else:
             prompts.append(list(rng.randint(0, vocab, int(n))))
-    sampled = {3: 101, 10: 202}          # request index -> seed
-    new = 64
+    return prompts, {3: 101, 10: 202}
 
+
+def _serve_burst(eng, dev, kernel, new=64):
+    """The main path of a serving phase: warmup, then the burst; counts
+    are reset just before and read just after.  Every request must
+    finish by length with ``new`` tokens, ``kernel`` must launch on every
+    layer of every engine launch and at least one step must mix prefill
+    chunks with decodes.  Returns (launches, prompts, sampled, outputs
+    by request index, the serving record's numbers)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import registry
+
+    prompts, sampled = _burst_prompts()
     registry.reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     warm = eng.warmup()
@@ -708,13 +1042,44 @@ def serving_phase(dev):
     if bad:
         raise RuntimeError(f"requests {bad} did not emit {new} tokens")
     want = eng.num_layers * eng.stats["launches"]
-    if launches["paged_ragged_attention"] != want:
+    if launches[kernel] != want:
         raise RuntimeError(f"kernel launches {launches} != {want}")
     if eng.stats["mixed_steps"] < 1:
         raise RuntimeError("no step mixed prefill chunks with decodes")
+    ttft = [o.metrics["first_token"] - o.metrics["arrival"]
+            for o in outs.values()]
+    tpot = [(o.metrics["finished"] - o.metrics["first_token"]) / (new - 1)
+            for o in outs.values()]
+    generated = eng.stats["tokens_generated"]
+    record = dict(
+        requests=len(rids), prompt_tokens=int(sum(len(p) for p in prompts)),
+        prefix_hit_tokens=eng.prefix_cache_stats()["prefix_hit_tokens"],
+        generated_tokens=generated, wall_s=wall,
+        tokens_per_s=generated / wall,
+        ttft_p50_ms=float(np.median(ttft)) * 1e3,
+        tpot_p50_ms=float(np.median(tpot)) * 1e3,
+        steps=eng.stats["steps"], mixed_steps=eng.stats["mixed_steps"],
+        engine_launches=eng.stats["launches"], kernel_launches=launches,
+        warmup_ms=warm, peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+    return (launches, prompts, sampled,
+            [outs[r] for r in rids], record)
+
+
+def serving_phase(dev):
+    import torch
+
+    from paddle_tpu_torch.inference.llm import LLMEngine
+    from paddle_tpu_torch.models.gpt import gpt_124m
+
+    t0 = time.perf_counter()
+    model = gpt_124m(device=dev, seed=0, dtype=torch.bfloat16).eval()
+    eng = LLMEngine(model, device=dev, **_SERVE_ENGINE)
+    setup_s = time.perf_counter() - t0
+    launches, prompts, sampled, outs, record = _serve_burst(
+        eng, dev, "paged_ragged_attention")
     # the engine's first token of each greedy request is among the dense
     # bf16 forward's top 3 at the prompt's last position
-    for i, r in enumerate(rids):
+    for i, out in enumerate(outs):
         if i in sampled:
             continue
         ids = torch.as_tensor(prompts[i], device=dev)[None]
@@ -723,31 +1088,95 @@ def serving_phase(dev):
         if not torch.isfinite(logits).all():
             raise RuntimeError("dense forward produced non-finite logits")
         top = logits.topk(3).indices.tolist()
-        if int(outs[r].output_ids[0]) not in top:
+        if int(out.output_ids[0]) not in top:
             raise RuntimeError(f"request {i}: first token "
-                               f"{int(outs[r].output_ids[0])} not in the "
+                               f"{int(out.output_ids[0])} not in the "
                                f"dense top 3 {top}")
-
-    ttft = [o.metrics["first_token"] - o.metrics["arrival"]
-            for o in outs.values()]
-    tpot = [(o.metrics["finished"] - o.metrics["first_token"]) / (new - 1)
-            for o in outs.values()]
-    generated = eng.stats["tokens_generated"]
-    say("serving", model="gpt_124m", dtype="bfloat16", requests=len(rids),
-        prompt_tokens=int(sum(len(p) for p in prompts)),
-        prefix_hit_tokens=eng.prefix_cache_stats()["prefix_hit_tokens"],
-        generated_tokens=generated, wall_s=wall,
-        tokens_per_s=generated / wall,
-        ttft_p50_ms=float(np.median(ttft)) * 1e3,
-        tpot_p50_ms=float(np.median(tpot)) * 1e3,
-        steps=eng.stats["steps"], mixed_steps=eng.stats["mixed_steps"],
-        engine_launches=eng.stats["launches"], kernel_launches=launches,
-        warmup_ms=warm, setup_s=setup_s,
-        peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+    say("serving", model="gpt_124m", dtype="bfloat16", setup_s=setup_s,
+        **record)
     return launches, eng
 
 
-def decode_profile_phase(eng, dev, window=16):
+def int8_serving_phase(dev):
+    """GPT-124M in bf16 with ``quantize="int8"`` (int8 GEMM weights and
+    int8 K/V pools) behind the same engine settings and the same 16
+    requests as ``serving_phase``; B5 must launch on every layer of every
+    engine launch and B1 never.  Beside the burst: the resident bytes
+    (``torch.cuda.memory_allocated`` before the model is built and after
+    the engine is built and the model dropped) must be the memory
+    model's weights + pool within 1%, which no cached dequantized weight
+    would pass; the bf16 engine's weights + 2.5 sequences as
+    ``memory_budget`` must admit at least twice the bf16 engine's batch;
+    ``quality_report`` against the bf16 engine on 4 prompts must be
+    finite; and a decode window is profiled.  Returns the B5 count of
+    the burst."""
+    import gc
+
+    import torch
+
+    from paddle_tpu_torch.inference.llm import LLMEngine
+    from paddle_tpu_torch.inference.llm.quality import quality_report
+    from paddle_tpu_torch.models.gpt import gpt_124m
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = gpt_124m(device=dev, seed=0, dtype=torch.bfloat16).eval()
+    eng = LLMEngine(model, device=dev, quantize="int8", **_SERVE_ENGINE)
+    setup_s = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    resident = torch.cuda.memory_allocated(dev) - base
+    mm = eng.memory_model()
+    model_bytes = mm["weights_bytes"] + mm["kv_pool_bytes"]
+    say("int8_residency", resident_bytes=resident,
+        weights_bytes=mm["weights_bytes"], kv_pool_bytes=mm["kv_pool_bytes"],
+        page_bytes=mm["page_bytes"], rel_err=resident / model_bytes - 1.0)
+    if abs(resident - model_bytes) > 0.01 * model_bytes:
+        raise RuntimeError(f"int8 engine holds {resident} bytes, the memory "
+                           f"model says {model_bytes}")
+
+    launches, _p, _s, _o, record = _serve_burst(
+        eng, dev, "paged_ragged_attention_quant")
+    say("serving", model="gpt_124m", dtype="bfloat16", quantize="int8",
+        setup_s=setup_s, **record)
+    if launches["paged_ragged_attention"]:
+        raise RuntimeError("the int8-KV engine launched the full-precision "
+                           "ragged kernel")
+
+    ref_model = gpt_124m(device=dev, seed=0, dtype=torch.bfloat16).eval()
+    ref = LLMEngine(ref_model, device=dev, **_SERVE_ENGINE)
+    mm16 = ref.memory_model()
+    budget = mm16["weights_bytes"] + int(2.5 * mm16["seq_bytes"])
+    wide = {**_SERVE_ENGINE, "max_batch": 64}
+    base_b = LLMEngine(ref_model, device=dev, memory_budget=budget, **wide)
+    q8_b = LLMEngine(ref_model, device=dev, memory_budget=budget,
+                     quantize="int8", **wide)
+    say("int8_budget", memory_budget=budget,
+        bf16_weights_bytes=mm16["weights_bytes"],
+        bf16_seq_bytes=mm16["seq_bytes"], int8_weights_bytes=mm[
+            "weights_bytes"], int8_seq_bytes=mm["seq_bytes"],
+        bf16_max_batch=base_b.max_batch, int8_max_batch=q8_b.max_batch)
+    if q8_b.max_batch < 2 * base_b.max_batch:
+        raise RuntimeError("the int8 engine's derived max_batch is not twice "
+                           "the bf16 engine's under the same budget")
+    del base_b, q8_b
+
+    rng = np.random.RandomState(4321)
+    qprompts = [list(rng.randint(0, 50257, n)) for n in (48, 96, 160, 256)]
+    rep = quality_report(ref, eng, qprompts, max_new_tokens=16)
+    say("int8_quality", reference="bf16 engine, same weights", **rep)
+    if not all(np.isfinite(v) for v in rep.values()):
+        raise RuntimeError(f"quality report not finite: {rep}")
+    del ref, ref_model
+    decode_profile_phase(eng, dev, engine="int8")
+    return {"paged_ragged_attention_quant":
+            launches["paged_ragged_attention_quant"]}
+
+
+def decode_profile_phase(eng, dev, window=16, engine="bf16"):
     """Where a decode step's time goes at GPT-124M width: 8 requests
     with 128-token prompts are prefilled, then ``window`` decode steps
     run on the host clock and ``window`` more under torch.profiler.
@@ -776,7 +1205,7 @@ def decode_profile_phase(eng, dev, window=16):
         for _ in range(window):
             eng.step()
         torch.cuda.synchronize(dev)
-    say("decode_profile", batch=eng.max_batch, steps=window,
+    say("decode_profile", engine=engine, batch=eng.max_batch, steps=window,
         **_device_profile(prof, window, wall_ms))
     while eng.has_unfinished():
         eng.step()
@@ -795,13 +1224,181 @@ def _device_profile(prof, steps, wall_ms):
               and e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    rows = {}
+    for e in top:      # names cut to 110 characters; equal cuts add up
+        key = e.key[:110]
+        rows[key] = rows.get(key, 0.0) + e.self_device_time_total / steps
     return {"wall_ms_per_step": wall_ms,
             "device_ms_per_step": (device_us / 1e3 / steps if device_us
                                    else None),
             "device_busy_share": (device_us / 1e3 / steps / wall_ms
                                   if device_us else None),
-            "top_device_us_per_step": {e.key[:60]: e.self_device_time_total
-                                       / steps for e in top}}
+            "top_device_us_per_step": rows}
+
+
+def _kernel_share(prof, name):
+    """Device time of the kernels whose name holds ``name``, over all
+    device time, in a torch.profiler window."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in events)
+    mine = sum(e.self_device_time_total for e in events if name in e.key)
+    return mine / total if total else None
+
+
+def fmt_decode_phase(dev, batch=8, prompt=128, new=64, window=16):
+    """FusedMultiTransformer over GPT-124M in bf16 (random weights from
+    seed 0): ``batch`` prompts of ``prompt`` tokens, ``new`` greedy
+    tokens (the main path: counts reset just before and read just
+    after), B6 on every layer of every decode step; ms per decode step
+    (the run less a prefill-only run); then ``window`` decode steps on
+    the host clock and ``window`` under torch.profiler, with B6's share
+    of the device time.  Returns the B6 count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.models.gpt import gpt_124m
+    from paddle_tpu_torch.ops.cuda import registry
+
+    model = gpt_124m(device=dev, seed=0, dtype=torch.bfloat16).eval()
+    fmt = FusedMultiTransformer(model, max_length=prompt + new,
+                                dtype="bfloat16", device=dev)
+    del model
+    ids = np.random.RandomState(77).randint(0, 50257, (batch, prompt))
+    fmt.generate(ids[:, :8], max_new_tokens=4)          # warm-up
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    fmt.generate(ids, max_new_tokens=1)                 # prefill only
+    torch.cuda.synchronize(dev)
+    prefill_s = time.perf_counter() - t0
+    registry.reset_counts()
+    steps0 = fmt.decode_steps
+    t0 = time.perf_counter()
+    out = fmt.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = registry.counts()["decode_attention"]
+    steps = fmt.decode_steps - steps0
+    want = fmt.num_layers * steps
+    if out.shape != (batch, prompt + new) or not (
+            (out >= 0) & (out < 50304)).all():
+        raise RuntimeError(f"FMT output {out.shape} out of range")
+
+    ck, cv = fmt.init_cache(batch)
+    logits = fmt._forward_chunk(torch.as_tensor(ids, device=dev), ck, cv, 0)
+    pos = prompt
+
+    def run(n):
+        nonlocal logits, pos
+        for _ in range(n):
+            tok = logits.argmax(-1)[:, None]
+            logits = fmt._forward_chunk(tok, ck, cv, pos)
+            pos += 1
+
+    run(1)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    run(window)
+    torch.cuda.synchronize(dev)
+    wall_ms = (time.perf_counter() - t0) / window * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(window)
+        torch.cuda.synchronize(dev)
+    say("fmt_decode", model="gpt_124m", dtype="bfloat16", batch=batch,
+        prompt_tokens=prompt, new_tokens=new, wall_s=wall,
+        prefill_s=prefill_s, decode_steps=steps,
+        ms_per_decode_step=(wall - prefill_s) / steps * 1e3,
+        tokens_per_s=batch * new / wall, kernel_launches=launches,
+        expected_launches=want,
+        decode_kernel_device_share=_kernel_share(prof,
+                                                 "decode_attention_kernel"),
+        **_device_profile(prof, window, wall_ms))
+    if launches != want:
+        raise RuntimeError(f"decode kernel launches {launches} != {want}")
+    return launches
+
+
+# the decode-vs-dense tolerance of the JAX package's own Llama test
+# (tests/test_models_zoo.py::test_decode_matches_dense_forward)
+LLAMA_RTOL, LLAMA_ATOL = 2e-3, 2e-4
+
+
+def llama_decode_phase(dev, batch=8, prompt=32, new=32, window=8):
+    """Llama-160M in f32 (random weights from seed 0, GQA 12/4, so B6
+    runs groups of 3): ``prompt`` tokens of each of ``batch`` sequences
+    fed one at a time through ``decode_step`` into ``init_cache(batch,
+    2048)``, then ``new`` greedy tokens (the main path); every decode
+    logit must agree with the dense forward over the same sequence
+    within ``LLAMA_ATOL + LLAMA_RTOL * |dense|``, and B6 must launch on
+    every layer of every step.  Then ``window`` more steps on the host
+    clock and ``window`` under torch.profiler.  Returns the B6 count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.models.llama import llama_160m
+    from paddle_tpu_torch.ops.cuda import registry
+
+    model = llama_160m(device=dev, seed=0).eval()
+    ids = torch.as_tensor(np.random.RandomState(88).randint(
+        0, 32000, (batch, prompt)), device=dev)
+    model.decode_step(ids[:, :1], model.init_cache(batch, 2048))  # warm-up
+    cache = model.init_cache(batch, 2048)
+    torch.cuda.synchronize(dev)
+    registry.reset_counts()
+    t0 = time.perf_counter()
+    logits, toks = [], []
+    for t in range(prompt):
+        lg, cache = model.decode_step(ids[:, t:t + 1], cache)
+        logits.append(lg)
+    for _ in range(new):
+        toks.append(logits[-1].argmax(-1))
+        lg, cache = model.decode_step(toks[-1][:, None], cache)
+        logits.append(lg)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = registry.counts()["decode_attention"]
+    steps = prompt + new
+    want = model.config.num_layers * steps
+
+    seq = torch.cat([ids, torch.stack(toks, dim=1)], dim=1)
+    with torch.no_grad():
+        dense = model(seq)
+    step = torch.stack(logits, dim=1)
+    err = (step - dense).abs()
+    over = float((err / (LLAMA_ATOL + LLAMA_RTOL * dense.abs())).max())
+
+    def run(n):
+        for _ in range(n):
+            model.decode_step(toks[-1][:, None], cache)
+
+    t1 = time.perf_counter()
+    run(window)
+    torch.cuda.synchronize(dev)
+    wall_ms = (time.perf_counter() - t1) / window * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(window)
+        torch.cuda.synchronize(dev)
+    say("llama_decode", model="llama_160m", dtype="float32", batch=batch,
+        prompt_tokens=prompt, new_tokens=new, cache_len=2048,
+        decode_steps=steps, ms_per_decode_step=wall / steps * 1e3,
+        max_abs_err_vs_dense=float(err.max()),
+        err_over_limit_vs_dense=over, rtol=LLAMA_RTOL, atol=LLAMA_ATOL,
+        kernel_launches=launches, expected_launches=want,
+        decode_kernel_device_share=_kernel_share(prof,
+                                                 "decode_attention_kernel"),
+        **_device_profile(prof, window, wall_ms))
+    if not (over <= 1.0 and bool(torch.isfinite(step).all())):
+        raise RuntimeError(f"Llama decode logits off the dense forward: "
+                           f"err/limit {over}")
+    if launches != want:
+        raise RuntimeError(f"decode kernel launches {launches} != {want}")
+    return launches
 
 
 TRAIN_LR = 1e-4
@@ -963,10 +1560,19 @@ def main():
     for names, phase in PARITY_PHASES.items():
         records += phase({k: registry.KERNELS[k] for k in names}, dev)
     exactness_phase(dev)
+    int8_exactness_phase(dev)
+    fmt_exactness_phase(dev)
     train_exactness_phase(dev)
     launches, eng = serving_phase(dev)
     decode_profile_phase(eng, dev)
     del eng
+    torch.cuda.empty_cache()
+    launches.update(int8_serving_phase(dev))
+    torch.cuda.empty_cache()
+    # B6's main path is both dense-cache decoders: each is driven with
+    # the counts at 0 and read just after; the line sums them
+    launches["decode_attention"] = (fmt_decode_phase(dev)
+                                    + llama_decode_phase(dev))
     torch.cuda.empty_cache()
     launches.update(training_phase(dev))
     for rec in records:

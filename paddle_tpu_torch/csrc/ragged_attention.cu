@@ -1,8 +1,9 @@
 // Ragged paged causal attention for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel
+// Replaces the Pallas TPU kernels
 //   paddle_tpu/ops/pallas/ragged_attention_kernel.py ::
-//   paged_ragged_attention_pallas (body _ragged_kernel, quant=False).
+//   paged_ragged_attention_pallas (body _ragged_kernel, quant=False) and
+//   paged_ragged_attention_quant_pallas (the same body, quant=True).
 //
 // What it computes.  q [T, Nq, D] holds the step's query tokens packed
 // back to back; the K/V pool is [NB, bs, Nkv, D].  Row r owns tokens
@@ -34,13 +35,26 @@
 // row is loaded once per block for all of them.  Making it fast (TMA
 // page loads, wgmma for long prefill chunks) is later work.
 //
+// Int8 pool (paged_ragged_attention_quant).  The pools hold int8 slots
+// and k_scales / v_scales [NB, Nkv, bs] f32 hold one scale per (page,
+// kv head, slot) -- transposed against the pages' [NB, bs, Nkv, D].  The
+// kernel is the same template with an int8 pool type: each staged K/V
+// row is loaded as 8 int8 values at a time (8-byte loads, so D % 8 is
+// still the rule) and becomes f32 q8 * scale[page, head, slot] on its
+// way into shared memory.  No dequantized pool is ever written; at
+// decode the bound is 1 byte per pool element plus 4 per (slot, head).
+//
 // Needs: Nq % Nkv == 0, G <= kRows, D % 8 == 0 and D <= kMaxD (16-byte
-// loads), 16-byte aligned q / k_pages / v_pages, any T >= 1 and any
-// block_size >= 1.  Inputs f32 or bf16, accumulation f32.
+// loads of f32 / bf16 rows, 8-byte loads of int8 rows), 16-byte aligned
+// q / k_pages / v_pages (8-byte for int8 pools), any T >= 1 and any
+// block_size >= 1.  q f32 or bf16; pools q's type or int8; accumulation
+// f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -72,6 +86,15 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
   }
 }
 
+// eight int8 slots of one row, dequantized by the row's scale
+__device__ __forceinline__ void load8(const int8_t* src, float scale,
+                                      float* dst) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) dst[i] = static_cast<float>(b[i]) * scale;
+}
+
 __device__ __forceinline__ void zero8(float* dst) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) dst[i] = 0.f;
@@ -94,10 +117,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
+// T: q and output type.  KV: pool type, T itself or int8_t; with int8
+// the scale pools are read, otherwise they are null and never touched.
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kWarps * 32)
-ragged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                        const T* __restrict__ v_pages,
+ragged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
+                        const KV* __restrict__ v_pages,
+                        const float* __restrict__ k_scales,
+                        const float* __restrict__ v_scales,
                         const int* __restrict__ block_tables,
                         const int* __restrict__ row_start,
                         const int* __restrict__ row_qlen,
@@ -153,11 +180,18 @@ ragged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       const int dv = (e % vecs) * 8;
       if (i < nk) {
         const int pos = k0 + i;
-        const int64_t slot =
-            (int64_t)table[pos / block_size] * block_size + pos % block_size;
+        const int64_t page = table[pos / block_size];
+        const int64_t slot = page * block_size + pos % block_size;
         const int64_t off = (slot * num_kv_heads + j) * D + dv;
-        load8(k_pages + off, &k_s[i][dv]);
-        load8(v_pages + off, &v_s[i][dv]);
+        if constexpr (std::is_same<KV, int8_t>::value) {
+          const int64_t sc = (page * num_kv_heads + j) * block_size +
+                             pos % block_size;
+          load8(k_pages + off, k_scales[sc], &k_s[i][dv]);
+          load8(v_pages + off, v_scales[sc], &v_s[i][dv]);
+        } else {
+          load8(k_pages + off, &k_s[i][dv]);
+          load8(v_pages + off, &v_s[i][dv]);
+        }
       } else {
         zero8(&k_s[i][dv]);
         zero8(&v_s[i][dv]);
@@ -213,16 +247,13 @@ ragged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16.  Launches on ``stream`` and returns
-// cudaGetLastError() (0 on success); never synchronises.
-extern "C" int paged_ragged_attention(
-    const void* q, const void* k_pages, const void* v_pages,
-    const void* block_tables, const void* row_start, const void* row_qlen,
-    const void* row_pos0, void* out, int dtype, int num_tokens, int num_rows,
-    int pages_per_row, int num_q_heads, int num_kv_heads, int head_dim,
-    int block_size, void* stream) {
+template <typename T, typename KV>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const void* k_scales, const void* v_scales,
+           const void* block_tables, const void* row_start,
+           const void* row_qlen, const void* row_pos0, void* out,
+           int num_tokens, int num_rows, int pages_per_row, int num_q_heads,
+           int num_kv_heads, int head_dim, int block_size, void* stream) {
   const int group = num_q_heads / num_kv_heads;
   if (num_tokens < 1 || num_rows < 1 || group < 1 || group > kRows ||
       num_q_heads % num_kv_heads != 0 || head_dim % 8 != 0 ||
@@ -232,26 +263,65 @@ extern "C" int paged_ragged_attention(
   const dim3 grid((num_tokens + tile - 1) / tile, num_rows, num_kv_heads);
   const dim3 block(kWarps * 32);
   const float scale = 1.0f / sqrtf((float)head_dim);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* rs = static_cast<const int*>(row_start);
-  const int* rq = static_cast<const int*>(row_qlen);
-  const int* rp = static_cast<const int*>(row_pos0);
-  if (dtype == 0) {
-    ragged_attention_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k_pages),
-        static_cast<const float*>(v_pages), bt, rs, rq, rp,
-        static_cast<float*>(out), num_q_heads, num_kv_heads, head_dim,
-        block_size, pages_per_row, tile, scale);
-  } else if (dtype == 1) {
-    ragged_attention_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k_pages),
-        static_cast<const __nv_bfloat16*>(v_pages), bt, rs, rq, rp,
-        static_cast<__nv_bfloat16*>(out), num_q_heads, num_kv_heads,
-        head_dim, block_size, pages_per_row, tile, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  ragged_attention_kernel<T, KV>
+      <<<grid, block, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(q), static_cast<const KV*>(k_pages),
+          static_cast<const KV*>(v_pages),
+          static_cast<const float*>(k_scales),
+          static_cast<const float*>(v_scales),
+          static_cast<const int*>(block_tables),
+          static_cast<const int*>(row_start),
+          static_cast<const int*>(row_qlen),
+          static_cast<const int*>(row_pos0), static_cast<T*>(out),
+          num_q_heads, num_kv_heads, head_dim, block_size, pages_per_row,
+          tile, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (q, pools and output).  Launches on
+// ``stream`` and returns cudaGetLastError() (0 on success); never
+// synchronises.
+extern "C" int paged_ragged_attention(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* block_tables, const void* row_start, const void* row_qlen,
+    const void* row_pos0, void* out, int dtype, int num_tokens, int num_rows,
+    int pages_per_row, int num_q_heads, int num_kv_heads, int head_dim,
+    int block_size, void* stream) {
+  if (dtype == 0)
+    return launch<float, float>(q, k_pages, v_pages, nullptr, nullptr,
+                                block_tables, row_start, row_qlen, row_pos0,
+                                out, num_tokens, num_rows, pages_per_row,
+                                num_q_heads, num_kv_heads, head_dim,
+                                block_size, stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, block_tables, row_start,
+        row_qlen, row_pos0, out, num_tokens, num_rows, pages_per_row,
+        num_q_heads, num_kv_heads, head_dim, block_size, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int8 pool: k_pages / v_pages int8 [NB, bs, Nkv, D], k_scales /
+// v_scales f32 [NB, Nkv, bs]; dtype as above for q and the output.
+extern "C" int paged_ragged_attention_quant(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scales, const void* v_scales, const void* block_tables,
+    const void* row_start, const void* row_qlen, const void* row_pos0,
+    void* out, int dtype, int num_tokens, int num_rows, int pages_per_row,
+    int num_q_heads, int num_kv_heads, int head_dim, int block_size,
+    void* stream) {
+  if (dtype == 0)
+    return launch<float, int8_t>(q, k_pages, v_pages, k_scales, v_scales,
+                                 block_tables, row_start, row_qlen, row_pos0,
+                                 out, num_tokens, num_rows, pages_per_row,
+                                 num_q_heads, num_kv_heads, head_dim,
+                                 block_size, stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, int8_t>(
+        q, k_pages, v_pages, k_scales, v_scales, block_tables, row_start,
+        row_qlen, row_pos0, out, num_tokens, num_rows, pages_per_row,
+        num_q_heads, num_kv_heads, head_dim, block_size, stream);
+  return (int)cudaErrorInvalidValue;
 }

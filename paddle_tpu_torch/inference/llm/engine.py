@@ -17,6 +17,11 @@ Prefix caching rides on the block manager: every page a sequence
 completes is registered under its prefix-chain hash, and admission
 adopts matching pages at zero compute.
 
+With an int8 KV cache (``quantize=``) the pools are int8 with f32
+scale pools beside them: each layer quantizes the step's live K/V rows
+per (token, head) as it writes them, and attention runs the int8 twin
+of the kernel, which dequantizes at the load.
+
 The pools are updated in place — the port's counterpart of the JAX
 engine's buffer donation.  The only host sync of a step is the pull of
 the step's argmax vector (plus the logits rows of requests that sample
@@ -32,11 +37,27 @@ import time
 import numpy as np
 import torch
 
+from ...framework.cost import (
+    derive_max_batch,
+    engine_memory_model,
+    page_bytes,
+    params_bytes,
+    parse_bytes,
+)
 from ...framework.device import resolve_device
 from ...incubate.nn import _layernorm
 from .block_manager import BlockManager
 from .faults import FinishReason
-from .paged_attention import paged_ragged_attention
+from .paged_attention import (
+    paged_ragged_attention,
+    paged_ragged_attention_quant,
+)
+from .quant import (
+    ServingQuantConfig,
+    quantize_block_weights,
+    quantize_kv_rows,
+    scale_key,
+)
 from .sampling import (
     apply_logits_pipeline,
     neutral_row_params,
@@ -51,7 +72,6 @@ _LATER_ENGINE = {
     "tensor_parallel": "the tensor-parallel serving slice",
     "mesh": "the tensor-parallel serving slice",
     "speculative": "the serving-breadth slice (speculative decoding)",
-    "quantize": "the serving-breadth slice (int8 serving)",
     "lora": "the serving-breadth slice (multi-LoRA)",
     "faults": _LIFECYCLE,
     "retry": _LIFECYCLE,
@@ -60,7 +80,6 @@ _LATER_ENGINE = {
     "record_step_gauges": _LIFECYCLE,
     "kv_tier": "the serving-breadth slice (hierarchical KV)",
     "lookahead": "the serving-breadth slice (async lookahead)",
-    "memory_budget": "the tooling slice (memory model)",
     "clock": "the serving-breadth slice (simulator)",
     "detokenizer": "the serving-breadth slice (stop strings)",
 }
@@ -132,18 +151,33 @@ class LLMEngine:
     (default) or bfloat16 for the params, activations and pools.
     ``seed=`` seeds the engine sampling stream (temperature > 0); a
     request's own ``seed=`` gives it an independent stream.
+
+    ``quantize="int8"`` (or a dict / ServingQuantConfig) turns on int8
+    serving: the four block GEMM weights are stored int8 with
+    per-output-channel scales and dequantize at the operand load, and
+    the paged K/V pool stores int8 slots with per-(page, head, slot)
+    scales that the int8 ragged attention kernel dequantizes as it
+    loads them.  ``{"weights": True, "kv_cache": False}`` keeps the
+    float pools (and the full-precision kernel); ``{"weights": False,
+    "kv_cache": True}`` keeps float weights.  ``memory_budget=`` (bytes
+    or '16GiB'-style) derives the admissible ``max_batch`` from the
+    memory model (:meth:`memory_model`) and clamps the requested one.
     """
 
     def __init__(self, model, *, block_size=16, num_blocks=None,
                  max_model_len=None, max_batch=8, dtype=None,
                  enable_prefix_caching=True, token_budget=64, seed=None,
-                 device=None, **later):
+                 memory_budget=None, quantize=None, device=None, **later):
         _reject_later(later, _LATER_ENGINE, "LLMEngine")
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be float32 or bfloat16, "
                              f"got {dtype!r}")
         self.device = resolve_device(device)
         self.dtype = _DTYPES[dtype]
+        # int8 serving: weight-only int8 GEMM and/or the int8 KV pool
+        self.quant = ServingQuantConfig.resolve(quantize)
+        self._w_quant = bool(self.quant and self.quant.weights)
+        self._kv_quant = bool(self.quant and self.quant.kv_cache)
         d = model.functional_decompose()
         cfg = model.config
         self.num_layers = d["num_layers"]
@@ -157,6 +191,31 @@ class LLMEngine:
                                      or cfg.max_position_embeddings,
                                      cfg.max_position_embeddings))
         self.max_pages = -(-self.max_model_len // self.block_size)
+
+        def cast(x):
+            x = x.detach().to(self.device)
+            return x.to(self.dtype) if x.is_floating_point() else x
+
+        params = {g: {k: cast(v) for k, v in sub.items()}
+                  for g, sub in d["params"].items()}
+        if self._w_quant:
+            # int8 storage before the budget math below, so the
+            # admissible batch prices 1 byte/param (+ the f32 scales)
+            params["blocks"] = quantize_block_weights(params["blocks"])
+        self.params = params
+
+        # pages + weights bound max_batch: under a declared budget the
+        # admissible batch is derived from the memory model first, and
+        # the defaulted page pool is sized for that batch
+        self.memory_budget = parse_bytes(memory_budget)
+        weights_bytes = params_bytes(self.params)
+        self.page_bytes = page_bytes(self.num_layers, self.block_size,
+                                     self.num_heads, self.head_dim,
+                                     self.dtype.itemsize, self._kv_quant)
+        if self.memory_budget is not None:
+            admissible = derive_max_batch(self.memory_budget, weights_bytes,
+                                          self.max_pages * self.page_bytes)
+            self.max_batch = min(self.max_batch, admissible)
         if num_blocks is None:
             # default: the full batch at full length fits -> no preemption
             num_blocks = self.max_batch * self.max_pages
@@ -165,6 +224,14 @@ class LLMEngine:
                 f"num_blocks {num_blocks} cannot hold one max_model_len "
                 f"sequence ({self.max_pages} pages)")
         self.num_blocks = int(num_blocks)
+        if self.memory_budget is not None and (
+                weights_bytes + self.num_blocks * self.page_bytes
+                > self.memory_budget):
+            raise ValueError(
+                f"num_blocks {self.num_blocks} puts the paged pool "
+                f"({self.num_blocks * self.page_bytes} bytes) plus weights "
+                f"({weights_bytes} bytes) over memory_budget "
+                f"{self.memory_budget}")
         # one decode token per running sequence must fit in the budget
         self.token_budget = max(int(token_budget), self.max_batch)
         self.block_manager = BlockManager(
@@ -174,21 +241,25 @@ class LLMEngine:
                                    max_batch=self.max_batch,
                                    token_budget=self.token_budget)
 
-        def cast(x):
-            x = x.detach().to(self.device)
-            return x.to(self.dtype) if x.is_floating_point() else x
-
-        self.params = {g: {k: cast(v) for k, v in sub.items()}
-                       for g, sub in d["params"].items()}
         blocks = self.params["blocks"]
         self._layers = [{k: v[i] for k, v in blocks.items()}
                         for i in range(self.num_layers)]
         cache_shape = (self.num_layers, self.num_blocks, self.block_size,
                        self.num_heads, self.head_dim)
-        self._kc = torch.zeros(cache_shape, dtype=self.dtype,
+        kv_dtype = torch.int8 if self._kv_quant else self.dtype
+        self._kc = torch.zeros(cache_shape, dtype=kv_dtype,
                                device=self.device)
-        self._vc = torch.zeros(cache_shape, dtype=self.dtype,
+        self._vc = torch.zeros(cache_shape, dtype=kv_dtype,
                                device=self.device)
+        # per-(layer, page, head, slot) dequant scales of the int8 pool
+        self._ks = self._vs = None
+        if self._kv_quant:
+            scale_shape = (self.num_layers, self.num_blocks, self.num_heads,
+                           self.block_size)
+            self._ks = torch.zeros(scale_shape, dtype=torch.float32,
+                                   device=self.device)
+            self._vs = torch.zeros(scale_shape, dtype=torch.float32,
+                                   device=self.device)
 
         self._requests = {}
         self._next_id = 0
@@ -199,6 +270,12 @@ class LLMEngine:
         self.stats = {"steps": 0, "prefill_steps": 0, "decode_steps": 0,
                       "chunk_launches": 0, "tokens_generated": 0,
                       "mixed_steps": 0, "launches": 0}
+
+    def memory_model(self, memory_budget=None):
+        """Weights, pages and pool bytes, and the admissible batch under
+        a budget (this engine's own or an override); see
+        :func:`paddle_tpu_torch.framework.cost.engine_memory_model`."""
+        return engine_memory_model(self, memory_budget=memory_budget)
 
     # ----------------------------------------------------------- requests --
     def add_request(self, prompt_ids, max_new_tokens=16, eos_token_id=None,
@@ -294,13 +371,15 @@ class LLMEngine:
         tables = desc[3 * rmax:].view(rmax, self.max_pages)
         # the pools are written in place: the port's counterpart of the
         # JAX engine donating them to the step
-        kc, vc = self._kc, self._vc
+        pools = [p for p in (self._kc, self._vc, self._ks, self._vs)
+                 if p is not None]
         if pk["cows"]:
-            # copy-on-write page payloads before this step's writes land
+            # copy-on-write page payloads (and their scales) before this
+            # step's writes land
             cow = torch.as_tensor(np.asarray(pk["cows"], np.int64).T,
                                   device=self.device)
-            kc[:, cow[1]] = kc[:, cow[0]]
-            vc[:, cow[1]] = vc[:, cow[0]]
+            for pool in pools:
+                pool[:, cow[1]] = pool[:, cow[0]]
 
         nb, bs, nh, hd = (self.num_blocks, self.block_size, self.num_heads,
                           self.head_dim)
@@ -312,23 +391,45 @@ class LLMEngine:
         slots = (tables[rows_l[:total], p_safe[:total] // bs].long() * bs
                  + p_safe[:total] % bs)
         ctx = (p_safe + (positions >= 0)).to(torch.int32)
+        if self._kv_quant:
+            # scale index of (slot, head): page * (Nkv * bs) + head * bs
+            # + offset, in the [NB, Nkv, bs] scale layout
+            sidx = ((slots // bs)[:, None] * (nh * bs)
+                    + torch.arange(nh, device=self.device)[None, :] * bs
+                    + (slots % bs)[:, None])
+        wmat = self._wmat
         for i, p_l in enumerate(self._layers):
             hh = _layernorm(x, p_l["ln_1.weight"], p_l["ln_1.bias"],
                             self.eps)
-            qkv = (hh @ p_l["attn.qkv.weight"]
+            qkv = (hh @ wmat(p_l, "attn.qkv.weight")
                    + p_l["attn.qkv.bias"]).view(tb, 3, nh, hd)
-            kc[i].view(nb * bs, nh, hd)[slots] = qkv[:total, 1]
-            vc[i].view(nb * bs, nh, hd)[slots] = qkv[:total, 2]
-            out = paged_ragged_attention(qkv[:, 0].contiguous(), kc[i],
-                                         vc[i], tables, ctx, rows,
-                                         row_start, row_qlen, row_pos0)
+            q = qkv[:, 0].contiguous()
+            if self._kv_quant:
+                # quantize at append: only the step's live tokens
+                for pool, scales, val in (
+                        (self._kc, self._ks, qkv[:total, 1]),
+                        (self._vc, self._vs, qkv[:total, 2])):
+                    q8, s = quantize_kv_rows(val)
+                    pool[i].view(nb * bs, nh, hd)[slots] = q8
+                    scales[i].view(-1)[sidx] = s
+                out = paged_ragged_attention_quant(
+                    q, self._kc[i], self._vc[i], self._ks[i], self._vs[i],
+                    tables, ctx, rows, row_start, row_qlen, row_pos0)
+            else:
+                self._kc[i].view(nb * bs, nh, hd)[slots] = qkv[:total, 1]
+                self._vc[i].view(nb * bs, nh, hd)[slots] = qkv[:total, 2]
+                out = paged_ragged_attention(q, self._kc[i], self._vc[i],
+                                             tables, ctx, rows, row_start,
+                                             row_qlen, row_pos0)
             out = out.to(x.dtype).reshape(tb, nh * hd)
-            x = x + out @ p_l["attn.proj.weight"] + p_l["attn.proj.bias"]
+            x = (x + out @ wmat(p_l, "attn.proj.weight")
+                 + p_l["attn.proj.bias"])
             h2 = _layernorm(x, p_l["ln_2.weight"], p_l["ln_2.bias"],
                             self.eps)
-            pre = h2 @ p_l["mlp.fc_in.weight"] + p_l["mlp.fc_in.bias"]
+            pre = h2 @ wmat(p_l, "mlp.fc_in.weight") + p_l["mlp.fc_in.bias"]
             ff = torch.nn.functional.gelu(pre, approximate="tanh")
-            x = x + ff @ p_l["mlp.fc_out.weight"] + p_l["mlp.fc_out.bias"]
+            x = (x + ff @ wmat(p_l, "mlp.fc_out.weight")
+                 + p_l["mlp.fc_out.bias"])
         x = _layernorm(x, self.params["head"]["weight"],
                        self.params["head"]["bias"], self.eps)
         logits = x @ emb["word_embeddings.weight"].T
@@ -341,6 +442,16 @@ class LLMEngine:
                 self._to_device(bias), self._to_device(counts))
         self.stats["launches"] += 1
         return logits.argmax(-1), logits
+
+    def _wmat(self, p_l, key):
+        """A block GEMM's weight operand.  An int8 leaf dequantizes at the
+        operand load in the activation dtype (``w8 * scale``, as the JAX
+        engine's ``wmat``); the product is a transient of this step, and
+        the int8 leaf stays the only resident copy."""
+        w = p_l[key]
+        if self._w_quant:
+            return w.to(self.dtype) * p_l[scale_key(key)].to(self.dtype)
+        return w
 
     def warmup(self):
         """Run every token bucket once with dead rows (no page is

@@ -17,6 +17,12 @@ Two implementations with one semantics:
   (f32 softmax, -1e30 mask, 1/sqrt(D) inside, exact zeros for tokens
   outside every row).
 
+The int8-pool twin, :func:`paged_ragged_attention_quant`, takes int8
+pools plus one f32 scale per (page, kv head, slot) and dispatches the
+same way: the int8 kernel for CUDA tensors, and for CPU tensors
+:func:`paged_ragged_attention_quant_plain`, which gathers each token's
+pages and scale rows, dequantizes in f32 and runs the same chain.
+
 There is no flag and no shape-based fallback: the CUDA kernel takes any
 token count and page size, and raises on what it cannot take.
 """
@@ -63,6 +69,33 @@ def _ragged_masked_chain(q, k, v, ctx):
     return out.reshape(t, nq, d).to(q.dtype)
 
 
+def paged_ragged_attention_quant_plain(q, k_pages, v_pages, k_scales,
+                                       v_scales, block_tables, ctx, rows):
+    """Plain PyTorch ragged attention over an int8 pool, per-token form.
+
+    ``k_pages``/``v_pages`` [NB, bs, Nkv, D] int8 and
+    ``k_scales``/``v_scales`` [NB, Nkv, bs] float32 — one symmetric
+    dequant scale per (page, kv head, slot), as the engine's quantized
+    append writes them.  Gathers each token's pages and scale rows,
+    dequantizes in f32 (``int8 * scale``, the product the kernel forms
+    per loaded slot), then runs the same masked chain as
+    :func:`paged_ragged_attention_plain`."""
+    r, num_pages = block_tables.shape
+    _, bs, nkv, d = k_pages.shape
+    s_max = num_pages * bs
+    bt = block_tables.long()
+    rows = rows.long()
+
+    def deq(pages, scales):
+        pg = pages[bt].float()                      # [R, P, bs, Nkv, D]
+        sc = scales[bt].float()                     # [R, P, Nkv, bs]
+        pg = pg * sc.transpose(2, 3)[..., None]
+        return pg.reshape(r, s_max, nkv, d)[rows]
+
+    return _ragged_masked_chain(q, deq(k_pages, k_scales),
+                                deq(v_pages, v_scales), ctx)
+
+
 def token_descriptors(num_tokens, row_start, row_qlen, row_pos0):
     """Per-row descriptors -> the per-token ``(ctx, rows)`` form, on the
     descriptors' device and without a host round trip: token ``i`` of
@@ -94,3 +127,19 @@ def paged_ragged_attention(q, k_pages, v_pages, block_tables, ctx, rows,
             row_pos0)
     return paged_ragged_attention_plain(q, k_pages, v_pages, block_tables,
                                         ctx, rows)
+
+
+def paged_ragged_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
+                                 block_tables, ctx, rows, row_start,
+                                 row_qlen, row_pos0):
+    """The int8-pool twin of :func:`paged_ragged_attention`, with the
+    same two descriptor forms plus the two scale pools.  A CUDA ``q``
+    launches the int8 kernel (which raises on inputs it does not take);
+    a CPU ``q`` runs the plain version."""
+    if q.is_cuda:
+        return _kernel.paged_ragged_attention_quant_cuda(
+            q, k_pages, v_pages, k_scales, v_scales, block_tables,
+            row_start, row_qlen, row_pos0)
+    return paged_ragged_attention_quant_plain(q, k_pages, v_pages, k_scales,
+                                              v_scales, block_tables, ctx,
+                                              rows)

@@ -60,12 +60,13 @@ def _param(shape, device, dtype, generator, std=None, fill=0.0):
 
 
 class Linear(nn.Module):
-    """y = x @ weight + bias with weight [in, out] (Paddle layout)."""
+    """y = x @ weight + bias with weight [in, out] (Paddle layout);
+    ``has_bias=False`` leaves the bias out."""
 
-    def __init__(self, din, dout, std, **kw):
+    def __init__(self, din, dout, std, has_bias=True, **kw):
         super().__init__()
         self.weight = _param((din, dout), std=std, **kw)
-        self.bias = _param((dout,), **kw)
+        self.bias = _param((dout,), **kw) if has_bias else None
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)

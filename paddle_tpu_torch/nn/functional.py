@@ -1,5 +1,5 @@
 """nn.functional — the subset of ``paddle_tpu/nn/functional.py`` that the
-GPT training path runs, in PyTorch.
+GPT training path and the Llama model run, in PyTorch.
 
 ``layer_norm`` and ``scaled_dot_product_attention`` reach the
 hand-written CUDA kernels on CUDA tensors (LayerNorm B4,
@@ -63,6 +63,16 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05):
             and bias is not None):
         return layernorm_cuda(x, weight, bias, eps=epsilon)
     return layer_norm_plain(x, normalized_shape, weight, bias, epsilon)
+
+
+def rms_norm(x, weight=None, epsilon=1e-06, axis=-1):
+    """RMSNorm: ``x * rsqrt(mean(x ** 2) + epsilon) * weight`` over
+    ``axis``, in the input's dtype (the llama family's norm)."""
+    var = x.square().mean(dim=axis, keepdim=True)
+    out = x * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight
+    return out
 
 
 # ---------------- dropout ----------------
@@ -197,5 +207,5 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
 
 
 __all__ = ["cross_entropy", "dropout", "embedding",
-           "flash_attention", "gelu", "layer_norm", "linear",
+           "flash_attention", "gelu", "layer_norm", "linear", "rms_norm",
            "scaled_dot_product_attention"]

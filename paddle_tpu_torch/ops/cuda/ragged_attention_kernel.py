@@ -18,10 +18,16 @@ kernel's:
 Token i of row r attends over pool positions 0 .. row_pos0[r] + i;
 tokens outside every row come back as exact zeros.
 
-The wrapper takes CUDA tensors only and raises on anything the kernel
-does not take; the plain PyTorch version for CPU tensors is
-``inference/llm/paged_attention.py::paged_ragged_attention_plain``.
-``launches`` counts the kernel's launches (and nothing else).
+The int8 twin (``paged_ragged_attention_quant_cuda``, replacing
+``paged_ragged_attention_quant_pallas``) takes int8 pools plus
+``k_scales`` / ``v_scales`` [NB, Nkv, bs] f32, one scale per (page, kv
+head, slot), and dequantizes each slot row as it loads it.
+
+The wrappers take CUDA tensors only and raise on anything the kernel
+does not take; the plain PyTorch versions for CPU tensors are
+``inference/llm/paged_attention.py::paged_ragged_attention_plain`` and
+``paged_ragged_attention_quant_plain``.  ``launches`` and
+``quant_launches`` count each entry's launches (and nothing else).
 """
 
 import ctypes
@@ -32,42 +38,46 @@ from . import _build
 
 # incremented once per kernel launch, nowhere else
 launches = 0
+quant_launches = 0
 
 _NAME = "ragged_attention"
 _ROWS = 16        # query rows (token x head) per block: kRows in the .cu
 _MAX_D = 128      # kMaxD in the .cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+_fns = {}
 
 
 def supports(block_size, head_dim, num_q_heads, num_kv_heads, total_tokens):
     """What the CUDA kernel itself needs: any token count and page size,
     whole GQA groups of at most 16 query heads per kv head, and a
-    head_dim that is a multiple of 8 (16-byte loads) up to 128.  The
-    TPU kernel's ``T % 8`` and ``block_size % 8`` tiling rules do not
-    apply."""
+    head_dim that is a multiple of 8 up to 128 (rows load 8 elements at
+    a time: 16-byte loads of f32/bf16, 8-byte loads of int8 — the same
+    rule for both entries).  The TPU kernel's ``T % 8`` and
+    ``block_size % 8`` tiling rules do not apply."""
     return (total_tokens >= 1 and block_size >= 1 and num_kv_heads >= 1
             and num_q_heads % num_kv_heads == 0
             and num_q_heads // num_kv_heads <= _ROWS
             and head_dim % 8 == 0 and 8 <= head_dim <= _MAX_D)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load(_NAME).paged_ragged_attention
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+def _kernel(entry="paged_ragged_attention", pointers=8):
+    fn = _fns.get(entry)
+    if fn is None:
+        fn = getattr(_build.load(_NAME), entry)
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[entry] = fn
+    return fn
 
 
 def _check(q, k_pages, v_pages, block_tables, row_start, row_qlen,
-           row_pos0):
+           row_pos0, scales=None):
     tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
                "block_tables": block_tables, "row_start": row_start,
                "row_qlen": row_qlen, "row_pos0": row_pos0}
+    if scales is not None:
+        tensors.update(k_scales=scales[0], v_scales=scales[1])
     for name, x in tensors.items():
         if not isinstance(x, torch.Tensor) or not x.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
@@ -78,8 +88,10 @@ def _check(q, k_pages, v_pages, block_tables, row_start, row_qlen,
     if q.dtype not in _DTYPES:
         raise ValueError(f"q dtype {q.dtype} not supported "
                          f"(float32 or bfloat16)")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise ValueError("q, k_pages and v_pages must share one dtype")
+    pool_dtype = q.dtype if scales is None else torch.int8
+    if k_pages.dtype != pool_dtype or v_pages.dtype != pool_dtype:
+        raise ValueError(f"k_pages and v_pages must be {pool_dtype} "
+                         f"(q is {q.dtype})")
     for name in ("block_tables", "row_start", "row_qlen", "row_pos0"):
         if tensors[name].dtype != torch.int32:
             raise ValueError(f"{name} must be int32")
@@ -94,13 +106,23 @@ def _check(q, k_pages, v_pages, block_tables, row_start, row_qlen,
             tensors[n].shape != (r,)
             for n in ("row_start", "row_qlen", "row_pos0")):
         raise ValueError("inconsistent head_dim or row descriptor shapes")
+    if scales is not None:
+        nb = k_pages.shape[0]
+        for name in ("k_scales", "v_scales"):
+            if tensors[name].dtype != torch.float32 or \
+                    tensors[name].shape != (nb, nkv, bs):
+                raise ValueError(f"{name} must be float32 [NB, Nkv, bs] = "
+                                 f"{(nb, nkv, bs)}, got "
+                                 f"{tensors[name].dtype} "
+                                 f"{tuple(tensors[name].shape)}")
     if not supports(bs, d, nq, nkv, t):
         raise ValueError(
             f"shape not supported by the CUDA kernel: T={t}, Nq={nq}, "
             f"Nkv={nkv}, D={d}, block_size={bs}")
     for name in ("q", "k_pages", "v_pages"):
-        if tensors[name].data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+        if tensors[name].data_ptr() % (8 if tensors[name].dtype == torch.int8
+                                       else 16):
+            raise ValueError(f"{name} must be aligned to its row loads")
 
 
 def paged_ragged_attention_cuda(q, k_pages, v_pages, block_tables,
@@ -126,4 +148,33 @@ def paged_ragged_attention_cuda(q, k_pages, v_pages, block_tables,
         raise RuntimeError(f"ragged attention kernel launch failed: "
                            f"CUDA error {rc}")
     launches += 1
+    return out
+
+
+def paged_ragged_attention_quant_cuda(q, k_pages, v_pages, k_scales,
+                                      v_scales, block_tables, row_start,
+                                      row_qlen, row_pos0):
+    """The int8-pool twin: ``k_pages``/``v_pages`` int8 [NB, bs, Nkv, D],
+    ``k_scales``/``v_scales`` f32 [NB, Nkv, bs]; q f32 or bf16 ->
+    [T, Nq, D] in q's dtype.  Raises as the full-precision entry does;
+    never falls back."""
+    global quant_launches
+    _check(q, k_pages, v_pages, block_tables, row_start, row_qlen,
+           row_pos0, scales=(k_scales, v_scales))
+    t, nq, d = q.shape
+    _, bs, nkv, _ = k_pages.shape
+    r, p = block_tables.shape
+    out = torch.zeros_like(q)      # padding and dead rows stay exact zeros
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = _kernel("paged_ragged_attention_quant", pointers=10)(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr(),
+            block_tables.data_ptr(), row_start.data_ptr(),
+            row_qlen.data_ptr(), row_pos0.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], t, r, p, nq, nkv, d, bs, stream)
+    if rc != 0:
+        raise RuntimeError(f"int8 ragged attention kernel launch failed: "
+                           f"CUDA error {rc}")
+    quant_launches += 1
     return out

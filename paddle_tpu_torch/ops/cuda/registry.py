@@ -9,7 +9,12 @@ here, so the smoke's ``kernels`` line lists every ported kernel.
 
 from dataclasses import dataclass
 
-from . import flash_attention_kernel, layernorm_kernel, ragged_attention_kernel
+from . import (
+    decode_attention_kernel,
+    flash_attention_kernel,
+    layernorm_kernel,
+    ragged_attention_kernel,
+)
 
 
 @dataclass(frozen=True)
@@ -44,6 +49,20 @@ def _ragged_plain(q, k_pages, v_pages, block_tables, row_start, row_qlen,
                                         ctx, rows)
 
 
+def _ragged_quant_plain(q, k_pages, v_pages, k_scales, v_scales,
+                        block_tables, row_start, row_qlen, row_pos0):
+    """The int8 plain version in the kernel's per-row signature."""
+    from ...inference.llm.paged_attention import (
+        paged_ragged_attention_quant_plain,
+        token_descriptors,
+    )
+    ctx, rows = token_descriptors(q.shape[0], row_start, row_qlen,
+                                  row_pos0)
+    return paged_ragged_attention_quant_plain(q, k_pages, v_pages, k_scales,
+                                              v_scales, block_tables, ctx,
+                                              rows)
+
+
 KERNELS = {
     "paged_ragged_attention": KernelEntry(
         name="paged_ragged_attention",
@@ -53,6 +72,22 @@ KERNELS = {
         source="paddle_tpu_torch/csrc/ragged_attention.cu",
         replaces="paddle_tpu/ops/pallas/ragged_attention_kernel.py:229",
         counter=ragged_attention_kernel),
+    "paged_ragged_attention_quant": KernelEntry(
+        name="paged_ragged_attention_quant",
+        kernel=ragged_attention_kernel.paged_ragged_attention_quant_cuda,
+        plain=_ragged_quant_plain,
+        parity="tests/test_torch_quant_serving.py",
+        source="paddle_tpu_torch/csrc/ragged_attention.cu",
+        replaces="paddle_tpu/ops/pallas/ragged_attention_kernel.py:322",
+        counter=ragged_attention_kernel, count="quant_launches"),
+    "decode_attention": KernelEntry(
+        name="decode_attention",
+        kernel=decode_attention_kernel.decode_attention_cuda,
+        plain=decode_attention_kernel.decode_attention_plain,
+        parity="tests/test_torch_decode_attention.py",
+        source="paddle_tpu_torch/csrc/decode_attention.cu",
+        replaces="paddle_tpu/ops/pallas/decode_attention_kernel.py:115",
+        counter=decode_attention_kernel),
     "flash_attention_fwd": KernelEntry(
         name="flash_attention_fwd",
         kernel=flash_attention_kernel.flash_attention_fwd_cuda,

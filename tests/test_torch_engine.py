@@ -249,11 +249,14 @@ def test_logits_pipeline_matches_jax(case):
 
 LATER_ENGINE_KWARGS = {
     "tensor_parallel": 2, "mesh": object(), "speculative": 2,
-    "quantize": "int8", "lora": 4, "faults": object(), "retry": 3,
-    "kv_tier": 1 << 20, "lookahead": True, "memory_budget": "16GiB",
+    "lora": 4, "faults": object(), "retry": 3,
+    "kv_tier": 1 << 20, "lookahead": True,
     "clock": object(), "step_timeout_s": 1.0, "max_queue": 4,
     "record_step_gauges": True, "detokenizer": str,
 }
+# keywords that were later work and are ported now (int8 serving and
+# the memory model): accepted, and their engines serve
+PORTED_ENGINE_KWARGS = {"quantize": "int8", "memory_budget": "16GiB"}
 LATER_REQUEST_KWARGS = {
     "grammar": object(), "stop": "x", "logprobs": 2, "n": 2,
     "adapter_id": "t1", "deadline_ms": 10.0,
@@ -265,6 +268,15 @@ def test_unported_engine_keywords_raise(models, key):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         LLMEngine(models[1], device="cpu",
                   **{key: LATER_ENGINE_KWARGS[key]}, **ENGINE)
+
+
+@pytest.mark.parametrize("key", list(PORTED_ENGINE_KWARGS))
+def test_ported_engine_keywords_accepted(models, key):
+    eng = LLMEngine(models[1], device="cpu",
+                    **{key: PORTED_ENGINE_KWARGS[key]}, **ENGINE)
+    out = eng.generate(_prompts()[:2], max_new_tokens=3)
+    assert [len(o) for o in out] == [len(p) + 3 for p in _prompts()[:2]]
+    assert eng.block_manager.num_free_blocks == eng.num_blocks
 
 
 @pytest.mark.parametrize("key", list(LATER_REQUEST_KWARGS))

@@ -42,6 +42,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import paddle_tpu_torch.ops.attention\n"
         "import paddle_tpu_torch.ops.cuda.flash_attention_kernel\n"
         "import paddle_tpu_torch.ops.cuda.layernorm_kernel\n"
+        "import paddle_tpu_torch.ops.cuda.decode_attention_kernel\n"
+        "import paddle_tpu_torch.models.llama, paddle_tpu_torch.incubate.nn\n"
+        "import paddle_tpu_torch.inference.llm.quality\n"
+        "import paddle_tpu_torch.framework.cost\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.'))\n"
