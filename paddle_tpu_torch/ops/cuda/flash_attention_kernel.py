@@ -10,11 +10,13 @@ q, k and v are read in place through their strides (the last dim
 contiguous), so the views of a ``[B, S, 3, N, H]`` projection cost no
 transpose.
 
-``fwd_launches`` counts launches of the forward kernel and
-``bwd_launches`` launches of the backward pair (dq, then dk/dv), each
-incremented once per launch and nowhere else.  The wrappers take CUDA
-tensors only and raise on anything the kernels do not take.  The plain
-versions beside them are the dispatcher's composition
+bf16 runs on the tensor-core kernels, f32 on the SIMT kernels (the
+source note says why).  ``fwd_launches`` counts launches of the forward
+kernel and ``bwd_launches`` launches of the backward pair (dq, which
+also computes ``delta = rowsum(dO * O)``, then dk/dv), each incremented
+once per launch and nowhere else.  The wrappers take CUDA tensors only
+and raise on anything the kernels do not take.  The plain versions
+beside them are the dispatcher's composition
 ``ops/attention.py::attention_plain`` with its lse
 (``flash_fwd_plain``) and its gradient from a given out and lse, as
 the backward kernels take them (``flash_bwd_plain``).
@@ -54,7 +56,7 @@ def _kernel(name):
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(_build.load(_NAME), name)
-        n_ptr = 5 if name == "flash_attention_fwd" else 9
+        n_ptr = 5 if name == "flash_attention_fwd" else 10
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_void_p])
@@ -131,9 +133,11 @@ def flash_attention_fwd_cuda(q, k, v, causal, scale):
 
 def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal, scale):
     """Launch the backward pair on the current stream -> (dq, dk, dv),
-    each [B, S, N, H] in q's dtype.  ``delta = rowsum(dout * out)`` is
-    one f32 torch expression here, as the JAX package leaves it to XLA
-    (``attention_kernel.py:211-213``).  Raises like the forward."""
+    each [B, S, N, H] in q's dtype.  ``delta = rowsum(dout * out)``,
+    which the JAX package leaves to XLA (``attention_kernel.py:211-213``),
+    is computed on the card into a [B, N, Sq] f32 scratch (by the bf16 dq
+    kernel itself; by a row kernel before the f32 pair).  Raises like
+    the forward."""
     global bwd_launches
     _check({"q": q, "k": k, "v": v, "out": out, "dout": dout}, causal,
            seq_k_names=("k", "v"))
@@ -143,8 +147,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal, scale):
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError("lse must be a contiguous f32 [B, N, Sq] CUDA "
                          "tensor on q's device")
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
-        .contiguous()
+    delta = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
@@ -152,9 +155,9 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal, scale):
     with torch.cuda.device(q.device):
         rc = _kernel("flash_attention_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _DTYPES[q.dtype], b, n, sq, sk, d,
-            _strides((q, k, v, dout, dq, dk, dv)), int(bool(causal)),
+            out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, n, sq, sk, d,
+            _strides((q, k, v, dout, dq, dk, dv, out)), int(bool(causal)),
             float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"flash attention backward launch failed: CUDA "

@@ -9,8 +9,10 @@ and to ``_xla_attention`` on the shapes and tolerances of
 against one softmax), gradients at 5e-4, bf16 at 2e-2.  The kernels'
 plain contracts (``flash_fwd_plain`` with its lse, ``flash_bwd_plain``
 from a given dO) are held to the Pallas ``_flash_fwd``/``_flash_bwd``
-directly.  The CUDA kernels themselves are held to these plain versions
-on the card by ``chip_smoke.py``.
+directly, in f32 and (gradients through the public VJP) in bf16; off
+the Pallas kernel's divisible tiling (head_dim 24, seq_q != seq_k) they
+are held to the dispatcher's XLA fallback.  The CUDA kernels themselves
+are held to these plain versions on the card by ``chip_smoke.py``.
 """
 
 import jax
@@ -119,6 +121,61 @@ def test_plain_contracts_match_pallas_fwd_and_bwd(causal):
         np.testing.assert_allclose(
             g.numpy().transpose(0, 2, 1, 3).reshape(b * n, s, h),
             np.asarray(w), rtol=5e-4, atol=5e-4, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_backward_plain_matches_pallas_vjp(causal):
+    """The bf16 contract the card's tensor-core kernels are held to:
+    ``flash_bwd_plain`` from ``flash_fwd_plain``'s bf16 out and lse
+    against the VJP of ``flash_attention_pallas(interpret=True)`` on the
+    same bf16 inputs, at the bf16 tolerance of
+    ``tests/test_pallas_kernels.py`` (2e-2)."""
+    shape = (1, 128, 2, 64)
+    (q, jq), (k, jk), (v, jv), (do, jdo) = (
+        _both(_rand(shape, s), torch.bfloat16, jnp.bfloat16)
+        for s in (31, 32, 33, 34))
+    scale = 1.0 / np.sqrt(shape[-1])
+    out, lse = fak.flash_fwd_plain(q, k, v, causal, scale)
+    grads = fak.flash_bwd_plain(q, k, v, out, lse, do, causal, scale)
+    _, vjp = jax.vjp(lambda a, b, c: flash_attention_pallas(
+        a, b, c, is_causal=causal, interpret=True), jq, jk, jv)
+    for g, w, name in zip(grads, vjp(jdo), "qkv"):
+        assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32),
+                                   rtol=2e-2, atol=2e-2, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("shape,seq_k,causal", [
+    ((1, 200, 2, 24), None, True),      # head_dim the kernels pad to 32
+    ((1, 200, 2, 8), None, True),       # ... and to 32 from 8
+    ((1, 200, 2, 40), None, True),      # ... and to 64
+    ((2, 77, 4, 64), 333, False),       # seq_q != seq_k
+    ((1, 1, 2, 64), None, True),        # one row: dq and dk are zero
+    ((1, 65, 2, 64), None, True),       # one row past a 64-row tile
+])
+def test_plain_matches_xla_fallback_off_the_pallas_tiling(shape, seq_k,
+                                                          causal):
+    """Shapes the Pallas kernel cannot take (it needs block-divisible
+    lengths, ``attention_kernel.py:40-43``) and the card's kernels do:
+    ``flash_fwd_plain`` and ``flash_bwd_plain`` against the JAX
+    dispatcher's XLA fallback ``_xla_attention`` and its VJP, f32, at the
+    forward's 2e-4 and the gradients' 5e-4."""
+    b, s, n, h = shape
+    sk = s if seq_k is None else seq_k
+    arrays = [_rand((b, s, n, h), 35), _rand((b, sk, n, h), 36),
+              _rand((b, sk, n, h), 37), _rand((b, s, n, h), 38)]
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in arrays)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in arrays)
+    scale = 1.0 / np.sqrt(h)
+    out, lse = fak.flash_fwd_plain(tq, tk, tv, causal, scale)
+    want, vjp = jax.vjp(lambda a, b_, c: _xla_attention(
+        a, b_, c, is_causal=causal), jq, jk, jv)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+    grads = fak.flash_bwd_plain(tq, tk, tv, out, lse, tdo, causal, scale)
+    for g, w, name in zip(grads, vjp(jdo), "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-4,
+                                   atol=5e-4, err_msg=f"d{name}")
 
 
 def test_qkv_views_take_the_same_route():
@@ -253,6 +310,23 @@ def test_supports_takes_any_length_and_small_head_dims():
     assert not fak.supports(128, 128, 256)       # head_dim above 128
     assert not fak.supports(128, 128, 36)        # not a multiple of 8
     assert not fak.supports(128, 128, 64, torch.float16)
+
+
+def test_supports_takes_every_shape_it_took_before():
+    """The tensor-core redesign does not narrow ``supports``: any
+    lengths, head_dim % 8 == 0 in [8, 128], f32 or bf16, causal only on
+    square scores, as the SIMT kernels took them."""
+    lengths = (1, 2, 7, 63, 64, 65, 77, 333, 1000, 1024)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d in range(0, 264, 4):
+            for sq in lengths:
+                for sk in lengths:
+                    for causal in (False, True):
+                        before = (d % 8 == 0 and 8 <= d <= 128
+                                  and dtype != torch.float16
+                                  and (not causal or sq == sk))
+                        assert fak.supports(sq, sk, d, dtype, causal) == \
+                            before, (sq, sk, d, dtype, causal)
 
 
 def test_kernels_are_in_the_chip_smoke_registry():
