@@ -15,17 +15,21 @@ and the script exits non-zero:
               plain PyTorch version on the card (f32 and bf16, the CPU
               test cases and full-width shapes, forward and every
               gradient; ragged padding, dead rows and empty decode
-              sequences must be exact zeros, backward reductions bitwise
-              repeatable; every kernel but B1 held to its plain version
-              computed in f32 on the same values, see ``_parity``), then
-              timed (CUDA-graph replay after an L2 flush; the bf16
-              flash kernels in each of their tile configurations) against
+              sequences must be exact zeros, the decode kernels' outputs
+              and backward reductions bitwise repeatable; every kernel
+              held to its plain version computed in f32 on the same
+              values, see ``_parity``; the decode kernels also on the
+              edges of their split-KV plan), then
+              timed (CUDA-graph replay after a 64 MB read flushed the L2,
+              queued behind a wait, see ``cold_l2``) against
               that plain version, against its bound (bytes at 3.35 TB/s or
               operations at the dense peak, whichever is larger) and,
               where one exists, against the one PyTorch call computing
               the same function (a backward that recomputes its forward,
               as the library calls and LayerNorm's plain version do, is
-              timed as forward + backward less forward);
+              timed as forward + backward less forward); then three of
+              those calls timed repeatedly under the old and the new way
+              of starting a replay cold (``timing_harness``);
 4. exactness — a gpt_tiny-width 2-layer model in f32: the paged engine's
               greedy output must equal greedy decoding with the dense
               forward token for token, with the kernel launched on every
@@ -97,12 +101,26 @@ def say(phase, **fields):
 
 
 # ------------------------------------------------------------- timing --
-def time_ms(fn, flush, reps=30):
-    """Median device ms of one call of ``fn``: the call is captured in a
-    CUDA graph, and each replay is timed alone with CUDA events after
-    the L2 cache was flushed (a layer's pool is cold when the engine
-    reaches it again).  The graph takes the host's launch overhead out
-    of the reading; :func:`call_ms` keeps it in."""
+# ~0.1 ms of device time at the H100's clocks: longer than the host takes
+# to record an event and submit a graph replay
+WAIT_CYCLES = 200_000
+
+
+def cold_l2(flush):
+    """Make the next call start cold and be timed from its start: read
+    ``flush`` (64 MB, more than the H100's 50 MB L2) so the L2 holds
+    none of the call's data and no dirty lines, then hold the stream
+    busy for about 0.1 ms, so the call is queued behind the flush and a
+    start event recorded now fires when the call can run, not when the
+    host gets to submit it."""
+    import torch
+
+    torch.amax(flush)
+    torch.cuda._sleep(WAIT_CYCLES)
+
+
+def _graph(fn):
+    """``fn`` captured in a CUDA graph, after three warm-up calls."""
     import torch
 
     side = torch.cuda.Stream()
@@ -116,9 +134,17 @@ def time_ms(fn, flush, reps=30):
         fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def _replay_ms(graph, before, reps):
+    """Median ms of ``reps`` replays of ``graph``, each after
+    ``before()`` and timed alone with CUDA events."""
+    import torch
+
     times = []
     for _ in range(reps):
-        flush.zero_()
+        before()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -127,6 +153,15 @@ def time_ms(fn, flush, reps=30):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def time_ms(fn, flush, reps=30):
+    """Median device ms of one call of ``fn``: the call is captured in a
+    CUDA graph, and each replay is timed alone with CUDA events after
+    :func:`cold_l2` (a layer's pool is cold when the engine reaches it
+    again).  The graph takes the host's launch overhead out of the
+    reading; :func:`call_ms` keeps it in."""
+    return _replay_ms(_graph(fn), lambda: cold_l2(flush), reps)
 
 
 def call_ms(fn, reps=30):
@@ -141,6 +176,27 @@ def call_ms(fn, reps=30):
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps * 1e3
+
+
+def split_device_us(fn, flush, calls=20):
+    """Mean device µs per call of the split-KV decode kernels (a split
+    kernel and its combine) that ``fn`` launches, each call after an L2
+    flush, from torch.profiler: their own device time, without the
+    launch gaps a graph replay's reading holds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            cold_l2(flush)
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and ("split_kernel" in e.key or "combine" in e.key)) / calls
 
 
 # -------------------------------------------- ragged paged attention --
@@ -215,63 +271,128 @@ def _ragged_bound(q, kp, bt, rs, rq, rp, scale_bytes=0):
                                  else "operations")
 
 
-def ragged_attention_phase(entry, dev):
-    """Kernel vs plain on the card; returns the ``kernels`` record."""
+def _ragged_scratch_bytes(q, kp, bt):
+    """Bytes of the partials' scratch a ragged call allocates: (D + 2)
+    f32 a (slot, query head, split)."""
+    from paddle_tpu_torch.ops.cuda import split_kv
+
+    t, nq, d = q.shape
+    r, p = bt.shape
+    splits = split_kv.plan(p * kp.shape[1])
+    slots = split_kv.ragged_slots(t, r, nq, kp.shape[2], splits, d)
+    return 4 * slots * nq * splits * (d + 2)
+
+
+def _long_prefill_case(dev, dtype):
+    """A 500-token prefill chunk beside a deep decode row and a verify
+    row, 32 query heads on 8 kv heads at D 128, T 512: token-indexed
+    partials would pass ``split_kv.TOKEN_SCRATCH_BYTES``, so only each
+    row's last tile splits and the full tiles are walked whole."""
+    return _ragged_case(dev, dtype, 512, 16, 32, 8, 128, 512,
+                        _full_width_tables(10)[:4], [0, 1, 501, 508],
+                        [1, 500, 7, 0], [900, 20, 300, 0], seed=11)
+
+
+def _live_tokens(t, row_start, row_qlen, dev):
     import torch
 
-    def check(label, args, atol):
-        got = entry.kernel(*args)
-        torch.cuda.synchronize()
-        want = entry.plain(*args)
-        err = float((got.float() - want.float()).abs().max())
-        live = torch.zeros(args[0].shape[0], dtype=torch.bool, device=dev)
-        for s, n in zip(args[4].tolist(), args[5].tolist()):
-            live[s:s + n] = True
-        pad_zero = bool((got[~live] == 0).all())
-        say("kernel_parity", kernel=entry.name, case=label,
-            dtype=str(got.dtype), max_abs_err=err, atol=atol,
-            padding_exact_zero=pad_zero)
-        if not (err <= atol and pad_zero and torch.isfinite(got).all()):
-            raise RuntimeError(f"{entry.name} {label}: max_abs_err {err} "
-                               f"(atol {atol}), padding zero {pad_zero}")
-        return err
+    live = torch.zeros(t, dtype=torch.bool, device=dev)
+    for s, n in zip(row_start.tolist(), row_qlen.tolist()):
+        live[s:s + n] = True
+    return live
 
+
+def _split_edge_rows(chunk, pages=64, bs=16):
+    """Ragged decode rows on the split edges of ``chunk``-key splits over
+    tables of ``pages`` x ``bs`` keys: contexts exactly at a chunk
+    boundary, one key past it and 1; a context ending inside the last
+    split; and a one-key row beside the deepest one (every split past
+    its first is empty).  Returns (row_start, row_qlen, row_pos0) of
+    one-token rows, contexts = pos0 + 1."""
+    top = pages * bs
+    ctx = [chunk, chunk + 1, 1, top - chunk // 2, 2 * chunk, top, 1,
+           3 * chunk + 1]
+    return list(range(len(ctx))), [1] * len(ctx), [c - 1 for c in ctx]
+
+
+def ragged_attention_phase(entry, dev):
+    """B1 against its plain version on the card, f32 and bf16, held to
+    ``_parity`` (the plain version in f32 on the same values), padding
+    and dead rows exact zeros, every output bitwise repeatable over two
+    calls; then timed at the GPT-124M shapes.  Returns the ``kernels``
+    record."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import split_kv
+
+    def check(label, args):
+        got = entry.kernel(*args)
+        again = entry.kernel(*args)
+        torch.cuda.synchronize()
+        q, kp, vp = args[:3]
+        want = entry.plain(q.float(), kp.float(), vp.float(), *args[3:])
+        report = {"out": _parity(got, want, 1e-4)}
+        live = _live_tokens(q.shape[0], args[4], args[5], dev)
+        pad_zero = bool((got[~live] == 0).all())
+        repeat = torch.equal(got, again)
+        _say_parity(entry.name, label, got.dtype, report,
+                    padding_exact_zero=pad_zero, bitwise_repeatable=repeat)
+        if not (report["out"][3] and pad_zero and repeat):
+            raise RuntimeError(f"{entry.name} {label}: {report}, padding "
+                               f"zero {pad_zero}, repeatable {repeat}")
+        return report["out"][0]
+
+    f32, bf16 = torch.float32, torch.bfloat16
     # (a) the five CPU-test cases, f32
     for i, (nb, bs, nq, nkv, d, t, seed, bt, rs, rq, rp) in \
             enumerate(_CPU_CASES):
         check(f"cpu_case_{i}", _ragged_case(
-            dev, torch.float32, nb, bs, nq, nkv, d, t, bt, rs, rq, rp,
-            seed, uniform=True), atol=1e-4)
+            dev, f32, nb, bs, nq, nkv, d, t, bt, rs, rq, rp,
+            seed, uniform=True))
     # (b) GPT-124M geometry, bf16: a decode row at position 900, a
     # 200-token chunk straddling pages, a 4-token verify-like row, dead
     # rows and 51 padding tokens
     bt = _full_width_tables(1)
-    mixed = _ragged_case(dev, torch.bfloat16, 512, 16, 12, 12, 64, 256, bt,
+    mixed = _ragged_case(dev, bf16, 512, 16, 12, 12, 64, 256, bt,
                          [0, 1, 201, 205, 205, 205, 205, 205],
                          [1, 200, 4, 0, 0, 0, 0, 0],
                          [900, 37, 500, 0, 0, 0, 0, 0], seed=2)
-    err_mixed = check("gpt124m_mixed_T256", mixed, atol=2e-2)
+    err_mixed = check("gpt124m_mixed_T256", mixed)
     # decode-heavy: eight one-token rows deep in their contexts (T = 8)
     pos = np.random.RandomState(3).randint(600, 1000, size=8)
-    decode = _ragged_case(dev, torch.bfloat16, 512, 16, 12, 12, 64, 8,
+    decode = _ragged_case(dev, bf16, 512, 16, 12, 12, 64, 8,
                           _full_width_tables(4), list(range(8)), [1] * 8,
                           pos, seed=5)
-    err_decode = check("gpt124m_decode_T8", decode, atol=2e-2)
-    # (c) GQA 4: 32 query heads on 8 kv heads, head_dim 128
-    gqa = _ragged_case(dev, torch.bfloat16, 512, 16, 32, 8, 128, 64,
+    err_decode = check("gpt124m_decode_T8", decode)
+    # the bf16 burst's decode contexts (the engine's main path)
+    pos = np.random.RandomState(13).randint(130, 191, size=8)
+    burst = _ragged_case(dev, bf16, 512, 16, 12, 12, 64, 8,
+                         _full_width_tables(14), list(range(8)), [1] * 8,
+                         pos, seed=15)
+    check("gpt124m_burst_decode_T8", burst)
+    # (c) the split's edges, f32 and bf16
+    edges = _split_edge_rows(split_kv.CHUNK)
+    for dtype in (f32, bf16):
+        check(f"split_edges_{str(dtype)[6:]}", _ragged_case(
+            dev, dtype, 512, 16, 12, 12, 64, 8, _full_width_tables(16),
+            *edges, seed=17))
+    # (d) GQA 4: 32 query heads on 8 kv heads, head_dim 128
+    gqa = _ragged_case(dev, bf16, 512, 16, 32, 8, 128, 64,
                        _full_width_tables(6)[:4],
                        [0, 1, 41, 41], [1, 40, 7, 0], [700, 90, 15, 0],
                        seed=7)
-    check("gqa4_d128", gqa, atol=2e-2)
+    check("gqa4_d128", gqa)
+    check("long_prefill_row_slots", _long_prefill_case(dev, bf16))
     # a page size and token count off every power of two, f32
-    odd = _ragged_case(dev, torch.float32, 512, 5, 12, 12, 64, 13,
+    odd = _ragged_case(dev, f32, 512, 5, 12, 12, 64, 13,
                        _full_width_tables(8, pages=64)[:2],
                        [0, 1], [1, 12], [222, 3], seed=9)
-    check("bs5_T13_f32", odd, atol=1e-4)
+    check("bs5_T13_f32", odd)
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     timings = {}
-    for label, args in (("decode_T8", decode), ("mixed_T256", mixed)):
+    for label, args in (("decode_T8", decode), ("mixed_T256", mixed),
+                        ("burst_decode_T8 depths 130-190", burst)):
         ms = time_ms(lambda: entry.kernel(*args), flush)
         plain_ms = time_ms(lambda: entry.plain(*args), flush)
         q, kp, _vp, bt, rs, rq, rp = args
@@ -280,8 +401,10 @@ def ragged_attention_phase(entry, dev):
         say("kernel_time", kernel=entry.name, shape=label, kernel_ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None,
+            device_us=split_device_us(lambda: entry.kernel(*args), flush),
             call_ms=call_ms(lambda: entry.kernel(*args)),
-            plain_call_ms=call_ms(lambda: entry.plain(*args)))
+            plain_call_ms=call_ms(lambda: entry.plain(*args)),
+            scratch_bytes=_ragged_scratch_bytes(q, kp, bt))
     ms, plain_ms, bound_ms, bound_by = timings["mixed_T256"]
     return {"name": entry.name, "route": "cuda", "source": entry.source,
             "replaces": entry.replaces, "launches": None,
@@ -665,30 +788,33 @@ _QUANT_CPU_CASES = [
 def ragged_quant_phase(entries, dev):
     """B5 (the int8-pool twin of B1) against its plain version on the
     card: f32 and bf16 q over genuinely quantized int8 pools, on the CPU
-    test cases and GPT-124M's geometry (12 kv heads, D 64, bs 16: decode
-    T=8 at depth 600-1000 and a mixed T=256 step), with exact zeros for
-    padding and dead rows; the plain version runs in f32 on the same
-    values (``_parity``).  Then timed at the two GPT-124M shapes with bf16
+    test cases, GPT-124M's geometry (12 kv heads, D 64, bs 16: decode
+    T=8 at depth 600-1000 and a mixed T=256 step) and the split's edges,
+    with exact zeros for padding and dead rows and every output bitwise
+    repeatable; the plain version runs in f32 on the same values
+    (``_parity``).  Then timed at the two GPT-124M shapes with bf16
     q, the engine's serving dtype, against its bytes bound."""
     import torch
+
+    from paddle_tpu_torch.ops.cuda import split_kv
 
     entry = entries["paged_ragged_attention_quant"]
     f32, bf16 = torch.float32, torch.bfloat16
 
     def check(label, args):
         got = entry.kernel(*args)
+        again = entry.kernel(*args)
         torch.cuda.synchronize()
         want = entry.plain(args[0].float(), *args[1:])
         report = {"out": _parity(got, want, 1e-4)}
-        live = torch.zeros(args[0].shape[0], dtype=torch.bool, device=dev)
-        for st, n in zip(args[6].tolist(), args[7].tolist()):
-            live[st:st + n] = True
+        live = _live_tokens(args[0].shape[0], args[6], args[7], dev)
         pad_zero = bool((got[~live] == 0).all())
+        repeat = torch.equal(got, again)
         _say_parity(entry.name, label, got.dtype, report,
-                    padding_exact_zero=pad_zero)
-        if not (report["out"][3] and pad_zero):
+                    padding_exact_zero=pad_zero, bitwise_repeatable=repeat)
+        if not (report["out"][3] and pad_zero and repeat):
             raise RuntimeError(f"{entry.name} {label}: {report}, padding "
-                               f"zero {pad_zero}")
+                               f"zero {pad_zero}, repeatable {repeat}")
         return report["out"][0]
 
     for i, (nb, bs, nq, nkv, d, t, seed, bt, rs, rq, rp) in \
@@ -710,9 +836,15 @@ def ragged_quant_phase(entries, dev):
     gqa = _ragged_case(dev, f32, 512, 16, 32, 8, 128, 64,
                        _full_width_tables(6)[:4], [0, 1, 41, 41],
                        [1, 40, 7, 0], [700, 90, 15, 0], seed=7)
+    edges = _ragged_case(dev, f32, 512, 16, 12, 12, 64, 8,
+                         _full_width_tables(16),
+                         *_split_edge_rows(split_kv.CHUNK), seed=17)
     main = {}
     for label, base in (("gpt124m_mixed_T256", mixed),
-                        ("gpt124m_decode_T8", decode), ("gqa4_d128", gqa)):
+                        ("gpt124m_decode_T8", decode), ("gqa4_d128", gqa),
+                        ("split_edges", edges),
+                        ("long_prefill_row_slots",
+                         _long_prefill_case(dev, f32))):
         for dtype in (f32, bf16):
             args = _quantized(base, dtype)
             err = check(f"{label}_{str(dtype)[6:]}", args)
@@ -732,7 +864,9 @@ def ragged_quant_phase(entries, dev):
         say("kernel_time", kernel=entry.name, shape=label + " bf16 q, int8 "
             "pools", kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=None,
-            call_ms=call_ms(lambda: entry.kernel(*args)))
+            device_us=split_device_us(lambda: entry.kernel(*args), flush),
+            call_ms=call_ms(lambda: entry.kernel(*args)),
+            scratch_bytes=_ragged_scratch_bytes(q, kq, bt))
     ms, plain_ms, bound_ms, bound_by = timings["gpt124m_decode_T8"]
     return [{"name": entry.name, "route": "cuda", "source": entry.source,
              "replaces": entry.replaces, "launches": None,
@@ -787,29 +921,37 @@ def decode_attention_phase(entries, dev):
     """B6 against its plain version on the card, f32 and bf16: the CPU
     test cases, GPT-124M's FMT decode shape (B 8, S_max 1024, 12/12
     heads) and Llama-160M's (B 8, S_max 2048, 12 query heads on 4 kv
-    heads), lengths across 0..S_max with 0 included (exact zeros), and
-    a group of 16 at D 128.  Then timed at the GPT shape in bf16 and the
-    Llama shape in f32 (their decode paths' dtypes) against the bytes
-    bound and ``F.scaled_dot_product_attention`` with a length mask and
+    heads), lengths across 0..S_max with 0 included (exact zeros), a
+    group of 16 at D 128, the edges of the split-KV plan and the FMT and
+    Llama decode paths' own shapes; every output bitwise repeatable.
+    Then timed at those shapes, GPT's in bf16 and Llama's in f32 (their
+    decode paths' dtypes), against the bytes bound and
+    ``F.scaled_dot_product_attention`` with a length mask and
     ``enable_gqa=True`` (a yardstick only)."""
     import torch
 
+    from paddle_tpu_torch.ops.cuda import split_kv
+
     entry = entries["decode_attention"]
     f32, bf16 = torch.float32, torch.bfloat16
+    chunk = split_kv.CHUNK
 
     def check(label, args):
         got = entry.kernel(*args)
+        again = entry.kernel(*args)
         torch.cuda.synchronize()
         q, k, v, lens = args
         want = entry.plain(q.float(), k.float(), v.float(), lens)
         report = {"out": _parity(got, want, 1e-4)}
         empty = lens <= 0
         zero = bool((got[empty] == 0).all())
+        repeat = torch.equal(got, again)
         _say_parity(entry.name, label, got.dtype, report,
-                    empty_rows=int(empty.sum()), empty_rows_exact_zero=zero)
-        if not (report["out"][3] and zero):
+                    empty_rows=int(empty.sum()), empty_rows_exact_zero=zero,
+                    bitwise_repeatable=repeat)
+        if not (report["out"][3] and zero and repeat):
             raise RuntimeError(f"{entry.name} {label}: {report}, empty "
-                               f"rows zero {zero}")
+                               f"rows zero {zero}, repeatable {repeat}")
         return report["out"][0]
 
     cases = [   # label, (B, Nq, Nkv, D, S_max), lengths, seed
@@ -821,6 +963,19 @@ def decode_attention_phase(entries, dev):
          20),
         ("llama160m", (8, 12, 4, 64, 2048), _full_lengths(21, 8, 2048), 21),
         ("group16_d128", (2, 16, 1, 128, 300), [300, 129], 22),
+        # the split's edges: a chunk boundary, one key past it, 1, a
+        # length ending inside the last split, 0, and S_max
+        ("split_edges", (8, 12, 4, 64, 4 * chunk),
+         [chunk, chunk + 1, 1, 4 * chunk - chunk // 2, 0, 4 * chunk, 1,
+          2 * chunk], 23),
+        ("s_max_below_one_chunk", (4, 12, 12, 64, chunk // 2 + 3),
+         [chunk // 2 + 3, 1, 0, 17], 24),
+        # the main paths' own shapes: FMT's decode (max_length 192,
+        # positions 128-192) and Llama's (a 2048-slot cache, lengths 1-80)
+        ("fmt_main_path", (8, 12, 12, 64, 192),
+         np.random.RandomState(25).randint(128, 193, 8), 25),
+        ("llama_main_path", (8, 12, 4, 64, 2048),
+         np.random.RandomState(26).randint(1, 81, 8), 26),
     ]
     inputs, errs = {}, {}
     for label, (b, nq, nkv, d, s), lens, seed in cases:
@@ -830,7 +985,8 @@ def decode_attention_phase(entries, dev):
             inputs[label, dtype] = args
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    for label, dtype in (("llama160m", f32), ("gpt124m_fmt", bf16)):
+    for label, dtype in (("llama_main_path", f32), ("fmt_main_path", bf16),
+                         ("llama160m", f32), ("gpt124m_fmt", bf16)):
         q, k, v, lens = args = inputs[label, dtype]
         ms = time_ms(lambda: entry.kernel(*args), flush)
         plain_ms = time_ms(lambda: entry.plain(*args), flush)
@@ -845,10 +1001,12 @@ def decode_attention_phase(entries, dev):
 
         lib_ms = time_ms(sdpa, flush)
         say("kernel_time", kernel=entry.name, shape=f"{label} "
-            f"{str(dtype)[6:]}, lengths 0..S_max", kernel_ms=ms,
+            f"{str(dtype)[6:]}, S_max {k.shape[1]}, lengths "
+            f"{int(lens.min())}..{int(lens.max())}", kernel_ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=lib_ms, library="F.scaled_dot_product_attention "
             "(length mask, enable_gqa=True)",
+            device_us=split_device_us(lambda: entry.kernel(*args), flush),
             call_ms=call_ms(lambda: entry.kernel(*args)))
     # the record: the last shape, FMT's GPT-124M decode in bf16
     return [{"name": entry.name, "route": "cuda", "source": entry.source,
@@ -856,6 +1014,56 @@ def decode_attention_phase(entries, dev):
              "max_abs_err": errs["gpt124m_fmt", bf16], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": lib_ms}]
+
+
+# ------------------------------------------------ the timing yardstick --
+def timing_harness_phase(dev, repeats=3):
+    """The yardstick held against itself.  Three calls — B6 at FMT's
+    decode shape (two kernels, ~8 µs), B1 at decode T=8 and the
+    LayerNorm forward at 8192 x 768 bf16 — are timed ``repeats`` times
+    (each a median of 30 graph replays), in turn, under four ways to
+    start a replay cold: the L2 flushed by writing 64 MB (``zero_``,
+    the earlier yardstick) or by reading it (``amax``), each with and
+    without the queued wait of :func:`cold_l2`.  Prints every reading
+    and each way's spread (largest over smallest); :func:`time_ms` uses
+    the read flush with the wait."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import registry
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flush.zero_()
+    b6 = _decode_case(dev, torch.bfloat16, 8, 12, 12, 64, 192,
+                      np.random.RandomState(25).randint(128, 193, 8), 25)
+    b1 = _ragged_case(dev, torch.bfloat16, 512, 16, 12, 12, 64, 8,
+                      _full_width_tables(4), list(range(8)), [1] * 8,
+                      np.random.RandomState(3).randint(600, 1000, size=8),
+                      seed=5)
+    x, g, b, _ = _ln_inputs(dev, torch.bfloat16, 8192, 768, seed=98)
+    kernels = registry.KERNELS
+    calls = {
+        "decode_attention fmt_main_path bf16": lambda: kernels[
+            "decode_attention"].kernel(*b6),
+        "paged_ragged_attention decode_T8 bf16": lambda: kernels[
+            "paged_ragged_attention"].kernel(*b1),
+        "layernorm_fwd 8192x768 bf16": lambda: kernels[
+            "layernorm_fwd"].kernel(x, g, b, 1e-5),
+    }
+    ways = {
+        "write flush": flush.zero_,
+        "write flush + wait": lambda: (flush.zero_(),
+                                       torch.cuda._sleep(WAIT_CYCLES)),
+        "read flush": lambda: torch.amax(flush),
+        "read flush + wait (time_ms)": lambda: cold_l2(flush),
+    }
+    for label, fn in calls.items():
+        graph = _graph(fn)
+        readings = {w: [] for w in ways}
+        for _ in range(repeats):
+            for w, before in ways.items():
+                readings[w].append(_replay_ms(graph, before, 30))
+        say("timing_harness", call=label, ms=readings,
+            spread={w: max(r) / min(r) for w, r in readings.items()})
 
 
 # kernel names of ops/cuda/registry.py -> the phase that holds them to
@@ -1247,6 +1455,8 @@ def decode_profile_phase(eng, dev, window=16, engine="bf16"):
             eng.step()
         torch.cuda.synchronize(dev)
     say("decode_profile", engine=engine, batch=eng.max_batch, steps=window,
+        ragged_kernel_device_share=_kernel_share(
+            prof, "ragged_split_kernel", "ragged_combine"),
         **_device_profile(prof, window, wall_ms))
     while eng.has_unfinished():
         eng.step()
@@ -1277,16 +1487,17 @@ def _device_profile(prof, steps, wall_ms):
             "top_device_us_per_step": rows}
 
 
-def _kernel_share(prof, name):
-    """Device time of the kernels whose name holds ``name``, over all
-    device time, in a torch.profiler window."""
+def _kernel_share(prof, *names):
+    """Device time of the kernels whose name holds one of ``names``, over
+    all device time, in a torch.profiler window."""
     from torch.autograd import DeviceType
 
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0]
     total = sum(e.self_device_time_total for e in events)
-    mine = sum(e.self_device_time_total for e in events if name in e.key)
+    mine = sum(e.self_device_time_total for e in events
+               if any(n in e.key for n in names))
     return mine / total if total else None
 
 
@@ -1369,8 +1580,8 @@ def fmt_decode_phase(dev, batch=8, prompt=128, new=64, window=16):
         ms_per_decode_step=(wall - prefill_s) / steps * 1e3,
         tokens_per_s=batch * new / wall, kernel_launches=launches,
         expected_launches=want,
-        decode_kernel_device_share=_kernel_share(prof,
-                                                 "decode_attention_kernel"),
+        decode_kernel_device_share=_kernel_share(
+            prof, "decode_split_kernel", "decode_combine"),
         **_device_profile(prof, window, wall_ms))
     if launches != want:
         raise RuntimeError(f"decode kernel launches {launches} != {want}")
@@ -1444,8 +1655,8 @@ def llama_decode_phase(dev, batch=8, prompt=32, new=32, window=8):
         max_abs_err_vs_dense=float(err.max()),
         err_over_limit_vs_dense=over, rtol=LLAMA_RTOL, atol=LLAMA_ATOL,
         kernel_launches=launches, expected_launches=want,
-        decode_kernel_device_share=_kernel_share(prof,
-                                                 "decode_attention_kernel"),
+        decode_kernel_device_share=_kernel_share(
+            prof, "decode_split_kernel", "decode_combine"),
         **_device_profile(prof, window, wall_ms))
     if not (over <= 1.0 and bool(torch.isfinite(step).all())):
         raise RuntimeError(f"Llama decode logits off the dense forward: "
@@ -1761,6 +1972,7 @@ def main():
     records = []
     for names, phase in PARITY_PHASES.items():
         records += phase({k: registry.KERNELS[k] for k in names}, dev)
+    timing_harness_phase(dev)
     exactness_phase(dev)
     int8_exactness_phase(dev)
     fmt_exactness_phase(dev)

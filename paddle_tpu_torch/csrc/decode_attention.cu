@@ -10,288 +10,167 @@
 // (G = Nq / Nkv), scores are scaled by 1/sqrt(D), the softmax runs in
 // f32, and a sequence with lengths[b] <= 0 gets exact zeros.
 //
-// Design.  The TPU kernel runs one program per (batch, kv head) and
-// walks every S block of the cache, masking positions at or past the
-// length with -1e30.  A masked position adds exp(-1e30 - m) = 0 exactly,
-// so walking only the valid prefix 0 .. length-1 computes the same
-// function; here a sequence costs its own length, never S_max.  One
-// block per (batch, kv head) holds all G <= 16 query heads of the group
-// (q staged once in shared memory), and its kWarps warps split the
-// prefix: warp w takes key tiles w, w + kWarps, ... of 32 positions, one
-// position per lane, with its own online-softmax state (m, l and an
-// output accumulator per head) in registers.  Each lane forms the G
-// scores of its key from 16-byte loads of the key row; the P.V product
-// reads each value row once per warp, lanes on consecutive elements.
-// At the end the warps' states merge in shared memory, in warp order
-// (deterministic): the largest m of each head rescales every warp's l
-// and accumulator before they are summed.
+// Design: split-KV flash-decoding (split_decode.cuh).  The TPU kernel
+// runs one program per (batch, kv head) and walks every S block of the
+// cache, masking positions at or past the length with -1e30.  A masked
+// position adds exp(-1e30 - m) = 0 exactly, so walking only the valid
+// prefix computes the same function.  Here the prefix is cut into chunks
+// of kChunk = 128 keys and the grid is (kv head, sequence, split): block
+// (j, b, s) attends the G query heads of kv head j over keys
+// [s * kChunk, min((s + 1) * kChunk, length)) and writes their partial
+// softmax states; a block whose chunk starts at or past the length exits
+// at once.  The host sizes the split axis from S_max alone
+// (ceil(S_max / kChunk)), never from the lengths on the card, so the
+// launch needs no sync and a CUDA graph can capture it.  The second
+// kernel, decode_combine, merges each head's live partials in split
+// order and writes exact zeros for a length-0 sequence.  Nothing is
+// carried between blocks and nothing is added atomically: every output
+// is bitwise repeatable.
 //
 // Bound.  At decode it is bound by device-memory bytes: each valid K and
-// V row of the sequence is read once for all G heads of its group.
-// Making it fast (cp.async / TMA staging of key tiles, more than one
-// block per long sequence) is later work.
+// V row is read once for all G heads of its group, q read and the output
+// written once; the partials (f32, one [D] row per (head, split)) are
+// extra traffic that stays small next to the cache rows a chunk reads.
+// The grid gives a batch-8, 12-head decode hundreds of blocks instead of
+// 96, and the cp.async ring keeps a stage of K/V in flight per block.
 //
-// Needs: Nq % Nkv == 0, G <= kMaxG, D % 8 == 0 and D <= kMaxD, any
-// S_max >= 1, contiguous 16-byte aligned q and caches.  q, caches and
-// output share one type, f32 or bf16; accumulation f32.
+// Needs: Nq % Nkv == 0, G <= 16, D % 8 == 0 and D <= 128, any S_max >= 1,
+// num_splits * kChunk >= S_max,
+// contiguous 16-byte aligned q and caches.  q, caches and output share
+// one type, f32 or bf16; accumulation f32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "split_decode.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kKeys = 32;  // key positions per warp tile, one per lane
-constexpr int kMaxD = 128;
-constexpr int kDPerLane = kMaxD / 32;
-constexpr int kMaxG = 16;
-constexpr float kNegInf = -1e30f;
+using splitkv::kChunk;
+using splitkv::kThreads;
 
-__device__ __forceinline__ void load8(const float* src, float* dst) {
-  const float4 a = reinterpret_cast<const float4*>(src)[0];
-  const float4 b = reinterpret_cast<const float4*>(src)[1];
-  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
-  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
-}
+template <typename T>
+struct DecodeRows {
+  const T* base;  // q row of head j * G of sequence b
+  int len, part0;
+  int D;
+  __device__ const T* q(int i) const { return base + (int64_t)i * D; }
+  __device__ int limit(int) const { return len; }
+  __device__ int part(int i) const { return part0 + i; }
+  __device__ T* out(int) const { return nullptr; }  // never direct
+};
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
+struct DenseKeys {
+  int64_t base;  // element offset of (b, position 0, kv head j)
+  int64_t stride;  // Nkv * D
+  __device__ int64_t offset(int pos) const { return base + pos * stride; }
+};
 
-__device__ __forceinline__ float load1(const float* p) { return *p; }
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// G: compile-time bound on the group size (the register arrays' extent);
-// the runtime group is at most G.
-template <typename T, int G>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-                        const T* __restrict__ v_cache,
-                        const int* __restrict__ lengths, T* __restrict__ out,
-                        int s_max, int num_q_heads, int num_kv_heads,
-                        int head_dim, float scale) {
-  const int j = blockIdx.x;  // kv head
-  const int b = blockIdx.y;  // sequence
-  const int group = num_q_heads / num_kv_heads;
-  const int D = head_dim;
+template <typename T, int DL>
+__global__ void __launch_bounds__(kThreads)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
+                    const T* __restrict__ v_cache,
+                    const int* __restrict__ lengths,
+                    float* __restrict__ part_acc, float* __restrict__ part_ml,
+                    int s_max, int num_q_heads, int num_kv_heads, int head_dim,
+                    int num_splits, float scale_log2) {
+  const int j = blockIdx.x;
+  const int b = blockIdx.y;
+  const int split = blockIdx.z;
   const int len = min(lengths[b], s_max);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  // the group's G output rows [D] are contiguous in out [B, Nq, D]
-  T* o = out + ((int64_t)b * num_q_heads + (int64_t)j * group) * D;
+  const int k_begin = split * kChunk;
+  if (k_begin >= len) return;  // an empty chunk: the combine skips it
+  const int group = num_q_heads / num_kv_heads;
+  const int part0 = b * num_q_heads + j * group;
+  const DecodeRows<T> rows{q + (int64_t)part0 * head_dim, len, part0,
+                           head_dim};
+  const DenseKeys keys{((int64_t)b * s_max * num_kv_heads + j) * head_dim,
+                       (int64_t)num_kv_heads * head_dim};
+  splitkv::attend<T, T, DL>(rows, keys, k_cache, v_cache, nullptr, nullptr,
+                            group, k_begin, min(len, k_begin + kChunk),
+                            head_dim, scale_log2, num_splits, split, false,
+                            part_acc, part_ml);
+}
+
+// grid (B, ceil(Nq * D / kThreads)): one thread per output element
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decode_combine(const float* __restrict__ part_acc,
+               const float* __restrict__ part_ml,
+               const int* __restrict__ lengths, T* __restrict__ out,
+               int s_max, int num_q_heads, int head_dim, int num_splits) {
+  const int b = blockIdx.x;
+  const int e = blockIdx.y * kThreads + threadIdx.x;
+  if (e >= num_q_heads * head_dim) return;
+  const int h = e / head_dim;
+  const int d = e - h * head_dim;
+  const int len = min(lengths[b], s_max);
+  T* o = out + (int64_t)b * num_q_heads * head_dim + e;
   if (len <= 0) {
-    for (int e = tid; e < group * D; e += blockDim.x) store(o + e, 0.f);
+    splitkv::store(o, 0.f);
     return;
   }
-
-  __shared__ float q_s[G][kMaxD];
-  __shared__ float p_s[kWarps][G][kKeys];
-  __shared__ float o_s[G][kMaxD];
-  __shared__ float m_s[kWarps][G];
-  __shared__ float l_s[kWarps][G];
-
-  const int vecs = D / 8;
-  for (int e = tid; e < group * vecs; e += blockDim.x) {
-    const int g = e / vecs;
-    const int dv = (e % vecs) * 8;
-    load8(q + ((int64_t)b * num_q_heads + (int64_t)j * group + g) * D + dv,
-          &q_s[g][dv]);
-  }
-  for (int e = tid; e < G * kMaxD; e += blockDim.x) (&o_s[0][0])[e] = 0.f;
-  __syncthreads();
-
-  float m[G], l[G], acc[G][kDPerLane];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kDPerLane; ++c) acc[g][c] = 0.f;
-  }
-
-  const int64_t pos_stride = (int64_t)num_kv_heads * D;
-  const T* kb = k_cache + ((int64_t)b * s_max * num_kv_heads + j) * D;
-  const T* vb = v_cache + ((int64_t)b * s_max * num_kv_heads + j) * D;
-
-  for (int k0 = warp * kKeys; k0 < len; k0 += kWarps * kKeys) {
-    const int pos = k0 + lane;
-    const bool valid = pos < len;
-    const int nk = min(kKeys, len - k0);
-    float s[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) s[g] = 0.f;
-    if (valid) {
-      const T* kr = kb + (int64_t)pos * pos_stride;
-      for (int dv = 0; dv < D; dv += 8) {
-        float kv[8];
-        load8(kr + dv, kv);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          if (g < group) {
-            const float* qq = &q_s[g][dv];
-            float dot = 0.f;
-#pragma unroll
-            for (int i = 0; i < 8; ++i) dot += qq[i] * kv[i];
-            s[g] += dot;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (g < group) {  // warp-uniform
-        const float sg = valid ? s[g] * scale : kNegInf;
-        const float m_new = fmaxf(m[g], warp_max(sg));
-        const float p = valid ? expf(sg - m_new) : 0.f;
-        const float alpha = expf(m[g] - m_new);
-        l[g] = l[g] * alpha + warp_sum(p);
-        m[g] = m_new;
-#pragma unroll
-        for (int c = 0; c < kDPerLane; ++c) acc[g][c] *= alpha;
-        p_s[warp][g][lane] = p;
-      }
-    }
-    __syncwarp();
-    for (int key = 0; key < nk; ++key) {
-      const T* vr = vb + (int64_t)(k0 + key) * pos_stride;
-      float vv[kDPerLane];
-#pragma unroll
-      for (int c = 0; c < kDPerLane; ++c) {
-        const int d = lane + 32 * c;
-        vv[c] = d < D ? load1(vr + d) : 0.f;
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        if (g < group) {
-          const float pk = p_s[warp][g][key];
-#pragma unroll
-          for (int c = 0; c < kDPerLane; ++c) acc[g][c] += pk * vv[c];
-        }
-      }
-    }
-    __syncwarp();  // p_s is rewritten by the next tile
-  }
-
-  // merge the warps' softmax states; a warp that saw no key has
-  // m = -1e30 and l = 0, and its weight exp(-1e30 - M) is exactly 0
-  if (lane == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      m_s[warp][g] = m[g];
-      l_s[warp][g] = l[g];
-    }
-  }
-  __syncthreads();
-  float big[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    big[g] = kNegInf;
-    for (int w = 0; w < kWarps; ++w) big[g] = fmaxf(big[g], m_s[w][g]);
-  }
-  for (int w = 0; w < kWarps; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        if (g < group) {
-          const float f = expf(m[g] - big[g]);
-#pragma unroll
-          for (int c = 0; c < kDPerLane; ++c) {
-            const int d = lane + 32 * c;
-            if (d < D) o_s[g][d] += acc[g][c] * f;
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < group * D; e += blockDim.x) {
-    const int g = e / D;
-    float total = 0.f;
-    for (int w = 0; w < kWarps; ++w)
-      total += l_s[w][g] * expf(m_s[w][g] - big[g]);
-    store(o + e, o_s[g][e % D] / fmaxf(total, 1e-30f));
-  }
+  const int ns = min(num_splits, (len + kChunk - 1) / kChunk);
+  splitkv::merge_store(part_acc, part_ml,
+                       ((int64_t)b * num_q_heads + h) * num_splits, ns,
+                       head_dim, d, o);
 }
 
 template <typename T>
 int launch(const void* q, const void* k_cache, const void* v_cache,
-           const void* lengths, void* out, int batch, int s_max,
-           int num_q_heads, int num_kv_heads, int head_dim, void* stream) {
+           const void* lengths, void* out, void* part_acc, void* part_ml,
+           int batch, int s_max, int num_q_heads, int num_kv_heads,
+           int head_dim, int num_splits, void* stream) {
   const int group = num_q_heads / num_kv_heads;
   if (batch < 1 || s_max < 1 || num_kv_heads < 1 || group < 1 ||
-      group > kMaxG || num_q_heads % num_kv_heads != 0 || head_dim % 8 != 0 ||
-      head_dim < 8 || head_dim > kMaxD)
+      group > splitkv::kRows || num_q_heads % num_kv_heads != 0 ||
+      head_dim % 8 != 0 || head_dim < 8 || head_dim > splitkv::kMaxD ||
+      num_splits < 1 || (int64_t)num_splits * kChunk < s_max ||
+      num_splits > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(num_kv_heads, batch);
-  const dim3 block(kWarps * 32);
-  const float scale = 1.0f / sqrtf((float)head_dim);
+  const bool narrow = head_dim <= 64;
+  const auto kernel =
+      narrow ? decode_split_kernel<T, 2> : decode_split_kernel<T, 4>;
+  static const cudaError_t attr = splitkv::allow_ring<T>(
+      decode_split_kernel<T, 2>, decode_split_kernel<T, 4>);
+  if (attr != cudaSuccess) return (int)attr;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k_cache);
-  const T* vp = static_cast<const T*>(v_cache);
-  const int* lp = static_cast<const int*>(lengths);
-  T* op = static_cast<T*>(out);
-#define DECODE_LAUNCH(GB)                                                  \
-  decode_attention_kernel<T, GB><<<grid, block, 0, s>>>(                   \
-      qp, kp, vp, lp, op, s_max, num_q_heads, num_kv_heads, head_dim, scale)
-  if (group <= 1)
-    DECODE_LAUNCH(1);
-  else if (group <= 2)
-    DECODE_LAUNCH(2);
-  else if (group <= 4)
-    DECODE_LAUNCH(4);
-  else if (group <= 8)
-    DECODE_LAUNCH(8);
-  else
-    DECODE_LAUNCH(16);
-#undef DECODE_LAUNCH
+  const float scale_log2 = splitkv::kLog2e / sqrtf((float)head_dim);
+  kernel<<<dim3(num_kv_heads, batch, num_splits), kThreads,
+           splitkv::smem_bytes<T>(head_dim), s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_cache),
+      static_cast<const T*>(v_cache), static_cast<const int*>(lengths),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), s_max,
+      num_q_heads, num_kv_heads, head_dim, num_splits, scale_log2);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int per_b = (num_q_heads * head_dim + kThreads - 1) / kThreads;
+  decode_combine<T><<<dim3(batch, per_b), kThreads, 0, s>>>(
+      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
+      static_cast<const int*>(lengths), static_cast<T*>(out), s_max,
+      num_q_heads, head_dim, num_splits);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, caches and output).  lengths is
-// int32 [B].  Launches on ``stream`` and returns cudaGetLastError() (0 on
-// success); never synchronises.
+// int32 [B].  part_acc (f32 [B, Nq, num_splits, D]) and part_ml (f32
+// [B, Nq, num_splits, 2]) are scratch the caller allocates; num_splits
+// is the host's split plan, at least ceil(S_max / 128).  Launches the
+// split kernel and the combine on ``stream`` and returns
+// cudaGetLastError() (0 on success); never synchronises.
 extern "C" int decode_attention(const void* q, const void* k_cache,
                                 const void* v_cache, const void* lengths,
-                                void* out, int dtype, int batch, int s_max,
+                                void* out, void* part_acc, void* part_ml,
+                                int dtype, int batch, int s_max,
                                 int num_q_heads, int num_kv_heads,
-                                int head_dim, void* stream) {
+                                int head_dim, int num_splits,
+                                void* stream) {
   if (dtype == 0)
-    return launch<float>(q, k_cache, v_cache, lengths, out, batch, s_max,
-                         num_q_heads, num_kv_heads, head_dim, stream);
+    return launch<float>(q, k_cache, v_cache, lengths, out, part_acc, part_ml,
+                         batch, s_max, num_q_heads, num_kv_heads, head_dim,
+                         num_splits, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_cache, v_cache, lengths, out, batch,
-                                 s_max, num_q_heads, num_kv_heads, head_dim,
-                                 stream);
+    return launch<__nv_bfloat16>(q, k_cache, v_cache, lengths, out, part_acc,
+                                 part_ml, batch, s_max, num_q_heads,
+                                 num_kv_heads, head_dim, num_splits, stream);
   return (int)cudaErrorInvalidValue;
 }

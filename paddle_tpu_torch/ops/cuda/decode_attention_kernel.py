@@ -15,8 +15,9 @@ kernel's:
 A sequence with ``lengths == 0`` comes back as exact zeros.  The
 wrapper takes CUDA tensors only and raises on anything the kernel does
 not take; :func:`decode_attention_plain` is the plain version (the JAX
-package's ``decode_attention_xla``).  ``launches`` counts the kernel's
-launches (and nothing else).
+package's ``decode_attention_xla``).  ``launches`` counts the wrapper's
+launches (and nothing else): one per call, which runs the split kernel
+and its combine (split-KV flash-decoding, ``split_kv.py``).
 """
 
 import ctypes
@@ -24,14 +25,14 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, split_kv
 
-# incremented once per kernel launch, nowhere else
+# incremented once per launch (split kernel + combine), nowhere else
 launches = 0
 
 _NAME = "decode_attention"
-_MAX_G = 16       # kMaxG in the .cu
-_MAX_D = 128      # kMaxD in the .cu
+_MAX_G = 16       # kRows in split_decode.cuh
+_MAX_D = 128      # kMaxD in split_decode.cuh
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 
@@ -46,6 +47,12 @@ def supports(s_max, head_dim, num_q_heads, num_kv_heads):
             and num_q_heads % num_kv_heads == 0
             and 1 <= num_q_heads // num_kv_heads <= _MAX_G
             and head_dim % 8 == 0 and 8 <= head_dim <= _MAX_D)
+
+
+def split_plan(s_max):
+    """The number of splits for caches of ``s_max`` positions: from the
+    shape alone, never from the lengths on the card."""
+    return split_kv.plan(s_max)
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths):
@@ -75,7 +82,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load(_NAME).decode_attention
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -125,12 +132,18 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     _check(q, k_cache, v_cache, lengths)
     b, nq, d = q.shape
     s_max, nkv = k_cache.shape[1], k_cache.shape[2]
-    out = torch.empty_like(q)      # the kernel writes every element
+    splits = split_plan(s_max)
+    out = torch.empty_like(q)      # the combine writes every element
+    part_acc = torch.empty(b * nq * splits * d, dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty(b * nq * splits * 2, dtype=torch.float32,
+                          device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = _kernel()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                       lengths.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-                       b, s_max, nq, nkv, d, stream)
+                       lengths.data_ptr(), out.data_ptr(),
+                       part_acc.data_ptr(), part_ml.data_ptr(),
+                       _DTYPES[q.dtype], b, s_max, nq, nkv, d, splits, stream)
     if rc != 0:
         raise RuntimeError(f"decode attention kernel launch failed: "
                            f"CUDA error {rc}")

@@ -27,22 +27,23 @@ The wrappers take CUDA tensors only and raise on anything the kernel
 does not take; the plain PyTorch versions for CPU tensors are
 ``inference/llm/paged_attention.py::paged_ragged_attention_plain`` and
 ``paged_ragged_attention_quant_plain``.  ``launches`` and
-``quant_launches`` count each entry's launches (and nothing else).
+``quant_launches`` count each entry's launches (and nothing else): one
+per call, which runs the split kernel and its combine (split-KV
+flash-decoding, ``split_kv.py``).
 """
 
 import ctypes
 
 import torch
 
-from . import _build
+from . import _build, split_kv
 
-# incremented once per kernel launch, nowhere else
+# incremented once per launch (split kernel + combine), nowhere else
 launches = 0
 quant_launches = 0
 
 _NAME = "ragged_attention"
-_ROWS = 16        # query rows (token x head) per block: kRows in the .cu
-_MAX_D = 128      # kMaxD in the .cu
+_MAX_D = 128      # kMaxD in split_decode.cuh
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fns = {}
 
@@ -56,15 +57,22 @@ def supports(block_size, head_dim, num_q_heads, num_kv_heads, total_tokens):
     ``block_size % 8`` tiling rules do not apply."""
     return (total_tokens >= 1 and block_size >= 1 and num_kv_heads >= 1
             and num_q_heads % num_kv_heads == 0
-            and num_q_heads // num_kv_heads <= _ROWS
+            and num_q_heads // num_kv_heads <= split_kv.ROWS
             and head_dim % 8 == 0 and 8 <= head_dim <= _MAX_D)
 
 
-def _kernel(entry="paged_ragged_attention", pointers=8):
+def split_plan(pages_per_row, block_size):
+    """The number of splits for rows of at most ``pages_per_row *
+    block_size`` keys (the block tables' width): from shapes alone,
+    never from the descriptors on the card."""
+    return split_kv.plan(pages_per_row * block_size)
+
+
+def _kernel(entry="paged_ragged_attention", pointers=10):
     fn = _fns.get(entry)
     if fn is None:
         fn = getattr(_build.load(_NAME), entry)
-        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 10 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[entry] = fn
@@ -125,6 +133,20 @@ def _check(q, k_pages, v_pages, block_tables, row_start, row_qlen,
             raise ValueError(f"{name} must be aligned to its row loads")
 
 
+def _outputs(q, num_rows, pages_per_row, block_size, num_kv_heads):
+    """The output and the partials' scratch of one call."""
+    t, nq, d = q.shape
+    splits = split_plan(pages_per_row, block_size)
+    slots = split_kv.ragged_slots(t, num_rows, nq, num_kv_heads, splits, d)
+    # the two kernels write every element
+    out = torch.empty_like(q)
+    part_acc = torch.empty(slots * nq * splits * d, dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty(slots * nq * splits * 2, dtype=torch.float32,
+                          device=q.device)
+    return out, part_acc, part_ml, splits, slots
+
+
 def paged_ragged_attention_cuda(q, k_pages, v_pages, block_tables,
                                 row_start, row_qlen, row_pos0):
     """Launch the kernel on the current stream -> [T, Nq, D] in q's
@@ -136,14 +158,15 @@ def paged_ragged_attention_cuda(q, k_pages, v_pages, block_tables,
     t, nq, d = q.shape
     _, bs, nkv, _ = k_pages.shape
     r, p = block_tables.shape
-    out = torch.zeros_like(q)      # padding and dead rows stay exact zeros
+    out, part_acc, part_ml, splits, slots = _outputs(q, r, p, bs, nkv)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = _kernel()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                        block_tables.data_ptr(), row_start.data_ptr(),
                        row_qlen.data_ptr(), row_pos0.data_ptr(),
-                       out.data_ptr(), _DTYPES[q.dtype], t, r, p, nq, nkv,
-                       d, bs, stream)
+                       out.data_ptr(), part_acc.data_ptr(),
+                       part_ml.data_ptr(), _DTYPES[q.dtype], t, r, p, nq,
+                       nkv, d, bs, splits, slots, stream)
     if rc != 0:
         raise RuntimeError(f"ragged attention kernel launch failed: "
                            f"CUDA error {rc}")
@@ -164,15 +187,16 @@ def paged_ragged_attention_quant_cuda(q, k_pages, v_pages, k_scales,
     t, nq, d = q.shape
     _, bs, nkv, _ = k_pages.shape
     r, p = block_tables.shape
-    out = torch.zeros_like(q)      # padding and dead rows stay exact zeros
+    out, part_acc, part_ml, splits, slots = _outputs(q, r, p, bs, nkv)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = _kernel("paged_ragged_attention_quant", pointers=10)(
+        rc = _kernel("paged_ragged_attention_quant", pointers=12)(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scales.data_ptr(), v_scales.data_ptr(),
             block_tables.data_ptr(), row_start.data_ptr(),
             row_qlen.data_ptr(), row_pos0.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], t, r, p, nq, nkv, d, bs, stream)
+            part_acc.data_ptr(), part_ml.data_ptr(), _DTYPES[q.dtype], t, r,
+            p, nq, nkv, d, bs, splits, slots, stream)
     if rc != 0:
         raise RuntimeError(f"int8 ragged attention kernel launch failed: "
                            f"CUDA error {rc}")
