@@ -3,6 +3,8 @@
 one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py ln_bwd_designs   # only the LayerNorm backward's
+                                           # sizes against alternatives
 
 Run from the root of a checkout on a machine with a CUDA GPU and the
 CUDA toolkit.  Phases, each printing its own lines; any failure raises
@@ -178,11 +180,11 @@ def call_ms(fn, reps=30):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def split_device_us(fn, flush, calls=20):
-    """Mean device µs per call of the split-KV decode kernels (a split
-    kernel and its combine) that ``fn`` launches, each call after an L2
-    flush, from torch.profiler: their own device time, without the
-    launch gaps a graph replay's reading holds."""
+def device_us(fn, flush, names, calls=20):
+    """Mean device µs per call of the kernels whose names hold one of
+    ``names`` that ``fn`` launches, each call after an L2 flush, from
+    torch.profiler: their own device time, without the launch gaps a
+    graph replay's reading holds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -196,7 +198,13 @@ def split_device_us(fn, flush, calls=20):
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and ("split_kernel" in e.key or "combine" in e.key)) / calls
+               and any(n in e.key for n in names)) / calls
+
+
+def split_device_us(fn, flush):
+    """:func:`device_us` of the split-KV decode kernels: a split kernel
+    and its combine."""
+    return device_us(fn, flush, ("split_kernel", "combine"))
 
 
 # -------------------------------------------- ragged paged attention --
@@ -660,15 +668,23 @@ def _ln_inputs(dev, dtype, rows, c, seed):
             put(0.1 * rng.randn(c)), put(rng.randn(rows, c)))
 
 
+# the backward's two kernels: the one-wave row pass and the partials' sum
+LN_BWD_KERNELS = ("ln_bwd_kernel", "ln_reduce_kernel")
+
+
 def layernorm_phase(entries, dev):
     """B4 (forward kernel; backward row pass + partials reduction)
     against its plain versions on the card, f32 and bf16, y / mu / rstd
     and dx / dgamma / dbeta, on the CPU test shape and GPT-124M's
-    (8192 x 768, and 8190 rows that no block divides); then timed at
-    8192 x 768 bf16 against the bound, the plain versions and
+    (8192 x 768, 8190 rows that no block divides, 5 rows, fewer than
+    the backward's blocks, and a tall 32768), with dgamma/dbeta bitwise
+    equal over two eager calls and over an eager call and a CUDA-graph
+    replay; the backward's registers, spills, residency and plan; then
+    timed at 8192 x 768 bf16 against the bound, the plain versions and
     ``torch.nn.functional.layer_norm`` (a yardstick only)."""
     import torch
 
+    from paddle_tpu_torch.ops.cuda import layernorm_kernel as lnk
     from paddle_tpu_torch.ops.cuda.layernorm_kernel import layer_norm_plain
 
     fwd = entries["layernorm_fwd"]
@@ -679,6 +695,8 @@ def layernorm_phase(entries, dev):
                                               8192, 768),
              ("gpt124m_f32_8192x768", f32, 8192, 768),
              ("ragged_rows_8190x768", bf16, 8190, 768),
+             ("few_rows_5x768", bf16, 5, 768),
+             ("tall_32768x768", bf16, 32768, 768),
              ("c2048_1000x2048", bf16, 1000, 2048)]
     main_err = {}
     for i, (label, dtype, rows, c) in enumerate(cases):
@@ -710,6 +728,28 @@ def layernorm_phase(entries, dev):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     x, g, b, dy = _ln_inputs(dev, bf16, 8192, 768, seed=98)
     y, mu, rstd = fwd.kernel(x, g, b, eps)
+    _, dg, db = bwd.kernel(x, g, mu, rstd, dy)
+    held = {}
+    graph = _graph(lambda: held.update(out=bwd.kernel(x, g, mu, rstd, dy)))
+    graph.replay()
+    torch.cuda.synchronize()
+    replay_bitwise = (torch.equal(held["out"][1], dg)
+                      and torch.equal(held["out"][2], db))
+    del graph, held
+    plans = {}
+    for dtype, c in ((bf16, 768), (f32, 768), (bf16, 2048)):
+        info = lnk.bwd_kernel_info(dtype, c, dev)
+        slots = info["blocks_per_sm"] * info["sms"]
+        plans[f"{c} {dtype}"] = {
+            **info, "grid_8192_rows": lnk.bwd_plan(8192, c, slots)[0],
+            "reduce_grid": lnk.bwd_plan(8192, c, slots)[1]}
+    say("layernorm_bwd_plan", plans=plans,
+        graph_replay_bitwise=replay_bitwise,
+        device_us_8192x768_bf16=device_us(
+            lambda: bwd.kernel(x, g, mu, rstd, dy), flush, LN_BWD_KERNELS))
+    if not replay_bitwise:
+        raise RuntimeError("layernorm backward: dgamma/dbeta of a graph "
+                           "replay differ from the eager call's")
     ms_f = time_ms(lambda: fwd.kernel(x, g, b, eps), flush)
     ms_b = time_ms(lambda: bwd.kernel(x, g, mu, rstd, dy), flush)
     plain_f = time_ms(lambda: fwd.plain(x, g, b, eps), flush)
@@ -748,6 +788,128 @@ def layernorm_phase(entries, dev):
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": lib_ms})
     return records
+
+
+# The LayerNorm backward's sizes against their alternatives: each entry
+# rewrites the chosen source's constexprs (or takes its arithmetic out),
+# and may give the row pass another grid than one wave.
+_LN_ARITH = """        for (int j = 0; j < 8; ++j) {
+          const float xh = (xv[j] - m) * rs;
+          const float w = dv[j] * g[j];
+          s1 += w;
+          s2 += w * xh;
+          dg[c][j] += dv[j] * xh;
+          db[c][j] += dv[j];
+        }"""
+_LN_DX = """        for (int j = 0; j < 8; ++j) {
+          const float xh = (xv[j] - m) * rs;
+          o[j] = (dv[j] * g[j] - c1 - xh * c2) * rs;
+        }"""
+LN_BWD_DESIGNS = {
+    "chosen": ([], None),
+    "ring_1_slot": ([("kRingSlots = 2;", "kRingSlots = 1;")], None),
+    "ring_3_slots": ([("kRingSlots = 2;", "kRingSlots = 3;")], None),
+    "ring_4_slots": ([("kRingSlots = 2;", "kRingSlots = 4;")], None),
+    "4_warps_a_block": ([("kBwdWarps = 8;", "kBwdWarps = 4;")], None),
+    "16_warps_a_block": ([("kBwdWarps = 8;", "kBwdWarps = 16;"),
+                          ("kMinBlocks = V <= 4 ? 2 : 1", "kMinBlocks = 1")],
+                         None),
+    "grid_one_block_an_SM": ([], "sms"),
+    "grid_one_block_per_8_rows": ([], "rows"),
+    "no_arithmetic": ([(_LN_ARITH, "        for (int j = 0; j < 8; ++j) "
+                                   "db[c][j] += dv[j] + xv[j];"),
+                       (_LN_DX, "        for (int j = 0; j < 8; ++j) "
+                                "o[j] = xv[j];")], None),
+}
+
+
+def ln_bwd_designs_phase(dev, rows=8192, c=768):
+    """``python3 chip_smoke.py ln_bwd_designs``: the LayerNorm backward
+    at ``rows`` x ``c`` bf16 as built (``chosen``) and as each entry of
+    ``LN_BWD_DESIGNS`` rewrites it, built from copies under
+    ``build/ln_bwd_designs/`` and timed in turn, twice: graph-replay ms
+    under ``cold_l2``, the two kernels' device µs, and whether dx and
+    dgamma/dbeta equal the chosen build's; beside them ``torch.add`` of
+    two such tensors, which moves the same bytes."""
+    import ctypes
+
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import _build
+    from paddle_tpu_torch.ops.cuda import layernorm_kernel as lnk
+
+    src = open(os.path.join(_build.CSRC, "layernorm.cu")).read()
+    out_dir = os.path.join(os.path.dirname(_build.BUILD_DIR),
+                           "ln_bwd_designs")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, (edits, _) in LN_BWD_DESIGNS.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"design {name}: {old!r} not in source")
+            text = text.replace(old, new)
+        path = os.path.join(out_dir, name)
+        with open(path + ".cu", "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", path + ".so",
+             path + ".cu"], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"design {name} failed to build:\n{log}")
+        lib = libs[name] = ctypes.CDLL(os.path.join(out_dir, name + ".so"))
+        lib.layernorm_bwd.argtypes = ([ctypes.c_void_p] * 8
+                                      + [ctypes.c_int] * 4
+                                      + [ctypes.c_void_p])
+        lib.layernorm_bwd_info.argtypes = [ctypes.c_int, ctypes.c_int,
+                                           ctypes.POINTER(ctypes.c_int)]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    x, g, b, dy = _ln_inputs(dev, torch.bfloat16, rows, c, seed=98)
+    _, mu, rstd = lnk.layernorm_fwd_cuda(x, g, b, 1e-5)
+    a, a2, a_out = x.clone(), dy.clone(), torch.empty_like(x)
+    say("ln_bwd_design", design="torch.add (the same bytes)",
+        ms=time_ms(lambda: torch.add(a, a2, out=a_out), flush),
+        device_us=device_us(lambda: torch.add(a, a2, out=a_out), flush,
+                            ("elementwise",)))
+    chosen = None
+    for rep in range(2):
+        for name, lib in libs.items():
+            info = (ctypes.c_int * 6)()
+            if lib.layernorm_bwd_info(1, c, info):
+                raise RuntimeError(f"design {name}: info failed")
+            warps = (16 if name == "16_warps_a_block"
+                     else 4 if name == "4_warps_a_block" else 8)
+            grid = {"sms": info[3], "rows": -(-rows // warps)}.get(
+                LN_BWD_DESIGNS[name][1],
+                max(1, min(info[2] * info[3], -(-rows // warps))))
+            dx = torch.empty_like(x)
+            parts = torch.empty(grid, 2, c, device=dev)
+            dgdb = torch.empty(2, c, device=dev)
+
+            def call():
+                rc = lib.layernorm_bwd(
+                    x.data_ptr(), g.data_ptr(), mu.data_ptr(),
+                    rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                    parts.data_ptr(), dgdb.data_ptr(), 1, rows, c, grid,
+                    torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"design {name}: CUDA error {rc}")
+
+            call()
+            torch.cuda.synchronize()
+            if chosen is None:
+                chosen = (dx.clone(), dgdb.clone())
+            say("ln_bwd_design", design=name, repeat=rep, grid=grid,
+                registers=info[0], local_bytes=info[1],
+                blocks_per_sm=info[2], ms=time_ms(call, flush),
+                device_us={k: device_us(call, flush, (k,))
+                           for k in LN_BWD_KERNELS},
+                dx_equal_chosen=torch.equal(dx, chosen[0]),
+                dgdb_max_diff_chosen=float((dgdb - chosen[1]).abs().max()))
 
 
 def _ragged_phase(entries, dev):
@@ -1945,6 +2107,9 @@ def training_phase(dev, warmup=3, steps=10):
     say("training_profile", steps=1,
         attention_device_share=_kernel_share(prof, "flash_"),
         attention_us_per_step=_kernel_us(prof, "flash_", 1),
+        layernorm_bwd_us_per_step=sum(
+            sum(_kernel_us(prof, n, 1).values()) for n in LN_BWD_KERNELS),
+        layernorm_bwd_device_share=_kernel_share(prof, *LN_BWD_KERNELS),
         **_device_profile(prof, 1, ms_per_step))
     if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
         raise RuntimeError(f"training loss did not fall: {losses}")
@@ -1962,6 +2127,11 @@ def main():
 
     name = device_phase()
     dev = torch.device("cuda", 0)
+    if sys.argv[1:] == ["ln_bwd_designs"]:
+        ln_bwd_designs_phase(dev)
+        return
+    if sys.argv[1:]:
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     build_phase()
     from paddle_tpu_torch.ops.cuda import registry
 

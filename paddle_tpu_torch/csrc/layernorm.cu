@@ -14,21 +14,55 @@
 // dx = (wdy - mean(wdy) - xhat * mean(wdy * xhat)) * rstd in x's dtype,
 // dgamma = sum over rows of dy * xhat and dbeta = sum of dy, in f32.
 //
-// Design.  One warp per row; a lane holds its columns in registers (up to
-// kMaxVec chunks of 8, 16-byte loads), so x is read once and y written
-// once.  The TPU kernel sums dgamma/dbeta across its sequential grid into
-// one [1, C] block; on a GPU blocks run concurrently, so that is a race.
-// Here each block of the backward owns a contiguous run of rows, keeps
-// its lanes' dgamma/dbeta sums in registers, combines its warps through
-// shared memory in a fixed order and writes one f32 partial row
-// [nparts, C]; a second kernel in this file sums the partials per column,
-// again in a fixed order.  No atomics, so the result is deterministic.
-//
 // Bound.  Bytes: the forward reads x and writes y (plus 8 bytes a row of
 // stats), the backward reads x and dy and writes dx; the arithmetic is a
-// few operations per element.  One warp per row with every load a
-// 16-byte vector keeps the bytes at that minimum; the partials add
-// nparts x C x 8 bytes, small next to the rows.
+// few operations per element.  Every row load and store is a 16-byte
+// vector, so the bytes stay at that minimum.
+//
+// Forward.  One warp per row; a lane holds its columns in registers (up
+// to kMaxVec chunks of 8), so x is read once and y written once.
+//
+// Backward.  The TPU kernel sums dgamma/dbeta across its sequential grid
+// into one [1, C] block; on a GPU blocks run concurrently, so that is a
+// race.  Here the row pass runs as one wave: the host sizes its grid to
+// the blocks that fit on the card at once (blocks per SM from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SM count, read
+// once, layernorm_bwd_info) and no more than one block per kBwdWarps
+// rows, and block b owns rows [b * rows / grid, (b + 1) * rows / grid).
+// Its warps take every kBwdWarps-th row of that run.  Each warp streams
+// its rows through its own ring of kRingSlots row slots in shared memory:
+// row k + 1's x and dy (and its mu and rstd) arrive by cp.async while row
+// k is reduced and stored, so every warp has a row in flight without
+// holding it in registers (48 KB of ring a block at C = 768 bf16).  A
+// lane reads back only the 16-byte pieces it copied, so the ring needs no
+// barrier.  gamma sits in shared memory in f32.  A lane keeps its
+// columns' dgamma/dbeta sums in registers and recomputes xhat and wdy
+// from the slot in the second pass instead of holding them, so the bf16
+// kernel at C = 768 takes 96 registers, two blocks (16 warps) an SM.  At
+// the end a block adds its warps' sums through shared memory in warp
+// order and writes one f32 partial row [2 * C] (dgamma, then dbeta);
+// ln_reduce_kernel then sums the grid's partials over C / 4 blocks of 8
+// columns each (192 at C = 768), each column's partials added in a fixed
+// order.  No atomics: for one shape on one card the grid, and so the
+// sum's order, is always the same, and dgamma/dbeta are bitwise
+// repeatable, graph replays included.
+//
+// What this replaced (the earlier backward at 8192 x 768 bf16 on an
+// H100 80GB HBM3 at 700 W, 0.0306 ms against a 0.0113 ms bound): 32
+// rows a block, 256 blocks of 8 warps at
+// one block an SM (xhat and wdy held as 48 f32 a lane beside the sums),
+// so two waves, the second 124 blocks; a warp's rows one after another
+// with nothing in flight during a row's shuffles; and a reduce of 256
+// partial rows over 48 blocks.  Why these sizes: at that shape more ring
+// slots, more or fewer warps a block and a grid of other than one wave
+// all read slower (``python3 chip_smoke.py ln_bwd_designs`` times them
+// side by side; readings in PERF.md, B4b).  Two designs were tried and
+// dropped: the next row held in a second set of registers (at 128
+// registers the compiler did not load it early), and the rows brought in
+// by Hopper's bulk copy onto an mbarrier, one thread a row, which read
+// slower than the per-lane copies.  What holds the row pass above its
+// bound is the memory system, not the arithmetic: with the arithmetic
+// taken out it reads within 0.5 us of the full kernel.
 //
 // Needs: C % 8 == 0, 8 <= C <= 32 * 8 * kMaxVec, 16-byte aligned
 // pointers, rows >= 1.
@@ -42,7 +76,9 @@ namespace {
 constexpr int kMaxVec = 8;         // chunks of 8 columns per lane: C <= 2048
 constexpr int kFwdWarps = 4;       // rows per forward block
 constexpr int kBwdWarps = 8;       // warps per backward block
-constexpr int kRedRows = 8;        // partial rows summed per reduce thread column
+constexpr int kRingSlots = 2;      // row slots in a warp's ring: one row ahead
+constexpr int kRedCols = 8;        // columns per reduce block
+constexpr int kRedThreads = 256;   // a reduce block: 32 partial lanes x kRedCols
 
 __device__ __forceinline__ void load8(const float* src, float* dst) {
   const float4 a = reinterpret_cast<const float4*>(src)[0];
@@ -139,112 +175,218 @@ ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
 }
 
 // --------------------------------------------------------------- backward --
-// Block p owns rows [p * rpb, min(rows, (p + 1) * rpb)); its warps take
-// every kBwdWarps-th row.  Writes dx and the block's partial sums
-// partials[0][p][:] (dgamma) and partials[1][p][:] (dbeta).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of BYTES (4 or 16) from global to shared; 16-byte copies
+// bypass L1
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+                 "l"(src), "n"(BYTES));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The row pass's sizes for one (T, V).  A warp's ring holds kRingSlots
+// rows of x and dy at the widest C of this V, or one row where the
+// block's rings would pass 192 KB (f32 at C > 1024).  kMinBlocks is the
+// residency its registers are held to: the dgamma/dbeta sums are 16 V
+// f32 a lane, so up to V = 4 a thread fits in 128 registers and two
+// blocks share an SM.
 template <typename T, int V>
-__global__ void __launch_bounds__(kBwdWarps * 32)
+struct BwdTraits {
+  static constexpr int kRowBytes = 2 * 256 * V * (int)sizeof(T);
+  static constexpr int kStages =
+      kBwdWarps * kRingSlots * kRowBytes <= 192 * 1024 ? kRingSlots : 1;
+  static constexpr int kMinBlocks = V <= 4 ? 2 : 1;
+};
+
+// Shared memory of the row pass at C columns: gamma in f32 [C]; each
+// warp's row stats [kStages][2]; then each warp's ring [kStages][2][C]
+// of T, which the block's warp sums [kBwdWarps][2C] f32 reuse at the end.
+template <typename T, int V>
+__host__ __device__ constexpr int bwd_smem(int C) {
+  constexpr int S = BwdTraits<T, V>::kStages;
+  const int ring = kBwdWarps * S * 2 * C * (int)sizeof(T);
+  const int red = kBwdWarps * 2 * C * (int)sizeof(float);
+  return C * 4 + kBwdWarps * S * 8 + (ring > red ? ring : red);
+}
+
+// Block b of gridDim.x owns rows [b * rows / grid, (b + 1) * rows / grid);
+// its warps take every kBwdWarps-th row.  A warp keeps kStages - 1 rows
+// in flight: row k's x and dy land by cp.async in ring slot k % kStages
+// (each lane copies, and later reads, only its own 16-byte pieces, so no
+// barrier is needed), and lanes 0 and 1 copy its mu and rstd beside
+// them.  Writes dx and the block's partial row partials[b][0:C]
+// (dgamma), partials[b][C:2C] (dbeta).
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdWarps * 32, (BwdTraits<T, V>::kMinBlocks))
 ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
               const float* __restrict__ mu, const float* __restrict__ rstd,
               const T* __restrict__ dy, T* __restrict__ dx,
-              float* __restrict__ partials, int rows, int C, int rpb) {
-  extern __shared__ float red[];  // [kBwdWarps][C]
+              float* __restrict__ partials, int rows, int C) {
+  constexpr int S = BwdTraits<T, V>::kStages;
+  constexpr int kPieces = 8 * (int)sizeof(T) / 16;  // 16-byte copies a chunk
+  extern __shared__ float4 smem4[];
+  float* gs = reinterpret_cast<float*>(smem4);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int r_begin = blockIdx.x * rpb;
-  const int r_end = min(rows, r_begin + rpb);
+  float* stats = gs + C + warp * S * 2;
+  T* ring = reinterpret_cast<T*>(gs + C + kBwdWarps * S * 2) +
+            warp * S * 2 * C;
+  const long long r_begin = (long long)blockIdx.x * rows / gridDim.x;
+  const long long r_end = (long long)(blockIdx.x + 1) * rows / gridDim.x;
+  const long long first = r_begin + warp;
+  const int n = first < r_end
+                    ? (int)((r_end - first + kBwdWarps - 1) / kBwdWarps)
+                    : 0;
 
-  float g[V][8], dg[V][8], db[V][8];
+  // row k of this warp into slot k % S; one commit group, empty past n
+  auto issue = [&](int k) {
+    if (k < n) {
+      const long long row = first + (long long)k * kBwdWarps;
+      T* slot = ring + (k % S) * 2 * C;
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        const int col = chunk_col(c, lane);
+        if (col < C) {
+#pragma unroll
+          for (int q = 0; q < kPieces; ++q) {
+            const int e = col + q * 16 / (int)sizeof(T);
+            cp_async<16>(smem_u32(slot + e), x + row * C + e);
+            cp_async<16>(smem_u32(slot + C + e), dy + row * C + e);
+          }
+        }
+      }
+      if (lane < 2)
+        cp_async<4>(smem_u32(stats + (k % S) * 2 + lane),
+                    (lane == 0 ? mu : rstd) + row);
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int k = 0; k < S - 1; ++k) issue(k);
+  for (int i = threadIdx.x; i < C; i += blockDim.x) gs[i] = to_f32(gamma[i]);
+  __syncthreads();
+
+  float dg[V][8], db[V][8];
 #pragma unroll
   for (int c = 0; c < V; ++c) {
-    const int col = chunk_col(c, lane);
-    if (col < C) load8(gamma + col, g[c]);
 #pragma unroll
     for (int j = 0; j < 8; ++j) dg[c][j] = db[c][j] = 0.f;
   }
 
-  for (int row = r_begin + warp; row < r_end; row += kBwdWarps) {
-    const float m = mu[row], rs = rstd[row];
-    const T* xr = x + (long long)row * C;
-    const T* dyr = dy + (long long)row * C;
-    float xh[V][8], w[V][8];
+  for (int k = 0; k < n; ++k) {
+    issue(k + S - 1);      // into the slot row k - 1 left
+    cp_async_wait<S - 1>();  // row k has landed
+    __syncwarp();          // lanes 0 and 1's stats are seen by all
+    const T* slot = ring + (k % S) * 2 * C;
+    const float m = stats[(k % S) * 2], rs = stats[(k % S) * 2 + 1];
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int c = 0; c < V; ++c) {
       const int col = chunk_col(c, lane);
       if (col < C) {
-        float xv[8], dv[8];
-        load8(xr + col, xv);
-        load8(dyr + col, dv);
+        float xv[8], dv[8], g[8];
+        load8(slot + col, xv);
+        load8(slot + C + col, dv);
+        load8(gs + col, g);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          xh[c][j] = (xv[j] - m) * rs;
-          w[c][j] = dv[j] * g[c][j];
-          s1 += w[c][j];
-          s2 += w[c][j] * xh[c][j];
-          dg[c][j] += dv[j] * xh[c][j];
+          const float xh = (xv[j] - m) * rs;
+          const float w = dv[j] * g[j];
+          s1 += w;
+          s2 += w * xh;
+          dg[c][j] += dv[j] * xh;
           db[c][j] += dv[j];
         }
       }
     }
     const float c1 = warp_sum(s1) / C;
     const float c2 = warp_sum(s2) / C;
-    T* dxr = dx + (long long)row * C;
+    T* dxr = dx + (first + (long long)k * kBwdWarps) * C;
 #pragma unroll
     for (int c = 0; c < V; ++c) {
       const int col = chunk_col(c, lane);
       if (col < C) {
-        float o[8];
+        float xv[8], dv[8], g[8], o[8];
+        load8(slot + col, xv);
+        load8(slot + C + col, dv);
+        load8(gs + col, g);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) o[j] = (w[c][j] - c1 - xh[c][j] * c2) * rs;
+        for (int j = 0; j < 8; ++j) {
+          const float xh = (xv[j] - m) * rs;
+          o[j] = (dv[j] * g[j] - c1 - xh * c2) * rs;
+        }
         store8(dxr + col, o);
       }
     }
+    __syncwarp();          // every lane has read the stats before reuse
   }
+  cp_async_wait<0>();
 
-  // combine the warps in a fixed order, first dgamma then dbeta
-  for (int which = 0; which < 2; ++which) {
-    __syncthreads();
+  // the warps' sums, added in warp order into one partial row; they
+  // reuse the rings, so every warp must be done with its own first
+  float* red = gs + C + kBwdWarps * S * 2;
+  __syncthreads();
 #pragma unroll
-    for (int c = 0; c < V; ++c) {
-      const int col = chunk_col(c, lane);
-      if (col < C) {
+  for (int c = 0; c < V; ++c) {
+    const int col = chunk_col(c, lane);
+    if (col < C) {
+      store8(red + warp * 2 * C + col, dg[c]);
+      store8(red + warp * 2 * C + C + col, db[c]);
+    }
+  }
+  __syncthreads();
+  float* out = partials + (long long)blockIdx.x * 2 * C;
+  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) {
+    float s = 0.f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          red[warp * C + col + j] = which == 0 ? dg[c][j] : db[c][j];
-      }
-    }
-    __syncthreads();
-    float* out = partials + ((long long)which * gridDim.x + blockIdx.x) * C;
-    for (int col = threadIdx.x; col < C; col += blockDim.x) {
-      float s = 0.f;
-      for (int wi = 0; wi < kBwdWarps; ++wi) s += red[wi * C + col];
-      out[col] = s;
-    }
+    for (int w = 0; w < kBwdWarps; ++w) s += red[w * 2 * C + i];
+    out[i] = s;
   }
 }
 
-// Sums partials [2][nparts][C] over nparts into out [2][C].  Block (32,
-// kRedRows) covers 32 columns of one of the two sums; thread row ty takes
-// every kRedRows-th partial, then the rows are added in order.
-__global__ void __launch_bounds__(32 * kRedRows)
-ln_reduce_kernel(const float* __restrict__ partials, int nparts, int C,
+// Sums partials [nparts][C2] over nparts into out [C2] (C2 = 2C: dgamma,
+// then dbeta).  Block b covers columns [b * kRedCols, (b + 1) * kRedCols);
+// thread t takes column t % kRedCols of every kLanes-th partial from
+// t / kRedCols, then the lanes are added in order.
+__global__ void __launch_bounds__(kRedThreads)
+ln_reduce_kernel(const float* __restrict__ partials, int nparts, int C2,
                  float* __restrict__ out) {
-  __shared__ float acc[kRedRows][33];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int col = blockIdx.x * 32 + tx;
-  const int which = blockIdx.y;
-  const float* base = partials + (long long)which * nparts * C;
+  constexpr int kLanes = kRedThreads / kRedCols;
+  __shared__ float acc[kLanes][kRedCols];
+  const int tx = threadIdx.x % kRedCols, ty = threadIdx.x / kRedCols;
+  const int col = blockIdx.x * kRedCols + tx;  // C2 % kRedCols == 0
   float s = 0.f;
-  if (col < C)
-    for (int p = ty; p < nparts; p += kRedRows) s += base[(long long)p * C + col];
+#pragma unroll 4
+  for (int p = ty; p < nparts; p += kLanes) s += partials[(long long)p * C2 + col];
   acc[ty][tx] = s;
   __syncthreads();
-  if (ty == 0 && col < C) {
+  if (ty == 0) {
     float t = 0.f;
 #pragma unroll
-    for (int r = 0; r < kRedRows; ++r) t += acc[r][tx];
-    out[which * C + col] = t;
+    for (int r = 0; r < kLanes; ++r) t += acc[r][tx];
+    out[col] = t;
   }
 }
 
@@ -263,27 +405,60 @@ int launch_fwd(const void* x, const void* g, const void* b, void* y,
   return (int)cudaGetLastError();
 }
 
+// Raises the row pass's shared-memory limit to what the widest C of this
+// V needs and asks for the largest shared carveout; once per kernel, at
+// the first info query or launch (before any graph capture).
+template <typename T, int V>
+int prepare_bwd() {
+  static int err = -1;
+  if (err < 0) {
+    err = (int)cudaFuncSetAttribute(
+        ln_bwd_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bwd_smem<T, V>(256 * V));
+    if (err == 0)
+      err = (int)cudaFuncSetAttribute(
+          ln_bwd_kernel<T, V>, cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+  }
+  return err;
+}
+
+template <typename T, int V>
+int info_bwd(int* out) {
+  int err = prepare_bwd<T, V>();
+  if (err) return err;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, ln_bwd_kernel<T, V>);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0, dev = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, ln_bwd_kernel<T, V>, kBwdWarps * 32, bwd_smem<T, V>(256 * V));
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = blocks;
+  out[3] = sms;
+  out[4] = bwd_smem<T, V>(256 * V);
+  out[5] = BwdTraits<T, V>::kStages;
+  return 0;
+}
+
 template <typename T, int V>
 int launch_bwd(const void* x, const void* g, const float* mu,
                const float* rstd, const void* dy, void* dx, float* partials,
-               float* dgdb, int rows, int C, int rpb, cudaStream_t s) {
-  const int nparts = (rows + rpb - 1) / rpb;
-  const size_t smem = sizeof(float) * kBwdWarps * C;
-  static bool raised = false;  // once, before any graph capture
-  if (!raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ln_bwd_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(sizeof(float) * kBwdWarps * 256 * kMaxVec));
-    if (err != cudaSuccess) return (int)err;
-    raised = true;
-  }
-  ln_bwd_kernel<T, V><<<nparts, kBwdWarps * 32, smem, s>>>(
+               float* dgdb, int rows, int C, int nparts, cudaStream_t s) {
+  const int err = prepare_bwd<T, V>();
+  if (err) return err;
+  ln_bwd_kernel<T, V><<<nparts, kBwdWarps * 32, bwd_smem<T, V>(C), s>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), mu, rstd,
-      static_cast<const T*>(dy), static_cast<T*>(dx), partials, rows, C, rpb);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ln_reduce_kernel<<<dim3((C + 31) / 32, 2), 32 * kRedRows, 0, s>>>(
-      partials, nparts, C, dgdb);
+      static_cast<const T*>(dy), static_cast<T*>(dx), partials, rows, C);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ln_reduce_kernel<<<2 * C / kRedCols, kRedThreads, 0, s>>>(
+      partials, nparts, 2 * C, dgdb);
   return (int)cudaGetLastError();
 }
 
@@ -313,19 +488,32 @@ extern "C" int layernorm_fwd(const void* x, const void* gamma,
   return (int)cudaErrorInvalidValue;
 }
 
-// The row pass (dx and per-block partials) and the reduction of the
-// partials, on ``stream``.  ``partials`` is f32 scratch [2][nparts][C]
-// with nparts = ceil(rows / rows_per_block); ``dgdb`` receives f32
+// The backward row kernel for C columns of ``dtype`` on the current
+// device: out[0..5] = registers a thread, local (spill) bytes a thread,
+// blocks resident per SM, the SM count, dynamic shared bytes, and the
+// row slots in each warp's ring.  A device query: the host calls it once
+// per kernel and caches the result.
+extern "C" int layernorm_bwd_info(int dtype, int C, int* out) {
+  if (!shape_ok(1, C)) return (int)cudaErrorInvalidValue;
+  const int vec = (C + 255) / 256;
+  if (dtype == 0) { LN_DISPATCH(float, info_bwd, out) }
+  if (dtype == 1) { LN_DISPATCH(__nv_bfloat16, info_bwd, out) }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The row pass (dx and one partial row per block, over ``nparts``
+// blocks) and the reduction of the partials, on ``stream``.
+// ``partials`` is f32 scratch [nparts][2][C]; ``dgdb`` receives f32
 // [2][C]: dgamma, then dbeta.
 extern "C" int layernorm_bwd(const void* x, const void* gamma,
                              const float* mu, const float* rstd,
                              const void* dy, void* dx, float* partials,
                              float* dgdb, int dtype, int rows, int C,
-                             int rows_per_block, void* stream) {
-  if (!shape_ok(rows, C) || rows_per_block < 1) return (int)cudaErrorInvalidValue;
+                             int nparts, void* stream) {
+  if (!shape_ok(rows, C) || nparts < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int vec = (C + 255) / 256;
-  if (dtype == 0) { LN_DISPATCH(float, launch_bwd, x, gamma, mu, rstd, dy, dx, partials, dgdb, rows, C, rows_per_block, s) }
-  if (dtype == 1) { LN_DISPATCH(__nv_bfloat16, launch_bwd, x, gamma, mu, rstd, dy, dx, partials, dgdb, rows, C, rows_per_block, s) }
+  if (dtype == 0) { LN_DISPATCH(float, launch_bwd, x, gamma, mu, rstd, dy, dx, partials, dgdb, rows, C, nparts, s) }
+  if (dtype == 1) { LN_DISPATCH(__nv_bfloat16, launch_bwd, x, gamma, mu, rstd, dy, dx, partials, dgdb, rows, C, nparts, s) }
   return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,11 @@ port's counterpart of the JAX program, where the ``decode_attention``
 IR pass (``framework/ir.py``) swaps the T = 1 attention for the same
 kernel; the IR pass machinery itself is tooling-slice work.
 
-``_layernorm`` is the LayerNorm composition the serving engine shares.
+``_layernorm`` is the LayerNorm composition the serving engine shares
+and the head runs.  The block's two LayerNorms are ``_fused_layernorm``,
+which computes as the JAX program does once its ``fuse_layernorm`` IR
+pass has replaced them: statistics and affine in f32, then a cast back
+to the activation dtype (in f32 the two agree).
 """
 
 import math
@@ -37,6 +41,18 @@ def _layernorm(x, w, b, eps):
     return (x - mu) * torch.rsqrt(var + eps) * w + b
 
 
+def _fused_layernorm(x, w, b, eps):
+    """LayerNorm over the last dim as ``fuse_layernorm``'s ``apply``
+    (``paddle_tpu/framework/ir.py``) computes it: x, w and b upcast to
+    f32, mean, ``mean((x - mu) ** 2)``, ``rsqrt``, the affine, then cast
+    back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
+
+
 def _block_chunk(p, x, ck, cv, offset, num_heads, eps):
     """One decoder block over a chunk, in place on the caches.
 
@@ -48,7 +64,7 @@ def _block_chunk(p, x, ck, cv, offset, num_heads, eps):
     hd = h // num_heads
     s_max = ck.shape[1]
 
-    hh = _layernorm(x, p["ln_1.weight"], p["ln_1.bias"], eps)
+    hh = _fused_layernorm(x, p["ln_1.weight"], p["ln_1.bias"], eps)
     qkv = hh @ p["attn.qkv.weight"] + p["attn.qkv.bias"]
     qkv = qkv.reshape(b, t, 3, num_heads, hd)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -74,7 +90,7 @@ def _block_chunk(p, x, ck, cv, offset, num_heads, eps):
         out = out.reshape(b, t, h)
     x = x + out @ p["attn.proj.weight"] + p["attn.proj.bias"]
 
-    h2 = _layernorm(x, p["ln_2.weight"], p["ln_2.bias"], eps)
+    h2 = _fused_layernorm(x, p["ln_2.weight"], p["ln_2.bias"], eps)
     ff = torch.nn.functional.gelu(h2 @ p["mlp.fc_in.weight"]
                                   + p["mlp.fc_in.bias"], approximate="tanh")
     return x + ff @ p["mlp.fc_out.weight"] + p["mlp.fc_out.bias"]

@@ -5,9 +5,10 @@ The kernels (``csrc/layernorm.cu``) replace the JAX package's Pallas
 kernels ``ops/pallas/layernorm_kernel.py``: ``_ln_fwd`` (B4a) and
 ``_ln_bwd`` (B4b), wired there as a ``jax.custom_vjp`` and here as a
 ``torch.autograd.Function`` that saves ``x, gamma, mu, rstd`` and
-returns dgamma/dbeta cast to gamma's dtype.  The backward's dgamma and
-dbeta are per-block f32 partials summed by a second kernel, so they are
-deterministic.
+returns dgamma/dbeta cast to gamma's dtype.  The backward's row pass
+runs in one wave (:func:`bwd_plan`), each block writing one f32 partial
+row of dgamma and dbeta that a second kernel sums in a fixed order, so
+they are deterministic.
 
 ``fwd_launches`` counts forward launches and ``bwd_launches`` backward
 launches (the row pass and its partials reduction together), each
@@ -30,10 +31,13 @@ bwd_launches = 0
 
 _NAME = "layernorm"
 _MAX_C = 2048         # 256 * kMaxVec in the .cu
-_PARTS = 1024         # at most this many partial rows in the backward
-_MIN_ROWS_PER_BLOCK = 32
+BWD_WARPS = 8         # kBwdWarps in the .cu: warps (rows in flight) a block
+RED_COLS = 8          # kRedCols in the .cu: columns a reduce block sums
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INFO = ("registers", "local_bytes", "blocks_per_sm", "sms", "smem_bytes",
+         "ring_slots")
 _fns = {}
+_bwd_info = {}
 
 
 def supports(rows, channels, dtype=torch.float32):
@@ -45,11 +49,37 @@ def supports(rows, channels, dtype=torch.float32):
             and dtype in _DTYPES)
 
 
-def rows_per_block(rows):
-    """Rows each backward block owns: at least 32, and few enough
-    partial rows (at most 1024) that their reduction stays small."""
-    per = max(_MIN_ROWS_PER_BLOCK, -(-rows // _PARTS))
-    return -(-per // 8) * 8
+def bwd_plan(rows, channels, slots):
+    """The backward's launch plan -> (row-pass blocks, reduce blocks).
+
+    The row pass runs in one wave: as many blocks as fit on the card at
+    once (``slots``: blocks per SM times SMs, :func:`bwd_kernel_info`),
+    but no more than one per ``BWD_WARPS`` rows.  Block b owns rows
+    [b * rows // grid, (b + 1) * rows // grid) and writes one partial
+    row, so the grid is also the partial count.  The reduce kernel sums
+    the partials, ``RED_COLS`` of the 2 * C columns (dgamma, then dbeta)
+    a block.  One shape on one card always gets the same plan."""
+    grid = max(1, min(slots, -(-rows // BWD_WARPS)))
+    return grid, 2 * channels // RED_COLS
+
+
+def bwd_kernel_info(dtype, channels, device):
+    """The backward row kernel for ``channels`` columns of ``dtype`` on
+    CUDA ``device``, read from the card once per kernel and cached:
+    registers a thread, local (spill) bytes a thread, blocks resident
+    per SM, the SM count, dynamic shared bytes and the row slots in each
+    warp's ring."""
+    key = (dtype, -(-channels // 256), device.index)
+    info = _bwd_info.get(key)
+    if info is None:
+        out = (ctypes.c_int * len(_INFO))()
+        with torch.cuda.device(device):
+            rc = _kernel("layernorm_bwd_info")(_DTYPES[dtype], channels, out)
+        if rc != 0:
+            raise RuntimeError(f"layernorm backward info failed: CUDA "
+                               f"error {rc}")
+        info = _bwd_info[key] = dict(zip(_INFO, out))
+    return info
 
 
 def _kernel(name):
@@ -59,6 +89,9 @@ def _kernel(name):
         if name == "layernorm_fwd":
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
                 ctypes.c_float, ctypes.c_void_p]
+        elif name == "layernorm_bwd_info":
+            fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                           ctypes.POINTER(ctypes.c_int)]
         else:
             fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p]
@@ -115,8 +148,8 @@ def layernorm_fwd_cuda(x2d, gamma, beta, eps):
 
 def layernorm_bwd_cuda(x2d, gamma, mu, rstd, dy):
     """Launch the backward row pass and its partials reduction on the
-    current stream -> (dx [rows, C] in x's dtype, dgamma [C] f32,
-    dbeta [C] f32).  Raises like the forward."""
+    current stream, planned by :func:`bwd_plan` -> (dx [rows, C] in x's
+    dtype, dgamma [C] f32, dbeta [C] f32).  Raises like the forward."""
     global bwd_launches
     _check(x2d, gamma, (("dy", dy), ("mu", mu), ("rstd", rstd)))
     rows, c = x2d.shape
@@ -125,10 +158,10 @@ def layernorm_bwd_cuda(x2d, gamma, mu, rstd, dy):
     for name, t in (("mu", mu), ("rstd", rstd)):
         if t.dtype != torch.float32 or tuple(t.shape) != (rows,):
             raise ValueError(f"{name} must be f32 [{rows}]")
-    rpb = rows_per_block(rows)
-    nparts = -(-rows // rpb)
+    info = bwd_kernel_info(x2d.dtype, c, x2d.device)
+    nparts, _ = bwd_plan(rows, c, info["blocks_per_sm"] * info["sms"])
     dx = torch.empty_like(x2d)
-    partials = torch.empty((2, nparts, c), dtype=torch.float32,
+    partials = torch.empty((nparts, 2, c), dtype=torch.float32,
                            device=x2d.device)
     dgdb = torch.empty((2, c), dtype=torch.float32, device=x2d.device)
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
@@ -136,7 +169,7 @@ def layernorm_bwd_cuda(x2d, gamma, mu, rstd, dy):
         rc = _kernel("layernorm_bwd")(
             x2d.data_ptr(), gamma.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
             dy.data_ptr(), dx.data_ptr(), partials.data_ptr(),
-            dgdb.data_ptr(), _DTYPES[x2d.dtype], rows, c, rpb, stream)
+            dgdb.data_ptr(), _DTYPES[x2d.dtype], rows, c, nparts, stream)
     if rc != 0:
         raise RuntimeError(f"layernorm backward launch failed: CUDA error "
                            f"{rc}")

@@ -11,6 +11,9 @@ held to the Pallas ``_ln_fwd``/``_ln_bwd`` directly; the CUDA kernels
 are held to them on the card by ``chip_smoke.py``.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -138,11 +141,38 @@ def test_supports_and_backward_partials():
     assert not lnk.supports(256, 100)       # not a multiple of 8
     assert not lnk.supports(256, 4096)      # beyond the register rows
     assert not lnk.supports(256, 128, torch.float16)
-    for rows in (1, 21, 256, 8192, 8193, 10 ** 6):
-        rpb = lnk.rows_per_block(rows)
-        assert rpb % 8 == 0 and rpb >= 32
-        assert -(-rows // rpb) <= 1024
-    assert -(-8192 // lnk.rows_per_block(8192)) == 256
+    # the backward's plan: one wave of at most ``slots`` blocks (two on
+    # each of an H100's 132 SMs here), each owning an even run of rows
+    # and writing one partial row, then C / 4 reduce blocks
+    slots = 2 * 132
+    for rows in (1, 5, 21, 256, 8190, 8192, 8193, 10 ** 6):
+        for c in (8, 128, 520, 768, 1024, 2048):
+            grid, reduce_grid = lnk.bwd_plan(rows, c, slots)
+            assert 1 <= grid <= min(slots, -(-rows // lnk.BWD_WARPS))
+            bounds = np.arange(grid + 1, dtype=np.int64) * rows // grid
+            owned = np.diff(bounds)
+            assert owned.sum() == rows and owned.min() >= 1
+            assert owned.max() - owned.min() <= 1
+            assert reduce_grid * lnk.RED_COLS == 2 * c
+    assert lnk.bwd_plan(8192, 768, slots) == (264, 192)   # >= 132 SMs
+    assert lnk.bwd_plan(5, 768, slots) == (1, 192)        # rows < blocks
+    assert lnk.bwd_plan(10 ** 6, 768, slots)[0] == slots
+    assert lnk.bwd_plan(8192, 768, 132)[0] == 132     # one block an SM
+
+
+def test_backward_plan_constants_are_the_kernel_constexprs():
+    """The host's warps a block and columns a reduce block are the
+    constexprs ``csrc/layernorm.cu`` launches with."""
+    src = (Path(lnk.__file__).resolve().parents[2] / "csrc"
+           / "layernorm.cu").read_text()
+
+    def constexpr(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             src).group(1))
+
+    assert constexpr("kBwdWarps") == lnk.BWD_WARPS
+    assert constexpr("kRedCols") == lnk.RED_COLS
+    assert constexpr("kRedThreads") % lnk.RED_COLS == 0
 
 
 def test_cuda_wrappers_raise_on_cpu_tensors():
