@@ -40,22 +40,35 @@ and the script exits non-zero:
               weights and K/V round trip (``quality.engine_logits``),
               with the int8 kernel on every layer of every step; and
               FusedMultiTransformer's greedy output must equal both, with
-              the decode kernel on every layer of every decode step;
+              the decode kernel on every layer of every decode step; the
+              steps run as CUDA-graph replays (each bucket or batch
+              size captured at its first step);
 5. train exactness — three AdamW TrainSteps of a 2-layer, hidden-128
               model in f32 on the card against the same steps on the
               port's CPU path, with the flash-attention and LayerNorm
               kernels launched on every layer of every step; then the
               same model in O2 bf16 on the card, with the bf16 flash
               kernels against attention through the f32 plain versions;
+   graphs   — the captured steps at GPT-124M width (bf16): for the bf16
+              and int8 engines, every token bucket captured as ``warmup``
+              captures it, then a packed step with padding that mixes a
+              prefill chunk with decode rows, replayed against the eager
+              step body from the same pools (argmax, logits and pools
+              bitwise equal), with each capture's ms and the shared
+              pool's bytes; FusedMultiTransformer at batch 8 likewise at
+              three decode offsets;
 6. serving  — GPT-124M (random weights from a seed, bf16) behind the
               engine at block_size 16, max_batch 8, token_budget 256,
               prefix caching on: warmup, then 16 requests (8 sharing a
               256-token prefix, 64 new tokens each, 2 of them sampled);
-              every request must finish by length with 64 tokens and
-              the kernel's launch count must equal num_layers x the
-              engine's launches; then a window of batch-8 decode steps,
-              wall time per step against device time under
-              torch.profiler;
+              every request must finish by length with 64 tokens, the
+              burst must capture no graph after ``warmup`` and replay
+              every step, and the kernel's launch count must equal
+              num_layers x the engine's launches; then a window of
+              batch-8 decode steps, wall time per step against device
+              time under torch.profiler, and the host's share of a step
+              split into schedule, pack, copy + replay, the argmax pull
+              and commit;
 7. int8 serving — the same model and burst with ``quantize="int8"``
               on the int8 kernel; its resident bytes must be the memory
               model's weights + pool within 1%, the bf16 engine's
@@ -1289,11 +1302,21 @@ def exactness_phase(dev):
     say("exactness", prompts=len(prompts), steps=eng.stats["steps"],
         mixed_steps=eng.stats["mixed_steps"],
         prefix_hit_tokens=eng.prefix_cache_stats()["prefix_hit_tokens"],
-        kernel_launches=launches, expected_launches=want)
+        kernel_launches=launches, expected_launches=want,
+        graph_captures=eng._graphs.captures,
+        graph_replays=eng._graphs.replays)
     if launches != want or eng.stats["mixed_steps"] < 1:
         raise RuntimeError("exactness run did not go through the kernel "
                            "on every layer of every step, or mixed no "
                            "phases")
+    _require_replays(eng._graphs, eng.stats["launches"])
+
+
+def _require_replays(graphs, steps):
+    """Every step ran as a replay but each key's first, which captured."""
+    if graphs.replays + graphs.captures != steps or not graphs.replays:
+        raise RuntimeError(f"{steps} steps ran {graphs.replays} replays and "
+                           f"{graphs.captures} captures")
 
 
 def _exactness_model_and_prompts(dev):
@@ -1342,11 +1365,13 @@ def int8_exactness_phase(dev):
     want = eng.num_layers * eng.stats["launches"]
     say("int8_exactness", prompts=len(prompts), steps=eng.stats["steps"],
         mixed_steps=eng.stats["mixed_steps"], kernel_launches=launches,
-        expected_quant_launches=want)
+        expected_quant_launches=want, graph_captures=eng._graphs.captures,
+        graph_replays=eng._graphs.replays)
     if (launches["paged_ragged_attention_quant"] != want
             or launches["paged_ragged_attention"]):
         raise RuntimeError("the int8 run did not go through the int8 kernel "
                            "on every layer of every step")
+    _require_replays(eng._graphs, eng.stats["launches"])
 
 
 def fmt_exactness_phase(dev):
@@ -1376,9 +1401,11 @@ def fmt_exactness_phase(dev):
             _report_first_flip(model, out, dense, dev)
     say("fmt_exactness", prompts=len(prompts),
         decode_steps=fmt.decode_steps, kernel_launches=launches,
-        expected_launches=want)
+        expected_launches=want, graph_captures=fmt._graphs.captures,
+        graph_replays=fmt._graphs.replays)
     if launches != want:
         raise RuntimeError(f"decode kernel launches {launches} != {want}")
+    _require_replays(fmt._graphs, fmt.decode_steps)
 
 
 def _report_first_flip(model, out, ref, dev):
@@ -1399,6 +1426,116 @@ def _report_first_flip(model, out, ref, dev):
 
 _SERVE_ENGINE = dict(dtype="bfloat16", block_size=16, max_batch=8,
                      token_budget=256, enable_prefix_caching=True)
+
+
+def _mixed_step(eng, tb, rng):
+    """A packed step for bucket ``tb`` with padding: a prefill chunk of
+    ``tb - 4`` tokens at position 48 and two decode rows at depths 100
+    and 37, each row on pages of its own."""
+    pages = eng.max_pages
+    rows = [(rng.randint(0, eng.vocab_size, tb - 4), 48),
+            (rng.randint(0, eng.vocab_size, 1), 100),
+            (rng.randint(0, eng.vocab_size, 1), 37)]
+    return eng._pack_rows(
+        [(toks, pos0, (np.arange(pages) + r * pages) % eng.num_blocks)
+         for r, (toks, pos0) in enumerate(rows)], tb)
+
+
+def _replay_against_eager(state, eager, replay):
+    """Run ``eager()`` from a snapshot of the ``state`` tensors, restore
+    them, run ``replay()`` -> (whether the outputs and the states after
+    the two runs are bitwise equal, the replay's outputs)."""
+    import torch
+
+    snap = [t.clone() for t in state]
+    want = eager()
+    after = [t.clone() for t in state]
+    for t, saved in zip(state, snap):
+        t.copy_(saved)
+    got = replay()
+    torch.cuda.synchronize()
+    return (all(torch.equal(a, b) for a, b in zip(got, want))
+            and all(torch.equal(a, b) for a, b in zip(state, after))), got
+
+
+def graphs_phase(dev):
+    """The captured steps at GPT-124M width (random bf16 weights from
+    seed 0).  The bf16 and the int8 engine (the smoke's serving
+    settings): each token bucket is captured as ``warmup`` does it,
+    largest first (a dead-row step run eagerly, then captured), with its
+    capture ms and the shared pool's bytes after it; then for every
+    bucket a packed step with padding that mixes a prefill chunk with two
+    decode rows runs as the eager body and, from the same pools, as the
+    engine's replay: argmax, logits and the visible pools (and scale
+    pools) must be bitwise equal.  FusedMultiTransformer at batch 8
+    (128-token prompts, ``max_length`` 192): its decode replay against
+    the eager decode body at offsets 129, 160 and 191, logits and caches
+    bitwise.  Outside the main paths: no launch here is counted in the
+    ``kernels`` line."""
+    import torch
+
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.inference.llm import LLMEngine
+    from paddle_tpu_torch.models.gpt import gpt_124m
+
+    model = gpt_124m(device=dev, seed=0, dtype=torch.bfloat16).eval()
+    rng = np.random.RandomState(55)
+    failed = []
+    for quantize in (None, "int8"):
+        engine = quantize or "bf16"
+        eng = LLMEngine(model, device=dev, quantize=quantize,
+                        **_SERVE_ENGINE)
+        graphs = eng._graphs
+        pool_bytes = {}
+        for _, tb in sorted(eng._bucket_grid(), key=lambda b: -b[1]):
+            eng._ragged_fn(eng._pack_rows([], tb))
+            pool_bytes[tb] = graphs.pool_bytes()
+        state = [t for t in (eng._kc, eng._vc, eng._ks, eng._vs)
+                 if t is not None]
+        for _, tb in eng._bucket_grid():
+            pk = _mixed_step(eng, tb, rng)
+            ints = torch.from_numpy(pk["ints"]).to(dev)
+            replays = graphs.replays
+            ok, _ = _replay_against_eager(
+                state, lambda: eng._ragged_body(ints),
+                lambda: eng._ragged_fn(pk))
+            ok = ok and graphs.replays == replays + 1
+            say("graphs", engine=engine, bucket=tb, live_tokens=pk["total"],
+                capture_ms=graphs.capture_ms[tb],
+                pool_bytes_after_capture=pool_bytes[tb], bitwise=ok)
+            if not ok:
+                failed.append(f"{engine} bucket {tb}")
+        say("graphs_pool", engine=engine, captures=graphs.captures,
+            pool_bytes=graphs.pool_bytes(),
+            sink_bytes=sum(t.numel() * t.element_size() for t in (
+                eng._k_rows, eng._v_rows, eng._ks_flat, eng._vs_flat)
+                if t is not None) - sum(
+                t.numel() * t.element_size() for t in state))
+        del eng, graphs, state
+
+    batch, prompt = 8, 128
+    fmt = FusedMultiTransformer(model, max_length=192, dtype="bfloat16",
+                                device=dev)
+    ck, cv = fmt._cache(batch)
+    logits = fmt._forward_chunk(torch.as_tensor(
+        rng.randint(0, 50257, (batch, prompt)), device=dev), ck, cv, 0)
+    logits = fmt._decode_step(logits.argmax(-1).cpu().numpy(), prompt)
+    for off in (129, 160, 191):
+        toks = logits.argmax(-1).cpu().numpy()
+        buf = torch.as_tensor(np.append(toks, off), device=dev)
+        replays = fmt._graphs.replays
+        ok, (logits,) = _replay_against_eager(
+            [ck, cv], lambda: [fmt._decode_body(buf)],
+            lambda: [fmt._decode_step(toks, off)])
+        ok = ok and fmt._graphs.replays == replays + 1
+        say("graphs", engine="fmt", batch=batch, offset=off,
+            capture_ms=fmt._graphs.capture_ms[batch],
+            pool_bytes=fmt._graphs.pool_bytes(), bitwise=ok)
+        if not ok:
+            failed.append(f"fmt offset {off}")
+    if failed:
+        raise RuntimeError(f"replay differs from the eager step body: "
+                           f"{failed}")
 
 
 def _burst_prompts():
@@ -1433,6 +1570,9 @@ def _serve_burst(eng, dev, kernel, new=64):
     registry.reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     warm = eng.warmup()
+    graphs = eng._graphs
+    captures, replays = graphs.captures, graphs.replays
+    steps0 = eng.stats["launches"]
     t_start = time.perf_counter()
     rids = [eng.add_request(p, max_new_tokens=new,
                             temperature=0.8 if i in sampled else 0.0,
@@ -1457,6 +1597,13 @@ def _serve_burst(eng, dev, kernel, new=64):
         raise RuntimeError(f"kernel launches {launches} != {want}")
     if eng.stats["mixed_steps"] < 1:
         raise RuntimeError("no step mixed prefill chunks with decodes")
+    burst_replays = graphs.replays - replays
+    if (graphs.captures != captures
+            or burst_replays != eng.stats["launches"] - steps0):
+        raise RuntimeError(
+            f"the burst captured {graphs.captures - captures} graphs after "
+            f"warmup() and replayed {burst_replays} of "
+            f"{eng.stats['launches'] - steps0} steps")
     ttft = [o.metrics["first_token"] - o.metrics["arrival"]
             for o in outs.values()]
     tpot = [(o.metrics["finished"] - o.metrics["first_token"]) / (new - 1)
@@ -1471,7 +1618,10 @@ def _serve_burst(eng, dev, kernel, new=64):
         tpot_p50_ms=float(np.median(tpot)) * 1e3,
         steps=eng.stats["steps"], mixed_steps=eng.stats["mixed_steps"],
         engine_launches=eng.stats["launches"], kernel_launches=launches,
-        warmup_ms=warm, peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+        graph_replays=burst_replays,
+        graph_captures_after_warmup=graphs.captures - captures,
+        graph_pool_bytes=graphs.pool_bytes(), warmup_ms=warm,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
     return (launches, prompts, sampled,
             [outs[r] for r in rids], record)
 
@@ -1590,18 +1740,49 @@ def int8_serving_phase(dev):
 def decode_profile_phase(eng, dev, window=16, engine="bf16"):
     """Where a decode step's time goes at GPT-124M width: 8 requests
     with 128-token prompts are prefilled, then ``window`` decode steps
-    run on the host clock and ``window`` more under torch.profiler.
-    Reports wall ms per step, device-busy ms per step (sum of device
-    time in the profiled window) and the kernels that take the most
-    device time.  Outside the main path: its launches are not counted
-    in the ``kernels`` line."""
+    run on the host clock, ``window`` more under torch.profiler and
+    ``window`` more with the host's share split by part
+    (:func:`_host_split`).  Reports wall ms per step, device-busy ms per
+    step (sum of device time in the profiled window), the kernels that
+    take the most device time and the ragged kernel's share, which the
+    profiler must see inside the replays.  Then the same 8 prompts again
+    (their prefixes now cached, so the decode steps sit at the same
+    positions) with the step body dispatched op by op instead of
+    replayed (``decode_profile_eager``): the replay's yardstick in the
+    same call.  Outside the main path: its launches are not counted in
+    the ``kernels`` line."""
+    rng = np.random.RandomState(99)
+    prompts = [list(rng.randint(0, 50257, 128)) for _ in range(eng.max_batch)]
+    wall_ms, prof, host_ms = _decode_windows(eng, dev, prompts, window,
+                                             split=True)
+    share = _kernel_share(prof, "ragged_split_kernel", "ragged_combine")
+    say("decode_profile", engine=engine, batch=eng.max_batch, steps=window,
+        ragged_kernel_device_share=share,
+        host_ms_per_step=host_ms, **_device_profile(prof, window, wall_ms))
+    if not share:
+        raise RuntimeError("torch.profiler saw no ragged attention kernel "
+                           "in the replayed decode window")
+    eng._ragged_fn = _eager_ragged_fn(eng)
+    try:
+        wall_ms, prof, _ = _decode_windows(eng, dev, prompts, window)
+    finally:
+        del eng._ragged_fn
+    say("decode_profile_eager", engine=engine, batch=eng.max_batch,
+        steps=window, ragged_kernel_device_share=_kernel_share(
+            prof, "ragged_split_kernel", "ragged_combine"),
+        **_device_profile(prof, window, wall_ms))
+
+
+def _decode_windows(eng, dev, prompts, window, split=False):
+    """Prefill ``prompts``, then ``window`` decode steps on the host
+    clock, ``window`` under torch.profiler and, with ``split``, ``window``
+    under :func:`_host_split`; the requests then run to their end.
+    Returns (wall ms per step, the profiler, the host split or None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    rng = np.random.RandomState(99)
-    for _ in range(eng.max_batch):
-        eng.add_request(list(rng.randint(0, 50257, 128)),
-                        max_new_tokens=4 * window)
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=4 * window)
     while eng.scheduler.waiting or not all(
             r.prefill_done for r in eng.scheduler.running):
         eng.step()
@@ -1616,12 +1797,71 @@ def decode_profile_phase(eng, dev, window=16, engine="bf16"):
         for _ in range(window):
             eng.step()
         torch.cuda.synchronize(dev)
-    say("decode_profile", engine=engine, batch=eng.max_batch, steps=window,
-        ragged_kernel_device_share=_kernel_share(
-            prof, "ragged_split_kernel", "ragged_combine"),
-        **_device_profile(prof, window, wall_ms))
+    host_ms = _host_split(eng, window) if split else None
     while eng.has_unfinished():
         eng.step()
+    return wall_ms, prof, host_ms
+
+
+def _eager_ragged_fn(eng):
+    """A stand-in for ``eng._ragged_fn`` that copies the packed operands
+    to the card and dispatches the step body op by op, with no graph:
+    the yardstick a replay is read against.  Greedy steps without
+    copy-on-write only, as the decode windows run."""
+    import torch
+
+    def run(pk):
+        if pk["cows"] or pk["pipeline"] is not None:
+            raise RuntimeError("the eager yardstick takes plain greedy steps")
+        eng.stats["launches"] += 1
+        return eng._ragged_body(torch.from_numpy(pk["ints"]).to(eng.device))
+    return run
+
+
+# the parts of LLMEngine.step timed by _host_split: (object attribute,
+# name); the pull waits for the replay to finish on the card
+_STEP_PARTS = (("scheduler.schedule", "schedule"), ("_pack_ragged", "pack"),
+               ("_ragged_fn", "copy_replay"), ("_pull", "argmax_pull"),
+               ("_commit", "commit"))
+
+
+def _host_split(eng, steps):
+    """Host ms per step of each part of ``steps`` engine steps, on the
+    host clock around each part's call, and of the rest of the step
+    (``other``): the engine's methods are wrapped on the instance for
+    the window and unwrapped after."""
+    import torch
+
+    parts = dict.fromkeys([name for _, name in _STEP_PARTS], 0.0)
+    wrapped = []
+
+    def timed(fn, name):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                parts[name] += time.perf_counter() - t0
+        return call
+
+    for path, name in _STEP_PARTS:
+        *owner, attr = path.split(".")
+        obj = eng if not owner else getattr(eng, owner[0])
+        setattr(obj, attr, timed(getattr(obj, attr), name))
+        wrapped.append((obj, attr))
+    try:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize(eng.device)
+        wall = time.perf_counter() - t0
+    finally:
+        for obj, attr in wrapped:
+            delattr(obj, attr)
+    out = {name: t / steps * 1e3 for name, t in parts.items()}
+    out["other"] = (wall - sum(parts.values())) / steps * 1e3
+    out["wall"] = wall / steps * 1e3
+    return out
 
 
 def _device_profile(prof, steps, wall_ms):
@@ -1680,10 +1920,13 @@ def fmt_decode_phase(dev, batch=8, prompt=128, new=64, window=16):
     """FusedMultiTransformer over GPT-124M in bf16 (random weights from
     seed 0): ``batch`` prompts of ``prompt`` tokens, ``new`` greedy
     tokens (the main path: counts reset just before and read just
-    after), B6 on every layer of every decode step; ms per decode step
-    (the run less a prefill-only run); then ``window`` decode steps on
-    the host clock and ``window`` under torch.profiler, with B6's share
-    of the device time.  Returns the B6 count."""
+    after), B6 on every layer of every decode step, every decode step a
+    replay; ms per decode step (the run less a prefill-only run); then
+    ``window`` decode steps on the host clock and ``window`` under
+    torch.profiler, with B6's share of the device time, which the
+    profiler must see inside the replays; and the same windows with the
+    decode body dispatched op by op (``fmt_decode_eager``), the replay's
+    yardstick in the same call.  Returns the B6 count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1704,6 +1947,7 @@ def fmt_decode_phase(dev, batch=8, prompt=128, new=64, window=16):
     prefill_s = time.perf_counter() - t0
     registry.reset_counts()
     steps0 = fmt.decode_steps
+    captures, replays = fmt._graphs.captures, fmt._graphs.replays
     t0 = time.perf_counter()
     out = fmt.generate(ids, max_new_tokens=new)
     torch.cuda.synchronize(dev)
@@ -1711,42 +1955,67 @@ def fmt_decode_phase(dev, batch=8, prompt=128, new=64, window=16):
     launches = registry.counts()["decode_attention"]
     steps = fmt.decode_steps - steps0
     want = fmt.num_layers * steps
+    replayed = fmt._graphs.replays - replays
     if out.shape != (batch, prompt + new) or not (
             (out >= 0) & (out < 50304)).all():
         raise RuntimeError(f"FMT output {out.shape} out of range")
 
-    ck, cv = fmt.init_cache(batch)
-    logits = fmt._forward_chunk(torch.as_tensor(ids, device=dev), ck, cv, 0)
-    pos = prompt
+    def windows(step):
+        """Prefill, one step, then ``window`` steps of ``step(tokens,
+        offset)`` on the host clock and ``window`` under torch.profiler,
+        each pulling the argmax first as generate does."""
+        ck, cv = fmt._cache(batch)
+        logits = fmt._forward_chunk(torch.as_tensor(ids, device=dev), ck, cv,
+                                    0)
+        pos = prompt
 
-    def run(n):
-        nonlocal logits, pos
-        for _ in range(n):
-            tok = logits.argmax(-1)[:, None]
-            logits = fmt._forward_chunk(tok, ck, cv, pos)
-            pos += 1
+        def run(n):
+            nonlocal logits, pos
+            for _ in range(n):
+                logits = step(logits.argmax(-1).cpu().numpy(), pos)
+                pos += 1
 
-    run(1)
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    run(window)
-    torch.cuda.synchronize(dev)
-    wall_ms = (time.perf_counter() - t0) / window * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+        run(1)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
         run(window)
         torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) / window * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(window)
+            torch.cuda.synchronize(dev)
+        return wall_ms, prof
+
+    def eager_step(tokens, offset):
+        # the yardstick: the decode body dispatched op by op, no graph
+        return fmt._decode_body(torch.as_tensor(
+            np.append(np.asarray(tokens, np.int64), offset), device=dev))
+
+    e_wall_ms, e_prof = windows(eager_step)
+    wall_ms, prof = windows(fmt._decode_step)
+    share = _kernel_share(prof, "decode_split_kernel", "decode_combine")
     say("fmt_decode", model="gpt_124m", dtype="bfloat16", batch=batch,
         prompt_tokens=prompt, new_tokens=new, wall_s=wall,
         prefill_s=prefill_s, decode_steps=steps,
         ms_per_decode_step=(wall - prefill_s) / steps * 1e3,
         tokens_per_s=batch * new / wall, kernel_launches=launches,
-        expected_launches=want,
-        decode_kernel_device_share=_kernel_share(
-            prof, "decode_split_kernel", "decode_combine"),
+        expected_launches=want, graph_replays=replayed,
+        graph_captures=fmt._graphs.captures - captures,
+        graph_pool_bytes=fmt._graphs.pool_bytes(),
+        decode_kernel_device_share=share,
         **_device_profile(prof, window, wall_ms))
+    say("fmt_decode_eager", batch=batch, steps=window,
+        decode_kernel_device_share=_kernel_share(
+            e_prof, "decode_split_kernel", "decode_combine"),
+        **_device_profile(e_prof, window, e_wall_ms))
     if launches != want:
         raise RuntimeError(f"decode kernel launches {launches} != {want}")
+    if replayed != steps or fmt._graphs.captures != captures:
+        raise RuntimeError("the FMT's decode steps did not all replay")
+    if not share:
+        raise RuntimeError("torch.profiler saw no decode kernel in the "
+                           "replayed decode window")
     return launches
 
 
@@ -2148,6 +2417,8 @@ def main():
     fmt_exactness_phase(dev)
     train_exactness_phase(dev)
     train_exactness_bf16_phase(dev)
+    graphs_phase(dev)
+    torch.cuda.empty_cache()
     launches, eng = serving_phase(dev)
     decode_profile_phase(eng, dev)
     del eng

@@ -4,11 +4,20 @@ Port of ``paddle_tpu/incubate/nn/__init__.py``.  ``FusedMultiTransformer``
 runs the decoder stack of a GPT model over dense per-layer K/V caches
 ``[L, B, max_length, nh, hd]`` updated in place.  A prefill chunk
 (T > 1) is the masked composition ``_block_chunk``; a one-token decode
-step calls ``ragged_decode_attention`` with ``lengths = offset + 1``,
-which reaches the dense-cache decode kernel on the card.  That is the
-port's counterpart of the JAX program, where the ``decode_attention``
-IR pass (``framework/ir.py``) swaps the T = 1 attention for the same
-kernel; the IR pass machinery itself is tooling-slice work.
+step (``_block_decode``) calls ``ragged_decode_attention`` with
+``lengths = offset + 1``, which reaches the dense-cache decode kernel on
+the card.  That is the port's counterpart of the JAX program, where the
+``decode_attention`` IR pass (``framework/ir.py``) swaps the T = 1
+attention for the same kernel; the IR pass machinery itself is
+tooling-slice work.
+
+The decode step takes its offset as a device tensor, as the JAX
+``_decode`` traces it, so one step body serves every position: on CUDA
+``generate`` captures it once per batch size as a CUDA graph
+(``jit/graphs.py``) over caches the FMT keeps per batch size (the
+counterpart of the JAX ``_decode`` donating its caches) and replays it
+every decode step; the CPU runs the same body eagerly.  Prefill runs
+eagerly, once per call.
 
 ``_layernorm`` is the LayerNorm composition the serving engine shares
 and the head runs.  The block's two LayerNorms are ``_fused_layernorm``,
@@ -23,6 +32,7 @@ import numpy as np
 import torch
 
 from ...framework.device import resolve_device
+from ...jit.graphs import StepGraphs
 from . import functional  # noqa: F401
 from .functional import ragged_decode_attention
 
@@ -53,47 +63,66 @@ def _fused_layernorm(x, w, b, eps):
     return (y * w.float() + b.float()).to(x.dtype)
 
 
-def _block_chunk(p, x, ck, cv, offset, num_heads, eps):
-    """One decoder block over a chunk, in place on the caches.
-
-    x [B, T, H]; ck / cv [B, S_max, nh, hd]; ``offset`` tokens are
-    already cached.  The chunk's k/v land at [offset:offset+T]; T > 1
-    attends densely over every cached position with future and unwritten
-    slots masked, T == 1 goes through ``ragged_decode_attention``."""
+def _qkv(p, x, num_heads, eps):
+    """A block's first LayerNorm and QKV projection -> q, k, v, each
+    [B, T, nh, hd] views."""
     b, t, h = x.shape
-    hd = h // num_heads
-    s_max = ck.shape[1]
-
     hh = _fused_layernorm(x, p["ln_1.weight"], p["ln_1.bias"], eps)
     qkv = hh @ p["attn.qkv.weight"] + p["attn.qkv.bias"]
-    qkv = qkv.reshape(b, t, 3, num_heads, hd)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    ck[:, offset:offset + t] = k.to(ck.dtype)
-    cv[:, offset:offset + t] = v.to(cv.dtype)
+    qkv = qkv.reshape(b, t, 3, num_heads, h // num_heads)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
-    if t == 1:
-        lengths = torch.full((b,), offset + 1, dtype=torch.int32,
-                             device=x.device)
-        out = ragged_decode_attention(q[:, 0].contiguous(), ck, cv, lengths)
-        out = out.to(x.dtype).reshape(b, 1, h)
-    else:
-        scale = 1.0 / math.sqrt(hd)
-        logits = torch.einsum("bqnd,bknd->bnqk", q, ck.to(x.dtype)) * scale
-        q_pos = offset + torch.arange(t, device=x.device)[:, None]
-        k_pos = torch.arange(s_max, device=x.device)[None, :]
-        mask = (k_pos <= q_pos)[None, None]
-        logits = torch.where(mask, logits,
-                             torch.tensor(-1e30, dtype=x.dtype,
-                                          device=x.device))
-        att = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-        out = torch.einsum("bnqk,bknd->bqnd", att, cv.to(x.dtype))
-        out = out.reshape(b, t, h)
+
+def _block_tail(p, x, out, eps):
+    """The attention output projection, residual and MLP of a block."""
     x = x + out @ p["attn.proj.weight"] + p["attn.proj.bias"]
-
     h2 = _fused_layernorm(x, p["ln_2.weight"], p["ln_2.bias"], eps)
     ff = torch.nn.functional.gelu(h2 @ p["mlp.fc_in.weight"]
                                   + p["mlp.fc_in.bias"], approximate="tanh")
     return x + ff @ p["mlp.fc_out.weight"] + p["mlp.fc_out.bias"]
+
+
+def _block_chunk(p, x, ck, cv, offset, num_heads, eps):
+    """One decoder block over a chunk, in place on the caches.
+
+    x [B, T, H]; ck / cv [B, S_max, nh, hd]; ``offset`` (an int) tokens
+    are already cached.  The chunk's k/v land at [offset:offset+T]; T > 1
+    attends densely over every cached position with future and unwritten
+    slots masked, T == 1 is :func:`_block_decode` at ``offset``."""
+    b, t, h = x.shape
+    if t == 1:
+        off = torch.full((1,), offset, dtype=torch.int64, device=x.device)
+        return _block_decode(p, x, ck, cv, off, num_heads, eps)
+    hd = h // num_heads
+    s_max = ck.shape[1]
+    q, k, v = _qkv(p, x, num_heads, eps)
+    ck[:, offset:offset + t] = k.to(ck.dtype)
+    cv[:, offset:offset + t] = v.to(cv.dtype)
+    scale = 1.0 / math.sqrt(hd)
+    logits = torch.einsum("bqnd,bknd->bnqk", q, ck.to(x.dtype)) * scale
+    q_pos = offset + torch.arange(t, device=x.device)[:, None]
+    k_pos = torch.arange(s_max, device=x.device)[None, :]
+    mask = (k_pos <= q_pos)[None, None]
+    logits = torch.where(mask, logits,
+                         torch.tensor(-1e30, dtype=x.dtype,
+                                      device=x.device))
+    att = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+    out = torch.einsum("bnqk,bknd->bqnd", att, cv.to(x.dtype))
+    return _block_tail(p, x, out.reshape(b, t, h), eps)
+
+
+def _block_decode(p, x, ck, cv, off, num_heads, eps):
+    """One decoder block over one token a sequence, in place on the
+    caches, at the device offset ``off`` (int64 [1]): k/v land by
+    ``index_copy_`` at ``off`` and ``lengths = off + 1`` is formed on the
+    device, so no host int enters (the form a CUDA graph captures)."""
+    b, _, h = x.shape
+    q, k, v = _qkv(p, x, num_heads, eps)
+    ck.index_copy_(1, off, k.to(ck.dtype))
+    cv.index_copy_(1, off, v.to(cv.dtype))
+    lengths = (off + 1).to(torch.int32).expand(b).contiguous()
+    out = ragged_decode_attention(q[:, 0].contiguous(), ck, cv, lengths)
+    return _block_tail(p, x, out.to(x.dtype).reshape(b, 1, h), eps)
 
 
 class FusedMultiTransformer:
@@ -106,7 +135,9 @@ class FusedMultiTransformer:
     ``device=None`` runs on CUDA and raises when it is missing;
     ``device="cpu"`` runs the plain PyTorch path.  ``dtype`` (float32 by
     default, or bfloat16) is the params', activations' and caches'.
-    ``decode_steps`` counts the one-token steps run so far.
+    ``decode_steps`` counts the one-token steps run so far.  On CUDA each
+    batch size's first decode step captures the step as a CUDA graph and
+    later ones replay it.
     """
 
     def __init__(self, model, max_length=1024, dtype=None, device=None):
@@ -134,6 +165,10 @@ class FusedMultiTransformer:
         self._layers = [{k: v[i] for k, v in blocks.items()}
                         for i in range(self.num_layers)]
         self.decode_steps = 0
+        # batch size -> (k cache, v cache) the decode graphs write
+        self._caches = {}
+        # one captured graph of the decode step per batch size (CUDA)
+        self._graphs = StepGraphs(self._decode_body, self.device)
 
     def init_cache(self, batch):
         """Zeroed K and V caches [L, batch, max_length, nh, hd]."""
@@ -142,10 +177,22 @@ class FusedMultiTransformer:
         return (torch.zeros(shape, dtype=self.dtype, device=self.device),
                 torch.zeros(shape, dtype=self.dtype, device=self.device))
 
+    def _cache(self, batch):
+        """The zeroed caches owned for ``batch``: allocated at its first
+        use, then reused, so a captured decode graph keeps its
+        addresses."""
+        if batch not in self._caches:
+            self._caches[batch] = self.init_cache(batch)
+        else:
+            for c in self._caches[batch]:
+                c.zero_()
+        return self._caches[batch]
+
     @torch.no_grad()
     def _forward_chunk(self, ids, ck, cv, offset):
-        """ids [B, T] at positions offset..offset+T-1 -> logits of the
-        last token [B, V]; the chunk's k/v are written into the caches."""
+        """ids [B, T] at positions offset..offset+T-1 (``offset`` an int)
+        -> logits of the last token [B, V]; the chunk's k/v are written
+        into the caches."""
         emb = self.params["embed"]
         pos = torch.arange(offset, offset + ids.shape[1], device=self.device)
         x = (emb["word_embeddings.weight"][ids]
@@ -154,11 +201,45 @@ class FusedMultiTransformer:
         for i, p_l in enumerate(self._layers):
             x = _block_chunk(p_l, x, ck[i], cv[i], offset, self.num_heads,
                              self.eps)
-        if ids.shape[1] == 1:
-            self.decode_steps += 1
+        return self._head(x)
+
+    def _head(self, x):
+        emb = self.params["embed"]
         x = _layernorm(x, self.params["head"]["weight"],
                        self.params["head"]["bias"], self.eps)
         return x[:, -1] @ emb["word_embeddings.weight"].T.to(self.dtype)
+
+    @torch.no_grad()
+    def _decode_body(self, buf):
+        """The decode step body: ``buf`` int64 [B + 1] on the device holds
+        the B tokens, then the offset they sit at; runs one token a
+        sequence through the caches owned for B -> logits [B, V].
+
+        What a CUDA graph captures per batch size and the CPU runs as it
+        is: device tensors only, no host int, no counter."""
+        b = buf.shape[0] - 1
+        ids, off = buf[:b, None], buf[b:]
+        ck, cv = self._caches[b]
+        emb = self.params["embed"]
+        x = (emb["word_embeddings.weight"][ids]
+             + emb["position_embeddings.weight"][off][None])
+        x = x.to(self.dtype)
+        for i, p_l in enumerate(self._layers):
+            x = _block_decode(p_l, x, ck[i], cv[i], off, self.num_heads,
+                              self.eps)
+        return self._head(x)
+
+    def _decode_step(self, tokens, offset):
+        """One decode step of the caches owned for ``len(tokens)``: the
+        host tokens [B] at position ``offset`` -> logits [B, V].  On CUDA
+        the logits are the graph's static outputs, which the next replay
+        overwrites: read them before the next step."""
+        buf = np.append(np.asarray(tokens, np.int64), np.int64(offset))
+        self.decode_steps += 1
+        if self.device.type == "cuda":
+            self._graphs.stage(len(tokens), buf)
+            return self._graphs.run(len(tokens))
+        return self._decode_body(torch.from_numpy(buf))
 
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
                  top_k=0, seed=0, eos_token_id=None):
@@ -179,10 +260,13 @@ class FusedMultiTransformer:
             raise ValueError(
                 f"prompt {t} + new {max_new_tokens} exceeds max_length "
                 f"{self.max_length}")
-        ck, cv = self.init_cache(b)
-        logits = self._forward_chunk(
-            torch.as_tensor(ids.astype(np.int64), device=self.device), ck,
-            cv, 0)
+        ck, cv = self._cache(b)
+        if t == 1:
+            logits = self._decode_step(ids[:, 0], 0)
+        else:
+            logits = self._forward_chunk(
+                torch.as_tensor(ids.astype(np.int64), device=self.device),
+                ck, cv, 0)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         out = [ids]
@@ -205,7 +289,7 @@ class FusedMultiTransformer:
             if step + 1 == max_new_tokens or (
                     eos_token_id is not None and finished.all()):
                 break
-            logits = self._forward_chunk(
-                torch.as_tensor(cur_np[:, None].astype(np.int64),
-                                device=self.device), ck, cv, t + step)
+            # the sampled tokens came to the host above, so the replay
+            # may overwrite the last step's logits now
+            logits = self._decode_step(cur_np, t + step)
         return np.concatenate(out, axis=1)

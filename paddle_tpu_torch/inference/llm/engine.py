@@ -5,13 +5,20 @@ K and V) shared by every in-flight request.  Each step, the scheduler's
 work — decode rows and prefill chunks alike — is packed back to back
 into one flat token batch padded to a power-of-two token bucket (floor
 8, cap token_budget), with per-row ``(row_start, row_qlen, row_pos0)``
-descriptors saying which tokens belong to whom.  One call of
-:meth:`LLMEngine._ragged_fn` runs the whole step: each layer writes
-the step's K/V through the rows' block tables and then attends over
-every earlier position through the pool with the ragged paged
+descriptors saying which tokens belong to whom.  One call of the step
+body :meth:`LLMEngine._ragged_body` runs the whole step: each layer
+writes the step's K/V through the rows' block tables and then attends
+over every earlier position through the pool with the ragged paged
 attention kernel (plain PyTorch for CPU tensors).  A decode row is a
 one-token chunk, so one step genuinely mixes phases: decodes keep
 flowing inside the same step that advances a long prompt's chunks.
+
+On CUDA the body is captured once per token bucket as a CUDA graph
+(``jit/graphs.py``) — at :meth:`LLMEngine.warmup`, or at the bucket's
+first step — and every step copies its packed operands into the
+bucket's static buffer and replays the graph: the port's counterpart
+of the JAX engine's one compiled executable per bucket.  On the CPU
+the same body runs eagerly.
 
 Prefix caching rides on the block manager: every page a sequence
 completes is registered under its prefix-chain hash, and admission
@@ -23,9 +30,12 @@ per (token, head) as it writes them, and attention runs the int8 twin
 of the kernel, which dequantizes at the load.
 
 The pools are updated in place — the port's counterpart of the JAX
-engine's buffer donation.  The only host sync of a step is the pull of
-the step's argmax vector (plus the logits rows of requests that sample
-with a temperature).
+engine's buffer donation.  Every token of a bucket writes its K/V, as in
+the JAX step: a padding token's slot is a sink row past each layer's
+visible pool (the JAX step's out-of-range slot, dropped there), so the
+visible pools only ever hold live tokens.  The only host sync of a step
+is the pull of the step's argmax vector (plus the logits rows of
+requests that sample with a temperature).
 
 Host sampling stays on numpy ``RandomState`` streams exactly as in the
 JAX engine (an engine stream from ``seed=``, one stream per request
@@ -46,6 +56,7 @@ from ...framework.cost import (
 )
 from ...framework.device import resolve_device
 from ...incubate.nn import _layernorm
+from ...jit.graphs import StepGraphs
 from .block_manager import BlockManager
 from .faults import FinishReason
 from .paged_attention import (
@@ -244,29 +255,39 @@ class LLMEngine:
         blocks = self.params["blocks"]
         self._layers = [{k: v[i] for k, v in blocks.items()}
                         for i in range(self.num_layers)]
-        cache_shape = (self.num_layers, self.num_blocks, self.block_size,
-                       self.num_heads, self.head_dim)
+        nl, nb, bs, nh = (self.num_layers, self.num_blocks, self.block_size,
+                          self.num_heads)
+        # each layer's slots [NB * bs + 1, Nh, D]: the last row is the sink
+        # that padding tokens write; _kc / _vc [L, NB, bs, Nh, D] view the
+        # rest, so a layer's pool stays contiguous for the kernel
         kv_dtype = torch.int8 if self._kv_quant else self.dtype
-        self._kc = torch.zeros(cache_shape, dtype=kv_dtype,
-                               device=self.device)
-        self._vc = torch.zeros(cache_shape, dtype=kv_dtype,
-                               device=self.device)
-        # per-(layer, page, head, slot) dequant scales of the int8 pool
-        self._ks = self._vs = None
+        self._k_rows, self._v_rows = (
+            torch.zeros((nl, nb * bs + 1, nh, self.head_dim), dtype=kv_dtype,
+                        device=self.device) for _ in range(2))
+        self._kc, self._vc = (
+            rows[:, :nb * bs].view(nl, nb, bs, nh, self.head_dim)
+            for rows in (self._k_rows, self._v_rows))
+        # per-(layer, page, head, slot) dequant scales of the int8 pool,
+        # flat [L, (NB + 1) * Nh * bs]: the sink slot's scale index lands on
+        # page NB, which _ks / _vs [L, NB, Nh, bs] leave out
+        self._ks = self._vs = self._ks_flat = self._vs_flat = None
         if self._kv_quant:
-            scale_shape = (self.num_layers, self.num_blocks, self.num_heads,
-                           self.block_size)
-            self._ks = torch.zeros(scale_shape, dtype=torch.float32,
-                                   device=self.device)
-            self._vs = torch.zeros(scale_shape, dtype=torch.float32,
-                                   device=self.device)
+            self._ks_flat, self._vs_flat = (
+                torch.zeros((nl, (nb + 1) * nh * bs), dtype=torch.float32,
+                            device=self.device) for _ in range(2))
+            self._ks, self._vs = (
+                flat.view(nl, nb + 1, nh, bs)[:, :nb]
+                for flat in (self._ks_flat, self._vs_flat))
+        # one captured graph of the step body per token bucket (CUDA)
+        self._graphs = StepGraphs(self._ragged_body, self.device)
 
         self._requests = {}
         self._next_id = 0
         self._first_token_at = {}
         self.seed = 0 if seed is None else int(seed)
         self._rng = np.random.RandomState(self.seed)
-        # "launches" counts _ragged_fn calls, warmup included
+        # "launches" counts step-body runs, eager or replayed, warmup
+        # included
         self.stats = {"steps": 0, "prefill_steps": 0, "decode_steps": 0,
                       "chunk_launches": 0, "tokens_generated": 0,
                       "mixed_steps": 0, "launches": 0}
@@ -354,48 +375,86 @@ class LLMEngine:
 
     @torch.no_grad()
     def _ragged_fn(self, pk):
-        """One ragged step over the packed operands ``pk`` (see
-        :meth:`_pack_rows`).  Updates the K/V pools in place and returns
-        (argmax [Tb], logits [Tb, V]) on the device.
+        """Run one packed step (see :meth:`_pack_rows`) -> (argmax [Tb],
+        logits [Tb, V]) on the device; the K/V pools are updated in place.
 
-        Padding tokens carry position -1; live tokens are packed at the
-        head of the token axis, so the K/V writes take the first
-        ``total`` tokens (a host int) and padding is never scattered.
-        Every query's K/V lands before attention reads the pool."""
-        tb, rmax, total = pk["tb"], self.max_batch, pk["total"]
-        ints = self._to_device(pk["ints"])
+        Copy-on-write page copies run first, eagerly, so they land before
+        the step's writes.  Then the step body runs: on the CPU directly,
+        on CUDA as a replay of the bucket's graph, after one copy of the
+        packed operands into the bucket's static buffer (a bucket's first
+        step runs the body eagerly and captures it, ``jit/graphs.py``).
+        A step with a sampling-pipeline row runs the pipeline eagerly on
+        the step's logits and takes the argmax again.
+
+        On CUDA the returned tensors may be the graph's static outputs,
+        which the next replay overwrites: the caller reads them before
+        the next step, as :meth:`_launch_packed` does."""
+        if pk["cows"]:
+            self._copy_on_write(pk["cows"])
+        tb = pk["tb"]
+        if self.device.type == "cuda":
+            ints = self._graphs.stage(tb, pk["ints"])
+            argmax, logits = self._graphs.run(tb)
+        else:
+            ints = torch.from_numpy(pk["ints"])
+            argmax, logits = self._ragged_body(ints)
+        self.stats["launches"] += 1
+        if pk["pipeline"] is not None:
+            # neutral knobs are exact identities, so a step without a
+            # pipeline row skips the pipeline instead of running it
+            knobs, bias, counts = pk["pipeline"]
+            logits = apply_logits_pipeline(
+                logits, ints[2 * tb:3 * tb],
+                *(self._to_device(k) for k in knobs),
+                self._to_device(bias), self._to_device(counts))
+            argmax = logits.argmax(-1)
+        return argmax, logits
+
+    def _copy_on_write(self, cows):
+        """Copy each ``(src, dst)`` page's payload (and scales) in every
+        layer, on the step's stream."""
+        cow = torch.as_tensor(np.asarray(cows, np.int64).T,
+                              device=self.device)
+        for pool in (self._kc, self._vc, self._ks, self._vs):
+            if pool is not None:
+                pool[:, cow[1]] = pool[:, cow[0]]
+
+    @torch.no_grad()
+    def _ragged_body(self, ints):
+        """The step body: one ragged step over the packed int32 operands
+        ``ints`` on the engine's device -> (argmax [Tb], logits [Tb, V]).
+
+        What a CUDA graph captures per bucket and the CPU runs as it is:
+        it reads device tensors only, takes every length from shapes (the
+        bucket from ``ints``' length), copies nothing from the host and
+        counts nothing.  Every token writes its K/V before attention
+        reads the pool; padding tokens (position -1) write each layer's
+        sink row (slot ``NB * bs``, the JAX step's dropped slot), so the
+        visible pools see live tokens only."""
+        rmax, pmax = self.max_batch, self.max_pages
+        tb = (ints.shape[0] - rmax * (3 + pmax)) // 3
         ids, positions, rows = ints[:tb], ints[tb:2 * tb], ints[2 * tb:3 * tb]
         desc = ints[3 * tb:]
         row_start, row_qlen, row_pos0 = (desc[:rmax], desc[rmax:2 * rmax],
                                          desc[2 * rmax:3 * rmax])
-        tables = desc[3 * rmax:].view(rmax, self.max_pages)
-        # the pools are written in place: the port's counterpart of the
-        # JAX engine donating them to the step
-        pools = [p for p in (self._kc, self._vc, self._ks, self._vs)
-                 if p is not None]
-        if pk["cows"]:
-            # copy-on-write page payloads (and their scales) before this
-            # step's writes land
-            cow = torch.as_tensor(np.asarray(pk["cows"], np.int64).T,
-                                  device=self.device)
-            for pool in pools:
-                pool[:, cow[1]] = pool[:, cow[0]]
+        tables = desc[3 * rmax:].view(rmax, pmax)
 
         nb, bs, nh, hd = (self.num_blocks, self.block_size, self.num_heads,
                           self.head_dim)
         emb = self.params["embed"]
+        live = positions >= 0
         p_safe = positions.clamp(min=0).long()
         x = (emb["word_embeddings.weight"][ids.long()]
              + emb["position_embeddings.weight"][p_safe])
-        rows_l = rows.long()
-        slots = (tables[rows_l[:total], p_safe[:total] // bs].long() * bs
-                 + p_safe[:total] % bs)
-        ctx = (p_safe + (positions >= 0)).to(torch.int32)
+        slots = torch.where(
+            live, tables[rows.long(), p_safe // bs].long() * bs + p_safe % bs,
+            nb * bs)
+        ctx = (p_safe + live).to(torch.int32)
         if self._kv_quant:
             # scale index of (slot, head): page * (Nkv * bs) + head * bs
-            # + offset, in the [NB, Nkv, bs] scale layout
+            # + offset, in the [NB + 1, Nkv, bs] flat scale layout
             sidx = ((slots // bs)[:, None] * (nh * bs)
-                    + torch.arange(nh, device=self.device)[None, :] * bs
+                    + torch.arange(nh, device=ints.device)[None, :] * bs
                     + (slots % bs)[:, None])
         wmat = self._wmat
         for i, p_l in enumerate(self._layers):
@@ -405,19 +464,19 @@ class LLMEngine:
                    + p_l["attn.qkv.bias"]).view(tb, 3, nh, hd)
             q = qkv[:, 0].contiguous()
             if self._kv_quant:
-                # quantize at append: only the step's live tokens
-                for pool, scales, val in (
-                        (self._kc, self._ks, qkv[:total, 1]),
-                        (self._vc, self._vs, qkv[:total, 2])):
+                # quantize at append, per (token, head) row
+                for rows_i, scales, val in (
+                        (self._k_rows[i], self._ks_flat[i], qkv[:, 1]),
+                        (self._v_rows[i], self._vs_flat[i], qkv[:, 2])):
                     q8, s = quantize_kv_rows(val)
-                    pool[i].view(nb * bs, nh, hd)[slots] = q8
-                    scales[i].view(-1)[sidx] = s
+                    rows_i[slots] = q8
+                    scales[sidx] = s
                 out = paged_ragged_attention_quant(
                     q, self._kc[i], self._vc[i], self._ks[i], self._vs[i],
                     tables, ctx, rows, row_start, row_qlen, row_pos0)
             else:
-                self._kc[i].view(nb * bs, nh, hd)[slots] = qkv[:total, 1]
-                self._vc[i].view(nb * bs, nh, hd)[slots] = qkv[:total, 2]
+                self._k_rows[i][slots] = qkv[:, 1]
+                self._v_rows[i][slots] = qkv[:, 2]
                 out = paged_ragged_attention(q, self._kc[i], self._vc[i],
                                              tables, ctx, rows, row_start,
                                              row_qlen, row_pos0)
@@ -433,14 +492,6 @@ class LLMEngine:
         x = _layernorm(x, self.params["head"]["weight"],
                        self.params["head"]["bias"], self.eps)
         logits = x @ emb["word_embeddings.weight"].T
-        if pk["pipeline"] is not None:
-            # neutral knobs are exact identities, so a step without a
-            # pipeline row skips the pipeline instead of running it
-            knobs, bias, counts = pk["pipeline"]
-            logits = apply_logits_pipeline(
-                logits, rows, *(self._to_device(k) for k in knobs),
-                self._to_device(bias), self._to_device(counts))
-        self.stats["launches"] += 1
         return logits.argmax(-1), logits
 
     def _wmat(self, p_l, key):
@@ -454,17 +505,22 @@ class LLMEngine:
         return w
 
     def warmup(self):
-        """Run every token bucket once with dead rows (no page is
-        written) so allocator pools and the kernel library are ready
-        before traffic; returns ``{"ragged[<bucket>]": ms}``."""
+        """Run every token bucket once with dead rows (only the sink rows
+        are written) so the kernel libraries and allocator are ready
+        before traffic; on CUDA that run captures the bucket's graph,
+        largest bucket first so the smaller captures reuse the shared
+        pool's memory, and steady serving captures nothing new.  Returns
+        ``{"ragged[<bucket>]": ms}`` in bucket order, captures
+        included."""
         timings = {}
-        for kind, tb in self._bucket_grid():
+        for kind, tb in sorted(self._bucket_grid(), key=lambda b: -b[1]):
             t0 = time.perf_counter()
             self._ragged_fn(self._pack_rows([], tb))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             timings[f"{kind}[{tb}]"] = (time.perf_counter() - t0) * 1e3
-        return timings
+        return {key: timings[key]
+                for key in (f"{k}[{tb}]" for k, tb in self._bucket_grid())}
 
     # ---------------------------------------------------------------- step --
     def step(self):
@@ -577,10 +633,20 @@ class LLMEngine:
 
     def _launch_packed(self, rows, pk, finished):
         """Launch one packed step and commit its tokens."""
-        starts = pk["starts"]
         argmax, logits = self._ragged_fn(pk)
-        nxt = argmax.cpu().numpy()          # the one host pull per step
-        row_logits = self._fetch_sampling_rows(rows, starts, logits)
+        # on CUDA these are the graph's static outputs: read before the
+        # next replay overwrites them
+        nxt, row_logits = self._pull(rows, pk["starts"], argmax, logits)
+        self._commit(rows, pk["starts"], nxt, row_logits, finished)
+
+    def _pull(self, rows, starts, argmax, logits):
+        """The one host pull per step: the argmax vector, plus the logits
+        rows of tokens that sample with a temperature."""
+        return (argmax.cpu().numpy(),
+                self._fetch_sampling_rows(rows, starts, logits))
+
+    def _commit(self, rows, starts, nxt, row_logits, finished):
+        """Commit one step's tokens on the host."""
         # commit phase A: decode rows, in scheduler order
         entries = []
         for ri, row in enumerate(rows):

@@ -5,6 +5,10 @@ parity test, source, the TPU kernel it replaces).
 kernel against its plain version on the card, and reads each kernel's
 launch counter around the main path.  A kernel that is ported lands
 here, so the smoke's ``kernels`` line lists every ported kernel.
+
+A wrapper's counter advances where the wrapper launches its kernel.  A
+replayed CUDA graph launches kernels without calling their wrappers, so
+its launches are added through :func:`add_counts` (``jit/graphs.py``).
 """
 
 from dataclasses import dataclass
@@ -130,3 +134,17 @@ def reset_counts():
 
 def counts():
     return {name: entry.launches for name, entry in KERNELS.items()}
+
+
+def add_counts(delta):
+    """Add ``{kernel name: launches}`` to the wrappers' counters.
+
+    The only way a CUDA-graph replay advances them: a replay launches
+    the kernels its capture recorded without calling a wrapper, so
+    ``jit/graphs.py`` adds each replay's launches here (and takes a
+    capture's recorded calls back out, since a capture runs no kernel).
+    The ``kernels`` line of ``chip_smoke.py`` counts replayed launches
+    this way."""
+    for name, n in delta.items():
+        entry = KERNELS[name]
+        setattr(entry.counter, entry.count, entry.launches + n)
