@@ -69,6 +69,19 @@ and the script exits non-zero:
               time under torch.profiler, and the host's share of a step
               split into schedule, pack, copy + replay, the argmax pull
               and commit;
+   front end — the same model and engine settings behind
+              ``HttpLLMServer`` -> ``AsyncLLMEngine`` on 127.0.0.1: a
+              burst over the whole request surface from a client thread
+              per request (greedy streamed over SSE, sampling, filters,
+              logprobs, a stop string, a grammar, n=2, an expiring
+              deadline), an abort, bad requests (400, nothing admitted),
+              greedy prompts one at a time token-equal to ``generate``,
+              a profiled window of the worker's replayed decode steps,
+              the cost of a grammar row a step; every finish reason as
+              expected, no page leaked, no capture after ``warmup``; an
+              engine captured by the worker thread; a fault schedule
+              (one transient retried, one raise quarantining its victim)
+              with token-equal survivors (``front_end_phase``);
 7. int8 serving — the same model and burst with ``quantize="int8"``
               on the int8 kernel; its resident bytes must be the memory
               model's weights + pool within 1%, the bf16 engine's
@@ -90,7 +103,8 @@ and the script exits non-zero:
 
 The launches in the ``kernels`` line are those of each kernel's main
 path, each run with the counts at 0 just before and read just after:
-the bf16 serving burst for ragged attention, the int8 burst for its
+the bf16 serving burst and the front end's server run (summed) for
+ragged attention, the int8 burst for its
 int8 twin, the FMT and Llama decode runs (summed) for the decode
 kernel, the timed training steps for the others.  The second-to-last
 line is that JSON record; the last line is ``{"ok": true, "device":
@@ -1269,7 +1283,7 @@ def device_phase():
     name = torch.cuda.get_device_name(0)
     say("device", kind=name, count=torch.cuda.device_count(),
         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
-    return name
+    return name, smi
 
 
 def build_phase():
@@ -1916,6 +1930,571 @@ def _kernel_us(prof, name, steps):
     return rows
 
 
+# ------------------------------------------------------------ front end --
+# three token ids render as two-letter pieces for the stop-string check
+_TOY_PIECES = {20: "ab", 21: "cd", 22: "ef"}
+
+
+def _toy_detokenizer(ids):
+    """The front end's detokenizer: ``_TOY_PIECES``, every other id '?'."""
+    return "".join(_TOY_PIECES.get(int(t), "?") for t in ids)
+
+
+# a grammar forcing the emission 20, 21, 22, eos: the stop string "bc"
+# lives only in the joint rendering of 20 and 21 and must end the
+# request after them
+_FORCED = {0: {20: 1}, 1: {21: 2}, 2: {22: 3}, 3: {1: 4}, 4: {1: 4}}
+_JSON_SPEC = {"kind": "json_array", "open": 10, "close": 11, "comma": 12,
+              "items": [20, 21, 22], "eos": 1, "max_items": 4}
+
+
+def _front_end_requests(seed, vocab):
+    """The front end's burst: (label, request body, expected finish
+    reason of each completion) for every part of the request surface."""
+    rng = np.random.RandomState(seed)
+
+    def prompt(n):
+        return [int(t) for t in rng.randint(0, 50257, n)]
+
+    forced = {"kind": "dfa", "vocab_size": vocab, "start": 0,
+              "transitions": {str(s): {str(t): d for t, d in e.items()}
+                              for s, e in _FORCED.items()}}
+    reqs = [("greedy", {"prompt_ids": prompt(n), "max_new_tokens": 48,
+                        "stream": True}, ["length"])
+            for n in (40, 96, 150, 220, 300, 64)]
+    reqs += [
+        ("temperature", {"prompt_ids": prompt(80), "max_new_tokens": 48,
+                         "temperature": 0.8, "seed": 11}, ["length"]),
+        ("filters", {"prompt_ids": prompt(120), "max_new_tokens": 48,
+                     "temperature": 1.0, "top_k": 50, "top_p": 0.9,
+                     "logit_bias": {"5": 2.0, "7": -3.0}, "seed": 12},
+         ["length"]),
+        ("logprobs", {"prompt_ids": prompt(60), "max_new_tokens": 32,
+                      "logprobs": 5}, ["length"]),
+        ("stop", {"prompt_ids": prompt(30), "max_new_tokens": 8,
+                  "grammar": forced, "eos_token_id": 1, "stop": ["bc"]},
+         ["stop"]),
+        ("grammar", {"prompt_ids": prompt(50), "max_new_tokens": 16,
+                     "grammar": _JSON_SPEC, "eos_token_id": 1}, ["stop"]),
+        ("n2", {"prompt_ids": prompt(70), "max_new_tokens": 32, "n": 2,
+                "temperature": 0.8, "seed": 13}, ["length", "length"]),
+        ("deadline", {"prompt_ids": prompt(40), "max_new_tokens": 512,
+                      "deadline_ms": 50}, ["deadline"]),
+    ]
+    return reqs
+
+
+def _http(addr, method, path, body=None):
+    """One HTTP request to the server -> (status, parsed JSON body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(*addr, timeout=300)
+    try:
+        conn.request(method, path, None if body is None else
+                     json.dumps(body), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _http_stream(addr, body):
+    """POST a ``stream: true`` request -> (its SSE events, seconds from
+    the send to the first token delta, seconds to the final event)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(*addr, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/completions", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise RuntimeError(f"stream request got {resp.status}: "
+                               f"{resp.read()!r}")
+        events, first, final = [], None, None
+        for line in resp:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            data = line[len("data: "):]
+            if data == "[DONE]":
+                events.append(data)
+                break
+            ev = json.loads(data)
+            now = time.perf_counter() - t0
+            if "delta_ids" in ev and first is None:
+                first = now
+            if "completions" in ev:
+                final = now
+            events.append(ev)
+        return events, first, final
+    finally:
+        conn.close()
+
+
+def _post_all(addr, bodies):
+    """POST every body from a thread of its own, all at once ->
+    (results in body order, wall seconds).  A streamed body's result is
+    ``(final body, ttft s, done s)``, any other's ``(status, body)``."""
+    import threading
+
+    results, errors = [None] * len(bodies), []
+
+    def run(i, body):
+        try:
+            if body.get("stream"):
+                events, first, final = _http_stream(addr, body)
+                if events[-1] != "[DONE]":
+                    raise RuntimeError(f"stream {i} did not end in [DONE]")
+                deltas = [t for e in events[:-2] for t in e["delta_ids"]]
+                done = events[-2]
+                if deltas != done["completions"][0]["output_ids"]:
+                    raise RuntimeError(f"stream {i}: deltas do not "
+                                       f"reassemble the final ids")
+                results[i] = (done, first, final)
+            else:
+                results[i] = _http(addr, "POST", "/v1/completions", body)
+        except Exception as e:      # noqa: BLE001 — re-raised below
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=run, args=(i, b), daemon=True)
+               for i, b in enumerate(bodies)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"front-end clients failed: {errors}")
+    return results, wall
+
+
+def _engine_kwargs(body, vocab):
+    """A wire body as ``add_request`` keywords."""
+    from paddle_tpu_torch.inference.llm import grammar_from_spec
+
+    kw = {k: v for k, v in body.items() if k not in ("prompt_ids",
+                                                      "stream")}
+    if "grammar" in kw:
+        kw["grammar"] = grammar_from_spec(kw["grammar"], vocab_size=vocab)
+    return kw
+
+
+def _pct(xs):
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99))}
+
+
+def _check_completions(label, comps, expect, vocab):
+    """Each completion's finish reason, and what its part of the surface
+    promises: grammar-legal output, the stop string, normalized
+    logprobs, the fork's id."""
+    from paddle_tpu_torch.inference.llm import (
+        DfaTokenGrammar,
+        grammar_from_spec,
+    )
+
+    reasons = [c["finish_reason"] for c in comps]
+    if reasons != expect:
+        raise RuntimeError(f"{label}: finish reasons {reasons} != {expect}")
+    for c in comps:
+        ids = c["output_ids"]
+        if not all(0 <= t < vocab for t in ids):
+            raise RuntimeError(f"{label}: token ids outside the vocab")
+        if label in ("grammar", "stop"):
+            g = (grammar_from_spec(_JSON_SPEC, vocab_size=vocab)
+                 if label == "grammar" else DfaTokenGrammar(vocab, _FORCED))
+            s = g.start_state()
+            for t in ids:
+                s = g.advance(s, t)
+                if s is None:
+                    raise RuntimeError(f"{label}: {ids} leaves the grammar")
+        if label == "stop" and (ids != [20, 21]
+                                or c["matched_stop"] != "bc"):
+            raise RuntimeError(f"stop: {ids}, matched "
+                               f"{c['matched_stop']!r}")
+        if label == "logprobs":
+            if len(c["logprobs"]) != len(ids):
+                raise RuntimeError("logprobs: one entry per token expected")
+            for t, entry in zip(ids, c["logprobs"]):
+                top = entry["top"]
+                mass = sum(np.exp(lp) for _, lp in top)
+                lps = [lp for _, lp in top]
+                if (len(top) != 5 or not 0.0 < mass <= 1.0 + 1e-6
+                        or lps != sorted(lps, reverse=True)
+                        or top[0][0] != t
+                        or abs(entry["logprob"] - lps[0]) > 1e-9):
+                    raise RuntimeError(f"logprobs not normalized: {entry}")
+    if label == "n2" and not comps[1]["request_id"].endswith(".1"):
+        raise RuntimeError(f"n2: second completion {comps[1]['request_id']}")
+
+
+def _async_window(eng, serve, steps=256):
+    """Decode steps replayed by the async worker while ``serve(bodies)``
+    runs 8 requests (128-token prompts, 600 new tokens; every other one
+    streamed when it goes through the server) to their end.  The prompts
+    are served once first with one new token, so the run's prefill is
+    each prompt's last page.  torch.profiler covers the whole run,
+    started and stopped while the worker is idle: device ms per engine
+    step over the run; wall ms per step on the host clock over
+    ``steps`` steps once every request is decoding; the busy share."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.RandomState(77)
+    bodies = [{"prompt_ids": [int(t) for t in rng.randint(0, 50257, 128)],
+               "max_new_tokens": 600, "stream": i % 2 == 0}
+              for i in range(eng.max_batch)]
+    serve([{**b, "max_new_tokens": 1} for b in bodies])
+    out = {}
+    clients = threading.Thread(
+        target=lambda: out.update(r=serve(bodies)), daemon=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s_run = eng.stats["launches"]
+        clients.start()
+        t_end = time.perf_counter() + 120
+        while True:
+            running = list(eng.scheduler.running)
+            if (len(running) == eng.max_batch and not eng.scheduler.waiting
+                    and all(r.prefill_done for r in running)):
+                break
+            if time.perf_counter() > t_end:
+                raise RuntimeError("the window's requests never all decoded")
+            time.sleep(0.001)
+        # the main thread polls at the interpreter's switch interval, so
+        # its own wake-ups take little from the worker
+        s0, t0 = eng.stats["launches"], time.perf_counter()
+        while eng.stats["launches"] < s0 + steps:
+            if not eng.has_unfinished() or time.perf_counter() > t0 + 60:
+                ran = eng.stats["launches"] - s0
+                raise RuntimeError(f"the window ran {ran} of its {steps} "
+                                   f"steps")
+            time.sleep(0.005)
+        s1, t1 = eng.stats["launches"], time.perf_counter()
+        clients.join(timeout=600)
+        if clients.is_alive() or "r" not in out:
+            raise RuntimeError("the window's clients did not finish")
+        run_steps = eng.stats["launches"] - s_run
+    wall_ms = (t1 - t0) / (s1 - s0) * 1e3
+    rec = _device_profile(prof, run_steps, wall_ms)
+    if rec["device_ms_per_step"] is None:
+        raise RuntimeError("torch.profiler saw no device time in the "
+                           "async worker's replays")
+    rec.update(steps=s1 - s0, run_steps=run_steps)
+    return rec
+
+
+def _grammar_row_cost(eng, dev, window=16):
+    """Wall and device ms per decode step of 8 rows, all greedy and then
+    with one row under a grammar (its bias and counts channels packed,
+    uploaded and run through the pipeline every step), each with the
+    host's ms a step split by part (``_host_split``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.inference.llm import DfaTokenGrammar
+
+    cycle = DfaTokenGrammar(eng.vocab_size, {0: {20: 1, 21: 1, 22: 1},
+                                             1: {12: 0}})
+    rng = np.random.RandomState(88)
+    out = {}
+    for label in ("greedy", "one_grammar_row"):
+        for i in range(eng.max_batch):
+            kw = ({"grammar": cycle} if label != "greedy" and i == 0
+                  else {})
+            eng.add_request(list(rng.randint(0, 50257, 128)),
+                            max_new_tokens=4 * window, **kw)
+        while eng.scheduler.waiting or not all(
+                r.prefill_done for r in eng.scheduler.running):
+            eng.step()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(window):
+            eng.step()
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) / window * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(window):
+                eng.step()
+            torch.cuda.synchronize(dev)
+        rec = _device_profile(prof, window, wall_ms)
+        rec.pop("top_device_us_per_step")
+        rec["host_ms_per_step"] = _host_split(eng, window)
+        out[label] = rec
+        for rid in list(eng._requests):
+            eng.abort_request(rid)
+        while eng.has_unfinished():
+            eng.step()
+    out["extra_wall_ms"] = (out["one_grammar_row"]["wall_ms_per_step"]
+                            - out["greedy"]["wall_ms_per_step"])
+    out["extra_device_ms"] = (out["one_grammar_row"]["device_ms_per_step"]
+                              - out["greedy"]["device_ms_per_step"])
+    # the bias and counts channels, [8, V] f32 each, at the decode bucket
+    out["channel_bytes_per_step"] = 2 * 8 * eng.vocab_size * 4
+    return out
+
+
+def _direct_burst(eng, dev, seed):
+    """The front end's burst on prompts from ``seed``, straight through
+    ``add_request``/``step``: tokens/s, and TTFT and TPOT of the greedy
+    requests on the engine clock."""
+    import torch
+
+    reqs = _front_end_requests(seed, eng.vocab_size)
+    t0 = time.perf_counter()
+    tok0 = eng.stats["tokens_generated"]
+    rids = [eng.add_request(body["prompt_ids"],
+                            **_engine_kwargs(body, eng.vocab_size))
+            for _, body, _ in reqs]
+    outs = {}
+    while eng.has_unfinished():
+        for o in eng.step():
+            outs[o.request_id] = o
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    timed = [outs[r] for (label, _, _), r in zip(reqs, rids)
+             if label == "greedy"]
+    return {"wall_s": wall,
+            "tokens_per_s": (eng.stats["tokens_generated"] - tok0) / wall,
+            "ttft_s": _pct([o.metrics["first_token"] - o.metrics["arrival"]
+                            for o in timed]),
+            "tpot_s": _pct([(o.metrics["finished"] - o.metrics["first_token"])
+                            / (len(o.output_ids) - 1) for o in timed])}
+
+
+def front_end_phase(dev, smi):
+    """The serving front end at GPT-124M width (random bf16 weights from
+    seed 0, the serving phase's engine settings, a toy detokenizer):
+    ``HttpLLMServer`` -> ``AsyncLLMEngine`` -> ``LLMEngine`` -> the
+    replayed ragged step with B1.  After ``warmup()``:
+
+    - the yardstick: the front end's burst (``_front_end_requests``, on
+      prompts of their own) straight through ``add_request``/``step``
+      before the server run and again after it (``_direct_burst``), and
+      three short greedy prompts one at a time through ``generate``;
+    - behind the server on 127.0.0.1, with the counts at 0: the burst
+      posted by a client thread per request (six greedy requests
+      streamed, timing TTFT and TPOT at the client; temperature with a
+      seed; top_k/top_p/logit_bias; logprobs=5; a stop string under the
+      toy detokenizer; a grammar; n=2; a deadline that must expire),
+      one request aborted through the server's async engine, bad
+      requests that must get a 400 and leave the engine empty, the three
+      short prompts one at a time (token-equal to ``generate``'s, since
+      one in flight gives the same steps), and profiled windows of the
+      worker's replayed decode steps with handler threads live and with
+      the same requests submitted in-process (``_async_window``); then
+      ``close()``;
+    - every completion its expected finish reason and promise
+      (``_check_completions``), each greedy burst request's first token
+      in the dense forward's top 3, no page leaked, no graph captured
+      after ``warmup()``, B1 launched on every layer of every engine
+      launch of the server's run;
+    - the cost of one grammar row a decode step (``_grammar_row_cost``);
+    - a second engine without ``warmup()`` behind a server: its buckets
+      are captured by the worker thread, the only one on the device, and
+      its output equals the warmed engine's;
+    - a third engine with a fault schedule: a transient step fault
+      absorbed by one retry and a raise that quarantines exactly its
+      victim, the survivors token-equal to the fault-free engine.
+
+    Returns the B1 count of the server's run."""
+    import gc
+    import warnings
+
+    import torch
+
+    from paddle_tpu_torch.inference.llm import (
+        Fault,
+        FaultInjector,
+        HttpLLMServer,
+        LLMEngine,
+    )
+    from paddle_tpu_torch.models.gpt import gpt_124m
+    from paddle_tpu_torch.ops.cuda import registry
+
+    model = gpt_124m(device=dev, seed=0, dtype=torch.bfloat16).eval()
+    eng = LLMEngine(model, device=dev, detokenizer=_toy_detokenizer,
+                    **_SERVE_ENGINE)
+    vocab = eng.vocab_size
+    eng.warmup()
+    captures = eng._graphs.captures
+
+    # the yardstick: the burst straight through, before the server run
+    # and again after it, on prompts of their own
+    direct = [_direct_burst(eng, dev, 5)]
+    rng = np.random.RandomState(66)
+    short = [[int(t) for t in rng.randint(0, 50257, n)] for n in (12, 9, 15)]
+    one_at_a_time = [eng.generate([p], max_new_tokens=24)[0][len(p):]
+                     .tolist() for p in short]
+
+    # behind the server
+    burst = _front_end_requests(6, vocab)
+    registry.reset_counts()
+    launches0 = eng.stats["launches"]
+    srv = HttpLLMServer(engine=eng).start()
+    try:
+        addr = srv.address
+        aborted = srv.submit(short[0] + short[1], max_new_tokens=400)
+        srv.async_engine.abort(aborted)
+        results, http_wall = _post_all(addr, [b for _, b, _ in burst])
+        aborted_out = srv.async_engine.result(aborted, timeout=300)
+        if aborted_out.finish_reason != "aborted":
+            raise RuntimeError(f"the aborted request finished by "
+                               f"{aborted_out.finish_reason}")
+        adds = sum(1 for e in eng.events if e[1] == "add")
+        for body, frag in (({"prompt_ids": [1, 2], "top_p": 0.0}, "top_p"),
+                           ({"prompt_ids": [1, 2], "adapter": "t1"},
+                            "adapter"),
+                           ({"prompt_ids": [1, 2], "tempreature": 1.0},
+                            "unknown")):
+            status, resp = _http(addr, "POST", "/v1/completions", body)
+            if status != 400 or frag not in resp.get("error", ""):
+                raise RuntimeError(f"bad request {body} got {status} "
+                                   f"{resp}")
+        if eng.has_unfinished() or adds != sum(
+                1 for e in eng.events if e[1] == "add"):
+            raise RuntimeError("a bad request was admitted")
+        via_http = []
+        for p in short:
+            status, resp = _http(addr, "POST", "/v1/completions",
+                                 {"prompt_ids": p, "max_new_tokens": 24})
+            via_http.append(resp["completions"][0]["output_ids"])
+        status, health = _http(addr, "GET", "/healthz")
+        # the worker's decode steps with 8 HTTP clients (handler threads
+        # live), then with the same requests submitted in-process
+        window = _async_window(eng, lambda b: _post_all(addr, b))
+        aeng = srv.async_engine
+        window_in_process = _async_window(eng, lambda bodies: [
+            aeng.result(r, timeout=300) for r in [
+                aeng.submit(b["prompt_ids"],
+                            max_new_tokens=b["max_new_tokens"])
+                for b in bodies]])
+    finally:
+        srv.close()
+    launches = registry.counts()["paged_ragged_attention"]
+    engine_launches = eng.stats["launches"] - launches0
+    leaked = eng.num_blocks - eng.block_manager.num_free_blocks
+    direct.append(_direct_burst(eng, dev, 7))
+
+    http_tokens, ttft, tpot = 0, [], []
+    for (label, body, expect), res in zip(burst, results):
+        if body.get("stream"):
+            done, first, final = res
+            comps = done["completions"]
+            n = len(comps[0]["output_ids"])
+            ttft.append(first)
+            tpot.append((final - first) / (n - 1))
+        else:
+            status, resp = res
+            if status != 200:
+                raise RuntimeError(f"{label}: status {status} {resp}")
+            comps = resp["completions"]
+        _check_completions(label, comps, expect, vocab)
+        http_tokens += sum(len(c["output_ids"]) for c in comps)
+        if label == "greedy":
+            ids = torch.as_tensor(body["prompt_ids"], device=dev)[None]
+            with torch.no_grad():
+                logits = model(ids)[0, -1].float()
+            top = logits.topk(3).indices.tolist()
+            if comps[0]["output_ids"][0] not in top:
+                raise RuntimeError(f"greedy first token "
+                                   f"{comps[0]['output_ids'][0]} not in the "
+                                   f"dense top 3 {top}")
+    if via_http != one_at_a_time:
+        raise RuntimeError(f"one at a time through HTTP {via_http} != "
+                           f"through generate {one_at_a_time}")
+    want = eng.num_layers * engine_launches
+    if launches != want or leaked or eng._graphs.captures != captures:
+        raise RuntimeError(
+            f"B1 launches {launches} (want {want}), {leaked} pages leaked, "
+            f"{eng._graphs.captures - captures} captures after warmup")
+    grammar = _grammar_row_cost(eng, dev)
+    say("front_end", model="gpt_124m", dtype="bfloat16", card=smi,
+        requests=len(burst) + 1, http_wall_s=http_wall,
+        requests_per_s=len(burst) / http_wall,
+        http_tokens_per_s=http_tokens / http_wall,
+        http_ttft_s=_pct(ttft), http_tpot_s=_pct(tpot),
+        direct_before_and_after=direct,
+        async_decode_window=window,
+        async_decode_window_in_process=window_in_process,
+        grammar_row=grammar,
+        engine_launches=engine_launches, kernel_launches=launches,
+        healthz_during_serving=health,
+        graph_captures_after_warmup=eng._graphs.captures - captures,
+        lifecycle={k: v for k, v in eng.lifecycle_stats().items()
+                   if k != "step_gauges"})
+    del eng, srv
+    gc.collect()
+
+    # a bucket missed by warmup is captured by the worker thread
+    lazy = LLMEngine(model, device=dev, **_SERVE_ENGINE)
+    srv = HttpLLMServer(engine=lazy).start()
+    try:
+        status, resp = _http(srv.address, "POST", "/v1/completions",
+                             {"prompt_ids": short[0], "max_new_tokens": 24})
+    finally:
+        srv.close()
+    got = resp["completions"][0]["output_ids"]
+    say("front_end_lazy_capture", captures=lazy._graphs.captures,
+        replays=lazy._graphs.replays, equal=got == one_at_a_time[0])
+    if (got != one_at_a_time[0] or lazy._graphs.captures != 2
+            or lazy.block_manager.num_free_blocks != lazy.num_blocks):
+        raise RuntimeError(f"worker-captured engine gave {got}, want "
+                           f"{one_at_a_time[0]}")
+    del lazy, srv
+    gc.collect()
+
+    # step isolation on the card: transient at step 2, raise at step 4
+    prompts = [[int(t) for t in rng.randint(0, 50257, 16)] for _ in range(4)]
+    ref = LLMEngine(model, device=dev, **_SERVE_ENGINE)
+    want = ref.generate(prompts, max_new_tokens=12)
+    del ref
+    faulty = LLMEngine(model, device=dev, retry={"max_attempts": 2,
+                                                 "base_delay_s": 0.0,
+                                                 "jitter": 0.0},
+                       faults=FaultInjector([
+                           Fault("step", "transient", step=2, count=1),
+                           Fault("step", "raise", step=4, victim=1)]),
+                       **_SERVE_ENGINE)
+    faulty.warmup()
+    rids = [faulty.add_request(p, max_new_tokens=12) for p in prompts]
+    outs = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        while faulty.has_unfinished():
+            for o in faulty.step():
+                outs[o.request_id] = o
+    kinds = [e[1] for e in faulty.events]
+    quarantined = [e[2] for e in faulty.events if e[1] == "quarantine"]
+    stats = faulty.lifecycle_stats()
+    say("front_end_faults", retries=stats["retries"],
+        quarantined=quarantined, step_faults=stats["step_faults"],
+        finish={str(r): outs[r].finish_reason for r in rids})
+    for r, w in zip(rids, want):
+        got = outs[r].all_ids
+        if r in quarantined:     # a casualty emitted a prefix of its run
+            ok = (outs[r].finish_reason == "error"
+                  and np.array_equal(got, w[:len(got)]))
+        else:
+            ok = outs[r].ok and np.array_equal(got, w)
+        if not ok:
+            raise RuntimeError(f"request {r} after the faults: "
+                               f"{outs[r].finish_reason} {got.tolist()}")
+    # the transient is retried once; the raise fires on every attempt,
+    # so it is retried once too and then quarantined
+    if (stats["retries"] != 2 or stats["step_faults"] != 3
+            or quarantined != [rids[1]] or kinds.count("retry") != 2
+            or faulty.block_manager.num_free_blocks != faulty.num_blocks):
+        raise RuntimeError(f"fault schedule not absorbed as planned: "
+                           f"{stats}, quarantined {quarantined}")
+    return launches
+
+
 def fmt_decode_phase(dev, batch=8, prompt=128, new=64, window=16):
     """FusedMultiTransformer over GPT-124M in bf16 (random weights from
     seed 0): ``batch`` prompts of ``prompt`` tokens, ``new`` greedy
@@ -2394,7 +2973,7 @@ def main():
     sys.path.insert(0, ROOT)
     import torch
 
-    name = device_phase()
+    name, smi = device_phase()
     dev = torch.device("cuda", 0)
     if sys.argv[1:] == ["ln_bwd_designs"]:
         ln_bwd_designs_phase(dev)
@@ -2422,6 +3001,10 @@ def main():
     launches, eng = serving_phase(dev)
     decode_profile_phase(eng, dev)
     del eng
+    torch.cuda.empty_cache()
+    # B1's main path is the serving burst and the front end's server
+    # run, each driven with the counts at 0; the line sums them
+    launches["paged_ragged_attention"] += front_end_phase(dev, smi)
     torch.cuda.empty_cache()
     launches.update(int8_serving_phase(dev))
     torch.cuda.empty_cache()

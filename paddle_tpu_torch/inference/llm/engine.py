@@ -35,14 +35,29 @@ the JAX step: a padding token's slot is a sink row past each layer's
 visible pool (the JAX step's out-of-range slot, dropped there), so the
 visible pools only ever hold live tokens.  The only host sync of a step
 is the pull of the step's argmax vector (plus the logits rows of
-requests that sample with a temperature).
+requests that sample with a temperature or report logprobs).
 
 Host sampling stays on numpy ``RandomState`` streams exactly as in the
 JAX engine (an engine stream from ``seed=``, one stream per request
 ``seed=``), so seeded output is comparable across the two packages.
+
+The request lifecycle is the JAX engine's: ``abort_request`` in any
+state, ``deadline_ms`` on the engine's injectable clock, bounded
+admission (``max_queue=``, shedding past it and while draining),
+``drain``, and step isolation (:meth:`LLMEngine._launch`): injected
+faults fire before the step touches the device, a retry policy absorbs
+transient failures, a watchdog times each launch, and a launch that
+still fails quarantines its request(s) with ``FinishReason.error``
+while the rest keep serving.  Since the pools are written in place,
+a failure after the step's first pool write cannot be retried into:
+it raises :class:`~.faults.PoolLostError`.  :class:`AsyncLLMEngine`
+steps an engine from one worker thread for servers
+(``http_server.py``).
 """
 
+import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -58,7 +73,8 @@ from ...framework.device import resolve_device
 from ...incubate.nn import _layernorm
 from ...jit.graphs import StepGraphs
 from .block_manager import BlockManager
-from .faults import FinishReason
+from .faults import FinishReason, PoolLostError, RetryPolicy, StepWatchdog
+from .interleave import interleave_point, interleave_wait, masked
 from .paged_attention import (
     paged_ragged_attention,
     paged_ragged_attention_quant,
@@ -70,41 +86,30 @@ from .quant import (
     scale_key,
 )
 from .sampling import (
+    StopStringWatcher,
     apply_logits_pipeline,
     neutral_row_params,
     token_counts,
+    top_logprobs,
     validate_sampling,
 )
-from .scheduler import FINISHED, Request, Scheduler, bucket_size
+from .scheduler import FINISHED, RUNNING, Request, Scheduler, bucket_size
+from .structured import ConstraintState
 
-_LIFECYCLE = "the serving-breadth slice (faults and request lifecycle)"
 # JAX-engine keywords a later slice ports -> that slice
 _LATER_ENGINE = {
     "tensor_parallel": "the tensor-parallel serving slice",
     "mesh": "the tensor-parallel serving slice",
     "speculative": "the serving-breadth slice (speculative decoding)",
     "lora": "the serving-breadth slice (multi-LoRA)",
-    "faults": _LIFECYCLE,
-    "retry": _LIFECYCLE,
-    "step_timeout_s": _LIFECYCLE,
-    "max_queue": _LIFECYCLE,
-    "record_step_gauges": _LIFECYCLE,
     "kv_tier": "the serving-breadth slice (hierarchical KV)",
     "lookahead": "the serving-breadth slice (async lookahead)",
-    "clock": "the serving-breadth slice (simulator)",
-    "detokenizer": "the serving-breadth slice (stop strings)",
 }
 _LATER_REQUEST = {
-    "deadline_ms": _LIFECYCLE,
-    "logprobs": "the serving-breadth slice (logprobs)",
-    "stop": "the serving-breadth slice (stop strings)",
-    "grammar": "the serving-breadth slice (structured decoding)",
-    "n": "the serving-breadth slice (parallel sampling)",
     "adapter_id": "the serving-breadth slice (multi-LoRA)",
 }
 # the value of each later keyword that asks for nothing
-_OFF = {"logprobs": 0, "n": 1, "lookahead": False,
-        "record_step_gauges": False}
+_OFF = {"lookahead": False}
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            "bfloat16": torch.bfloat16, torch.float32: torch.float32,
            torch.bfloat16: torch.bfloat16}
@@ -121,19 +126,56 @@ def _reject_later(kwargs, table, where):
                 f"{table[key]}")
 
 
+def _check_deadline(deadline_ms):
+    if deadline_ms is not None and (
+            isinstance(deadline_ms, bool)
+            or not isinstance(deadline_ms, (int, float, np.integer,
+                                            np.floating))
+            or deadline_ms <= 0):
+        raise ValueError(f"deadline_ms must be a positive number of "
+                         f"milliseconds, got {deadline_ms!r}")
+
+
+def _rollback_reservation(block_manager, request):
+    """Give back the slot a decode row reserved for a step that never
+    committed (abort, quarantine), so the books read ``num_cached``
+    again; mid-prefill rows hold their prompt allocation, not a
+    reservation.  The non-speculative half of the JAX package's
+    ``spec.rollback_draft_reservation``."""
+    if not block_manager.has_seq(request.request_id) \
+            or not request.prefill_done:
+        return 0
+    extra = block_manager.num_tokens(request.request_id) \
+        - request.num_cached
+    if extra > 0:
+        block_manager.rollback_slots(request.request_id, extra)
+    return max(extra, 0)
+
+
 class RequestOutput:
     """One finished request: ids are numpy on the host.
 
-    ``metrics`` holds host ``time.perf_counter`` stamps of the request's
-    arrival, first emitted token and finish."""
+    ``finish_reason`` is one of :data:`~.faults.FinishReason.ALL`;
+    ``ok`` is True for the "done" family (stop/length).  Aborted,
+    deadline-missed, shed and quarantined requests carry a truncated
+    (possibly empty) ``output_ids`` and, for ``error``, the failing
+    step's message in ``error``.  ``logprobs`` holds per-token
+    ``(chosen_logprob, [(tid, lp), ...])`` when the request asked for
+    them; ``matched_stop`` the stop string that ended it.  ``metrics``
+    holds the engine clock's stamps of the request's arrival, first
+    emitted token (None before one) and finish."""
 
     def __init__(self, request_id, prompt_ids, output_ids, finish_reason,
-                 num_preemptions, metrics=None):
+                 num_preemptions, error=None, logprobs=None,
+                 matched_stop=None, metrics=None):
         self.request_id = request_id
         self.prompt_ids = np.asarray(prompt_ids)
         self.output_ids = np.asarray(output_ids)
         self.finish_reason = finish_reason
         self.num_preemptions = num_preemptions
+        self.error = error
+        self.logprobs = logprobs
+        self.matched_stop = matched_stop
         self.metrics = metrics or {}
 
     @property
@@ -173,13 +215,80 @@ class LLMEngine:
     "kv_cache": True}`` keeps float weights.  ``memory_budget=`` (bytes
     or '16GiB'-style) derives the admissible ``max_batch`` from the
     memory model (:meth:`memory_model`) and clamps the requested one.
+
+    Lifecycle: ``faults=`` (a :class:`~.faults.FaultInjector`),
+    ``retry=`` (a RetryPolicy, its dict, or a max attempt count),
+    ``step_timeout_s=`` (the watchdog's threshold), ``max_queue=`` (the
+    waiting-queue depth past which requests are shed),
+    ``record_step_gauges=`` (per-step cumulative counters in
+    :meth:`lifecycle_stats`) and ``clock=`` (a callable giving seconds,
+    optionally with ``sleep``: deadlines, retry backoff and the watchdog
+    read it).  ``detokenizer=`` (ids -> str) enables ``stop=`` strings.
     """
 
     def __init__(self, model, *, block_size=16, num_blocks=None,
                  max_model_len=None, max_batch=8, dtype=None,
                  enable_prefix_caching=True, token_budget=64, seed=None,
-                 memory_budget=None, quantize=None, device=None, **later):
+                 memory_budget=None, quantize=None, faults=None,
+                 retry=None, max_queue=None, step_timeout_s=None,
+                 clock=None, record_step_gauges=False, detokenizer=None,
+                 device=None, **later):
         _reject_later(later, _LATER_ENGINE, "LLMEngine")
+        # lifecycle knobs first: a bad config fails at construction
+        if max_queue is not None:
+            if not isinstance(max_queue, (int, np.integer)) \
+                    or isinstance(max_queue, bool) or max_queue < 1:
+                raise ValueError(
+                    f"max_queue must be a positive int (waiting-queue "
+                    f"depth before load-shedding), got {max_queue!r}")
+            max_queue = int(max_queue)
+        self.max_queue = max_queue
+        self.faults = faults
+        self.retry = RetryPolicy.resolve(retry)
+        if step_timeout_s is not None and (
+                isinstance(step_timeout_s, bool)
+                or not isinstance(step_timeout_s,
+                                  (int, float, np.integer, np.floating))
+                or step_timeout_s <= 0):
+            raise ValueError(
+                f"step_timeout_s must be a positive number of "
+                f"seconds, got {step_timeout_s!r}")
+        if detokenizer is not None and not callable(detokenizer):
+            raise ValueError(
+                f"detokenizer must be a callable(ids) -> str, "
+                f"got {detokenizer!r}")
+        self.detokenizer = detokenizer
+        # deadlines and request stamps read _clock; step timing, retry
+        # backoff and the watchdog read _timer and sleep on _sleep —
+        # all the injected clock when one is given
+        self._clock = clock if clock is not None else time.monotonic
+        self._timer = clock if clock is not None else time.perf_counter
+        self._sleep = getattr(clock, "sleep", time.sleep)
+        if self.faults is not None:
+            # injected delays stall on the clock the watchdog reads
+            self.faults.sleep = self._sleep
+        self.watchdog = (StepWatchdog(step_timeout_s, clock=self._timer)
+                         if step_timeout_s is not None else None)
+        self._early = []         # outputs finished without a device step
+        self._draining = False
+        self._step_index = -1
+        # deterministic event log: (step, kind, *detail) tuples with no
+        # wall time (events.py holds the record schema)
+        self.events = []
+        self.record_step_gauges = bool(record_step_gauges)
+        self.step_gauges = []
+        # bumped by every mutation that changes what the next schedule
+        # would pick (admission, abort, finish, fork, quarantine)
+        self._plan_epoch = 0
+        # set once a launch attempt has written the pools (see _launch)
+        self._writes_began = False
+        # the wall-clock gauges are read from other threads (/healthz)
+        # while the stepping thread writes them: a leaf lock of their own
+        self._gauge_lock = threading.Lock()
+        self._last_step_ms = None
+        self._host_plan_s = 0.0
+        self._step_wall_s = 0.0
+
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be float32 or bfloat16, "
                              f"got {dtype!r}")
@@ -248,6 +357,7 @@ class LLMEngine:
         self.block_manager = BlockManager(
             self.num_blocks, self.block_size,
             enable_prefix_caching=enable_prefix_caching)
+        self.block_manager.fault_hook = self.faults
         self.scheduler = Scheduler(self.block_manager,
                                    max_batch=self.max_batch,
                                    token_budget=self.token_budget)
@@ -290,7 +400,10 @@ class LLMEngine:
         # included
         self.stats = {"steps": 0, "prefill_steps": 0, "decode_steps": 0,
                       "chunk_launches": 0, "tokens_generated": 0,
-                      "mixed_steps": 0, "launches": 0}
+                      "mixed_steps": 0, "launches": 0,
+                      # lifecycle counters (lifecycle_stats())
+                      "aborted": 0, "deadline_missed": 0, "shed": 0,
+                      "retries": 0, "quarantined": 0, "step_faults": 0}
 
     def memory_model(self, memory_budget=None):
         """Weights, pages and pool bytes, and the admissible batch under
@@ -300,10 +413,17 @@ class LLMEngine:
 
     # ----------------------------------------------------------- requests --
     def add_request(self, prompt_ids, max_new_tokens=16, eos_token_id=None,
-                    temperature=0.0, request_id=None, seed=None, top_k=0,
-                    top_p=1.0, min_p=0.0, repetition_penalty=1.0,
-                    presence_penalty=0.0, frequency_penalty=0.0,
-                    logit_bias=None, **later):
+                    temperature=0.0, request_id=None, seed=None,
+                    deadline_ms=None, top_k=0, top_p=1.0, min_p=0.0,
+                    repetition_penalty=1.0, presence_penalty=0.0,
+                    frequency_penalty=0.0, logit_bias=None, logprobs=0,
+                    stop=None, grammar=None, n=1, **later):
+        """Queue one request (host work only: safe from any thread an
+        :class:`AsyncLLMEngine` serves).  Every parameter is validated
+        before anything is queued.  Past ``max_queue`` waiting requests,
+        or while draining, the request is shed: it finishes at once with
+        ``FinishReason.shed``, delivered by the next :meth:`step`."""
+        interleave_point("add")
         _reject_later(later, _LATER_REQUEST, "add_request")
         prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if not prompt:
@@ -314,10 +434,32 @@ class LLMEngine:
         if temperature < 0.0:
             raise ValueError(
                 f"temperature must be >= 0, got {temperature}")
-        logit_bias, _ = validate_sampling(
+        logit_bias, stop = validate_sampling(
             top_k, top_p, min_p, repetition_penalty, presence_penalty,
-            frequency_penalty, logit_bias, 0, None, 1,
+            frequency_penalty, logit_bias, logprobs, stop, n,
             vocab_size=self.vocab_size)
+        if stop and self.detokenizer is None:
+            raise ValueError(
+                "stop strings need a detokenizer — construct the "
+                "engine with detokenizer=callable(ids) -> str")
+        if grammar is not None and not all(
+                hasattr(grammar, a)
+                for a in ("start_state", "allowed", "advance")):
+            raise ValueError(
+                f"grammar must implement start_state/allowed/advance "
+                f"(see inference.llm.structured.Grammar), "
+                f"got {grammar!r}")
+        if n > 1:
+            if seed is None:
+                raise ValueError(
+                    "n > 1 parallel sampling needs an explicit seed — "
+                    "each fork k samples under seed + k, which is what "
+                    "makes fork-vs-replay exactness checkable")
+            if n > self.max_batch:
+                raise ValueError(
+                    f"n={n} exceeds max_batch {self.max_batch}: the "
+                    f"whole fork family must fit one running set")
+        _check_deadline(deadline_ms)
         if len(prompt) + max_new_tokens > self.max_model_len:
             raise ValueError(
                 f"prompt {len(prompt)} + new {max_new_tokens} exceeds "
@@ -325,24 +467,148 @@ class LLMEngine:
         if request_id is None:
             request_id = self._next_id
             self._next_id += 1
+        now = self._clock()
         req = Request(request_id=request_id, prompt_ids=tuple(prompt),
                       max_new_tokens=int(max_new_tokens),
                       eos_token_id=eos_token_id,
                       temperature=float(temperature),
                       seed=None if seed is None else int(seed),
+                      deadline=(None if deadline_ms is None
+                                else now + float(deadline_ms) / 1e3),
                       top_k=int(top_k), top_p=float(top_p),
                       min_p=float(min_p),
                       repetition_penalty=float(repetition_penalty),
                       presence_penalty=float(presence_penalty),
                       frequency_penalty=float(frequency_penalty),
-                      logit_bias=logit_bias,
-                      arrival_time=time.perf_counter())
+                      logit_bias=logit_bias, logprobs=int(logprobs),
+                      stop=stop, grammar=grammar, n=int(n),
+                      arrival_time=now)
+        if grammar is not None:
+            req._constraint = ConstraintState(grammar)
+        if self._draining or (self.max_queue is not None
+                              and self.scheduler.queue_depth()
+                              >= self.max_queue):
+            self.stats["shed"] += 1
+            self.events.append((self._step_index, "shed", request_id))
+            req.status = FINISHED
+            req.finish_reason = FinishReason.SHED
+            self._early.append(RequestOutput(
+                request_id, req.prompt_ids, req.output_ids,
+                FinishReason.SHED, 0, metrics=self._metrics(req)))
+            return request_id
         self._requests[request_id] = req
         self.scheduler.add(req)
+        self._invalidate_plan()
+        self.events.append((self._step_index, "add", request_id))
         return request_id
 
+    def abort_request(self, request_id):
+        """Cancel a request in any state — waiting, chunk-prefilling,
+        decoding, preempted or forked — reclaiming its pages
+        refcount-correctly (prefix-cache registrations survive on the
+        LRU list).  Its RequestOutput (``FinishReason.aborted``, with
+        whatever tokens it emitted) comes with the next :meth:`step`.
+        Returns True if the request was live and is now aborted."""
+        interleave_point("abort")
+        req = self._requests.get(request_id)
+        if req is None or req.status == FINISHED:
+            return False
+        _rollback_reservation(self.block_manager, req)
+        self.scheduler.abort(req)
+        self.stats["aborted"] += 1
+        self.events.append((self._step_index, "abort", request_id))
+        self._finish_early(req, FinishReason.ABORTED)
+        return True
+
+    def _finish_early(self, req, reason, error=None):
+        """Terminal bookkeeping of a request that exits without a device
+        step (abort, deadline, quarantine); the caller has reclaimed its
+        pages.  The output joins the next step()'s finished list."""
+        self._invalidate_plan()
+        req.status = FINISHED
+        req.finish_reason = reason
+        self._requests.pop(req.request_id, None)
+        self._early.append(RequestOutput(
+            req.request_id, req.prompt_ids, req.output_ids, reason,
+            req.num_preemptions, error=error,
+            logprobs=req.logprobs_content if req.logprobs else None,
+            matched_stop=req.matched_stop, metrics=self._metrics(req)))
+
+    def _expire_deadlines(self, finished):
+        """Pop every request past its ``deadline_ms`` (waiting or
+        running; pages freed either way) with ``FinishReason.deadline``."""
+        expired = self.scheduler.expire_deadlines(self._clock())
+        for req in expired:
+            self.stats["deadline_missed"] += 1
+            self.events.append(
+                (self._step_index, "deadline", req.request_id))
+            self._finish_early(req, FinishReason.DEADLINE)
+        if expired:
+            finished.extend(self._drain_early())
+
+    def _drain_early(self):
+        early, self._early = self._early, []
+        return early
+
+    def _invalidate_plan(self):
+        """Mark any plan made for the next step stale: every lifecycle
+        mutation that could change what the scheduler picks bumps the
+        epoch."""
+        self._plan_epoch += 1
+
     def has_unfinished(self):
-        return self.scheduler.has_unfinished()
+        return bool(self._early) or self.scheduler.has_unfinished()
+
+    def drain(self, timeout_s=None):
+        """Graceful shutdown: stop admitting (new requests are shed),
+        step until every in-flight request finishes, and return their
+        outputs.  ``timeout_s`` bounds the wait on the engine clock:
+        requests still running when it expires are aborted, so drain()
+        always ends with no page leaked."""
+        self._draining = True
+        deadline = (None if timeout_s is None
+                    else self._clock() + float(timeout_s))
+        outs = []
+        try:
+            while self.has_unfinished():
+                if deadline is not None and self._clock() >= deadline:
+                    for rid in list(self._requests):
+                        self.abort_request(rid)
+                outs.extend(self.step())
+        finally:
+            self._draining = False
+        return outs
+
+    def lifecycle_stats(self):
+        """Failure-path counters plus the live gauges a health check
+        polls between steps: ``queue_depth`` (admitted, not yet
+        running), ``inflight`` (running), ``free_pages`` (allocatable
+        now, LRU-parked cached pages included), ``last_step_ms`` (the
+        latest step()'s time on the engine timer; None before the first
+        step), ``host_plan_s`` (time spent scheduling and packing) and
+        ``host_overhead_fraction`` (its share of all step time; None
+        before a step).  The wall-clock values never enter ``events``."""
+        s = self.stats
+        with self._gauge_lock:
+            last_step_ms = self._last_step_ms
+            host_plan_s = self._host_plan_s
+            step_wall_s = self._step_wall_s
+        return {"aborted": s["aborted"],
+                "deadline_missed": s["deadline_missed"],
+                "shed": s["shed"], "retries": s["retries"],
+                "quarantined": s["quarantined"],
+                "step_faults": s["step_faults"],
+                "preemptions": self.scheduler.num_preemptions,
+                "wedged_steps": (self.watchdog.num_wedged
+                                 if self.watchdog else 0),
+                "queue_depth": self.scheduler.queue_depth(),
+                "inflight": len(self.scheduler.running),
+                "free_pages": self.block_manager.num_free_blocks,
+                "last_step_ms": last_step_ms,
+                "host_plan_s": host_plan_s,
+                "host_overhead_fraction": (
+                    host_plan_s / step_wall_s if step_wall_s > 0 else None),
+                "step_gauges": self.step_gauges}
 
     def prefix_cache_stats(self):
         """Host-side prefix-cache counters."""
@@ -373,40 +639,52 @@ class LLMEngine:
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    def _stage(self, pk):
+        """Copy a packed step's operands to the device: the int32 buffer
+        (on CUDA into the bucket's static buffer) and, for a step with a
+        sampling-pipeline row, the pipeline's operands.  Writes no pool."""
+        if self.device.type == "cuda":
+            ints = self._graphs.stage(pk["tb"], pk["ints"])
+        else:
+            ints = torch.from_numpy(pk["ints"])
+        pipe = None
+        if pk["pipeline"] is not None:
+            knobs, bias, counts = pk["pipeline"]
+            pipe = tuple(self._to_device(a) for a in (*knobs, bias, counts))
+        return ints, pipe
+
     @torch.no_grad()
     def _ragged_fn(self, pk):
         """Run one packed step (see :meth:`_pack_rows`) -> (argmax [Tb],
         logits [Tb, V]) on the device; the K/V pools are updated in place.
 
-        Copy-on-write page copies run first, eagerly, so they land before
-        the step's writes.  Then the step body runs: on the CPU directly,
-        on CUDA as a replay of the bucket's graph, after one copy of the
-        packed operands into the bucket's static buffer (a bucket's first
-        step runs the body eagerly and captures it, ``jit/graphs.py``).
-        A step with a sampling-pipeline row runs the pipeline eagerly on
-        the step's logits and takes the argmax again.
+        The operands are staged first (:meth:`_stage`).  Then the pools
+        are written: copy-on-write page copies, eagerly, so they land
+        before the step's writes, then the step body: on the CPU
+        directly, on CUDA as a replay of the bucket's graph (a bucket's
+        first step runs the body eagerly and captures it,
+        ``jit/graphs.py``).  ``_writes_began`` marks the boundary for
+        :meth:`_launch`.  A step with a sampling-pipeline row runs the
+        pipeline eagerly on the step's logits and takes the argmax again.
 
         On CUDA the returned tensors may be the graph's static outputs,
         which the next replay overwrites: the caller reads them before
         the next step, as :meth:`_launch_packed` does."""
+        ints, pipe = self._stage(pk)
+        self._writes_began = True
         if pk["cows"]:
             self._copy_on_write(pk["cows"])
         tb = pk["tb"]
         if self.device.type == "cuda":
-            ints = self._graphs.stage(tb, pk["ints"])
             argmax, logits = self._graphs.run(tb)
         else:
-            ints = torch.from_numpy(pk["ints"])
             argmax, logits = self._ragged_body(ints)
         self.stats["launches"] += 1
-        if pk["pipeline"] is not None:
+        if pipe is not None:
             # neutral knobs are exact identities, so a step without a
             # pipeline row skips the pipeline instead of running it
-            knobs, bias, counts = pk["pipeline"]
-            logits = apply_logits_pipeline(
-                logits, ints[2 * tb:3 * tb],
-                *(self._to_device(k) for k in knobs),
-                self._to_device(bias), self._to_device(counts))
+            logits = apply_logits_pipeline(logits, ints[2 * tb:3 * tb],
+                                           *pipe)
             argmax = logits.argmax(-1)
         return argmax, logits
 
@@ -509,7 +787,9 @@ class LLMEngine:
         are written) so the kernel libraries and allocator are ready
         before traffic; on CUDA that run captures the bucket's graph,
         largest bucket first so the smaller captures reuse the shared
-        pool's memory, and steady serving captures nothing new.  Returns
+        pool's memory, and steady serving captures nothing new.  A
+        server calls it before its worker thread starts, so no capture
+        runs while another thread may call into CUDA.  Returns
         ``{"ragged[<bucket>]": ms}`` in bucket order, captures
         included."""
         timings = {}
@@ -525,23 +805,71 @@ class LLMEngine:
     # ---------------------------------------------------------------- step --
     def step(self):
         """Run one scheduling iteration; returns the RequestOutputs
-        finished by this step (possibly empty)."""
-        finished = []
+        finished by this step (possibly empty), including requests that
+        left through a failure path (aborted, deadline, shed, error)
+        since the previous step."""
+        t0 = self._timer()
+        try:
+            return self._step_impl()
+        finally:
+            dt = self._timer() - t0
+            with self._gauge_lock:
+                self._step_wall_s += dt
+                self._last_step_ms = dt * 1e3
+
+    def _step_impl(self):
+        interleave_point("step")
+        self._step_index += 1
+        if self.faults is not None:
+            self.faults.begin_step(self._step_index)
+        finished = self._drain_early()
+        self._expire_deadlines(finished)
+        t0 = self._timer()
+        pre_preempt = self.scheduler.num_preemptions
         batch = self.scheduler.schedule()
+        if self.scheduler.num_preemptions > pre_preempt:
+            self.events.append(
+                (self._step_index, "preempt",
+                 self.scheduler.num_preemptions - pre_preempt))
         if batch.kind == "idle":
+            with self._gauge_lock:
+                self._host_plan_s += self._timer() - t0
+            self._record_step_gauges()
             return finished
         self.stats["steps"] += 1
-        self._ragged_step(batch, finished)
+        self._ragged_step(batch, finished, t0)
+        finished.extend(self._drain_early())
+        self._record_step_gauges()
         return finished
 
-    def _ragged_step(self, batch, finished):
+    def _record_step_gauges(self):
+        """Per-step cumulative lifecycle counters (``record_step_gauges=``),
+        wall-clock free, in ``lifecycle_stats()["step_gauges"]``."""
+        if not self.record_step_gauges:
+            return
+        s = self.stats
+        self.step_gauges.append({
+            "step": self._step_index,
+            "preemptions": self.scheduler.num_preemptions,
+            "shed": s["shed"], "aborted": s["aborted"],
+            "deadline_missed": s["deadline_missed"],
+            "retries": s["retries"], "quarantined": s["quarantined"],
+            "queue_depth": self.scheduler.queue_depth(),
+            "inflight": len(self.scheduler.running),
+            "free_pages": self.block_manager.num_free_blocks,
+        })
+
+    def _ragged_step(self, batch, finished, t_sched):
         """One launch for the whole scheduled step: decode rows and
         prefill chunks pack into a single flat token batch; commits run
         decode rows in scheduler order first, then chunks in schedule
-        order (the order seeded streams depend on)."""
+        order (the order seeded streams depend on).  Scheduling and
+        packing from ``t_sched`` on count as host planning time."""
         rows = [row for row in batch.rows
                 if row.request.status != FINISHED]
         if not rows:
+            with self._gauge_lock:
+                self._host_plan_s += self._timer() - t_sched
             return
         has_decode = any(row.kind != "chunk" for row in rows)
         has_chunk = any(row.kind == "chunk" for row in rows)
@@ -553,9 +881,87 @@ class LLMEngine:
                 sum(1 for row in rows if row.kind == "chunk")
         if has_decode and has_chunk:
             self.stats["mixed_steps"] += 1
-        self._launch_packed(rows, self._pack_ragged(rows, batch.cows),
-                            finished)
+        pk = self._pack_ragged(rows, batch.cows)
+        with self._gauge_lock:
+            self._host_plan_s += self._timer() - t_sched
+        self._launch_packed(rows, pk, finished)
 
+    # ----------------------------------------------------- step isolation --
+    def _launch(self, kind, reqs, launch):
+        """Run one launch behind the isolation boundary and return its
+        outputs, or None after a quarantine (the caller skips its
+        commit).  An injected fault fires first, before the step stages
+        or writes anything; the retry policy absorbs failures with
+        seeded backoff, repeating the whole launch (a page copy is
+        idempotent); the watchdog clocks each attempt — on CUDA a replay
+        returns before the card finishes, so it times the dispatch, as
+        the JAX engine's watchdog times an asynchronous dispatch.  A
+        launch that fails after it began writing the pools, or with a
+        CUDA error (sticky: the context is unusable), raises
+        PoolLostError; one that still fails after every retry is
+        quarantined."""
+        attempt = 0
+        while True:
+            t0 = (self.watchdog.started()
+                  if self.watchdog is not None else None)
+            self._writes_began = False
+            try:
+                if self.faults is not None:
+                    self.faults.device_step(kind)
+                return launch()
+            except Exception as e:   # noqa: BLE001 — isolation boundary
+                self.stats["step_faults"] += 1
+                if self._pool_lost(e):
+                    raise PoolLostError(
+                        f"device step failed after writing the KV pools "
+                        f"in place; cache unrecoverable: {e}") from e
+                attempt += 1
+                if attempt < self.retry.max_attempts:
+                    self.stats["retries"] += 1
+                    self.events.append(
+                        (self._step_index, "retry", kind, attempt))
+                    delay = self.retry.backoff(attempt - 1)
+                    if delay > 0:
+                        self._sleep(delay)
+                    continue
+                self._quarantine(kind, reqs, e)
+                return None
+            finally:
+                if self.watchdog is not None:
+                    self.watchdog.observe_since(self._step_index, kind,
+                                                t0)
+
+    def _pool_lost(self, exc):
+        """Whether a failed launch left the pools unusable: it had begun
+        writing them, or it raised a CUDA error."""
+        return self._writes_began or isinstance(exc, torch.AcceleratorError)
+
+    def _quarantine(self, kind, reqs, exc):
+        """A launch failed after every retry: finish the responsible
+        request(s) with ``FinishReason.error`` instead of failing the
+        batch.  An injected fault names its victim row; a real failure
+        quarantines every row of the launch.  The other rows give back
+        their step reservation and stay running — the launch wrote
+        nothing, so their K/V is intact and the next step re-launches
+        them token-exactly."""
+        self._invalidate_plan()
+        victim = getattr(exc, "victim", None)
+        victims = (list(reqs) if victim is None or not reqs
+                   else [reqs[victim % len(reqs)]])
+        msg = f"{type(exc).__name__}: {exc}"
+        warnings.warn(f"quarantining {len(victims)} request(s) after "
+                      f"failed {kind} step: {msg}", RuntimeWarning,
+                      stacklevel=3)
+        for req in reqs:
+            _rollback_reservation(self.block_manager, req)
+        for req in victims:
+            self.scheduler.abort(req)
+            self.stats["quarantined"] += 1
+            self.events.append(
+                (self._step_index, "quarantine", req.request_id))
+            self._finish_early(req, FinishReason.ERROR, error=msg)
+
+    # ------------------------------------------------------------ packing --
     def _pack_rows(self, entries, tb, cows=()):
         """Pack ``(tokens, pos0, block_table)`` rows into one int32 host
         buffer: ids, positions, token->row map (``tb`` each), then
@@ -590,7 +996,10 @@ class LLMEngine:
 
     def _pack_ragged(self, rows, cows):
         """Pack one step's RaggedRows into host operands, plus the
-        sampling pipeline's operands when a row uses it."""
+        sampling pipeline's operands when a row uses it: six per-row knob
+        vectors and two ``[tb, V]`` f32 channels, the additive bias
+        (logit bias and a grammar's mask of the row's current state) and
+        the penalties' token counts, filled at each sampling position."""
         total = sum(row.length for row in rows)
         tb = bucket_size(total, self.token_budget, floor=8)
         entries = []
@@ -628,20 +1037,33 @@ class LLMEngine:
                     counts[p] = token_counts(req.all_ids, v)
                 for t, b in (req.logit_bias or {}).items():
                     bias[p, t] += b
+                if req._constraint is not None \
+                        and req._constraint.state is not None:
+                    req._constraint.bias_row(bias[p])
             pk["pipeline"] = (knobs, bias, counts)
         return pk
 
     def _launch_packed(self, rows, pk, finished):
-        """Launch one packed step and commit its tokens."""
-        argmax, logits = self._ragged_fn(pk)
+        """Launch one packed step behind the isolation boundary, pull its
+        tokens and commit them.  The pull follows the step's pool
+        writes, so a failure there raises PoolLostError."""
+        out = self._launch("ragged", [row.request for row in rows],
+                           lambda: self._ragged_fn(pk))
+        if out is None:
+            return
         # on CUDA these are the graph's static outputs: read before the
         # next replay overwrites them
-        nxt, row_logits = self._pull(rows, pk["starts"], argmax, logits)
+        try:
+            nxt, row_logits = self._pull(rows, pk["starts"], *out)
+        except Exception as e:   # noqa: BLE001 — the pools are written
+            raise PoolLostError(
+                f"device step failed after writing the KV pools in "
+                f"place; cache unrecoverable: {e}") from e
         self._commit(rows, pk["starts"], nxt, row_logits, finished)
 
     def _pull(self, rows, starts, argmax, logits):
         """The one host pull per step: the argmax vector, plus the logits
-        rows of tokens that sample with a temperature."""
+        rows of tokens that sample or report logprobs."""
         return (argmax.cpu().numpy(),
                 self._fetch_sampling_rows(rows, starts, logits))
 
@@ -671,17 +1093,22 @@ class LLMEngine:
             self._register_full_blocks(req)
             if ch.is_final:
                 lg = row_logits.get(ri)
+                # n > 1 forks split here, prompt cached and before the
+                # first token commits: every member samples its first
+                # token from this final-chunk row under its own stream
+                tok = nxt[starts[ri] + row.length - 1]
                 self._commit_tokens(
-                    [(req, nxt[starts[ri] + row.length - 1],
-                      None if lg is None else lg[0])], finished)
+                    [(r, tok, None if lg is None else lg[0])
+                     for r in self._fork_family(req)], finished)
 
     def _fetch_sampling_rows(self, rows, starts, logits):
         """Fetch only the logits rows of tokens that sample with a
-        temperature: a greedy batch transfers just the argmax vector.
-        Returns {row_index: [1, V] host array}."""
+        temperature or report logprobs: a greedy batch transfers just the
+        argmax vector.  Returns {row_index: [1, V] host array}."""
         idx, spans = [], {}
         for ri, row in enumerate(rows):
-            if row.request.temperature <= 0.0:
+            req = row.request
+            if req.temperature <= 0.0 and not req.logprobs:
                 continue
             if row.kind == "chunk":
                 if not row.chunk.is_final:
@@ -720,11 +1147,66 @@ class LLMEngine:
             rng = self._rng
         return int(np.argmax(z + rng.gumbel(size=z.shape)))
 
+    def _check_stop(self, req):
+        """Stop-string check after an emitted token: the matched string
+        (also recorded on the request) or None."""
+        if not req.stop:
+            return None
+        if req._stop_watcher is None:
+            req._stop_watcher = StopStringWatcher(req.stop,
+                                                  self.detokenizer)
+        hit = req._stop_watcher.check(req.output_ids)
+        if hit is not None:
+            req.matched_stop = hit
+        return hit
+
+    def _fork_family(self, req):
+        """Split an ``n > 1`` request into its fork family, returning the
+        members in sampling order (parent first).  Called at final-chunk
+        commit: ``BlockManager.fork`` shares the parent's pages by
+        refcount (a child's first private page is a copy-on-write pair
+        of a later step), and child ``k`` samples under ``seed + k`` —
+        the stream an independent request with that seed would use."""
+        if req.n <= 1 or req._forked:
+            return [req]
+        req._forked = True
+        self._invalidate_plan()
+        fam = [req]
+        for k in range(1, req.n):
+            cid = f"{req.request_id}.{k}"
+            self.block_manager.fork(req.request_id, cid)
+            child = Request(
+                request_id=cid, prompt_ids=req.prompt_ids,
+                max_new_tokens=req.max_new_tokens,
+                eos_token_id=req.eos_token_id,
+                temperature=req.temperature,
+                seed=req.seed + k, deadline=req.deadline,
+                top_k=req.top_k, top_p=req.top_p, min_p=req.min_p,
+                repetition_penalty=req.repetition_penalty,
+                presence_penalty=req.presence_penalty,
+                frequency_penalty=req.frequency_penalty,
+                logit_bias=req.logit_bias, logprobs=req.logprobs,
+                stop=req.stop, grammar=req.grammar,
+                n=1, parent_id=req.request_id, fork_index=k,
+                arrival_time=req.arrival_time,
+                num_cached=req.num_cached,
+                num_prefill_tokens=req.num_prefill_tokens,
+                status=RUNNING)
+            if req.grammar is not None:
+                child._constraint = ConstraintState(req.grammar)
+            self._requests[cid] = child
+            self.scheduler.running.append(child)
+            self.events.append(
+                (self._step_index, "fork", req.request_id, cid))
+            fam.append(child)
+        return fam
+
     def _commit_tokens(self, entries, finished):
         """Commit one token per (req, argmax, logits) entry, in order.
         Engine-stream sampling rows share one vectorized gumbel draw
         (bitwise the sequential per-row draws); per-request streams draw
-        row by row."""
+        row by row.  Then each token's logprobs, grammar advance and
+        stop checks (stop string, eos, length, in that order)."""
         eng_rows = [j for j, (r, _t, _lg) in enumerate(entries)
                     if r.temperature > 0.0 and r.seed is None]
         picked = {}
@@ -734,7 +1216,7 @@ class LLMEngine:
             g = self._rng.gumbel(size=z.shape)
             for j, t in zip(eng_rows, np.argmax(z + g, axis=-1)):
                 picked[j] = int(t)
-        now = time.perf_counter()
+        now = self._clock()
         for j, (req, argmax_token, logits) in enumerate(entries):
             if req.temperature > 0.0:
                 tok = picked[j] if j in picked \
@@ -745,32 +1227,51 @@ class LLMEngine:
             if len(req.output_ids) == 1:
                 self._first_token_at[req.request_id] = now
             self.stats["tokens_generated"] += 1
-            if req.eos_token_id is not None and tok == req.eos_token_id:
+            if req.logprobs and logits is not None:
+                req.logprobs_content.append(
+                    top_logprobs(logits, req.logprobs, tok))
+            if req._constraint is not None:
+                req._constraint.advance(tok)
+            if self._check_stop(req) is not None:
+                self._finish(req, FinishReason.STOP, finished)
+            elif req.eos_token_id is not None and tok == req.eos_token_id:
                 self._finish(req, FinishReason.STOP, finished)
             elif len(req.output_ids) >= req.max_new_tokens:
                 self._finish(req, FinishReason.LENGTH, finished)
 
+    def _metrics(self, req):
+        return {"arrival": req.arrival_time,
+                "first_token": self._first_token_at.pop(req.request_id,
+                                                        None),
+                "finished": self._clock()}
+
     def _finish(self, req, reason, finished):
+        self._invalidate_plan()
         self.scheduler.remove_running(req)
         req.status = FINISHED
         req.finish_reason = reason
         del self._requests[req.request_id]
-        metrics = {"arrival": req.arrival_time,
-                   "first_token": self._first_token_at.pop(
-                       req.request_id, None),
-                   "finished": time.perf_counter()}
+        self.events.append(
+            (self._step_index, "finish", req.request_id, reason))
         finished.append(RequestOutput(
             req.request_id, req.prompt_ids, req.output_ids, reason,
-            req.num_preemptions, metrics=metrics))
+            req.num_preemptions,
+            logprobs=req.logprobs_content if req.logprobs else None,
+            matched_stop=req.matched_stop, metrics=self._metrics(req)))
 
     # ----------------------------------------------------------- generate --
     def generate(self, prompts, max_new_tokens=32, eos_token_id=None,
-                 temperature=0.0, seed=None, top_k=0, top_p=1.0,
-                 min_p=0.0, repetition_penalty=1.0, presence_penalty=0.0,
-                 frequency_penalty=0.0, logit_bias=None, **later):
+                 temperature=0.0, seed=None, deadline_ms=None, top_k=0,
+                 top_p=1.0, min_p=0.0, repetition_penalty=1.0,
+                 presence_penalty=0.0, frequency_penalty=0.0,
+                 logit_bias=None, logprobs=0, stop=None, grammar=None, n=1,
+                 **later):
         """Batch convenience: returns one [T+new] int64 array per prompt
-        (request order preserved).  ``seed`` gives every request of this
-        call its own deterministic sampling stream."""
+        (request order preserved) — or, for ``n > 1``, one list of n
+        arrays per prompt (parent first, then forks 1..n-1).  ``seed``
+        gives every request of this call its own deterministic sampling
+        stream; every other knob applies to each request of the call.
+        Shared knobs are validated before any request is queued."""
         _reject_later(later, _LATER_REQUEST, "generate")
         if max_new_tokens < 1:
             raise ValueError(
@@ -778,9 +1279,10 @@ class LLMEngine:
         if temperature < 0.0:
             raise ValueError(
                 f"temperature must be >= 0, got {temperature}")
+        _check_deadline(deadline_ms)
         validate_sampling(top_k, top_p, min_p, repetition_penalty,
                           presence_penalty, frequency_penalty, logit_bias,
-                          0, None, 1, vocab_size=self.vocab_size)
+                          logprobs, stop, n, vocab_size=self.vocab_size)
         if isinstance(prompts, np.ndarray) and prompts.ndim == 2:
             prompts = list(prompts)
         elif not isinstance(prompts, (list, tuple)):
@@ -788,14 +1290,213 @@ class LLMEngine:
         order = [self.add_request(p, max_new_tokens=max_new_tokens,
                                   eos_token_id=eos_token_id,
                                   temperature=temperature, seed=seed,
+                                  deadline_ms=deadline_ms,
                                   top_k=top_k, top_p=top_p, min_p=min_p,
                                   repetition_penalty=repetition_penalty,
                                   presence_penalty=presence_penalty,
                                   frequency_penalty=frequency_penalty,
-                                  logit_bias=logit_bias)
+                                  logit_bias=logit_bias,
+                                  logprobs=logprobs, stop=stop,
+                                  grammar=grammar, n=n)
                  for p in prompts]
         outs = {}
         while self.has_unfinished():
             for fo in self.step():
                 outs[fo.request_id] = fo
-        return [outs[rid].all_ids.astype(np.int64) for rid in order]
+        if n == 1:
+            return [outs[rid].all_ids.astype(np.int64) for rid in order]
+        fams = []
+        for rid in order:
+            group = [outs[rid].all_ids.astype(np.int64)]
+            for k in range(1, n):
+                cid = f"{rid}.{k}"
+                if cid in outs:        # absent only if shed before the fork
+                    group.append(outs[cid].all_ids.astype(np.int64))
+            fams.append(group)
+        return fams
+
+
+class AsyncLLMEngine:
+    """Thread-safe front of an LLMEngine: callers submit from any thread
+    (one per HTTP connection in ``HttpLLMServer``) and block on their own
+    result while one worker thread steps the engine, so concurrent
+    callers batch into the same steps.
+
+    The step runs outside the condition lock, so ``submit()`` returns
+    while a step is in flight; the next schedule() admits the request.
+    That is safe because ``add_request`` only appends to the scheduler's
+    waiting queue and the request dict, and touches no device; all other
+    engine state, and every CUDA call, belongs to the worker thread.  On
+    CUDA, call ``engine.warmup()`` before constructing this, so every
+    bucket's graph is captured on the caller's thread; a bucket missed
+    there is captured by the worker, the only thread on the device.
+
+    Lifecycle: ``abort(request_id)`` queues a cancel the worker applies
+    between steps; ``result(timeout=)`` expiring aborts the request (a
+    caller that gave up must not leave it holding pages);
+    ``drain(timeout_s=)`` quiesces without stopping (racing submits are
+    shed, so each still gets a terminal output) and reopens admission
+    on return; ``close()`` aborts what is in flight, joins the worker,
+    and raises if the thread survives.  Timeouts read the engine's
+    injected clock.
+    """
+
+    _worker_seq = 0     # deterministic worker thread names (interleave)
+
+    def __init__(self, engine):
+        self.engine = engine
+        self._clock = getattr(engine, "_clock", time.monotonic)
+        self._cond = threading.Condition()
+        self._results = {}          # request_id -> RequestOutput
+        self._aborts = set()        # rids to cancel, applied by the loop
+        self._abandoned = set()     # rids whose caller gave up (timeout)
+        self._draining = False
+        self._stopped = False
+        AsyncLLMEngine._worker_seq += 1
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True,
+            name=f"llm-async-worker-{AsyncLLMEngine._worker_seq}")
+        self._thread.start()
+
+    def _loop(self):
+        while True:
+            with self._cond:
+                while not self._stopped and not self._aborts and \
+                        not self.engine.has_unfinished():
+                    interleave_wait(self._cond, 0.5)
+                if self._stopped:
+                    break
+                aborts, self._aborts = self._aborts, set()
+            # engine state is touched only on this thread: queued aborts
+            # apply here, between steps
+            interleave_point("loop")
+            for rid in aborts:
+                self.engine.abort_request(rid)
+            finished = self.engine.step()    # lock not held
+            self._publish(finished)
+        # stopped: abort what is still in flight so pages are reclaimed
+        # and blocked result() callers get a terminal output (stub
+        # engines without the lifecycle surface just stop stepping)
+        abort = getattr(self.engine, "abort_request", None)
+        if abort is not None:
+            for rid in list(getattr(self.engine, "_requests", ())):
+                abort(rid)
+            while self.engine.has_unfinished():
+                self._publish(self.engine.step())
+        with self._cond:
+            self._cond.notify_all()
+
+    def _publish(self, finished):
+        if not finished:
+            return
+        with self._cond:
+            for fo in finished:
+                if fo.request_id in self._abandoned:
+                    self._abandoned.discard(fo.request_id)
+                    continue        # caller timed out and walked away
+                self._results[fo.request_id] = fo
+            self._cond.notify_all()
+
+    def submit(self, prompt_ids, **kwargs):
+        interleave_point("submit")
+        with self._cond:
+            if self._stopped:
+                raise RuntimeError("engine stopped")
+            # masked: points inside add_request must not deschedule a
+            # thread that holds _cond
+            with masked():
+                rid = self.engine.add_request(prompt_ids, **kwargs)
+            self._cond.notify_all()
+            return rid
+
+    def abort(self, request_id):
+        """Queue a cancel for ``request_id``; the worker applies it
+        before its next step and the aborted output
+        (``FinishReason.aborted``) arrives like any other result."""
+        interleave_point("abort-queue")
+        with self._cond:
+            self._aborts.add(request_id)
+            self._cond.notify_all()
+
+    def result(self, request_id, timeout=None):
+        """Block until the request finishes; returns its RequestOutput.
+        On timeout the request is aborted (pages reclaimed, output
+        discarded) before TimeoutError is raised."""
+        with self._cond:
+            deadline = (None if timeout is None
+                        else self._clock() + float(timeout))
+            while not (request_id in self._results or self._stopped):
+                if deadline is not None and self._clock() >= deadline:
+                    break
+                chunk = 0.1 if deadline is None else \
+                    max(0.0, min(0.1, deadline - self._clock()))
+                interleave_wait(self._cond, chunk)
+            ok = request_id in self._results or self._stopped
+            if not ok:
+                self._abandoned.add(request_id)
+                self._aborts.add(request_id)
+                self._cond.notify_all()
+                raise TimeoutError(
+                    f"request {request_id} timed out and was aborted")
+            if request_id in self._results:
+                return self._results.pop(request_id)
+            raise RuntimeError("engine stopped")
+
+    def generate(self, prompt_ids, timeout=None, **kwargs):
+        return self.result(self.submit(prompt_ids, **kwargs),
+                           timeout=timeout)
+
+    def drain(self, timeout_s=None):
+        """Quiesce without stopping the worker: admission closes (the
+        engine sheds, so a submit racing the drain still gets
+        ``FinishReason.shed``), every in-flight request completes, and
+        admission reopens on return.  ``timeout_s`` bounds the wait:
+        requests still running then are aborted, so drain() always ends
+        with no page leaked.  Safe from any thread."""
+        with self._cond:
+            if self._stopped:
+                raise RuntimeError("engine stopped")
+            self._draining = True
+            self.engine._draining = True
+            self._cond.notify_all()
+        deadline = (None if timeout_s is None
+                    else self._clock() + float(timeout_s))
+        try:
+            with self._cond:
+                while not self._stopped:
+                    if not self._aborts and \
+                            not self.engine.has_unfinished():
+                        break
+                    if deadline is not None and \
+                            self._clock() >= deadline:
+                        deadline = None     # abort once, then wait
+                        for rid in list(getattr(self.engine,
+                                                "_requests", ())):
+                            self._aborts.add(rid)
+                        self._cond.notify_all()
+                        continue
+                    interleave_wait(self._cond, 0.02)
+        finally:
+            with self._cond:
+                self.engine._draining = False
+                self._draining = False
+
+    def close(self, join_timeout=5.0):
+        """Stop the worker: pending requests are aborted (pages
+        reclaimed, outputs published with ``FinishReason.aborted``), the
+        thread is joined, and a worker that outlives the join raises —
+        a stopped engine must not keep calling the device."""
+        with self._cond:
+            self._stopped = True
+            self._cond.notify_all()
+        self._thread.join(timeout=join_timeout)
+        if self._thread.is_alive():
+            warnings.warn(
+                "AsyncLLMEngine worker thread survived close(); a device "
+                "step is wedged", RuntimeWarning, stacklevel=2)
+            raise RuntimeError(
+                f"AsyncLLMEngine worker thread failed to stop within "
+                f"{join_timeout}s (wedged device step?)")
+
+    # the JAX package's name for close()
+    stop = close

@@ -21,6 +21,10 @@ Semantics:
   top-k -> top-p -> min-p.  Filtered entries are set to
   :data:`FILTERED`, a large finite negative, so a host float64 softmax
   over a fetched row stays NaN-free.
+
+Host side, after a token is emitted: :class:`StopStringWatcher` matches
+stop strings over the detokenized tail, and :func:`top_logprobs`
+reports a fetched processed row's log-probabilities.
 """
 
 import math
@@ -28,8 +32,9 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["FILTERED", "apply_logits_pipeline", "neutral_row_params",
-           "token_counts", "validate_sampling"]
+__all__ = ["FILTERED", "StopStringWatcher", "apply_logits_pipeline",
+           "neutral_row_params", "token_counts", "top_logprobs",
+           "validate_sampling"]
 
 FILTERED = -1e30
 
@@ -170,3 +175,52 @@ def validate_sampling(top_k, top_p, min_p, repetition_penalty,
         raise ValueError(f"n must be an int >= 1 parallel samples, "
                          f"got {n!r}")
     return norm_bias, norm_stop
+
+
+class StopStringWatcher:
+    """Rolling suffix match of stop strings over the detokenized tail.
+
+    ``detokenize`` maps a list of token ids to text.  After every
+    emitted token the engine calls :meth:`check` with the output so
+    far; the watcher detokenizes a bounded tail window — grown until
+    the window text is at least twice the longest stop string (or the
+    output is exhausted) — and searches it.  Re-detokenizing the
+    window, instead of concatenating per-token pieces, is what lets a
+    match straddle a detokenization boundary: BPE-style detokenizers
+    may merge across tokens, and the straddled text only exists in the
+    joint rendering."""
+
+    def __init__(self, stop, detokenize):
+        self.stop = tuple(stop)
+        self.detokenize = detokenize
+        self._need = 2 * max(len(s) for s in self.stop)
+
+    def check(self, output_ids):
+        """The matched stop string, or None.  Called once per emitted
+        token, so any match not already terminal ends in the newest
+        token's text — inside the window by construction."""
+        n = len(output_ids)
+        if n == 0:
+            return None
+        w = 1
+        text = self.detokenize(list(output_ids[-w:]))
+        while w < n and len(text) < self._need:
+            w = min(n, w * 2)
+            text = self.detokenize(list(output_ids[-w:]))
+        for s in self.stop:
+            if s in text:
+                return s
+        return None
+
+
+def top_logprobs(row, n, chosen):
+    """Log-probabilities of one PROCESSED host logits row: returns
+    ``(chosen_logprob, [(token_id, logprob), ...])`` with the top-n
+    alternatives in descending order (ties broken by token id, so the
+    return is deterministic)."""
+    z = np.asarray(row, np.float64)
+    z = z - z.max()
+    lp = z - np.log(np.exp(z).sum())
+    order = np.lexsort((np.arange(lp.size), -lp))[:n]
+    return (float(lp[int(chosen)]),
+            [(int(t), float(lp[t])) for t in order])

@@ -28,6 +28,7 @@ them again through :func:`paddle_tpu_torch.ops.cuda.registry.add_counts`.
 CUDA only: the callers run the body directly on the CPU.
 """
 
+import gc
 import time
 
 import torch
@@ -97,14 +98,25 @@ class StepGraphs:
         return out
 
     def capture(self, key, *args):
-        """Capture ``body(*args)`` as ``key``'s graph in the shared pool."""
+        """Capture ``body(*args)`` as ``key``'s graph in the shared pool.
+
+        The cyclic garbage collector is off during the capture: a
+        collection there could free an unreachable object holding CUDA
+        resources (another engine's graphs, say), and the CUDA calls of
+        its release would invalidate the capture."""
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         before = registry.counts()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
-            out = self._body(*args)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = self._body(*args)
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize()
         self.capture_ms[key] = (time.perf_counter() - t0) * 1e3
         after = registry.counts()

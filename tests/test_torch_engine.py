@@ -7,9 +7,13 @@ weights (carried across as numpy arrays), ``block_size=8``,
 the token budget (chunked prefill, mixed steps) and two that share a
 16-token prefix (prefix-cache hits); the host gumbel streams are the
 same numpy streams on both sides.  The logits pipeline must match the
-JAX one knob by knob on seeded logits (atol 1e-6).  The copied
+JAX one knob by knob on seeded logits (atol 1e-6).  The host modules
+the port copies (block manager, scheduler, faults, events, interleave,
+structured) must be the JAX package's source verbatim, and the copied
 block manager and scheduler must pass a handful of the JAX package's
-own allocator and scheduler cases.
+own allocator and scheduler cases.  Engine and request keywords the
+port has are accepted and serve; the JAX engine's others raise
+NotImplementedError.
 """
 
 import inspect
@@ -20,7 +24,11 @@ import torch
 
 import paddle_tpu as paddle
 import paddle_tpu.inference.llm.block_manager as jax_bm
+import paddle_tpu.inference.llm.events as jax_events
+import paddle_tpu.inference.llm.faults as jax_faults
+import paddle_tpu.inference.llm.interleave as jax_interleave
 import paddle_tpu.inference.llm.scheduler as jax_sched
+import paddle_tpu.inference.llm.structured as jax_structured
 from paddle_tpu.inference.llm import LLMEngine as JaxEngine
 from paddle_tpu.inference.llm.sampling import (
     apply_logits_pipeline as jax_pipeline,
@@ -28,15 +36,22 @@ from paddle_tpu.inference.llm.sampling import (
 from paddle_tpu.models.gpt import gpt_tiny as jax_gpt_tiny
 from paddle_tpu_torch.inference.llm import (
     BlockManager,
+    Fault,
+    FaultInjector,
     LLMEngine,
     NoFreeBlocksError,
     Request,
     Scheduler,
     apply_logits_pipeline,
     bucket_size,
+    json_array_grammar,
 )
 import paddle_tpu_torch.inference.llm.block_manager as port_bm
+import paddle_tpu_torch.inference.llm.events as port_events
+import paddle_tpu_torch.inference.llm.faults as port_faults
+import paddle_tpu_torch.inference.llm.interleave as port_interleave
 import paddle_tpu_torch.inference.llm.scheduler as port_sched
+import paddle_tpu_torch.inference.llm.structured as port_structured
 from paddle_tpu_torch.models.gpt import gpt_tiny
 
 ENGINE = dict(block_size=8, max_batch=4, token_budget=16)
@@ -249,18 +264,42 @@ def test_logits_pipeline_matches_jax(case):
 
 LATER_ENGINE_KWARGS = {
     "tensor_parallel": 2, "mesh": object(), "speculative": 2,
-    "lora": 4, "faults": object(), "retry": 3,
-    "kv_tier": 1 << 20, "lookahead": True,
-    "clock": object(), "step_timeout_s": 1.0, "max_queue": 4,
-    "record_step_gauges": True, "detokenizer": str,
+    "lora": 4, "kv_tier": 1 << 20, "lookahead": True,
 }
-# keywords that were later work and are ported now (int8 serving and
-# the memory model): accepted, and their engines serve
-PORTED_ENGINE_KWARGS = {"quantize": "int8", "memory_budget": "16GiB"}
-LATER_REQUEST_KWARGS = {
-    "grammar": object(), "stop": "x", "logprobs": 2, "n": 2,
-    "adapter_id": "t1", "deadline_ms": 10.0,
+# keywords that were later work and are ported now (int8 serving, the
+# memory model, the request lifecycle and the request surface):
+# accepted, and their engines serve
+PORTED_ENGINE_KWARGS = {
+    "quantize": "int8", "memory_budget": "16GiB",
+    "faults": lambda: FaultInjector(
+        [Fault("step", "transient", step=1, count=1)]),
+    "retry": 3, "clock": lambda: _TickClock(), "step_timeout_s": 1.0,
+    "max_queue": 4, "record_step_gauges": True,
+    "detokenizer": lambda: _detok,
 }
+LATER_REQUEST_KWARGS = {"adapter_id": "t1"}
+PORTED_REQUEST_KWARGS = {
+    "grammar": dict(grammar=json_array_grammar(
+        128, open_id=10, close_id=11, comma_id=12, item_ids=(20, 21),
+        eos_id=1, max_items=2), eos_token_id=1),
+    "stop": dict(stop="zz"), "logprobs": dict(logprobs=2),
+    "n": dict(n=2, seed=3), "deadline_ms": dict(deadline_ms=1e6),
+}
+
+
+class _TickClock:
+    """An injected clock: one second per reading."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 1.0
+        return self.t
+
+
+def _detok(ids):
+    return "".join(chr(97 + int(t) % 26) for t in ids)
 
 
 @pytest.mark.parametrize("key", list(LATER_ENGINE_KWARGS))
@@ -272,8 +311,9 @@ def test_unported_engine_keywords_raise(models, key):
 
 @pytest.mark.parametrize("key", list(PORTED_ENGINE_KWARGS))
 def test_ported_engine_keywords_accepted(models, key):
-    eng = LLMEngine(models[1], device="cpu",
-                    **{key: PORTED_ENGINE_KWARGS[key]}, **ENGINE)
+    value = PORTED_ENGINE_KWARGS[key]
+    value = value() if callable(value) else value
+    eng = LLMEngine(models[1], device="cpu", **{key: value}, **ENGINE)
     out = eng.generate(_prompts()[:2], max_new_tokens=3)
     assert [len(o) for o in out] == [len(p) + 3 for p in _prompts()[:2]]
     assert eng.block_manager.num_free_blocks == eng.num_blocks
@@ -287,6 +327,19 @@ def test_unported_request_keywords_raise(models, key):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         eng.generate([[1, 2, 3]], **{key: LATER_REQUEST_KWARGS[key]})
     assert not eng.has_unfinished()
+
+
+@pytest.mark.parametrize("key", list(PORTED_REQUEST_KWARGS))
+def test_ported_request_keywords_accepted(models, key):
+    eng = LLMEngine(models[1], device="cpu", seed=SEED, detokenizer=_detok,
+                    **ENGINE)
+    out = eng.generate(_prompts()[:2], max_new_tokens=3,
+                       **PORTED_REQUEST_KWARGS[key])
+    assert len(out) == 2
+    for fam, p in zip(out, _prompts()[:2]):
+        for o in (fam if key == "n" else [fam]):
+            assert len(p) < len(o) <= len(p) + 3
+    assert eng.block_manager.num_free_blocks == eng.num_blocks
 
 
 def test_request_validation(models):
@@ -326,8 +379,10 @@ def test_default_device_needs_cuda(models, monkeypatch):
 
 
 # ------------------------------------------------ the copied host modules --
-@pytest.mark.parametrize("jax_mod,port_mod", [(jax_bm, port_bm),
-                                              (jax_sched, port_sched)])
+@pytest.mark.parametrize("jax_mod,port_mod", [
+    (jax_bm, port_bm), (jax_sched, port_sched),
+    (jax_faults, port_faults), (jax_events, port_events),
+    (jax_interleave, port_interleave), (jax_structured, port_structured)])
 def test_host_modules_are_verbatim_copies(jax_mod, port_mod):
     assert inspect.getsource(port_mod) == inspect.getsource(jax_mod)
 

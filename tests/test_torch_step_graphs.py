@@ -18,6 +18,7 @@ directly here:
 """
 
 import contextlib
+import gc
 
 import numpy as np
 import pytest
@@ -241,3 +242,28 @@ def test_graph_launches_count_per_replay_not_per_capture(monkeypatch):
         graphs.replay(8)
     registry.add_counts({"decode_attention": -6})
     assert registry.counts() == before
+
+
+def test_capture_runs_with_the_cyclic_collector_off(monkeypatch):
+    """No garbage collection may run inside a capture (a finalizer's CUDA
+    calls would invalidate it): the body sees the collector off, and
+    capture restores it after, also when the body raises."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda graph, pool=None: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    seen = []
+
+    def body(x):
+        seen.append(gc.isenabled())
+        if x.sum() > 0:
+            raise RuntimeError("planted capture failure")
+        return (x,)
+
+    graphs = StepGraphs(body, torch.device("cpu"))
+    assert gc.isenabled()
+    graphs.capture(4, torch.zeros(3))
+    with pytest.raises(RuntimeError, match="planted"):
+        graphs.capture(8, torch.ones(3))
+    assert seen == [False, False] and gc.isenabled()
