@@ -42,7 +42,12 @@ and the script exits non-zero:
               FusedMultiTransformer's greedy output must equal both, with
               the decode kernel on every layer of every decode step; the
               steps run as CUDA-graph replays (each bucket or batch
-              size captured at its first step);
+              size captured at its first step); then speculation and
+              lookahead on the same model (``spec_exactness``): n-gram,
+              draft-model, tree, a full-copy draft (acceptance 1.0),
+              lookahead and lookahead with n-gram, each token-exact
+              against the plain engine and the dense forward, with B1
+              launched L x target + draft_layers x draft launches;
 5. train exactness — three AdamW TrainSteps of a 2-layer, hidden-128
               model in f32 on the card against the same steps on the
               port's CPU path, with the flash-attention and LayerNorm
@@ -82,6 +87,15 @@ and the script exits non-zero:
               engine captured by the worker thread; a fault schedule
               (one transient retried, one raise quarantining its victim)
               with token-equal survivors (``front_end_phase``);
+   speculative — the same model and settings on a burst of 16 tiled
+              prompts (64-512 tokens, 64 new tokens each): plain, n-gram
+              K = 4, a draft model of 2 layers, lookahead; tokens/s,
+              TTFT and TPOT, acceptance, no capture after ``warmup``, no
+              page leaked, speculative divergences only at near-ties
+              (the teacher-forced verify-vs-decode max |Δlogit| bounds
+              them); plain and lookahead decode windows in turns with
+              the host split; the n-gram engine behind
+              ``HttpLLMServer`` (``speculative_phase``);
 7. int8 serving — the same model and burst with ``quantize="int8"``
               on the int8 kernel; its resident bytes must be the memory
               model's weights + pool within 1%, the bf16 engine's
@@ -103,8 +117,8 @@ and the script exits non-zero:
 
 The launches in the ``kernels`` line are those of each kernel's main
 path, each run with the counts at 0 just before and read just after:
-the bf16 serving burst and the front end's server run (summed) for
-ragged attention, the int8 burst for its
+the bf16 serving burst, the front end's server run and the speculation
+phases' runs (summed) for ragged attention, the int8 burst for its
 int8 twin, the FMT and Llama decode runs (summed) for the decode
 kernel, the timed training steps for the others.  The second-to-last
 line is that JSON record; the last line is ``{"ok": true, "device":
@@ -350,6 +364,28 @@ def _split_edge_rows(chunk, pages=64, bs=16):
     return list(range(len(ctx))), [1] * len(ctx), [c - 1 for c in ctx]
 
 
+def _verify_rows(depths, k=4, t=64):
+    """Speculative verify rows as the engine packs them: row ``r`` holds
+    1 + ``k`` tokens at positions ``depths[r] ..``, back to back, padded to
+    ``t`` tokens -> (row_start, row_qlen, row_pos0)."""
+    n = len(depths)
+    return ([r * (k + 1) for r in range(n)], [k + 1] * n, list(depths))
+
+
+def _as_one_token_rows(args, k=4):
+    """The same query tokens and positions as ``_verify_rows``' rows, each
+    its own one-token row on a copy of its sequence's block-table row."""
+    import torch
+
+    q, kp, vp, bt, rs, rq, rp = args
+    n = len(rs)
+    rows = torch.arange(n * (k + 1), device=q.device, dtype=torch.int32)
+    seq = rows // (k + 1)
+    pos = rp[seq.long()] + rows % (k + 1)
+    return (q, kp, vp, bt[seq.long()].contiguous(), rows,
+            torch.ones_like(rows), pos.to(torch.int32))
+
+
 def ragged_attention_phase(entry, dev):
     """B1 against its plain version on the card, f32 and bf16, held to
     ``_parity`` (the plain version in f32 on the same values), padding
@@ -405,6 +441,31 @@ def ragged_attention_phase(entry, dev):
                          _full_width_tables(14), list(range(8)), [1] * 8,
                          pos, seed=15)
     check("gpt124m_burst_decode_T8", burst)
+    # speculative verify rows: 8 rows of 1 + 4 tokens at depths 130-190
+    # (T 64 with the bucket's 24 padding tokens), f32 and bf16, and
+    # whether each output is bitwise the same positions run as one-token
+    # rows (the form of a plain decode step)
+    depths = np.random.RandomState(21).randint(130, 191, size=8)
+    verify = {}
+    for dtype in (f32, bf16):
+        args = _ragged_case(dev, dtype, 512, 16, 12, 12, 64, 64,
+                            _full_width_tables(22), *_verify_rows(depths),
+                            seed=23)
+        check(f"gpt124m_verify_T64_{str(dtype)[6:]}", args)
+        got = entry.kernel(*args)[:40]
+        flat = entry.kernel(*_as_one_token_rows(args))[:40]
+        torch.cuda.synchronize()
+        say("ragged_verify_vs_one_token_rows", dtype=str(dtype),
+            bitwise=torch.equal(got, flat),
+            max_abs_diff=float((got.float() - flat.float()).abs().max()))
+        verify[dtype] = args
+    # the draft model's chain: eight one-token rows at the speculative
+    # burst's depths (64-512-token prompts plus up to 64 new tokens)
+    pos = np.random.RandomState(24).randint(64, 577, size=8)
+    chain = _ragged_case(dev, bf16, 512, 16, 12, 12, 64, 8,
+                         _full_width_tables(25), list(range(8)), [1] * 8,
+                         pos, seed=26)
+    check("gpt124m_draft_chain_T8", chain)
     # (c) the split's edges, f32 and bf16
     edges = _split_edge_rows(split_kv.CHUNK)
     for dtype in (f32, bf16):
@@ -427,7 +488,9 @@ def ragged_attention_phase(entry, dev):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     timings = {}
     for label, args in (("decode_T8", decode), ("mixed_T256", mixed),
-                        ("burst_decode_T8 depths 130-190", burst)):
+                        ("burst_decode_T8 depths 130-190", burst),
+                        ("verify_T64 8x(1+4) depths 130-190", verify[bf16]),
+                        ("draft_chain_T8 depths 64-576", chain)):
         ms = time_ms(lambda: entry.kernel(*args), flush)
         plain_ms = time_ms(lambda: entry.plain(*args), flush)
         q, kp, _vp, bt, rs, rq, rp = args
@@ -1751,6 +1814,375 @@ def int8_serving_phase(dev):
             launches["paged_ragged_attention_quant"]}
 
 
+# ------------------------------------------------------- speculation --
+def _spec_prompts():
+    """``tests/test_llm_engine.py::TestSpeculative``'s prompts: three of
+    five tiled, so the n-gram drafter hits."""
+    rng = np.random.RandomState(7)
+    return [list(p) for p in (
+        np.tile(rng.randint(0, 128, 5), 3), rng.randint(0, 128, 12),
+        np.tile(rng.randint(0, 128, 4), 4), rng.randint(0, 128, 3),
+        np.tile(rng.randint(0, 128, 6), 2))]
+
+
+def _b1_want(eng):
+    """B1 launches an engine's runs make: every layer of every target
+    launch and every draft layer of every draft launch."""
+    want = eng.num_layers * eng.stats["launches"]
+    if eng._draft_bm is not None:
+        want += len(eng._draft_layers) * eng.stats["draft_launches"]
+    return want
+
+
+def spec_exactness_phase(dev):
+    """Speculation and lookahead on the exactness phase's f32 model and
+    settings, over its prompts and ``TestSpeculative``'s tiled ones, 24
+    new tokens: n-gram K = 4, draft-model with one draft layer, tree, a
+    full-copy draft (every layer; its n-gram leg muted, acceptance must
+    be exactly 1.0), lookahead alone and with n-gram.  Each must equal
+    the plain engine and the dense greedy forward token for token, run
+    every step as a replay but each key's first (target and draft
+    graphs), and launch B1 exactly L x target + draft_layers x draft
+    launches.  Returns B1's launches."""
+    from paddle_tpu_torch.inference.llm import LLMEngine
+    from paddle_tpu_torch.ops.cuda import registry
+
+    model, prompts = _exactness_model_and_prompts(dev)
+    prompts = prompts + _spec_prompts()
+    new, tiny = 24, dict(block_size=8, max_batch=4, token_budget=16)
+    dense = [model.greedy_decode(p, new) for p in prompts]
+    plain = LLMEngine(model, device=dev, **tiny).generate(
+        prompts, max_new_tokens=new)
+    for out, ref in zip(plain, dense):
+        if not np.array_equal(out, ref):
+            _report_first_flip(model, out, ref, dev)
+    layers = model.config.num_layers
+    configs = (
+        ("ngram", dict(speculative=4)),
+        ("draft_model", dict(speculative={
+            "method": "draft-model", "num_tokens": 4, "draft_layers": 1})),
+        ("tree", dict(speculative={
+            "method": "tree", "num_tokens": 3, "draft_layers": 1})),
+        ("full_copy_draft", dict(speculative={
+            "method": "draft-model", "num_tokens": 3,
+            "draft_layers": layers})),
+        ("lookahead", dict(lookahead=True)),
+        ("lookahead_ngram", dict(lookahead=True, speculative=4)))
+    total = 0
+    for label, kw in configs:
+        eng = LLMEngine(model, device=dev, **tiny, **kw)
+        if label == "full_copy_draft":
+            eng.drafter._ngram.propose = lambda *a, **k: []
+        registry.reset_counts()
+        outs = eng.generate(prompts, max_new_tokens=new)
+        launches = registry.counts()["paged_ragged_attention"]
+        total += launches
+        for out, ref in zip(outs, dense):
+            if not np.array_equal(out, ref):
+                _report_first_flip(model, out, ref, dev)
+        graphs = [(eng._graphs, eng.stats["launches"])]
+        if eng._draft_graphs is not None:
+            graphs.append((eng._draft_graphs, eng.stats["draft_launches"]))
+        for g, steps in graphs:
+            _require_replays(g, steps)
+        st = eng.spec_stats()
+        life = eng.lifecycle_stats()
+        say("spec_exactness", config=label, prompts=len(prompts),
+            steps=eng.stats["steps"], spec=st,
+            staged_steps=life["staged_steps"],
+            staged_hits=life["staged_hits"], kernel_launches=launches,
+            target_launches=eng.stats["launches"],
+            draft_launches=eng.stats["draft_launches"],
+            graph_replays=[g.replays for g, _ in graphs],
+            graph_captures=[g.captures for g, _ in graphs])
+        if launches != _b1_want(eng):
+            raise RuntimeError(f"{label}: B1 launches {launches} != "
+                               f"{_b1_want(eng)}")
+        if eng.spec is not None and not st["draft_tokens"]:
+            raise RuntimeError(f"{label}: nothing was drafted")
+        if eng.spec is not None and eng.spec.uses_draft_model \
+                and not st["model_drafts"]:
+            raise RuntimeError(f"{label}: the draft model drafted nothing")
+        if label == "full_copy_draft" and st["acceptance_rate"] != 1.0:
+            raise RuntimeError(f"full-copy draft accepted "
+                               f"{st['acceptance_rate']}, not all")
+        if label == "lookahead" and not life["staged_hits"]:
+            raise RuntimeError("lookahead claimed no staged plan")
+    return total
+
+
+def _spec_burst_prompts():
+    """The speculative burst: 16 prompts of 64-512 tokens, each a random
+    unit of 8-32 tokens repeated (repetitive text, as tool loops and
+    code edits send)."""
+    rng = np.random.RandomState(4242)
+    prompts = []
+    for _ in range(16):
+        unit = [int(t) for t in rng.randint(0, 50257, rng.randint(8, 33))]
+        n = int(rng.randint(64, 513))
+        prompts.append((unit * (n // len(unit) + 1))[:n])
+    return prompts
+
+
+def _spec_burst(eng, dev, prompts, new=64, logprobs=0):
+    """``warmup()``, then every prompt at once, greedy, ``new`` tokens each,
+    counts reset just before.  Every request must finish by length with
+    ``new`` tokens, no graph may be captured after warmup, no page (or
+    draft page) leak, and B1 must launch exactly as ``_b1_want`` says.
+    Returns (outputs in prompt order, the run's record)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import registry
+
+    registry.reset_counts()
+    warm = eng.warmup()
+    graphs = [g for g in (eng._graphs, eng._draft_graphs) if g is not None]
+    captures = [g.captures for g in graphs]
+    steps0, tok0 = eng.stats["steps"], eng.stats["tokens_generated"]
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, max_new_tokens=new, logprobs=logprobs)
+            for p in prompts]
+    outs = {}
+    while eng.has_unfinished():
+        for o in eng.step():
+            outs[o.request_id] = o
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = registry.counts()["paged_ragged_attention"]
+    outs = [outs[r] for r in rids]
+    bad = [i for i, o in enumerate(outs) if o.finish_reason != "length"
+           or len(o.output_ids) != new]
+    leaked = eng.num_blocks - eng.block_manager.num_free_blocks
+    if eng._draft_bm is not None:
+        leaked += eng.num_blocks - eng._draft_bm.num_free_blocks
+    after = [g.captures for g in graphs]
+    if bad or leaked or after != captures or launches != _b1_want(eng):
+        raise RuntimeError(
+            f"speculative burst: requests {bad} short, {leaked} pages "
+            f"leaked, captures {captures} -> {after}, B1 launches "
+            f"{launches} (want {_b1_want(eng)})")
+    ttft = [o.metrics["first_token"] - o.metrics["arrival"] for o in outs]
+    tpot = [(o.metrics["finished"] - o.metrics["first_token"]) / (new - 1)
+            for o in outs]
+    generated = eng.stats["tokens_generated"] - tok0
+    life = eng.lifecycle_stats()
+    record = dict(
+        requests=len(prompts), generated_tokens=generated, wall_s=wall,
+        tokens_per_s=generated / wall, ttft_ms=_pct(np.asarray(ttft) * 1e3),
+        tpot_ms=_pct(np.asarray(tpot) * 1e3),
+        steps=eng.stats["steps"] - steps0, spec=eng.spec_stats(),
+        staged_steps=life["staged_steps"], staged_hits=life["staged_hits"],
+        host_overhead_fraction=life["host_overhead_fraction"],
+        kernel_launches=launches, target_launches=eng.stats["launches"],
+        draft_launches=eng.stats["draft_launches"], warmup_ms=warm,
+        graph_captures_after_warmup=sum(after) - sum(captures),
+        graph_pool_bytes=[
+            g.pool_bytes() for g in graphs])
+    if eng._draft_graphs is not None:
+        record.update(
+            draft_capture_ms=eng._draft_graphs.capture_ms,
+            draft_graph_pool_bytes=eng._draft_graphs.pool_bytes(),
+            draft_pool_bytes=sum(
+                t.numel() * t.element_size() for t in (
+                    eng._draft_pools.k_rows, eng._draft_pools.v_rows,
+                    eng._draft_pools.ks_flat, eng._draft_pools.vs_flat)
+                if t is not None))
+    return [[int(t) for t in o.output_ids] for o in outs], outs, record
+
+
+def _step_window(eng, dev, prompts, window=16, parts=None):
+    """``_decode_windows`` as one record: wall and device ms a step, busy
+    share, tokens a step and, given ``parts``, the host split."""
+    wall_ms, prof, host, tokens = _decode_windows(eng, dev, prompts, window,
+                                                  parts)
+    out = _device_profile(prof, window, wall_ms)
+    out.pop("top_device_us_per_step")
+    return {"tokens_per_step": tokens, **out, "host_ms_per_step": host}
+
+
+def _verify_vs_decode(eng, prompts, outs, k=4, offsets=(0, 16, 32, 48)):
+    """Teacher-forced logits of the same positions run as decode steps
+    (one token a row, 8 rows, bucket 8) and as verify rows (1 + ``k``
+    tokens a row, bucket 64) on the plain engine, from the same pools:
+    8 sequences of ``prompts`` + ``outs[:offset]`` are allocated and
+    prefilled chunk by chunk through the engine's step, then
+    ``outs[offset:offset + k + 1]`` is fed both ways.  Returns the max
+    |Δlogit| over every logit and the share of positions whose argmax
+    agrees."""
+    import torch
+
+    from paddle_tpu_torch.inference.llm.scheduler import bucket_size
+
+    n, bm, budget = eng.max_batch, eng.block_manager, eng.token_budget
+    worst, agree, total = 0.0, 0, 0
+    for off in offsets:
+        seqs = []
+        for i in range(n):
+            ids = list(prompts[i]) + outs[i][:off]
+            bt = bm.allocate(("teacher", i), len(ids) + k + 1)
+            seqs.append((ids, bt))
+            for s0 in range(0, len(ids), budget):
+                chunk = ids[s0:s0 + budget]
+                eng._ragged_fn(eng._pack_rows(
+                    [(chunk, s0, bt)],
+                    bucket_size(len(chunk), budget, floor=8)))
+        rows = [(outs[i][off:off + k + 1], len(ids), bt)
+                for i, (ids, bt) in enumerate(seqs)]
+        state = [eng._k_rows, eng._v_rows]
+        snap = [t.clone() for t in state]
+        step_logits = []
+        for j in range(k + 1):
+            pk = eng._pack_rows([([toks[j]], p0 + j, bt)
+                                 for toks, p0, bt in rows], 8)
+            _, logits = eng._ragged_fn(pk)
+            step_logits.append(logits[:n].float().clone())
+        dec = torch.stack(step_logits, 1)                 # [n, k+1, V]
+        for t, saved in zip(state, snap):
+            t.copy_(saved)
+        pk = eng._pack_rows(rows, bucket_size(n * (k + 1), budget,
+                                              floor=8))
+        _, logits = eng._ragged_fn(pk)
+        ver = logits[:n * (k + 1)].float().view(n, k + 1, -1)
+        worst = max(worst, float((dec - ver).abs().max()))
+        agree += int((dec.argmax(-1) == ver.argmax(-1)).sum())
+        total += n * (k + 1)
+        for i in range(n):
+            bm.free(("teacher", i))
+    return worst, agree / total
+
+
+def _first_divergences(got, want, reference, bound):
+    """Per request, the first generated position where ``got`` leaves
+    ``want`` and the plain engine's top-2 logit gap there (from its
+    ``logprobs=2`` run ``reference``).  Raises if a gap exceeds
+    ``bound``: only a near-tie may flip."""
+    rows = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        j = next(n for n, (a, b) in enumerate(zip(g, w)) if a != b)
+        top = reference[i].logprobs[j][1]
+        gap = float(top[0][1] - top[1][1])
+        rows.append({"request": i, "position": j, "top2_gap": gap})
+        if gap > bound:
+            raise RuntimeError(f"request {i} diverges at generated position "
+                               f"{j} where the plain top-2 gap {gap} > "
+                               f"{bound}")
+    return rows
+
+
+def speculative_phase(dev, smi):
+    """GPT-124M (random bf16 weights from seed 0) at the serving
+    settings: the speculative burst (``_spec_burst_prompts``, 64 new
+    tokens each, greedy) plain, with n-gram K = 4, with a draft model of
+    two layers and with ``lookahead=True``, one engine each, in that
+    order, each through ``_spec_burst``, the speculative ones then
+    through a window of 8 decode rows (``_step_window``).  The plain
+    engine measures the verify-vs-decode max |Δlogit|
+    (``_verify_vs_decode``); each speculative run's requests must equal
+    the plain burst's or first leave it where the plain top-2 gap is
+    within twice that (a flip needs the two logits' errors to cover the
+    gap); lookahead runs the plain buckets and must equal it exactly.
+    Then the plain and lookahead engines' decode windows in six pairs of
+    turns with the host split (``lookahead_ab``), and the n-gram engine
+    behind ``HttpLLMServer`` for four streamed requests.  Returns B1's
+    launches over the bursts and the server run."""
+    import gc
+
+    import torch
+
+    from paddle_tpu_torch.inference.llm import HttpLLMServer, LLMEngine
+    from paddle_tpu_torch.models.gpt import gpt_124m
+    from paddle_tpu_torch.ops.cuda import registry
+
+    model = gpt_124m(device=dev, seed=0, dtype=torch.bfloat16).eval()
+    prompts = _spec_burst_prompts()
+    window_prompts = [p[:128] for p in prompts[:8]]
+    runs = (("plain", {}), ("ngram", dict(speculative=4)),
+            ("draft_model", dict(speculative={
+                "method": "draft-model", "num_tokens": 4,
+                "draft_layers": 2})),
+            ("lookahead", dict(lookahead=True)))
+    total, base, delta, reference, kept = 0, None, None, None, {}
+    for label, kw in runs:
+        eng = LLMEngine(model, device=dev, **_SERVE_ENGINE, **kw)
+        ids, outs, record = _spec_burst(eng, dev, prompts)
+        total += record["kernel_launches"]
+        if label == "plain":
+            base = ids
+            delta, agree = _verify_vs_decode(eng, prompts, ids)
+            record.update(verify_vs_decode_max_abs_dlogit=delta,
+                          verify_vs_decode_argmax_agree=agree)
+        diverged = []
+        if label == "lookahead":
+            if ids != base:
+                raise RuntimeError("the lookahead burst differs from the "
+                                   "plain one")
+        elif label != "plain" and ids != base:
+            if reference is None:
+                ref = LLMEngine(model, device=dev, **_SERVE_ENGINE)
+                ref_ids, reference, _ = _spec_burst(ref, dev, prompts,
+                                                    logprobs=2)
+                del ref
+                if ref_ids != base:
+                    raise RuntimeError("the logprobs=2 plain burst differs "
+                                       "from the plain one")
+            diverged = _first_divergences(ids, base, reference, 2 * delta)
+        record["diverging_requests"] = len(diverged)
+        record["divergences"] = diverged
+        if eng.spec is not None:
+            record["window"] = _step_window(eng, dev, window_prompts)
+        say("speculative", config=label, model="gpt_124m", dtype="bfloat16",
+            card=smi, **record)
+        if label != "draft_model":
+            kept[label] = eng
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # lookahead against plain in six pairs of turns, which side first
+    # alternating, 8 decode rows at depth ~128-224: wall and device ms a
+    # step, busy share and the host split
+    ab = {"plain": [], "lookahead": []}
+    order = (("plain", _STEP_PARTS), ("lookahead", _LOOKAHEAD_PARTS))
+    for pair in range(6):
+        for label, parts in order[::1 if pair % 2 == 0 else -1]:
+            gc.collect()
+            ab[label].append(_step_window(kept[label], dev, window_prompts,
+                                          window=32, parts=parts))
+    walls = {k: [w["wall_ms_per_step"] for w in v] for k, v in ab.items()}
+    say("lookahead_ab", card=smi, batch=len(window_prompts), steps=32,
+        wall_ms_median={k: float(np.median(v)) for k, v in walls.items()},
+        lookahead_wins=sum(la < pl for la, pl in zip(walls["lookahead"],
+                                                     walls["plain"])),
+        pairs=len(walls["plain"]), **ab)
+    spec_eng = kept["ngram"]
+    del kept
+
+    # a speculative engine behind the server: four streamed requests
+    registry.reset_counts()
+    launches0 = spec_eng.stats["launches"]
+    srv = HttpLLMServer(engine=spec_eng).start()
+    try:
+        bodies = [{"prompt_ids": p[:96], "max_new_tokens": 32,
+                   "stream": True} for p in prompts[:4]]
+        results, wall = _post_all(srv.address, bodies)
+    finally:
+        srv.close()
+    launches = registry.counts()["paged_ragged_attention"]
+    want = spec_eng.num_layers * (spec_eng.stats["launches"] - launches0)
+    lens = [len(done["completions"][0]["output_ids"])
+            for done, _f, _d in results]
+    leaked = spec_eng.num_blocks - spec_eng.block_manager.num_free_blocks
+    say("speculative_front_end", requests=len(bodies), wall_s=wall,
+        output_tokens=lens, kernel_launches=launches, expected=want,
+        spec=spec_eng.spec_stats(), leaked_pages=leaked)
+    if launches != want or leaked or lens != [32] * len(bodies):
+        raise RuntimeError("the speculative engine behind the server did "
+                           "not serve every streamed request through B1")
+    return total + launches
+
+
 def decode_profile_phase(eng, dev, window=16, engine="bf16"):
     """Where a decode step's time goes at GPT-124M width: 8 requests
     with 128-token prompts are prefilled, then ``window`` decode steps
@@ -1767,8 +2199,8 @@ def decode_profile_phase(eng, dev, window=16, engine="bf16"):
     the ``kernels`` line."""
     rng = np.random.RandomState(99)
     prompts = [list(rng.randint(0, 50257, 128)) for _ in range(eng.max_batch)]
-    wall_ms, prof, host_ms = _decode_windows(eng, dev, prompts, window,
-                                             split=True)
+    wall_ms, prof, host_ms, _ = _decode_windows(eng, dev, prompts, window,
+                                                _STEP_PARTS)
     share = _kernel_share(prof, "ragged_split_kernel", "ragged_combine")
     say("decode_profile", engine=engine, batch=eng.max_batch, steps=window,
         ragged_kernel_device_share=share,
@@ -1778,7 +2210,7 @@ def decode_profile_phase(eng, dev, window=16, engine="bf16"):
                            "in the replayed decode window")
     eng._ragged_fn = _eager_ragged_fn(eng)
     try:
-        wall_ms, prof, _ = _decode_windows(eng, dev, prompts, window)
+        wall_ms, prof, _, _ = _decode_windows(eng, dev, prompts, window)
     finally:
         del eng._ragged_fn
     say("decode_profile_eager", engine=engine, batch=eng.max_batch,
@@ -1787,34 +2219,39 @@ def decode_profile_phase(eng, dev, window=16, engine="bf16"):
         **_device_profile(prof, window, wall_ms))
 
 
-def _decode_windows(eng, dev, prompts, window, split=False):
+def _decode_windows(eng, dev, prompts, window, parts=None):
     """Prefill ``prompts``, then ``window`` decode steps on the host
-    clock, ``window`` under torch.profiler and, with ``split``, ``window``
-    under :func:`_host_split`; the requests then run to their end.
-    Returns (wall ms per step, the profiler, the host split or None)."""
+    clock, ``window`` under torch.profiler and, given ``parts``,
+    ``window`` under :func:`_host_split`; the requests are then aborted.
+    Returns (wall ms per step, the profiler, the host split or None,
+    tokens a step in the first window).  Room for 12 tokens a step: a
+    speculative step emits up to 1 + K."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for p in prompts:
-        eng.add_request(p, max_new_tokens=4 * window)
+    rids = [eng.add_request(p, max_new_tokens=12 * window) for p in prompts]
     while eng.scheduler.waiting or not all(
             r.prefill_done for r in eng.scheduler.running):
         eng.step()
     torch.cuda.synchronize(dev)
+    tok0 = eng.stats["tokens_generated"]
     t0 = time.perf_counter()
     for _ in range(window):
         eng.step()
     torch.cuda.synchronize(dev)
     wall_ms = (time.perf_counter() - t0) / window * 1e3
+    tokens = (eng.stats["tokens_generated"] - tok0) / window
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(window):
             eng.step()
         torch.cuda.synchronize(dev)
-    host_ms = _host_split(eng, window) if split else None
+    host_ms = _host_split(eng, window, parts) if parts else None
+    for r in rids:
+        eng.abort_request(r)
     while eng.has_unfinished():
         eng.step()
-    return wall_ms, prof, host_ms
+    return wall_ms, prof, host_ms, tokens
 
 
 def _eager_ragged_fn(eng):
@@ -1839,14 +2276,22 @@ _STEP_PARTS = (("scheduler.schedule", "schedule"), ("_pack_ragged", "pack"),
                ("_commit", "commit"))
 
 
-def _host_split(eng, steps):
+# a lookahead engine's step: the claim replaces schedule and pack, and
+# the next step's plan and pack run between the replay and the pull
+_LOOKAHEAD_PARTS = (("scheduler.schedule", "schedule"),
+                    ("_claim_staged", "claim"), ("_ragged_fn", "copy_replay"),
+                    ("_stage_next", "stage_next"), ("_pull", "argmax_pull"),
+                    ("_commit", "commit"))
+
+
+def _host_split(eng, steps, step_parts=_STEP_PARTS):
     """Host ms per step of each part of ``steps`` engine steps, on the
     host clock around each part's call, and of the rest of the step
     (``other``): the engine's methods are wrapped on the instance for
     the window and unwrapped after."""
     import torch
 
-    parts = dict.fromkeys([name for _, name in _STEP_PARTS], 0.0)
+    parts = dict.fromkeys([name for _, name in step_parts], 0.0)
     wrapped = []
 
     def timed(fn, name):
@@ -1858,7 +2303,7 @@ def _host_split(eng, steps):
                 parts[name] += time.perf_counter() - t0
         return call
 
-    for path, name in _STEP_PARTS:
+    for path, name in step_parts:
         *owner, attr = path.split(".")
         obj = eng if not owner else getattr(eng, owner[0])
         setattr(obj, attr, timed(getattr(obj, attr), name))
@@ -2994,6 +3439,7 @@ def main():
     exactness_phase(dev)
     int8_exactness_phase(dev)
     fmt_exactness_phase(dev)
+    spec_launches = spec_exactness_phase(dev)
     train_exactness_phase(dev)
     train_exactness_bf16_phase(dev)
     graphs_phase(dev)
@@ -3005,6 +3451,11 @@ def main():
     # B1's main path is the serving burst and the front end's server
     # run, each driven with the counts at 0; the line sums them
     launches["paged_ragged_attention"] += front_end_phase(dev, smi)
+    torch.cuda.empty_cache()
+    # and the speculation phases: spec_exactness's runs, the speculative
+    # bursts and the speculative engine behind the server
+    launches["paged_ragged_attention"] += (spec_launches
+                                           + speculative_phase(dev, smi))
     torch.cuda.empty_cache()
     launches.update(int8_serving_phase(dev))
     torch.cuda.empty_cache()

@@ -2,7 +2,8 @@
 
 Port of the tp=1 part of ``paddle_tpu/framework/cost.py``
 (``parse_bytes``, ``engine_memory_model``, ``derive_max_batch``) and of
-the engine's ``_params_bytes_per_chip``.  The port serves on one card,
+the engine's ``_params_bytes_per_chip``, plus ``measured_host_overhead_s``
+over the engine's lookahead gauge.  The port serves on one card,
 so nothing is sharded: every parameter leaf counts whole, and the
 tensor-parallel, LoRA and host-tier keys of the JAX model are left out.
 The jaxpr cost walker, the census and the roofline profiles stay in the
@@ -104,3 +105,16 @@ def derive_max_batch(memory_budget, weights_bytes, seq_bytes):
             f"max_model_len sequence ({_fmt_bytes(int(seq_bytes))} of "
             "pages) — raise the budget or shrink max_model_len")
     return int(free // int(seq_bytes))
+
+
+def measured_host_overhead_s(engine):
+    """The engine's critical-path planning time (schedule + pack +
+    staged-claim validation, the ``host_plan_s`` lifecycle gauge) per
+    launch, target and draft launches alike.  With ``lookahead=True`` a
+    claimed staged step adds only its validation, so the value credits
+    the pipeline."""
+    stats = engine.lifecycle_stats()
+    n = getattr(engine, "_launch_count", 0)
+    if not n:
+        return 0.0
+    return float(stats.get("host_plan_s") or 0.0) / n

@@ -4,8 +4,11 @@
 - ``Scheduler`` — admission + chunked prefill + preemption, deadlines
   and aborts;
 - ``paged_ragged_attention`` — the ragged attention entry point (the
-  CUDA kernel for CUDA tensors, the plain version for CPU tensors), and
-  ``paged_ragged_attention_quant``, its int8-pool twin;
+  CUDA kernel for CUDA tensors, the plain version for CPU tensors),
+  ``paged_ragged_attention_quant``, its int8-pool twin, and the
+  decode / verify / prefill forms over the same call;
+- ``SpeculativeConfig``, ``NgramDrafter``, ``DraftModelDrafter`` —
+  ``LLMEngine(speculative=)`` (``spec.py``);
 - ``ServingQuantConfig`` — ``LLMEngine(quantize=)`` (``quant.py``), and
   ``quality.py``, the quality report of an approximate engine;
 - ``apply_logits_pipeline`` and friends — the per-row sampling suite,
@@ -52,10 +55,16 @@ from .interleave import (
     interleave_wait,
 )
 from .paged_attention import (
+    paged_decode_attention,
+    paged_decode_attention_plain,
+    paged_prefill_attention,
+    paged_prefill_attention_plain,
     paged_ragged_attention,
     paged_ragged_attention_plain,
     paged_ragged_attention_quant,
     paged_ragged_attention_quant_plain,
+    paged_verify_attention,
+    paged_verify_attention_plain,
     token_descriptors,
 )
 from .quant import ServingQuantConfig
@@ -76,6 +85,12 @@ from .scheduler import (
     Scheduler,
     bucket_size,
 )
+from .spec import (
+    DraftModelDrafter,
+    NgramDrafter,
+    SpeculativeConfig,
+    rollback_draft_reservation,
+)
 from .structured import (
     ConstraintState,
     DfaTokenGrammar,
@@ -93,7 +108,11 @@ __all__ = [
     "RetryPolicy", "StepWatchdog", "InterleavingScheduler",
     "interleave_point", "interleave_wait", "paged_ragged_attention",
     "paged_ragged_attention_plain", "paged_ragged_attention_quant",
-    "paged_ragged_attention_quant_plain", "ServingQuantConfig",
+    "paged_ragged_attention_quant_plain", "paged_decode_attention",
+    "paged_decode_attention_plain", "paged_verify_attention",
+    "paged_verify_attention_plain", "paged_prefill_attention",
+    "paged_prefill_attention_plain", "DraftModelDrafter", "NgramDrafter",
+    "SpeculativeConfig", "rollback_draft_reservation", "ServingQuantConfig",
     "token_descriptors", "FILTERED", "StopStringWatcher",
     "apply_logits_pipeline", "neutral_row_params", "token_counts",
     "top_logprobs", "validate_sampling", "PrefillChunk", "RaggedRow",

@@ -53,11 +53,28 @@ a failure after the step's first pool write cannot be retried into:
 it raises :class:`~.faults.PoolLostError`.  :class:`AsyncLLMEngine`
 steps an engine from one worker thread for servers
 (``http_server.py``).
+
+Speculative decoding (``speculative=``, ``spec.py``) is the JAX
+engine's: a drafter proposes up to K tokens a decode row, the row
+becomes a verify row ``[last] + drafts`` of the same ragged step, and
+:meth:`LLMEngine._commit_verified` keeps the longest accepted prefix
+plus the target's own token — token-exact against plain decode, one
+gumbel draw per emitted token.  ``method="draft-model"`` / ``"tree"``
+drafts with the target's first ``draft_layers`` blocks over draft pools
+of their own (the same step body over a shorter layer list, captured by
+a second :class:`~paddle_tpu_torch.jit.graphs.StepGraphs`); a tree row
+scores the draft's runner-up first token on a copy-on-write fork.
+``lookahead=True`` plans and packs step N+1 on the host while step N
+runs on the card (:meth:`LLMEngine._stage_next`), between the replay's
+dispatch and the blocking pull; the plan stays on the host until
+:meth:`LLMEngine._claim_staged` validates it and patches in the query
+tokens step N committed.
 """
 
 import threading
 import time
 import warnings
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -72,7 +89,7 @@ from ...framework.cost import (
 from ...framework.device import resolve_device
 from ...incubate.nn import _layernorm
 from ...jit.graphs import StepGraphs
-from .block_manager import BlockManager
+from .block_manager import BlockManager, NoFreeBlocksError
 from .faults import FinishReason, PoolLostError, RetryPolicy, StepWatchdog
 from .interleave import interleave_point, interleave_wait, masked
 from .paged_attention import (
@@ -93,23 +110,35 @@ from .sampling import (
     top_logprobs,
     validate_sampling,
 )
-from .scheduler import FINISHED, RUNNING, Request, Scheduler, bucket_size
+from .scheduler import (
+    FINISHED,
+    RUNNING,
+    RaggedRow,
+    Request,
+    Scheduler,
+    bucket_size,
+)
+from .spec import (
+    DraftModelDrafter,
+    NgramDrafter,
+    SpeculativeConfig,
+    rollback_draft_reservation,
+)
 from .structured import ConstraintState
 
 # JAX-engine keywords a later slice ports -> that slice
 _LATER_ENGINE = {
     "tensor_parallel": "the tensor-parallel serving slice",
     "mesh": "the tensor-parallel serving slice",
-    "speculative": "the serving-breadth slice (speculative decoding)",
     "lora": "the serving-breadth slice (multi-LoRA)",
     "kv_tier": "the serving-breadth slice (hierarchical KV)",
-    "lookahead": "the serving-breadth slice (async lookahead)",
 }
 _LATER_REQUEST = {
     "adapter_id": "the serving-breadth slice (multi-LoRA)",
 }
-# the value of each later keyword that asks for nothing
-_OFF = {"lookahead": False}
+# one model's paged K/V pools (LLMEngine._alloc_pools): the slot rows
+# with their sink, the page views of them, and the int8 pool's scales
+_Pools = namedtuple("_Pools", "k_rows v_rows kc vc ks_flat vs_flat ks vs")
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            "bfloat16": torch.bfloat16, torch.float32: torch.float32,
            torch.bfloat16: torch.bfloat16}
@@ -120,7 +149,7 @@ def _reject_later(kwargs, table, where):
         if key not in table:
             raise TypeError(f"{where}() got an unexpected keyword "
                             f"argument {key!r}")
-        if value != _OFF.get(key) and value is not None:
+        if value is not None:
             raise NotImplementedError(
                 f"{where}({key}=...) is not ported yet: it comes with "
                 f"{table[key]}")
@@ -134,22 +163,6 @@ def _check_deadline(deadline_ms):
             or deadline_ms <= 0):
         raise ValueError(f"deadline_ms must be a positive number of "
                          f"milliseconds, got {deadline_ms!r}")
-
-
-def _rollback_reservation(block_manager, request):
-    """Give back the slot a decode row reserved for a step that never
-    committed (abort, quarantine), so the books read ``num_cached``
-    again; mid-prefill rows hold their prompt allocation, not a
-    reservation.  The non-speculative half of the JAX package's
-    ``spec.rollback_draft_reservation``."""
-    if not block_manager.has_seq(request.request_id) \
-            or not request.prefill_done:
-        return 0
-    extra = block_manager.num_tokens(request.request_id) \
-        - request.num_cached
-    if extra > 0:
-        block_manager.rollback_slots(request.request_id, extra)
-    return max(extra, 0)
 
 
 class RequestOutput:
@@ -224,6 +237,11 @@ class LLMEngine:
     :meth:`lifecycle_stats`) and ``clock=`` (a callable giving seconds,
     optionally with ``sleep``: deadlines, retry backoff and the watchdog
     read it).  ``detokenizer=`` (ids -> str) enables ``stop=`` strings.
+
+    ``speculative=`` (K, a method string, a dict or a
+    :class:`~.spec.SpeculativeConfig`) turns on speculative decoding;
+    ``lookahead=True`` plans each next step under the current one's
+    device time (see the module docstring).
     """
 
     def __init__(self, model, *, block_size=16, num_blocks=None,
@@ -232,7 +250,7 @@ class LLMEngine:
                  memory_budget=None, quantize=None, faults=None,
                  retry=None, max_queue=None, step_timeout_s=None,
                  clock=None, record_step_gauges=False, detokenizer=None,
-                 device=None, **later):
+                 speculative=None, lookahead=False, device=None, **later):
         _reject_later(later, _LATER_ENGINE, "LLMEngine")
         # lifecycle knobs first: a bad config fails at construction
         if max_queue is not None:
@@ -288,6 +306,23 @@ class LLMEngine:
         self._last_step_ms = None
         self._host_plan_s = 0.0
         self._step_wall_s = 0.0
+        # target and draft launches (measured_host_overhead_s)
+        self._launch_count = 0
+        # speculative decoding: the n-gram drafter, or for
+        # method="draft-model"/"tree" the hybrid model drafter whose
+        # pools come up in _init_draft_model below
+        self.spec = SpeculativeConfig.resolve(speculative)
+        if self.spec is None:
+            self.drafter = None
+        elif self.spec.uses_draft_model:
+            self.drafter = DraftModelDrafter(self.spec)
+        else:
+            self.drafter = NgramDrafter(self.spec)
+        # async lookahead: the next step's plan, staged on the host
+        # under this step's device time (_stage_next / _claim_staged)
+        self.lookahead = bool(lookahead)
+        self._staged = None          # (plan_rows, packed operands)
+        self._staged_epoch = -1
 
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be float32 or bfloat16, "
@@ -360,50 +395,90 @@ class LLMEngine:
         self.block_manager.fault_hook = self.faults
         self.scheduler = Scheduler(self.block_manager,
                                    max_batch=self.max_batch,
-                                   token_budget=self.token_budget)
+                                   token_budget=self.token_budget,
+                                   drafter=self.drafter)
 
         blocks = self.params["blocks"]
         self._layers = [{k: v[i] for k, v in blocks.items()}
                         for i in range(self.num_layers)]
-        nl, nb, bs, nh = (self.num_layers, self.num_blocks, self.block_size,
-                          self.num_heads)
-        # each layer's slots [NB * bs + 1, Nh, D]: the last row is the sink
-        # that padding tokens write; _kc / _vc [L, NB, bs, Nh, D] view the
-        # rest, so a layer's pool stays contiguous for the kernel
-        kv_dtype = torch.int8 if self._kv_quant else self.dtype
-        self._k_rows, self._v_rows = (
-            torch.zeros((nl, nb * bs + 1, nh, self.head_dim), dtype=kv_dtype,
-                        device=self.device) for _ in range(2))
-        self._kc, self._vc = (
-            rows[:, :nb * bs].view(nl, nb, bs, nh, self.head_dim)
-            for rows in (self._k_rows, self._v_rows))
-        # per-(layer, page, head, slot) dequant scales of the int8 pool,
-        # flat [L, (NB + 1) * Nh * bs]: the sink slot's scale index lands on
-        # page NB, which _ks / _vs [L, NB, Nh, bs] leave out
-        self._ks = self._vs = self._ks_flat = self._vs_flat = None
-        if self._kv_quant:
-            self._ks_flat, self._vs_flat = (
-                torch.zeros((nl, (nb + 1) * nh * bs), dtype=torch.float32,
-                            device=self.device) for _ in range(2))
-            self._ks, self._vs = (
-                flat.view(nl, nb + 1, nh, bs)[:, :nb]
-                for flat in (self._ks_flat, self._vs_flat))
+        (self._k_rows, self._v_rows, self._kc, self._vc, self._ks_flat,
+         self._vs_flat, self._ks, self._vs) = self._pools = \
+            self._alloc_pools(self.num_layers)
         # one captured graph of the step body per token bucket (CUDA)
         self._graphs = StepGraphs(self._ragged_body, self.device)
+        # model drafting: the target's first draft_layers blocks over
+        # draft pools and a draft BlockManager of their own
+        self._draft_bm = None
+        self._draft_graphs = None
+        if self.spec is not None and self.spec.uses_draft_model:
+            self._init_draft_model()
 
         self._requests = {}
         self._next_id = 0
         self._first_token_at = {}
         self.seed = 0 if seed is None else int(seed)
         self._rng = np.random.RandomState(self.seed)
-        # "launches" counts step-body runs, eager or replayed, warmup
-        # included
+        # "launches" / "draft_launches" count target / draft step-body
+        # runs, eager or replayed, warmup included
         self.stats = {"steps": 0, "prefill_steps": 0, "decode_steps": 0,
                       "chunk_launches": 0, "tokens_generated": 0,
-                      "mixed_steps": 0, "launches": 0,
+                      "spec_steps": 0, "draft_tokens": 0,
+                      "accepted_tokens": 0, "mixed_steps": 0,
+                      # async lookahead: plans staged under device
+                      # time / staged plans that survived to launch
+                      "staged_steps": 0, "staged_hits": 0,
+                      # tree speculation: sibling branches taken
+                      "tree_hits": 0, "launches": 0, "draft_launches": 0,
                       # lifecycle counters (lifecycle_stats())
                       "aborted": 0, "deadline_missed": 0, "shed": 0,
                       "retries": 0, "quarantined": 0, "step_faults": 0}
+
+    def _alloc_pools(self, num_layers):
+        """Zeroed K/V pools of ``num_layers`` layers -> :data:`_Pools`
+        (k_rows, v_rows, kc, vc, ks_flat, vs_flat, ks, vs).  Each layer's
+        slots are
+        ``[NB * bs + 1, Nh, D]``: the last row is the sink that padding
+        tokens write; ``kc`` / ``vc`` ``[L, NB, bs, Nh, D]`` view the rest,
+        so a layer's pool stays contiguous for the kernel.  An int8 pool
+        has per-(layer, page, head, slot) dequant scales, flat ``[L,
+        (NB + 1) * Nh * bs]``: the sink slot's scale index lands on page
+        NB, which ``ks`` / ``vs`` ``[L, NB, Nh, bs]`` leave out (None for
+        a float pool)."""
+        nl, nb, bs, nh, hd = (num_layers, self.num_blocks, self.block_size,
+                              self.num_heads, self.head_dim)
+        kv_dtype = torch.int8 if self._kv_quant else self.dtype
+        k_rows, v_rows = (
+            torch.zeros((nl, nb * bs + 1, nh, hd), dtype=kv_dtype,
+                        device=self.device) for _ in range(2))
+        kc, vc = (rows[:, :nb * bs].view(nl, nb, bs, nh, hd)
+                  for rows in (k_rows, v_rows))
+        ks = vs = ks_flat = vs_flat = None
+        if self._kv_quant:
+            ks_flat, vs_flat = (
+                torch.zeros((nl, (nb + 1) * nh * bs), dtype=torch.float32,
+                            device=self.device) for _ in range(2))
+            ks, vs = (flat.view(nl, nb + 1, nh, bs)[:, :nb]
+                      for flat in (ks_flat, vs_flat))
+        return _Pools(k_rows, v_rows, kc, vc, ks_flat, vs_flat, ks, vs)
+
+    def _init_draft_model(self):
+        """The draft model: the target's first ``draft_layers`` blocks
+        (the same weight tensors), the shared embedding and head, over
+        draft pools of ``draft_layers`` layers with their own sink rows,
+        and a draft BlockManager with prefix caching off (draft state is
+        disposable).  The JAX engine pads the draft to full depth with
+        zero blocks, each an exact identity (``x + 0``), to ride its one
+        executable; running only the first blocks is the same function.
+        The draft body is captured by a second StepGraphs, one graph a
+        token bucket in a pool of its own."""
+        dl = min(int(self.spec.draft_layers), self.num_layers)
+        self._draft_layers = self._layers[:dl]
+        self._draft_pools = self._alloc_pools(dl)
+        self._draft_bm = BlockManager(self.num_blocks, self.block_size,
+                                      enable_prefix_caching=False)
+        self._draft_graphs = StepGraphs(self._draft_body, self.device)
+        self.events.append((self._step_index, "draft_model_load", dl,
+                            self.num_blocks))
 
     def memory_model(self, memory_budget=None):
         """Weights, pages and pool bytes, and the admissible batch under
@@ -513,7 +588,7 @@ class LLMEngine:
         req = self._requests.get(request_id)
         if req is None or req.status == FINISHED:
             return False
-        _rollback_reservation(self.block_manager, req)
+        rollback_draft_reservation(self.block_manager, req)
         self.scheduler.abort(req)
         self.stats["aborted"] += 1
         self.events.append((self._step_index, "abort", request_id))
@@ -525,6 +600,7 @@ class LLMEngine:
         step (abort, deadline, quarantine); the caller has reclaimed its
         pages.  The output joins the next step()'s finished list."""
         self._invalidate_plan()
+        self._drafter_forget(req.request_id)
         req.status = FINISHED
         req.finish_reason = reason
         self._requests.pop(req.request_id, None)
@@ -585,9 +661,12 @@ class LLMEngine:
         running), ``inflight`` (running), ``free_pages`` (allocatable
         now, LRU-parked cached pages included), ``last_step_ms`` (the
         latest step()'s time on the engine timer; None before the first
-        step), ``host_plan_s`` (time spent scheduling and packing) and
-        ``host_overhead_fraction`` (its share of all step time; None
-        before a step).  The wall-clock values never enter ``events``."""
+        step), the lookahead counters ``staged_steps`` (plans staged
+        under a step's device time) and ``staged_hits`` (staged plans
+        claimed), ``host_plan_s`` (critical-path time spent scheduling,
+        packing and validating a claim) and ``host_overhead_fraction``
+        (its share of all step time; None before a step).  The
+        wall-clock values never enter ``events``."""
         s = self.stats
         with self._gauge_lock:
             last_step_ms = self._last_step_ms
@@ -605,6 +684,8 @@ class LLMEngine:
                 "inflight": len(self.scheduler.running),
                 "free_pages": self.block_manager.num_free_blocks,
                 "last_step_ms": last_step_ms,
+                "staged_steps": s["staged_steps"],
+                "staged_hits": s["staged_hits"],
                 "host_plan_s": host_plan_s,
                 "host_overhead_fraction": (
                     host_plan_s / step_wall_s if step_wall_s > 0 else None),
@@ -698,9 +779,12 @@ class LLMEngine:
                 pool[:, cow[1]] = pool[:, cow[0]]
 
     @torch.no_grad()
-    def _ragged_body(self, ints):
+    def _ragged_body(self, ints, layers=None, pools=None):
         """The step body: one ragged step over the packed int32 operands
-        ``ints`` on the engine's device -> (argmax [Tb], logits [Tb, V]).
+        ``ints`` on the engine's device -> (argmax [Tb], logits [Tb, V]),
+        through the blocks ``layers`` over the pools ``pools`` (see
+        :meth:`_alloc_pools`; by default the target's blocks and pools,
+        the draft model passes its own).
 
         What a CUDA graph captures per bucket and the CPU runs as it is:
         it reads device tensors only, takes every length from shapes (the
@@ -709,6 +793,9 @@ class LLMEngine:
         reads the pool; padding tokens (position -1) write each layer's
         sink row (slot ``NB * bs``, the JAX step's dropped slot), so the
         visible pools see live tokens only."""
+        layers = self._layers if layers is None else layers
+        k_rows, v_rows, kc, vc, ks_flat, vs_flat, ks, vs = (
+            self._pools if pools is None else pools)
         rmax, pmax = self.max_batch, self.max_pages
         tb = (ints.shape[0] - rmax * (3 + pmax)) // 3
         ids, positions, rows = ints[:tb], ints[tb:2 * tb], ints[2 * tb:3 * tb]
@@ -735,7 +822,7 @@ class LLMEngine:
                     + torch.arange(nh, device=ints.device)[None, :] * bs
                     + (slots % bs)[:, None])
         wmat = self._wmat
-        for i, p_l in enumerate(self._layers):
+        for i, p_l in enumerate(layers):
             hh = _layernorm(x, p_l["ln_1.weight"], p_l["ln_1.bias"],
                             self.eps)
             qkv = (hh @ wmat(p_l, "attn.qkv.weight")
@@ -744,20 +831,20 @@ class LLMEngine:
             if self._kv_quant:
                 # quantize at append, per (token, head) row
                 for rows_i, scales, val in (
-                        (self._k_rows[i], self._ks_flat[i], qkv[:, 1]),
-                        (self._v_rows[i], self._vs_flat[i], qkv[:, 2])):
+                        (k_rows[i], ks_flat[i], qkv[:, 1]),
+                        (v_rows[i], vs_flat[i], qkv[:, 2])):
                     q8, s = quantize_kv_rows(val)
                     rows_i[slots] = q8
                     scales[sidx] = s
                 out = paged_ragged_attention_quant(
-                    q, self._kc[i], self._vc[i], self._ks[i], self._vs[i],
-                    tables, ctx, rows, row_start, row_qlen, row_pos0)
+                    q, kc[i], vc[i], ks[i], vs[i], tables, ctx, rows,
+                    row_start, row_qlen, row_pos0)
             else:
-                self._k_rows[i][slots] = qkv[:, 1]
-                self._v_rows[i][slots] = qkv[:, 2]
-                out = paged_ragged_attention(q, self._kc[i], self._vc[i],
-                                             tables, ctx, rows, row_start,
-                                             row_qlen, row_pos0)
+                k_rows[i][slots] = qkv[:, 1]
+                v_rows[i][slots] = qkv[:, 2]
+                out = paged_ragged_attention(q, kc[i], vc[i], tables, ctx,
+                                             rows, row_start, row_qlen,
+                                             row_pos0)
             out = out.to(x.dtype).reshape(tb, nh * hd)
             x = (x + out @ wmat(p_l, "attn.proj.weight")
                  + p_l["attn.proj.bias"])
@@ -771,6 +858,26 @@ class LLMEngine:
                        self.params["head"]["bias"], self.eps)
         logits = x @ emb["word_embeddings.weight"].T
         return logits.argmax(-1), logits
+
+    def _draft_body(self, ints):
+        """The draft model's step body: :meth:`_ragged_body` over the
+        target's first ``draft_layers`` blocks and the draft pools."""
+        return self._ragged_body(ints, self._draft_layers,
+                                 self._draft_pools)
+
+    def _draft_run(self, pk):
+        """Run one packed draft step -> (argmax [Tb], logits [Tb, V]) on
+        the device, the draft pools updated in place: on CUDA a replay
+        of the draft graphs' bucket (captured at its first step), whose
+        outputs the next draft replay overwrites; on the CPU the body."""
+        tb = pk["tb"]
+        if self.device.type == "cuda":
+            self._draft_graphs.stage(tb, pk["ints"])
+            out = self._draft_graphs.run(tb)
+        else:
+            out = self._draft_body(torch.from_numpy(pk["ints"]))
+        self.stats["draft_launches"] += 1
+        return out
 
     def _wmat(self, p_l, key):
         """A block GEMM's weight operand.  An int8 leaf dequantizes at the
@@ -788,10 +895,12 @@ class LLMEngine:
         before traffic; on CUDA that run captures the bucket's graph,
         largest bucket first so the smaller captures reuse the shared
         pool's memory, and steady serving captures nothing new.  A
-        server calls it before its worker thread starts, so no capture
-        runs while another thread may call into CUDA.  Returns
-        ``{"ragged[<bucket>]": ms}`` in bucket order, captures
-        included."""
+        draft model's body runs (and is captured) the same way, over the
+        draft pools.  A server calls it before its worker thread starts,
+        so no capture runs while another thread may call into CUDA.
+        Returns ``{"ragged[<bucket>]": ms}`` in bucket order for the
+        target's runs, captures included; the draft's capture times are
+        the draft StepGraphs' ``capture_ms``."""
         timings = {}
         for kind, tb in sorted(self._bucket_grid(), key=lambda b: -b[1]):
             t0 = time.perf_counter()
@@ -799,6 +908,12 @@ class LLMEngine:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             timings[f"{kind}[{tb}]"] = (time.perf_counter() - t0) * 1e3
+        if self._draft_bm is not None:
+            for _kind, tb in sorted(self._bucket_grid(),
+                                    key=lambda b: -b[1]):
+                self._draft_run(self._pack_rows([], tb))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         return {key: timings[key]
                 for key in (f"{k}[{tb}]" for k, tb in self._bucket_grid())}
 
@@ -824,20 +939,33 @@ class LLMEngine:
             self.faults.begin_step(self._step_index)
         finished = self._drain_early()
         self._expire_deadlines(finished)
-        t0 = self._timer()
-        pre_preempt = self.scheduler.num_preemptions
-        batch = self.scheduler.schedule()
-        if self.scheduler.num_preemptions > pre_preempt:
-            self.events.append(
-                (self._step_index, "preempt",
-                 self.scheduler.num_preemptions - pre_preempt))
-        if batch.kind == "idle":
-            with self._gauge_lock:
-                self._host_plan_s += self._timer() - t0
-            self._record_step_gauges()
-            return finished
-        self.stats["steps"] += 1
-        self._ragged_step(batch, finished, t0)
+        staged = self._claim_staged()
+        if staged is not None:
+            # this step's plan and pack ran under the previous step's
+            # device time; only the claim's validation was on this step's
+            # critical path
+            plan_rows, pk = staged
+            self.stats["steps"] += 1
+            self.stats["staged_hits"] += 1
+            self.stats["decode_steps"] += 1
+            self._launch_packed(plan_rows, pk, finished)
+        else:
+            if isinstance(self.drafter, DraftModelDrafter):
+                self._draft_phase()
+            t0 = self._timer()
+            pre_preempt = self.scheduler.num_preemptions
+            batch = self.scheduler.schedule()
+            if self.scheduler.num_preemptions > pre_preempt:
+                self.events.append(
+                    (self._step_index, "preempt",
+                     self.scheduler.num_preemptions - pre_preempt))
+            if batch.kind == "idle":
+                with self._gauge_lock:
+                    self._host_plan_s += self._timer() - t0
+                self._record_step_gauges()
+                return finished
+            self.stats["steps"] += 1
+            self._ragged_step(batch, finished, t0)
         finished.extend(self._drain_early())
         self._record_step_gauges()
         return finished
@@ -953,7 +1081,7 @@ class LLMEngine:
                       f"failed {kind} step: {msg}", RuntimeWarning,
                       stacklevel=3)
         for req in reqs:
-            _rollback_reservation(self.block_manager, req)
+            rollback_draft_reservation(self.block_manager, req)
         for req in victims:
             self.scheduler.abort(req)
             self.stats["quarantined"] += 1
@@ -998,8 +1126,11 @@ class LLMEngine:
         """Pack one step's RaggedRows into host operands, plus the
         sampling pipeline's operands when a row uses it: six per-row knob
         vectors and two ``[tb, V]`` f32 channels, the additive bias
-        (logit bias and a grammar's mask of the row's current state) and
-        the penalties' token counts, filled at each sampling position."""
+        (logit bias and a grammar's mask) and the penalties' token
+        counts, filled at each sampling position.  A verify row is
+        ``[last] + drafts``, a tree row ``[last, sibling]`` on its fork's
+        table.  Host work only, shared by the step and the lookahead
+        stager, so a staged launch is operand-identical to a sync one."""
         total = sum(row.length for row in rows)
         tb = bucket_size(total, self.token_budget, floor=8)
         entries = []
@@ -1007,10 +1138,15 @@ class LLMEngine:
             req = row.request
             if row.kind == "chunk":
                 toks = req.all_ids[row.start:row.start + row.length]
+            elif row.kind == "tree":
+                # sibling branch: re-write position T-1's K/V on the
+                # fork's own chain, then score the runner-up first token
+                # at position T
+                toks = [req.all_ids[-1], row.sibling]
             else:
-                toks = [req.all_ids[-1]]
-            entries.append((toks, row.start,
-                            self.block_manager.block_table(req.request_id)))
+                toks = [req.all_ids[-1]] + list(req.draft_tokens)
+            entries.append((toks, row.start, self.block_manager.block_table(
+                req.request_id if row.table_id is None else row.table_id)))
         pk = self._pack_rows(entries, tb, cows)
         pipe_rows = [(ri, row) for ri, row in enumerate(rows)
                      if row.request.uses_pipeline]
@@ -1028,29 +1164,60 @@ class LLMEngine:
                 rep_pen[ri] = req.repetition_penalty
                 pres_pen[ri] = req.presence_penalty
                 freq_pen[ri] = req.frequency_penalty
-                if row.kind == "chunk" and not row.chunk.is_final:
-                    continue           # no position samples this step
-                p = pk["starts"][ri] + row.length - 1
-                if (req.repetition_penalty != 1.0
-                        or req.presence_penalty != 0.0
-                        or req.frequency_penalty != 0.0):
-                    counts[p] = token_counts(req.all_ids, v)
-                for t, b in (req.logit_bias or {}).items():
-                    bias[p, t] += b
-                if req._constraint is not None \
-                        and req._constraint.state is not None:
-                    req._constraint.bias_row(bias[p])
+                if row.kind == "chunk":
+                    if not row.chunk.is_final:
+                        continue       # no position samples this step
+                    qpos = [pk["starts"][ri] + row.length - 1]
+                    prefixes = [()]
+                else:
+                    # verify position j sees drafts[:j] as generated
+                    # text: counts and grammar state advance per position
+                    drafts = list(req.draft_tokens)
+                    qpos = list(range(pk["starts"][ri],
+                                      pk["starts"][ri] + row.length))
+                    prefixes = [tuple(drafts[:j]) for j in range(len(qpos))]
+                penal = (req.repetition_penalty != 1.0
+                         or req.presence_penalty != 0.0
+                         or req.frequency_penalty != 0.0)
+                states = None
+                if req._constraint is not None and len(qpos) > 1:
+                    states = req._constraint.peek(prefixes[-1])
+                for j, p in enumerate(qpos):
+                    if penal:
+                        counts[p] = token_counts(
+                            list(req.all_ids) + list(prefixes[j]), v)
+                    for t, b in (req.logit_bias or {}).items():
+                        bias[p, t] += b
+                    if req._constraint is not None:
+                        st = req._constraint.state if j == 0 \
+                            else states[j - 1]
+                        if st is not None:
+                            req._constraint.bias_row(bias[p], state=st)
             pk["pipeline"] = (knobs, bias, counts)
         return pk
 
     def _launch_packed(self, rows, pk, finished):
         """Launch one packed step behind the isolation boundary, pull its
-        tokens and commit them.  The pull follows the step's pool
+        tokens and commit them: the back half of the sync step and of a
+        claimed lookahead plan.  With lookahead the next step is staged
+        between the dispatch and the blocking pull, so its planning runs
+        under this step's device time.  The pull follows the step's pool
         writes, so a failure there raises PoolLostError."""
+        self._launch_count += 1
         out = self._launch("ragged", [row.request for row in rows],
                            lambda: self._ragged_fn(pk))
         if out is None:
+            # quarantined, reservations rolled back: free the tree fork
+            # chains this step scheduled
+            for row in rows:
+                if row.kind == "tree" and \
+                        self.block_manager.has_seq(row.table_id):
+                    self.block_manager.free(row.table_id)
             return
+        self._stage_next(rows)
+        # a staged plan exists but is not yet claimed: where stage-vs-
+        # abort races live
+        interleave_point("staged")
         # on CUDA these are the graph's static outputs: read before the
         # next replay overwrites them
         try:
@@ -1069,19 +1236,42 @@ class LLMEngine:
 
     def _commit(self, rows, starts, nxt, row_logits, finished):
         """Commit one step's tokens on the host."""
-        # commit phase A: decode rows, in scheduler order
-        entries = []
-        for ri, row in enumerate(rows):
-            if row.kind == "chunk":
-                continue
-            req = row.request
-            req.num_cached += 1
-            if req.num_cached % self.block_size == 0:
-                self._register_full_blocks(req)
-            lg = row_logits.get(ri)
-            entries.append((req, nxt[starts[ri]],
-                            None if lg is None else lg[0]))
-        if entries:
+        # commit phase A: decode and verify rows, in scheduler order —
+        # every row through _commit_verified when any carries drafts,
+        # else one vectorized commit (the gumbel draw order seeded
+        # output depends on); a tree row is walked with its main row
+        nonchunk = [(ri, row) for ri, row in enumerate(rows)
+                    if row.kind not in ("chunk", "tree")]
+        tree_rows = {row.request.request_id: (ri, row)
+                     for ri, row in enumerate(rows) if row.kind == "tree"}
+        if any(row.request.draft_tokens for _, row in nonchunk):
+            self.stats["spec_steps"] += 1
+            for ri, row in nonchunk:
+                s0 = starts[ri]
+                tree = None
+                tr = tree_rows.pop(row.request.request_id, None)
+                if tr is not None:
+                    tri, trow = tr
+                    ts = starts[tri]
+                    tree = (trow.table_id, trow.sibling, nxt[ts:ts + 2],
+                            row_logits.get(tri))
+                self._commit_verified(row.request, nxt[s0:s0 + row.length],
+                                      row_logits.get(ri), finished,
+                                      tree=tree)
+            for _tri, trow in tree_rows.values():
+                # a sibling row whose main row is gone
+                if self.block_manager.has_seq(trow.table_id):
+                    self.block_manager.free(trow.table_id)
+        elif nonchunk:
+            entries = []
+            for ri, row in nonchunk:
+                req = row.request
+                req.num_cached += 1
+                if req.num_cached % self.block_size == 0:
+                    self._register_full_blocks(req)
+                lg = row_logits.get(ri)
+                entries.append((req, nxt[starts[ri]],
+                                None if lg is None else lg[0]))
             self._commit_tokens(entries, finished)
         # commit phase B: chunks in schedule order; only a final chunk's
         # last token emits
@@ -1104,7 +1294,9 @@ class LLMEngine:
     def _fetch_sampling_rows(self, rows, starts, logits):
         """Fetch only the logits rows of tokens that sample with a
         temperature or report logprobs: a greedy batch transfers just the
-        argmax vector.  Returns {row_index: [1, V] host array}."""
+        argmax vector.  Returns {row_index: [n, V] host array} — a decode
+        row's one token, a verify row's 1 + K, a tree row's 2, a final
+        chunk's last token."""
         idx, spans = [], {}
         for ri, row in enumerate(rows):
             req = row.request
@@ -1113,16 +1305,16 @@ class LLMEngine:
             if row.kind == "chunk":
                 if not row.chunk.is_final:
                     continue
-                lo = starts[ri] + row.length - 1
+                lo, n = starts[ri] + row.length - 1, 1
             else:
-                lo = starts[ri]
-            spans[ri] = len(idx)
-            idx.append(lo)
+                lo, n = starts[ri], row.length
+            spans[ri] = (len(idx), n)
+            idx.extend(range(lo, lo + n))
         if not spans:
             return {}
         sel = logits[torch.as_tensor(idx, device=logits.device)]
         sel = sel.float().cpu().numpy()
-        return {ri: sel[o:o + 1] for ri, o in spans.items()}
+        return {ri: sel[o:o + n] for ri, (o, n) in spans.items()}
 
     # --------------------------------------------------------- commits --
     def _register_full_blocks(self, req):
@@ -1239,6 +1431,398 @@ class LLMEngine:
             elif len(req.output_ids) >= req.max_new_tokens:
                 self._finish(req, FinishReason.LENGTH, finished)
 
+    def _commit_verified(self, req, argmax_row, logits_row, finished,
+                         tree=None):
+        """Acceptance and commit of one verify row.
+
+        Tokens emit in position order; a sampled request takes exactly
+        one gumbel draw per emitted token (the draft is a point-mass
+        proposal, so sample-and-match is exact rejection sampling), so
+        its stream stays bitwise aligned with the non-speculative
+        engine.  Unaccepted slots roll back before prefix-cache
+        registration, so the cache only sees pages of accepted tokens.
+
+        ``tree`` — ``(tmp_id, sibling_token, sib_argmax, sib_logits)`` —
+        is the request's 2-token sibling row: if the first emitted token
+        misses the chain's draft but equals the sibling, the fork chain
+        already holds that branch's K/V and next-token scores, so a
+        second token commits from them (one more draw) and the fork is
+        promoted to be the request's table.  Any other outcome frees the
+        fork; either way the books end as a non-tree commit of the same
+        emitted count."""
+        drafts = req.draft_tokens
+        req.draft_tokens = []
+        d = len(drafts)
+        self.stats["draft_tokens"] += d
+        tmp_id = sib_tok = sib_argmax = sib_logits = None
+        if tree is not None:
+            tmp_id, sib_tok, sib_argmax, sib_logits = tree
+            self.stats["draft_tokens"] += 1      # the sibling proposal
+        promoted = False
+        reason = None
+        emitted = 0
+        for j in range(d + 1):
+            if req.temperature > 0.0:
+                tok = self._sample_token(req, logits_row[j])
+            else:
+                tok = int(argmax_row[j])
+            req.output_ids.append(tok)
+            emitted += 1
+            self.stats["tokens_generated"] += 1
+            if req.logprobs and logits_row is not None:
+                req.logprobs_content.append(
+                    top_logprobs(logits_row[j], req.logprobs, tok))
+            if req._constraint is not None:
+                # position j's mask was packed from the state after
+                # drafts[:j], the path walked so far
+                req._constraint.advance(tok)
+            matched = j < d and tok == drafts[j]
+            if matched:
+                self.stats["accepted_tokens"] += 1
+            if self._check_stop(req) is not None:
+                reason = FinishReason.STOP
+                break
+            if req.eos_token_id is not None and tok == req.eos_token_id:
+                reason = FinishReason.STOP
+                break
+            if len(req.output_ids) >= req.max_new_tokens:
+                reason = FinishReason.LENGTH
+                break
+            if not matched:
+                if j == 0 and tmp_id is not None and tok == sib_tok:
+                    # tree hit: the target's first token is the sibling
+                    # branch, whose K/V and scores are on the fork chain
+                    self.stats["accepted_tokens"] += 1
+                    self.stats["tree_hits"] += 1
+                    promoted = True
+                    if req.temperature > 0.0:
+                        tok2 = self._sample_token(req, sib_logits[1])
+                    else:
+                        tok2 = int(sib_argmax[1])
+                    req.output_ids.append(tok2)
+                    emitted += 1
+                    self.stats["tokens_generated"] += 1
+                    if req.logprobs and sib_logits is not None:
+                        req.logprobs_content.append(top_logprobs(
+                            sib_logits[1], req.logprobs, tok2))
+                    if self._check_stop(req) is not None:
+                        reason = FinishReason.STOP
+                    elif req.eos_token_id is not None \
+                            and tok2 == req.eos_token_id:
+                        reason = FinishReason.STOP
+                    elif len(req.output_ids) >= req.max_new_tokens:
+                        reason = FinishReason.LENGTH
+                break
+        pages_before = req.num_cached // self.block_size
+        req.num_cached += emitted
+        if promoted:
+            # the fork chain holds the branch's K/V for positions
+            # 0..num_cached-1 and carries exactly num_cached slots:
+            # adopt it and drop the main chain with its reservation
+            self.block_manager.promote_fork(req.request_id, tmp_id)
+        else:
+            # the scheduler reserved 1 + d slots; keep the emitted ones
+            # (every kept position's token matched its draft)
+            self.block_manager.rollback_slots(req.request_id,
+                                              1 + d - emitted)
+            if tmp_id is not None and self.block_manager.has_seq(tmp_id):
+                self.block_manager.free(tmp_id)
+        if req.num_cached // self.block_size > pages_before:
+            self._register_full_blocks(req)
+        if reason is not None:
+            self._finish(req, reason, finished)
+
+    def spec_stats(self):
+        """Speculative-decoding counters (acceptance rate for benches)."""
+        s = self.stats
+        prop = s["draft_tokens"]
+        out = {"spec_steps": s["spec_steps"],
+               "draft_tokens": prop,
+               "accepted_tokens": s["accepted_tokens"],
+               "acceptance_rate":
+                   s["accepted_tokens"] / prop if prop else 0.0}
+        if self.spec is not None:
+            out["method"] = self.spec.method
+        if isinstance(self.drafter, DraftModelDrafter):
+            out["model_drafts"] = self.drafter.model_drafts
+            out["ngram_drafts"] = self.drafter.ngram_drafts
+            out["tree_hits"] = s["tree_hits"]
+        return out
+
+    def _drafter_forget(self, request_id):
+        """Drop model-drafter state (and the draft pool's pages) of a
+        request leaving the engine by any path."""
+        if isinstance(self.drafter, DraftModelDrafter):
+            self.drafter.forget(request_id)
+            if self._draft_bm is not None \
+                    and self._draft_bm.has_seq(request_id):
+                self._draft_bm.free(request_id)
+
+    # --------------------------------------------------- async lookahead --
+    def _stage_next(self, rows):
+        """Plan and pack step N+1 on the host while step N runs on the
+        card: between the replay's dispatch and the blocking pull.
+
+        Staging fires only when the next step is provably a plain
+        all-decode step whose schedule cannot depend on step N's
+        outcome: ``lookahead=True``, no fault injector (its per-step
+        schedules would misalign) and no model drafter (its draft phase
+        launches per step); nothing waiting, every running request
+        prefilled with no drafts and no sampling-pipeline row, this step
+        all-decode, and no append that would copy on write.  One slot
+        per running request is claimed now; the plan stays host-side
+        operands until :meth:`_claim_staged` validates it and patches in
+        the query tokens step N commits, or :meth:`_discard_staged` rolls
+        the claims back exactly."""
+        if not self.lookahead or self.faults is not None \
+                or self._draft_bm is not None:
+            return
+        sch = self.scheduler
+        running = sch.running
+        if sch.waiting or not running:
+            return
+        for row in rows:
+            if row.kind != "decode":
+                return
+        bm = self.block_manager
+        for r in running:
+            if not r.prefill_done or r.uses_pipeline \
+                    or r.draft_tokens or bm.would_cow(r.request_id):
+                return
+        plan_rows, claimed = [], []
+        try:
+            for r in running:
+                bm.append_slot(r.request_id)
+                claimed.append(r)
+                plan_rows.append(RaggedRow(
+                    r, "decode", bm.num_tokens(r.request_id) - 1, 1))
+        except NoFreeBlocksError:
+            # exact inverse, newest claim first: the LIFO free list ends
+            # as if nothing was staged
+            for r in reversed(claimed):
+                bm.rollback_slots(r.request_id, 1)
+            return
+        pk = self._pack_ragged(plan_rows, [])
+        self._staged = (plan_rows, pk)
+        self._staged_epoch = self._plan_epoch
+        self.stats["staged_steps"] += 1
+        self.events.append(
+            (self._step_index, "step_staged", len(plan_rows)))
+
+    def _claim_staged(self):
+        """Validate and take the staged plan, or discard it.  The plan
+        epoch catches every lifecycle mutation since staging; the row
+        checks pin the running set and its books to what the stager
+        assumed; a drafter's non-empty re-proposal means the sync
+        scheduler would build a verify row, so the plan goes.  On
+        success each row's query token, committed by the previous step,
+        is patched into the packed ids."""
+        staged, self._staged = self._staged, None
+        if staged is None:
+            return None
+        t0 = self._timer()
+        try:
+            plan_rows, pk = staged
+            running = self.scheduler.running
+            valid = (self._staged_epoch == self._plan_epoch
+                     and not self.scheduler.waiting
+                     and len(running) == len(plan_rows))
+            if valid:
+                for row, r in zip(plan_rows, running):
+                    if row.request is not r or r.status != RUNNING \
+                            or not r.prefill_done or r.draft_tokens \
+                            or r.uses_pipeline \
+                            or row.start != r.num_cached:
+                        valid = False
+                        break
+            if valid and self.drafter is not None:
+                spare = self.token_budget - len(running)
+                if spare > 0:
+                    for r in running:
+                        cap = min(spare, r.max_new_tokens
+                                  - len(r.output_ids) - 1)
+                        if cap > 0 and self.drafter.propose(
+                                r.all_ids, cap,
+                                request_id=r.request_id):
+                            valid = False
+                            break
+            if not valid:
+                self._discard_staged(plan_rows)
+                return None
+            for ri, row in enumerate(plan_rows):
+                pk["ints"][pk["starts"][ri]] = row.request.all_ids[-1]
+            return plan_rows, pk
+        finally:
+            with self._gauge_lock:
+                self._host_plan_s += self._timer() - t0
+
+    def _discard_staged(self, plan_rows):
+        """Roll back the staged slot claims exactly, one slot per live
+        staged row, newest first (the LIFO free list's inverse), so the
+        sync schedule allocates the pages a never-staged engine would."""
+        bm = self.block_manager
+        for row in reversed(plan_rows):
+            req = row.request
+            if req.status == RUNNING and req.prefill_done \
+                    and bm.has_seq(req.request_id):
+                extra = bm.num_tokens(req.request_id) - req.num_cached
+                if extra > 0:
+                    bm.rollback_slots(req.request_id, extra)
+
+    # ---------------------------------------------------- model drafting --
+    def _draft_phase(self):
+        """Fill the model drafter's proposals for this step, before
+        scheduling.  For every prefilled running request whose n-gram
+        draft comes up empty (n-gram hits are free and win), the draft
+        model runs over its own pools:
+
+        1. catch-up — the valid draft K/V prefix is the longest common
+           prefix of the drafter's fed history and the real ``all_ids``
+           (K/V at p depends on tokens [0, p] only); the rest is re-fed
+           in token_budget-bounded chunks, and the final fed position's
+           argmax is the first draft token (for ``method="tree"`` the
+           runner-up of that logits row is the sibling);
+        2. chain — up to ``min(K, cap) - 1`` batched one-token greedy
+           launches extend every candidate's chain in lockstep.
+
+        A draft-pool OOM skips drafting the request this step; plain
+        decode never depends on this phase."""
+        dr = self.drafter
+        dbm = self._draft_bm
+        k_max = self.spec.num_tokens
+        dr.proposals = {}
+        dr.siblings = {}
+        live = {r.request_id for r in self.scheduler.running}
+        live.update(r.request_id for r in self.scheduler.waiting)
+        for rid in [r for r in dr.history if r not in live]:
+            dr.forget(rid)
+            if dbm.has_seq(rid):
+                dbm.free(rid)
+        cands = []
+        for r in self.scheduler.running:
+            if not r.prefill_done:
+                continue
+            cap = min(k_max, r.max_new_tokens - len(r.output_ids) - 1)
+            if cap <= 0:
+                continue
+            if dr._ngram.propose(r.all_ids, cap):
+                continue            # the free n-gram draft wins this row
+            cands.append((r, cap))
+        if not cands:
+            return
+        # draft-pool books and the catch-up work list
+        feeds = []
+        for r, cap in cands:
+            rid = r.request_id
+            hist_ids = r.all_ids
+            hist = dr.history.get(rid, [])
+            lcp = 0
+            hmax = min(len(hist), len(hist_ids) - 1)
+            while lcp < hmax and hist[lcp] == hist_ids[lcp]:
+                lcp += 1
+            try:
+                if not dbm.has_seq(rid):
+                    lcp = 0
+                    dbm.allocate(rid, len(hist_ids))
+                else:
+                    extra = dbm.num_tokens(rid) - lcp
+                    if extra > 0:
+                        dbm.rollback_slots(rid, extra)
+                    dbm.append_slots(rid, len(hist_ids) - lcp)
+            except NoFreeBlocksError:
+                if dbm.has_seq(rid):
+                    dbm.free(rid)
+                dr.history.pop(rid, None)
+                continue
+            feeds.append((r, cap, lcp, hist_ids))
+            dr.history[rid] = list(hist_ids)
+        if not feeds:
+            return
+        # catch-up launches: each pending feed chunked through the token
+        # budget; a row's final fed position yields the first draft
+        # token (and, for trees, the runner-up sibling)
+        chains = {}
+        want_sib = self.spec.method == "tree"
+        work = [[r, cap, lcp, ids] for r, cap, lcp, ids in feeds]
+        while work:
+            entries, meta, used = [], [], 0
+            for w in work:
+                if len(entries) >= self.max_batch \
+                        or used >= self.token_budget:
+                    break
+                r, cap, start, ids = w
+                c = min(len(ids) - start, self.token_budget - used)
+                entries.append((r.request_id, ids[start:start + c], start))
+                w[2] = start + c
+                used += c
+                meta.append((r, w[2] == len(ids)))
+            work = [w for w in work if w[2] < len(w[3])]
+            nxt, logits, starts = self._draft_launch(entries)
+            done = [(i, starts[i] + len(entries[i][1]) - 1)
+                    for i, (_r, fin) in enumerate(meta) if fin]
+            lg = None
+            if want_sib and done:
+                # read before the next draft replay overwrites them
+                lg = logits[torch.as_tensor([p for _i, p in done],
+                                            device=logits.device)]
+                lg = lg.float().cpu().numpy()
+            for k, (i, p) in enumerate(done):
+                r = meta[i][0]
+                g0 = int(nxt[p])
+                chains[r.request_id] = [g0]
+                if lg is not None:
+                    row = np.array(lg[k], np.float64)
+                    row[g0] = -np.inf
+                    dr.siblings[r.request_id] = int(np.argmax(row))
+        # the greedy chain: K - 1 batched one-token launches
+        act = [(r, cap) for r, cap, _lcp, _ids in feeds
+               if chains.get(r.request_id)]
+        for _depth in range(1, k_max):
+            act = [(r, cap) for r, cap in act
+                   if len(chains[r.request_id]) < cap]
+            if not act:
+                break
+            entries, kept = [], []
+            for r, cap in act:
+                rid = r.request_id
+                try:
+                    dbm.append_slot(rid)
+                except NoFreeBlocksError:
+                    continue        # freeze this chain at its depth
+                entries.append((rid, [chains[rid][-1]],
+                                dbm.num_tokens(rid) - 1))
+                kept.append((r, cap))
+            if not entries:
+                break
+            nxt, _logits, starts = self._draft_launch(entries)
+            for i, (r, _cap) in enumerate(kept):
+                chains[r.request_id].append(int(nxt[starts[i]]))
+            act = kept
+        # the last chain token was predicted but never fed, so the
+        # history (what the draft pool encodes) leaves it out
+        for r, cap, _lcp, ids in feeds:
+            rid = r.request_id
+            chain = chains.get(rid)
+            if not chain:
+                continue
+            dr.proposals[rid] = list(chain[:cap])
+            dr.history[rid] = list(ids) + chain[:-1]
+
+    def _draft_launch(self, entries):
+        """One launch of the draft model over ``(seq_id, tokens, pos0)``
+        rows on the draft BlockManager's tables (no copy-on-write, no
+        sampling pipeline) -> (argmax numpy [Tb], logits [Tb, V] on the
+        device, row starts).  On CUDA the logits are the draft graph's
+        static output: read them before the next draft launch."""
+        total = sum(len(toks) for _sid, toks, _p in entries)
+        tb = bucket_size(total, self.token_budget, floor=8)
+        pk = self._pack_rows(
+            [(toks, p0, self._draft_bm.block_table(sid))
+             for sid, toks, p0 in entries], tb)
+        self._launch_count += 1
+        argmax, logits = self._draft_run(pk)
+        return argmax.cpu().numpy(), logits, pk["starts"]
+
     def _metrics(self, req):
         return {"arrival": req.arrival_time,
                 "first_token": self._first_token_at.pop(req.request_id,
@@ -1247,6 +1831,7 @@ class LLMEngine:
 
     def _finish(self, req, reason, finished):
         self._invalidate_plan()
+        self._drafter_forget(req.request_id)
         self.scheduler.remove_running(req)
         req.status = FINISHED
         req.finish_reason = reason

@@ -23,6 +23,13 @@ same way: the int8 kernel for CUDA tensors, and for CPU tensors
 :func:`paged_ragged_attention_quant_plain`, which gathers each token's
 pages and scale rows, dequantizes in f32 and runs the same chain.
 
+The JAX package's three per-phase forms stay as thin re-expressions
+over the same ragged call — :func:`paged_decode_attention` (one-token
+rows), :func:`paged_verify_attention` (a speculative row of T tokens at
+consecutive positions sharing one block-table row) and
+:func:`paged_prefill_attention` (one sequence's chunk) — each with its
+``_plain`` form for CPU tensors.
+
 There is no flag and no shape-based fallback: the CUDA kernel takes any
 token count and page size, and raises on what it cannot take.
 """
@@ -143,3 +150,87 @@ def paged_ragged_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
     return paged_ragged_attention_quant_plain(q, k_pages, v_pages, k_scales,
                                               v_scales, block_tables, ctx,
                                               rows)
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, block_tables,
+                                 lengths):
+    """Plain PyTorch decode form: q [B, Nq, D], row ``b`` attends over
+    its first ``lengths[b]`` pool positions (0 -> exact zeros)."""
+    rows = torch.arange(q.shape[0], device=q.device, dtype=torch.int32)
+    return paged_ragged_attention_plain(q, k_pages, v_pages, block_tables,
+                                        lengths.to(torch.int32), rows)
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
+    """q [B, Nq, D] x paged pool -> [B, Nq, D], one token a row: batch
+    row ``b`` is the ragged row (start ``b``, qlen 1 if live, pos0
+    ``lengths[b] - 1``).  CUDA ``q``: the ragged kernel; CPU ``q``: the
+    plain version."""
+    if q.is_cuda:
+        b = q.shape[0]
+        lengths = lengths.to(torch.int32)
+        return _kernel.paged_ragged_attention_cuda(
+            q, k_pages, v_pages, block_tables,
+            torch.arange(b, device=q.device, dtype=torch.int32),
+            (lengths > 0).to(torch.int32), (lengths - 1).clamp(min=0))
+    return paged_decode_attention_plain(q, k_pages, v_pages, block_tables,
+                                        lengths)
+
+
+def paged_verify_attention_plain(q, k_pages, v_pages, block_tables, ctx):
+    """Plain PyTorch verify form: q [B, T, Nq, D], T query tokens a
+    sequence at consecutive positions; ``ctx`` [B, T] is each token's
+    visible context (0 -> exact zeros).  The per-token chain over the
+    flattened [B * T] tokens, every token gathering its sequence's
+    pages: bitwise the flattened one-token decode batch."""
+    b, t, nq, d = q.shape
+    rows = torch.arange(b, device=q.device,
+                        dtype=torch.int32).repeat_interleave(t)
+    out = paged_ragged_attention_plain(
+        q.reshape(b * t, nq, d), k_pages, v_pages, block_tables,
+        ctx.reshape(b * t).to(torch.int32), rows)
+    return out.reshape(b, t, nq, d)
+
+
+def paged_verify_attention(q, k_pages, v_pages, block_tables, ctx):
+    """q [B, T, Nq, D] verify rows x paged pool -> [B, T, Nq, D].  CUDA
+    ``q``: sequence ``b`` is one ragged row (start ``b * T``, qlen its
+    live tokens — always a prefix — pos0 ``ctx[b, 0] - 1``) on one
+    block-table row; CPU ``q``: the plain version."""
+    b, t, nq, d = q.shape
+    if q.is_cuda:
+        ctx = ctx.to(torch.int32)
+        flat = _kernel.paged_ragged_attention_cuda(
+            q.reshape(b * t, nq, d), k_pages, v_pages, block_tables,
+            torch.arange(b, device=q.device, dtype=torch.int32) * t,
+            (ctx > 0).sum(1, dtype=torch.int32),
+            (ctx[:, 0] - 1).clamp(min=0))
+        return flat.reshape(b, t, nq, d)
+    return paged_verify_attention_plain(q, k_pages, v_pages, block_tables,
+                                        ctx)
+
+
+def paged_prefill_attention_plain(q, k_pages, v_pages, block_table, start):
+    """Plain PyTorch prefill form: q [1, C, Nq, D] at positions
+    ``start .. start + C - 1``, causal over the pool through the one
+    ``block_table`` [P]."""
+    c = q.shape[1]
+    ctx = (int(start) + 1
+           + torch.arange(c, device=q.device, dtype=torch.int32))
+    rows = torch.zeros(c, device=q.device, dtype=torch.int32)
+    return paged_ragged_attention_plain(q[0], k_pages, v_pages,
+                                        block_table[None], ctx, rows)[None]
+
+
+def paged_prefill_attention(q, k_pages, v_pages, block_table, start):
+    """q [1, C, Nq, D] chunk x paged pool -> [1, C, Nq, D]: the single
+    ragged row (start 0, qlen C, pos0 ``start``).  CUDA ``q``: the
+    ragged kernel; CPU ``q``: the plain version."""
+    if q.is_cuda:
+        c = q.shape[1]
+        one = torch.ones(1, device=q.device, dtype=torch.int32)
+        return _kernel.paged_ragged_attention_cuda(
+            q[0], k_pages, v_pages, block_table[None], 0 * one, c * one,
+            int(start) * one)[None]
+    return paged_prefill_attention_plain(q, k_pages, v_pages, block_table,
+                                         start)

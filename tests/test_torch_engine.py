@@ -9,11 +9,11 @@ the token budget (chunked prefill, mixed steps) and two that share a
 same numpy streams on both sides.  The logits pipeline must match the
 JAX one knob by knob on seeded logits (atol 1e-6).  The host modules
 the port copies (block manager, scheduler, faults, events, interleave,
-structured) must be the JAX package's source verbatim, and the copied
-block manager and scheduler must pass a handful of the JAX package's
-own allocator and scheduler cases.  Engine and request keywords the
-port has are accepted and serve; the JAX engine's others raise
-NotImplementedError.
+structured, spec) must be the JAX package's source verbatim, and the
+copied block manager and scheduler must pass a handful of the JAX
+package's own allocator and scheduler cases.  Engine and request
+keywords the port has are accepted and serve; the JAX engine's others
+raise NotImplementedError.
 """
 
 import inspect
@@ -28,6 +28,7 @@ import paddle_tpu.inference.llm.events as jax_events
 import paddle_tpu.inference.llm.faults as jax_faults
 import paddle_tpu.inference.llm.interleave as jax_interleave
 import paddle_tpu.inference.llm.scheduler as jax_sched
+import paddle_tpu.inference.llm.spec as jax_spec
 import paddle_tpu.inference.llm.structured as jax_structured
 from paddle_tpu.inference.llm import LLMEngine as JaxEngine
 from paddle_tpu.inference.llm.sampling import (
@@ -51,6 +52,7 @@ import paddle_tpu_torch.inference.llm.events as port_events
 import paddle_tpu_torch.inference.llm.faults as port_faults
 import paddle_tpu_torch.inference.llm.interleave as port_interleave
 import paddle_tpu_torch.inference.llm.scheduler as port_sched
+import paddle_tpu_torch.inference.llm.spec as port_spec
 import paddle_tpu_torch.inference.llm.structured as port_structured
 from paddle_tpu_torch.models.gpt import gpt_tiny
 
@@ -263,12 +265,14 @@ def test_logits_pipeline_matches_jax(case):
 
 
 LATER_ENGINE_KWARGS = {
-    "tensor_parallel": 2, "mesh": object(), "speculative": 2,
-    "lora": 4, "kv_tier": 1 << 20, "lookahead": True,
+    "tensor_parallel": 2, "mesh": object(), "lora": 4,
+    "kv_tier": 1 << 20,
 }
 # keywords that were later work and are ported now (int8 serving, the
-# memory model, the request lifecycle and the request surface):
-# accepted, and their engines serve
+# memory model, the request lifecycle and the request surface;
+# speculation and lookahead have files of their own,
+# test_torch_spec.py, test_torch_draft_model.py and
+# test_torch_lookahead.py): accepted, and their engines serve
 PORTED_ENGINE_KWARGS = {
     "quantize": "int8", "memory_budget": "16GiB",
     "faults": lambda: FaultInjector(
@@ -382,7 +386,8 @@ def test_default_device_needs_cuda(models, monkeypatch):
 @pytest.mark.parametrize("jax_mod,port_mod", [
     (jax_bm, port_bm), (jax_sched, port_sched),
     (jax_faults, port_faults), (jax_events, port_events),
-    (jax_interleave, port_interleave), (jax_structured, port_structured)])
+    (jax_interleave, port_interleave), (jax_structured, port_structured),
+    (jax_spec, port_spec)])
 def test_host_modules_are_verbatim_copies(jax_mod, port_mod):
     assert inspect.getsource(port_mod) == inspect.getsource(jax_mod)
 

@@ -6,8 +6,9 @@ batch size on the card (``paddle_tpu_torch/jit/graphs.py``) and run
 directly here:
 
 - padding tokens of a bucket write only the sink rows past the visible
-  pools: every slot no live token writes keeps its bytes (pools, and the
-  int8 engine's scale pools too), and the live slots hold what the JAX
+  pools (the draft model's body over its own pools too): every slot no
+  live token writes keeps its bytes (pools, and the int8 engine's scale
+  pools too), and the live slots hold what the JAX
   engine's step writes (f32 at 1e-5; bf16 at 2 bf16 ulps, since the two
   packages round bf16 GEMM sums apart; int8 within one quantization
   step and scales at 1e-5 relative);
@@ -143,6 +144,55 @@ def _int_offset_decode(fmt, ids, ck, cv, offset):
     x = port_nn._layernorm(x, fmt.params["head"]["weight"],
                            fmt.params["head"]["bias"], fmt.eps)
     return x[:, -1] @ emb["word_embeddings.weight"].T.to(fmt.dtype)
+
+
+@pytest.mark.parametrize("kind", ["float32", "int8"])
+def test_draft_body_padding_writes_only_the_draft_sink_rows(models, kind):
+    """The draft model's body (the target's first block over draft pools
+    of one layer) run eagerly on a padded step: padding tokens write only
+    the draft pools' sink rows, every other draft slot keeps its bytes,
+    the target's pools are untouched, and the live slots hold bitwise
+    what the target's body writes into its first layer for the same
+    packed step; the run counts as a draft launch."""
+    _, pm = models
+    kw = {"quantize": "int8"} if kind == "int8" else {}
+    eng = LLMEngine(pm, device="cpu", speculative={
+        "method": "draft-model", "num_tokens": 2, "draft_layers": 1},
+        **ENGINE, **kw)
+    names = [n for n in ("kc", "vc", "ks", "vs")
+             if getattr(eng._draft_pools, n) is not None]
+    pools = {("draft", n): getattr(eng._draft_pools, n) for n in names}
+    pools.update({("target", n): getattr(eng._pools, n) for n in names})
+    rng = np.random.RandomState(6)
+    before = {}
+    for key, t in pools.items():
+        t.copy_(_noise_like(t, rng))
+        before[key] = t.clone()
+    entries = []
+    for rid, p in enumerate(PROMPTS):
+        eng._draft_bm.allocate(rid, len(p))
+        entries.append((p, 0, eng._draft_bm.block_table(rid)))
+    pk = eng._pack_rows(entries, 16)
+    launches = dict(eng.stats)
+    eng._draft_run(pk)
+    assert eng.stats["draft_launches"] == launches["draft_launches"] + 1
+    assert eng.stats["launches"] == launches["launches"]
+    for n in names:
+        assert torch.equal(pools["target", n], before["target", n]), n
+    nb, bs = eng.num_blocks, eng.block_size
+    live = torch.zeros(nb, bs, dtype=torch.bool)
+    for rid, p in enumerate(PROMPTS):
+        table = eng._draft_bm.block_table(rid)
+        for pos in range(len(p)):
+            live[table[pos // bs], pos % bs] = True
+    eng._ragged_body(torch.from_numpy(pk["ints"]))
+    for n in names:
+        got = pools["draft", n]
+        assert got.shape[0] == 1, n
+        mask = live if n in ("kc", "vc") else \
+            live[:, None, :].expand(nb, eng.num_heads, bs)
+        assert torch.equal(got[:, ~mask], before["draft", n][:, ~mask]), n
+        assert torch.equal(got[0][mask], pools["target", n][0][mask]), n
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
