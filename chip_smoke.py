@@ -5,6 +5,8 @@ one NVIDIA GPU.
     python3 chip_smoke.py
     python3 chip_smoke.py ln_bwd_designs   # only the LayerNorm backward's
                                            # sizes against alternatives
+    python3 chip_smoke.py lora_tier        # only the multi-LoRA and KV-tier
+                                           # phases (no contract line)
 
 Run from the root of a checkout on a machine with a CUDA GPU and the
 CUDA toolkit.  Phases, each printing its own lines; any failure raises
@@ -102,6 +104,29 @@ and the script exits non-zero:
               weights + 2.5 sequences as ``memory_budget`` must admit at
               least twice the bf16 batch, ``quality_report`` against the
               bf16 engine must be finite; then its decode window;
+   multi-LoRA and the KV tier — ``lora_exactness`` (the exactness
+              model, three adapters over two usable slots on a batch
+              mixing base and adapter rows: tokens equal to the dense
+              forward with merged weights ``W + A @ B``, plain, lookahead
+              and n-gram K = 4 alike, B1 on every layer of every launch;
+              after an adapter load that evicts, a packed step replayed
+              bitwise equal to the eager body); ``tier_exactness`` (the
+              exactness model starved to 12 pages under
+              ``policy="always"``: tokens bitwise those of a 64-page
+              engine, chains demoted and swapped in, the invariants after
+              every step; f32 and int8 pools); ``lora_serving`` (GPT-124M
+              bf16, rank 8, four slots, six adapters: the serving burst
+              with 12 adapter requests beside the plain engine, no
+              capture after ``warmup``, pool bytes equal to the memory
+              model's, one adapter load's ms, decode windows' device ms
+              with and without adapters, an adapter request and an
+              unknown adapter through ``HttpLLMServer``, the int8 engine's
+              burst with the same adapters); ``kv_tier`` (pinned
+              host<->device copy rates, then the burst on an engine
+              starved to 96 pages under ``"always"`` and ``"never"``:
+              tokens/s, chains moved, bytes, ms a demote and a swap-in,
+              no page or chain left; ``"auto"``'s choice under the
+              ``"h100"`` profile);
 8. dense decode — FusedMultiTransformer over GPT-124M in bf16 (batch 8,
               128-token prompts, 64 new tokens) and Llama-160M in f32
               (batch 8, 32 prompt tokens through ``decode_step`` into a
@@ -117,9 +142,10 @@ and the script exits non-zero:
 
 The launches in the ``kernels`` line are those of each kernel's main
 path, each run with the counts at 0 just before and read just after:
-the bf16 serving burst, the front end's server run and the speculation
-phases' runs (summed) for ragged attention, the int8 burst for its
-int8 twin, the FMT and Llama decode runs (summed) for the decode
+the bf16 serving burst, the front end's server run, the speculation
+phases' runs and the multi-LoRA and KV-tier phases' runs (summed) for
+ragged attention, the int8 burst, the int8 LoRA burst and the int8
+tier run (summed) for its int8 twin, the FMT and Llama decode runs (summed) for the decode
 kernel, the timed training steps for the others.  The second-to-last
 line is that JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  The script imports only torch, numpy and the port.
@@ -1632,13 +1658,14 @@ def _burst_prompts():
     return prompts, {3: 101, 10: 202}
 
 
-def _serve_burst(eng, dev, kernel, new=64):
+def _serve_burst(eng, dev, kernel, new=64, adapters=None):
     """The main path of a serving phase: warmup, then the burst; counts
     are reset just before and read just after.  Every request must
     finish by length with ``new`` tokens, ``kernel`` must launch on every
     layer of every engine launch and at least one step must mix prefill
-    chunks with decodes.  Returns (launches, prompts, sampled, outputs
-    by request index, the serving record's numbers)."""
+    chunks with decodes.  ``adapters`` gives each request its LoRA
+    adapter (None: the base model).  Returns (launches, prompts,
+    sampled, outputs by request index, the serving record's numbers)."""
     import torch
 
     from paddle_tpu_torch.ops.cuda import registry
@@ -1653,7 +1680,8 @@ def _serve_burst(eng, dev, kernel, new=64):
     t_start = time.perf_counter()
     rids = [eng.add_request(p, max_new_tokens=new,
                             temperature=0.8 if i in sampled else 0.0,
-                            seed=sampled.get(i))
+                            seed=sampled.get(i),
+                            adapter_id=adapters[i] if adapters else None)
             for i, p in enumerate(prompts)]
     outs = {}
     while eng.has_unfinished():
@@ -2183,6 +2211,512 @@ def speculative_phase(dev, smi):
     return total + launches
 
 
+# ---------------------------------------------- multi-LoRA and the KV tier --
+def _lora_weights(eng, seed, a_scale, b_scale):
+    """One adapter's seeded halves for every target of ``eng``: A
+    ``[L, in, r]`` at ``a_scale``, B ``[L, r, out]`` at ``b_scale``, f32
+    numpy (``add_adapter``'s form)."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for key in eng.lora.targets:
+        L, d_in, d_out = eng._lora_shapes[key]
+        r = eng.lora.rank
+        out[key] = ((rng.standard_normal((L, d_in, r)) * a_scale)
+                    .astype(np.float32),
+                    (rng.standard_normal((L, r, d_out)) * b_scale)
+                    .astype(np.float32))
+    return out
+
+
+def _merged_model(model, weights, scale, dev):
+    """A copy of the exactness model (gpt_tiny widths, 2 layers) whose
+    block GEMM weights are the dense merge ``W + scale * A @ B`` in f32:
+    the dense reference a LoRA row must equal token for token."""
+    from paddle_tpu_torch.models.gpt import gpt_tiny
+
+    params = {g: {k: v.detach().cpu().numpy() for k, v in sub.items()}
+              for g, sub in model.functional_decompose()["params"].items()}
+    for key, (a, b) in weights.items():
+        params["blocks"][key] = params["blocks"][key] + np.einsum(
+            "lir,lro->lio", a, b).astype(np.float32) * np.float32(scale)
+    merged = gpt_tiny(device=dev, num_layers=2, seed=0,
+                      initializer_range=0.1)
+    merged.load_stacked(params)
+    return merged.eval()
+
+
+def _drive(eng, check=None):
+    """Step ``eng`` until nothing is left -> {request id: output};
+    ``check()`` runs after every step."""
+    outs = {}
+    while eng.has_unfinished():
+        for o in eng.step():
+            outs[o.request_id] = o
+        if check is not None:
+            check()
+    return outs
+
+
+def _tiny_packed_step(eng, tb, rng, slots):
+    """A packed step of bucket ``tb`` for the gpt_tiny engines: a chunk
+    of ``tb - 4`` tokens at position 8 and decode rows at depths 30 and
+    13, each row on pages of its own, on the adapter ``slots``."""
+    pages = eng.max_pages
+    rows = [(rng.randint(0, eng.vocab_size, tb - 4), 8),
+            (rng.randint(0, eng.vocab_size, 1), 30),
+            (rng.randint(0, eng.vocab_size, 1), 13)]
+    adapter_rows = np.zeros(eng.max_batch, np.int32)
+    adapter_rows[:len(slots)] = slots
+    return eng._pack_rows(
+        [(toks, pos0, (np.arange(pages) + r * pages) % eng.num_blocks)
+         for r, (toks, pos0) in enumerate(rows)], tb,
+        adapter_rows=adapter_rows)
+
+
+def lora_exactness_phase(dev):
+    """Multi-LoRA on the exactness phase's f32 model (gpt_tiny widths, 2
+    layers) and settings: three adapters over ``max_adapters=3`` (two
+    usable slots, so the distinct-adapter gate and LRU evictions run) on
+    its prompts and ``TestSpeculative``'s, a batch mixing base and
+    adapter rows, 16 new tokens.  Every request's greedy tokens must
+    equal the dense forward with the merged weights ``W + A @ B``
+    (scale 1); the same run with lookahead and with n-gram K = 4 must
+    equal it; every step a replay but each bucket's first; B1 launched L
+    x the engine's launches.  Then, after one more adapter load that
+    evicts, a packed step on the loaded slot replays bitwise equal to
+    the eager body from the same pools.  Returns B1's launches."""
+    import types
+
+    import torch
+
+    from paddle_tpu_torch.inference.llm import LLMEngine
+    from paddle_tpu_torch.ops.cuda import registry
+
+    model, prompts = _exactness_model_and_prompts(dev)
+    prompts = prompts + _spec_prompts()
+    aids = [None, "t0", "t1", "t2"] * 2 + [None]
+    new, tiny = 16, dict(block_size=8, max_batch=4, token_budget=16)
+    lora = dict(rank=4, max_adapters=3)
+    probe = LLMEngine(model, device=dev, lora=lora, **tiny)
+    adapters = {f"t{i}": _lora_weights(probe, 30 + i, 0.3, 0.3)
+                for i in range(3)}
+    scale = probe.lora.scale
+    del probe
+    dense_models = {None: model}
+    dense_models.update({aid: _merged_model(model, w, scale, dev)
+                         for aid, w in adapters.items()})
+    dense = [dense_models[a].greedy_decode(p, new)
+             for p, a in zip(prompts, aids)]
+    total, first = 0, None
+    for label, kw in (("plain", {}), ("lookahead", dict(lookahead=True)),
+                      ("ngram", dict(speculative=4))):
+        eng = LLMEngine(model, device=dev, lora=lora, **tiny, **kw)
+        for aid, w in adapters.items():
+            eng.add_adapter(aid, w)
+        registry.reset_counts()
+        rids = [eng.add_request(p, max_new_tokens=new, adapter_id=a)
+                for p, a in zip(prompts, aids)]
+        outs = _drive(eng)
+        launches = registry.counts()["paged_ragged_attention"]
+        total += launches
+        got = [outs[r].all_ids for r in rids]
+        for out, ref, a in zip(got, dense, aids):
+            if not np.array_equal(out, ref):
+                _report_first_flip(dense_models[a], out, ref, dev)
+        if first is None:
+            first, plain = got, eng
+        elif not all(np.array_equal(a, b) for a, b in zip(got, first)):
+            raise RuntimeError(f"{label} differs from the plain LoRA run")
+        _require_replays(eng._graphs, eng.stats["launches"])
+        st = eng.lora_stats()
+        life = eng.lifecycle_stats()
+        say("lora_exactness", config=label, prompts=len(prompts),
+            adapters=aids, steps=eng.stats["steps"], lora=st,
+            spec=eng.spec_stats(), staged_hits=life["staged_hits"],
+            kernel_launches=launches, engine_launches=eng.stats["launches"],
+            graph_replays=eng._graphs.replays,
+            graph_captures=eng._graphs.captures)
+        if launches != _b1_want(eng):
+            raise RuntimeError(f"{label}: B1 launches {launches} != "
+                               f"{_b1_want(eng)}")
+        if not st["evictions"]:
+            raise RuntimeError(f"{label}: no adapter was evicted")
+        if label == "lookahead" and not life["staged_hits"]:
+            raise RuntimeError("lookahead claimed no staged plan")
+        if label == "ngram" and not eng.spec_stats()["draft_tokens"]:
+            raise RuntimeError("n-gram drafted nothing")
+        if eng.block_manager.num_free_blocks != eng.num_blocks:
+            raise RuntimeError(f"{label}: pages leaked")
+
+    # the replay reads the pools by address: load the adapter that is
+    # not resident (evicting one), then a packed step on its slot
+    mgr, eng = plain._lora_mgr, plain
+    eng.warmup()
+    gone = next(a for a in adapters if mgr.slot_of(a) is None)
+    loads = mgr.stats["loads"]
+    slot = eng._lora_slot(types.SimpleNamespace(adapter_id=gone), ())
+    other = next(s for a, s in mgr.resident().items() if a != gone)
+    rng = np.random.RandomState(77)
+    state = [eng._kc, eng._vc]
+    failed = []
+    for _, tb in eng._bucket_grid():
+        pk = _tiny_packed_step(eng, tb, rng, [slot, 0, other])
+        ints = torch.from_numpy(pk["ints"]).to(dev)
+        replays = eng._graphs.replays
+        ok, _ = _replay_against_eager(
+            state, lambda: eng._ragged_body(ints),
+            lambda: eng._ragged_fn(pk))
+        ok = ok and eng._graphs.replays == replays + 1
+        say("lora_graphs", bucket=tb, loaded=gone, slot=slot,
+            slots=[slot, 0, other], bitwise=ok)
+        if not ok:
+            failed.append(tb)
+    if mgr.stats["loads"] != loads + 1 or failed:
+        raise RuntimeError(f"replay after an adapter load differs from the "
+                           f"eager step body at buckets {failed}")
+    return total
+
+
+def _lora_ids(n=16):
+    """The LoRA burst's adapters: every fourth request on the base model,
+    the other 12 over six adapters."""
+    return [None if i % 4 == 0 else f"a{(i - 1 - i // 4) % 6}"
+            for i in range(n)]
+
+
+def lora_serving_phase(dev, smi):
+    """GPT-124M bf16 (random weights from seed 0) at the serving settings
+    with ``lora=dict(rank=8, max_adapters=4)`` (three usable slots) and
+    six registered adapters (seeded: A at 1/sqrt(in), B at 0.02): the
+    16-request burst of ``serving`` with 4 base requests and 12 over the
+    six adapters, beside the plain engine on the same prompts (tokens/s,
+    TTFT, TPOT, graph pool bytes); no capture after ``warmup()``; the
+    adapter pools' bytes on the card equal to ``lora_pool_bytes``; the
+    ms of one adapter load; decode windows of 8 rows (3 adapters and the
+    base) with and without LoRA under torch.profiler; one adapter
+    request and one unknown adapter (400) through ``HttpLLMServer``; and
+    the int8 engine with the same adapters on the same burst (B5).
+    Returns the bursts' B1 and B5 launches."""
+    import torch
+
+    from paddle_tpu_torch.inference.llm import HttpLLMServer, LLMEngine
+    from paddle_tpu_torch.models.gpt import gpt_124m
+
+    model = gpt_124m(device=dev, seed=0, dtype=torch.bfloat16).eval()
+    rng = np.random.RandomState(99)
+    wprompts = [rng.randint(0, 50257, 128).tolist() for _ in range(8)]
+    waids = ["a0", "a1", "a2", None] * 2
+
+    plain = LLMEngine(model, device=dev, **_SERVE_ENGINE)
+    _l, _p, _s, _o, plain_rec = _serve_burst(plain, dev,
+                                             "paged_ragged_attention")
+    wall_ms, prof, _, _ = _decode_windows(plain, dev, wprompts, 16)
+    plain_window = _device_profile(prof, 16, wall_ms)
+    plain_share = _kernel_share(prof, "ragged_split_kernel",
+                                "ragged_combine")
+    del plain
+    torch.cuda.empty_cache()
+
+    lora = dict(rank=8, max_adapters=4)
+    eng = LLMEngine(model, device=dev, lora=lora, **_SERVE_ENGINE)
+    adapters = {}
+    for i in range(6):
+        rng_i = np.random.RandomState(500 + i)
+        adapters[f"a{i}"] = {
+            key: ((rng_i.standard_normal((L, d_in, 8))
+                   / np.sqrt(d_in)).astype(np.float32),
+                  (rng_i.standard_normal((L, 8, d_out)) * 0.02)
+                  .astype(np.float32))
+            for key, (L, d_in, d_out) in eng._lora_shapes.items()}
+        eng.add_adapter(f"a{i}", adapters[f"a{i}"])
+    mm = eng.memory_model()
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for k, t in eng.params["blocks"].items()
+                     if k.startswith("lora.") and t.device == eng.device)
+    aids = _lora_ids()
+    launches, _p, _s, outs, rec = _serve_burst(
+        eng, dev, "paged_ragged_attention", adapters=aids)
+    st = eng.lora_stats()
+    # one adapter load: the slot a6 would take, timed after the card is idle
+    slot, weights = 1, eng._lora_mgr._adapters["a0"]
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        eng._load_adapter_slot(slot, weights)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    # the slot's books still say what it holds: put its adapter back
+    held = next(a for a, s in eng._lora_mgr.resident().items() if s == slot)
+    eng._load_adapter_slot(slot, eng._lora_mgr._adapters[held])
+    wall_ms, prof, _, _ = _decode_windows(eng, dev, wprompts, 16,
+                                          adapters=waids)
+    lora_window = _device_profile(prof, 16, wall_ms)
+    lora_share = _kernel_share(prof, "ragged_split_kernel",
+                               "ragged_combine")
+    say("lora_serving", model="gpt_124m", dtype="bfloat16", lora=lora,
+        adapters=len(adapters), request_adapters=aids, nvidia_smi=smi,
+        lora_stats=st, lora_pool_bytes=mm["lora_pool_bytes"],
+        lora_pool_bytes_on_card=pool_bytes,
+        weights_bytes=mm["weights_bytes"], **rec)
+    say("lora_serving_plain", **plain_rec)
+    say("lora_decode_window", batch=8, adapters=waids, steps=16,
+        lora=lora_window, plain=plain_window,
+        device_ms_delta=(lora_window["device_ms_per_step"]
+                         - plain_window["device_ms_per_step"]),
+        ragged_kernel_device_share_lora=lora_share,
+        ragged_kernel_device_share_plain=plain_share,
+        adapter_load_ms=times, adapter_load_ms_median=float(np.median(times)),
+        adapter_bytes=sum(2 * (a.size + b.size)
+                          for a, b in weights.values()),
+        graph_pool_bytes_lora=rec["graph_pool_bytes"],
+        graph_pool_bytes_plain=plain_rec["graph_pool_bytes"])
+    if pool_bytes != mm["lora_pool_bytes"]:
+        raise RuntimeError(f"adapter pools hold {pool_bytes} bytes on the "
+                           f"card, the memory model says "
+                           f"{mm['lora_pool_bytes']}")
+    if not st["evictions"] or rec["graph_captures_after_warmup"]:
+        raise RuntimeError(f"LoRA burst: {st}, "
+                           f"{rec['graph_captures_after_warmup']} captures "
+                           f"after warmup()")
+
+    srv = HttpLLMServer(engine=eng).start()
+    try:
+        good = _http(srv.address, "POST", "/v1/completions",
+                     {"prompt_ids": wprompts[0], "max_new_tokens": 8,
+                      "adapter": "a3"})
+        bad = _http(srv.address, "POST", "/v1/completions",
+                    {"prompt_ids": wprompts[0], "adapter": "ghost"})
+    finally:
+        srv.close()
+    want = eng.generate([wprompts[0]], max_new_tokens=8,
+                        adapter_id="a3")[0][128:]
+    say("lora_http", adapter_status=good[0],
+        output_ids=good[1]["completions"][0]["output_ids"],
+        generate_ids=want.tolist(), unknown_status=bad[0],
+        unknown_error=bad[1].get("error"))
+    if (good[0] != 200 or bad[0] != 400
+            or good[1]["completions"][0]["output_ids"] != want.tolist()
+            or eng.block_manager.num_free_blocks != eng.num_blocks):
+        raise RuntimeError("HttpLLMServer did not serve the adapter as "
+                           "generate() does, or took an unknown adapter")
+    del eng
+    torch.cuda.empty_cache()
+
+    eng8 = LLMEngine(model, device=dev, lora=lora, quantize="int8",
+                     **_SERVE_ENGINE)
+    for aid, w in adapters.items():
+        eng8.add_adapter(aid, w)
+    launches8, _p, _s, _o, rec8 = _serve_burst(
+        eng8, dev, "paged_ragged_attention_quant", adapters=aids)
+    say("lora_serving", model="gpt_124m", dtype="bfloat16",
+        quantize="int8", lora=lora, lora_stats=eng8.lora_stats(), **rec8)
+    if rec8["graph_captures_after_warmup"]:
+        raise RuntimeError("the int8 LoRA burst captured after warmup()")
+    return (launches["paged_ragged_attention"],
+            launches8["paged_ragged_attention_quant"])
+
+
+_TIER_PROMPTS = [list(range(3, 19)), list(range(5, 21)), list(range(7, 23))]
+
+
+def tier_exactness_phase(dev):
+    """The host-RAM KV tier on the exactness phase's f32 model
+    (``tests/test_kv_tier.py``'s settings): an engine starved to 12 pages
+    under ``policy="always"`` must emit bitwise the tokens of one with 64
+    pages on three 16-token prompts, 24 new tokens each, with chains
+    demoted and swapped back in, ``check_invariants()`` after every step,
+    every page back at the end, every step a replay but each bucket's
+    first and the kernel on every layer of every launch; then the same
+    with int8 pools (B5, scale pages moving with the pages).  Returns
+    the (B1, B5) launches of the starved runs."""
+    from paddle_tpu_torch.inference.llm import LLMEngine
+    from paddle_tpu_torch.ops.cuda import registry
+
+    model, _ = _exactness_model_and_prompts(dev)
+    tiny = dict(block_size=8, max_batch=4, token_budget=16, max_model_len=64)
+    tier = {"host_bytes": "8MiB", "store_bytes": "8MiB", "policy": "always"}
+    counts = []
+    for quantize, kernel in ((None, "paged_ragged_attention"),
+                             ("int8", "paged_ragged_attention_quant")):
+        ref = LLMEngine(model, device=dev, num_blocks=64, quantize=quantize,
+                        **tiny).generate(_TIER_PROMPTS, max_new_tokens=24)
+        eng = LLMEngine(model, device=dev, num_blocks=12, kv_tier=tier,
+                        quantize=quantize, **tiny)
+        registry.reset_counts()
+        rids = [eng.add_request(p, max_new_tokens=24) for p in _TIER_PROMPTS]
+        outs = _drive(eng, eng.check_invariants)
+        launches = registry.counts()[kernel]
+        counts.append(launches)
+        ts = eng.tier_stats()
+        same = all(np.array_equal(outs[r].all_ids, w)
+                   for r, w in zip(rids, ref))
+        say("tier_exactness", quantize=quantize or "none", bitwise=same,
+            preemptions=eng.scheduler.num_preemptions, tier=ts,
+            kernel_launches=launches, engine_launches=eng.stats["launches"],
+            graph_replays=eng._graphs.replays,
+            graph_captures=eng._graphs.captures)
+        if not same:
+            raise RuntimeError(f"starved tiered engine ({quantize}) differs "
+                               f"from the unconstrained one")
+        if not (ts["host_pool"]["demoted_chains"]
+                and ts["host_pool"]["swapped_in_chains"]):
+            raise RuntimeError(f"the tier moved no chain: {ts}")
+        if launches != eng.num_layers * eng.stats["launches"] \
+                or eng.block_manager.num_free_blocks != eng.num_blocks \
+                or ts["host_pool"]["chains"]:
+            raise RuntimeError("tier run: kernel launches off, or pages or "
+                               "chains left behind")
+        _require_replays(eng._graphs, eng.stats["launches"])
+    return tuple(counts)
+
+
+def _link_rates(dev, nbytes=256 << 20, reps=5):
+    """Pinned host<->device copy rates in GB/s (median of ``reps`` copies
+    of ``nbytes`` each way, timed with CUDA events after one warm copy)."""
+    import torch
+
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    rates = {}
+    for name, dst, src in (("h2d", card, host), ("d2h", host, card)):
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize(dev)
+        ms = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        rates[name] = nbytes / (float(np.median(ms)) / 1e3) / 1e9
+    del host, card
+    return rates
+
+
+def _timed_hook(eng, hook, kind, out):
+    """Wrap the scheduler's tier hook ``hook`` for the run: the host ms
+    of each call that logged a ``kind`` event, with the card idle at its
+    start and synchronized at its end, go to ``out``."""
+    import torch
+
+    fn = getattr(eng.scheduler, hook)
+
+    def call(*args):
+        torch.cuda.synchronize(eng.device)
+        n = len(eng.events)
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize(eng.device)
+        if any(e[1] == kind for e in eng.events[n:]):
+            out.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    setattr(eng.scheduler, hook, call)
+
+
+def kv_tier_phase(dev, smi):
+    """The host-RAM KV tier at GPT-124M bf16 (random weights from seed 0):
+    the pinned host<->device copy rates behind ``DEVICE_PROFILES["h100"]``;
+    the serving burst on an engine starved to 96 pages (one full-length
+    sequence is 64) so that it preempts, under ``policy="always"`` (every
+    committed chain demoted and swapped back in) and ``"never"``
+    (recompute): tokens/s, preemptions, chains demoted and swapped in,
+    the host bytes moved (``last_tier_bytes`` summed over steps), the ms
+    of each demote and swap-in, and no page or chain left behind; the
+    ``"auto"`` decision under ``"h100"`` for a chain of the burst's mean
+    size.  Returns the bursts' B1 launches."""
+    import torch
+
+    from paddle_tpu_torch.framework.cost import DEVICE_PROFILES
+    from paddle_tpu_torch.inference.llm import LLMEngine
+    from paddle_tpu_torch.inference.llm.kv_tier import TierPolicy
+    from paddle_tpu_torch.models.gpt import gpt_124m
+    from paddle_tpu_torch.ops.cuda import registry
+
+    rates = _link_rates(dev)
+    say("kv_tier_link", nvidia_smi=smi, pinned_gb_per_s=rates,
+        profile_link_gb_per_s=DEVICE_PROFILES["h100"]["ici_bytes_per_s"]
+        / 1e9)
+    model = gpt_124m(device=dev, seed=0, dtype=torch.bfloat16).eval()
+    prompts, _ = _burst_prompts()
+    total, chains = 0, []
+    for mode in ("always", "never"):
+        eng = LLMEngine(model, device=dev, num_blocks=96,
+                        kv_tier={"host_bytes": "2GiB", "store_bytes": "1GiB",
+                                 "policy": mode}, **_SERVE_ENGINE)
+        demote_ms, swap_ms = [], []
+        _timed_hook(eng, "demote_hook", "demote", demote_ms)
+        _timed_hook(eng, "swap_in_hook", "swap_in", swap_ms)
+        eng.warmup()
+        captures, steps0 = eng._graphs.captures, eng.stats["launches"]
+        registry.reset_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        rids = [eng.add_request(p, max_new_tokens=64) for p in prompts]
+        moved = 0
+        outs = {}
+        while eng.has_unfinished():
+            for o in eng.step():
+                outs[o.request_id] = o
+            moved += eng.last_tier_bytes
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = registry.counts()["paged_ragged_attention"]
+        total += launches
+        ts = eng.tier_stats()
+        demotes = [e for e in eng.events if e[1] == "demote"]
+        chains += [e[3] for e in demotes]
+        say("kv_tier", model="gpt_124m", dtype="bfloat16", policy=mode,
+            num_blocks=eng.num_blocks, page_bytes=eng.page_bytes,
+            requests=len(rids), wall_s=wall,
+            tokens_per_s=eng.stats["tokens_generated"] / wall,
+            preemptions=eng.scheduler.num_preemptions, tier=ts,
+            demoted_pages=sum(e[3] for e in demotes),
+            swapped_in_pages=sum(e[3] for e in eng.events
+                                 if e[1] == "swap_in"),
+            tier_bytes=moved, demote_ms=demote_ms, swap_in_ms=swap_ms,
+            demote_ms_median=(float(np.median(demote_ms)) if demote_ms
+                              else None),
+            swap_in_ms_median=(float(np.median(swap_ms)) if swap_ms
+                               else None),
+            kernel_launches=launches,
+            engine_launches=eng.stats["launches"] - steps0,
+            graph_captures_after_warmup=eng._graphs.captures - captures)
+        bad = [r for r in rids if outs[r].finish_reason != "length"
+               or len(outs[r].output_ids) != 64]
+        if (bad or not eng.scheduler.num_preemptions
+                or launches != eng.num_layers * (eng.stats["launches"]
+                                                 - steps0)
+                or eng.block_manager.num_free_blocks != eng.num_blocks
+                or ts["host_pool"]["chains"]
+                or eng._graphs.captures != captures):
+            raise RuntimeError(
+                f"{mode}: requests {bad} short, or preemptions "
+                f"{eng.scheduler.num_preemptions}, B1 launches {launches} "
+                f"for {eng.stats['launches'] - steps0} engine launches, "
+                f"{eng._graphs.captures - captures} captures after "
+                f"warmup(), {eng.block_manager.num_free_blocks} of "
+                f"{eng.num_blocks} pages free, {ts['host_pool']['chains']} "
+                f"chains left")
+        if mode == "always" and not (ts["host_pool"]["demoted_chains"]
+                                     and ts["host_pool"]["swapped_in_chains"]):
+            raise RuntimeError(f"the tier moved no chain: {ts}")
+        del eng
+        torch.cuda.empty_cache()
+    pages = int(round(float(np.mean(chains)))) if chains else 1
+    probe = LLMEngine(model, device=dev, num_blocks=96, **_SERVE_ENGINE)
+    est = TierPolicy(mode="auto", profile="h100").estimate(
+        probe, pages * probe.block_size, pages)
+    say("kv_tier_auto", profile="h100", chain_pages=pages,
+        chain_tokens=pages * probe.block_size, estimate=est,
+        decision=TierPolicy(mode="auto", profile="h100").decide(
+            probe, pages * probe.block_size, pages))
+    return total
+
+
 def decode_profile_phase(eng, dev, window=16, engine="bf16"):
     """Where a decode step's time goes at GPT-124M width: 8 requests
     with 128-token prompts are prefilled, then ``window`` decode steps
@@ -2219,17 +2753,20 @@ def decode_profile_phase(eng, dev, window=16, engine="bf16"):
         **_device_profile(prof, window, wall_ms))
 
 
-def _decode_windows(eng, dev, prompts, window, parts=None):
-    """Prefill ``prompts``, then ``window`` decode steps on the host
-    clock, ``window`` under torch.profiler and, given ``parts``,
-    ``window`` under :func:`_host_split`; the requests are then aborted.
-    Returns (wall ms per step, the profiler, the host split or None,
-    tokens a step in the first window).  Room for 12 tokens a step: a
-    speculative step emits up to 1 + K."""
+def _decode_windows(eng, dev, prompts, window, parts=None, adapters=None):
+    """Prefill ``prompts`` (on the LoRA ``adapters``, given them), then
+    ``window`` decode steps on the host clock, ``window`` under
+    torch.profiler and, given ``parts``, ``window`` under
+    :func:`_host_split`; the requests are then aborted.  Returns (wall ms
+    per step, the profiler, the host split or None, tokens a step in the
+    first window).  Room for 12 tokens a step: a speculative step emits
+    up to 1 + K."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    rids = [eng.add_request(p, max_new_tokens=12 * window) for p in prompts]
+    rids = [eng.add_request(p, max_new_tokens=12 * window,
+                            adapter_id=adapters[i] if adapters else None)
+            for i, p in enumerate(prompts)]
     while eng.scheduler.waiting or not all(
             r.prefill_done for r in eng.scheduler.running):
         eng.step()
@@ -3411,6 +3948,20 @@ def training_phase(dev, warmup=3, steps=10):
     return launches
 
 
+def lora_tier_phases(dev, smi):
+    """The multi-LoRA and KV-tier phases, each main path driven with the
+    counts at 0 -> their summed (B1, B5) launches."""
+    import torch
+
+    b1 = lora_exactness_phase(dev)
+    t1, t5 = tier_exactness_phase(dev)
+    s1, s5 = lora_serving_phase(dev, smi)
+    torch.cuda.empty_cache()
+    k1 = kv_tier_phase(dev, smi)
+    torch.cuda.empty_cache()
+    return b1 + t1 + s1 + k1, t5 + s5
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "paddle_tpu_torch")):
         raise SystemExit("chip_smoke: run from a checkout that holds "
@@ -3422,6 +3973,10 @@ def main():
     dev = torch.device("cuda", 0)
     if sys.argv[1:] == ["ln_bwd_designs"]:
         ln_bwd_designs_phase(dev)
+        return
+    if sys.argv[1:] == ["lora_tier"]:
+        build_phase()
+        lora_tier_phases(dev, smi)
         return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -3458,6 +4013,11 @@ def main():
                                            + speculative_phase(dev, smi))
     torch.cuda.empty_cache()
     launches.update(int8_serving_phase(dev))
+    torch.cuda.empty_cache()
+    # and the multi-LoRA and KV-tier phases' runs, B1's and B5's
+    b1, b5 = lora_tier_phases(dev, smi)
+    launches["paged_ragged_attention"] += b1
+    launches["paged_ragged_attention_quant"] += b5
     torch.cuda.empty_cache()
     # B6's main path is both dense-cache decoders: each is driven with
     # the counts at 0 and read just after; the line sums them

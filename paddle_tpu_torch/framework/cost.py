@@ -1,14 +1,33 @@
-"""The serving engine's memory model: pages + weights -> admissible batch.
+"""The serving engine's memory model and the tier's cost estimate.
 
 Port of the tp=1 part of ``paddle_tpu/framework/cost.py``
-(``parse_bytes``, ``engine_memory_model``, ``derive_max_batch``) and of
-the engine's ``_params_bytes_per_chip``, plus ``measured_host_overhead_s``
-over the engine's lookahead gauge.  The port serves on one card,
-so nothing is sharded: every parameter leaf counts whole, and the
-tensor-parallel, LoRA and host-tier keys of the JAX model are left out.
-The jaxpr cost walker, the census and the roofline profiles stay in the
-tooling slice.
+(``parse_bytes``, ``engine_memory_model`` with its LoRA and host-tier
+keys, ``derive_max_batch``, ``migration_estimate``) and of the engine's
+``_params_bytes_per_chip``, plus ``measured_host_overhead_s`` over the
+engine's lookahead gauge.  The port serves on one card, so nothing is
+sharded: every parameter leaf counts whole.  ``DEVICE_PROFILES`` holds
+the JAX module's ``"cpu"`` profile (so ``TierPolicy`` decides as the JAX
+engine does in the CPU tests) and an ``"h100"`` profile measured on the
+card; no TPU profile is carried over.  The jaxpr cost walker, the census
+and ``StepTimeModel`` stay in the tooling slice.
 """
+
+# Roofline profiles converting byte and FLOP counts to seconds: the dense
+# peak, the device-memory rate and the host<->device link rate (the key
+# keeps the JAX module's name, ``ici_bytes_per_s``, which
+# ``migration_estimate`` reads for its transfer term).
+# "cpu" is the JAX module's profile, unchanged.  "h100": bf16 dense
+# tensor-core peak and HBM3 rate of the H100 SXM (chip_smoke.py's
+# constants); the link is the pinned host->device copy rate of 256 MiB
+# copies that chip_smoke.py's kv_tier phase measures (``kv_tier_link``),
+# read on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (device to
+# host: 39.84443247504561 GB/s in the same run).
+DEVICE_PROFILES = {
+    "cpu": {"flops_per_s": 1.0e11, "hbm_bytes_per_s": 5.0e10,
+            "ici_bytes_per_s": 2.0e10},
+    "h100": {"flops_per_s": 989e12, "hbm_bytes_per_s": 3.35e12,
+             "ici_bytes_per_s": 41.97284178502522e9},
+}
 
 _BYTE_UNITS = {"b": 1, "kb": 1000, "mb": 1000**2, "gb": 1000**3,
                "tb": 1000**4, "kib": 1024, "mib": 1024**2,
@@ -58,12 +77,21 @@ def page_bytes(num_layers, block_size, num_heads, head_dim, itemsize,
     return 2 * num_layers * block_size * num_heads * slot
 
 
-def engine_memory_model(engine, memory_budget=None):
-    """Device-memory model of a live LLMEngine: weight bytes, paged K/V
-    pool bytes, per-page and per-sequence bytes, and — when a budget is
-    declared (here or at construction) — the admissible ``max_batch``
-    the budget supports."""
+def engine_memory_model(engine, memory_budget=None, host_budget=None):
+    """Device-memory model of a live LLMEngine: weight bytes (the LoRA
+    adapter pools among them, also broken out as ``lora_pool_bytes``),
+    paged K/V pool bytes, per-page and per-sequence bytes, and — when a
+    budget is declared (here or at construction) — the admissible
+    ``max_batch`` the budget supports.
+
+    The host-RAM tier (``kv_tier=``) is priced beside device memory: the
+    host pool and prefix store budgets, the payload of one tier page,
+    and — when ``host_budget`` is declared — how many tier pages that
+    host-RAM budget admits."""
     weights = params_bytes(engine.params)
+    lora = sum(w.numel() * w.element_size()
+               for key, w in engine.params.get("blocks", {}).items()
+               if key.startswith("lora."))
     kv_quant = bool(engine._kv_quant)
     page = page_bytes(engine.num_layers, engine.block_size,
                       engine.num_heads, engine.head_dim,
@@ -75,6 +103,7 @@ def engine_memory_model(engine, memory_budget=None):
         "tp": 1,
         "kv_quantized": kv_quant,
         "weights_bytes": int(weights),
+        "lora_pool_bytes": int(lora),
         "page_bytes": int(page),
         "kv_pool_bytes": int(engine.num_blocks * page),
         "seq_bytes": int(seq),
@@ -82,6 +111,16 @@ def engine_memory_model(engine, memory_budget=None):
         "num_blocks": int(engine.num_blocks),
         "memory_budget": budget,
     }
+    tier = getattr(engine, "kv_tier", None)
+    model["host_pool_bytes"] = int(tier.host_bytes) if tier else 0
+    model["prefix_store_bytes"] = int(tier.store_bytes) if tier else 0
+    model["host_page_bytes"] = int(page)
+    model["host_tier_pages"] = (
+        (model["host_pool_bytes"] + model["prefix_store_bytes"]) // page)
+    hb = parse_bytes(host_budget)
+    model["host_budget"] = hb
+    if hb is not None:
+        model["host_budget_pages"] = int(hb // page)
     if budget is not None:
         try:
             model["derived_max_batch"] = derive_max_batch(budget, weights,
@@ -105,6 +144,40 @@ def derive_max_batch(memory_budget, weights_bytes, seq_bytes):
             f"max_model_len sequence ({_fmt_bytes(int(seq_bytes))} of "
             "pages) — raise the budget or shrink max_model_len")
     return int(free // int(seq_bytes))
+
+
+def migration_estimate(engine, num_tokens, num_pages, profile="h100",
+                       link_bytes_per_s=None):
+    """Static move-vs-recompute estimate for one sequence's K/V (the
+    tier policy's decision inputs).
+
+    Moving the sequence costs ``num_pages`` pages of ``page_bytes`` over
+    the host<->device link; recomputing it costs a fresh prefill of
+    ``num_tokens`` tokens through the weights (2 FLOPs per parameter per
+    token, every leaf of the engine's params counted — int8 scales and
+    LoRA pools too, as the JAX tree counts them; attention FLOPs and
+    the GEMMs' real efficiency are left out).  ``profile`` (a
+    DEVICE_PROFILES key) converts both to seconds, ``link_bytes_per_s``
+    overriding the profile's link rate.
+
+    Returns {bytes_moved, migrate_s, recompute_flops, recompute_s,
+    prefer} with ``prefer`` in ("migrate", "recompute")."""
+    prof = DEVICE_PROFILES[profile]
+    model = engine_memory_model(engine)
+    bytes_moved = int(num_pages) * model["page_bytes"]
+    n_params = sum(w.numel() for sub in engine.params.values()
+                   for w in sub.values())
+    flops = 2.0 * n_params * int(num_tokens)
+    link = (float(link_bytes_per_s) if link_bytes_per_s
+            else prof["ici_bytes_per_s"])
+    migrate_s = bytes_moved / link
+    recompute_s = flops / prof["flops_per_s"]
+    return {"bytes_moved": int(bytes_moved),
+            "migrate_s": migrate_s,
+            "recompute_flops": int(flops),
+            "recompute_s": recompute_s,
+            "prefer": ("migrate" if migrate_s <= recompute_s
+                       else "recompute")}
 
 
 def measured_host_overhead_s(engine):

@@ -11,6 +11,9 @@
   ``LLMEngine(speculative=)`` (``spec.py``);
 - ``ServingQuantConfig`` — ``LLMEngine(quantize=)`` (``quant.py``), and
   ``quality.py``, the quality report of an approximate engine;
+- ``LoRAConfig``, ``AdapterManager`` — ``LLMEngine(lora=)`` multi-LoRA
+  serving (``lora.py``); ``kv_tier.py`` holds ``LLMEngine(kv_tier=)``'s
+  host-RAM KV tier;
 - ``apply_logits_pipeline`` and friends — the per-row sampling suite,
   plus host-side stop strings and logprobs;
 - ``structured`` — grammar-constrained decoding through the pipeline's
@@ -54,6 +57,7 @@ from .interleave import (
     interleave_point,
     interleave_wait,
 )
+from .lora import LORA_TARGET_LEAVES, AdapterManager, LoRAConfig
 from .paged_attention import (
     paged_decode_attention,
     paged_decode_attention_plain,
@@ -118,5 +122,6 @@ __all__ = [
     "top_logprobs", "validate_sampling", "PrefillChunk", "RaggedRow",
     "Request", "ScheduledBatch", "Scheduler", "bucket_size",
     "ConstraintState", "DfaTokenGrammar", "Grammar", "grammar_from_spec",
-    "json_array_grammar",
+    "json_array_grammar", "LORA_TARGET_LEAVES", "AdapterManager",
+    "LoRAConfig",
 ]

@@ -69,6 +69,20 @@ runs on the card (:meth:`LLMEngine._stage_next`), between the replay's
 dispatch and the blocking pull; the plan stays on the host until
 :meth:`LLMEngine._claim_staged` validates it and patches in the query
 tokens step N committed.
+
+Multi-LoRA (``lora=``, ``lora.py``) is the JAX engine's: many tenants'
+rank-r adapters share one mixed batch.  The adapter pools are stacked
+block leaves allocated before :meth:`LLMEngine.warmup` and written only
+in place, slot by slot, as the LRU of :class:`~.lora.AdapterManager`
+loads an adapter a step needs; each row's slot rides the step's int32
+operands, so the captured graphs serve every adapter.
+
+The host-RAM KV tier (``kv_tier=``, ``kv_tier.py``) is the JAX engine's
+too: a preempted request's page chain demotes to a bounded host pool and
+swaps back in at re-admission instead of re-prefilling, and full pages
+evicted from the prefix cache promote into a content-addressed host
+store that admission adopts from.  Pages move by eager index ops on the
+in-place pools, on the step's stream, and are synchronous host copies.
 """
 
 import threading
@@ -90,8 +104,16 @@ from ...framework.device import resolve_device
 from ...incubate.nn import _layernorm
 from ...jit.graphs import StepGraphs
 from .block_manager import BlockManager, NoFreeBlocksError
-from .faults import FinishReason, PoolLostError, RetryPolicy, StepWatchdog
+from .faults import (
+    FinishReason,
+    InjectedFault,
+    PoolLostError,
+    RetryPolicy,
+    StepWatchdog,
+)
 from .interleave import interleave_point, interleave_wait, masked
+from .kv_tier import KVTierConfig
+from .lora import AdapterManager, LoRAConfig, init_adapter_pools, lora_key
 from .paged_attention import (
     paged_ragged_attention,
     paged_ragged_attention_quant,
@@ -130,11 +152,6 @@ from .structured import ConstraintState
 _LATER_ENGINE = {
     "tensor_parallel": "the tensor-parallel serving slice",
     "mesh": "the tensor-parallel serving slice",
-    "lora": "the serving-breadth slice (multi-LoRA)",
-    "kv_tier": "the serving-breadth slice (hierarchical KV)",
-}
-_LATER_REQUEST = {
-    "adapter_id": "the serving-breadth slice (multi-LoRA)",
 }
 # one model's paged K/V pools (LLMEngine._alloc_pools): the slot rows
 # with their sink, the page views of them, and the int8 pool's scales
@@ -242,6 +259,13 @@ class LLMEngine:
     :class:`~.spec.SpeculativeConfig`) turns on speculative decoding;
     ``lookahead=True`` plans each next step under the current one's
     device time (see the module docstring).
+
+    ``lora=`` (max_adapters, a dict or a :class:`~.lora.LoRAConfig`)
+    serves LoRA adapters registered with :meth:`add_adapter` to requests
+    that name one (``add_request(adapter_id=)``).  ``kv_tier=`` (bytes,
+    a dict or a :class:`~.kv_tier.KVTierConfig`) adds the host-RAM page
+    tier; :meth:`tier_stats` reads it and :meth:`check_invariants`
+    conserves pages across every tier after each step.
     """
 
     def __init__(self, model, *, block_size=16, num_blocks=None,
@@ -250,7 +274,8 @@ class LLMEngine:
                  memory_budget=None, quantize=None, faults=None,
                  retry=None, max_queue=None, step_timeout_s=None,
                  clock=None, record_step_gauges=False, detokenizer=None,
-                 speculative=None, lookahead=False, device=None, **later):
+                 speculative=None, lookahead=False, lora=None, kv_tier=None,
+                 device=None, **later):
         _reject_later(later, _LATER_ENGINE, "LLMEngine")
         # lifecycle knobs first: a bad config fails at construction
         if max_queue is not None:
@@ -357,6 +382,20 @@ class LLMEngine:
             # int8 storage before the budget math below, so the
             # admissible batch prices 1 byte/param (+ the f32 scales)
             params["blocks"] = quantize_block_weights(params["blocks"])
+        # multi-LoRA: the adapter pools join the block leaves before the
+        # budget math below, so adapter residency is priced into the
+        # admissible batch and the memory model; they are allocated once
+        # here and written in place (the captured graphs read them by
+        # address), and all-zero pools make every slot the base identity
+        # until an adapter is loaded into it
+        self.lora = LoRAConfig.resolve(lora)
+        self._lora_mgr = None
+        if self.lora is not None:
+            self._lora_shapes = {k: tuple(params["blocks"][k].shape)
+                                 for k in self.lora.targets}
+            params["blocks"].update(init_adapter_pools(
+                params["blocks"], self.lora, self.dtype))
+            self._lora_mgr = AdapterManager(self.lora, self._lora_shapes)
         self.params = params
 
         # pages + weights bound max_batch: under a declared budget the
@@ -393,10 +432,31 @@ class LLMEngine:
             self.num_blocks, self.block_size,
             enable_prefix_caching=enable_prefix_caching)
         self.block_manager.fault_hook = self.faults
-        self.scheduler = Scheduler(self.block_manager,
-                                   max_batch=self.max_batch,
-                                   token_budget=self.token_budget,
-                                   drafter=self.drafter)
+        self.scheduler = Scheduler(
+            self.block_manager, max_batch=self.max_batch,
+            token_budget=self.token_budget, drafter=self.drafter,
+            lora_slots=(self.lora.max_adapters - 1
+                        if self.lora is not None else None))
+        # the host-RAM tier (kv_tier.py): preemption demotes chains to a
+        # bounded host pool, re-admission swaps them back in, and full
+        # pages evicted from the prefix cache promote into a host store
+        # admission adopts from; a TierPolicy prices bytes vs FLOPs
+        self.kv_tier = KVTierConfig.resolve(kv_tier)
+        self.host_pool = None
+        self.prefix_store = None
+        self.tier_policy = None
+        # host bytes moved by this step's tier traffic (demote, swap-in,
+        # promote and store adoption)
+        self.last_tier_bytes = 0
+        if self.kv_tier is not None:
+            self.host_pool, self.prefix_store = self.kv_tier.build()
+            self.tier_policy = self.kv_tier.policy
+            if self.host_pool is not None:
+                self.scheduler.demote_hook = self._tier_demote
+                self.scheduler.swap_in_hook = self._tier_swap_in
+            if self.prefix_store is not None:
+                self.scheduler.prefix_fetch_hook = self._tier_prefix_fetch
+                self.block_manager.evict_hook = self._promote_evicted
 
         blocks = self.params["blocks"]
         self._layers = [{k: v[i] for k, v in blocks.items()}
@@ -492,17 +552,28 @@ class LLMEngine:
                     deadline_ms=None, top_k=0, top_p=1.0, min_p=0.0,
                     repetition_penalty=1.0, presence_penalty=0.0,
                     frequency_penalty=0.0, logit_bias=None, logprobs=0,
-                    stop=None, grammar=None, n=1, **later):
+                    stop=None, grammar=None, n=1, adapter_id=None):
         """Queue one request (host work only: safe from any thread an
         :class:`AsyncLLMEngine` serves).  Every parameter is validated
-        before anything is queued.  Past ``max_queue`` waiting requests,
-        or while draining, the request is shed: it finishes at once with
-        ``FinishReason.shed``, delivered by the next :meth:`step`."""
+        before anything is queued, the adapter first, so an unknown one
+        leaves the engine untouched.  Past ``max_queue`` waiting
+        requests, while draining, or past its adapter's
+        ``tenant_quota`` of live requests, the request is shed: it
+        finishes at once with ``FinishReason.shed``, delivered by the
+        next :meth:`step`."""
         interleave_point("add")
-        _reject_later(later, _LATER_REQUEST, "add_request")
         prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
+        if adapter_id is not None:
+            if self.lora is None:
+                raise ValueError(
+                    "adapter_id= needs a LoRA-enabled engine — "
+                    "construct with lora=LoRAConfig(...)")
+            if not self._lora_mgr.known(adapter_id):
+                raise ValueError(
+                    f"unknown adapter {adapter_id!r} — register it "
+                    f"with add_adapter() first")
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
@@ -557,12 +628,17 @@ class LLMEngine:
                       frequency_penalty=float(frequency_penalty),
                       logit_bias=logit_bias, logprobs=int(logprobs),
                       stop=stop, grammar=grammar, n=int(n),
-                      arrival_time=now)
+                      adapter_id=adapter_id, arrival_time=now)
         if grammar is not None:
             req._constraint = ConstraintState(grammar)
-        if self._draining or (self.max_queue is not None
-                              and self.scheduler.queue_depth()
-                              >= self.max_queue):
+        quota = self.lora.tenant_quota if self.lora is not None else None
+        over_quota = (
+            quota is not None and adapter_id is not None
+            and sum(1 for r in self._requests.values()
+                    if r.adapter_id == adapter_id) >= quota)
+        if over_quota or self._draining or (
+                self.max_queue is not None
+                and self.scheduler.queue_depth() >= self.max_queue):
             self.stats["shed"] += 1
             self.events.append((self._step_index, "shed", request_id))
             req.status = FINISHED
@@ -601,6 +677,7 @@ class LLMEngine:
         pages.  The output joins the next step()'s finished list."""
         self._invalidate_plan()
         self._drafter_forget(req.request_id)
+        self._tier_forget(req.request_id)
         req.status = FINISHED
         req.finish_reason = reason
         self._requests.pop(req.request_id, None)
@@ -779,12 +856,16 @@ class LLMEngine:
                 pool[:, cow[1]] = pool[:, cow[0]]
 
     @torch.no_grad()
-    def _ragged_body(self, ints, layers=None, pools=None):
+    def _ragged_body(self, ints, layers=None, pools=None, lora=True):
         """The step body: one ragged step over the packed int32 operands
         ``ints`` on the engine's device -> (argmax [Tb], logits [Tb, V]),
         through the blocks ``layers`` over the pools ``pools`` (see
         :meth:`_alloc_pools`; by default the target's blocks and pools,
-        the draft model passes its own).
+        the draft model passes its own).  On a LoRA engine with ``lora``
+        true the operands end with the rows' adapter slots, and each
+        block GEMM adds its rows' adapter deltas (:meth:`_lora_delta`);
+        the draft model runs without them, as the JAX draft runs on
+        slot 0.
 
         What a CUDA graph captures per bucket and the CPU runs as it is:
         it reads device tensors only, takes every length from shapes (the
@@ -796,13 +877,14 @@ class LLMEngine:
         layers = self._layers if layers is None else layers
         k_rows, v_rows, kc, vc, ks_flat, vs_flat, ks, vs = (
             self._pools if pools is None else pools)
+        lora = lora and self.lora is not None
         rmax, pmax = self.max_batch, self.max_pages
-        tb = (ints.shape[0] - rmax * (3 + pmax)) // 3
+        tb = (ints.shape[0] - rmax * (3 + pmax + lora)) // 3
         ids, positions, rows = ints[:tb], ints[tb:2 * tb], ints[2 * tb:3 * tb]
         desc = ints[3 * tb:]
         row_start, row_qlen, row_pos0 = (desc[:rmax], desc[rmax:2 * rmax],
                                          desc[2 * rmax:3 * rmax])
-        tables = desc[3 * rmax:].view(rmax, pmax)
+        tables = desc[3 * rmax:3 * rmax + rmax * pmax].view(rmax, pmax)
 
         nb, bs, nh, hd = (self.num_blocks, self.block_size, self.num_heads,
                           self.head_dim)
@@ -815,6 +897,16 @@ class LLMEngine:
             live, tables[rows.long(), p_safe // bs].long() * bs + p_safe % bs,
             nb * bs)
         ctx = (p_safe + live).to(torch.int32)
+        targets = self.lora.targets if lora else ()
+        onehot = None
+        if lora:
+            # each token's adapter slot as a one-hot over the pool's
+            # slots (padding tokens on slot 0, the all-zero base slot)
+            adapter_rows = desc[3 * rmax + rmax * pmax:]
+            slots_t = torch.where(live, adapter_rows[rows.long()], 0)
+            onehot = (slots_t[:, None] == torch.arange(
+                self.lora.max_adapters, device=ints.device))[..., None]
+            onehot = onehot.to(self.dtype)
         if self._kv_quant:
             # scale index of (slot, head): page * (Nkv * bs) + head * bs
             # + offset, in the [NB + 1, Nkv, bs] flat scale layout
@@ -822,11 +914,18 @@ class LLMEngine:
                     + torch.arange(nh, device=ints.device)[None, :] * bs
                     + (slots % bs)[:, None])
         wmat = self._wmat
+
+        def delta(y, p_l, key, x_in):
+            if key not in targets:
+                return y
+            return y + self._lora_delta(p_l, key, x_in, onehot)
+
         for i, p_l in enumerate(layers):
             hh = _layernorm(x, p_l["ln_1.weight"], p_l["ln_1.bias"],
                             self.eps)
-            qkv = (hh @ wmat(p_l, "attn.qkv.weight")
-                   + p_l["attn.qkv.bias"]).view(tb, 3, nh, hd)
+            qkv = delta(hh @ wmat(p_l, "attn.qkv.weight")
+                        + p_l["attn.qkv.bias"], p_l, "attn.qkv.weight", hh)
+            qkv = qkv.view(tb, 3, nh, hd)
             q = qkv[:, 0].contiguous()
             if self._kv_quant:
                 # quantize at append, per (token, head) row
@@ -846,24 +945,44 @@ class LLMEngine:
                                              rows, row_start, row_qlen,
                                              row_pos0)
             out = out.to(x.dtype).reshape(tb, nh * hd)
-            x = (x + out @ wmat(p_l, "attn.proj.weight")
+            x = (x + delta(out @ wmat(p_l, "attn.proj.weight"), p_l,
+                           "attn.proj.weight", out)
                  + p_l["attn.proj.bias"])
             h2 = _layernorm(x, p_l["ln_2.weight"], p_l["ln_2.bias"],
                             self.eps)
-            pre = h2 @ wmat(p_l, "mlp.fc_in.weight") + p_l["mlp.fc_in.bias"]
+            pre = delta(h2 @ wmat(p_l, "mlp.fc_in.weight")
+                        + p_l["mlp.fc_in.bias"], p_l, "mlp.fc_in.weight", h2)
             ff = torch.nn.functional.gelu(pre, approximate="tanh")
-            x = (x + ff @ wmat(p_l, "mlp.fc_out.weight")
+            x = (x + delta(ff @ wmat(p_l, "mlp.fc_out.weight"), p_l,
+                           "mlp.fc_out.weight", ff)
                  + p_l["mlp.fc_out.bias"])
         x = _layernorm(x, self.params["head"]["weight"],
                        self.params["head"]["bias"], self.eps)
         logits = x @ emb["word_embeddings.weight"].T
         return logits.argmax(-1), logits
 
+    @staticmethod
+    def _lora_delta(p_l, key, x, onehot):
+        """Batched per-token adapter delta of one target GEMM: each
+        token's ``(x @ A_s) @ B_s`` for its row's slot s, with the
+        alpha/rank scale folded into the stored B — the JAX engine's
+        ``lora_delta`` in another form: ``x`` against every slot's A
+        half at once ([Tb, A, r]), zeroed outside each token's slot by
+        ``onehot`` [Tb, A, 1], then one GEMM against the pool's B
+        halves flattened to [A * r, out].  The zeroed slots add exact
+        zeros, and no [Tb, in, r] gather of A or B is made.  Slot 0 is
+        all-zero, so base rows add exact float zeros."""
+        a = p_l[lora_key(key, "A")]               # [A, in, r]
+        b = p_l[lora_key(key, "B")]               # [A, r, out]
+        h = torch.einsum("ti,air->tar", x, a) * onehot
+        return h.reshape(x.shape[0], -1) @ b.reshape(-1, b.shape[-1])
+
     def _draft_body(self, ints):
         """The draft model's step body: :meth:`_ragged_body` over the
-        target's first ``draft_layers`` blocks and the draft pools."""
+        target's first ``draft_layers`` blocks and the draft pools,
+        without adapters."""
         return self._ragged_body(ints, self._draft_layers,
-                                 self._draft_pools)
+                                 self._draft_pools, lora=False)
 
     def _draft_run(self, pk):
         """Run one packed draft step -> (argmax [Tb], logits [Tb, V]) on
@@ -902,9 +1021,11 @@ class LLMEngine:
         target's runs, captures included; the draft's capture times are
         the draft StepGraphs' ``capture_ms``."""
         timings = {}
+        dead = (None if self.lora is None
+                else np.zeros(self.max_batch, np.int32))
         for kind, tb in sorted(self._bucket_grid(), key=lambda b: -b[1]):
             t0 = time.perf_counter()
-            self._ragged_fn(self._pack_rows([], tb))
+            self._ragged_fn(self._pack_rows([], tb, adapter_rows=dead))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             timings[f"{kind}[{tb}]"] = (time.perf_counter() - t0) * 1e3
@@ -935,6 +1056,7 @@ class LLMEngine:
     def _step_impl(self):
         interleave_point("step")
         self._step_index += 1
+        self.last_tier_bytes = 0
         if self.faults is not None:
             self.faults.begin_step(self._step_index)
         finished = self._drain_early()
@@ -966,6 +1088,10 @@ class LLMEngine:
                 return finished
             self.stats["steps"] += 1
             self._ragged_step(batch, finished, t0)
+        if self.kv_tier is not None:
+            # zero page leaks across the tiers is the tier's contract:
+            # HBM, host pool and prefix store books balance every step
+            self.check_invariants()
         finished.extend(self._drain_early())
         self._record_step_gauges()
         return finished
@@ -1090,22 +1216,27 @@ class LLMEngine:
             self._finish_early(req, FinishReason.ERROR, error=msg)
 
     # ------------------------------------------------------------ packing --
-    def _pack_rows(self, entries, tb, cows=()):
+    def _pack_rows(self, entries, tb, cows=(), adapter_rows=None):
         """Pack ``(tokens, pos0, block_table)`` rows into one int32 host
         buffer: ids, positions, token->row map (``tb`` each), then
         row_start, row_qlen, row_pos0 (``max_batch`` each), then the
-        ``[max_batch, max_pages]`` block tables — one host-to-device
-        copy per step.  Unused tokens carry position -1, unused rows
-        qlen 0."""
+        ``[max_batch, max_pages]`` block tables, then, for a LoRA
+        target step, ``adapter_rows`` (each row's adapter slot,
+        ``max_batch``) — one host-to-device copy per step.  Unused
+        tokens carry position -1, unused rows qlen 0."""
         rmax, pmax = self.max_batch, self.max_pages
-        buf = np.zeros(3 * tb + 3 * rmax + rmax * pmax, np.int32)
+        extra = 0 if adapter_rows is None else rmax
+        buf = np.zeros(3 * tb + 3 * rmax + rmax * pmax + extra, np.int32)
         ids, positions, tok_rows = (buf[:tb], buf[tb:2 * tb],
                                     buf[2 * tb:3 * tb])
         d = 3 * tb
         row_start, row_qlen, row_pos0 = (buf[d:d + rmax],
                                          buf[d + rmax:d + 2 * rmax],
                                          buf[d + 2 * rmax:d + 3 * rmax])
-        tables = buf[d + 3 * rmax:].reshape(rmax, pmax)
+        tables = buf[d + 3 * rmax:d + 3 * rmax + rmax * pmax].reshape(rmax,
+                                                                      pmax)
+        if adapter_rows is not None:
+            buf[d + 3 * rmax + rmax * pmax:] = adapter_rows
         positions[:] = -1
         starts, s = [], 0
         for ri, (toks, pos0, bt) in enumerate(entries):
@@ -1147,7 +1278,18 @@ class LLMEngine:
                 toks = [req.all_ids[-1]] + list(req.draft_tokens)
             entries.append((toks, row.start, self.block_manager.block_table(
                 req.request_id if row.table_id is None else row.table_id)))
-        pk = self._pack_rows(entries, tb, cows)
+        # LoRA residency: each row's adapter in a resident pool slot
+        # (loading, and evicting by LRU, as needed), with the adapters
+        # this step indexes pinned; the scheduler's distinct-adapter
+        # admission gate guarantees they fit
+        adapter_rows = None
+        if self.lora is not None:
+            adapter_rows = np.zeros(self.max_batch, np.int32)
+            pinned = {row.request.adapter_id for row in rows
+                      if row.request.adapter_id is not None}
+            for ri, row in enumerate(rows):
+                adapter_rows[ri] = self._lora_slot(row.request, pinned)
+        pk = self._pack_rows(entries, tb, cows, adapter_rows)
         pipe_rows = [(ri, row) for ri, row in enumerate(rows)
                      if row.request.uses_pipeline]
         if pipe_rows:
@@ -1323,7 +1465,8 @@ class LLMEngine:
         if not bm.enable_prefix_caching:
             return
         hashes = bm.prefix_chain_hashes(
-            req.all_ids, limit=req.num_cached // self.block_size)
+            req.all_ids, limit=req.num_cached // self.block_size,
+            salt=req.adapter_id)
         for i, h in enumerate(hashes):
             bm.register_full_block(req.request_id, i, h)
 
@@ -1380,6 +1523,7 @@ class LLMEngine:
                 logit_bias=req.logit_bias, logprobs=req.logprobs,
                 stop=req.stop, grammar=req.grammar,
                 n=1, parent_id=req.request_id, fork_index=k,
+                adapter_id=req.adapter_id,
                 arrival_time=req.arrival_time,
                 num_cached=req.num_cached,
                 num_prefill_tokens=req.num_prefill_tokens,
@@ -1557,6 +1701,328 @@ class LLMEngine:
             if self._draft_bm is not None \
                     and self._draft_bm.has_seq(request_id):
                 self._draft_bm.free(request_id)
+
+    # ---------------------------------------------------------- multi-LoRA --
+    def add_adapter(self, adapter_id, weights):
+        """Register one tenant adapter: ``weights`` maps each configured
+        target leaf to ``(A [L, in, r], B [L, r, out])``.  Host-only —
+        the device pool slot is written the first time a step batches
+        the adapter."""
+        if self.lora is None:
+            raise ValueError(
+                "add_adapter() needs a LoRA-enabled engine — "
+                "construct with lora=LoRAConfig(...)")
+        self._lora_mgr.register(adapter_id, weights)
+        self.events.append((self._step_index, "adapter_register",
+                            adapter_id))
+
+    def lora_stats(self):
+        """Host-side adapter residency counters: loads, evictions and
+        hits plus the registered, resident and slot gauges."""
+        if self.lora is None:
+            raise ValueError("lora_stats() needs a LoRA-enabled engine")
+        return self._lora_mgr.lora_stats()
+
+    def _lora_slot(self, req, pinned):
+        """Resident pool slot for one row's adapter, loading it into a
+        (possibly LRU-evicted) slot first when absent."""
+        slot, weights = self._lora_mgr.acquire(req.adapter_id,
+                                               pinned=pinned)
+        if weights is not None:
+            self._load_adapter_slot(slot, weights)
+            self.events.append((self._step_index, "adapter_load",
+                                req.adapter_id, slot))
+        return slot
+
+    def _load_adapter_slot(self, slot, weights):
+        """Write one adapter's host halves into pool slot ``slot`` of
+        every layer, in place: ``copy_`` into the existing pool tensors
+        on the engine's stream, so the write lands after every step
+        already queued (one that still reads the evicted adapter) and
+        before the next.  A pool tensor is never replaced: the captured
+        graphs read it by address.  The write is idempotent — the
+        manager's books say what the slot holds."""
+        interleave_point("adapter-load")
+        blocks = self.params["blocks"]
+        for key, (a_h, b_h) in weights.items():
+            for side, val in (("A", a_h), ("B", b_h)):
+                pool = blocks[lora_key(key, side)]
+                pool[:, slot].copy_(torch.from_numpy(val).to(pool.dtype))
+
+    # --------------------------------------------------------- page moves --
+    def _gather_pool(self, pool, block_ids):
+        """Page rows ``[:, block_ids]`` of one pool as a host numpy array
+        in ``block_ids`` order: an index select on the device, then a
+        synchronous copy of just those rows (queued after the step in
+        flight, complete before the payload is stored).  bfloat16 pages
+        travel as their int16 bit patterns (numpy has no bfloat16)."""
+        idx = torch.as_tensor(np.asarray(block_ids, np.int64),
+                              device=pool.device)
+        sel = pool[:, idx].cpu()
+        if sel.dtype == torch.bfloat16:
+            sel = sel.view(torch.int16)
+        return sel.numpy()
+
+    def _scatter_pool(self, pool, block_ids, pages):
+        """Write host page rows ``pages`` (as :meth:`_gather_pool` made
+        them) into ``pool[:, block_ids]`` in place, on the step's
+        stream."""
+        vals = torch.from_numpy(np.ascontiguousarray(pages))
+        if pool.dtype == torch.bfloat16:
+            vals = vals.view(torch.bfloat16)
+        if vals.dtype != pool.dtype:
+            raise ValueError(f"page payload {vals.dtype} does not match "
+                             f"the pool's {pool.dtype}")
+        idx = torch.as_tensor(np.asarray(block_ids, np.int64),
+                              device=pool.device)
+        pool[:, idx] = vals.to(pool.device)
+
+    def _gather_pages(self, block_ids):
+        """Host-staged page gather -> (k_pages, v_pages), each [L, n, bs,
+        Nh, D] numpy in ``block_ids`` order, the JAX engine's layout.
+        Nothing compiles, so the JAX engine's power-of-two padding of
+        the page count is left out."""
+        return (self._gather_pool(self._kc, block_ids),
+                self._gather_pool(self._vc, block_ids))
+
+    def _gather_scale_pages(self, block_ids):
+        """Scale-pool counterpart of :meth:`_gather_pages` for the int8
+        pool: [L, n, Nh, bs] f32 numpy in ``block_ids`` order."""
+        return (self._gather_pool(self._ks, block_ids),
+                self._gather_pool(self._vs, block_ids))
+
+    def _scatter_pages(self, block_ids, k_pages, v_pages):
+        """Host-staged page scatter: the payload's pages into the pool
+        rows ``block_ids``, in place (unpadded, as the gather)."""
+        self._scatter_pool(self._kc, block_ids, k_pages)
+        self._scatter_pool(self._vc, block_ids, v_pages)
+
+    def _scatter_scale_pages(self, block_ids, k_scales, v_scales):
+        """Scale-pool counterpart of :meth:`_scatter_pages`."""
+        self._scatter_pool(self._ks, block_ids, k_scales)
+        self._scatter_pool(self._vs, block_ids, v_scales)
+
+    # ---------------------------------------------------- hierarchical KV --
+    def _tier_demote(self, victim):
+        """Scheduler preempt hook: stage the victim's page chain into the
+        host pool before its pages are freed, so re-admission swaps it
+        back in instead of re-prefilling.  Gated three ways — the chain
+        must be fully committed, the TierPolicy must price the swap
+        under the replay, and the chain must fit the pool budget.  A
+        demote-site fault stores nothing (both tiers as before), and the
+        preemption falls back to plain recompute.  Never raises."""
+        rid = victim.request_id
+        pool, bm = self.host_pool, self.block_manager
+        if not victim.prefill_done or victim.num_cached <= 0 or \
+                bm.num_tokens(rid) != victim.num_cached:
+            return
+        seq = bm.export_seq(rid)
+        npages = len(seq["block_ids"])
+        nbytes = npages * self.page_bytes
+        if rid in pool or not pool.fits(nbytes):
+            return
+        if self.tier_policy.decide(self, victim.num_cached,
+                                   npages) != "swap":
+            return
+        try:
+            if self.faults is not None:
+                self.faults.tier_fault("demote")
+            k, v = self._gather_pages(seq["block_ids"])
+        except InjectedFault:
+            return
+        entry = {"seq": seq, "k_pages": k, "v_pages": v,
+                 "k_scales": None, "v_scales": None}
+        if self._kv_quant:
+            ks, vs = self._gather_scale_pages(seq["block_ids"])
+            entry["k_scales"], entry["v_scales"] = ks, vs
+        for old in pool.put(rid, entry):
+            # chains LRU-evicted to make room lose their swap-in, but
+            # their full pages still promote into the prefix store
+            self._promote_chain(old)
+        self.last_tier_bytes += nbytes
+        self.events.append((self._step_index, "demote", rid, npages))
+
+    def _tier_swap_in(self, req, margin):
+        """Scheduler admission hook: swap a demoted chain back in.
+        Returns None when the request has no demoted chain (normal
+        admission follows), "retry" when it has one that cannot land
+        this step (capacity, or an injected promote fault — the chain
+        stays demoted), or the swapped-in token count.
+
+        Pages still in the prefix cache are adopted instead of
+        re-scattered, so only the evicted suffix moves.  The scatter
+        writes only pages allocated here, after the ``promote`` fault
+        site, and registration comes strictly after it, so a fault
+        never exposes a garbage page through the prefix cache."""
+        pool, bm = self.host_pool, self.block_manager
+        rid = req.request_id
+        entry = pool.get(rid)
+        if entry is None:
+            return None
+        seq = entry["seq"]
+        n = len(req.all_ids)
+        cached = int(seq["num_tokens"])
+        if not 0 < cached < n:
+            # a stale chain (the forget paths should have dropped it):
+            # recompute from scratch
+            self._promote_chain(pool.pop(rid))
+            return None
+        hashes = bm.prefix_chain_hashes(
+            req.all_ids, limit=(n - 1) // bm.block_size,
+            salt=req.adapter_id)
+        k = bm.match_prefix(hashes)
+        if not bm.can_allocate(n, margin=margin,
+                               cached_hashes=hashes[:k]):
+            return "retry"
+        try:
+            table = bm.allocate(rid, n, cached_hashes=hashes[:k])
+        except NoFreeBlocksError:
+            return "retry"
+        npay = len(seq["block_ids"])
+        moved = max(0, npay - k)
+        try:
+            if self.faults is not None:
+                self.faults.tier_fault("promote")
+            if moved:
+                self._scatter_pages(table[k:npay],
+                                    entry["k_pages"][:, k:npay],
+                                    entry["v_pages"][:, k:npay])
+                if self._kv_quant:
+                    self._scatter_scale_pages(
+                        table[k:npay], entry["k_scales"][:, k:npay],
+                        entry["v_scales"][:, k:npay])
+            bm.register_imported(rid, seq["hashes"])
+        except BaseException:
+            # exact reclamation: every page allocated above goes back
+            # (adopted pages re-park with their contents untouched), and
+            # the chain stays demoted for the next attempt
+            bm.free(rid)
+            return "retry"
+        pool.pop(rid, swapped=True)
+        req.num_cached = cached
+        self.last_tier_bytes += moved * self.page_bytes
+        self.events.append((self._step_index, "swap_in", rid, moved))
+        return cached
+
+    def _tier_prefix_fetch(self, req, hashes, k):
+        """Scheduler admission hook: after a normal admission adopted
+        ``k`` cached pages, fetch the longest store-resident run of the
+        remaining hashes into the allocated table and return its page
+        count (the caller extends ``num_cached``).  Policy-gated like a
+        demote; a fault (or any failure) mid-fetch returns 0 with the
+        fetched pages left unregistered, so prefill recomputes them."""
+        store, bm = self.prefix_store, self.block_manager
+        run = store.match(hashes[k:])
+        if not run:
+            return 0
+        if self.tier_policy.decide(self, run * bm.block_size,
+                                   run) != "swap":
+            return 0
+        rid = req.request_id
+        table = bm.block_table(rid)
+        entries = [store.get(h) for h in hashes[k:k + run]]
+        try:
+            if self.faults is not None:
+                self.faults.tier_fault("promote")
+            kp = np.concatenate([e["k_pages"] for e in entries], axis=1)
+            vp = np.concatenate([e["v_pages"] for e in entries], axis=1)
+            self._scatter_pages(table[k:k + run], kp, vp)
+            if self._kv_quant:
+                ks = np.concatenate([e["k_scales"] for e in entries],
+                                    axis=1)
+                vs = np.concatenate([e["v_scales"] for e in entries],
+                                    axis=1)
+                self._scatter_scale_pages(table[k:k + run], ks, vs)
+            for i, h in enumerate(hashes[k:k + run]):
+                bm.register_full_block(rid, k + i, h)
+        except BaseException:
+            return 0
+        self.last_tier_bytes += sum(
+            e["k_pages"].nbytes + e["v_pages"].nbytes for e in entries)
+        self.events.append((self._step_index, "store_adopt", rid, run))
+        return run
+
+    def _promote_evicted(self, blk, block_hash):
+        """BlockManager evict hook: a full page is leaving the prefix
+        cache — promote its contents into the host store before the
+        block is reused (no-op when its hash is already stored).  The
+        pools are written in place, never donated, so unlike the JAX
+        engine's hook there is no in-flight state to skip: the gather
+        queues behind the step in flight (under lookahead, an eviction
+        in ``_stage_next``), which never writes a free page."""
+        store = self.prefix_store
+        if block_hash in store:
+            return
+        k, v = self._gather_pages([blk])
+        entry = {"seq": {"block_ids": [blk]}, "k_pages": k, "v_pages": v,
+                 "k_scales": None, "v_scales": None}
+        if self._kv_quant:
+            ks, vs = self._gather_scale_pages([blk])
+            entry["k_scales"], entry["v_scales"] = ks, vs
+        store.put(block_hash, entry)
+        self.last_tier_bytes += self.page_bytes
+        self.events.append((self._step_index, "promote", 1))
+
+    def _promote_chain(self, entry):
+        """Promote every registered full page of one demoted chain into
+        the prefix store (chain eviction or request exit: the swap-in
+        is lost, the prefill work its full pages hold need not be)."""
+        store = self.prefix_store
+        if store is None or entry is None:
+            return
+        seq = entry["seq"]
+        promoted = 0
+        for i, h in enumerate(seq.get("hashes", ())):
+            if h is None or h in store:
+                continue
+            page = {"seq": {"block_ids": [seq["block_ids"][i]]},
+                    "k_pages": entry["k_pages"][:, i:i + 1],
+                    "v_pages": entry["v_pages"][:, i:i + 1],
+                    "k_scales": None, "v_scales": None}
+            if entry.get("k_scales") is not None:
+                page["k_scales"] = entry["k_scales"][:, i:i + 1]
+                page["v_scales"] = entry["v_scales"][:, i:i + 1]
+            store.put(h, page)
+            promoted += 1
+        if promoted:
+            self.last_tier_bytes += promoted * self.page_bytes
+            self.events.append((self._step_index, "promote", promoted))
+
+    def _tier_forget(self, request_id):
+        """Drop a request's demoted chain (abort, deadline, quarantine):
+        its swap-in can never happen, but its full pages still promote
+        into the prefix store."""
+        if self.host_pool is not None:
+            self._promote_chain(self.host_pool.pop(request_id))
+
+    def check_invariants(self):
+        """Page conservation across every tier: the scheduler's and the
+        BlockManager's books, the host pool's and the prefix store's,
+        and the cross-tier exclusion that a demoted chain's request owns
+        no device pages.  Run after every step when a tier is set."""
+        self.scheduler.check_invariants()
+        if self.host_pool is not None:
+            self.host_pool.check_invariants()
+            for rid in self.host_pool._chains:
+                if self.block_manager.has_seq(rid):
+                    raise RuntimeError(
+                        f"request {rid} owns HBM pages AND a demoted "
+                        f"host-tier chain")
+        if self.prefix_store is not None:
+            self.prefix_store.check_invariants()
+
+    def tier_stats(self):
+        """Host-tier counters: each tier's residency and traffic plus the
+        scheduler's swapped-in token total."""
+        if self.kv_tier is None:
+            raise ValueError("tier_stats() needs a kv_tier= engine")
+        return {
+            "swapped_in_tokens": self.scheduler.swapped_in_tokens,
+            "host_pool": (self.host_pool.stats()
+                          if self.host_pool is not None else None),
+            "prefix_store": (self.prefix_store.stats()
+                             if self.prefix_store is not None else None),
+        }
 
     # --------------------------------------------------- async lookahead --
     def _stage_next(self, rows):
@@ -1850,14 +2316,13 @@ class LLMEngine:
                  top_p=1.0, min_p=0.0, repetition_penalty=1.0,
                  presence_penalty=0.0, frequency_penalty=0.0,
                  logit_bias=None, logprobs=0, stop=None, grammar=None, n=1,
-                 **later):
+                 adapter_id=None):
         """Batch convenience: returns one [T+new] int64 array per prompt
         (request order preserved) — or, for ``n > 1``, one list of n
         arrays per prompt (parent first, then forks 1..n-1).  ``seed``
         gives every request of this call its own deterministic sampling
         stream; every other knob applies to each request of the call.
         Shared knobs are validated before any request is queued."""
-        _reject_later(later, _LATER_REQUEST, "generate")
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
@@ -1882,7 +2347,8 @@ class LLMEngine:
                                   frequency_penalty=frequency_penalty,
                                   logit_bias=logit_bias,
                                   logprobs=logprobs, stop=stop,
-                                  grammar=grammar, n=n)
+                                  grammar=grammar, n=n,
+                                  adapter_id=adapter_id)
                  for p in prompts]
         outs = {}
         while self.has_unfinished():

@@ -19,8 +19,10 @@ Request fields (unknown fields are a 400, so client typos fail loudly):
 ``presence_penalty``, ``frequency_penalty``, ``logit_bias``
 ({token_id: bias}), ``logprobs`` (top-N per token), ``stop`` (string or
 list), ``grammar`` (a :func:`~.structured.grammar_from_spec` spec
-dict), ``n``, ``adapter`` (a LoRA adapter id: this engine serves no
-adapters, so any adapter is a 400 before admission), ``stream`` (bool).
+dict), ``n``, ``adapter`` (a LoRA adapter id registered with the
+engine's ``add_adapter``, passed to ``add_request`` as ``adapter_id``;
+an unknown adapter, or any adapter on an engine without ``lora=``, is a
+400 before admission, so the engine is left empty), ``stream`` (bool).
 
 Non-streaming responses carry ``completions`` — a list of ``n``
 ``{"index", "request_id", "output_ids", "finish_reason",
@@ -118,13 +120,13 @@ class _Handler(BaseHTTPRequestHandler):
             if spec is not None:
                 body["grammar"] = grammar_from_spec(
                     spec, vocab_size=app.vocab_size)
-            # no adapter can be registered on this engine: any adapter
-            # is unknown, a 400 with the engine left empty
+            # the wire name is "adapter"; the engine kwarg adapter_id.
+            # An unknown adapter raises inside add_request before any
+            # state lands, so the except below turns it into a 400
+            # with the engine left empty
             adapter = body.pop("adapter", None)
             if adapter is not None:
-                raise ValueError(
-                    f"unknown adapter {adapter!r}: this engine serves no "
-                    f"LoRA adapters")
+                body["adapter_id"] = adapter
             prompt_ids = body.pop("prompt_ids")
             rid = app.submit(prompt_ids, **body)
         except (ValueError, TypeError, json.JSONDecodeError) as e:

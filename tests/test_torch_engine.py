@@ -27,9 +27,11 @@ import paddle_tpu.inference.llm.block_manager as jax_bm
 import paddle_tpu.inference.llm.events as jax_events
 import paddle_tpu.inference.llm.faults as jax_faults
 import paddle_tpu.inference.llm.interleave as jax_interleave
+import paddle_tpu.inference.llm.kv_tier as jax_kv_tier
 import paddle_tpu.inference.llm.scheduler as jax_sched
 import paddle_tpu.inference.llm.spec as jax_spec
 import paddle_tpu.inference.llm.structured as jax_structured
+import paddle_tpu.sim.workloads as jax_workloads
 from paddle_tpu.inference.llm import LLMEngine as JaxEngine
 from paddle_tpu.inference.llm.sampling import (
     apply_logits_pipeline as jax_pipeline,
@@ -51,9 +53,11 @@ import paddle_tpu_torch.inference.llm.block_manager as port_bm
 import paddle_tpu_torch.inference.llm.events as port_events
 import paddle_tpu_torch.inference.llm.faults as port_faults
 import paddle_tpu_torch.inference.llm.interleave as port_interleave
+import paddle_tpu_torch.inference.llm.kv_tier as port_kv_tier
 import paddle_tpu_torch.inference.llm.scheduler as port_sched
 import paddle_tpu_torch.inference.llm.spec as port_spec
 import paddle_tpu_torch.inference.llm.structured as port_structured
+import paddle_tpu_torch.sim.workloads as port_workloads
 from paddle_tpu_torch.models.gpt import gpt_tiny
 
 ENGINE = dict(block_size=8, max_batch=4, token_budget=16)
@@ -264,16 +268,15 @@ def test_logits_pipeline_matches_jax(case):
         np.testing.assert_array_equal(got, logits)
 
 
-LATER_ENGINE_KWARGS = {
-    "tensor_parallel": 2, "mesh": object(), "lora": 4,
-    "kv_tier": 1 << 20,
-}
+LATER_ENGINE_KWARGS = {"tensor_parallel": 2, "mesh": object()}
 # keywords that were later work and are ported now (int8 serving, the
-# memory model, the request lifecycle and the request surface;
-# speculation and lookahead have files of their own,
-# test_torch_spec.py, test_torch_draft_model.py and
-# test_torch_lookahead.py): accepted, and their engines serve
+# memory model, the request lifecycle, the request surface, multi-LoRA
+# and the host-RAM KV tier; speculation, lookahead, LoRA and the tier
+# have files of their own, test_torch_spec.py,
+# test_torch_draft_model.py, test_torch_lookahead.py, test_torch_lora.py
+# and test_torch_kv_tier.py): accepted, and their engines serve
 PORTED_ENGINE_KWARGS = {
+    "lora": 4, "kv_tier": 1 << 20,
     "quantize": "int8", "memory_budget": "16GiB",
     "faults": lambda: FaultInjector(
         [Fault("step", "transient", step=1, count=1)]),
@@ -281,8 +284,8 @@ PORTED_ENGINE_KWARGS = {
     "max_queue": 4, "record_step_gauges": True,
     "detokenizer": lambda: _detok,
 }
-LATER_REQUEST_KWARGS = {"adapter_id": "t1"}
 PORTED_REQUEST_KWARGS = {
+    "adapter_id": dict(adapter_id="t1"),
     "grammar": dict(grammar=json_array_grammar(
         128, open_id=10, close_id=11, comma_id=12, item_ids=(20, 21),
         eos_id=1, max_items=2), eos_token_id=1),
@@ -323,20 +326,16 @@ def test_ported_engine_keywords_accepted(models, key):
     assert eng.block_manager.num_free_blocks == eng.num_blocks
 
 
-@pytest.mark.parametrize("key", list(LATER_REQUEST_KWARGS))
-def test_unported_request_keywords_raise(models, key):
-    eng = _port_engine(models)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        eng.add_request([1, 2, 3], **{key: LATER_REQUEST_KWARGS[key]})
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        eng.generate([[1, 2, 3]], **{key: LATER_REQUEST_KWARGS[key]})
-    assert not eng.has_unfinished()
-
-
 @pytest.mark.parametrize("key", list(PORTED_REQUEST_KWARGS))
 def test_ported_request_keywords_accepted(models, key):
     eng = LLMEngine(models[1], device="cpu", seed=SEED, detokenizer=_detok,
-                    **ENGINE)
+                    lora=2 if key == "adapter_id" else None, **ENGINE)
+    if key == "adapter_id":
+        rng = np.random.RandomState(SEED)
+        eng.add_adapter("t1", {
+            k: (rng.randn(L, d_in, 8).astype(np.float32),
+                rng.randn(L, 8, d_out).astype(np.float32))
+            for k, (L, d_in, d_out) in eng._lora_shapes.items()})
     out = eng.generate(_prompts()[:2], max_new_tokens=3,
                        **PORTED_REQUEST_KWARGS[key])
     assert len(out) == 2
@@ -387,7 +386,8 @@ def test_default_device_needs_cuda(models, monkeypatch):
     (jax_bm, port_bm), (jax_sched, port_sched),
     (jax_faults, port_faults), (jax_events, port_events),
     (jax_interleave, port_interleave), (jax_structured, port_structured),
-    (jax_spec, port_spec)])
+    (jax_spec, port_spec), (jax_kv_tier, port_kv_tier),
+    (jax_workloads, port_workloads)])
 def test_host_modules_are_verbatim_copies(jax_mod, port_mod):
     assert inspect.getsource(port_mod) == inspect.getsource(jax_mod)
 

@@ -199,6 +199,40 @@ def test_ngram_spec_token_exact(models):
     assert eng.spec_stats()["accepted_tokens"] > 0
 
 
+def _gen_lora(models, lookahead, port=True):
+    """``TestLookahead::_gen_lora``: one adapter on every odd request,
+    weights from seed 11, after ``warmup()``."""
+    eng = _build(models, lookahead, port,
+                 lora=dict(rank=4, max_adapters=4))
+    rng = np.random.RandomState(11)
+    w = {}
+    for key in eng.lora.targets:
+        L, d_in, d_out = eng._lora_shapes[key]
+        w[key] = (
+            np.asarray(rng.randn(L, d_in, eng.lora.rank) * 0.05,
+                       np.float32),
+            np.asarray(rng.randn(L, eng.lora.rank, d_out) * 0.05,
+                       np.float32))
+    eng.add_adapter("t1", w)
+    eng.warmup()
+    for i, p in enumerate(_prompts()):
+        eng.add_request(p, max_new_tokens=20,
+                        adapter_id="t1" if i % 2 else None)
+    outs = {}
+    while eng.has_unfinished():
+        for r in eng.step():
+            outs[r.request_id] = [int(t) for t in r.output_ids]
+    return outs, eng
+
+
+def test_lora_token_exact(models):
+    la, eng = _gen_lora(models, True)
+    base, _ = _gen_lora(models, False)
+    assert la == base == _gen_lora(models, False, port=False)[0]
+    assert eng.lifecycle_stats()["staged_hits"] > 0
+    assert eng.block_manager.num_free_blocks == eng.num_blocks
+
+
 def test_no_staging_with_faults_or_a_model_drafter(models):
     fi = FaultInjector([Fault("step", "transient", step=1, count=1)])
     _, eng = _gen(models, True, faults=fi, retry=3)

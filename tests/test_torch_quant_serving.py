@@ -323,10 +323,18 @@ def test_cow_copies_cover_the_scale_pools(models):
 
 
 # ------------------------------------------------------- memory model --
+# engines beside the quantization modes: multi-LoRA adapter pools (in
+# the weights) and the host-RAM KV tier (its keys of the model)
+EXTRA = {"lora": dict(lora=dict(rank=4, max_adapters=3)),
+         "int8_lora": dict(lora=dict(rank=4, max_adapters=3)),
+         "kv_tier": dict(kv_tier="1MiB")}
+
+
 @pytest.mark.parametrize("mode", ["int8", "weights_only", "kv_only",
-                                  "none"])
+                                  "none", "lora", "int8_lora", "kv_tier"])
 def test_memory_model_matches_jax(models, mode):
-    je, pe = _engines(models, MODES.get(mode))
+    je, pe = _engines(models, MODES.get(mode.removesuffix("_lora")),
+                      **EXTRA.get(mode, {}))
     want, got = je.memory_model(), pe.memory_model()
     assert set(got) <= set(want)
     assert {k: want[k] for k in got} == got
