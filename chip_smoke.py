@@ -7,6 +7,8 @@ one NVIDIA GPU.
                                            # sizes against alternatives
     python3 chip_smoke.py lora_tier        # only the multi-LoRA and KV-tier
                                            # phases (no contract line)
+    python3 chip_smoke.py fleet            # only the fleet and simulator
+                                           # phases (no contract line)
 
 Run from the root of a checkout on a machine with a CUDA GPU and the
 CUDA toolkit.  Phases, each printing its own lines; any failure raises
@@ -127,6 +129,30 @@ and the script exits non-zero:
               tokens/s, chains moved, bytes, ms a demote and a swap-in,
               no page or chain left; ``"auto"``'s choice under the
               ``"h100"`` profile);
+   the fleet and the simulator — ``fleet_exactness`` (two replicas of
+              the exactness model on the card, each scenario bitwise
+              against one engine, every replica captured as the fleet
+              builds it and nothing after: a kill and failover, a
+              drain migrating running chains in f32 and int8,
+              ``disaggregate=True`` with prefix caching and n-gram
+              speculation, ``parallel_step``
+              under a seeded kill schedule with the serial run's event
+              log); ``fleet`` (two GPT-124M bf16 replicas at the serving
+              settings: device bytes a replica against pools + graph
+              pool (+ weights unless shared), capture ms, the burst
+              through the router against one engine with first
+              divergences and their top-2 gaps, a drain's handoffs beside
+              ``migration_estimate`` and ``"auto"``'s choice, a kill and
+              restart giving the dead replica's memory back,
+              ``parallel_step`` with the serial fleet's events);
+              ``fleet_int8`` (the same with int8 pools and scales, B5);
+              ``fleet_front_end`` (``HttpLLMServer(fleet=...)``, the
+              front end's burst at once); ``fleet_disagg`` (the burst
+              disaggregated: handoffs, ms each, TTFT against unified);
+              ``sim`` (``calibrate`` with the real leg on the card,
+              decision- and token-exact; the ``"h100"`` StepTimeModel
+              against replayed steps; a pure 8-replica simulation's
+              wall time);
 8. dense decode — FusedMultiTransformer over GPT-124M in bf16 (batch 8,
               128-token prompts, 64 new tokens) and Llama-160M in f32
               (batch 8, 32 prompt tokens through ``decode_step`` into a
@@ -143,9 +169,10 @@ and the script exits non-zero:
 The launches in the ``kernels`` line are those of each kernel's main
 path, each run with the counts at 0 just before and read just after:
 the bf16 serving burst, the front end's server run, the speculation
-phases' runs and the multi-LoRA and KV-tier phases' runs (summed) for
-ragged attention, the int8 burst, the int8 LoRA burst and the int8
-tier run (summed) for its int8 twin, the FMT and Llama decode runs (summed) for the decode
+phases' runs, the multi-LoRA and KV-tier phases' runs and the fleet and
+simulator phases' runs (summed) for ragged attention, the int8 burst,
+the int8 LoRA burst, the int8 tier run and the int8 fleet runs (summed)
+for its int8 twin, the FMT and Llama decode runs (summed) for the decode
 kernel, the timed training steps for the others.  The second-to-last
 line is that JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  The script imports only torch, numpy and the port.
@@ -3948,6 +3975,752 @@ def training_phase(dev, warmup=3, steps=10):
     return launches
 
 
+# ------------------------------------------------------------ the fleet --
+def _fleet_captures(fleet):
+    """Graphs captured so far by each replica's target and draft graphs."""
+    return [r.engine._graphs.captures
+            + (r.engine._draft_graphs.captures
+               if r.engine._draft_graphs is not None else 0)
+            for r in fleet.replicas]
+
+
+def _fleet_drive(fleet, prompts, new, script=None, **kw):
+    """Add ``prompts`` to the fleet and step it to the end, calling
+    ``script(fleet, step)`` after each fleet step and checking the page
+    books of every live replica, with the kernel counts at 0 -> (outputs
+    in prompt order, the counts, engine launches over the run)."""
+    import warnings
+
+    from paddle_tpu_torch.ops.cuda import registry
+
+    base = {r.index: (r.engine, r.engine.stats["launches"])
+            for r in fleet.replicas}
+    registry.reset_counts()
+    rids = [fleet.add_request(p, max_new_tokens=new, **kw) for p in prompts]
+    outs, step = {}, 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        while fleet.has_unfinished():
+            for o in fleet.step():
+                outs[o.request_id] = o
+            if script is not None:
+                script(fleet, step)
+            fleet.check_invariants()
+            step += 1
+    counts = registry.counts()
+    launches = sum(eng.stats["launches"] - n for eng, n in base.values())
+    return [outs[r] for r in rids], counts, launches
+
+
+def fleet_exactness_phase(dev):
+    """Two replicas of the exactness phase's f32 model on the card, each
+    scenario token-exact (bitwise) against one engine on the same
+    prompts, every replica captured as the fleet builds it and nothing
+    after,
+    and the kernel on every layer of every launch: a replica killed
+    mid-flight and its requests failed over; a drain under
+    ``migration="always"`` moving running chains, with f32 pools (B1)
+    and int8 pools (B5, the scale pages moving with the pages);
+    ``disaggregate=True`` with prefix caching and n-gram speculation,
+    requests handed from the prefill replica to the decode replica (one
+    the full decode replica cannot take decodes where it is);
+    ``parallel_step=True`` (replicas stepped in threads) under a seeded
+    schedule of kills and missed heartbeats, its fleet event log equal to
+    the serial run's.  Returns the (B1, B5) launches of these runs."""
+    from paddle_tpu_torch.inference.llm import FaultInjector, Fleet, LLMEngine
+
+    model, prompts = _exactness_model_and_prompts(dev)
+    rng = np.random.RandomState(7)
+    prompts = prompts + [list(rng.randint(0, 128, n)) for n in (9, 14)]
+    shared = list(rng.randint(0, 128, 16))
+    pat = list(rng.randint(0, 128, 5))
+    spec_prompts = [shared + pat * 2 + list(rng.randint(0, 128, i + 2))
+                    for i in range(5)]
+    tiny = dict(device=dev, block_size=8, max_batch=4, token_budget=16)
+    kernels = {None: "paged_ragged_attention",
+               "int8": "paged_ragged_attention_quant"}
+    totals = {name: 0 for name in kernels.values()}
+
+    def chaos():
+        return FaultInjector.random_fleet(5, steps=64, replicas=2,
+                                          p_kill=0.03, p_heartbeat=0.1)
+
+    scenarios = [
+        ("kill", prompts, {}, lambda f, s: s == 2 and f.kill_replica(1)),
+        ("drain_f32", prompts, {"migration": "always"},
+         lambda f, s: s == 2 and f.drain_replica(1)),
+        ("drain_int8", prompts, {"migration": "always",
+                                 "quantize": "int8"},
+         lambda f, s: s == 2 and f.drain_replica(1)),
+        ("disaggregate", spec_prompts,
+         {"disaggregate": True, "speculative": 2}, None),
+        ("serial", prompts, {"faults": chaos()}, None),
+        ("parallel", prompts, {"faults": chaos(), "parallel_step": True},
+         None),
+    ]
+    logs = {}
+    for name, ps, kw, script in scenarios:
+        quantize = kw.get("quantize")
+        ref_kw = {k: v for k, v in kw.items()
+                  if k in ("quantize", "speculative")}
+        want = LLMEngine(model, **tiny, **ref_kw).generate(ps,
+                                                           max_new_tokens=10)
+        fleet = Fleet(model, replicas=2, **tiny, **kw)
+        fleet.warmup()
+        captures = _fleet_captures(fleet)
+        if not all(captures):
+            raise RuntimeError(f"fleet {name}: a replica was built "
+                               f"without capturing its graphs: {captures}")
+        outs, counts, launches = _fleet_drive(fleet, ps, 10, script)
+        kernel = kernels[quantize]
+        totals[kernel] += counts[kernel]
+        same = [o.ok and np.array_equal(o.all_ids, w)
+                for o, w in zip(outs, want)]
+        logs[name] = (fleet.events, [o.all_ids.tolist() for o in outs])
+        say("fleet_exactness", scenario=name, replicas=2,
+            states=fleet.replica_states(), bitwise=all(same),
+            stats=fleet.stats, kernel_launches=counts[kernel],
+            engine_launches=launches,
+            captures_at_warmup=captures,
+            captures_after_warmup=[a - b for a, b in zip(
+                _fleet_captures(fleet), captures)])
+        if not all(same):
+            raise RuntimeError(f"fleet {name}: requests "
+                               f"{[i for i, s in enumerate(same) if not s]} "
+                               f"differ from one engine")
+        if (_fleet_captures(fleet) != captures
+                or counts[kernel] != model.config.num_layers
+                * launches):
+            raise RuntimeError(f"fleet {name}: captures after warmup, or "
+                               f"{counts[kernel]} kernel launches for "
+                               f"{launches} engine launches")
+        moved = fleet.stats["migrated"]
+        handoffs = {(e[3], e[4]) for e in fleet.events if e[1] == "migrate"}
+        if ((name.startswith("drain") and not moved)
+                or (name == "disaggregate"
+                    and (not moved or handoffs != {(0, 1)}))
+                or (name == "kill" and not fleet.stats["requeued"])):
+            raise RuntimeError(f"fleet {name} moved nothing: {fleet.stats}")
+        del fleet
+    if logs["parallel"] != logs["serial"]:
+        raise RuntimeError("parallel_step's fleet events or outputs differ "
+                           "from serial stepping's")
+    if not any(e[1] == "dead" for e in logs["serial"][0]):
+        raise RuntimeError("the seeded schedule killed no replica")
+    return totals["paged_ragged_attention"], \
+        totals["paged_ragged_attention_quant"]
+
+
+def _fleet_burst(target, dev, new=64, prompts=None, sampled=None):
+    """The serving burst (``_burst_prompts``) through an engine or a
+    fleet after its warmup, with the counts at 0 -> (outputs in request
+    order, counts, engine launches, the record's numbers)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import registry
+
+    if prompts is None:
+        prompts, sampled = _burst_prompts()
+    engines = ([r.engine for r in target.replicas]
+               if hasattr(target, "replicas") else [target])
+    base = [(e, e.stats["launches"], e.stats["steps"]) for e in engines]
+    registry.reset_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    rids = [target.add_request(p, max_new_tokens=new,
+                               temperature=0.8 if i in sampled else 0.0,
+                               seed=sampled.get(i))
+            for i, p in enumerate(prompts)]
+    # first tokens stamped on the host clock as this loop sees them (a
+    # migrated request's engine stamps stay on its first engine)
+    outs, first, steps = {}, {}, 0
+    while target.has_unfinished():
+        done = target.step()
+        now = time.perf_counter()
+        for o in done:
+            outs[o.request_id] = o
+            first.setdefault(o.request_id, now)
+        for rid, req in target._requests.items():
+            if req.output_ids:
+                first.setdefault(rid, now)
+        steps += 1
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = registry.counts()
+    outs = [outs[r] for r in rids]
+    bad = [i for i, o in enumerate(outs) if o.finish_reason != "length"
+           or len(o.output_ids) != new]
+    if bad:
+        raise RuntimeError(f"requests {bad} did not emit {new} tokens")
+    launches = sum(e.stats["launches"] - n for e, n, _ in base)
+    ttft = [first[r] - t0 for r in rids]
+    record = dict(requests=len(rids), wall_s=wall, steps=steps,
+                  tokens_per_s=sum(len(o.output_ids) for o in outs) / wall,
+                  wall_ms_per_step=wall / steps * 1e3,
+                  ttft_p50_ms=float(np.median(ttft)) * 1e3,
+                  engine_launches=launches)
+    return outs, counts, launches, record
+
+
+def _burst_divergences(model, dev, sampled, got, want, bound=0.5):
+    """First divergences of the greedy requests of a fleet burst from the
+    single engine's, each with the single engine's top-2 logit gap there
+    (from a ``logprobs=2`` run of the same burst, whose batches and
+    tokens are the timed run's).  A gap over ``bound`` raises: in bf16
+    only a near-tie may flip when a request runs in another batch."""
+    from paddle_tpu_torch.inference.llm import LLMEngine
+
+    greedy = [i for i in range(len(got)) if i not in sampled]
+    g = {i: got[i].output_ids.tolist() for i in greedy}
+    w = {i: want[i].output_ids.tolist() for i in greedy}
+    if g == w:
+        return []
+    prompts, _ = _burst_prompts()
+    ref = LLMEngine(model, device=dev, **_SERVE_ENGINE)
+    rids = [ref.add_request(p, max_new_tokens=len(want[0].output_ids),
+                            temperature=0.8 if i in sampled else 0.0,
+                            seed=sampled.get(i), logprobs=2)
+            for i, p in enumerate(prompts)]
+    outs = _drive(ref)
+    reference = {n: outs[rids[i]] for n, i in enumerate(greedy)}
+    rows = _first_divergences([g[i] for i in greedy],
+                              [w[i] for i in greedy], reference, bound)
+    for row in rows:
+        row["request"] = greedy[row["request"]]
+    return rows
+
+
+def _replica_bytes(eng):
+    """What one replica holds on the card by construction: its pools
+    with their sinks (and scale pools), the step graphs' pool."""
+    pools = sum(t.numel() * t.element_size() for t in (
+        eng._k_rows, eng._v_rows, eng._ks_flat, eng._vs_flat)
+        if t is not None)
+    return {"pool_bytes": pools, "graph_pool_bytes": eng._graphs.pool_bytes(),
+            "weights_bytes": sum(w.numel() * w.element_size()
+                                 for sub in eng.params.values()
+                                 for w in sub.values())}
+
+
+def _build_measured_fleet(model, dev, **kw):
+    """A 2-replica fleet whose replicas are measured: device bytes
+    allocated and reserved around each engine's construction and around
+    its ``warmup()`` (which the fleet runs as it builds the replica, from
+    the engine's return to the next construction), beside its pools
+    (sinks and scales included), its graph pool and the weight bytes it
+    holds alone (a leaf whose tensor the other replica also holds is
+    shared)."""
+    import torch
+
+    from paddle_tpu_torch.inference.llm import Fleet, LLMEngine
+
+    def held():
+        torch.cuda.synchronize(dev)
+        return (torch.cuda.memory_allocated(dev),
+                torch.cuda.memory_reserved(dev))
+
+    marks = []
+
+    def factory(m, **ekw):
+        before = held()
+        eng = LLMEngine(m, **ekw)
+        marks.append((before, held()))
+        return eng
+
+    fleet = Fleet(model, replicas=2, engine_factory=factory, device=dev,
+                  **_SERVE_ENGINE, **kw)
+    ends = [before for before, _ in marks[1:]] + [held()]
+    p0, p1 = (r.engine.params for r in fleet.replicas)
+    shared = sum(w.numel() * w.element_size() for g in p0
+                 for k, w in p0[g].items()
+                 if w.data_ptr() == p1[g][k].data_ptr())
+    mem = []
+    for r, (before, built), end in zip(fleet.replicas, marks, ends):
+        construct = [a - b for a, b in zip(built, before)]
+        warm = [a - b for a, b in zip(end, built)]
+        own = _replica_bytes(r.engine)
+        own_weights = own["weights_bytes"] - shared
+        mem.append({"replica": r.index,
+                    "construct_bytes": construct[0],
+                    "warmup_bytes": warm[0],
+                    "construct_reserved_bytes": construct[1],
+                    "warmup_reserved_bytes": warm[1],
+                    "total_reserved_bytes": construct[1] + warm[1],
+                    **own, "shared_weights_bytes": shared,
+                    "own_weights_bytes": own_weights,
+                    "predicted_bytes": own["pool_bytes"]
+                    + own["graph_pool_bytes"] + own_weights,
+                    "capture_ms": dict(r.engine._graphs.capture_ms)})
+    return fleet, mem
+
+
+def _drain_migration(fleet, dev, prompts, new=64):
+    """Serve ``prompts`` on the fleet and drain replica 1 once every
+    request has its first token, under ``migration="always"``: each
+    handoff's pages, bytes and ms beside ``migration_estimate`` under
+    ``"h100"`` and the choice ``"auto"`` would have made -> (the
+    handoffs, the outputs, the counts)."""
+    import torch
+
+    from paddle_tpu_torch.inference.llm import MigrationPolicy
+
+    auto = MigrationPolicy(mode="auto", profile="h100")
+    n0 = len(fleet.migration_ms)
+    plan = {}
+
+    def script(f, step):
+        src = f.replicas[1]
+        if plan or src.state != "healthy":
+            return
+        running = list(src.engine.scheduler.running)
+        if not running or src.engine.scheduler.waiting or not all(
+                r.prefill_done for r in running):
+            return
+        for req in running:
+            est = auto.estimate(src.engine, req)
+            plan[req.request_id] = {
+                "tokens": req.num_cached, "estimate": est,
+                "auto": auto.decide(src.engine, req)}
+        torch.cuda.synchronize(dev)
+        f.drain_replica(1)
+
+    outs, counts, launches = _fleet_drive(fleet, prompts, new, script)
+    moved = len(fleet.migration_ms) - n0
+    moves = [e for e in fleet.events if e[1] == "migrate"]
+    moves = moves[len(moves) - moved:]
+    page = fleet.replicas[0].engine.page_bytes
+    handoffs = [{"request": e[2], "pages": e[5], "bytes": e[5] * page,
+                 "ms": ms, **plan.get(e[2], {})}
+                for e, ms in zip(moves, fleet.migration_ms[n0:])]
+    if not handoffs:
+        raise RuntimeError(f"the drain migrated nothing: {fleet.stats}")
+    return handoffs, outs, counts, launches
+
+
+def fleet_phase(dev, smi):
+    """Two GPT-124M bf16 replicas on one card at the serving settings
+    (random weights from seed 0, ``migration="always"``): each replica's
+    device bytes around its construction and warmup beside its pools,
+    sinks and graph pool (and a weight copy where the weights are not
+    shared), capture ms per bucket; the serving burst through the router
+    against one engine's (tokens/s, affinity hits, first divergences of
+    the greedy requests with their top-2 gaps), no capture after warmup,
+    B1 on every layer of every launch; a drain of replica 1 mid-decode
+    (each handoff's pages, bytes, ms beside ``migration_estimate`` under
+    ``"h100"`` and ``"auto"``'s choice); a kill and a restart of replica
+    1 (the restart's capture ms, device bytes after it against before
+    the kill, the restarted replica serving); the burst again on a fleet
+    stepped with ``parallel_step=True`` (events and outputs equal to the
+    serial fleet's, wall ms per fleet step against serial).  Returns (B1
+    launches, the serial burst's record, the model)."""
+    import gc
+    import warnings
+
+    import torch
+
+    from paddle_tpu_torch.framework.cost import DEVICE_PROFILES
+    from paddle_tpu_torch.inference.llm import Fleet, LLMEngine
+    from paddle_tpu_torch.models.gpt import gpt_124m
+
+    model = gpt_124m(device=dev, seed=0, dtype=torch.bfloat16).eval()
+    layers = model.config.num_layers
+    prompts, sampled = _burst_prompts()
+    single = LLMEngine(model, device=dev, **_SERVE_ENGINE)
+    single.warmup()
+    want, _, _, single_rec = _fleet_burst(single, dev)
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fleet, mem = _build_measured_fleet(model, dev, migration="always")
+    for m in mem:
+        say("fleet_memory", card=smi, **m)
+    captures = _fleet_captures(fleet)
+    timings = fleet.warmup()
+    got, counts, launches, rec = _fleet_burst(fleet, dev)
+    b1 = counts["paged_ragged_attention"]
+    divergences = _burst_divergences(model, dev, sampled, got, want)
+    say("fleet_burst", card=smi, replicas=2, single=single_rec, fleet=rec,
+        tokens_per_s_vs_single=rec["tokens_per_s"]
+        / single_rec["tokens_per_s"],
+        router=fleet.router.stats(), kernel_launches=b1,
+        warmup_ms={i: t for i, t in timings.items()},
+        captures_after_warmup=[a - b for a, b in zip(
+            _fleet_captures(fleet), captures)],
+        greedy_equal_to_single=sum(
+            1 for i, (g, w) in enumerate(zip(got, want))
+            if i not in sampled and g.output_ids.tolist()
+            == w.output_ids.tolist()),
+        first_divergences=divergences)
+    if b1 != layers * launches or _fleet_captures(fleet) != captures:
+        raise RuntimeError(f"fleet burst: {b1} B1 launches for {launches} "
+                           f"engine launches, or captures after warmup")
+    serial = (fleet.events[:], [o.output_ids.tolist() for o in got], rec)
+
+    handoffs, outs, counts, launches = _drain_migration(fleet, dev,
+                                                        prompts[:8])
+    b1 += counts["paged_ragged_attention"]
+    say("fleet_migration", card=smi, dtype="bfloat16",
+        page_bytes=fleet.replicas[0].engine.page_bytes,
+        migrated=fleet.stats["migrated"],
+        migrated_bytes=fleet.stats["migrated_bytes"],
+        link_gb_per_s_h100=DEVICE_PROFILES["h100"]["ici_bytes_per_s"] / 1e9,
+        handoffs=handoffs,
+        ms_median=float(np.median([h["ms"] for h in handoffs])),
+        equal_to_single=sum(1 for o, w in zip(outs, want[:8])
+                            if o.output_ids.tolist()
+                            == w.output_ids.tolist()))
+    if counts["paged_ragged_attention"] != layers * launches:
+        raise RuntimeError("drain run: B1 not on every layer of every "
+                           "launch")
+
+    torch.cuda.synchronize(dev)
+    gc.collect()
+    before = torch.cuda.memory_allocated(dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        fleet.kill_replica(1)
+    t0 = time.perf_counter()
+    fleet.restart_replica(1)
+    torch.cuda.synchronize(dev)
+    restart_ms = (time.perf_counter() - t0) * 1e3
+    after = torch.cuda.memory_allocated(dev)
+    fresh = fleet.replicas[1].engine
+    caps = fresh._graphs.captures
+    n_events = len(fleet.events)
+    rng = np.random.RandomState(31)
+    cold = [list(rng.randint(0, 50257, n)) for n in (40, 60, 80, 100)]
+    outs, counts, launches = _fleet_drive(fleet, cold, 16)
+    b1 += counts["paged_ragged_attention"]
+    served = sum(1 for e in fleet.events[n_events:]
+                 if e[1] == "route" and e[3] == 1)
+    say("fleet_restart", card=smi, restart_ms=restart_ms,
+        capture_ms=dict(fresh._graphs.capture_ms),
+        bytes_before_kill=before, bytes_after_restart=after,
+        bytes_delta=after - before,
+        replica_bytes=mem[1]["construct_bytes"] + mem[1]["warmup_bytes"],
+        routed_to_restarted=served,
+        captures_after_restart=fresh._graphs.captures - caps)
+    if (abs(after - before) > 0.02 * (mem[1]["construct_bytes"]
+                                      + mem[1]["warmup_bytes"])
+            or fresh._graphs.captures != caps or not served
+            or not all(o.finish_reason == "length" for o in outs)):
+        raise RuntimeError(f"restart: {after - before} bytes more than "
+                           f"before the kill, or captures after warmup, "
+                           f"or the requests failed")
+    del fleet, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    par = Fleet(model, replicas=2, parallel_step=True, migration="always",
+                device=dev, **_SERVE_ENGINE)
+    captures = _fleet_captures(par)
+    par.warmup()
+    got, counts, launches, prec = _fleet_burst(par, dev)
+    b1 += counts["paged_ragged_attention"]
+    same = (par.events == serial[0]
+            and [o.output_ids.tolist() for o in got] == serial[1])
+    say("fleet_parallel_step", card=smi, serial=serial[2], parallel=prec,
+        wall_ms_per_step_vs_serial=prec["wall_ms_per_step"]
+        / serial[2]["wall_ms_per_step"], events_equal_to_serial=same,
+        captured_at_build=captures,
+        captures_after_build=[a - b for a, b in zip(
+            _fleet_captures(par), captures)])
+    if (not same or _fleet_captures(par) != captures
+            or counts["paged_ragged_attention"] != layers * launches):
+        raise RuntimeError("parallel_step: events or outputs differ from "
+                           "serial stepping, or captures after warmup")
+    del par
+    gc.collect()
+    torch.cuda.empty_cache()
+    return b1, serial[2], model
+
+
+def fleet_int8_phase(dev, smi, model):
+    """The fleet phase's two replicas with ``quantize="int8"`` (B5): each
+    replica's device bytes, the burst (no capture after warmup, B5 on
+    every layer of every launch, B1 never), then a drain of replica 1
+    moving int8 chains with their scale pages: ms and bytes a handoff.
+    Returns the B5 launches."""
+    import gc
+
+    import torch
+
+    prompts, _ = _burst_prompts()
+    layers = model.config.num_layers
+    fleet, mem = _build_measured_fleet(model, dev, quantize="int8",
+                                       migration="always")
+    for m in mem:
+        say("fleet_int8_memory", card=smi, **m)
+    captures = _fleet_captures(fleet)
+    _, counts, launches, rec = _fleet_burst(fleet, dev)
+    b5 = counts["paged_ragged_attention_quant"]
+    if (b5 != layers * launches or counts["paged_ragged_attention"]
+            or _fleet_captures(fleet) != captures):
+        raise RuntimeError(f"int8 fleet burst: B5 {b5} for {launches} "
+                           f"launches, B1 {counts['paged_ragged_attention']}"
+                           f", or captures after warmup")
+    handoffs, outs, counts, launches = _drain_migration(fleet, dev,
+                                                        prompts[:8])
+    b5 += counts["paged_ragged_attention_quant"]
+    say("fleet_int8", card=smi, burst=rec,
+        page_bytes_with_scales=fleet.replicas[0].engine.page_bytes,
+        migrated=fleet.stats["migrated"],
+        migrated_bytes=fleet.stats["migrated_bytes"], handoffs=handoffs,
+        ms_median=float(np.median([h["ms"] for h in handoffs])),
+        kernel_launches=b5)
+    if counts["paged_ragged_attention_quant"] != layers * launches:
+        raise RuntimeError("int8 drain: B5 not on every layer of every "
+                           "launch")
+    del fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+    return b5
+
+
+def fleet_front_end_phase(dev, smi, model):
+    """``HttpLLMServer(fleet=...)`` over two warmed bf16 replicas: the
+    front end's burst posted at once from a client thread each (the
+    fork family ``n=2`` refused with a 400, as a fleet refuses it), every
+    completion its expected finish reason and promise, tokens/s and
+    client TTFT p50, no page leaked, no capture after warmup, B1 on
+    every layer of every launch.  Returns the B1 launches."""
+    import gc
+
+    import torch
+
+    from paddle_tpu_torch.inference.llm import Fleet, HttpLLMServer
+    from paddle_tpu_torch.ops.cuda import registry
+
+    fleet = Fleet(model, replicas=2, device=dev,
+                  detokenizer=_toy_detokenizer, **_SERVE_ENGINE)
+    fleet.warmup()
+    captures = _fleet_captures(fleet)
+    vocab = fleet.replicas[0].engine.vocab_size
+    burst = [r for r in _front_end_requests(6, vocab) if r[0] != "n2"]
+    base = sum(r.engine.stats["launches"] for r in fleet.replicas)
+    registry.reset_counts()
+    srv = HttpLLMServer(fleet=fleet).start()
+    try:
+        results, wall = _post_all(srv.address, [b for _, b, _ in burst])
+        status, resp = _http(srv.address, "POST", "/v1/completions",
+                             {"prompt_ids": [1, 2, 3], "n": 2, "seed": 0})
+        if status != 400:
+            raise RuntimeError(f"n=2 on a fleet got {status} {resp}")
+    finally:
+        srv.close()
+    launches = registry.counts()["paged_ragged_attention"]
+    engine_launches = sum(r.engine.stats["launches"]
+                          for r in fleet.replicas) - base
+    tokens, ttft = 0, []
+    for (label, body, expect), res in zip(burst, results):
+        if body.get("stream"):
+            done, first, _ = res
+            comps = done["completions"]
+            ttft.append(first)
+        else:
+            status, resp = res
+            if status != 200:
+                raise RuntimeError(f"{label}: status {status} {resp}")
+            comps = resp["completions"]
+        _check_completions(label, comps, expect, vocab)
+        tokens += sum(len(c["output_ids"]) for c in comps)
+    leaked = sum(r.engine.num_blocks - r.engine.block_manager.num_free_blocks
+                 for r in fleet.replicas)
+    say("fleet_front_end", card=smi, replicas=2, requests=len(burst) + 1,
+        http_wall_s=wall, http_tokens_per_s=tokens / wall,
+        client_ttft_p50_ms=float(np.median(ttft)) * 1e3,
+        router=fleet.router.stats(), kernel_launches=launches,
+        engine_launches=engine_launches, pages_leaked=leaked,
+        captures_after_warmup=[a - b for a, b in zip(
+            _fleet_captures(fleet), captures)])
+    if (launches != model.config.num_layers * engine_launches
+            or leaked or _fleet_captures(fleet) != captures):
+        raise RuntimeError("fleet front end: B1 launches off, pages "
+                           "leaked or captures after warmup")
+    del fleet, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fleet_disagg_phase(dev, smi, model, unified):
+    """``disaggregate=True`` on the serving burst: replica 0 prefills,
+    replica 1 decodes; each handoff's ms, and TTFT and tokens/s beside
+    the unified fleet's burst (``unified``, the fleet phase's serial
+    record).  Returns the B1 launches."""
+    import gc
+
+    import torch
+
+    from paddle_tpu_torch.inference.llm import Fleet
+
+    fleet = Fleet(model, replicas=2, disaggregate=True, device=dev,
+                  **_SERVE_ENGINE)
+    fleet.warmup()
+    captures = _fleet_captures(fleet)
+    _, counts, launches, rec = _fleet_burst(fleet, dev)
+    b1 = counts["paged_ragged_attention"]
+    moves = [e for e in fleet.events if e[1] == "migrate"]
+    say("fleet_disagg", card=smi, roles=fleet.roles(), burst=rec,
+        unified=unified, handoffs=len(moves),
+        handoff_pages=[e[5] for e in moves],
+        handoff_ms=fleet.migration_ms,
+        handoff_ms_median=(float(np.median(fleet.migration_ms))
+                           if fleet.migration_ms else None),
+        ttft_p50_vs_unified=rec["ttft_p50_ms"] / unified["ttft_p50_ms"],
+        tokens_per_s_vs_unified=rec["tokens_per_s"]
+        / unified["tokens_per_s"], kernel_launches=b1)
+    if (b1 != model.config.num_layers * launches or not moves
+            or _fleet_captures(fleet) != captures):
+        raise RuntimeError("disaggregated burst: no handoff, B1 launches "
+                           "off or captures after warmup")
+    del fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+    return b1
+
+
+def _replay_device_ms(eng, pk, reps=20):
+    """CUDA-event ms of replaying the graph of ``pk``'s bucket on its
+    staged operands (median of ``reps``)."""
+    import torch
+
+    eng._ragged_fn(pk)                 # stage the operands, replay once
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        eng._graphs.replay(pk["tb"])
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return float(np.median(ms))
+
+
+def sim_phase(dev, smi, model):
+    """The discrete-event simulator against the card: ``calibrate`` on a
+    ``sim/workloads.py`` fleet trace of 64 requests through two GPT-124M
+    bf16 replicas on the card (the real leg, stepped on a virtual clock)
+    and through SimEngines replaying its tokens — decision-exact (fleet
+    and engine event records equal) and token-exact, with
+    ``timing_err``; the ``"h100"`` StepTimeModel's estimate for buckets 8
+    and 256 (context 512) beside the replayed step's CUDA-event ms at
+    that context; the wall time of a pure simulation of 8 replicas and
+    2000 requests on the host, with the process's resident host bytes
+    before it and with its fleet alive (the SimEngines share one host
+    copy of the weights).  Returns the real leg's B1 launches."""
+    import gc
+
+    import torch
+
+    from paddle_tpu_torch.framework.cost import StepTimeModel
+    from paddle_tpu_torch.inference.llm import LLMEngine
+    from paddle_tpu_torch.ops.cuda import registry
+    from paddle_tpu_torch.sim import (
+        calibrate,
+        fleet_trace,
+        simulate,
+        thousand_tenant_trace,
+    )
+
+    trace = fleet_trace(64, 4000.0, 32, seed=0, prefix_len=32)
+    registry.reset_counts()
+    t0 = time.perf_counter()
+    cal = calibrate(model, trace, replicas=2,
+                    engine_kwargs=dict(_SERVE_ENGINE, device=dev))
+    wall = time.perf_counter() - t0
+    b1 = registry.counts()["paged_ragged_attention"]
+    say("sim_calibrate", card=smi, requests=64, replicas=2,
+        decisions_exact=cal["decisions_exact"],
+        tokens_exact=cal["tokens_exact"], timing_err=cal["timing_err"],
+        events_real=cal["events_real"], events_sim=cal["events_sim"],
+        real_wall_s=cal["real"]["wall_s"], sim_wall_s=cal["sim"]["wall_s"],
+        virtual_s=cal["real"]["virtual_s"], wall_s=wall,
+        kernel_launches=b1)
+    if not (cal["decisions_exact"] and cal["tokens_exact"]) or not b1:
+        raise RuntimeError("calibration is not decision- and token-exact "
+                           "against the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    eng = LLMEngine(model, device=dev, **_SERVE_ENGINE)
+    eng.warmup()
+    stm = StepTimeModel.from_engine(eng)
+    rng = np.random.RandomState(17)
+    pages = eng.max_pages
+    rows = {8: [(1, 512)] * 8, 256: [(32, 480)] * 8}
+    ratio = {}
+    for tb, spec in rows.items():
+        pk = eng._pack_rows(
+            [(rng.randint(0, eng.vocab_size, n), pos0,
+              (np.arange(pages) + r * pages) % eng.num_blocks)
+             for r, (n, pos0) in enumerate(spec)], tb)
+        measured = _replay_device_ms(eng, pk)
+        est = stm.step_seconds("ragged", tb) * 1e3
+        ratio[tb] = {"estimate_ms": est, "replay_ms": measured,
+                     "estimate_over_measured": est / measured}
+    say("sim_step_time_model", card=smi, profile="h100",
+        context_tokens=eng.max_model_len // 2, buckets=ratio,
+        times_s=stm.to_dict()["times_s"])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def rss():
+        with open("/proc/self/status") as f:
+            return next(int(line.split()[1]) * 1024 for line in f
+                        if line.startswith("VmRSS:"))
+
+    trace = thousand_tenant_trace(2000, 2000.0, 32, seed=1)
+    gc.collect()
+    rss0 = rss()
+    t0 = time.perf_counter()
+    res, fleet = simulate(model, trace, replicas=8,
+                          engine_kwargs=dict(_SERVE_ENGINE),
+                          fleet_kwargs=dict(router_load_cap=2),
+                          latency=True)
+    wall = time.perf_counter() - t0
+    rss1 = rss()
+    engines = [r.engine for r in fleet.replicas]
+    shared = all(e.params[g][k].data_ptr() == w.data_ptr()
+                 for e in engines[1:] for g, sub in engines[0].params.items()
+                 for k, w in sub.items())
+    weights = sum(w.numel() * w.element_size()
+                  for sub in engines[0].params.values() for w in sub.values())
+    say("sim_simulate", replicas=8, requests=res["requests"],
+        wall_s=wall, run_wall_s=res["wall_s"], steps=res["steps"],
+        virtual_s=res["virtual_s"], ttft_ms=res["ttft_ms"],
+        tpot_ms=res["tpot_ms"], requests_per_wall_s=res["requests_per_wall_s"],
+        host_rss_before=rss0, host_rss_with_fleet=rss1,
+        host_rss_delta=rss1 - rss0, weights_bytes_a_replica=weights,
+        weights_shared_by_replicas=shared)
+    if res["requests"] != 2000 or not shared:
+        raise RuntimeError(f"the simulation finished {res['requests']} of "
+                           f"2000 requests, or its replicas hold weights "
+                           f"of their own")
+    del fleet
+    return b1
+
+
+def fleet_phases(dev, smi):
+    """The fleet and simulator phases, each main path driven with the
+    counts at 0 -> their summed (B1, B5) launches."""
+    import torch
+
+    e1, e5 = fleet_exactness_phase(dev)
+    torch.cuda.empty_cache()
+    b1, unified, model = fleet_phase(dev, smi)
+    b5 = fleet_int8_phase(dev, smi, model)
+    b1 += fleet_front_end_phase(dev, smi, model)
+    b1 += fleet_disagg_phase(dev, smi, model, unified)
+    b1 += sim_phase(dev, smi, model)
+    del model
+    torch.cuda.empty_cache()
+    return e1 + b1, e5 + b5
+
+
 def lora_tier_phases(dev, smi):
     """The multi-LoRA and KV-tier phases, each main path driven with the
     counts at 0 -> their summed (B1, B5) launches."""
@@ -3977,6 +4750,10 @@ def main():
     if sys.argv[1:] == ["lora_tier"]:
         build_phase()
         lora_tier_phases(dev, smi)
+        return
+    if sys.argv[1:] == ["fleet"]:
+        build_phase()
+        fleet_phases(dev, smi)
         return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -4016,6 +4793,11 @@ def main():
     torch.cuda.empty_cache()
     # and the multi-LoRA and KV-tier phases' runs, B1's and B5's
     b1, b5 = lora_tier_phases(dev, smi)
+    launches["paged_ragged_attention"] += b1
+    launches["paged_ragged_attention_quant"] += b5
+    torch.cuda.empty_cache()
+    # and the fleet and simulator phases' runs, B1's and B5's
+    b1, b5 = fleet_phases(dev, smi)
     launches["paged_ragged_attention"] += b1
     launches["paged_ragged_attention_quant"] += b5
     torch.cuda.empty_cache()

@@ -4,12 +4,13 @@ Port of the tp=1 part of ``paddle_tpu/framework/cost.py``
 (``parse_bytes``, ``engine_memory_model`` with its LoRA and host-tier
 keys, ``derive_max_batch``, ``migration_estimate``) and of the engine's
 ``_params_bytes_per_chip``, plus ``measured_host_overhead_s`` over the
-engine's lookahead gauge.  The port serves on one card, so nothing is
-sharded: every parameter leaf counts whole.  ``DEVICE_PROFILES`` holds
-the JAX module's ``"cpu"`` profile (so ``TierPolicy`` decides as the JAX
-engine does in the CPU tests) and an ``"h100"`` profile measured on the
-card; no TPU profile is carried over.  The jaxpr cost walker, the census
-and ``StepTimeModel`` stay in the tooling slice.
+engine's lookahead gauge, and ``StepTimeModel``, the simulator's step
+clock, with its estimates built from the engine's shapes.  The port
+serves on one card, so nothing is sharded: every parameter leaf counts
+whole.  ``DEVICE_PROFILES`` holds the JAX module's ``"cpu"`` profile (so
+``TierPolicy`` decides as the JAX engine does in the CPU tests) and an
+``"h100"`` profile measured on the card; no TPU profile is carried over.
+The jaxpr cost walker and the census stay in the tooling slice.
 """
 
 # Roofline profiles converting byte and FLOP counts to seconds: the dense
@@ -191,3 +192,109 @@ def measured_host_overhead_s(engine):
     if not n:
         return 0.0
     return float(stats.get("host_plan_s") or 0.0) / n
+
+
+class StepTimeModel:
+    """Roofline step-time estimates per ``(kind, bucket)`` launch — what
+    the discrete-event simulator (``paddle_tpu_torch/sim/``) advances its
+    virtual clock by in place of running the device.
+
+    The JAX package builds the estimates by tracing the engine's
+    executables through its jaxpr cost walker; the port has neither, so
+    :meth:`from_engine` prices each token bucket from the engine's shapes
+    (see there).  A launch's time is its estimate plus a flat
+    ``host_overhead_s`` covering scheduling, packing and dispatch (0 by
+    default; :func:`measured_host_overhead_s` reads one off a served
+    engine)."""
+
+    def __init__(self, times_s, profile="h100", host_overhead_s=0.0):
+        self.times_s = dict(times_s)      # (kind, bucket) -> seconds
+        self.profile = profile
+        self.host_overhead_s = float(host_overhead_s)
+
+    @classmethod
+    def from_engine(cls, engine, profile="h100", host_overhead_s=0.0):
+        """Per-bucket roofline of one engine: for each token bucket
+        ``tb`` of the engine's grid, ``max(FLOPs / flops_per_s, bytes /
+        hbm_bytes_per_s)`` under ``profile`` (a DEVICE_PROFILES key or a
+        dict with the same keys).
+
+        - FLOPs: ``2 * params * tb`` (every parameter leaf, as
+          :func:`migration_estimate` counts them: the tied head's GEMM is
+          the embedding's) plus attention, ``4 * L * Nh * D * tb * ctx``
+          (scores and the weighted sum) at a context ``ctx`` of half
+          ``max_model_len``, a sequence's mean over its life.
+        - Bytes: the weights once, the K/V pages ``min(tb, max_batch)``
+          rows of ``ctx`` tokens read, the step's ``tb`` K/V slots
+          written, and the ``[tb, V]`` logits written.
+
+        A model of the step, not a measurement of it: it leaves out the
+        kernels' launch latency, the elementwise work and every
+        efficiency below the peaks, so it is a lower bound.  On an NVIDIA
+        H100 80GB HBM3 at 700 W the ``"h100"`` estimate of a GPT-124M
+        bf16 step was 0.085 of the replayed step's measured time at
+        bucket 8 and 0.065 at bucket 256 (``chip_smoke.py``'s
+        ``sim_step_time_model`` line); a model built from measured
+        ``times_s`` prices steps in the card's units."""
+        prof = DEVICE_PROFILES[profile] if isinstance(profile, str) \
+            else profile
+        ctx = engine.max_model_len // 2
+        weights = params_bytes(engine.params)
+        n_params = sum(w.numel() for sub in engine.params.values()
+                       for w in sub.values())
+        page = page_bytes(engine.num_layers, engine.block_size,
+                          engine.num_heads, engine.head_dim,
+                          engine.dtype.itemsize, engine._kv_quant)
+        slot = page // engine.block_size
+        logit_item = engine.dtype.itemsize
+        times = {}
+        for kind, tb in engine._bucket_grid():
+            flops = (2.0 * n_params * tb
+                     + 4.0 * engine.num_layers * engine.num_heads
+                     * engine.head_dim * tb * ctx)
+            rows = min(tb, engine.max_batch)
+            nbytes = (weights + rows * ctx * slot + tb * slot
+                      + tb * engine.vocab_size * logit_item)
+            times[(kind, tb)] = max(flops / prof["flops_per_s"],
+                                    nbytes / prof["hbm_bytes_per_s"])
+        return cls(times, profile=profile, host_overhead_s=host_overhead_s)
+
+    def step_seconds(self, kind, bucket):
+        """Estimated seconds of one ``(kind, bucket)`` launch."""
+        try:
+            t = self.times_s[(kind, bucket)]
+        except KeyError:
+            raise KeyError(
+                f"no step-time estimate for launch ({kind!r}, "
+                f"{bucket!r}) — this model covers "
+                f"{sorted(self.times_s)}; build it from an engine "
+                f"configured like the one being simulated") from None
+        return t + self.host_overhead_s
+
+    def launches_seconds(self, launches):
+        """Total estimated seconds of one step's launch list (the
+        engine's ``last_launches``: [(kind, bucket), ...])."""
+        return sum(self.step_seconds(k, b) for k, b in launches)
+
+    def tier_seconds(self, nbytes, link_bytes_per_s=None):
+        """Seconds to move ``nbytes`` of page payload over the
+        host<->device link — the KV-tier traffic a step reports as
+        ``last_tier_bytes``.  Priced at the profile's link rate by
+        default, the rate TierPolicy's estimate uses, so the simulator's
+        clock and the policy's break-even agree."""
+        if not nbytes:
+            return 0.0
+        prof = (DEVICE_PROFILES[self.profile]
+                if isinstance(self.profile, str) else self.profile)
+        link = (float(link_bytes_per_s) if link_bytes_per_s
+                else prof["ici_bytes_per_s"])
+        return int(nbytes) / link
+
+    def to_dict(self):
+        return {
+            "profile": (self.profile if isinstance(self.profile, str)
+                        else "custom"),
+            "host_overhead_s": self.host_overhead_s,
+            "times_s": {f"{k}[{b}]": t
+                        for (k, b), t in sorted(self.times_s.items())},
+        }

@@ -25,7 +25,10 @@
 - ``LLMEngine`` — add_request / step / generate over a GPT model, with
   abort, deadlines, bounded admission and step isolation, and
   ``AsyncLLMEngine`` for servers;
-- ``HttpLLMServer`` — the HTTP/SSE front end over an engine.
+- ``Fleet`` — N engine replicas behind a health-checked prefix-affinity
+  ``Router``, with token-exact failover, rolling drain, KV-page
+  migration (``MigrationPolicy``) and disaggregated prefill/decode;
+- ``HttpLLMServer`` — the HTTP/SSE front end over an engine or a fleet.
 """
 
 from .block_manager import (
@@ -51,6 +54,7 @@ from .faults import (
     RetryPolicy,
     StepWatchdog,
 )
+from .fleet import Fleet, HealthConfig, MigrationPolicy, Replica, Router
 from .http_server import HttpLLMServer
 from .interleave import (
     InterleavingScheduler,
@@ -123,5 +127,6 @@ __all__ = [
     "Request", "ScheduledBatch", "Scheduler", "bucket_size",
     "ConstraintState", "DfaTokenGrammar", "Grammar", "grammar_from_spec",
     "json_array_grammar", "LORA_TARGET_LEAVES", "AdapterManager",
-    "LoRAConfig",
+    "LoRAConfig", "Fleet", "HealthConfig", "MigrationPolicy", "Replica",
+    "Router",
 ]

@@ -83,6 +83,17 @@ swaps back in at re-admission instead of re-prefilling, and full pages
 evicted from the prefix cache promote into a content-addressed host
 store that admission adopts from.  Pages move by eager index ops on the
 in-place pools, on the step's stream, and are synchronous host copies.
+
+KV-page migration is the JAX engine's too, over the same page moves:
+:meth:`LLMEngine.export_request` reads a running request's chain and
+pages (read-only), :meth:`LLMEngine.import_request` writes them into
+fresh pages of another engine's pools in place and resumes the request
+mid-generation, :meth:`LLMEngine.release_request` forgets it on the
+source, and :meth:`LLMEngine.adopt_waiting` takes a request into the
+waiting queue (the fleet's tier reroute).  ``fleet.py`` builds replicas,
+failover, drains and disaggregated prefill/decode on them;
+``last_launches`` records each step's ``(kind, bucket)`` launches for the
+simulator's clock (``paddle_tpu_torch/sim``).
 """
 
 import threading
@@ -107,6 +118,7 @@ from .block_manager import BlockManager, NoFreeBlocksError
 from .faults import (
     FinishReason,
     InjectedFault,
+    MigrationError,
     PoolLostError,
     RetryPolicy,
     StepWatchdog,
@@ -135,6 +147,7 @@ from .sampling import (
 from .scheduler import (
     FINISHED,
     RUNNING,
+    WAITING,
     RaggedRow,
     Request,
     Scheduler,
@@ -333,6 +346,13 @@ class LLMEngine:
         self._step_wall_s = 0.0
         # target and draft launches (measured_host_overhead_s)
         self._launch_count = 0
+        # (kind, bucket) of every launch the current step issued, target
+        # and draft alike: the simulator's virtual clock advances by the
+        # step-time model's estimate of exactly these
+        self.last_launches = []
+        # the port serves on one card: the fleet and the tier price page
+        # bytes as page_bytes * tp, as in the JAX engine
+        self.tp = 1
         # speculative decoding: the n-gram drafter, or for
         # method="draft-model"/"tree" the hybrid model drafter whose
         # pools come up in _init_draft_model below
@@ -1056,6 +1076,7 @@ class LLMEngine:
     def _step_impl(self):
         interleave_point("step")
         self._step_index += 1
+        self.last_launches = []
         self.last_tier_bytes = 0
         if self.faults is not None:
             self.faults.begin_step(self._step_index)
@@ -1345,6 +1366,7 @@ class LLMEngine:
         between the dispatch and the blocking pull, so its planning runs
         under this step's device time.  The pull follows the step's pool
         writes, so a failure there raises PoolLostError."""
+        self.last_launches.append(("ragged", pk["tb"]))
         self._launch_count += 1
         out = self._launch("ragged", [row.request for row in rows],
                            lambda: self._ragged_fn(pk))
@@ -1802,6 +1824,126 @@ class LLMEngine:
         self._scatter_pool(self._ks, block_ids, k_scales)
         self._scatter_pool(self._vs, block_ids, v_scales)
 
+    # ----------------------------------------------------------- migration --
+    def export_request(self, request_id):
+        """Serialize one RUNNING request for migration to a peer engine:
+        the live Request object, the BlockManager's page-chain export and
+        the host-gathered K/V page payload (with the scale pages of an
+        int8 pool).  Read-only: the request keeps serving here until
+        :meth:`release_request`, so a failed import on the destination
+        costs nothing."""
+        req = self._requests.get(request_id)
+        if req is None:
+            raise KeyError(f"unknown request {request_id!r}")
+        if req.status != RUNNING or \
+                not self.block_manager.has_seq(request_id):
+            raise ValueError(
+                f"request {request_id!r} is {req.status}; only running "
+                f"sequences with resident pages export (waiting/"
+                f"preempted ones requeue from scratch instead)")
+        seq = self.block_manager.export_seq(request_id)
+        k, v = self._gather_pages(seq["block_ids"])
+        self.events.append((self._step_index, "export", request_id,
+                            len(seq["block_ids"])))
+        state = {"request": req, "seq": seq, "k_pages": k, "v_pages": v}
+        if self._kv_quant:
+            ks, vs = self._gather_scale_pages(seq["block_ids"])
+            state["k_scales"] = ks
+            state["v_scales"] = vs
+        return state
+
+    def import_request(self, req, seq, k_pages, v_pages,
+                       fault_hook=None, k_scales=None, v_scales=None):
+        """Adopt a migrated-in request mid-generation: allocate a private
+        page chain, write the payload into this engine's pools in place
+        (on the step's stream, never rebinding a pool the graphs read),
+        re-register its full pages in this prefix cache, and insert the
+        request into the running set — decode resumes next step,
+        token-exactly (``num_cached``, ``output_ids`` and the per-request
+        sampling stream ride the Request object).  A lookahead plan
+        staged here is invalidated.
+
+        Guards, in order: the running set has room (MigrationError
+        "capacity"), the adapter is servable here (MigrationError
+        "adapter"), the payload's shape, then the scale payload — all
+        before anything is allocated.  All-or-nothing after that: any
+        failure (``fault_hook``, the injected mid-import fault, a dtype
+        mismatch, anything) frees exactly the pages allocated here and
+        re-raises, leaving this engine untouched."""
+        rid = req.request_id
+        if rid in self._requests:
+            raise ValueError(f"request {rid!r} already live here")
+        if len(self.scheduler.running) >= self.max_batch:
+            raise MigrationError(
+                f"destination running set is full "
+                f"({self.max_batch} sequences)", reason="capacity")
+        aid = getattr(req, "adapter_id", None)
+        if aid is not None and (
+                self.lora is None or not self._lora_mgr.known(aid)):
+            raise MigrationError(
+                f"destination cannot serve adapter {aid!r} — "
+                f"{'no lora= configured' if self.lora is None else 'adapter not registered'}",
+                reason="adapter")
+        expect = (self.num_layers, len(seq["block_ids"]),
+                  self.block_size, self.num_heads, self.head_dim)
+        if tuple(k_pages.shape) != expect or \
+                tuple(v_pages.shape) != expect:
+            raise ValueError(
+                f"page payload {k_pages.shape} does not fit this pool "
+                f"(expected {expect}) — migration requires identically "
+                f"configured engines")
+        if self._kv_quant:
+            if k_scales is None or v_scales is None:
+                raise ValueError(
+                    "this engine's KV pool is int8 — the migration "
+                    "payload must carry k_scales/v_scales (export from "
+                    "an identically quantized engine)")
+            sexpect = (self.num_layers, len(seq["block_ids"]),
+                       self.num_heads, self.block_size)
+            if tuple(k_scales.shape) != sexpect or \
+                    tuple(v_scales.shape) != sexpect:
+                raise ValueError(
+                    f"scale payload {k_scales.shape} does not fit this "
+                    f"pool (expected {sexpect})")
+        elif k_scales is not None or v_scales is not None:
+            raise ValueError(
+                "scale payload offered to a full-precision pool — "
+                "migration requires identically configured engines")
+        table = self.block_manager.import_seq(rid, seq)
+        try:
+            if fault_hook is not None:
+                fault_hook()
+            self._scatter_pages(table, k_pages, v_pages)
+            if self._kv_quant:
+                self._scatter_scale_pages(table, k_scales, v_scales)
+            self.block_manager.register_imported(rid, seq["hashes"])
+        except BaseException:
+            # exact reclamation: every page import_seq allocated goes
+            # back; nothing was registered before the payload landed
+            self.block_manager.free(rid)
+            raise
+        req.status = RUNNING
+        req.draft_tokens = []
+        self._requests[rid] = req
+        self.scheduler.running.append(req)
+        self._invalidate_plan()
+        self.events.append((self._step_index, "import", rid,
+                            len(table)))
+
+    def release_request(self, request_id):
+        """Forget a migrated-away request without emitting an output: its
+        pages are reclaimed refcount-correctly (prefix-cache
+        registrations survive on the LRU list), model-drafter state and
+        any demoted chain dropped, and ownership is now the importing
+        engine's.  The mirror of :meth:`import_request`: call it only
+        after the import succeeded."""
+        req = self._requests.pop(request_id)
+        self.scheduler.abort(req)
+        self._invalidate_plan()
+        self._drafter_forget(request_id)
+        self._tier_forget(request_id)
+        self.events.append((self._step_index, "release", request_id))
+
     # ---------------------------------------------------- hierarchical KV --
     def _tier_demote(self, victim):
         """Scheduler preempt hook: stage the victim's page chain into the
@@ -1994,6 +2136,32 @@ class LLMEngine:
         into the prefix store."""
         if self.host_pool is not None:
             self._promote_chain(self.host_pool.pop(request_id))
+
+    def adopt_waiting(self, req):
+        """Adopt a foreign Request into this engine's waiting queue — the
+        fleet's tier-reroute drain path: the source demoted the chain
+        into the shared host pool, and this engine's next admission swaps
+        it in (or re-prefills ``all_ids`` from scratch if the pool
+        evicted it first — token-exact either way).  Unlike
+        :meth:`import_request` this needs no free pages now, so a drain
+        never waits on destination headroom."""
+        rid = req.request_id
+        if rid in self._requests:
+            raise ValueError(f"request {rid!r} already live here")
+        aid = getattr(req, "adapter_id", None)
+        if aid is not None and (
+                self.lora is None or not self._lora_mgr.known(aid)):
+            raise MigrationError(
+                f"destination cannot serve adapter {aid!r} — "
+                f"{'no lora= configured' if self.lora is None else 'adapter not registered'}",
+                reason="adapter")
+        req.status = WAITING
+        req.num_cached = 0
+        req.draft_tokens = []
+        self._requests[rid] = req
+        self.scheduler.add(req)
+        self._invalidate_plan()
+        self.events.append((self._step_index, "add", rid))
 
     def check_invariants(self):
         """Page conservation across every tier: the scheduler's and the
@@ -2285,6 +2453,7 @@ class LLMEngine:
         pk = self._pack_rows(
             [(toks, p0, self._draft_bm.block_table(sid))
              for sid, toks, p0 in entries], tb)
+        self.last_launches.append(("ragged", tb))
         self._launch_count += 1
         argmax, logits = self._draft_run(pk)
         return argmax.cpu().numpy(), logits, pk["starts"]

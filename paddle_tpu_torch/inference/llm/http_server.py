@@ -181,31 +181,31 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class HttpLLMServer:
-    """Serve one engine over HTTP/SSE.
+    """Serve one engine or one fleet over HTTP/SSE.
 
     >>> eng = LLMEngine(gpt_124m(dtype=torch.bfloat16), dtype="bfloat16")
     >>> eng.warmup()          # capture every bucket's graph first
-    >>> srv = HttpLLMServer(engine=eng).start()
+    >>> srv = HttpLLMServer(engine=eng).start()   # or fleet=...
     >>> host, port = srv.address
     >>> ...  # POST http://host:port/v1/completions
     >>> srv.close()
 
     ``port=0`` binds an ephemeral port (read it back from
     ``.address``).  The server owns its AsyncLLMEngine (and joins it on
-    close), so the engine passed here must not be stepped by anyone
-    else.  ``fleet=`` (replicated serving) is not ported yet."""
+    close), so the backend passed here must not be stepped by anyone
+    else.  A fleet (``Fleet``, replicated serving) needs no such call:
+    each replica captures its graphs as the fleet builds it."""
 
     def __init__(self, engine=None, fleet=None, host="127.0.0.1",
                  port=0, poll_interval=0.005):
         if (engine is None) == (fleet is None):
             raise ValueError(
                 "construct with exactly one of engine= or fleet=")
-        if fleet is not None:
-            raise NotImplementedError(
-                "HttpLLMServer(fleet=...) is not ported yet: it comes "
-                "with the fleet slice (ROADMAP A14)")
-        self.backend = engine
-        self.vocab_size = engine.vocab_size
+        self.backend = engine if engine is not None else fleet
+        if engine is not None:
+            self.vocab_size = engine.vocab_size
+        else:
+            self.vocab_size = fleet.replicas[0].engine.vocab_size
         self.poll_interval = float(poll_interval)
         self.async_engine = AsyncLLMEngine(self.backend)
         self._httpd = ThreadingHTTPServer((host, int(port)), _Handler)

@@ -31,6 +31,7 @@ import paddle_tpu.inference.llm.kv_tier as jax_kv_tier
 import paddle_tpu.inference.llm.scheduler as jax_sched
 import paddle_tpu.inference.llm.spec as jax_spec
 import paddle_tpu.inference.llm.structured as jax_structured
+import paddle_tpu.sim.clock as jax_clock
 import paddle_tpu.sim.workloads as jax_workloads
 from paddle_tpu.inference.llm import LLMEngine as JaxEngine
 from paddle_tpu.inference.llm.sampling import (
@@ -57,6 +58,7 @@ import paddle_tpu_torch.inference.llm.kv_tier as port_kv_tier
 import paddle_tpu_torch.inference.llm.scheduler as port_sched
 import paddle_tpu_torch.inference.llm.spec as port_spec
 import paddle_tpu_torch.inference.llm.structured as port_structured
+import paddle_tpu_torch.sim.clock as port_clock
 import paddle_tpu_torch.sim.workloads as port_workloads
 from paddle_tpu_torch.models.gpt import gpt_tiny
 
@@ -387,7 +389,7 @@ def test_default_device_needs_cuda(models, monkeypatch):
     (jax_faults, port_faults), (jax_events, port_events),
     (jax_interleave, port_interleave), (jax_structured, port_structured),
     (jax_spec, port_spec), (jax_kv_tier, port_kv_tier),
-    (jax_workloads, port_workloads)])
+    (jax_workloads, port_workloads), (jax_clock, port_clock)])
 def test_host_modules_are_verbatim_copies(jax_mod, port_mod):
     assert inspect.getsource(port_mod) == inspect.getsource(jax_mod)
 

@@ -11,8 +11,12 @@ reproducibly, and the real engine on none.  The clock-injection and
 gauge-lock regressions ride along.  Then the HTTP/SSE server over a
 port engine: the full request surface with ``n=2`` and ``/healthz``,
 SSE deltas that reassemble the final ids, greedy output equal to the
-engine's own, 400s before admission, exactly one backend, and
-``fleet=`` not ported yet.
+engine's own, 400s before admission, and exactly one backend; and the
+fleet backend: a sampled SSE stream through a two-replica ``Fleet``,
+``n=2`` refused, greedy output equal to a single engine's, and the same
+requests through the JAX ``HttpLLMServer`` over a two-replica JAX
+``Fleet`` answered with the same ids, the fleets' event logs and every
+replica's event records equal.
 """
 
 import http.client
@@ -24,17 +28,22 @@ import numpy as np
 import pytest
 
 import paddle_tpu as paddle
+from paddle_tpu.inference.llm import Fleet as JaxFleet
+from paddle_tpu.inference.llm import HttpLLMServer as JaxHttpServer
 from paddle_tpu.inference.llm import LLMEngine as JaxEngine
+from paddle_tpu.inference.llm import to_records as jax_records
 from paddle_tpu.models.gpt import gpt_tiny as jax_gpt_tiny
 from paddle_tpu_torch.inference.llm import (
     AsyncLLMEngine,
     Fault,
     FaultInjector,
     FinishReason,
+    Fleet,
     HttpLLMServer,
     InterleavingScheduler,
     LLMEngine,
     Request,
+    to_records,
 )
 from paddle_tpu_torch.models.gpt import gpt_tiny
 
@@ -425,10 +434,84 @@ class TestHttpEngineBackend:
             srv.close()
 
     def test_exactly_one_backend_and_no_fleet_yet(self, models):
+        """Exactly one backend; a fleet alone is a backend (the name is
+        from the slice before the fleet was ported)."""
         with pytest.raises(ValueError, match="exactly one"):
             HttpLLMServer()
         eng = _port(models)
+        fleet = Fleet(models[1], replicas=2, device="cpu", **ENGINE)
         with pytest.raises(ValueError, match="exactly one"):
-            HttpLLMServer(engine=eng, fleet=object())
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            HttpLLMServer(fleet=object())
+            HttpLLMServer(engine=eng, fleet=fleet)
+        srv = HttpLLMServer(fleet=fleet).start()
+        try:
+            assert srv.backend is fleet
+            assert srv.vocab_size == fleet.replicas[0].engine.vocab_size
+            assert srv.async_engine.engine is fleet
+        finally:
+            srv.close()
+
+
+class TestHttpFleetBackend:
+    def test_sse_stream_against_two_replica_fleet(self, models):
+        """A sampled SSE stream, a refused fork family and two greedy
+        requests, posted one after another to a port fleet server and to
+        a JAX fleet server over the same weights: the same ids, and equal
+        fleet events and replica event records."""
+        rng = np.random.RandomState(1)
+        p = [int(t) for t in rng.randint(0, 128, (5,))]
+        sampled = {"prompt_ids": p, "max_new_tokens": 8,
+                   "temperature": 0.7, "top_p": 0.95, "seed": 3,
+                   "repetition_penalty": 1.05, "stream": True}
+        greedy = [[1, 2, 3, 4], [5, 6, 7]]
+
+        def serve(srv):
+            try:
+                status, events = _post(srv.address, sampled, stream=True)
+                fork = _post(srv.address, {"prompt_ids": p, "n": 2,
+                                           "seed": 0})
+                got = [_post(srv.address, {"prompt_ids": q,
+                                           "max_new_tokens": 6})[1]
+                       for q in greedy]
+            finally:
+                srv.close()
+            return events, fork, got
+
+        fleet = Fleet(models[1], replicas=2, device="cpu", **ENGINE)
+        fleet.warmup()
+        events, (status, resp), got = serve(
+            HttpLLMServer(fleet=fleet).start())
+        assert events[-1] == "[DONE]"
+        final = events[-2]
+        assert [c["index"] for c in final["completions"]] == [0]
+        out = final["completions"][0]
+        assert out["finish_reason"] == "length"
+        assert len(out["output_ids"]) == 8
+        deltas = [t for e in events[:-2] for t in e["delta_ids"]]
+        assert deltas == out["output_ids"]
+        assert all(e["index"] == 0 for e in events[:-2])
+        # the seeded stream equals one engine's
+        want = _port(models).generate(
+            [p], max_new_tokens=8, temperature=0.7, top_p=0.95,
+            seed=3, repetition_penalty=1.05)[0]
+        assert out["output_ids"] == [int(t) for t in want[5:]]
+        # fleet backends reject fork families loudly
+        assert status == 400 and "n" in resp["error"]
+        for q, body, w in zip(greedy, got, _port(models).generate(
+                greedy, max_new_tokens=6)):
+            assert body["completions"][0]["output_ids"] == \
+                [int(t) for t in w[len(q):]]
+        # the same requests through the JAX package's fleet server
+        jfleet = JaxFleet(models[0], replicas=2, **ENGINE)
+        jevents, (jstatus, _), jgot = serve(
+            JaxHttpServer(fleet=jfleet).start())
+        assert jevents[-2]["completions"] == final["completions"]
+        assert jstatus == 400
+        assert [b["completions"] for b in jgot] == \
+            [b["completions"] for b in got]
+        assert fleet.events == jfleet.events
+        for pr, jr in zip(fleet.replicas, jfleet.replicas):
+            assert to_records(pr.engine.events) == \
+                jax_records(jr.engine.events), f"replica {pr.index}"
+        for r in fleet.replicas:
+            assert r.engine.block_manager.num_free_blocks == \
+                r.engine.num_blocks

@@ -17,8 +17,15 @@ with the int8 pool (scale pages moving with the pages), and under the
 seeded tier-fault schedules; ``migration_estimate`` equal to the JAX
 one under the shared ``"cpu"`` profile.
 
-Left out, with the item that brings them: ``TestFleetTier`` (A14),
-``TestSimTier`` (A19), the census and ``StepTimeModel`` cases (A22) and
+The fleet side (``TestFleetTier``): replicas share one host pool and
+one prefix store, store residency scores for every replica, and a drain
+whose peer has no free pages demotes the running chain into the shared
+pool for the peer to swap in — token-exact, and with the JAX fleet's
+events and records.  The simulator over the tier (``TestSimTier``):
+calibration decision-exact with the tier on, and the virtual clock
+charging tier traffic.
+
+Left out, with the item that brings them: the census cases (A22) and
 the bench smoke (A8).
 """
 
@@ -28,6 +35,7 @@ import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.framework import cost as jax_cost
+from paddle_tpu.inference.llm import Fleet as JaxFleet
 from paddle_tpu.inference.llm import LLMEngine as JaxEngine
 from paddle_tpu.inference.llm.faults import FaultInjector as JaxInjector
 from paddle_tpu.models.gpt import gpt_tiny as jax_gpt_tiny
@@ -35,7 +43,9 @@ from paddle_tpu_torch.framework import cost
 from paddle_tpu_torch.inference.llm import (
     Fault,
     FaultInjector,
+    Fleet,
     LLMEngine,
+    MigrationError,
     assert_wall_clock_free,
     to_records,
 )
@@ -538,6 +548,116 @@ def _fault(build, kind, step):
         return Fault("tier", kind, step=step)
     from paddle_tpu.inference.llm.faults import Fault as JaxFault
     return JaxFault("tier", kind, step=step)
+
+
+# ---------------------------------------------------------------------------
+# the fleet's shared tier
+# ---------------------------------------------------------------------------
+def _tiny_fleet(models, replicas=2, **kw):
+    return Fleet(models[1], replicas=replicas, device="cpu",
+                 **{**ENGINE, **kw})
+
+
+def _drive_fleet(fl):
+    outs = {}
+    while fl.has_unfinished():
+        for fo in fl.step():
+            outs[fo.request_id] = fo
+        fl.check_invariants()
+    return outs
+
+
+class TestFleetTier:
+    def test_replicas_share_one_pool_and_store(self, models):
+        fl = _tiny_fleet(models, kv_tier="16MiB", num_blocks=16)
+        e0, e1 = fl.replicas[0].engine, fl.replicas[1].engine
+        assert e0.host_pool is e1.host_pool is fl.host_pool
+        assert e0.prefix_store is e1.prefix_store is fl.prefix_store
+        assert fl.router.prefix_store is fl.prefix_store
+        for p in _PROMPTS:
+            fl.add_request(p, max_new_tokens=8)
+        _drive_fleet(fl)
+        assert fl.tier_stats()["host_pool"]["chains"] == 0
+
+    def test_store_match_feeds_router_score(self, models):
+        fl = _tiny_fleet(models, kv_tier=_TIER, num_blocks=16)
+        keys = ["h0", "h1"]
+        assert fl.router.score(fl.replicas[0], keys) == 0
+        fl.prefix_store.put("h0", _entry(0, 1))
+        fl.prefix_store.put("h1", _entry(1, 1))
+        assert fl.router.score(fl.replicas[0], keys) == 2
+        assert fl.router.score(fl.replicas[1], keys) == 2
+
+    def test_drain_reroutes_running_through_tier(self, models):
+        """The peer has no free pages for a direct migration: the drain
+        demotes the chain into the shared pool and the peer swaps it in
+        at its own admission — token-exactly, and with the JAX fleet's
+        decisions."""
+        prompts = [list(range(3, 27)), list(range(40, 64))]
+        runs = []
+        for build in (_tiny_fleet, None):
+            kw = dict(kv_tier=_TIER, num_blocks=6, max_model_len=48)
+            fl = build(models, **kw) if build else \
+                JaxFleet(models[0], replicas=2, **{**ENGINE, **kw})
+            for p in prompts:
+                fl.add_request(p, max_new_tokens=16)
+            for _ in range(3):
+                fl.step()
+                fl.check_invariants()
+            assert fl.drain_replica(0)
+            fl.check_invariants()
+            runs.append((fl, _drive_fleet(fl)))
+        (fl, outs), (jfl, jouts) = runs
+        assert any(e[1] == "tier_reroute" for e in fl.events)
+        assert fl.stats["tier_rerouted"] >= 1
+        ref = _tiny_engine(models, num_blocks=64, max_model_len=48)
+        out_r = ref.generate(prompts, max_new_tokens=16)
+        for rid, b in zip(sorted(outs), out_r):
+            np.testing.assert_array_equal(outs[rid].all_ids, b)
+            np.testing.assert_array_equal(
+                outs[rid].all_ids, np.asarray(jouts[rid].all_ids))
+        assert fl.events == jfl.events
+        for a, b in zip(fl.replicas, jfl.replicas):
+            assert to_records(a.engine.events) == \
+                to_records(b.engine.events)
+        assert fl.tier_stats() == jfl.tier_stats()
+
+    def test_adopt_waiting_validates(self, models):
+        eng = _tiny_engine(models, num_blocks=16, kv_tier=_TIER)
+        rid = eng.add_request(_PROMPTS[0], max_new_tokens=4)
+        req = eng._requests[rid]
+        with pytest.raises(ValueError, match="already live"):
+            eng.adopt_waiting(req)
+        other = _tiny_engine(models, num_blocks=16)
+        req.adapter_id = "tenant-x"
+        with pytest.raises(MigrationError, match="adapter"):
+            other.adopt_waiting(req)
+
+
+# ---------------------------------------------------------------------------
+# the simulator over the tier
+# ---------------------------------------------------------------------------
+class TestSimTier:
+    def test_calibrate_decisions_exact_with_tier(self, models):
+        from paddle_tpu_torch.sim.simulator import calibrate
+
+        arrivals = [0.0, 0.0, 0.01, 0.02]
+        prompts = _PROMPTS + [list(range(9, 25))]
+        kw = dict(ENGINE, num_blocks=12, kv_tier=_TIER, device="cpu")
+        r = calibrate(models[1], (arrivals, prompts, [16] * 4),
+                      engine_kwargs=kw, profile="cpu")
+        assert r["decisions_exact"] and r["tokens_exact"]
+        assert r["real"]["steps"] > 0
+
+    def test_sim_clock_charges_tier_traffic(self, models):
+        from paddle_tpu_torch.sim.simulator import simulate
+
+        base = dict(ENGINE, num_blocks=12, device="cpu")
+        res_t, tgt = simulate(
+            models[1], ([0.0] * 3, _PROMPTS, [24] * 3), profile="cpu",
+            engine_kwargs=dict(base, kv_tier=_TIER))
+        assert any(e[1] == "demote" for e in tgt.events)
+        assert res_t["virtual_s"] > 0
 
 
 # ---------------------------------------------------------------------------

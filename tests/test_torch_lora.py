@@ -16,17 +16,20 @@ step within 1e-4 of the JAX step's in f32, and in bf16 by mean |error|
 beside a control without the adapter; admission (unknown adapters
 rejected with the engine untouched, ``tenant_quota`` shedding, the
 distinct-adapter gate); ``lora_pool_bytes`` equal to the JAX memory
-model's; the HTTP ``adapter`` field and ``n=2`` fork families.
+model's; the HTTP ``adapter`` field and ``n=2`` fork families; a
+migration refused by a destination that cannot serve the adapter and
+resumed token-exact by one that can; a LoRA fleet's failover and the
+re-registration of a restarted replica, with the JAX fleet's events.
 
-Left out, with the item that brings them: the migration and fleet cases
-(A14), tensor parallelism (A20), the census (A22) and the bench smoke
-(A8).  The JAX compile-watcher cases become the port's capture check on
+Left out, with the item that brings them: tensor parallelism (A20), the
+census (A22) and the bench smoke (A8).  The JAX compile-watcher cases become the port's capture check on
 the card (``chip_smoke.py``'s ``lora_serving`` phase); their token
 checks run here.
 """
 
 import http.client
 import json
+import warnings
 
 import numpy as np
 import pytest
@@ -35,12 +38,15 @@ import torch
 import jax.numpy as jnp
 
 import paddle_tpu as paddle
+from paddle_tpu.inference.llm import Fleet as JaxFleet
 from paddle_tpu.inference.llm import LLMEngine as JaxEngine
 from paddle_tpu.models.gpt import gpt_tiny as jax_gpt_tiny
 from paddle_tpu_torch.inference.llm import (
     FinishReason,
+    Fleet,
     HttpLLMServer,
     LLMEngine,
+    MigrationError,
     assert_wall_clock_free,
     prefix_block_hashes,
     to_records,
@@ -706,3 +712,78 @@ class TestServingSurfaces:
         # greedy forks are identical — both must match the merged ref
         for key in (rid, f"{rid}.1"):
             np.testing.assert_array_equal(outs[key].all_ids, want)
+
+
+# ---------------------------------------------------------------------------
+class TestMigrationAndFleet:
+    def test_migration_guards_unknown_destination(self, models):
+        src = _port(models, lora=dict(rank=2, max_adapters=3))
+        src.add_adapter("t", _weights(src, seed=1))
+        p = _prompts(n=1)[0]
+        rid = src.add_request(p, max_new_tokens=8, adapter_id="t")
+        for _ in range(3):
+            src.step()
+        assert len(src._requests[rid].output_ids) >= 1
+        state = src.export_request(rid)
+        for dst in (_port(models),                       # no lora= at all
+                    _port(models, lora=dict(rank=2, max_adapters=3))):
+            before = dst.block_manager.num_free_blocks
+            with pytest.raises(MigrationError) as ei:
+                dst.import_request(state["request"], state["seq"],
+                                   state["k_pages"], state["v_pages"])
+            assert ei.value.reason == "adapter"
+            assert dst.block_manager.num_free_blocks == before
+        dst = _port(models, lora=dict(rank=2, max_adapters=3))
+        dst.add_adapter("t", _weights(dst, seed=1))
+        dst.import_request(state["request"], state["seq"],
+                           state["k_pages"], state["v_pages"])
+        src.release_request(rid)
+        out = _drive(dst)[rid]
+        ref = _port(models, lora=dict(rank=2, max_adapters=3))
+        ref.add_adapter("t", _weights(ref, seed=1))
+        want = ref.generate([p], max_new_tokens=8, adapter_id="t")[0]
+        np.testing.assert_array_equal(out.all_ids, want)
+
+    def test_fleet_failover_and_restart_reregistration(self, models):
+        """A LoRA fleet loses a replica mid-decode: the adapter requests
+        replay on the survivor token-exact against one engine, with the
+        JAX fleet's events; the restarted replica knows the adapter."""
+        lora = dict(rank=4, max_adapters=3)
+        ref = _port(models, lora=lora)
+        w = _weights(ref, seed=2)
+        ref.add_adapter("t", w)
+        prompts = _prompts(seed=4, n=4)
+        want = ref.generate(prompts, max_new_tokens=8, adapter_id="t")
+        runs = []
+        for build in (Fleet, JaxFleet):
+            model = models[1] if build is Fleet else models[0]
+            kw = {"device": "cpu"} if build is Fleet else {}
+            fleet = build(model, replicas=2, lora=lora, **ENGINE, **kw)
+            fleet.add_adapter("t", w)
+            with pytest.raises(ValueError, match="already"):
+                fleet.add_adapter("t", w)
+            rids = [fleet.add_request(p, max_new_tokens=8, adapter_id="t")
+                    for p in prompts]
+            for _ in range(3):
+                fleet.step()
+            outs = {}
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                assert fleet.kill_replica(1) is True
+                while fleet.has_unfinished():
+                    for fo in fleet.step():
+                        outs[fo.request_id] = fo
+            runs.append((fleet, outs, rids))
+        (fleet, outs, rids), (jfleet, jouts, _) = runs
+        for rid, wnt in zip(rids, want):
+            assert outs[rid].ok
+            np.testing.assert_array_equal(outs[rid].all_ids, wnt)
+        _assert_same_tokens(outs, jouts, rids)
+        assert fleet.events == jfleet.events
+        assert to_records(fleet.replicas[0].engine.events) == \
+            to_records(jfleet.replicas[0].engine.events)
+        fleet.restart_replica(1)
+        assert fleet.replicas[1].engine._lora_mgr.known("t")
+        eng = fleet.replicas[1].engine
+        rid = eng.add_request(prompts[0], max_new_tokens=8, adapter_id="t")
+        np.testing.assert_array_equal(_drive(eng)[rid].all_ids, want[0])

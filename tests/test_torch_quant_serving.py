@@ -19,6 +19,12 @@
 - ``quality.py``: the report's numbers match the JAX report's at 1e-4
   relative (the perplexity delta at 1e-4 of the perplexity), and an
   engine against itself is perfect.
+- Migration between int8 engines: the int8 pages and their scale pages
+  move together, a request handed over mid-decode resumes token-exact
+  against an unmigrated int8 engine and the JAX engines doing the same
+  handoff, and a fleet drain migrating int8 chains makes the JAX
+  fleet's decisions; a quantized import without scales, and a scale
+  payload offered to a float pool, are refused before any allocation.
 """
 
 import numpy as np
@@ -29,7 +35,9 @@ import jax
 import jax.numpy as jnp
 
 import paddle_tpu as paddle
+from paddle_tpu.inference.llm import Fleet as JaxFleet
 from paddle_tpu.inference.llm import LLMEngine as JaxEngine
+from paddle_tpu.inference.llm import to_records as jax_records
 from paddle_tpu.inference.llm import quality as jax_quality
 from paddle_tpu.inference.llm import quant as jax_quant
 from paddle_tpu.inference.llm.paged_attention import (
@@ -40,7 +48,13 @@ from paddle_tpu.ops.pallas.ragged_attention_kernel import (
     paged_ragged_attention_quant_pallas,
 )
 from paddle_tpu_torch.framework import cost
-from paddle_tpu_torch.inference.llm import LLMEngine, quality, quant
+from paddle_tpu_torch.inference.llm import (
+    Fleet,
+    LLMEngine,
+    quality,
+    quant,
+    to_records,
+)
 from paddle_tpu_torch.inference.llm import paged_attention as port
 from paddle_tpu_torch.models.gpt import gpt_tiny
 from paddle_tpu_torch.ops.cuda import ragged_attention_kernel as cuda_kernel
@@ -419,3 +433,112 @@ def test_dense_logits_match_int8_engine_argmax(models):
     logits = quality.engine_logits(pe, out)
     np.testing.assert_array_equal(
         np.argmax(logits[len(prompt) - 1:-1], -1), out[len(prompt):])
+
+
+# ---------------------------------------------------------- migration --
+def _handoff(e0, e1, prompts, new=10, mover=1):
+    """Run ``prompts`` on ``e0``, move request ``mover`` with its pages
+    and scales to ``e1`` mid-decode, finish both -> {rid: output}."""
+    rids = [e0.add_request(p, max_new_tokens=new) for p in prompts]
+    outs = {}
+    for _ in range(4):
+        for fo in e0.step():
+            outs[fo.request_id] = fo
+    state = e0.export_request(rids[mover])
+    assert "k_scales" in state and "v_scales" in state
+    e1.import_request(state["request"], state["seq"], state["k_pages"],
+                      state["v_pages"], k_scales=state["k_scales"],
+                      v_scales=state["v_scales"])
+    e0.release_request(rids[mover])
+    while e0.has_unfinished() or e1.has_unfinished():
+        for fo in e0.step() + e1.step():
+            outs[fo.request_id] = fo
+    return outs
+
+
+def test_int8_export_import_resumes_token_exact(models):
+    prompts = _prompts(n=3)
+    want = _engines(models, "int8")[1].generate(prompts, max_new_tokens=10)
+    je0, pe0 = _engines(models, "int8")
+    je1, pe1 = _engines(models, "int8")
+    outs = _handoff(pe0, pe1, prompts)
+    for rid, w in enumerate(want):
+        np.testing.assert_array_equal(outs[rid].all_ids, w)
+    jouts = _handoff(je0, je1, prompts)
+    for rid in outs:
+        np.testing.assert_array_equal(outs[rid].all_ids,
+                                      np.asarray(jouts[rid].all_ids))
+    assert to_records(pe1.events) == jax_records(je1.events)
+    pe1.block_manager.check_invariants()
+    assert pe1.block_manager.num_free_blocks == pe1.num_blocks
+
+
+def test_int8_fleet_drain_migration_matches_jax(models):
+    """An int8 fleet drained mid-decode moves its chains (pages and
+    scales) to the peer: outputs equal one int8 engine, and the fleet
+    events and replica records equal the JAX int8 fleet's."""
+    prompts = _prompts(n=6, seed=3)
+    want = _engines(models, "int8")[1].generate(prompts, max_new_tokens=10)
+    runs = []
+    for build in (Fleet, JaxFleet):
+        kw = {"device": "cpu"} if build is Fleet else {}
+        fleet = build(models[1] if build is Fleet else models[0],
+                      replicas=2, quantize="int8", migration="always",
+                      **ENGINE, **kw)
+        for p in prompts:
+            fleet.add_request(p, max_new_tokens=10)
+        outs, step = {}, 0
+        while fleet.has_unfinished():
+            for fo in fleet.step():
+                outs[fo.request_id] = fo
+            if step == 3:
+                fleet.drain_replica(1)
+            fleet.check_invariants()
+            step += 1
+        runs.append((fleet, outs))
+    (fleet, outs), (jfleet, jouts) = runs
+    assert fleet.stats["migrated"] >= 1
+    assert fleet.stats == jfleet.stats
+    assert fleet.events == jfleet.events
+    for a, b in zip(fleet.replicas, jfleet.replicas):
+        assert to_records(a.engine.events) == jax_records(b.engine.events)
+    for rid, w in enumerate(want):
+        np.testing.assert_array_equal(outs[rid].all_ids, w)
+        np.testing.assert_array_equal(outs[rid].all_ids,
+                                      np.asarray(jouts[rid].all_ids))
+
+
+def _exported_int8(models):
+    e0 = _engines(models, "int8")[1]
+    rid = e0.add_request(_prompts(n=1)[0], max_new_tokens=8)
+    for _ in range(3):
+        e0.step()
+    return e0.export_request(rid)
+
+
+def test_scale_payload_mismatch_raises(models):
+    state = _exported_int8(models)
+    e1 = _engines(models, "int8")[1]
+    before = e1.block_manager.num_free_blocks
+    with pytest.raises(ValueError, match="scale"):
+        e1.import_request(state["request"], state["seq"],
+                          state["k_pages"], state["v_pages"])
+    with pytest.raises(ValueError, match="scale payload"):
+        e1.import_request(state["request"], state["seq"],
+                          state["k_pages"], state["v_pages"],
+                          k_scales=state["k_scales"][:, :, :1],
+                          v_scales=state["v_scales"][:, :, :1])
+    assert e1.block_manager.num_free_blocks == before
+    assert not e1._requests
+
+
+def test_quant_to_unquant_import_rejected(models):
+    state = _exported_int8(models)
+    e1 = _engines(models, None)[1]
+    before = e1.block_manager.num_free_blocks
+    with pytest.raises(ValueError, match="full-precision"):
+        e1.import_request(state["request"], state["seq"],
+                          state["k_pages"], state["v_pages"],
+                          k_scales=state["k_scales"],
+                          v_scales=state["v_scales"])
+    assert e1.block_manager.num_free_blocks == before
