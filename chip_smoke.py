@@ -9,6 +9,8 @@ one NVIDIA GPU.
                                            # phases (no contract line)
     python3 chip_smoke.py fleet            # only the fleet and simulator
                                            # phases (no contract line)
+    python3 chip_smoke.py tp               # only the tensor-parallel
+                                           # phases (no contract line)
 
 Run from the root of a checkout on a machine with a CUDA GPU and the
 CUDA toolkit.  Phases, each printing its own lines; any failure raises
@@ -153,6 +155,20 @@ and the script exits non-zero:
               decision- and token-exact; the ``"h100"`` StepTimeModel
               against replayed steps; a pure 8-replica simulation's
               wall time);
+   tensor parallelism — two ranks on the one card (``mesh=["cuda:0",
+              "cuda:0"]``: a worker process, gloo all-reduces through the
+              host): ``tp_exactness`` (the exactness model, token for
+              token against a tp=1 engine through prefix-cache hits,
+              preemption, LoRA with an eviction and lookahead, then int8
+              pools (B5) with draft-model and n-gram drafting; on each
+              rank B1 or B5 on every layer of every launch; a
+              ``tensor_parallel=`` past the visible devices refused);
+              ``tp_serving`` (GPT-124M bf16 at the serving settings: the
+              burst against the tp=1 engine, tokens/s, TTFT, first greedy
+              divergences with their top-2 gaps, each rank's device bytes
+              against the memory model, wall ms a decode step with the
+              host's broadcast and all-reduce ms, one greedy request
+              through ``HttpLLMServer``, the ``mp`` backend);
 8. dense decode — FusedMultiTransformer over GPT-124M in bf16 (batch 8,
               128-token prompts, 64 new tokens) and Llama-160M in f32
               (batch 8, 32 prompt tokens through ``decode_step`` into a
@@ -169,10 +185,11 @@ and the script exits non-zero:
 The launches in the ``kernels`` line are those of each kernel's main
 path, each run with the counts at 0 just before and read just after:
 the bf16 serving burst, the front end's server run, the speculation
-phases' runs, the multi-LoRA and KV-tier phases' runs and the fleet and
-simulator phases' runs (summed) for ragged attention, the int8 burst,
-the int8 LoRA burst, the int8 tier run and the int8 fleet runs (summed)
-for its int8 twin, the FMT and Llama decode runs (summed) for the decode
+phases' runs, the multi-LoRA and KV-tier phases' runs, the fleet and
+simulator phases' runs and the tensor-parallel phases' runs on every
+rank (summed) for ragged attention, the int8 burst, the int8 LoRA
+burst, the int8 tier run, the int8 fleet runs and the int8
+tensor-parallel run on every rank (summed) for its int8 twin, the FMT and Llama decode runs (summed) for the decode
 kernel, the timed training steps for the others.  The second-to-last
 line is that JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  The script imports only torch, numpy and the port.
@@ -488,6 +505,12 @@ def ragged_attention_phase(entry, dev):
                           _full_width_tables(4), list(range(8)), [1] * 8,
                           pos, seed=5)
     err_decode = check("gpt124m_decode_T8", decode)
+    # a tensor-parallel rank's shard of the same step (tp = 2: 6 of the
+    # 12 heads on its own pool shard), the shape tp_serving launches
+    shard = _ragged_case(dev, bf16, 512, 16, 6, 6, 64, 8,
+                         _full_width_tables(4), list(range(8)), [1] * 8,
+                         pos, seed=5)
+    check("gpt124m_tp2_shard_decode_T8", shard)
     # the bf16 burst's decode contexts (the engine's main path)
     pos = np.random.RandomState(13).randint(130, 191, size=8)
     burst = _ragged_case(dev, bf16, 512, 16, 12, 12, 64, 8,
@@ -541,6 +564,8 @@ def ragged_attention_phase(entry, dev):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     timings = {}
     for label, args in (("decode_T8", decode), ("mixed_T256", mixed),
+                        ("tp2_shard_decode_T8 6/6 heads depths 600-1000",
+                         shard),
                         ("burst_decode_T8 depths 130-190", burst),
                         ("verify_T64 8x(1+4) depths 130-190", verify[bf16]),
                         ("draft_chain_T8 depths 64-576", chain)):
@@ -1138,6 +1163,10 @@ def ragged_quant_phase(entries, dev):
     decode = _ragged_case(dev, f32, 512, 16, 12, 12, 64, 8,
                           _full_width_tables(4), list(range(8)), [1] * 8,
                           pos, seed=5)
+    # a tensor-parallel rank's shard of it (tp = 2: 6 of the 12 heads)
+    shard = _ragged_case(dev, f32, 512, 16, 6, 6, 64, 8,
+                         _full_width_tables(4), list(range(8)), [1] * 8,
+                         pos, seed=5)
     gqa = _ragged_case(dev, f32, 512, 16, 32, 8, 128, 64,
                        _full_width_tables(6)[:4], [0, 1, 41, 41],
                        [1, 40, 7, 0], [700, 90, 15, 0], seed=7)
@@ -1146,7 +1175,9 @@ def ragged_quant_phase(entries, dev):
                          *_split_edge_rows(split_kv.CHUNK), seed=17)
     main = {}
     for label, base in (("gpt124m_mixed_T256", mixed),
-                        ("gpt124m_decode_T8", decode), ("gqa4_d128", gqa),
+                        ("gpt124m_decode_T8", decode),
+                        ("gpt124m_tp2_shard_decode_T8", shard),
+                        ("gqa4_d128", gqa),
                         ("split_edges", edges),
                         ("long_prefill_row_slots",
                          _long_prefill_case(dev, f32))):
@@ -1158,7 +1189,8 @@ def ragged_quant_phase(entries, dev):
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     timings = {}
-    for label in ("gpt124m_decode_T8", "gpt124m_mixed_T256"):
+    for label in ("gpt124m_decode_T8", "gpt124m_mixed_T256",
+                  "gpt124m_tp2_shard_decode_T8"):
         args = main[label][0]
         ms = time_ms(lambda: entry.kernel(*args), flush)
         plain_ms = time_ms(lambda: entry.plain(*args), flush)
@@ -4704,6 +4736,300 @@ def sim_phase(dev, smi, model):
     return b1
 
 
+# --------------------------------------------------- tensor parallel --
+# two ranks on the one card: gloo carries their all-reduces through the
+# host, since NCCL refuses two ranks on one device
+_TP_MESH = ["cuda:0", "cuda:0"]
+
+
+def _tp_launches(before, after):
+    """Each rank's (B1, B5) launches between two ``_rank_stats()``
+    readings."""
+    names = ("paged_ragged_attention", "paged_ragged_attention_quant")
+    return [tuple(a["launches"][n] - b["launches"][n] for n in names)
+            for b, a in zip(before, after)]
+
+
+def _tp_run(eng, reqs):
+    """Serve ``(prompt, new tokens, adapter)`` requests at once -> each
+    one's output ids, in order."""
+    rids = [eng.add_request(p, max_new_tokens=n, adapter_id=a)
+            for p, n, a in reqs]
+    outs = _drive(eng)
+    return [outs[r].output_ids.tolist() for r in rids]
+
+
+def _tp_pair(one, eng, scenarios, kernel):
+    """Each scenario (a name and its requests) through the tp=1 engine
+    ``one``, then through the tp=2 engine ``eng`` with every rank's
+    launches read around it: tokens equal scenario by scenario, and on
+    each rank ``kernel`` (0 = B1, 1 = B5) launched on every layer of
+    every target launch (and every draft layer of every draft launch),
+    the other kernel never.  Returns (each rank's launches of ``kernel``,
+    the per-scenario records)."""
+    rows, per_rank = [], [0] * eng.tp
+    for name, reqs in scenarios:
+        want = _tp_run(one, reqs)
+        launches0 = eng.stats["launches"], eng.stats["draft_launches"]
+        before = eng._rank_stats()
+        got = _tp_run(eng, reqs)
+        ranks = _tp_launches(before, eng._rank_stats())
+        steps = eng.stats["launches"] - launches0[0]
+        drafts = eng.stats["draft_launches"] - launches0[1]
+        expect = eng.num_layers * steps + (
+            len(eng._draft_layers) * drafts if eng._draft_bm is not None
+            else 0)
+        rows.append({"scenario": name, "requests": len(reqs),
+                     "tokens_equal": got == want, "launches": steps,
+                     "draft_launches": drafts, "expected": expect,
+                     "rank_launches": ranks})
+        if got != want:
+            raise RuntimeError(f"tp=2 {name}: tokens {got} != tp=1 {want}")
+        for r, launches in enumerate(ranks):
+            if launches[kernel] != expect or launches[1 - kernel]:
+                raise RuntimeError(f"tp=2 {name}: rank {r} launched "
+                                   f"{launches}, want {expect} of kernel "
+                                   f"{kernel} and none of the other")
+            per_rank[r] += launches[kernel]
+    return per_rank, rows
+
+
+def tp_exactness_phase(dev):
+    """Tensor parallelism on the exactness model (gpt_tiny widths, f32),
+    two ranks on the one card against a tp=1 engine, token for token: a
+    LoRA + lookahead engine over 12 pages through prefix-cache hits,
+    preemption with recompute and three adapters over two slots; an int8
+    engine (B5) drafting with the draft model and its n-gram leg (K = 4).
+    On each rank B1 (B5) runs on every layer of every launch.  Then a
+    tensor_parallel= past the visible devices must be refused.  Returns
+    (B1, B5) launches summed over the ranks."""
+    import torch
+
+    from paddle_tpu_torch.inference.llm import LLMEngine, LoRAConfig
+
+    model, prompts = _exactness_model_and_prompts(dev)
+    base = dict(device=dev, block_size=8, max_batch=4, token_budget=16)
+    b1 = b5 = 0
+    rng = np.random.RandomState(31)
+    cfg = dict(base, num_blocks=12, lookahead=True,
+               lora=LoRAConfig(rank=4, max_adapters=3))
+    t0 = time.perf_counter()
+    one = LLMEngine(model, **cfg)
+    eng = LLMEngine(model, mesh=_TP_MESH, **cfg)
+    spawn_s = time.perf_counter() - t0
+    for e in (one, eng):
+        for i in range(3):
+            e.add_adapter(f"a{i}", _lora_weights(e, 40 + i, 0.3, 0.3))
+    long = [list(rng.randint(0, 128, 5)) for _ in range(4)]
+    lora_prompts = [list(rng.randint(0, 128, 6 + i)) for i in range(5)]
+    scenarios = [
+        ("prefix_cache", [(p, 8, None) for p in prompts]),
+        ("preemption", [(p, 40, None) for p in long]),
+        ("lora_eviction", [(p, 8, a) for p, a in zip(
+            lora_prompts, [None, "a0", "a1", "a2", "a0"])])]
+    ranks, rows = _tp_pair(one, eng, scenarios, 0)
+    b1 += sum(ranks)
+    checks = {"prefix_hit_tokens":
+              eng.prefix_cache_stats()["prefix_hit_tokens"],
+              "preemptions": eng.scheduler.num_preemptions,
+              "lora_evictions": eng.lora_stats()["evictions"],
+              "staged_hits": eng.lifecycle_stats()["staged_hits"]}
+    say("tp_exactness", engine="f32 lora + lookahead, 12 pages",
+        backend=eng._tp.backend, spawn_s=spawn_s,
+        graph_captures=eng._graphs.captures, scenarios=rows, **checks)
+    if not all(checks.values()) or eng._graphs.captures:
+        raise RuntimeError(f"tp_exactness missed a path: {checks}, "
+                           f"{eng._graphs.captures} captures")
+    del one, eng
+    cfg = dict(base, quantize="int8", speculative={
+        "method": "draft-model", "num_tokens": 4, "draft_layers": 1})
+    one = LLMEngine(model, **cfg)
+    eng = LLMEngine(model, mesh=_TP_MESH, **cfg)
+    spec = [(p, 16, None) for p in _spec_prompts()]
+    ranks, rows = _tp_pair(one, eng, [("int8_draft_and_ngram", spec)], 1)
+    b5 += sum(ranks)
+    st = eng.spec_stats()
+    say("tp_exactness", engine="int8 draft-model K=4 (n-gram leg on)",
+        backend=eng._tp.backend, scenarios=rows, spec_stats=st,
+        spec_stats_equal=st == one.spec_stats())
+    if not (st["model_drafts"] and st["ngram_drafts"]
+            and st["accepted_tokens"]) or st != one.spec_stats():
+        raise RuntimeError(f"tp int8 speculation: {st} vs "
+                           f"{one.spec_stats()}")
+    del one, eng
+    k = torch.cuda.device_count()
+    try:
+        LLMEngine(model, tensor_parallel=k + 1, **base)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise RuntimeError("tensor_parallel past the visible devices was "
+                           "accepted")
+    if f"exceeds the {k} visible devices" not in refused:
+        raise RuntimeError(f"unexpected refusal: {refused}")
+    say("tp_exactness_refusal", tensor_parallel=k + 1, error=refused)
+    return b1, b5
+
+
+def _tp_decode_window(eng, dev, prompts, window=16):
+    """Prefill ``prompts``, then ``window`` decode steps on the host
+    clock -> wall ms a step and, on a tensor-parallel engine, rank 0's ms
+    a step in the command broadcasts, in the all-reduces (split into the
+    copies through the host, which wait for rank 0's partial, and the
+    exchange, which waits for the worker's) and in the rest, beside the
+    worker's own all-reduce ms; the requests are then aborted."""
+    import torch
+
+    rids = [eng.add_request(p, max_new_tokens=4 * window) for p in prompts]
+    while eng.scheduler.waiting or not all(
+            r.prefill_done for r in eng.scheduler.running):
+        eng.step()
+    torch.cuda.synchronize(dev)
+    ch = None if eng._tp is None else eng._tp.channel
+    marks = None if ch is None else (ch.bcast_s, ch.allreduce_s,
+                                     ch.allreduces, ch.exchange_s,
+                                     eng._rank_stats()[1:])
+    t0 = time.perf_counter()
+    for _ in range(window):
+        eng.step()
+    torch.cuda.synchronize(dev)
+    wall = (time.perf_counter() - t0) / window * 1e3
+    out = {"rows": len(prompts), "wall_ms_per_step": wall}
+    if ch is not None:
+        bcast = (ch.bcast_s - marks[0]) / window * 1e3
+        reduce = (ch.allreduce_s - marks[1]) / window * 1e3
+        exchange = (ch.exchange_s - marks[3]) / window * 1e3
+        workers = [(a["allreduce_s"] - b["allreduce_s"]) / window * 1e3
+                   for b, a in zip(marks[4], eng._rank_stats()[1:])]
+        out.update(broadcast_ms_per_step=bcast,
+                   allreduce_ms_per_step=reduce,
+                   allreduce_exchange_ms_per_step=exchange,
+                   allreduce_host_copies_ms_per_step=reduce - exchange,
+                   allreduces_per_step=(ch.allreduces - marks[2]) / window,
+                   rest_ms_per_step=wall - bcast - reduce,
+                   worker_allreduce_ms_per_step=workers)
+    for r in rids:
+        eng.abort_request(r)
+    _drive(eng)
+    return out
+
+
+def tp_serving_phase(dev, smi):
+    """GPT-124M bf16 at the serving settings, tensor-parallel over two
+    ranks on the one card, against the tp=1 engine: the 16-request burst
+    (tokens/s, TTFT p50, each rank's B1 launches equal to L x the
+    engine's launches, the first greedy divergences with their top-2
+    gaps); each rank's device bytes against the tp-aware memory model;
+    wall ms a decode step with rank 0's host share split into broadcast,
+    all-reduce and the rest; one greedy request through
+    ``HttpLLMServer`` over the TP engine equal to its ``generate``.  The
+    numbers measure what the TP path costs on one card, not a multi-card
+    speedup.  Returns B1 launches summed over the ranks."""
+    import torch
+
+    from paddle_tpu_torch.inference.llm import HttpLLMServer, LLMEngine
+    from paddle_tpu_torch.models.gpt import gpt_124m
+    from paddle_tpu_torch.ops.cuda import registry
+
+    def held():
+        torch.cuda.synchronize(dev)
+        return torch.cuda.memory_allocated(dev)
+
+    model = gpt_124m(device=dev, seed=0, dtype=torch.bfloat16).eval()
+    prompts, sampled = _burst_prompts()
+    rng = np.random.RandomState(77)
+    window = [list(rng.randint(0, 50257, 128)) for _ in range(8)]
+    greedy = list(rng.randint(0, 50257, 40))
+    one = LLMEngine(model, device=dev, **_SERVE_ENGINE)
+    one.warmup()
+    want, _c, _l, rec1 = _fleet_burst(one, dev)
+    win1 = _tp_decode_window(one, dev, window)
+    del one
+    # what a process's cuBLAS workspaces hold in the caching allocator
+    # (a worker's GEMMs allocate its own): the bytes they give back
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    workspaces = None
+    if clear is not None:
+        workspaces = held()
+        clear()
+        workspaces -= held()
+    torch.cuda.empty_cache()
+    before = held()
+    t0 = time.perf_counter()
+    eng = LLMEngine(model, device=dev, mesh=_TP_MESH, **_SERVE_ENGINE)
+    build_s = time.perf_counter() - t0
+    built = held()
+    warm = eng.warmup()
+    registry.reset_counts()
+    s0 = eng._rank_stats()
+    got, _counts, launches, rec2 = _fleet_burst(eng, dev)
+    s1 = eng._rank_stats()
+    ranks = _tp_launches(s0, s1)
+    expect = eng.num_layers * launches
+    divergences = _burst_divergences(model, dev, sampled, got, want)
+    mm = eng.memory_model()
+    nbytes = eng.dtype.itemsize
+    sinks = 2 * eng.num_layers * eng._nh_local * eng.head_dim * nbytes
+    embed = sum(w.numel() * w.element_size()
+                for w in eng.params["embed"].values())
+    shared = sum(w.numel() * w.element_size()
+                 for w in eng.params["embed"].values()
+                 if any(w.data_ptr() == p.data_ptr()
+                        for p in model.parameters()))
+    memory = [{"rank": 0, "device_bytes": built - before,
+               "predicted": mm["weights_bytes"] - shared
+               + mm["kv_pool_bytes"] + sinks,
+               "note": "allocated at construction; the embeddings are "
+                       "the model's own tensors (shared)"},
+              {"rank": 1, "device_bytes": s1[1]["device_bytes"],
+               "predicted": mm["weights_bytes"] + mm["kv_pool_bytes"]
+               + sinks, "params_bytes": s1[1]["params_bytes"],
+               "pool_bytes": s1[1]["pool_bytes"],
+               "unattributed": s1[1]["device_bytes"]
+               - s1[1]["params_bytes"] - s1[1]["pool_bytes"],
+               "rank0_cublas_workspace_bytes": workspaces,
+               "note": "all the worker process holds after the burst"}]
+    win2 = _tp_decode_window(eng, dev, window)
+    ids = eng.generate([greedy], max_new_tokens=16)[0][len(greedy):]
+    srv = HttpLLMServer(engine=eng).start()
+    try:
+        status, body = _http(srv.address, "POST", "/v1/completions",
+                             {"prompt_ids": [int(t) for t in greedy],
+                              "max_new_tokens": 16})
+    finally:
+        srv.close()
+    http_ids = body["completions"][0]["output_ids"] if status == 200 \
+        else None
+    say("tp_serving", model="gpt_124m", dtype="bfloat16", nvidia_smi=smi,
+        backend=eng._tp.backend, build_s=build_s, warmup_ms=warm,
+        tp1=rec1, tp2=rec2,
+        tokens_per_s_ratio=rec2["tokens_per_s"] / rec1["tokens_per_s"],
+        ttft_p50_ratio=rec2["ttft_p50_ms"] / rec1["ttft_p50_ms"],
+        rank_launches=ranks, expected_launches=expect,
+        greedy_divergences=divergences, memory_model=mm,
+        rank_memory=memory, decode_window_tp1=win1,
+        decode_window_tp2=win2, http_status=status,
+        http_equal_generate=http_ids == ids.tolist(), embed_bytes=embed,
+        graph_captures=eng._graphs.captures)
+    if any(r[0] != expect or r[1] for r in ranks):
+        raise RuntimeError(f"tp_serving launches {ranks} != {expect}")
+    if http_ids != ids.tolist() or eng._graphs.captures:
+        raise RuntimeError(f"tp_serving: HTTP {status} {http_ids} != "
+                           f"generate {ids.tolist()}, or a graph was "
+                           f"captured ({eng._graphs.captures})")
+    del eng, model
+    torch.cuda.empty_cache()
+    return sum(r[0] for r in ranks)
+
+
+def tp_phases(dev, smi):
+    """The tensor-parallel phases, each main path's launches read around
+    it on every rank -> their (B1, B5) launches summed over the ranks."""
+    b1, b5 = tp_exactness_phase(dev)
+    b1 += tp_serving_phase(dev, smi)
+    return b1, b5
+
+
 def fleet_phases(dev, smi):
     """The fleet and simulator phases, each main path driven with the
     counts at 0 -> their summed (B1, B5) launches."""
@@ -4755,6 +5081,10 @@ def main():
         build_phase()
         fleet_phases(dev, smi)
         return
+    if sys.argv[1:] == ["tp"]:
+        build_phase()
+        tp_phases(dev, smi)
+        return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     build_phase()
@@ -4798,6 +5128,11 @@ def main():
     torch.cuda.empty_cache()
     # and the fleet and simulator phases' runs, B1's and B5's
     b1, b5 = fleet_phases(dev, smi)
+    launches["paged_ragged_attention"] += b1
+    launches["paged_ragged_attention_quant"] += b5
+    torch.cuda.empty_cache()
+    # and the tensor-parallel phases' runs, summed over the ranks
+    b1, b5 = tp_phases(dev, smi)
     launches["paged_ragged_attention"] += b1
     launches["paged_ragged_attention_quant"] += b5
     torch.cuda.empty_cache()

@@ -1,13 +1,15 @@
 """The serving engine's memory model and the tier's cost estimate.
 
-Port of the tp=1 part of ``paddle_tpu/framework/cost.py``
-(``parse_bytes``, ``engine_memory_model`` with its LoRA and host-tier
-keys, ``derive_max_batch``, ``migration_estimate``) and of the engine's
-``_params_bytes_per_chip``, plus ``measured_host_overhead_s`` over the
-engine's lookahead gauge, and ``StepTimeModel``, the simulator's step
-clock, with its estimates built from the engine's shapes.  The port
-serves on one card, so nothing is sharded: every parameter leaf counts
-whole.  ``DEVICE_PROFILES`` holds the JAX module's ``"cpu"`` profile (so
+Port of ``paddle_tpu/framework/cost.py``'s ``parse_bytes``,
+``engine_memory_model`` with its LoRA and host-tier keys,
+``derive_max_batch`` and ``migration_estimate``, plus
+``measured_host_overhead_s`` over the engine's lookahead gauge, and
+``StepTimeModel``, the simulator's step clock, with its estimates built
+from the engine's shapes.  The memory model is per chip, as the JAX
+one: a tensor-parallel engine's params are its rank 0's shard (the
+JAX engine's ``_params_bytes_per_chip`` is
+``inference/llm/tensor_parallel.py``'s ``params_bytes_per_chip``) and a
+page holds its ``nh / tp`` heads.  ``DEVICE_PROFILES`` holds the JAX module's ``"cpu"`` profile (so
 ``TierPolicy`` decides as the JAX engine does in the CPU tests) and an
 ``"h100"`` profile measured on the card; no TPU profile is carried over.
 The jaxpr cost walker and the census stay in the tooling slice.
@@ -79,29 +81,32 @@ def page_bytes(num_layers, block_size, num_heads, head_dim, itemsize,
 
 
 def engine_memory_model(engine, memory_budget=None, host_budget=None):
-    """Device-memory model of a live LLMEngine: weight bytes (the LoRA
-    adapter pools among them, also broken out as ``lora_pool_bytes``),
-    paged K/V pool bytes, per-page and per-sequence bytes, and — when a
-    budget is declared (here or at construction) — the admissible
-    ``max_batch`` the budget supports.
+    """Per-chip device-memory model of a live LLMEngine: weight bytes
+    (the LoRA adapter pools among them, also broken out as
+    ``lora_pool_bytes``; under tensor parallelism one rank's shard),
+    paged K/V pool bytes, per-page and per-sequence bytes (a rank's
+    ``nh / tp`` heads), and — when a budget is declared (here or at
+    construction) — the admissible ``max_batch`` the budget supports.
 
     The host-RAM tier (``kv_tier=``) is priced beside device memory: the
-    host pool and prefix store budgets, the payload of one tier page,
-    and — when ``host_budget`` is declared — how many tier pages that
-    host-RAM budget admits."""
+    host pool and prefix store budgets, the global payload of one tier
+    page (``page_bytes * tp``: a demoted chain carries every rank's
+    slice), and — when ``host_budget`` is declared — how many tier pages
+    that host-RAM budget admits."""
+    tp = getattr(engine, "tp", 1)
     weights = params_bytes(engine.params)
     lora = sum(w.numel() * w.element_size()
                for key, w in engine.params.get("blocks", {}).items()
                if key.startswith("lora."))
     kv_quant = bool(engine._kv_quant)
     page = page_bytes(engine.num_layers, engine.block_size,
-                      engine.num_heads, engine.head_dim,
+                      engine.num_heads // tp, engine.head_dim,
                       engine.dtype.itemsize, kv_quant)
     seq = engine.max_pages * page
     budget = parse_bytes(memory_budget if memory_budget is not None
                          else engine.memory_budget)
     model = {
-        "tp": 1,
+        "tp": tp,
         "kv_quantized": kv_quant,
         "weights_bytes": int(weights),
         "lora_pool_bytes": int(lora),
@@ -115,13 +120,15 @@ def engine_memory_model(engine, memory_budget=None, host_budget=None):
     tier = getattr(engine, "kv_tier", None)
     model["host_pool_bytes"] = int(tier.host_bytes) if tier else 0
     model["prefix_store_bytes"] = int(tier.store_bytes) if tier else 0
-    model["host_page_bytes"] = int(page)
+    host_page = int(page) * tp
+    model["host_page_bytes"] = host_page
     model["host_tier_pages"] = (
-        (model["host_pool_bytes"] + model["prefix_store_bytes"]) // page)
+        (model["host_pool_bytes"] + model["prefix_store_bytes"])
+        // host_page)
     hb = parse_bytes(host_budget)
     model["host_budget"] = hb
     if hb is not None:
-        model["host_budget_pages"] = int(hb // page)
+        model["host_budget_pages"] = int(hb // host_page)
     if budget is not None:
         try:
             model["derived_max_batch"] = derive_max_batch(budget, weights,
@@ -135,7 +142,8 @@ def engine_memory_model(engine, memory_budget=None, host_budget=None):
 
 def derive_max_batch(memory_budget, weights_bytes, seq_bytes):
     """pages + weights -> admissible batch: how many full-length
-    sequences' pages fit beside the weights on one card."""
+    sequences' pages fit beside the weights on one card (per-chip
+    numbers under tensor parallelism)."""
     budget = parse_bytes(memory_budget)
     free = budget - int(weights_bytes)
     if free < seq_bytes:
@@ -236,6 +244,10 @@ class StepTimeModel:
         bucket 8 and 0.065 at bucket 256 (``chip_smoke.py``'s
         ``sim_step_time_model`` line); a model built from measured
         ``times_s`` prices steps in the card's units."""
+        if getattr(engine, "tp", 1) > 1:
+            raise NotImplementedError(
+                "StepTimeModel.from_engine() is not ported yet for "
+                "tensor_parallel > 1: it comes with A20b (ROADMAP)")
         prof = DEVICE_PROFILES[profile] if isinstance(profile, str) \
             else profile
         ctx = engine.max_model_len // 2

@@ -94,11 +94,21 @@ waiting queue (the fleet's tier reroute).  ``fleet.py`` builds replicas,
 failover, drains and disaggregated prefill/decode on them;
 ``last_launches`` records each step's ``(kind, bucket)`` launches for the
 simulator's clock (``paddle_tpu_torch/sim``).
+
+Tensor parallelism (``tensor_parallel=`` / ``mesh=``,
+``tensor_parallel.py``) is the JAX engine's Megatron layout over ranks
+that are processes: this process is rank 0 and keeps the scheduler, the
+BlockManager and sampling; each worker holds its shard of the weights
+and pools of ``nh / tp`` heads.  Every step's packed operands go to
+every rank, each runs the same step body (:class:`_StepShard`) with its
+two all-reduces a layer, and rank 0 alone computes the head.  A tp > 1
+step runs eagerly on every rank: no step graph is captured.
 """
 
 import threading
 import time
 import warnings
+import weakref
 from collections import namedtuple
 
 import numpy as np
@@ -111,7 +121,6 @@ from ...framework.cost import (
     params_bytes,
     parse_bytes,
 )
-from ...framework.device import resolve_device
 from ...incubate.nn import _layernorm
 from ...jit.graphs import StepGraphs
 from .block_manager import BlockManager, NoFreeBlocksError
@@ -160,12 +169,22 @@ from .spec import (
     rollback_draft_reservation,
 )
 from .structured import ConstraintState
+from .tensor_parallel import (
+    OP_DRAFT,
+    OP_STEP,
+    RankLostError,
+    TPGroup,
+    adapter_half_shard,
+    permute_qkv,
+    qkv_head_permutation,
+    rank_stats,
+    resolve_mesh,
+    shard_params,
+)
 
-# JAX-engine keywords a later slice ports -> that slice
-_LATER_ENGINE = {
-    "tensor_parallel": "the tensor-parallel serving slice",
-    "mesh": "the tensor-parallel serving slice",
-}
+# what a tensor-parallel engine leaves to the next slice (ROADMAP A20b)
+_A20B = ("is not ported yet for tensor_parallel > 1: it comes with A20b "
+         "(ROADMAP)")
 # one model's paged K/V pools (LLMEngine._alloc_pools): the slot rows
 # with their sink, the page views of them, and the int8 pool's scales
 _Pools = namedtuple("_Pools", "k_rows v_rows kc vc ks_flat vs_flat ks vs")
@@ -174,15 +193,249 @@ _DTYPES = {None: torch.float32, "float32": torch.float32,
            torch.bfloat16: torch.bfloat16}
 
 
-def _reject_later(kwargs, table, where):
-    for key, value in kwargs.items():
-        if key not in table:
-            raise TypeError(f"{where}() got an unexpected keyword "
-                            f"argument {key!r}")
-        if value is not None:
-            raise NotImplementedError(
-                f"{where}({key}=...) is not ported yet: it comes with "
-                f"{table[key]}")
+def alloc_pools(num_layers, num_blocks, block_size, num_heads, head_dim,
+                kv_dtype, kv_quant, device):
+    """Zeroed K/V pools of ``num_layers`` layers -> :data:`_Pools`
+    (k_rows, v_rows, kc, vc, ks_flat, vs_flat, ks, vs).  Each layer's
+    slots are ``[NB * bs + 1, Nh, D]``: the last row is the sink that
+    padding tokens write; ``kc`` / ``vc`` ``[L, NB, bs, Nh, D]`` view the
+    rest, so a layer's pool stays contiguous for the kernel.  An int8
+    pool has per-(layer, page, head, slot) dequant scales, flat ``[L,
+    (NB + 1) * Nh * bs]``: the sink slot's scale index lands on page NB,
+    which ``ks`` / ``vs`` ``[L, NB, Nh, bs]`` leave out (None for a float
+    pool).  ``Nh`` is a rank's heads under tensor parallelism."""
+    nl, nb, bs, nh, hd = (num_layers, num_blocks, block_size, num_heads,
+                          head_dim)
+    k_rows, v_rows = (
+        torch.zeros((nl, nb * bs + 1, nh, hd), dtype=kv_dtype,
+                    device=device) for _ in range(2))
+    kc, vc = (rows[:, :nb * bs].view(nl, nb, bs, nh, hd)
+              for rows in (k_rows, v_rows))
+    ks = vs = ks_flat = vs_flat = None
+    if kv_quant:
+        ks_flat, vs_flat = (
+            torch.zeros((nl, (nb + 1) * nh * bs), dtype=torch.float32,
+                        device=device) for _ in range(2))
+        ks, vs = (flat.view(nl, nb + 1, nh, bs)[:, :nb]
+                  for flat in (ks_flat, vs_flat))
+    return _Pools(k_rows, v_rows, kc, vc, ks_flat, vs_flat, ks, vs)
+
+
+def lora_delta(p_l, key, x, onehot):
+    """Batched per-token adapter delta of one target GEMM: each token's
+    ``(x @ A_s) @ B_s`` for its row's slot s, with the alpha/rank scale
+    folded into the stored B — the JAX engine's ``lora_delta`` in another
+    form: ``x`` against every slot's A half at once ([Tb, A, r]), zeroed
+    outside each token's slot by ``onehot`` [Tb, A, 1], then one GEMM
+    against the pool's B halves flattened to [A * r, out].  The zeroed
+    slots add exact zeros, and no [Tb, in, r] gather of A or B is made.
+    Slot 0 is all-zero, so base rows add exact float zeros."""
+    a = p_l[lora_key(key, "A")]               # [A, in, r]
+    b = p_l[lora_key(key, "B")]               # [A, r, out]
+    h = torch.einsum("ti,air->tar", x, a) * onehot
+    return h.reshape(x.shape[0], -1) @ b.reshape(-1, b.shape[-1])
+
+
+class _StepShard:
+    """What one rank's step body reads: its params (``{group: {key:
+    tensor}}``, its shard under tensor parallelism), the per-layer views
+    of the stacked block leaves, its K/V pools (and a draft model's), and
+    the engine's dims and options from ``spec`` (see
+    ``LLMEngine._shard_spec``).  The engine's rank 0 and every worker of
+    ``tensor_parallel.py`` run :meth:`body` over one of these.
+
+    ``psum`` is the row-parallel reduction (None at tp = 1, where the
+    body is the one-card body unchanged); ``head`` whether the body
+    computes the tied head's logits and argmax (rank 0 only)."""
+
+    def __init__(self, params, pools, spec, device, psum=None, head=True):
+        self.params = params
+        self.pools = pools
+        self.device = device
+        self.psum = psum
+        self.head = head
+        self.rank, self.tp, self.perm = spec["rank"], spec["tp"], spec["perm"]
+        self.num_blocks = spec["num_blocks"]
+        self.block_size = spec["block_size"]
+        self.num_heads = spec["num_heads"]
+        self.head_dim = spec["head_dim"]
+        self.eps = spec["eps"]
+        self.max_batch = spec["max_batch"]
+        self.max_pages = spec["max_pages"]
+        self.dtype = spec["dtype"]
+        self.w_quant = spec["w_quant"]
+        self.kv_quant = spec["kv_quant"]
+        self.lora = spec["lora"]
+        blocks = params["blocks"]
+        self.layers = [{k: v[i] for k, v in blocks.items()}
+                       for i in range(spec["num_layers"])]
+        self.draft_layers = self.draft_pools = None
+
+    def set_draft(self, draft_layers, pools):
+        """The draft model: the first ``draft_layers`` blocks over
+        ``pools`` of their own."""
+        self.draft_layers = self.layers[:draft_layers]
+        self.draft_pools = pools
+
+    def wmat(self, p_l, key):
+        """A block GEMM's weight operand.  An int8 leaf dequantizes at the
+        operand load in the activation dtype (``w8 * scale``, as the JAX
+        engine's ``wmat``); the product is a transient of this step, and
+        the int8 leaf stays the only resident copy."""
+        w = p_l[key]
+        if self.w_quant:
+            return w.to(self.dtype) * p_l[scale_key(key)].to(self.dtype)
+        return w
+
+    @torch.no_grad()
+    def body(self, ints, layers=None, pools=None, lora=True):
+        """The step body: one ragged step over the packed int32 operands
+        ``ints`` on the shard's device -> (argmax [Tb], logits [Tb, V]),
+        through the blocks ``layers`` over the pools ``pools`` (by
+        default the target's; the draft model passes its own).  On a LoRA
+        engine with ``lora`` true the operands end with the rows' adapter
+        slots, and each block GEMM adds its rows' adapter deltas
+        (:func:`lora_delta`); the draft model runs without them, as the
+        JAX draft runs on slot 0.
+
+        What a CUDA graph captures per bucket and the CPU runs as it is:
+        it reads device tensors only, takes every length from shapes (the
+        bucket from ``ints``' length), copies nothing from the host and
+        counts nothing.  Every token writes its K/V before attention
+        reads the pool; padding tokens (position -1) write each layer's
+        sink row (slot ``NB * bs``, the JAX step's dropped slot), so the
+        visible pools see live tokens only.
+
+        Under tensor parallelism the shard's qkv columns are its head
+        group, its pools hold its heads, and the proj and fc_out partials
+        (with a row target's adapter delta) are summed by ``psum`` before
+        the bias, added once; a shard without the head returns (None,
+        None)."""
+        layers = self.layers if layers is None else layers
+        k_rows, v_rows, kc, vc, ks_flat, vs_flat, ks, vs = (
+            self.pools if pools is None else pools)
+        lora = lora and self.lora is not None
+        rmax, pmax = self.max_batch, self.max_pages
+        tb = (ints.shape[0] - rmax * (3 + pmax + lora)) // 3
+        ids, positions, rows = ints[:tb], ints[tb:2 * tb], ints[2 * tb:3 * tb]
+        desc = ints[3 * tb:]
+        row_start, row_qlen, row_pos0 = (desc[:rmax], desc[rmax:2 * rmax],
+                                         desc[2 * rmax:3 * rmax])
+        tables = desc[3 * rmax:3 * rmax + rmax * pmax].view(rmax, pmax)
+
+        nb, bs, nh, hd = (self.num_blocks, self.block_size, self.num_heads,
+                          self.head_dim)
+        emb = self.params["embed"]
+        live = positions >= 0
+        p_safe = positions.clamp(min=0).long()
+        x = (emb["word_embeddings.weight"][ids.long()]
+             + emb["position_embeddings.weight"][p_safe])
+        slots = torch.where(
+            live, tables[rows.long(), p_safe // bs].long() * bs + p_safe % bs,
+            nb * bs)
+        ctx = (p_safe + live).to(torch.int32)
+        targets = self.lora.targets if lora else ()
+        onehot = None
+        if lora:
+            # each token's adapter slot as a one-hot over the pool's
+            # slots (padding tokens on slot 0, the all-zero base slot)
+            adapter_rows = desc[3 * rmax + rmax * pmax:]
+            slots_t = torch.where(live, adapter_rows[rows.long()], 0)
+            onehot = (slots_t[:, None] == torch.arange(
+                self.lora.max_adapters, device=ints.device))[..., None]
+            onehot = onehot.to(self.dtype)
+        if self.kv_quant:
+            # scale index of (slot, head): page * (Nkv * bs) + head * bs
+            # + offset, in the [NB + 1, Nkv, bs] flat scale layout
+            sidx = ((slots // bs)[:, None] * (nh * bs)
+                    + torch.arange(nh, device=ints.device)[None, :] * bs
+                    + (slots % bs)[:, None])
+        wmat, psum = self.wmat, self.psum
+
+        def delta(y, p_l, key, x_in):
+            if key not in targets:
+                return y
+            return y + lora_delta(p_l, key, x_in, onehot)
+
+        for i, p_l in enumerate(layers):
+            hh = _layernorm(x, p_l["ln_1.weight"], p_l["ln_1.bias"],
+                            self.eps)
+            qkv = delta(hh @ wmat(p_l, "attn.qkv.weight")
+                        + p_l["attn.qkv.bias"], p_l, "attn.qkv.weight", hh)
+            qkv = qkv.view(tb, 3, nh, hd)
+            q = qkv[:, 0].contiguous()
+            if self.kv_quant:
+                # quantize at append, per (token, head) row
+                for rows_i, scales, val in (
+                        (k_rows[i], ks_flat[i], qkv[:, 1]),
+                        (v_rows[i], vs_flat[i], qkv[:, 2])):
+                    q8, s = quantize_kv_rows(val)
+                    rows_i[slots] = q8
+                    scales[sidx] = s
+                out = paged_ragged_attention_quant(
+                    q, kc[i], vc[i], ks[i], vs[i], tables, ctx, rows,
+                    row_start, row_qlen, row_pos0)
+            else:
+                k_rows[i][slots] = qkv[:, 1]
+                v_rows[i][slots] = qkv[:, 2]
+                out = paged_ragged_attention(q, kc[i], vc[i], tables, ctx,
+                                             rows, row_start, row_qlen,
+                                             row_pos0)
+            out = out.to(x.dtype).reshape(tb, nh * hd)
+            part = delta(out @ wmat(p_l, "attn.proj.weight"), p_l,
+                         "attn.proj.weight", out)
+            if psum is not None:
+                part = psum(part)
+            x = x + part + p_l["attn.proj.bias"]
+            h2 = _layernorm(x, p_l["ln_2.weight"], p_l["ln_2.bias"],
+                            self.eps)
+            pre = delta(h2 @ wmat(p_l, "mlp.fc_in.weight")
+                        + p_l["mlp.fc_in.bias"], p_l, "mlp.fc_in.weight", h2)
+            ff = torch.nn.functional.gelu(pre, approximate="tanh")
+            part = delta(ff @ wmat(p_l, "mlp.fc_out.weight"), p_l,
+                         "mlp.fc_out.weight", ff)
+            if psum is not None:
+                part = psum(part)
+            x = x + part + p_l["mlp.fc_out.bias"]
+        if not self.head:
+            return None, None
+        x = _layernorm(x, self.params["head"]["weight"],
+                       self.params["head"]["bias"], self.eps)
+        logits = x @ emb["word_embeddings.weight"].T
+        return logits.argmax(-1), logits
+
+    def draft_body(self, ints):
+        """The draft model's step body: :meth:`body` over the first
+        ``draft_layers`` blocks and the draft pools, without adapters."""
+        return self.body(ints, self.draft_layers, self.draft_pools,
+                         lora=False)
+
+    def copy_on_write(self, cows):
+        """Copy each ``(src, dst)`` page's payload (and scales) in every
+        layer, on the step's stream."""
+        cow = torch.as_tensor(np.asarray(cows, np.int64).T,
+                              device=self.device)
+        for pool in (self.pools.kc, self.pools.vc, self.pools.ks,
+                     self.pools.vs):
+            if pool is not None:
+                pool[:, cow[1]] = pool[:, cow[0]]
+
+    def write_adapter_slot(self, slot, weights):
+        """Write one adapter's host halves (this rank's part of each, see
+        ``tensor_parallel.adapter_half_shard``) into pool slot ``slot`` of
+        every layer, in place: ``copy_`` into the existing pool tensors
+        on the engine's stream, so the write lands after every step
+        already queued (one that still reads the evicted adapter) and
+        before the next.  A pool tensor is never replaced: the captured
+        graphs read it by address."""
+        blocks = self.params["blocks"]
+        for key, (a_h, b_h) in weights.items():
+            for side, val in (("A", a_h), ("B", b_h)):
+                if self.tp > 1:
+                    val = adapter_half_shard(key, side, val, self.rank,
+                                             self.tp, self.perm)
+                pool = blocks[lora_key(key, side)]
+                pool[:, slot].copy_(torch.from_numpy(val).to(pool.dtype))
 
 
 def _check_deadline(deadline_ms):
@@ -279,6 +532,14 @@ class LLMEngine:
     a dict or a :class:`~.kv_tier.KVTierConfig`) adds the host-RAM page
     tier; :meth:`tier_stats` reads it and :meth:`check_invariants`
     conserves pages across every tier after each step.
+
+    ``tensor_parallel=N`` serves the model over N ranks, Megatron-sharded
+    (``tensor_parallel.py``): on ``cuda:0..N-1``, or with ``device="cpu"``
+    N ranks on the host; ``mesh=`` names each rank's device instead
+    (``["cuda:0", "cuda:0"]`` puts two ranks on one card).  The
+    attention heads and the MLP width must divide by N.  At tp > 1 the
+    host tier, migration, fleets of such engines and the simulator's
+    step model raise NotImplementedError (ROADMAP A20b).
     """
 
     def __init__(self, model, *, block_size=16, num_blocks=None,
@@ -288,8 +549,15 @@ class LLMEngine:
                  retry=None, max_queue=None, step_timeout_s=None,
                  clock=None, record_step_gauges=False, detokenizer=None,
                  speculative=None, lookahead=False, lora=None, kv_tier=None,
-                 device=None, **later):
-        _reject_later(later, _LATER_ENGINE, "LLMEngine")
+                 device=None, tensor_parallel=None, mesh=None):
+        # the ranks' devices (rank 0's is this engine's) and what a
+        # tensor-parallel engine does not take yet, before anything is
+        # built or spawned
+        devices = resolve_mesh(tensor_parallel, mesh, device)
+        self.tp = len(devices)
+        if self.tp > 1 and kv_tier is not None:
+            raise NotImplementedError(f"LLMEngine(kv_tier=...) {_A20B}")
+        self._tp = None
         # lifecycle knobs first: a bad config fails at construction
         if max_queue is not None:
             if not isinstance(max_queue, (int, np.integer)) \
@@ -350,9 +618,6 @@ class LLMEngine:
         # and draft alike: the simulator's virtual clock advances by the
         # step-time model's estimate of exactly these
         self.last_launches = []
-        # the port serves on one card: the fleet and the tier price page
-        # bytes as page_bytes * tp, as in the JAX engine
-        self.tp = 1
         # speculative decoding: the n-gram drafter, or for
         # method="draft-model"/"tree" the hybrid model drafter whose
         # pools come up in _init_draft_model below
@@ -372,7 +637,7 @@ class LLMEngine:
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be float32 or bfloat16, "
                              f"got {dtype!r}")
-        self.device = resolve_device(device)
+        self.device = devices[0]
         self.dtype = _DTYPES[dtype]
         # int8 serving: weight-only int8 GEMM and/or the int8 KV pool
         self.quant = ServingQuantConfig.resolve(quantize)
@@ -382,6 +647,16 @@ class LLMEngine:
         cfg = model.config
         self.num_layers = d["num_layers"]
         self.num_heads = cfg.num_attention_heads
+        inter = d["params"]["blocks"]["mlp.fc_in.weight"].shape[-1]
+        if self.num_heads % self.tp:
+            raise ValueError(
+                f"num_attention_heads {self.num_heads} not divisible by "
+                f"tensor_parallel {self.tp} (head-axis sharding)")
+        if inter % self.tp:
+            raise ValueError(f"intermediate_size {inter} not divisible by "
+                             f"tensor_parallel {self.tp}")
+        # heads on each rank (all of them at tp = 1)
+        self._nh_local = self.num_heads // self.tp
         self.head_dim = cfg.head_dim
         self.eps = cfg.layer_norm_epsilon
         self.vocab_size = int(cfg.vocab_size)
@@ -416,15 +691,34 @@ class LLMEngine:
             params["blocks"].update(init_adapter_pools(
                 params["blocks"], self.lora, self.dtype))
             self._lora_mgr = AdapterManager(self.lora, self._lora_shapes)
+        # tensor parallelism, in the JAX engine's order: cast, int8
+        # quantization (above: a row-parallel weight's per-column scale
+        # is taken over all its rows), the head-major qkv permutation,
+        # then the Megatron shard — this rank's stays on the device,
+        # the workers' go to the host for the spawn
+        self._qkv_perm = None
+        worker_shards = []
+        if self.tp > 1:
+            self._qkv_perm = qkv_head_permutation(self.num_heads,
+                                                  self.head_dim, self.tp)
+            params = {**params,
+                      "blocks": permute_qkv(params["blocks"],
+                                            self._qkv_perm)}
+            worker_shards = [shard_params(params, r, self.tp,
+                                          torch.device("cpu"))
+                             for r in range(1, self.tp)]
+            params = shard_params(params, 0, self.tp, self.device)
         self.params = params
 
         # pages + weights bound max_batch: under a declared budget the
         # admissible batch is derived from the memory model first, and
         # the defaulted page pool is sized for that batch
         self.memory_budget = parse_bytes(memory_budget)
+        # per chip: this rank's shard, and a page's bytes of its heads
+        # (the global payload of a page is page_bytes * tp)
         weights_bytes = params_bytes(self.params)
         self.page_bytes = page_bytes(self.num_layers, self.block_size,
-                                     self.num_heads, self.head_dim,
+                                     self._nh_local, self.head_dim,
                                      self.dtype.itemsize, self._kv_quant)
         if self.memory_budget is not None:
             admissible = derive_max_batch(self.memory_budget, weights_bytes,
@@ -478,13 +772,18 @@ class LLMEngine:
                 self.scheduler.prefix_fetch_hook = self._tier_prefix_fetch
                 self.block_manager.evict_hook = self._promote_evicted
 
-        blocks = self.params["blocks"]
-        self._layers = [{k: v[i] for k, v in blocks.items()}
-                        for i in range(self.num_layers)]
         (self._k_rows, self._v_rows, self._kc, self._vc, self._ks_flat,
          self._vs_flat, self._ks, self._vs) = self._pools = \
             self._alloc_pools(self.num_layers)
-        # one captured graph of the step body per token bucket (CUDA)
+        # this rank's step state; the workers build theirs from the same
+        # spec (tensor_parallel._worker_main)
+        self._shard = _StepShard(self.params, self._pools,
+                                 self._shard_spec(0), self.device,
+                                 psum=None, head=True)
+        self._layers = self._shard.layers
+        # one captured graph of the step body per token bucket (CUDA at
+        # tp = 1; a tp > 1 step runs eagerly on every rank)
+        self._capture = self.device.type == "cuda" and self.tp == 1
         self._graphs = StepGraphs(self._ragged_body, self.device)
         # model drafting: the target's first draft_layers blocks over
         # draft pools and a draft BlockManager of their own
@@ -492,6 +791,15 @@ class LLMEngine:
         self._draft_graphs = None
         if self.spec is not None and self.spec.uses_draft_model:
             self._init_draft_model()
+        if self.tp > 1:
+            # the workers, joined to both groups, then this rank's
+            # reduction: the group (not the engine) is what the
+            # finalizer shuts down
+            self._tp = TPGroup(devices, self._shard_spec(None),
+                               worker_shards)
+            self._shard.psum = self._tp.channel.all_reduce
+            self._tp_finalizer = weakref.finalize(self, self._tp.close)
+            del worker_shards
 
         self._requests = {}
         self._next_id = 0
@@ -514,32 +822,31 @@ class LLMEngine:
                       "retries": 0, "quarantined": 0, "step_faults": 0}
 
     def _alloc_pools(self, num_layers):
-        """Zeroed K/V pools of ``num_layers`` layers -> :data:`_Pools`
-        (k_rows, v_rows, kc, vc, ks_flat, vs_flat, ks, vs).  Each layer's
-        slots are
-        ``[NB * bs + 1, Nh, D]``: the last row is the sink that padding
-        tokens write; ``kc`` / ``vc`` ``[L, NB, bs, Nh, D]`` view the rest,
-        so a layer's pool stays contiguous for the kernel.  An int8 pool
-        has per-(layer, page, head, slot) dequant scales, flat ``[L,
-        (NB + 1) * Nh * bs]``: the sink slot's scale index lands on page
-        NB, which ``ks`` / ``vs`` ``[L, NB, Nh, bs]`` leave out (None for
-        a float pool)."""
-        nl, nb, bs, nh, hd = (num_layers, self.num_blocks, self.block_size,
-                              self.num_heads, self.head_dim)
-        kv_dtype = torch.int8 if self._kv_quant else self.dtype
-        k_rows, v_rows = (
-            torch.zeros((nl, nb * bs + 1, nh, hd), dtype=kv_dtype,
-                        device=self.device) for _ in range(2))
-        kc, vc = (rows[:, :nb * bs].view(nl, nb, bs, nh, hd)
-                  for rows in (k_rows, v_rows))
-        ks = vs = ks_flat = vs_flat = None
-        if self._kv_quant:
-            ks_flat, vs_flat = (
-                torch.zeros((nl, (nb + 1) * nh * bs), dtype=torch.float32,
-                            device=self.device) for _ in range(2))
-            ks, vs = (flat.view(nl, nb + 1, nh, bs)[:, :nb]
-                      for flat in (ks_flat, vs_flat))
-        return _Pools(k_rows, v_rows, kc, vc, ks_flat, vs_flat, ks, vs)
+        """Zeroed K/V pools of ``num_layers`` layers of this rank's heads
+        on the engine's device (see :func:`alloc_pools`)."""
+        return alloc_pools(num_layers, self.num_blocks, self.block_size,
+                           self._nh_local, self.head_dim,
+                           torch.int8 if self._kv_quant else self.dtype,
+                           self._kv_quant, self.device)
+
+    def _shard_spec(self, rank):
+        """The dims and options a rank's :class:`_StepShard` reads (for
+        the workers ``rank`` None: each fills in its own), plus what a
+        worker builds its pools and adapter writes from."""
+        return {"rank": rank, "tp": self.tp, "perm": self._qkv_perm,
+                "num_layers": self.num_layers,
+                "num_blocks": self.num_blocks,
+                "block_size": self.block_size,
+                "num_heads": self._nh_local, "head_dim": self.head_dim,
+                "eps": self.eps, "max_batch": self.max_batch,
+                "max_pages": self.max_pages, "dtype": self.dtype,
+                "kv_dtype": torch.int8 if self._kv_quant else self.dtype,
+                "w_quant": self._w_quant, "kv_quant": self._kv_quant,
+                "lora": self.lora,
+                "lora_shapes": getattr(self, "_lora_shapes", None),
+                "draft_layers": (len(self._draft_layers)
+                                 if getattr(self, "_draft_bm", None)
+                                 is not None else 0)}
 
     def _init_draft_model(self):
         """The draft model: the target's first ``draft_layers`` blocks
@@ -552,13 +859,24 @@ class LLMEngine:
         The draft body is captured by a second StepGraphs, one graph a
         token bucket in a pool of its own."""
         dl = min(int(self.spec.draft_layers), self.num_layers)
-        self._draft_layers = self._layers[:dl]
-        self._draft_pools = self._alloc_pools(dl)
+        self._shard.set_draft(dl, self._alloc_pools(dl))
+        self._draft_layers = self._shard.draft_layers
+        self._draft_pools = self._shard.draft_pools
         self._draft_bm = BlockManager(self.num_blocks, self.block_size,
                                       enable_prefix_caching=False)
         self._draft_graphs = StepGraphs(self._draft_body, self.device)
         self.events.append((self._step_index, "draft_model_load", dl,
                             self.num_blocks))
+
+    def _rank_stats(self, detail=False):
+        """Every rank's report (``tensor_parallel.rank_stats``: kernel
+        launch counts, device bytes, pool shapes, weight bytes, channel
+        timers, the JAX modules it imported, with ``detail`` each leaf's
+        sum), rank 0 first; one entry at tp = 1."""
+        channel = None if self._tp is None else self._tp.channel
+        local = rank_stats(self._shard, channel, detail)
+        return [local] if self._tp is None else self._tp.stats(local,
+                                                                detail)
 
     def memory_model(self, memory_budget=None):
         """Weights, pages and pool bytes, and the admissible batch under
@@ -821,10 +1139,10 @@ class LLMEngine:
         """Copy a packed step's operands to the device: the int32 buffer
         (on CUDA into the bucket's static buffer) and, for a step with a
         sampling-pipeline row, the pipeline's operands.  Writes no pool."""
-        if self.device.type == "cuda":
+        if self._capture:
             ints = self._graphs.stage(pk["tb"], pk["ints"])
         else:
-            ints = torch.from_numpy(pk["ints"])
+            ints = self._to_device(pk["ints"])
         pipe = None
         if pk["pipeline"] is not None:
             knobs, bias, counts = pk["pipeline"]
@@ -844,16 +1162,20 @@ class LLMEngine:
         ``jit/graphs.py``).  ``_writes_began`` marks the boundary for
         :meth:`_launch`.  A step with a sampling-pipeline row runs the
         pipeline eagerly on the step's logits and takes the argmax again.
+        At tp > 1 the step (operands and copy-on-write pairs) goes to
+        every worker first, and every rank runs the body eagerly.
 
         On CUDA the returned tensors may be the graph's static outputs,
         which the next replay overwrites: the caller reads them before
         the next step, as :meth:`_launch_packed` does."""
         ints, pipe = self._stage(pk)
         self._writes_began = True
+        tb = pk["tb"]
+        if self._tp is not None:
+            self._tp.step(OP_STEP, tb, pk["ints"], pk["cows"])
         if pk["cows"]:
             self._copy_on_write(pk["cows"])
-        tb = pk["tb"]
-        if self.device.type == "cuda":
+        if self._capture:
             argmax, logits = self._graphs.run(tb)
         else:
             argmax, logits = self._ragged_body(ints)
@@ -869,133 +1191,16 @@ class LLMEngine:
     def _copy_on_write(self, cows):
         """Copy each ``(src, dst)`` page's payload (and scales) in every
         layer, on the step's stream."""
-        cow = torch.as_tensor(np.asarray(cows, np.int64).T,
-                              device=self.device)
-        for pool in (self._kc, self._vc, self._ks, self._vs):
-            if pool is not None:
-                pool[:, cow[1]] = pool[:, cow[0]]
+        self._shard.copy_on_write(cows)
 
-    @torch.no_grad()
     def _ragged_body(self, ints, layers=None, pools=None, lora=True):
-        """The step body: one ragged step over the packed int32 operands
-        ``ints`` on the engine's device -> (argmax [Tb], logits [Tb, V]),
-        through the blocks ``layers`` over the pools ``pools`` (see
-        :meth:`_alloc_pools`; by default the target's blocks and pools,
-        the draft model passes its own).  On a LoRA engine with ``lora``
-        true the operands end with the rows' adapter slots, and each
-        block GEMM adds its rows' adapter deltas (:meth:`_lora_delta`);
-        the draft model runs without them, as the JAX draft runs on
-        slot 0.
-
-        What a CUDA graph captures per bucket and the CPU runs as it is:
-        it reads device tensors only, takes every length from shapes (the
-        bucket from ``ints``' length), copies nothing from the host and
-        counts nothing.  Every token writes its K/V before attention
-        reads the pool; padding tokens (position -1) write each layer's
-        sink row (slot ``NB * bs``, the JAX step's dropped slot), so the
-        visible pools see live tokens only."""
-        layers = self._layers if layers is None else layers
-        k_rows, v_rows, kc, vc, ks_flat, vs_flat, ks, vs = (
-            self._pools if pools is None else pools)
-        lora = lora and self.lora is not None
-        rmax, pmax = self.max_batch, self.max_pages
-        tb = (ints.shape[0] - rmax * (3 + pmax + lora)) // 3
-        ids, positions, rows = ints[:tb], ints[tb:2 * tb], ints[2 * tb:3 * tb]
-        desc = ints[3 * tb:]
-        row_start, row_qlen, row_pos0 = (desc[:rmax], desc[rmax:2 * rmax],
-                                         desc[2 * rmax:3 * rmax])
-        tables = desc[3 * rmax:3 * rmax + rmax * pmax].view(rmax, pmax)
-
-        nb, bs, nh, hd = (self.num_blocks, self.block_size, self.num_heads,
-                          self.head_dim)
-        emb = self.params["embed"]
-        live = positions >= 0
-        p_safe = positions.clamp(min=0).long()
-        x = (emb["word_embeddings.weight"][ids.long()]
-             + emb["position_embeddings.weight"][p_safe])
-        slots = torch.where(
-            live, tables[rows.long(), p_safe // bs].long() * bs + p_safe % bs,
-            nb * bs)
-        ctx = (p_safe + live).to(torch.int32)
-        targets = self.lora.targets if lora else ()
-        onehot = None
-        if lora:
-            # each token's adapter slot as a one-hot over the pool's
-            # slots (padding tokens on slot 0, the all-zero base slot)
-            adapter_rows = desc[3 * rmax + rmax * pmax:]
-            slots_t = torch.where(live, adapter_rows[rows.long()], 0)
-            onehot = (slots_t[:, None] == torch.arange(
-                self.lora.max_adapters, device=ints.device))[..., None]
-            onehot = onehot.to(self.dtype)
-        if self._kv_quant:
-            # scale index of (slot, head): page * (Nkv * bs) + head * bs
-            # + offset, in the [NB + 1, Nkv, bs] flat scale layout
-            sidx = ((slots // bs)[:, None] * (nh * bs)
-                    + torch.arange(nh, device=ints.device)[None, :] * bs
-                    + (slots % bs)[:, None])
-        wmat = self._wmat
-
-        def delta(y, p_l, key, x_in):
-            if key not in targets:
-                return y
-            return y + self._lora_delta(p_l, key, x_in, onehot)
-
-        for i, p_l in enumerate(layers):
-            hh = _layernorm(x, p_l["ln_1.weight"], p_l["ln_1.bias"],
-                            self.eps)
-            qkv = delta(hh @ wmat(p_l, "attn.qkv.weight")
-                        + p_l["attn.qkv.bias"], p_l, "attn.qkv.weight", hh)
-            qkv = qkv.view(tb, 3, nh, hd)
-            q = qkv[:, 0].contiguous()
-            if self._kv_quant:
-                # quantize at append, per (token, head) row
-                for rows_i, scales, val in (
-                        (k_rows[i], ks_flat[i], qkv[:, 1]),
-                        (v_rows[i], vs_flat[i], qkv[:, 2])):
-                    q8, s = quantize_kv_rows(val)
-                    rows_i[slots] = q8
-                    scales[sidx] = s
-                out = paged_ragged_attention_quant(
-                    q, kc[i], vc[i], ks[i], vs[i], tables, ctx, rows,
-                    row_start, row_qlen, row_pos0)
-            else:
-                k_rows[i][slots] = qkv[:, 1]
-                v_rows[i][slots] = qkv[:, 2]
-                out = paged_ragged_attention(q, kc[i], vc[i], tables, ctx,
-                                             rows, row_start, row_qlen,
-                                             row_pos0)
-            out = out.to(x.dtype).reshape(tb, nh * hd)
-            x = (x + delta(out @ wmat(p_l, "attn.proj.weight"), p_l,
-                           "attn.proj.weight", out)
-                 + p_l["attn.proj.bias"])
-            h2 = _layernorm(x, p_l["ln_2.weight"], p_l["ln_2.bias"],
-                            self.eps)
-            pre = delta(h2 @ wmat(p_l, "mlp.fc_in.weight")
-                        + p_l["mlp.fc_in.bias"], p_l, "mlp.fc_in.weight", h2)
-            ff = torch.nn.functional.gelu(pre, approximate="tanh")
-            x = (x + delta(ff @ wmat(p_l, "mlp.fc_out.weight"), p_l,
-                           "mlp.fc_out.weight", ff)
-                 + p_l["mlp.fc_out.bias"])
-        x = _layernorm(x, self.params["head"]["weight"],
-                       self.params["head"]["bias"], self.eps)
-        logits = x @ emb["word_embeddings.weight"].T
-        return logits.argmax(-1), logits
-
-    @staticmethod
-    def _lora_delta(p_l, key, x, onehot):
-        """Batched per-token adapter delta of one target GEMM: each
-        token's ``(x @ A_s) @ B_s`` for its row's slot s, with the
-        alpha/rank scale folded into the stored B — the JAX engine's
-        ``lora_delta`` in another form: ``x`` against every slot's A
-        half at once ([Tb, A, r]), zeroed outside each token's slot by
-        ``onehot`` [Tb, A, 1], then one GEMM against the pool's B
-        halves flattened to [A * r, out].  The zeroed slots add exact
-        zeros, and no [Tb, in, r] gather of A or B is made.  Slot 0 is
-        all-zero, so base rows add exact float zeros."""
-        a = p_l[lora_key(key, "A")]               # [A, in, r]
-        b = p_l[lora_key(key, "B")]               # [A, r, out]
-        h = torch.einsum("ti,air->tar", x, a) * onehot
-        return h.reshape(x.shape[0], -1) @ b.reshape(-1, b.shape[-1])
+        """The step body, :meth:`_StepShard.body` of this rank's shard:
+        one ragged step over the packed int32 operands ``ints`` on the
+        engine's device -> (argmax [Tb], logits [Tb, V]), through the
+        blocks ``layers`` over the pools ``pools`` (see
+        :meth:`_alloc_pools`; by default the target's, the draft model
+        passes its own), with the rows' adapter deltas when ``lora``."""
+        return self._shard.body(ints, layers, pools, lora)
 
     def _draft_body(self, ints):
         """The draft model's step body: :meth:`_ragged_body` over the
@@ -1008,25 +1213,23 @@ class LLMEngine:
         """Run one packed draft step -> (argmax [Tb], logits [Tb, V]) on
         the device, the draft pools updated in place: on CUDA a replay
         of the draft graphs' bucket (captured at its first step), whose
-        outputs the next draft replay overwrites; on the CPU the body."""
+        outputs the next draft replay overwrites; on the CPU, and on
+        every rank at tp > 1, the body."""
         tb = pk["tb"]
-        if self.device.type == "cuda":
+        if self._capture:
             self._draft_graphs.stage(tb, pk["ints"])
             out = self._draft_graphs.run(tb)
         else:
-            out = self._draft_body(torch.from_numpy(pk["ints"]))
+            if self._tp is not None:
+                self._tp.step(OP_DRAFT, tb, pk["ints"])
+            out = self._draft_body(self._to_device(pk["ints"]))
         self.stats["draft_launches"] += 1
         return out
 
     def _wmat(self, p_l, key):
-        """A block GEMM's weight operand.  An int8 leaf dequantizes at the
-        operand load in the activation dtype (``w8 * scale``, as the JAX
-        engine's ``wmat``); the product is a transient of this step, and
-        the int8 leaf stays the only resident copy."""
-        w = p_l[key]
-        if self._w_quant:
-            return w.to(self.dtype) * p_l[scale_key(key)].to(self.dtype)
-        return w
+        """A block GEMM's weight operand (:meth:`_StepShard.wmat`): an
+        int8 leaf dequantizes at the operand load."""
+        return self._shard.wmat(p_l, key)
 
     def warmup(self):
         """Run every token bucket once with dead rows (only the sink rows
@@ -1109,9 +1312,11 @@ class LLMEngine:
                 return finished
             self.stats["steps"] += 1
             self._ragged_step(batch, finished, t0)
-        if self.kv_tier is not None:
-            # zero page leaks across the tiers is the tier's contract:
-            # HBM, host pool and prefix store books balance every step
+        if self.tp > 1 or self.kv_tier is not None:
+            # one host allocator drives every rank's pool shard, so page
+            # accounting must hold after each TP step; and zero page
+            # leaks across the tiers is the tier's contract: HBM, host
+            # pool and prefix store books balance every step
             self.check_invariants()
         finished.extend(self._drain_early())
         self._record_step_gauges()
@@ -1171,10 +1376,12 @@ class LLMEngine:
         idempotent); the watchdog clocks each attempt — on CUDA a replay
         returns before the card finishes, so it times the dispatch, as
         the JAX engine's watchdog times an asynchronous dispatch.  A
-        launch that fails after it began writing the pools, or with a
-        CUDA error (sticky: the context is unusable), raises
-        PoolLostError; one that still fails after every retry is
-        quarantined."""
+        launch that fails after it began writing the pools, with a CUDA
+        error (sticky: the context is unusable) or with a lost rank
+        (:class:`~.tensor_parallel.RankLostError`) raises PoolLostError,
+        and a tensor-parallel engine's workers are shut down with it (the
+        ranks are out of step); one that still fails after every retry
+        is quarantined."""
         attempt = 0
         while True:
             t0 = (self.watchdog.started()
@@ -1187,6 +1394,8 @@ class LLMEngine:
             except Exception as e:   # noqa: BLE001 — isolation boundary
                 self.stats["step_faults"] += 1
                 if self._pool_lost(e):
+                    if self._tp is not None:
+                        self._tp.close(kill=True)
                     raise PoolLostError(
                         f"device step failed after writing the KV pools "
                         f"in place; cache unrecoverable: {e}") from e
@@ -1208,8 +1417,10 @@ class LLMEngine:
 
     def _pool_lost(self, exc):
         """Whether a failed launch left the pools unusable: it had begun
-        writing them, or it raised a CUDA error."""
-        return self._writes_began or isinstance(exc, torch.AcceleratorError)
+        writing them, it raised a CUDA error, or a rank is gone (its pool
+        shard with it, whatever point the launch had reached)."""
+        return self._writes_began or isinstance(
+            exc, (torch.AcceleratorError, RankLostError))
 
     def _quarantine(self, kind, reqs, exc):
         """A launch failed after every retry: finish the responsible
@@ -1763,13 +1974,13 @@ class LLMEngine:
         already queued (one that still reads the evicted adapter) and
         before the next.  A pool tensor is never replaced: the captured
         graphs read it by address.  The write is idempotent — the
-        manager's books say what the slot holds."""
+        manager's books say what the slot holds.  At tp > 1 the halves go
+        to every worker, and each rank writes its part (a column target's
+        B columns, a row target's A rows, a qkv B permuted first)."""
         interleave_point("adapter-load")
-        blocks = self.params["blocks"]
-        for key, (a_h, b_h) in weights.items():
-            for side, val in (("A", a_h), ("B", b_h)):
-                pool = blocks[lora_key(key, side)]
-                pool[:, slot].copy_(torch.from_numpy(val).to(pool.dtype))
+        if self._tp is not None:
+            self._tp.load_adapter(slot, weights, self.lora.targets)
+        self._shard.write_adapter_slot(slot, weights)
 
     # --------------------------------------------------------- page moves --
     def _gather_pool(self, pool, block_ids):
@@ -1832,6 +2043,8 @@ class LLMEngine:
         int8 pool).  Read-only: the request keeps serving here until
         :meth:`release_request`, so a failed import on the destination
         costs nothing."""
+        if self.tp > 1:
+            raise NotImplementedError(f"export_request() {_A20B}")
         req = self._requests.get(request_id)
         if req is None:
             raise KeyError(f"unknown request {request_id!r}")
@@ -1870,6 +2083,8 @@ class LLMEngine:
         failure (``fault_hook``, the injected mid-import fault, a dtype
         mismatch, anything) frees exactly the pages allocated here and
         re-raises, leaving this engine untouched."""
+        if self.tp > 1:
+            raise NotImplementedError(f"import_request() {_A20B}")
         rid = req.request_id
         if rid in self._requests:
             raise ValueError(f"request {rid!r} already live here")

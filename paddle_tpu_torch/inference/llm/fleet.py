@@ -548,7 +548,15 @@ class Fleet:
         """Construct one replica engine and warm it on the building
         thread.  Each engine owns its pools and captures its own step
         graphs over them here, so every bucket is captured before any
-        thread steps it; the timings are kept for :meth:`warmup`."""
+        thread steps it; the timings are kept for :meth:`warmup`.  A
+        fleet of tensor-parallel replicas is not ported yet (ROADMAP
+        A20b)."""
+        kw = self._engine_kwargs
+        if (kw.get("tensor_parallel") or 1) > 1 or (
+                kw.get("mesh") is not None and len(kw["mesh"]) > 1):
+            raise NotImplementedError(
+                "Fleet(tensor_parallel=...) is not ported yet: a fleet of "
+                "tensor-parallel replicas comes with A20b (ROADMAP)")
         eng = self._engine_factory(
             self._model, faults=self._engine_faults[index],
             **self._engine_kwargs)

@@ -32,7 +32,11 @@ def engine_logits(engine, token_ids):
     quantized weights dequantize at the operand load (the engine's own
     ``_wmat``) and, when the engine runs an int8 KV pool, k/v pass
     through the per-(token, head) int8 round trip the pool applies, so
-    the dense score reflects what the paged kernel attends over."""
+    the dense score reflects what the paged kernel attends over.  It
+    runs on tp=1 engines only, as the JAX one does: a tensor-parallel
+    engine's params are rank 0's shard."""
+    if getattr(engine, "tp", 1) != 1:
+        raise ValueError("engine_logits runs on tp=1 engines")
     params = engine.params
     blocks, emb = params["blocks"], params["embed"]
     dtype, eps, wmat = engine.dtype, engine.eps, engine._wmat

@@ -51,6 +51,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import paddle_tpu_torch.sim.workloads\n"
         "import paddle_tpu_torch.inference.llm.fleet\n"
         "import paddle_tpu_torch.sim, paddle_tpu_torch.sim.simulator\n"
+        "import paddle_tpu_torch.inference.llm.tensor_parallel\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.'))\n"
