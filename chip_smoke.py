@@ -11,6 +11,10 @@ one NVIDIA GPU.
                                            # phases (no contract line)
     python3 chip_smoke.py tp               # only the tensor-parallel
                                            # phases (no contract line)
+    python3 chip_smoke.py tooling          # only the analysis tools
+                                           # (no contract line)
+    python3 chip_smoke.py dispatch         # eager-path host time a step,
+                                           # for comparing trees
 
 Run from the root of a checkout on a machine with a CUDA GPU and the
 CUDA toolkit.  Phases, each printing its own lines; any failure raises
@@ -180,7 +184,19 @@ and the script exits non-zero:
               on one 8 x 1024 batch: 3 warm-up and 10 timed steps (ms
               per step, tokens/s, MFU, peak memory), one step under
               torch.profiler; the loss must fall and every attention
-              and LayerNorm of every timed step launch its kernels.
+              and LayerNorm of every timed step launch its kernels;
+10. tooling — the analysis tools over GPT-124M bf16 at the serving
+              settings (``tooling_phase``): the serving burst inside
+              ``warmup()``'s CaptureWatcher, ``analyze_engine`` with
+              zero findings (D001 after the burst), the census under
+              ``"h100"`` per bucket beside replayed steps at buckets 8
+              and 256 (an estimate above its measurement raises), and
+              the Hopper kernel lint over the bf16 and int8 engines,
+              FMT, Llama and training shapes: zero findings, and each
+              instance's launch as the card reports it (the sources'
+              ``*_info`` entries) equal to its plan, with registers,
+              spills, shared bytes and blocks an SM
+              (``kernel_resources``).
 
 The launches in the ``kernels`` line are those of each kernel's main
 path, each run with the counts at 0 just before and read just after:
@@ -359,33 +375,16 @@ def _full_width_tables(seed, rows=8, pages=64, nb=512):
         .reshape(rows, pages)
 
 
-def _ragged_bound(q, kp, bt, rs, rq, rp, scale_bytes=0):
-    """Least time for this call: each input byte read once (q of live
-    tokens, the K/V pages the rows' contexts cover — and, for an int8
-    pool, ``scale_bytes`` per (slot, kv head) of those pages — tables
-    and descriptors), the output written once, against the FLOPs of
-    QK^T and PV over each live token's context."""
-    t, nq, d = q.shape
-    _, bs, nkv, _ = kp.shape
-    isz = q.element_size()
-    rs, rq, rp = (x.cpu().numpy() for x in (rs, rq, rp))
-    btn = bt.cpu().numpy()
-    pages, flops, live = set(), 0.0, 0
-    for r in range(len(rs)):
-        if rq[r] == 0:
-            continue
-        live += int(rq[r])
-        npg = -(-int(rp[r] + rq[r]) // bs)
-        pages.update(int(p) for p in btn[r, :npg])
-        ctx = rp[r] + np.arange(1, rq[r] + 1)
-        flops += 4.0 * d * nq * float(ctx.sum())
-    nbytes = (live * nq * d * isz                       # q
-              + 2 * len(pages) * bs * nkv * d * kp.element_size()
-              + 2 * len(pages) * bs * nkv * scale_bytes  # int8 scales
-              + 4 * (bt.numel() + 3 * len(rs))          # tables, descriptors
-              + t * nq * d * isz)                       # output
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[str(q.dtype)] * 1e3
+def _bound(entry, *args):
+    """Least time for this call of ``entry``'s kernel, from its registry
+    cost rule (``entry.cost``: each input byte read once, each output
+    byte written once, and the operations on these inputs' values) ->
+    (ms, "bytes" or "operations"): the larger of the bytes over the
+    card's memory rate and the operations over its peak for the inputs'
+    dtype."""
+    cost = entry.cost(*args)
+    t_bytes = cost["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = cost["flops"] / PEAK_FLOPS[str(args[0].dtype)] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -572,7 +571,7 @@ def ragged_attention_phase(entry, dev):
         ms = time_ms(lambda: entry.kernel(*args), flush)
         plain_ms = time_ms(lambda: entry.plain(*args), flush)
         q, kp, _vp, bt, rs, rq, rp = args
-        bound_ms, bound_by = _ragged_bound(q, kp, bt, rs, rq, rp)
+        bound_ms, bound_by = _bound(entry, *args)
         timings[label] = (ms, plain_ms, bound_ms, bound_by)
         say("kernel_time", kernel=entry.name, shape=label, kernel_ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -647,29 +646,6 @@ def _flash_inputs(dev, dtype, b, s, n, d, seed, packed=False, sk=None):
         sk = s if sk is None else sk
         q, k, v = put(b, s, n, d), put(b, sk, n, d), put(b, sk, n, d)
     return q, k, v, put(b, s, n, d)
-
-
-def _attention_pairs(b, s, n, d, causal):
-    return n * b * (s * (s + 1) // 2 if causal else s * s)
-
-
-def _flash_bound(q, causal, backward):
-    """Least time: forward reads q, k, v and writes out and lse, with
-    4*D FLOPs per visible (query, key) pair (QK^T and PV); backward
-    reads q, k, v, out, dO and lse, writes dq, dk, dv, with 10*D FLOPs
-    per visible pair (S, dP, dV, dK, dQ)."""
-    b, s, n, d = q.shape
-    isz = q.element_size()
-    pairs = _attention_pairs(b, s, n, d, causal)
-    elems = b * s * n * d
-    if backward:
-        nbytes, flops = 8 * elems * isz + 4 * b * n * s, 10.0 * d * pairs
-    else:
-        nbytes, flops = 4 * elems * isz + 4 * b * n * s, 4.0 * d * pairs
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[str(q.dtype)] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
 
 
 def flash_attention_phase(entries, dev):
@@ -790,7 +766,9 @@ def flash_attention_phase(entries, dev):
     for entry, ms, plain_ms, lib, backward, err in (
             (fwd, ms_f, plain_f, lib_f, False, main_err["fwd"]),
             (bwd, ms_b, plain_b, lib_fb - lib_f, True, main_err["bwd"])):
-        bound_ms, bound_by = _flash_bound(q, True, backward)
+        bound_ms, bound_by = _bound(
+            entry, *((q, k, v, True, scale) if not backward
+                     else (q, k, v, out, lse, dout, True, scale)))
         say("kernel_time", kernel=entry.name, shape="8x1024x12x64 bf16 "
             "causal, strided qkv", kernel_ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
@@ -806,24 +784,6 @@ def flash_attention_phase(entries, dev):
 
 
 # ---------------------------------------------------------- layernorm --
-def _ln_bound(x2d, backward):
-    """Least time: forward reads x, gamma, beta and writes y, mu, rstd
-    (about 7 operations an element); backward reads x, dy, gamma, mu,
-    rstd and writes dx, dgamma, dbeta (about 12 an element)."""
-    rows, c = x2d.shape
-    isz = x2d.element_size()
-    if backward:
-        nbytes = 3 * rows * c * isz + c * isz + 8 * rows + 8 * c
-        flops = 12.0 * rows * c
-    else:
-        nbytes = 2 * rows * c * isz + 2 * c * isz + 8 * rows
-        flops = 7.0 * rows * c
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[str(x2d.dtype)] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
-
-
 def _ln_inputs(dev, dtype, rows, c, seed):
     import torch
 
@@ -942,7 +902,9 @@ def layernorm_phase(entries, dev):
     for entry, ms, plain_ms, lib_ms, backward, err in (
             (fwd, ms_f, plain_f, lib_f, False, main_err["fwd"]),
             (bwd, ms_b, plain_b, lib_fb - lib_f, True, main_err["bwd"])):
-        bound_ms, bound_by = _ln_bound(x, backward)
+        bound_ms, bound_by = _bound(
+            entry, *((x, g, b, eps) if not backward
+                     else (x, g, mu, rstd, dy)))
         say("kernel_time", kernel=entry.name, shape="8192x768 bf16",
             kernel_ms=ms, plain_ms=plain_ms,
             plain_with_forward_ms=plain_fb if backward else None,
@@ -1021,8 +983,8 @@ def ln_bwd_designs_phase(dev, rows=8192, c=768):
         with open(path + ".cu", "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", path + ".so",
-             path + ".cu"], stdout=subprocess.PIPE,
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o",
+             path + ".so", path + ".cu"], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -1195,8 +1157,7 @@ def ragged_quant_phase(entries, dev):
         ms = time_ms(lambda: entry.kernel(*args), flush)
         plain_ms = time_ms(lambda: entry.plain(*args), flush)
         q, kq, _vq, _ks, _vs, bt, rs, rq, rp = args
-        bound_ms, bound_by = _ragged_bound(q, kq, bt, rs, rq, rp,
-                                           scale_bytes=4)
+        bound_ms, bound_by = _bound(entry, *args)
         timings[label] = (ms, plain_ms, bound_ms, bound_by)
         say("kernel_time", kernel=entry.name, shape=label + " bf16 q, int8 "
             "pools", kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1235,23 +1196,6 @@ def _full_lengths(seed, b, s):
     lens = np.random.RandomState(seed).randint(1, s + 1, b)
     lens[0], lens[-1] = 0, s
     return lens
-
-
-def _decode_bound(q, k, lengths):
-    """Least time: the valid prefix of K and V read once, q read and the
-    output written once, against 4*D FLOPs per (query head, valid
-    key)."""
-    b, nq, d = q.shape
-    s, nkv = k.shape[1], k.shape[2]
-    valid = float(np.minimum(np.maximum(lengths.cpu().numpy(), 0), s).sum())
-    isz = q.element_size()
-    nbytes = (2 * valid * nkv * d * k.element_size() + 2 * b * nq * d * isz
-              + 4 * b)
-    flops = 4.0 * d * nq * valid
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[str(q.dtype)] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
 
 
 def decode_attention_phase(entries, dev):
@@ -1327,7 +1271,7 @@ def decode_attention_phase(entries, dev):
         q, k, v, lens = args = inputs[label, dtype]
         ms = time_ms(lambda: entry.kernel(*args), flush)
         plain_ms = time_ms(lambda: entry.plain(*args), flush)
-        bound_ms, bound_by = _decode_bound(q, k, lens)
+        bound_ms, bound_by = _bound(entry, *args)
         qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
         mask = (torch.arange(k.shape[1], device=dev)[None, :]
                 < lens[:, None])[:, None, None, :]
@@ -1732,7 +1676,7 @@ def _serve_burst(eng, dev, kernel, new=64, adapters=None):
     prompts, sampled = _burst_prompts()
     registry.reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
-    warm = eng.warmup()
+    watcher = eng.warmup()
     graphs = eng._graphs
     captures, replays = graphs.captures, graphs.replays
     steps0 = eng.stats["launches"]
@@ -1762,6 +1706,7 @@ def _serve_burst(eng, dev, kernel, new=64, adapters=None):
     if eng.stats["mixed_steps"] < 1:
         raise RuntimeError("no step mixed prefill chunks with decodes")
     burst_replays = graphs.replays - replays
+    watcher.assert_no_new_captures()
     if (graphs.captures != captures
             or burst_replays != eng.stats["launches"] - steps0):
         raise RuntimeError(
@@ -1784,7 +1729,7 @@ def _serve_burst(eng, dev, kernel, new=64, adapters=None):
         engine_launches=eng.stats["launches"], kernel_launches=launches,
         graph_replays=burst_replays,
         graph_captures_after_warmup=graphs.captures - captures,
-        graph_pool_bytes=graphs.pool_bytes(), warmup_ms=warm,
+        graph_pool_bytes=graphs.pool_bytes(), warmup_ms=watcher.compile_ms,
         peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
     return (launches, prompts, sampled,
             [outs[r] for r in rids], record)
@@ -2022,7 +1967,7 @@ def _spec_burst(eng, dev, prompts, new=64, logprobs=0):
     from paddle_tpu_torch.ops.cuda import registry
 
     registry.reset_counts()
-    warm = eng.warmup()
+    watcher = eng.warmup()
     graphs = [g for g in (eng._graphs, eng._draft_graphs) if g is not None]
     captures = [g.captures for g in graphs]
     steps0, tok0 = eng.stats["steps"], eng.stats["tokens_generated"]
@@ -2061,7 +2006,8 @@ def _spec_burst(eng, dev, prompts, new=64, logprobs=0):
         staged_steps=life["staged_steps"], staged_hits=life["staged_hits"],
         host_overhead_fraction=life["host_overhead_fraction"],
         kernel_launches=launches, target_launches=eng.stats["launches"],
-        draft_launches=eng.stats["draft_launches"], warmup_ms=warm,
+        draft_launches=eng.stats["draft_launches"],
+        warmup_ms=watcher.compile_ms,
         graph_captures_after_warmup=sum(after) - sum(captures),
         graph_pool_bytes=[
             g.pool_bytes() for g in graphs])
@@ -4368,15 +4314,16 @@ def fleet_phase(dev, smi):
     for m in mem:
         say("fleet_memory", card=smi, **m)
     captures = _fleet_captures(fleet)
-    timings = fleet.warmup()
+    watcher = fleet.warmup()
     got, counts, launches, rec = _fleet_burst(fleet, dev)
+    watcher.assert_no_new_captures()
     b1 = counts["paged_ragged_attention"]
     divergences = _burst_divergences(model, dev, sampled, got, want)
     say("fleet_burst", card=smi, replicas=2, single=single_rec, fleet=rec,
         tokens_per_s_vs_single=rec["tokens_per_s"]
         / single_rec["tokens_per_s"],
         router=fleet.router.stats(), kernel_launches=b1,
-        warmup_ms={i: t for i, t in timings.items()},
+        warmup_ms=watcher.compile_ms,
         captures_after_warmup=[a - b for a, b in zip(
             _fleet_captures(fleet), captures)],
         greedy_equal_to_single=sum(
@@ -4959,7 +4906,7 @@ def tp_serving_phase(dev, smi):
     eng = LLMEngine(model, device=dev, mesh=_TP_MESH, **_SERVE_ENGINE)
     build_s = time.perf_counter() - t0
     built = held()
-    warm = eng.warmup()
+    warm = eng.warmup().compile_ms
     registry.reset_counts()
     s0 = eng._rank_stats()
     got, _counts, launches, rec2 = _fleet_burst(eng, dev)
@@ -5061,6 +5008,220 @@ def lora_tier_phases(dev, smi):
     return b1 + t1 + s1 + k1, t5 + s5
 
 
+# ------------------------------------------------------------ tooling --
+def _lint_instances(eng_by_name, dev):
+    """The kernel lint on the card: K005 and K001-K004 over every kernel
+    instance of each engine's bucket grid and of the other main paths'
+    shapes (``kernel_lint.MAIN_PATH_SHAPES``), each plan then held to the
+    card's own account of the launch (the sources' ``*_info`` entries):
+    grid, threads and dynamic shared bytes equal, the card's registers,
+    spills, static shared bytes and blocks an SM checked by K002.  One
+    ``kernel_resources`` line a kernel of each instance.  Raises on any
+    finding or mismatch."""
+    from paddle_tpu_torch.framework import kernel_lint as kl
+    from paddle_tpu_torch.ops.cuda import layernorm_kernel as lnk
+
+    findings = [f.format() for f in kl.check_registry()]
+    calls = []
+    for engine, eng in eng_by_name.items():
+        calls += [(f"{engine}/{label}", name, ops, eng.max_pages)
+                  for label, name, ops in kl.engine_calls(eng)]
+    calls += [(label, name, ops, None)
+              for label, name, ops in kl.main_path_calls()]
+    mismatched = []
+    for label, name, ops, max_pages in calls:
+        slots = None
+        if name == "layernorm_bwd":
+            (_, c), dtype = ops["x2d"]
+            info = lnk.bwd_kernel_info(dtype, c, dev)
+            slots = info["blocks_per_sm"] * info["sms"]
+        launches, facts = kl.launch_plan(name, slots=slots, **ops)
+        records = kl.card_resources(name, launches, facts, **ops)
+        findings += [f.format() for f in kl.check_plan(
+            name, launches, facts, max_pages=max_pages, label=label)]
+        if len(records) != len(launches):
+            mismatched.append(f"{label}/{name}: {len(records)} kernels on "
+                              f"the card, {len(launches)} planned")
+        for ln, rec in zip(launches, records):
+            plan = dict(grid=list(ln.grid), threads=ln.threads,
+                        smem=ln.smem)
+            card = dict(grid=[rec["grid_x"], rec["grid_y"], rec["grid_z"]],
+                        threads=rec["threads"], smem=rec["smem"])
+            say("kernel_resources", instance=label, kernel=name,
+                launch=ln.kernel, registers=rec["regs"],
+                spill_bytes=rec["local_bytes"],
+                static_smem_bytes=rec["static_smem"],
+                dynamic_smem_bytes=rec["smem"],
+                blocks_per_sm=rec["blocks_per_sm"], grid=card["grid"],
+                threads=rec["threads"], plan_equal=plan == card)
+            if plan != card:
+                mismatched.append(f"{label}/{ln.kernel}: plan {plan}, card "
+                                  f"{card}")
+    say("kernel_lint", instances=len(calls), findings=findings,
+        plan_mismatches=mismatched)
+    if findings or mismatched:
+        raise RuntimeError(f"kernel lint: {findings} {mismatched}")
+
+
+def tooling_phase(dev, smi):
+    """The analysis tools on the card, over GPT-124M bf16 (random weights
+    from seed 0, the serving settings): the serving burst inside
+    ``warmup()``'s CaptureWatcher (``_serve_burst``: zero new captures),
+    then ``analyze_engine`` (every graph rule and S001, D001 after the
+    burst) with zero findings, the kernel lint over the bf16 and int8
+    engines, FMT, Llama and training shapes with zero findings and every
+    instance's resources equal to its plan (``_lint_instances``), and the
+    census under ``"h100"`` per bucket beside the replayed step's device
+    ms at buckets 8 and 256 measured here: the census is a lower bound,
+    so an estimate above its measurement is a miscount and raises.
+    Outside the main paths' counts."""
+    import torch
+
+    from paddle_tpu_torch.framework import analysis, cost
+    from paddle_tpu_torch.inference.llm import LLMEngine
+    from paddle_tpu_torch.models.gpt import gpt_124m
+
+    model = gpt_124m(device=dev, seed=0, dtype=torch.bfloat16).eval()
+    eng = LLMEngine(model, device=dev, **_SERVE_ENGINE)
+    _launches, _p, _s, _outs, record = _serve_burst(
+        eng, dev, "paged_ragged_attention")
+    say("tooling_burst", card=smi, engine_launches=record["engine_launches"],
+        graph_captures_after_warmup=record["graph_captures_after_warmup"],
+        warmup_ms=record["warmup_ms"])
+    t0 = time.perf_counter()
+    found = analysis.analyze_engine(eng)
+    say("analyze_engine", card=smi, engine="gpt124m bf16",
+        seconds=time.perf_counter() - t0,
+        findings=[f.format() for f in found],
+        captured_state_tensors=len(eng._state_ptrs))
+    if found:
+        raise RuntimeError(f"analyze_engine: {[f.format() for f in found]}")
+
+    t0 = time.perf_counter()
+    census = cost.run_census(eng, profile="h100")
+    census_s = time.perf_counter() - t0
+    rng = np.random.RandomState(17)
+    pages = eng.max_pages
+    rows = {8: [(1, 512)] * 8, 256: [(32, 480)] * 8}
+    measured = {}
+    for tb, spec in rows.items():
+        pk = eng._pack_rows(
+            [(rng.randint(0, eng.vocab_size, n), pos0,
+              (np.arange(pages) + r * pages) % eng.num_blocks)
+             for r, (n, pos0) in enumerate(spec)], tb)
+        measured[tb] = _replay_device_ms(eng, pk)
+    over = []
+    for e in census.entries:
+        est_ms = e["roofline_s"] * 1e3
+        rec = dict(bucket=e["bucket"], flops=e["cost"]["flops"],
+                   matmul_flops=e["cost"]["matmul_flops"],
+                   hbm_bytes=e["cost"]["hbm_bytes"],
+                   peak_bytes=e["cost"]["peak_bytes"],
+                   bound=e["roofline"], roofline_ms=est_ms)
+        if e["bucket"] in measured:
+            rec.update(replay_ms=measured[e["bucket"]],
+                       estimate_over_measured=est_ms / measured[e["bucket"]])
+            if est_ms > measured[e["bucket"]]:
+                over.append(e["label"])
+        say("census", card=smi, profile="h100", **rec)
+    say("census_summary", card=smi, graphs=census.compile_count,
+        families=census.families, seconds=census_s,
+        findings=[f.format() for f in census.findings],
+        weights_bytes=census.memory["weights_bytes"],
+        kv_pool_bytes=census.memory["kv_pool_bytes"])
+    if over or census.findings:
+        raise RuntimeError(f"census estimate above the measured replay at "
+                           f"{over}, or findings {census.findings}")
+
+    int8 = LLMEngine(model, device=dev, quantize="int8", **_SERVE_ENGINE)
+    _lint_instances({"bf16": eng, "int8": int8}, dev)
+    del eng, int8
+    torch.cuda.empty_cache()
+
+
+def dispatch_phase(dev, smi, window=16, steps=5, repeats=7):
+    """Host time of the eager paths that call the kernels one by one,
+    for comparing trees in one call (``python3 chip_smoke.py dispatch``
+    from each checkout): Llama-160M f32 decode at batch 8 (a 2048-slot
+    cache, one decode kernel a layer a step) and the GPT-124M O2 bf16
+    training step at 8 x 1024 (two flash and five LayerNorm kernel calls
+    a layer, 74 a step), wall ms a step after warm-up, ``repeats``
+    windows each.  Where the registry's kernels are ``torch.library``
+    ops, also the host µs of one op call against one call of the wrapper
+    it wraps, back to back in turns (op, wrapper, wrapper, op), at the
+    decode's B6 shape and the training's B4a shape.  Only entry points
+    that every tree of the port has; prints no contract line."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import gpt_124m
+    from paddle_tpu_torch.models.llama import llama_160m
+    from paddle_tpu_torch.ops.cuda import registry
+
+    def windows(run, n):
+        out = []
+        for _ in range(repeats):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                run()
+            torch.cuda.synchronize(dev)
+            out.append((time.perf_counter() - t0) / n * 1e3)
+        return out
+
+    model = llama_160m(device=dev, seed=0).eval()
+    ids = torch.as_tensor(np.random.RandomState(88).randint(
+        0, 32000, (8, 1)), device=dev)
+    state = {"cache": model.init_cache(8, 2048)}
+
+    def decode():
+        state["cache"] = model.decode_step(ids, state["cache"])[1]
+
+    for _ in range(8):                                  # warm-up
+        decode()
+    ms = windows(decode, window)
+    say("dispatch_llama_decode", card=smi, batch=8, window=window,
+        ms_per_step=ms, median_ms=float(np.median(ms)))
+    del model, state
+    torch.cuda.empty_cache()
+
+    gpt = gpt_124m(device=dev, seed=0, hidden_dropout_prob=0.0,
+                   attention_probs_dropout_prob=0.0)
+    gpt = amp.decorate(gpt, level="O2", dtype="bfloat16")
+    step = _trainer(gpt, TRAIN_LR)
+    rng = np.random.RandomState(2024)
+    vocab = gpt.config.vocab_size
+    tok = torch.as_tensor(rng.randint(0, vocab, (8, 1024)), device=dev)
+    labels = torch.as_tensor(rng.randint(0, vocab, (8, 1024)), device=dev)
+    for _ in range(2):
+        step(tok, labels)
+    ms = windows(lambda: step(tok, labels), steps)
+    say("dispatch_training_step", card=smi, batch=8, seq=1024, steps=steps,
+        ms_per_step=ms, median_ms=float(np.median(ms)))
+    del gpt, step
+    torch.cuda.empty_cache()
+
+    if getattr(registry.KERNELS["decode_attention"], "op", None) is None:
+        return
+    cases = {
+        "decode_attention": _decode_case(
+            dev, torch.float32, 8, 12, 4, 64, 2048,
+            np.random.RandomState(26).randint(1, 81, 8), 26),
+        "layernorm_fwd": _ln_inputs(dev, torch.bfloat16, 8192, 768,
+                                    seed=98)[:3] + (1e-5,),
+    }
+    for name, args in cases.items():
+        entry = registry.KERNELS[name]
+        turns = {"op": [], "wrapper": []}
+        for which in ("op", "wrapper", "wrapper", "op"):
+            fn = entry.op if which == "op" else entry.kernel
+            turns[which].append(call_ms(lambda: fn(*args), reps=300) * 1e3)
+        say("dispatch_per_call", card=smi, kernel=name, op_us=turns["op"],
+            wrapper_us=turns["wrapper"],
+            op_minus_wrapper_us=float(np.mean(turns["op"])
+                                      - np.mean(turns["wrapper"])))
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "paddle_tpu_torch")):
         raise SystemExit("chip_smoke: run from a checkout that holds "
@@ -5084,6 +5245,14 @@ def main():
     if sys.argv[1:] == ["tp"]:
         build_phase()
         tp_phases(dev, smi)
+        return
+    if sys.argv[1:] == ["tooling"]:
+        build_phase()
+        tooling_phase(dev, smi)
+        return
+    if sys.argv[1:] == ["dispatch"]:
+        build_phase()
+        dispatch_phase(dev, smi)
         return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -5142,6 +5311,8 @@ def main():
                                     + llama_decode_phase(dev))
     torch.cuda.empty_cache()
     launches.update(training_phase(dev))
+    torch.cuda.empty_cache()
+    tooling_phase(dev, smi)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if not rec["launches"]:

@@ -39,6 +39,7 @@
 // contiguous 16-byte aligned q and caches.  q, caches and output share
 // one type, f32 or bf16; accumulation f32.
 
+#include "kernel_info.cuh"
 #include "split_decode.cuh"
 
 namespace {
@@ -113,6 +114,11 @@ decode_combine(const float* __restrict__ part_acc,
                        head_dim, d, o);
 }
 
+// The combine's blocks a sequence: one thread per output element.
+int combine_blocks(int num_q_heads, int head_dim) {
+  return (num_q_heads * head_dim + kThreads - 1) / kThreads;
+}
+
 template <typename T>
 int launch(const void* q, const void* k_cache, const void* v_cache,
            const void* lengths, void* out, void* part_acc, void* part_ml,
@@ -141,7 +147,7 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
       num_q_heads, num_kv_heads, head_dim, num_splits, scale_log2);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int per_b = (num_q_heads * head_dim + kThreads - 1) / kThreads;
+  const int per_b = combine_blocks(num_q_heads, head_dim);
   decode_combine<T><<<dim3(batch, per_b), kThreads, 0, s>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
       static_cast<const int*>(lengths), static_cast<T*>(out), s_max,
@@ -149,7 +155,46 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
   return (int)cudaGetLastError();
 }
 
+// The launch of :func:`launch` at these sizes, as kinfo records.
+template <typename T>
+int info(int batch, int num_q_heads, int num_kv_heads, int head_dim,
+         int num_splits, int* out) {
+  const int group = num_q_heads / num_kv_heads;
+  if (batch < 1 || num_kv_heads < 1 || group < 1 ||
+      group > splitkv::kRows || num_q_heads % num_kv_heads != 0 ||
+      head_dim % 8 != 0 || head_dim < 8 || head_dim > splitkv::kMaxD ||
+      num_splits < 1 || num_splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t attr = splitkv::allow_ring<T>(
+      decode_split_kernel<T, 2>, decode_split_kernel<T, 4>);
+  if (attr != cudaSuccess) return (int)attr;
+  const auto kernel = head_dim <= 64 ? decode_split_kernel<T, 2>
+                                     : decode_split_kernel<T, 4>;
+  out[0] = 0;
+  int err = kinfo::record(kernel, dim3(num_kv_heads, batch, num_splits),
+                          kThreads, splitkv::smem_bytes<T>(head_dim), out);
+  if (err) return err;
+  return kinfo::record(decode_combine<T>,
+                       dim3(batch, combine_blocks(num_q_heads, head_dim)),
+                       kThreads, 0, out);
+}
+
 }  // namespace
+
+// The launch of decode_attention at these sizes: out[0] = 2 kernels
+// (split, combine), then their kernel_info.cuh records.  Launches
+// nothing.
+extern "C" int decode_attention_info(int dtype, int batch, int num_q_heads,
+                                     int num_kv_heads, int head_dim,
+                                     int num_splits, int* out) {
+  if (dtype == 0)
+    return info<float>(batch, num_q_heads, num_kv_heads, head_dim,
+                       num_splits, out);
+  if (dtype == 1)
+    return info<__nv_bfloat16>(batch, num_q_heads, num_kv_heads, head_dim,
+                               num_splits, out);
+  return (int)cudaErrorInvalidValue;
+}
 
 // dtype: 0 = float32, 1 = bfloat16 (q, caches and output).  lengths is
 // int32 [B].  part_acc (f32 [B, Nq, num_splits, D]) and part_ml (f32

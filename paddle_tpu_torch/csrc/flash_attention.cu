@@ -89,6 +89,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_info.cuh"
+
 namespace {
 
 // ============================================ f32: SIMT kernels ==
@@ -629,6 +631,37 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
       layout(st, 0), layout(st, 1), layout(st, 2), layout(st, 3),
       layout(st, 5), layout(st, 6), causal, scale);
   return (int)cudaGetLastError();
+}
+
+// The f32 launches at these sizes, as kinfo records.
+template <int DC>
+int info_fwd(int B, int N, int Sq, int D, int* out) {
+  static bool raised = false;
+  cudaError_t err = allow_smem(flash_fwd_kernel<float, DC>, fwd_smem(kMaxD), &raised);
+  if (err != cudaSuccess) return (int)err;
+  return kinfo::record(flash_fwd_kernel<float, DC>,
+                       dim3((Sq + kBQ - 1) / kBQ, B * N), kThreads,
+                       fwd_smem(D), out);
+}
+
+template <int DC>
+int info_bwd(int B, int N, int Sq, int Sk, int D, int* out) {
+  static bool raised_dq = false, raised_dkv = false;
+  const long long rows = (long long)B * N * Sq;
+  int e = kinfo::record(delta_f32_kernel, dim3((unsigned)((rows + 7) / 8)),
+                        256, 0, out);
+  if (e) return e;
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<float, DC>, dq_smem(kMaxD), &raised_dq);
+  if (err != cudaSuccess) return (int)err;
+  e = kinfo::record(flash_bwd_dq_kernel<float, DC>,
+                    dim3((Sq + kBQ - 1) / kBQ, B * N), kThreads, dq_smem(D),
+                    out);
+  if (e) return e;
+  err = allow_smem(flash_bwd_dkv_kernel<float, DC>, dkv_smem(kMaxD), &raised_dkv);
+  if (err != cudaSuccess) return (int)err;
+  return kinfo::record(flash_bwd_dkv_kernel<float, DC>,
+                       dim3((Sk + kBK - 1) / kBK, B * N), kThreads,
+                       dkv_smem(D), out);
 }
 
 // ================================================= bf16: tensor cores ==
@@ -1301,9 +1334,62 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// The bf16 launches at these sizes, as kinfo records.
+template <int DP, int BM, int BN>
+int info_fwd(int B, int N, int Sq, int* out) {
+  static bool raised = false;
+  constexpr size_t smem = fwd_bytes(DP, BM, BN);
+  cudaError_t err = allow_smem(flash_fwd_tc<DP, BM, BN>, smem, &raised);
+  if (err != cudaSuccess) return (int)err;
+  return kinfo::record(flash_fwd_tc<DP, BM, BN>,
+                       dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem, out);
+}
+
+template <int DP, int BM, int BN>
+int info_bwd(int B, int N, int Sq, int Sk, int* out) {
+  static bool raised_dq = false, raised_dkv = false;
+  constexpr size_t smem_dq = dq_bytes(DP, BM, BN);
+  constexpr size_t smem_dkv = dkv_bytes(DP, BM, BN);
+  cudaError_t err = allow_smem(flash_dq_tc<DP, BM, BN>, smem_dq, &raised_dq);
+  if (err != cudaSuccess) return (int)err;
+  int e = kinfo::record(flash_dq_tc<DP, BM, BN>,
+                        dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem_dq,
+                        out);
+  if (e) return e;
+  err = allow_smem(flash_dkv_tc<DP, BM, BN>, smem_dkv, &raised_dkv);
+  if (err != cudaSuccess) return (int)err;
+  return kinfo::record(flash_dkv_tc<DP, BM, BN>,
+                       dim3(B * N, (Sk + BM - 1) / BM), BM * 2, smem_dkv,
+                       out);
+}
+
 }  // namespace tc
 
 }  // namespace
+
+// The launch of flash_attention_fwd (backward 0) or flash_attention_bwd
+// (backward 1) at these sizes: out[0] = its kernels (forward 1; bf16
+// backward 2: dq, dk/dv; f32 backward 3: delta, dq, dk/dv), then their
+// kernel_info.cuh records.  Launches nothing.
+extern "C" int flash_attention_info(int backward, int dtype, int B, int N,
+                                    int Sq, int Sk, int D, int* out) {
+  if (!shape_ok(D, Sq, Sk) || B < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  out[0] = 0;
+  if (dtype == 0 && !backward)
+    return D <= 64 ? info_fwd<4>(B, N, Sq, D, out) : info_fwd<8>(B, N, Sq, D, out);
+  if (dtype == 0)
+    return D <= 64 ? info_bwd<4>(B, N, Sq, Sk, D, out)
+                   : info_bwd<8>(B, N, Sq, Sk, D, out);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (!backward) {
+    if (D <= 32) return tc::info_fwd<32, 64, 64>(B, N, Sq, out);
+    if (D <= 64) return tc::info_fwd<64, 64, 64>(B, N, Sq, out);
+    return tc::info_fwd<128, 64, 32>(B, N, Sq, out);
+  }
+  if (D <= 32) return tc::info_bwd<32, 64, 64>(B, N, Sq, Sk, out);
+  if (D <= 64) return tc::info_bwd<64, 64, 64>(B, N, Sq, Sk, out);
+  return tc::info_bwd<128, 64, 32>(B, N, Sq, Sk, out);
+}
 
 // dtype: 0 = float32, 1 = bfloat16.  ``strides`` holds (batch, seq, head)
 // element strides of q, k, v, out.  lse is [B, N, Sq] f32.  Launches on

@@ -71,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_info.cuh"
+
 namespace {
 
 constexpr int kMaxVec = 8;         // chunks of 8 columns per lane: C <= 2048
@@ -462,6 +464,24 @@ int launch_bwd(const void* x, const void* g, const float* mu,
   return (int)cudaGetLastError();
 }
 
+// The forward (backward 0) or backward launch at these sizes, as kinfo
+// records.
+template <typename T, int V>
+int info_launch(int backward, int rows, int C, int nparts, int* out) {
+  out[0] = 0;
+  if (!backward)
+    return kinfo::record(ln_fwd_kernel<T, V>,
+                         dim3((rows + kFwdWarps - 1) / kFwdWarps),
+                         kFwdWarps * 32, 0, out);
+  const int err = prepare_bwd<T, V>();
+  if (err) return err;
+  const int e = kinfo::record(ln_bwd_kernel<T, V>, dim3(nparts),
+                              kBwdWarps * 32, bwd_smem<T, V>(C), out);
+  if (e) return e;
+  return kinfo::record(ln_reduce_kernel, dim3(2 * C / kRedCols), kRedThreads,
+                       0, out);
+}
+
 #define LN_DISPATCH(T, FN, ...)                         \
   switch (vec) {                                        \
     case 1: return FN<T, 1>(__VA_ARGS__);               \
@@ -498,6 +518,20 @@ extern "C" int layernorm_bwd_info(int dtype, int C, int* out) {
   const int vec = (C + 255) / 256;
   if (dtype == 0) { LN_DISPATCH(float, info_bwd, out) }
   if (dtype == 1) { LN_DISPATCH(__nv_bfloat16, info_bwd, out) }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The launch of layernorm_fwd (backward 0) or layernorm_bwd (backward 1,
+// over ``nparts`` row-pass blocks) at these sizes: out[0] = its kernels
+// (forward 1; backward 2: row pass, reduction), then their
+// kernel_info.cuh records.  Launches nothing.
+extern "C" int layernorm_info(int backward, int dtype, int rows, int C,
+                              int nparts, int* out) {
+  if (!shape_ok(rows, C) || (backward && nparts < 1))
+    return (int)cudaErrorInvalidValue;
+  const int vec = (C + 255) / 256;
+  if (dtype == 0) { LN_DISPATCH(float, info_launch, backward, rows, C, nparts, out) }
+  if (dtype == 1) { LN_DISPATCH(__nv_bfloat16, info_launch, backward, rows, C, nparts, out) }
   return (int)cudaErrorInvalidValue;
 }
 

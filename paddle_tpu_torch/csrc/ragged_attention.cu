@@ -75,6 +75,7 @@
 
 #include <algorithm>
 
+#include "kernel_info.cuh"
 #include "split_decode.cuh"
 
 namespace {
@@ -238,6 +239,18 @@ ragged_combine(const float* __restrict__ part_acc,
                        head_dim, e - h * head_dim, o);
 }
 
+// The split kernel's tiles: every tile holds a token, so disjoint rows
+// have at most min(T, ceil(T / tile) + R - 1) tiles between them.
+int split_tiles(int num_tokens, int num_rows, int tile) {
+  return (int)std::min<int64_t>(
+      num_tokens, (num_tokens + tile - 1) / tile + num_rows - 1);
+}
+
+// The combine's blocks a token: one thread per output element.
+int combine_blocks(int num_q_heads, int head_dim) {
+  return (num_q_heads * head_dim + kThreads - 1) / kThreads;
+}
+
 template <typename T, typename KV>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* k_scales, const void* v_scales,
@@ -265,10 +278,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   const int tile = splitkv::kRows / group;
   // the partials' layout: per token, or per row slot (see "Partials")
   const int per_token = num_slots >= num_tokens;
-  // every tile holds a token, so disjoint rows have at most
-  // min(T, ceil(T / tile) + R - 1) tiles between them
-  const int tiles = (int)std::min<int64_t>(
-      num_tokens, (num_tokens + tile - 1) / tile + num_rows - 1);
+  const int tiles = split_tiles(num_tokens, num_rows, tile);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float scale_log2 = splitkv::kLog2e / sqrtf((float)head_dim);
   kernel<<<dim3(tiles, num_kv_heads * num_splits), kThreads,
@@ -284,7 +294,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
       per_token, num_splits, scale_log2);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int per_t = (num_q_heads * head_dim + kThreads - 1) / kThreads;
+  const int per_t = combine_blocks(num_q_heads, head_dim);
   ragged_combine<T><<<dim3(num_tokens, per_t), kThreads, 0, s>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
       static_cast<const int*>(row_start), static_cast<const int*>(row_qlen),
@@ -293,7 +303,60 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   return (int)cudaGetLastError();
 }
 
+// The launch of :func:`launch` at these sizes, as kinfo records.
+template <typename T, typename KV>
+int info(int num_tokens, int num_rows, int num_q_heads, int num_kv_heads,
+         int head_dim, int num_splits, int* out) {
+  const int group = num_q_heads / num_kv_heads;
+  if (num_tokens < 1 || num_rows < 1 || group < 1 ||
+      group > splitkv::kRows || num_q_heads % num_kv_heads != 0 ||
+      head_dim % 8 != 0 || head_dim < 8 || head_dim > splitkv::kMaxD ||
+      num_splits < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t attr = splitkv::allow_ring<KV>(
+      ragged_split_kernel<T, KV, 2>, ragged_split_kernel<T, KV, 4>);
+  if (attr != cudaSuccess) return (int)attr;
+  const auto kernel = head_dim <= 64 ? ragged_split_kernel<T, KV, 2>
+                                     : ragged_split_kernel<T, KV, 4>;
+  const int tile = splitkv::kRows / group;
+  out[0] = 0;
+  int err = kinfo::record(
+      kernel, dim3(split_tiles(num_tokens, num_rows, tile),
+                   num_kv_heads * num_splits),
+      kThreads, splitkv::smem_bytes<KV>(head_dim), out);
+  if (err) return err;
+  return kinfo::record(
+      ragged_combine<T>,
+      dim3(num_tokens, combine_blocks(num_q_heads, head_dim)), kThreads, 0,
+      out);
+}
+
 }  // namespace
+
+// The launch of paged_ragged_attention (quant 0) or ..._quant (quant 1)
+// at these sizes: out[0] = 2 kernels (split, combine), then their
+// kernel_info.cuh records.  Launches nothing.
+extern "C" int paged_ragged_attention_info(int quant, int dtype,
+                                           int num_tokens, int num_rows,
+                                           int num_q_heads, int num_kv_heads,
+                                           int head_dim, int num_splits,
+                                           int* out) {
+  if (dtype == 0 && !quant)
+    return info<float, float>(num_tokens, num_rows, num_q_heads,
+                              num_kv_heads, head_dim, num_splits, out);
+  if (dtype == 1 && !quant)
+    return info<__nv_bfloat16, __nv_bfloat16>(
+        num_tokens, num_rows, num_q_heads, num_kv_heads, head_dim,
+        num_splits, out);
+  if (dtype == 0 && quant)
+    return info<float, int8_t>(num_tokens, num_rows, num_q_heads,
+                               num_kv_heads, head_dim, num_splits, out);
+  if (dtype == 1 && quant)
+    return info<__nv_bfloat16, int8_t>(num_tokens, num_rows, num_q_heads,
+                                       num_kv_heads, head_dim, num_splits,
+                                       out);
+  return (int)cudaErrorInvalidValue;
+}
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pools and output).  part_acc (f32
 // [slots, Nq, num_splits, D]) and part_ml (f32 [slots, Nq, num_splits,

@@ -6,8 +6,8 @@ call: ``ragged_decode_attention`` (the dense-cache decode kernel) and
 import torch
 
 from ...ops.cuda.decode_attention_kernel import (
-    decode_attention_cuda,
     decode_attention_plain,
+    decode_op,
 )
 
 __all__ = ["ragged_decode_attention", "swiglu"]
@@ -27,11 +27,12 @@ def ragged_decode_attention(q, k_cache, v_cache, lengths, use_pallas=None):
     q [B, Nq, D]; k_cache / v_cache [B, S_max, Nkv, D] with Nq % Nkv == 0
     (query heads grouped contiguously per kv head); lengths [B] int32,
     the valid prefix of each sequence (0 gives zeros).  CUDA tensors
-    launch the decode kernel (``ops/cuda/decode_attention_kernel.py``),
-    which raises on what it does not take; CPU tensors run its plain
+    launch the decode kernel through its op
+    (``ops/cuda/decode_attention_kernel.py``), which raises on what it
+    does not take; CPU tensors run its plain
     version.  ``use_pallas=False`` is the caller's explicit opt-out of
     the kernel, as in the JAX package, and takes the plain version on
     any device; the default never does."""
     if q.is_cuda and use_pallas is not False:
-        return decode_attention_cuda(q, k_cache, v_cache, lengths)
+        return decode_op(q, k_cache, v_cache, lengths)
     return decode_attention_plain(q, k_cache, v_cache, lengths)

@@ -18,7 +18,10 @@ On CUDA the body is captured once per token bucket as a CUDA graph
 first step — and every step copies its packed operands into the
 bucket's static buffer and replays the graph: the port's counterpart
 of the JAX engine's one compiled executable per bucket.  On the CPU
-the same body runs eagerly.
+the same body runs eagerly.  ``warmup()`` returns a ``CaptureWatcher``
+over the step graphs, and ``executable_grid()`` yields each bucket's body
+and operands for the analysis tools (``framework/analysis.py``,
+``cost.py``, ``kernel_lint.py``), which trace it over fake tensors.
 
 Prefix caching rides on the block manager: every page a sequence
 completes is registered under its prefix-chain hash, and admission
@@ -121,6 +124,7 @@ from ...framework.cost import (
     params_bytes,
     parse_bytes,
 )
+from ...framework.analysis import CaptureWatcher
 from ...incubate.nn import _layernorm
 from ...jit.graphs import StepGraphs
 from .block_manager import BlockManager, NoFreeBlocksError
@@ -209,13 +213,27 @@ def alloc_pools(num_layers, num_blocks, block_size, num_heads, head_dim,
     k_rows, v_rows = (
         torch.zeros((nl, nb * bs + 1, nh, hd), dtype=kv_dtype,
                     device=device) for _ in range(2))
-    kc, vc = (rows[:, :nb * bs].view(nl, nb, bs, nh, hd)
-              for rows in (k_rows, v_rows))
-    ks = vs = ks_flat = vs_flat = None
+    ks_flat = vs_flat = None
     if kv_quant:
         ks_flat, vs_flat = (
             torch.zeros((nl, (nb + 1) * nh * bs), dtype=torch.float32,
                         device=device) for _ in range(2))
+    return pool_views(k_rows, v_rows, ks_flat, vs_flat, num_blocks=nb,
+                      block_size=bs)
+
+
+def pool_views(k_rows, v_rows, ks_flat=None, vs_flat=None, *, num_blocks,
+               block_size):
+    """:data:`_Pools` over the slot rows (and an int8 pool's flat
+    scales): the page views ``kc`` / ``vc`` and ``ks`` / ``vs`` of
+    :func:`alloc_pools`, taken again (``executable_grid``'s bodies take
+    the pools as inputs)."""
+    nl, _, nh, hd = k_rows.shape
+    nb, bs = num_blocks, block_size
+    kc, vc = (rows[:, :nb * bs].view(nl, nb, bs, nh, hd)
+              for rows in (k_rows, v_rows))
+    ks = vs = None
+    if ks_flat is not None:
         ks, vs = (flat.view(nl, nb + 1, nh, bs)[:, :nb]
                   for flat in (ks_flat, vs_flat))
     return _Pools(k_rows, v_rows, kc, vc, ks_flat, vs_flat, ks, vs)
@@ -333,7 +351,6 @@ class _StepShard:
         slots = torch.where(
             live, tables[rows.long(), p_safe // bs].long() * bs + p_safe % bs,
             nb * bs)
-        ctx = (p_safe + live).to(torch.int32)
         targets = self.lora.targets if lora else ()
         onehot = None
         if lora:
@@ -373,13 +390,13 @@ class _StepShard:
                     rows_i[slots] = q8
                     scales[sidx] = s
                 out = paged_ragged_attention_quant(
-                    q, kc[i], vc[i], ks[i], vs[i], tables, ctx, rows,
+                    q, kc[i], vc[i], ks[i], vs[i], tables, None, None,
                     row_start, row_qlen, row_pos0)
             else:
                 k_rows[i][slots] = qkv[:, 1]
                 v_rows[i][slots] = qkv[:, 2]
-                out = paged_ragged_attention(q, kc[i], vc[i], tables, ctx,
-                                             rows, row_start, row_qlen,
+                out = paged_ragged_attention(q, kc[i], vc[i], tables, None,
+                                             None, row_start, row_qlen,
                                              row_pos0)
             out = out.to(x.dtype).reshape(tb, nh * hd)
             part = delta(out @ wmat(p_l, "attn.proj.weight"), p_l,
@@ -413,7 +430,7 @@ class _StepShard:
     def copy_on_write(self, cows):
         """Copy each ``(src, dst)`` page's payload (and scales) in every
         layer, on the step's stream."""
-        cow = torch.as_tensor(np.asarray(cows, np.int64).T,
+        cow = torch.as_tensor(np.asarray(cows, np.int64).T,  # noqa: H001 (page pairs are a host list of ints)
                               device=self.device)
         for pool in (self.pools.kc, self.pools.vc, self.pools.ks,
                      self.pools.vs):
@@ -465,8 +482,8 @@ class RequestOutput:
                  num_preemptions, error=None, logprobs=None,
                  matched_stop=None, metrics=None):
         self.request_id = request_id
-        self.prompt_ids = np.asarray(prompt_ids)
-        self.output_ids = np.asarray(output_ids)
+        self.prompt_ids = np.asarray(prompt_ids)  # noqa: H001 (RequestOutput holds host arrays by contract)
+        self.output_ids = np.asarray(output_ids)  # noqa: H001 (RequestOutput holds host arrays by contract)
         self.finish_reason = finish_reason
         self.num_preemptions = num_preemptions
         self.error = error
@@ -659,10 +676,10 @@ class LLMEngine:
         self._nh_local = self.num_heads // self.tp
         self.head_dim = cfg.head_dim
         self.eps = cfg.layer_norm_epsilon
-        self.vocab_size = int(cfg.vocab_size)
+        self.vocab_size = int(cfg.vocab_size)  # noqa: H001 (config value, a Python int)
         self.block_size = int(block_size)
         self.max_batch = int(max_batch)
-        self.max_model_len = int(min(max_model_len
+        self.max_model_len = int(min(max_model_len  # noqa: H001 (config value, a Python int)
                                      or cfg.max_position_embeddings,
                                      cfg.max_position_embeddings))
         self.max_pages = -(-self.max_model_len // self.block_size)
@@ -820,6 +837,10 @@ class LLMEngine:
                       # lifecycle counters (lifecycle_stats())
                       "aborted": 0, "deadline_missed": 0, "shed": 0,
                       "retries": 0, "quarantined": 0, "step_faults": 0}
+        # D001: the address of every tensor the step reads by address,
+        # recorded as it is built (framework/analysis.py)
+        self._state_ptrs = {}
+        self._note_captured_state()
 
     def _alloc_pools(self, num_layers):
         """Zeroed K/V pools of ``num_layers`` layers of this rank's heads
@@ -900,7 +921,7 @@ class LLMEngine:
         finishes at once with ``FinishReason.shed``, delivered by the
         next :meth:`step`."""
         interleave_point("add")
-        prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
+        prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]  # noqa: H001 (prompt ids arrive as host data)
         if not prompt:
             raise ValueError("empty prompt")
         if adapter_id is not None:
@@ -1240,9 +1261,19 @@ class LLMEngine:
         draft model's body runs (and is captured) the same way, over the
         draft pools.  A server calls it before its worker thread starts,
         so no capture runs while another thread may call into CUDA.
-        Returns ``{"ragged[<bucket>]": ms}`` in bucket order for the
-        target's runs, captures included; the draft's capture times are
-        the draft StepGraphs' ``capture_ms``."""
+
+        Returns a :class:`~paddle_tpu_torch.framework.analysis.
+        CaptureWatcher` armed over the target's (and the draft's) step
+        graphs, so callers can assert the serving window captures
+        nothing; its ``compile_ms`` is ``{"ragged[<bucket>]": ms}`` in
+        bucket order for the target's runs, captures included, mirrored
+        on ``engine.warmup_compile_ms`` (the draft's capture times are
+        the draft StepGraphs' ``capture_ms``)::
+
+            watcher = eng.warmup()
+            serve_traffic()
+            watcher.assert_no_new_captures()
+        """
         timings = {}
         dead = (None if self.lora is None
                 else np.zeros(self.max_batch, np.int32))
@@ -1250,16 +1281,89 @@ class LLMEngine:
             t0 = time.perf_counter()
             self._ragged_fn(self._pack_rows([], tb, adapter_rows=dead))
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                torch.cuda.synchronize(self.device)  # noqa: H001 (warmup timing sync — never on the serving step path)
             timings[f"{kind}[{tb}]"] = (time.perf_counter() - t0) * 1e3
         if self._draft_bm is not None:
             for _kind, tb in sorted(self._bucket_grid(),
                                     key=lambda b: -b[1]):
                 self._draft_run(self._pack_rows([], tb))
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        return {key: timings[key]
-                for key in (f"{k}[{tb}]" for k, tb in self._bucket_grid())}
+                torch.cuda.synchronize(self.device)  # noqa: H001 (warmup sync — never on the serving step path)
+        self._note_captured_state()
+        self.warmup_compile_ms = {
+            key: timings[key]
+            for key in (f"{k}[{tb}]" for k, tb in self._bucket_grid())}
+        graphs = [("ragged", self._graphs)]
+        if self._draft_graphs is not None:
+            graphs.append(("draft", self._draft_graphs))
+        watcher = CaptureWatcher(*(g for _, g in graphs),
+                                 labels=[lbl for lbl, _ in graphs])
+        watcher.compile_ms = dict(self.warmup_compile_ms)
+        return watcher
+
+    def executable_grid(self):
+        """Yield ``(kind, bucket, body, operands)`` for every entry of
+        :meth:`_bucket_grid`: ``body(ints, *pools)`` is the step body
+        (:meth:`_ragged_body`) over the pools passed as inputs
+        (:func:`pool_views` takes their page views again), and
+        ``operands`` are a dead-row packed buffer of the bucket on the
+        engine's device (:meth:`_pack_rows` with no rows; on a LoRA
+        engine every row on adapter slot 0) followed by the pool
+        tensors.  ``framework/analysis.py`` and ``framework/cost.py``
+        trace these over fake tensors: nothing runs and no pool is
+        written.  Not at tp > 1 (A20b)."""
+        if self.tp > 1:
+            raise NotImplementedError(f"executable_grid() {_A20B}")
+        pools = tuple(t for t in (self._k_rows, self._v_rows,
+                                  self._ks_flat, self._vs_flat)
+                      if t is not None)
+        nb, bs = self.num_blocks, self.block_size
+
+        def body(ints, *pools):
+            return self._ragged_body(
+                ints, pools=pool_views(*pools, num_blocks=nb,
+                                       block_size=bs))
+
+        dead = (None if self.lora is None
+                else np.zeros(self.max_batch, np.int32))
+        for kind, tb in self._bucket_grid():
+            ints = torch.from_numpy(
+                self._pack_rows([], tb, adapter_rows=dead)["ints"])
+            yield kind, tb, body, (ints.to(self.device), *pools)
+
+    def _captured_state(self):
+        """``{name: tensor}`` of every tensor the step reads by address,
+        which a captured graph keeps reading at the address it had: the
+        target's and the draft's pools (their sinks and scales), the
+        weights with the adapter pools, the per-layer views of them, and
+        the step graphs' static operand buffers (D001,
+        ``framework/analysis.py::check_captured_state``)."""
+        state = {}
+        for prefix, pools in (("pools", self._shard.pools),
+                              ("draft_pools", self._shard.draft_pools)):
+            if pools is not None:
+                state.update((f"{prefix}.{field}", t)
+                             for field, t in pools._asdict().items()
+                             if t is not None)
+        for group, sub in self._shard.params.items():
+            state.update((f"params.{group}.{key}", t)
+                         for key, t in sub.items())
+        for i, layer in enumerate(self._shard.layers):
+            state.update((f"layers[{i}].{key}", t)
+                         for key, t in layer.items())
+        for label, graphs in (("ragged", self._graphs),
+                              ("draft", self._draft_graphs)):
+            if graphs is not None:
+                state.update((f"{label}.static[{key}]", entry[1])
+                             for key, entry in graphs._inputs.items())
+        return state
+
+    def _note_captured_state(self):
+        """Record the address of each tensor of :meth:`_captured_state`
+        not recorded yet (at construction, and what ``warmup()``
+        allocated)."""
+        for name, t in self._captured_state().items():
+            self._state_ptrs.setdefault(name, t.data_ptr())
 
     # ---------------------------------------------------------------- step --
     def step(self):
@@ -1606,7 +1710,7 @@ class LLMEngine:
     def _pull(self, rows, starts, argmax, logits):
         """The one host pull per step: the argmax vector, plus the logits
         rows of tokens that sample or report logprobs."""
-        return (argmax.cpu().numpy(),
+        return (argmax.cpu().numpy(),  # noqa: H001 (the step's argmax pull — the one sync a step makes by design)
                 self._fetch_sampling_rows(rows, starts, logits))
 
     def _commit(self, rows, starts, nxt, row_logits, finished):
@@ -1688,7 +1792,7 @@ class LLMEngine:
         if not spans:
             return {}
         sel = logits[torch.as_tensor(idx, device=logits.device)]
-        sel = sel.float().cpu().numpy()
+        sel = sel.float().cpu().numpy()  # noqa: H001 (the sampling and logprobs rows' logits, pulled once a step by design)
         return {ri: sel[o:o + n] for ri, (o, n) in spans.items()}
 
     # --------------------------------------------------------- commits --
@@ -1706,14 +1810,14 @@ class LLMEngine:
     def _sample_token(self, req, logits):
         """Gumbel-max sample of one host logits row from the request's
         stream (``seed=``) or the engine stream."""
-        z = np.asarray(logits, np.float64) / req.temperature
+        z = np.asarray(logits, np.float64) / req.temperature  # noqa: H001 (host sampling over the pulled logits row)
         if req.seed is not None:
             if req._sample_rng is None:
                 req._sample_rng = np.random.RandomState(req.seed)
             rng = req._sample_rng
         else:
             rng = self._rng
-        return int(np.argmax(z + rng.gumbel(size=z.shape)))
+        return int(np.argmax(z + rng.gumbel(size=z.shape)))  # noqa: H001 (host sampling over the pulled logits row)
 
     def _check_stop(self, req):
         """Stop-string check after an emitted token: the matched string
@@ -1780,18 +1884,18 @@ class LLMEngine:
                     if r.temperature > 0.0 and r.seed is None]
         picked = {}
         if eng_rows:
-            z = np.stack([np.asarray(entries[j][2], np.float64)
+            z = np.stack([np.asarray(entries[j][2], np.float64)  # noqa: H001 (host sampling over the pulled logits rows)
                           / entries[j][0].temperature for j in eng_rows])
             g = self._rng.gumbel(size=z.shape)
             for j, t in zip(eng_rows, np.argmax(z + g, axis=-1)):
-                picked[j] = int(t)
+                picked[j] = int(t)  # noqa: H001 (host numpy token)
         now = self._clock()
         for j, (req, argmax_token, logits) in enumerate(entries):
             if req.temperature > 0.0:
                 tok = picked[j] if j in picked \
                     else self._sample_token(req, logits)
             else:
-                tok = int(argmax_token)
+                tok = int(argmax_token)  # noqa: H001 (host numpy token)
             req.output_ids.append(tok)
             if len(req.output_ids) == 1:
                 self._first_token_at[req.request_id] = now
@@ -1842,7 +1946,7 @@ class LLMEngine:
             if req.temperature > 0.0:
                 tok = self._sample_token(req, logits_row[j])
             else:
-                tok = int(argmax_row[j])
+                tok = int(argmax_row[j])  # noqa: H001 (host numpy argmax row)
             req.output_ids.append(tok)
             emitted += 1
             self.stats["tokens_generated"] += 1
@@ -1989,12 +2093,12 @@ class LLMEngine:
         synchronous copy of just those rows (queued after the step in
         flight, complete before the payload is stored).  bfloat16 pages
         travel as their int16 bit patterns (numpy has no bfloat16)."""
-        idx = torch.as_tensor(np.asarray(block_ids, np.int64),
+        idx = torch.as_tensor(np.asarray(block_ids, np.int64),  # noqa: H001 (block ids are a host list)
                               device=pool.device)
-        sel = pool[:, idx].cpu()
+        sel = pool[:, idx].cpu()  # noqa: H001 (tier / migration page moves are synchronous host copies by design)
         if sel.dtype == torch.bfloat16:
             sel = sel.view(torch.int16)
-        return sel.numpy()
+        return sel.numpy()  # noqa: H001 (tier / migration page moves are synchronous host copies by design)
 
     def _scatter_pool(self, pool, block_ids, pages):
         """Write host page rows ``pages`` (as :meth:`_gather_pool` made
@@ -2006,7 +2110,7 @@ class LLMEngine:
         if vals.dtype != pool.dtype:
             raise ValueError(f"page payload {vals.dtype} does not match "
                              f"the pool's {pool.dtype}")
-        idx = torch.as_tensor(np.asarray(block_ids, np.int64),
+        idx = torch.as_tensor(np.asarray(block_ids, np.int64),  # noqa: H001 (block ids are a host list)
                               device=pool.device)
         pool[:, idx] = vals.to(pool.device)
 
@@ -2218,7 +2322,7 @@ class LLMEngine:
             return None
         seq = entry["seq"]
         n = len(req.all_ids)
-        cached = int(seq["num_tokens"])
+        cached = int(seq["num_tokens"])  # noqa: H001 (host sequence record)
         if not 0 < cached < n:
             # a stale chain (the forget paths should have dropped it):
             # recompute from scratch
@@ -2671,7 +2775,7 @@ class LLMEngine:
         self.last_launches.append(("ragged", tb))
         self._launch_count += 1
         argmax, logits = self._draft_run(pk)
-        return argmax.cpu().numpy(), logits, pk["starts"]
+        return argmax.cpu().numpy(), logits, pk["starts"]  # noqa: H001 (the draft chain's argmax pull — one sync a draft launch by design)
 
     def _metrics(self, req):
         return {"arrival": req.arrival_time,

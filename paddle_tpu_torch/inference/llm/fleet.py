@@ -29,10 +29,11 @@ Design:
   buckets there), so no bucket is ever captured in a stepping thread
   while another thread launches (a capture in the global error mode is
   invalidated by a launch from any thread, and ``parallel_step=True``
-  steps replicas in threads).  ``warmup()`` returns those timings, and
-  the fleet's gate is zero captures after construction on every replica
-  (``engine._graphs.captures``, and the draft graphs' where there is a
-  draft model).  All
+  steps replicas in threads).  ``warmup()`` returns one CaptureWatcher
+  over every replica's graphs with those timings as its ``compile_ms``,
+  and the fleet's gate is zero captures after construction on every
+  replica (``engine._graphs.captures``, and the draft graphs' where
+  there is a draft model).  All
   replicas of one process share one CUDA context and, by default, one
   stream: their replays do not overlap on the card, and a sticky
   device error poisons every replica, not only the one that raised.
@@ -560,16 +561,30 @@ class Fleet:
         eng = self._engine_factory(
             self._model, faults=self._engine_faults[index],
             **self._engine_kwargs)
-        self._warmup_ms[index] = eng.warmup()
+        self._warmup_ms[index] = eng.warmup().compile_ms
         return eng
 
     def warmup(self):
-        """``{replica index: that engine's warmup() timings}``.  Every
-        replica was warmed as it was built (on CUDA each captured its
-        own token buckets then), so serving captures nothing: the gate
-        is zero new captures on every replica's ``_graphs`` (and draft
-        graphs) after construction."""
-        return {r.index: self._warmup_ms[r.index] for r in self.replicas}
+        """ONE armed :class:`~paddle_tpu_torch.framework.analysis.
+        CaptureWatcher` over every replica's step graphs (target and
+        draft), whose ``compile_ms`` is ``{replica index: that engine's
+        warmup() timings}``.  Every replica was warmed as it was built
+        (on CUDA each captured its own token buckets then), so serving
+        captures nothing: ``assert_no_new_captures()`` certifies the
+        whole fleet."""
+        from ...framework.analysis import CaptureWatcher
+
+        graphs, labels = [], []
+        for r in self.replicas:
+            for kind, g in (("ragged", r.engine._graphs),
+                            ("draft", r.engine._draft_graphs)):
+                if g is not None:
+                    graphs.append(g)
+                    labels.append(f"replica{r.index}.{kind}")
+        watcher = CaptureWatcher(*graphs, labels=labels)
+        watcher.compile_ms = {r.index: self._warmup_ms[r.index]
+                              for r in self.replicas}
+        return watcher
 
     def replica_states(self):
         return {r.index: r.state for r in self.replicas}

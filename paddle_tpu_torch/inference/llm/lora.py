@@ -27,6 +27,10 @@ captured graphs, which read the pools by address, see the new adapter
 at their next replay.
 """
 
+# noqa-module: H001 (the manager is host bookkeeping by design — slot
+# assignment, LRU ticks, and registration shapes are python state; the
+# device-side delta lives in engine.py's step body)
+
 import numpy as np
 
 from .quant import QUANT_BLOCK_LEAVES

@@ -6,22 +6,27 @@ block table.  A decode row is a one-token chunk, a prefill chunk a
 C-token chunk, so the engine calls :func:`paged_ragged_attention` once
 per layer over the step's packed query tokens.
 
-Two implementations with one semantics:
+It calls the ``torch.library`` op ``paddle_tpu_torch::
+paged_ragged_attention`` on every device, with the per-row ``(row_start,
+row_qlen, row_pos0)`` descriptors; the op has two implementations with
+one semantics:
 
 - CUDA tensors: the hand-written kernel
   (``ops/cuda/ragged_attention_kernel.py``), which walks exactly the
-  pages each row owns through per-row ``(row_start, row_qlen,
-  row_pos0)`` descriptors;
-- CPU tensors: :func:`paged_ragged_attention_plain`, which gathers each
-  token's pages into the dense layout and runs the masked attention
-  (f32 softmax, -1e30 mask, 1/sqrt(D) inside, exact zeros for tokens
-  outside every row).
+  pages each row owns;
+- CPU tensors: :func:`paged_ragged_attention_plain` over the per-token
+  form :func:`token_descriptors` derives, which gathers each token's
+  pages into the dense layout and runs the masked attention (f32
+  softmax, -1e30 mask, 1/sqrt(D) inside, exact zeros for tokens outside
+  every row).
 
-The int8-pool twin, :func:`paged_ragged_attention_quant`, takes int8
-pools plus one f32 scale per (page, kv head, slot) and dispatches the
-same way: the int8 kernel for CUDA tensors, and for CPU tensors
-:func:`paged_ragged_attention_quant_plain`, which gathers each token's
-pages and scale rows, dequantizes in f32 and runs the same chain.
+So a traced step shows each layer's attention as one op node on either
+device.  The int8-pool twin, :func:`paged_ragged_attention_quant`, takes
+int8 pools plus one f32 scale per (page, kv head, slot) and calls its
+own op the same way: the int8 kernel for CUDA tensors, and for CPU
+tensors :func:`paged_ragged_attention_quant_plain`, which gathers each
+token's pages and scale rows, dequantizes in f32 and runs the same
+chain.
 
 The JAX package's three per-phase forms stay as thin re-expressions
 over the same ragged call — :func:`paged_decode_attention` (one-token
@@ -123,33 +128,26 @@ def paged_ragged_attention(q, k_pages, v_pages, block_tables, ctx, rows,
                            row_start, row_qlen, row_pos0):
     """Ragged paged attention over T packed query tokens -> [T, Nq, D].
 
-    Carries both descriptor forms: the plain version is per-token
-    (``ctx``, ``rows`` [T]), the kernel per-row (``row_start``,
-    ``row_qlen``, ``row_pos0`` [R] against ``block_tables`` [R, P]).
-    A CUDA ``q`` launches the kernel (which raises on inputs it does
-    not take); a CPU ``q`` runs the plain version."""
-    if q.is_cuda:
-        return _kernel.paged_ragged_attention_cuda(
-            q, k_pages, v_pages, block_tables, row_start, row_qlen,
-            row_pos0)
-    return paged_ragged_attention_plain(q, k_pages, v_pages, block_tables,
-                                        ctx, rows)
+    The op reads the per-row descriptors (``row_start``, ``row_qlen``,
+    ``row_pos0`` [R] against ``block_tables`` [R, P]); the per-token form
+    (``ctx``, ``rows`` [T]) of the JAX signature is not read (pass None),
+    since the CPU implementation derives it from the rows.  A CUDA ``q``
+    launches the kernel (which raises on inputs it does not take); a CPU
+    ``q`` runs the plain version."""
+    return _kernel.ragged_op(q, k_pages, v_pages, block_tables, row_start,
+                             row_qlen, row_pos0)
 
 
 def paged_ragged_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
                                  block_tables, ctx, rows, row_start,
                                  row_qlen, row_pos0):
     """The int8-pool twin of :func:`paged_ragged_attention`, with the
-    same two descriptor forms plus the two scale pools.  A CUDA ``q``
-    launches the int8 kernel (which raises on inputs it does not take);
-    a CPU ``q`` runs the plain version."""
-    if q.is_cuda:
-        return _kernel.paged_ragged_attention_quant_cuda(
-            q, k_pages, v_pages, k_scales, v_scales, block_tables,
-            row_start, row_qlen, row_pos0)
-    return paged_ragged_attention_quant_plain(q, k_pages, v_pages, k_scales,
-                                              v_scales, block_tables, ctx,
-                                              rows)
+    same signature plus the two scale pools (``ctx`` and ``rows`` not
+    read).  A CUDA ``q`` launches the int8 kernel (which raises on
+    inputs it does not take); a CPU ``q`` runs the plain version."""
+    return _kernel.ragged_quant_op(q, k_pages, v_pages, k_scales, v_scales,
+                                   block_tables, row_start, row_qlen,
+                                   row_pos0)
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, block_tables,
@@ -169,7 +167,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
     if q.is_cuda:
         b = q.shape[0]
         lengths = lengths.to(torch.int32)
-        return _kernel.paged_ragged_attention_cuda(
+        return _kernel.ragged_op(
             q, k_pages, v_pages, block_tables,
             torch.arange(b, device=q.device, dtype=torch.int32),
             (lengths > 0).to(torch.int32), (lengths - 1).clamp(min=0))
@@ -200,7 +198,7 @@ def paged_verify_attention(q, k_pages, v_pages, block_tables, ctx):
     b, t, nq, d = q.shape
     if q.is_cuda:
         ctx = ctx.to(torch.int32)
-        flat = _kernel.paged_ragged_attention_cuda(
+        flat = _kernel.ragged_op(
             q.reshape(b * t, nq, d), k_pages, v_pages, block_tables,
             torch.arange(b, device=q.device, dtype=torch.int32) * t,
             (ctx > 0).sum(1, dtype=torch.int32),
@@ -215,7 +213,7 @@ def paged_prefill_attention_plain(q, k_pages, v_pages, block_table, start):
     ``start .. start + C - 1``, causal over the pool through the one
     ``block_table`` [P]."""
     c = q.shape[1]
-    ctx = (int(start) + 1
+    ctx = (int(start) + 1  # noqa: H001 (the prefill start is a Python int by contract)
            + torch.arange(c, device=q.device, dtype=torch.int32))
     rows = torch.zeros(c, device=q.device, dtype=torch.int32)
     return paged_ragged_attention_plain(q[0], k_pages, v_pages,
@@ -229,8 +227,8 @@ def paged_prefill_attention(q, k_pages, v_pages, block_table, start):
     if q.is_cuda:
         c = q.shape[1]
         one = torch.ones(1, device=q.device, dtype=torch.int32)
-        return _kernel.paged_ragged_attention_cuda(
+        return _kernel.ragged_op(
             q[0], k_pages, v_pages, block_table[None], 0 * one, c * one,
-            int(start) * one)[None]
+            int(start) * one)[None]  # noqa: H001 (the prefill start is a Python int by contract)
     return paged_prefill_attention_plain(q, k_pages, v_pages, block_table,
                                          start)

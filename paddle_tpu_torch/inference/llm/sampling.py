@@ -104,7 +104,7 @@ def token_counts(ids, vocab_size):
     """Occurrence counts of ``ids`` over the vocab as one f32 row — the
     penalties' counts channel for a single query position."""
     c = np.zeros(vocab_size, np.float32)
-    np.add.at(c, np.asarray(ids, np.int64), 1.0)
+    np.add.at(c, np.asarray(ids, np.int64), 1.0)  # noqa: H001 (token histories are host arrays)
     return c
 
 
@@ -119,10 +119,10 @@ def validate_sampling(top_k, top_p, min_p, repetition_penalty,
         raise ValueError(f"top_k must be an int >= 0 (0 disables), "
                          f"got {top_k!r}")
     if not isinstance(top_p, (int, float, np.integer, np.floating)) \
-            or isinstance(top_p, bool) or not 0.0 < float(top_p) <= 1.0:
+            or isinstance(top_p, bool) or not 0.0 < float(top_p) <= 1.0:  # noqa: H001 (request knobs are Python values, validated before admission)
         raise ValueError(f"top_p must satisfy 0 < top_p <= 1, got {top_p!r}")
     if not isinstance(min_p, (int, float, np.integer, np.floating)) \
-            or isinstance(min_p, bool) or not 0.0 <= float(min_p) <= 1.0:
+            or isinstance(min_p, bool) or not 0.0 <= float(min_p) <= 1.0:  # noqa: H001 (request knobs are Python values, validated before admission)
         raise ValueError(f"min_p must satisfy 0 <= min_p <= 1, "
                          f"got {min_p!r}")
     for name, val in (("repetition_penalty", repetition_penalty),
@@ -130,9 +130,9 @@ def validate_sampling(top_k, top_p, min_p, repetition_penalty,
                       ("frequency_penalty", frequency_penalty)):
         if isinstance(val, bool) or \
                 not isinstance(val, (int, float, np.integer, np.floating)) \
-                or not math.isfinite(float(val)):
+                or not math.isfinite(float(val)):  # noqa: H001 (request knobs are Python values, validated before admission)
             raise ValueError(f"{name} must be a finite number, got {val!r}")
-    if float(repetition_penalty) <= 0.0:
+    if float(repetition_penalty) <= 0.0:  # noqa: H001 (request knobs are Python values, validated before admission)
         raise ValueError(f"repetition_penalty must be > 0, "
                          f"got {repetition_penalty!r}")
     norm_bias = None
@@ -142,7 +142,7 @@ def validate_sampling(top_k, top_p, min_p, repetition_penalty,
                              f"{{token_id: bias}}, got {logit_bias!r}")
         norm_bias = {}
         for tid, b in logit_bias.items():
-            t = int(tid)
+            t = int(tid)  # noqa: H001 (request knobs are Python values, validated before admission)
             if t < 0 or (vocab_size is not None and t >= vocab_size):
                 raise ValueError(
                     f"logit_bias token id {tid!r} outside the vocab"
@@ -150,11 +150,11 @@ def validate_sampling(top_k, top_p, min_p, repetition_penalty,
             if isinstance(b, bool) or \
                     not isinstance(b, (int, float, np.integer,
                                        np.floating)) \
-                    or not math.isfinite(float(b)):
+                    or not math.isfinite(float(b)):  # noqa: H001 (request knobs are Python values, validated before admission)
                 raise ValueError(
                     f"logit_bias[{tid!r}] must be a finite number, "
                     f"got {b!r}")
-            norm_bias[t] = float(b)
+            norm_bias[t] = float(b)  # noqa: H001 (request knobs are Python values, validated before admission)
     if isinstance(logprobs, bool) or \
             not isinstance(logprobs, (int, np.integer)) or logprobs < 0:
         raise ValueError(f"logprobs must be an int >= 0 (top-N "
@@ -218,9 +218,9 @@ def top_logprobs(row, n, chosen):
     ``(chosen_logprob, [(token_id, logprob), ...])`` with the top-n
     alternatives in descending order (ties broken by token id, so the
     return is deterministic)."""
-    z = np.asarray(row, np.float64)
+    z = np.asarray(row, np.float64)  # noqa: H001 (logprobs over the pulled host logits row)
     z = z - z.max()
     lp = z - np.log(np.exp(z).sum())
     order = np.lexsort((np.arange(lp.size), -lp))[:n]
-    return (float(lp[int(chosen)]),
-            [(int(t), float(lp[t])) for t in order])
+    return (float(lp[int(chosen)]),  # noqa: H001 (logprobs over the pulled host logits row)
+            [(int(t), float(lp[t])) for t in order])  # noqa: H001 (logprobs over the pulled host logits row)

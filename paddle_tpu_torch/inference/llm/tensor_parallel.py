@@ -305,7 +305,7 @@ class _Channel:
         t0 = time.perf_counter()
         try:
             if self.stage:
-                host = y.cpu()
+                host = y.cpu()  # noqa: H001 (gloo reduces host tensors: a CUDA partial is staged through the host by design)
                 t1 = time.perf_counter()
                 self.mp.allreduce([host]).wait()
                 t2 = time.perf_counter()
@@ -566,7 +566,7 @@ def _worker_main(rank, devices, port, spec, shard, threads, precision,
                 payload = ch.bcast(torch.empty(n, dtype=torch.int32))
                 ints = payload[:n - 2 * m].to(dev)
                 if m:
-                    st.copy_on_write(payload[n - 2 * m:].view(m, 2).numpy())
+                    st.copy_on_write(payload[n - 2 * m:].view(m, 2).numpy())  # noqa: H001 (the command payload is a host tensor)
                 if op == OP_STEP:
                     st.body(ints)
                 else:
@@ -577,11 +577,11 @@ def _worker_main(rank, devices, port, spec, shard, threads, precision,
                     layers, d_in, d_out = spec["lora_shapes"][key]
                     r = spec["lora"].rank
                     weights[key] = tuple(
-                        ch.bcast(torch.empty(shape)).numpy()
+                        ch.bcast(torch.empty(shape)).numpy()  # noqa: H001 (the command payload is a host tensor)
                         for shape in ((layers, d_in, r), (layers, r, d_out)))
                 st.write_adapter_slot(arg, weights)
             elif op == OP_STATS:
-                blob = pickle.dumps(rank_stats(st, ch, bool(arg)))
+                blob = pickle.dumps(rank_stats(st, ch, bool(arg)))  # noqa: H001 (the op argument is a host int)
                 lengths = torch.zeros(len(devs), dtype=torch.int64)
                 lengths[rank] = len(blob)
                 ch.sum_ctrl(lengths)

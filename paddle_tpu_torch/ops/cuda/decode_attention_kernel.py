@@ -18,12 +18,19 @@ not take; :func:`decode_attention_plain` is the plain version (the JAX
 package's ``decode_attention_xla``).  ``launches`` counts the wrapper's
 launches (and nothing else): one per call, which runs the split kernel
 and its combine (split-KV flash-decoding, ``split_kv.py``).
+
+The entry is also the ``torch.library`` op ``paddle_tpu_torch::
+decode_attention`` (:data:`decode_op`): the wrapper on CUDA tensors,
+the plain version on CPU ones, a fake for its shape.
+:func:`decode_cost` prices a call.
 """
 
 import ctypes
 import math
 
+import numpy as np
 import torch
+from torch import Tensor
 
 from . import _build, split_kv
 
@@ -149,3 +156,39 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
                            f"CUDA error {rc}")
     launches += 1
     return out
+
+
+@torch.library.custom_op("paddle_tpu_torch::decode_attention",
+                         mutates_args=(), device_types="cuda")
+def decode_op(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+              lengths: Tensor) -> Tensor:
+    """B6 as an op: :func:`decode_attention_cuda` on CUDA tensors,
+    :func:`decode_attention_plain` on CPU ones."""
+    return decode_attention_cuda(q, k_cache, v_cache, lengths)
+
+
+decode_op.register_kernel("cpu")(decode_attention_plain)
+
+
+@decode_op.register_fake
+def _decode_fake(q, k_cache, v_cache, lengths):
+    return torch.empty_like(q)
+
+
+def decode_cost(q, k_cache, v_cache, lengths):
+    """``{"flops", "bytes"}`` of one call: the valid prefix of K and V
+    read once, q read and the output written once, against 4*D FLOPs
+    per (query head, valid key).  The valid prefix is the lengths'
+    values; from a stand-in without values it is 0."""
+    from .ragged_attention_kernel import has_data
+
+    b, nq, d = q.shape
+    s, nkv = k_cache.shape[1], k_cache.shape[2]
+    valid = 0.0
+    if has_data(lengths):
+        valid = float(np.minimum(np.maximum(lengths.cpu().numpy(), 0),  # noqa: H001 (cost rule: reads the lengths' values to count the work, off the step path)
+                                 s).sum())
+    isz = q.element_size()
+    nbytes = (2 * valid * nkv * d * k_cache.element_size()
+              + 2 * b * nq * d * isz + 4 * b)
+    return {"flops": 4.0 * d * nq * valid, "bytes": float(nbytes)}  # noqa: H001 (cost rule: host arithmetic)

@@ -20,12 +20,20 @@ beside them are the dispatcher's composition
 ``ops/attention.py::attention_plain`` with its lse
 (``flash_fwd_plain``) and its gradient from a given out and lse, as
 the backward kernels take them (``flash_bwd_plain``).
+
+The forward and the backward pair are also the ``torch.library`` ops
+``paddle_tpu_torch::flash_attention_fwd`` and ``..._bwd``
+(:data:`flash_fwd_op`, :data:`flash_bwd_op`), which the autograd
+function calls: the wrappers on CUDA tensors, the plain versions on CPU
+ones, fakes for their shapes.  :func:`flash_fwd_cost` and
+:func:`flash_bwd_cost` price a call.
 """
 
 import ctypes
 import math
 
 import torch
+from torch import Tensor
 
 from . import _build
 
@@ -89,7 +97,7 @@ def _check(named, causal, seq_k_names=()):
     if not supports(sq, sk, d, q.dtype, causal):
         raise ValueError(f"shape not supported by the CUDA kernels: "
                          f"seq_q={sq}, seq_k={sk}, head_dim={d}, "
-                         f"dtype={q.dtype}, causal={bool(causal)} (causal "
+                         f"dtype={q.dtype}, causal={bool(causal)} (causal "  # noqa: H001 (causal is a Python attribute of the launch)
                          f"attention needs seq_q == seq_k)")
     for name, x in named.items():
         if not x.is_cuda:
@@ -122,7 +130,7 @@ def flash_attention_fwd_cuda(q, k, v, causal, scale):
         rc = _kernel("flash_attention_fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), _DTYPES[q.dtype], b, n, sq, sk, d,
-            _strides((q, k, v, out)), int(bool(causal)), float(scale),
+            _strides((q, k, v, out)), int(bool(causal)), float(scale),  # noqa: H001 (causal and scale are Python attributes of the launch)
             stream)
     if rc != 0:
         raise RuntimeError(f"flash attention forward launch failed: CUDA "
@@ -157,8 +165,8 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal, scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, n, sq, sk, d,
-            _strides((q, k, v, dout, dq, dk, dv, out)), int(bool(causal)),
-            float(scale), stream)
+            _strides((q, k, v, dout, dq, dk, dv, out)), int(bool(causal)),  # noqa: H001 (causal is a Python attribute of the launch)
+            float(scale), stream)  # noqa: H001 (scale is a Python attribute of the launch)
     if rc != 0:
         raise RuntimeError(f"flash attention backward launch failed: CUDA "
                            f"error {rc}")
@@ -173,7 +181,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_fwd_cuda(q, k, v, causal, scale)
+        out, lse = flash_fwd_op(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
@@ -183,14 +191,17 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if dout.stride(-1) != 1 or any(s % 8 for s in dout.stride()[:3]):
             dout = dout.contiguous()
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout,
-                                              ctx.causal, ctx.scale)
+        dq, dk, dv = flash_bwd_op(q, k, v, out, lse, dout, ctx.causal,
+                                  ctx.scale)
         return dq, dk, dv, None, None
 
 
 def flash_attention_cuda(q, k, v, is_causal=False):
     """Differentiable flash attention on CUDA tensors [B, S, N, H] with
-    scale 1/sqrt(H); raises for anything the kernels do not take."""
+    scale 1/sqrt(H); raises for anything the kernels do not take (the
+    ops would run their plain versions on CPU tensors: this entry is the
+    kernels')."""
+    _check({"q": q, "k": k, "v": v}, is_causal, seq_k_names=("k", "v"))
     return FlashAttention.apply(q, k, v, bool(is_causal),
                                 1.0 / math.sqrt(q.shape[-1]))
 
@@ -223,3 +234,72 @@ def flash_bwd_plain(q, k, v, out, lse, dout, causal, scale):
     dq = torch.einsum("bnts,bsnh->btnh", ds, k.float())
     dk = torch.einsum("bnts,btnh->bsnh", ds, q.float())
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+# ------------------------------------------------------------------ ops --
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cuda")
+def flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                 scale: float) -> tuple[Tensor, Tensor]:
+    """B2 as an op: :func:`flash_attention_fwd_cuda` on CUDA tensors,
+    :func:`flash_fwd_plain` on CPU ones."""
+    return flash_attention_fwd_cuda(q, k, v, causal, scale)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_bwd",
+                         mutates_args=(), device_types="cuda")
+def flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
+                 dout: Tensor, causal: bool,
+                 scale: float) -> tuple[Tensor, Tensor, Tensor]:
+    """B3 as an op: :func:`flash_attention_bwd_cuda` on CUDA tensors,
+    :func:`flash_bwd_plain` on CPU ones."""
+    return flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal, scale)
+
+
+flash_fwd_op.register_kernel("cpu")(flash_fwd_plain)
+flash_bwd_op.register_kernel("cpu")(flash_bwd_plain)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale):
+    b, sq, n, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, n, sq), dtype=torch.float32))
+
+
+@flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, out, lse, dout, causal, scale):
+    return tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for x in (q, k, v))
+
+
+# ----------------------------------------------------------------- cost --
+def _attention_pairs(q, k, causal):
+    """Visible (query, key) pairs of one call, over batch and heads."""
+    b, sq, n, _ = q.shape
+    sk = k.shape[1]
+    return n * b * (sq * (sq + 1) // 2 if causal else sq * sk)
+
+
+def flash_fwd_cost(q, k, v, causal, scale):
+    """``{"flops", "bytes"}`` of a forward call: q, k, v read and out
+    and lse written once, with 4*D FLOPs per visible (query, key) pair
+    (QK^T and PV)."""
+    b, sq, n, d = q.shape
+    elems = b * sq * n * d
+    kv = 2 * k.numel() * k.element_size()
+    return {"flops": 4.0 * d * _attention_pairs(q, k, causal),
+            "bytes": float(2 * elems * q.element_size() + kv
+                           + 4 * b * n * sq)}
+
+
+def flash_bwd_cost(q, k, v, out, lse, dout, causal, scale):
+    """``{"flops", "bytes"}`` of a backward call: q, k, v, out, dO and
+    lse read, dq, dk, dv written, with 10*D FLOPs per visible pair (S,
+    dP, dV, dK, dQ)."""
+    b, sq, n, d = q.shape
+    elems = b * sq * n * d
+    kv = 2 * k.numel() * k.element_size()
+    return {"flops": 10.0 * d * _attention_pairs(q, k, causal),
+            "bytes": float(4 * elems * q.element_size() + 2 * kv
+                           + 4 * b * n * sq)}

@@ -17,11 +17,20 @@ tensors only and raise on anything the kernels do not take; the plain
 versions beside them (``layernorm_fwd_plain``, ``layernorm_bwd_plain``)
 are built on ``layer_norm_plain``, the composition that
 ``nn/functional.py::layer_norm`` runs off the kernels.
+
+The forward and the backward are also the ``torch.library`` ops
+``paddle_tpu_torch::layernorm_fwd`` and ``..._bwd`` (:data:`ln_fwd_op`,
+:data:`ln_bwd_op`), which the autograd function calls: the launches on
+CUDA tensors, the plain versions on CPU ones, fakes for their shapes.
+An op's outputs may not alias one another, so the backward op returns
+dgamma and dbeta as the one f32 ``[2, C]`` tensor the kernel writes.
+:func:`ln_fwd_cost` and :func:`ln_bwd_cost` price a call.
 """
 
 import ctypes
 
 import torch
+from torch import Tensor
 
 from . import _build
 
@@ -138,7 +147,7 @@ def layernorm_fwd_cuda(x2d, gamma, beta, eps):
         rc = _kernel("layernorm_fwd")(
             x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
             mu.data_ptr(), rstd.data_ptr(), _DTYPES[x2d.dtype], rows, c,
-            float(eps), stream)
+            float(eps), stream)  # noqa: H001 (eps is a Python attribute of the launch)
     if rc != 0:
         raise RuntimeError(f"layernorm forward launch failed: CUDA error "
                            f"{rc}")
@@ -150,6 +159,14 @@ def layernorm_bwd_cuda(x2d, gamma, mu, rstd, dy):
     """Launch the backward row pass and its partials reduction on the
     current stream, planned by :func:`bwd_plan` -> (dx [rows, C] in x's
     dtype, dgamma [C] f32, dbeta [C] f32).  Raises like the forward."""
+    dx, dgdb = _layernorm_bwd_launch(x2d, gamma, mu, rstd, dy)
+    return dx, dgdb[0], dgdb[1]
+
+
+def _layernorm_bwd_launch(x2d, gamma, mu, rstd, dy):
+    """:func:`layernorm_bwd_cuda` with dgamma and dbeta as the rows of
+    the one [2, C] f32 tensor the kernel writes (the backward op's CUDA
+    implementation)."""
     global bwd_launches
     _check(x2d, gamma, (("dy", dy), ("mu", mu), ("rstd", rstd)))
     rows, c = x2d.shape
@@ -174,7 +191,7 @@ def layernorm_bwd_cuda(x2d, gamma, mu, rstd, dy):
         raise RuntimeError(f"layernorm backward launch failed: CUDA error "
                            f"{rc}")
     bwd_launches += 1
-    return dx, dgdb[0], dgdb[1]
+    return dx, dgdb
 
 
 class LayerNorm(torch.autograd.Function):
@@ -183,22 +200,26 @@ class LayerNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
         x2d = x.reshape(-1, x.shape[-1]).contiguous()
-        y, mu, rstd = layernorm_fwd_cuda(x2d, gamma, beta, eps)
+        y, mu, rstd = ln_fwd_op(x2d, gamma, beta, eps)
         ctx.save_for_backward(x2d, gamma, mu, rstd)
         return y.view(x.shape)
 
     @staticmethod
     def backward(ctx, dy):
         x2d, gamma, mu, rstd = ctx.saved_tensors
-        dx, dg, db = layernorm_bwd_cuda(
-            x2d, gamma, mu, rstd, dy.reshape(x2d.shape).contiguous())
-        return (dx.view(dy.shape), dg.to(gamma.dtype), db.to(gamma.dtype),
-                None)
+        dx, dgdb = ln_bwd_op(x2d, gamma, mu, rstd,
+                             dy.reshape(x2d.shape).contiguous())
+        return (dx.view(dy.shape), dgdb[0].to(gamma.dtype),
+                dgdb[1].to(gamma.dtype), None)
 
 
 def layernorm_cuda(x, gamma, beta, eps=1e-5):
     """Differentiable LayerNorm over the last dim on CUDA tensors; raises
-    for anything the kernels do not take."""
+    for anything the kernels do not take (the ops would run their plain
+    versions on CPU tensors: this entry is the kernels')."""
+    for name, t in (("x", x), ("gamma", gamma), ("beta", beta)):
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
     return LayerNorm.apply(x, gamma, beta, float(eps))
 
 
@@ -231,14 +252,79 @@ def layernorm_fwd_plain(x2d, gamma, beta, eps):
 
 
 def layernorm_bwd_plain(x2d, gamma, mu, rstd, dy, eps=1e-5):
-    """The backward kernel's contract in plain PyTorch: autograd through
-    :func:`layer_norm_plain`, which recomputes the forward (the saved
-    stats are not read, so its time holds a forward's); dgamma and
-    dbeta come back in f32 as the kernel gives them."""
-    with torch.enable_grad():
-        x = x2d.detach().requires_grad_()
-        g = gamma.detach().requires_grad_()
-        b = torch.zeros_like(g, requires_grad=True)
-        y = layer_norm_plain(x, (x.shape[-1],), g, b, eps)
-        dx, dg, db = torch.autograd.grad(y, (x, g, b), dy)
+    """The backward kernel's contract in plain PyTorch: the vector-Jacobian
+    product of :func:`layer_norm_plain` (``torch.func.vjp``, the same
+    derivative formulas as autograd, and usable inside the op's CPU
+    implementation, where autograd does not record), which recomputes
+    the forward (the saved stats are not read, so its time holds a
+    forward's); dgamma and dbeta come back in f32 as the kernel gives
+    them."""
+    def forward(x, g, b):
+        return layer_norm_plain(x, (x.shape[-1],), g, b, eps)
+
+    _, vjp = torch.func.vjp(forward, x2d, gamma, torch.zeros_like(gamma))
+    dx, dg, db = vjp(dy)
     return dx, dg.float(), db.float()
+
+
+# ------------------------------------------------------------------ ops --
+@torch.library.custom_op("paddle_tpu_torch::layernorm_fwd", mutates_args=(),
+                         device_types="cuda")
+def ln_fwd_op(x2d: Tensor, gamma: Tensor, beta: Tensor,
+              eps: float) -> tuple[Tensor, Tensor, Tensor]:
+    """B4a as an op: :func:`layernorm_fwd_cuda` on CUDA tensors,
+    :func:`layernorm_fwd_plain` on CPU ones."""
+    return layernorm_fwd_cuda(x2d, gamma, beta, eps)
+
+
+@torch.library.custom_op("paddle_tpu_torch::layernorm_bwd", mutates_args=(),
+                         device_types="cuda")
+def ln_bwd_op(x2d: Tensor, gamma: Tensor, mu: Tensor, rstd: Tensor,
+              dy: Tensor) -> tuple[Tensor, Tensor]:
+    """B4b as an op -> (dx, [dgamma; dbeta] f32 [2, C]): the kernel pair
+    on CUDA tensors, :func:`layernorm_bwd_plain` on CPU ones."""
+    return _layernorm_bwd_launch(x2d, gamma, mu, rstd, dy)
+
+
+@ln_bwd_op.register_kernel("cpu")
+def _ln_bwd_cpu(x2d, gamma, mu, rstd, dy):
+    dx, dg, db = layernorm_bwd_plain(x2d, gamma, mu, rstd, dy)
+    return dx, torch.stack((dg, db))
+
+
+ln_fwd_op.register_kernel("cpu")(layernorm_fwd_plain)
+
+
+@ln_fwd_op.register_fake
+def _ln_fwd_fake(x2d, gamma, beta, eps):
+    rows = x2d.shape[0]
+    return (torch.empty_like(x2d),
+            x2d.new_empty((rows,), dtype=torch.float32),
+            x2d.new_empty((rows,), dtype=torch.float32))
+
+
+@ln_bwd_op.register_fake
+def _ln_bwd_fake(x2d, gamma, mu, rstd, dy):
+    return (torch.empty_like(x2d),
+            x2d.new_empty((2, x2d.shape[1]), dtype=torch.float32))
+
+
+# ----------------------------------------------------------------- cost --
+def ln_fwd_cost(x2d, gamma, beta, eps):
+    """``{"flops", "bytes"}`` of a forward call: x, gamma, beta read and
+    y, mu, rstd written once, about 7 operations an element."""
+    rows, c = x2d.shape
+    isz = x2d.element_size()
+    return {"flops": 7.0 * rows * c,
+            "bytes": float(2 * rows * c * isz + 2 * c * isz + 8 * rows)}
+
+
+def ln_bwd_cost(x2d, gamma, mu, rstd, dy):
+    """``{"flops", "bytes"}`` of a backward call: x, dy, gamma, mu, rstd
+    read and dx, dgamma, dbeta written once, about 12 operations an
+    element."""
+    rows, c = x2d.shape
+    isz = x2d.element_size()
+    return {"flops": 12.0 * rows * c,
+            "bytes": float(3 * rows * c * isz + c * isz + 8 * rows
+                           + 8 * c)}

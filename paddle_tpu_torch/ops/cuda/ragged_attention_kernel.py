@@ -26,15 +26,25 @@ head, slot), and dequantizes each slot row as it loads it.
 The wrappers take CUDA tensors only and raise on anything the kernel
 does not take; the plain PyTorch versions for CPU tensors are
 ``inference/llm/paged_attention.py::paged_ragged_attention_plain`` and
-``paged_ragged_attention_quant_plain``.  ``launches`` and
-``quant_launches`` count each entry's launches (and nothing else): one
-per call, which runs the split kernel and its combine (split-KV
-flash-decoding, ``split_kv.py``).
+``paged_ragged_attention_quant_plain``, in the kernels' per-row
+signature as :func:`ragged_plain` and :func:`ragged_quant_plain`.
+``launches`` and ``quant_launches`` count each entry's launches (and
+nothing else): one per call, which runs the split kernel and its
+combine (split-KV flash-decoding, ``split_kv.py``).
+
+Each entry is also a ``torch.library`` op, ``paddle_tpu_torch::
+paged_ragged_attention`` and ``..._quant`` (:data:`ragged_op`,
+:data:`ragged_quant_op`): the wrapper is its CUDA implementation, the
+per-row plain version its CPU one, and a fake gives its output's shape,
+so a traced step shows each launch as one node (``framework/
+analysis.py::trace_graph``).  :func:`ragged_cost` prices a call.
 """
 
 import ctypes
 
+import numpy as np
 import torch
+from torch import Tensor
 
 from . import _build, split_kv
 
@@ -202,3 +212,123 @@ def paged_ragged_attention_quant_cuda(q, k_pages, v_pages, k_scales,
                            f"CUDA error {rc}")
     quant_launches += 1
     return out
+
+
+# ------------------------------------------------------- plain versions --
+def ragged_plain(q, k_pages, v_pages, block_tables, row_start, row_qlen,
+                 row_pos0):
+    """The plain version in the kernel's per-row signature."""
+    from ...inference.llm.paged_attention import (
+        paged_ragged_attention_plain,
+        token_descriptors,
+    )
+    ctx, rows = token_descriptors(q.shape[0], row_start, row_qlen,
+                                  row_pos0)
+    return paged_ragged_attention_plain(q, k_pages, v_pages, block_tables,
+                                        ctx, rows)
+
+
+def ragged_quant_plain(q, k_pages, v_pages, k_scales, v_scales,
+                       block_tables, row_start, row_qlen, row_pos0):
+    """The int8 plain version in the kernel's per-row signature."""
+    from ...inference.llm.paged_attention import (
+        paged_ragged_attention_quant_plain,
+        token_descriptors,
+    )
+    ctx, rows = token_descriptors(q.shape[0], row_start, row_qlen,
+                                  row_pos0)
+    return paged_ragged_attention_quant_plain(q, k_pages, v_pages, k_scales,
+                                              v_scales, block_tables, ctx,
+                                              rows)
+
+
+# ------------------------------------------------------------------ ops --
+@torch.library.custom_op("paddle_tpu_torch::paged_ragged_attention",
+                         mutates_args=(), device_types="cuda")
+def ragged_op(q: Tensor, k_pages: Tensor, v_pages: Tensor,
+              block_tables: Tensor, row_start: Tensor, row_qlen: Tensor,
+              row_pos0: Tensor) -> Tensor:
+    """B1 as an op: :func:`paged_ragged_attention_cuda` on CUDA tensors,
+    :func:`ragged_plain` on CPU ones."""
+    return paged_ragged_attention_cuda(q, k_pages, v_pages, block_tables,
+                                       row_start, row_qlen, row_pos0)
+
+
+@torch.library.custom_op("paddle_tpu_torch::paged_ragged_attention_quant",
+                         mutates_args=(), device_types="cuda")
+def ragged_quant_op(q: Tensor, k_pages: Tensor, v_pages: Tensor,
+                    k_scales: Tensor, v_scales: Tensor, block_tables: Tensor,
+                    row_start: Tensor, row_qlen: Tensor,
+                    row_pos0: Tensor) -> Tensor:
+    """B5 as an op: :func:`paged_ragged_attention_quant_cuda` on CUDA
+    tensors, :func:`ragged_quant_plain` on CPU ones."""
+    return paged_ragged_attention_quant_cuda(q, k_pages, v_pages, k_scales,
+                                             v_scales, block_tables,
+                                             row_start, row_qlen, row_pos0)
+
+
+ragged_op.register_kernel("cpu")(ragged_plain)
+ragged_quant_op.register_kernel("cpu")(ragged_quant_plain)
+
+
+@ragged_op.register_fake
+def _ragged_fake(q, k_pages, v_pages, block_tables, row_start, row_qlen,
+                 row_pos0):
+    return torch.empty_like(q)
+
+
+@ragged_quant_op.register_fake
+def _ragged_quant_fake(q, k_pages, v_pages, k_scales, v_scales,
+                       block_tables, row_start, row_qlen, row_pos0):
+    return torch.empty_like(q)
+
+
+# ----------------------------------------------------------------- cost --
+def has_data(t):
+    """Whether ``t`` holds values (not a fake or meta stand-in): a cost
+    rule counts data-dependent work only from values."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return not isinstance(t, FakeTensor) and t.device.type != "meta"
+
+
+def ragged_cost(q, k_pages, v_pages, block_tables, row_start, row_qlen,
+                row_pos0, k_scales=None, v_scales=None):
+    """``{"flops", "bytes"}`` of one call: each input byte read once — q
+    of the live tokens, the K/V pages the rows' contexts cover (with an
+    int8 pool's f32 scale per (slot, kv head) of those pages), the tables
+    and descriptors — and the output written once, against the FLOPs of
+    QK^T and PV over each live token's context.  The work depends on
+    the descriptors' values; from stand-ins without values (a traced
+    graph) it counts what any values need: the tables, the descriptors
+    and the output."""
+    t, nq, d = q.shape
+    _, bs, nkv, _ = k_pages.shape
+    isz = q.element_size()
+    scale_bytes = 0 if k_scales is None else k_scales.element_size()
+    flops, nbytes = 0.0, 4 * (block_tables.numel() + 3 * row_start.numel())
+    nbytes += t * nq * d * isz                              # output
+    if has_data(row_start):
+        rs, rq, rp = (x.cpu().numpy() for x in (row_start, row_qlen,
+                                                row_pos0))
+        btn = block_tables.cpu().numpy()  # noqa: H001 (cost rule: reads the descriptors' values to count the work, off the step path)
+        pages, live = set(), 0
+        for r in range(len(rs)):
+            if rq[r] == 0:
+                continue
+            live += int(rq[r])  # noqa: H001 (cost rule: host numpy descriptors)
+            npg = -(-int(rp[r] + rq[r]) // bs)  # noqa: H001 (cost rule: host numpy descriptors)
+            pages.update(int(p) for p in btn[r, :npg])
+            ctx = rp[r] + np.arange(1, rq[r] + 1)
+            flops += 4.0 * d * nq * float(ctx.sum())  # noqa: H001 (cost rule: host numpy descriptors)
+        nbytes += (live * nq * d * isz                      # q
+                   + 2 * len(pages) * bs * nkv * d * k_pages.element_size()
+                   + 2 * len(pages) * bs * nkv * scale_bytes)
+    return {"flops": flops, "bytes": float(nbytes)}
+
+
+def ragged_quant_cost(q, k_pages, v_pages, k_scales, v_scales, block_tables,
+                      row_start, row_qlen, row_pos0):
+    """:func:`ragged_cost` of the int8 entry, scale pools included."""
+    return ragged_cost(q, k_pages, v_pages, block_tables, row_start,
+                       row_qlen, row_pos0, k_scales, v_scales)

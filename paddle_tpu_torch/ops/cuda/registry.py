@@ -1,10 +1,21 @@
 """The port's kernel table: kernel name -> (kernel, plain version, CPU
-parity test, source, the TPU kernel it replaces).
+parity test, source, the TPU kernel it replaces, its ``torch.library``
+op, its cost rule).
 
 ``chip_smoke.py`` walks this table: it builds every source, holds each
 kernel against its plain version on the card, and reads each kernel's
 launch counter around the main path.  A kernel that is ported lands
 here, so the smoke's ``kernels`` line lists every ported kernel.
+
+Every kernel is a ``torch.library`` op in the ``paddle_tpu_torch``
+namespace (the counterpart of a ``pallas_call`` equation): the wrapper
+is its CUDA implementation, the plain version its CPU one, and a fake
+gives its outputs' shapes, so a traced graph (``framework/analysis.py::
+trace_graph``) shows each launch as one node that the cost walker and
+the kernel lint read.  ``cost(*operands)`` gives ``{"flops", "bytes"}``
+the call must do and move (each input byte read once, each output byte
+written once): the bound of ``chip_smoke.py``'s ``kernels`` line and the
+census's price of a kernel node.
 
 A wrapper's counter advances where the wrapper launches its kernel.  A
 replayed CUDA graph launches kernels without calling their wrappers, so
@@ -12,6 +23,8 @@ its launches are added through :func:`add_counts` (``jit/graphs.py``).
 """
 
 from dataclasses import dataclass
+
+import torch
 
 from . import (
     decode_attention_kernel,
@@ -30,6 +43,8 @@ class KernelEntry:
     source: str         # CUDA source, repo-relative
     replaces: str       # the Pallas kernel's entry function, file:line
     counter: object     # module whose ``count`` attribute counts launches
+    op: object          # the torch.library op (CUDA: kernel, CPU: plain)
+    cost: object        # cost(*op operands) -> {"flops", "bytes"}
     count: str = "launches"
 
     @property
@@ -40,50 +55,27 @@ class KernelEntry:
         setattr(self.counter, self.count, 0)
 
 
-def _ragged_plain(q, k_pages, v_pages, block_tables, row_start, row_qlen,
-                  row_pos0):
-    """The plain version in the kernel's per-row signature."""
-    from ...inference.llm.paged_attention import (
-        paged_ragged_attention_plain,
-        token_descriptors,
-    )
-    ctx, rows = token_descriptors(q.shape[0], row_start, row_qlen,
-                                  row_pos0)
-    return paged_ragged_attention_plain(q, k_pages, v_pages, block_tables,
-                                        ctx, rows)
-
-
-def _ragged_quant_plain(q, k_pages, v_pages, k_scales, v_scales,
-                        block_tables, row_start, row_qlen, row_pos0):
-    """The int8 plain version in the kernel's per-row signature."""
-    from ...inference.llm.paged_attention import (
-        paged_ragged_attention_quant_plain,
-        token_descriptors,
-    )
-    ctx, rows = token_descriptors(q.shape[0], row_start, row_qlen,
-                                  row_pos0)
-    return paged_ragged_attention_quant_plain(q, k_pages, v_pages, k_scales,
-                                              v_scales, block_tables, ctx,
-                                              rows)
-
-
 KERNELS = {
     "paged_ragged_attention": KernelEntry(
         name="paged_ragged_attention",
         kernel=ragged_attention_kernel.paged_ragged_attention_cuda,
-        plain=_ragged_plain,
+        plain=ragged_attention_kernel.ragged_plain,
         parity="tests/test_torch_ragged_attention.py",
         source="paddle_tpu_torch/csrc/ragged_attention.cu",
         replaces="paddle_tpu/ops/pallas/ragged_attention_kernel.py:229",
-        counter=ragged_attention_kernel),
+        counter=ragged_attention_kernel,
+        op=ragged_attention_kernel.ragged_op,
+        cost=ragged_attention_kernel.ragged_cost),
     "paged_ragged_attention_quant": KernelEntry(
         name="paged_ragged_attention_quant",
         kernel=ragged_attention_kernel.paged_ragged_attention_quant_cuda,
-        plain=_ragged_quant_plain,
+        plain=ragged_attention_kernel.ragged_quant_plain,
         parity="tests/test_torch_quant_serving.py",
         source="paddle_tpu_torch/csrc/ragged_attention.cu",
         replaces="paddle_tpu/ops/pallas/ragged_attention_kernel.py:322",
-        counter=ragged_attention_kernel, count="quant_launches"),
+        counter=ragged_attention_kernel, count="quant_launches",
+        op=ragged_attention_kernel.ragged_quant_op,
+        cost=ragged_attention_kernel.ragged_quant_cost),
     "decode_attention": KernelEntry(
         name="decode_attention",
         kernel=decode_attention_kernel.decode_attention_cuda,
@@ -91,7 +83,9 @@ KERNELS = {
         parity="tests/test_torch_decode_attention.py",
         source="paddle_tpu_torch/csrc/decode_attention.cu",
         replaces="paddle_tpu/ops/pallas/decode_attention_kernel.py:115",
-        counter=decode_attention_kernel),
+        counter=decode_attention_kernel,
+        op=decode_attention_kernel.decode_op,
+        cost=decode_attention_kernel.decode_cost),
     "flash_attention_fwd": KernelEntry(
         name="flash_attention_fwd",
         kernel=flash_attention_kernel.flash_attention_fwd_cuda,
@@ -99,7 +93,9 @@ KERNELS = {
         parity="tests/test_torch_flash_attention.py",
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas/attention_kernel.py:95",
-        counter=flash_attention_kernel, count="fwd_launches"),
+        counter=flash_attention_kernel, count="fwd_launches",
+        op=flash_attention_kernel.flash_fwd_op,
+        cost=flash_attention_kernel.flash_fwd_cost),
     "flash_attention_bwd": KernelEntry(
         name="flash_attention_bwd",
         kernel=flash_attention_kernel.flash_attention_bwd_cuda,
@@ -107,7 +103,9 @@ KERNELS = {
         parity="tests/test_torch_flash_attention.py",
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas/attention_kernel.py:207",
-        counter=flash_attention_kernel, count="bwd_launches"),
+        counter=flash_attention_kernel, count="bwd_launches",
+        op=flash_attention_kernel.flash_bwd_op,
+        cost=flash_attention_kernel.flash_bwd_cost),
     "layernorm_fwd": KernelEntry(
         name="layernorm_fwd",
         kernel=layernorm_kernel.layernorm_fwd_cuda,
@@ -115,7 +113,9 @@ KERNELS = {
         parity="tests/test_torch_layernorm.py",
         source="paddle_tpu_torch/csrc/layernorm.cu",
         replaces="paddle_tpu/ops/pallas/layernorm_kernel.py:73",
-        counter=layernorm_kernel, count="fwd_launches"),
+        counter=layernorm_kernel, count="fwd_launches",
+        op=layernorm_kernel.ln_fwd_op,
+        cost=layernorm_kernel.ln_fwd_cost),
     "layernorm_bwd": KernelEntry(
         name="layernorm_bwd",
         kernel=layernorm_kernel.layernorm_bwd_cuda,
@@ -123,7 +123,9 @@ KERNELS = {
         parity="tests/test_torch_layernorm.py",
         source="paddle_tpu_torch/csrc/layernorm.cu",
         replaces="paddle_tpu/ops/pallas/layernorm_kernel.py:99",
-        counter=layernorm_kernel, count="bwd_launches"),
+        counter=layernorm_kernel, count="bwd_launches",
+        op=layernorm_kernel.ln_bwd_op,
+        cost=layernorm_kernel.ln_bwd_cost),
 }
 
 
@@ -148,3 +150,10 @@ def add_counts(delta):
     for name, n in delta.items():
         entry = KERNELS[name]
         setattr(entry.counter, entry.count, entry.launches + n)
+
+
+def by_op():
+    """``{op overload: entry}``: the kernel entry of a traced graph's
+    node target (``torch.ops.paddle_tpu_torch.<name>.default``)."""
+    return {getattr(torch.ops.paddle_tpu_torch, name).default: entry
+            for name, entry in KERNELS.items()}

@@ -255,8 +255,13 @@ class SimEngine(LLMEngine):
 
     def warmup(self):
         """Nothing is captured in simulation; Fleet.restart_replica and
-        serving scripts may still call this."""
-        return {}
+        serving scripts may still call this.  Returns the engine's
+        CaptureWatcher with empty ``compile_ms``."""
+        from ..framework.analysis import CaptureWatcher
+
+        watcher = CaptureWatcher(self._graphs, labels=["ragged"])
+        self.warmup_compile_ms = watcher.compile_ms = {}
+        return watcher
 
 
 def sim_engine_factory(oracle=None):

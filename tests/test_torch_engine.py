@@ -207,7 +207,7 @@ def test_engine_matches_dense_greedy(models):
 
 def test_warmup_covers_every_bucket_and_writes_nothing(models):
     eng = _port_engine(models)
-    ms = eng.warmup()
+    ms = eng.warmup().compile_ms
     assert list(ms) == ["ragged[8]", "ragged[16]"]
     assert eng.stats["launches"] == 2
     assert torch.count_nonzero(eng._kc) == 0

@@ -18,7 +18,8 @@ Where the port differs: a replica owns its step graphs (a captured graph
 reads its own pools by address), so the JAX
 ``test_replicas_share_one_executable_set`` becomes
 ``test_replicas_own_distinct_pools``; a replica is warmed as it is
-built, ``warmup()`` returns one timing dict a replica, and a dead
+built, ``warmup()`` returns one CaptureWatcher whose ``compile_ms``
+holds one timing dict a replica, and a dead
 replica's engine is collected before its restart.  Left out: the bench
 smoke (``benchmarks/`` waits for the benchmark slice) and
 ``TestFleetServing`` (``PredictorServer`` comes with the long tail).
@@ -397,7 +398,7 @@ class TestRollingDrain:
         warmed, and serving token-exactly with nothing captured after
         the fleet's warmup."""
         fleet = _fleet(models)
-        timings = fleet.warmup()
+        timings = fleet.warmup().compile_ms
         assert sorted(timings) == [0, 1]
         fleet.drain_replica(1)
         fleet.step()                       # empty -> drained at once
@@ -422,7 +423,8 @@ class TestRollingDrain:
             fleet.restart_replica(1)
         assert built == [True]
         assert dead() is None
-        assert sorted(fleet.warmup()[1]) == ["ragged[16]", "ragged[8]"]
+        assert sorted(fleet.warmup().compile_ms[1]) == ["ragged[16]",
+                                                        "ragged[8]"]
         assert fleet.replica_states()[1] == "healthy"
         fresh = fleet.replicas[1].engine
         assert fresh._kc.data_ptr() != \
@@ -441,14 +443,14 @@ class TestRollingDrain:
 
     def test_replicas_own_distinct_pools(self, models):
         """Each replica owns its pools and its step graphs (a captured
-        graph reads its own pools by address), and warmup() returns one
-        entry a replica, each over the engine's token buckets."""
+        graph reads its own pools by address), and warmup()'s compile_ms
+        holds one entry a replica, each over the engine's token buckets."""
         fleet = _fleet(models, replicas=3)
         engines = [r.engine for r in fleet.replicas]
         assert len({id(e._graphs) for e in engines}) == 3
         assert len({e._kc.data_ptr() for e in engines}) == 3
         assert len({e._vc.data_ptr() for e in engines}) == 3
-        timings = fleet.warmup()
+        timings = fleet.warmup().compile_ms
         assert sorted(timings) == [0, 1, 2]
         for t in timings.values():
             assert sorted(t) == ["ragged[16]", "ragged[8]"]

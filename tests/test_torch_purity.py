@@ -52,6 +52,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import paddle_tpu_torch.inference.llm.fleet\n"
         "import paddle_tpu_torch.sim, paddle_tpu_torch.sim.simulator\n"
         "import paddle_tpu_torch.inference.llm.tensor_parallel\n"
+        "import paddle_tpu_torch.framework.analysis\n"
+        "import paddle_tpu_torch.framework.kernel_lint\n"
+        "import paddle_tpu_torch.framework.concurrency_lint\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.'))\n"

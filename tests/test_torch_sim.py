@@ -129,7 +129,7 @@ def test_watchdog_flags_wedges_on_the_virtual_clock():
 def test_sim_engine_is_greedy_only_and_host_resident(model):
     eng = SimEngine(model, **_ek(device="cuda"))
     assert eng.device.type == "cpu"          # forced, whatever is asked
-    assert eng.warmup() == {}
+    assert eng.warmup().compile_ms == {}
     with pytest.raises(ValueError, match="greedy"):
         eng.add_request(np.arange(4, dtype=np.int32), temperature=0.7)
     with pytest.raises(ValueError, match="logits pipeline"):
@@ -496,20 +496,15 @@ def test_step_time_model_is_a_per_bucket_roofline(model):
     assert buckets == [8, 16, 32, 64]
     times = [stm.step_seconds("ragged", tb) for tb in buckets]
     assert all(a < b for a, b in zip(times, times[1:]))
-    # each estimate is the larger of the two roofline terms
+    # each estimate is the larger of the two roofline terms of the census
+    # walker's count of that bucket's step graph
     prof = cost.DEVICE_PROFILES["h100"]
-    n_params = sum(w.numel() for sub in eng.params.values()
-                   for w in sub.values())
-    weights = cost.params_bytes(eng.params)
-    ctx = eng.max_model_len // 2
-    slot = eng.page_bytes // eng.block_size
-    for tb, t in zip(buckets, times):
-        flops = 2.0 * n_params * tb + 4.0 * eng.num_layers \
-            * eng.num_heads * eng.head_dim * tb * ctx
-        nbytes = weights + min(tb, eng.max_batch) * ctx * slot \
-            + tb * slot + tb * eng.vocab_size * 4
-        assert t == max(flops / prof["flops_per_s"],
-                        nbytes / prof["hbm_bytes_per_s"])
+    for (_kind, tb, body, operands), t in zip(eng.executable_grid(),
+                                               times):
+        est = cost.estimate_fn(body, *operands)
+        assert est.flops > 0 and est.hbm_bytes > 0
+        assert t == max(est.flops / prof["flops_per_s"],
+                        est.hbm_bytes / prof["hbm_bytes_per_s"])
     assert stm.launches_seconds([("ragged", 8), ("ragged", 64)]) == \
         times[0] + times[-1]
     with pytest.raises(KeyError, match="no step-time estimate"):
