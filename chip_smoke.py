@@ -15,6 +15,8 @@ one NVIDIA GPU.
                                            # (no contract line)
     python3 chip_smoke.py dispatch         # eager-path host time a step,
                                            # for comparing trees
+    python3 chip_smoke.py eager            # only the eager Paddle API
+                                           # phase (no contract line)
 
 Run from the root of a checkout on a machine with a CUDA GPU and the
 CUDA toolkit.  Phases, each printing its own lines; any failure raises
@@ -196,7 +198,19 @@ and the script exits non-zero:
               instance's launch as the card reports it (the sources'
               ``*_info`` entries) equal to its plan, with registers,
               spills, shared bytes and blocks an SM
-              (``kernel_resources``).
+              (``kernel_resources``);
+11. eager_api — BERT-base pretraining written with the port's Paddle
+              API (``Tensor``, ``nn.Layer``, ``loss.backward()``,
+              ``opt.step()``) in f32 at 8 x 512 with padded rows and a
+              mask (``eager_api_phase``): one step's loss and gradients
+              with the kernels against every kernel replaced by its
+              plain version, 3 warm-up and 10 timed AdamW steps (wall
+              and device ms, busy share, tokens/s, FLOPs over the f32
+              peak, peak memory, op calls a step and their host µs, B4a
+              and B4b once per LayerNorm a step), the eval forward over
+              unpadded rows without a mask (B2 once a layer, logits
+              against the plain forward), and a ``save``/``load``
+              round trip into a fresh model, logits bitwise.
 
 The launches in the ``kernels`` line are those of each kernel's main
 path, each run with the counts at 0 just before and read just after:
@@ -206,7 +220,9 @@ simulator phases' runs and the tensor-parallel phases' runs on every
 rank (summed) for ragged attention, the int8 burst, the int8 LoRA
 burst, the int8 tier run, the int8 fleet runs and the int8
 tensor-parallel run on every rank (summed) for its int8 twin, the FMT and Llama decode runs (summed) for the decode
-kernel, the timed training steps for the others.  The second-to-last
+kernel, the timed training steps for the others, to which the eager
+BERT-base timed steps add B4a's and B4b's launches and its eval forward
+B2's and B4a's.  The second-to-last
 line is that JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  The script imports only torch, numpy and the port.
 """
@@ -691,6 +707,7 @@ def flash_attention_phase(entries, dev):
         ("tile_plus_one_1x65x2x64_causal", bf16, (1, 65, 2, 64), True,
          False),
         ("d128_2x1024x12x128_causal", bf16, (2, 1024, 12, 128), True, True),
+        ("bert_f32_8x512x12x64", f32, (8, 512, 12, 64), False, False),
     ]
 
     def check(label, dtype, q, k, v, dout, causal, packed, scale):
@@ -780,6 +797,17 @@ def flash_attention_phase(entries, dev):
                         "launches": None, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": lib})
+    # B2 at the eager BERT-base eval forward's shape: f32, non-causal
+    q, k, v, _ = _flash_inputs(dev, torch.float32, 8, 512, 12, 64, seed=97)
+    ms = time_ms(lambda: fwd.kernel(q, k, v, False, scale), flush)
+    plain_ms = time_ms(lambda: fwd.plain(q, k, v, False, scale), flush)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in (q, k, v))), flush)
+    bound_ms, bound_by = _bound(fwd, q, k, v, False, scale)
+    say("kernel_time", kernel=fwd.name, shape="8x512x12x64 f32 non-causal "
+        "(BERT-base eager eval)", kernel_ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+        library="F.scaled_dot_product_attention")
     return records
 
 
@@ -813,7 +841,6 @@ def layernorm_phase(entries, dev):
     import torch
 
     from paddle_tpu_torch.ops.cuda import layernorm_kernel as lnk
-    from paddle_tpu_torch.ops.cuda.layernorm_kernel import layer_norm_plain
 
     fwd = entries["layernorm_fwd"]
     bwd = entries["layernorm_bwd"]
@@ -825,7 +852,8 @@ def layernorm_phase(entries, dev):
              ("ragged_rows_8190x768", bf16, 8190, 768),
              ("few_rows_5x768", bf16, 5, 768),
              ("tall_32768x768", bf16, 32768, 768),
-             ("c2048_1000x2048", bf16, 1000, 2048)]
+             ("c2048_1000x2048", bf16, 1000, 2048),
+             ("bert_f32_4096x768", f32, 4096, 768)]
     main_err = {}
     for i, (label, dtype, rows, c) in enumerate(cases):
         x, g, b, dy = _ln_inputs(dev, dtype, rows, c, seed=70 + i)
@@ -878,46 +906,69 @@ def layernorm_phase(entries, dev):
     if not replay_bitwise:
         raise RuntimeError("layernorm backward: dgamma/dbeta of a graph "
                            "replay differ from the eager call's")
+    records = []
+    for entry, row in zip((fwd, bwd), _ln_kernel_times(
+            fwd, bwd, x, g, b, dy, eps, flush, "8192x768 bf16")):
+        backward = entry is bwd
+        records.append({"name": entry.name, "route": "cuda",
+                        "source": entry.source, "replaces": entry.replaces,
+                        "launches": None,
+                        "max_abs_err": main_err["bwd" if backward else "fwd"],
+                        **row})
+    # the eager BERT-base path's shape: f32, 8 x 512 rows of 768
+    x, g, b, dy = _ln_inputs(dev, f32, 4096, 768, seed=96)
+    _ln_kernel_times(fwd, bwd, x, g, b, dy, 1e-12, flush,
+                     "4096x768 f32 (BERT-base eager)")
+    return records
+
+
+def _ln_kernel_times(fwd, bwd, x, g, b, dy, eps, flush, shape):
+    """B4a and B4b timed at one shape against the bound, the plain
+    versions and ``F.layer_norm`` (a backward that recomputes its forward
+    is timed as forward + backward less forward); prints a
+    ``kernel_time`` line each and returns their ``kernels``-line
+    fields."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda.layernorm_kernel import layer_norm_plain
+
+    c = x.shape[-1]
+    _, mu, rstd = fwd.kernel(x, g, b, eps)
     ms_f = time_ms(lambda: fwd.kernel(x, g, b, eps), flush)
     ms_b = time_ms(lambda: bwd.kernel(x, g, mu, rstd, dy), flush)
     plain_f = time_ms(lambda: fwd.plain(x, g, b, eps), flush)
-    # as for flash attention: the backward's plain version less the
-    # forward it recomputes under autograd
     plain_fb = time_ms(lambda: bwd.plain(x, g, mu, rstd, dy, eps), flush)
     xl, gl, bl = (t.detach().requires_grad_() for t in (x, g, b))
 
     def plain_graph_fwd():
         with torch.enable_grad():
-            return layer_norm_plain(xl, (768,), gl, bl, eps)
+            return layer_norm_plain(xl, (c,), gl, bl, eps)
 
     plain_b = plain_fb - time_ms(plain_graph_fwd, flush)
 
     def lib():
-        return torch.nn.functional.layer_norm(xl, (768,), gl, bl, eps)
+        return torch.nn.functional.layer_norm(xl, (c,), gl, bl, eps)
 
     lib_f = time_ms(lib, flush)
     lib_fb = time_ms(lambda: torch.autograd.grad(lib(), (xl, gl, bl), dy),
                      flush)
-    records = []
-    for entry, ms, plain_ms, lib_ms, backward, err in (
-            (fwd, ms_f, plain_f, lib_f, False, main_err["fwd"]),
-            (bwd, ms_b, plain_b, lib_fb - lib_f, True, main_err["bwd"])):
+    rows = []
+    for entry, ms, plain_ms, lib_ms, backward in (
+            (fwd, ms_f, plain_f, lib_f, False),
+            (bwd, ms_b, plain_b, lib_fb - lib_f, True)):
         bound_ms, bound_by = _bound(
             entry, *((x, g, b, eps) if not backward
                      else (x, g, mu, rstd, dy)))
-        say("kernel_time", kernel=entry.name, shape="8192x768 bf16",
+        say("kernel_time", kernel=entry.name, shape=shape,
             kernel_ms=ms, plain_ms=plain_ms,
             plain_with_forward_ms=plain_fb if backward else None,
             bound_ms=bound_ms,
             bound_by=bound_by, library_ms=lib_ms,
             library="F.layer_norm" + (" backward (forward+backward minus "
                                       "forward)" if backward else ""))
-        records.append({"name": entry.name, "route": "cuda",
-                        "source": entry.source, "replaces": entry.replaces,
-                        "launches": None, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": lib_ms})
-    return records
+        rows.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms})
+    return rows
 
 
 # The LayerNorm backward's sizes against their alternatives: each entry
@@ -3953,6 +4004,340 @@ def training_phase(dev, warmup=3, steps=10):
     return launches
 
 
+# ------------------------------------------------- the eager Paddle API --
+BERT_BATCH, BERT_SEQ = 8, 512
+# _parity's f32 tolerance for the eager BERT step and forward, kernels
+# against their plain versions from the same weights, batch and draws
+EAGER_F32_TOL = 1e-4
+_EAGER_KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_attention_fwd",
+                  "flash_attention_bwd")
+
+
+def _bert_layernorms(cfg):
+    """LayerNorms one BertForPretraining forward runs: the embeddings',
+    two a layer (post-norm), the MLM transform's."""
+    return 2 * cfg.num_hidden_layers + 2
+
+
+def _bert_step_flops(cfg, batch, seq):
+    """Operations of one training step, counted from the code: 6 x the
+    matmul parameters a token meets (each layer's q, k, v, out and FFN,
+    the MLM transform, the tied decoder) x tokens, the pooler and NSP
+    head on one token a row, and the attention products (QK^T and PV,
+    4 B T^2 H a layer forward) x 3 for forward + backward."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    per_token = (cfg.num_hidden_layers * (4 * h * h + 2 * h * f) + h * h
+                 + h * cfg.vocab_size)
+    attention = cfg.num_hidden_layers * 4 * batch * seq * seq * h
+    return (6 * (per_token * batch * seq + (h * h + 2 * h) * batch)
+            + 3 * attention)
+
+
+def _bert_batch(cfg, seed, padded=True):
+    """A pretraining batch from ``seed`` as port Tensors on the current
+    device: rows padded to lengths drawn from [T/4, T] (all T when not
+    ``padded``) with a 1/0 attention mask, segment B from half the row,
+    15% of the real positions as MLM labels, NSP labels; and the
+    lengths."""
+    import paddle_tpu_torch as paddle
+
+    rng = np.random.RandomState(seed)
+    b, t = BERT_BATCH, BERT_SEQ
+    lengths = rng.randint(t // 4, t + 1, b) if padded else np.full(b, t)
+    keep = np.arange(t)[None, :] < lengths[:, None]
+    ids = np.where(keep, rng.randint(1, cfg.vocab_size, (b, t)), 0)
+    types = (np.arange(t)[None, :] >= lengths[:, None] // 2) & keep
+    mlm = np.where(keep & (rng.rand(b, t) < 0.15), ids, -100)
+    nsp = rng.randint(0, 2, b)
+    return ([paddle.to_tensor(a.astype(np.int64))
+             for a in (ids, types, keep, mlm, nsp)], lengths)
+
+
+class _PlainKernels:
+    """Within: every kernel on the eager path replaced by its plain
+    version, explicitly — LayerNorm (B4a/B4b) by ``layer_norm_plain``
+    under autograd, flash attention (B2/B3) by ``attention_plain`` —
+    counting the calls each takes."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.nn import functional as F
+        from paddle_tpu_torch.ops import attention
+        from paddle_tpu_torch.ops.cuda.layernorm_kernel import (
+            layer_norm_plain,
+        )
+
+        self.calls = {"layernorm": 0, "attention": 0}
+
+        def ln(x, gamma, beta, eps=1e-5):
+            self.calls["layernorm"] += 1
+            return layer_norm_plain(x, (x.shape[-1],), gamma, beta, eps)
+
+        def attn(q, k, v, is_causal=False):
+            self.calls["attention"] += 1
+            return attention.attention_plain(q, k, v, is_causal=is_causal)
+
+        self._saved = (F, F.layernorm_cuda, attention,
+                       attention.flash_attention_cuda)
+        F.layernorm_cuda, attention.flash_attention_cuda = ln, attn
+        return self.calls
+
+    def __exit__(self, *exc):
+        F, ln, attention, attn = self._saved
+        F.layernorm_cuda, attention.flash_attention_cuda = ln, attn
+        return False
+
+
+class _OpCalls:
+    """Within: every call through the op dispatcher (``apply_op``)
+    counted, with its host seconds, and the seconds of those spent in the
+    op's body (its torch calls and their launches); the rest is the
+    dispatch's own unwrap and wrap."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.nn import functional as F
+        from paddle_tpu_torch.ops import dispatch, registry
+
+        self.stats = {"calls": 0, "host_s": 0.0, "body_s": 0.0}
+        inner = dispatch.apply_op
+
+        def timed(fn):
+            def body(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self.stats["body_s"] += time.perf_counter() - t0
+            return body
+
+        def counted(name, fn, args, kwargs):
+            t0 = time.perf_counter()
+            try:
+                return inner(name, timed(fn), args, kwargs)
+            finally:
+                self.stats["calls"] += 1
+                self.stats["host_s"] += time.perf_counter() - t0
+
+        self._mods, self._inner = (dispatch, registry, F), inner
+        for m in self._mods:
+            m.apply_op = counted
+        return self.stats
+
+    def __exit__(self, *exc):
+        for m in self._mods:
+            m.apply_op = self._inner
+        return False
+
+
+def _counts(registry):
+    return {k: registry.counts()[k] for k in _EAGER_KERNELS}
+
+
+def eager_api_phase(dev, smi, warmup=3, steps=10):
+    """BERT-base pretraining through the port's Paddle API, stepped
+    eagerly: ``BertForPretraining(bert_base_config())`` (f32, TF32 off,
+    dropout 0.1) built on the card from seed 0, AdamW(1e-4) over
+    ``model.parameters()``, one 8 x 512 batch with padded rows and an
+    attention mask; ``loss.backward(); opt.step(); opt.clear_grad()``.
+
+    - parity: one step's loss and every gradient with the kernels against
+      the same step with every kernel replaced by its plain version
+      (same weights, batch and dropout draws), under ``_parity`` at
+      ``EAGER_F32_TOL``;
+    - training: ``warmup`` steps, then ``steps`` timed ones (the main
+      path: counts reset just before, read just after) — wall and device
+      ms a step, busy share, tokens/s, FLOPs over the f32 peak, peak
+      memory, op calls a step and their host µs (all, and the dispatch's
+      own outside the body); B4a and B4b must launch
+      once per LayerNorm a step (2 L + 2) and B2/B3 never (a mask and
+      dropout take the plain attention);
+    - eval: ``eval()`` over unpadded rows without a mask (another main
+      path, counted alone): B2 once a layer, B4a once per LayerNorm, the
+      logits held against the plain-version forward;
+    - save/load: ``paddle.save(state_dict)`` -> ``load`` ->
+      ``set_state_dict`` into a fresh model on the card, logits bitwise.
+
+    Returns the launches of the two main paths, summed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.models.bert import (
+        BertForPretraining,
+        bert_base_config,
+    )
+    from paddle_tpu_torch.ops.cuda import registry
+
+    paddle.set_device(f"gpu:{dev.index or 0}")
+    cfg = bert_base_config()
+    t0 = time.perf_counter()
+    paddle.seed(0)
+    model = BertForPretraining(cfg)
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters())
+    n_params = sum(p.size for p in model.parameters())
+    (ids, types, mask, mlm, nsp), lengths = _bert_batch(cfg, seed=2024)
+    n_ln = _bert_layernorms(cfg)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+
+    def loss_of(m):
+        return m.loss(*m(ids, types, mask), mlm, nsp)
+
+    def step():
+        loss = loss_of(model)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    # the kernel step against the plain step, same weights and draws
+    state = prandom.get_rng_state(dev)
+    registry.reset_counts()
+    loss_k = loss_of(model)
+    loss_k.backward()
+    kernel_counts = _counts(registry)
+    grads_k = {n: p.grad._data.clone() for n, p in model.named_parameters()}
+    opt.clear_grad()
+    prandom.set_rng_state(state, dev)
+    registry.reset_counts()
+    with _PlainKernels() as plain_calls:
+        loss_p = loss_of(model)
+        loss_p.backward()
+    plain_counts = _counts(registry)
+    report = {"loss": _parity(loss_k._data.detach(), loss_p._data.detach(),
+                              EAGER_F32_TOL)}
+    grads = {n: _parity(grads_k[n], p.grad._data, EAGER_F32_TOL)
+             for n, p in model.named_parameters()}
+    worst = max(grads, key=lambda n: grads[n][2])
+    report["grad_worst"] = grads[worst]
+    opt.clear_grad()
+    del grads_k
+    want_one = {"layernorm_fwd": n_ln, "layernorm_bwd": n_ln,
+                "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    say("eager_bert_parity", card=smi, model="BertForPretraining(bert_base_"
+        "config()) f32", batch=BERT_BATCH, seq=BERT_SEQ, f32_tol=EAGER_F32_TOL,
+        loss_kernels=float(loss_k), loss_plain=float(loss_p),
+        max_abs_err={k: r[0] for k, r in report.items()},
+        err_over_limit={k: r[2] for k, r in report.items()},
+        worst_grad=worst, grads_over_limit=sum(
+            1 for r in grads.values() if not r[3]),
+        kernel_launches=kernel_counts, plain_run_launches=plain_counts,
+        plain_run_calls=plain_calls)
+    if not all(r[3] for r in grads.values()) or not report["loss"][3]:
+        raise RuntimeError(f"eager BERT step: kernels against plain "
+                           f"{report}")
+    if (kernel_counts != want_one or any(plain_counts.values())
+            or plain_calls["layernorm"] != n_ln):
+        raise RuntimeError(f"eager BERT step launches {kernel_counts} != "
+                           f"{want_one}, or the plain run launched "
+                           f"{plain_counts} / called {plain_calls}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [float(step()) for _ in range(warmup)]
+    registry.reset_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    timed = [step() for _ in range(steps)]
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = _counts(registry)
+    losses += [float(x) for x in timed]
+    peak = torch.cuda.max_memory_allocated(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize(dev)
+    with _OpCalls() as calls:
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize(dev)
+        instrumented_ms = (time.perf_counter() - t1) * 1e3
+    ms = wall / steps * 1e3
+    flops = _bert_step_flops(cfg, BERT_BATCH, BERT_SEQ)
+    want = {"layernorm_fwd": n_ln * steps, "layernorm_bwd": n_ln * steps,
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    say("eager_bert_training", card=smi, dtype="float32 (TF32 off)",
+        optimizer="AdamW(1e-4)", batch=BERT_BATCH, seq=BERT_SEQ,
+        real_tokens=int(lengths.sum()), params=n_params,
+        warmup_steps=warmup, timed_steps=steps, setup_s=setup_s,
+        losses=losses, ms_per_step=ms,
+        tokens_per_s=BERT_BATCH * BERT_SEQ * steps / wall,
+        step_flops=flops, flops_over_f32_peak=flops / (ms / 1e3)
+        / PEAK_FLOPS["torch.float32"], peak_memory_bytes=peak,
+        op_calls_per_step=calls["calls"],
+        op_host_us_per_call=calls["host_s"] / calls["calls"] * 1e6,
+        op_host_ms_per_step=calls["host_s"] * 1e3,
+        op_dispatch_us_per_call=(calls["host_s"] - calls["body_s"])
+        / calls["calls"] * 1e6,
+        instrumented_step_ms=instrumented_ms,
+        layernorms_per_forward=n_ln, kernel_launches=launches,
+        expected_launches=want)
+    say("eager_bert_profile", steps=1,
+        layernorm_device_share=_kernel_share(prof, "ln_"),
+        **_device_profile(prof, 1, ms))
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise RuntimeError(f"eager BERT loss did not fall: {losses}")
+    if launches != want:
+        raise RuntimeError(f"eager BERT launches {launches} != {want}")
+
+    model.eval()
+    (ids_e, types_e, *_), _ = _bert_batch(cfg, seed=7, padded=False)
+    with paddle.no_grad():
+        registry.reset_counts()
+        logits = model(ids_e, types_e)
+        torch.cuda.synchronize(dev)
+        eval_launches = _counts(registry)
+        with _PlainKernels() as plain_eval:
+            plain = model(ids_e, types_e)
+        t1 = time.perf_counter()
+        for _ in range(5):
+            model(ids_e, types_e)
+        torch.cuda.synchronize(dev)
+        eval_ms = (time.perf_counter() - t1) / 5 * 1e3
+    eval_report = {name: _parity(g._data, w._data, EAGER_F32_TOL)
+                   for name, g, w in zip(("mlm_logits", "nsp_logits"),
+                                         logits, plain)}
+    want_eval = {"layernorm_fwd": n_ln, "layernorm_bwd": 0,
+                 "flash_attention_fwd": cfg.num_hidden_layers,
+                 "flash_attention_bwd": 0}
+    say("eager_bert_eval", card=smi, batch=BERT_BATCH, seq=BERT_SEQ,
+        mask=None, wall_ms_per_forward=eval_ms,
+        max_abs_err={k: r[0] for k, r in eval_report.items()},
+        err_over_limit={k: r[2] for k, r in eval_report.items()},
+        kernel_launches=eval_launches, expected_launches=want_eval,
+        plain_run_calls=plain_eval)
+    if not all(r[3] for r in eval_report.values()):
+        raise RuntimeError(f"eager BERT eval: kernels against plain "
+                           f"{eval_report}")
+    if eval_launches != want_eval:
+        raise RuntimeError(f"eager BERT eval launches {eval_launches} != "
+                           f"{want_eval}")
+
+    path = os.path.join(ROOT, "build", "eager_bert.pdparams")
+    t1 = time.perf_counter()
+    paddle.save(model.state_dict(), path)
+    saved_bytes = os.path.getsize(path)
+    paddle.seed(1)
+    fresh = BertForPretraining(cfg)
+    missing, unexpected = fresh.set_state_dict(paddle.load(path))
+    os.remove(path)
+    round_trip_s = time.perf_counter() - t1
+    fresh.eval()
+    with paddle.no_grad():
+        again = fresh(ids_e, types_e)
+    bitwise = all(torch.equal(a._data, b._data)
+                  for a, b in zip(logits, again))
+    say("eager_save_load", card=smi, bytes=saved_bytes,
+        round_trip_s=round_trip_s, keys=len(model.state_dict()),
+        missing=missing, unexpected=unexpected, logits_bitwise=bitwise)
+    if not bitwise or missing or unexpected:
+        raise RuntimeError("save/load round trip changed the model")
+    del model, fresh, opt
+    return {k: launches[k] + eval_launches[k] for k in _EAGER_KERNELS}
+
+
 # ------------------------------------------------------------ the fleet --
 def _fleet_captures(fleet):
     """Graphs captured so far by each replica's target and draft graphs."""
@@ -5254,6 +5639,10 @@ def main():
         build_phase()
         dispatch_phase(dev, smi)
         return
+    if sys.argv[1:] == ["eager"]:
+        build_phase()
+        eager_api_phase(dev, smi)
+        return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     build_phase()
@@ -5311,6 +5700,11 @@ def main():
                                     + llama_decode_phase(dev))
     torch.cuda.empty_cache()
     launches.update(training_phase(dev))
+    torch.cuda.empty_cache()
+    # and the eager Paddle API's BERT-base paths: the timed training steps
+    # (B4a, B4b) and the eval forward (B2, B4a), each counted alone
+    for kernel, n in eager_api_phase(dev, smi).items():
+        launches[kernel] += n
     torch.cuda.empty_cache()
     tooling_phase(dev, smi)
     for rec in records:

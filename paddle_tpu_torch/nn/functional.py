@@ -1,5 +1,12 @@
-"""nn.functional — the subset of ``paddle_tpu/nn/functional.py`` that the
-GPT training path and the Llama model run, in PyTorch.
+"""nn.functional: stateless NN ops (port of ``paddle_tpu/nn/functional.py``).
+
+Every inventory op of the JAX module is a registered op here (37), with
+``linear``, ``rms_norm`` and ``cross_entropy``; ``dropout`` and
+``scaled_dot_product_attention`` dispatch the same way without a
+registry entry, as in the JAX package.  Called with Paddle Tensors they
+return Tensors and record torch autograd; called with raw torch tensors
+(the port's GPT, its engine and ``TrainStep``) they are the bodies
+themselves (``ops/dispatch.py``).
 
 ``layer_norm`` and ``scaled_dot_product_attention`` reach the
 hand-written CUDA kernels on CUDA tensors (LayerNorm B4,
@@ -7,28 +14,185 @@ hand-written CUDA kernels on CUDA tensors (LayerNorm B4,
 ``ops/attention.py``) and the JAX package's plain compositions on the
 CPU.  ``cross_entropy`` keeps the JAX package's chunked f32 softmax
 cross entropy, which is XLA composition there and plain PyTorch here.
-Randomness (dropout) draws from an explicit ``torch.Generator``; with
-``generator=None`` it draws from PyTorch's default generator of the
-tensor's device.
+Randomness (dropout) draws from an explicit ``torch.Generator``: given
+Paddle Tensors and no generator, the global generator of the tensor's
+device (``framework/random.py``); given raw torch tensors and none,
+PyTorch's default generator of the device.  The other functions of the
+JAX module (pooling, ``interpolate``, ``conv1d``, ``ctc_loss``,
+``gumbel_softmax`` and the rarer losses) wait for A23b.
 """
+
 
 import torch
 
+from ..core.tensor import Tensor
+from ..framework.dtype import convert_dtype
+from ..framework.random import generator as _global_generator
 from ..ops.attention import flash_attention as _dispatch_attention
 from ..ops.cuda.layernorm_kernel import layer_norm_plain, layernorm_cuda
+from ..ops.dispatch import apply_op
+from ..ops.registry import op
+
+_tF = torch.nn.functional
 
 # ---------------- activations ----------------
 
 
+@op()
+def relu(x):
+    return torch.relu(x)
+
+
+@op()
+def relu6(x):
+    return torch.clamp(x, 0.0, 6.0)
+
+
+@op()
+def relu_(x):
+    return torch.relu(x)
+
+
+@op()
 def gelu(x, approximate=False):
     """GELU; ``approximate=True`` is the tanh form."""
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
 
 
+@op()
+def leaky_relu(x, negative_slope=0.01):
+    return _tF.leaky_relu(x, negative_slope)
+
+
+@op()
+def prelu(x, weight, data_format="NCHW"):
+    if weight.numel() == 1:
+        w = weight.reshape(())
+    else:
+        shape = [1] * x.dim()
+        ch_axis = 1 if data_format.startswith("NC") else x.dim() - 1
+        shape[ch_axis] = weight.numel()
+        w = weight.reshape(shape)
+    return torch.where(x >= 0, x, w * x)
+
+
+@op()
+def elu(x, alpha=1.0):
+    return _tF.elu(x, alpha)
+
+
+@op()
+def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772):
+    return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+@op()
+def celu(x, alpha=1.0):
+    return _tF.celu(x, alpha)
+
+
+@op()
+def silu(x):
+    return _tF.silu(x)
+
+
+@op()
+def swish(x):
+    return _tF.silu(x)
+
+
+@op()
+def mish(x):
+    return x * torch.tanh(torch.logaddexp(x, torch.zeros_like(x)))
+
+
+@op()
+def softplus(x, beta=1.0, threshold=20.0):
+    return torch.where(x * beta > threshold, x,
+                       (1.0 / beta) * torch.log1p(torch.exp(beta * x)))
+
+
+@op()
+def softshrink(x, threshold=0.5):
+    return torch.where(x > threshold, x - threshold,
+                       torch.where(x < -threshold, x + threshold,
+                                   torch.zeros_like(x)))
+
+
+@op()
+def hardshrink(x, threshold=0.5):
+    return torch.where(torch.abs(x) > threshold, x, torch.zeros_like(x))
+
+
+@op()
+def tanhshrink(x):
+    return x - torch.tanh(x)
+
+
+@op()
+def hardtanh(x, min=-1.0, max=1.0):
+    return torch.clamp(x, min, max)
+
+
+@op()
+def hardsigmoid(x, slope=0.1666667, offset=0.5):
+    return torch.clamp(slope * x + offset, 0.0, 1.0)
+
+
+@op()
+def hardswish(x):
+    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+
+
+@op()
+def softsign(x):
+    return x / (1.0 + torch.abs(x))
+
+
+@op()
+def log_sigmoid(x):
+    return _tF.logsigmoid(x)
+
+
+@op()
+def softmax(x, axis=-1, dtype=None):
+    if dtype is not None:
+        x = x.to(convert_dtype(dtype))
+    return torch.softmax(x, dim=axis)
+
+
+@op()
+def log_softmax(x, axis=-1, dtype=None):
+    if dtype is not None:
+        x = x.to(convert_dtype(dtype))
+    return torch.log_softmax(x, dim=axis)
+
+
+@op()
+def glu(x, axis=-1):
+    a, b = torch.chunk(x, 2, dim=axis)
+    return a * torch.sigmoid(b)
+
+
+@op()
+def maxout(x, groups, axis=1):
+    shape = list(x.shape)
+    shape[axis] = shape[axis] // groups
+    shape.insert(axis + 1, groups)
+    return torch.amax(x.reshape(shape), dim=axis + 1)
+
+
+@op()
+def normalize(x, p=2, axis=1, epsilon=1e-12):
+    nrm = torch.sum(torch.abs(x) ** p, dim=axis, keepdim=True) ** (1.0 / p)
+    return x / torch.clamp(nrm, min=epsilon)
+
+
 # ---------------- linear / embedding ----------------
 
 
+@op()
 def linear(x, weight, bias=None):
     """y = x @ W + b; weight layout [in, out] (Paddle convention)."""
     out = torch.matmul(x, weight)
@@ -37,6 +201,7 @@ def linear(x, weight, bias=None):
     return out
 
 
+@op()
 def embedding(x, weight, padding_idx=None, sparse=False):
     """Rows of ``weight`` at ``x``; rows at ``padding_idx`` are zeros.
     ``sparse`` is accepted and ignored, as in the JAX package."""
@@ -48,9 +213,124 @@ def embedding(x, weight, padding_idx=None, sparse=False):
     return out
 
 
+@op()
+def one_hot(x, num_classes):
+    return _tF.one_hot(x.long(), num_classes).to(torch.float32)
+
+
+@op()
+def label_smooth(label, prior_dist=None, epsilon=0.1):
+    k = label.shape[-1]
+    if prior_dist is not None:
+        return (1 - epsilon) * label + epsilon * prior_dist
+    return (1 - epsilon) * label + epsilon / k
+
+
+@op()
+def bilinear(x1, x2, weight, bias=None):
+    out = torch.einsum("bi,oij,bj->bo", x1, weight, x2)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+# ---------------- conv ----------------
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return tuple(v)
+    return (v,) * n
+
+
+def _conv_pads(padding, x, weight, stride, dilation, nd):
+    """The JAX package's padding forms (an int, one int a dim, a (lo, hi)
+    pair a dim, "SAME" or "VALID") -> (lo, hi) pairs over the spatial
+    dims, with XLA's SAME (``lo = total // 2``)."""
+    if isinstance(padding, str):
+        if padding.upper() == "VALID":
+            return [(0, 0)] * nd
+        pairs = []
+        for i in range(nd):
+            size, k = x.shape[2 + i], weight.shape[2 + i]
+            out = -(-size // stride[i])
+            total = max((out - 1) * stride[i] + (k - 1) * dilation[i] + 1
+                        - size, 0)
+            pairs.append((total // 2, total - total // 2))
+        return pairs
+    if isinstance(padding, int):
+        return [(padding, padding)] * nd
+    padding = list(padding)
+    if len(padding) == nd and all(isinstance(p, int) for p in padding):
+        return [(p, p) for p in padding]
+    if len(padding) == 2 * nd:
+        return [(padding[2 * i], padding[2 * i + 1]) for i in range(nd)]
+    return [tuple(p) for p in padding]
+
+
+def _conv(x, weight, bias, stride, padding, dilation, groups, nd):
+    stride, dilation = _pair(stride, nd), _pair(dilation, nd)
+    pairs = _conv_pads(padding, x, weight, stride, dilation, nd)
+    flat = [p for lo_hi in reversed(pairs) for p in lo_hi]
+    if any(flat):
+        x = _tF.pad(x, flat)
+    conv = (_tF.conv1d, _tF.conv2d, _tF.conv3d)[nd - 1]
+    out = conv(x, weight, None, stride, 0, dilation, groups)
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
+@op()
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    """Convolution (reference: phi conv kernels -> cuDNN); ``weight`` is
+    OIHW whatever the data format."""
+    if data_format == "NHWC":
+        x = x.permute(0, 3, 1, 2)
+    out = _conv(x, weight, bias, stride, padding, dilation, groups, 2)
+    return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
+
+
+@op()
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW"):
+    return _conv(x, weight, bias, stride, padding, dilation, groups, 3)
+
+
+@op()
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCHW", output_size=None):
+    """Transposed convolution, ``weight`` [in, out / groups, kh, kw]:
+    the full transposed product, then each spatial dim cut by its
+    (lo, hi) padding and grown by ``output_padding`` at the end, as the
+    JAX package's gradient-of-conv form computes it."""
+    stride, dilation = _pair(stride), _pair(dilation)
+    opad = _pair(output_padding)
+    keff = [(weight.shape[2 + i] - 1) * dilation[i] + 1 for i in range(2)]
+    if isinstance(padding, str):
+        pairs = ([(0, 0), (0, 0)] if padding.upper() == "VALID"
+                 else [(k // 2, k // 2) for k in keff])
+    else:
+        pairs = _conv_pads(padding, x, weight, stride, dilation, 2)
+    out = _tF.conv_transpose2d(x, weight, None, stride, 0, 0, groups,
+                               dilation)
+    for i, (lo, hi) in enumerate(pairs):
+        dim = 2 + i
+        end = out.shape[dim] - hi + opad[i]
+        extra = end - out.shape[dim]
+        if extra > 0:   # F.pad lists the last dim first
+            out = _tF.pad(out, [0, 0, 0, extra] if dim == 2 else [0, extra])
+        out = out.narrow(dim, lo, end - lo)
+    if bias is not None:
+        out = out + bias.reshape((1, -1, 1, 1))
+    return out
+
+
 # ---------------- normalization ----------------
 
 
+@op()
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05):
     """LayerNorm over the trailing ``normalized_shape`` dims.  A CUDA
     tensor normalised over its last dim with both ``weight`` and
@@ -65,6 +345,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05):
     return layer_norm_plain(x, normalized_shape, weight, bias, epsilon)
 
 
+@op()
 def rms_norm(x, weight=None, epsilon=1e-06, axis=-1):
     """RMSNorm: ``x * rsqrt(mean(x ** 2) + epsilon) * weight`` over
     ``axis``, in the input's dtype (the llama family's norm)."""
@@ -75,16 +356,97 @@ def rms_norm(x, weight=None, epsilon=1e-06, axis=-1):
     return out
 
 
+@op()
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-05, data_format="NCHW",
+               use_global_stats=None):
+    """-> (out, mean, var): the batch statistics in training (biased
+    variance), the running ones otherwise; the BatchNorm layer updates
+    its buffers from the returned pair."""
+    ch_axis = 1 if data_format.startswith("NC") else x.dim() - 1
+    axes = tuple(a for a in range(x.dim()) if a != ch_axis)
+    if training and not use_global_stats:
+        mean = torch.mean(x, dim=axes)
+        var = torch.var(x, dim=axes, correction=0)
+    else:
+        mean, var = running_mean, running_var
+    shape = [1] * x.dim()
+    shape[ch_axis] = x.shape[ch_axis]
+    out = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
+                                                  + epsilon)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out, mean, var
+
+
+@op()
+def instance_norm(x, weight=None, bias=None, epsilon=1e-05):
+    axes = tuple(range(2, x.dim()))
+    mean = torch.mean(x, dim=axes, keepdim=True)
+    var = torch.var(x, dim=axes, keepdim=True, correction=0)
+    out = (x - mean) * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        out = out * weight.reshape(shape)
+        if bias is not None:
+            out = out + bias.reshape(shape)
+    return out
+
+
+@op()
+def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-05,
+               data_format="NCHW"):
+    if data_format != "NCHW":
+        x = torch.movedim(x, -1, 1)
+    n, c = x.shape[0], x.shape[1]
+    spatial = tuple(x.shape[2:])
+    g = x.reshape(n, num_groups, c // num_groups, *spatial)
+    axes = tuple(range(2, g.dim()))
+    mean = torch.mean(g, dim=axes, keepdim=True)
+    var = torch.var(g, dim=axes, keepdim=True, correction=0)
+    out = ((g - mean) * torch.rsqrt(var + epsilon)).reshape(n, c, *spatial)
+    shape = [1, -1] + [1] * len(spatial)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    if data_format != "NCHW":
+        out = torch.movedim(out, 1, -1)
+    return out
+
+
 # ---------------- dropout ----------------
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
-            generator=None):
+            name=None, generator=None):
     """Zero elements with probability ``p``.  ``upscale_in_train`` scales
     the kept ones by ``1 / (1 - p)`` in training and is the identity in
     eval; ``downscale_in_infer`` keeps them unscaled in training and
     scales by ``1 - p`` in eval.  ``axis`` shares one draw along the
-    other dims."""
+    other dims.  A Tensor ``x`` without a ``generator`` draws from the
+    global generator of its device."""
+    if isinstance(x, Tensor):
+        if generator is None and training and p > 0.0:
+            generator = _global_generator(x._data.device)
+        return apply_op("dropout", _dropout, (x, p, axis, training, mode,
+                                              generator), {})
+    return _dropout(x, p, axis, training, mode, generator)
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW"):
+    axis = [0, 1] if data_format == "NCHW" else [0, 3]
+    return dropout(x, p=p, axis=axis, training=training)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW"):
+    axis = [0, 1] if data_format == "NCDHW" else [0, 4]
+    return dropout(x, p=p, axis=axis, training=training)
+
+
+def _dropout(x, p, axis, training, mode, generator):
     if not training:
         if mode == "downscale_in_infer" and p > 0.0:
             return x * (1.0 - p)
@@ -101,7 +463,151 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     return torch.where(keep, x, 0.0)
 
 
+# ---------------- padding / misc ----------------
+
+_PAD_MODES = {"constant": "constant", "reflect": "reflect",
+              "replicate": "replicate", "circular": "circular"}
+
+
+@op()
+def pad(x, pad, mode="constant", value=0.0, data_format="NCHW"):
+    if isinstance(pad, (list, tuple)) and len(pad) == x.dim() * 2:
+        pairs = [(pad[2 * i], pad[2 * i + 1]) for i in range(x.dim())]
+    else:
+        # paddle convention: pad pairs apply starting from the LAST dim
+        # backward ([w_left, w_right, h_top, h_bottom] for NCHW)
+        pairs = [(0, 0)] * x.dim()
+        np_ = len(pad) // 2
+        if data_format.startswith("NC"):
+            dims = list(range(x.dim() - 1, x.dim() - 1 - np_, -1))
+        else:
+            dims = list(range(x.dim() - 2, x.dim() - 2 - np_, -1))
+        for i, d in enumerate(dims):
+            pairs[d] = (pad[2 * i], pad[2 * i + 1])
+    while len(pairs) > 1 and pairs[0] == (0, 0):
+        pairs = pairs[1:]
+    flat = [int(p) for lo_hi in reversed(pairs) for p in lo_hi]
+    if mode == "constant":
+        return _tF.pad(x, flat, mode="constant", value=value)
+    return _tF.pad(x, flat, mode=_PAD_MODES[mode])
+
+
+@op()
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1):
+    return _tF.unfold(x, _pair(kernel_sizes), dilation=_pair(dilations),
+                      padding=_pair(paddings), stride=_pair(strides))
+
+
+@op()
+def pixel_shuffle(x, upscale_factor, data_format="NCHW"):
+    r = upscale_factor
+    n, c, h, w = x.shape
+    x = x.reshape(n, c // (r * r), r, r, h, w)
+    x = x.permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(n, c // (r * r), h * r, w * r)
+
+
+@op()
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    dot_ = torch.sum(x1 * x2, dim=axis)
+    n1 = torch.linalg.vector_norm(x1, dim=axis)
+    n2 = torch.linalg.vector_norm(x2, dim=axis)
+    return dot_ / torch.clamp(n1 * n2, min=eps)
+
+
+@op()
+def temporal_shift(x, seg_num, shift_ratio=0.25):
+    nt, c, h, w = x.shape
+    n = nt // seg_num
+    x = x.reshape(n, seg_num, c, h, w)
+    fold = int(c * shift_ratio)
+    left = torch.cat([x[:, 1:, :fold], torch.zeros_like(x[:, :1, :fold])], 1)
+    right = torch.cat([torch.zeros_like(x[:, :1, fold:2 * fold]),
+                       x[:, :-1, fold:2 * fold]], 1)
+    rest = x[:, :, 2 * fold:]
+    return torch.cat([left, right, rest], dim=2).reshape(nt, c, h, w)
+
+
 # ---------------- loss ----------------
+
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return torch.mean(loss)
+    if reduction == "sum":
+        return torch.sum(loss)
+    return loss
+
+
+@op()
+def mse_loss(input, label, reduction="mean"):
+    return _reduce(torch.square(input - label), reduction)
+
+
+@op()
+def l1_loss(input, label, reduction="mean"):
+    return _reduce(torch.abs(input - label), reduction)
+
+
+@op()
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0):
+    d = torch.abs(input - label)
+    loss = torch.where(d < delta, 0.5 * d * d / delta, d - 0.5 * delta)
+    return _reduce(loss, reduction)
+
+
+@op()
+def binary_cross_entropy(input, label, weight=None, reduction="mean"):
+    eps = 1e-12
+    loss = -(label * torch.log(torch.clamp(input, min=eps))
+             + (1 - label) * torch.log(torch.clamp(1 - input, min=eps)))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+@op()
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None):
+    neg_abs = -torch.abs(logit)
+    loss = torch.clamp(logit, min=0.0) - logit * label \
+        + torch.log1p(torch.exp(neg_abs))
+    if pos_weight is not None:
+        loss = loss * ((pos_weight - 1.0) * label + 1.0)
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+@op()
+def kl_div(input, label, reduction="mean"):
+    loss = label * (torch.log(torch.clamp(label, min=1e-12)) - input)
+    if reduction == "batchmean":
+        return torch.sum(loss) / input.shape[0]
+    return _reduce(loss, reduction)
+
+
+@op()
+def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean"):
+    loss = torch.clamp(-label * (input - other) + margin, min=0.0)
+    return _reduce(loss, reduction)
+
+
+@op()
+def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean"):
+    valid = label != ignore_index
+    safe = torch.where(valid, label, torch.zeros_like(label)).long()
+    picked = -torch.gather(input, -1, safe[..., None])[..., 0]
+    if weight is not None:
+        picked = picked * weight[safe]
+    picked = torch.where(valid, picked, torch.zeros_like(picked))
+    if reduction == "mean":
+        denom = torch.sum(weight[safe] * valid) if weight is not None \
+            else torch.clamp(torch.sum(valid.float()), min=1.0)
+        return torch.sum(picked) / denom
+    if reduction == "sum":
+        return torch.sum(picked)
+    return picked
+
 
 _XENT_CHUNK = 256
 
@@ -149,6 +655,7 @@ class _ChunkedSoftmaxXent(torch.autograd.Function):
         return grad, None
 
 
+@op()
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
@@ -163,7 +670,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
         raise NotImplementedError(
             "cross_entropy: only hard labels over the last axis with "
             "softmax, no weight and no smoothing are ported (the rest is "
-            "slice 8, the long tail)")
+            "A23b, the long tail)")
     lbl = label
     if lbl.dim() == input.dim() and lbl.shape[ax] == 1:
         lbl = lbl.squeeze(ax)
@@ -188,12 +695,20 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, generator=None):
     """SDPA on [batch, seq, heads, dim] (Paddle layout).  Attention
-    dropout applies in training only and draws from ``generator``."""
+    dropout applies in training only and draws from ``generator`` (for
+    Tensor inputs without one, the global generator of their device)."""
     use_drop = dropout_p > 0.0 and training
-    return _dispatch_attention(query, key, value, attn_mask=attn_mask,
-                               is_causal=is_causal,
-                               dropout_p=dropout_p if use_drop else 0.0,
-                               generator=generator)
+    if generator is None and use_drop and isinstance(query, Tensor):
+        generator = _global_generator(query._data.device)
+
+    def body(query, key, value, attn_mask):
+        return _dispatch_attention(query, key, value, attn_mask=attn_mask,
+                                   is_causal=is_causal,
+                                   dropout_p=dropout_p if use_drop else 0.0,
+                                   generator=generator)
+
+    return apply_op("scaled_dot_product_attention", body,
+                    (query, key, value, attn_mask), {})
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,
@@ -206,6 +721,16 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     return out, None
 
 
-__all__ = ["cross_entropy", "dropout", "embedding",
-           "flash_attention", "gelu", "layer_norm", "linear", "rms_norm",
-           "scaled_dot_product_attention"]
+__all__ = [
+    "batch_norm", "bilinear", "binary_cross_entropy",
+    "binary_cross_entropy_with_logits", "celu", "conv2d", "conv2d_transpose",
+    "conv3d", "cosine_similarity", "cross_entropy", "dropout", "dropout2d",
+    "dropout3d", "elu", "embedding", "flash_attention", "gelu", "glu",
+    "group_norm", "hardshrink", "hardsigmoid", "hardswish", "hardtanh",
+    "instance_norm", "kl_div", "l1_loss", "label_smooth", "layer_norm",
+    "leaky_relu", "linear", "log_sigmoid", "log_softmax", "margin_ranking_loss",
+    "maxout", "mish", "mse_loss", "nll_loss", "normalize", "one_hot", "pad",
+    "pixel_shuffle", "prelu", "relu", "relu6", "relu_", "rms_norm",
+    "scaled_dot_product_attention", "selu", "silu", "smooth_l1_loss",
+    "softmax", "softplus", "softshrink", "softsign", "swish", "tanhshrink",
+    "temporal_shift", "unfold"]

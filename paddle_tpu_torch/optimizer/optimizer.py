@@ -4,10 +4,11 @@
 The numerics are the JAX package's rules: Adam's moments are f32,
 ``beta1_pow`` / ``beta2_pow`` accumulate per step (as f32 values),
 AdamW's decoupled decay ``p - lr * wd * p`` comes before the Adam rule
-and ``apply_decay_param_fun(name)`` masks it.  torch tensors carry no
-Paddle ``name``, so ``parameters`` may hold ``(name, tensor)`` pairs
-(``model.named_parameters()``); a parameter given without a name is
-decayed, as an unnamed one is in the JAX package.  There are no master
+and ``apply_decay_param_fun(name)`` masks it.  ``parameters`` holds
+torch tensors, ``(name, tensor)`` pairs (``model.named_parameters()``)
+or Paddle ``Parameter``s (``Layer.parameters()``), whose name is
+``Parameter.name`` and whose ``_data`` is updated; a parameter without
+a name is decayed, as an unnamed one is in the JAX package.  There are no master
 weights: the update is cast to the parameter's own dtype, so under
 ``amp.decorate(level="O2")`` bf16 parameters are updated in bf16.
 
@@ -19,6 +20,7 @@ parameter of the step, under ``no_grad``).
 import numpy as np
 import torch
 
+from ..core.tensor import Tensor
 from .lr import LRScheduler
 
 _f32 = np.float32
@@ -33,6 +35,8 @@ class Optimizer:
             if isinstance(item, tuple):
                 name, item = item
                 self._names[id(item)] = name
+            elif isinstance(item, Tensor) and item.name is not None:
+                self._names[id(item)] = item.name
             self._parameters.append(item)
         if not self._parameters:
             raise ValueError("parameters is required")
@@ -52,9 +56,10 @@ class Optimizer:
         """The initial state dict of one parameter."""
         return {}
 
-    def _apply(self, params, grads, states, lr):
+    def _apply(self, params, grads, states, lr, owners):
         """Update ``params`` and their ``states`` in place from
-        ``grads`` (clipped, with any coupled decay added)."""
+        ``grads`` (clipped, with any coupled decay added); ``owners``
+        are the objects the caller passed, one a parameter."""
         raise NotImplementedError
 
     def _decay_applied_in_rule(self):
@@ -67,8 +72,12 @@ class Optimizer:
         """One update of every parameter that has a gradient, in place."""
         self._step_count += 1
         lr = self.get_lr()
-        params = [p for p in self._parameters
-                  if p.grad is not None and p.requires_grad]
+        owners, params = [], []
+        for item in self._parameters:
+            p = item._data if isinstance(item, Tensor) else item
+            if p.grad is not None and p.requires_grad:
+                owners.append(item)
+                params.append(p)
         if not params:
             return
         grads = [p.grad for p in params]
@@ -78,15 +87,16 @@ class Optimizer:
             wd = float(self._weight_decay)
             grads = [g + wd * p for g, p in zip(grads, params)]
         states = []
-        for p in params:
-            state = self._accumulators.get(id(p))
+        for item, p in zip(owners, params):
+            state = self._accumulators.get(id(item))
             if state is None:
-                state = self._accumulators[id(p)] = self._init_state(p)
+                state = self._accumulators[id(item)] = self._init_state(p)
             states.append(state)
-        self._apply(params, grads, states, lr)
+        self._apply(params, grads, states, lr, owners)
 
     def clear_grad(self, set_to_zero=False):
-        for p in self._parameters:
+        for item in self._parameters:
+            p = item._data if isinstance(item, Tensor) else item
             if p.grad is None:
                 continue
             if set_to_zero:
@@ -110,7 +120,7 @@ class SGD(Optimizer):
                  weight_decay=None, grad_clip=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip)
 
-    def _apply(self, params, grads, states, lr):
+    def _apply(self, params, grads, states, lr, owners):
         # p - lr * g.astype(p.dtype)
         torch._foreach_add_(params, [g.to(p.dtype) for g, p in
                                      zip(grads, params)], alpha=-lr)
@@ -137,7 +147,7 @@ class Adam(Optimizer):
                 "moment2": torch.zeros_like(p, dtype=torch.float32),
                 "beta1_pow": _f32(1.0), "beta2_pow": _f32(1.0)}
 
-    def _apply(self, params, grads, states, lr):
+    def _apply(self, params, grads, states, lr, owners):
         """m = b1 m + (1 - b1) g; v = b2 v + (1 - b2) g^2 (g in f32);
         p -= (lr * m / (1 - b1^t) / (sqrt(v / (1 - b2^t)) + eps)) cast to
         p's dtype."""
@@ -185,14 +195,15 @@ class AdamW(Adam):
     def _decay_applied_in_rule(self):
         return True
 
-    def _apply(self, params, grads, states, lr):
+    def _apply(self, params, grads, states, lr, owners):
         """p = p - lr * wd * p on the masked parameters, in their own
         dtype, then the Adam rule."""
         wd = float(self._weight_decay or 0.0)
         if wd:
-            decayed = [p for p in params if self._decay_ids is None
-                       or id(p) in self._decay_ids]
+            decayed = [p for p, o in zip(params, owners)
+                       if self._decay_ids is None
+                       or id(o) in self._decay_ids]
             if decayed:
                 step = torch._foreach_mul(decayed, float(_f32(lr) * _f32(wd)))
                 torch._foreach_sub_(decayed, step)
-        super()._apply(params, grads, states, lr)
+        super()._apply(params, grads, states, lr, owners)

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import paddle_tpu as paddle
+import paddle_tpu.framework.flags as jax_flags
 import paddle_tpu.inference.llm.block_manager as jax_bm
 import paddle_tpu.inference.llm.events as jax_events
 import paddle_tpu.inference.llm.faults as jax_faults
@@ -31,6 +32,9 @@ import paddle_tpu.inference.llm.kv_tier as jax_kv_tier
 import paddle_tpu.inference.llm.scheduler as jax_sched
 import paddle_tpu.inference.llm.spec as jax_spec
 import paddle_tpu.inference.llm.structured as jax_structured
+import paddle_tpu.ops.inventory as jax_inventory
+import paddle_tpu.ops.schema as jax_schema
+import paddle_tpu.ops.schema_compat as jax_schema_compat
 import paddle_tpu.sim.clock as jax_clock
 import paddle_tpu.sim.workloads as jax_workloads
 from paddle_tpu.inference.llm import LLMEngine as JaxEngine
@@ -38,6 +42,7 @@ from paddle_tpu.inference.llm.sampling import (
     apply_logits_pipeline as jax_pipeline,
 )
 from paddle_tpu.models.gpt import gpt_tiny as jax_gpt_tiny
+import paddle_tpu_torch.framework.flags as port_flags
 from paddle_tpu_torch.inference.llm import (
     BlockManager,
     Fault,
@@ -58,6 +63,9 @@ import paddle_tpu_torch.inference.llm.kv_tier as port_kv_tier
 import paddle_tpu_torch.inference.llm.scheduler as port_sched
 import paddle_tpu_torch.inference.llm.spec as port_spec
 import paddle_tpu_torch.inference.llm.structured as port_structured
+import paddle_tpu_torch.ops.inventory as port_inventory
+import paddle_tpu_torch.ops.schema as port_schema
+import paddle_tpu_torch.ops.schema_compat as port_schema_compat
 import paddle_tpu_torch.sim.clock as port_clock
 import paddle_tpu_torch.sim.workloads as port_workloads
 from paddle_tpu_torch.models.gpt import gpt_tiny
@@ -394,7 +402,10 @@ def test_default_device_needs_cuda(models, monkeypatch):
     (jax_faults, port_faults), (jax_events, port_events),
     (jax_interleave, port_interleave), (jax_structured, port_structured),
     (jax_spec, port_spec), (jax_kv_tier, port_kv_tier),
-    (jax_workloads, port_workloads), (jax_clock, port_clock)])
+    (jax_workloads, port_workloads), (jax_clock, port_clock),
+    (jax_flags, port_flags), (jax_schema, port_schema),
+    (jax_schema_compat, port_schema_compat),
+    (jax_inventory, port_inventory)])
 def test_host_modules_are_verbatim_copies(jax_mod, port_mod):
     assert inspect.getsource(port_mod) == inspect.getsource(jax_mod)
 

@@ -55,6 +55,15 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import paddle_tpu_torch.framework.analysis\n"
         "import paddle_tpu_torch.framework.kernel_lint\n"
         "import paddle_tpu_torch.framework.concurrency_lint\n"
+        "import paddle_tpu_torch.core.tensor, paddle_tpu_torch.autograd\n"
+        "import paddle_tpu_torch.ops.dispatch, paddle_tpu_torch.ops.registry\n"
+        "import paddle_tpu_torch.ops.creation, paddle_tpu_torch.ops.math\n"
+        "import paddle_tpu_torch.ops.manipulation, paddle_tpu_torch.ops.logic\n"
+        "import paddle_tpu_torch.ops.random, paddle_tpu_torch.ops.waiting\n"
+        "import paddle_tpu_torch.nn.layer_base, paddle_tpu_torch.nn.loss\n"
+        "import paddle_tpu_torch.nn.transformer, paddle_tpu_torch.nn.common\n"
+        "import paddle_tpu_torch.models.bert, paddle_tpu_torch.framework_io\n"
+        "import paddle_tpu_torch.autograd.py_layer\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.'))\n"
