@@ -211,6 +211,16 @@ and the script exits non-zero:
               unpadded rows without a mask (B2 once a layer, logits
               against the plain forward), and a ``save``/``load``
               round trip into a fresh model, logits bitwise.
+12. vision — ViT-B/16 and ResNet-50 trained through ``paddle.Model``
+              over a 4-worker ``DataLoader`` under ``amp.auto_cast()``
+              (O1 bf16) (``vision_phase``; ``python3 chip_smoke.py
+              vision`` runs it alone): B2/B3/B4a/B4b at ViT's shapes
+              against their plain versions and timed, one O1 step with
+              the kernels against the plain-version step, the ViT fit
+              (3 + 10 steps; B2, B3, B4a, B4b 12, 12, 25, 25 a step),
+              the ResNet-50 fit (3 + 5 steps, BatchNorm statistics),
+              ``evaluate`` with ``Accuracy``, ``predict`` and a
+              ``save``/``load`` round trip, logits bitwise.
 
 The launches in the ``kernels`` line are those of each kernel's main
 path, each run with the counts at 0 just before and read just after:
@@ -222,7 +232,7 @@ burst, the int8 tier run, the int8 fleet runs and the int8
 tensor-parallel run on every rank (summed) for its int8 twin, the FMT and Llama decode runs (summed) for the decode
 kernel, the timed training steps for the others, to which the eager
 BERT-base timed steps add B4a's and B4b's launches and its eval forward
-B2's and B4a's.  The second-to-last
+B2's and B4a's, and the ViT-B/16 fit B2's, B3's, B4a's and B4b's.  The second-to-last
 line is that JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  The script imports only torch, numpy and the port.
 """
@@ -4338,6 +4348,450 @@ def eager_api_phase(dev, smi, warmup=3, steps=10):
     return {k: launches[k] + eval_launches[k] for k in _EAGER_KERNELS}
 
 
+# ------------------------------------------------------------ vision --
+VIT_BATCH = 64
+VIT_STEPS = (3, 10)          # warm-up, timed
+RESNET_STEPS = (3, 5)
+# the O1 step's gradients against the plain-version step: each within this
+# relative L2 error (BF16_GRAD_RTOL's bound for bf16 training steps)
+VISION_GRAD_RTOL = BF16_GRAD_RTOL
+# and a floor of this share of the largest gradient's norm
+# (``_vit_step_parity``)
+VISION_GRAD_FLOOR = 1e-4
+IMAGENET_MEAN = [0.485, 0.456, 0.406]
+IMAGENET_STD = [0.229, 0.224, 0.225]
+
+
+def _image_dataset(n, seed):
+    """``n`` synthetic ImageNet samples from ``seed``: uint8 224 x 224 x 3
+    images (HWC, as decoded) and labels in [0, 1000), transformed in the
+    loader's workers by ``vision.transforms`` (``ToTensor``: HWC uint8 ->
+    CHW float in [0, 1]; ``Normalize``)."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.vision import transforms as T
+
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+    labels = rng.randint(0, 1000, n).astype(np.int64)
+    pipe = T.Compose([T.ToTensor(), T.Normalize(IMAGENET_MEAN,
+                                                IMAGENET_STD)])
+
+    class Images(io.Dataset):
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return pipe(images[i]).astype(np.float32), labels[i]
+
+    return Images()
+
+
+def _timed_loader(dataset, **kw):
+    """A ``DataLoader`` whose ``waits`` list holds the seconds the
+    consuming thread waited for each batch."""
+    from paddle_tpu_torch import io
+
+    class Timed(io.DataLoader):
+        waits = []
+
+        def __iter__(self):
+            it = super().__iter__()
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                self.waits.append(time.perf_counter() - t0)
+                yield batch
+
+    return Timed(dataset, **kw)
+
+
+def _step_clock():
+    """A hapi callback that stamps the end of every training step."""
+    from paddle_tpu_torch.hapi import Callback
+
+    class Clock(Callback):
+        stamps = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.stamps.append(time.perf_counter())
+
+    return Clock()
+
+
+def _vit_kernel_rows(dev, smi):
+    """B2/B3 at ViT-B/16's attention (64 x 197 x 12 x 64 bf16, no mask,
+    197 rows: a tail in every 64-row tile column) and B4a/B4b at its
+    LayerNorms (64 · 197 = 12608 rows of 768, f32 under O1), each
+    against its plain version in f32 on the same values, then timed
+    against the bound, the plain version and the library call."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import registry
+
+    fwd, bwd = (registry.KERNELS[k] for k in ("flash_attention_fwd",
+                                              "flash_attention_bwd"))
+    q, k, v, dout = _flash_inputs(dev, torch.bfloat16, VIT_BATCH, 197, 12,
+                                  64, seed=61)
+    scale = 0.125
+    out, lse = fwd.kernel(q, k, v, False, scale)
+    grads = bwd.kernel(q, k, v, out, lse, dout, False, scale)
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, dout))
+    want_out, want_lse = fwd.plain(q32, k32, v32, False, scale)
+    want_grads = bwd.plain(q32, k32, v32, out.float(), lse, do32, False,
+                           scale)
+    report = {"out": _parity(out, want_out, 1e-4),
+              "lse": _parity(lse, want_lse, 1e-4)}
+    report.update({f"d{n}": _parity(g, w, 5e-4)
+                   for n, g, w in zip("qkv", grads, want_grads)})
+    _say_parity("flash_attention", "vit_b16_64x197x12x64", torch.bfloat16,
+                report, causal=False)
+    lib = _parity(torch.nn.functional.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in (q, k, v))).transpose(1, 2),
+        want_out, 1e-4)
+    say("library_parity", library="F.scaled_dot_product_attention",
+        case="vit_b16_64x197x12x64", dtype="torch.bfloat16",
+        max_abs_err=lib[0], rel_l2_err=lib[1], err_over_limit=lib[2],
+        gate=False)
+    x, g, b, dy = _ln_inputs(dev, torch.float32, VIT_BATCH * 197, 768,
+                             seed=62)
+    lfwd, lbwd = (registry.KERNELS[k] for k in ("layernorm_fwd",
+                                                "layernorm_bwd"))
+    y, mu, rstd = lfwd.kernel(x, g, b, 1e-5)
+    dx, dg, db = lbwd.kernel(x, g, mu, rstd, dy)
+    wy, wmu, wrstd = lfwd.plain(x, g, b, 1e-5)
+    wdx, wdg, wdb = lbwd.plain(x, g, wmu, wrstd, dy, 1e-5)
+    ln_report = {n: _parity(a, w, tol) for n, a, w, tol in (
+        ("y", y, wy, 1e-5), ("mu", mu, wmu, 1e-5), ("rstd", rstd, wrstd,
+                                                    1e-5),
+        ("dx", dx, wdx, 1e-4), ("dgamma", dg, wdg, 1e-4),
+        ("dbeta", db, wdb, 1e-4))}
+    _say_parity("layernorm", "vit_b16_12608x768", torch.float32, ln_report)
+    bad = {n: r for n, r in {**report, **ln_report}.items() if not r[3]}
+    if bad:
+        raise RuntimeError(f"kernels at ViT-B/16's shapes: {bad}")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ms_f = time_ms(lambda: fwd.kernel(q, k, v, False, scale), flush)
+    ms_b = time_ms(lambda: bwd.kernel(q, k, v, out, lse, dout, False,
+                                      scale), flush)
+    plain_f = time_ms(lambda: fwd.plain(q, k, v, False, scale), flush)
+    plain_b = time_ms(lambda: bwd.plain(q, k, v, out, lse, dout, False,
+                                        scale), flush)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+
+    lib_f = time_ms(sdpa, flush)
+    lib_fb = time_ms(lambda: torch.autograd.grad(
+        sdpa(), (qt, kt, vt), dout.transpose(1, 2)), flush)
+    for entry, ms, plain_ms, lib_ms, args in (
+            (fwd, ms_f, plain_f, lib_f, (q, k, v, False, scale)),
+            (bwd, ms_b, plain_b, lib_fb - lib_f,
+             (q, k, v, out, lse, dout, False, scale))):
+        bound_ms, bound_by = _bound(entry, *args)
+        say("kernel_time", kernel=entry.name, card=smi,
+            shape="64x197x12x64 bf16 non-causal (ViT-B/16, O1)",
+            kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib_ms,
+            library="F.scaled_dot_product_attention" + (
+                " backward (forward+backward minus forward)"
+                if entry is bwd else ""))
+    _ln_kernel_times(lfwd, lbwd, x, g, b, dy, 1e-5, flush,
+                     "12608x768 f32 (ViT-B/16 LayerNorms, O1)")
+
+
+def _vit_step_parity(model, x, y, smi):
+    """One O1 step's loss and every gradient with the kernels against the
+    same step with each kernel replaced by its plain version."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import attention
+    from paddle_tpu_torch.ops.cuda import registry
+
+    loss_fn = paddle.nn.CrossEntropyLoss()
+
+    def grads_of():
+        with paddle.amp.auto_cast():
+            loss = loss_fn(model(x), y)
+        loss.backward()
+        out = {n: p.grad._data.clone() for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.clear_grad()
+        return loss, out
+
+    registry.reset_counts()
+    loss_k, grads_k = grads_of()
+    kernel_counts = _counts(registry)
+    registry.reset_counts()
+    with _PlainKernels() as plain_calls:
+        # the flash kernels' plain versions on f32 copies (as
+        # train_exactness_bf16 holds the bf16 kernels), not a bf16
+        # composition that rounds P and dS on its own
+        attention.flash_attention_cuda = _f32_plain_flash(plain_calls)
+        loss_p, grads_p = grads_of()
+    plain_counts = _counts(registry)
+    loss_report = _parity(loss_k._data.detach(), loss_p._data.detach(),
+                          1e-4)
+    # each gradient within VISION_GRAD_RTOL of its own norm plus
+    # VISION_GRAD_FLOOR of the largest gradient's: at initialisation the
+    # query and key projections' gradients cancel to ~1e-5 of the largest
+    # (near-uniform attention) and the key biases' to ~1e-6 (a softmax
+    # row is invariant to a shift of its logits), and they carry the
+    # rounding of the terms that cancel
+    top = max(float(g.norm()) for g in grads_p.values())
+    over = {n: float((grads_k[n] - grads_p[n]).norm())
+            / (VISION_GRAD_RTOL * float(grads_p[n].norm())
+               + VISION_GRAD_FLOOR * top) for n in grads_k}
+    rel = {n: _parity(grads_k[n], grads_p[n], 1e-4)[1] for n in grads_k}
+    worst = max(over, key=over.get)
+    worst3 = {n: over[n] for n in sorted(over, key=over.get)[-3:]}
+    depth = len(model.encoder.layers)
+    want = {"flash_attention_fwd": depth, "flash_attention_bwd": depth,
+            "layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1}
+    say("vit_step_parity", card=smi, amp="O1 bf16", batch=x.shape[0],
+        loss_kernels=float(loss_k), loss_plain=float(loss_p),
+        loss_max_abs_err=loss_report[0], grad_rtol=VISION_GRAD_RTOL,
+        grad_floor=VISION_GRAD_FLOOR, worst_grad=worst,
+        worst_grad_over_limit=over[worst],
+        worst_grad_rel_l2_err=rel[worst], worst_three_over_limit=worst3,
+        worst_three_norm_over_top={
+            n: float(grads_p[n].norm()) / top for n in worst3},
+        max_rel_l2_err=max(rel.values()),
+        kernel_launches=kernel_counts, plain_run_launches=plain_counts,
+        plain_run_calls=plain_calls)
+    if (abs(float(loss_k) - float(loss_p)) > BF16_RTOL * abs(float(loss_p))
+            or over[worst] > 1.0):
+        raise RuntimeError(f"ViT O1 step: kernels against plain: loss "
+                           f"{float(loss_k)} vs {float(loss_p)}, worst "
+                           f"gradient {worst} at {over[worst]} of its "
+                           f"limit")
+    if kernel_counts != want or any(plain_counts.values()):
+        raise RuntimeError(f"ViT O1 step launches {kernel_counts} != {want}"
+                           f" or the plain run launched {plain_counts}")
+
+
+def _f32_plain_flash(calls):
+    """A route for ``attention.flash_attention_cuda``: an autograd
+    function over the flash kernels' plain versions on f32 copies of its
+    inputs, its outputs cast back to their dtype (the flash phase's
+    plain versions, whose backward also reads the forward's output in
+    the inputs' dtype)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda.flash_attention_kernel import (
+        flash_bwd_plain,
+        flash_fwd_plain,
+    )
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal):
+            scale = 1.0 / float(np.sqrt(q.shape[-1]))
+            q32, k32, v32 = (x.float() for x in (q, k, v))
+            out, lse = flash_fwd_plain(q32, k32, v32, causal, scale)
+            out = out.to(q.dtype)
+            # the backward reads the output as the layer holds it (bf16
+            # under O1), as the kernels' backward does: its delta =
+            # rowsum(dO * O) then rounds as theirs
+            ctx.save_for_backward(q32, k32, v32, out.float(), lse)
+            ctx.causal, ctx.scale = causal, scale
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            grads = flash_bwd_plain(*ctx.saved_tensors, dout.float(),
+                                    ctx.causal, ctx.scale)
+            return (*(g.to(dout.dtype) for g in grads), None)
+
+    def route(q, k, v, is_causal=False):
+        calls["attention"] += 1
+        return PlainFlash.apply(q, k, v, bool(is_causal))
+
+    return route
+
+
+def _fit(dev, smi, label, model, steps, seed):
+    """``Model.fit`` over a 4-worker loader under O1 for ``warmup +
+    timed`` steps, the main path (counts reset just before, read just
+    after); then one profiled ``train_batch``.  Returns (launches,
+    fields for the line, the hapi Model, a held-out batch)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.cuda import registry
+
+    warmup, timed = steps
+    n = (warmup + timed) * VIT_BATCH
+    hapi = paddle.Model(model)
+    hapi.prepare(paddle.optimizer.AdamW(learning_rate=1e-4,
+                                        parameters=model.parameters()),
+                 paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    loader = _timed_loader(_image_dataset(n, seed), batch_size=VIT_BATCH,
+                           shuffle=True, num_workers=4, drop_last=True)
+    loader.waits.clear()
+    clock = _step_clock()
+    clock.stamps.clear()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    registry.reset_counts()
+    t0 = time.perf_counter()
+    with paddle.amp.auto_cast():
+        hist = hapi.fit(loader, epochs=1, verbose=0, callbacks=[clock],
+                        num_iters=warmup + timed)
+    torch.cuda.synchronize(dev)
+    fit_s = time.perf_counter() - t0
+    launches = _counts(registry)
+    peak = torch.cuda.max_memory_allocated(dev)
+    stamps = clock.stamps
+    ms = (stamps[-1] - stamps[warmup - 1]) / timed * 1e3
+    wait_ms = float(np.mean(loader.waits[warmup:])) * 1e3
+    held = next(iter(paddle.io.DataLoader(_image_dataset(VIT_BATCH,
+                                                         seed + 1),
+                                          batch_size=VIT_BATCH)))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with paddle.amp.auto_cast():
+            hapi.train_batch([held[0]], [held[1]])
+        torch.cuda.synchronize(dev)
+    prof_fields = _device_profile(prof, 1, ms)
+    fields = dict(card=smi, model=label, amp="O1 bf16",
+                  loader="DataLoader(batch_size=64, shuffle=True, "
+                  "num_workers=4), ToTensor + Normalize in the workers",
+                  warmup_steps=warmup, timed_steps=timed, fit_s=fit_s,
+                  losses=hist["loss"], ms_per_step=ms,
+                  images_per_s=VIT_BATCH / ms * 1e3,
+                  loader_wait_ms_per_step=wait_ms, peak_memory_bytes=peak,
+                  **prof_fields)
+    if len(hist["loss"]) != warmup + timed or not all(
+            np.isfinite(hist["loss"])):
+        raise RuntimeError(f"{label} fit: losses {hist['loss']}")
+    return launches, fields, hapi, held
+
+
+def vision_phase(dev, smi):
+    """The high-level vision training path through the port's Paddle API
+    on the card: ``paddle.Model(net).prepare(AdamW, CrossEntropyLoss,
+    Accuracy()).fit(DataLoader(...))`` under ``amp.auto_cast()`` (O1,
+    bf16), the loader's 4 forked workers running ``vision.transforms``
+    over synthetic uint8 images from a seed.
+
+    - kernels at ViT-B/16's shapes: B2/B3 (bf16, 197 rows) and B4a/B4b
+      (12608 x 768 f32) against their plain versions, timed against the
+      bound, the plain version and SDPA / ``F.layer_norm``;
+    - parity: one O1 step of ViT-B/16 (seed 0, one batch) with the
+      kernels against the same step with every kernel replaced by its
+      plain version: the loss within the bf16 rule, every gradient's
+      error within ``VISION_GRAD_RTOL`` of its norm plus
+      ``VISION_GRAD_FLOOR`` of the largest gradient's norm;
+    - ViT-B/16 (patch 16, 224², hidden 768, 12 layers, 12 heads, MLP
+      3072, 1000 classes, full depth) fit for 3 + 10 steps — the main
+      path: wall and device ms a step, busy share, images/s, FLOPs
+      (``hapi.flops`` x 3 for forward + backward) over the bf16 dense
+      peak, peak memory, the ms the main thread waits on the loader a
+      step; B2, B3, B4a and B4b must launch 12, 12, 25 and 25 times a
+      step on this path alone;
+    - ResNet-50 fit for 3 + 5 steps under the same loader: images/s,
+      device ms, busy, the top device ops; no Pallas kernel is on this
+      path (convolutions are cuDNN's, as the JAX package leaves them to
+      XLA), BatchNorm's running statistics finite and moved;
+    - ``Model.evaluate`` with ``Accuracy`` and ``Model.predict`` on a
+      held-out batch, then ``Model.save`` -> ``Model.load`` into a fresh
+      model on the card, the logits bitwise.
+
+    Returns the ViT fit's launches."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.cuda import registry
+    from paddle_tpu_torch.vision.models import resnet50, vit_base_patch16_224
+
+    paddle.set_device(f"gpu:{dev.index or 0}")
+    _vit_kernel_rows(dev, smi)
+
+    paddle.seed(0)
+    vit = vit_base_patch16_224()
+    depth = len(vit.encoder.layers)
+    x0, y0 = next(iter(paddle.io.DataLoader(_image_dataset(VIT_BATCH, 5),
+                                            batch_size=VIT_BATCH)))
+    _vit_step_parity(vit, x0, y0, smi)
+    del x0, y0
+    fwd_flops = paddle.flops(vit, (1, 3, 224, 224))
+    launches, fields, hapi, held = _fit(dev, smi, "vit_base_patch16_224",
+                                        vit, VIT_STEPS, seed=11)
+    steps = sum(VIT_STEPS)
+    per_step = {k: n / steps for k, n in launches.items()}
+    want = {"flash_attention_fwd": depth, "flash_attention_bwd": depth,
+            "layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1}
+    step_flops = 3 * fwd_flops * VIT_BATCH
+    say("vision_vit_training", **fields,
+        params=sum(p.size for p in vit.parameters()),
+        step_flops=step_flops, flops_source="hapi.flops (the cost walker) "
+        "of one image's forward x 64 x 3", flops_over_bf16_peak=step_flops
+        / (fields["ms_per_step"] / 1e3) / PEAK_FLOPS["torch.bfloat16"],
+        launches_per_step=per_step, expected_per_step=want)
+    if per_step != want:
+        raise RuntimeError(f"ViT fit launches a step {per_step} != {want}")
+
+    ev = hapi.evaluate(paddle.io.TensorDataset(list(held)),
+                       batch_size=VIT_BATCH, verbose=0)
+    preds = hapi.predict(paddle.io.TensorDataset([held[0]]),
+                         batch_size=VIT_BATCH, stack_outputs=True)
+    path = os.path.join(ROOT, "build", "vision_vit")
+    t1 = time.perf_counter()
+    hapi.save(path)
+    paddle.seed(1)
+    fresh = paddle.Model(vit_base_patch16_224())
+    fresh.load(path)
+    round_trip_s = time.perf_counter() - t1
+    saved_bytes = os.path.getsize(path + ".pdparams")
+    os.remove(path + ".pdparams")
+    vit.eval()
+    fresh.network.eval()
+    with paddle.no_grad():
+        a, b = vit(held[0]), fresh.network(held[0])
+    bitwise = torch.equal(a._data, b._data)
+    say("vision_eval_save_load", card=smi, evaluate=ev,
+        predict_shape=list(preds[0].shape),
+        predict_finite=bool(np.isfinite(preds[0]).all()),
+        saved_bytes=saved_bytes, round_trip_s=round_trip_s,
+        logits_bitwise=bitwise)
+    if (not bitwise or preds[0].shape != (VIT_BATCH, 1000)
+            or not np.isfinite(ev["loss"]) or not 0 <= ev["acc"] <= 1):
+        raise RuntimeError(f"ViT evaluate/predict/save-load: {ev}, "
+                           f"bitwise {bitwise}")
+    del vit, fresh, hapi, a, b, held
+    torch.cuda.empty_cache()
+
+    paddle.seed(0)
+    net = resnet50()
+    bns = [m for m in net.sublayers()
+           if isinstance(m, paddle.nn.BatchNorm2D)]
+    r_launches, r_fields, _, _ = _fit(dev, smi, "resnet50", net,
+                                      RESNET_STEPS, seed=21)
+    means = [m._mean.numpy() for m in bns]
+    variances = [m._variance.numpy() for m in bns]
+    finite = all(np.isfinite(a).all() for a in means + variances)
+    moved = all(np.abs(mu).max() > 0 for mu in means)
+    say("vision_resnet50_training", **r_fields,
+        params=sum(p.size for p in net.parameters()),
+        kernel_launches=r_launches,
+        pallas_kernels_on_path="none: convolutions are the library call "
+        "(cuDNN), as the JAX package leaves them to XLA",
+        batchnorm_layers=len(bns), running_stats_finite=finite,
+        running_means_moved=moved)
+    if not (finite and moved) or any(r_launches.values()):
+        raise RuntimeError(f"ResNet-50 fit: running stats finite {finite} "
+                           f"moved {moved}, launches {r_launches}")
+    del net, bns
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ------------------------------------------------------------ the fleet --
 def _fleet_captures(fleet):
     """Graphs captured so far by each replica's target and draft graphs."""
@@ -5643,6 +6097,10 @@ def main():
         build_phase()
         eager_api_phase(dev, smi)
         return
+    if sys.argv[1:] == ["vision"]:
+        build_phase()
+        vision_phase(dev, smi)
+        return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     build_phase()
@@ -5704,6 +6162,10 @@ def main():
     # and the eager Paddle API's BERT-base paths: the timed training steps
     # (B4a, B4b) and the eval forward (B2, B4a), each counted alone
     for kernel, n in eager_api_phase(dev, smi).items():
+        launches[kernel] += n
+    torch.cuda.empty_cache()
+    # and the vision path's ViT-B/16 fit (B2, B3, B4a, B4b), counted alone
+    for kernel, n in vision_phase(dev, smi).items():
         launches[kernel] += n
     torch.cuda.empty_cache()
     tooling_phase(dev, smi)

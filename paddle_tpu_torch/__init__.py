@@ -11,7 +11,9 @@ version, which is what runs for tensors on the CPU.
 The top-level namespace is the Paddle API's eager front end, as far as
 it is ported: ``Tensor``/``to_tensor``, dtypes and places, ``seed``,
 grad modes, the creation and random functions, every registered op,
-``grad``, ``nn``, ``optimizer``, ``amp``, ``jit`` and ``save``/``load``.
+``grad``, ``nn``, ``optimizer``, ``amp``, ``jit``, ``save``/``load``,
+``io``, ``metric``, ``vision``, ``linalg`` and the high-level
+``Model`` (``hapi``) with ``summary`` and ``flops``.
 
 The port imports ``torch`` and ``numpy`` only — never ``jax`` and
 nothing of ``paddle_tpu``.  Entry points run on the CUDA device unless
@@ -125,6 +127,13 @@ from .framework_io import load, save  # noqa: F401, E402
 from .ops.registry import coverage as op_coverage  # noqa: F401, E402
 from . import inference  # noqa: F401, E402
 from . import incubate  # noqa: F401, E402
+from . import io  # noqa: F401, E402
+from . import distributed  # noqa: F401, E402
+from . import metric  # noqa: F401, E402
+from . import vision  # noqa: F401, E402
+from . import hapi  # noqa: F401, E402
+from .hapi import Model, flops, summary  # noqa: F401, E402
+from . import linalg  # noqa: F401, E402
 
 
 def disable_static(place=None):

@@ -167,7 +167,10 @@ class Tensor:
         return self._data.tolist()
 
     def __array__(self, dtype=None, copy=None):
-        arr = self.numpy()
+        """The host copy numpy asks for; bfloat16, which numpy lacks,
+        comes as float32 (exact)."""
+        d = self._data.detach()
+        arr = (d.float() if d.dtype == torch.bfloat16 else d).cpu().numpy()
         return arr.astype(dtype) if dtype is not None else arr
 
     def __float__(self):

@@ -274,7 +274,7 @@ _ELEMENTWISE = _aten(
     "lt", "le", "gt", "ge", "eq", "ne", "where", "logical_and",
     "logical_or", "logical_not", "logical_xor", "bitwise_and",
     "bitwise_or", "bitwise_xor", "bitwise_not", "isfinite", "masked_fill",
-    "_to_copy", "floor_divide", "reciprocal")
+    "_to_copy", "floor_divide", "reciprocal", "relu")
 # counted apart in ``transcendentals``, as XLA reports them
 _TRANSCENDENTAL = _aten(
     "exp", "exp2", "expm1", "log", "log2", "log1p", "tanh", "sin", "cos",
@@ -323,6 +323,29 @@ def _matmul_flops(node):
     return 2 * _out_elems(node) * a.shape[-1]
 
 
+def _conv_flops(node):
+    """2 a multiply-add of a convolution, counting (as XLA's
+    HloCostAnalysis does) only the kernel taps that land inside the
+    input, not those on its zero padding; a transposed convolution
+    counts every tap of its output."""
+    x, w, out = _val(node.args[0]), _val(node.args[1]), node.meta["val"]
+    stride, padding, dilation = node.args[3], node.args[4], node.args[5]
+    transposed, groups = node.args[6], node.args[8]
+    out_ch = w.shape[1] * groups if transposed else w.shape[0]
+    taps = 1
+    for i, k in enumerate(w.shape[2:]):
+        n_in, n_out = x.shape[2 + i], out.shape[2 + i]
+        if transposed:
+            taps *= n_out * k
+            continue
+        s, p, d = stride[i], padding[i], dilation[i]
+        taps *= sum(1 for o in range(n_out) for j in range(k)
+                    if 0 <= o * s - p + j * d < n_in)
+    per_tap = out.shape[0] * out_ch * (w.shape[1] if not transposed
+                                        else w.shape[0] // groups)
+    return 2 * per_tap * taps
+
+
 def _node_flops(node):
     """(flops, matmul flops, transcendentals) of one ATen node."""
     packet = _packet(node)
@@ -330,6 +353,10 @@ def _node_flops(node):
         mm = _matmul_flops(node)
         extra = _out_elems(node) if packet in _aten("addmm",
                                                     "baddbmm") else 0
+        return mm + extra, mm, 0
+    if packet == torch.ops.aten.convolution:
+        mm = _conv_flops(node)
+        extra = _out_elems(node) if node.args[2] is not None else 0
         return mm + extra, mm, 0
     if packet == torch.ops.aten.pow:
         # x ** n expands into O(log n) multiplies (XLA's integer_pow)

@@ -56,6 +56,10 @@ from .faults import PoolLostError
 # before it counts the group as lost (a worker waits for its next
 # command without a limit, and leaves when rank 0's socket closes)
 GROUP_TIMEOUT_S = 60.0
+# rank 0's wait on a collective: a pure spin this long, then a poll of the
+# work and of the workers' exit codes this often (``_Channel._wait``)
+SPIN_S = 1e-3
+POLL_S = 1e-4
 _WORKER_WAIT = datetime.timedelta(days=7)
 
 # Megatron split of the stacked block leaves ([L, ...]) and of the
@@ -264,7 +268,13 @@ class _Channel:
     kept: ``bcast_s`` (commands) and ``allreduce_s`` (the all-reduces),
     the latter split into ``exchange_s`` (the collective itself, the
     wait for the other ranks included) and, through the host, the
-    copies out and back (the wait for the local partial included)."""
+    copies out and back (the wait for the local partial included).
+
+    Rank 0 also watches its workers while it waits (``watch``, set by
+    :class:`TPGroup`): a worker that has exited fails the wait at once.
+    A dead peer's socket does not always fail a gloo wait — the kernel
+    may have buffered the send, or the peer's descriptors may outlive
+    it — and the wait would then last the group's timeout."""
 
     def __init__(self, store, rank, tp, backend, device, timeout):
         self.rank, self.tp, self.backend = rank, tp, backend
@@ -274,6 +284,7 @@ class _Channel:
         # gloo on a CUDA device: the partial goes through the host
         self.stage = backend == "gloo" and device.type == "cuda"
         self.on_lost = None
+        self.watch = None
         self.bcast_s = self.allreduce_s = self.exchange_s = 0.0
         self.bcasts = self.allreduces = 0
 
@@ -285,6 +296,22 @@ class _Channel:
             f"{self.tp}: a rank is gone and its pool shard with it: "
             f"{exc}") from exc
 
+    def _wait(self, work):
+        """``work.wait()``; with a ``watch``, spin for the first
+        ``SPIN_S``, then poll the work and the workers every
+        ``POLL_S`` (a worker that exited raises)."""
+        if self.watch is not None:
+            spin_until = time.perf_counter() + SPIN_S
+            while not work.is_completed():
+                if time.perf_counter() < spin_until:
+                    continue
+                dead = self.watch()
+                if dead is not None:
+                    raise RuntimeError(f"{dead} exited while rank "
+                                       f"{self.rank} waited on it")
+                time.sleep(POLL_S)
+        work.wait()
+
     def bcast(self, t, root=0):
         from torch import distributed as dist
 
@@ -292,7 +319,7 @@ class _Channel:
         opts = dist.BroadcastOptions()
         opts.rootRank = root
         try:
-            self.ctrl.broadcast([t], opts).wait()
+            self._wait(self.ctrl.broadcast([t], opts))
         except Exception as e:   # noqa: BLE001 — any channel failure
             self._lost("command channel", e)
         self.bcast_s += time.perf_counter() - t0
@@ -307,12 +334,12 @@ class _Channel:
             if self.stage:
                 host = y.cpu()  # noqa: H001 (gloo reduces host tensors: a CUDA partial is staged through the host by design)
                 t1 = time.perf_counter()
-                self.mp.allreduce([host]).wait()
+                self._wait(self.mp.allreduce([host]))
                 t2 = time.perf_counter()
                 y = host.to(y.device)
             else:
                 t1 = time.perf_counter()
-                self.mp.allreduce([y]).wait()
+                self._wait(self.mp.allreduce([y]))
                 t2 = time.perf_counter()
         except Exception as e:   # noqa: BLE001 — any collective failure
             self._lost("all-reduce", e)
@@ -328,7 +355,7 @@ class _Channel:
         """Sum a small CPU tensor over the ranks on ``mp_cpu`` (the stats
         op's lengths), outside the step's timers."""
         try:
-            self.ctrl.allreduce([t]).wait()
+            self._wait(self.ctrl.allreduce([t]))
         except Exception as e:   # noqa: BLE001 — any channel failure
             self._lost("command channel", e)
         return t
@@ -420,6 +447,7 @@ class TPGroup:
             self.close(kill=True)
             raise
         self.channel.on_lost = lambda: self.close(kill=True)
+        self.channel.watch = self._dead_worker
 
     def _connect(self, timeout):
         """Join rank 0 to both groups while watching the workers: one that
@@ -452,6 +480,13 @@ class TPGroup:
         if "error" in out:
             raise out["error"]
         return out["channel"]
+
+    def _dead_worker(self):
+        """The first worker that has exited, described, or None."""
+        for p in self.processes:
+            if p.exitcode is not None:
+                return f"worker {p.name} (exit code {p.exitcode})"
+        return None
 
     def step(self, op, tb, ints, cows=()):
         """Send one step (``OP_STEP``) or draft step (``OP_DRAFT``): the

@@ -7,11 +7,20 @@ update into one XLA program.  PyTorch runs eagerly: one call of
 device, with the attention and LayerNorm of the model going through the
 hand-written CUDA kernels.  Capturing the step in a CUDA graph is later
 work.
+
+The model is a ``torch.nn.Module`` over raw torch tensors (the port's
+GPT) or a Paddle ``Layer`` over Tensors (what ``hapi.Model`` steps):
+then the inputs and labels are Tensors and so is the loss.  A Layer's
+buffers update in place as its forward runs (BatchNorm's running
+statistics).  The JAX ``TrainStep`` restores every buffer after its
+traced forward, so its BatchNorm statistics never move; the eager JAX
+step updates them, and so does the port (ROADMAP C).
 """
 
 import torch
 
 from ..amp import GradScaler
+from ..core.tensor import Tensor
 
 
 class TrainStep:
@@ -21,6 +30,9 @@ class TrainStep:
 
         step = TrainStep(model, loss_fn, opt)
         loss = step(batch_x, batch_y)   # tensors in, detached loss out
+
+    ``model`` is a ``torch.nn.Module`` fed raw torch tensors or a Paddle
+    ``Layer`` fed Tensors (module docstring).
 
     A call clears the gradients, runs ``loss_fn(model(*inputs),
     *labels)``, ``loss.backward()``, then ``optimizer.step()`` (which
@@ -49,9 +61,9 @@ class TrainStep:
     def __call__(self, inputs, labels=()):
         """inputs: tensor or tuple for the model; labels: tensor or tuple
         for ``loss_fn(output, *labels)``.  Returns the loss, detached."""
-        if isinstance(inputs, torch.Tensor):
+        if isinstance(inputs, (torch.Tensor, Tensor)):
             inputs = (inputs,)
-        if isinstance(labels, torch.Tensor):
+        if isinstance(labels, (torch.Tensor, Tensor)):
             labels = (labels,)
         self._step += 1
         self.optimizer.clear_grad()

@@ -1,7 +1,6 @@
 """paddle_tpu_torch.nn — layers, functional, initializers (port of
-``paddle_tpu/nn``).  The layers whose module waits (``conv``,
-``pooling``, ``rnn`` and the norms other than LayerNorm) come with A23b;
-``RMSNorm`` is the ``torch.nn.Module`` the port's Llama uses."""
+``paddle_tpu/nn``).  ``rnn`` waits for A23b; ``RMSNorm`` is the
+``torch.nn.Module`` the port's Llama uses."""
 
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
@@ -27,7 +26,31 @@ from .container import (  # noqa: F401
     ParameterList,
     Sequential,
 )
-from .norm import LayerNorm, RMSNorm  # noqa: F401
+from .conv import Conv1D, Conv2D, Conv2DTranspose, Conv3D  # noqa: F401
+from .pooling import (  # noqa: F401
+    AdaptiveAvgPool1D,
+    AdaptiveAvgPool2D,
+    AdaptiveMaxPool2D,
+    AvgPool1D,
+    AvgPool2D,
+    MaxPool1D,
+    MaxPool2D,
+)
+from .norm import (  # noqa: F401
+    BatchNorm,
+    BatchNorm1D,
+    BatchNorm2D,
+    BatchNorm3D,
+    GroupNorm,
+    InstanceNorm1D,
+    InstanceNorm2D,
+    InstanceNorm3D,
+    LayerNorm,
+    LocalResponseNorm,
+    RMSNorm,
+    SpectralNorm,
+    SyncBatchNorm,
+)
 from .activation import (  # noqa: F401
     CELU,
     ELU,

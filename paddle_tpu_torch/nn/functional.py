@@ -8,6 +8,9 @@ return Tensors and record torch autograd; called with raw torch tensors
 (the port's GPT, its engine and ``TrainStep``) they are the bodies
 themselves (``ops/dispatch.py``).
 
+The pooling functions keep the JAX bodies' windows, pads and divisors
+(see the note above ``max_pool2d``).
+
 ``layer_norm`` and ``scaled_dot_product_attention`` reach the
 hand-written CUDA kernels on CUDA tensors (LayerNorm B4,
 ``ops/cuda/layernorm_kernel.py``; flash attention B2/B3 through
@@ -18,8 +21,9 @@ Randomness (dropout) draws from an explicit ``torch.Generator``: given
 Paddle Tensors and no generator, the global generator of the tensor's
 device (``framework/random.py``); given raw torch tensors and none,
 PyTorch's default generator of the device.  The other functions of the
-JAX module (pooling, ``interpolate``, ``conv1d``, ``ctc_loss``,
-``gumbel_softmax`` and the rarer losses) wait for A23b.
+JAX module (``interpolate``, ``ctc_loss``, ``gumbel_softmax``,
+``alpha_dropout``, ``sequence_mask`` and the rarer losses) wait for
+A23b.
 """
 
 
@@ -31,6 +35,8 @@ from ..framework.random import generator as _global_generator
 from ..ops.attention import flash_attention as _dispatch_attention
 from ..ops.cuda.layernorm_kernel import layer_norm_plain, layernorm_cuda
 from ..ops.dispatch import apply_op
+from ..ops.pool_ops import adaptive_bins, window_reduce
+from ..ops.pool_ops import windows as pool_windows
 from ..ops.registry import op
 
 _tF = torch.nn.functional
@@ -270,11 +276,12 @@ def _conv_pads(padding, x, weight, stride, dilation, nd):
 def _conv(x, weight, bias, stride, padding, dilation, groups, nd):
     stride, dilation = _pair(stride, nd), _pair(dilation, nd)
     pairs = _conv_pads(padding, x, weight, stride, dilation, nd)
-    flat = [p for lo_hi in reversed(pairs) for p in lo_hi]
-    if any(flat):
-        x = _tF.pad(x, flat)
+    sym = [lo for lo, hi in pairs]
+    if any(lo != hi for lo, hi in pairs):
+        x = _tF.pad(x, [p for lo_hi in reversed(pairs) for p in lo_hi])
+        sym = [0] * nd
     conv = (_tF.conv1d, _tF.conv2d, _tF.conv3d)[nd - 1]
-    out = conv(x, weight, None, stride, 0, dilation, groups)
+    out = conv(x, weight, None, stride, sym, dilation, groups)
     if bias is not None:
         out = out + bias.reshape((1, -1) + (1,) * nd)
     return out
@@ -325,6 +332,151 @@ def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
     if bias is not None:
         out = out + bias.reshape((1, -1, 1, 1))
     return out
+
+
+@op()
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL"):
+    """1-D convolution; ``weight`` is [out, in / groups, k] whatever the
+    data format."""
+    if data_format != "NCL":
+        x = x.permute(0, 2, 1)
+    out = _conv(x, weight, bias, stride, padding, dilation, groups, 1)
+    return out.permute(0, 2, 1) if data_format != "NCL" else out
+
+
+# ---------------- pooling ----------------
+# The JAX bodies are ``lax.reduce_window``; each is kept here with its own
+# quirks (``ops/pool_ops.window_reduce`` is the window reduction):
+# ``avg_pool2d`` divides by the cells inside the input when ``exclusive``
+# with explicit padding and by the window's size otherwise; ``ceil_mode``
+# grows max_pool2d's high pad by one stride; the 1-D forms ignore
+# ``ceil_mode`` and ``exclusive``; adaptive bins are ``[floor(i·in/out),
+# ceil((i+1)·in/out))``.
+
+
+def _pool_pads(padding, x, dims, ks, st):
+    """The JAX body's padding (an int, pairs, "SAME" or "VALID" with
+    XLA's SAME) -> explicit (lo, hi) pairs over ``dims``."""
+    if isinstance(padding, str):
+        if padding.upper() == "VALID":
+            return [(0, 0)] * len(dims)
+        pairs = []
+        for d, k, s in zip(dims, ks, st):
+            out = -(-x.shape[d] // s)
+            total = max((out - 1) * s + k - x.shape[d], 0)
+            pairs.append((total // 2, total - total // 2))
+        return pairs
+    return [list(p) for p in _conv_pads(padding, None, None, None, None,
+                                        len(dims))]
+
+
+def _spatial(x, nd, data_format):
+    return list(range(2, 2 + nd)) if data_format.startswith("NC") \
+        else list(range(1, 1 + nd))
+
+
+@op()
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW"):
+    ks = _pair(kernel_size)
+    st = _pair(stride if stride is not None else kernel_size)
+    if data_format != "NCHW" and return_mask:
+        raise NotImplementedError("return_mask requires NCHW")
+    dims = _spatial(x, 2, data_format)
+    pairs = _pool_pads(padding, x, dims, ks, st)
+    mask_pairs = [(0, 0), (0, 0)] if isinstance(padding, str) else pairs
+    if ceil_mode and not isinstance(padding, str):
+        for i, d in enumerate(dims):
+            span = x.shape[d] + sum(pairs[i]) - ks[i]
+            pairs[i][1] += st[i] if span % st[i] else 0
+        mask_pairs = pairs
+    out = window_reduce(x, dims, ks, st, pairs, "max")
+    if not return_mask:
+        return out
+    # mask: the flattened input position (h*W + w) of each window's max
+    n, c, h, w = x.shape
+    hw = torch.arange(h * w, dtype=torch.float32, device=x.device)
+    hw = hw.reshape(1, 1, h, w).expand(x.shape)
+    px = pool_windows(x.detach(), dims, ks, st, mask_pairs, float("-inf"))
+    pi = pool_windows(hw, dims, ks, st, mask_pairs, -1.0)
+    px = px.reshape(*px.shape[:4], -1)
+    arg = px.argmax(dim=-1, keepdim=True)
+    mask = torch.gather(pi.reshape(*pi.shape[:4], -1), -1, arg)[..., 0]
+    return out, mask.to(torch.int32)
+
+
+@op()
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, data_format="NCHW"):
+    ks = _pair(kernel_size)
+    st = _pair(stride if stride is not None else kernel_size)
+    dims = _spatial(x, 2, data_format)
+    pairs = _pool_pads(padding, x, dims, ks, st)
+    summed = window_reduce(x, dims, ks, st, pairs, "add")
+    if exclusive and not isinstance(padding, str):
+        counts = window_reduce(torch.ones_like(x), dims, ks, st, pairs,
+                               "add")
+        return summed / counts
+    return summed / float(ks[0] * ks[1])
+
+
+@op()
+def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False):
+    ks = _pair(kernel_size, 1)
+    st = _pair(stride if stride is not None else kernel_size, 1)
+    pairs = _pool_pads(padding, x, [2], ks, st)
+    # the JAX body's window init is finfo.min, not -inf
+    w = pool_windows(x, [2], ks, st, pairs, torch.finfo(x.dtype).min)
+    return w.amax(dim=-1)
+
+
+@op()
+def avg_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True):
+    ks = _pair(kernel_size, 1)
+    st = _pair(stride if stride is not None else kernel_size, 1)
+    pairs = _pool_pads(padding, x, [2], ks, st)
+    return window_reduce(x, [2], ks, st, pairs, "add") / float(ks[0])
+
+
+def _adaptive(x, axes, sizes, reduce):
+    for ax, osz in zip(axes, sizes):
+        isz = x.shape[ax]
+        if isz % osz == 0:
+            k = isz // osz
+            x = reduce(x.unflatten(ax, (osz, k)), ax + 1)
+            continue
+        x = torch.cat([reduce(x.narrow(ax, s, e - s), ax, keep=True)
+                       for s, e in adaptive_bins(isz, osz)], dim=ax)
+    return x
+
+
+def _mean(t, ax, keep=False):
+    return t.mean(dim=ax, keepdim=keep)
+
+
+def _max(t, ax, keep=False):
+    return t.amax(dim=ax, keepdim=keep)
+
+
+@op()
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    return _adaptive(x, _spatial(x, 2, data_format), _pair(output_size),
+                     _mean)
+
+
+@op()
+def adaptive_max_pool2d(x, output_size, return_mask=False):
+    """The max over each adaptive bin; ``return_mask`` is accepted and
+    ignored, as in the JAX body."""
+    return _adaptive(x, [2, 3], _pair(output_size), _max)
+
+
+@op()
+def adaptive_avg_pool1d(x, output_size):
+    return _adaptive(x, [2], (output_size,), _mean)
 
 
 # ---------------- normalization ----------------
@@ -415,6 +567,19 @@ def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-05,
     if data_format != "NCHW":
         out = torch.movedim(out, 1, -1)
     return out
+
+
+@op()
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0):
+    """``x / (k + alpha · mean of the squares over a window of ``size``
+    channels) ** beta``, the window padded by ``size // 2`` before and
+    ``size - 1 - size // 2`` after."""
+    sq = x.square()
+    half = size // 2
+    pad = [0, 0] * (x.dim() - 2) + [half, size - 1 - half]
+    padded = _tF.pad(sq, pad)
+    window = sum(padded.narrow(1, i, x.shape[1]) for i in range(size))
+    return x / torch.pow(k + alpha * window / size, beta)
 
 
 # ---------------- dropout ----------------
@@ -722,6 +887,9 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
 
 
 __all__ = [
+    "adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_max_pool2d",
+    "avg_pool1d", "avg_pool2d", "conv1d", "local_response_norm",
+    "max_pool1d", "max_pool2d",
     "batch_norm", "bilinear", "binary_cross_entropy",
     "binary_cross_entropy_with_logits", "celu", "conv2d", "conv2d_transpose",
     "conv3d", "cosine_similarity", "cross_entropy", "dropout", "dropout2d",

@@ -1,12 +1,14 @@
 """Op library: registry + eager dispatch + Tensor method patching.
 
 Port of ``paddle_tpu/ops/__init__.py`` for the families ported so far
-(creation, math, manipulation, logic, random; ``nn/functional.py``
-registers its own).  The rest wait in ``waiting.py``.  A Tensor operator
-or method whose op waits (``@`` needs ``matmul``) is not patched.
+(creation, math, manipulation, logic, random, linalg, pool;
+``nn/functional.py`` registers its own).  The rest wait in
+``waiting.py``.  A Tensor operator or method whose op waits is not
+patched.
 """
 
-from . import creation, logic, manipulation, math, random  # noqa: F401
+from . import (  # noqa: F401
+    creation, linalg, logic, manipulation, math, pool_ops, random)
 from .dispatch import apply_op  # noqa: F401
 from .registry import OPS, coverage, op, raw  # noqa: F401
 from ..core.tensor import Tensor

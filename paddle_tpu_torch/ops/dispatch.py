@@ -12,13 +12,20 @@ are: raw torch tensors in, raw torch tensors out.  The port's GPT, its
 engine and ``TrainStep`` call ``nn/functional.py`` that way and pay one
 scan of the arguments.
 
+Under ``amp.auto_cast`` the floating Tensor inputs of a call are cast
+by the AMP policy before the body runs (``amp.cast_target``), as the
+JAX dispatch applies ``amp_cast_inputs`` (``paddle_tpu/ops/dispatch.py:
+154-155``); raw torch tensors in a call are not, and a call with no
+Tensor is never cast.
+
 The JAX package's per-signature jit cache (``dispatch.py:72-135``) has
-no counterpart: PyTorch runs eagerly.  Nor has ``amp_cast_inputs`` (O1
-``auto_cast``), which waits for A23b.
+no counterpart: PyTorch runs eagerly.
 """
 
 import torch
 
+from ..amp import _state as _amp_state
+from ..amp import cast_target, cast_to
 from ..core.tensor import Tensor, _wrap
 from ..framework.flags import _flags
 
@@ -31,6 +38,17 @@ def _unwrap(v):
                                             for e in v):
         return [e._data if isinstance(e, Tensor) else e for e in v], True
     return v, False
+
+
+def _unwrap_cast(v, target):
+    """``_unwrap`` with each Tensor's data cast to ``target``."""
+    if isinstance(v, Tensor):
+        return cast_to(v._data, target)
+    if isinstance(v, (list, tuple)) and any(isinstance(e, Tensor)
+                                            for e in v):
+        return [cast_to(e._data, target) if isinstance(e, Tensor) else e
+                for e in v]
+    return v
 
 
 def _wrap_out(o):
@@ -61,6 +79,11 @@ def apply_op(name, fn, args, kwargs):
             found |= hit
     if not found:
         return fn(*args, **kwargs)
+    if _amp_state.enabled:
+        target = cast_target(name)
+        if target is not None:
+            targs = [_unwrap_cast(a, target) for a in args]
+            tkw = {k: _unwrap_cast(v, target) for k, v in kwargs.items()}
     out = fn(*targs, **tkw)
     if _flags["FLAGS_check_nan_inf"]:
         _check_nan_inf(name, out)

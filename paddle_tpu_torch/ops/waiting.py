@@ -4,13 +4,6 @@ package's op family they wait in (ROADMAP A23b).  Every name of
 (``tests/test_torch_op_sweep.py``)."""
 
 WAITING = {
-    "linalg": (  # 30
-        "addmm", "bincount", "bmm", "cholesky", "cholesky_solve", "cross",
-        "det", "dist", "dot", "eig", "eigh", "eigvals", "eigvalsh", "einsum",
-        "histogram", "inverse", "lstsq", "lu", "matmul", "matrix_power",
-        "matrix_rank", "multi_dot", "mv", "norm", "qr", "slogdet", "solve",
-        "svd", "trace", "triangular_solve",
-    ),
     "misc": (  # 68
         "accuracy", "add_n", "all_gather", "all_reduce", "assign_out_",
         "assign_value", "assign_value_", "auc", "batch_norm_", "bce_loss",
@@ -54,10 +47,6 @@ WAITING = {
     "seq": (  # 8
         "edit_distance", "frame", "gather_tree", "overlap_add", "rnn",
         "viterbi_decode", "warpctc", "warprnnt",
-    ),
-    "pool": (  # 7
-        "max_pool2d_with_index", "max_pool3d_with_index", "maxpool", "pool2d",
-        "pool3d", "unpool", "unpool3d",
     ),
     "sparse": (  # 6
         "coalesce", "sparse_coo_tensor", "to_dense", "to_sparse_coo",

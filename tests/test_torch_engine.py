@@ -37,6 +37,13 @@ import paddle_tpu.ops.schema as jax_schema
 import paddle_tpu.ops.schema_compat as jax_schema_compat
 import paddle_tpu.sim.clock as jax_clock
 import paddle_tpu.sim.workloads as jax_workloads
+import paddle_tpu.hapi.callbacks as jax_callbacks
+import paddle_tpu.io.dataset as jax_dataset
+import paddle_tpu.io.sampler as jax_sampler
+import paddle_tpu.linalg as jax_linalg_ns
+import paddle_tpu.nn.pooling as jax_pooling
+import paddle_tpu.vision.models.resnet as jax_resnet
+import paddle_tpu.vision.models.vit as jax_vit
 from paddle_tpu.inference.llm import LLMEngine as JaxEngine
 from paddle_tpu.inference.llm.sampling import (
     apply_logits_pipeline as jax_pipeline,
@@ -68,6 +75,13 @@ import paddle_tpu_torch.ops.schema as port_schema
 import paddle_tpu_torch.ops.schema_compat as port_schema_compat
 import paddle_tpu_torch.sim.clock as port_clock
 import paddle_tpu_torch.sim.workloads as port_workloads
+import paddle_tpu_torch.hapi.callbacks as port_callbacks
+import paddle_tpu_torch.io.dataset as port_dataset
+import paddle_tpu_torch.io.sampler as port_sampler
+import paddle_tpu_torch.linalg as port_linalg_ns
+import paddle_tpu_torch.nn.pooling as port_pooling
+import paddle_tpu_torch.vision.models.resnet as port_resnet
+import paddle_tpu_torch.vision.models.vit as port_vit
 from paddle_tpu_torch.models.gpt import gpt_tiny
 
 ENGINE = dict(block_size=8, max_batch=4, token_budget=16)
@@ -405,7 +419,11 @@ def test_default_device_needs_cuda(models, monkeypatch):
     (jax_workloads, port_workloads), (jax_clock, port_clock),
     (jax_flags, port_flags), (jax_schema, port_schema),
     (jax_schema_compat, port_schema_compat),
-    (jax_inventory, port_inventory)])
+    (jax_inventory, port_inventory),
+    (jax_pooling, port_pooling), (jax_linalg_ns, port_linalg_ns),
+    (jax_vit, port_vit), (jax_resnet, port_resnet),
+    (jax_dataset, port_dataset), (jax_sampler, port_sampler),
+    (jax_callbacks, port_callbacks)])
 def test_host_modules_are_verbatim_copies(jax_mod, port_mod):
     assert inspect.getsource(port_mod) == inspect.getsource(jax_mod)
 

@@ -64,6 +64,16 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import paddle_tpu_torch.nn.transformer, paddle_tpu_torch.nn.common\n"
         "import paddle_tpu_torch.models.bert, paddle_tpu_torch.framework_io\n"
         "import paddle_tpu_torch.autograd.py_layer\n"
+        "import paddle_tpu_torch.ops.linalg, paddle_tpu_torch.ops.pool_ops\n"
+        "import paddle_tpu_torch.linalg, paddle_tpu_torch.distributed\n"
+        "import paddle_tpu_torch.nn.conv, paddle_tpu_torch.nn.pooling\n"
+        "import paddle_tpu_torch.nn.norm, paddle_tpu_torch.metric\n"
+        "import paddle_tpu_torch.io, paddle_tpu_torch.io.dataloader\n"
+        "import paddle_tpu_torch.io.device_prefetch\n"
+        "import paddle_tpu_torch.hapi, paddle_tpu_torch.hapi.model\n"
+        "import paddle_tpu_torch.hapi.flops, paddle_tpu_torch.hapi.callbacks\n"
+        "import paddle_tpu_torch.vision, paddle_tpu_torch.vision.models\n"
+        "import paddle_tpu_torch.vision.transforms\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.'))\n"

@@ -532,3 +532,42 @@ def test_killed_worker_is_pool_lost_without_hang(models, spawned):
     assert time.perf_counter() - t0 < tpmod.GROUP_TIMEOUT_S
     assert eng._tp.closed
     assert not any(p.is_alive() for p in eng._tp.processes)
+
+
+def test_wait_on_a_collective_sees_a_dead_worker_at_once():
+    """Rank 0's wait on a collective that never completes (a dead peer
+    whose socket never fails it) ends as soon as a worker has exited:
+    the channel raises RankLostError (after ``on_lost``) well inside
+    the group timeout, and a wait that completes returns at once."""
+    class Work:
+        def __init__(self, done):
+            self.done, self.waited = done, False
+
+        def is_completed(self):
+            return self.done
+
+        def wait(self):
+            self.waited = True
+
+    class Group:
+        def __init__(self, work):
+            self.work = work
+
+        def broadcast(self, tensors, opts):
+            return self.work
+
+    ch = tpmod._Channel.__new__(tpmod._Channel)
+    ch.rank, ch.tp, ch.bcast_s, ch.bcasts = 0, 2, 0.0, 0
+    lost = []
+    ch.on_lost = lambda: lost.append(True)
+    exits = iter([None, None, "worker tp-rank-1 (exit code -9)"])
+    ch.watch = lambda: next(exits)
+    ch.ctrl = Group(Work(done=False))
+    t0 = time.perf_counter()
+    with pytest.raises(tpmod.RankLostError, match="exit code -9"):
+        ch.bcast(torch.zeros(4, dtype=torch.int64))
+    assert time.perf_counter() - t0 < 1.0 and lost == [True]
+    done = Work(done=True)
+    ch.ctrl = Group(done)
+    ch.bcast(torch.zeros(4, dtype=torch.int64))
+    assert done.waited and ch.bcasts == 1
