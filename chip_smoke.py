@@ -17,6 +17,8 @@ one NVIDIA GPU.
                                            # for comparing trees
     python3 chip_smoke.py eager            # only the eager Paddle API
                                            # phase (no contract line)
+    python3 chip_smoke.py ops              # only the op-surface phase
+                                           # (ends with the contract line)
 
 Run from the root of a checkout on a machine with a CUDA GPU and the
 CUDA toolkit.  Phases, each printing its own lines; any failure raises
@@ -221,6 +223,19 @@ and the script exits non-zero:
               the ResNet-50 fit (3 + 5 steps, BatchNorm statistics),
               ``evaluate`` with ``Accuracy``, ``predict`` and a
               ``save``/``load`` round trip, logits bitwise.
+13. ops    — the rest of the op surface (``ops_phase``; ``python3
+              chip_smoke.py ops`` runs it alone): B2/B3 through
+              ``flash_attn`` (GPT-124M's 8 x 1024 x 12 x 64 bf16, causal),
+              ``fused_multi_head_attention`` (BERT-base 8 x 512 x 768 bf16)
+              and ``memory_efficient_attention``, each against the same
+              call on the kernels' plain versions, with its launches;
+              ``Lamb`` on the eager BERT-base step and ``Momentum`` on
+              ResNet-50's ``Model.fit`` (O1, batch 64), one step's update
+              held to the plain rule within 1e-6, ms a step and the
+              optimizer's share of device time; every op of the A23b-2
+              families once on the card against the port's CPU output;
+              ``nms``, ``roi_align``, ``deformable_conv``, ``warpctc``
+              and ``fft_r2c`` timed at their users' sizes.
 
 The launches in the ``kernels`` line are those of each kernel's main
 path, each run with the counts at 0 just before and read just after:
@@ -232,7 +247,8 @@ burst, the int8 tier run, the int8 fleet runs and the int8
 tensor-parallel run on every rank (summed) for its int8 twin, the FMT and Llama decode runs (summed) for the decode
 kernel, the timed training steps for the others, to which the eager
 BERT-base timed steps add B4a's and B4b's launches and its eval forward
-B2's and B4a's, and the ViT-B/16 fit B2's, B3's, B4a's and B4b's.  The second-to-last
+B2's and B4a's, the ViT-B/16 fit B2's, B3's, B4a's and B4b's, and the
+op surface's attention entry points B2's and B3's.  The second-to-last
 line is that JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  The script imports only torch, numpy and the port.
 """
@@ -2926,17 +2942,22 @@ def _host_split(eng, steps, step_parts=_STEP_PARTS):
     return out
 
 
+# the ``record_function`` range the ops phase puts around ``opt.step``;
+# its device-side row is the range's span, not a kernel
+OPT_RANGE = "optimizer.step"
+
+
 def _device_profile(prof, steps, wall_ms):
     """Device ms per step, its share of the unprofiled wall ms per step,
     and the device ops that take the most time, from a torch.profiler
     window of ``steps`` steps.  Only device-side entries (kernels,
     memcpy, memset) count: an operator's own row would count its
-    kernels a second time."""
+    kernels a second time, and a range's device row its span."""
     from torch.autograd import DeviceType
 
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
+              and e.self_device_time_total > 0 and e.key != OPT_RANGE]
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     rows = {}
@@ -4614,11 +4635,12 @@ def _f32_plain_flash(calls):
     return route
 
 
-def _fit(dev, smi, label, model, steps, seed):
+def _fit(dev, smi, label, model, steps, seed, make_opt=None):
     """``Model.fit`` over a 4-worker loader under O1 for ``warmup +
     timed`` steps, the main path (counts reset just before, read just
-    after); then one profiled ``train_batch``.  Returns (launches,
-    fields for the line, the hapi Model, a held-out batch)."""
+    after); then one profiled ``train_batch``.  The optimizer is
+    ``make_opt(parameters)``, AdamW(1e-4) by default.  Returns
+    (launches, fields for the line, the hapi Model, a held-out batch)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4628,9 +4650,10 @@ def _fit(dev, smi, label, model, steps, seed):
     warmup, timed = steps
     n = (warmup + timed) * VIT_BATCH
     hapi = paddle.Model(model)
-    hapi.prepare(paddle.optimizer.AdamW(learning_rate=1e-4,
-                                        parameters=model.parameters()),
-                 paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    opt = (make_opt(model.parameters()) if make_opt is not None
+           else paddle.optimizer.AdamW(learning_rate=1e-4,
+                                       parameters=model.parameters()))
+    hapi.prepare(opt, paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
     loader = _timed_loader(_image_dataset(n, seed), batch_size=VIT_BATCH,
                            shuffle=True, num_workers=4, drop_last=True)
     loader.waits.clear()
@@ -4659,6 +4682,9 @@ def _fit(dev, smi, label, model, steps, seed):
             hapi.train_batch([held[0]], [held[1]])
         torch.cuda.synchronize(dev)
     prof_fields = _device_profile(prof, 1, ms)
+    if make_opt is not None:
+        prof_fields["optimizer_device_share"] = _range_share(prof,
+                                                             OPT_RANGE)
     fields = dict(card=smi, model=label, amp="O1 bf16",
                   loader="DataLoader(batch_size=64, shuffle=True, "
                   "num_workers=4), ToTensor + Normalize in the workers",
@@ -6061,6 +6087,778 @@ def dispatch_phase(dev, smi, window=16, steps=5, repeats=7):
                                       - np.mean(turns["wrapper"])))
 
 
+# ------------------------------------------------------------ the op surface --
+# The op families of ROADMAP A23b-2: every op they register is called once
+# on the card against the port's own CPU output (``ops`` phase).
+OPS_FAMILIES = ("misc_ops", "vision_ops", "optim_ops", "fused_ops", "seq_ops",
+                "sparse_ops", "graph_ops", "conv_extra", "fft_ops")
+# left out of the card check: a host op over Pillow, which the card's
+# machine lacks, and the collectives, which wait for distributed (A23b-6)
+OPS_LEFT_OUT = ("decode_jpeg", "all_gather", "all_reduce", "broadcast",
+                "p_recv", "p_recv_array", "reduce", "reduce_scatter")
+# random ops: a generator's stream differs between the CPU and the card,
+# so each is held by shape, dtype and range [lo, hi]
+OPS_RANDOM = {"uniform_inplace": (-1.0, 1.0), "exponential_": (0.0, np.inf),
+              "dirichlet": (0.0, 1.0), "truncated_gaussian_random":
+              (-2.0, 2.0), "gumbel_softmax": (0.0, 1.0),
+              "class_center_sample": (-1, 9),
+              "weighted_sample_neighbors": (0, 3)}
+OPS_TOL = 1e-5          # the CPU sweep's default (rtol 1e-5, atol 1e-6)
+OPS_ATTN_TOL = 1e-4     # the kernel against its plain version, f32
+
+
+def _op_cases():
+    """Seeded numpy inputs for every newly registered op but
+    ``OPS_LEFT_OUT``: name -> (args, kwargs, tolerance)."""
+    rng = np.random.RandomState(2026)
+    f32 = np.float32
+
+    def u(*shape, lo=-1.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype(f32)
+
+    def pos(*shape, lo=0.1, hi=2.0):
+        return rng.uniform(lo, hi, shape).astype(f32)
+
+    def ints(hi, *shape, dtype=np.int64):
+        return rng.randint(0, hi, shape).astype(dtype)
+
+    def a(v, dtype=f32):
+        return np.array(v, dtype)
+
+    def layer(c=16, heads=2, ffn=32):
+        hd = c // heads
+        return [[u(3, heads, hd, c)], [u(3, heads, hd)], [u(c, c)], [u(c)],
+                [u(c, ffn)], [u(ffn)], [u(ffn, c)], [u(c)],
+                [pos(c)], [u(c)], [pos(c)], [u(c)]]
+
+    spd = u(3, 3)
+    lu_in = u(4, 4) + 4 * np.eye(4, dtype=f32)
+    import torch
+    lu, piv = torch.linalg.lu_factor(torch.from_numpy(lu_in))
+    anchors = np.sort(u(18, 2, 2, lo=2, hi=22), axis=1)
+    boxes = a([[[0, 0, 2, 2], [1, 1, 3, 3], [5, 5, 6, 6]]])
+    adam = (u(4), u(4), a(0.1), np.zeros(4, f32), np.zeros(4, f32),
+            a([0.9]), a([0.999]))
+    lists = ([u(4)], [u(4)], a(0.1), [np.zeros(4, f32)], [np.zeros(4, f32)],
+             [a([0.9])], [a([0.999])])
+    bn = (u(2, 3, 4, 4), np.zeros(3, f32), np.ones(3, f32), pos(3), u(3))
+    T = OPS_TOL
+    c = {
+        # misc
+        "accuracy": ((pos(4, 3), ints(3, 4, 1), ints(3, 4, 1)), {}),
+        "add_n": (([u(2, 3), u(2, 3), u(2, 3)],), {}),
+        "assign_out_": ((u(2, 3), u(2, 3)), {}),
+        "assign_value": (([2, 2], "float32", [1., 2., 3., 4.]), {}),
+        "assign_value_": ((u(4), [1., 2., 3., 4.]), {}),
+        "auc": ((u(6, 2, lo=0, hi=1), ints(2, 6, 1),
+                 np.zeros((1, 4096), np.int64),
+                 np.zeros((1, 4096), np.int64)), {}),
+        "batch_norm_": (bn, {}),
+        "bce_loss": ((u(3, 4, lo=0.1, hi=0.9), ints(2, 3, 4, dtype=f32)), {}),
+        "cast": ((u(2, 3, lo=-3, hi=3), "int32"), {}),
+        "class_center_sample": ((ints(3, 8), 10, 5), {}),
+        "clip_by_norm": ((u(3, 4), 0.5), {}),
+        "coalesce_tensor": (([u(3, 4), u(2)],), {}),
+        "copy_to": ((u(3, 4),), {}),
+        "cross_entropy_with_softmax": ((u(4, 5), ints(5, 4, 1)), {}),
+        "dirichlet": ((np.full((100, 3), 2.0, f32),), {}),
+        "divide_scalar": ((u(3, 4),), {"scalar": 2.0}),
+        "dropout": ((u(100),), {"p": 0.5, "training": False}),
+        "elementwise_pow": ((pos(3, 4), u(3, 4)), {}),
+        "exponential_": ((np.zeros(500, f32),), {"lam": 2.0}),
+        "fill": ((u(2, 3), 1.5), {}),
+        "fill_diagonal_tensor": ((u(3, 3), u(3)), {}),
+        "frobenius_norm": ((u(3, 4),), {}),
+        "full_": ((u(2, 3), 7.0), {}),
+        "full_batch_size_like": ((u(4, 3), [-1, 5], 2.5), {}),
+        "gumbel_softmax": ((u(50, 4),), {}),
+        "hsigmoid_loss": ((u(3, 8), ints(6, 3), u(5, 8)),
+                          {"num_classes": 6}),
+        "huber_loss": ((u(3, 4), np.zeros((3, 4), f32)), {"delta": 1.0}),
+        "i0e": ((u(3, 4),), {}),
+        "i1e": ((u(3, 4),), {}),
+        "kldiv_loss": ((u(3, 4, lo=-2, hi=0), pos(3, 4, lo=0.1, hi=1.0)),
+                       {"reduction": "none"}),
+        "log_loss": ((u(4, 1, lo=0.1, hi=0.9), ints(2, 4, 1, dtype=f32)), {}),
+        "logsigmoid": ((u(3, 4),), {}),
+        "lu_unpack": ((lu.numpy(), piv.numpy()), {}),
+        "margin_cross_entropy": ((u(4, 5), ints(5, 4)),
+                                 {"margin1": 1.0, "margin2": 0.0,
+                                  "margin3": 0.0, "scale": 1.0}),
+        "masked_matmul": ((u(3, 4), u(4, 3), ints(2, 3, 3, dtype=f32)), {}),
+        "matrix_rank_tol": ((spd @ spd.T + np.eye(3, dtype=f32),), {}),
+        "mean_all": ((u(3, 4),), {}),
+        "merge_selected_rows": ((a([1, 1, 2], np.int64), u(3, 4)), {}),
+        "multiplex": (([u(3, 4), u(3, 4)], ints(2, 3, 1, dtype=np.int32)),
+                      {}),
+        "nextafter": ((u(3, 4), u(3, 4)), {}),
+        "npu_identity": ((u(3, 4),), {}),
+        "p_norm": ((u(3, 4),), {"porder": 2.0, "axis": 1}),
+        "pad3d": ((u(1, 2, 3, 3, 3), [1, 1, 0, 2, 1, 0]), {}),
+        "renorm": ((u(3, 4),), {"p": 2.0, "axis": 0, "max_norm": 1.0}),
+        "repeat_interleave_with_tensor_index":
+            ((u(3), a([1, 2, 1], np.int32)), {"axis": 0}),
+        "reverse": ((u(3, 4), [0]), {}),
+        "rrelu": ((u(20),), {"training": False}),
+        "shape": ((u(3, 4),), {}),
+        "shard_index": ((a([[1], [6], [11]], np.int64), 12, 3, 0), {}),
+        "share_buffer": ((u(3, 4), u(2)), {}),
+        "sigmoid_cross_entropy_with_logits":
+            ((u(3, 4), ints(2, 3, 4, dtype=f32)), {}),
+        "spectral_norm": ((u(4, 5), u(4), u(5)), {"power_iters": 2}),
+        "split_with_num": ((u(6, 3), 2), {"axis": 0}),
+        "squared_l2_norm": ((u(3, 4),), {}),
+        "sync_batch_norm_": (bn, {}),
+        "tanh_shrink": ((u(3, 4),), {}),
+        "thresholded_relu": ((u(3, 4, lo=-2, hi=2),), {}),
+        "trans_layout": ((u(2, 3, 4), [2, 0, 1]), {}),
+        "tril_triu": ((u(3, 4),), {"lower": True}),
+        "truncated_gaussian_random": (([500],), {}),
+        "uniform_inplace": ((u(500),), {}),
+        # vision
+        "affine_grid": ((a([[[1, 0, 0], [0, 1, 0]]]), [1, 1, 4, 4]), {}),
+        "bicubic_interp": ((u(1, 2, 4, 4),), {"size": [8, 8]}),
+        "bilinear_interp": ((u(1, 2, 4, 4),), {"size": [8, 8]}),
+        "box_coder": ((a([[0, 0, 2, 2]]), a([[0.1, 0.1, 0.2, 0.2]]),
+                       a([[1, 1, 3, 3]])),
+                      {"code_type": "decode_center_size"}),
+        "channel_shuffle": ((u(1, 4, 2, 2), 2), {}),
+        "deformable_conv": ((u(1, 2, 5, 5), u(1, 18, 5, 5, lo=-0.1, hi=0.1),
+                             u(3, 2, 3, 3)), {"paddings": (1, 1)}),
+        "distribute_fpn_proposals":
+            ((a([[0, 0, 10, 10], [0, 0, 200, 200]]),),
+             {"rois_num": a([2], np.int32)}),
+        "fold": ((u(1, 8, 9), [4, 4], [2, 2]), {}),
+        "generate_proposals":
+            ((pos(1, 2, 3, 3, lo=0.1, hi=0.9), u(1, 8, 3, 3, lo=-0.1,
+                                                 hi=0.1),
+              a([[24, 24]]), np.stack([anchors[:, 0, 0], anchors[:, 0, 1],
+                                       anchors[:, 1, 0], anchors[:, 1, 1]],
+                                      1), np.full((18, 4), 0.1, f32)),
+             {"pre_nms_top_n": 5, "post_nms_top_n": 3}),
+        "grid_sample": ((u(1, 2, 4, 4), u(1, 3, 3, 2, lo=-0.9, hi=0.9)), {}),
+        "linear_interp": ((u(1, 2, 4),), {"size": [8],
+                                          "data_format": "NCW"}),
+        "matrix_nms": ((boxes, np.stack([np.zeros((1, 3), f32),
+                                         a([[0.9, 0.8, 0.7]])], 1)),
+                       {"post_threshold": 0.05, "nms_top_k": 5,
+                        "keep_top_k": 5}),
+        "multiclass_nms3": ((boxes, a([[[0.9, 0.3, 0.6],
+                                        [0.2, 0.8, 0.1]]])),
+                            {"score_threshold": 0.05, "nms_top_k": 5,
+                             "keep_top_k": 9, "nms_threshold": 0.1,
+                             "background_label": -1}),
+        "nearest_interp": ((u(1, 2, 4, 4),), {"size": [8, 8],
+                                              "align_corners": False}),
+        "nms": ((a([[0, 0, 1, 1], [0.01, 0, 1.01, 1], [2, 2, 3, 3]]),),
+                {"iou_threshold": 0.5}),
+        "prior_box": ((u(1, 2, 4, 4), u(1, 3, 16, 16), [2.0]),
+                      {"max_sizes": [4.0]}),
+        "psroi_pool": ((u(1, 8, 6, 6), a([[0.5, 0.5, 4.5, 4.5]])),
+                       {"boxes_num": a([1], np.int32), "pooled_height": 2,
+                        "pooled_width": 2, "output_channels": 2}),
+        "roi_align": ((u(1, 2, 6, 6), a([[0, 0, 4, 4]])),
+                      {"boxes_num": a([1], np.int32), "pooled_height": 2,
+                       "pooled_width": 2}),
+        "roi_pool": ((u(1, 2, 6, 6), a([[0, 0, 4, 4]])),
+                     {"boxes_num": a([1], np.int32), "pooled_height": 2,
+                      "pooled_width": 2}),
+        "trilinear_interp": ((u(1, 1, 3, 3, 3),),
+                             {"size": [6, 6, 6], "data_format": "NCDHW"}),
+        "yolo_box": ((u(1, 14, 2, 2), a([[16, 16]], np.int32),
+                      [1, 2, 3, 4]), {"class_num": 2,
+                                      "downsample_ratio": 8}),
+        "yolo_loss": ((u(1, 14, 2, 2), u(1, 2, 4, lo=0.2, hi=0.8),
+                       ints(2, 1, 2, dtype=np.int32)),
+                      {"anchors": [1, 2, 3, 4], "anchor_mask": [0, 1],
+                       "class_num": 2, "downsample_ratio": 8}),
+        # optim
+        "adadelta_": ((u(4), u(4), np.zeros(4, f32), np.zeros(4, f32)), {}),
+        "adagrad_": ((u(4), u(4), np.zeros(4, f32), a(0.1)), {}),
+        "adam_": (adam, {}),
+        "adamax_": ((u(4), u(4), a(0.1), np.zeros(4, f32), np.zeros(4, f32),
+                     a([0.9])), {}),
+        "adamw_": (adam, {}),
+        "average_accumulates_": ((u(4), np.zeros(4, f32), np.zeros(4, f32),
+                                  np.zeros(4, f32), np.zeros(1, np.int64),
+                                  np.zeros(1, np.int64),
+                                  np.zeros(1, np.int64)), {}),
+        "check_finite_and_unscale_": (([u(4), u(3)], a(2.0)), {}),
+        "fused_adam_": (lists, {}),
+        "lamb_": (adam, {}),
+        "merged_adam_": (lists, {}),
+        "merged_momentum_": (([u(4)], [u(4)], [np.zeros(4, f32)], a(0.1)),
+                             {}),
+        "momentum_": ((u(4), u(4), np.zeros(4, f32), a(0.1)), {"mu": 0.9}),
+        "rmsprop_": ((u(4), np.zeros(4, f32), u(4), np.zeros(4, f32),
+                      a(0.1)), {}),
+        "sgd_": ((u(4), a(0.1), u(4)), {}),
+        "update_loss_scaling_": (([u(4)], a(False, bool), a(32768.0),
+                                  a([5], np.int32), a([0], np.int32)), {}),
+        # fused (the flash route needs a head_dim the kernels take: 8)
+        "add_act_xpu": ((u(3, 4), u(3, 4)), {"act_type": "gelu"}),
+        "conv2d_xpu": ((u(2, 3, 6, 6), u(4, 3, 3, 3), u(4)),
+                       {"paddings": (1, 1), "act_type": "relu"}),
+        "embedding_with_eltwise_add_xpu":
+            (([ints(5, 2, 2), ints(6, 2, 2)], [u(5, 6), u(6, 6)]), {}),
+        "fc_xpu": ((u(3, 4), u(4, 5), u(5)), {"act_type": "tanh"}),
+        "flash_attn": ((u(1, 8, 2, 8), u(1, 8, 2, 8), u(1, 8, 2, 8)), {}),
+        "flash_attn_unpadded": ((u(8, 2, 8), u(8, 2, 8), u(8, 2, 8),
+                                 a([0, 5, 8], np.int32),
+                                 a([0, 5, 8], np.int32), 5, 5), {}),
+        "fused_attention": ((u(1, 4, 16), u(3, 2, 8, 16), u(3, 2, 8),
+                             u(16, 16), u(16)),
+                            {"num_heads": 2, "ln2_scale": pos(16),
+                             "ln2_bias": u(16)}),
+        "fused_dropout_add": ((u(3, 4), u(3, 4)), {"p": 0.0}),
+        "fused_linear_param_grad_add": ((u(4, 3), u(4, 5)), {}),
+        "fused_multi_transformer_xpu": ((u(1, 4, 16), *layer()),
+                                        {"num_heads": 2}),
+        "generate_sequence_xpu": ((u(3, 4),), {"axis": 1}),
+        "memory_efficient_attention": ((u(1, 8, 2, 8), u(1, 8, 2, 8),
+                                        u(1, 8, 2, 8)), {}),
+        "multi_encoder_xpu": ((u(2, 4, 16), *layer()), {"num_heads": 2}),
+        "yolo_box_xpu": ((u(2, 14, 3, 3), a([[96, 96], [64, 80]], np.int32),
+                          [10, 13, 16, 30], 2), {}),
+        # seq
+        "edit_distance": ((a([[1, 2, 3, 0]], np.int64),
+                           a([[1, 3, 3, 2]], np.int64)), {}),
+        "frame": ((u(16), 4, 2), {}),
+        "gather_tree": ((ints(5, 3, 2, 2), ints(2, 3, 2, 2)), {}),
+        "overlap_add": ((u(4, 7), 2), {}),
+        "rnn": ((u(3, 2, 4), [u(1, 2, 8), u(1, 2, 8)],
+                 [u(32, 4), u(32, 8), u(32), u(32)]),
+                {"hidden_size": 8, "mode": "LSTM", "is_test": True}),
+        "viterbi_decode": ((u(1, 3, 4), u(4, 4), a([3], np.int64)),
+                           {"include_bos_eos_tag": False}),
+        "warpctc": ((np.log(pos(5, 1, 4, lo=0.1, hi=1.0)),
+                     a([[1, 2]], np.int32), a([5], np.int64),
+                     a([2], np.int64)), {}),
+        "warprnnt": ((np.log(pos(1, 4, 3, 3, lo=0.1, hi=1.0)),
+                      a([[1, 2]], np.int32), a([4], np.int32),
+                      a([2], np.int32)), {}),
+        # sparse
+        "coalesce": ((a([[0, 0, 0], [1, 1, 0]], np.int64), a([1., 2., 4.])),
+                     {"shape": [2, 2]}),
+        "sparse_coo_tensor": ((a([1., 2.]), a([[0, 1], [1, 0]], np.int64),
+                               [2, 2]), {}),
+        "to_dense": ((a([[0, 1], [1, 0]], np.int64), a([1., 2.]), [2, 2]),
+                     {}),
+        "to_sparse_coo": ((a([[1, 0], [0, 2]]),), {"sparse_dim": 2}),
+        "to_sparse_csr": ((a([[1, 0], [0, 2]]),), {}),
+        "values": ((a([[0, 1], [1, 0]], np.int64), a([1., 2.])), {}),
+        # graph
+        "reindex_graph": ((a([0, 5, 9], np.int64), a([5, 9, 0], np.int64),
+                           a([2, 1], np.int64)), {}),
+        "segment_pool": ((u(4, 3), a([0, 0, 1, 1], np.int32)), {}),
+        "send_u_recv": ((u(4, 3), a([0, 1, 2], np.int32),
+                         a([1, 2, 3], np.int32)), {}),
+        "send_ue_recv": ((u(4, 3), u(3, 3), a([0, 1, 2], np.int32),
+                          a([1, 2, 3], np.int32)), {}),
+        "send_uv": ((u(4, 3), u(4, 3), a([0, 1], np.int32),
+                     a([1, 2], np.int32)), {}),
+        "weighted_sample_neighbors": ((a([1, 2, 0, 2], np.int64),
+                                       a([0, 2, 4], np.int64), pos(4),
+                                       a([0, 1], np.int64)),
+                                      {"sample_size": 1}),
+        # conv_extra
+        "conv3d_transpose": ((u(1, 2, 3, 3, 3), u(2, 2, 2, 2, 2)), {}),
+        "depthwise_conv2d": ((u(1, 2, 5, 5), u(2, 1, 3, 3)),
+                             {"stride": 1, "padding": 0, "groups": 2}),
+        "depthwise_conv2d_transpose": ((u(1, 2, 4, 4), u(2, 1, 3, 3)),
+                                       {"groups": 2}),
+        # fft
+        "fft_c2c": (((u(8) + 1j * u(8)).astype(np.complex64), [0]), {}),
+        "fft_c2r": ((np.fft.rfft(u(8)).astype(np.complex64), [0]), {}),
+        "fft_r2c": ((u(8), [0]), {}),
+    }
+    loose = {"bce_loss": 1e-4, "kldiv_loss": 1e-4, "log_loss": 1e-4,
+             "sigmoid_cross_entropy_with_logits": 1e-4, "grid_sample": 1e-4,
+             "flash_attn": OPS_ATTN_TOL, "memory_efficient_attention":
+             OPS_ATTN_TOL, "fused_attention": OPS_ATTN_TOL,
+             "multi_encoder_xpu": OPS_ATTN_TOL,
+             "fused_multi_transformer_xpu": OPS_ATTN_TOL,
+             "flash_attn_unpadded": OPS_ATTN_TOL}
+    return {n: (args, kw, loose.get(n, T)) for n, (args, kw) in c.items()}
+
+
+def _new_ops():
+    """The inventory ops registered by the A23b-2 families, less
+    ``OPS_LEFT_OUT``."""
+    from paddle_tpu_torch.ops.inventory import OP_INVENTORY
+    from paddle_tpu_torch.ops.registry import OPS
+
+    mods = tuple(f"paddle_tpu_torch.ops.{m}" for m in OPS_FAMILIES)
+    out = []
+    for name in OP_INVENTORY:
+        od = OPS[name]
+        fn = od.body if od.body is not None else od.user_fn
+        if fn.__module__ in mods and name not in OPS_LEFT_OUT:
+            out.append(name)
+    return sorted(out)
+
+
+def _on(paddle, device, args, kwargs):
+    """The case's numpy arrays (alone or in a list) as Tensors on
+    ``device``, everything else as it is."""
+    paddle.set_device(device)
+
+    def wrap(v):
+        if isinstance(v, np.ndarray):
+            return paddle.to_tensor(v)
+        if isinstance(v, list) and v and all(isinstance(e, np.ndarray)
+                                             for e in v):
+            return [paddle.to_tensor(e) for e in v]
+        return v
+    return [wrap(v) for v in args], dict(kwargs)
+
+
+def _leaves(out):
+    import torch
+
+    if isinstance(out, (list, tuple)):
+        return [x for o in out for x in _leaves(o)]
+    data = getattr(out, "_data", out)
+    if isinstance(data, torch.Tensor):
+        return [data.detach().cpu()]
+    return []
+
+
+def _op_on(paddle, name, case, device):
+    from paddle_tpu_torch.ops.registry import OPS
+
+    args, kwargs, _ = case
+    targs, tkw = _on(paddle, device, args, kwargs)
+    return _leaves(OPS[name].user_fn(*targs, **tkw))
+
+
+def _op_verdict(name, got, want, tol):
+    """(ok, worst |err|) of the card's outputs against the CPU's."""
+    import torch
+
+    if len(got) != len(want):
+        return False, f"{len(got)} outputs, CPU {len(want)}"
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return False, f"{tuple(g.shape)} {g.dtype} vs CPU " \
+                f"{tuple(w.shape)} {w.dtype}"
+        if name in OPS_RANDOM:
+            lo, hi = OPS_RANDOM[name]
+            gf = g.double()
+            if g.numel() and (float(gf.min()) < lo - 1e-6
+                              or float(gf.max()) > hi + 1e-6):
+                return False, f"range [{float(gf.min())}, " \
+                    f"{float(gf.max())}] outside [{lo}, {hi}]"
+            continue
+        if g.is_floating_point() or g.is_complex():
+            err = float((g - w).abs().max()) if g.numel() else 0.0
+            worst = max(worst, err)
+            if not torch.allclose(g, w, rtol=tol, atol=tol, equal_nan=True):
+                return False, err
+        elif not torch.equal(g, w):
+            return False, "integer outputs differ"
+    return True, worst
+
+
+def _ops_one_each(paddle, dev, smi):
+    """Every newly registered op once on the card against its CPU
+    output, from ``_op_cases``' inputs."""
+    cases = _op_cases()
+    want_names = _new_ops()
+    if sorted(cases) != want_names:
+        raise RuntimeError(
+            f"op cases {sorted(set(cases) ^ set(want_names))} differ from "
+            f"the registered ops")
+    gpu = f"gpu:{dev.index or 0}"
+    failed, worst = {}, {}
+    for name in want_names:
+        try:
+            want = _op_on(paddle, name, cases[name], "cpu")
+            got = _op_on(paddle, name, cases[name], gpu)
+            ok, err = _op_verdict(name, got, want, cases[name][2])
+        except Exception as e:  # reported, then the phase fails
+            ok, err = False, f"{type(e).__name__}: {e}"
+        if ok:
+            worst[name] = err
+        else:
+            failed[name] = str(err)[:300]
+    paddle.set_device(gpu)
+    top = sorted(worst, key=worst.get)[-5:]
+    say("ops_on_card", card=smi, ops=len(want_names),
+        left_out=list(OPS_LEFT_OUT), random_by_range=sorted(OPS_RANDOM),
+        agree=len(worst), failed=failed,
+        worst_max_abs_err={n: worst[n] for n in top})
+    if failed:
+        raise RuntimeError(f"ops on the card against the CPU: {failed}")
+
+
+def _events_ms(fn, reps=3):
+    """Median ms of ``reps`` calls of ``fn`` by CUDA events, after one
+    call that builds and warms it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return float(np.median(out))
+
+
+def _heavy_ops(paddle, dev, smi):
+    """Five ops at the sizes their users run, timed, no threshold."""
+    from paddle_tpu_torch.ops.registry import OPS
+
+    rng = np.random.RandomState(7)
+    paddle.set_device(f"gpu:{dev.index or 0}")
+
+    def t(a):
+        return paddle.to_tensor(np.ascontiguousarray(a))
+
+    xy = rng.uniform(0, 1000, (2000, 2)).astype(np.float32)
+    wh = rng.uniform(10, 100, (2000, 2)).astype(np.float32)
+    boxes = t(np.concatenate([xy, xy + wh], 1))
+    scores = t(rng.uniform(0, 1, 2000).astype(np.float32))
+    feat = t(rng.uniform(-1, 1, (1, 256, 200, 272)).astype(np.float32))
+    rxy = rng.uniform(0, 1000, (512, 2)).astype(np.float32)
+    rwh = rng.uniform(16, 256, (512, 2)).astype(np.float32)
+    rois = t(np.concatenate([rxy, rxy + rwh], 1))
+    x3 = t(rng.uniform(-1, 1, (2, 256, 50, 68)).astype(np.float32))
+    off = t(rng.uniform(-1, 1, (2, 18, 50, 68)).astype(np.float32))
+    w3 = t(rng.uniform(-0.05, 0.05, (256, 256, 3, 3)).astype(np.float32))
+    logits = t(rng.uniform(-1, 1, (500, 16, 29)).astype(np.float32))
+    labels = t(rng.randint(1, 29, (16, 80)).astype(np.int32))
+    in_len = t(np.full(16, 500, np.int64))
+    lab_len = t(np.full(16, 80, np.int64))
+    sig = t(rng.uniform(-1, 1, (16, 16000)).astype(np.float32))
+    runs = {
+        "nms_2000_boxes": lambda: OPS["nms"].user_fn(boxes, 0.5, scores),
+        "roi_align_512x7x7_on_1x256x200x272": lambda: OPS["roi_align"]
+        .user_fn(feat, rois, pooled_height=7, pooled_width=7,
+                 spatial_scale=0.25, sampling_ratio=2),
+        "deformable_conv_resnet50_stage3_2x256x50x68": lambda:
+        OPS["deformable_conv"].user_fn(x3, off, w3, paddings=(1, 1)),
+        "warpctc_16x500x29_labels_80": lambda: OPS["warpctc"].user_fn(
+            logits, labels, in_len, lab_len),
+        "fft_r2c_16x16000": lambda: OPS["fft_r2c"].user_fn(sig, [1]),
+    }
+    ms = {k: _events_ms(fn) for k, fn in runs.items()}
+    kept = int(runs["nms_2000_boxes"]()[1].item())
+    say("ops_heavy_times", card=smi, ms=ms, nms_kept_of_2000=kept,
+        threshold=None)
+    return ms
+
+
+def _attention_entry_points(paddle, dev, smi):
+    """B2/B3 through the new entry points at full width, each call held
+    to the same call with the flash kernels replaced by their plain
+    versions on f32 copies; B2 and B3 must launch exactly as the calls
+    predict.  The attention outputs are held by ``_parity``'s
+    elementwise rule; ``fused_multi_head_attention``'s output, a
+    LayerNorm of a residual sum rounded to bf16 after f32 projections of
+    the bf16 context, is held as a layer's output, within
+    ``VISION_GRAD_RTOL`` of its norm (one-ulp flips of the context move
+    it by more than the elementwise rule's 1e-2 at a few elements).
+    The gradients are held as the ViT step's are (each within
+    ``VISION_GRAD_RTOL`` of its norm plus ``VISION_GRAD_FLOOR`` of the
+    largest): the plain route's backward reads its own forward's output
+    and lse, which differ from the kernels' by their rounding, so the
+    elementwise rule of the kernel phase, which feeds both backwards the
+    kernel forward's, does not apply (dq of the first causal rows
+    cancels; rel-L2 errors ~2e-4 on the card).  ``flash_attn`` and
+    ``memory_efficient_attention`` take the flash phase's inputs
+    (standard normal).  Returns the launches (counts at 0 before each
+    call)."""
+    import torch
+
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.ops import attention
+    from paddle_tpu_torch.ops.cuda import registry
+
+    rng = np.random.RandomState(16)
+    bf16 = paddle.bfloat16
+
+    def t(shape, scale=None):
+        a = (rng.randn(*shape) if scale is None
+             else rng.uniform(-scale, scale, shape))
+        return paddle.to_tensor(a.astype(np.float32)).astype(bf16)
+
+    def run(fn, inputs, backward):
+        for x in inputs:
+            x.stop_gradient = not backward
+            x.clear_gradient()
+        out = fn(*inputs)
+        res = {"out": out._data.detach().clone()}
+        if backward:
+            dout = torch.from_numpy(np.random.RandomState(3).randn(
+                *out.shape).astype(np.float32)).to(out._data.device,
+                                                   out._data.dtype)
+            out.backward(paddle.to_tensor(dout))
+            res.update({f"d{i}": x.grad._data.clone()
+                        for i, x in enumerate(inputs)})
+        return res
+
+    def by_norm(got, plain, keys):
+        top = max(float(plain[k].float().norm()) for k in keys)
+        return {k: float((got[k].float() - plain[k].float()).norm())
+                / (VISION_GRAD_RTOL * float(plain[k].float().norm())
+                   + VISION_GRAD_FLOOR * top) for k in keys}
+
+    gpt = [t((8, 1024, 12, 64)) for _ in range(3)]
+    bert = [t((8, 512, 768)), t((3, 12, 64, 768), 0.05),
+            t((768, 768), 0.05), t((3, 12, 64), 0.02), t((768,), 0.02),
+            t((768,), 0.1) + 1.0, t((768,), 0.02)]
+    mea = [t((8, 512, 12, 64)) for _ in range(3)]
+    calls = [
+        ("flash_attn", "8x1024x12x64 bf16 causal (GPT-124M training)",
+         lambda q, k, v: paddle.flash_attn(q, k, v, causal=True), gpt,
+         True, False, {"flash_attention_fwd": 1, "flash_attention_bwd": 1}),
+        ("incubate.nn.functional.fused_multi_head_attention",
+         "8x512x768, 12 heads bf16, no mask, training, dropout 0 "
+         "(BERT-base)",
+         lambda x, qkv, lw, qb, lb, s, c: IF.fused_multi_head_attention(
+             x, qkv, lw, qkv_bias=qb, linear_bias=lb, ln_scale=s,
+             ln_bias=c, num_heads=12, training=True, dropout_rate=0.0,
+             attn_dropout_rate=0.0), bert, True, True,
+         {"flash_attention_fwd": 1, "flash_attention_bwd": 1}),
+        ("memory_efficient_attention", "8x512x12x64 bf16, forward",
+         lambda q, k, v: paddle.memory_efficient_attention(q, k, v), mea,
+         False, False, {"flash_attention_fwd": 1, "flash_attention_bwd": 0}),
+    ]
+    launches = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    for name, shape, fn, inputs, backward, layer, want in calls:
+        registry.reset_counts()
+        got = run(fn, inputs, backward)
+        torch.cuda.synchronize(dev)
+        counts = {k: registry.counts()[k] for k in want}
+        with _PlainKernels() as plain_calls:
+            attention.flash_attention_cuda = _f32_plain_flash(plain_calls)
+            plain = run(fn, inputs, backward)
+        report = {"out": _parity(got["out"], plain["out"], OPS_ATTN_TOL)}
+        over = {"out": report["out"][2]}
+        if layer:
+            over = by_norm(got, plain, ["out"])
+            report["out"] = report["out"][:3] + (
+                bool(torch.isfinite(got["out"]).all()),)
+        if backward:
+            over.update(by_norm(got, plain, [k for k in got if k != "out"]))
+        fwd_ms = _events_ms(lambda: fn(*inputs))
+
+        def fwd_bwd():
+            out = fn(*inputs)
+            out.backward(paddle.ones_like(out))
+        both_ms = _events_ms(fwd_bwd) if backward else None
+        for x in inputs:
+            x.clear_gradient()
+        say("ops_attention_entry", card=smi, entry=name, shape=shape,
+            max_abs_err={k: r[0] for k, r in report.items()},
+            err_over_limit=over, launches=counts, expected=want,
+            plain_run_calls=plain_calls, forward_ms=fwd_ms,
+            forward_backward_ms=both_ms)
+        bad = {k: v for k, v in over.items() if not v <= 1.0}
+        bad.update({k: r for k, r in report.items() if not r[3]})
+        if bad or counts != want:
+            raise RuntimeError(f"{name}: kernels against plain, over the "
+                               f"limit {bad}; launches {counts} != {want}")
+        for k, n in counts.items():
+            launches[k] += n
+    return launches
+
+
+class _RuleCheck:
+    """Wraps ``opt.step``: every call runs in a ``record_function``
+    range named ``OPT_RANGE``; the call numbered ``at`` also
+    snapshots each parameter, its gradient as ``step`` will use it
+    (plus the coupled decay) and its state, and holds the update
+    ``step`` makes to ``opt.rule`` from the snapshot."""
+
+    def __init__(self, opt, at=1):
+        self.opt, self.at, self.calls = opt, at, 0
+        self.report = None
+        self._step = opt.step
+        opt.step = self
+
+    def __call__(self):
+        import torch
+        from torch.profiler import record_function
+
+        opt = self.opt
+        check = self.calls == self.at
+        self.calls += 1
+        if check:
+            snap = []
+            wd = float(opt._weight_decay or 0.0) \
+                if not opt._decay_applied_in_rule() else 0.0
+            with torch.no_grad():
+                for item in opt._parameters:
+                    p = item._data
+                    if p.grad is None:
+                        continue
+                    g = p.grad.clone()
+                    if wd:
+                        g = g + wd * p
+                    state = opt._accumulators.get(id(item)) \
+                        or opt._init_state(p)
+                    snap.append((p, p.detach().clone(), g, {
+                        k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                        for k, v in state.items()}))
+            lr = opt.get_lr()
+        with record_function(OPT_RANGE):
+            self._step()
+        if check:
+            worst = 0.0
+            with torch.no_grad():
+                for p, before, g, state in snap:
+                    want = opt.rule(before, g, state, lr)[0]
+                    scale = max(float(want.abs().max()), 1e-30)
+                    worst = max(worst,
+                                float((p - want).abs().max()) / scale)
+            self.report = {"params": len(snap), "worst_rel_err": worst}
+
+
+def _range_share(prof, name):
+    """Device time of the kernels launched inside the ``name`` range
+    (its host row's device total), over all kernel time of the window
+    (the range's own device row, its span, left out)."""
+    from torch.autograd import DeviceType
+
+    rows = prof.key_averages()
+    total = sum(e.self_device_time_total for e in rows
+                if e.device_type == DeviceType.CUDA and e.key != name)
+    mine = sum(e.device_time_total for e in rows
+               if e.device_type == DeviceType.CPU and e.key == name)
+    return mine / total if total else None
+
+
+def _lamb_bert(paddle, dev, smi, warmup=3, steps=5):
+    """``Lamb(lamb_weight_decay=0.01)`` on the eager BERT-base
+    pretraining step (8 x 512, f32): one step's update held to the plain
+    rule, ms a step and the optimizer's share of device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.models.bert import (
+        BertForPretraining,
+        bert_base_config,
+    )
+
+    cfg = bert_base_config()
+    paddle.seed(0)
+    model = BertForPretraining(cfg)
+    opt = paddle.optimizer.Lamb(learning_rate=1e-3, lamb_weight_decay=0.01,
+                                parameters=model.parameters())
+    check = _RuleCheck(opt)
+    (ids, types, mask, mlm, nsp), _ = _bert_batch(cfg, seed=2024)
+
+    def step():
+        loss = model.loss(*model(ids, types, mask), mlm, nsp)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return float(loss)
+
+    losses = [step() for _ in range(warmup)]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(steps)]
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize(dev)
+    fields = _device_profile(prof, 1, ms)
+    share = _range_share(prof, OPT_RANGE)
+    say("ops_optimizer", card=smi, optimizer="Lamb(lr 1e-3, "
+        "lamb_weight_decay=0.01)", model="BertForPretraining(bert_base_"
+        "config()) f32 eager", batch=BERT_BATCH, seq=BERT_SEQ,
+        warmup_steps=warmup, timed_steps=steps, losses=losses,
+        ms_per_step=ms, optimizer_device_share=share,
+        rule_check=check.report, rule_rtol=1e-6,
+        **{k: v for k, v in fields.items() if k != "wall_ms_per_step"})
+    if (check.report is None or check.report["worst_rel_err"] > 1e-6
+            or not all(np.isfinite(losses))):
+        raise RuntimeError(f"Lamb on BERT-base: rule {check.report}, "
+                           f"losses {losses}")
+    del model, opt
+
+
+def _momentum_resnet(paddle, dev, smi):
+    """``Momentum(0.1, 0.9, weight_decay=1e-4)`` on ResNet-50's
+    ``Model.fit`` under O1 at batch 64 (PaddleClas ResNet50.yaml's
+    optimizer), 3 + 5 steps, one step's update held to the plain rule."""
+    import torch
+
+    from paddle_tpu_torch.vision.models import resnet50
+
+    paddle.seed(0)
+    net = resnet50()
+    checks = []
+
+    def make_opt(params):
+        opt = paddle.optimizer.Momentum(0.1, 0.9, parameters=params,
+                                        weight_decay=1e-4)
+        checks.append(_RuleCheck(opt))
+        return opt
+
+    launches, fields, _, _ = _fit(dev, smi, "resnet50", net, RESNET_STEPS,
+                                  seed=21, make_opt=make_opt)
+    report = checks[0].report
+    say("ops_optimizer", optimizer="Momentum(0.1, 0.9, weight_decay=1e-4)",
+        rule_check=report, rule_rtol=1e-6, kernel_launches=launches,
+        **fields)
+    if report is None or report["worst_rel_err"] > 1e-6:
+        raise RuntimeError(f"Momentum on ResNet-50: rule {report}")
+    del net
+    torch.cuda.empty_cache()
+
+
+def ops_phase(dev, smi):
+    """The rest of the op surface on the card (ROADMAP A23b-2):
+
+    - B2/B3 through the new entry points at full width:
+      ``paddle.flash_attn`` at GPT-124M's training shape (8 x 1024 x 12
+      x 64 bf16, causal, forward and backward),
+      ``incubate.nn.functional.fused_multi_head_attention`` at BERT-base
+      widths (8 x 512 x 768, 12 heads, bf16, no mask, training with both
+      dropout rates 0, forward and backward) and
+      ``memory_efficient_attention`` at the same shape (forward), each
+      held to the same call with the kernels' plain versions (f32
+      copies) under ``_parity``, with its launches;
+    - the new optimizers on full-width models with the recipes users
+      run: ``Lamb`` on the eager BERT-base step, ``Momentum`` on
+      ResNet-50's ``Model.fit`` under O1; each one step's update of
+      every parameter within 1e-6 relative of the plain rule, ms a step
+      and the optimizer's share of device time;
+    - every newly registered op (but ``OPS_LEFT_OUT``) once on the card
+      against the port's CPU output (random ops by shape and range);
+    - five heavy ops timed, no threshold.
+
+    Returns the B2/B3 launches of the entry-point calls."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device(f"gpu:{dev.index or 0}")
+    launches = _attention_entry_points(paddle, dev, smi)
+    torch.cuda.empty_cache()
+    _lamb_bert(paddle, dev, smi)
+    torch.cuda.empty_cache()
+    _momentum_resnet(paddle, dev, smi)
+    torch.cuda.empty_cache()
+    _ops_one_each(paddle, dev, smi)
+    _heavy_ops(paddle, dev, smi)
+    paddle.set_device(f"gpu:{dev.index or 0}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "paddle_tpu_torch")):
         raise SystemExit("chip_smoke: run from a checkout that holds "
@@ -6100,6 +6898,13 @@ def main():
     if sys.argv[1:] == ["vision"]:
         build_phase()
         vision_phase(dev, smi)
+        return
+    if sys.argv[1:] == ["ops"]:
+        build_phase()
+        ops_phase(dev, smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
         return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -6166,6 +6971,10 @@ def main():
     torch.cuda.empty_cache()
     # and the vision path's ViT-B/16 fit (B2, B3, B4a, B4b), counted alone
     for kernel, n in vision_phase(dev, smi).items():
+        launches[kernel] += n
+    torch.cuda.empty_cache()
+    # and the op surface's attention entry points (B2, B3), counted alone
+    for kernel, n in ops_phase(dev, smi).items():
         launches[kernel] += n
     torch.cuda.empty_cache()
     tooling_phase(dev, smi)

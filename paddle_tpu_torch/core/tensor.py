@@ -152,11 +152,14 @@ class Tensor:
 
     # ---- conversion ----
     def numpy(self):
+        """A numpy copy of the value: the optimizers update parameters in
+        place, so a view would change under the caller (a JAX array
+        never does)."""
         d = self._data.detach()
         if d.dtype == torch.bfloat16:
             raise TypeError("numpy has no bfloat16: cast the Tensor to "
                             "float32 first (astype)")
-        return d.cpu().numpy()
+        return d.cpu().numpy().copy()
 
     def item(self, *args):
         if args:

@@ -1,8 +1,6 @@
 """Common layers: Linear, Embedding, Dropout, Flatten, padding, upsample.
 
-Port of ``paddle_tpu/nn/common.py``.  ``Upsample`` and ``AlphaDropout``
-wait for ``F.interpolate`` and ``F.alpha_dropout`` (A23b) and raise
-NotImplementedError.
+Port of ``paddle_tpu/nn/common.py``.
 """
 
 import torch
@@ -93,10 +91,12 @@ class Dropout2D(Layer):
 
 
 class AlphaDropout(Layer):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "nn.AlphaDropout needs F.alpha_dropout, which is not ported yet "
-            "(A23b)")
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, p=self.p, training=self.training)
 
 
 class Flatten(Layer):
@@ -128,9 +128,19 @@ class Pad1D(Pad2D):
 
 
 class Upsample(Layer):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "nn.Upsample needs F.interpolate, which is not ported yet (A23b)")
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, data_format="NCHW"):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, size=self.size, scale_factor=self.scale_factor,
+                             mode=self.mode, align_corners=self.align_corners,
+                             data_format=self.data_format)
 
 
 class PixelShuffle(Layer):

@@ -1,9 +1,11 @@
 """nn.functional: stateless NN ops (port of ``paddle_tpu/nn/functional.py``).
 
-Every inventory op of the JAX module is a registered op here (37), with
-``linear``, ``rms_norm`` and ``cross_entropy``; ``dropout`` and
+Every function of the JAX module is here.  Its inventory ops are
+registered ops, with ``linear``, ``rms_norm``, ``cross_entropy`` and the
+rarer losses; ``dropout``, ``alpha_dropout``, ``gumbel_softmax``,
+``ctc_loss``, ``softmax_with_cross_entropy`` and
 ``scaled_dot_product_attention`` dispatch the same way without a
-registry entry, as in the JAX package.  Called with Paddle Tensors they
+registry entry of their own, as in the JAX package.  Called with Paddle Tensors they
 return Tensors and record torch autograd; called with raw torch tensors
 (the port's GPT, its engine and ``TrainStep``) they are the bodies
 themselves (``ops/dispatch.py``).
@@ -17,15 +19,19 @@ hand-written CUDA kernels on CUDA tensors (LayerNorm B4,
 ``ops/attention.py``) and the JAX package's plain compositions on the
 CPU.  ``cross_entropy`` keeps the JAX package's chunked f32 softmax
 cross entropy, which is XLA composition there and plain PyTorch here.
-Randomness (dropout) draws from an explicit ``torch.Generator``: given
-Paddle Tensors and no generator, the global generator of the tensor's
-device (``framework/random.py``); given raw torch tensors and none,
-PyTorch's default generator of the device.  The other functions of the
-JAX module (``interpolate``, ``ctc_loss``, ``gumbel_softmax``,
-``alpha_dropout``, ``sequence_mask`` and the rarer losses) wait for
-A23b.
+``interpolate`` is ``jax.image.resize`` as the JAX body calls it
+(``ops/vision_ops.image_resize``); ``ctc_loss`` is the ``warpctc`` op.
+Randomness (dropout, ``alpha_dropout``, ``gumbel_softmax``) draws from
+an explicit ``torch.Generator``: given Paddle Tensors and no generator,
+the global generator of the tensor's device (``framework/random.py``);
+for ``dropout`` given raw torch tensors and none, PyTorch's default
+generator of the device.  Gradients at kinks and ties are JAX's
+(``ops/math.jabs``/``jmaximum``/``jclip``, and ``pool_ops.first_max``
+for a window's maximum).
 """
 
+
+import math
 
 import torch
 
@@ -35,9 +41,11 @@ from ..framework.random import generator as _global_generator
 from ..ops.attention import flash_attention as _dispatch_attention
 from ..ops.cuda.layernorm_kernel import layer_norm_plain, layernorm_cuda
 from ..ops.dispatch import apply_op
-from ..ops.pool_ops import adaptive_bins, window_reduce
+from ..ops.math import jabs, jclip, jmaximum
+from ..ops.pool_ops import adaptive_bins, first_max, window_reduce
 from ..ops.pool_ops import windows as pool_windows
-from ..ops.registry import op
+from ..ops.registry import OPS, op
+from ..ops.vision_ops import image_resize
 
 _tF = torch.nn.functional
 
@@ -51,7 +59,9 @@ def relu(x):
 
 @op()
 def relu6(x):
-    return torch.clamp(x, 0.0, 6.0)
+    """``jax.nn.relu6``: derivative 1 strictly inside (0, 6), 0 at
+    both bounds."""
+    return torch.where((x > 0) & (x < 6), x, torch.clamp(x, 0.0, 6.0).detach())
 
 
 @op()
@@ -68,7 +78,7 @@ def gelu(x, approximate=False):
 
 @op()
 def leaky_relu(x, negative_slope=0.01):
-    return _tF.leaky_relu(x, negative_slope)
+    return torch.where(x >= 0, x, negative_slope * x)
 
 
 @op()
@@ -138,17 +148,17 @@ def tanhshrink(x):
 
 @op()
 def hardtanh(x, min=-1.0, max=1.0):
-    return torch.clamp(x, min, max)
+    return jclip(x, min, max)
 
 
 @op()
 def hardsigmoid(x, slope=0.1666667, offset=0.5):
-    return torch.clamp(slope * x + offset, 0.0, 1.0)
+    return jclip(slope * x + offset, 0.0, 1.0)
 
 
 @op()
 def hardswish(x):
-    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+    return x * jclip(x + 3.0, 0.0, 6.0) / 6.0
 
 
 @op()
@@ -189,10 +199,31 @@ def maxout(x, groups, axis=1):
     return torch.amax(x.reshape(shape), dim=axis + 1)
 
 
+def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, generator=None):
+    """Softmax of (x + Gumbel noise) / temperature; ``hard`` gives the
+    one-hot of its argmax with the soft gradient (straight-through).
+    The noise draws from ``generator``, else the global generator of
+    ``x``'s device."""
+    def body(x):
+        gen = generator if generator is not None else \
+            _global_generator(x.device)
+        u = torch.rand(x.shape, generator=gen, device=x.device,
+                       dtype=x.dtype)
+        u = torch.clamp(u, min=torch.finfo(x.dtype).tiny)
+        y = torch.softmax((x - torch.log(-torch.log(u))) / temperature,
+                          dim=axis)
+        if hard:
+            onehot = torch.zeros_like(y).scatter(
+                axis, y.argmax(dim=axis, keepdim=True), 1.0)
+            y = onehot + y - y.detach()
+        return y
+    return apply_op("gumbel_softmax", body, (x,), {})
+
+
 @op()
 def normalize(x, p=2, axis=1, epsilon=1e-12):
-    nrm = torch.sum(torch.abs(x) ** p, dim=axis, keepdim=True) ** (1.0 / p)
-    return x / torch.clamp(nrm, min=epsilon)
+    nrm = torch.sum(jabs(x) ** p, dim=axis, keepdim=True) ** (1.0 / p)
+    return x / jmaximum(nrm, epsilon)
 
 
 # ---------------- linear / embedding ----------------
@@ -429,7 +460,7 @@ def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
     pairs = _pool_pads(padding, x, [2], ks, st)
     # the JAX body's window init is finfo.min, not -inf
     w = pool_windows(x, [2], ks, st, pairs, torch.finfo(x.dtype).min)
-    return w.amax(dim=-1)
+    return first_max(w, 1)
 
 
 @op()
@@ -470,8 +501,14 @@ def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
 @op()
 def adaptive_max_pool2d(x, output_size, return_mask=False):
     """The max over each adaptive bin; ``return_mask`` is accepted and
-    ignored, as in the JAX body."""
-    return _adaptive(x, [2, 3], _pair(output_size), _max)
+    ignored, as in the JAX body.  Bins that tile the input are one
+    ``reduce_window`` there, whose VJP sends a tie's gradient to the
+    first maximum; uneven bins are ``jnp.max`` slices, which split it."""
+    (oh, ow), (h, w) = _pair(output_size), x.shape[2:]
+    if h % oh == 0 and w % ow == 0:
+        win = x.reshape(*x.shape[:2], oh, h // oh, ow, w // ow)
+        return first_max(win.permute(0, 1, 2, 4, 3, 5), 2)
+    return _adaptive(x, [2, 3], (oh, ow), _max)
 
 
 @op()
@@ -628,6 +665,25 @@ def _dropout(x, p, axis, training, mode, generator):
     return torch.where(keep, x, 0.0)
 
 
+def alpha_dropout(x, p=0.5, training=True, generator=None):
+    """Dropout that keeps SELU's mean and variance: a dropped element
+    takes SELU's negative saturation, then an affine map restores the
+    moments (as the JAX body)."""
+    if not training or p == 0.0:
+        return x
+    alpha_p = -1.6732632423543772 * 1.0507009873554805
+    a = (1.0 / math.sqrt((1.0 - p) * (1.0 + p * alpha_p ** 2))) \
+        if p < 1.0 else 0.0
+    b = -a * alpha_p * p
+
+    def body(x):
+        gen = generator if generator is not None else \
+            _global_generator(x.device)
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
+        return a * torch.where(keep, x, torch.full_like(x, alpha_p)) + b
+    return apply_op("alpha_dropout", body, (x,), {})
+
+
 # ---------------- padding / misc ----------------
 
 _PAD_MODES = {"constant": "constant", "reflect": "reflect",
@@ -673,11 +729,39 @@ def pixel_shuffle(x, upscale_factor, data_format="NCHW"):
 
 
 @op()
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, data_format="NCHW"):
+    """``jax.image.resize`` over the two spatial dims of an NCHW input,
+    as the JAX body calls it: nearest, linear (also for ``area``) or
+    Keys cubic, antialiased when shrinking; ``align_corners`` is
+    accepted and ignored there and here."""
+    n, c, h, w = x.shape
+    if size is None:
+        sf = _pair(scale_factor)
+        size = (int(h * sf[0]), int(w * sf[1]))
+    method = {"nearest": "nearest", "bilinear": "linear",
+              "bicubic": "cubic", "linear": "linear",
+              "area": "linear"}[mode]
+    return image_resize(x, (n, c, int(size[0]), int(size[1])), method)
+
+
+upsample = interpolate
+
+
+@op()
 def cosine_similarity(x1, x2, axis=1, eps=1e-8):
     dot_ = torch.sum(x1 * x2, dim=axis)
     n1 = torch.linalg.vector_norm(x1, dim=axis)
     n2 = torch.linalg.vector_norm(x2, dim=axis)
     return dot_ / torch.clamp(n1 * n2, min=eps)
+
+
+@op()
+def sequence_mask(x, maxlen=None, dtype="int64"):
+    if maxlen is None:
+        maxlen = int(x.max())  # noqa: H001 (output width from the data)
+    steps = torch.arange(maxlen, device=x.device)
+    return (steps < x[..., None]).to(convert_dtype(dtype))
 
 
 @op()
@@ -710,7 +794,7 @@ def mse_loss(input, label, reduction="mean"):
 
 @op()
 def l1_loss(input, label, reduction="mean"):
-    return _reduce(torch.abs(input - label), reduction)
+    return _reduce(jabs(input - label), reduction)
 
 
 @op()
@@ -733,8 +817,8 @@ def binary_cross_entropy(input, label, weight=None, reduction="mean"):
 @op()
 def binary_cross_entropy_with_logits(logit, label, weight=None,
                                      reduction="mean", pos_weight=None):
-    neg_abs = -torch.abs(logit)
-    loss = torch.clamp(logit, min=0.0) - logit * label \
+    neg_abs = -jabs(logit)
+    loss = jmaximum(logit, 0.0) - logit * label \
         + torch.log1p(torch.exp(neg_abs))
     if pos_weight is not None:
         loss = loss * ((pos_weight - 1.0) * label + 1.0)
@@ -753,7 +837,7 @@ def kl_div(input, label, reduction="mean"):
 
 @op()
 def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean"):
-    loss = torch.clamp(-label * (input - other) + margin, min=0.0)
+    loss = jmaximum(-label * (input - other) + margin, 0.0)
     return _reduce(loss, reduction)
 
 
@@ -824,33 +908,155 @@ class _ChunkedSoftmaxXent(torch.autograd.Function):
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
-    """Softmax cross entropy over the last axis with hard labels, in f32
-    whatever the logits' dtype.  Rows whose label is ``ignore_index``
-    count zero; ``mean`` divides by the number of the other rows (at
-    least 1).  Soft labels, class weights, label smoothing, another
-    axis or ``use_softmax=False`` are not ported yet."""
+    """Softmax cross entropy in f32 whatever the logits' dtype, as the
+    JAX body computes it.  Hard labels over the last axis with softmax,
+    no weight and no smoothing take the chunked path (rows whose label
+    is ``ignore_index`` count zero; ``mean`` divides by the other rows,
+    at least 1).  The rest is the JAX body's general path: soft labels
+    (smoothed toward uniform), class ``weight`` (``mean`` divides by the
+    valid rows' weights), ``label_smoothing``, another ``axis`` (the
+    label picked by ``take_along_axis`` with a trailing index axis, as
+    there) and ``use_softmax=False`` (the input taken as
+    probabilities)."""
     ax = axis if axis >= 0 else input.dim() + axis
-    if (not use_softmax or soft_label or label_smoothing != 0.0
-            or weight is not None or ax != input.dim() - 1):
-        raise NotImplementedError(
-            "cross_entropy: only hard labels over the last axis with "
-            "softmax, no weight and no smoothing are ported (the rest is "
-            "A23b, the long tail)")
-    lbl = label
-    if lbl.dim() == input.dim() and lbl.shape[ax] == 1:
-        lbl = lbl.squeeze(ax)
-    v = input.shape[-1]
-    flat = input.reshape(-1, v)
-    lbl_flat = lbl.reshape(-1).long()
-    valid = lbl_flat != ignore_index
-    safe = torch.where(valid, lbl_flat, 0)
-    loss = _ChunkedSoftmaxXent.apply(flat, safe)
-    loss = torch.where(valid, loss, 0.0)
+    if (use_softmax and not soft_label and label_smoothing == 0.0
+            and weight is None and ax == input.dim() - 1):
+        lbl = label
+        if lbl.dim() == input.dim() and lbl.shape[ax] == 1:
+            lbl = lbl.squeeze(ax)
+        v = input.shape[-1]
+        flat = input.reshape(-1, v)
+        lbl_flat = lbl.reshape(-1).long()
+        valid = lbl_flat != ignore_index
+        safe = torch.where(valid, lbl_flat, 0)
+        loss = _ChunkedSoftmaxXent.apply(flat, safe)
+        loss = torch.where(valid, loss, 0.0)
+        if reduction == "mean":
+            return loss.sum() / valid.sum().float().clamp(min=1.0)
+        if reduction == "sum":
+            return loss.sum()
+        return loss.reshape(lbl.shape)
+    logits = input.float()
+    logp = torch.log_softmax(logits, dim=ax) if use_softmax else \
+        torch.log(jmaximum(logits, 1e-30))
+    n_classes = logits.shape[ax]
+    valid = None
+    if soft_label:
+        soft = label.float()
+        if label_smoothing > 0:
+            soft = soft * (1 - label_smoothing) + label_smoothing / n_classes
+        loss = -torch.sum(soft * logp, dim=ax)
+    else:
+        lbl = label
+        if lbl.dim() == logp.dim() and lbl.shape[ax] == 1:
+            lbl = lbl.squeeze(ax)
+        valid = lbl != ignore_index
+        safe = torch.where(valid, lbl, torch.zeros_like(lbl)).long()
+        picked = _take_along_axis(logp, safe[..., None], ax)[..., 0]
+        if label_smoothing > 0:
+            loss = (1 - label_smoothing) * (-picked) + \
+                label_smoothing * (-logp.mean(dim=ax))
+        else:
+            loss = -picked
+        if weight is not None:
+            loss = loss * weight[safe]
+        loss = torch.where(valid, loss, torch.zeros_like(loss))
     if reduction == "mean":
-        return loss.sum() / valid.sum().float().clamp(min=1.0)
+        if valid is None:
+            return loss.mean()
+        denom = jmaximum(valid.float().sum(), 1.0)
+        if weight is not None:
+            denom = jmaximum(torch.where(valid, weight[safe],
+                                         torch.zeros_like(loss)).sum(), 1e-9)
+        return loss.sum() / denom
     if reduction == "sum":
         return loss.sum()
-    return loss.reshape(lbl.shape)
+    return loss
+
+
+def _take_along_axis(arr, idx, axis):
+    """``jnp.take_along_axis``: the dims other than ``axis`` broadcast
+    between ``arr`` and ``idx``."""
+    shape = [max(a, b) for a, b in zip(arr.shape, idx.shape)]
+    ishape, ashape = list(shape), list(shape)
+    ishape[axis], ashape[axis] = idx.shape[axis], arr.shape[axis]
+    return torch.gather(arr.expand(ashape), axis, idx.expand(ishape))
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, axis=-1,
+                               return_softmax=False):
+    loss = cross_entropy(logits, label, reduction="none",
+                         soft_label=soft_label, ignore_index=ignore_index,
+                         axis=axis)
+    loss = OPS["unsqueeze"].user_fn(loss, axis)
+    if return_softmax:
+        return loss, softmax(logits, axis=axis)
+    return loss
+
+
+@op()
+def hinge_embedding_loss(input, label, margin=1.0, reduction="mean"):
+    loss = torch.where(label == 1, input, jmaximum(margin - input, 0.0))
+    return _reduce(loss, reduction)
+
+
+@op()
+def square_error_cost(input, label):
+    return torch.square(input - label)
+
+
+@op()
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
+                       reduction="sum"):
+    p = torch.sigmoid(logit)
+    ce = jmaximum(logit, 0.0) - logit * label + \
+        torch.log1p(torch.exp(-jabs(logit)))
+    p_t = p * label + (1 - p) * (1 - label)
+    loss = ce * ((1 - p_t) ** gamma)
+    if alpha >= 0:
+        loss = (alpha * label + (1 - alpha) * (1 - label)) * loss
+    if normalizer is not None:
+        loss = loss / normalizer
+    return _reduce(loss, reduction)
+
+
+@op()
+def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
+                        epsilon=1e-6, swap=False, reduction="mean"):
+    def dist(a, b):
+        return torch.pow(torch.sum(torch.pow(jabs(a - b) + epsilon, p), -1),
+                         1.0 / p)
+    d_pos = dist(input, positive)
+    d_neg = dist(input, negative)
+    if swap:
+        d_neg = torch.minimum(d_neg, dist(positive, negative))
+    return _reduce(jmaximum(d_pos - d_neg + margin, 0.0), reduction)
+
+
+@op()
+def cosine_embedding_loss(input1, input2, label, margin=0.0,
+                          reduction="mean"):
+    cos = torch.sum(input1 * input2, -1) / jmaximum(
+        torch.linalg.vector_norm(input1, dim=-1)
+        * torch.linalg.vector_norm(input2, dim=-1), 1e-12)
+    loss = torch.where(label == 1, 1 - cos, jmaximum(cos - margin, 0.0))
+    return _reduce(loss, reduction)
+
+
+def ctc_loss(log_probs, labels, input_lengths=None, label_lengths=None,
+             blank=0, reduction="mean", norm_by_times=False):
+    """CTC loss over the ``warpctc`` op; log_probs [T, B, C] time-major
+    logits."""
+    loss = OPS["warpctc"].user_fn(log_probs, labels,
+                                  logits_length=input_lengths,
+                                  labels_length=label_lengths, blank=blank,
+                                  norm_by_times=norm_by_times)
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
 
 
 # ---------------- attention ----------------
@@ -901,4 +1107,7 @@ __all__ = [
     "pixel_shuffle", "prelu", "relu", "relu6", "relu_", "rms_norm",
     "scaled_dot_product_attention", "selu", "silu", "smooth_l1_loss",
     "softmax", "softplus", "softshrink", "softsign", "swish", "tanhshrink",
-    "temporal_shift", "unfold"]
+    "temporal_shift", "unfold", "alpha_dropout", "cosine_embedding_loss",
+    "ctc_loss", "gumbel_softmax", "hinge_embedding_loss", "interpolate",
+    "sequence_mask", "sigmoid_focal_loss", "softmax_with_cross_entropy",
+    "square_error_cost", "triplet_margin_loss", "upsample"]

@@ -1,7 +1,7 @@
 """Weight initializers (paddle.nn.initializer parity).
 
 Port of ``paddle_tpu/nn/initializer.py``.  Each initializer is a
-callable ``(shape, dtype) -> torch.Tensor`` on the current device
+callable ``(shape, dtype) -> torch.Tensor`` (any dtype spelling) on the current device
 (``framework.device.set_device``), drawing in f32 from that device's
 global generator (``framework/random.py``) and cast to ``dtype``.  The
 distributions are the JAX package's; the draws are not (a generator
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..framework.device import current_device
+from ..framework.dtype import convert_dtype
 from ..framework.random import generator
 
 
@@ -35,12 +36,12 @@ def _empty(shape):
 
 def _normal(shape, mean, std, dtype):
     out, gen = _empty(shape)
-    return out.normal_(mean, std, generator=gen).to(dtype)
+    return out.normal_(mean, std, generator=gen).to(convert_dtype(dtype))
 
 
 def _uniform(shape, low, high, dtype):
     out, gen = _empty(shape)
-    return out.uniform_(low, high, generator=gen).to(dtype)
+    return out.uniform_(low, high, generator=gen).to(convert_dtype(dtype))
 
 
 class Initializer:
@@ -53,7 +54,7 @@ class Constant(Initializer):
         self.value = value
 
     def __call__(self, shape, dtype):
-        return torch.full(shape, self.value, dtype=dtype,
+        return torch.full(shape, self.value, dtype=convert_dtype(dtype),
                           device=current_device())
 
 
@@ -76,7 +77,7 @@ class TruncatedNormal(Initializer):
         lo = 0.5 * (1 + math.erf(-2.0 / math.sqrt(2)))
         u = _uniform(shape, lo, 1.0 - lo, torch.float32)
         z = math.sqrt(2) * torch.erfinv(2 * u - 1)
-        return (self.mean + self.std * z.clamp(-2.0, 2.0)).to(dtype)
+        return (self.mean + self.std * z.clamp(-2.0, 2.0)).to(convert_dtype(dtype))
 
 
 class Uniform(Initializer):
@@ -153,7 +154,7 @@ class Assign(Initializer):
         v = self.value
         v = v._data if isinstance(v, Tensor) else \
             torch.as_tensor(np.asarray(v))
-        return v.detach().to(device=current_device(), dtype=dtype,
+        return v.detach().to(device=current_device(), dtype=convert_dtype(dtype),
                              copy=True).reshape(shape)
 
 
@@ -174,7 +175,7 @@ class Orthogonal(Initializer):
         q = q * torch.sign(torch.diagonal(r))
         if rows < cols:
             q = q.T
-        return (self.gain * q).reshape(shape).to(dtype)
+        return (self.gain * q).reshape(shape).to(convert_dtype(dtype))
 
 
 class Dirac(Initializer):
@@ -187,4 +188,4 @@ class Dirac(Initializer):
         mid = tuple(s // 2 for s in shape[2:])
         for i in range(min(oc, ic * self.groups)):
             out[(i, i % ic) + mid] = 1.0
-        return torch.as_tensor(out, device=current_device()).to(dtype)
+        return torch.as_tensor(out, device=current_device()).to(convert_dtype(dtype))

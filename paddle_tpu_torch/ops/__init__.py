@@ -1,15 +1,31 @@
 """Op library: registry + eager dispatch + Tensor method patching.
 
-Port of ``paddle_tpu/ops/__init__.py`` for the families ported so far
-(creation, math, manipulation, logic, random, linalg, pool;
-``nn/functional.py`` registers its own).  The rest wait in
-``waiting.py``.  A Tensor operator or method whose op waits is not
-patched.
+Port of ``paddle_tpu/ops/__init__.py``: every op family of the JAX
+package is imported here, in its order (``nn/functional.py`` registers
+its own), so the registry holds the whole inventory
+(``inventory.OP_INVENTORY``).
 """
 
+from . import creation, linalg, logic, manipulation, math, random  # noqa: F401
 from . import (  # noqa: F401
-    creation, linalg, logic, manipulation, math, pool_ops, random)
-from .dispatch import apply_op  # noqa: F401
+    conv_extra,
+    fft_ops,
+    fused_ops,
+    graph_ops,
+    misc_ops,
+    optim_ops,
+    pool_ops,
+    seq_ops,
+    sparse_ops,
+    vision_ops,
+)
+from .dispatch import (  # noqa: F401
+    apply_op,
+    dispatch_cache_clear,
+    dispatch_cache_info,
+    enable_dispatch_cache,
+    set_debug_hook,
+)
 from .registry import OPS, coverage, op, raw  # noqa: F401
 from ..core.tensor import Tensor
 

@@ -19,7 +19,13 @@ JAX dispatch applies ``amp_cast_inputs`` (``paddle_tpu/ops/dispatch.py:
 Tensor is never cast.
 
 The JAX package's per-signature jit cache (``dispatch.py:72-135``) has
-no counterpart: PyTorch runs eagerly.
+no counterpart: PyTorch runs eagerly, so there is nothing to compile or
+cache.  Its public switches keep their signatures with nothing behind
+them: ``enable_dispatch_cache`` records the flag, ``dispatch_cache_info``
+reports an empty cache (0 entries, 0 compiled) and
+``dispatch_cache_clear`` has nothing to clear.  ``set_debug_hook``
+installs the ``amp.debugging`` per-op hook, called as in the JAX
+dispatch with the op's name and its flattened tensor outputs.
 """
 
 import torch
@@ -28,6 +34,39 @@ from ..amp import _state as _amp_state
 from ..amp import cast_target, cast_to
 from ..core.tensor import Tensor, _wrap
 from ..framework.flags import _flags
+
+
+_debug_hook = None
+_dispatch_cache_enabled = True
+
+
+def set_debug_hook(fn):
+    """Install (or, with None, remove) the per-op output hook."""
+    global _debug_hook
+    _debug_hook = fn
+
+
+def enable_dispatch_cache(flag=True):
+    """Record the cache switch; eager torch has no compile to cache."""
+    global _dispatch_cache_enabled
+    _dispatch_cache_enabled = bool(flag)
+
+
+def dispatch_cache_clear():
+    """Nothing to clear: no op is compiled."""
+
+
+def dispatch_cache_info():
+    """The cache's counts: always empty, since no op is compiled."""
+    return {"entries": 0, "compiled": 0}
+
+
+def _leaves(o):
+    if isinstance(o, torch.Tensor):
+        return [o]
+    if isinstance(o, (list, tuple)):
+        return [t for e in o for t in _leaves(e)]
+    return []
 
 
 def _unwrap(v):
@@ -85,6 +124,8 @@ def apply_op(name, fn, args, kwargs):
             targs = [_unwrap_cast(a, target) for a in args]
             tkw = {k: _unwrap_cast(v, target) for k, v in kwargs.items()}
     out = fn(*targs, **tkw)
+    if _debug_hook is not None:
+        _debug_hook(name, _leaves(out))
     if _flags["FLAGS_check_nan_inf"]:
         _check_nan_inf(name, out)
     return _wrap_out(out)

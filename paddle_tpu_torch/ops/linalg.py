@@ -13,6 +13,7 @@ returns an empty result.
 
 import torch
 
+from .math import jabs
 from .registry import op
 
 
@@ -74,7 +75,7 @@ def norm(x, p="fro", axis=None, keepdim=False):
             return torch.min(torch.abs(flat))
         if p == 0:
             return torch.sum(flat != 0).to(x.dtype)
-        return torch.sum(torch.abs(flat) ** p) ** (1.0 / p)
+        return torch.sum(jabs(flat) ** p) ** (1.0 / p)
     if isinstance(axis, (list, tuple)) and len(axis) == 2:
         return torch.linalg.matrix_norm(x, ord=p, dim=tuple(axis),
                                         keepdim=keepdim)
@@ -94,7 +95,7 @@ def dist(x, y, p=2.0):
         return torch.max(torch.abs(d))
     if p == -_INF:
         return torch.min(torch.abs(d))
-    return torch.sum(torch.abs(d) ** p) ** (1.0 / p)
+    return torch.sum(jabs(d) ** p) ** (1.0 / p)
 
 
 @op()

@@ -257,8 +257,10 @@ def argsort(x, axis=-1, descending=False, stable=False):
 
 @op()
 def topk(x, k, axis=-1, largest=True, sorted=True):
-    vals, idx = torch.topk(x, k, dim=axis, largest=largest, sorted=True)
-    return vals, idx
+    """``lax.top_k``'s order: a stable sort, so the lowest index comes
+    first among ties (``torch.topk`` leaves their order open)."""
+    vals, idx = torch.sort(x, dim=axis, descending=largest, stable=True)
+    return vals.narrow(axis, 0, k), idx.narrow(axis, 0, k)
 
 @op()
 def kthvalue(x, k, axis=-1, keepdim=False):

@@ -32,6 +32,73 @@ def _scalar_like(v, x):
     return v if isinstance(v, torch.Tensor) else \
         torch.as_tensor(v, dtype=x.dtype, device=x.device)
 
+
+# ---- JAX's derivatives at kinks and ties (ROADMAP C6) ----
+# ``lax.abs`` has derivative +1 at 0 (torch: 0); ``jnp.maximum`` /
+# ``jnp.minimum`` split a tie's gradient in halves, as ``torch.maximum``
+# does and ``torch.clamp`` (all of it to x) does not.
+
+def jabs(x):
+    """``jnp.abs``: |x|, with derivative +1 at 0."""
+    if x.is_complex():
+        return torch.abs(x)
+    return torch.where(x >= 0, x, -x)
+
+
+def jmaximum(x, v):
+    """``jnp.maximum(x, v)`` for a tensor or a scalar ``v``."""
+    return torch.maximum(x, _scalar_like(v, x))
+
+
+def jminimum(x, v):
+    """``jnp.minimum(x, v)`` for a tensor or a scalar ``v``."""
+    return torch.minimum(x, _scalar_like(v, x))
+
+
+def jclip(x, lo=None, hi=None):
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``, a bound's tie
+    taking half the gradient."""
+    if lo is not None:
+        x = jmaximum(x, lo)
+    if hi is not None:
+        x = jminimum(x, hi)
+    return x
+
+
+def _associative_scan(fn, elems, axis):
+    """``lax.associative_scan(fn, elems, axis=axis)``, the same pairwise
+    tree, so that a tie in ``fn`` splits its gradient as in JAX."""
+    n = elems.shape[axis]
+    if n < 2:
+        return elems
+
+    def sl(t, start, stop=None, step=1):
+        return t[(slice(None),) * (axis % t.dim())
+                 + (slice(start, stop, step),)]
+
+    reduced = fn(sl(elems, 0, -1, 2), sl(elems, 1, None, 2))
+    odd = _associative_scan(fn, reduced, axis)
+    if n % 2 == 0:
+        even = fn(sl(odd, 0, -1), sl(elems, 2, None, 2))
+    else:
+        even = fn(odd, sl(elems, 2, None, 2))
+    even = torch.cat([sl(elems, 0, 1), even], dim=axis)
+    return _interleave(even, odd, axis)
+
+
+def _interleave(a, b, axis):
+    """a[0], b[0], a[1], b[1], ... along ``axis`` (len(a) - len(b) is
+    0 or 1)."""
+    axis = axis % a.dim()
+    na, nb = a.shape[axis], b.shape[axis]
+    if nb < na:
+        pad = list(b.shape)
+        pad[axis] = 1
+        b = torch.cat([b, torch.zeros(pad, dtype=b.dtype, device=b.device)],
+                      dim=axis)
+    out = torch.stack([a, b], dim=axis + 1).flatten(axis, axis + 1)
+    return out.narrow(axis, 0, na + nb)
+
 # ---- binary elementwise ----
 
 @op()
@@ -74,11 +141,11 @@ def minimum(x, y):
 
 @op()
 def fmax(x, y):
-    return torch.fmax(x, y)
+    return torch.where((x > y) | torch.isnan(y), x, y)
 
 @op()
 def fmin(x, y):
-    return torch.fmin(x, y)
+    return torch.where((x < y) | torch.isnan(y), x, y)
 
 @op()
 def atan2(x, y):
@@ -158,7 +225,7 @@ def log1p(x):
 
 @op("abs")
 def abs_(x):
-    return torch.abs(x)
+    return jabs(x)
 
 @op()
 def neg(x):
@@ -312,7 +379,7 @@ def nan_to_num(x, nan=0.0, posinf=None, neginf=None):
 
 @op()
 def clip(x, min=None, max=None):
-    return torch.clamp(x, min, max)
+    return jclip(x, min, max)
 
 @op()
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None):
@@ -428,12 +495,12 @@ def cumprod(x, dim=None, dtype=None):
 @op()
 def cummax(x, axis=None):
     x, axis = _flat_axis(x, axis)
-    return torch.cummax(x, dim=axis).values
+    return _associative_scan(torch.maximum, x, axis)
 
 @op()
 def cummin(x, axis=None):
     x, axis = _flat_axis(x, axis)
-    return torch.cummin(x, dim=axis).values
+    return _associative_scan(torch.minimum, x, axis)
 
 @op()
 def logcumsumexp(x, axis=None):

@@ -59,10 +59,19 @@ def window_reduce(x, dims, ksize, strides, pads, kind):
     else:
         fill = 0.0
     w = windows(x, dims, ksize, strides, pads, fill)
-    red = tuple(range(w.dim() - nd, w.dim()))
     if kind == "max":
-        return w.amax(dim=red)
-    return w.sum(dim=red)
+        return first_max(w, nd)
+    return w.sum(dim=tuple(range(w.dim() - nd, w.dim())))
+
+
+def first_max(w, nd):
+    """The max over the last ``nd`` axes of ``w``, taken at the first
+    maximal element in row-major window order: a tied maximum's whole
+    gradient goes there, as ``reduce_window``'s VJP sends it (and as
+    ``return_mask`` indexes it), where ``amax`` would split it."""
+    flat = w.reshape(*w.shape[:w.dim() - nd], -1)
+    arg = flat.detach().argmax(dim=-1, keepdim=True)
+    return torch.gather(flat, -1, arg)[..., 0]
 
 
 def adaptive_bins(isz, osz):

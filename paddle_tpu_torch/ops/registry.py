@@ -8,8 +8,8 @@ validated against the reference YAML schema (``schema.py``), with the
 documented divergences of ``schema_compat.py``, as in the JAX package.
 
 ``waiting.WAITING`` names the inventory ops the port has not registered
-yet, by the family they wait in (A23b); every inventory name is in
-``OPS`` or there, never both.
+yet, by family; every inventory name is in ``OPS`` or there, never both,
+and from ROADMAP A23b-2 every one is in ``OPS``.
 """
 
 import functools

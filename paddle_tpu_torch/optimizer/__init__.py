@@ -9,4 +9,16 @@ from .clip import (  # noqa: F401
     ClipGradByNorm,
     ClipGradByValue,
 )
-from .optimizer import SGD, Adam, AdamW, Optimizer  # noqa: F401
+from .optimizer import (  # noqa: F401
+    SGD,
+    Adadelta,
+    Adagrad,
+    Adam,
+    Adamax,
+    AdamW,
+    Lamb,
+    Lars,
+    Momentum,
+    Optimizer,
+    RMSProp,
+)

@@ -204,8 +204,9 @@ def test_layer_api_matches_reference():
     np.testing.assert_array_equal(twin.weight.numpy(), lin.weight.numpy())
     twin.weight.set_value(np.zeros((3, 3)))
     assert lin.weight.numpy().any()
-    with pytest.raises(NotImplementedError, match="A23b"):
-        P.nn.Upsample(scale_factor=2)
+    up = P.nn.Upsample(scale_factor=2)(P.to_tensor(np.ones((1, 1, 2, 2),
+                                                           np.float32)))
+    assert up.shape == [1, 1, 4, 4]
 
 
 def test_state_dict_orders_match_for_shared_and_nested():

@@ -74,6 +74,13 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import paddle_tpu_torch.hapi.flops, paddle_tpu_torch.hapi.callbacks\n"
         "import paddle_tpu_torch.vision, paddle_tpu_torch.vision.models\n"
         "import paddle_tpu_torch.vision.transforms\n"
+        "import paddle_tpu_torch.ops.misc_ops, paddle_tpu_torch.ops.optim_ops\n"
+        "import paddle_tpu_torch.ops.fused_ops, paddle_tpu_torch.ops.seq_ops\n"
+        "import paddle_tpu_torch.ops.vision_ops, paddle_tpu_torch.ops.fft_ops\n"
+        "import paddle_tpu_torch.ops.sparse_ops, paddle_tpu_torch.ops.graph_ops\n"
+        "import paddle_tpu_torch.ops.conv_extra\n"
+        "import paddle_tpu_torch.fft, paddle_tpu_torch.signal\n"
+        "import paddle_tpu_torch.incubate.nn.functional\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.'))\n"
