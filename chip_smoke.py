@@ -3,6 +3,9 @@
 one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py kernels          # only the build and every
+                                           # kernel's parity and times
+                                           # (no contract line)
     python3 chip_smoke.py ln_bwd_designs   # only the LayerNorm backward's
                                            # sizes against alternatives
     python3 chip_smoke.py lora_tier        # only the multi-LoRA and KV-tier
@@ -19,6 +22,9 @@ one NVIDIA GPU.
                                            # phase (no contract line)
     python3 chip_smoke.py ops              # only the op-surface phase
                                            # (ends with the contract line)
+    python3 chip_smoke.py speech           # only the speech path, the
+                                           # vision zoo and gpt_6_7b
+                                           # (no contract line)
 
 Run from the root of a checkout on a machine with a CUDA GPU and the
 CUDA toolkit.  Phases, each printing its own lines; any failure raises
@@ -253,8 +259,10 @@ line is that JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  The script imports only torch, numpy and the port.
 """
 
+import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -734,6 +742,19 @@ def flash_attention_phase(entries, dev):
          False),
         ("d128_2x1024x12x128_causal", bf16, (2, 1024, 12, 128), True, True),
         ("bert_f32_8x512x12x64", f32, (8, 512, 12, 64), False, False),
+        # every head dim the JAX kernel takes: odd ones (2-byte bf16
+        # rows, scalar f32 loads), rows that are 8-byte aligned (D 4, 20,
+        # 36, 100 in bf16), padded to 32, 64 or 128
+        *[(f"d{d}_2x300x4x{d}_causal", dt, (2, 300, 4, d), True, False)
+          for d in (1, 4, 7, 20, 36, 100) for dt in (f32, bf16)],
+        ("d20_noncausal_2x77q_333k_x4x20", bf16, (2, 77, 4, 20), False,
+         False, 333),
+        ("d36_packed_2x129x4x36", bf16, (2, 129, 4, 36), False, True),
+        # the speech path's Conformer (f32, d_model 144 over 4 heads) and
+        # gpt_6_7b's eval forward (bf16, causal, D 128)
+        ("conformer_16x250x4x36", f32, (16, 250, 4, 36), False, False),
+        ("gpt6_7b_2x2048x32x128_causal", bf16, (2, 2048, 32, 128), True,
+         True),
     ]
 
     def check(label, dtype, q, k, v, dout, causal, packed, scale):
@@ -834,7 +855,54 @@ def flash_attention_phase(entries, dev):
         "(BERT-base eager eval)", kernel_ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
         library="F.scaled_dot_product_attention")
+    # the head dims of the JAX kernel's range, the Conformer's shape and
+    # gpt_6_7b's forward
+    for d in (4, 20, 36, 100):
+        for dtype in (f32, bf16):
+            _flash_kernel_times(fwd, bwd, dev, dtype, (8, 512, 8, d), True,
+                                flush)
+    _flash_kernel_times(fwd, bwd, dev, f32, (16, 250, 4, 36), False, flush,
+                        note=" (Conformer eval and step)")
+    _flash_kernel_times(fwd, None, dev, bf16, (2, 2048, 32, 128), True,
+                        flush, note=" (gpt_6_7b eval forward)")
     return records
+
+
+def _flash_kernel_times(fwd, bwd, dev, dtype, shape, causal, flush,
+                        note=""):
+    """B2 (and B3 unless ``bwd`` is None) timed at one [B, S, N, D] shape
+    against the bound, the plain versions and SDPA (its backward as
+    forward + backward less forward); prints a ``kernel_time`` line
+    each."""
+    import torch
+
+    q, k, v, dout = _flash_inputs(dev, dtype, *shape, seed=95)
+    scale = 1.0 / float(np.sqrt(shape[-1]))
+    out, lse = fwd.kernel(q, k, v, causal, scale)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)
+
+    lib_f = time_ms(sdpa, flush)
+    label = (f"{'x'.join(map(str, shape))} {str(dtype)[6:]} "
+             f"{'causal' if causal else 'non-causal'}{note}")
+    runs = [(fwd, (q, k, v, causal, scale), lib_f, "")]
+    if bwd is not None:
+        lib_fb = time_ms(lambda: torch.autograd.grad(
+            sdpa(), (qt, kt, vt), dout.transpose(1, 2)), flush)
+        runs.append((bwd, (q, k, v, out, lse, dout, causal, scale),
+                     lib_fb - lib_f,
+                     " backward (forward+backward minus forward)"))
+    for entry, args, lib, what in runs:
+        bound_ms, bound_by = _bound(entry, *args)
+        say("kernel_time", kernel=entry.name, shape=label,
+            kernel_ms=time_ms(lambda: entry.kernel(*args), flush),
+            plain_ms=time_ms(lambda: entry.plain(*args), flush),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+            library="F.scaled_dot_product_attention" + what)
 
 
 # ---------------------------------------------------------- layernorm --
@@ -879,7 +947,18 @@ def layernorm_phase(entries, dev):
              ("few_rows_5x768", bf16, 5, 768),
              ("tall_32768x768", bf16, 32768, 768),
              ("c2048_1000x2048", bf16, 1000, 2048),
-             ("bert_f32_4096x768", f32, 4096, 768)]
+             ("bert_f32_4096x768", f32, 4096, 768),
+             # the Conformer's LayerNorms (16 x 250 frames of 144, f32)
+             ("conformer_f32_4000x144", f32, 4000, 144),
+             # wide rows, a block's each: gpt_6_7b's 4096, 8192, the
+             # first width past a warp's, a partial last chunk, few rows
+             ("wide_4096x4096", bf16, 4096, 4096),
+             ("wide_f32_4096x4096", f32, 4096, 4096),
+             ("wide_2048x8192", bf16, 2048, 8192),
+             ("wide_f32_2048x8192", f32, 2048, 8192),
+             ("wide_edge_300x2056", bf16, 300, 2056),
+             ("wide_partial_f32_1000x3000", f32, 1000, 3000),
+             ("wide_few_rows_3x8192", bf16, 3, 8192)]
     main_err = {}
     for i, (label, dtype, rows, c) in enumerate(cases):
         x, g, b, dy = _ln_inputs(dev, dtype, rows, c, seed=70 + i)
@@ -919,7 +998,8 @@ def layernorm_phase(entries, dev):
                       and torch.equal(held["out"][2], db))
     del graph, held
     plans = {}
-    for dtype, c in ((bf16, 768), (f32, 768), (bf16, 2048)):
+    for dtype, c in ((bf16, 768), (f32, 768), (bf16, 2048), (f32, 144),
+                     (bf16, 4096), (f32, 4096), (bf16, 8192), (f32, 8192)):
         info = lnk.bwd_kernel_info(dtype, c, dev)
         slots = info["blocks_per_sm"] * info["sms"]
         plans[f"{c} {dtype}"] = {
@@ -932,6 +1012,10 @@ def layernorm_phase(entries, dev):
     if not replay_bitwise:
         raise RuntimeError("layernorm backward: dgamma/dbeta of a graph "
                            "replay differ from the eager call's")
+    spilled = {k: p["local_bytes"] for k, p in plans.items()
+               if int(k.split()[0]) > lnk.NARROW_C and p["local_bytes"]}
+    if spilled:
+        raise RuntimeError(f"layernorm wide backward spills: {spilled}")
     records = []
     for entry, row in zip((fwd, bwd), _ln_kernel_times(
             fwd, bwd, x, g, b, dy, eps, flush, "8192x768 bf16")):
@@ -945,6 +1029,13 @@ def layernorm_phase(entries, dev):
     x, g, b, dy = _ln_inputs(dev, f32, 4096, 768, seed=96)
     _ln_kernel_times(fwd, bwd, x, g, b, dy, 1e-12, flush,
                      "4096x768 f32 (BERT-base eager)")
+    # the Conformer's (f32) and the wide rows (gpt_6_7b's 4096 and 8192)
+    for dtype, rows, c, note in ((f32, 4000, 144, " (Conformer)"),
+                                 (bf16, 4096, 4096, " (gpt_6_7b)"),
+                                 (bf16, 2048, 8192, "")):
+        x, g, b, dy = _ln_inputs(dev, dtype, rows, c, seed=94)
+        _ln_kernel_times(fwd, bwd, x, g, b, dy, eps, flush,
+                         f"{rows}x{c} {str(dtype)[6:]}{note}")
     return records
 
 
@@ -1455,6 +1546,22 @@ def device_phase():
     return name, smi
 
 
+def _spills(log):
+    """{mangled kernel name: (spill store bytes, spill load bytes)} of
+    every function whose ptxas report shows a spill."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn and (int(m.group(1)) or int(m.group(2))):
+            out[fn] = (int(m.group(1)), int(m.group(2)))
+    return out
+
+
 def build_phase():
     from paddle_tpu_torch.ops.cuda import _build
 
@@ -1463,7 +1570,12 @@ def build_phase():
     for name, (seconds, log) in built.items():
         report = [ln.strip() for ln in log.splitlines()
                   if "registers" in ln or "spill" in ln]
-        say("build", kernel=name, seconds=seconds, ptxas=report)
+        say("build", kernel=name, seconds=seconds, ptxas=report,
+            spills=_spills(log))
+    wide = {f: n for f, n in _spills(built["layernorm"][1]).items()
+            if "wide" in f}
+    if wide:
+        raise RuntimeError(f"the wide LayerNorm kernels spill: {wide}")
     say("build_total", seconds=time.perf_counter() - t0)
 
 
@@ -6859,6 +6971,433 @@ def ops_phase(dev, smi):
     return launches
 
 
+# ------------------------------------------------------- the speech path --
+SPEECH_SR = 16000
+SPEECH_SECONDS = 10
+# the Conformer paper's front end: 80 log-mel channels, 25 ms windows
+# every 10 ms
+SPEECH_FRONT_END = dict(sr=SPEECH_SR, n_fft=512, win_length=400,
+                        hop_length=160, n_mels=80)
+SPEECH_LABEL_LEN = 100       # characters in 10 s of read speech, about
+# the card's f32 (TF32 off) against the CPU port on the same weights and
+# features: cuDNN's convolutions, the flash and LayerNorm kernels and the
+# CPU's sum in other orders, through 8 blocks (Conformer) or 3 bi-GRU
+# layers over 251 steps (DeepSpeech2)
+SPEECH_F32_TOL = 1e-4
+SPEECH_KERNELS = _EAGER_KERNELS
+
+
+def _waves(paddle, batch, seed):
+    """``batch`` synthetic 10 s waveforms at 16 kHz from ``seed``: a few
+    harmonic tones under noise, as a Tensor on the current device."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(SPEECH_SR * SPEECH_SECONDS) / SPEECH_SR
+    f0 = rng.uniform(90, 250, (batch, 1))
+    wave = sum(np.sin(2 * np.pi * k * f0 * t + rng.uniform(0, 6, (batch, 1)))
+               / k for k in range(1, 6))
+    wave = wave + 0.05 * rng.randn(batch, t.size)
+    return paddle.to_tensor((0.1 * wave).astype(np.float32))
+
+
+def _log_mel(paddle, wave):
+    """[B, samples] -> log-mel features [B, T, 80] through the port's
+    ``audio.features.LogMelSpectrogram``."""
+    from paddle_tpu_torch.audio.features import LogMelSpectrogram
+
+    return LogMelSpectrogram(**SPEECH_FRONT_END)(wave).transpose([0, 2, 1])
+
+
+def _ctc_labels(paddle, batch, vocab, seed):
+    rng = np.random.RandomState(seed)
+    return paddle.to_tensor(rng.randint(1, vocab + 1,
+                                        (batch, SPEECH_LABEL_LEN))
+                            .astype(np.int32))
+
+
+def _on_cpu_like(paddle, make, model, dev):
+    """``make()`` built on the CPU with ``model``'s weights (moved from
+    the card by name); the current device is the card again after."""
+    paddle.set_device("cpu")
+    twin = make()
+    twin.set_state_dict({k: v.numpy() for k, v in model.state_dict().items()})
+    paddle.set_device(f"gpu:{dev.index or 0}")
+    return twin
+
+
+def _profiled_steps(step, steps, dev):
+    """``steps`` calls of ``step``, each timed on the host clock to a
+    synchronize, then one more under torch.profiler -> (losses, wall ms
+    of each step, ``_device_profile`` of the profiled one against the
+    median wall ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    losses, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        torch.cuda.synchronize(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        step()
+        torch.cuda.synchronize(dev)
+    wall = float(np.median(walls))
+    return losses, walls, _device_profile(prof, 1, wall)
+
+
+def _greedy_ctc(logits):
+    """Greedy CTC decode of logits [B, T, V] (blank 0): argmax a frame,
+    repeats merged, blanks dropped -> a list of label lists."""
+    best = logits.argmax(-1).cpu().numpy()
+    out = []
+    for row in best:
+        keep = np.concatenate([[True], row[1:] != row[:-1]]) & (row != 0)
+        out.append(row[keep].tolist())
+    return out
+
+
+def speech_phase(dev, smi, steps=5):
+    """The speech path at full width: 16 synthetic 16 kHz waveforms of
+    10 s (from a seed) -> ``LogMelSpectrogram`` (80 channels, 25 ms /
+    10 ms) -> ``Conformer()`` at the JAX package's defaults (feat 80,
+    d_model 144, 8 blocks, 4 heads, conv 15, vocab 29, dropout 0.1), f32
+    -> CTC -> AdamW, ``steps`` steps (every LayerNorm on B4a/B4b; the
+    attention's dropout takes the plain route in training, as the JAX
+    dispatcher sends it); then one step of ``Conformer(dropout=0.0)``
+    (B2 and B3 at head_dim 36 in the model) and an eval forward with a
+    greedy CTC decode (B2 at 16 x 251 x 4 x 36).  The first step's loss
+    of the dropout-free model and the eval logits are held against the
+    port on the CPU at batch 2 on the same weights and features (the
+    card's and the CPU's dropout draws differ, so the dropout model is
+    not), at ``SPEECH_F32_TOL``.  Then ``DeepSpeech2()`` at its defaults
+    (feat 64, 3 bi-GRU layers of 256) on 8 waveforms: 2 steps, the first
+    loss against the CPU port at batch 2; host-bound (a Python loop of
+    GRU cell launches and CTC's recursion), with wall and device ms a
+    step.  Each main path runs with the counts at 0 and is read just
+    after; returns the kernels' launches, summed."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.conformer import Conformer
+    from paddle_tpu_torch.models.deepspeech import DeepSpeech2
+    from paddle_tpu_torch.ops.cuda import registry
+
+    paddle.set_device(f"gpu:{dev.index or 0}")
+    launches = dict.fromkeys(SPEECH_KERNELS, 0)
+
+    def count(fn):
+        registry.reset_counts()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        for k, n in _counts(registry).items():
+            launches[k] += n
+        return out
+
+    # the front end, on the card and (for two waveforms) on the CPU
+    wave = _waves(paddle, 16, seed=7)
+    t0 = time.perf_counter()
+    feats = _log_mel(paddle, wave)
+    torch.cuda.synchronize(dev)
+    front_ms = (time.perf_counter() - t0) * 1e3
+    paddle.set_device("cpu")
+    cpu_feats = _log_mel(paddle, paddle.to_tensor(wave.numpy()[:2]))
+    paddle.set_device(f"gpu:{dev.index or 0}")
+    feat_err = _parity(torch.as_tensor(feats.numpy()[:2]), cpu_feats._data,
+                       SPEECH_F32_TOL)
+    say("speech_front_end", waves=list(wave.shape), feats=list(feats.shape),
+        ms=front_ms, against_cpu_max_abs_err=feat_err[0],
+        err_over_limit=feat_err[2], nvidia_smi=smi)
+    if not feat_err[3]:
+        raise RuntimeError(f"log-mel features differ from the CPU's: "
+                           f"{feat_err}")
+    labels = _ctc_labels(paddle, 16, 29, seed=8)
+
+    # Conformer at its defaults, dropout 0.1: the training steps
+    paddle.seed(0)
+    model = Conformer()
+    n_params = sum(p.size for p in model.parameters())
+    opt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=model.parameters())
+
+    def step():
+        loss = model.loss(model(feats), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, walls, prof = count(lambda: _profiled_steps(step, steps, dev))
+    n_ln = 6 * len(model.blocks)
+    step_counts = dict(launches)
+    say("speech_conformer_training", params=n_params, batch=16,
+        frames=feats.shape[1], losses=losses, wall_ms=walls, **prof,
+        launches=step_counts, layernorms_a_forward=n_ln,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+        nvidia_smi=smi)
+    want = {"layernorm_fwd": n_ln * (steps + 1),
+            "layernorm_bwd": n_ln * (steps + 1),
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    if step_counts != want:
+        raise RuntimeError(f"Conformer step launches {step_counts} != {want}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"Conformer losses not finite: {losses}")
+
+    # dropout 0.0: B2/B3 at head_dim 36 inside the model; its first step
+    # held against the CPU port at batch 2
+    paddle.seed(1)
+    model0 = Conformer(dropout=0.0)
+    cpu0 = _on_cpu_like(paddle, lambda: Conformer(dropout=0.0), model0, dev)
+    small_f, small_l = feats[:2], labels[:2]
+    loss_small = model0.loss(model0(small_f), small_l)
+    paddle.set_device("cpu")
+    cpu_small = cpu0.loss(cpu0(paddle.to_tensor(small_f.numpy())),
+                          paddle.to_tensor(small_l.numpy()))
+    paddle.set_device(f"gpu:{dev.index or 0}")
+    loss_err = abs(float(loss_small) - float(cpu_small)) / max(
+        1.0, abs(float(cpu_small)))
+    opt0 = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                  parameters=model0.parameters())
+    before = dict(launches)
+
+    def step0():
+        loss = model0.loss(model0(feats), labels)
+        loss.backward()
+        opt0.step()
+        opt0.clear_grad()
+        return loss
+
+    t0 = time.perf_counter()
+    loss0 = float(count(step0))
+    wall0 = (time.perf_counter() - t0) * 1e3
+    d36 = {k: launches[k] - before[k] for k in launches}
+    say("speech_conformer_no_dropout_step", loss=loss0, wall_ms=wall0,
+        launches=d36, batch2_loss=float(loss_small),
+        batch2_cpu_loss=float(cpu_small), batch2_loss_rel_err=loss_err,
+        tolerance=SPEECH_F32_TOL)
+    if d36["flash_attention_fwd"] != len(model0.blocks) or \
+            d36["flash_attention_bwd"] != len(model0.blocks):
+        raise RuntimeError(f"dropout-free step launches {d36}: B2 and B3 "
+                           f"must run once a block")
+    if not loss_err <= SPEECH_F32_TOL:
+        raise RuntimeError(f"Conformer batch-2 loss {float(loss_small)} "
+                           f"vs CPU {float(cpu_small)}")
+
+    # eval forward + greedy CTC decode (B2 at 16 x T' x 4 x 36)
+    model.eval()
+    before = dict(launches)
+    with paddle.no_grad():
+        t0 = time.perf_counter()
+        logits = count(lambda: model(feats))
+        eval_ms = (time.perf_counter() - t0) * 1e3
+    decoded = _greedy_ctc(logits._data)
+    ev = {k: launches[k] - before[k] for k in launches}
+    cpu_model = _on_cpu_like(paddle, Conformer, model, dev)
+    cpu_model.eval()
+    paddle.set_device("cpu")
+    with paddle.no_grad():
+        cpu_logits = cpu_model(paddle.to_tensor(small_f.numpy()))
+    paddle.set_device(f"gpu:{dev.index or 0}")
+    lerr = _parity(logits._data[:2].cpu(), cpu_logits._data, SPEECH_F32_TOL)
+    say("speech_conformer_eval", logits=list(logits.shape), ms=eval_ms,
+        launches=ev, decoded_lengths=[len(d) for d in decoded],
+        batch2_logits_max_abs_err=lerr[0], err_over_limit=lerr[2],
+        finite=bool(torch.isfinite(logits._data).all()))
+    if ev["flash_attention_fwd"] != len(model.blocks) or not lerr[3]:
+        raise RuntimeError(f"Conformer eval: launches {ev}, logits "
+                           f"against the CPU {lerr}")
+    del model, model0, opt, opt0, cpu0, cpu_model
+    torch.cuda.empty_cache()
+
+    # DeepSpeech2 at its defaults: 64 log-mel channels, 8 waveforms
+    ds_wave = _waves(paddle, 8, seed=9)
+    from paddle_tpu_torch.audio.features import LogMelSpectrogram
+
+    ds_front = dict(SPEECH_FRONT_END, n_mels=64)
+    ds_feats = LogMelSpectrogram(**ds_front)(ds_wave).transpose([0, 2, 1])
+    ds_labels = _ctc_labels(paddle, 8, 28, seed=10)
+    paddle.seed(2)
+    ds = DeepSpeech2()
+    cpu_ds = _on_cpu_like(paddle, DeepSpeech2, ds, dev)
+    ds_opt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                    parameters=ds.parameters())
+    first = ds.loss(ds(ds_feats[:2]), ds_labels[:2])
+    paddle.set_device("cpu")
+    cpu_first = cpu_ds.loss(cpu_ds(paddle.to_tensor(ds_feats.numpy()[:2])),
+                            paddle.to_tensor(ds_labels.numpy()[:2]))
+    paddle.set_device(f"gpu:{dev.index or 0}")
+    ds_err = abs(float(first) - float(cpu_first)) / max(
+        1.0, abs(float(cpu_first)))
+
+    def ds_step():
+        loss = ds.loss(ds(ds_feats), ds_labels)
+        loss.backward()
+        ds_opt.step()
+        ds_opt.clear_grad()
+        return loss
+
+    ds_losses, ds_walls, ds_prof = count(
+        lambda: _profiled_steps(ds_step, 1, dev))
+    say("speech_deepspeech2_training", params=sum(
+        p.size for p in ds.parameters()), batch=8,
+        frames=ds_feats.shape[1], losses=ds_losses, wall_ms=ds_walls,
+        **ds_prof, batch2_loss=float(first), batch2_cpu_loss=float(cpu_first),
+        batch2_loss_rel_err=ds_err, tolerance=SPEECH_F32_TOL, nvidia_smi=smi)
+    if not ds_err <= SPEECH_F32_TOL or not all(np.isfinite(ds_losses)):
+        raise RuntimeError(f"DeepSpeech2: losses {ds_losses}, batch-2 loss "
+                           f"{float(first)} vs CPU {float(cpu_first)}")
+    del ds, cpu_ds, ds_opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------- the vision zoo --
+ZOO = [("vgg16", 224), ("mobilenet_v2", 224), ("densenet121", 224),
+       ("squeezenet1_1", 224), ("shufflenet_v2_x1_0", 224),
+       ("inception_v3", 299)]
+ZOO_BATCH = 8
+# the card's f32 (cuDNN, TF32 off) against the CPU port on one set of
+# weights, relative to the largest logit: sums over up to 4608 terms, 16
+# to 121 layers deep
+ZOO_F32_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def _no_dropout(*models):
+    """Every ``nn.Dropout`` of ``models`` at p = 0 inside the block."""
+    layers = [m for model in models for m in model.sublayers()
+              if type(m).__name__ == "Dropout"]
+    saved = [m.p for m in layers]
+    for m in layers:
+        m.p = 0.0
+    try:
+        yield
+    finally:
+        for m, p in zip(layers, saved):
+            m.p = p
+
+
+def vision_zoo_phase(dev, smi):
+    """Each of the six default constructors built on the card in f32
+    (vgg16, mobilenet_v2, densenet121, squeezenet1_1, shufflenet_v2_x1_0,
+    inception_v3; 1000 classes): an eval forward at batch 8 over 224²
+    (299² for Inception) images, timed; the logits of two of those
+    images in train mode with dropout off (batch statistics: at random
+    initialisation the eval-mode logits of the deep models are ~1e-14)
+    held against the CPU port on the same weights and images at
+    ``ZOO_F32_TOL``; then ``Momentum(0.1, 0.9)`` steps on cross entropy
+    (dropout on), with device ms a step from torch.profiler and peak
+    memory.  No kernel of the port runs here: the convolutions are
+    cuDNN's, as they are XLA's in the JAX package."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+
+    for name, hw in ZOO:
+        paddle.set_device(f"gpu:{dev.index or 0}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        paddle.seed(0)
+        ctor = getattr(paddle.vision.models, name)
+        model = ctor()
+        x = paddle.to_tensor(np.random.RandomState(11).rand(
+            ZOO_BATCH, 3, hw, hw).astype(np.float32))
+        y = paddle.to_tensor(np.random.RandomState(12).randint(
+            0, 1000, (ZOO_BATCH,)))
+        model.eval()
+        with paddle.no_grad():
+            t0 = time.perf_counter()
+            logits = model(x)
+            torch.cuda.synchronize(dev)
+            eval_ms = (time.perf_counter() - t0) * 1e3
+        cpu = _on_cpu_like(paddle, ctor, model, dev)
+        model.train()
+        with _no_dropout(model, cpu), paddle.no_grad():
+            got = model(x[:2])
+            paddle.set_device("cpu")
+            want = cpu(paddle.to_tensor(x.numpy()[:2]))
+            paddle.set_device(f"gpu:{dev.index or 0}")
+        # relative to the logits' own scale (0.03 for VGG, 2e-4 for
+        # SqueezeNet at this initialisation, O(1) under BatchNorm)
+        scale = float(want._data.abs().max())
+        err = _parity(got._data.cpu() / scale, want._data / scale,
+                      ZOO_F32_TOL)
+        opt = paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                        parameters=model.parameters())
+
+        def step():
+            loss = paddle.nn.functional.cross_entropy(model(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        losses, walls, prof = _profiled_steps(step, 2, dev)
+        say("vision_zoo", model=name, input=[ZOO_BATCH, 3, hw, hw],
+            params=sum(p.size for p in model.parameters()),
+            eval_ms=eval_ms, eval_logits_max_abs=float(
+                logits._data.abs().max()),
+            batch2_train_logits_max_abs=float(want._data.abs().max()),
+            batch2_logits_rel_err=err[0],
+            err_over_limit=err[2], tolerance=ZOO_F32_TOL, losses=losses,
+            step_wall_ms=walls, **prof,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+            nvidia_smi=smi)
+        if not err[3] or not all(np.isfinite(losses)):
+            raise RuntimeError(f"{name}: logits against the CPU {err}, "
+                               f"losses {losses}")
+        del model, cpu, opt
+        torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- gpt_6_7b --
+def gpt_6_7b_phase(dev, smi, batch=2, seq=2048):
+    """``gpt_6_7b`` (hidden 4096, 32 layers of 32 heads, vocab 50304)
+    built in bf16 on the card from a seed (~13.4 GB of weights), then an
+    eval forward over ``batch`` x ``seq`` tokens: B4a at 4096 x 4096 on
+    every LayerNorm (2 a layer and the final), B2 causal at D 128 once a
+    layer.  The logits must be finite; device ms of the forward by CUDA
+    events, peak memory.  Counted alone; returns its launches."""
+    import torch
+
+    from paddle_tpu_torch.models.gpt import gpt_6_7b
+    from paddle_tpu_torch.ops.cuda import registry
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = gpt_6_7b(device=dev, seed=0, dtype=torch.bfloat16).eval()
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    ids = torch.as_tensor(np.random.RandomState(13).randint(
+        0, model.config.vocab_size, (batch, seq)), device=dev)
+    with torch.no_grad():
+        model(ids)                                 # first call: warm-up
+        registry.reset_counts()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits = model(ids)
+        b.record()
+        b.synchronize()
+    counts = _counts(registry)
+    layers = model.config.num_layers
+    want = {"layernorm_fwd": 2 * layers + 1, "layernorm_bwd": 0,
+            "flash_attention_fwd": layers, "flash_attention_bwd": 0}
+    finite = bool(torch.isfinite(logits).all())
+    say("gpt_6_7b_forward", tokens=[batch, seq], weights_bytes=weights,
+        build_s=build_s, forward_device_ms=a.elapsed_time(b),
+        launches=counts, logits=list(logits.shape), finite=finite,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+        nvidia_smi=smi)
+    if counts != want or not finite:
+        raise RuntimeError(f"gpt_6_7b forward: launches {counts} != {want} "
+                           f"or logits not finite ({finite})")
+    del model, logits
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "paddle_tpu_torch")):
         raise SystemExit("chip_smoke: run from a checkout that holds "
@@ -6870,6 +7409,13 @@ def main():
     dev = torch.device("cuda", 0)
     if sys.argv[1:] == ["ln_bwd_designs"]:
         ln_bwd_designs_phase(dev)
+        return
+    if sys.argv[1:] == ["kernels"]:
+        build_phase()
+        from paddle_tpu_torch.ops.cuda import registry
+
+        for names, phase in PARITY_PHASES.items():
+            phase({k: registry.KERNELS[k] for k in names}, dev)
         return
     if sys.argv[1:] == ["lora_tier"]:
         build_phase()
@@ -6898,6 +7444,12 @@ def main():
     if sys.argv[1:] == ["vision"]:
         build_phase()
         vision_phase(dev, smi)
+        return
+    if sys.argv[1:] == ["speech"]:
+        build_phase()
+        speech_phase(dev, smi)
+        vision_zoo_phase(dev, smi)
+        gpt_6_7b_phase(dev, smi)
         return
     if sys.argv[1:] == ["ops"]:
         build_phase()
@@ -6977,6 +7529,14 @@ def main():
     for kernel, n in ops_phase(dev, smi).items():
         launches[kernel] += n
     torch.cuda.empty_cache()
+    # and the speech path's Conformer and DeepSpeech2 runs (B2, B3, B4a,
+    # B4b), the zoo (no kernel) and gpt_6_7b's forward (B2, B4a at 4096),
+    # each counted alone
+    for kernel, n in speech_phase(dev, smi).items():
+        launches[kernel] += n
+    vision_zoo_phase(dev, smi)
+    for kernel, n in gpt_6_7b_phase(dev, smi).items():
+        launches[kernel] += n
     tooling_phase(dev, smi)
     for rec in records:
         rec["launches"] = launches[rec["name"]]

@@ -12,7 +12,8 @@ The top-level namespace is the Paddle API's eager front end, as far as
 it is ported: ``Tensor``/``to_tensor``, dtypes and places, ``seed``,
 grad modes, the creation and random functions, every registered op,
 ``grad``, ``nn``, ``optimizer``, ``amp``, ``jit``, ``save``/``load``,
-``io``, ``metric``, ``vision``, ``linalg``, ``fft``, ``signal`` and the high-level
+``io``, ``metric``, ``vision``, ``linalg``, ``fft``, ``signal``, ``audio``,
+``text`` and the high-level
 ``Model`` (``hapi``) with ``summary`` and ``flops``.
 
 The port imports ``torch`` and ``numpy`` only — never ``jax`` and
@@ -136,6 +137,8 @@ from .hapi import Model, flops, summary  # noqa: F401, E402
 from . import linalg  # noqa: F401, E402
 from . import fft  # noqa: F401, E402
 from . import signal  # noqa: F401, E402
+from . import audio  # noqa: F401, E402
+from . import text  # noqa: F401, E402
 
 
 def disable_static(place=None):

@@ -41,8 +41,8 @@
 // tiles of BN rows through a two-stage ring in shared memory: 16-byte
 // cp.async.cg copies into an XOR-swizzled bf16 layout (conflict-free
 // ldmatrix), the next tile in flight while the current one computes.
-// Rows past Sq/Sk and head-dim columns past D (D = 8, 24, 40, ... is
-// padded to the next of 32, 64, 128) are zero-filled by the copy; columns
+// Rows past Sq/Sk and head-dim columns past D (any D up to 128 is padded
+// to the next of 32, 64, 128) are zero-filled by the copy; columns
 // past Sk and the causal diagonal are masked in registers; tiles the
 // causal mask hides entirely are never loaded, and blockIdx.y is ordered
 // so that the longest causal loops start first.  Every product is
@@ -81,9 +81,24 @@
 // 64x64 wins: its 4-warp blocks give the most blocks and waste the least
 // work on causal diagonal tiles.
 //
-// Needs: D % 8 == 0 and 8 <= D <= 128, every stride a multiple of 8
-// elements and 16-byte aligned base pointers (16-byte copies), any
-// Sq, Sk >= 1.
+// Any head dim.  The Pallas kernel takes every D <= 128 (its block is the
+// whole head dim), so these kernels do too: 1 <= D <= 128, any Sq, Sk >= 1,
+// q/k/v/dO/O read through any strides with the last dim contiguous.  A
+// row of D = 36 bf16 is 72 bytes, so not every row starts on 16 bytes:
+// each tensor's copy width (Layout::vw) is the widest of 16, 8, 4 and 2
+// bytes that divides its base address, its strides and its row (D times
+// the element size), chosen on the host.  Rows and tiles keep their
+// padded layout; a copy narrower than 16 bytes fills one 16-byte chunk in
+// pieces (cp.async of 8 or 4 bytes with a zero-filling source size, or,
+// for 2-byte rows, plain loads and one 16-byte shared store), and chunks
+// past D are stored as zeros.  The softmax scale stays 1/sqrt(D) (the
+// caller's), never 1/sqrt of the padded width.  Outputs are written in
+// pairs where the row is 4-byte aligned and element by element where
+// not (odd D).  Every kernel has two instances: a launch whose tensors
+// all take 16-byte copies at D % 8 == 0 (every contiguous or packed
+// q/k/v of such a D) runs the aligned one (template V), compiled without
+// the narrower copies' branches, as the kernels were before they took
+// any D; every other launch runs the general one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,13 +118,35 @@ constexpr float kNegInf = -1e30f;
 
 struct Layout {
   long long b, s, n;  // element strides of batch, sequence, head
+  int vw;             // bytes a copy: the widest of 16, 8, 4, 2 aligned
 };
 
-__device__ __forceinline__ void load8(const float* src, float* dst) {
-  const float4 a = reinterpret_cast<const float4*>(src)[0];
-  const float4 b = reinterpret_cast<const float4*>(src)[1];
-  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
-  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
+// Elements [0, n) of an 8-element chunk of an f32 row into x, zeros past
+// n, read in copies of vw bytes (n is a multiple of vw / 4: the row and
+// the chunk start are vw-aligned).
+__device__ __forceinline__ void load8(const float* src, int n, int vw,
+                                      float* x) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = 0.f;
+  if (vw == 16) {
+#pragma unroll
+    for (int j = 0; j < 8; j += 4)
+      if (j < n) {
+        const float4 a = *reinterpret_cast<const float4*>(src + j);
+        x[j] = a.x; x[j + 1] = a.y; x[j + 2] = a.z; x[j + 3] = a.w;
+      }
+  } else if (vw == 8) {
+#pragma unroll
+    for (int j = 0; j < 8; j += 2)
+      if (j < n) {
+        const float2 a = *reinterpret_cast<const float2*>(src + j);
+        x[j] = a.x; x[j + 1] = a.y;
+      }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (j < n) x[j] = src[j];
+  }
 }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -128,51 +165,49 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // Rows [r0, r0 + 64) of one (b, n) slice into shared memory as f32 times
-// ``mul``; rows at or past ``rows`` read as zeros.  Transposed: dst[d][r]
-// with row length kPadT; otherwise dst[r][d] with row length D + 1.
-template <typename T>
-__device__ void load_tile_t(const T* base, long long stride, int r0, int rows,
-                            int D, float mul, float* dst) {
-  const int vecs = D / 8;
+// ``mul``; rows at or past ``rows`` read as zeros, copies of ``vw`` bytes.
+// Transposed: dst[d][r] with row length kPadT; otherwise dst[r][d] with
+// row length D + 1.  V: every row 16-byte aligned and D % 8 == 0, the
+// launch's common case, compiled without the narrower copies' branches.
+template <bool V, typename T>
+__device__ void load_tile_t(const T* base, long long stride, int vw, int r0,
+                            int rows, int D, float mul, float* dst) {
+  if constexpr (V) vw = 16;
+  const int vecs = (D + 7) / 8;
   for (int e = threadIdx.x; e < kBQ * vecs; e += kThreads) {
     const int r = e % kBQ;  // neighbouring lanes: neighbouring rows, so the
     const int dv = (e / kBQ) * 8;  // transposed stores hit distinct banks
     float x[8];
-    if (r0 + r < rows) {
-      load8(base + (long long)(r0 + r) * stride + dv, x);
-    } else {
+    load8(base + (long long)(r0 + r) * stride + dv,
+          r0 + r < rows ? (V ? 8 : min(8, D - dv)) : 0, vw, x);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) x[j] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(dv + j) * kPadT + r] = x[j] * mul;
+    for (int j = 0; j < 8; ++j)
+      if (V || dv + j < D) dst[(dv + j) * kPadT + r] = x[j] * mul;
   }
 }
 
-template <typename T>
-__device__ void load_tile(const T* base, long long stride, int r0, int rows,
-                          int D, float* dst) {
-  const int vecs = D / 8;
+template <bool V, typename T>
+__device__ void load_tile(const T* base, long long stride, int vw, int r0,
+                          int rows, int D, float* dst) {
+  if constexpr (V) vw = 16;
+  const int vecs = (D + 7) / 8;
   const int ld = D + 1;
   for (int e = threadIdx.x; e < kBK * vecs; e += kThreads) {
     const int r = e / vecs;
     const int dv = (e % vecs) * 8;
     float x[8];
-    if (r0 + r < rows) {
-      load8(base + (long long)(r0 + r) * stride + dv, x);
-    } else {
+    load8(base + (long long)(r0 + r) * stride + dv,
+          r0 + r < rows ? (V ? 8 : min(8, D - dv)) : 0, vw, x);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) x[j] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[r * ld + dv + j] = x[j];
+    for (int j = 0; j < 8; ++j)
+      if (V || dv + j < D) dst[r * ld + dv + j] = x[j];
   }
 }
 
 // ---------------------------------------------------------------- forward --
 // Grid (ceil(Sq / 64), B * N).  Shared: qT [D][kPadT] (q * scale),
 // ks / vs [64][D + 1], pT [64 keys][kPadT].
-template <typename T, int DC>
+template <typename T, int DC, bool V>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
@@ -194,7 +229,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * lk.b + n * lk.n;
   const T* vb = v + b * lv.b + n * lv.n;
 
-  load_tile_t(q + b * lq.b + n * lq.n, lq.s, q0, Sq, D, scale, qT);
+  load_tile_t<V>(q + b * lq.b + n * lq.n, lq.s, lq.vw, q0, Sq, D, scale, qT);
 
   float m[4], l[4], acc[4][DC];
 #pragma unroll
@@ -208,8 +243,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = causal ? min(Sk, q0 + kBQ) : Sk;
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile(kb, lk.s, k0, Sk, D, ks);
-    load_tile(vb, lv.s, k0, Sk, D, vs);
+    load_tile<V>(kb, lk.s, lk.vw, k0, Sk, D, ks);
+    load_tile<V>(vb, lv.s, lv.vw, k0, Sk, D, vs);
     __syncthreads();
 
     float s[4][4];
@@ -289,7 +324,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ------------------------------------------------------------ backward dq --
 // Grid (ceil(Sq / 64), B * N).  Shared: qT, doT [D][kPadT], ks, vs
 // [64][D + 1], dsT [64 keys][kPadT].
-template <typename T, int DC>
+template <typename T, int DC, bool V>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -314,8 +349,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * lk.b + n * lk.n;
   const T* vb = v + b * lv.b + n * lv.n;
 
-  load_tile_t(q + b * lq.b + n * lq.n, lq.s, q0, Sq, D, 1.f, qT);
-  load_tile_t(dout + b * ldo.b + n * ldo.n, ldo.s, q0, Sq, D, 1.f, doT);
+  load_tile_t<V>(q + b * lq.b + n * lq.n, lq.s, lq.vw, q0, Sq, D, 1.f, qT);
+  load_tile_t<V>(dout + b * ldo.b + n * ldo.n, ldo.s, ldo.vw, q0, Sq, D, 1.f, doT);
   float lse_r[4], delta_r[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -333,8 +368,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = causal ? min(Sk, q0 + kBQ) : Sk;
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
     __syncthreads();
-    load_tile(kb, lk.s, k0, Sk, D, ks);
-    load_tile(vb, lv.s, k0, Sk, D, vs);
+    load_tile<V>(kb, lk.s, lk.vw, k0, Sk, D, ks);
+    load_tile<V>(vb, lv.s, lv.vw, k0, Sk, D, vs);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -406,7 +441,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Grid (ceil(Sk / 64), B * N).  Thread (ty, tx) keeps keys k0 + ty*4 + i
 // and queries q0 + tx + 16 j.  Shared: kT, vT [D][kPadT] (this block's
 // keys), qs, dos [64][D + 1], pS, dsS [64 queries][kPadT], lse, delta.
-template <typename T, int DC>
+template <typename T, int DC, bool V>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -434,8 +469,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + b * lq.b + n * lq.n;
   const T* ob = dout + b * ldo.b + n * ldo.n;
 
-  load_tile_t(k + b * lk.b + n * lk.n, lk.s, k0, Sk, D, 1.f, kT);
-  load_tile_t(v + b * lv.b + n * lv.n, lv.s, k0, Sk, D, 1.f, vT);
+  load_tile_t<V>(k + b * lk.b + n * lk.n, lk.s, lk.vw, k0, Sk, D, 1.f, kT);
+  load_tile_t<V>(v + b * lv.b + n * lv.n, lv.s, lv.vw, k0, Sk, D, 1.f, vT);
 
   float acc_k[4][DC], acc_v[4][DC];
 #pragma unroll
@@ -447,8 +482,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_begin = causal ? (k0 / kBQ) * kBQ : 0;
   for (int q0 = q_begin; q0 < Sq; q0 += kBQ) {
     __syncthreads();
-    load_tile(qb, lq.s, q0, Sq, D, qs);
-    load_tile(ob, ldo.s, q0, Sq, D, dos);
+    load_tile<V>(qb, lq.s, lq.vw, q0, Sq, D, qs);
+    load_tile<V>(ob, ldo.s, ldo.vw, q0, Sq, D, dos);
     for (int r = threadIdx.x; r < kBQ; r += kThreads) {
       const bool live = q0 + r < Sq;
       lse_s[r] = live ? lse[(long long)bn * Sq + q0 + r] : 0.f;
@@ -538,12 +573,22 @@ size_t dkv_smem(int D) {
   return sizeof(float) * (2 * D * kPadT + 2 * kBQ * (D + 1) + 2 * kBQ * kPadT + 2 * kBQ);
 }
 
-Layout layout(const long long* strides, int t) {
-  return Layout{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
+// The (batch, seq, head) strides of tensor t of ``strides`` and its copy
+// width: the widest of 16, 8, 4 and 2 bytes (at least the element size)
+// dividing its address ``p``, every stride and its row of D elements.
+Layout layout(const long long* strides, int t, const void* p, int D,
+              int esize) {
+  Layout l{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2], 16};
+  const unsigned long long bits =
+      (unsigned long long)reinterpret_cast<uintptr_t>(p) |
+      (unsigned long long)(l.b * esize) | (unsigned long long)(l.s * esize) |
+      (unsigned long long)(l.n * esize) | (unsigned long long)(D * esize);
+  while (l.vw > esize && (bits & (l.vw - 1))) l.vw >>= 1;
+  return l;
 }
 
 bool shape_ok(int D, int Sq, int Sk) {
-  return D % 8 == 0 && D >= 8 && D <= kMaxD && Sq >= 1 && Sk >= 1;
+  return D >= 1 && D <= kMaxD && Sq >= 1 && Sk >= 1;
 }
 
 // Shared memory above 48 KB must be allowed per kernel.  Each kernel
@@ -579,87 +624,87 @@ delta_f32_kernel(const float* __restrict__ out, const float* __restrict__ dout,
   if (lane == 0) delta[w] = acc;
 }
 
-template <int DC>
+template <int DC, bool V>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                float* lse, int B, int N, int Sq, int Sk, int D,
                const long long* st, int causal, float scale, cudaStream_t s) {
   static bool raised = false;  // per DC
   const size_t smem = fwd_smem(D);
-  cudaError_t err = allow_smem(flash_fwd_kernel<float, DC>, fwd_smem(kMaxD), &raised);
+  cudaError_t err = allow_smem(flash_fwd_kernel<float, DC, V>, fwd_smem(kMaxD), &raised);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * N);
-  flash_fwd_kernel<float, DC><<<grid, kThreads, smem, s>>>(
+  flash_fwd_kernel<float, DC, V><<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, N, Sq, Sk,
-      D, layout(st, 0), layout(st, 1), layout(st, 2), layout(st, 3), causal,
-      scale);
+      D, layout(st, 0, q, D, 4), layout(st, 1, k, D, 4),
+      layout(st, 2, v, D, 4), layout(st, 3, out, D, 4), causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <int DC>
+template <int DC, bool V>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const void* out, const float* lse, float* delta, void* dq,
                void* dk, void* dv, int B, int N, int Sq, int Sk, int D,
                const long long* st, int causal, float scale, cudaStream_t s) {
   static bool raised_dq = false, raised_dkv = false;  // per DC
+  const void* ptrs[8] = {q, k, v, dout, dq, dk, dv, out};
+  auto lay = [&](int t) { return layout(st, t, ptrs[t], D, 4); };
   const long long rows = (long long)B * N * Sq;
   delta_f32_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
       static_cast<const float*>(out), static_cast<const float*>(dout), delta,
-      N, Sq, D, rows, layout(st, 7), layout(st, 3));
+      N, Sq, D, rows, lay(7), lay(3));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   size_t smem = dq_smem(D);
-  err = allow_smem(flash_bwd_dq_kernel<float, DC>, dq_smem(kMaxD), &raised_dq);
+  err = allow_smem(flash_bwd_dq_kernel<float, DC, V>, dq_smem(kMaxD), &raised_dq);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<float, DC><<<dim3((Sq + kBQ - 1) / kBQ, B * N),
+  flash_bwd_dq_kernel<float, DC, V><<<dim3((Sq + kBQ - 1) / kBQ, B * N),
                                    kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dq), N, Sq, Sk, D, layout(st, 0),
-      layout(st, 1), layout(st, 2), layout(st, 3), layout(st, 4), causal,
-      scale);
+      delta, static_cast<float*>(dq), N, Sq, Sk, D, lay(0), lay(1), lay(2),
+      lay(3), lay(4), causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   smem = dkv_smem(D);
-  err = allow_smem(flash_bwd_dkv_kernel<float, DC>, dkv_smem(kMaxD), &raised_dkv);
+  err = allow_smem(flash_bwd_dkv_kernel<float, DC, V>, dkv_smem(kMaxD), &raised_dkv);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<float, DC><<<dim3((Sk + kBK - 1) / kBK, B * N),
+  flash_bwd_dkv_kernel<float, DC, V><<<dim3((Sk + kBK - 1) / kBK, B * N),
                                     kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
       delta, static_cast<float*>(dk), static_cast<float*>(dv), N, Sq, Sk, D,
-      layout(st, 0), layout(st, 1), layout(st, 2), layout(st, 3),
-      layout(st, 5), layout(st, 6), causal, scale);
+      lay(0), lay(1), lay(2), lay(3), lay(5), lay(6), causal, scale);
   return (int)cudaGetLastError();
 }
 
 // The f32 launches at these sizes, as kinfo records.
-template <int DC>
+template <int DC, bool V>
 int info_fwd(int B, int N, int Sq, int D, int* out) {
   static bool raised = false;
-  cudaError_t err = allow_smem(flash_fwd_kernel<float, DC>, fwd_smem(kMaxD), &raised);
+  cudaError_t err = allow_smem(flash_fwd_kernel<float, DC, V>, fwd_smem(kMaxD), &raised);
   if (err != cudaSuccess) return (int)err;
-  return kinfo::record(flash_fwd_kernel<float, DC>,
+  return kinfo::record(flash_fwd_kernel<float, DC, V>,
                        dim3((Sq + kBQ - 1) / kBQ, B * N), kThreads,
                        fwd_smem(D), out);
 }
 
-template <int DC>
+template <int DC, bool V>
 int info_bwd(int B, int N, int Sq, int Sk, int D, int* out) {
   static bool raised_dq = false, raised_dkv = false;
   const long long rows = (long long)B * N * Sq;
   int e = kinfo::record(delta_f32_kernel, dim3((unsigned)((rows + 7) / 8)),
                         256, 0, out);
   if (e) return e;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<float, DC>, dq_smem(kMaxD), &raised_dq);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<float, DC, V>, dq_smem(kMaxD), &raised_dq);
   if (err != cudaSuccess) return (int)err;
-  e = kinfo::record(flash_bwd_dq_kernel<float, DC>,
+  e = kinfo::record(flash_bwd_dq_kernel<float, DC, V>,
                     dim3((Sq + kBQ - 1) / kBQ, B * N), kThreads, dq_smem(D),
                     out);
   if (e) return e;
-  err = allow_smem(flash_bwd_dkv_kernel<float, DC>, dkv_smem(kMaxD), &raised_dkv);
+  err = allow_smem(flash_bwd_dkv_kernel<float, DC, V>, dkv_smem(kMaxD), &raised_dkv);
   if (err != cudaSuccess) return (int)err;
-  return kinfo::record(flash_bwd_dkv_kernel<float, DC>,
+  return kinfo::record(flash_bwd_dkv_kernel<float, DC, V>,
                        dim3((Sk + kBK - 1) / kBK, B * N), kThreads,
                        dkv_smem(D), out);
 }
@@ -688,6 +733,22 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+
+// four 32-bit words to 16 bytes of shared memory
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint32_t a,
+                                            uint32_t b, uint32_t c,
+                                            uint32_t d) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(a), "r"(b), "r"(c), "r"(d)
                : "memory");
 }
 
@@ -780,23 +841,65 @@ __device__ __forceinline__ uint32_t bn_addr(int n0, int kk, int lane) {
 
 // Async copy of rows [r0, r0 + ROWS) of one (b, n) slice into a swizzled
 // [ROWS][DP] tile at shared address ``dst``; rows at or past ``rows`` and
-// columns at or past D are zeros.
-template <int DP, int ROWS, int NT>
+// columns at or past D are zeros.  ``vw`` is the row's copy width (see
+// Layout): a 16-byte chunk is one cp.async at 16, two or four at 8 or 4
+// (the pieces past D zero-filled by a source size of 0), and at 2 a plain
+// load of its elements and one shared store.  The pieces of a chunk past
+// D read nothing; their address is the chunk's start, inside the row.
+template <int DP, int ROWS, int NT, bool V>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base,
-                                          long long stride, int r0, int rows,
-                                          int D) {
+                                          long long stride, int vw, int r0,
+                                          int rows, int D) {
   constexpr int R = DP / 8;
   for (int e = threadIdx.x; e < ROWS * R; e += NT) {
     const int r = e / R, c = e % R;
-    const bool ok = r0 + r < rows && c * 8 < D;
-    cp_async16(dst + swz<DP>(r, c),
-               ok ? base + (long long)(r0 + r) * stride + c * 8 : base, ok);
+    if constexpr (V) {  // 16-byte rows, D % 8 == 0: one copy a chunk
+      const bool ok = r0 + r < rows && c * 8 < D;
+      cp_async16(dst + swz<DP>(r, c),
+                 ok ? base + (long long)(r0 + r) * stride + c * 8 : base, ok);
+      continue;
+    }
+    const uint32_t d = dst + swz<DP>(r, c);
+    const int n = r0 + r < rows ? min(8, D - c * 8) : 0;  // live elements
+    if (n <= 0) {
+      st_shared16(d, 0u, 0u, 0u, 0u);
+      continue;
+    }
+    const bf16* src = base + (long long)(r0 + r) * stride + c * 8;
+    if (vw == 16) {
+      cp_async16(d, src, true);
+    } else if (vw == 8) {
+      cp_async8(d, src, true);
+      cp_async8(d + 8, n > 4 ? src + 4 : src, n > 4);
+    } else if (vw == 4) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        cp_async4(d + 4 * i, 2 * i < n ? src + 2 * i : src, 2 * i < n);
+    } else {
+      const unsigned short* h = reinterpret_cast<const unsigned short*>(src);
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[i] = (2 * i < n ? (uint32_t)h[2 * i] : 0u) |
+               ((2 * i + 1 < n ? (uint32_t)h[2 * i + 1] : 0u) << 16);
+      st_shared16(d, w[0], w[1], w[2], w[3]);
+    }
   }
 }
 
-// f32 (x, y) -> two bf16 at p (4-byte aligned)
-__device__ __forceinline__ void store2(bf16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+// f32 (x, y) -> bf16 at columns col, col + 1 of the row at p: a pair where
+// both are inside D and p + col is 4-byte aligned (always, under V), else
+// one by one
+template <bool V>
+__device__ __forceinline__ void store2(bf16* p, int col, int D, float x,
+                                       float y) {
+  p += col;
+  if (V || (col + 1 < D && !(reinterpret_cast<uintptr_t>(p) & 3))) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+  } else {
+    if (col < D) p[0] = __float2bfloat16(x);
+    if (col + 1 < D) p[1] = __float2bfloat16(y);
+  }
 }
 
 // quad (the 4 lanes that share a row of a C fragment) reductions
@@ -814,7 +917,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 // Grid (B * N, ceil(Sq / BM)), BM / 16 warps.  Shared: Q [BM][DP], then two
 // stages of K [BN][DP] and V [BN][DP].  Lane (g = lane / 4, t = lane % 4)
 // of warp w holds rows q0 + 16 w + g and + 8 of the score tile.
-template <int DP, int BM, int BN>
+template <int DP, int BM, int BN, bool V>
 __global__ void __launch_bounds__(BM * 2, 1)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -837,10 +940,10 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kv_end = causal ? min(Sk, q0 + BM) : Sk;
   const int tiles = (kv_end + BN - 1) / BN;
 
-  load_tile<DP, BM, NT>(sq, q + b * lq.b + n * lq.n, lq.s, q0, Sq, D);
+  load_tile<DP, BM, NT, V>(sq, q + b * lq.b + n * lq.n, lq.s, lq.vw, q0, Sq, D);
   cp_async_commit();
-  load_tile<DP, BN, NT>(skv, kb, lk.s, 0, Sk, D);
-  load_tile<DP, BN, NT>(skv + kTile, vb, lv.s, 0, Sk, D);
+  load_tile<DP, BN, NT, V>(skv, kb, lk.s, lk.vw, 0, Sk, D);
+  load_tile<DP, BN, NT, V>(skv + kTile, vb, lv.s, lv.vw, 0, Sk, D);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -858,8 +961,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = it * BN;
     if (it + 1 < tiles) {
       const uint32_t nxt = skv + ((it + 1) & 1) * 2 * kTile;
-      load_tile<DP, BN, NT>(nxt, kb, lk.s, k0 + BN, Sk, D);
-      load_tile<DP, BN, NT>(nxt + kTile, vb, lv.s, k0 + BN, Sk, D);
+      load_tile<DP, BN, NT, V>(nxt, kb, lk.s, lk.vw, k0 + BN, Sk, D);
+      load_tile<DP, BN, NT, V>(nxt + kTile, vb, lv.s, lv.vw, k0 + BN, Sk, D);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -951,8 +1054,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < ND; ++j) {
     const int col = j * 8 + t4 * 2;
     if (col >= D) continue;
-    if (row0 < Sq) store2(ob + (long long)row0 * lo.s + col, o[j][0] * inv0, o[j][1] * inv0);
-    if (row1 < Sq) store2(ob + (long long)row1 * lo.s + col, o[j][2] * inv1, o[j][3] * inv1);
+    if (row0 < Sq) store2<V>(ob + (long long)row0 * lo.s, col, D, o[j][0] * inv0, o[j][1] * inv0);
+    if (row1 < Sq) store2<V>(ob + (long long)row1 * lo.s, col, D, o[j][2] * inv1, o[j][3] * inv1);
   }
   if (t4 == 0) {
     if (row0 < Sq) lse[(long long)bn * Sq + row0] = m0 * scale + logf(l0);
@@ -964,7 +1067,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Grid (B * N, ceil(Sq / BM)).  Shared: Q, dO, O [BM][DP], then two stages
 // of K [BN][DP] and V [BN][DP].  Writes delta for its rows first; the dk/dv
 // kernel, next on the stream, reads it.
-template <int DP, int BM, int BN>
+template <int DP, int BM, int BN, bool V>
 __global__ void __launch_bounds__(BM * 2, 1)
 flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -992,12 +1095,12 @@ flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kv_end = causal ? min(Sk, q0 + BM) : Sk;
   const int tiles = (kv_end + BN - 1) / BN;
 
-  load_tile<DP, BM, NT>(sq, q + b * lq.b + n * lq.n, lq.s, q0, Sq, D);
-  load_tile<DP, BM, NT>(sdo, dob, ldo.s, q0, Sq, D);
-  load_tile<DP, BM, NT>(so, out + b * lo.b + n * lo.n, lo.s, q0, Sq, D);
+  load_tile<DP, BM, NT, V>(sq, q + b * lq.b + n * lq.n, lq.s, lq.vw, q0, Sq, D);
+  load_tile<DP, BM, NT, V>(sdo, dob, ldo.s, ldo.vw, q0, Sq, D);
+  load_tile<DP, BM, NT, V>(so, out + b * lo.b + n * lo.n, lo.s, lo.vw, q0, Sq, D);
   cp_async_commit();
-  load_tile<DP, BN, NT>(skv, kb, lk.s, 0, Sk, D);
-  load_tile<DP, BN, NT>(skv + kTile, vb, lv.s, 0, Sk, D);
+  load_tile<DP, BN, NT, V>(skv, kb, lk.s, lk.vw, 0, Sk, D);
+  load_tile<DP, BN, NT, V>(skv + kTile, vb, lv.s, lv.vw, 0, Sk, D);
   cp_async_commit();
   const float lb0 = row0 < Sq ? lse[(long long)bn * Sq + row0] * kLog2e : 0.f;
   const float lb1 = row1 < Sq ? lse[(long long)bn * Sq + row1] * kLog2e : 0.f;
@@ -1043,8 +1146,8 @@ flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = it * BN;
     if (it + 1 < tiles) {
       const uint32_t nxt = skv + ((it + 1) & 1) * 2 * kTile;
-      load_tile<DP, BN, NT>(nxt, kb, lk.s, k0 + BN, Sk, D);
-      load_tile<DP, BN, NT>(nxt + kTile, vb, lv.s, k0 + BN, Sk, D);
+      load_tile<DP, BN, NT, V>(nxt, kb, lk.s, lk.vw, k0 + BN, Sk, D);
+      load_tile<DP, BN, NT, V>(nxt + kTile, vb, lv.s, lv.vw, k0 + BN, Sk, D);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -1105,8 +1208,8 @@ flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < ND; ++j) {
     const int col = j * 8 + t4 * 2;
     if (col >= D) continue;
-    if (row0 < Sq) store2(ob + (long long)row0 * ldq.s + col, acc[j][0], acc[j][1]);
-    if (row1 < Sq) store2(ob + (long long)row1 * ldq.s + col, acc[j][2], acc[j][3]);
+    if (row0 < Sq) store2<V>(ob + (long long)row0 * ldq.s, col, D, acc[j][0], acc[j][1]);
+    if (row1 < Sq) store2<V>(ob + (long long)row1 * ldq.s, col, D, acc[j][2], acc[j][3]);
   }
 }
 
@@ -1116,7 +1219,7 @@ flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // scores S^T = K Q^T.  Shared: K, V [BM][DP], then two stages of Q [BN][DP],
 // dO [BN][DP], lse [BN] and delta [BN] f32.  K and V fragments stay in
 // registers for DP <= 64 and are read from shared memory for DP = 128.
-template <int DP, int BM, int BN>
+template <int DP, int BM, int BN, bool V>
 __global__ void __launch_bounds__(BM * 2, 1)
 flash_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -1151,8 +1254,8 @@ flash_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto load_stage = [&](int st, int q0) {
     const uint32_t base = sring + st * kStage;
-    load_tile<DP, BN, NT>(base, qb, lq.s, q0, Sq, D);
-    load_tile<DP, BN, NT>(base + kTile, gb, ldo.s, q0, Sq, D);
+    load_tile<DP, BN, NT, V>(base, qb, lq.s, lq.vw, q0, Sq, D);
+    load_tile<DP, BN, NT, V>(base + kTile, gb, ldo.s, ldo.vw, q0, Sq, D);
     for (int r = threadIdx.x; r < BN; r += NT) {
       const bool ok = q0 + r < Sq;
       cp_async4(base + 2 * kTile + r * 4, ok ? lseb + q0 + r : lseb, ok);
@@ -1160,8 +1263,8 @@ flash_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 
-  load_tile<DP, BM, NT>(sk, k + b * lk.b + n * lk.n, lk.s, k0, Sk, D);
-  load_tile<DP, BM, NT>(sv, v + b * lv.b + n * lv.n, lv.s, k0, Sk, D);
+  load_tile<DP, BM, NT, V>(sk, k + b * lk.b + n * lk.n, lk.s, lk.vw, k0, Sk, D);
+  load_tile<DP, BM, NT, V>(sv, v + b * lv.b + n * lv.n, lv.s, lv.vw, k0, Sk, D);
   cp_async_commit();
   load_stage(0, q_begin);
   cp_async_commit();
@@ -1265,12 +1368,12 @@ flash_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int col = j * 8 + t4 * 2;
     if (col >= D) continue;
     if (key0 < Sk) {
-      store2(kout + (long long)key0 * ldk.s + col, ak[j][0], ak[j][1]);
-      store2(vout + (long long)key0 * ldv.s + col, av[j][0], av[j][1]);
+      store2<V>(kout + (long long)key0 * ldk.s, col, D, ak[j][0], ak[j][1]);
+      store2<V>(vout + (long long)key0 * ldv.s, col, D, av[j][0], av[j][1]);
     }
     if (key1 < Sk) {
-      store2(kout + (long long)key1 * ldk.s + col, ak[j][2], ak[j][3]);
-      store2(vout + (long long)key1 * ldv.s + col, av[j][2], av[j][3]);
+      store2<V>(kout + (long long)key1 * ldk.s, col, D, ak[j][2], ak[j][3]);
+      store2<V>(vout + (long long)key1 * ldv.s, col, D, av[j][2], av[j][3]);
     }
   }
 }
@@ -1286,24 +1389,24 @@ int check_grid(int S, int BM) {
   return (S + BM - 1) / BM <= 65535 ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int DP, int BM, int BN>
+template <int DP, int BM, int BN, bool V>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                float* lse, int B, int N, int Sq, int Sk, int D,
                const long long* st, int causal, float scale, cudaStream_t s) {
   static bool raised = false;  // per instantiation
   constexpr size_t smem = fwd_bytes(DP, BM, BN);
   if (int e = check_grid(Sq, BM)) return e;
-  cudaError_t err = allow_smem(flash_fwd_tc<DP, BM, BN>, smem, &raised);
+  cudaError_t err = allow_smem(flash_fwd_tc<DP, BM, BN, V>, smem, &raised);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_tc<DP, BM, BN><<<dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem, s>>>(
+  flash_fwd_tc<DP, BM, BN, V><<<dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, N, Sq, Sk,
-      D, layout(st, 0), layout(st, 1), layout(st, 2), layout(st, 3), causal,
-      scale);
+      D, layout(st, 0, q, D, 2), layout(st, 1, k, D, 2),
+      layout(st, 2, v, D, 2), layout(st, 3, out, D, 2), causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <int DP, int BM, int BN>
+template <int DP, int BM, int BN, bool V>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const void* out, const float* lse, float* delta, void* dq,
                void* dk, void* dv, int B, int N, int Sq, int Sk, int D,
@@ -1311,59 +1414,117 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   static bool raised_dq = false, raised_dkv = false;  // per instantiation
   constexpr size_t smem_dq = dq_bytes(DP, BM, BN);
   constexpr size_t smem_dkv = dkv_bytes(DP, BM, BN);
+  const void* ptrs[8] = {q, k, v, dout, dq, dk, dv, out};
+  auto lay = [&](int t) { return layout(st, t, ptrs[t], D, 2); };
   if (int e = check_grid(Sq, BM)) return e;
   if (int e = check_grid(Sk, BM)) return e;
-  cudaError_t err = allow_smem(flash_dq_tc<DP, BM, BN>, smem_dq, &raised_dq);
+  cudaError_t err = allow_smem(flash_dq_tc<DP, BM, BN, V>, smem_dq, &raised_dq);
   if (err != cudaSuccess) return (int)err;
-  flash_dq_tc<DP, BM, BN><<<dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem_dq, s>>>(
+  flash_dq_tc<DP, BM, BN, V><<<dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem_dq, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const bf16*>(out), lse, delta, static_cast<bf16*>(dq), N,
-      Sq, Sk, D, layout(st, 0), layout(st, 1), layout(st, 2), layout(st, 3),
-      layout(st, 7), layout(st, 4), causal, scale);
+      Sq, Sk, D, lay(0), lay(1), lay(2), lay(3), lay(7), lay(4), causal,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = allow_smem(flash_dkv_tc<DP, BM, BN>, smem_dkv, &raised_dkv);
+  err = allow_smem(flash_dkv_tc<DP, BM, BN, V>, smem_dkv, &raised_dkv);
   if (err != cudaSuccess) return (int)err;
-  flash_dkv_tc<DP, BM, BN><<<dim3(B * N, (Sk + BM - 1) / BM), BM * 2, smem_dkv, s>>>(
+  flash_dkv_tc<DP, BM, BN, V><<<dim3(B * N, (Sk + BM - 1) / BM), BM * 2, smem_dkv, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
       delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, Sq, Sk, D,
-      layout(st, 0), layout(st, 1), layout(st, 2), layout(st, 3),
-      layout(st, 5), layout(st, 6), causal, scale);
+      lay(0), lay(1), lay(2), lay(3), lay(5), lay(6), causal, scale);
   return (int)cudaGetLastError();
 }
 
 // The bf16 launches at these sizes, as kinfo records.
-template <int DP, int BM, int BN>
+template <int DP, int BM, int BN, bool V>
 int info_fwd(int B, int N, int Sq, int* out) {
   static bool raised = false;
   constexpr size_t smem = fwd_bytes(DP, BM, BN);
-  cudaError_t err = allow_smem(flash_fwd_tc<DP, BM, BN>, smem, &raised);
+  cudaError_t err = allow_smem(flash_fwd_tc<DP, BM, BN, V>, smem, &raised);
   if (err != cudaSuccess) return (int)err;
-  return kinfo::record(flash_fwd_tc<DP, BM, BN>,
+  return kinfo::record(flash_fwd_tc<DP, BM, BN, V>,
                        dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem, out);
 }
 
-template <int DP, int BM, int BN>
+template <int DP, int BM, int BN, bool V>
 int info_bwd(int B, int N, int Sq, int Sk, int* out) {
   static bool raised_dq = false, raised_dkv = false;
   constexpr size_t smem_dq = dq_bytes(DP, BM, BN);
   constexpr size_t smem_dkv = dkv_bytes(DP, BM, BN);
-  cudaError_t err = allow_smem(flash_dq_tc<DP, BM, BN>, smem_dq, &raised_dq);
+  cudaError_t err = allow_smem(flash_dq_tc<DP, BM, BN, V>, smem_dq, &raised_dq);
   if (err != cudaSuccess) return (int)err;
-  int e = kinfo::record(flash_dq_tc<DP, BM, BN>,
+  int e = kinfo::record(flash_dq_tc<DP, BM, BN, V>,
                         dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem_dq,
                         out);
   if (e) return e;
-  err = allow_smem(flash_dkv_tc<DP, BM, BN>, smem_dkv, &raised_dkv);
+  err = allow_smem(flash_dkv_tc<DP, BM, BN, V>, smem_dkv, &raised_dkv);
   if (err != cudaSuccess) return (int)err;
-  return kinfo::record(flash_dkv_tc<DP, BM, BN>,
+  return kinfo::record(flash_dkv_tc<DP, BM, BN, V>,
                        dim3(B * N, (Sk + BM - 1) / BM), BM * 2, smem_dkv,
                        out);
 }
 
 }  // namespace tc
+
+template <bool V>
+int info(int backward, int dtype, int B, int N, int Sq, int Sk, int D,
+         int* out) {
+  if (dtype == 0 && !backward)
+    return D <= 64 ? info_fwd<4, V>(B, N, Sq, D, out)
+                   : info_fwd<8, V>(B, N, Sq, D, out);
+  if (dtype == 0)
+    return D <= 64 ? info_bwd<4, V>(B, N, Sq, Sk, D, out)
+                   : info_bwd<8, V>(B, N, Sq, Sk, D, out);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (!backward) {
+    if (D <= 32) return tc::info_fwd<32, 64, 64, V>(B, N, Sq, out);
+    if (D <= 64) return tc::info_fwd<64, 64, 64, V>(B, N, Sq, out);
+    return tc::info_fwd<128, 64, 32, V>(B, N, Sq, out);
+  }
+  if (D <= 32) return tc::info_bwd<32, 64, 64, V>(B, N, Sq, Sk, out);
+  if (D <= 64) return tc::info_bwd<64, 64, 64, V>(B, N, Sq, Sk, out);
+  return tc::info_bwd<128, 64, 32, V>(B, N, Sq, Sk, out);
+}
+
+// Whether every tensor of a launch takes the aligned instance: D % 8 == 0
+// and each tensor's copy width 16 bytes.
+bool aligned(const long long* strides, const void* const* ptrs, int n,
+             int D, int esize) {
+  if (D % 8) return false;
+  for (int t = 0; t < n; ++t)
+    if (layout(strides, t, ptrs[t], D, esize).vw != 16) return false;
+  return true;
+}
+
+template <bool V>
+int fwd(const void* q, const void* k, const void* v, void* out, float* lse,
+        int dtype, int B, int N, int Sq, int Sk, int D,
+        const long long* st, int causal, float scale, cudaStream_t s) {
+  if (dtype == 0)
+    return D <= 64 ? launch_fwd<4, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s)
+                   : launch_fwd<8, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (D <= 32) return tc::launch_fwd<32, 64, 64, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
+  if (D <= 64) return tc::launch_fwd<64, 64, 64, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
+  return tc::launch_fwd<128, 64, 32, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
+}
+
+template <bool V>
+int bwd(const void* q, const void* k, const void* v, const void* dout,
+        const void* out, const float* lse, float* delta, void* dq, void* dk,
+        void* dv, int dtype, int B, int N, int Sq, int Sk, int D,
+        const long long* st, int causal, float scale, cudaStream_t s) {
+  if (dtype == 0)
+    return D <= 64 ? launch_bwd<4, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s)
+                   : launch_bwd<8, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (D <= 32) return tc::launch_bwd<32, 64, 64, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
+  if (D <= 64) return tc::launch_bwd<64, 64, 64, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
+  return tc::launch_bwd<128, 64, 32, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
+}
 
 }  // namespace
 
@@ -1375,20 +1536,9 @@ extern "C" int flash_attention_info(int backward, int dtype, int B, int N,
                                     int Sq, int Sk, int D, int* out) {
   if (!shape_ok(D, Sq, Sk) || B < 1 || N < 1) return (int)cudaErrorInvalidValue;
   out[0] = 0;
-  if (dtype == 0 && !backward)
-    return D <= 64 ? info_fwd<4>(B, N, Sq, D, out) : info_fwd<8>(B, N, Sq, D, out);
-  if (dtype == 0)
-    return D <= 64 ? info_bwd<4>(B, N, Sq, Sk, D, out)
-                   : info_bwd<8>(B, N, Sq, Sk, D, out);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (!backward) {
-    if (D <= 32) return tc::info_fwd<32, 64, 64>(B, N, Sq, out);
-    if (D <= 64) return tc::info_fwd<64, 64, 64>(B, N, Sq, out);
-    return tc::info_fwd<128, 64, 32>(B, N, Sq, out);
-  }
-  if (D <= 32) return tc::info_bwd<32, 64, 64>(B, N, Sq, Sk, out);
-  if (D <= 64) return tc::info_bwd<64, 64, 64>(B, N, Sq, Sk, out);
-  return tc::info_bwd<128, 64, 32>(B, N, Sq, Sk, out);
+  // the instance contiguous tensors take: the aligned one where D % 8 == 0
+  if (D % 8 == 0) return info<true>(backward, dtype, B, N, Sq, Sk, D, out);
+  return info<false>(backward, dtype, B, N, Sq, Sk, D, out);
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  ``strides`` holds (batch, seq, head)
@@ -1402,13 +1552,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int causal, float scale, void* stream) {
   if (!shape_ok(D, Sq, Sk) || B < 1 || N < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return D <= 64 ? launch_fwd<4>(q, k, v, out, lse, B, N, Sq, Sk, D, strides, causal, scale, s)
-                   : launch_fwd<8>(q, k, v, out, lse, B, N, Sq, Sk, D, strides, causal, scale, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (D <= 32) return tc::launch_fwd<32, 64, 64>(q, k, v, out, lse, B, N, Sq, Sk, D, strides, causal, scale, s);
-  if (D <= 64) return tc::launch_fwd<64, 64, 64>(q, k, v, out, lse, B, N, Sq, Sk, D, strides, causal, scale, s);
-  return tc::launch_fwd<128, 64, 32>(q, k, v, out, lse, B, N, Sq, Sk, D, strides, causal, scale, s);
+  const void* ptrs[4] = {q, k, v, out};
+  if (aligned(strides, ptrs, 4, D, dtype == 0 ? 4 : 2))
+    return fwd<true>(q, k, v, out, lse, dtype, B, N, Sq, Sk, D, strides, causal, scale, s);
+  return fwd<false>(q, k, v, out, lse, dtype, B, N, Sq, Sk, D, strides, causal, scale, s);
 }
 
 // Both backward passes on ``stream``: delta = rowsum(dout * out) into
@@ -1424,11 +1571,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int causal, float scale, void* stream) {
   if (!shape_ok(D, Sq, Sk) || B < 1 || N < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return D <= 64 ? launch_bwd<4>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, strides, causal, scale, s)
-                   : launch_bwd<8>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, strides, causal, scale, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (D <= 32) return tc::launch_bwd<32, 64, 64>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, strides, causal, scale, s);
-  if (D <= 64) return tc::launch_bwd<64, 64, 64>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, strides, causal, scale, s);
-  return tc::launch_bwd<128, 64, 32>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, strides, causal, scale, s);
+  const void* ptrs[8] = {q, k, v, dout, dq, dk, dv, out};
+  if (aligned(strides, ptrs, 8, D, dtype == 0 ? 4 : 2))
+    return bwd<true>(q, k, v, dout, out, lse, delta, dq, dk, dv, dtype, B, N, Sq, Sk, D, strides, causal, scale, s);
+  return bwd<false>(q, k, v, dout, out, lse, delta, dq, dk, dv, dtype, B, N, Sq, Sk, D, strides, causal, scale, s);
 }

@@ -64,8 +64,26 @@
 // bound is the memory system, not the arithmetic: with the arithmetic
 // taken out it reads within 0.5 us of the full kernel.
 //
-// Needs: C % 8 == 0, 8 <= C <= 32 * 8 * kMaxVec, 16-byte aligned
-// pointers, rows >= 1.
+// Wide rows (2048 < C <= 8192: gpt_6_7b's 4096, the 8192 of the widest
+// published models).  A lane cannot hold such a row at 256 threads a
+// block: C = 4096 is 16 chunks of 8 f32 a lane, which would spill.  So a
+// wide row is a block's: 256 threads, thread t holding chunks
+// (c * 256 + t) * 8 for c < V (V = 2 up to C = 4096, 4 up to 8192: 16
+// or 32 f32 of x a thread), the row's sums reduced through the warps'
+// shuffles and a [8] f32 shared array, added in warp order.  The forward
+// (ln_fwd_wide_kernel) runs a block a row; the backward
+// (ln_bwd_wide_kernel) runs one wave of blocks, as the narrow backward,
+// each walking its run of rows a row at a time.  A thread only ever
+// touches its own columns of gamma and of the block's dgamma/dbeta
+// sums, so these sit in shared memory (f32 [3][C], 96 KB at C = 8192)
+// without a barrier, and the registers hold one row of x and dy (64 f32
+// at V = 4).  At the end each thread writes its columns of the block's
+// partial row, which ln_reduce_kernel sums as for narrow rows: the
+// partial rows and their fixed order are the same, so dgamma/dbeta stay
+// bitwise repeatable.  The narrow kernels (C <= 2048) are unchanged.
+//
+// Needs: C % 8 == 0, 8 <= C <= 8192, 16-byte aligned pointers,
+// rows >= 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,6 +99,11 @@ constexpr int kBwdWarps = 8;       // warps per backward block
 constexpr int kRingSlots = 2;      // row slots in a warp's ring: one row ahead
 constexpr int kRedCols = 8;        // columns per reduce block
 constexpr int kRedThreads = 256;   // a reduce block: 32 partial lanes x kRedCols
+constexpr int kNarrowC = 32 * 8 * kMaxVec;  // widest row a warp holds: 2048
+constexpr int kWideThreads = 256;  // threads a wide row's block
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideMaxVec = 4;     // chunks of 8 a thread: C <= 8192
+constexpr int kMaxC = kWideThreads * 8 * kWideMaxVec;
 
 __device__ __forceinline__ void load8(const float* src, float* dst) {
   const float4 a = reinterpret_cast<const float4*>(src)[0];
@@ -368,6 +391,189 @@ ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
   }
 }
 
+// ------------------------------------------------------------ wide rows --
+// first column of thread t's chunk c in a wide row
+__device__ __forceinline__ int wide_col(int c, int t) {
+  return (c * kWideThreads + t) * 8;
+}
+
+// The sum of every thread's x over the block, the same in every thread:
+// the warps' shuffle sums into red[warp], then added in warp order.
+// ``red`` must not be rewritten until every thread has read it.
+__device__ __forceinline__ float block_sum(float x, float* red) {
+  x = warp_sum(x);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWideWarps; ++w) s += red[w];
+  return s;
+}
+
+// One block a row.  Shared: the two sums' warp partials.
+template <typename T, int V>
+__global__ void __launch_bounds__(kWideThreads)
+ln_fwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                   const T* __restrict__ beta, T* __restrict__ y,
+                   float* __restrict__ mu_out, float* __restrict__ rstd_out,
+                   int C, float eps) {
+  __shared__ float red[2][kWideWarps];
+  const int t = threadIdx.x;
+  const long long row = blockIdx.x;
+  const T* xr = x + row * C;
+  float v[V][8];
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < V; ++c) {
+    const int col = wide_col(c, t);
+    if (col < C) {
+      load8(xr + col, v[c]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sum += v[c][j];
+    }
+  }
+  const float mu = block_sum(sum, red[0]) / C;
+  float sq = 0.f;
+#pragma unroll
+  for (int c = 0; c < V; ++c) {
+    if (wide_col(c, t) < C) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float d = v[c][j] - mu;
+        sq += d * d;
+      }
+    }
+  }
+  const float rstd = rsqrtf(block_sum(sq, red[1]) / C + eps);
+  T* yr = y + row * C;
+#pragma unroll
+  for (int c = 0; c < V; ++c) {
+    const int col = wide_col(c, t);
+    if (col < C) {
+      float g[8], b[8], o[8];
+      load8(gamma + col, g);
+      load8(beta + col, b);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[j] = (v[c][j] - mu) * rstd * g[j] + b[j];
+      store8(yr + col, o);
+    }
+  }
+  if (t == 0) {
+    mu_out[row] = mu;
+    rstd_out[row] = rstd;
+  }
+}
+
+// Dynamic shared memory of the wide backward at C columns: gamma, then
+// the block's dgamma and dbeta sums, each f32 [C].
+__host__ __device__ constexpr int bwd_wide_smem(int C) { return 3 * C * 4; }
+
+// Block b of gridDim.x owns rows [b * rows / grid, (b + 1) * rows / grid)
+// and walks them one at a time with all its threads.  Writes dx and the
+// block's partial row partials[b][0:C] (dgamma), partials[b][C:2C]
+// (dbeta).  Shared: gamma, dgamma and dbeta f32 [C] each, every column
+// read and written by its one owning thread only; the two row sums'
+// warp partials, double-buffered by row so that one barrier a sum does.
+template <typename T, int V>
+__global__ void __launch_bounds__(kWideThreads)
+ln_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                   const float* __restrict__ mu, const float* __restrict__ rstd,
+                   const T* __restrict__ dy, T* __restrict__ dx,
+                   float* __restrict__ partials, int rows, int C) {
+  extern __shared__ float4 smem4[];
+  float* gs = reinterpret_cast<float*>(smem4);
+  float* dgs = gs + C;
+  float* dbs = dgs + C;
+  __shared__ float red[2][2][kWideWarps];
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int c = 0; c < V; ++c) {
+    const int col = wide_col(c, t);
+    if (col < C) {
+      float g[8];
+      load8(gamma + col, g);
+      const float zero[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      store8(gs + col, g);
+      store8(dgs + col, zero);
+      store8(dbs + col, zero);
+    }
+  }
+  const long long r_begin = (long long)blockIdx.x * rows / gridDim.x;
+  const long long r_end = (long long)(blockIdx.x + 1) * rows / gridDim.x;
+  for (long long row = r_begin; row < r_end; ++row) {
+    float* rd = red[row & 1][0];
+    const float m = mu[row], rs = rstd[row];
+    float xv[V][8], dv[V][8];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      const int col = wide_col(c, t);
+      if (col < C) {
+        float g[8];
+        load8(x + row * C + col, xv[c]);
+        load8(dy + row * C + col, dv[c]);
+        load8(gs + col, g);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float w = dv[c][j] * g[j];
+          s1 += w;
+          s2 += w * ((xv[c][j] - m) * rs);
+        }
+      }
+    }
+    // the two sums share one barrier: each warp writes both partials
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if ((t & 31) == 0) {
+      rd[t >> 5] = s1;
+      rd[kWideWarps + (t >> 5)] = s2;
+    }
+    __syncthreads();
+    float c1 = 0.f, c2 = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWideWarps; ++w) {
+      c1 += rd[w];
+      c2 += rd[kWideWarps + w];
+    }
+    c1 /= C;
+    c2 /= C;
+    T* dxr = dx + row * C;
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      const int col = wide_col(c, t);
+      if (col < C) {
+        float g[8], dg[8], db[8], o[8];
+        load8(gs + col, g);
+        load8(dgs + col, dg);
+        load8(dbs + col, db);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float xh = (xv[c][j] - m) * rs;
+          o[j] = (dv[c][j] * g[j] - c1 - xh * c2) * rs;
+          dg[j] += dv[c][j] * xh;
+          db[j] += dv[c][j];
+        }
+        store8(dxr + col, o);
+        store8(dgs + col, dg);
+        store8(dbs + col, db);
+      }
+    }
+    // red[row & 1] is next written two rows on, after the next barrier
+  }
+  float* out = partials + (long long)blockIdx.x * 2 * C;
+#pragma unroll
+  for (int c = 0; c < V; ++c) {
+    const int col = wide_col(c, t);
+    if (col < C) {
+      float dg[8], db[8];
+      load8(dgs + col, dg);
+      load8(dbs + col, db);
+      store8(out + col, dg);
+      store8(out + C + col, db);
+    }
+  }
+}
+
 // Sums partials [nparts][C2] over nparts into out [C2] (C2 = 2C: dgamma,
 // then dbeta).  Block b covers columns [b * kRedCols, (b + 1) * kRedCols);
 // thread t takes column t % kRedCols of every kLanes-th partial from
@@ -393,7 +599,7 @@ ln_reduce_kernel(const float* __restrict__ partials, int nparts, int C2,
 }
 
 bool shape_ok(int rows, int C) {
-  return rows >= 1 && C >= 8 && C % 8 == 0 && C <= 256 * kMaxVec;
+  return rows >= 1 && C >= 8 && C % 8 == 0 && C <= kMaxC;
 }
 
 template <typename T, int V>
@@ -482,13 +688,105 @@ int info_launch(int backward, int rows, int C, int nparts, int* out) {
                        0, out);
 }
 
-#define LN_DISPATCH(T, FN, ...)                         \
-  switch (vec) {                                        \
-    case 1: return FN<T, 1>(__VA_ARGS__);               \
-    case 2: return FN<T, 2>(__VA_ARGS__);               \
-    case 3: return FN<T, 3>(__VA_ARGS__);               \
-    case 4: return FN<T, 4>(__VA_ARGS__);               \
-    default: return FN<T, kMaxVec>(__VA_ARGS__);        \
+// ----------------------------------------------------- wide rows: host --
+template <typename T, int V>
+int launch_fwd_wide(const void* x, const void* g, const void* b, void* y,
+                    float* mu, float* rstd, int rows, int C, float eps,
+                    cudaStream_t s) {
+  ln_fwd_wide_kernel<T, V><<<rows, kWideThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const T*>(b), static_cast<T*>(y), mu, rstd, C, eps);
+  return (int)cudaGetLastError();
+}
+
+// As prepare_bwd, for the wide backward at the widest C of this V.
+template <typename T, int V>
+int prepare_bwd_wide() {
+  static int err = -1;
+  if (err < 0) {
+    err = (int)cudaFuncSetAttribute(
+        ln_bwd_wide_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bwd_wide_smem(kWideThreads * 8 * V));
+    if (err == 0)
+      err = (int)cudaFuncSetAttribute(
+          ln_bwd_wide_kernel<T, V>,
+          cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+  }
+  return err;
+}
+
+// As info_bwd; a wide row has no ring (out[5] = 0).
+template <typename T, int V>
+int info_bwd_wide(int* out) {
+  int err = prepare_bwd_wide<T, V>();
+  if (err) return err;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, ln_bwd_wide_kernel<T, V>);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0, dev = 0, sms = 0;
+  const int smem = bwd_wide_smem(kWideThreads * 8 * V);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, ln_bwd_wide_kernel<T, V>, kWideThreads, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = blocks;
+  out[3] = sms;
+  out[4] = smem;
+  out[5] = 0;
+  return 0;
+}
+
+template <typename T, int V>
+int launch_bwd_wide(const void* x, const void* g, const float* mu,
+                    const float* rstd, const void* dy, void* dx,
+                    float* partials, float* dgdb, int rows, int C, int nparts,
+                    cudaStream_t s) {
+  const int err = prepare_bwd_wide<T, V>();
+  if (err) return err;
+  ln_bwd_wide_kernel<T, V><<<nparts, kWideThreads, bwd_wide_smem(C), s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), mu, rstd,
+      static_cast<const T*>(dy), static_cast<T*>(dx), partials, rows, C);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ln_reduce_kernel<<<2 * C / kRedCols, kRedThreads, 0, s>>>(
+      partials, nparts, 2 * C, dgdb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int V>
+int info_launch_wide(int backward, int rows, int C, int nparts, int* out) {
+  out[0] = 0;
+  if (!backward)
+    return kinfo::record(ln_fwd_wide_kernel<T, V>, dim3(rows), kWideThreads,
+                         0, out);
+  const int err = prepare_bwd_wide<T, V>();
+  if (err) return err;
+  const int e = kinfo::record(ln_bwd_wide_kernel<T, V>, dim3(nparts),
+                              kWideThreads, bwd_wide_smem(C), out);
+  if (e) return e;
+  return kinfo::record(ln_reduce_kernel, dim3(2 * C / kRedCols), kRedThreads,
+                       0, out);
+}
+
+// A row of C columns: narrow (a warp a row, V = ceil(C / 256) chunks a
+// lane, 5..8 sharing the kMaxVec instance) or wide (a block a row, V =
+// 2 up to C = 4096, else kWideMaxVec).
+#define LN_DISPATCH(T, FN, ...)                                 \
+  if (C > kNarrowC) {                                           \
+    if (C <= 2 * kNarrowC) return FN##_wide<T, 2>(__VA_ARGS__); \
+    return FN##_wide<T, kWideMaxVec>(__VA_ARGS__);              \
+  }                                                             \
+  switch ((C + 255) / 256) {                                    \
+    case 1: return FN<T, 1>(__VA_ARGS__);                       \
+    case 2: return FN<T, 2>(__VA_ARGS__);                       \
+    case 3: return FN<T, 3>(__VA_ARGS__);                       \
+    case 4: return FN<T, 4>(__VA_ARGS__);                       \
+    default: return FN<T, kMaxVec>(__VA_ARGS__);                \
   }
 
 }  // namespace
@@ -502,7 +800,6 @@ extern "C" int layernorm_fwd(const void* x, const void* gamma,
                              float eps, void* stream) {
   if (!shape_ok(rows, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int vec = (C + 255) / 256;
   if (dtype == 0) { LN_DISPATCH(float, launch_fwd, x, gamma, beta, y, mu, rstd, rows, C, eps, s) }
   if (dtype == 1) { LN_DISPATCH(__nv_bfloat16, launch_fwd, x, gamma, beta, y, mu, rstd, rows, C, eps, s) }
   return (int)cudaErrorInvalidValue;
@@ -515,7 +812,6 @@ extern "C" int layernorm_fwd(const void* x, const void* gamma,
 // per kernel and caches the result.
 extern "C" int layernorm_bwd_info(int dtype, int C, int* out) {
   if (!shape_ok(1, C)) return (int)cudaErrorInvalidValue;
-  const int vec = (C + 255) / 256;
   if (dtype == 0) { LN_DISPATCH(float, info_bwd, out) }
   if (dtype == 1) { LN_DISPATCH(__nv_bfloat16, info_bwd, out) }
   return (int)cudaErrorInvalidValue;
@@ -529,7 +825,6 @@ extern "C" int layernorm_info(int backward, int dtype, int rows, int C,
                               int nparts, int* out) {
   if (!shape_ok(rows, C) || (backward && nparts < 1))
     return (int)cudaErrorInvalidValue;
-  const int vec = (C + 255) / 256;
   if (dtype == 0) { LN_DISPATCH(float, info_launch, backward, rows, C, nparts, out) }
   if (dtype == 1) { LN_DISPATCH(__nv_bfloat16, info_launch, backward, rows, C, nparts, out) }
   return (int)cudaErrorInvalidValue;
@@ -546,7 +841,6 @@ extern "C" int layernorm_bwd(const void* x, const void* gamma,
                              int nparts, void* stream) {
   if (!shape_ok(rows, C) || nparts < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int vec = (C + 255) / 256;
   if (dtype == 0) { LN_DISPATCH(float, launch_bwd, x, gamma, mu, rstd, dy, dx, partials, dgdb, rows, C, nparts, s) }
   if (dtype == 1) { LN_DISPATCH(__nv_bfloat16, launch_bwd, x, gamma, mu, rstd, dy, dx, partials, dgdb, rows, C, nparts, s) }
   return (int)cudaErrorInvalidValue;

@@ -53,7 +53,8 @@ Rule catalog:
 
 :func:`lint_registry` runs K005 and K001-K004 over every kernel instance
 of an engine's bucket grid (traced) and the other main paths' shapes
-(:data:`MAIN_PATH_SHAPES`: FMT and Llama decode, GPT-124M training).
+(:data:`MAIN_PATH_SHAPES`: FMT and Llama decode, GPT-124M training, the
+Conformer and gpt_6_7b's forward).
 """
 
 import ast
@@ -111,6 +112,25 @@ MAIN_PATH_SHAPES = {
         x2d=((8192, 768), torch.bfloat16))),
     "train_ln_bwd": ("layernorm_bwd", dict(
         x2d=((8192, 768), torch.bfloat16))),
+    # the speech path's Conformer at its defaults, f32, 16 x 10 s (251
+    # frames after subsampling): attention at head_dim 36, LayerNorms of
+    # 144; gpt_6_7b's eval forward over 2 x 2048 tokens, bf16: attention
+    # at D 128, the wide LayerNorm at 4096
+    "conformer_flash_fwd": ("flash_attention_fwd", dict(
+        q=((16, 251, 4, 36), torch.float32),
+        k=((16, 251, 4, 36), torch.float32))),
+    "conformer_flash_bwd": ("flash_attention_bwd", dict(
+        q=((16, 251, 4, 36), torch.float32),
+        k=((16, 251, 4, 36), torch.float32))),
+    "conformer_ln_fwd": ("layernorm_fwd", dict(
+        x2d=((4016, 144), torch.float32))),
+    "conformer_ln_bwd": ("layernorm_bwd", dict(
+        x2d=((4016, 144), torch.float32))),
+    "gpt6_7b_flash_fwd": ("flash_attention_fwd", dict(
+        q=((2, 2048, 32, 128), torch.bfloat16),
+        k=((2, 2048, 32, 128), torch.bfloat16))),
+    "gpt6_7b_ln_fwd": ("layernorm_fwd", dict(
+        x2d=((4096, 4096), torch.bfloat16))),
 }
 
 
@@ -289,13 +309,15 @@ def _tc_tiles(d):
 
 
 def _simt_smem(kind, d):
+    """fwd_smem / dq_smem / dkv_smem of flash_attention.cu (the dk/dv
+    kernel also keeps its query tile's lse and delta, kBQ f32 each)."""
     pad = FLASH_SIMT["BQ"] + 4
-    bk = FLASH_SIMT["BK"]
+    bq, bk = FLASH_SIMT["BQ"], FLASH_SIMT["BK"]
     if kind == "fwd":
         return 4 * (d * pad + 2 * bk * (d + 1) + bk * pad)
     if kind == "dq":
         return 4 * (2 * d * pad + 2 * bk * (d + 1) + bk * pad)
-    return 4 * (2 * d * pad + 2 * bk * (d + 1) + 2 * bk * pad)
+    return 4 * (2 * d * pad + 2 * bq * (d + 1) + 2 * bq * pad + 2 * bq)
 
 
 def _rows(tile, bn_axis):
@@ -366,11 +388,47 @@ def _ln_bwd_smem(itemsize, c):
     return c * 4 + lnk.BWD_WARPS * stages * 8 + max(ring, red)
 
 
+def _ln_wide_plan(rows, c, tdt, backward, slots):
+    """The wide-row launches (C above ``NARROW_C``): a block a row
+    forward; one wave of blocks walking their rows backward, each
+    writing its dx rows and one partial row, then the reduce."""
+    from ..ops.cuda import layernorm_kernel as lnk
+
+    v = lnk._instance(c)[1]
+    if not backward:
+        def rows_cover(counts, grid):
+            span(counts, grid[0], 1)              # a block a row
+
+        return [Launch(f"ln_fwd_wide_kernel<{tdt},{v}>", (rows,),
+                       lnk.WIDE_THREADS, 0,
+                       {"y": ((rows,), rows_cover),
+                        "mu": ((rows,), rows_cover),
+                        "rstd": ((rows,), rows_cover)})], dict(rows=rows)
+    nparts, red_blocks = lnk.bwd_plan(rows, c, slots)
+
+    def dx_cover(counts, grid):
+        for blk in range(grid[0]):
+            counts[blk * rows // grid[0]:(blk + 1) * rows // grid[0]] += 1
+
+    return [
+        Launch(f"ln_bwd_wide_kernel<{tdt},{v}>", (nparts,),
+               lnk.WIDE_THREADS, 3 * c * 4,
+               {"dx": ((rows,), dx_cover),
+                "partials": ((nparts,), lambda n, g: span(n, g[0], 1))},
+               partials=("partials",)),
+        Launch("ln_reduce_kernel", (red_blocks,), LN_RED_THREADS, 0,
+               {"dgdb": ((2 * c,),
+                         lambda n, g: span(n, g[0], lnk.RED_COLS))}),
+    ], dict(rows=rows, nparts=nparts)
+
+
 def _ln_plan(x2d, backward, slots):
     from ..ops.cuda import layernorm_kernel as lnk
 
     (rows, c), dt = x2d
     tdt = "bf16" if dt == torch.bfloat16 else "f32"
+    if c > lnk.NARROW_C:
+        return _ln_wide_plan(rows, c, tdt, backward, slots)
     v = -(-c // 256)
     if not backward:
         def rows_cover(counts, grid):

@@ -317,3 +317,29 @@ def gpt_124m(device=None, seed=0, dtype=torch.float32, **kw):
     cfg.update(kw)
     return GPTForCausalLM(GPTConfig(**cfg), device=device, seed=seed,
                           dtype=dtype)
+
+
+def gpt_350m(device=None, seed=0, dtype=torch.float32, **kw):
+    cfg = dict(vocab_size=50304, hidden_size=1024, num_layers=24,
+               num_attention_heads=16, max_position_embeddings=1024)
+    cfg.update(kw)
+    return GPTForCausalLM(GPTConfig(**cfg), device=device, seed=seed,
+                          dtype=dtype)
+
+
+def gpt_1_3b(device=None, seed=0, dtype=torch.float32, **kw):
+    cfg = dict(vocab_size=50304, hidden_size=2048, num_layers=24,
+               num_attention_heads=32, max_position_embeddings=2048)
+    cfg.update(kw)
+    return GPTForCausalLM(GPTConfig(**cfg), device=device, seed=seed,
+                          dtype=dtype)
+
+
+def gpt_6_7b(device=None, seed=0, dtype=torch.float32, **kw):
+    """The JAX package's north-star pretrain config (hidden 4096: its
+    LayerNorms take the wide-row kernels, its attention D 128)."""
+    cfg = dict(vocab_size=50304, hidden_size=4096, num_layers=32,
+               num_attention_heads=32, max_position_embeddings=2048)
+    cfg.update(kw)
+    return GPTForCausalLM(GPTConfig(**cfg), device=device, seed=seed,
+                          dtype=dtype)

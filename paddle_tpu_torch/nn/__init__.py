@@ -1,6 +1,6 @@
 """paddle_tpu_torch.nn — layers, functional, initializers (port of
-``paddle_tpu/nn``).  ``rnn`` waits for A23b; ``RMSNorm`` is the
-``torch.nn.Module`` the port's Llama uses."""
+``paddle_tpu/nn``).  ``RMSNorm`` is the ``torch.nn.Module`` the port's
+Llama uses."""
 
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
@@ -27,6 +27,7 @@ from .container import (  # noqa: F401
     Sequential,
 )
 from .conv import Conv1D, Conv2D, Conv2DTranspose, Conv3D  # noqa: F401
+from .rnn import GRU, LSTM, SimpleRNN  # noqa: F401
 from .pooling import (  # noqa: F401
     AdaptiveAvgPool1D,
     AdaptiveAvgPool2D,

@@ -39,7 +39,8 @@ from ..core.tensor import Tensor
 from ..framework.dtype import convert_dtype
 from ..framework.random import generator as _global_generator
 from ..ops.attention import flash_attention as _dispatch_attention
-from ..ops.cuda.layernorm_kernel import layer_norm_plain, layernorm_cuda
+from ..ops.cuda.layernorm_kernel import (layer_norm_plain, layernorm_cuda,
+                                         takes_channels)
 from ..ops.dispatch import apply_op
 from ..ops.math import jabs, jclip, jmaximum
 from ..ops.pool_ops import adaptive_bins, first_max, window_reduce
@@ -523,13 +524,14 @@ def adaptive_avg_pool1d(x, output_size):
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05):
     """LayerNorm over the trailing ``normalized_shape`` dims.  A CUDA
     tensor normalised over its last dim with both ``weight`` and
-    ``bias`` launches the LayerNorm kernels (forward and backward),
-    which raise for a shape they do not take; every other call is the
-    JAX composition."""
+    ``bias``, of a width the kernels take (``C % 8 == 0``, up to 8192),
+    launches the LayerNorm kernels (forward and backward), which raise
+    for a dtype they do not take; every other call is the JAX
+    composition, as the JAX package routes a ``C % 128 != 0`` there."""
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
     if (x.is_cuda and len(normalized_shape) == 1 and weight is not None
-            and bias is not None):
+            and bias is not None and takes_channels(x.shape[-1])):
         return layernorm_cuda(x, weight, bias, eps=epsilon)
     return layer_norm_plain(x, normalized_shape, weight, bias, epsilon)
 

@@ -2,12 +2,13 @@
 
 Port of ``paddle_tpu/ops/pallas/__init__.py``: ``_xla_attention``
 becomes :func:`attention_plain` and ``flash_attention`` keeps its
-semantic routes.  A mask, dropout, an explicit ``scale`` or causal
+semantic routes.  A mask, dropout, an explicit ``scale``, causal
 attention with ``seq_q != seq_k`` (the kernel's causal mask is top-left
-aligned, the composition's bottom-right) take the plain composition;
-every other call on CUDA tensors launches the hand-written flash
-kernels (``ops/cuda/flash_attention_kernel.py``), which raise for a
-shape outside their ``supports``.  The v5e-profiled
+aligned, the composition's bottom-right) or a head_dim above 128 (the
+JAX dispatcher sends it to ``_xla_attention``) take the plain
+composition; every other call on CUDA tensors launches the hand-written
+flash kernels (``ops/cuda/flash_attention_kernel.py``), which raise for
+a shape outside their ``supports``.  The v5e-profiled
 ``FLAGS_flash_min_seqlen`` threshold is not carried over: the route
 depends on the arguments only.  CPU tensors take the plain composition,
 the kernels' plain version.
@@ -17,7 +18,7 @@ import math
 
 import torch
 
-from .cuda.flash_attention_kernel import flash_attention_cuda
+from .cuda.flash_attention_kernel import _MAX_D, flash_attention_cuda
 
 
 def causal_logits(q, k, is_causal, scale):
@@ -73,9 +74,11 @@ def attention_plain_with_logits(q, k, v, attn_mask=None, is_causal=False,
 def kernel_route(q, k, attn_mask=None, is_causal=False, dropout_p=0.0,
                  scale=None):
     """Whether a call on CUDA tensors takes the flash kernels: no mask,
-    no dropout, the default scale, and causal only with seq_q == seq_k."""
+    no dropout, the default scale, causal only with seq_q == seq_k, and a
+    head_dim of at most 128."""
     return (attn_mask is None and dropout_p == 0.0 and scale is None
-            and (not is_causal or q.shape[1] == k.shape[1]))
+            and (not is_causal or q.shape[1] == k.shape[1])
+            and q.shape[-1] <= _MAX_D)
 
 
 def flash_attention(q, k, v, attn_mask=None, is_causal=False, dropout_p=0.0,

@@ -48,16 +48,17 @@ _fns = {}
 
 
 def supports(seq_q, seq_k, head_dim, dtype=torch.float32, causal=False):
-    """What the CUDA kernels need: any sequence lengths, a head_dim that
-    is a multiple of 8 (16-byte loads) up to 128, f32 or bf16, and for
-    causal attention seq_q == seq_k (the kernels align the mask to the
-    top left, the plain composition to the bottom right: they agree
-    only on square scores).  The TPU rule that a block size divide the
-    sequence (``attention_kernel.py::supports``) is tiling there; these
-    kernels mask any tail."""
-    return (seq_q >= 1 and seq_k >= 1 and head_dim % 8 == 0
-            and 8 <= head_dim <= _MAX_D and dtype in _DTYPES
-            and (not causal or seq_q == seq_k))
+    """What the CUDA kernels need: any sequence lengths, any head_dim
+    from 1 to 128 (the JAX kernel's ``head_dim <= 128``; the kernels
+    zero-fill the padded tile and pick each tensor's copy width from its
+    alignment), f32 or bf16, and for causal attention seq_q == seq_k
+    (the kernels align the mask to the top left, the plain composition
+    to the bottom right: they agree only on square scores).  The TPU
+    rule that a block size divide the sequence
+    (``attention_kernel.py::supports``) is tiling there; these kernels
+    mask any tail."""
+    return (seq_q >= 1 and seq_k >= 1 and 1 <= head_dim <= _MAX_D
+            and dtype in _DTYPES and (not causal or seq_q == seq_k))
 
 
 def _kernel(name):
@@ -80,9 +81,10 @@ def _strides(tensors):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def _check(named, causal, seq_k_names=(), aligned=True):
-    """Rank, shapes and ``supports``, then device, dtype, layout and
-    (``aligned``) 16-byte alignment of every tensor."""
+def _check(named, causal, seq_k_names=()):
+    """Rank, shapes and ``supports``, then device, dtype and a contiguous
+    last dim of every tensor (the launch picks each tensor's copy width
+    from its address and strides)."""
     q = named["q"]
     for name, x in named.items():
         if not isinstance(x, torch.Tensor) or x.dim() != 4:
@@ -106,11 +108,9 @@ def _check(named, causal, seq_k_names=(), aligned=True):
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if x.dtype != q.dtype:
             raise ValueError(f"{name} is {x.dtype}, q is {q.dtype}")
-        if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3]) \
-                or (aligned and x.data_ptr() % 16):
-            raise ValueError(f"{name} needs a contiguous last dim, strides "
-                             f"that are multiples of 8 and 16-byte "
-                             f"alignment, got strides {x.stride()}")
+        if x.stride(-1) != 1 and x.shape[-1] > 1:
+            raise ValueError(f"{name} needs a contiguous last dim, got "
+                             f"strides {x.stride()}")
 
 
 def flash_attention_fwd_cuda(q, k, v, causal, scale):
@@ -189,7 +189,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.stride(-1) != 1 or any(s % 8 for s in dout.stride()[:3]):
+        if dout.stride(-1) != 1 and dout.shape[-1] > 1:
             dout = dout.contiguous()
         dq, dk, dv = flash_bwd_op(q, k, v, out, lse, dout, ctx.causal,
                                   ctx.scale)
@@ -201,9 +201,7 @@ def flash_attention_cuda(q, k, v, is_causal=False):
     scale 1/sqrt(H); raises for anything the kernels do not take (the
     ops would run their plain versions on CPU tensors: this entry is the
     kernels')."""
-    # the address is the launch's to check: a traced call has none
-    _check({"q": q, "k": k, "v": v}, is_causal, seq_k_names=("k", "v"),
-           aligned=False)
+    _check({"q": q, "k": k, "v": v}, is_causal, seq_k_names=("k", "v"))
     return FlashAttention.apply(q, k, v, bool(is_causal),
                                 1.0 / math.sqrt(q.shape[-1]))
 

@@ -8,7 +8,8 @@ kernels ``ops/pallas/layernorm_kernel.py``: ``_ln_fwd`` (B4a) and
 returns dgamma/dbeta cast to gamma's dtype.  The backward's row pass
 runs in one wave (:func:`bwd_plan`), each block writing one f32 partial
 row of dgamma and dbeta that a second kernel sums in a fixed order, so
-they are deterministic.
+they are deterministic.  Rows up to ``NARROW_C`` columns are a warp's;
+wider ones (up to ``_MAX_C``) a block's (``ln_*_wide_kernel``).
 
 ``fwd_launches`` counts forward launches and ``bwd_launches`` backward
 launches (the row pass and its partials reduction together), each
@@ -39,7 +40,9 @@ fwd_launches = 0
 bwd_launches = 0
 
 _NAME = "layernorm"
-_MAX_C = 2048         # 256 * kMaxVec in the .cu
+NARROW_C = 2048       # kNarrowC in the .cu: the widest row a warp holds
+_MAX_C = 8192         # kMaxC in the .cu: the widest row a block holds
+WIDE_THREADS = 256    # kWideThreads in the .cu: threads a wide row's block
 BWD_WARPS = 8         # kBwdWarps in the .cu: warps (rows in flight) a block
 RED_COLS = 8          # kRedCols in the .cu: columns a reduce block sums
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -49,13 +52,20 @@ _fns = {}
 _bwd_info = {}
 
 
+def takes_channels(channels):
+    """Whether the kernels take rows of ``channels`` columns: a multiple
+    of 8 (16-byte loads) from 8 to 8192.  ``nn.functional.layer_norm``
+    sends every other width to the plain composition, as the JAX package
+    sends a ``C % 128 != 0`` to its own."""
+    return channels % 8 == 0 and 8 <= channels <= _MAX_C
+
+
 def supports(rows, channels, dtype=torch.float32):
     """What the CUDA kernels need: any row count, a channel count that
-    is a multiple of 8 (16-byte loads) up to 2048, f32 or bf16.  The
-    TPU's ``C % 128`` and row-block rules (``layernorm_kernel.py:25-33``)
-    are its tiling, not the kernels'."""
-    return (rows >= 1 and channels % 8 == 0 and 8 <= channels <= _MAX_C
-            and dtype in _DTYPES)
+    :func:`takes_channels`, f32 or bf16.  The TPU's ``C % 128`` and
+    row-block rules (``layernorm_kernel.py:25-33``) are its tiling, not
+    the kernels'."""
+    return rows >= 1 and takes_channels(channels) and dtype in _DTYPES
 
 
 def bwd_plan(rows, channels, slots):
@@ -63,13 +73,24 @@ def bwd_plan(rows, channels, slots):
 
     The row pass runs in one wave: as many blocks as fit on the card at
     once (``slots``: blocks per SM times SMs, :func:`bwd_kernel_info`),
-    but no more than one per ``BWD_WARPS`` rows.  Block b owns rows
+    but no more than one per ``BWD_WARPS`` rows (a narrow row is a
+    warp's) or one a row (a wide row is the block's).  Block b owns rows
     [b * rows // grid, (b + 1) * rows // grid) and writes one partial
     row, so the grid is also the partial count.  The reduce kernel sums
     the partials, ``RED_COLS`` of the 2 * C columns (dgamma, then dbeta)
     a block.  One shape on one card always gets the same plan."""
-    grid = max(1, min(slots, -(-rows // BWD_WARPS)))
+    per_block = BWD_WARPS if channels <= NARROW_C else 1
+    grid = max(1, min(slots, -(-rows // per_block)))
     return grid, 2 * channels // RED_COLS
+
+
+def _instance(channels):
+    """The .cu's template instance for a row width: narrow with
+    ``ceil(C / 256)`` chunks a lane, or wide with 2 or 4 chunks a
+    thread."""
+    if channels > NARROW_C:
+        return ("wide", 2 if channels <= 2 * NARROW_C else 4)
+    return ("narrow", -(-channels // 256))
 
 
 def bwd_kernel_info(dtype, channels, device):
@@ -77,8 +98,8 @@ def bwd_kernel_info(dtype, channels, device):
     CUDA ``device``, read from the card once per kernel and cached:
     registers a thread, local (spill) bytes a thread, blocks resident
     per SM, the SM count, dynamic shared bytes and the row slots in each
-    warp's ring."""
-    key = (dtype, -(-channels // 256), device.index)
+    warp's ring (0 for a wide row)."""
+    key = (dtype, _instance(channels), device.index)
     info = _bwd_info.get(key)
     if info is None:
         out = (ctypes.c_int * len(_INFO))()

@@ -308,21 +308,23 @@ def test_supports_takes_any_length_and_small_head_dims():
     assert fak.supports(13, 13, 128, torch.bfloat16, causal=True)
     assert not fak.supports(7, 13, 128, causal=True)   # mask alignments
     assert not fak.supports(128, 128, 256)       # head_dim above 128
-    assert not fak.supports(128, 128, 36)        # not a multiple of 8
+    assert fak.supports(128, 128, 36)            # any head_dim up to 128
+    assert fak.supports(128, 128, 1, torch.bfloat16)
+    assert not fak.supports(128, 128, 0)
     assert not fak.supports(128, 128, 64, torch.float16)
 
 
 def test_supports_takes_every_shape_it_took_before():
-    """The tensor-core redesign does not narrow ``supports``: any
-    lengths, head_dim % 8 == 0 in [8, 128], f32 or bf16, causal only on
-    square scores, as the SIMT kernels took them."""
+    """No redesign narrows ``supports``: any lengths, every head_dim the
+    JAX kernel takes (1 to 128; before, only multiples of 8 from 8),
+    f32 or bf16, causal only on square scores."""
     lengths = (1, 2, 7, 63, 64, 65, 77, 333, 1000, 1024)
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for d in range(0, 264, 4):
+        for d in range(0, 264, 3):
             for sq in lengths:
                 for sk in lengths:
                     for causal in (False, True):
-                        before = (d % 8 == 0 and 8 <= d <= 128
+                        before = (1 <= d <= 128
                                   and dtype != torch.float16
                                   and (not causal or sq == sk))
                         assert fak.supports(sq, sk, d, dtype, causal) == \

@@ -81,6 +81,17 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import paddle_tpu_torch.ops.conv_extra\n"
         "import paddle_tpu_torch.fft, paddle_tpu_torch.signal\n"
         "import paddle_tpu_torch.incubate.nn.functional\n"
+        "import paddle_tpu_torch.nn.rnn, paddle_tpu_torch.audio\n"
+        "import paddle_tpu_torch.audio.features, paddle_tpu_torch.audio.functional\n"
+        "import paddle_tpu_torch.models.conformer\n"
+        "import paddle_tpu_torch.models.deepspeech, paddle_tpu_torch.text\n"
+        "import paddle_tpu_torch.vision.datasets\n"
+        "import paddle_tpu_torch.vision.models.vgg\n"
+        "import paddle_tpu_torch.vision.models.mobilenetv2\n"
+        "import paddle_tpu_torch.vision.models.densenet\n"
+        "import paddle_tpu_torch.vision.models.squeezenet\n"
+        "import paddle_tpu_torch.vision.models.shufflenetv2\n"
+        "import paddle_tpu_torch.vision.models.inception\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.'))\n"
