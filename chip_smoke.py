@@ -25,6 +25,10 @@ one NVIDIA GPU.
     python3 chip_smoke.py speech           # only the speech path, the
                                            # vision zoo and gpt_6_7b
                                            # (no contract line)
+    python3 chip_smoke.py train_features   # only remat, fp16 loss scaling,
+                                           # the profiler, the tensor
+                                           # checker and the sparse stage
+                                           # (no contract line)
 
 Run from the root of a checkout on a machine with a CUDA GPU and the
 CUDA toolkit.  Phases, each printing its own lines; any failure raises
@@ -225,8 +229,8 @@ and the script exits non-zero:
               vision`` runs it alone): B2/B3/B4a/B4b at ViT's shapes
               against their plain versions and timed, one O1 step with
               the kernels against the plain-version step, the ViT fit
-              (3 + 10 steps; B2, B3, B4a, B4b 12, 12, 25, 25 a step),
-              the ResNet-50 fit (3 + 5 steps, BatchNorm statistics),
+              (2 + 4 steps; B2, B3, B4a, B4b 12, 12, 25, 25 a step),
+              the ResNet-50 fit (2 + 3 steps, BatchNorm statistics),
               ``evaluate`` with ``Accuracy``, ``predict`` and a
               ``save``/``load`` round trip, logits bitwise.
 13. ops    — the rest of the op surface (``ops_phase``; ``python3
@@ -242,6 +246,22 @@ and the script exits non-zero:
               families once on the card against the port's CPU output;
               ``nms``, ``roi_align``, ``deformable_conv``, ``warpctc``
               and ``fft_r2c`` timed at their users' sizes.
+14. train_features — GPT-124M at 8 x 1024 in O2 bf16 with residual
+              dropout, 5 TrainSteps with ``remat=False`` then 5 with
+              ``remat=True`` from the same weights, draws and batches
+              (losses and parameters within 1e-5; B2 and B4a twice a
+              step under remat), 3 more under ``profiler.Profiler``
+              (operator and kernel calls equal to the launch plan,
+              chrome trace to chiprun_out/); the same model in O2
+              float16 with ``GradScaler()``, 10 steps held to a host
+              replay of the scale rule, the first loss to f32's within
+              1e-2, a skipped inf step (parameters and optimizer state
+              bitwise, scale halved) and the tensor checker naming the
+              op an inf reaches; a SECOND-style sparse stage at KITTI's
+              41 x 1600 x 1408 grid (two samples of 16,000-20,000
+              voxels) against the CPU port at 1e-4, host rulebook ms
+              apart from device ms (``python3 chip_smoke.py
+              train_features`` runs this group alone).
 
 The launches in the ``kernels`` line are those of each kernel's main
 path, each run with the counts at 0 just before and read just after:
@@ -253,8 +273,10 @@ burst, the int8 tier run, the int8 fleet runs and the int8
 tensor-parallel run on every rank (summed) for its int8 twin, the FMT and Llama decode runs (summed) for the decode
 kernel, the timed training steps for the others, to which the eager
 BERT-base timed steps add B4a's and B4b's launches and its eval forward
-B2's and B4a's, the ViT-B/16 fit B2's, B3's, B4a's and B4b's, and the
-op surface's attention entry points B2's and B3's.  The second-to-last
+B2's and B4a's, the ViT-B/16 fit B2's, B3's, B4a's and B4b's, the
+op surface's attention entry points B2's and B3's, the speech path's
+and gpt_6_7b's, and the training features' remat and fp16 steps B2's,
+B3's, B4a's and B4b's.  The second-to-last
 line is that JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  The script imports only torch, numpy and the port.
 """
@@ -272,11 +294,18 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM HBM3
 PEAK_FLOPS = {"torch.bfloat16": 989e12,        # dense tensor-core bf16
+              "torch.float16": 989e12,         # dense tensor-core f16
               "torch.float32": 67e12}          # f32 outside the tensor cores
 
 
+_T0 = time.perf_counter()
+
+
 def say(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line: the phase, its fields, and ``t``, the seconds since
+    the script started (the smoke's time budget, line by line)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t": round(time.perf_counter() - _T0, 3)}), flush=True)
 
 
 # ------------------------------------------------------------- timing --
@@ -647,9 +676,10 @@ BF16_RTOL, BF16_RMS_TOL = 1e-2, 1e-3
 def _parity(got, want, f32_tol):
     """A kernel output against its plain version, which the phases
     compute in f32 on the same input values.  An f32 output must lie
-    within ``f32_tol * max(1, max|want|)`` (summation order); a bf16
-    output, every element within ``1e-2 |want| + 1e-3 rms(want)`` (its
-    own rounding is 2^-9 relative; the kernels compute in f32).  Returns
+    within ``f32_tol * max(1, max|want|)`` (summation order); a bf16 or
+    f16 output, every element within ``1e-2 |want| + 1e-3 rms(want)``
+    (its own rounding is 2^-9 or 2^-11 relative; the kernels compute in
+    f32).  Returns
     (max |err|, ||err|| / ||want||, the largest err / limit, ok).  Where
     the limit is 0 (a plain output that is identically zero, as dq and
     dk are for a single key) the ratio is 0 for an exact zero and
@@ -658,7 +688,7 @@ def _parity(got, want, f32_tol):
 
     g, w = got.float(), want.float()
     err = (g - w).abs()
-    if got.dtype == torch.bfloat16:
+    if got.dtype in (torch.bfloat16, torch.float16):
         limit = BF16_RTOL * w.abs() + BF16_RMS_TOL * w.pow(2).mean().sqrt()
     else:
         limit = f32_tol * max(1.0, float(w.abs().max()))
@@ -712,7 +742,7 @@ def flash_attention_phase(entries, dev):
 
     fwd = entries["flash_attention_fwd"]
     bwd = entries["flash_attention_bwd"]
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     cases = [   # label, dtype, (B, S, N, D), causal, packed[, seq_k]
         ("cpu_2x128x2x64", f32, (2, 128, 2, 64), False, False),
         ("cpu_2x128x2x64_causal", f32, (2, 128, 2, 64), True, False),
@@ -755,6 +785,12 @@ def flash_attention_phase(entries, dev):
         ("conformer_16x250x4x36", f32, (16, 250, 4, 36), False, False),
         ("gpt6_7b_2x2048x32x128_causal", bf16, (2, 2048, 32, 128), True,
          True),
+        # the float16 instances (O2 float16 under loss scaling): the CPU
+        # shape, GPT-124M's step, D 36 (2-byte-aligned rows, padded tile)
+        ("cpu_f16_1x128x2x64_causal", f16, (1, 128, 2, 64), True, False),
+        ("gpt124m_f16_8x1024x12x64_causal", f16, (8, 1024, 12, 64), True,
+         True),
+        ("d36_f16_2x300x4x36_causal", f16, (2, 300, 4, 36), True, False),
     ]
 
     def check(label, dtype, q, k, v, dout, causal, packed, scale):
@@ -802,6 +838,19 @@ def flash_attention_phase(entries, dev):
             say("library_parity", library="F.scaled_dot_product_attention",
                 case=label, dtype=str(dtype), max_abs_err=lib[0],
                 rel_l2_err=lib[1], err_over_limit=lib[2], gate=False)
+
+    # the f16 backward under loss scaling: dO at 2^16 times the size of
+    # the gradient a token-mean loss hands one token, 1/(B*S), at GPT's
+    # shape and at D 36 (dO of 2^16 * randn itself would overflow f16 in
+    # dv whatever the kernel: |dv| reaches 2e5, over 65504)
+    for i, (label, shape) in enumerate((
+            ("gpt124m_f16_8x1024x12x64_causal_dO_x2^16", (8, 1024, 12, 64)),
+            ("d36_f16_2x300x4x36_causal_dO_x2^16", (2, 300, 4, 36)))):
+        q, k, v, dout = _flash_inputs(dev, f16, *shape, seed=90 + i,
+                                      packed=shape[-1] == 64)
+        dout = (dout.float() * (2.0 ** 16 / (shape[0] * shape[1]))).to(f16)
+        check(label, f16, q, k, v, dout, True, shape[-1] == 64,
+              1.0 / float(np.sqrt(shape[-1])))
 
     # timing at GPT-124M's training shape: causal, bf16, strided qkv views
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -855,16 +904,16 @@ def flash_attention_phase(entries, dev):
         "(BERT-base eager eval)", kernel_ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
         library="F.scaled_dot_product_attention")
-    # the head dims of the JAX kernel's range, the Conformer's shape and
-    # gpt_6_7b's forward
-    for d in (4, 20, 36, 100):
-        for dtype in (f32, bf16):
-            _flash_kernel_times(fwd, bwd, dev, dtype, (8, 512, 8, d), True,
-                                flush)
+    # the main paths' other shapes: the Conformer's, gpt_6_7b's forward
+    # and GPT-124M's float16 step (the head-dim sweep's times, the
+    # evidence for C7, are in PERF.md and no main path's: the parity rows
+    # above still hold every head dim)
     _flash_kernel_times(fwd, bwd, dev, f32, (16, 250, 4, 36), False, flush,
                         note=" (Conformer eval and step)")
     _flash_kernel_times(fwd, None, dev, bf16, (2, 2048, 32, 128), True,
                         flush, note=" (gpt_6_7b eval forward)")
+    _flash_kernel_times(fwd, bwd, dev, f16, (8, 1024, 12, 64), True, flush,
+                        note=" (GPT-124M O2 float16 step)")
     return records
 
 
@@ -938,7 +987,7 @@ def layernorm_phase(entries, dev):
 
     fwd = entries["layernorm_fwd"]
     bwd = entries["layernorm_bwd"]
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     eps = 1e-5
     cases = [("cpu_256x128", f32, 256, 128), ("gpt124m_8192x768", bf16,
                                               8192, 768),
@@ -958,7 +1007,10 @@ def layernorm_phase(entries, dev):
              ("wide_f32_2048x8192", f32, 2048, 8192),
              ("wide_edge_300x2056", bf16, 300, 2056),
              ("wide_partial_f32_1000x3000", f32, 1000, 3000),
-             ("wide_few_rows_3x8192", bf16, 3, 8192)]
+             ("wide_few_rows_3x8192", bf16, 3, 8192),
+             # the float16 instances: GPT-124M's step and a wide row
+             ("gpt124m_f16_8192x768", f16, 8192, 768),
+             ("wide_f16_4096x4096", f16, 4096, 4096)]
     main_err = {}
     for i, (label, dtype, rows, c) in enumerate(cases):
         x, g, b, dy = _ln_inputs(dev, dtype, rows, c, seed=70 + i)
@@ -999,7 +1051,8 @@ def layernorm_phase(entries, dev):
     del graph, held
     plans = {}
     for dtype, c in ((bf16, 768), (f32, 768), (bf16, 2048), (f32, 144),
-                     (bf16, 4096), (f32, 4096), (bf16, 8192), (f32, 8192)):
+                     (bf16, 4096), (f32, 4096), (bf16, 8192), (f32, 8192),
+                     (f16, 768), (f16, 4096)):
         info = lnk.bwd_kernel_info(dtype, c, dev)
         slots = info["blocks_per_sm"] * info["sms"]
         plans[f"{c} {dtype}"] = {
@@ -1032,7 +1085,7 @@ def layernorm_phase(entries, dev):
     # the Conformer's (f32) and the wide rows (gpt_6_7b's 4096 and 8192)
     for dtype, rows, c, note in ((f32, 4000, 144, " (Conformer)"),
                                  (bf16, 4096, 4096, " (gpt_6_7b)"),
-                                 (bf16, 2048, 8192, "")):
+                                 (f16, 8192, 768, " (GPT-124M O2 float16)")):
         x, g, b, dy = _ln_inputs(dev, dtype, rows, c, seed=94)
         _ln_kernel_times(fwd, bwd, x, g, b, dy, eps, flush,
                          f"{rows}x{c} {str(dtype)[6:]}{note}")
@@ -1576,6 +1629,11 @@ def build_phase():
             if "wide" in f}
     if wide:
         raise RuntimeError(f"the wide LayerNorm kernels spill: {wide}")
+    # the float16 instances of B2/B3 and B4 (``__half`` in the mangled name)
+    f16 = {f: n for name in ("flash_attention", "layernorm")
+           for f, n in _spills(built[name][1]).items() if "6__half" in f}
+    if f16:
+        raise RuntimeError(f"the float16 kernel instances spill: {f16}")
     say("build_total", seconds=time.perf_counter() - t0)
 
 
@@ -3312,10 +3370,18 @@ def _check_completions(label, comps, expect, vocab):
         raise RuntimeError(f"n2: second completion {comps[1]['request_id']}")
 
 
+# new tokens a request of the async window: the 256 measured steps and
+# the steps before every request decodes (600 before, cut for the
+# smoke's time budget: the profiled tail after the window measured
+# nothing)
+ASYNC_NEW_TOKENS = 320
+
+
 def _async_window(eng, serve, steps=256):
     """Decode steps replayed by the async worker while ``serve(bodies)``
-    runs 8 requests (128-token prompts, 600 new tokens; every other one
-    streamed when it goes through the server) to their end.  The prompts
+    runs 8 requests (128-token prompts, ASYNC_NEW_TOKENS new tokens;
+    every other one streamed when it goes through the server) to their
+    end.  The prompts
     are served once first with one new token, so the run's prefill is
     each prompt's last page.  torch.profiler covers the whole run,
     started and stopped while the worker is idle: device ms per engine
@@ -3327,7 +3393,7 @@ def _async_window(eng, serve, steps=256):
 
     rng = np.random.RandomState(77)
     bodies = [{"prompt_ids": [int(t) for t in rng.randint(0, 50257, 128)],
-               "max_new_tokens": 600, "stream": i % 2 == 0}
+               "max_new_tokens": ASYNC_NEW_TOKENS, "stream": i % 2 == 0}
               for i in range(eng.max_batch)]
     serve([{**b, "max_new_tokens": 1} for b in bodies])
     out = {}
@@ -4483,8 +4549,8 @@ def eager_api_phase(dev, smi, warmup=3, steps=10):
 
 # ------------------------------------------------------------ vision --
 VIT_BATCH = 64
-VIT_STEPS = (3, 10)          # warm-up, timed
-RESNET_STEPS = (3, 5)
+VIT_STEPS = (2, 4)           # warm-up, timed
+RESNET_STEPS = (2, 3)
 # the O1 step's gradients against the plain-version step: each within this
 # relative L2 error (BF16_GRAD_RTOL's bound for bf16 training steps)
 VISION_GRAD_RTOL = BF16_GRAD_RTOL
@@ -4827,13 +4893,13 @@ def vision_phase(dev, smi):
       error within ``VISION_GRAD_RTOL`` of its norm plus
       ``VISION_GRAD_FLOOR`` of the largest gradient's norm;
     - ViT-B/16 (patch 16, 224², hidden 768, 12 layers, 12 heads, MLP
-      3072, 1000 classes, full depth) fit for 3 + 10 steps — the main
+      3072, 1000 classes, full depth) fit for 2 + 4 steps — the main
       path: wall and device ms a step, busy share, images/s, FLOPs
       (``hapi.flops`` x 3 for forward + backward) over the bf16 dense
       peak, peak memory, the ms the main thread waits on the loader a
       step; B2, B3, B4a and B4b must launch 12, 12, 25 and 25 times a
       step on this path alone;
-    - ResNet-50 fit for 3 + 5 steps under the same loader: images/s,
+    - ResNet-50 fit for 2 + 3 steps under the same loader: images/s,
       device ms, busy, the top device ops; no Pallas kernel is on this
       path (convolutions are cuDNN's, as the JAX package leaves them to
       XLA), BatchNorm's running statistics finite and moved;
@@ -6904,7 +6970,7 @@ def _lamb_bert(paddle, dev, smi, warmup=3, steps=5):
 def _momentum_resnet(paddle, dev, smi):
     """``Momentum(0.1, 0.9, weight_decay=1e-4)`` on ResNet-50's
     ``Model.fit`` under O1 at batch 64 (PaddleClas ResNet50.yaml's
-    optimizer), 3 + 5 steps, one step's update held to the plain rule."""
+    optimizer), 2 + 3 steps, one step's update held to the plain rule."""
     import torch
 
     from paddle_tpu_torch.vision.models import resnet50
@@ -7026,9 +7092,12 @@ def _on_cpu_like(paddle, make, model, dev):
 
 def _profiled_steps(step, steps, dev):
     """``steps`` calls of ``step``, each timed on the host clock to a
-    synchronize, then one more under torch.profiler -> (losses, wall ms
-    of each step, ``_device_profile`` of the profiled one against the
-    median wall ms)."""
+    synchronize, then one more under torch.profiler, the card's activity
+    alone -> (losses, wall ms of each step, ``_device_profile`` of the
+    profiled one against the median wall ms).  Host operators are not
+    traced: ``_device_profile`` reads none, and a step of ~10^5 launches
+    (DeepSpeech2's GRU loop) costs tens of seconds of profiler overhead
+    with them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -7038,8 +7107,7 @@ def _profiled_steps(step, steps, dev):
         losses.append(float(step()))
         torch.cuda.synchronize(dev)
         walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize(dev)
     wall = float(np.median(walls))
@@ -7057,7 +7125,7 @@ def _greedy_ctc(logits):
     return out
 
 
-def speech_phase(dev, smi, steps=5):
+def speech_phase(dev, smi, steps=3):
     """The speech path at full width: 16 synthetic 16 kHz waveforms of
     10 s (from a seed) -> ``LogMelSpectrogram`` (80 channels, 25 ms /
     10 ms) -> ``Conformer()`` at the JAX package's defaults (feat 80,
@@ -7398,6 +7466,543 @@ def gpt_6_7b_phase(dev, smi, batch=2, seq=2048):
     return counts
 
 
+# ------------------------------------------------ training features --
+# GPT-124M at bench.py's training width (12 layers, hidden 768, 12 heads,
+# 8 x 1024 tokens).  Dropout stays on in the residual paths (0.1, drawn
+# from the model's generator, which remat must restore); attention
+# dropout is 0, as bench.py sets it, so attention takes the flash
+# kernels (any dropout sends it to the plain composition).
+FEATURE_STEPS = 5
+FP16_STEPS = 10
+FEATURE_DROPOUT = 0.1
+FEATURE_RTOL = 1e-5        # remat against no remat, losses and parameters
+FP16_LOSS_RTOL = 1e-2      # the first fp16 step's loss against f32's
+# At initialisation GPT's loss is ~ln(50304) whatever the blocks compute,
+# so the first fp16 step is held by its unscaled gradients too: each
+# within FP16_GRAD_RTOL of the f32 gradient's norm plus FP16_GRAD_FLOOR
+# of the largest one's (the bf16 steps' bounds; float16 keeps three more
+# mantissa bits than bf16)
+FP16_GRAD_RTOL = BF16_GRAD_RTOL
+FP16_GRAD_FLOOR = VISION_GRAD_FLOOR
+PROFILED_STEPS = 3
+SPARSE_GRID = (41, 1600, 1408)   # SECOND / Paddle3D KITTI voxelisation
+SPARSE_BATCH = 2
+SPARSE_VOXELS = (16000, 20000)   # active voxels a sample
+SPARSE_SEED = 0
+SPARSE_TOL = 1e-4
+
+
+def _feature_model(dev, dtype):
+    """GPT-124M (seed 0) with residual dropout on, under
+    ``amp.decorate(level="O2", dtype=dtype)`` unless ``dtype`` is
+    None (f32)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import gpt_124m
+
+    model = gpt_124m(device=dev, seed=0, hidden_dropout_prob=FEATURE_DROPOUT,
+                     attention_probs_dropout_prob=0.0)
+    if dtype is not None:
+        model = amp.decorate(model, level="O2", dtype=dtype)
+    return model
+
+
+def _feature_batches(vocab, n, dev, batch=8, seq=1024, seed=2025):
+    import torch
+
+    rng = np.random.RandomState(seed)
+    return [tuple(torch.as_tensor(rng.randint(0, vocab, (batch, seq)),
+                                  device=dev) for _ in range(2))
+            for _ in range(n)]
+
+
+def _feature_step(model, remat=False, scaler=None):
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+
+    opt = optimizer.AdamW(learning_rate=TRAIN_LR,
+                          parameters=model.parameters(),
+                          grad_clip=optimizer.ClipGradByGlobalNorm(1.0))
+    return TrainStep(model, lambda logits, labels: model.loss(logits, labels),
+                     opt, remat=remat, scaler=scaler)
+
+
+def _timed_steps(step, batches, dev, each=None):
+    """Run ``step`` over ``batches`` but the last with the kernel counts
+    at 0 just before and read just after, then the last under
+    torch.profiler (the card's activity alone) -> (losses, stream ms a
+    step between CUDA events around the run, wall ms a step, kernel
+    launches a step, the counts of the run, ``_device_profile`` of the
+    profiled step: device ms and busy share); ``each(i)``, if given,
+    runs after timed step i."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops.cuda import registry
+
+    *batches, last = batches
+
+    torch.cuda.synchronize(dev)
+    registry.reset_counts()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    a.record()
+    losses = []
+    for i, (ids, labels) in enumerate(batches):
+        losses.append(step(ids, labels))
+        if each is not None:
+            each(i)
+    b.record()
+    torch.cuda.synchronize(dev)
+    wall = (time.perf_counter() - t0) / len(batches) * 1e3
+    counts = {k: registry.counts()[k] for k in _TRAIN_KERNELS}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(*last)
+        torch.cuda.synchronize(dev)
+    return ([x.item() for x in losses], a.elapsed_time(b) / len(batches),
+            wall, {k: v / len(batches) for k, v in counts.items()}, counts,
+            _device_profile(prof, 1, wall))
+
+
+def _profiled_feature_steps(step, batches, dev, layers):
+    """``PROFILED_STEPS`` steps under ``profiler.Profiler(targets=[CPU,
+    GPU])``: its summary's operator calls (one kernel launch each) must
+    equal the launch plan and its CUDA kernel records may not exceed it;
+    the records missing are printed (ROADMAP C12: CUPTI can miss the
+    kernels of a window's first milliseconds).  The chrome trace goes to
+    chiprun_out/."""
+    import torch
+
+    from paddle_tpu_torch import profiler
+
+    with profiler.Profiler(targets=[profiler.ProfilerTarget.CPU,
+                                    profiler.ProfilerTarget.GPU]) as prof:
+        for ids, labels in batches[:PROFILED_STEPS]:
+            step(ids, labels)
+        torch.cuda.synchronize(dev)
+    stats = prof.op_stats()
+    n, lns = PROFILED_STEPS, 2 * layers + 1
+
+    def calls(part):
+        return sum(c for k, (c, _, _) in stats.items() if part in k)
+
+    want = {"paddle_tpu_torch::flash_attention_fwd": layers * n,
+            "paddle_tpu_torch::flash_attention_bwd": layers * n,
+            "paddle_tpu_torch::layernorm_fwd": lns * n,
+            "paddle_tpu_torch::layernorm_bwd": lns * n,
+            "flash_fwd_tc": layers * n, "flash_dq_tc": layers * n,
+            "flash_dkv_tc": layers * n, "ln_fwd_kernel": lns * n,
+            "ln_bwd_kernel": lns * n, "ln_reduce_kernel": lns * n}
+    got = {k: (stats[k][0] if "::" in k and k in stats else calls(k))
+           for k in want}
+    ops = {k: v for k, v in got.items() if "::" in k}
+    missing = {k: want[k] - v for k, v in got.items() if "::" not in k}
+    table = prof.summary(time_unit="ms")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    trace = prof.export(os.path.join(ROOT, "chiprun_out",
+                                     "train_features_trace.json"))
+    say("profiler", steps=n, calls=got, expected=want,
+        kernel_records_missing=missing, summary_lines=len(table.splitlines()),
+        trace_bytes=os.path.getsize(trace),
+        kernel_device_ms_per_step=sum(
+            d for k, (_, _, d) in stats.items()
+            if any(part in k for part in want if "::" not in part)) / n)
+    if (ops != {k: v for k, v in want.items() if "::" in k}
+            or min(missing.values()) < 0):
+        raise RuntimeError(f"profiler calls {got} != the launch plan {want}")
+
+
+def remat_phase(dev, smi):
+    """GPT-124M in O2 bf16 with residual dropout: a warm-up step, then
+    FEATURE_STEPS TrainSteps with ``remat=False``, then the same with
+    ``remat=True`` from the same weights, generator seed and batches.  Losses and updated parameters
+    must agree within FEATURE_RTOL (printed: whether bitwise); under remat
+    B2 and B4a launch twice a step.  Three more steps of the first model
+    run under the port's profiler.  Returns the launches of both runs."""
+    import torch
+
+    from paddle_tpu_torch.framework import memory
+
+    runs, total = {}, {k: 0 for k in _TRAIN_KERNELS}
+    layers = 12
+    for remat in (False, True):
+        model = _feature_model(dev, "bfloat16")
+        step = _feature_step(model, remat=remat)
+        batches = _feature_batches(model.config.vocab_size,
+                                   2 + FEATURE_STEPS + PROFILED_STEPS, dev)
+        step(*batches.pop(0))        # warm-up, in both runs alike
+        memory.reset_peak_memory_stats(dev.index)
+        losses, stream_ms, wall_ms, per_step, counts, device = _timed_steps(
+            step, batches[:FEATURE_STEPS + 1], dev)
+        peak = memory.max_memory_allocated(dev.index)
+        if peak != torch.cuda.max_memory_allocated(dev):
+            raise RuntimeError("framework.memory's peak differs from "
+                               "torch.cuda.max_memory_allocated")
+        want = _expected_train_launches(layers, 1)
+        if remat:
+            want["flash_attention_fwd"] *= 2
+            want["layernorm_fwd"] *= 2
+        say("remat", remat=remat, model="gpt_124m", dtype="bfloat16 (O2)",
+            dropout=f"residual {FEATURE_DROPOUT}, attention 0", batch=8,
+            seq=1024, steps=FEATURE_STEPS, losses=losses,
+            stream_ms_per_step=stream_ms, wall_ms_per_step=wall_ms,
+            profiled_step=device, max_memory_allocated=peak,
+            launches_per_step=per_step, expected_per_step=want,
+            nvidia_smi=smi)
+        if per_step != want:
+            raise RuntimeError(f"remat={remat}: launches a step {per_step} "
+                               f"!= {want}")
+        for k in total:
+            total[k] += counts[k]
+        runs[remat] = (losses, {n: p.detach().clone()
+                                for n, p in model.named_parameters()})
+        if not remat:
+            _profiled_feature_steps(step, batches[FEATURE_STEPS + 1:], dev,
+                                    layers)
+        del model, step
+        torch.cuda.empty_cache()
+    (la, pa), (lb, pb) = runs[False], runs[True]
+    loss_rel = max(abs(x - y) / abs(x) for x, y in zip(la, lb))
+    param_rel = max(float((pb[n].float() - p.float()).norm()
+                          / max(float(p.float().norm()), 1e-30))
+                    for n, p in pa.items())
+    bitwise = la == lb and all(torch.equal(p, pb[n]) for n, p in pa.items())
+    say("remat_against_no_remat", max_loss_rel_err=loss_rel,
+        max_param_rel_l2_err=param_rel, rtol=FEATURE_RTOL, bitwise=bitwise)
+    if not (loss_rel <= FEATURE_RTOL and param_rel <= FEATURE_RTOL
+            and np.isfinite(la).all()):
+        raise RuntimeError("remat's training diverged from remat=False")
+    return total
+
+
+def _scaler_replay(flags, scale=65536.0, incr=2.0, decr=0.5,
+                   incr_every=2000, decr_every=1):
+    """The JAX package's dynamic-scale rule replayed on the host from the
+    found_inf flags -> the state after each step."""
+    good = bad = 0
+    out = []
+    for found in flags:
+        if found:
+            bad, good = bad + 1, 0
+            if bad >= decr_every:
+                scale, bad = max(scale * decr, 1.0), 0
+        else:
+            good, bad = good + 1, 0
+            if good >= incr_every:
+                scale, good = scale * incr, 0
+        out.append({"scale": scale, "good_steps": good, "bad_steps": bad})
+    return out
+
+
+def _inject_inf(model):
+    """A forward hook that puts an inf into the embeddings' output (the
+    blocks' input) -> its handle."""
+    def hook(module, args, out):
+        out = out.clone()
+        out[0, 0, 0] = float("inf")
+        return out
+    return model.gpt.embeddings.register_forward_hook(hook)
+
+
+def fp16_phase(dev, smi):
+    """GPT-124M under ``decorate(level="O2", dtype="float16")`` with
+    ``GradScaler()`` at its defaults: a first TrainStep whose loss and
+    unscaled gradients (the scaler's f32 copies) are held to the f32
+    model's on the same weights, draws and batch, the loss within
+    FP16_LOSS_RTOL and each gradient by FP16_GRAD_RTOL and
+    FP16_GRAD_FLOOR; then FP16_STEPS timed TrainSteps, with the scale
+    and found_inf of every step kept on the card during the run, read
+    after it and held to a host replay of the JAX rule from those flags;
+    then a step on an input holding inf, which must keep the parameters
+    and the optimizer state bitwise and halve the scale; then
+    ``amp.debugging``'s tensor checker on a step with the same inf, which
+    must name the op.  Returns the timed steps' launches."""
+    import torch
+
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.amp import debugging
+
+    batches = _feature_batches(50304, FP16_STEPS + 2, dev, seed=2026)
+    ref = _feature_model(dev, None)
+    f32_loss = ref.loss(ref(batches[0][0]), batches[0][1])
+    f32_loss.backward()
+    f32_loss = f32_loss.item()
+    f32_grads = {n: p.grad for n, p in ref.named_parameters()}
+    del ref
+    torch.cuda.empty_cache()
+    model = _feature_model(dev, "float16")
+    if {p.dtype for p in model.parameters()} != {torch.float16}:
+        raise RuntimeError("O2 float16 left a parameter in another dtype")
+    scaler = amp.GradScaler()
+    step = _feature_step(model, scaler=scaler)
+
+    # the first step, untimed: its unscaled gradients as scaler_apply
+    # returns them (cloned: the clip and the update follow)
+    first = []
+    apply = amp.scaler_apply
+
+    def keep_grads(*args):
+        out = apply(*args)
+        first.extend(g.clone() for g in out[0])
+        return out
+
+    amp.scaler_apply = keep_grads
+    try:
+        first_loss = step(*batches[0]).item()
+    finally:
+        amp.scaler_apply = apply
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    grads = {name_of[id(p)]: g
+             for p, g in zip(step.optimizer._grads()[1], first)}
+    top = max(float(g.norm()) for g in f32_grads.values())
+    over = {n: float((grads[n] - g).norm())
+            / (FP16_GRAD_RTOL * float(g.norm()) + FP16_GRAD_FLOOR * top)
+            for n, g in f32_grads.items()}
+    worst = max(over, key=lambda n: over[n] if np.isfinite(over[n])
+                else np.inf)
+    first_rel = abs(first_loss - f32_loss) / abs(f32_loss)
+    first_flag = bool(step.found_inf)
+    say("fp16_first_step", f32_loss=f32_loss, fp16_loss=first_loss,
+        loss_rel_err=first_rel, loss_rtol=FP16_LOSS_RTOL,
+        found_inf=first_flag, grads_compared=len(grads),
+        grad_rtol=FP16_GRAD_RTOL, grad_floor=FP16_GRAD_FLOOR,
+        worst_grad=worst, worst_grad_over_limit=over[worst],
+        worst_grad_rel_l2_err=float((grads[worst] - f32_grads[worst]).norm()
+                                    / f32_grads[worst].norm()))
+    if first_flag or set(grads) != set(f32_grads) or not over[worst] <= 1.0:
+        raise RuntimeError(f"fp16 first-step gradients (found_inf "
+                           f"{first_flag}): {worst} at {over[worst]} of "
+                           f"the limit")
+    if first_rel > FP16_LOSS_RTOL:
+        raise RuntimeError(f"fp16 first loss {first_loss} vs f32 {f32_loss}")
+    del f32_grads, grads, first
+    # the scaler epilogue's host time: the fused unscale + check launches,
+    # the one flag read (the host waits for the backward there), and the
+    # optimizer's launches after it
+    parts = {"epilogue_ms": 0.0}
+    inner = jit.scaler_guarded_update
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args)
+        finally:
+            parts["epilogue_ms"] += (time.perf_counter() - t0) * 1e3
+
+    # each step's flag and state stay on the card until the run is over:
+    # reading them between steps would add host syncs the bf16 runs lack
+    on_card = [(step.found_inf, scaler._compiled_state)]
+
+    def keep(i):
+        on_card.append((step.found_inf, scaler._compiled_state))
+
+    jit.scaler_guarded_update = timed
+    try:
+        losses, stream_ms, wall_ms, per_step, counts, device = _timed_steps(
+            step, batches[1:], dev, each=keep)
+    finally:
+        jit.scaler_guarded_update = inner
+    flags = [bool(f) for f, _ in on_card]
+    states = [{"scale": float(st["scale"]), "good_steps": int(st["good"]),
+               "bad_steps": int(st["bad"])} for _, st in on_card]
+    replay = _scaler_replay(flags)
+    want = _expected_train_launches(12, 1)
+    say("fp16", model="gpt_124m", dtype="float16 (O2)",
+        scaler="GradScaler() defaults", steps=FP16_STEPS,
+        first_loss=first_loss, losses=losses, found_inf=flags,
+        scale=[st["scale"] for st in states],
+        states_match_replay=states == replay, stream_ms_per_step=stream_ms,
+        wall_ms_per_step=wall_ms, profiled_step=device,
+        epilogue_host_ms_per_step=parts["epilogue_ms"] / (FP16_STEPS + 1),
+        launches_per_step=per_step, expected_per_step=want,
+        layernorm_dtype="float16 (the raw path applies no AMP list)",
+        nvidia_smi=smi)
+    if states != replay:
+        raise RuntimeError(f"scale trajectory {states} != replay {replay}")
+    if per_step != want:
+        raise RuntimeError(f"fp16 launches a step {per_step} != {want}")
+    # the inf step: nothing moves but the scale
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = step.optimizer
+    state = {i: {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                 for k, v in st.items()}
+             for i, st in opt._accumulators.items()}
+    scale0 = scaler.get_scale()
+    handle = _inject_inf(model)
+    try:
+        step(*batches[0])
+    finally:
+        handle.remove()
+    kept = (all(torch.equal(p, before[n])
+                for n, p in model.named_parameters())
+            and all(torch.equal(v, opt._accumulators[i][k])
+                    if isinstance(v, torch.Tensor)
+                    else v == opt._accumulators[i][k]
+                    for i, st in state.items() for k, v in st.items()))
+    say("fp16_inf_step", found_inf=bool(step.found_inf),
+        params_and_state_bitwise=kept, scale_before=scale0,
+        scale_after=scaler.get_scale())
+    if not (bool(step.found_inf) and kept
+            and scaler.get_scale() == max(scale0 * 0.5, 1.0)):
+        raise RuntimeError("the inf step was not skipped as the rule says")
+    # amp.debugging: the checker names the op the inf first reaches
+    handle = _inject_inf(model)
+    debugging.enable_tensor_checker(debugging.TensorCheckerConfig(
+        enable=True))
+    caught = None
+    try:
+        step(*batches[0])
+    except FloatingPointError as e:
+        caught = str(e)
+    finally:
+        debugging.disable_tensor_checker()
+        handle.remove()
+    say("debugging", checker_message=caught)
+    if not caught or "op '" not in caught:
+        raise RuntimeError("the tensor checker missed the injected inf")
+    del model, step, before, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _kitti_voxels(seed):
+    """Active voxels of ``batch`` point-cloud samples at KITTI's grid:
+    random-walk surfaces (60-step walks of unit moves from uniform
+    starts, so voxels have neighbours as a LiDAR scan's do), 16,000 to
+    20,000 distinct voxels a sample -> [N, 4] (batch, z, y, x), sorted."""
+    rng = np.random.RandomState(seed)
+    hi = np.asarray(SPARSE_GRID) - 1
+    out = []
+    for b in range(SPARSE_BATCH):
+        want = rng.randint(SPARSE_VOXELS[0], SPARSE_VOXELS[1] + 1)
+        cells = np.zeros((0, 3), np.int64)
+        while len(cells) < want:
+            starts = rng.randint(0, hi + 1, (want // 30, 3))
+            walk = starts[:, None] + np.cumsum(rng.randint(-1, 2, (
+                len(starts), 60, 3)), 1)
+            cells = np.unique(np.concatenate(
+                [cells, np.clip(walk.reshape(-1, 3), 0, hi)]), axis=0)
+        keep = np.sort(rng.choice(len(cells), want, replace=False))
+        out.append(np.concatenate([np.full((want, 1), b), cells[keep]], 1))
+    return np.concatenate(out)
+
+
+def _sparse_stage(paddle, coords, feats, weights):
+    """SubmConv3D(4->16, 3) -> SubmConv3D(16->16, 3) -> Conv3D(16->32, 3,
+    stride 2) -> MaxPool3D(2), ReLU between, forward and backward of the
+    pooled values' sum of squares -> (output coords, values, the
+    gradients of the input values and of every weight and bias, the
+    layers)."""
+    from paddle_tpu_torch import sparse
+
+    layers = [sparse.nn.SubmConv3D(4, 16, 3, padding=1),
+              sparse.nn.SubmConv3D(16, 16, 3, padding=1),
+              sparse.nn.Conv3D(16, 32, 3, stride=2, padding=1)]
+    for layer, sd in zip(layers, weights):
+        layer.set_state_dict(sd)
+    vals = paddle.to_tensor(feats, stop_gradient=False)
+    x = sparse.sparse_coo_tensor(coords.T, vals,
+                                 (SPARSE_BATCH, *SPARSE_GRID, 4))
+    for layer in layers:
+        x = sparse.relu(layer(x))
+    out = sparse.nn.MaxPool3D(2)(x)
+    (out.values() ** 2).sum().backward()
+    grads = {"input": vals.grad._data}
+    for i, layer in enumerate(layers):
+        grads[f"l{i}.weight"] = layer.weight.grad._data
+        grads[f"l{i}.bias"] = layer.bias.grad._data
+    return out._idx, out.values()._data, grads
+
+
+def sparse_phase(dev, smi):
+    """A SECOND-style sparse middle stage at KITTI's voxel grid (41 x 1600
+    x 1408, batch 2, 16,000-20,000 active voxels a sample, 4 channels,
+    from SPARSE_SEED) on the card in f32, forward and backward, against
+    the port's CPU path on the same coordinates and weights (SPARSE_TOL,
+    ``_parity``'s f32 rule).  The rulebooks are built on the host (numpy)
+    and timed apart from the device work (torch.profiler's kernel time,
+    one profiled run after a warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.sparse import conv as pconv
+
+    coords = _kitti_voxels(SPARSE_SEED)
+    rng = np.random.RandomState(SPARSE_SEED + 1)
+    feats = rng.randn(len(coords), 4).astype(np.float32)
+    weights = [{"weight": (rng.randn(27, cin, cout)
+                           * np.sqrt(2.0 / (27 * cin))).astype(np.float32),
+                "bias": (0.1 * rng.randn(cout)).astype(np.float32)}
+               for cin, cout in ((4, 16), (16, 16), (16, 32))]
+    host = {"s": 0.0}
+    wrapped = {}
+    for name in ("_rulebook", "_pool_rulebook"):
+        fn = getattr(pconv, name)
+
+        def timed(*a, _fn=fn):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a)
+            finally:
+                host["s"] += time.perf_counter() - t0
+        wrapped[name] = fn
+        setattr(pconv, name, timed)
+    try:
+        paddle.set_device("gpu")
+        _sparse_stage(paddle, coords, feats, weights)     # warm-up
+        torch.cuda.synchronize(dev)
+        host["s"] = 0.0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            got = _sparse_stage(paddle, coords, feats, weights)
+            torch.cuda.synchronize(dev)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        host_ms = host["s"] * 1e3
+        paddle.set_device("cpu")
+        t0 = time.perf_counter()
+        want = _sparse_stage(paddle, coords, feats, weights)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        paddle.set_device("gpu")
+        for name, fn in wrapped.items():
+            setattr(pconv, name, fn)
+    same_coords = np.array_equal(got[0], want[0])
+    report = {"values": _parity(got[1], want[1].to(dev), SPARSE_TOL)}
+    report.update({k: _parity(g, want[2][k].to(dev), SPARSE_TOL)
+                   for k, g in got[2].items()})
+    per_sample = np.bincount(coords[:, 0]).tolist()
+    say("sparse", grid=list(SPARSE_GRID), batch=SPARSE_BATCH,
+        voxels_per_sample=per_sample, out_sites=int(len(got[0])),
+        stage="SubmConv3D(4,16,3) SubmConv3D(16,16,3) Conv3D(16,32,3,s2) "
+              "MaxPool3D(2), f32, forward+backward",
+        host_rulebook_ms=host_ms, host_share=host_ms / wall_ms,
+        cpu_port_s=cpu_s, **_device_profile(prof, 1, wall_ms),
+        coords_equal_cpu=same_coords,
+        max_abs_err={k: r[0] for k, r in report.items()},
+        err_over_limit={k: r[2] for k, r in report.items()},
+        nvidia_smi=smi)
+    if not (same_coords and all(r[3] for r in report.values())):
+        raise RuntimeError(f"sparse stage differs from the CPU port: "
+                           f"{report}")
+
+
+def train_features_phases(dev, smi):
+    """The training features: remat (with the profiler), fp16 (with the
+    tensor checker), the sparse stage -> the kernels' launches of the
+    GPT runs, each counted alone."""
+    import torch
+
+    launches = remat_phase(dev, smi)
+    torch.cuda.empty_cache()
+    for k, n in fp16_phase(dev, smi).items():
+        launches[k] += n
+    torch.cuda.empty_cache()
+    sparse_phase(dev, smi)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "paddle_tpu_torch")):
         raise SystemExit("chip_smoke: run from a checkout that holds "
@@ -7451,6 +8056,10 @@ def main():
         vision_zoo_phase(dev, smi)
         gpt_6_7b_phase(dev, smi)
         return
+    if sys.argv[1:] == ["train_features"]:
+        build_phase()
+        train_features_phases(dev, smi)
+        return
     if sys.argv[1:] == ["ops"]:
         build_phase()
         ops_phase(dev, smi)
@@ -7460,7 +8069,16 @@ def main():
         return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
+    laps = [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the previous lap, for the smoke's time budget."""
+        laps.append(time.perf_counter())
+        say("lap", after=name, seconds=laps[-1] - laps[-2],
+            total_seconds=laps[-1] - laps[0])
+
     build_phase()
+    lap("build")
     from paddle_tpu_torch.ops.cuda import registry
 
     covered = [k for names in PARITY_PHASES for k in names]
@@ -7470,6 +8088,7 @@ def main():
     records = []
     for names, phase in PARITY_PHASES.items():
         records += phase({k: registry.KERNELS[k] for k in names}, dev)
+    lap("kernels")
     timing_harness_phase(dev)
     exactness_phase(dev)
     int8_exactness_phase(dev)
@@ -7478,34 +8097,42 @@ def main():
     train_exactness_phase(dev)
     train_exactness_bf16_phase(dev)
     graphs_phase(dev)
+    lap("exactness, train_exactness, graphs")
     torch.cuda.empty_cache()
     launches, eng = serving_phase(dev)
     decode_profile_phase(eng, dev)
+    lap("serving")
     del eng
     torch.cuda.empty_cache()
     # B1's main path is the serving burst and the front end's server
     # run, each driven with the counts at 0; the line sums them
     launches["paged_ragged_attention"] += front_end_phase(dev, smi)
+    lap("front_end")
     torch.cuda.empty_cache()
     # and the speculation phases: spec_exactness's runs, the speculative
     # bursts and the speculative engine behind the server
     launches["paged_ragged_attention"] += (spec_launches
                                            + speculative_phase(dev, smi))
+    lap("speculative")
     torch.cuda.empty_cache()
     launches.update(int8_serving_phase(dev))
+    lap("int8_serving")
     torch.cuda.empty_cache()
     # and the multi-LoRA and KV-tier phases' runs, B1's and B5's
     b1, b5 = lora_tier_phases(dev, smi)
+    lap("lora_tier")
     launches["paged_ragged_attention"] += b1
     launches["paged_ragged_attention_quant"] += b5
     torch.cuda.empty_cache()
     # and the fleet and simulator phases' runs, B1's and B5's
     b1, b5 = fleet_phases(dev, smi)
+    lap("fleet")
     launches["paged_ragged_attention"] += b1
     launches["paged_ragged_attention_quant"] += b5
     torch.cuda.empty_cache()
     # and the tensor-parallel phases' runs, summed over the ranks
     b1, b5 = tp_phases(dev, smi)
+    lap("tp")
     launches["paged_ragged_attention"] += b1
     launches["paged_ragged_attention_quant"] += b5
     torch.cuda.empty_cache()
@@ -7513,31 +8140,46 @@ def main():
     # the counts at 0 and read just after; the line sums them
     launches["decode_attention"] = (fmt_decode_phase(dev)
                                     + llama_decode_phase(dev))
+    lap("decode")
     torch.cuda.empty_cache()
     launches.update(training_phase(dev))
+    lap("training")
     torch.cuda.empty_cache()
     # and the eager Paddle API's BERT-base paths: the timed training steps
     # (B4a, B4b) and the eval forward (B2, B4a), each counted alone
     for kernel, n in eager_api_phase(dev, smi).items():
         launches[kernel] += n
+    lap("eager_api")
     torch.cuda.empty_cache()
     # and the vision path's ViT-B/16 fit (B2, B3, B4a, B4b), counted alone
     for kernel, n in vision_phase(dev, smi).items():
         launches[kernel] += n
+    lap("vision")
     torch.cuda.empty_cache()
     # and the op surface's attention entry points (B2, B3), counted alone
     for kernel, n in ops_phase(dev, smi).items():
         launches[kernel] += n
+    lap("ops")
     torch.cuda.empty_cache()
     # and the speech path's Conformer and DeepSpeech2 runs (B2, B3, B4a,
     # B4b), the zoo (no kernel) and gpt_6_7b's forward (B2, B4a at 4096),
     # each counted alone
     for kernel, n in speech_phase(dev, smi).items():
         launches[kernel] += n
+    lap("speech")
     vision_zoo_phase(dev, smi)
+    lap("vision_zoo")
     for kernel, n in gpt_6_7b_phase(dev, smi).items():
         launches[kernel] += n
+    lap("gpt_6_7b")
+    torch.cuda.empty_cache()
+    # and the training features' GPT-124M runs: remat=False and True
+    # (bf16), the fp16 steps, each counted alone
+    for kernel, n in train_features_phases(dev, smi).items():
+        launches[kernel] += n
+    lap("train_features")
     tooling_phase(dev, smi)
+    lap("tooling")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if not rec["launches"]:

@@ -13,7 +13,9 @@ it is ported: ``Tensor``/``to_tensor``, dtypes and places, ``seed``,
 grad modes, the creation and random functions, every registered op,
 ``grad``, ``nn``, ``optimizer``, ``amp``, ``jit``, ``save``/``load``,
 ``io``, ``metric``, ``vision``, ``linalg``, ``fft``, ``signal``, ``audio``,
-``text`` and the high-level
+``text``, ``profiler``, ``incubate``, ``sparse``, ``distribution``,
+``geometric``, ``strings``, the tensor-array functions and the
+high-level
 ``Model`` (``hapi``) with ``summary`` and ``flops``.
 
 The port imports ``torch`` and ``numpy`` only — never ``jax`` and
@@ -139,6 +141,18 @@ from . import fft  # noqa: F401, E402
 from . import signal  # noqa: F401, E402
 from . import audio  # noqa: F401, E402
 from . import text  # noqa: F401, E402
+from . import profiler  # noqa: F401, E402
+from . import sparse  # noqa: F401, E402
+from . import distribution  # noqa: F401, E402
+from . import geometric  # noqa: F401, E402
+from . import strings  # noqa: F401, E402
+from .tensor_array import (  # noqa: F401, E402
+    TensorArray,
+    array_length,
+    array_read,
+    array_write,
+    create_array,
+)
 
 
 def disable_static(place=None):

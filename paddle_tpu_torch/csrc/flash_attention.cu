@@ -101,6 +101,7 @@
 // any D; every other launch runs the general one.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -709,10 +710,53 @@ int info_bwd(int B, int N, int Sq, int Sk, int D, int* out) {
                        dkv_smem(D), out);
 }
 
-// ================================================= bf16: tensor cores ==
+// ========================================= bf16 and f16: tensor cores ==
 namespace tc {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+
+// The two 16-bit operand types: bf16 (O2 bf16) and f16 (O2 float16).  The
+// kernels are the same for both; these helpers are the only places the
+// type shows.
+template <typename T>
+struct IsF16 {
+  static constexpr bool value = false;
+};
+template <>
+struct IsF16<f16> {
+  static constexpr bool value = true;
+};
+
+// f32 (x, y) rounded to a T pair, as one 32-bit word
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float x, float y) {
+  uint32_t u;
+  if constexpr (IsF16<T>::value) {
+    const __half2 h = __floats2half2_rn(x, y);
+    u = *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    u = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return u;
+}
+
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  if constexpr (IsF16<T>::value)
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+template <typename T>
+__device__ __forceinline__ T to_elem(float x) {
+  if constexpr (IsF16<T>::value)
+    return __float2half_rn(x);
+  else
+    return __float2bfloat16(x);
+}
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -779,38 +823,45 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
       : "memory");
 }
 
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+// c += a (16 x 16, row) * b (16 x 8, col), T in, f32 accumulate
+template <typename T>
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (IsF16<T>::value)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi)
+// (x, y) as T pairs hi = T(x, y) and lo = T((x, y) - hi)
+template <typename T>
 __device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
                                        uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 f = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x - f.x, y - f.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
+  hi = pack2<T>(x, y);
+  const float2 f = unpack2<T>(hi);
+  lo = pack2<T>(x - f.x, y - f.y);
 }
 
 // The C fragments of two adjacent 8-column tiles (16 rows x 16 columns of
 // an f32 product) as the hi and lo A fragments of the next product, whose
 // k dimension they become (the FA2 layout: no shuffle, no shared memory).
+template <typename T>
 __device__ __forceinline__ void a_split(const float (&c0)[4],
                                         const float (&c1)[4],
                                         uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split2(c0[0], c0[1], hi[0], lo[0]);
-  split2(c0[2], c0[3], hi[1], lo[1]);
-  split2(c1[0], c1[1], hi[2], lo[2]);
-  split2(c1[2], c1[3], hi[3], lo[3]);
+  split2<T>(c0[0], c0[1], hi[0], lo[0]);
+  split2<T>(c0[2], c0[3], hi[1], lo[1]);
+  split2<T>(c1[0], c1[1], hi[2], lo[2]);
+  split2<T>(c1[2], c1[3], hi[3], lo[3]);
 }
 
-// Byte offset of 16-byte chunk ``c`` of row ``r`` in a [rows][DP] bf16
+// Byte offset of 16-byte chunk ``c`` of row ``r`` in a [rows][DP] 16-bit
 // tile, XOR-swizzled so that the 8 row addresses of one ldmatrix hit 8
 // distinct bank groups.
 template <int DP>
@@ -846,8 +897,8 @@ __device__ __forceinline__ uint32_t bn_addr(int n0, int kk, int lane) {
 // (the pieces past D zero-filled by a source size of 0), and at 2 a plain
 // load of its elements and one shared store.  The pieces of a chunk past
 // D read nothing; their address is the chunk's start, inside the row.
-template <int DP, int ROWS, int NT, bool V>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base,
+template <typename T, int DP, int ROWS, int NT, bool V>
+__device__ __forceinline__ void load_tile(uint32_t dst, const T* base,
                                           long long stride, int vw, int r0,
                                           int rows, int D) {
   constexpr int R = DP / 8;
@@ -865,7 +916,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base,
       st_shared16(d, 0u, 0u, 0u, 0u);
       continue;
     }
-    const bf16* src = base + (long long)(r0 + r) * stride + c * 8;
+    const T* src = base + (long long)(r0 + r) * stride + c * 8;
     if (vw == 16) {
       cp_async16(d, src, true);
     } else if (vw == 8) {
@@ -887,18 +938,18 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base,
   }
 }
 
-// f32 (x, y) -> bf16 at columns col, col + 1 of the row at p: a pair where
+// f32 (x, y) -> T at columns col, col + 1 of the row at p: a pair where
 // both are inside D and p + col is 4-byte aligned (always, under V), else
 // one by one
-template <bool V>
-__device__ __forceinline__ void store2(bf16* p, int col, int D, float x,
+template <typename T, bool V>
+__device__ __forceinline__ void store2(T* p, int col, int D, float x,
                                        float y) {
   p += col;
   if (V || (col + 1 < D && !(reinterpret_cast<uintptr_t>(p) & 3))) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+    *reinterpret_cast<uint32_t*>(p) = pack2<T>(x, y);
   } else {
-    if (col < D) p[0] = __float2bfloat16(x);
-    if (col + 1 < D) p[1] = __float2bfloat16(y);
+    if (col < D) p[0] = to_elem<T>(x);
+    if (col + 1 < D) p[1] = to_elem<T>(y);
   }
 }
 
@@ -917,10 +968,10 @@ __device__ __forceinline__ float quad_sum(float x) {
 // Grid (B * N, ceil(Sq / BM)), BM / 16 warps.  Shared: Q [BM][DP], then two
 // stages of K [BN][DP] and V [BN][DP].  Lane (g = lane / 4, t = lane % 4)
 // of warp w holds rows q0 + 16 w + g and + 8 of the score tile.
-template <int DP, int BM, int BN, bool V>
+template <typename T, int DP, int BM, int BN, bool V>
 __global__ void __launch_bounds__(BM * 2, 1)
-flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ out,
+flash_fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ out,
     float* __restrict__ lse, int N, int Sq, int Sk, int D, Layout lq,
     Layout lk, Layout lv, Layout lo, int causal, float scale) {
   constexpr int NT = BM * 2, KS = DP / 16, NS = BN / 8, ND = DP / 8;
@@ -935,15 +986,15 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int w0 = q0 + warp * 16, row0 = w0 + g, row1 = row0 + 8;
-  const bf16* kb = k + b * lk.b + n * lk.n;
-  const bf16* vb = v + b * lv.b + n * lv.n;
+  const T* kb = k + b * lk.b + n * lk.n;
+  const T* vb = v + b * lv.b + n * lv.n;
   const int kv_end = causal ? min(Sk, q0 + BM) : Sk;
   const int tiles = (kv_end + BN - 1) / BN;
 
-  load_tile<DP, BM, NT, V>(sq, q + b * lq.b + n * lq.n, lq.s, lq.vw, q0, Sq, D);
+  load_tile<T, DP, BM, NT, V>(sq, q + b * lq.b + n * lq.n, lq.s, lq.vw, q0, Sq, D);
   cp_async_commit();
-  load_tile<DP, BN, NT, V>(skv, kb, lk.s, lk.vw, 0, Sk, D);
-  load_tile<DP, BN, NT, V>(skv + kTile, vb, lv.s, lv.vw, 0, Sk, D);
+  load_tile<T, DP, BN, NT, V>(skv, kb, lk.s, lk.vw, 0, Sk, D);
+  load_tile<T, DP, BN, NT, V>(skv + kTile, vb, lv.s, lv.vw, 0, Sk, D);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -961,8 +1012,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = it * BN;
     if (it + 1 < tiles) {
       const uint32_t nxt = skv + ((it + 1) & 1) * 2 * kTile;
-      load_tile<DP, BN, NT, V>(nxt, kb, lk.s, lk.vw, k0 + BN, Sk, D);
-      load_tile<DP, BN, NT, V>(nxt + kTile, vb, lv.s, lv.vw, k0 + BN, Sk, D);
+      load_tile<T, DP, BN, NT, V>(nxt, kb, lk.s, lk.vw, k0 + BN, Sk, D);
+      load_tile<T, DP, BN, NT, V>(nxt + kTile, vb, lv.s, lv.vw, k0 + BN, Sk, D);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -980,8 +1031,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int j = 0; j < NS; j += 2) {
         uint32_t bf[4];
         ldsm_x4(bf, ks + bn_addr<DP>(j * 8, kk, lane));
-        mma(s[j], qf[kk], bf[0], bf[1]);
-        mma(s[j + 1], qf[kk], bf[2], bf[3]);
+        mma<T>(s[j], qf[kk], bf[0], bf[1]);
+        mma<T>(s[j + 1], qf[kk], bf[2], bf[3]);
       }
 
     if (k0 + BN > Sk || (causal && k0 + BN - 1 > w0)) {
@@ -1032,15 +1083,15 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       uint32_t ph[4], pl[4];
-      a_split(s[2 * kk], s[2 * kk + 1], ph, pl);
+      a_split<T>(s[2 * kk], s[2 * kk + 1], ph, pl);
 #pragma unroll
       for (int j = 0; j < ND; j += 2) {
         uint32_t bf[4];
         ldsm_x4_t(bf, vs + frag_addr<DP>(kk * 16, j / 2, lane));
-        mma(o[j], ph, bf[0], bf[1]);
-        mma(o[j], pl, bf[0], bf[1]);
-        mma(o[j + 1], ph, bf[2], bf[3]);
-        mma(o[j + 1], pl, bf[2], bf[3]);
+        mma<T>(o[j], ph, bf[0], bf[1]);
+        mma<T>(o[j], pl, bf[0], bf[1]);
+        mma<T>(o[j + 1], ph, bf[2], bf[3]);
+        mma<T>(o[j + 1], pl, bf[2], bf[3]);
       }
     }
     __syncthreads();  // the next iteration refills this stage
@@ -1049,13 +1100,13 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   l0 = fmaxf(quad_sum(l0), 1e-30f);
   l1 = fmaxf(quad_sum(l1), 1e-30f);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  bf16* ob = out + b * lo.b + n * lo.n;
+  T* ob = out + b * lo.b + n * lo.n;
 #pragma unroll
   for (int j = 0; j < ND; ++j) {
     const int col = j * 8 + t4 * 2;
     if (col >= D) continue;
-    if (row0 < Sq) store2<V>(ob + (long long)row0 * lo.s, col, D, o[j][0] * inv0, o[j][1] * inv0);
-    if (row1 < Sq) store2<V>(ob + (long long)row1 * lo.s, col, D, o[j][2] * inv1, o[j][3] * inv1);
+    if (row0 < Sq) store2<T, V>(ob + (long long)row0 * lo.s, col, D, o[j][0] * inv0, o[j][1] * inv0);
+    if (row1 < Sq) store2<T, V>(ob + (long long)row1 * lo.s, col, D, o[j][2] * inv1, o[j][3] * inv1);
   }
   if (t4 == 0) {
     if (row0 < Sq) lse[(long long)bn * Sq + row0] = m0 * scale + logf(l0);
@@ -1067,12 +1118,12 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Grid (B * N, ceil(Sq / BM)).  Shared: Q, dO, O [BM][DP], then two stages
 // of K [BN][DP] and V [BN][DP].  Writes delta for its rows first; the dk/dv
 // kernel, next on the stream, reads it.
-template <int DP, int BM, int BN, bool V>
+template <typename T, int DP, int BM, int BN, bool V>
 __global__ void __launch_bounds__(BM * 2, 1)
-flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          const bf16* __restrict__ out, const float* __restrict__ lse,
-          float* __restrict__ delta, bf16* __restrict__ dq, int N, int Sq,
+flash_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const T* __restrict__ dout,
+          const T* __restrict__ out, const float* __restrict__ lse,
+          float* __restrict__ delta, T* __restrict__ dq, int N, int Sq,
           int Sk, int D, Layout lq, Layout lk, Layout lv, Layout ldo,
           Layout lo, Layout ldq, int causal, float scale) {
   constexpr int NT = BM * 2, KS = DP / 16, NS = BN / 8, ND = DP / 8;
@@ -1089,18 +1140,18 @@ flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int w0 = q0 + warp * 16, row0 = w0 + g, row1 = row0 + 8;
-  const bf16* kb = k + b * lk.b + n * lk.n;
-  const bf16* vb = v + b * lv.b + n * lv.n;
-  const bf16* dob = dout + b * ldo.b + n * ldo.n;
+  const T* kb = k + b * lk.b + n * lk.n;
+  const T* vb = v + b * lv.b + n * lv.n;
+  const T* dob = dout + b * ldo.b + n * ldo.n;
   const int kv_end = causal ? min(Sk, q0 + BM) : Sk;
   const int tiles = (kv_end + BN - 1) / BN;
 
-  load_tile<DP, BM, NT, V>(sq, q + b * lq.b + n * lq.n, lq.s, lq.vw, q0, Sq, D);
-  load_tile<DP, BM, NT, V>(sdo, dob, ldo.s, ldo.vw, q0, Sq, D);
-  load_tile<DP, BM, NT, V>(so, out + b * lo.b + n * lo.n, lo.s, lo.vw, q0, Sq, D);
+  load_tile<T, DP, BM, NT, V>(sq, q + b * lq.b + n * lq.n, lq.s, lq.vw, q0, Sq, D);
+  load_tile<T, DP, BM, NT, V>(sdo, dob, ldo.s, ldo.vw, q0, Sq, D);
+  load_tile<T, DP, BM, NT, V>(so, out + b * lo.b + n * lo.n, lo.s, lo.vw, q0, Sq, D);
   cp_async_commit();
-  load_tile<DP, BN, NT, V>(skv, kb, lk.s, lk.vw, 0, Sk, D);
-  load_tile<DP, BN, NT, V>(skv + kTile, vb, lv.s, lv.vw, 0, Sk, D);
+  load_tile<T, DP, BN, NT, V>(skv, kb, lk.s, lk.vw, 0, Sk, D);
+  load_tile<T, DP, BN, NT, V>(skv + kTile, vb, lv.s, lv.vw, 0, Sk, D);
   cp_async_commit();
   const float lb0 = row0 < Sq ? lse[(long long)bn * Sq + row0] * kLog2e : 0.f;
   const float lb1 = row1 < Sq ? lse[(long long)bn * Sq + row1] * kLog2e : 0.f;
@@ -1125,8 +1176,8 @@ flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kk = 0; kk < KS; ++kk) {
       uint32_t bf[4];
       ldsm_x4(bf, so + bn_addr<DP>(warp * 16, kk, lane));
-      mma(d0, gf[kk], bf[0], bf[1]);
-      mma(d1, gf[kk], bf[2], bf[3]);
+      mma<T>(d0, gf[kk], bf[0], bf[1]);
+      mma<T>(d1, gf[kk], bf[2], bf[3]);
     }
     const int src = 4 * g + (g >> 1);
     dl0 = __shfl_sync(kFull, (g & 1) ? d0[1] : d0[0], src);
@@ -1146,8 +1197,8 @@ flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = it * BN;
     if (it + 1 < tiles) {
       const uint32_t nxt = skv + ((it + 1) & 1) * 2 * kTile;
-      load_tile<DP, BN, NT, V>(nxt, kb, lk.s, lk.vw, k0 + BN, Sk, D);
-      load_tile<DP, BN, NT, V>(nxt + kTile, vb, lv.s, lv.vw, k0 + BN, Sk, D);
+      load_tile<T, DP, BN, NT, V>(nxt, kb, lk.s, lk.vw, k0 + BN, Sk, D);
+      load_tile<T, DP, BN, NT, V>(nxt + kTile, vb, lv.s, lv.vw, k0 + BN, Sk, D);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -1167,11 +1218,11 @@ flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int j = 0; j < NS; j += 2) {
         uint32_t bf[4];
         ldsm_x4(bf, ks + bn_addr<DP>(j * 8, kk, lane));
-        mma(s[j], qf[kk], bf[0], bf[1]);
-        mma(s[j + 1], qf[kk], bf[2], bf[3]);
+        mma<T>(s[j], qf[kk], bf[0], bf[1]);
+        mma<T>(s[j + 1], qf[kk], bf[2], bf[3]);
         ldsm_x4(bf, vs + bn_addr<DP>(j * 8, kk, lane));
-        mma(dp[j], gf[kk], bf[0], bf[1]);
-        mma(dp[j + 1], gf[kk], bf[2], bf[3]);
+        mma<T>(dp[j], gf[kk], bf[0], bf[1]);
+        mma<T>(dp[j + 1], gf[kk], bf[2], bf[3]);
       }
 
     const bool edge = k0 + BN > Sk || (causal && k0 + BN - 1 > w0);
@@ -1189,27 +1240,27 @@ flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       uint32_t hi[4], lo_[4];
-      a_split(s[2 * kk], s[2 * kk + 1], hi, lo_);
+      a_split<T>(s[2 * kk], s[2 * kk + 1], hi, lo_);
 #pragma unroll
       for (int j = 0; j < ND; j += 2) {
         uint32_t bf[4];
         ldsm_x4_t(bf, ks + frag_addr<DP>(kk * 16, j / 2, lane));
-        mma(acc[j], hi, bf[0], bf[1]);
-        mma(acc[j], lo_, bf[0], bf[1]);
-        mma(acc[j + 1], hi, bf[2], bf[3]);
-        mma(acc[j + 1], lo_, bf[2], bf[3]);
+        mma<T>(acc[j], hi, bf[0], bf[1]);
+        mma<T>(acc[j], lo_, bf[0], bf[1]);
+        mma<T>(acc[j + 1], hi, bf[2], bf[3]);
+        mma<T>(acc[j + 1], lo_, bf[2], bf[3]);
       }
     }
     __syncthreads();
   }
 
-  bf16* ob = dq + b * ldq.b + n * ldq.n;
+  T* ob = dq + b * ldq.b + n * ldq.n;
 #pragma unroll
   for (int j = 0; j < ND; ++j) {
     const int col = j * 8 + t4 * 2;
     if (col >= D) continue;
-    if (row0 < Sq) store2<V>(ob + (long long)row0 * ldq.s, col, D, acc[j][0], acc[j][1]);
-    if (row1 < Sq) store2<V>(ob + (long long)row1 * ldq.s, col, D, acc[j][2], acc[j][3]);
+    if (row0 < Sq) store2<T, V>(ob + (long long)row0 * ldq.s, col, D, acc[j][0], acc[j][1]);
+    if (row1 < Sq) store2<T, V>(ob + (long long)row1 * ldq.s, col, D, acc[j][2], acc[j][3]);
   }
 }
 
@@ -1219,12 +1270,12 @@ flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // scores S^T = K Q^T.  Shared: K, V [BM][DP], then two stages of Q [BN][DP],
 // dO [BN][DP], lse [BN] and delta [BN] f32.  K and V fragments stay in
 // registers for DP <= 64 and are read from shared memory for DP = 128.
-template <int DP, int BM, int BN, bool V>
+template <typename T, int DP, int BM, int BN, bool V>
 __global__ void __launch_bounds__(BM * 2, 1)
-flash_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_dkv_tc(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, const T* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int Sq,
+           T* __restrict__ dk, T* __restrict__ dv, int N, int Sq,
            int Sk, int D, Layout lq, Layout lk, Layout lv, Layout ldo,
            Layout ldk, Layout ldv, int causal, float scale) {
   constexpr int NT = BM * 2, KS = DP / 16, NS = BN / 8, ND = DP / 8;
@@ -1244,8 +1295,8 @@ flash_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int w0 = k0 + warp * 16, key0 = w0 + g, key1 = key0 + 8;
-  const bf16* qb = q + b * lq.b + n * lq.n;
-  const bf16* gb = dout + b * ldo.b + n * ldo.n;
+  const T* qb = q + b * lq.b + n * lq.n;
+  const T* gb = dout + b * ldo.b + n * ldo.n;
   const float* lseb = lse + (long long)bn * Sq;
   const float* dlb = delta + (long long)bn * Sq;
   // query tiles before this key block's diagonal see none of its keys
@@ -1254,8 +1305,8 @@ flash_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto load_stage = [&](int st, int q0) {
     const uint32_t base = sring + st * kStage;
-    load_tile<DP, BN, NT, V>(base, qb, lq.s, lq.vw, q0, Sq, D);
-    load_tile<DP, BN, NT, V>(base + kTile, gb, ldo.s, ldo.vw, q0, Sq, D);
+    load_tile<T, DP, BN, NT, V>(base, qb, lq.s, lq.vw, q0, Sq, D);
+    load_tile<T, DP, BN, NT, V>(base + kTile, gb, ldo.s, ldo.vw, q0, Sq, D);
     for (int r = threadIdx.x; r < BN; r += NT) {
       const bool ok = q0 + r < Sq;
       cp_async4(base + 2 * kTile + r * 4, ok ? lseb + q0 + r : lseb, ok);
@@ -1263,8 +1314,8 @@ flash_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 
-  load_tile<DP, BM, NT, V>(sk, k + b * lk.b + n * lk.n, lk.s, lk.vw, k0, Sk, D);
-  load_tile<DP, BM, NT, V>(sv, v + b * lv.b + n * lv.n, lv.s, lv.vw, k0, Sk, D);
+  load_tile<T, DP, BM, NT, V>(sk, k + b * lk.b + n * lk.n, lk.s, lk.vw, k0, Sk, D);
+  load_tile<T, DP, BM, NT, V>(sv, v + b * lv.b + n * lv.n, lv.s, lv.vw, k0, Sk, D);
   cp_async_commit();
   load_stage(0, q_begin);
   cp_async_commit();
@@ -1316,11 +1367,11 @@ flash_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int j = 0; j < NS; j += 2) {
         uint32_t bf[4];
         ldsm_x4(bf, qs + bn_addr<DP>(j * 8, kk, lane));
-        mma(s[j], kf[x], bf[0], bf[1]);
-        mma(s[j + 1], kf[x], bf[2], bf[3]);
+        mma<T>(s[j], kf[x], bf[0], bf[1]);
+        mma<T>(s[j + 1], kf[x], bf[2], bf[3]);
         ldsm_x4(bf, gs + bn_addr<DP>(j * 8, kk, lane));
-        mma(dp[j], vf[x], bf[0], bf[1]);
-        mma(dp[j + 1], vf[x], bf[2], bf[3]);
+        mma<T>(dp[j], vf[x], bf[0], bf[1]);
+        mma<T>(dp[j + 1], vf[x], bf[2], bf[3]);
       }
     }
 
@@ -1341,39 +1392,39 @@ flash_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       uint32_t ph[4], pl[4], dh[4], dlo[4];
-      a_split(s[2 * kk], s[2 * kk + 1], ph, pl);
-      a_split(dp[2 * kk], dp[2 * kk + 1], dh, dlo);
+      a_split<T>(s[2 * kk], s[2 * kk + 1], ph, pl);
+      a_split<T>(dp[2 * kk], dp[2 * kk + 1], dh, dlo);
 #pragma unroll
       for (int j = 0; j < ND; j += 2) {
         uint32_t bf[4];
         ldsm_x4_t(bf, gs + frag_addr<DP>(kk * 16, j / 2, lane));
-        mma(av[j], ph, bf[0], bf[1]);
-        mma(av[j], pl, bf[0], bf[1]);
-        mma(av[j + 1], ph, bf[2], bf[3]);
-        mma(av[j + 1], pl, bf[2], bf[3]);
+        mma<T>(av[j], ph, bf[0], bf[1]);
+        mma<T>(av[j], pl, bf[0], bf[1]);
+        mma<T>(av[j + 1], ph, bf[2], bf[3]);
+        mma<T>(av[j + 1], pl, bf[2], bf[3]);
         ldsm_x4_t(bf, qs + frag_addr<DP>(kk * 16, j / 2, lane));
-        mma(ak[j], dh, bf[0], bf[1]);
-        mma(ak[j], dlo, bf[0], bf[1]);
-        mma(ak[j + 1], dh, bf[2], bf[3]);
-        mma(ak[j + 1], dlo, bf[2], bf[3]);
+        mma<T>(ak[j], dh, bf[0], bf[1]);
+        mma<T>(ak[j], dlo, bf[0], bf[1]);
+        mma<T>(ak[j + 1], dh, bf[2], bf[3]);
+        mma<T>(ak[j + 1], dlo, bf[2], bf[3]);
       }
     }
     __syncthreads();
   }
 
-  bf16* kout = dk + b * ldk.b + n * ldk.n;
-  bf16* vout = dv + b * ldv.b + n * ldv.n;
+  T* kout = dk + b * ldk.b + n * ldk.n;
+  T* vout = dv + b * ldv.b + n * ldv.n;
 #pragma unroll
   for (int j = 0; j < ND; ++j) {
     const int col = j * 8 + t4 * 2;
     if (col >= D) continue;
     if (key0 < Sk) {
-      store2<V>(kout + (long long)key0 * ldk.s, col, D, ak[j][0], ak[j][1]);
-      store2<V>(vout + (long long)key0 * ldv.s, col, D, av[j][0], av[j][1]);
+      store2<T, V>(kout + (long long)key0 * ldk.s, col, D, ak[j][0], ak[j][1]);
+      store2<T, V>(vout + (long long)key0 * ldv.s, col, D, av[j][0], av[j][1]);
     }
     if (key1 < Sk) {
-      store2<V>(kout + (long long)key1 * ldk.s, col, D, ak[j][2], ak[j][3]);
-      store2<V>(vout + (long long)key1 * ldv.s, col, D, av[j][2], av[j][3]);
+      store2<T, V>(kout + (long long)key1 * ldk.s, col, D, ak[j][2], ak[j][3]);
+      store2<T, V>(vout + (long long)key1 * ldv.s, col, D, av[j][2], av[j][3]);
     }
   }
 }
@@ -1389,24 +1440,24 @@ int check_grid(int S, int BM) {
   return (S + BM - 1) / BM <= 65535 ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int DP, int BM, int BN, bool V>
+template <typename T, int DP, int BM, int BN, bool V>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                float* lse, int B, int N, int Sq, int Sk, int D,
                const long long* st, int causal, float scale, cudaStream_t s) {
   static bool raised = false;  // per instantiation
   constexpr size_t smem = fwd_bytes(DP, BM, BN);
   if (int e = check_grid(Sq, BM)) return e;
-  cudaError_t err = allow_smem(flash_fwd_tc<DP, BM, BN, V>, smem, &raised);
+  cudaError_t err = allow_smem(flash_fwd_tc<T, DP, BM, BN, V>, smem, &raised);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_tc<DP, BM, BN, V><<<dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, N, Sq, Sk,
+  flash_fwd_tc<T, DP, BM, BN, V><<<dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, N, Sq, Sk,
       D, layout(st, 0, q, D, 2), layout(st, 1, k, D, 2),
       layout(st, 2, v, D, 2), layout(st, 3, out, D, 2), causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <int DP, int BM, int BN, bool V>
+template <typename T, int DP, int BM, int BN, bool V>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const void* out, const float* lse, float* delta, void* dq,
                void* dk, void* dv, int B, int N, int Sq, int Sk, int D,
@@ -1418,56 +1469,68 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   auto lay = [&](int t) { return layout(st, t, ptrs[t], D, 2); };
   if (int e = check_grid(Sq, BM)) return e;
   if (int e = check_grid(Sk, BM)) return e;
-  cudaError_t err = allow_smem(flash_dq_tc<DP, BM, BN, V>, smem_dq, &raised_dq);
+  cudaError_t err = allow_smem(flash_dq_tc<T, DP, BM, BN, V>, smem_dq, &raised_dq);
   if (err != cudaSuccess) return (int)err;
-  flash_dq_tc<DP, BM, BN, V><<<dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem_dq, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const bf16*>(out), lse, delta, static_cast<bf16*>(dq), N,
+  flash_dq_tc<T, DP, BM, BN, V><<<dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem_dq, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const T*>(out), lse, delta, static_cast<T*>(dq), N,
       Sq, Sk, D, lay(0), lay(1), lay(2), lay(3), lay(7), lay(4), causal,
       scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = allow_smem(flash_dkv_tc<DP, BM, BN, V>, smem_dkv, &raised_dkv);
+  err = allow_smem(flash_dkv_tc<T, DP, BM, BN, V>, smem_dkv, &raised_dkv);
   if (err != cudaSuccess) return (int)err;
-  flash_dkv_tc<DP, BM, BN, V><<<dim3(B * N, (Sk + BM - 1) / BM), BM * 2, smem_dkv, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-      delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, Sq, Sk, D,
+  flash_dkv_tc<T, DP, BM, BN, V><<<dim3(B * N, (Sk + BM - 1) / BM), BM * 2, smem_dkv, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse,
+      delta, static_cast<T*>(dk), static_cast<T*>(dv), N, Sq, Sk, D,
       lay(0), lay(1), lay(2), lay(3), lay(5), lay(6), causal, scale);
   return (int)cudaGetLastError();
 }
 
-// The bf16 launches at these sizes, as kinfo records.
-template <int DP, int BM, int BN, bool V>
+// The bf16 and f16 launches at these sizes, as kinfo records.
+template <typename T, int DP, int BM, int BN, bool V>
 int info_fwd(int B, int N, int Sq, int* out) {
   static bool raised = false;
   constexpr size_t smem = fwd_bytes(DP, BM, BN);
-  cudaError_t err = allow_smem(flash_fwd_tc<DP, BM, BN, V>, smem, &raised);
+  cudaError_t err = allow_smem(flash_fwd_tc<T, DP, BM, BN, V>, smem, &raised);
   if (err != cudaSuccess) return (int)err;
-  return kinfo::record(flash_fwd_tc<DP, BM, BN, V>,
+  return kinfo::record(flash_fwd_tc<T, DP, BM, BN, V>,
                        dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem, out);
 }
 
-template <int DP, int BM, int BN, bool V>
+template <typename T, int DP, int BM, int BN, bool V>
 int info_bwd(int B, int N, int Sq, int Sk, int* out) {
   static bool raised_dq = false, raised_dkv = false;
   constexpr size_t smem_dq = dq_bytes(DP, BM, BN);
   constexpr size_t smem_dkv = dkv_bytes(DP, BM, BN);
-  cudaError_t err = allow_smem(flash_dq_tc<DP, BM, BN, V>, smem_dq, &raised_dq);
+  cudaError_t err = allow_smem(flash_dq_tc<T, DP, BM, BN, V>, smem_dq, &raised_dq);
   if (err != cudaSuccess) return (int)err;
-  int e = kinfo::record(flash_dq_tc<DP, BM, BN, V>,
+  int e = kinfo::record(flash_dq_tc<T, DP, BM, BN, V>,
                         dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem_dq,
                         out);
   if (e) return e;
-  err = allow_smem(flash_dkv_tc<DP, BM, BN, V>, smem_dkv, &raised_dkv);
+  err = allow_smem(flash_dkv_tc<T, DP, BM, BN, V>, smem_dkv, &raised_dkv);
   if (err != cudaSuccess) return (int)err;
-  return kinfo::record(flash_dkv_tc<DP, BM, BN, V>,
+  return kinfo::record(flash_dkv_tc<T, DP, BM, BN, V>,
                        dim3(B * N, (Sk + BM - 1) / BM), BM * 2, smem_dkv,
                        out);
 }
 
 }  // namespace tc
+
+template <typename T, bool V>
+int tc_info(int backward, int B, int N, int Sq, int Sk, int D, int* out) {
+  if (!backward) {
+    if (D <= 32) return tc::info_fwd<T, 32, 64, 64, V>(B, N, Sq, out);
+    if (D <= 64) return tc::info_fwd<T, 64, 64, 64, V>(B, N, Sq, out);
+    return tc::info_fwd<T, 128, 64, 32, V>(B, N, Sq, out);
+  }
+  if (D <= 32) return tc::info_bwd<T, 32, 64, 64, V>(B, N, Sq, Sk, out);
+  if (D <= 64) return tc::info_bwd<T, 64, 64, 64, V>(B, N, Sq, Sk, out);
+  return tc::info_bwd<T, 128, 64, 32, V>(B, N, Sq, Sk, out);
+}
 
 template <bool V>
 int info(int backward, int dtype, int B, int N, int Sq, int Sk, int D,
@@ -1478,15 +1541,9 @@ int info(int backward, int dtype, int B, int N, int Sq, int Sk, int D,
   if (dtype == 0)
     return D <= 64 ? info_bwd<4, V>(B, N, Sq, Sk, D, out)
                    : info_bwd<8, V>(B, N, Sq, Sk, D, out);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (!backward) {
-    if (D <= 32) return tc::info_fwd<32, 64, 64, V>(B, N, Sq, out);
-    if (D <= 64) return tc::info_fwd<64, 64, 64, V>(B, N, Sq, out);
-    return tc::info_fwd<128, 64, 32, V>(B, N, Sq, out);
-  }
-  if (D <= 32) return tc::info_bwd<32, 64, 64, V>(B, N, Sq, Sk, out);
-  if (D <= 64) return tc::info_bwd<64, 64, 64, V>(B, N, Sq, Sk, out);
-  return tc::info_bwd<128, 64, 32, V>(B, N, Sq, Sk, out);
+  if (dtype == 1) return tc_info<tc::bf16, V>(backward, B, N, Sq, Sk, D, out);
+  if (dtype == 2) return tc_info<tc::f16, V>(backward, B, N, Sq, Sk, D, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Whether every tensor of a launch takes the aligned instance: D % 8 == 0
@@ -1499,6 +1556,15 @@ bool aligned(const long long* strides, const void* const* ptrs, int n,
   return true;
 }
 
+template <typename T, bool V>
+int tc_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int N, int Sq, int Sk, int D, const long long* st,
+           int causal, float scale, cudaStream_t s) {
+  if (D <= 32) return tc::launch_fwd<T, 32, 64, 64, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
+  if (D <= 64) return tc::launch_fwd<T, 64, 64, 64, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
+  return tc::launch_fwd<T, 128, 64, 32, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
+}
+
 template <bool V>
 int fwd(const void* q, const void* k, const void* v, void* out, float* lse,
         int dtype, int B, int N, int Sq, int Sk, int D,
@@ -1506,10 +1572,19 @@ int fwd(const void* q, const void* k, const void* v, void* out, float* lse,
   if (dtype == 0)
     return D <= 64 ? launch_fwd<4, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s)
                    : launch_fwd<8, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (D <= 32) return tc::launch_fwd<32, 64, 64, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
-  if (D <= 64) return tc::launch_fwd<64, 64, 64, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
-  return tc::launch_fwd<128, 64, 32, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
+  if (dtype == 1) return tc_fwd<tc::bf16, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
+  if (dtype == 2) return tc_fwd<tc::f16, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, bool V>
+int tc_bwd(const void* q, const void* k, const void* v, const void* dout,
+           const void* out, const float* lse, float* delta, void* dq,
+           void* dk, void* dv, int B, int N, int Sq, int Sk, int D,
+           const long long* st, int causal, float scale, cudaStream_t s) {
+  if (D <= 32) return tc::launch_bwd<T, 32, 64, 64, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
+  if (D <= 64) return tc::launch_bwd<T, 64, 64, 64, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
+  return tc::launch_bwd<T, 128, 64, 32, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
 }
 
 template <bool V>
@@ -1520,10 +1595,9 @@ int bwd(const void* q, const void* k, const void* v, const void* dout,
   if (dtype == 0)
     return D <= 64 ? launch_bwd<4, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s)
                    : launch_bwd<8, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (D <= 32) return tc::launch_bwd<32, 64, 64, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
-  if (D <= 64) return tc::launch_bwd<64, 64, 64, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
-  return tc::launch_bwd<128, 64, 32, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
+  if (dtype == 1) return tc_bwd<tc::bf16, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
+  if (dtype == 2) return tc_bwd<tc::f16, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1541,7 +1615,7 @@ extern "C" int flash_attention_info(int backward, int dtype, int B, int N,
   return info<false>(backward, dtype, B, N, Sq, Sk, D, out);
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  ``strides`` holds (batch, seq, head)
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  ``strides`` holds (batch, seq, head)
 // element strides of q, k, v, out.  lse is [B, N, Sq] f32.  Launches on
 // ``stream`` and returns cudaGetLastError() (0 on success); never
 // synchronises.

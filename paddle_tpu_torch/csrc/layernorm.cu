@@ -5,8 +5,8 @@
 //     _ln_fwd  (body _fwd_kernel)  -> layernorm_fwd below
 //     _ln_bwd  (body _bwd_kernel)  -> layernorm_bwd below
 //
-// What it computes.  x [rows, C], gamma and beta [C] (one dtype, f32 or
-// bf16).  Forward, per row, in f32: mu = mean(x), the centred variance
+// What it computes.  x [rows, C], gamma and beta [C] (one dtype, f32,
+// bf16 or f16; every instance computes in f32, as the JAX kernel does).  Forward, per row, in f32: mu = mean(x), the centred variance
 // var = mean((x - mu)^2) (not E[x^2] - mu^2, as _fwd_kernel computes it),
 // rstd = rsqrt(var + eps), y = (x - mu) * rstd * gamma + beta in x's
 // dtype, and mu, rstd as f32 [rows].  Backward from the saved stats:
@@ -86,6 +86,7 @@
 // rows >= 1.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -123,6 +124,17 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
   }
 }
 
+__device__ __forceinline__ void load8(const __half* src, float* dst) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
+}
+
 __device__ __forceinline__ void store8(float* dst, const float* x) {
   reinterpret_cast<float4*>(dst)[0] = make_float4(x[0], x[1], x[2], x[3]);
   reinterpret_cast<float4*>(dst)[1] = make_float4(x[4], x[5], x[6], x[7]);
@@ -133,6 +145,14 @@ __device__ __forceinline__ void store8(__nv_bfloat16* dst, const float* x) {
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+  *reinterpret_cast<uint4*>(dst) = u;
+}
+
+__device__ __forceinline__ void store8(__half* dst, const float* x) {
+  uint4 u;
+  __half2* h = reinterpret_cast<__half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(x[2 * i], x[2 * i + 1]);
   *reinterpret_cast<uint4*>(dst) = u;
 }
 
@@ -204,6 +224,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -791,7 +812,8 @@ int info_launch_wide(int backward, int rows, int C, int nparts, int* out) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, gamma, beta and y share it).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, gamma, beta and y
+// share it).
 // mu and rstd are f32 [rows].  Launches on ``stream`` and returns
 // cudaGetLastError() (0 on success); never synchronises.
 extern "C" int layernorm_fwd(const void* x, const void* gamma,
@@ -802,6 +824,7 @@ extern "C" int layernorm_fwd(const void* x, const void* gamma,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0) { LN_DISPATCH(float, launch_fwd, x, gamma, beta, y, mu, rstd, rows, C, eps, s) }
   if (dtype == 1) { LN_DISPATCH(__nv_bfloat16, launch_fwd, x, gamma, beta, y, mu, rstd, rows, C, eps, s) }
+  if (dtype == 2) { LN_DISPATCH(__half, launch_fwd, x, gamma, beta, y, mu, rstd, rows, C, eps, s) }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -814,6 +837,7 @@ extern "C" int layernorm_bwd_info(int dtype, int C, int* out) {
   if (!shape_ok(1, C)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) { LN_DISPATCH(float, info_bwd, out) }
   if (dtype == 1) { LN_DISPATCH(__nv_bfloat16, info_bwd, out) }
+  if (dtype == 2) { LN_DISPATCH(__half, info_bwd, out) }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -827,6 +851,7 @@ extern "C" int layernorm_info(int backward, int dtype, int rows, int C,
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) { LN_DISPATCH(float, info_launch, backward, rows, C, nparts, out) }
   if (dtype == 1) { LN_DISPATCH(__nv_bfloat16, info_launch, backward, rows, C, nparts, out) }
+  if (dtype == 2) { LN_DISPATCH(__half, info_launch, backward, rows, C, nparts, out) }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -843,5 +868,6 @@ extern "C" int layernorm_bwd(const void* x, const void* gamma,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0) { LN_DISPATCH(float, launch_bwd, x, gamma, mu, rstd, dy, dx, partials, dgdb, rows, C, nparts, s) }
   if (dtype == 1) { LN_DISPATCH(__nv_bfloat16, launch_bwd, x, gamma, mu, rstd, dy, dx, partials, dgdb, rows, C, nparts, s) }
+  if (dtype == 2) { LN_DISPATCH(__half, launch_bwd, x, gamma, mu, rstd, dy, dx, partials, dgdb, rows, C, nparts, s) }
   return (int)cudaErrorInvalidValue;
 }

@@ -93,8 +93,8 @@ NOMINAL_SMS = 132
 # GPT-124M's and Llama-160M's shapes on the main paths other than the
 # paged engine, as chip_smoke.py drives them: FMT's bf16 decode (batch 8,
 # max_length 192), Llama's f32 decode (batch 8, a 2048-slot cache), and
-# the O2 bf16 training step at 8 x 1024 (flash attention causal, the
-# LayerNorms over 8192 rows of 768).
+# the O2 bf16 and float16 training steps at 8 x 1024 (flash attention
+# causal, the LayerNorms over 8192 rows of 768).
 MAIN_PATH_SHAPES = {
     "fmt_decode": ("decode_attention", dict(
         q=((8, 12, 64), torch.bfloat16),
@@ -112,6 +112,17 @@ MAIN_PATH_SHAPES = {
         x2d=((8192, 768), torch.bfloat16))),
     "train_ln_bwd": ("layernorm_bwd", dict(
         x2d=((8192, 768), torch.bfloat16))),
+    # the same step in O2 float16 under loss scaling (the f16 instances)
+    "train_fp16_flash_fwd": ("flash_attention_fwd", dict(
+        q=((8, 1024, 12, 64), torch.float16),
+        k=((8, 1024, 12, 64), torch.float16))),
+    "train_fp16_flash_bwd": ("flash_attention_bwd", dict(
+        q=((8, 1024, 12, 64), torch.float16),
+        k=((8, 1024, 12, 64), torch.float16))),
+    "train_fp16_ln_fwd": ("layernorm_fwd", dict(
+        x2d=((8192, 768), torch.float16))),
+    "train_fp16_ln_bwd": ("layernorm_bwd", dict(
+        x2d=((8192, 768), torch.float16))),
     # the speech path's Conformer at its defaults, f32, 16 x 10 s (251
     # frames after subsampling): attention at head_dim 36, LayerNorms of
     # 144; gpt_6_7b's eval forward over 2 x 2048 tokens, bf16: attention
@@ -300,7 +311,8 @@ def _decode_plan(q, k_cache):
 
 
 def _tc_tiles(d):
-    """(DP, BM, BN) of the bf16 tensor-core instance for head dim d."""
+    """(DP, BM, BN) of the bf16 and f16 tensor-core instances for head
+    dim d."""
     if d <= 32:
         return 32, 64, 64
     if d <= 64:
@@ -329,13 +341,17 @@ def _rows(tile, bn_axis):
     return cover
 
 
+# the tensor-core instances' element types, as the source names them
+_TC_DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
 def _flash_plan(q, k, backward):
     (b, sq, n, d), qdt = q
     (_, sk, _, _), _ = k
     bn = b * n
-    if qdt == torch.bfloat16:
+    if qdt in _TC_DTYPES:
         dp, bm, bnt = _tc_tiles(d)
-        inst = f"<{dp},{bm},{bnt}>"
+        inst = f"<{_TC_DTYPES[qdt]},{dp},{bm},{bnt}>"
         rows = _rows(bm, 0)
         if not backward:
             return [Launch("flash_fwd_tc" + inst, (bn, -(-sq // bm)), bm * 2,
@@ -426,7 +442,7 @@ def _ln_plan(x2d, backward, slots):
     from ..ops.cuda import layernorm_kernel as lnk
 
     (rows, c), dt = x2d
-    tdt = "bf16" if dt == torch.bfloat16 else "f32"
+    tdt = {torch.bfloat16: "bf16", torch.float16: "f16"}.get(dt, "f32")
     if c > lnk.NARROW_C:
         return _ln_wide_plan(rows, c, tdt, backward, slots)
     v = -(-c // 256)
@@ -606,7 +622,7 @@ def check_plan(name, launches, facts, *, rules=None, profile="h100",
 _INFO_INTS = 9
 _INFO_KEYS = ("grid_x", "grid_y", "grid_z", "threads", "smem", "regs",
               "local_bytes", "static_smem", "blocks_per_sm")
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def card_resources(name, launches, facts, **operands):

@@ -1,5 +1,8 @@
-"""paddle.incubate (port of ``paddle_tpu/incubate``): the ``nn``
-namespace (``FusedMultiTransformer`` and ``functional``'s fused
-functions)."""
+"""paddle.incubate (port of ``paddle_tpu/incubate``): ``asp``,
+``autograd``, ``nn`` (``FusedMultiTransformer`` and ``functional``'s
+fused functions), ``LookAhead`` and ``ModelAverage``.
+``incubate.distributed`` waits for the port's ``distributed`` (ROADMAP
+A23b-6)."""
 
-from . import nn  # noqa: F401
+from . import asp, autograd, nn  # noqa: F401
+from .optimizer import LookAhead, ModelAverage  # noqa: F401

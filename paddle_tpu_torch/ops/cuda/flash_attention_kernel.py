@@ -10,8 +10,10 @@ q, k and v are read in place through their strides (the last dim
 contiguous), so the views of a ``[B, S, 3, N, H]`` projection cost no
 transpose.
 
-bf16 runs on the tensor-core kernels, f32 on the SIMT kernels (the
-source note says why).  ``fwd_launches`` counts launches of the forward
+bf16 and f16 run on the tensor-core kernels (one template, two
+instances), f32 on the SIMT kernels (the source note says why).  As in
+the JAX kernels, which take any floating dtype and compute in f32, the
+accumulators, lse and delta are f32 whatever the inputs' dtype.  ``fwd_launches`` counts launches of the forward
 kernel and ``bwd_launches`` launches of the backward pair (dq, which
 also computes ``delta = rowsum(dO * O)``, then dk/dv), each incremented
 once per launch and nowhere else.  The wrappers take CUDA tensors only
@@ -43,7 +45,7 @@ bwd_launches = 0
 
 _NAME = "flash_attention"
 _MAX_D = 128      # kMaxD in the .cu
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fns = {}
 
 
@@ -51,7 +53,7 @@ def supports(seq_q, seq_k, head_dim, dtype=torch.float32, causal=False):
     """What the CUDA kernels need: any sequence lengths, any head_dim
     from 1 to 128 (the JAX kernel's ``head_dim <= 128``; the kernels
     zero-fill the padded tile and pick each tensor's copy width from its
-    alignment), f32 or bf16, and for causal attention seq_q == seq_k
+    alignment), f32, bf16 or f16, and for causal attention seq_q == seq_k
     (the kernels align the mask to the top left, the plain composition
     to the bottom right: they agree only on square scores).  The TPU
     rule that a block size divide the sequence

@@ -45,7 +45,7 @@ _MAX_C = 8192         # kMaxC in the .cu: the widest row a block holds
 WIDE_THREADS = 256    # kWideThreads in the .cu: threads a wide row's block
 BWD_WARPS = 8         # kBwdWarps in the .cu: warps (rows in flight) a block
 RED_COLS = 8          # kRedCols in the .cu: columns a reduce block sums
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _INFO = ("registers", "local_bytes", "blocks_per_sm", "sms", "smem_bytes",
          "ring_slots")
 _fns = {}
@@ -62,7 +62,8 @@ def takes_channels(channels):
 
 def supports(rows, channels, dtype=torch.float32):
     """What the CUDA kernels need: any row count, a channel count that
-    :func:`takes_channels`, f32 or bf16.  The TPU's ``C % 128`` and
+    :func:`takes_channels`, f32, bf16 or f16 (the JAX kernel takes any
+    floating dtype and computes in f32; so do these).  The TPU's ``C % 128`` and
     row-block rules (``layernorm_kernel.py:25-33``) are its tiling, not
     the kernels'."""
     return rows >= 1 and takes_channels(channels) and dtype in _DTYPES

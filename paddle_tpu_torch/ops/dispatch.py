@@ -25,8 +25,15 @@ them: ``enable_dispatch_cache`` records the flag, ``dispatch_cache_info``
 reports an empty cache (0 entries, 0 compiled) and
 ``dispatch_cache_clear`` has nothing to clear.  ``set_debug_hook``
 installs the ``amp.debugging`` per-op hook, called as in the JAX
-dispatch with the op's name and its flattened tensor outputs.
+dispatch with the op's name and its flattened tensor outputs; while one
+is installed it also sees the calls with no Tensor (the raw path), so a
+tensor checker covers GPT's and ``TrainStep``'s ops.  While a
+``profiler.Profiler`` records, every call (either path) adds a host
+event with the op's name and wall time, as the JAX dispatch does for its
+calls; otherwise the profiler costs one thread-local read a call.
 """
+
+import time
 
 import torch
 
@@ -34,6 +41,8 @@ from ..amp import _state as _amp_state
 from ..amp import cast_target, cast_to
 from ..core.tensor import Tensor, _wrap
 from ..framework.flags import _flags
+from ..profiler import _events as _profiler_events
+from ..profiler import record_host_event
 
 
 _debug_hook = None
@@ -116,14 +125,26 @@ def apply_op(name, fn, args, kwargs):
         for k, v in kwargs.items():
             tkw[k], hit = _unwrap(v)
             found |= hit
+    timing = _profiler_events.active
     if not found:
-        return fn(*args, **kwargs)
+        if _debug_hook is None and not timing:
+            return fn(*args, **kwargs)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if timing:
+            record_host_event(name, t0, time.perf_counter() - t0)
+        if _debug_hook is not None:
+            _debug_hook(name, _leaves(out))
+        return out
+    t0 = time.perf_counter() if timing else 0.0
     if _amp_state.enabled:
         target = cast_target(name)
         if target is not None:
             targs = [_unwrap_cast(a, target) for a in args]
             tkw = {k: _unwrap_cast(v, target) for k, v in kwargs.items()}
     out = fn(*targs, **tkw)
+    if timing:
+        record_host_event(name, t0, time.perf_counter() - t0)
     if _debug_hook is not None:
         _debug_hook(name, _leaves(out))
     if _flags["FLAGS_check_nan_inf"]:

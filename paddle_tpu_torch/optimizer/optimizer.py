@@ -90,17 +90,31 @@ class Optimizer:
     @torch.no_grad()
     def step(self):
         """One update of every parameter that has a gradient, in place."""
-        self._step_count += 1
-        lr = self.get_lr()
+        self._step_with(None)
+
+    def _grads(self):
+        """(owners, parameter tensors, their gradients) of every trainable
+        parameter that has a gradient."""
         owners, params = [], []
         for item in self._parameters:
             p = item._data if isinstance(item, Tensor) else item
             if p.grad is not None and p.requires_grad:
                 owners.append(item)
                 params.append(p)
+        return owners, params, [p.grad for p in params]
+
+    @torch.no_grad()
+    def _step_with(self, grads):
+        """``step`` from ``grads`` (one a parameter of :meth:`_grads`, in
+        its order; the loss scaler's unscaled gradients, f32 for a
+        float16 parameter) or, with None, the parameters' own."""
+        self._step_count += 1
+        lr = self.get_lr()
+        owners, params, own = self._grads()
         if not params:
             return
-        grads = [p.grad for p in params]
+        if grads is None:
+            grads = own
         if self._grad_clip is not None:
             grads = self._grad_clip._clip(params, grads)
         if self._weight_decay and not self._decay_applied_in_rule():
@@ -223,8 +237,8 @@ class Adam(Optimizer):
         if multi_precision:
             raise NotImplementedError(
                 "multi_precision=True: f32 master weights are not ported "
-                "(the JAX package's optimizers keep none either); they come "
-                "with slice 8 (the long tail)")
+                "(the JAX package's optimizers keep none either, so they are "
+                "no roadmap item)")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip)
         self._beta1 = beta1
         self._beta2 = beta2

@@ -134,17 +134,20 @@ class TestAmp:
         assert out.dtype == torch.float32
 
     def test_grad_scaler_bf16_flow(self):
-        """The reference body with the port's bf16 scaler (float16
-        scaling is not ported and raises)."""
+        """The reference body with the port's scaler, which scales at
+        every dtype as the JAX one does (bf16 too): the loss is scaled by
+        1024, the step applies the unscaled gradient."""
         model = P.nn.Linear(2, 2)
+        w0 = model.weight.numpy().copy()
         opt = P.optimizer.SGD(learning_rate=0.1,
                               parameters=model.parameters())
         scaler = P.amp.GradScaler(init_loss_scaling=1024.0)
         loss = model(P.ones([1, 2])).sum()
         scaled = scaler.scale(loss)
+        assert float(scaled) == 1024.0 * float(loss)
         scaled.backward()
         scaler.step(opt)
         scaler.update()
         assert np.isfinite(model.weight.numpy()).all()
-        with pytest.raises(NotImplementedError, match="float16"):
-            P.amp.GradScaler(dtype="float16")
+        np.testing.assert_allclose(model.weight.numpy(), w0 - 0.1,
+                                   rtol=1e-6)

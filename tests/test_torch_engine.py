@@ -40,6 +40,9 @@ import paddle_tpu.sim.workloads as jax_workloads
 import paddle_tpu.hapi.callbacks as jax_callbacks
 import paddle_tpu.io.dataset as jax_dataset
 import paddle_tpu.vision.datasets as jax_vision_datasets
+import paddle_tpu.core.native as jax_native
+import paddle_tpu.strings as jax_strings
+import paddle_tpu.geometric as jax_geometric
 import paddle_tpu.io.sampler as jax_sampler
 import paddle_tpu.linalg as jax_linalg_ns
 import paddle_tpu.nn.pooling as jax_pooling
@@ -79,6 +82,9 @@ import paddle_tpu_torch.sim.workloads as port_workloads
 import paddle_tpu_torch.hapi.callbacks as port_callbacks
 import paddle_tpu_torch.io.dataset as port_dataset
 import paddle_tpu_torch.vision.datasets as port_vision_datasets
+import paddle_tpu_torch.core.native as port_native
+import paddle_tpu_torch.strings as port_strings
+import paddle_tpu_torch.geometric as port_geometric
 import paddle_tpu_torch.io.sampler as port_sampler
 import paddle_tpu_torch.linalg as port_linalg_ns
 import paddle_tpu_torch.nn.pooling as port_pooling
@@ -426,7 +432,9 @@ def test_default_device_needs_cuda(models, monkeypatch):
     (jax_vit, port_vit), (jax_resnet, port_resnet),
     (jax_dataset, port_dataset), (jax_sampler, port_sampler),
     (jax_callbacks, port_callbacks),
-    (jax_vision_datasets, port_vision_datasets)])
+    (jax_vision_datasets, port_vision_datasets),
+    (jax_native, port_native), (jax_strings, port_strings),
+    (jax_geometric, port_geometric)])
 def test_host_modules_are_verbatim_copies(jax_mod, port_mod):
     assert inspect.getsource(port_mod) == inspect.getsource(jax_mod)
 

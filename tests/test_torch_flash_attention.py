@@ -311,21 +311,24 @@ def test_supports_takes_any_length_and_small_head_dims():
     assert fak.supports(128, 128, 36)            # any head_dim up to 128
     assert fak.supports(128, 128, 1, torch.bfloat16)
     assert not fak.supports(128, 128, 0)
-    assert not fak.supports(128, 128, 64, torch.float16)
+    assert fak.supports(128, 128, 64, torch.float16)  # C10: f16 too
+    assert not fak.supports(128, 128, 64, torch.float64)
 
 
 def test_supports_takes_every_shape_it_took_before():
     """No redesign narrows ``supports``: any lengths, every head_dim the
     JAX kernel takes (1 to 128; before, only multiples of 8 from 8),
-    f32 or bf16, causal only on square scores."""
+    f32, bf16 or (from C10) float16, causal only on square scores;
+    float64 never."""
     lengths = (1, 2, 7, 63, 64, 65, 77, 333, 1000, 1024)
-    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16,
+                  torch.float64):
         for d in range(0, 264, 3):
             for sq in lengths:
                 for sk in lengths:
                     for causal in (False, True):
                         before = (1 <= d <= 128
-                                  and dtype != torch.float16
+                                  and dtype != torch.float64
                                   and (not causal or sq == sk))
                         assert fak.supports(sq, sk, d, dtype, causal) == \
                             before, (sq, sk, d, dtype, causal)

@@ -287,9 +287,10 @@ def test_mirrored_constants_equal_the_sources():
     for d, tiles in ((32, (32, 64, 64)), (64, (64, 64, 64)),
                      (128, (128, 64, 32))):
         assert kl._tc_tiles(d) == tiles
-        # both instances (V: the aligned one, or the general) take the tiles
-        assert f"tc::launch_fwd<{tiles[0]}, {tiles[1]}, {tiles[2]}, V>" in \
-            flash
+        # every instance (T: bf16 or f16; V: the aligned one, or the
+        # general) takes the tiles
+        assert f"tc::launch_fwd<T, {tiles[0]}, {tiles[1]}, {tiles[2]}, V>" \
+            in flash
 
 
 def test_every_source_has_its_info_entry():

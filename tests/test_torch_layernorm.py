@@ -142,7 +142,8 @@ def test_supports_and_backward_partials():
     assert lnk.supports(256, 4096)          # a block's row (gpt_6_7b)
     assert lnk.supports(256, 8192)
     assert not lnk.supports(256, 8200)      # beyond the block's row
-    assert not lnk.supports(256, 128, torch.float16)
+    assert lnk.supports(256, 128, torch.float16)    # C10: f16 too
+    assert not lnk.supports(256, 128, torch.float64)
     # the backward's plan: one wave of at most ``slots`` blocks (two on
     # each of an H100's 132 SMs here), each owning an even run of rows
     # and writing one partial row, then C / 4 reduce blocks

@@ -92,6 +92,17 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import paddle_tpu_torch.vision.models.squeezenet\n"
         "import paddle_tpu_torch.vision.models.shufflenetv2\n"
         "import paddle_tpu_torch.vision.models.inception\n"
+        "import paddle_tpu_torch.core.native, paddle_tpu_torch.strings\n"
+        "import paddle_tpu_torch.framework.memory\n"
+        "import paddle_tpu_torch.profiler, paddle_tpu_torch.amp.debugging\n"
+        "import paddle_tpu_torch.incubate.autograd\n"
+        "import paddle_tpu_torch.incubate.optimizer\n"
+        "import paddle_tpu_torch.incubate.asp, paddle_tpu_torch.incubate\n"
+        "import paddle_tpu_torch.tensor_array, paddle_tpu_torch.geometric\n"
+        "import paddle_tpu_torch.distribution\n"
+        "import paddle_tpu_torch.distribution.transform\n"
+        "import paddle_tpu_torch.sparse, paddle_tpu_torch.sparse.depth\n"
+        "import paddle_tpu_torch.sparse.conv\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.'))\n"

@@ -342,17 +342,21 @@ def test_reference_train_step_promotes_o2_params_under_adamw_decay():
 
 # ---------------------------------------------------- options, dropout --
 def test_unported_options_raise():
+    """``remat=True`` and dynamic loss scaling are ported now
+    (test_torch_remat.py, test_torch_amp_scaler.py): the options take the
+    JAX signatures — ``GradScaler`` has no ``dtype=`` and scales at every
+    dtype, and a scaler must be one (the JAX step calls its
+    ``is_enable``)."""
     pm = gpt_tiny(device="cpu", num_layers=1)
     opt = popt.AdamW(parameters=pm.parameters())
-    with pytest.raises(NotImplementedError, match="slice"):
-        TrainStep(pm, pm.loss, opt, remat=True)
-    with pytest.raises(NotImplementedError, match="slice"):
+    assert TrainStep(pm, pm.loss, opt, remat=True).remat
+    with pytest.raises(TypeError):
         amp.GradScaler(dtype="float16")
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(AttributeError):
         TrainStep(pm, pm.loss, opt, scaler=object())
     scaler = amp.GradScaler()
     loss = torch.tensor(2.5)
-    assert scaler.scale(loss) is loss
+    assert scaler.scale(loss).item() == 2.5 * 65536.0
 
 
 @pytest.mark.parametrize("make", [
