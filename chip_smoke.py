@@ -29,6 +29,17 @@ one NVIDIA GPU.
                                            # the profiler, the tensor
                                            # checker and the sparse stage
                                            # (no contract line)
+    python3 chip_smoke.py deploy           # only the deployment slice:
+                                           # f16 kernel rows, f16 serving,
+                                           # the f16 FMT, the IR passes,
+                                           # the ViT predictor and the
+                                           # profiler-window experiment
+                                           # (no contract line)
+    python3 chip_smoke.py c12_control      # only the profiler-window
+                                           # experiment at the full run's
+                                           # process age, no profiler
+                                           # opened before it (~10 min;
+                                           # no contract line)
 
 Run from the root of a checkout on a machine with a CUDA GPU and the
 CUDA toolkit.  Phases, each printing its own lines; any failure raises
@@ -262,6 +273,24 @@ and the script exits non-zero:
               voxels) against the CPU port at 1e-4, host rulebook ms
               apart from device ms (``python3 chip_smoke.py
               train_features`` runs this group alone).
+15. deploy — the float16 instances of B1, B5 and B6 at their main
+              shapes (strict rule, bitwise repeatable, timed); GPT-124M
+              ``LLMEngine(dtype="float16")`` behind ``PredictorServer``:
+              8 greedy requests (7 Python wire clients, 1 native C
+              client) token-equal to ``generate``, the f16 logits
+              against f32's, then the int8 KV pool (B5, f16 q); the f16
+              FusedMultiTransformer (B6); a naive 12-layer GPT
+              composition under ``to_static(ir_passes=True)`` (rewrites
+              a pass, B2/B3/B4a/B4b against the plan, loss and
+              gradients against the unrewritten trace, a control without
+              the causal mask beyond both limits) and the masked
+              decode composition through ``decode_attention`` (B6 f16);
+              ViT-B/16 calibrated by PTQ, saved, served by
+              ``create_predictor`` with f16 mixed precision (B2, B4a),
+              its output held to the f32 forward, a control that drops
+              the attention's tail tile beyond the limit;
+              profiler windows at this age of the process (ROADMAP C12)
+              (``python3 chip_smoke.py deploy`` runs this group alone).
 
 The launches in the ``kernels`` line are those of each kernel's main
 path, each run with the counts at 0 just before and read just after:
@@ -275,8 +304,11 @@ kernel, the timed training steps for the others, to which the eager
 BERT-base timed steps add B4a's and B4b's launches and its eval forward
 B2's and B4a's, the ViT-B/16 fit B2's, B3's, B4a's and B4b's, the
 op surface's attention entry points B2's and B3's, the speech path's
-and gpt_6_7b's, and the training features' remat and fp16 steps B2's,
-B3's, B4a's and B4b's.  The second-to-last
+and gpt_6_7b's, the training features' remat and fp16 steps B2's,
+B3's, B4a's and B4b's, and the deployment slice's f16 server run (B1),
+its int8-KV run (B5), the f16 FMT and the decode pass (B6), the IR
+passes' steps (B2, B3, B4a, B4b) and the predictor's runs (B2, B4a).
+The second-to-last
 line is that JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  The script imports only torch, numpy and the port.
 """
@@ -791,6 +823,10 @@ def flash_attention_phase(entries, dev):
         ("gpt124m_f16_8x1024x12x64_causal", f16, (8, 1024, 12, 64), True,
          True),
         ("d36_f16_2x300x4x36_causal", f16, (2, 300, 4, 36), True, False),
+        # ViT-B/16's attention as the float16 Predictor runs it, beside
+        # the bf16 row of the vision phase: non-causal, 197 rows (a tail
+        # in every 64-row tile column)
+        ("vit_b16_f16_64x197x12x64", f16, (64, 197, 12, 64), False, False),
     ]
 
     def check(label, dtype, q, k, v, dout, causal, packed, scale):
@@ -914,6 +950,8 @@ def flash_attention_phase(entries, dev):
                         flush, note=" (gpt_6_7b eval forward)")
     _flash_kernel_times(fwd, bwd, dev, f16, (8, 1024, 12, 64), True, flush,
                         note=" (GPT-124M O2 float16 step)")
+    _flash_kernel_times(fwd, None, dev, f16, (64, 197, 12, 64), False, flush,
+                        note=" (ViT-B/16 float16 Predictor)")
     return records
 
 
@@ -1010,7 +1048,10 @@ def layernorm_phase(entries, dev):
              ("wide_few_rows_3x8192", bf16, 3, 8192),
              # the float16 instances: GPT-124M's step and a wide row
              ("gpt124m_f16_8192x768", f16, 8192, 768),
-             ("wide_f16_4096x4096", f16, 4096, 4096)]
+             ("wide_f16_4096x4096", f16, 4096, 4096),
+             # ViT-B/16's LayerNorms in the float16 Predictor (64 x 197
+             # rows), beside the f32 row of the vision phase
+             ("vit_b16_f16_12608x768", f16, 12608, 768)]
     main_err = {}
     for i, (label, dtype, rows, c) in enumerate(cases):
         x, g, b, dy = _ln_inputs(dev, dtype, rows, c, seed=70 + i)
@@ -1085,7 +1126,9 @@ def layernorm_phase(entries, dev):
     # the Conformer's (f32) and the wide rows (gpt_6_7b's 4096 and 8192)
     for dtype, rows, c, note in ((f32, 4000, 144, " (Conformer)"),
                                  (bf16, 4096, 4096, " (gpt_6_7b)"),
-                                 (f16, 8192, 768, " (GPT-124M O2 float16)")):
+                                 (f16, 8192, 768, " (GPT-124M O2 float16)"),
+                                 (f16, 12608, 768,
+                                  " (ViT-B/16 float16 Predictor)")):
         x, g, b, dy = _ln_inputs(dev, dtype, rows, c, seed=94)
         _ln_kernel_times(fwd, bwd, x, g, b, dy, eps, flush,
                          f"{rows}x{c} {str(dtype)[6:]}{note}")
@@ -1629,11 +1672,20 @@ def build_phase():
             if "wide" in f}
     if wide:
         raise RuntimeError(f"the wide LayerNorm kernels spill: {wide}")
-    # the float16 instances of B2/B3 and B4 (``__half`` in the mangled name)
-    f16 = {f: n for name in ("flash_attention", "layernorm")
+    # the float16 instances of B1/B5/B6, B2/B3 and B4 (``__half`` in the
+    # mangled name)
+    f16 = {f: n for name in ("flash_attention", "layernorm",
+                             "ragged_attention", "decode_attention")
            for f, n in _spills(built[name][1]).items() if "6__half" in f}
     if f16:
         raise RuntimeError(f"the float16 kernel instances spill: {f16}")
+    # every type's D > 64 ragged split instance over pools of q's type
+    # (DL 4, ``Li4E``; ``aLi4E`` is an int8 pool's, see split_min_blocks)
+    dl4 = {f: n for f, n in _spills(built["ragged_attention"][1]).items()
+           if "ragged_split_kernel" in f and "Li4E" in f
+           and "aLi4E" not in f}
+    if dl4:
+        raise RuntimeError(f"the D > 64 ragged split instances spill: {dl4}")
     say("build_total", seconds=time.perf_counter() - t0)
 
 
@@ -8003,6 +8055,848 @@ def train_features_phases(dev, smi):
     return launches
 
 
+# --------------------------------------------------------------- deploy --
+DEPLOY_SEED = 19
+DEPLOY_PROMPT, DEPLOY_NEW, DEPLOY_REQUESTS = 128, 32, 8
+DEPLOY_C_CLIENT = 3          # the request the native C client sends
+FP16_ENGINE = dict(block_size=16, max_batch=8, token_budget=256)
+# the ir_passes step against the same composition without passes, both
+# bf16 on the card: the passes compute attention in the flash kernels'
+# f32 and LayerNorm statistics in f32 where the plain composition rounds
+# every intermediate to bf16 (2^-9).  Read on an H100: the rewritten
+# step 0.0184 off in loss and 0.0288 in its worst gradient, the
+# unmasked control 0.252 and 0.936; each limit lies between the two
+IR_LOSS_RTOL = 6e-2
+IR_GRAD_RTOL = 1e-1
+IR_LAYERS, IR_HIDDEN, IR_HEADS, IR_BATCH, IR_SEQ = 12, 768, 12, 8, 1024
+IR_STEPS = 3
+PREDICTOR_BATCH, PREDICTOR_RUNS = 64, 3
+# the f16 predictor's largest |error| over max |f32 forward|: read on
+# an H100 0.0010, the tail-dropped control 0.128
+PREDICTOR_RTOL = 4e-3
+C12_CALLS = 16
+C12_CONTROL_AGE_S = 536      # the full run's age at its C12 windows
+
+
+def fp16_kernel_phase(dev):
+    """The float16 instances of B1, B5 and B6 (C11) at their PERF.md §6
+    shapes against the plain versions in f32 on the same values, under
+    the strict rule (``_parity``), padding / empty rows exact zeros,
+    bitwise repeatable; each timed against its bound, B6 also against
+    ``F.scaled_dot_product_attention``."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import registry
+
+    f16 = torch.float16
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def row(entry, label, args, plain_args, zero, lib=None):
+        got = entry.kernel(*args)
+        again = entry.kernel(*args)
+        torch.cuda.synchronize()
+        report = {"out": _parity(got, entry.plain(*plain_args), 1e-4)}
+        zero_ok = bool((got[zero] == 0).all())
+        repeat = torch.equal(got, again)
+        _say_parity(entry.name, label, got.dtype, report,
+                    zero_rows_exact_zero=zero_ok, bitwise_repeatable=repeat)
+        if not (report["out"][3] and zero_ok and repeat):
+            raise RuntimeError(f"{entry.name} {label} f16: {report}, zero "
+                               f"{zero_ok}, repeatable {repeat}")
+        ms = time_ms(lambda: entry.kernel(*args), flush)
+        plain_ms = time_ms(lambda: entry.plain(*args), flush)
+        bound_ms, bound_by = _bound(entry, *args)
+        lib_ms = time_ms(lib, flush) if lib is not None else None
+        say("kernel_time", kernel=entry.name, shape=f"{label} f16",
+            kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib_ms)
+
+    b1 = registry.KERNELS["paged_ragged_attention"]
+    b5 = registry.KERNELS["paged_ragged_attention_quant"]
+    b6 = registry.KERNELS["decode_attention"]
+    pos = np.random.RandomState(3).randint(600, 1000, size=8)
+    shapes = {
+        "gpt124m_mixed_T256": (256, _full_width_tables(1),
+                               [0, 1, 201, 205, 205, 205, 205, 205],
+                               [1, 200, 4, 0, 0, 0, 0, 0],
+                               [900, 37, 500, 0, 0, 0, 0, 0], 2),
+        "gpt124m_decode_T8": (8, _full_width_tables(4), list(range(8)),
+                              [1] * 8, pos, 5)}
+    for label, (t, bt, rs, rq, rp, seed) in shapes.items():
+        args = _ragged_case(dev, f16, 512, 16, 12, 12, 64, t, bt, rs, rq,
+                            rp, seed=seed)
+        q, kp, vp = args[:3]
+        pad = ~_live_tokens(t, args[4], args[5], dev)
+        row(b1, label, args, (q.float(), kp.float(), vp.float(), *args[3:]),
+            pad)
+        base = _ragged_case(dev, torch.float32, 512, 16, 12, 12, 64, t, bt,
+                            rs, rq, rp, seed=seed)
+        qargs = _quantized(base, f16)
+        row(b5, label + " int8 pools", qargs,
+            (qargs[0].float(), *qargs[1:]), pad)
+    for label, (b, nq, nkv, d, s), lens, seed in (
+            ("gpt124m_fmt", (8, 12, 12, 64, 1024),
+             _full_lengths(20, 8, 1024), 20),
+            ("fmt_main_path", (8, 12, 12, 64, 192),
+             np.random.RandomState(25).randint(128, 193, 8), 25)):
+        args = q, k, v, lens_t = _decode_case(dev, f16, b, nq, nkv, d, s,
+                                             lens, seed)
+        mask = (torch.arange(s, device=dev)[None, :]
+                < lens_t[:, None])[:, None, None, :]
+
+        def sdpa(q=q, k=k, v=v, mask=mask):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+
+        row(b6, label, args, (q.float(), k.float(), v.float(), lens_t),
+            lens_t <= 0, lib=sdpa)
+
+
+def _native_client():
+    import ctypes
+
+    from paddle_tpu_torch.core import native
+
+    lib = native.load()
+    if lib is None:
+        raise RuntimeError("the native C client did not build")
+    lib.pd_infer_connect.restype = ctypes.c_void_p
+    lib.pd_infer_connect.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                     ctypes.c_int]
+    lib.pd_infer_close.argtypes = [ctypes.c_void_p]
+    lib.pd_infer_add_input.restype = ctypes.c_int
+    lib.pd_infer_add_input.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int, ctypes.c_void_p]
+    lib.pd_infer_run.restype = ctypes.c_int
+    lib.pd_infer_run.argtypes = [ctypes.c_void_p]
+    lib.pd_infer_output_dims.restype = ctypes.c_int
+    lib.pd_infer_output_dims.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.pd_infer_output_data.restype = ctypes.c_int
+    lib.pd_infer_output_data.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64]
+    return lib
+
+
+def _c_generate(lib, port, ids, new):
+    """One generative request through the native C client (pd_infer_*):
+    the token ids as int64 [T] and max_new_tokens as an int64 scalar."""
+    import ctypes
+
+    h = lib.pd_infer_connect(b"127.0.0.1", port, 120000)
+    if not h:
+        raise RuntimeError("pd_infer_connect failed")
+    try:
+        ids = np.ascontiguousarray(ids, np.int64)
+        n = np.asarray(new, np.int64)
+        if lib.pd_infer_add_input(h, 3, (ctypes.c_int64 * 1)(ids.size), 1,
+                                  ids.ctypes.data_as(ctypes.c_void_p)) or \
+                lib.pd_infer_add_input(h, 3, (ctypes.c_int64 * 1)(), 0,
+                                       n.ctypes.data_as(ctypes.c_void_p)):
+            raise RuntimeError("pd_infer_add_input failed")
+        if lib.pd_infer_run(h) != 0:
+            raise RuntimeError("pd_infer_run failed")
+        dtype, dims = ctypes.c_int(), (ctypes.c_int64 * 8)()
+        nd = lib.pd_infer_output_dims(h, 0, ctypes.byref(dtype), dims)
+        out = np.empty(tuple(dims[:nd]), np.int64)
+        if dtype.value != 3 or lib.pd_infer_output_data(
+                h, 0, out.ctypes.data_as(ctypes.c_void_p), out.nbytes):
+            raise RuntimeError("pd_infer_output_data failed")
+        return out
+    finally:
+        lib.pd_infer_close(h)
+
+
+def _py_generate(port, ids, new):
+    import socket
+    import struct
+
+    from paddle_tpu_torch.inference.serving import (_recv_exact,
+                                                    _recv_tensor,
+                                                    _send_tensor)
+
+    s = socket.create_connection(("127.0.0.1", port), timeout=300)
+    try:
+        s.sendall(struct.pack("<I", 2))
+        _send_tensor(s, np.asarray(ids, np.int64))
+        _send_tensor(s, np.asarray(new, np.int64))
+        status, n_out = struct.unpack("<BI", _recv_exact(s, 5))
+        if status != 0:
+            raise RuntimeError(f"server status {status}")
+        return [_recv_tensor(s) for _ in range(n_out)][0]
+    finally:
+        s.close()
+
+
+def _served_in_order(eng, srv, prompts, new):
+    """The requests through ``srv`` from a thread each, request
+    ``DEPLOY_C_CLIENT`` through the native C client, the rest through
+    Python wire clients.  Client i submits once i requests are queued and
+    the engine's first step waits for all of them, so the server runs
+    the schedule ``generate`` runs on the same engine (submission order
+    is arrival order); the connections are all open at once and answer
+    concurrently."""
+    import threading
+
+    lib = _native_client()
+    added, cond = [0], threading.Condition()
+    add, step = eng.add_request, eng.step
+
+    def counted_add(*a, **k):
+        rid = add(*a, **k)
+        with cond:
+            added[0] += 1
+            cond.notify_all()
+        return rid
+
+    def gated_step():
+        with cond:
+            cond.wait_for(lambda: added[0] >= len(prompts), timeout=120)
+        return step()
+
+    eng.add_request, eng.step = counted_add, gated_step
+    outs, errs = [None] * len(prompts), []
+
+    def client(i):
+        try:
+            with cond:
+                cond.wait_for(lambda: added[0] >= i, timeout=120)
+            call = (lambda p, ids, n: _c_generate(lib, p, ids, n)) \
+                if i == DEPLOY_C_CLIENT else _py_generate
+            outs[i] = call(srv.port, prompts[i], new)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errs.append((i, repr(e)))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        del eng.add_request, eng.step
+    if errs or any(o is None for o in outs):
+        raise RuntimeError(f"served requests failed: {errs}")
+    return outs
+
+
+def fp16_serving_phase(dev, smi):
+    """GPT-124M, ``LLMEngine(dtype="float16")`` behind ``PredictorServer``
+    on 127.0.0.1: 8 greedy requests (prompt 128, 32 new, from
+    ``DEPLOY_SEED``), 7 from Python wire clients in threads and one from
+    the native C client; the tokens must equal the same engine's direct
+    ``generate`` and B1 must launch on every layer of every engine
+    launch (the main path: counts at 0 just before, read just after).
+    The f16 engine's teacher-forced logits against the f32 engine's on
+    the same weights (largest and rms |error|).  Then 4 requests through
+    the f16 engine with the int8 KV pool (B5 with f16 q).  Returns
+    {kernel: launches}."""
+    import torch
+
+    from paddle_tpu_torch.inference import PredictorServer
+    from paddle_tpu_torch.inference.llm import LLMEngine, quality
+    from paddle_tpu_torch.models.gpt import gpt_124m
+    from paddle_tpu_torch.ops.cuda import registry
+
+    model = gpt_124m(device=dev, seed=0).eval()
+    rng = np.random.RandomState(DEPLOY_SEED)
+    prompts = [rng.randint(0, 50257, DEPLOY_PROMPT)
+               for _ in range(DEPLOY_REQUESTS)]
+    eng = LLMEngine(model, dtype="float16", device=dev, **FP16_ENGINE)
+    eng.warmup()
+    direct = eng.generate(prompts, max_new_tokens=DEPLOY_NEW)
+    srv = PredictorServer(engine=eng, host="127.0.0.1")
+    try:
+        registry.reset_counts()
+        steps0 = eng.stats["launches"]
+        t0 = time.perf_counter()
+        served = _served_in_order(eng, srv, prompts, DEPLOY_NEW)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        b1 = registry.counts()["paged_ragged_attention"]
+        plan = eng.num_layers * (eng.stats["launches"] - steps0)
+    finally:
+        srv.stop()
+    equal = [bool(np.array_equal(np.asarray(s).reshape(-1),
+                                 np.asarray(d))) for s, d in zip(served,
+                                                                 direct)]
+    # teacher-forced logits of request 0's prompt and completion
+    eng32 = LLMEngine(model, dtype="float32", device=dev, **FP16_ENGINE)
+    seq = np.asarray(direct[0])
+    l16 = quality.engine_logits(eng, seq)
+    l32 = quality.engine_logits(eng32, seq)
+    err = np.abs(l16.astype(np.float64) - l32)
+    del eng32
+    say("fp16_serving", model="gpt_124m", dtype="float16", nvidia_smi=smi,
+        requests=len(prompts), prompt_tokens=DEPLOY_PROMPT,
+        new_tokens=DEPLOY_NEW, c_client_request=DEPLOY_C_CLIENT,
+        tokens_equal_generate=equal, wall_s=wall,
+        tokens_per_s=len(prompts) * DEPLOY_NEW / wall,
+        kernel_launches=b1, expected_launches=plan,
+        fp16_vs_fp32_logits_max_abs_err=float(err.max()),
+        fp16_vs_fp32_logits_rms_err=float(np.sqrt((err ** 2).mean())),
+        fp32_logits_max_abs=float(np.abs(l32).max()))
+    if not all(equal):
+        raise RuntimeError(f"served tokens differ from generate: {equal}")
+    if b1 != plan:
+        raise RuntimeError(f"f16 B1 launches {b1} != the plan {plan}")
+    del eng
+    torch.cuda.empty_cache()
+
+    eng8 = LLMEngine(model, dtype="float16", device=dev,
+                     quantize={"weights": False, "kv_cache": True},
+                     **FP16_ENGINE)
+    eng8.warmup()
+    registry.reset_counts()
+    steps0 = eng8.stats["launches"]
+    outs = eng8.generate(prompts[:4], max_new_tokens=DEPLOY_NEW)
+    torch.cuda.synchronize(dev)
+    b5 = registry.counts()["paged_ragged_attention_quant"]
+    plan8 = eng8.num_layers * (eng8.stats["launches"] - steps0)
+    ok = all(len(o) == DEPLOY_PROMPT + DEPLOY_NEW and (
+        (np.asarray(o) >= 0) & (np.asarray(o) < 50257)).all() for o in outs)
+    say("fp16_serving_int8_kv", requests=4, kernel_launches=b5,
+        expected_launches=plan8, outputs_in_range=ok)
+    if b5 != plan8 or not ok:
+        raise RuntimeError(f"f16 B5 launches {b5} != {plan8} or bad "
+                           f"outputs")
+    return {"paged_ragged_attention": b1,
+            "paged_ragged_attention_quant": b5}
+
+
+def fmt_fp16_phase(dev, batch=8, prompt=128, new=64):
+    """``inference.get_fused_multi_transformer(gpt_124m, dtype=
+    "float16")``: batch 8, prompt 128, 64 new greedy tokens, replayed as
+    ``fmt_decode_phase`` does; B6 f16 on every layer of every decode
+    step (the main path, counts at 0 just before).  Returns the B6
+    count."""
+    import torch
+
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.models.gpt import gpt_124m
+    from paddle_tpu_torch.ops.cuda import registry
+
+    model = gpt_124m(device=dev, seed=0).eval()
+    fmt = inference.get_fused_multi_transformer(
+        model, max_length=prompt + new, dtype="float16", device=dev)
+    del model
+    ids = np.random.RandomState(78).randint(0, 50257, (batch, prompt))
+    fmt.generate(ids[:, :8], max_new_tokens=4)          # warm-up
+    registry.reset_counts()
+    steps0 = fmt.decode_steps
+    replays = fmt._graphs.replays
+    t0 = time.perf_counter()
+    out = fmt.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = registry.counts()["decode_attention"]
+    steps = fmt.decode_steps - steps0
+    want = fmt.num_layers * steps
+    say("fmt_fp16", model="gpt_124m", dtype="float16", batch=batch,
+        prompt_tokens=prompt, new_tokens=new, wall_s=wall,
+        decode_steps=steps, tokens_per_s=batch * new / wall,
+        kernel_launches=launches, expected_launches=want,
+        graph_replays=fmt._graphs.replays - replays)
+    if out.shape != (batch, prompt + new) or launches != want or \
+            fmt._graphs.replays - replays != steps:
+        raise RuntimeError(f"fmt_fp16: shape {out.shape}, launches "
+                           f"{launches} != {want}, replays")
+    return launches
+
+
+def _ln_composition(x, w, b):
+    """LayerNorm over the last dim, written out (what
+    ``fuse_layernorm`` matches)."""
+    import torch
+
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + 1e-5) * w + b
+
+
+def _naive_gpt(dev, dtype, causal=True):
+    """A GPT stack written as plain composition (the shape of the
+    reference's ``test_causal_gpt_block_composes_with_zoo``, with the
+    GPT MLP): hand-written LayerNorms and causal masked attention over
+    ``torch.einsum`` / ``torch.softmax`` / ``torch.where``, as a Layer
+    of ``IR_LAYERS`` blocks at GPT-124M width.  ``causal=False`` drops
+    the mask (a wrong program, the ``ir_passes`` check's control)."""
+    import math
+
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.tensor import _wrap
+    from paddle_tpu_torch.nn.layer_base import Parameter
+
+    d, nh = IR_HIDDEN, IR_HEADS
+    hd = d // nh
+    rng = np.random.RandomState(DEPLOY_SEED)
+
+    def param(*shape, scale=0.02, base=0.0):
+        return Parameter(torch.as_tensor(
+            base + scale * rng.randn(*shape).astype(np.float32),
+            device=dev).to(dtype))
+
+    class NaiveGPT(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            for i in range(IR_LAYERS):
+                for n, shape, scale, base in (
+                        ("g1", (d,), 0.1, 1.0), ("b1", (d,), 0.1, 0.0),
+                        ("wq", (d, d), 0.02, 0.0), ("wk", (d, d), 0.02, 0.0),
+                        ("wv", (d, d), 0.02, 0.0), ("wo", (d, d), 0.02, 0.0),
+                        ("g2", (d,), 0.1, 1.0), ("b2", (d,), 0.1, 0.0),
+                        ("w1", (d, 4 * d), 0.02, 0.0),
+                        ("w2", (4 * d, d), 0.02, 0.0)):
+                    setattr(self, f"{n}_{i}", param(*shape, scale=scale,
+                                                    base=base))
+            self.gf = param(d, scale=0.1, base=1.0)
+            self.bf = param(d, scale=0.1)
+
+        def forward(self, x):
+            h = x._data
+            bsz, t, _ = h.shape
+            for i in range(IR_LAYERS):
+                p = {n: getattr(self, f"{n}_{i}")._data for n in (
+                    "g1", "b1", "wq", "wk", "wv", "wo", "g2", "b2", "w1",
+                    "w2")}
+                a = _ln_composition(h, p["g1"], p["b1"])
+
+                def heads(w):
+                    return (a @ w).reshape(bsz, t, nh, hd).transpose(1, 2)
+
+                q, k, v = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
+                s = torch.einsum("bntd,bnsd->bnts", q, k) / math.sqrt(hd)
+                if causal:
+                    mask = torch.ones((t, t), dtype=torch.bool,
+                                      device=h.device).tril()
+                    s = torch.where(mask, s, torch.tensor(
+                        -1e9, dtype=s.dtype, device=h.device))
+                att = torch.einsum("bnts,bnsd->bntd", torch.softmax(s, -1),
+                                   v)
+                h = h + att.transpose(1, 2).reshape(bsz, t, d) @ p["wo"]
+                m = _ln_composition(h, p["g2"], p["b2"])
+                h = h + torch.nn.functional.gelu(m @ p["w1"]) @ p["w2"]
+            return _wrap(_ln_composition(h, self.gf._data, self.bf._data))
+
+    return NaiveGPT()
+
+
+def ir_passes_phase(dev, smi):
+    """The IR passes on the card.  (1) ``_naive_gpt`` in bf16 at 8 x
+    1024 tokens under ``to_static(ir_passes=True)``: 3 forward and
+    backward steps (the main path: counts at 0 just before) with the
+    rewrites of each pass and B2/B3/B4a/B4b against the plan; the loss
+    (the output's projection on a seeded random tensor, so it moves with
+    every output value) and the first step's gradients against the same
+    composition traced without passes (``IR_LOSS_RTOL``, ``IR_GRAD_RTOL``
+    relative L2 per leaf), beside the same readings of a control, the
+    composition without its causal mask, which must exceed both.  (2) the FMT-style masked decode composition (B 8, S_max
+    1024, 12 heads, D 64, f16) over 12 layers through ``ir.optimize(...,
+    ["decode_attention"])``: B6 f16 once a layer, its output held to the
+    composition in f32 under the f16 rule.  Returns {kernel:
+    launches}."""
+    import math
+
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import ir
+    from paddle_tpu_torch.jit import to_static
+    from paddle_tpu_torch.ops.cuda import registry
+
+    bf16 = torch.bfloat16
+    rng = np.random.RandomState(DEPLOY_SEED + 1)
+    x = torch.as_tensor(rng.randn(IR_BATCH, IR_SEQ, IR_HIDDEN)
+                        .astype(np.float32), device=dev).to(bf16)
+    proj = torch.as_tensor(rng.randn(IR_BATCH, IR_SEQ, IR_HIDDEN)
+                           .astype(np.float32), device=dev)
+
+    def run(model, steps):
+        losses, grads = [], None
+        for _ in range(steps):
+            for p in model.parameters():
+                p.clear_gradient()
+            out = model(paddle.to_tensor(x))._data.float()
+            loss = (out * proj).sum(-1).mean()
+            loss.backward()
+            losses.append(float(loss.detach()))
+            if grads is None:
+                grads = [p.grad._data.float().clone()
+                         for p in model.parameters()]
+        return losses, grads
+
+    plain = to_static(_naive_gpt(dev, bf16))
+    ref_losses, ref_grads = run(plain, 1)
+    del plain
+
+    def off_ref(losses, grads):
+        return (abs(losses[0] - ref_losses[0]) / abs(ref_losses[0]),
+                [float((g - r).norm() / r.norm().clamp(min=1e-30))
+                 for g, r in zip(grads, ref_grads)])
+
+    control_loss, control_grads = off_ref(*run(
+        to_static(_naive_gpt(dev, bf16, causal=False)), 1))
+    torch.cuda.empty_cache()
+    fused = to_static(_naive_gpt(dev, bf16), ir_passes=True)
+    t0 = time.perf_counter()
+    fused(paddle.to_tensor(x))                    # trace and rewrite
+    trace_s = time.perf_counter() - t0
+    gm = fused.forward.program(paddle.to_tensor(x))
+    torch.cuda.synchronize(dev)
+    registry.reset_counts()
+    t0 = time.perf_counter()
+    losses, grads = run(fused, IR_STEPS)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = registry.counts()
+    lns = 2 * IR_LAYERS + 1
+    want = {"flash_attention_fwd": IR_LAYERS * IR_STEPS,
+            "flash_attention_bwd": IR_LAYERS * IR_STEPS,
+            "layernorm_fwd": lns * IR_STEPS, "layernorm_bwd": lns * IR_STEPS}
+    got = {k: counts[k] for k in want}
+    loss_rel, grad_rel = off_ref(losses, grads)
+    say("ir_passes", model="naive_gpt", layers=IR_LAYERS, hidden=IR_HIDDEN,
+        heads=IR_HEADS, tokens=IR_BATCH * IR_SEQ, dtype="bfloat16",
+        nvidia_smi=smi, rewrites_by_pass=gm.meta["rewrites_by_pass"],
+        trace_and_rewrite_s=trace_s, steps=IR_STEPS,
+        ms_per_step=wall / IR_STEPS * 1e3, losses=losses,
+        plain_loss=ref_losses[0], loss_rel_err=loss_rel,
+        loss_rtol=IR_LOSS_RTOL, grad_rel_l2_max=max(grad_rel),
+        grad_rtol=IR_GRAD_RTOL, control_no_mask_loss_rel_err=control_loss,
+        control_no_mask_grad_rel_l2_max=max(control_grads),
+        control_no_mask_grad_rel_l2_min=min(control_grads),
+        kernel_launches=got, expected=want)
+    if gm.meta["rewrites_by_pass"]["fuse_attention"] != IR_LAYERS or \
+            gm.meta["rewrites_by_pass"]["fuse_layernorm"] != lns:
+        raise RuntimeError(f"ir rewrites {gm.meta['rewrites_by_pass']}")
+    if got != want:
+        raise RuntimeError(f"ir_passes launches {got} != {want}")
+    if loss_rel > IR_LOSS_RTOL or max(grad_rel) > IR_GRAD_RTOL:
+        raise RuntimeError(f"ir_passes loss {loss_rel} / grads "
+                           f"{max(grad_rel)} off the plain composition")
+    if control_loss <= IR_LOSS_RTOL or max(control_grads) <= IR_GRAD_RTOL:
+        raise RuntimeError(f"ir_passes limits pass the unmasked control: "
+                           f"loss {control_loss}, grads "
+                           f"{max(control_grads)}")
+    del fused, ref_grads, grads
+    torch.cuda.empty_cache()
+
+    # (2) masked decode through the decode_attention pass
+    b, s_max, nh, hd, offset = 8, 1024, 12, 64, 700
+
+    def masked_decode(q, ks, vs):
+        outs = []
+        for l in range(IR_LAYERS):
+            logits = torch.einsum("bqnd,bknd->bnqk", q[l], ks[l]) * (
+                1.0 / math.sqrt(hd))
+            q_pos = offset + torch.arange(1, device=q.device)[:, None]
+            k_pos = torch.arange(s_max, device=q.device)[None, :]
+            mask = (k_pos <= q_pos)[None, None]
+            logits = torch.where(mask, logits, torch.tensor(
+                -1e30, dtype=logits.dtype, device=q.device))
+            att = torch.softmax(logits.float(), -1).to(q.dtype)
+            outs.append(torch.einsum("bnqk,bknd->bqnd", att, vs[l]))
+        return torch.stack(outs)
+
+    rng = np.random.RandomState(DEPLOY_SEED + 2)
+    q, ks, vs = (torch.as_tensor(rng.randn(*shape).astype(np.float32),
+                                 device=dev).half()
+                 for shape in ((IR_LAYERS, b, 1, nh, hd),
+                               (IR_LAYERS, b, s_max, nh, hd),
+                               (IR_LAYERS, b, s_max, nh, hd)))
+    opt = ir.optimize(masked_decode, passes=["decode_attention"])
+    opt(q, ks, vs)                                  # trace and rewrite
+    torch.cuda.synchronize(dev)
+    registry.reset_counts()
+    got = opt(q, ks, vs)
+    torch.cuda.synchronize(dev)
+    b6 = registry.counts()["decode_attention"]
+    ref = masked_decode(q.float(), ks.float(), vs.float())
+    report = _parity(got, ref, 1e-4)
+    naive = _parity(masked_decode(q, ks, vs), ref, 1e-4)
+    say("ir_decode_pass", batch=b, s_max=s_max, heads=nh, head_dim=hd,
+        dtype="float16", layers=IR_LAYERS, rewrites=opt.last_rewrite_count,
+        kernel_launches=b6, expected=IR_LAYERS, max_abs_err=report[0],
+        err_over_limit=report[2], naive_f16_err_over_limit=naive[2])
+    if opt.last_rewrite_count != IR_LAYERS or b6 != IR_LAYERS or \
+            not report[3]:
+        raise RuntimeError(f"decode pass: rewrites "
+                           f"{opt.last_rewrite_count}, B6 {b6}, {report}")
+    return {**{k: counts[k] for k in want}, "decode_attention": b6}
+
+
+def predictor_phase(dev, smi):
+    """ViT-B/16 through the deployment path: ``PTQ(QuantConfig(
+    activation=AbsmaxObserver))`` calibrated on 4 batches made from
+    ``DEPLOY_SEED``, ``convert``, ``jit.save`` under chiprun_out/,
+    ``Config(prefix).enable_mixed_precision("float16")``,
+    ``create_predictor``, 3 handle-style runs at batch 64 (the main
+    path, counts at 0 just before): device ms a run, B2 f16 12 a run and
+    B4a f16 25 a run, the largest relative error (held to
+    ``PREDICTOR_RTOL``) and the top-1 agreement against the converted
+    model's eager f32 forward, beside the same error of a control that
+    drops each attention's tail tile (it must exceed the limit).
+    Returns {kernel: launches}."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.ops.cuda import registry
+    from paddle_tpu_torch.vision.models import vit_base_patch16_224
+
+    paddle.seed(DEPLOY_SEED)
+    model = vit_base_patch16_224()
+    model.eval()
+    rng = np.random.RandomState(DEPLOY_SEED + 3)
+    ptq = Q.PTQ(Q.QuantConfig(activation=Q.AbsmaxObserver))
+    qmodel = ptq.quantize(model)
+    with torch.no_grad():
+        for _ in range(4):
+            qmodel(paddle.to_tensor(rng.randn(16, 3, 224, 224)
+                                    .astype(np.float32)))
+    deployed = ptq.convert(qmodel)
+    prefix = os.path.join(ROOT, "chiprun_out", "predictor", "vit_b16")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    t0 = time.perf_counter()
+    paddle.jit.save(deployed, prefix)
+    save_s = time.perf_counter() - t0
+    cfg = inference.Config(prefix)
+    cfg.enable_mixed_precision("float16")
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(cfg)
+    x = rng.randn(PREDICTOR_BATCH, 3, 224, 224).astype(np.float32)
+    handle = pred.get_input_handle(pred.get_input_names()[0])
+    handle.copy_from_cpu(x)
+    pred.run()                                       # trace
+    first_s = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    registry.reset_counts()
+    ms = []
+    for _ in range(PREDICTOR_RUNS):
+        handle.copy_from_cpu(x)
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        pred.run()
+        end.record()
+        torch.cuda.synchronize(dev)
+        ms.append(start.elapsed_time(end))
+    counts = registry.counts()
+    out = pred.get_output_handle(pred.get_output_names()[0]).copy_to_cpu()
+    with torch.no_grad():
+        ref = deployed(paddle.to_tensor(x)).numpy()
+        # the control: the same f32 forward with every attention blind to
+        # the last 5 of its 197 keys (the tail of the last 64-key tile),
+        # what a kernel that drops the tail tile would compute
+        real = F._dispatch_attention
+
+        def tail_dropped(q, k, v, **kw):
+            return real(q, k[:, :192], v[:, :192], **kw)
+
+        F._dispatch_attention = tail_dropped
+        try:
+            control = deployed(paddle.to_tensor(x)).numpy()
+        finally:
+            F._dispatch_attention = real
+    for ext in (".pdmodel", ".pdiparams"):
+        os.remove(prefix + ext)     # hundreds of MB: not brought back
+
+    def rel_err(a):
+        return float(np.abs(a.astype(np.float32) - ref).max()
+                     / np.abs(ref).max())
+
+    rel, control_rel = rel_err(out), rel_err(control)
+    top1 = float((out.astype(np.float32).argmax(-1) == ref.argmax(-1))
+                 .mean())
+    want = {"flash_attention_fwd": 12 * PREDICTOR_RUNS,
+            "layernorm_fwd": 25 * PREDICTOR_RUNS}
+    got = {k: counts[k] for k in want}
+    say("predictor", model="vit_base_patch16_224", batch=PREDICTOR_BATCH,
+        dtype="float16", nvidia_smi=smi, save_s=save_s,
+        first_run_s=first_s, run_ms=ms, output_dtype=str(out.dtype),
+        max_rel_err_vs_f32=rel, rtol=PREDICTOR_RTOL,
+        control_tail_dropped_max_rel_err=control_rel, top1_agreement=top1,
+        kernel_launches=got, expected=want)
+    if got != want or out.dtype != np.float16 or \
+            not np.isfinite(out).all():
+        raise RuntimeError(f"predictor launches {got} != {want} or "
+                           f"output {out.dtype}")
+    if not rel <= PREDICTOR_RTOL < control_rel:
+        raise RuntimeError(f"predictor output {rel} off the f32 forward "
+                           f"(limit {PREDICTOR_RTOL}, tail-dropped "
+                           f"control {control_rel})")
+    return got
+
+
+def c12_windows_phase(dev, tag, port_from=0):
+    """ROADMAP C12's experiment: one workload (``C12_CALLS`` flash
+    forwards and LayerNorm forwards, bf16) under profiler windows at
+    this age of the process, after 0, 1 and 5 earlier windows of this
+    experiment and after 100 CUDA-graph replays of the workload.  From
+    window ``port_from`` on, the windows go alternately through the
+    port's ``profiler.Profiler(targets=[GPU])`` and through
+    ``torch.profiler.profile`` directly; before it, through
+    ``torch.profiler`` alone.  Prints, for each window, the kernel
+    records it missed against the launches the wrappers counted in it
+    (the launch plan)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.ops.cuda import registry
+
+    work = _c12_workload(dev)
+    work()
+    torch.cuda.synchronize(dev)
+    names = {"flash_fwd_tc": "flash_attention_fwd",
+             "ln_fwd_kernel": "layernorm_fwd"}
+
+    def records(events):
+        return {n: sum(e.count for e in events if n in e.key)
+                for n in names}
+
+    def window(i, label):
+        port = i >= port_from and (i - port_from) % 2 == 0
+        t = time.perf_counter() - _T0
+        before = registry.counts()
+        if port:
+            with profiler.Profiler(targets=[profiler.ProfilerTarget.GPU]) \
+                    as prof:
+                work()
+                torch.cuda.synchronize(dev)
+            events = prof._last.key_averages()
+        else:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                work()
+                torch.cuda.synchronize(dev)
+            events = prof.key_averages()
+        after = registry.counts()
+        launched = {n: after[k] - before[k] for n, k in names.items()}
+        got = records(events)
+        missing = {n: launched[n] - got[n] for n in names}
+        say("c12_window", run=tag, window=label, process_age_s=t,
+            earlier_windows=i,
+            through="paddle_tpu_torch.profiler" if port else
+            "torch.profiler", kernel_records=got, launches=launched,
+            expected=C12_CALLS, missing=missing)
+        return missing
+
+    out = [window(0, "first"), window(1, "second")]
+    for i in range(2, 6):
+        window(i, f"filler_{i}")
+    out.append(window(6, "after_5"))
+    graph = _graph(work)
+    for _ in range(100):
+        graph.replay()
+    torch.cuda.synchronize(dev)
+    out.append(window(7, "after_100_replays"))
+    return out
+
+
+def _c12_workload(dev):
+    """C12's workload: ``C12_CALLS`` causal flash forwards (2 x 512 x 12
+    x 64) and LayerNorms (4096 x 768), bf16, through the port's
+    dispatch."""
+    import torch
+
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.ops.attention import flash_attention
+
+    bf16 = torch.bfloat16
+    rng = np.random.RandomState(DEPLOY_SEED + 4)
+    q = torch.as_tensor(rng.randn(2, 512, 12, 64).astype(np.float32),
+                        device=dev).to(bf16)
+    x = torch.as_tensor(rng.randn(4096, 768).astype(np.float32),
+                        device=dev).to(bf16)
+    w, b = torch.ones(768, device=dev, dtype=bf16), \
+        torch.zeros(768, device=dev, dtype=bf16)
+
+    def work():
+        for _ in range(C12_CALLS):
+            flash_attention(q, q, q, is_causal=True)
+            F.layer_norm(x, [768], w, b)
+
+    return work
+
+
+def c12_control_phase(dev):
+    """ROADMAP C12's control (``python3 chip_smoke.py c12_control``):
+    the experiment's windows at the full run's process age
+    (``C12_CONTROL_AGE_S``) in a process that opened no profiler before
+    them.  The process runs the exactness phases, which open none, then
+    the workload eagerly and by CUDA-graph replays until that age; every
+    start of a ``torch.profiler.profile`` is counted from the process's
+    start, and the first four windows go through ``torch.profiler``
+    directly, the port's ``Profiler`` only after them."""
+    import torch
+
+    starts = [0]
+    start = torch.profiler.profile.start
+
+    def counted_start(self):
+        starts[0] += 1
+        return start(self)
+
+    torch.profiler.profile.start = counted_start
+    exactness_phase(dev)
+    int8_exactness_phase(dev)
+    fmt_exactness_phase(dev)
+    graphs_phase(dev)
+    torch.cuda.empty_cache()
+    work = _c12_workload(dev)
+    graph = _graph(work)
+    calls = 0
+    while time.perf_counter() - _T0 < C12_CONTROL_AGE_S:
+        work()
+        for _ in range(10):
+            graph.replay()
+        torch.cuda.synchronize(dev)
+        calls += 11
+    del graph
+    say("c12_control", profiler_starts_before_windows=starts[0],
+        workload_runs=calls, process_age_s=time.perf_counter() - _T0)
+    if starts[0]:
+        raise RuntimeError(f"c12_control: {starts[0]} profiler windows "
+                           f"opened before the control's")
+    return c12_windows_phase(dev, "c12_control", port_from=4)
+
+
+def deploy_phases(dev, smi):
+    """The deployment slice (``python3 chip_smoke.py deploy``): the
+    float16 kernel rows, float16 serving behind ``PredictorServer``, the
+    float16 FusedMultiTransformer, the IR passes, the ViT predictor and
+    C12's profiler windows.  Returns {kernel: main-path launches}."""
+    fp16_kernel_phase(dev)
+    launches = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    import torch
+
+    add(fp16_serving_phase(dev, smi))
+    torch.cuda.empty_cache()
+    add({"decode_attention": fmt_fp16_phase(dev)})
+    torch.cuda.empty_cache()
+    add(ir_passes_phase(dev, smi))
+    torch.cuda.empty_cache()
+    add(predictor_phase(dev, smi))
+    torch.cuda.empty_cache()
+    c12_windows_phase(dev, "deploy")
+    say("deploy_launches", launches=launches)
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "paddle_tpu_torch")):
         raise SystemExit("chip_smoke: run from a checkout that holds "
@@ -8059,6 +8953,14 @@ def main():
     if sys.argv[1:] == ["train_features"]:
         build_phase()
         train_features_phases(dev, smi)
+        return
+    if sys.argv[1:] == ["deploy"]:
+        build_phase()
+        deploy_phases(dev, smi)
+        return
+    if sys.argv[1:] == ["c12_control"]:
+        build_phase()
+        c12_control_phase(dev)
         return
     if sys.argv[1:] == ["ops"]:
         build_phase()
@@ -8178,6 +9080,13 @@ def main():
     for kernel, n in train_features_phases(dev, smi).items():
         launches[kernel] += n
     lap("train_features")
+    torch.cuda.empty_cache()
+    # and the deployment slice: f16 serving (B1, B5), the f16 FMT and the
+    # decode pass (B6), the IR passes' step (B2, B3, B4a, B4b) and the
+    # predictor (B2, B4a), each counted alone
+    for kernel, n in deploy_phases(dev, smi).items():
+        launches[kernel] += n
+    lap("deploy")
     tooling_phase(dev, smi)
     lap("tooling")
     for rec in records:

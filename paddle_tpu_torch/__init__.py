@@ -14,8 +14,8 @@ grad modes, the creation and random functions, every registered op,
 ``grad``, ``nn``, ``optimizer``, ``amp``, ``jit``, ``save``/``load``,
 ``io``, ``metric``, ``vision``, ``linalg``, ``fft``, ``signal``, ``audio``,
 ``text``, ``profiler``, ``incubate``, ``sparse``, ``distribution``,
-``geometric``, ``strings``, the tensor-array functions and the
-high-level
+``geometric``, ``strings``, the tensor-array functions, ``static``,
+``quantization``, ``inference``, ``version`` and the high-level
 ``Model`` (``hapi``) with ``summary`` and ``flops``.
 
 The port imports ``torch`` and ``numpy`` only — never ``jax`` and
@@ -146,6 +146,9 @@ from . import sparse  # noqa: F401, E402
 from . import distribution  # noqa: F401, E402
 from . import geometric  # noqa: F401, E402
 from . import strings  # noqa: F401, E402
+from . import static  # noqa: F401, E402
+from . import quantization  # noqa: F401, E402
+from . import version  # noqa: F401, E402
 from .tensor_array import (  # noqa: F401, E402
     TensorArray,
     array_length,
@@ -161,8 +164,8 @@ def disable_static(place=None):
 
 def enable_static():
     raise NotImplementedError(
-        "paddle_tpu_torch has no ProgramDesc static mode; jit.to_static "
-        "waits for A23b.")
+        "paddle_tpu_torch has no ProgramDesc static mode; use "
+        "paddle_tpu_torch.jit.to_static to compile functions/Layers.")
 
 
 def is_tensor(x):

@@ -24,6 +24,7 @@ import copy
 import numpy as np
 import torch
 
+from ..framework import mode
 from ..framework.device import Place, _torch_device, current_device, place_of
 from ..framework.dtype import convert_dtype, dtype_name, get_default_dtype
 
@@ -155,6 +156,7 @@ class Tensor:
         """A numpy copy of the value: the optimizers update parameters in
         place, so a view would change under the caller (a JAX array
         never does)."""
+        _trace_guard(self)
         d = self._data.detach()
         if d.dtype == torch.bfloat16:
             raise TypeError("numpy has no bfloat16: cast the Tensor to "
@@ -177,15 +179,18 @@ class Tensor:
         return arr.astype(dtype) if dtype is not None else arr
 
     def __float__(self):
+        _trace_guard(self)
         return float(self.item())
 
     def __int__(self):
+        _trace_guard(self)
         return int(self.item())
 
     def __bool__(self):
         if self.size != 1:
             raise ValueError(
                 "The truth value of a multi-element Tensor is ambiguous")
+        _trace_guard(self)
         return bool(self._data.item())
 
     def __len__(self):
@@ -367,6 +372,15 @@ class _KeepGraph(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+def _trace_guard(t):
+    """Data-dependent Python control flow inside ``jit.to_static``: the
+    value is traced, so a host read would bake one branch into the
+    graph.  Raises the JAX package's TypeError (dy2static converts the
+    ``if``/``while`` statements it can)."""
+    if mode.is_traced(t):
+        raise TypeError(mode.TRACE_GUARD_MESSAGE)
 
 
 def _wrap(t):

@@ -37,7 +37,8 @@
 // Needs: Nq % Nkv == 0, G <= 16, D % 8 == 0 and D <= 128, any S_max >= 1,
 // num_splits * kChunk >= S_max,
 // contiguous 16-byte aligned q and caches.  q, caches and output share
-// one type, f32 or bf16; accumulation f32.
+// one type, f32, bf16 or f16; accumulation, the split partials and the
+// softmax statistics f32.
 
 #include "kernel_info.cuh"
 #include "split_decode.cuh"
@@ -193,10 +194,13 @@ extern "C" int decode_attention_info(int dtype, int batch, int num_q_heads,
   if (dtype == 1)
     return info<__nv_bfloat16>(batch, num_q_heads, num_kv_heads, head_dim,
                                num_splits, out);
+  if (dtype == 2)
+    return info<__half>(batch, num_q_heads, num_kv_heads, head_dim,
+                        num_splits, out);
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, caches and output).  lengths is
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, caches and output).  lengths is
 // int32 [B].  part_acc (f32 [B, Nq, num_splits, D]) and part_ml (f32
 // [B, Nq, num_splits, 2]) are scratch the caller allocates; num_splits
 // is the host's split plan, at least ceil(S_max / 128).  Launches the
@@ -217,5 +221,9 @@ extern "C" int decode_attention(const void* q, const void* k_cache,
     return launch<__nv_bfloat16>(q, k_cache, v_cache, lengths, out, part_acc,
                                  part_ml, batch, s_max, num_q_heads,
                                  num_kv_heads, head_dim, num_splits, stream);
+  if (dtype == 2)
+    return launch<__half>(q, k_cache, v_cache, lengths, out, part_acc,
+                          part_ml, batch, s_max, num_q_heads, num_kv_heads,
+                          head_dim, num_splits, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -71,7 +71,8 @@
 // block_size >= 1, rows whose tokens lie within [0, T), num_splits *
 // kChunk >= P * bs.  Rows whose tokens overlap are outside the contract:
 // a token two rows claim reads one of their results, never memory no
-// kernel wrote.  q f32 or bf16; pools q's type or int8; accumulation f32.
+// kernel wrote.  q f32, bf16 or f16; pools q's type or int8; accumulation,
+// partials and softmax statistics f32.
 
 #include <algorithm>
 
@@ -139,10 +140,26 @@ __device__ __forceinline__ int find_tile(int x,
   return first;
 }
 
+// The blocks an SM the split kernel's launch bounds ask ptxas for (0:
+// none asked, its default of 128 registers).  At DL 4 (D > 64) the
+// default spills 16-28 bytes; one block an SM gives the four
+// accumulators a lane the 168-178 registers they need and, over pools
+// of q's type, times 3-4% faster.  Over int8 pools the default times
+// 22-29% faster at decode than one block, spill and all, so f32 and
+// bf16 q keep it there; f16 q takes one block there too, because the
+// float16 instances are held to no spill.
+template <typename T, typename KV, int DL>
+constexpr int split_min_blocks() {
+  return DL == 4 && (!std::is_same<KV, int8_t>::value ||
+                     std::is_same<T, __half>::value)
+             ? 1
+             : 0;
+}
+
 // T: q and output type.  KV: pool type, T itself or int8_t; with int8
 // the scale pools are read, otherwise they are null and never touched.
 template <typename T, typename KV, int DL>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, split_min_blocks<T, KV, DL>())
 ragged_split_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
                     const KV* __restrict__ v_pages,
                     const float* __restrict__ k_scales,
@@ -355,14 +372,20 @@ extern "C" int paged_ragged_attention_info(int quant, int dtype,
     return info<__nv_bfloat16, int8_t>(num_tokens, num_rows, num_q_heads,
                                        num_kv_heads, head_dim, num_splits,
                                        out);
+  if (dtype == 2 && !quant)
+    return info<__half, __half>(num_tokens, num_rows, num_q_heads,
+                                num_kv_heads, head_dim, num_splits, out);
+  if (dtype == 2 && quant)
+    return info<__half, int8_t>(num_tokens, num_rows, num_q_heads,
+                                num_kv_heads, head_dim, num_splits, out);
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and output).  part_acc (f32
-// [slots, Nq, num_splits, D]) and part_ml (f32 [slots, Nq, num_splits,
-// 2]) are scratch the caller allocates, num_slots >= T or >= R * (16 /
-// G) of them (see "Partials" above); num_splits is the host's split plan,
-// at least ceil(P * bs / 128).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, pools and output).
+// part_acc (f32 [slots, Nq, num_splits, D]) and part_ml (f32 [slots, Nq,
+// num_splits, 2]) are scratch the caller allocates, num_slots >= T or >=
+// R * (16 / G) of them (see "Partials" above); num_splits is the host's
+// split plan, at least ceil(P * bs / 128).
 // Launches the split kernel and the combine on ``stream`` and returns
 // cudaGetLastError() (0 on success); never synchronises.
 extern "C" int paged_ragged_attention(
@@ -380,6 +403,12 @@ extern "C" int paged_ragged_attention(
         num_splits, num_slots, stream);
   if (dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, block_tables, row_start,
+        row_qlen, row_pos0, out, part_acc, part_ml, num_tokens, num_rows,
+        pages_per_row, num_q_heads, num_kv_heads, head_dim, block_size,
+        num_splits, num_slots, stream);
+  if (dtype == 2)
+    return launch<__half, __half>(
         q, k_pages, v_pages, nullptr, nullptr, block_tables, row_start,
         row_qlen, row_pos0, out, part_acc, part_ml, num_tokens, num_rows,
         pages_per_row, num_q_heads, num_kv_heads, head_dim, block_size,
@@ -405,6 +434,12 @@ extern "C" int paged_ragged_attention_quant(
         num_splits, num_slots, stream);
   if (dtype == 1)
     return launch<__nv_bfloat16, int8_t>(
+        q, k_pages, v_pages, k_scales, v_scales, block_tables, row_start,
+        row_qlen, row_pos0, out, part_acc, part_ml, num_tokens, num_rows,
+        pages_per_row, num_q_heads, num_kv_heads, head_dim, block_size,
+        num_splits, num_slots, stream);
+  if (dtype == 2)
+    return launch<__half, int8_t>(
         q, k_pages, v_pages, k_scales, v_scales, block_tables, row_start,
         row_qlen, row_pos0, out, part_acc, part_ml, num_tokens, num_rows,
         pages_per_row, num_q_heads, num_kv_heads, head_dim, block_size,

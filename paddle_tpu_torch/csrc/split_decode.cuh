@@ -50,6 +50,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -112,11 +113,15 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half(x);
 }
 
 // four consecutive elements of a shared row as f32
@@ -128,6 +133,12 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+}
+__device__ __forceinline__ void load4(const __half* p, float* o) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
   o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
 }
 __device__ __forceinline__ void load4(const int8_t* p, float* o) {
@@ -151,6 +162,15 @@ __device__ __forceinline__ void load_n(const __nv_bfloat16* p, float* o) {
     load4(p, o);
   } else {
     const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    o[0] = a.x; o[1] = a.y;
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_n(const __half* p, float* o) {
+  if constexpr (N == 4) {
+    load4(p, o);
+  } else {
+    const float2 a = __half22float2(*reinterpret_cast<const __half2*>(p));
     o[0] = a.x; o[1] = a.y;
   }
 }

@@ -237,6 +237,10 @@ def span(counts, blocks, tile, stride=None, lead=None):
         np.add.at(rows, (slice(None), idx), 1)
 
 
+# the split kernels' element-type names (f32 for anything else)
+_SPLIT_DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
 def _ragged_plan(q, k_pages, block_tables, quant=False):
     from ..ops.cuda import split_kv
 
@@ -250,7 +254,7 @@ def _ragged_plan(q, k_pages, block_tables, quant=False):
     tiles = min(t, -(-t // tile) + r - 1)
     per_t = -(-nq * d // SPLIT_THREADS)
     isz = 1 if quant else torch.empty((), dtype=qdt).element_size()
-    tdt = "bf16" if qdt == torch.bfloat16 else "f32"
+    tdt = _SPLIT_DTYPES.get(qdt, "f32")
     kv = "int8" if quant else tdt
     dl = 2 if d <= 64 else 4
 
@@ -289,7 +293,7 @@ def _decode_plan(q, k_cache):
     splits = split_kv.plan(s_max)
     per_b = -(-nq * d // SPLIT_THREADS)
     isz = torch.empty((), dtype=qdt).element_size()
-    tdt = "bf16" if qdt == torch.bfloat16 else "f32"
+    tdt = _SPLIT_DTYPES.get(qdt, "f32")
     dl = 2 if d <= 64 else 4
 
     def part_cover(counts, grid):

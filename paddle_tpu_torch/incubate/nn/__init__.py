@@ -39,8 +39,9 @@ from .functional import ragged_decode_attention
 __all__ = ["FusedMultiTransformer", "functional"]
 
 _DTYPES = {None: torch.float32, "float32": torch.float32,
-           "bfloat16": torch.bfloat16, torch.float32: torch.float32,
-           torch.bfloat16: torch.bfloat16}
+           "bfloat16": torch.bfloat16, "float16": torch.float16,
+           torch.float32: torch.float32, torch.bfloat16: torch.bfloat16,
+           torch.float16: torch.float16}
 
 
 def _layernorm(x, w, b, eps):
@@ -134,7 +135,8 @@ class FusedMultiTransformer:
 
     ``device=None`` runs on CUDA and raises when it is missing;
     ``device="cpu"`` runs the plain PyTorch path.  ``dtype`` (float32 by
-    default, or bfloat16) is the params', activations' and caches'.
+    default, bfloat16 or float16) is the params', activations' and
+    caches'.
     ``decode_steps`` counts the one-token steps run so far.  On CUDA each
     batch size's first decode step captures the step as a CUDA graph and
     later ones replay it.
@@ -142,8 +144,8 @@ class FusedMultiTransformer:
 
     def __init__(self, model, max_length=1024, dtype=None, device=None):
         if dtype not in _DTYPES:
-            raise ValueError(f"dtype must be float32 or bfloat16, "
-                             f"got {dtype!r}")
+            raise ValueError(f"dtype must be float32, bfloat16 or "
+                             f"float16, got {dtype!r}")
         self.device = resolve_device(device)
         self.dtype = _DTYPES[dtype]
         d = model.functional_decompose()

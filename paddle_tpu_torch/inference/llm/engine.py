@@ -193,8 +193,9 @@ _A20B = ("is not ported yet for tensor_parallel > 1: it comes with A20b "
 # with their sink, the page views of them, and the int8 pool's scales
 _Pools = namedtuple("_Pools", "k_rows v_rows kc vc ks_flat vs_flat ks vs")
 _DTYPES = {None: torch.float32, "float32": torch.float32,
-           "bfloat16": torch.bfloat16, torch.float32: torch.float32,
-           torch.bfloat16: torch.bfloat16}
+           "bfloat16": torch.bfloat16, "float16": torch.float16,
+           torch.float32: torch.float32, torch.bfloat16: torch.bfloat16,
+           torch.float16: torch.float16}
 
 
 def alloc_pools(num_layers, num_blocks, block_size, num_heads, head_dim,
@@ -514,7 +515,8 @@ class LLMEngine:
 
     ``device=None`` runs on CUDA and raises when it is missing;
     ``device="cpu"`` runs the plain PyTorch path.  ``dtype`` is float32
-    (default) or bfloat16 for the params, activations and pools.
+    (default), bfloat16 or float16 for the params, activations and
+    pools.
     ``seed=`` seeds the engine sampling stream (temperature > 0); a
     request's own ``seed=`` gives it an independent stream.
 
@@ -652,8 +654,8 @@ class LLMEngine:
         self._staged_epoch = -1
 
         if dtype not in _DTYPES:
-            raise ValueError(f"dtype must be float32 or bfloat16, "
-                             f"got {dtype!r}")
+            raise ValueError(f"dtype must be float32, bfloat16 or "
+                             f"float16, got {dtype!r}")
         self.device = devices[0]
         self.dtype = _DTYPES[dtype]
         # int8 serving: weight-only int8 GEMM and/or the int8 KV pool
@@ -2092,7 +2094,8 @@ class LLMEngine:
         in ``block_ids`` order: an index select on the device, then a
         synchronous copy of just those rows (queued after the step in
         flight, complete before the payload is stored).  bfloat16 pages
-        travel as their int16 bit patterns (numpy has no bfloat16)."""
+        travel as their int16 bit patterns (numpy has no bfloat16);
+        float16 pages as numpy float16."""
         idx = torch.as_tensor(np.asarray(block_ids, np.int64),  # noqa: H001 (block ids are a host list)
                               device=pool.device)
         sel = pool[:, idx].cpu()  # noqa: H001 (tier / migration page moves are synchronous host copies by design)

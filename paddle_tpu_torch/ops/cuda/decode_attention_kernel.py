@@ -40,7 +40,7 @@ launches = 0
 _NAME = "decode_attention"
 _MAX_G = 16       # kRows in split_decode.cuh
 _MAX_D = 128      # kMaxD in split_decode.cuh
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fn = None
 
 
@@ -108,7 +108,7 @@ def _check(q, k_cache, v_cache, lengths):
             raise ValueError(f"{name} must be contiguous")
     if q.dtype not in _DTYPES:
         raise ValueError(f"q dtype {q.dtype} not supported "
-                         f"(float32 or bfloat16)")
+                         f"(float32, bfloat16 or float16)")
     if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise ValueError(f"q, k_cache and v_cache must share one dtype, got "
                          f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype}")

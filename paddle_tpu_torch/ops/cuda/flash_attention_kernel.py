@@ -1,10 +1,11 @@
 """Flash attention, forward and backward — the hand-written CUDA kernels'
-wrappers and the autograd function that joins them.
+wrappers and the op whose registered gradient joins them.
 
 The kernels (``csrc/flash_attention.cu``) replace the JAX package's
 Pallas kernels ``ops/pallas/attention_kernel.py``: ``_flash_fwd`` (B2)
 and the two passes of ``_flash_bwd`` (B3a dq, B3b dk/dv), wired there
-as a ``jax.custom_vjp`` and here as a ``torch.autograd.Function``.
+as a ``jax.custom_vjp`` and here as the forward op's registered
+autograd, which saves ``q, k, v, out, lse``.
 The public layout is ``flash_attention_pallas``'s ``[B, S, N, H]``;
 q, k and v are read in place through their strides (the last dim
 contiguous), so the views of a ``[B, S, 3, N, H]`` projection cost no
@@ -25,9 +26,10 @@ the backward kernels take them (``flash_bwd_plain``).
 
 The forward and the backward pair are also the ``torch.library`` ops
 ``paddle_tpu_torch::flash_attention_fwd`` and ``..._bwd``
-(:data:`flash_fwd_op`, :data:`flash_bwd_op`), which the autograd
-function calls: the wrappers on CUDA tensors, the plain versions on CPU
-ones, fakes for their shapes.  :func:`flash_fwd_cost` and
+(:data:`flash_fwd_op`, :data:`flash_bwd_op`): the wrappers on CUDA
+tensors, the plain versions on CPU ones, fakes for their shapes.  The
+forward op's gradient calls the backward op, so one backward serves the
+eager entry :func:`flash_attention_cuda` and a traced program alike.  :func:`flash_fwd_cost` and
 :func:`flash_bwd_cost` price a call.
 """
 
@@ -176,36 +178,14 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal, scale):
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """The ``jax.custom_vjp`` of ``attention_kernel.py:259-351``: the
-    forward kernel saves ``q, k, v, out, lse``; the backward launches
-    the dq and dk/dv kernels from them."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_fwd_op(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        if dout.stride(-1) != 1 and dout.shape[-1] > 1:
-            dout = dout.contiguous()
-        dq, dk, dv = flash_bwd_op(q, k, v, out, lse, dout, ctx.causal,
-                                  ctx.scale)
-        return dq, dk, dv, None, None
-
-
 def flash_attention_cuda(q, k, v, is_causal=False):
     """Differentiable flash attention on CUDA tensors [B, S, N, H] with
     scale 1/sqrt(H); raises for anything the kernels do not take (the
     ops would run their plain versions on CPU tensors: this entry is the
     kernels')."""
     _check({"q": q, "k": k, "v": v}, is_causal, seq_k_names=("k", "v"))
-    return FlashAttention.apply(q, k, v, bool(is_causal),
-                                1.0 / math.sqrt(q.shape[-1]))
+    return flash_fwd_op(q, k, v, bool(is_causal),
+                        1.0 / math.sqrt(q.shape[-1]))[0]
 
 
 # ------------------------------------------------------- plain versions --
@@ -273,6 +253,28 @@ def _flash_fwd_fake(q, k, v, causal, scale):
 def _flash_bwd_fake(q, k, v, out, lse, dout, causal, scale):
     return tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
                  for x in (q, k, v))
+
+
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _flash_fwd_backward(ctx, dout, dlse):
+    # the ``jax.custom_vjp`` of ``attention_kernel.py:259-351``: B3 from
+    # the out and lse the forward saved (lse carries no gradient)
+    q, k, v, out, lse = ctx.saved_tensors
+    if dout.stride(-1) != 1 and dout.shape[-1] > 1:
+        dout = dout.contiguous()
+    dq, dk, dv = flash_bwd_op(q, k, v, out, lse, dout, ctx.causal,
+                              ctx.scale)
+    return dq, dk, dv, None, None
+
+
+flash_fwd_op.register_autograd(_flash_fwd_backward,
+                               setup_context=_flash_fwd_setup)
 
 
 # ----------------------------------------------------------------- cost --

@@ -1,11 +1,11 @@
 """Row LayerNorm, forward and backward — the hand-written CUDA kernels'
-wrappers and the autograd function that joins them.
+wrappers and the op whose registered gradient joins them.
 
 The kernels (``csrc/layernorm.cu``) replace the JAX package's Pallas
 kernels ``ops/pallas/layernorm_kernel.py``: ``_ln_fwd`` (B4a) and
-``_ln_bwd`` (B4b), wired there as a ``jax.custom_vjp`` and here as a
-``torch.autograd.Function`` that saves ``x, gamma, mu, rstd`` and
-returns dgamma/dbeta cast to gamma's dtype.  The backward's row pass
+``_ln_bwd`` (B4b), wired there as a ``jax.custom_vjp`` and here as the
+forward op's registered autograd, which saves ``x, gamma, mu, rstd``
+and returns dgamma/dbeta cast to gamma's dtype.  The backward's row pass
 runs in one wave (:func:`bwd_plan`), each block writing one f32 partial
 row of dgamma and dbeta that a second kernel sums in a fixed order, so
 they are deterministic.  Rows up to ``NARROW_C`` columns are a warp's;
@@ -21,8 +21,10 @@ are built on ``layer_norm_plain``, the composition that
 
 The forward and the backward are also the ``torch.library`` ops
 ``paddle_tpu_torch::layernorm_fwd`` and ``..._bwd`` (:data:`ln_fwd_op`,
-:data:`ln_bwd_op`), which the autograd function calls: the launches on
-CUDA tensors, the plain versions on CPU ones, fakes for their shapes.
+:data:`ln_bwd_op`): the launches on CUDA tensors, the plain versions on
+CPU ones, fakes for their shapes.  The forward op's gradient calls the
+backward op, so one backward serves the eager entry
+:func:`layernorm_cuda` and a traced program alike.
 An op's outputs may not alias one another, so the backward op returns
 dgamma and dbeta as the one f32 ``[2, C]`` tensor the kernel writes.
 :func:`ln_fwd_cost` and :func:`ln_bwd_cost` price a call.
@@ -216,25 +218,6 @@ def _layernorm_bwd_launch(x2d, gamma, mu, rstd, dy):
     return dx, dgdb
 
 
-class LayerNorm(torch.autograd.Function):
-    """The ``jax.custom_vjp`` of ``layernorm_kernel.py:127-145``."""
-
-    @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
-        x2d = x.reshape(-1, x.shape[-1]).contiguous()
-        y, mu, rstd = ln_fwd_op(x2d, gamma, beta, eps)
-        ctx.save_for_backward(x2d, gamma, mu, rstd)
-        return y.view(x.shape)
-
-    @staticmethod
-    def backward(ctx, dy):
-        x2d, gamma, mu, rstd = ctx.saved_tensors
-        dx, dgdb = ln_bwd_op(x2d, gamma, mu, rstd,
-                             dy.reshape(x2d.shape).contiguous())
-        return (dx.view(dy.shape), dgdb[0].to(gamma.dtype),
-                dgdb[1].to(gamma.dtype), None)
-
-
 def layernorm_cuda(x, gamma, beta, eps=1e-5):
     """Differentiable LayerNorm over the last dim on CUDA tensors; raises
     for anything the kernels do not take (the ops would run their plain
@@ -242,7 +225,9 @@ def layernorm_cuda(x, gamma, beta, eps=1e-5):
     for name, t in (("x", x), ("gamma", gamma), ("beta", beta)):
         if not isinstance(t, torch.Tensor) or not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
-    return LayerNorm.apply(x, gamma, beta, float(eps))
+    y, _, _ = ln_fwd_op(x.reshape(-1, x.shape[-1]).contiguous(), gamma, beta,
+                        float(eps))
+    return y.view(x.shape)
 
 
 # ------------------------------------------------------- plain versions --
@@ -329,6 +314,23 @@ def _ln_fwd_fake(x2d, gamma, beta, eps):
 def _ln_bwd_fake(x2d, gamma, mu, rstd, dy):
     return (torch.empty_like(x2d),
             x2d.new_empty((2, x2d.shape[1]), dtype=torch.float32))
+
+
+def _ln_fwd_setup(ctx, inputs, output):
+    x2d, gamma, _, _ = inputs
+    _, mu, rstd = output
+    ctx.save_for_backward(x2d, gamma, mu, rstd)
+
+
+def _ln_fwd_backward(ctx, dy, dmu, drstd):
+    # the ``jax.custom_vjp`` of ``layernorm_kernel.py:127-145``: B4b from
+    # the row stats the forward saved (they carry no gradient)
+    x2d, gamma, mu, rstd = ctx.saved_tensors
+    dx, dgdb = ln_bwd_op(x2d, gamma, mu, rstd, dy.contiguous())
+    return dx, dgdb[0].to(gamma.dtype), dgdb[1].to(gamma.dtype), None
+
+
+ln_fwd_op.register_autograd(_ln_fwd_backward, setup_context=_ln_fwd_setup)
 
 
 # ----------------------------------------------------------------- cost --

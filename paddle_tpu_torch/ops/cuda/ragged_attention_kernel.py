@@ -54,7 +54,7 @@ quant_launches = 0
 
 _NAME = "ragged_attention"
 _MAX_D = 128      # kMaxD in split_decode.cuh
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fns = {}
 
 
@@ -62,7 +62,7 @@ def supports(block_size, head_dim, num_q_heads, num_kv_heads, total_tokens):
     """What the CUDA kernel itself needs: any token count and page size,
     whole GQA groups of at most 16 query heads per kv head, and a
     head_dim that is a multiple of 8 up to 128 (rows load 8 elements at
-    a time: 16-byte loads of f32/bf16, 8-byte loads of int8 — the same
+    a time: 16-byte loads of f32/bf16/f16, 8-byte loads of int8 — the same
     rule for both entries).  The TPU kernel's ``T % 8`` and
     ``block_size % 8`` tiling rules do not apply."""
     return (total_tokens >= 1 and block_size >= 1 and num_kv_heads >= 1
@@ -105,7 +105,7 @@ def _check(q, k_pages, v_pages, block_tables, row_start, row_qlen,
             raise ValueError(f"{name} must be contiguous")
     if q.dtype not in _DTYPES:
         raise ValueError(f"q dtype {q.dtype} not supported "
-                         f"(float32 or bfloat16)")
+                         f"(float32, bfloat16 or float16)")
     pool_dtype = q.dtype if scales is None else torch.int8
     if k_pages.dtype != pool_dtype or v_pages.dtype != pool_dtype:
         raise ValueError(f"k_pages and v_pages must be {pool_dtype} "
@@ -188,7 +188,7 @@ def paged_ragged_attention_quant_cuda(q, k_pages, v_pages, k_scales,
                                       v_scales, block_tables, row_start,
                                       row_qlen, row_pos0):
     """The int8-pool twin: ``k_pages``/``v_pages`` int8 [NB, bs, Nkv, D],
-    ``k_scales``/``v_scales`` f32 [NB, Nkv, bs]; q f32 or bf16 ->
+    ``k_scales``/``v_scales`` f32 [NB, Nkv, bs]; q f32, bf16 or f16 ->
     [T, Nq, D] in q's dtype.  Raises as the full-precision entry does;
     never falls back."""
     global quant_launches

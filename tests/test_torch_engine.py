@@ -43,6 +43,8 @@ import paddle_tpu.vision.datasets as jax_vision_datasets
 import paddle_tpu.core.native as jax_native
 import paddle_tpu.strings as jax_strings
 import paddle_tpu.geometric as jax_geometric
+import paddle_tpu.inference.serving as jax_serving
+import paddle_tpu.version as jax_version
 import paddle_tpu.io.sampler as jax_sampler
 import paddle_tpu.linalg as jax_linalg_ns
 import paddle_tpu.nn.pooling as jax_pooling
@@ -85,6 +87,8 @@ import paddle_tpu_torch.vision.datasets as port_vision_datasets
 import paddle_tpu_torch.core.native as port_native
 import paddle_tpu_torch.strings as port_strings
 import paddle_tpu_torch.geometric as port_geometric
+import paddle_tpu_torch.inference.serving as port_serving
+import paddle_tpu_torch.version as port_version
 import paddle_tpu_torch.io.sampler as port_sampler
 import paddle_tpu_torch.linalg as port_linalg_ns
 import paddle_tpu_torch.nn.pooling as port_pooling
@@ -434,7 +438,8 @@ def test_default_device_needs_cuda(models, monkeypatch):
     (jax_callbacks, port_callbacks),
     (jax_vision_datasets, port_vision_datasets),
     (jax_native, port_native), (jax_strings, port_strings),
-    (jax_geometric, port_geometric)])
+    (jax_geometric, port_geometric), (jax_serving, port_serving),
+    (jax_version, port_version)])
 def test_host_modules_are_verbatim_copies(jax_mod, port_mod):
     assert inspect.getsource(port_mod) == inspect.getsource(jax_mod)
 

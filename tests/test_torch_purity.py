@@ -56,6 +56,11 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import paddle_tpu_torch.framework.kernel_lint\n"
         "import paddle_tpu_torch.framework.concurrency_lint\n"
         "import paddle_tpu_torch.core.tensor, paddle_tpu_torch.autograd\n"
+        "import paddle_tpu_torch.quantization, paddle_tpu_torch.static\n"
+        "import paddle_tpu_torch.jit.dy2static\n"
+        "import paddle_tpu_torch.jit.save_load\n"
+        "import paddle_tpu_torch.framework.ir, paddle_tpu_torch.version\n"
+        "import paddle_tpu_torch.inference.serving\n"
         "import paddle_tpu_torch.ops.dispatch, paddle_tpu_torch.ops.registry\n"
         "import paddle_tpu_torch.ops.creation, paddle_tpu_torch.ops.math\n"
         "import paddle_tpu_torch.ops.manipulation, paddle_tpu_torch.ops.logic\n"

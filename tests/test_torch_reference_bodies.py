@@ -12,6 +12,12 @@ speedup from compiling cannot hold where eager torch compiles nothing
 ``NOT_PORTED`` with the reason, and ROADMAP "Not ported by design"
 names them.
 
+The deployment slice's bodies (``DEPLOY``: quantization, dy2static,
+``to_static``, ``jit.save``/``load``, the predictor, its server and the
+C client) run by file, class or function name; a body that needs a
+module-level pytest fixture gets it, set up and torn down around the
+body.
+
 The speech path's, the zoo's, datasets' and ``text``'s slice of three
 more files (``SLICE``) runs by class and function name: the
 ``test_api_longtail.py`` bodies in the default tier, the
@@ -24,6 +30,7 @@ drive earlier slices' models, held by those slices' own tests.
 import inspect
 import os
 import re
+import sys
 import types
 
 import numpy as np
@@ -69,7 +76,7 @@ SLICE = {
                             "TestRound4VisionZoo"), True),
     "test_models_asr_ctr.py": (("TestConformer",), True),
 }
-_A23B5 = "waits for to_static and the export/cost tooling (ROADMAP A23b-5)"
+_A23B5 = "waits for the export/cost tooling (ROADMAP A23b-5b)"
 _A23B6 = "waits for the parameter server and SPMD trainer (ROADMAP A23b-6)"
 SLICE_NOT_PORTED = {
     "test_models_asr_ctr.py::TestConformer::test_jits_whole_model": _A23B5,
@@ -118,11 +125,7 @@ FEATURES = {
     "test_jit.py": ("TestCompiledGradScaler",),
     "test_io.py": ("TestAmp::test_grad_scaler_fp16_flow",),
 }
-_NEXT = "waits for quantization/, the next slice (ROADMAP A23b-4b)"
-_A23B5_STATIC = "waits for paddle.static and export (ROADMAP A23b-5)"
 FEATURES_NOT_PORTED = {
-    "test_namespaces_transforms.py::TestNamespaces::test_version":
-        "waits for version/ (ROADMAP A23b-5)",
     "test_namespaces_transforms.py::TestTransforms::"
     "test_exp_sigmoid_tanh_jacobians_match_autodiff":
         "differentiates the transforms with jax.vmap(jax.grad); held with "
@@ -133,31 +136,14 @@ FEATURES_NOT_PORTED = {
     "test_backward_create_graph_populates_differentiable_grad":
         "reads the JAX tape's GradNode (_node); the port's grad carries "
         "torch's grad_fn, held in test_torch_incubate.py",
-    "test_autograd.py::TestToStaticControlFlowGuard::"
-    "test_tensor_bool_under_trace_raises_clearly":
-        "waits for jit.to_static (ROADMAP A23b-5)",
     "test_api_surfaces.py::test_stft_istft_round_trip":
         "passes a jax array as the window; held with a torch window in "
         "test_torch_namespaces.py",
-    "test_api_surfaces.py::test_qat_fake_quant_runs_and_trains": _NEXT,
-    "test_api_surfaces.py::test_ptq_observe_and_convert": _NEXT,
-    "test_api_surfaces.py::test_static_save_load_inference_model":
-        _A23B5_STATIC,
-    "test_api_surfaces.py::test_static_program_guard_raises": _A23B5_STATIC,
-    "test_api_surfaces.py::test_input_spec": _A23B5_STATIC,
 }
-
-
-# names a reference file imports at its top that the port does not have
-# yet, dropped from that import line so the slice's bodies can run
-IMPORT_TRIM = {"test_jit.py": ("functional_call", "to_static")}  # A23b-5
 
 
 def _port_source(path):
     src = open(path).read()
-    for name in IMPORT_TRIM.get(os.path.basename(path), ()):
-        src = re.sub(rf"^(from paddle_tpu\.\w+ import .*), {name}\b",
-                     r"\1", src, flags=re.M)
     return re.sub(r"^(\s*(?:import|from)\s+)paddle_tpu\b(?!_torch)",
                   r"\1paddle_tpu_torch", src, flags=re.M)
 
@@ -165,6 +151,8 @@ def _port_source(path):
 def _load(name):
     mod = types.ModuleType(f"_port_{name[:-3]}")
     mod.__file__ = os.path.join(HERE, name)
+    # registered, so that pickle finds the classes a body defines
+    sys.modules[mod.__name__] = mod
     exec(compile(_port_source(mod.__file__), mod.__file__, "exec"),
          mod.__dict__)
     return mod
@@ -310,7 +298,9 @@ def test_reference_body(body, tmp_path):
 
 def test_the_feature_bodies_are_collected_whole():
     """Every body of the slice's selection is run or listed as not
-    ported, with the counts of ROADMAP A23b-3b and A23b-4."""
+    ported, with the counts of ROADMAP A23b-3b and A23b-4 (the seven
+    that waited for quantization/, static/, to_static and version/ run
+    since A23b-4b and A23b-5a)."""
     counts = {}
     for b in FEATURE_BODIES:
         counts[b.split("::")[0]] = counts.get(b.split("::")[0], 0) + 1
@@ -320,7 +310,7 @@ def test_the_feature_bodies_are_collected_whole():
                       "test_api_surfaces.py": 19, "test_jit.py": 2,
                       "test_io.py": 1}
     assert set(FEATURES_NOT_PORTED) <= set(FEATURE_BODIES)
-    assert len(FEATURE_RUN) == 83
+    assert len(FEATURE_RUN) == 90
 
 
 def _grid(fn):
@@ -345,6 +335,98 @@ def test_feature_reference_body(body, tmp_path):
     obj = getattr(mod, names[0])
     fn = getattr(obj(), names[1]) if len(names) == 2 else obj
     for kwargs in _grid(fn):
+        if "tmp_path" in inspect.signature(fn).parameters:
+            kwargs["tmp_path"] = tmp_path
+        paddle.seed(0)
+        np.random.seed(0)
+        fn(**kwargs)
+
+
+# The deployment slice's bodies (ROADMAP A23b-4b and A23b-5a):
+# quantization, dy2static and to_static, jit.save/load, the predictor,
+# PredictorServer and the native C client, and the fleet behind the
+# server.  Whole files (None) or the classes the slice ports.
+DEPLOY = {
+    "test_quantization_depth.py": None,
+    "test_dy2static.py": None,
+    "test_strings_static_cf.py": None,
+    "test_hapi_inference.py": None,
+    "test_infer_capi.py": None,
+    "test_jit.py": ("TestFunctionalCall", "TestToStatic"),
+    "test_fleet.py": ("TestFleetServing",),
+}
+_A23B5B_FORMAT = ("exports the reference ProgramDesc format (an InputSpec "
+                  "feed list); waits for the program exporter (ROADMAP "
+                  "A23b-5b)")
+DEPLOY_NOT_PORTED = {
+    "test_quantization_depth.py::TestConvertPipeline::"
+    "test_ptq_convert_to_int8_linear":
+        "compares Tensor.dtype with the string 'int8'; the port's is "
+        "torch.int8, held in test_torch_quantization.py",
+    "test_hapi_inference.py::test_predictor_serves_reference_format_"
+    "artifact": _A23B5B_FORMAT,
+    "test_hapi_inference.py::test_predictor_multi_feed_binds_by_name":
+        _A23B5B_FORMAT,
+    "test_hapi_inference.py::test_predictor_run_with_no_filled_feeds_"
+    "raises": _A23B5B_FORMAT,
+    **{f"test_fleet.py::TestFleetServing::{t}":
+       "builds gpt_tiny() and a Fleet on the default device, the card in "
+       "the port; held with device='cpu' in test_torch_inference.py"
+       for t in ("test_predictor_server_fleet_kwarg",
+                 "test_backend_kwarg_validation")},
+}
+DEPLOY_BODIES = [b for b in _bodies(tuple(DEPLOY))
+                 if _selected(b, DEPLOY[b.split("::")[0]])]
+DEPLOY_RUN = [b for b in DEPLOY_BODIES if b not in DEPLOY_NOT_PORTED]
+
+
+def test_the_deploy_bodies_are_collected_whole():
+    """Every body of the slice's selection is run or listed as not
+    ported, with the counts of ROADMAP A23b-4b and A23b-5a."""
+    counts = {}
+    for b in DEPLOY_BODIES:
+        counts[b.split("::")[0]] = counts.get(b.split("::")[0], 0) + 1
+    assert counts == {"test_quantization_depth.py": 8,
+                      "test_dy2static.py": 68,
+                      "test_strings_static_cf.py": 6,
+                      "test_hapi_inference.py": 10,
+                      "test_infer_capi.py": 5, "test_jit.py": 5,
+                      "test_fleet.py": 2}
+    assert set(DEPLOY_NOT_PORTED) <= set(DEPLOY_BODIES)
+    assert len(DEPLOY_RUN) == 98
+
+
+def _fixture_values(mod, fn, stack):
+    """The module-level pytest fixtures ``fn`` asks for, each set up
+    (a generator fixture runs to its yield; its teardown goes on
+    ``stack``)."""
+    kwargs = {}
+    for name in inspect.signature(fn).parameters:
+        fx = getattr(mod, name, None)
+        wrapped = getattr(getattr(fx, "__pytest_wrapped__", None), "obj",
+                          None)
+        if wrapped is None and hasattr(fx, "_get_wrapped_function"):
+            wrapped = fx._get_wrapped_function()
+        if wrapped is None:
+            continue
+        val = wrapped()
+        if inspect.isgenerator(val):
+            gen, val = val, next(val)
+            stack.callback(lambda g=gen: next(g, None))
+        kwargs[name] = val
+    return kwargs
+
+
+@pytest.mark.parametrize("body", DEPLOY_RUN)
+def test_deploy_reference_body(body, tmp_path):
+    import contextlib
+
+    fname, *names = body.split("::")
+    mod = _MODULES.get(fname) or _MODULES.setdefault(fname, _load(fname))
+    obj = getattr(mod, names[0])
+    fn = getattr(obj(), names[1]) if len(names) == 2 else obj
+    with contextlib.ExitStack() as stack:
+        kwargs = _fixture_values(mod, fn, stack)
         if "tmp_path" in inspect.signature(fn).parameters:
             kwargs["tmp_path"] = tmp_path
         paddle.seed(0)
