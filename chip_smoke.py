@@ -40,6 +40,12 @@ one NVIDIA GPU.
                                            # process age, no profiler
                                            # opened before it (~10 min;
                                            # no contract line)
+    python3 chip_smoke.py c12_control sessions N   # the same after N
+                                           # short torch.profiler sessions
+    python3 chip_smoke.py c12_control port N K     # and the port's
+                                           # Profiler after the K-th
+    python3 chip_smoke.py program          # only the program tooling
+                                           # (no contract line)
 
 Run from the root of a checkout on a machine with a CUDA GPU and the
 CUDA toolkit.  Phases, each printing its own lines; any failure raises
@@ -291,6 +297,23 @@ and the script exits non-zero:
               the attention's tail tile beyond the limit;
               profiler windows at this age of the process (ROADMAP C12)
               (``python3 chip_smoke.py deploy`` runs this group alone).
+16. program — ResNet-50 (f32) exported on the card through
+              ``save_inference_model`` with a dynamic batch (op counts),
+              loaded back and run at batch 1 and 64 against the eager
+              model, a control with one BatchNorm's epsilon changed;
+              GPT-124M on the card refused by the exporter by its
+              kernel's name; GPT-124M exported from a CPU copy, served by
+              ``create_predictor`` at 8 x 1024 and held to the eager
+              model on the card (B2, B4a), a control with one head blind
+              to its last 64 keys; 3 SGD steps of the imported program's
+              ``to_layer()`` at 4 x 1024, re-exported and reloaded;
+              ResNet-50 through
+              ONNX and the numpy runtime; B4a/B4b registered through
+              ``register_pallas_op`` (strict rule, bitwise), a C
+              extension's host op on a CUDA tensor; ``CostModel`` on the
+              card; the ``program`` lint on the GPT artifact, clean and
+              with a dead op (``python3 chip_smoke.py program`` runs this
+              group alone).
 
 The launches in the ``kernels`` line are those of each kernel's main
 path, each run with the counts at 0 just before and read just after:
@@ -307,7 +330,9 @@ op surface's attention entry points B2's and B3's, the speech path's
 and gpt_6_7b's, the training features' remat and fp16 steps B2's,
 B3's, B4a's and B4b's, and the deployment slice's f16 server run (B1),
 its int8-KV run (B5), the f16 FMT and the decode pass (B6), the IR
-passes' steps (B2, B3, B4a, B4b) and the predictor's runs (B2, B4a).
+passes' steps (B2, B3, B4a, B4b) and the predictor's runs (B2, B4a),
+and the program tooling's eager GPT-124M forward (B2, B4a) and its
+``register_pallas_op`` LayerNorm (B4a, B4b).
 The second-to-last
 line is that JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  The script imports only torch, numpy and the port.
@@ -2415,7 +2440,7 @@ def speculative_phase(dev, smi):
     the plain burst's or first leave it where the plain top-2 gap is
     within twice that (a flip needs the two logits' errors to cover the
     gap); lookahead runs the plain buckets and must equal it exactly.
-    Then the plain and lookahead engines' decode windows in six pairs of
+    Then the plain and lookahead engines' decode windows in four pairs of
     turns with the host split (``lookahead_ab``), and the n-gram engine
     behind ``HttpLLMServer`` for four streamed requests.  Returns B1's
     launches over the bursts and the server run."""
@@ -2472,12 +2497,12 @@ def speculative_phase(dev, smi):
         gc.collect()
         torch.cuda.empty_cache()
 
-    # lookahead against plain in six pairs of turns, which side first
+    # lookahead against plain in four pairs of turns, which side first
     # alternating, 8 decode rows at depth ~128-224: wall and device ms a
     # step, busy share and the host split
     ab = {"plain": [], "lookahead": []}
     order = (("plain", _STEP_PARTS), ("lookahead", _LOOKAHEAD_PARTS))
-    for pair in range(6):
+    for pair in range(4):
         for label, parts in order[::1 if pair % 2 == 0 else -1]:
             gc.collect()
             ab[label].append(_step_window(kept[label], dev, window_prompts,
@@ -5782,6 +5807,7 @@ def sim_phase(dev, smi, model):
 # two ranks on the one card: gloo carries their all-reduces through the
 # host, since NCCL refuses two ranks on one device
 _TP_MESH = ["cuda:0", "cuda:0"]
+TP_NEW = 32       # new tokens a request of the TP burst
 
 
 def _tp_launches(before, after):
@@ -5984,7 +6010,7 @@ def tp_serving_phase(dev, smi):
     greedy = list(rng.randint(0, 50257, 40))
     one = LLMEngine(model, device=dev, **_SERVE_ENGINE)
     one.warmup()
-    want, _c, _l, rec1 = _fleet_burst(one, dev)
+    want, _c, _l, rec1 = _fleet_burst(one, dev, new=TP_NEW)
     win1 = _tp_decode_window(one, dev, window)
     del one
     # what a process's cuBLAS workspaces hold in the caching allocator
@@ -6004,7 +6030,7 @@ def tp_serving_phase(dev, smi):
     warm = eng.warmup().compile_ms
     registry.reset_counts()
     s0 = eng._rank_stats()
-    got, _counts, launches, rec2 = _fleet_burst(eng, dev)
+    got, _counts, launches, rec2 = _fleet_burst(eng, dev, new=TP_NEW)
     s1 = eng._rank_stats()
     ranks = _tp_launches(s0, s1)
     expect = eng.num_layers * launches
@@ -8828,25 +8854,53 @@ def _c12_workload(dev):
     return work
 
 
-def c12_control_phase(dev):
-    """ROADMAP C12's control (``python3 chip_smoke.py c12_control``):
-    the experiment's windows at the full run's process age
-    (``C12_CONTROL_AGE_S``) in a process that opened no profiler before
-    them.  The process runs the exactness phases, which open none, then
-    the workload eagerly and by CUDA-graph replays until that age; every
-    start of a ``torch.profiler.profile`` is counted from the process's
-    start, and the first four windows go through ``torch.profiler``
-    directly, the port's ``Profiler`` only after them."""
+_PROFILER_STARTS = []
+
+
+def count_profiler_starts():
+    """Count every start of a ``torch.profiler.profile`` from now on
+    (the port's ``Profiler`` starts one too); returns the one-element
+    list that holds the count."""
     import torch
 
-    starts = [0]
-    start = torch.profiler.profile.start
+    if not _PROFILER_STARTS:
+        _PROFILER_STARTS.append(0)
+        start = torch.profiler.profile.start
 
-    def counted_start(self):
-        starts[0] += 1
-        return start(self)
+        def counted_start(self):
+            _PROFILER_STARTS[0] += 1
+            return start(self)
 
-    torch.profiler.profile.start = counted_start
+        torch.profiler.profile.start = counted_start
+    return _PROFILER_STARTS
+
+
+def c12_control_phase(dev, mode="control", sessions=0, port_after=0):
+    """ROADMAP C12's control and its two modes (``python3 chip_smoke.py
+    c12_control [sessions N | port N K]``): the experiment's windows at
+    the full run's process age (``C12_CONTROL_AGE_S``).  The process runs
+    the exactness phases, which open no profiler, then the workload
+    eagerly and by CUDA-graph replays until that age; every start of a
+    ``torch.profiler.profile`` is counted from the process's start.
+
+    - ``control``: no profiler before the windows; the first four
+      windows go through ``torch.profiler`` directly, the port's
+      ``Profiler`` only after them.
+    - ``sessions N`` (mode A): N short ``torch.profiler`` sessions, each
+      over one run of the workload, spread evenly over the ageing, and
+      no port ``Profiler`` before the windows (the first four windows
+      again through ``torch.profiler`` alone).
+    - ``port N K`` (mode B): the same N sessions, and the port's
+      ``Profiler(targets=[CPU, GPU])`` over three runs of the workload
+      after the K-th of them, where the full run opens it (its
+      ``profiler`` phase); the windows then alternate from the first,
+      as the full run's do."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import profiler
+
+    starts = count_profiler_starts()
     exactness_phase(dev)
     int8_exactness_phase(dev)
     fmt_exactness_phase(dev)
@@ -8854,20 +8908,43 @@ def c12_control_phase(dev):
     torch.cuda.empty_cache()
     work = _c12_workload(dev)
     graph = _graph(work)
-    calls = 0
+    calls, opened, port_opened = 0, 0, False
+    t_start = time.perf_counter() - _T0
+    span = max(C12_CONTROL_AGE_S - t_start, 1.0)
     while time.perf_counter() - _T0 < C12_CONTROL_AGE_S:
         work()
         for _ in range(10):
             graph.replay()
         torch.cuda.synchronize(dev)
         calls += 11
+        age = time.perf_counter() - _T0
+        while opened < sessions and \
+                age >= t_start + span * (opened + 1) / (sessions + 1):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]):
+                work()
+                torch.cuda.synchronize(dev)
+            opened += 1
+            calls += 1
+        if mode == "port" and not port_opened and opened >= port_after:
+            with profiler.Profiler(targets=[profiler.ProfilerTarget.CPU,
+                                            profiler.ProfilerTarget.GPU]):
+                for _ in range(3):
+                    work()
+                torch.cuda.synchronize(dev)
+            port_opened = True
+            calls += 3
     del graph
-    say("c12_control", profiler_starts_before_windows=starts[0],
-        workload_runs=calls, process_age_s=time.perf_counter() - _T0)
-    if starts[0]:
-        raise RuntimeError(f"c12_control: {starts[0]} profiler windows "
-                           f"opened before the control's")
-    return c12_windows_phase(dev, "c12_control", port_from=4)
+    say("c12_control", mode=mode, sessions=opened,
+        port_profiler_after=port_after if mode == "port" else None,
+        profiler_starts_before_windows=starts[0], workload_runs=calls,
+        process_age_s=time.perf_counter() - _T0)
+    want = sessions + (1 if mode == "port" else 0)
+    if starts[0] != want or opened != sessions:
+        raise RuntimeError(f"c12_control {mode}: {starts[0]} profiler "
+                           f"starts before the windows, {want} planned")
+    return c12_windows_phase(dev, f"c12_{mode}",
+                             port_from=0 if mode == "port" else 4)
 
 
 def deploy_phases(dev, smi):
@@ -8894,6 +8971,513 @@ def deploy_phases(dev, smi):
     torch.cuda.empty_cache()
     c12_windows_phase(dev, "deploy")
     say("deploy_launches", launches=launches)
+    return launches
+
+
+PROGRAM_SEED = 20
+RN50_RTOL = 1e-4        # imported ResNet-50 against the eager model, of
+                        # max|eager| (both f32 with TF32 off)
+GPT_IMPORT_ATOL = 1e-4  # imported GPT-124M logits against the eager
+                        # kernels' (compositions vs B2/B4a, f32): 17x
+                        # the sound reading 5.84e-6, 154x below the
+                        # blind-head control's 0.0154 (PERF.md, PR 20)
+GPT_BATCH, GPT_SEQ = 8, 1024
+# the imported program's sequence is the export's (its position lookup
+# folds to a 1024-row constant, as the JAX exporter folds its iota)
+FINETUNE_BATCH, FINETUNE_SEQ = 4, GPT_SEQ
+PROGRAM_RUNS = 3
+
+
+def _op_counts(prefix, kinds):
+    from paddle_tpu_torch.static.program_import import parse_program
+
+    with open(prefix + ".pdmodel", "rb") as f:
+        ops, _ = parse_program(f.read())
+    types = [o.type for o in ops]
+    return {k: types.count(k) for k in kinds}
+
+
+def _rel_top1(out, ref):
+    """(max |out - ref| / max |ref|, top-1 agreement over the last axis)
+    of two device tensors."""
+    err = float((out - ref).abs().max() / ref.abs().max())
+    top1 = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
+    return err, top1
+
+
+def export_resnet50_phase(dev, smi, tmp):
+    """ResNet-50 (eval, f32) exported on the card through
+    ``save_inference_model`` with a dynamic batch, loaded back on the
+    card and run at batch 1 and 64 against the eager model; a control
+    with one BatchNorm's epsilon changed must exceed ``RN50_RTOL``."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.vision.models import resnet50
+
+    paddle.seed(PROGRAM_SEED)
+    model = resnet50()
+    model.eval()
+    prefix = os.path.join(tmp, "resnet50")
+    t0 = time.perf_counter()
+    paddle.static.save_inference_model(
+        prefix, [InputSpec([None, 3, 224, 224], "float32", "x")], model)
+    export_s = time.perf_counter() - t0
+    counts = _op_counts(prefix, ("conv2d", "batch_norm", "pool2d",
+                                 "matmul_v2", "fill_constant", "rsqrt"))
+    t0 = time.perf_counter()
+    prog, feeds, fetches = paddle.static.load_inference_model(prefix)
+    load_s = time.perf_counter() - t0
+    rng = np.random.RandomState(PROGRAM_SEED)
+    rows = {}
+    with torch.no_grad():
+        for batch in (1, 64):
+            x = torch.as_tensor(rng.randn(batch, 3, 224, 224)
+                                .astype(np.float32), device=dev)
+            out = prog(x)[0]._data
+            ref = model(paddle.to_tensor(x))._data
+            rel, top1 = _rel_top1(out, ref)
+            rows[batch] = dict(
+                max_rel_err=rel, top1_agreement=top1,
+                imported_ms=_events_ms(lambda: prog(x)),
+                eager_ms=_events_ms(lambda: model(paddle.to_tensor(x))))
+        # the control: the first BatchNorm's epsilon 1e-5 -> 1e-1
+        bad, _, _ = paddle.static.load_inference_model(prefix)
+        bn = next(op for op in bad.body if op.type == "batch_norm")
+        bn.attrs["epsilon"] = 0.1
+        control, _ = _rel_top1(bad(x)[0]._data, ref)
+    say("export_resnet50", nvidia_smi=smi, export_s=export_s, load_s=load_s,
+        op_counts=counts, feeds=feeds, fetches=fetches, runs=rows,
+        rtol=RN50_RTOL, control_bn_epsilon_max_rel_err=control,
+        pdiparams_mb=os.path.getsize(prefix + ".pdiparams") / 1e6)
+    want = {"conv2d": 53, "batch_norm": 53, "pool2d": 2, "matmul_v2": 1,
+            "fill_constant": 0, "rsqrt": 0}
+    if counts != want:
+        raise RuntimeError(f"resnet50 export ops {counts} != {want}")
+    if not all(r["max_rel_err"] <= RN50_RTOL and r["top1_agreement"] == 1.0
+               for r in rows.values()) or not control > RN50_RTOL:
+        raise RuntimeError(f"imported resnet50 {rows} (limit {RN50_RTOL}, "
+                           f"control {control})")
+    for ext in (".pdmodel", ".pdiparams"):
+        os.remove(prefix + ext)
+
+
+def export_refuses_kernels_phase(dev, tmp):
+    """GPT-124M on the card: the export's trace holds the kernel ops,
+    and the exporter refuses by the kernel's name, nothing falling back
+    to the plain path."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.gpt import gpt_124m
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.static.program_export import \
+        export_reference_inference_model
+
+    paddle.seed(PROGRAM_SEED)
+    model = gpt_124m(device=dev)
+    model.eval()
+    try:
+        export_reference_inference_model(
+            os.path.join(tmp, "refused"),
+            [InputSpec([None, GPT_SEQ], "int32")], model)
+    except NotImplementedError as exc:
+        msg = str(exc)
+    else:
+        raise RuntimeError("GPT-124M on the card exported: its kernels "
+                           "were not in the trace")
+    named = [k for k in ("paddle_tpu_torch::layernorm_fwd",
+                         "paddle_tpu_torch::flash_attention_fwd")
+             if k in msg]
+    say("export_refuses_kernels", model="gpt_124m", refused_by=named,
+        message=msg[:200])
+    if not named:
+        raise RuntimeError(f"export refusal does not name a kernel: {msg}")
+
+
+def _gpt_cpu_copy():
+    from paddle_tpu_torch.models.gpt import gpt_124m
+
+    model = gpt_124m(device="cpu", seed=PROGRAM_SEED,
+                     hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    model.eval()
+    return model
+
+
+def _blind_head(translators, keys=64):
+    """The importer's softmax with the first call's head 0 blind to its
+    last ``keys`` keys (the control of ``import_gpt124m``)."""
+    import torch
+
+    real = translators["softmax"]
+    seen = [0]
+
+    def softmax(ins, attrs):
+        x = ins["X"]
+        if seen[0] == 0 and x.dim() == 4:
+            blind = torch.zeros_like(x, dtype=torch.bool)
+            blind[:, 0, :, -keys:] = True
+            blind[:, 0, :, 0] = False
+            x = torch.where(blind, torch.finfo(x.dtype).min, x)
+        seen[0] += 1
+        return real({"X": x}, attrs)
+
+    return softmax
+
+
+def import_gpt124m_phase(dev, smi, tmp):
+    """GPT-124M (eval, dropout 0) exported from a CPU copy with a dynamic
+    batch, served by ``inference.Config(prefix)`` / ``create_predictor``
+    on the card with handle-style runs at 8 x 1024 and held to the same
+    weights' eager GPT-124M on the card (B2, B4a); a control with one
+    head of the first layer blind to its last 64 keys must exceed the
+    limit.  Returns (prefix, {kernel: launches}) of the eager runs."""
+    import torch
+
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.ops.cuda import registry
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.static import program_import as pimp
+    from paddle_tpu_torch.static.program_export import \
+        export_reference_inference_model
+
+    cpu = _gpt_cpu_copy()
+    prefix = os.path.join(tmp, "gpt124m")
+    t0 = time.perf_counter()
+    ops = export_reference_inference_model(
+        prefix, [InputSpec([None, GPT_SEQ], "int32", "ids")], cpu)
+    export_s = time.perf_counter() - t0
+    model = cpu.to(dev)
+    rng = np.random.RandomState(PROGRAM_SEED + 1)
+    ids = rng.randint(0, 50304, (GPT_BATCH, GPT_SEQ)).astype(np.int32)
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(inference.Config(prefix))
+    handle = pred.get_input_handle(pred.get_input_names()[0])
+    handle.copy_from_cpu(ids)
+    pred.run()                                     # trace
+    first_s = time.perf_counter() - t0
+    handle_ms = []
+    for _ in range(PROGRAM_RUNS):
+        t0 = time.perf_counter()
+        handle.copy_from_cpu(ids)
+        pred.run()
+        out_host = pred.get_output_handle(
+            pred.get_output_names()[0]).copy_to_cpu()
+        handle_ms.append((time.perf_counter() - t0) * 1e3)
+    ids_t = torch.as_tensor(ids, device=dev)
+    imported_ms = _events_ms(lambda: pred._run_tensors([ids_t]))
+    with torch.no_grad():
+        torch.cuda.synchronize(dev)
+        registry.reset_counts()
+        ref = model(ids_t)
+        torch.cuda.synchronize(dev)
+        counts = registry.counts()
+        eager_ms = _events_ms(lambda: model(ids_t))
+    out = torch.as_tensor(out_host, device=dev)
+    err = (out - ref).abs()
+    max_abs, rms = float(err.max()), float(err.pow(2).mean().sqrt())
+    top1 = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
+    del out, err
+    saved = pimp._TRANSLATORS["softmax"]
+    pimp._TRANSLATORS["softmax"] = _blind_head(pimp._TRANSLATORS)
+    try:
+        bad, _, _ = pimp.load_reference_inference_model(prefix)
+        with torch.no_grad():
+            control = float((bad(ids_t)[0]._data - ref).abs().max())
+    finally:
+        pimp._TRANSLATORS["softmax"] = saved
+    del bad, ref
+    layers = 12
+    want = {"flash_attention_fwd": layers, "layernorm_fwd": 2 * layers + 1}
+    got = {k: counts[k] for k in want}
+    say("import_gpt124m", nvidia_smi=smi, batch=GPT_BATCH, seq=GPT_SEQ,
+        export_s=export_s, ops=len(ops),
+        fused={k: ops.count(k) for k in ("softmax", "layer_norm", "gelu",
+                                         "matmul_v2", "lookup_table_v2")},
+        first_run_s=first_s, handle_run_ms=handle_ms,
+        imported_device_ms=imported_ms, eager_device_ms=eager_ms,
+        max_abs_err=max_abs, rms_err=rms, top1_agreement=top1,
+        atol=GPT_IMPORT_ATOL, control_blind_head_max_abs_err=control,
+        eager_launches=got, expected=want)
+    if got != want:
+        raise RuntimeError(f"eager GPT-124M launches {got} != {want}")
+    if not (max_abs <= GPT_IMPORT_ATOL < control and top1 >= 0.999):
+        raise RuntimeError(f"imported GPT-124M {max_abs} (limit "
+                           f"{GPT_IMPORT_ATOL}, control {control}, top-1 "
+                           f"{top1})")
+    del pred, model
+    torch.cuda.empty_cache()
+    return prefix, got
+
+
+def imported_finetune_phase(dev, prefix):
+    """``to_layer()`` of the imported GPT-124M program: 3 SGD steps at
+    4 x 1024 on the card (the loss falls), ``sync_to_program()``, the
+    trained layer exported again (its trace holds compositions only) and
+    reloaded: equal to the trained layer within 1e-5."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.static import program_import as pimp
+    from paddle_tpu_torch.static.program_export import \
+        export_reference_inference_model
+
+    prog, _, _ = pimp.load_reference_inference_model(prefix)
+    layer = prog.to_layer()
+    opt = paddle.optimizer.SGD(learning_rate=0.1,
+                               parameters=layer.parameters())
+    rng = np.random.RandomState(PROGRAM_SEED + 2)
+    ids = rng.randint(0, 50304, (FINETUNE_BATCH, FINETUNE_SEQ + 1)) \
+        .astype(np.int32)
+    x = paddle.to_tensor(ids[:, :-1])
+    y = paddle.to_tensor(ids[:, 1:].astype(np.int64))
+    losses, ms = [], []
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        logits = layer(x)
+        loss = paddle.nn.functional.cross_entropy(
+            logits.reshape([-1, 50304]), y.reshape([-1]))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(loss))
+    layer.sync_to_program()
+    again = prefix + "_tuned"
+    ops = export_reference_inference_model(
+        again, [InputSpec([None, FINETUNE_SEQ], "int32", "ids")], layer)
+    tuned, _, _ = pimp.load_reference_inference_model(again)
+    with torch.no_grad():
+        probe = paddle.to_tensor(ids[:2, :-1])
+        got = tuned(probe)[0]._data
+        want = layer(probe)._data
+    err = float((got - want).abs().max() / want.abs().max())
+    say("imported_finetune", batch=FINETUNE_BATCH, seq=FINETUNE_SEQ,
+        losses=losses, step_ms=ms, reexported_ops=len(ops),
+        reloaded_max_rel_err=err)
+    for ext in (".pdmodel", ".pdiparams"):
+        os.remove(again + ext)
+    if not losses[-1] < losses[0] or not np.isfinite(losses).all():
+        raise RuntimeError(f"imported GPT-124M fine-tune losses {losses}")
+    if not err <= 1e-5:
+        raise RuntimeError(f"re-exported layer off the trained one: {err}")
+
+
+def onnx_phase(dev, tmp):
+    """ResNet-50 (batch 1) ONNX-exported on the card; the numpy runtime
+    on the host against the eager output (1e-4 of max|eager|)."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.onnx import runtime
+    from paddle_tpu_torch.vision.models import resnet50
+
+    paddle.seed(PROGRAM_SEED)
+    model = resnet50()
+    model.eval()
+    x = np.random.RandomState(PROGRAM_SEED + 3).randn(1, 3, 224, 224) \
+        .astype(np.float32)
+    t0 = time.perf_counter()
+    path = paddle.onnx.export(model, os.path.join(tmp, "rn50"),
+                              input_spec=[paddle.to_tensor(x)])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = runtime.run(path, [x])[0]
+    run_s = time.perf_counter() - t0
+    with torch.no_grad():
+        ref = model(paddle.to_tensor(x)).numpy()
+    rel = float(np.abs(out - ref).max() / np.abs(ref).max())
+    say("onnx", model="resnet50", batch=1, export_s=export_s,
+        onnx_mb=os.path.getsize(path) / 1e6, numpy_runtime_s=run_s,
+        max_rel_err=rel)
+    os.remove(path)
+    if not rel <= 1e-4:
+        raise RuntimeError(f"ONNX runtime off the eager ResNet-50: {rel}")
+
+
+def custom_ops_phase(dev):
+    """B4a's launcher registered through ``utils.register_pallas_op``
+    with B4b as its backward, on 8192 x 768 bf16: the forward against
+    the plain version by the strict rule and bitwise repeatable, one
+    backward against the plain backward; a host C extension called on a
+    CUDA tensor.  Returns {kernel: launches}."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.cuda import registry
+    from paddle_tpu_torch.ops.cuda.layernorm_kernel import (
+        layernorm_bwd_cuda, layernorm_bwd_plain, layernorm_fwd_cuda,
+        layernorm_fwd_plain)
+    from paddle_tpu_torch.ops.registry import OPS
+    from paddle_tpu_torch.utils import cpp_extension, register_pallas_op
+
+    def fwd(x, g, b):
+        return layernorm_fwd_cuda(x, g, b, 1e-5)[0]
+
+    def bwd(dy, x, g, b):
+        _, mu, rstd = layernorm_fwd_cuda(x, g, b, 1e-5)
+        dx, dg, db = layernorm_bwd_cuda(x, g, mu, rstd, dy.contiguous())
+        return dx, dg.to(g.dtype), db.to(b.dtype)
+
+    op = register_pallas_op("smoke_layernorm_b4", fwd, backward=bwd)
+    rng = np.random.RandomState(PROGRAM_SEED + 4)
+    bf16 = torch.bfloat16
+    xs = [torch.as_tensor(v, device=dev) for v in (
+        rng.randn(8192, 768).astype(np.float32),
+        rng.rand(768).astype(np.float32) + 0.5,
+        rng.randn(768).astype(np.float32) * 0.1)]
+    x, g, b = (v.to(bf16) for v in xs)
+    dy = torch.as_tensor(rng.randn(8192, 768).astype(np.float32),
+                         device=dev).to(bf16)
+    torch.cuda.synchronize(dev)
+    registry.reset_counts()
+    ts = [paddle.to_tensor(v, stop_gradient=False) for v in (x, g, b)]
+    y1 = op(*ts)
+    (y1 * paddle.to_tensor(dy)).sum().backward()
+    y2 = op(*[paddle.to_tensor(v) for v in (x, g, b)])
+    torch.cuda.synchronize(dev)
+    counts = registry.counts()
+    want_y, _, _ = layernorm_fwd_plain(x.float(), g.float(), b.float(), 1e-5)
+    dx_w, dg_w, db_w = layernorm_bwd_plain(x.float(), g.float(), None, None,
+                                           dy.float())
+    fwd_rep = _parity(y1._data.detach(), want_y, 1e-5)
+    # what the bf16 output's own rounding reads by the same rule
+    rounding = _parity(want_y.to(bf16), want_y, 1e-5)[2]
+    bwd_rep = {"dx": _parity(ts[0].grad._data, dx_w, 1e-5)}
+    bitwise = bool(torch.equal(y1._data, y2._data))
+    launches = {k: counts[k] for k in ("layernorm_fwd", "layernorm_bwd")}
+    ms = _events_ms(lambda: op(*[paddle.to_tensor(v) for v in (x, g, b)]))
+    src = ('extern "C" void scale3(const float* x, float* out, long long n)'
+           ' { for (long long i = 0; i < n; ++i) out[i] = 3.0f * x[i]; }')
+    mod = cpp_extension.load("smoke_scale3", [src], functions={
+        "scale3": ("void", ["float*", "float*", "int64"])})
+    import ctypes
+
+    def host_fn(a):
+        a = np.ascontiguousarray(a, np.float32)
+        out = np.empty_like(a)
+        fp = ctypes.POINTER(ctypes.c_float)
+        mod.scale3(a.ctypes.data_as(fp), out.ctypes.data_as(fp), a.size)
+        return out
+
+    host = cpp_extension.host_op_from_extension(
+        "smoke_host_scale3", host_fn, out_shape_fn=lambda a: a)
+    hx = torch.as_tensor(rng.randn(4, 5).astype(np.float32), device=dev)
+    hy = host(paddle.to_tensor(hx))._data
+    say("custom_ops", op="smoke_layernorm_b4",
+        tags=list(OPS["smoke_layernorm_b4"].tags), shape=[8192, 768],
+        dtype="bf16",
+        fwd_err_over_limit=fwd_rep[2], dx_err_over_limit=bwd_rep["dx"][2],
+        plain_rounded_to_bf16_err_over_limit=rounding,
+        bitwise_repeatable=bitwise, launches=launches, fwd_ms=ms,
+        host_op_device=str(hy.device),
+        host_op_max_abs_err=float((hy - 3 * hx).abs().max()))
+    if not (fwd_rep[3] and bwd_rep["dx"][3] and bitwise) or \
+            hy.device != hx.device or not torch.equal(hy, 3 * hx):
+        raise RuntimeError("register_pallas_op B4a/B4b or the host op "
+                           "failed its check")
+    # the op's two forwards, the recompute in its backward; B4b once
+    if launches != {"layernorm_fwd": 3, "layernorm_bwd": 1}:
+        raise RuntimeError(f"custom op launches {launches}")
+    return launches
+
+
+def cost_model_phase(dev):
+    """``CostModel`` on the card over the port's ops (CUDA events), and
+    its host-event profile of an eager function."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.cost_model import CostModel
+
+    cm = CostModel()
+    shapes = {"matmul": ((4096, 4096), (4096, 4096)),
+              "add": ((8192, 4096), (8192, 4096)),
+              "exp": ((8192, 4096),), "softmax": ((8192, 4096),),
+              "gelu": ((8192, 4096),),
+              "conv2d": ((32, 64, 56, 56), (64, 64, 3, 3))}
+    ms = {n: cm.get_static_op_time(n, shapes=s)["op_time"]
+          for n, s in shapes.items()}
+    x = paddle.to_tensor(np.random.RandomState(5).rand(1024, 1024)
+                         .astype(np.float32))
+    prof = cm.profile_measure(lambda: paddle.matmul(x, x) + x)
+    say("cost_model", device_ms=ms, shapes={k: list(v) for k, v in
+                                             shapes.items()},
+        profile={k: v for k, v in prof.items()
+                 if k in ("matmul", "add")})
+    if not all(v > 0 for v in ms.values()):
+        raise RuntimeError(f"cost model times {ms}")
+
+
+def program_lint_phase(prefix):
+    """The analysis CLI's ``program`` subcommand over the GPT-124M
+    artifact (no G001), then over the same program with a dead op added
+    to block 0 (one G001)."""
+    import io
+
+    from paddle_tpu_torch.framework import analysis
+    from paddle_tpu_torch.static.program_export import _enc_op, _fbytes
+    from paddle_tpu_torch.static.program_import import (_Reader,
+                                                        parse_program)
+
+    def lint(p):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = analysis.main(["program", p, "--json"])
+        return rc, json.loads(buf.getvalue())
+
+    rc, clean = lint(prefix)
+    raw = open(prefix + ".pdmodel", "rb").read()
+    ops, _ = parse_program(raw)
+    fetched = next(o.inputs["X"][0] for o in ops if o.type == "fetch")
+    r = _Reader(raw)
+    r.varint()
+    n = r.varint()
+    block = raw[r.pos:r.pos + n] + _fbytes(4, _enc_op(
+        "relu", {"X": [fetched]}, {"Out": ["orphan"]}, []))
+    dead = prefix + "_dead"
+    with open(dead + ".pdmodel", "wb") as f:
+        f.write(_fbytes(1, block) + raw[r.pos + n:])
+    rc2, found = lint(dead)       # the lint reads no .pdiparams
+    g001 = [f for f in found["findings"] if f["rule"] == "G001"]
+    say("program_lint", clean_rc=rc, clean_findings=len(clean["findings"]),
+        dead_rc=rc2, dead_g001=len(g001),
+        dead_message=g001[0]["message"] if g001 else None)
+    if rc or clean["findings"] or len(g001) != 1 or \
+            "orphan" not in g001[0]["message"]:
+        raise RuntimeError("program lint: a finding on the clean program "
+                           "or not exactly one G001 on the dead op")
+
+
+def program_phases(dev, smi):
+    """The program tooling (``python3 chip_smoke.py program``): the
+    reference-format export and import on the card, ONNX, custom ops,
+    the cost model and the program lint.  Returns {kernel: main-path
+    launches}."""
+    import tempfile
+
+    import torch
+
+    launches = {}
+    # the artifacts (hundreds of MB) go with the directory, on failure too
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_program_") as tmp:
+        export_resnet50_phase(dev, smi, tmp)
+        torch.cuda.empty_cache()
+        export_refuses_kernels_phase(dev, tmp)
+        torch.cuda.empty_cache()
+        prefix, got = import_gpt124m_phase(dev, smi, tmp)
+        launches.update(got)
+        imported_finetune_phase(dev, prefix)
+        torch.cuda.empty_cache()
+        onnx_phase(dev, tmp)
+        for k, n in custom_ops_phase(dev).items():
+            launches[k] = launches.get(k, 0) + n
+        cost_model_phase(dev)
+        program_lint_phase(prefix)
+    torch.cuda.empty_cache()
+    say("program_launches", launches=launches)
     return launches
 
 
@@ -8958,9 +9542,21 @@ def main():
         build_phase()
         deploy_phases(dev, smi)
         return
-    if sys.argv[1:] == ["c12_control"]:
+    if sys.argv[1:2] == ["c12_control"]:
+        args = sys.argv[2:]
         build_phase()
-        c12_control_phase(dev)
+        if not args:
+            c12_control_phase(dev)
+        elif args[0] == "sessions" and len(args) == 2:
+            c12_control_phase(dev, "sessions", int(args[1]))
+        elif args[0] == "port" and len(args) == 3:
+            c12_control_phase(dev, "port", int(args[1]), int(args[2]))
+        else:
+            raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
+        return
+    if sys.argv[1:] == ["program"]:
+        build_phase()
+        program_phases(dev, smi)
         return
     if sys.argv[1:] == ["ops"]:
         build_phase()
@@ -8971,6 +9567,10 @@ def main():
         return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
+    # ROADMAP C12: the torch.profiler sessions the run starts before its
+    # profiler windows (printed before the training features' profiler
+    # phase and before the deployment slice's windows)
+    starts = count_profiler_starts()
     laps = [time.perf_counter()]
 
     def lap(name):
@@ -9075,6 +9675,7 @@ def main():
         launches[kernel] += n
     lap("gpt_6_7b")
     torch.cuda.empty_cache()
+    say("c12_sessions", before="train_features", profiler_starts=starts[0])
     # and the training features' GPT-124M runs: remat=False and True
     # (bf16), the fp16 steps, each counted alone
     for kernel, n in train_features_phases(dev, smi).items():
@@ -9084,9 +9685,16 @@ def main():
     # and the deployment slice: f16 serving (B1, B5), the f16 FMT and the
     # decode pass (B6), the IR passes' step (B2, B3, B4a, B4b) and the
     # predictor (B2, B4a), each counted alone
+    say("c12_sessions", before="deploy", profiler_starts=starts[0])
     for kernel, n in deploy_phases(dev, smi).items():
         launches[kernel] += n
     lap("deploy")
+    # and the program tooling: the eager GPT-124M the imported program is
+    # held to (B2, B4a) and the kernel registered through
+    # register_pallas_op (B4a, B4b), each counted alone
+    for kernel, n in program_phases(dev, smi).items():
+        launches[kernel] += n
+    lap("program")
     tooling_phase(dev, smi)
     lap("tooling")
     for rec in records:

@@ -149,6 +149,9 @@ from . import strings  # noqa: F401, E402
 from . import static  # noqa: F401, E402
 from . import quantization  # noqa: F401, E402
 from . import version  # noqa: F401, E402
+from . import onnx  # noqa: F401, E402
+from . import utils  # noqa: F401, E402
+from . import cost_model  # noqa: F401, E402
 from .tensor_array import (  # noqa: F401, E402
     TensorArray,
     array_length,

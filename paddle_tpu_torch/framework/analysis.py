@@ -19,7 +19,10 @@ package's catalog; the port's rules are these:
   chains feeding only dead nodes included.  A node with effects (an
   op whose schema writes an operand: ``index_put_``, ``index_copy_``,
   ``copy_``; anything ``torch.fx.Node.is_impure`` reports) has no users
-  and is live.
+  and is live.  ``analyze_program`` applies the rule to an imported
+  reference program (ops whose outputs never reach a fetch, feeds no
+  live op reads); ``python -m paddle_tpu_torch.framework.analysis
+  program <prefix>`` runs it on a ``.pdmodel``.
 - **D001 captured state moved** — the counterpart of donation: a
   captured CUDA graph reads every tensor by the address it had at
   capture, so each tensor the step reads by address (the K/V pools with
@@ -503,6 +506,45 @@ def analyze_fn(fn, *args, rules=None, label=""):
     return analyze_graph(trace_graph(fn, *args), rules=rules, label=label)
 
 
+def analyze_program(program, rules=None, label=""):
+    """G001 over an imported static program (``static.program_import.
+    InferenceProgram``): top-level ops whose outputs never
+    (transitively) reach a fetch target, and feed vars nothing reads —
+    reported with the program's real variable names."""
+    if not _want(rules, "G001"):
+        return []
+    findings = []
+    blocks = getattr(program, "blocks", []) or []
+
+    def op_reads(op, depth=0):
+        reads = [a for args in op.inputs.values() for a in args]
+        sub = op.attrs.get("sub_block")
+        if sub is not None and depth < 16 and 0 <= sub < len(blocks):
+            for sop in blocks[sub][0]:
+                reads += op_reads(sop, depth + 1)
+        return reads
+
+    live = set(program.fetch_names)
+    for idx in reversed(range(len(program.body))):
+        op = program.body[idx]
+        outs = [a for args in op.outputs.values() for a in args]
+        # `while` mutates loop-carried vars in place; never prune it
+        if op.type == "while" or any(o in live for o in outs):
+            live.update(op_reads(op))
+        else:
+            findings.append(Finding(
+                "G001", WARNING, _loc(label, f"op {idx} ({op.type})"),
+                f"op '{op.type}' outputs {outs} never reach a fetch "
+                "target — dead op in the imported program"))
+    findings.reverse()
+    for name in program.feed_names:
+        if name not in live:
+            findings.append(Finding(
+                "G001", WARNING, _loc(label, f"feed '{name}'"),
+                f"feed var '{name}' is never read by any live op"))
+    return findings
+
+
 def analyze_engine(engine, rules=None):
     """The graph rules over every step graph of an LLM engine's bucket
     grid (``engine.executable_grid()``), S001 over its weights and pools,
@@ -741,6 +783,19 @@ def _cli_kernels(ns):
     return lint_registry(eng, rules=ns.rules, profile=ns.profile)
 
 
+def _cli_program(ns):
+    from ..static.program_import import (InferenceProgram,
+                                         parse_program_blocks)
+    # the lint reads the program's ops, feeds and fetches only: the
+    # parameters are not read
+    with open(f"{ns.path_prefix}.pdmodel", "rb") as f:
+        blocks = parse_program_blocks(f.read())
+    ops, var_descs = blocks[0]
+    prog = InferenceProgram(ops, var_descs, {}, blocks=blocks)
+    return analyze_program(prog, rules=ns.rules,
+                           label=os.path.basename(ns.path_prefix))
+
+
 def _cli_ops(ns):
     return check_host_sync(ns.paths or None)
 
@@ -834,6 +889,12 @@ def main(argv=None):
     kern.add_argument("--profile", default="h100",
                       help="device profile for the K002 limits")
     kern.set_defaults(run=_cli_kernels)
+
+    prog = sub.add_parser("program", parents=[common],
+                          help="G001 over an exported inference program "
+                               "(.pdmodel prefix)")
+    prog.add_argument("path_prefix")
+    prog.set_defaults(run=_cli_program)
 
     ops = sub.add_parser("ops", parents=[common],
                          help="H001 host-sync lint over the sources")

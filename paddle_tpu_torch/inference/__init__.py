@@ -14,7 +14,9 @@ once at build and the floating feeds at each run.  The zero-copy handle
 API is kept: ``copy_from_cpu`` stages an input, ``run()`` executes the
 program, ``copy_to_cpu`` fetches (a bfloat16 output comes back as
 float32, which numpy can hold exactly).  Feeds bind by their declared
-names.
+names.  A reference-format artifact (a ProgramDesc ``.pdmodel``) serves
+through ``load_inference_model(...).to_layer()``, its feeds and fetches
+named as the program names them.
 """
 
 import numpy as np
@@ -115,10 +117,15 @@ class Predictor:
             self._model = config._model_obj
             feed_names, fetch_names = ["x0"], ["out0"]
         else:
+            # the sniffing loader routes both formats: this package's
+            # jit.save artifacts and reference ProgramDesc exports — the
+            # latter wrap as a Layer (``to_layer``), so the precision pass
+            # and the traced program apply uniformly
             from ..static import load_inference_model
             loaded, feeds, fetches = load_inference_model(
                 config.model_path)
-            self._model = loaded
+            self._model = loaded.to_layer() if hasattr(
+                loaded, "to_layer") else loaded
             feed_names, fetch_names = list(feeds), list(fetches)
         self._model.eval()
         # the program's DECLARED feed order: get_input_handle(name) +

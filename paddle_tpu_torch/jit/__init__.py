@@ -224,7 +224,8 @@ def _lift_generators(gm, markers):
     trailing placeholder; returns the devices of those inputs, in
     order."""
     graph = gm.graph
-    last = [n for n in graph.nodes if n.op == "placeholder"][-1]
+    places = [n for n in graph.nodes if n.op == "placeholder"]
+    last = places[-1] if places else None
     lifted, devices = {}, []
     for n in list(graph.nodes):
         obj = getattr(gm, n.target, None) if n.op == "get_attr" else None
@@ -233,7 +234,10 @@ def _lift_generators(gm, markers):
             continue
         seed = obj.initial_seed()
         if seed not in lifted:
-            with graph.inserting_after(last):
+            # a program of no inputs takes its first one here
+            at = graph.inserting_after(last) if last is not None \
+                else graph.inserting_before(next(iter(graph.nodes)))
+            with at:
                 last = lifted[seed] = graph.placeholder(f"gen_{len(devices)}")
             devices.append(markers[seed])
         n.replace_all_uses_with(lifted[seed])

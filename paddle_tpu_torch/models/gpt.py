@@ -31,7 +31,18 @@ class GPTConfig:
                  num_attention_heads=12, intermediate_size=None,
                  max_position_embeddings=1024, hidden_dropout_prob=0.1,
                  attention_probs_dropout_prob=0.1, initializer_range=0.02,
-                 layer_norm_epsilon=1e-5):
+                 layer_norm_epsilon=1e-5, sequence_parallel=False,
+                 use_flash_attention=True, cp_mode=None):
+        # the JAX config's keywords: use_flash_attention is stored and
+        # read nowhere, as there; the other two select the sequence- and
+        # context-parallel paths, which come with the distributed slice
+        if sequence_parallel or cp_mode is not None:
+            raise NotImplementedError(
+                "sequence_parallel and cp_mode are not ported yet: they "
+                "come with the distributed slice (ROADMAP A23b-6)")
+        self.sequence_parallel = sequence_parallel
+        self.use_flash_attention = use_flash_attention
+        self.cp_mode = cp_mode
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers

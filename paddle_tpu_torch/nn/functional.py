@@ -493,10 +493,23 @@ def _max(t, ax, keep=False):
     return t.amax(dim=ax, keepdim=keep)
 
 
+def _tiles(x, dims, sizes):
+    """The window of adaptive bins that tile ``x`` on ``dims``, or None."""
+    if all(x.shape[d] % o == 0 for d, o in zip(dims, sizes)):
+        return [x.shape[d] // o for d, o in zip(dims, sizes)]
+    return None
+
+
 @op()
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
-    return _adaptive(x, _spatial(x, 2, data_format), _pair(output_size),
-                     _mean)
+    """The mean over each adaptive bin: bins that tile the input are one
+    window sum over the bin's size, as in the JAX body."""
+    dims, sizes = _spatial(x, 2, data_format), _pair(output_size)
+    k = _tiles(x, dims, sizes)
+    if k is not None:
+        return window_reduce(x, dims, k, k, [(0, 0)] * 2, "add") / float(
+            k[0] * k[1])
+    return _adaptive(x, dims, sizes, _mean)
 
 
 @op()
@@ -505,11 +518,11 @@ def adaptive_max_pool2d(x, output_size, return_mask=False):
     ignored, as in the JAX body.  Bins that tile the input are one
     ``reduce_window`` there, whose VJP sends a tie's gradient to the
     first maximum; uneven bins are ``jnp.max`` slices, which split it."""
-    (oh, ow), (h, w) = _pair(output_size), x.shape[2:]
-    if h % oh == 0 and w % ow == 0:
-        win = x.reshape(*x.shape[:2], oh, h // oh, ow, w // ow)
-        return first_max(win.permute(0, 1, 2, 4, 3, 5), 2)
-    return _adaptive(x, [2, 3], (oh, ow), _max)
+    sizes = _pair(output_size)
+    k = _tiles(x, [2, 3], sizes)
+    if k is not None:
+        return window_reduce(x, [2, 3], k, k, [(0, 0)] * 2, "max")
+    return _adaptive(x, [2, 3], sizes, _max)
 
 
 @op()

@@ -10,6 +10,8 @@ reduced: the JAX package's windows, pads and divisors exactly, whatever
 are ``[floor(i·in/out), ceil((i+1)·in/out))``.
 """
 
+import contextlib
+import contextvars
 import itertools
 
 import torch
@@ -49,9 +51,33 @@ def windows(x, dims, ksize, strides, pads, fill):
     return x
 
 
+# set only inside the program exporter's trace, in that trace's context
+_ROUTE = contextvars.ContextVar("window_reduce_route", default=None)
+
+
+@contextlib.contextmanager
+def routed_windows(fn):
+    """In this context only, ``window_reduce`` returns ``fn`` of its
+    arguments (the program exporter keeps each window reduction as one
+    op of its trace)."""
+    token = _ROUTE.set(fn)
+    try:
+        yield
+    finally:
+        _ROUTE.reset(token)
+
+
 def window_reduce(x, dims, ksize, strides, pads, kind):
     """``lax.reduce_window`` with ``max`` (init ``-inf``, or the integer
     minimum) or ``add`` (init 0) over the spatial ``dims``."""
+    route = _ROUTE.get()
+    if route is not None:
+        return route(x, dims, ksize, strides, pads, kind)
+    return window_reduce_plain(x, dims, ksize, strides, pads, kind)
+
+
+def window_reduce_plain(x, dims, ksize, strides, pads, kind):
+    """:func:`window_reduce`'s computation, never routed."""
     nd = len(dims)
     if kind == "max":
         fill = (float("-inf") if x.is_floating_point()

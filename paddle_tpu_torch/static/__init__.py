@@ -12,10 +12,11 @@ are invariant, and there is no reverse-mode gradient through a traced
 loop.  Outside a trace the taken branch and the Python loop run, as in
 the JAX package.
 
-The reference wire format (an ``InputSpec`` feed list writing a
-ProgramDesc ``.pdmodel``, a ``.pdmodel`` whose first byte is ``0x0a``,
-and the ProgramDesc construction calls) comes with the program exporter
-and importer (ROADMAP A23b-5b) and raises ``NotImplementedError`` here.
+The reference wire format: an ``InputSpec`` feed list writes a
+ProgramDesc ``.pdmodel`` through ``program_export``, and a ``.pdmodel``
+whose first byte is ``0x0a`` loads through ``program_import``.  The
+ProgramDesc construction calls (``program_guard``, ``data``, ...) raise,
+as in the JAX package.
 """
 
 import numpy as np
@@ -24,10 +25,6 @@ from torch.utils import _pytree as pytree
 
 from ..core.tensor import Tensor, _wrap
 from ..framework.mode import is_traced
-
-_A23B5B = ("the reference ProgramDesc wire format comes with the program "
-           "exporter and importer (ROADMAP A23b-5b)")
-
 
 class InputSpec:
     """reference paddle.static.InputSpec."""
@@ -52,11 +49,17 @@ def save_inference_model(path_prefix, feed_vars, fetch_vars, executor=None,
     """Save a model for inference (reference:
     python/paddle/static/io.py:442).
 
-    ``feed_vars`` empty/None: serialize the Layer carried by
-    ``fetch_vars`` via ``jit.save`` (loadable by
-    ``inference.create_predictor`` and :func:`load_inference_model`).  A
-    non-empty list of InputSpec asks for the reference wire format,
-    which raises ``NotImplementedError`` until A23b-5b."""
+    Two formats, selected by ``feed_vars``:
+
+    - a non-empty list of InputSpec: write the REFERENCE wire format
+      (``.pdmodel`` ProgramDesc + ``.pdiparams`` combined stream) so the
+      model can be handed to a reference deployment.  The model's traced
+      program must translate onto the reference op set (see
+      ``program_export``); otherwise this raises NotImplementedError
+      naming the untranslatable op.
+    - empty/None: serialize the Layer carried by ``fetch_vars`` via
+      ``jit.save`` (loadable by ``inference.create_predictor`` and
+      :func:`load_inference_model`)."""
     from ..jit import save as jit_save
     from ..nn.layer_base import Layer
 
@@ -82,28 +85,35 @@ def save_inference_model(path_prefix, feed_vars, fetch_vars, executor=None,
                 f"feed_vars must be InputSpec entries for reference-"
                 f"format export (got {type(bad[0]).__name__}); pass an "
                 "empty feed_vars list for the native jit.save format")
-        raise NotImplementedError(
-            f"save_inference_model with InputSpec feeds writes a "
-            f"ProgramDesc: {_A23B5B}; pass an empty feed_vars list for "
-            f"the jit.save format")
+        from .program_export import export_reference_inference_model
+
+        export_reference_inference_model(path_prefix, specs, target)
+        return
     jit_save(target, path_prefix)
 
 
 def load_inference_model(path_prefix, executor=None, **kwargs):
     """Returns (program, feed_names, fetch_names) shaped like the
-    reference (python/paddle/static/io.py:727), for a ``jit.save``
-    artifact.  A reference ``.pdmodel`` (a ProgramDesc protobuf, first
-    byte ``0x0a``; this package's is a pickle) raises
-    ``NotImplementedError`` until A23b-5b."""
+    reference (python/paddle/static/io.py:727).
+
+    Two formats load here: this package's own ``jit.save`` artifacts,
+    and the reference's serialized inference programs (``.pdmodel``
+    ProgramDesc + ``.pdiparams`` combined stream), which translate op by
+    op onto torch and run as one traced program (see
+    ``static.program_import``)."""
     import os
 
     pdmodel = f"{path_prefix}.pdmodel"
     if os.path.exists(pdmodel):
         with open(pdmodel, "rb") as f:
             head = f.read(1)
+        # the reference's .pdmodel is a ProgramDesc protobuf whose first
+        # field (blocks, field 1, length-delimited) encodes as 0x0a; this
+        # package's jit.save .pdmodel is a pickle (0x80): one byte routes
         if head == b"\x0a":
-            raise NotImplementedError(
-                f"{pdmodel} is a reference ProgramDesc: {_A23B5B}")
+            from .program_import import load_reference_inference_model
+
+            return load_reference_inference_model(path_prefix)
     from ..jit import load as jit_load
 
     layer = jit_load(path_prefix)
@@ -153,8 +163,10 @@ class Executor:
 def _no_static(name):
     def stub(*a, **k):
         raise NotImplementedError(
-            f"paddle.static.{name} builds ProgramDesc graphs: {_A23B5B}; "
-            "decorate with paddle_tpu_torch.jit.to_static to compile.")
+            f"paddle.static.{name} builds ProgramDesc graphs, which this "
+            "framework intentionally does not have; decorate with "
+            "paddle_tpu_torch.jit.to_static to compile (the traced "
+            "program owns the graph).")
     stub.__name__ = name
     return stub
 

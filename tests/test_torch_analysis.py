@@ -390,3 +390,23 @@ def test_cli_build_reaches_the_default_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         analysis.main(["engine"])
+
+
+def test_cli_program_reads_the_program_only(tmp_path, capsys):
+    """The ``program`` subcommand lints a ``.pdmodel`` with no
+    ``.pdiparams`` beside it: G001 reads ops, feeds and fetches only."""
+    import os
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.static import InputSpec
+
+    P.set_device("cpu")
+    P.seed(0)
+    model = nn.Sequential(nn.Linear(4, 3), nn.ReLU())
+    model.eval()
+    prefix = str(tmp_path / "m")
+    P.static.save_inference_model(prefix, [InputSpec([None, 4])], model)
+    os.remove(prefix + ".pdiparams")
+    assert analysis.main(["program", prefix, "--json"]) == 0
+    assert json.loads(capsys.readouterr().out)["findings"] == []

@@ -48,3 +48,20 @@ def test_overrides_reach_the_config():
     ref = _config(JG, "gpt_6_7b", num_layers=2)
     assert port.num_layers == ref.num_layers == 2
     assert port.hidden_size == 4096 and port.head_dim == 128
+
+
+def test_gpt_config_takes_the_jax_keywords():
+    """ROADMAP C13: ``GPTConfig`` takes the JAX config's
+    ``use_flash_attention``, ``sequence_parallel`` and ``cp_mode``.  The
+    first is stored and read nowhere, as in the JAX package;
+    ``gpt_tiny(use_flash_attention=False)`` builds (the reference
+    exporter test's model) with the JAX config's value.  The other two
+    select paths of the distributed slice and raise naming it."""
+    model = PG.gpt_tiny(device="cpu", use_flash_attention=False)
+    ref = _config(JG, "gpt_tiny", use_flash_attention=False)
+    assert model.config.use_flash_attention is False
+    assert ref.use_flash_attention is False
+    assert PG.GPTConfig().use_flash_attention is True
+    for kw in ({"sequence_parallel": True}, {"cp_mode": "ring"}):
+        with pytest.raises(NotImplementedError, match="A23b-6"):
+            PG.gpt_tiny(device="cpu", **kw)

@@ -13,6 +13,7 @@ the device it is given and raises on an array that cannot move.
 import ast
 import inspect
 import multiprocessing as mp
+import time
 
 import numpy as np
 import pytest
@@ -252,11 +253,26 @@ def test_forked_worker_never_asks_for_cuda(monkeypatch):
         return {"x": x.numpy(), "device": paddle.get_device(),
                 "worker": io.get_worker_info().id}
 
+    # each worker writes its current device at start into its own slot
+    # (forked workers share the array); which worker takes which batch
+    # is up to the shared task queue, so the test does not ask for it
+    started = mp.Array("i", [-1, -1])
+
+    def init(worker_id):
+        started[worker_id] = int(paddle.get_device() == "cpu")
+
     loader = io.DataLoader(Built(), batch_size=2, num_workers=2,
-                           collate_fn=collate)
-    out = list(loader)
+                           collate_fn=collate, worker_init_fn=init)
+    it = iter(loader)
+    out = [next(it) for _ in range(4)]
+    # the loader stops its workers at its end: let both have started
+    deadline = time.monotonic() + 60
+    while -1 in list(started) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    out += list(it)
     assert [b["device"] for b in out] == ["cpu"] * 4
-    assert {b["worker"] for b in out} == {0, 1}
+    assert list(started) == [1, 1]
+    assert {b["worker"] for b in out} <= {0, 1}
     np.testing.assert_array_equal(
         np.concatenate([b["x"][:, 0] for b in out]), np.arange(8))
 

@@ -1,7 +1,8 @@
 """The port imports neither ``jax`` nor anything of the JAX package.
 
 Checked two ways: a fresh interpreter imports the port's entry modules
-and must end up with no ``jax`` and no ``paddle_tpu`` module loaded
+and must end up with no ``jax``, no ``paddle_tpu`` and no
+``google.protobuf`` module loaded (the port's ONNX codec is its own)
 (``paddle_tpu_torch`` itself shares the prefix, so names are matched
 exactly or up to a dot); and an AST scan of every port source file and
 ``chip_smoke.py`` finds no such import statement.
@@ -108,9 +109,18 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import paddle_tpu_torch.distribution.transform\n"
         "import paddle_tpu_torch.sparse, paddle_tpu_torch.sparse.depth\n"
         "import paddle_tpu_torch.sparse.conv\n"
+        "import paddle_tpu_torch.static.program_import\n"
+        "import paddle_tpu_torch.static.program_export\n"
+        "import paddle_tpu_torch.onnx, paddle_tpu_torch.onnx.export\n"
+        "import paddle_tpu_torch.onnx.runtime\n"
+        "import paddle_tpu_torch.onnx.onnx_subset_pb2\n"
+        "import paddle_tpu_torch.utils, paddle_tpu_torch.utils.custom_op\n"
+        "import paddle_tpu_torch.utils.cpp_extension\n"
+        "import paddle_tpu_torch.cost_model\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
-        "m.startswith('paddle_tpu.'))\n"
+        "m.startswith('paddle_tpu.') or m == 'google.protobuf' or "
+        "m.startswith('google.protobuf.'))\n"
         "print(repr(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = ROOT

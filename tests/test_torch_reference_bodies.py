@@ -25,6 +25,13 @@ more files (``SLICE``) runs by class and function name: the
 ``slow`` mark their files carry.  ``SLICE_NOT_PORTED`` names the bodies
 that wait for later parts of the port, ``ELSEWHERE`` the ones that
 drive earlier slices' models, held by those slices' own tests.
+
+The program tooling's bodies (``PROGRAM``: the ProgramDesc exporter and
+importer, custom ops, the ``program`` lint) run by file or name, each
+keeping the ``slow`` mark its reference test carries; a body that
+drives ``jax.numpy`` on a Tensor's data or reads the JAX registry's
+``jax_fn`` is listed in ``PROGRAM_NOT_PORTED`` with the port test that
+holds its torch spelling.
 """
 
 import inspect
@@ -67,7 +74,8 @@ NOT_PORTED = {
 # The zoo and ASR bodies carry their files' ``slow`` mark.
 SLICE = {
     "test_api_longtail.py": (("TestVisionDatasets", "TestAudio",
-                              "TestViterbi"), False),
+                              "TestViterbi", "TestOnnxExport",
+                              "TestCostModel"), False),
     "test_models_zoo.py": (("test_vgg_forward_backward",
                             "test_mobilenetv2_forward",
                             "test_rnn_layers_forward_shapes",
@@ -76,10 +84,10 @@ SLICE = {
                             "TestRound4VisionZoo"), True),
     "test_models_asr_ctr.py": (("TestConformer",), True),
 }
-_A23B5 = "waits for the export/cost tooling (ROADMAP A23b-5b)"
 _A23B6 = "waits for the parameter server and SPMD trainer (ROADMAP A23b-6)"
+_JNP = ("calls jax.numpy on the Tensor's data, which is a torch tensor in "
+        "the port; held with the torch spelling in ")
 SLICE_NOT_PORTED = {
-    "test_models_asr_ctr.py::TestConformer::test_jits_whole_model": _A23B5,
     "test_models_asr_ctr.py::TestDeepFM::test_fm_math_matches_manual":
         _A23B6,
     "test_models_asr_ctr.py::TestDeepFM::test_converges_on_ctr_task":
@@ -87,14 +95,9 @@ SLICE_NOT_PORTED = {
     "test_models_asr_ctr.py::TestDeepFM::test_over_sharded_ps_service":
         _A23B6,
     "test_models_zoo.py::TestLlama::test_spmd_train_step_contract": _A23B6,
-    **{f"test_api_longtail.py::TestOnnxExport::{t}": _A23B5 for t in (
-        "test_mlp_numeric_roundtrip",
-        "test_softmax_layernorm_composition",
-        "test_model_proto_structure",
-        "test_unsupported_primitive_raises_loudly")},
-    **{f"test_api_longtail.py::TestCostModel::{t}": _A23B5 for t in (
-        "test_profile_measure_collects_ops",
-        "test_static_op_time_and_save_load")},
+    "test_api_longtail.py::TestOnnxExport::"
+    "test_unsupported_primitive_raises_loudly":
+        _JNP + "test_torch_onnx.py",
 }
 # bodies of those files that drive models of earlier slices, held there
 # by their own parity tests and not part of this slice's reference set
@@ -261,7 +264,7 @@ def test_the_slice_bodies_are_collected_whole():
     skipped = set(SLICE_NOT_PORTED) | set(ELSEWHERE)
     assert run | skipped == set(SLICE_BODIES)
     assert not run & skipped
-    assert len(run) == 25
+    assert len(run) == 31
 
 
 def _run_body(body, tmp_path):
@@ -355,20 +358,11 @@ DEPLOY = {
     "test_jit.py": ("TestFunctionalCall", "TestToStatic"),
     "test_fleet.py": ("TestFleetServing",),
 }
-_A23B5B_FORMAT = ("exports the reference ProgramDesc format (an InputSpec "
-                  "feed list); waits for the program exporter (ROADMAP "
-                  "A23b-5b)")
 DEPLOY_NOT_PORTED = {
     "test_quantization_depth.py::TestConvertPipeline::"
     "test_ptq_convert_to_int8_linear":
         "compares Tensor.dtype with the string 'int8'; the port's is "
         "torch.int8, held in test_torch_quantization.py",
-    "test_hapi_inference.py::test_predictor_serves_reference_format_"
-    "artifact": _A23B5B_FORMAT,
-    "test_hapi_inference.py::test_predictor_multi_feed_binds_by_name":
-        _A23B5B_FORMAT,
-    "test_hapi_inference.py::test_predictor_run_with_no_filled_feeds_"
-    "raises": _A23B5B_FORMAT,
     **{f"test_fleet.py::TestFleetServing::{t}":
        "builds gpt_tiny() and a Fleet on the default device, the card in "
        "the port; held with device='cpu' in test_torch_inference.py"
@@ -382,7 +376,8 @@ DEPLOY_RUN = [b for b in DEPLOY_BODIES if b not in DEPLOY_NOT_PORTED]
 
 def test_the_deploy_bodies_are_collected_whole():
     """Every body of the slice's selection is run or listed as not
-    ported, with the counts of ROADMAP A23b-4b and A23b-5a."""
+    ported, with the counts of ROADMAP A23b-4b and A23b-5a (the three
+    reference-format predictor bodies run since A23b-5b)."""
     counts = {}
     for b in DEPLOY_BODIES:
         counts[b.split("::")[0]] = counts.get(b.split("::")[0], 0) + 1
@@ -393,7 +388,7 @@ def test_the_deploy_bodies_are_collected_whole():
                       "test_infer_capi.py": 5, "test_jit.py": 5,
                       "test_fleet.py": 2}
     assert set(DEPLOY_NOT_PORTED) <= set(DEPLOY_BODIES)
-    assert len(DEPLOY_RUN) == 98
+    assert len(DEPLOY_RUN) == 101
 
 
 def _fixture_values(mod, fn, stack):
@@ -432,3 +427,115 @@ def test_deploy_reference_body(body, tmp_path):
         paddle.seed(0)
         np.random.seed(0)
         fn(**kwargs)
+
+
+# The program tooling (ROADMAP A23b-5b): the ProgramDesc exporter and
+# importer, custom ops and C++ extensions, and the analysis CLI's
+# ``program`` lint.  A body carrying its file's ``slow`` mark keeps it.
+PROGRAM = {
+    "test_program_export.py": None,
+    "test_program_import.py": None,
+    "test_custom_op.py": None,
+    "test_analysis.py": ("TestSeededBugs::test_g001_dead_op_in_program",
+                         "TestGraphLintCLI::"
+                         "test_cli_exported_zoo_program_clean"),
+}
+_PE = "test_program_export.py::"
+_DEFAULT_CARD = ("builds {} on the default device, the card in the port; "
+                 "held with device='cpu' in test_torch_program_export.py")
+_JAX_FN = ("calls OPS[name].jax_fn, the JAX registry's body; the port's "
+           "is .body, held in ")
+PROGRAM_NOT_PORTED = {
+    **{_PE + t: _JNP + "test_torch_program_export.py" for t in (
+        "TestReviewRegressions::"
+        "test_dynamic_batch_mask_broadcast_stays_elementwise",
+        "TestReviewRegressions::test_tied_constant_serializes_once",
+        "TestReviewRegressions::test_trunc_rem_negative_operands",
+        "TestReviewRegressions::test_integer_bitwise_and_refuses",
+        "TestRound5NewHandlers::test_iota_cumsum_pad_roundtrip",
+        "TestRound5NewHandlers::test_split_roundtrip",
+        "TestRound5NewHandlers::test_scalar_literal_unary_folds",
+        "TestRound5NewHandlers::"
+        "test_deferred_literal_into_cumsum_materializes",
+        "TestIntLiteralPrecision::"
+        "test_big_int_literal_exports_exact_str_value",
+        "TestRound5ControlFlowExport::test_while_roundtrip",
+        "TestRound5ControlFlowExport::"
+        "test_split_dynamic_batch_axis_refuses",
+        "TestRound5ControlFlowExport::test_forced_expand_reemits_per_block",
+        "TestRound5BertPath::test_collapsed_literal_compare_select",
+        "TestRound5GeluFusion::test_half_scaled_product_does_not_misfuse",
+        "TestRound5LayerNormFusion::test_mean_reused_outside_declines",
+        "TestRound5LayerNormFusion::"
+        "test_shared_reduce_outside_chain_declines")},
+    _PE + "TestReviewRegressions::test_select_n_three_cases_refuses":
+        "calls jax.lax.select_n, a JAX primitive with no torch op (the "
+        "three-way select has no aten counterpart to refuse)",
+    _PE + "TestRound5Breadth::test_gpt_tiny_exports_to_reference_format":
+        _DEFAULT_CARD.format("gpt_tiny()"),
+    _PE + "TestRound5LlamaExport::test_llama_tiny_round_trips":
+        _DEFAULT_CARD.format("llama_tiny()"),
+    "test_program_import.py::TestFineTuneImported::"
+    "test_grad_through_conditional_block":
+        "differentiates the program with jax.grad; held with torch "
+        "autograd in test_torch_program_import.py",
+    **{f"test_program_import.py::TestDetectionOps::{t}":
+       _JAX_FN + "test_torch_program_import.py" for t in (
+           "test_yolo_box_nms_pipeline", "test_prior_box_and_box_coder")},
+    "test_custom_op.py::TestOpSchema::"
+    "test_every_registered_op_validates_or_is_documented":
+        _JAX_FN + "test_torch_op_sweep.py's schema sweep",
+    **{f"test_custom_op.py::TestAutotune::{t}":
+       "the Pallas autotune cache (ops/pallas/autotune.py) is not ported "
+       "by design (ROADMAP \"Not ported by design\")" for t in (
+           "test_pick_flag_off_returns_heuristic",
+           "test_pick_measures_and_caches_with_flag",
+           "test_heuristic_entry_does_not_block_later_tuning",
+           "test_failing_candidate_skipped",
+           "test_validate_screens_candidates_before_measure",
+           "test_validate_rejecting_all_keeps_original_list",
+           "test_save_file_is_atomic",
+           "test_flash_attention_still_correct")},
+}
+PROGRAM_BODIES = [b for b in _bodies(tuple(PROGRAM))
+                  if _selected(b, PROGRAM[b.split("::")[0]])]
+
+
+def _slow(body):
+    """Whether the reference test carries the ``slow`` mark."""
+    fname, *names = body.split("::")
+    src = open(os.path.join(HERE, fname)).read()
+    name = names[-1]
+    m = re.search(rf"(@pytest\.mark\.\w+[^\n]*\n\s*)*def {name}\(", src)
+    return m is not None and "@pytest.mark.slow" in m.group(0)
+
+
+PROGRAM_RUN = [pytest.param(b, marks=pytest.mark.slow) if _slow(b) else b
+               for b in PROGRAM_BODIES if b not in PROGRAM_NOT_PORTED]
+
+
+def test_the_program_bodies_are_collected_whole():
+    """Every body of the slice's selection is run or listed as not
+    ported, with the counts of ROADMAP A23b-5b."""
+    counts = {}
+    for b in PROGRAM_BODIES:
+        counts[b.split("::")[0]] = counts.get(b.split("::")[0], 0) + 1
+    assert counts == {"test_program_export.py": 39,
+                      "test_program_import.py": 32,
+                      "test_custom_op.py": 21, "test_analysis.py": 2}
+    assert set(PROGRAM_NOT_PORTED) <= set(PROGRAM_BODIES)
+    assert len(PROGRAM_RUN) == 63
+
+
+@pytest.mark.parametrize("body", PROGRAM_RUN)
+def test_program_reference_body(body, tmp_path, capsys):
+    fname, *names = body.split("::")
+    mod = _MODULES.get(fname) or _MODULES.setdefault(fname, _load(fname))
+    obj = getattr(mod, names[0])
+    fn = getattr(obj(), names[1]) if len(names) == 2 else obj
+    params = inspect.signature(fn).parameters
+    kwargs = {k: v for k, v in (("tmp_path", tmp_path), ("capsys", capsys))
+              if k in params}
+    paddle.seed(0)
+    np.random.seed(0)
+    fn(**kwargs)

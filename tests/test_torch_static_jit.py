@@ -344,13 +344,22 @@ def test_static_inference_model_formats(tmp_path):
     exe = static.Executor()
     np.testing.assert_allclose(exe.run(prog, feed={"x0": x})[0],
                                m(paddle.to_tensor(x)).numpy(), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="A23b-5b"):
-        static.save_inference_model(str(tmp_path / "r"),
-                                    [static.InputSpec([None, 8])], [m])
+    # InputSpec feeds write the reference ProgramDesc, which loads back
+    # through the importer and runs by its feed names
+    static.save_inference_model(str(tmp_path / "r"),
+                                [static.InputSpec([None, 8])], [m])
+    assert (tmp_path / "r.pdmodel").read_bytes()[:1] == b"\x0a"
+    prog, feeds, fetches = static.load_inference_model(str(tmp_path / "r"))
+    assert feeds == ["x0"] and len(fetches) == 1
+    np.testing.assert_allclose(exe.run(prog, feed={"x0": x})[0],
+                               m(paddle.to_tensor(x)).numpy(), rtol=1e-5,
+                               atol=1e-6)
+    # a 0x0a first byte routes to the ProgramDesc importer
     (tmp_path / "pd.pdmodel").write_bytes(b"\x0a\x02ab")
-    with pytest.raises(NotImplementedError, match="A23b-5b"):
-        static.load_inference_model(str(tmp_path / "pd"))
-    with pytest.raises(NotImplementedError, match="A23b-5b"):
+    prog, feeds, fetches = static.load_inference_model(str(tmp_path / "pd"))
+    assert type(prog).__name__ == "InferenceProgram"
+    assert (feeds, fetches) == ([], [])
+    with pytest.raises(NotImplementedError, match="intentionally"):
         static.program_guard()
     with pytest.raises(NotImplementedError, match="to_static"):
         paddle.enable_static()
