@@ -46,6 +46,8 @@ one NVIDIA GPU.
                                            # Profiler after the K-th
     python3 chip_smoke.py program          # only the program tooling
                                            # (no contract line)
+    python3 chip_smoke.py distributed      # only the distributed phase
+                                           # (no contract line)
 
 Run from the root of a checkout on a machine with a CUDA GPU and the
 CUDA toolkit.  Phases, each printing its own lines; any failure raises
@@ -216,6 +218,21 @@ and the script exits non-zero:
               per step, tokens/s, MFU, peak memory), one step under
               torch.profiler; the loss must fall and every attention
               and LayerNorm of every timed step launch its kernels;
+9b. distributed — the same GPT-124M steps (10) under ``DataParallel``
+              over a one-rank NCCL group, bitwise equal to unwrapped
+              (ms a step of both, a profiled step of each, the
+              buckets' all-reduce device ms);
+              then ``python -m paddle_tpu_torch.distributed.launch
+              --nproc_per_node 2`` starts two ranks on the one card
+              (gloo, ``distributed_rank``): every collective on CUDA
+              tensors against numpy, GPT-124M in f32 at 2 x 1024 (one
+              sequence a rank) for 3 AdamW steps under ``DataParallel``
+              and under ``p_g_os``, each within ``DIST_REL_TOL`` of one
+              process's steps over both sequences (ms a step, the
+              all-reduce's host share, each rank's peak and at-rest
+              bytes), the ZeRO-3 checkpoint written by both ranks and
+              loaded back bitwise (``python3 chip_smoke.py
+              distributed`` runs this group alone);
 10. tooling — the analysis tools over GPT-124M bf16 at the serving
               settings (``tooling_phase``): the serving burst inside
               ``warmup()``'s CaptureWatcher, ``analyze_engine`` with
@@ -332,7 +349,9 @@ B3's, B4a's and B4b's, and the deployment slice's f16 server run (B1),
 its int8-KV run (B5), the f16 FMT and the decode pass (B6), the IR
 passes' steps (B2, B3, B4a, B4b) and the predictor's runs (B2, B4a),
 and the program tooling's eager GPT-124M forward (B2, B4a) and its
-``register_pallas_op`` LayerNorm (B4a, B4b).
+``register_pallas_op`` LayerNorm (B4a, B4b), and the distributed phase's
+DataParallel steps at world size 1 and the two ranks' DataParallel and
+``p_g_os`` steps, summed over the ranks (B2, B3, B4a, B4b).
 The second-to-last
 line is that JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  The script imports only torch, numpy and the port.
@@ -4287,6 +4306,391 @@ def training_phase(dev, warmup=3, steps=10):
         raise RuntimeError(f"training loss did not fall: {losses}")
     if launches != want:
         raise RuntimeError(f"kernel launches {launches} != {want}")
+    return launches
+
+
+# ------------------------------------------------ the distributed slice --
+DIST_REL_TOL = 1e-4      # world size 2 (f32) against one process
+DIST_STEPS = 3
+
+
+def _gpt_dp_step(model, dp_model, lr):
+    """The training phase's ``_trainer`` for ``dp_model`` (``model``
+    wrapped) and its optimizer."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+
+    opt = optimizer.AdamW(learning_rate=lr, parameters=dp_model.parameters(),
+                          grad_clip=optimizer.ClipGradByGlobalNorm(1.0))
+    return TrainStep(dp_model, lambda lg, lb: model.loss(lg, lb), opt), opt
+
+
+def _rel_l2(a, b):
+    """||a - b|| / ||b|| in f64 (0 where both are 0)."""
+    a, b = a.double(), b.double()
+    den = float(b.norm())
+    return float((a - b).norm()) / den if den else float((a - b).norm())
+
+
+def _dist_world1_phase(dev, smi, steps=10):
+    """GPT-124M as the training phase sets it up (bf16 O2, AdamW 1e-4 +
+    global-norm clip, 8 x 1024) for ``steps`` steps unwrapped, then the
+    same steps from the same weights under ``DataParallel`` over a
+    one-rank NCCL group: losses and weights must be bitwise equal.
+    Prints ms a step of both (the steps after the first), one more step
+    of each under torch.profiler (device ms and busy share), the device
+    ms of the buckets' all-reduces a step (CUDA events over the same
+    buffers) and the DP run's kernel launches (the main path: counts
+    reset just before, read just after), which it returns."""
+    import torch
+    from torch import distributed as tdist
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.models.gpt import gpt_124m
+    from paddle_tpu_torch.ops.cuda import registry
+
+    rng = np.random.RandomState(2024)
+    batch, seq = 8, 1024
+
+    def build():
+        m = gpt_124m(device=dev, seed=0, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+        return amp.decorate(m, level="O2", dtype="bfloat16")
+
+    vocab = 50304
+    ids = torch.as_tensor(rng.randint(0, vocab, (batch, seq)), device=dev)
+    labels = torch.as_tensor(rng.randint(0, vocab, (batch, seq)),
+                             device=dev)
+
+    def run(wrap):
+        model = build()
+        target = dist.DataParallel(model) if wrap else model
+        step, _ = _gpt_dp_step(model, target, TRAIN_LR)
+        losses = [step(ids, labels).item()]
+        registry.reset_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        timed = [step(ids, labels) for _ in range(steps - 1)]
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = {k: registry.counts()[k] for k in _TRAIN_KERNELS}
+        losses += [x.item() for x in timed]
+        weights = {n: p.detach().clone() for n, p in
+                   model.named_parameters()}
+        ms = wall / (steps - 1) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(ids, labels)
+            torch.cuda.synchronize(dev)
+        prof_row = _device_profile(prof, 1, ms)
+        prof_row.pop("top_device_us_per_step")
+        return losses, weights, ms, launches, target, prof_row
+
+    env = dist.init_parallel_env(device=dev)
+    try:
+        assert dist.get_world_size() == 1 and env.device_id == dev.index
+        backend = tdist.get_backend()
+        plain_losses, plain_w, plain_ms, _, _, plain_prof = run(False)
+        torch.cuda.empty_cache()
+        dp_losses, dp_w, dp_ms, launches, dp, dp_prof = run(True)
+        bufs = [torch.empty(sum(dist.parallel._leaf(p).numel()
+                                for p in b.params),
+                            dtype=dist.parallel._leaf(b.params[0]).dtype,
+                            device=dev) for b in dp._buckets]
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        for f in bufs:
+            tdist.all_reduce(f)
+        reps = 10
+        start.record()
+        for _ in range(reps):
+            for f in bufs:
+                tdist.all_reduce(f)
+        end.record()
+        torch.cuda.synchronize(dev)
+        allreduce_ms = start.elapsed_time(end) / reps
+        bucket_bytes = [f.numel() * f.element_size() for f in bufs]
+    finally:
+        dist.destroy_process_group()
+    bitwise = (plain_losses == dp_losses
+               and all(torch.equal(plain_w[n], dp_w[n]) for n in plain_w))
+    want = _expected_train_launches(12, steps - 1)
+    say("distributed_world1", model="gpt_124m", dtype="bfloat16 (O2)",
+        backend=backend, batch=batch, seq=seq, steps=steps,
+        losses_plain=plain_losses, losses_dp=dp_losses,
+        bitwise_equal=bitwise, ms_per_step_plain=plain_ms,
+        ms_per_step_dp=dp_ms, profiled_step_plain=plain_prof,
+        profiled_step_dp=dp_prof, buckets=len(bufs),
+        bucket_bytes=bucket_bytes,
+        allreduce_device_ms_per_step=allreduce_ms,
+        kernel_launches=launches, expected_launches=want, nvidia_smi=smi)
+    if backend != "nccl":
+        raise RuntimeError(f"a one-card group formed over {backend}")
+    if not bitwise:
+        raise RuntimeError("DataParallel at world size 1 is not bitwise "
+                           "equal to the unwrapped steps")
+    if launches != want:
+        raise RuntimeError(f"kernel launches {launches} != {want}")
+    return launches
+
+
+def distributed_rank(out_dir):
+    """One rank of the world-size-2 check, started by the launcher
+    (``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2
+    chip_smoke.py distributed_rank DIR``), both ranks on card 0 over
+    gloo: every collective on CUDA tensors against numpy; GPT-124M in
+    f32, one sequence of 2 x 1024 a rank, ``DIST_STEPS`` AdamW steps
+    under ``DataParallel`` and then under ``p_g_os``, each against one
+    process's steps over both sequences (rank 0 runs those first); the
+    ZeRO-3 checkpoint written by both ranks, loaded back whole by rank 0
+    and compared with the gathered weights.  Writes its results to
+    ``DIR/rank<r>.json``."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.checkpoint import (load_state_dict,
+                                                         save_state_dict)
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import gpt_124m
+    from paddle_tpu_torch.ops.cuda import registry
+
+    dev = torch.device("cuda", 0)
+    env = dist.init_parallel_env(device="cuda:0", timeout=600)
+    rank, world = env.rank, env.world_size
+    out = {"rank": rank, "world": world,
+           "backend": torch.distributed.get_backend()}
+
+    # the collectives on CUDA tensors, each against numpy
+    x = np.arange(8, dtype=np.float32)[rank * 4:(rank + 1) * 4]
+    other = np.arange(8, dtype=np.float32)[(1 - rank) * 4:(2 - rank) * 4]
+    T = lambda a: paddle.to_tensor(a, place=dev)  # noqa: E731
+    checks = {}
+    for op, fn in (("sum", np.add), ("max", np.maximum),
+                   ("min", np.minimum), ("prod", np.multiply),
+                   ("avg", lambda a, b: (a + b) / 2)):
+        got = dist.all_reduce(T(x + 1), op=op).numpy()
+        checks[f"all_reduce_{op}"] = bool(np.allclose(
+            got, fn(x + 1, other + 1)))
+    raw = torch.as_tensor(x, device=dev)
+    dist.all_reduce(raw)
+    checks["all_reduce_raw"] = bool(np.array_equal(raw.cpu().numpy(),
+                                                   x + other))
+    checks["psum_28"] = float(dist.all_reduce(T(np.float32(x.sum())))
+                              .numpy()) == 28.0
+    checks["all_gather"] = bool(np.array_equal(
+        dist.all_gather([], T(x)).numpy(), np.arange(8.0)))
+    checks["reduce_scatter"] = bool(np.array_equal(
+        dist.reduce_scatter(None, T(np.ones(8, np.float32))).numpy(),
+        2.0 * np.ones(4)))
+    checks["broadcast"] = bool(np.array_equal(
+        dist.broadcast(T(x), src=1).numpy(), np.arange(4.0, 8.0)))
+    red = dist.reduce(T(x), dst=0).numpy()
+    checks["reduce"] = bool(np.array_equal(red, x + other if rank == 0
+                                           else x))
+    parts = [T(np.full(2, 10.0 * i, np.float32)) for i in range(world)]
+    checks["scatter"] = bool(np.array_equal(
+        dist.scatter(T(np.zeros(2, np.float32)),
+                     parts if rank == 0 else None, src=0).numpy(),
+        np.full(2, 10.0 * rank)))
+    a2a = dist.alltoall(T(x))
+    checks["alltoall"] = bool(np.array_equal(
+        a2a.numpy(), np.concatenate([np.arange(8.0)[2 * rank:2 * rank + 2],
+                                     np.arange(8.0)[4 + 2 * rank:
+                                                    6 + 2 * rank]])))
+    if rank == 0:
+        dist.send(T(x), dst=1)
+        checks["send_recv"] = True
+    else:
+        got = T(np.zeros(4, np.float32))
+        dist.recv(got, src=0)
+        checks["send_recv"] = bool(np.array_equal(got.numpy(), other))
+    checks["p2p_permute"] = bool(np.array_equal(
+        dist.p2p_permute(T(x), [(0, 1), (1, 0)]).numpy(), other))
+    objs = []
+    dist.all_gather_object(objs, rank)
+    checks["all_gather_object"] = objs == [0, 1]
+    dist.barrier()
+    out["collectives"] = checks
+
+    # GPT-124M in f32: one sequence a rank; rank 0 first runs one process
+    # over both sequences from the same weights
+    rng = np.random.RandomState(77)
+    ids = torch.as_tensor(rng.randint(0, 50304, (2, 1024)), device=dev)
+    labels = torch.as_tensor(rng.randint(0, 50304, (2, 1024)), device=dev)
+    mine = slice(rank, rank + 1)
+    lr = TRAIN_LR
+
+    def build():
+        return gpt_124m(device=dev, seed=0, hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0)
+
+    ref_losses, ref_w = None, None
+    if rank == 0:
+        model = build()
+        step, _ = _gpt_dp_step(model, model, lr)
+        ref_losses = [step(ids, labels).item() for _ in range(DIST_STEPS)]
+        ref_w = {n: p.detach().clone() for n, p in model.named_parameters()}
+        del model, step
+        torch.cuda.empty_cache()
+
+    def against(losses, weights):
+        """(mean loss rel err a step, rel L2 of all the weights, the
+        largest per-parameter rel L2) of the ranks' run against rank 0's
+        one-process run.  A parameter whose gradient is rounding noise
+        (the key bias: softmax ignores it) keeps a tiny norm that Adam's
+        normalised steps fill with that noise, so the bound is on the
+        whole model's weights."""
+        allc = []
+        dist.all_gather_object(allc, losses)
+        if rank:
+            return None, None, None
+        mean = np.mean(allc, axis=0)
+        loss_rel = max(abs(m - r) / abs(r) for m, r in zip(mean, ref_losses))
+        num = sum(float((weights[n].double() - ref_w[n].double()).square()
+                        .sum()) for n in ref_w)
+        den = sum(float(ref_w[n].double().square().sum()) for n in ref_w)
+        return (loss_rel, (num / den) ** 0.5,
+                max(_rel_l2(weights[n], ref_w[n]) for n in ref_w))
+
+    def run(level):
+        model = build()
+        target = dist.DataParallel(model) if level == "dp" else model
+        step, opt = _gpt_dp_step(model, target, lr)
+        if level != "dp":
+            target, opt, _ = group_sharded_parallel(target, opt, level=level)
+            step = TrainStep(target, lambda lg, lb: model.loss(lg, lb), opt)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        losses = [step(ids[mine], labels[mine]).item()]
+        registry.reset_counts()
+        if level == "dp":
+            target.stats["allreduce_s"] = 0.0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        losses += [step(ids[mine], labels[mine]).item()
+                   for _ in range(DIST_STEPS - 1)]
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = {k: registry.counts()[k] for k in _TRAIN_KERNELS}
+        rec = {"losses": losses, "ms_per_step": wall / (DIST_STEPS - 1)
+               * 1e3, "launches": launches,
+               "peak_bytes": torch.cuda.max_memory_allocated(dev),
+               "state_bytes_at_rest": torch.cuda.memory_allocated(dev)
+               - base + sum(p.numel() * p.element_size()
+                            for p in model.parameters()
+                            if p.untyped_storage().nbytes())}
+        if level == "dp":
+            rec["allreduce_host_share"] = (target.stats["allreduce_s"]
+                                           / wall)
+        if level == "p_g_os":
+            sd = target.state_dict()
+            weights = {n: v for n, v in sd.items()}
+            ckpt = os.path.join(out_dir, "zero3")
+            save_state_dict(sd, ckpt)
+            dist.barrier()
+            if rank == 0:
+                back = load_state_dict(ckpt)
+                rec["checkpoint_bitwise"] = all(
+                    torch.equal(back[n].to(dev), weights[n]) for n in weights)
+        else:
+            weights = {n: p.detach() for n, p in model.named_parameters()}
+        (rec["loss_rel"], rec["weight_rel_l2"],
+         rec["worst_param_rel_l2"]) = against(losses, weights)
+        del model, target, step, opt
+        torch.cuda.empty_cache()
+        return rec
+
+    out["dp"] = run("dp")
+    out["p_g_os"] = run("p_g_os")
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _dist_launcher_phase(smi):
+    """The world-size-2 check (``distributed_rank``) through the
+    launcher; returns the ranks' kernel launches, summed."""
+    import shutil
+
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_distributed")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", "--log_dir",
+         os.path.join(out_dir, "logs"), os.path.join(ROOT, "chip_smoke.py"),
+         "distributed_rank", out_dir],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        for r in range(2):
+            log = os.path.join(out_dir, "logs", f"workerlog.{r}")
+            if os.path.exists(log):
+                print(f"--- rank {r} log ---\n" + open(log).read()[-4000:],
+                      flush=True)
+        raise RuntimeError(f"the launcher's ranks failed "
+                           f"({proc.returncode}): {proc.stderr[-2000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    say("distributed_world2", model="gpt_124m", dtype="float32",
+        backend=r0["backend"], devices="both ranks on cuda:0",
+        batch="2 x 1024, one sequence a rank", steps=DIST_STEPS,
+        launcher_wall_s=wall,
+        collectives={k: all(r["collectives"][k] for r in ranks)
+                     for k in r0["collectives"]},
+        **{f"{level}_{k}": [r[level].get(k) for r in ranks]
+           for level in ("dp", "p_g_os")
+           for k in ("ms_per_step", "peak_bytes", "state_bytes_at_rest",
+                     "allreduce_host_share", "launches")},
+        **{f"{level}_{k}": r0[level][k] for level in ("dp", "p_g_os")
+           for k in ("loss_rel", "weight_rel_l2", "worst_param_rel_l2")},
+        zero3_checkpoint_bitwise=r0["p_g_os"]["checkpoint_bitwise"],
+        rel_tol=DIST_REL_TOL, nvidia_smi=smi)
+    bad = [k for r in ranks for k, ok in r["collectives"].items() if not ok]
+    if bad or any(r["backend"] != "gloo" or r["world"] != 2 for r in ranks):
+        raise RuntimeError(f"collectives on CUDA tensors failed: {bad}")
+    for level in ("dp", "p_g_os"):
+        if not (r0[level]["loss_rel"] <= DIST_REL_TOL
+                and r0[level]["weight_rel_l2"] <= DIST_REL_TOL):
+            raise RuntimeError(f"world size 2 {level} drifted from one "
+                               f"process: {r0[level]}")
+    if not r0["p_g_os"]["checkpoint_bitwise"]:
+        raise RuntimeError("the ZeRO-3 checkpoint did not load back "
+                           "bitwise")
+    want = _expected_train_launches(12, DIST_STEPS - 1)
+    launches = {k: 0 for k in _TRAIN_KERNELS}
+    for r in ranks:
+        for level in ("dp", "p_g_os"):
+            if r[level]["launches"] != want:
+                raise RuntimeError(f"rank {r['rank']} {level} launches "
+                                   f"{r[level]['launches']} != {want}")
+            for k in launches:
+                launches[k] += r[level]["launches"][k]
+    return launches
+
+
+def distributed_phases(dev, smi):
+    """The distributed slice: DataParallel at world size 1 over NCCL
+    (bitwise against unwrapped), then two gloo ranks on the card through
+    the launcher (collectives, DataParallel and p_g_os against one
+    process, the ZeRO-3 checkpoint).  Returns B2/B3/B4a/B4b launches of
+    both, summed."""
+    import torch
+
+    launches = _dist_world1_phase(dev, smi)
+    torch.cuda.empty_cache()
+    for k, n in _dist_launcher_phase(smi).items():
+        launches[k] += n
     return launches
 
 
@@ -9486,6 +9890,10 @@ def main():
         raise SystemExit("chip_smoke: run from a checkout that holds "
                          "paddle_tpu_torch/")
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["distributed_rank"] and len(sys.argv) == 3:
+        # one rank of the distributed phase, started by the launcher
+        distributed_rank(sys.argv[2])
+        return
     import torch
 
     name, smi = device_phase()
@@ -9557,6 +9965,12 @@ def main():
     if sys.argv[1:] == ["program"]:
         build_phase()
         program_phases(dev, smi)
+        return
+    if sys.argv[1:] == ["distributed"]:
+        build_phase()
+        t0 = time.perf_counter()
+        distributed_phases(dev, smi)
+        say("lap", after="distributed", seconds=time.perf_counter() - t0)
         return
     if sys.argv[1:] == ["ops"]:
         build_phase()
@@ -9646,6 +10060,13 @@ def main():
     torch.cuda.empty_cache()
     launches.update(training_phase(dev))
     lap("training")
+    torch.cuda.empty_cache()
+    # and the distributed slice: GPT-124M under DataParallel at world
+    # size 1 (NCCL) and the two gloo ranks' DataParallel and p_g_os runs
+    # through the launcher (B2, B3, B4a, B4b), each counted alone
+    for kernel, n in distributed_phases(dev, smi).items():
+        launches[kernel] += n
+    lap("distributed")
     torch.cuda.empty_cache()
     # and the eager Paddle API's BERT-base paths: the timed training steps
     # (B4a, B4b) and the eval forward (B2, B4a), each counted alone

@@ -1,8 +1,7 @@
 """paddle.incubate (port of ``paddle_tpu/incubate``): ``asp``,
 ``autograd``, ``nn`` (``FusedMultiTransformer`` and ``functional``'s
 fused functions), ``LookAhead`` and ``ModelAverage``.
-``incubate.distributed`` waits for the port's ``distributed`` (ROADMAP
-A23b-6)."""
+``incubate.distributed`` waits for ROADMAP A23b-6c."""
 
 from . import asp, autograd, nn  # noqa: F401
 from .optimizer import LookAhead, ModelAverage  # noqa: F401

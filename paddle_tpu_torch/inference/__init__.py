@@ -58,10 +58,10 @@ class Config:
 
     def enable_dist_inference(self, mesh, batch_axis="dp"):
         """Distributed inference over a device mesh: the collectives and
-        meshes come with ``distributed`` (ROADMAP A23b-6)."""
+        meshes over the port's groups come with ROADMAP A23b-6c."""
         raise NotImplementedError(
-            "enable_dist_inference needs the port's distributed mesh, "
-            "which comes with ROADMAP A23b-6")
+            "enable_dist_inference is not ported yet: it comes with "
+            "ROADMAP A23b-6c")
 
     def switch_ir_optim(self, flag=True):
         pass  # the traced program is what runs

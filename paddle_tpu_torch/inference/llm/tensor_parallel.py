@@ -49,6 +49,7 @@ import time
 import numpy as np
 import torch
 
+from ...distributed.group import _group, mp_backend
 from ...framework.device import resolve_device
 from .faults import PoolLostError
 
@@ -235,29 +236,6 @@ def resolve_mesh(tensor_parallel=None, mesh=None, device=None):
     for d in set(devs):
         resolve_device(d)
     return devs
-
-
-def mp_backend(devices):
-    """The ``mp`` group's backend: NCCL when every rank has a CUDA device
-    of its own, gloo otherwise (ranks sharing a card, or on the CPU)."""
-    if devices[0].type == "cuda" and len(set(devices)) == len(devices):
-        return "nccl"
-    return "gloo"
-
-
-def _group(backend, store, name, rank, size, timeout):
-    from torch import distributed as dist
-
-    prefixed = dist.PrefixStore(name, store)
-    if backend == "nccl":
-        opts = dist.ProcessGroupNCCL.Options()
-        opts._timeout = timeout
-        return dist.ProcessGroupNCCL(prefixed, rank, size, opts)
-    opts = dist.ProcessGroupGloo._Options()
-    opts._timeout = timeout
-    opts._devices = [dist.ProcessGroupGloo.create_device(
-        hostname="127.0.0.1")]
-    return dist.ProcessGroupGloo(prefixed, rank, size, opts)
 
 
 class _Channel:

@@ -39,7 +39,7 @@ class GPTConfig:
         if sequence_parallel or cp_mode is not None:
             raise NotImplementedError(
                 "sequence_parallel and cp_mode are not ported yet: they "
-                "come with the distributed slice (ROADMAP A23b-6)")
+                "come with the distributed slice (ROADMAP A23b-6b)")
         self.sequence_parallel = sequence_parallel
         self.use_flash_attention = use_flash_attention
         self.cp_mode = cp_mode

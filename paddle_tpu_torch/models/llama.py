@@ -39,7 +39,7 @@ class LlamaConfig:
         if sequence_parallel:
             raise NotImplementedError(
                 "sequence_parallel is not ported yet: it comes with the "
-                "tensor-parallel slice")
+                "distributed slice (ROADMAP A23b-6b)")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers

@@ -23,6 +23,16 @@ def _dims(x, axis):
     return (int(axis),)  # noqa: H001 (int attrs by contract)
 
 
+def _reduction(x, axis, keepdim):
+    """(x, dims, keepdim) for a torch reduction of ``axis``.  An empty
+    axis list reduces nothing, as in JAX (torch reads ``dim=()`` as every
+    dim): x gains a leading unit axis, the only one reduced, so the op
+    keeps its own dtype rules and gives x's shape."""
+    if isinstance(axis, (list, tuple)) and not axis:
+        return x.unsqueeze(0), (0,), False
+    return x, _dims(x, axis), keepdim
+
+
 def _flat_axis(x, axis):
     """(x flattened, 0) when ``axis`` is None, else (x, axis)."""
     return (x.reshape(-1), 0) if axis is None else (x, axis)
@@ -409,20 +419,24 @@ def sum_(x, axis=None, dtype=None, keepdim=False):
     dtype = convert_dtype(dtype)
     if dtype is None and x.dtype == torch.bool:
         dtype = torch.int64
-    return torch.sum(x, dim=_dims(x, axis), keepdim=keepdim, dtype=dtype)
+    x, dims, keepdim = _reduction(x, axis, keepdim)
+    return torch.sum(x, dim=dims, keepdim=keepdim, dtype=dtype)
 
 @op()
 def nansum(x, axis=None, dtype=None, keepdim=False):
-    return torch.nansum(x, dim=_dims(x, axis), keepdim=keepdim,
+    x, dims, keepdim = _reduction(x, axis, keepdim)
+    return torch.nansum(x, dim=dims, keepdim=keepdim,
                         dtype=convert_dtype(dtype))
 
 @op()
 def mean(x, axis=None, keepdim=False):
-    return torch.mean(x, dim=_dims(x, axis), keepdim=keepdim)
+    x, dims, keepdim = _reduction(x, axis, keepdim)
+    return torch.mean(x, dim=dims, keepdim=keepdim)
 
 @op()
 def nanmean(x, axis=None, keepdim=False):
-    return torch.nanmean(x, dim=_dims(x, axis), keepdim=keepdim)
+    x, dims, keepdim = _reduction(x, axis, keepdim)
+    return torch.nanmean(x, dim=dims, keepdim=keepdim)
 
 @op()
 def prod(x, axis=None, keepdim=False, dtype=None):
@@ -434,36 +448,45 @@ def prod(x, axis=None, keepdim=False, dtype=None):
 
 @op("max")
 def max_(x, axis=None, keepdim=False):
-    return torch.amax(x, dim=_dims(x, axis), keepdim=keepdim)
+    x, dims, keepdim = _reduction(x, axis, keepdim)
+    return torch.amax(x, dim=dims, keepdim=keepdim)
 
 @op("min")
 def min_(x, axis=None, keepdim=False):
-    return torch.amin(x, dim=_dims(x, axis), keepdim=keepdim)
+    x, dims, keepdim = _reduction(x, axis, keepdim)
+    return torch.amin(x, dim=dims, keepdim=keepdim)
 
 @op()
 def amax(x, axis=None, keepdim=False):
-    return torch.amax(x, dim=_dims(x, axis), keepdim=keepdim)
+    x, dims, keepdim = _reduction(x, axis, keepdim)
+    return torch.amax(x, dim=dims, keepdim=keepdim)
 
 @op()
 def amin(x, axis=None, keepdim=False):
-    return torch.amin(x, dim=_dims(x, axis), keepdim=keepdim)
+    x, dims, keepdim = _reduction(x, axis, keepdim)
+    return torch.amin(x, dim=dims, keepdim=keepdim)
 
 @op()
 def logsumexp(x, axis=None, keepdim=False):
-    return torch.logsumexp(x, dim=_dims(x, axis), keepdim=keepdim)
+    x, dims, keepdim = _reduction(x, axis, keepdim)
+    return torch.logsumexp(x, dim=dims, keepdim=keepdim)
 
 @op()
 def std(x, axis=None, unbiased=True, keepdim=False):
-    return torch.std(x, dim=_dims(x, axis), correction=1 if unbiased else 0,
+    x, dims, keepdim = _reduction(x, axis, keepdim)
+    return torch.std(x, dim=dims, correction=1 if unbiased else 0,
                      keepdim=keepdim)
 
 @op()
 def var(x, axis=None, unbiased=True, keepdim=False):
-    return torch.var(x, dim=_dims(x, axis), correction=1 if unbiased else 0,
+    x, dims, keepdim = _reduction(x, axis, keepdim)
+    return torch.var(x, dim=dims, correction=1 if unbiased else 0,
                      keepdim=keepdim)
 
 
 def _quantile(fn, x, q, axis, keepdim):
+    if isinstance(axis, (list, tuple)) and not axis:
+        return fn(x.unsqueeze(0), q, dim=0)
     if axis is None:
         out = fn(x.reshape(-1), q)
         return out.reshape([1] * x.dim()) if keepdim else out

@@ -11,8 +11,7 @@ kinks and ties (``math.jabs``/``jmaximum``/``jclip``).  The random ops
 the tensor's device, or one seeded with ``seed`` where the JAX op takes
 a fixed key; they agree with the JAX ops in distribution, not draw for
 draw.  The collective names resolve lazily against
-``distributed/communication.py``, as in the JAX package; until that
-module is ported (ROADMAP A23b-6) a call raises ``NotImplementedError``.
+``distributed/communication.py``, as in the JAX package.
 """
 
 import importlib
@@ -26,7 +25,7 @@ from ..framework.device import current_device
 from ..framework.dtype import convert_dtype
 from ..framework.random import generator
 from .dispatch import apply_op
-from .math import jabs, jclip, jmaximum
+from .math import _reduction, jabs, jclip, jmaximum
 from .registry import op, register_external
 
 _tF = torch.nn.functional
@@ -303,6 +302,7 @@ def p_norm(x, porder=2.0, axis=-1, epsilon=1e-12, keepdim=False,
     xf = x.float()
     if asvector:
         xf, axis = xf.reshape(-1), 0
+    xf, axis, keepdim = _reduction(xf, axis, keepdim)
     if porder == float("inf"):
         out = jabs(xf).amax(dim=axis, keepdim=keepdim)
     elif porder == float("-inf"):
@@ -317,9 +317,9 @@ def p_norm(x, porder=2.0, axis=-1, epsilon=1e-12, keepdim=False,
 
 @op()
 def frobenius_norm(x, axis=None, keepdim=False):
-    ax = tuple(axis) if axis is not None else tuple(range(x.dim()))
-    return torch.sqrt(torch.square(x.float()).sum(
-        dim=ax, keepdim=keepdim)).to(x.dtype)
+    xf, ax, keepdim = _reduction(x.float(), axis, keepdim)
+    return torch.sqrt(torch.square(xf).sum(dim=ax, keepdim=keepdim)
+                      ).to(x.dtype)
 
 
 @op()
@@ -745,15 +745,9 @@ register_external("dirichlet", dirichlet)
 
 def _lazy(module_path, fname):
     """``module_path``'s ``fname``, imported at the first call (the
-    module loads after ops).  Only ``distributed.communication`` can be
-    missing: it is ROADMAP A23b-6."""
+    module loads after ops)."""
     def f(*a, **k):
-        try:
-            mod = importlib.import_module(module_path, package=__package__)
-        except ModuleNotFoundError as e:
-            raise NotImplementedError(
-                f"{fname}: paddle_tpu_torch{module_path[1:]} is not ported "
-                f"yet (ROADMAP A23b-6)") from e
+        mod = importlib.import_module(module_path, package=__package__)
         return getattr(mod, fname)(*a, **k)
     f.__name__ = fname
     return f
@@ -782,7 +776,7 @@ def _register_aliases():
 
     register_external("assign_value_", assign_value_)
 
-    # collective op names -> the communication wrappers (A23b-6)
+    # collective op names -> the communication wrappers
     comm = "..distributed.communication"
     for name, fname in (("all_reduce", "all_reduce"),
                         ("all_gather", "all_gather"),

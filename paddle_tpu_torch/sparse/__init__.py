@@ -516,7 +516,7 @@ def _install_depth():
     class SyncBatchNorm(BatchNorm):
         """Sparse sync BN (sparse sync_batch_norm_kernel.h): on one card
         it equals BatchNorm; cross-card statistics wait for the port's
-        ``distributed`` (ROADMAP A23b-6)."""
+        ``distributed`` (ROADMAP A23b-6c)."""
 
     nn.Conv3D = Conv3D
     nn.SubmConv3D = SubmConv3D

@@ -2023,8 +2023,53 @@ def _sdpa_math(query, key, value, attn_mask=None, dropout_p=0.0,
     return torch.matmul(torch.softmax(logits, dim=-1), value)
 
 
+def _var(x, dim=None, *, correction=None, keepdim=False):
+    """``aten.var`` as ``jnp.var``'s equations: the mean, the sum of the
+    squared deviations over n - correction, and NaN where that count is
+    not positive (GroupNorm and InstanceNorm reach it)."""
+    dims = list(range(x.dim())) if dim is None else \
+        [int(d) % x.dim() for d in dim]
+    n = 1
+    for d in dims:
+        n *= x.shape[d]
+    mean = torch.sum(x, dims, keepdim=True) / n
+    ss = torch.sum(torch.square(x - mean), dims, keepdim=keepdim)
+    count = torch.full((), n - (1.0 if correction is None
+                                else float(correction)),
+                       dtype=x.dtype, device=x.device)
+    nan = torch.full((), float("nan"), dtype=x.dtype, device=x.device)
+    return torch.where(count > 0, ss / count, nan)
+
+
+def _var_dim(x, dim=None, unbiased=True, keepdim=False):
+    return _var(x, dim, correction=1 if unbiased else 0, keepdim=keepdim)
+
+
+def _logaddexp(a, b):
+    """``aten.logaddexp`` as ``jnp.logaddexp``'s equations: max(a, b) +
+    log1p(exp(-|a - b|)), and a + b where a - b is NaN (Mish reaches
+    it)."""
+    d = a - b
+    out = torch.maximum(a, b) + torch.log1p(torch.exp(-torch.abs(d)))
+    return torch.where(d != d, a + b, out)
+
+
+def _log_sigmoid_forward(x):
+    """``aten.log_sigmoid_forward`` as ``jax.nn.log_sigmoid``:
+    -softplus(-x), softplus being logaddexp(., 0).  The buffer output
+    (the backward's) is empty."""
+    out = -_logaddexp(-x, torch.zeros_like(x))
+    return out, torch.zeros((0,), dtype=x.dtype, device=x.device)
+
+
 DECOMPOSITIONS = {
     torch.ops.aten.scaled_dot_product_attention.default: _sdpa_math,
+    torch.ops.aten.var.correction: _var,
+    torch.ops.aten.var.dim: _var_dim,
+    torch.ops.aten.var.default:
+        lambda x, unbiased=True: _var_dim(x, None, unbiased),
+    torch.ops.aten.logaddexp.default: _logaddexp,
+    torch.ops.aten.log_sigmoid_forward.default: _log_sigmoid_forward,
 }
 
 

@@ -477,6 +477,10 @@ def _reduce(fn):
         keep = attrs.get("keep_dim", False)
         if attrs.get("reduce_all", False):
             return fn(ins["X"], None, keep)
+        if not dims:
+            # an empty dim list reduces nothing, as in JAX (torch reads
+            # dim=() as every dim): reduce a new unit axis instead
+            return fn(ins["X"].unsqueeze(0), [0], False)
         return fn(ins["X"], dims, keep)
     return run
 

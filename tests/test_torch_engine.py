@@ -45,6 +45,14 @@ import paddle_tpu.strings as jax_strings
 import paddle_tpu.geometric as jax_geometric
 import paddle_tpu.inference.serving as jax_serving
 import paddle_tpu.version as jax_version
+import paddle_tpu.distributed.store as jax_store
+import paddle_tpu.distributed.spawn as jax_spawn
+import paddle_tpu.distributed.rpc as jax_rpc
+import paddle_tpu.distributed.fleet.utils.timer_helper as jax_timer_helper
+import paddle_tpu.distributed.fleet.distributed_strategy as jax_dist_strategy
+import paddle_tpu.distributed.fleet.elastic as jax_elastic
+import paddle_tpu.distributed.auto_parallel.strategy as jax_ap_strategy
+import paddle_tpu.distributed.launch.main as jax_launch_main
 import paddle_tpu.io.sampler as jax_sampler
 import paddle_tpu.linalg as jax_linalg_ns
 import paddle_tpu.nn.pooling as jax_pooling
@@ -89,6 +97,14 @@ import paddle_tpu_torch.strings as port_strings
 import paddle_tpu_torch.geometric as port_geometric
 import paddle_tpu_torch.inference.serving as port_serving
 import paddle_tpu_torch.version as port_version
+import paddle_tpu_torch.distributed.store as port_store
+import paddle_tpu_torch.distributed.spawn as port_spawn
+import paddle_tpu_torch.distributed.rpc as port_rpc
+import paddle_tpu_torch.distributed.fleet.utils.timer_helper as port_timer_helper
+import paddle_tpu_torch.distributed.fleet.distributed_strategy as port_dist_strategy
+import paddle_tpu_torch.distributed.fleet.elastic as port_elastic
+import paddle_tpu_torch.distributed.auto_parallel.strategy as port_ap_strategy
+import paddle_tpu_torch.distributed.launch.main as port_launch_main
 import paddle_tpu_torch.io.sampler as port_sampler
 import paddle_tpu_torch.linalg as port_linalg_ns
 import paddle_tpu_torch.nn.pooling as port_pooling
@@ -439,7 +455,15 @@ def test_default_device_needs_cuda(models, monkeypatch):
     (jax_vision_datasets, port_vision_datasets),
     (jax_native, port_native), (jax_strings, port_strings),
     (jax_geometric, port_geometric), (jax_serving, port_serving),
-    (jax_version, port_version)])
+    (jax_version, port_version),
+    (jax_store, port_store),
+    (jax_spawn, port_spawn),
+    (jax_rpc, port_rpc),
+    (jax_timer_helper, port_timer_helper),
+    (jax_dist_strategy, port_dist_strategy),
+    (jax_elastic, port_elastic),
+    (jax_ap_strategy, port_ap_strategy),
+    (jax_launch_main, port_launch_main)])
 def test_host_modules_are_verbatim_copies(jax_mod, port_mod):
     assert inspect.getsource(port_mod) == inspect.getsource(jax_mod)
 

@@ -374,13 +374,26 @@ def test_alpha_dropout_eval_and_p0_are_identity():
 
 
 def test_collectives_raise_until_distributed_is_ported():
-    """The seven collective names are registered lazily against
-    ``distributed.communication``, which is ROADMAP A23b-6."""
+    """The seven collective names resolve lazily against
+    ``distributed.communication`` (ported with ROADMAP A23b-6a): in a
+    job of one process each is the JAX module's identity, and the two
+    ``p_recv`` names raise as ``recv`` does there (no peer)."""
+    from paddle_tpu_torch.distributed import communication as comm
     from paddle_tpu_torch.ops.registry import OPS
-    for name in ("all_reduce", "all_gather", "broadcast", "reduce",
-                 "reduce_scatter", "p_recv", "p_recv_array"):
-        with pytest.raises(NotImplementedError, match="A23b-6"):
-            OPS[name].user_fn(P.to_tensor(np.ones(2, np.float32)))
+    x = np.arange(4, dtype=np.float32)
+    for name in ("all_reduce", "broadcast", "reduce"):
+        t = P.to_tensor(x)
+        assert OPS[name].user_fn(t) is t
+        np.testing.assert_array_equal(t.numpy(), x)
+    np.testing.assert_array_equal(
+        OPS["all_gather"].user_fn(None, P.to_tensor(x)).numpy(), x)
+    np.testing.assert_array_equal(
+        OPS["reduce_scatter"].user_fn(None, P.to_tensor(x)).numpy(), x)
+    for name in ("p_recv", "p_recv_array"):
+        assert OPS[name].user_fn.__name__ == "recv"
+        with pytest.raises(RuntimeError, match="needs a peer"):
+            OPS[name].user_fn(P.to_tensor(x))
+    assert OPS["all_reduce"].user_fn.__name__ == comm.all_reduce.__name__
 
 
 def test_decode_jpeg_mirrors_the_jax_host_op():

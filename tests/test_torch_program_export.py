@@ -109,6 +109,19 @@ LAYERS = {
                       [(2, 1, 4, 4), (5, 1, 4, 4)], 1e-5),
     "conv_transpose": (_deconv, ([None, 3, 8, 8], "float32"),
                        [(1, 3, 8, 8), (2, 3, 8, 8)], 1e-5),
+    # the four layers the exporter refused (ROADMAP C15): aten.var
+    # (GroupNorm, InstanceNorm2D), aten.logaddexp (Mish) and
+    # aten.log_sigmoid_forward (LogSigmoid)
+    "group_norm": (lambda ns: ns.Sequential(ns.GroupNorm(2, 4)),
+                   ([None, 4, 3, 3], "float32"),
+                   [(2, 4, 3, 3), (5, 4, 3, 3)], 1e-5),
+    "instance_norm": (lambda ns: ns.Sequential(ns.InstanceNorm2D(4)),
+                      ([None, 4, 3, 3], "float32"),
+                      [(2, 4, 3, 3), (5, 4, 3, 3)], 1e-5),
+    "mish": (lambda ns: ns.Sequential(ns.Mish()), ([None, 6], "float32"),
+             [(2, 6), (7, 6)], 1e-5),
+    "log_sigmoid": (lambda ns: ns.Sequential(ns.LogSigmoid()),
+                    ([None, 6], "float32"), [(2, 6), (7, 6)], 1e-5),
 }
 
 
@@ -123,6 +136,17 @@ def test_layers_go_both_ways_with_jax_op_counts(name, tmp_path):
     pops, jops = _both_ways(tmp_path, pm, jm, spec, feeds, tol)
     assert _counts(pops) == _counts(jops)
     assert pops[0] == "feed" and pops[-1] == "fetch"
+    if name in ("mish", "log_sigmoid"):
+        # logaddexp's equations, op for op
+        assert sorted(pops) == sorted(jops)
+    elif name in ("group_norm", "instance_norm"):
+        # jnp.var's equations, but for its guard on n - ddof > 0: the
+        # count is known at export and the port folds it (no
+        # fill_constant / greater_than / where)
+        assert set(pops) <= set(jops)
+        assert {k: pops.count(k) for k in ("reduce_sum", "square",
+                                           "rsqrt")} == \
+            {k: jops.count(k) for k in ("reduce_sum", "square", "rsqrt")}
 
 
 def test_gpt_tiny_both_ways(tmp_path):

@@ -117,6 +117,24 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import paddle_tpu_torch.utils, paddle_tpu_torch.utils.custom_op\n"
         "import paddle_tpu_torch.utils.cpp_extension\n"
         "import paddle_tpu_torch.cost_model\n"
+        "import paddle_tpu_torch.distributed.group\n"
+        "import paddle_tpu_torch.distributed.communication\n"
+        "import paddle_tpu_torch.distributed.parallel\n"
+        "import paddle_tpu_torch.distributed.checkpoint\n"
+        "import paddle_tpu_torch.distributed.sharding\n"
+        "import paddle_tpu_torch.distributed.store\n"
+        "import paddle_tpu_torch.distributed.spawn\n"
+        "import paddle_tpu_torch.distributed.rpc\n"
+        "import paddle_tpu_torch.distributed.launch\n"
+        "import paddle_tpu_torch.distributed.launch.main\n"
+        "import paddle_tpu_torch.distributed.fleet\n"
+        "import paddle_tpu_torch.distributed.fleet.utils\n"
+        "import paddle_tpu_torch.distributed.fleet.utils.timer_helper\n"
+        "import paddle_tpu_torch.distributed.fleet.distributed_strategy\n"
+        "import paddle_tpu_torch.distributed.fleet.elastic\n"
+        "import paddle_tpu_torch.distributed.auto_parallel\n"
+        "import paddle_tpu_torch.distributed.auto_parallel.strategy\n"
+        "import paddle_tpu_torch.distributed.ps\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.') or m == 'google.protobuf' or "

@@ -84,17 +84,21 @@ SLICE = {
                             "TestRound4VisionZoo"), True),
     "test_models_asr_ctr.py": (("TestConformer",), True),
 }
-_A23B6 = "waits for the parameter server and SPMD trainer (ROADMAP A23b-6)"
+_A23B6B = ("waits for fleet's topology, spmd, the meta_parallel layers and "
+           "auto_parallel (ROADMAP A23b-6b)")
+_A23B6C = ("waits for the parameter server and the CTR models (ROADMAP "
+           "A23b-6c)")
 _JNP = ("calls jax.numpy on the Tensor's data, which is a torch tensor in "
         "the port; held with the torch spelling in ")
 SLICE_NOT_PORTED = {
     "test_models_asr_ctr.py::TestDeepFM::test_fm_math_matches_manual":
-        _A23B6,
+        _A23B6C,
     "test_models_asr_ctr.py::TestDeepFM::test_converges_on_ctr_task":
-        _A23B6,
+        _A23B6C,
     "test_models_asr_ctr.py::TestDeepFM::test_over_sharded_ps_service":
-        _A23B6,
-    "test_models_zoo.py::TestLlama::test_spmd_train_step_contract": _A23B6,
+        _A23B6C,
+    "test_models_zoo.py::TestLlama::test_spmd_train_step_contract":
+        _A23B6B,
     "test_api_longtail.py::TestOnnxExport::"
     "test_unsupported_primitive_raises_loudly":
         _JNP + "test_torch_onnx.py",
@@ -134,7 +138,7 @@ FEATURES_NOT_PORTED = {
         "differentiates the transforms with jax.vmap(jax.grad); held with "
         "torch.func in test_torch_namespaces.py",
     "test_namespaces_transforms.py::TestHybridParallelUtil::"
-    "test_fused_allreduce_gradients_single_dp": _A23B6,
+    "test_fused_allreduce_gradients_single_dp": _A23B6B,
     "test_autograd.py::TestCreateGraph::"
     "test_backward_create_graph_populates_differentiable_grad":
         "reads the JAX tape's GradNode (_node); the port's grad carries "
@@ -146,9 +150,15 @@ FEATURES_NOT_PORTED = {
 
 
 def _port_source(path):
+    """The file's source with its imports of ``paddle_tpu`` (the lines of
+    the scripts a body writes too) made imports of ``paddle_tpu_torch``,
+    and the launcher's module name, which the launch bodies pass to
+    ``python -m`` as a string, made the port's."""
     src = open(path).read()
-    return re.sub(r"^(\s*(?:import|from)\s+)paddle_tpu\b(?!_torch)",
-                  r"\1paddle_tpu_torch", src, flags=re.M)
+    src = re.sub(r"^(\s*(?:import|from)\s+)paddle_tpu\b(?!_torch)",
+                 r"\1paddle_tpu_torch", src, flags=re.M)
+    return re.sub(r"""(["'])paddle_tpu\.distributed\.launch\1""",
+                  r"\1paddle_tpu_torch.distributed.launch\1", src)
 
 
 def _load(name):
@@ -539,3 +549,104 @@ def test_program_reference_body(body, tmp_path, capsys):
     paddle.seed(0)
     np.random.seed(0)
     fn(**kwargs)
+
+
+# The communication layer (ROADMAP A23b-6a): the store and native
+# runtime, the launcher and its elastic relaunch, rpc, the timers, the
+# distributed checkpoint and the ZeRO stages.  Whole files (None) or the
+# classes the slice ports; a parametrised body runs once over its grid,
+# a ``slow`` one keeps the mark.  A body that builds a
+# ``jax.sharding.Mesh``, calls ``shard_map`` or reads ``.sharding`` is
+# listed with the port test that holds its fact in torch, or the part of
+# the port it waits for.
+DISTRIBUTED = {
+    "test_native.py": None,
+    "test_launch.py": None,
+    "test_rpc_elastic_inference.py": ("TestRpc", "TestElasticRelaunch"),
+    "test_incubate_extras.py": ("TestTimerHelper",),
+    "test_checkpoint.py": None,
+    "test_group_sharded.py": None,
+    "test_distributed.py": None,
+}
+_MESH = "builds a jax.sharding.Mesh; held in torch in "
+_SHARD_MAP = ("runs the collective inside shard_map over the 8-device "
+              "mesh; held over two gloo ranks in ")
+_TD = "test_distributed.py::"
+DISTRIBUTED_NOT_PORTED = {
+    "test_checkpoint.py::test_sharded_save_load_round_trip":
+        _MESH + "test_torch_checkpoint.py::"
+        "test_jax_mesh_checkpoint_loads_in_the_port",
+    "test_checkpoint.py::test_reshard_on_load":
+        _MESH + "test_torch_checkpoint.py::"
+        "test_reshard_on_load_into_one_process",
+    "test_checkpoint.py::test_converter_class":
+        _MESH + "test_torch_checkpoint.py::test_converter_and_async_save",
+    "test_group_sharded.py::test_stage3_params_physically_sharded":
+        "reads the jax arrays' .sharding.device_set; held in "
+        "test_torch_group_sharded.py::test_what_a_rank_holds_at_rest",
+    **{_TD + f"TestTopology::{t}": _A23B6B for t in (
+        "test_coord_rank_roundtrip", "test_comm_lists_partition",
+        "test_hcg_mesh", "test_build_mesh_too_big")},
+    _TD + "TestCollectives::test_all_reduce_in_shard_map":
+        _SHARD_MAP + "test_torch_distributed.py::test_psum_of_the_blocks_is_28",
+    _TD + "TestCollectives::test_all_gather_in_shard_map":
+        _SHARD_MAP + "test_torch_distributed.py::"
+        "test_all_gather_order_and_objects",
+    _TD + "TestCollectives::test_reduce_scatter_in_shard_map":
+        _SHARD_MAP + "test_torch_distributed.py::test_reduce_scatter_of_ones",
+    _TD + "TestCollectives::test_p2p_permute_ring":
+        _SHARD_MAP + "test_torch_distributed.py::"
+        "test_ring_permute_is_the_roll",
+    _TD + "TestCollectives::test_eager_all_reduce_sharded":
+        _SHARD_MAP + "test_torch_distributed.py::test_all_reduce_ops",
+    _TD + "TestSpmdTraining::test_dp_sharded_train_step":
+        _MESH + "test_torch_distributed.py::"
+        "test_data_parallel_matches_the_jax_dp8_step",
+    _TD + "TestSpmdTraining::test_tp_layer_sharding_metadata": _A23B6B,
+    _TD + "TestSpmdTraining::test_tp_forward_sharded_params": _A23B6B,
+    _TD + "TestFleetInit::test_fleet_init_builds_hcg": _A23B6B,
+}
+DISTRIBUTED_BODIES = [b for b in _bodies(tuple(DISTRIBUTED))
+                      if _selected(b, DISTRIBUTED[b.split("::")[0]])]
+DISTRIBUTED_RUN = [pytest.param(b, marks=pytest.mark.slow) if _slow(b)
+                   else b for b in DISTRIBUTED_BODIES
+                   if b not in DISTRIBUTED_NOT_PORTED]
+
+
+def test_the_distributed_bodies_are_collected_whole():
+    """Every body of the slice's selection is run or listed as not
+    ported, with the counts of ROADMAP A23b-6a."""
+    counts = {}
+    for b in DISTRIBUTED_BODIES:
+        counts[b.split("::")[0]] = counts.get(b.split("::")[0], 0) + 1
+    assert counts == {"test_native.py": 11, "test_launch.py": 3,
+                      "test_rpc_elastic_inference.py": 6,
+                      "test_incubate_extras.py": 1,
+                      "test_checkpoint.py": 7, "test_group_sharded.py": 4,
+                      "test_distributed.py": 13}
+    assert set(DISTRIBUTED_NOT_PORTED) <= set(DISTRIBUTED_BODIES)
+    assert len(DISTRIBUTED_RUN) == 28
+    assert all("A23b-6b" in why or "A23b-6c" in why or "test_torch_" in why
+               for why in DISTRIBUTED_NOT_PORTED.values())
+
+
+@pytest.mark.parametrize("body", DISTRIBUTED_RUN)
+def test_distributed_reference_body(body, tmp_path, capsys):
+    fname, *names = body.split("::")
+    mod = _MODULES.get(fname) or _MODULES.setdefault(fname, _load(fname))
+    obj = getattr(mod, names[0])
+    fn = getattr(obj(), names[1]) if len(names) == 2 else obj
+    params = inspect.signature(fn).parameters
+    for kwargs in _grid(fn):
+        kwargs.update((k, v) for k, v in (("tmp_path", tmp_path),
+                                          ("capsys", capsys)) if k in params)
+        if "monkeypatch" in params:
+            with pytest.MonkeyPatch.context() as mp:
+                kwargs["monkeypatch"] = mp
+                paddle.seed(0)
+                np.random.seed(0)
+                fn(**kwargs)
+            continue
+        paddle.seed(0)
+        np.random.seed(0)
+        fn(**kwargs)
