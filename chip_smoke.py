@@ -4694,6 +4694,477 @@ def distributed_phases(dev, smi):
     return launches
 
 
+# ----------------------------------------------------- the hybrid slice --
+HYBRID_REL_TOL = 1e-5    # mp = 2 / sep = 2 (f32) against one process
+HYBRID_STEPS = 3
+HYBRID_NO_SP_STEPS = 2
+HYBRID_CP_FORWARDS = 3
+# a ring backward's launches: the ring is a torch composition (no B2/B3),
+# each LayerNorm one forward and one backward
+HYBRID_RING_LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                        "layernorm_fwd": 25, "layernorm_bwd": 25}
+
+
+def _rel_l2_all(got, want):
+    """||got - want|| / ||want|| over every tensor of two dicts, in f64."""
+    num = sum(float((got[n].double() - want[n].double()).square().sum())
+              for n in want)
+    den = sum(float(want[n].double().square().sum()) for n in want)
+    return (num / den) ** 0.5
+
+
+def _hybrid_world1_phase(dev, smi, steps=5):
+    """GPT-124M O2 bf16 at 8 x 1024, AdamW 1e-4 + ClipGradByGlobalNorm(1.0):
+    ``steps`` steps of the plain port step, then the same steps from the
+    same seed through ``fleet.init`` (every degree 1, a one-rank NCCL
+    world), ``distributed_model`` and ``distributed_optimizer``: losses
+    and weights must be bitwise equal.  Prints ms a step of both and the
+    fleet run's kernel launches (the main path: counts reset just before
+    the steps after the first, read just after), which it returns."""
+    import torch
+    from torch import distributed as tdist
+
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import gpt_124m
+    from paddle_tpu_torch.ops.cuda import registry
+
+    rng = np.random.RandomState(2025)
+    batch, seq = 8, 1024
+    ids = torch.as_tensor(rng.randint(0, 50304, (batch, seq)), device=dev)
+    labels = torch.as_tensor(rng.randint(0, 50304, (batch, seq)),
+                             device=dev)
+
+    def run(through_fleet):
+        model = amp.decorate(
+            gpt_124m(device=dev, seed=0, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0),
+            level="O2", dtype="bfloat16")
+        opt = optimizer.AdamW(learning_rate=TRAIN_LR,
+                              parameters=model.parameters(),
+                              grad_clip=optimizer.ClipGradByGlobalNorm(1.0))
+        target = model
+        if through_fleet:
+            target = fleet.distributed_model(model)
+            opt = fleet.distributed_optimizer(opt)
+        step = TrainStep(target, lambda lg, lb: model.loss(lg, lb), opt)
+        losses = [step(ids, labels).item()]
+        registry.reset_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        timed = [step(ids, labels) for _ in range(steps - 1)]
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = {k: registry.counts()[k] for k in _TRAIN_KERNELS}
+        losses += [x.item() for x in timed]
+        weights = {n: p.detach().clone() for n, p in
+                   model.named_parameters()}
+        return losses, weights, wall / (steps - 1) * 1e3, launches, opt
+
+    plain_losses, plain_w, plain_ms, _, _ = run(False)
+    torch.cuda.empty_cache()
+    hcg = fleet.init(is_collective=True, device=dev)
+    try:
+        backend = tdist.get_backend()
+        degrees = (hcg.get_data_parallel_world_size(),
+                   hcg.get_model_parallel_world_size(),
+                   hcg.get_pipe_parallel_world_size(),
+                   hcg.get_sharding_parallel_world_size())
+        fleet_losses, fleet_w, fleet_ms, launches, opt = run(True)
+        wrapped = type(opt).__name__
+    finally:
+        dist.destroy_process_group()
+    bitwise = (plain_losses == fleet_losses
+               and all(torch.equal(plain_w[n], fleet_w[n]) for n in plain_w))
+    want = _expected_train_launches(12, steps - 1)
+    say("hybrid_world1", model="gpt_124m", dtype="bfloat16 (O2)",
+        backend=backend, degrees_dp_mp_pp_sharding=degrees,
+        optimizer=wrapped, batch=batch, seq=seq, steps=steps,
+        losses_plain=plain_losses, losses_fleet=fleet_losses,
+        bitwise_equal=bitwise, ms_per_step_plain=plain_ms,
+        ms_per_step_fleet=fleet_ms, kernel_launches=launches,
+        expected_launches=want, nvidia_smi=smi)
+    if backend != "nccl" or degrees != (1, 1, 1, 1):
+        raise RuntimeError(f"fleet.init at world size 1 formed {backend} "
+                           f"with degrees {degrees}")
+    if not bitwise:
+        raise RuntimeError("fleet at world size 1 is not bitwise equal to "
+                           "the plain steps")
+    if launches != want:
+        raise RuntimeError(f"kernel launches {launches} != {want}")
+    return launches
+
+
+def _timed_collectives(mp_layers, seconds):
+    """Wrap ``mp_layers``' collectives so that their host seconds add up
+    in ``seconds[0]``; returns the originals, to put back."""
+    names = ("all_reduce", "all_gather", "reduce_scatter")
+    originals = {n: getattr(mp_layers, n) for n in names}
+
+    def timed(fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                seconds[0] += time.perf_counter() - t0
+        return call
+
+    for n in names:
+        setattr(mp_layers, n, timed(originals[n]))
+    return originals
+
+
+def hybrid_rank(out_dir):
+    """One rank of the hybrid slice's two-rank checks, started by the
+    launcher (``python -m paddle_tpu_torch.distributed.launch
+    --nproc_per_node 2 chip_smoke.py hybrid_rank DIR``), both ranks on
+    card 0 over gloo.  (b) GPT-124M in f32 (dropout 0, 2 x 1024 tokens)
+    under ``fleet.init(mp_degree=2)`` with ``sequence_parallel=True``:
+    ``HYBRID_STEPS`` AdamW steps with ``ClipGradByGlobalNorm(1.0)``
+    against one process's dense steps on the same batch (rank 0 runs
+    those first), then two steps without sequence parallelism (each run's
+    launches counted over its steps after the first); (c) the eval
+    forward with ``cp_mode="ring"`` and ``"ulysses"`` under
+    ``use_mesh(build_mesh(sep=2))`` against the dense forward (each
+    timed over ``HYBRID_CP_FORWARDS`` forwards after one to warm up,
+    the dense one too), and one ring backward against the dense
+    gradients, its launches counted.  Writes its results to
+    ``DIR/rank<r>.json``."""
+    import hashlib
+
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import mp_layers
+    from paddle_tpu_torch.distributed.fleet.spmd import use_mesh
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import gpt_124m
+    from paddle_tpu_torch.ops.cuda import registry
+
+    dev = torch.device("cuda", 0)
+    env = dist.init_parallel_env(device="cuda:0", timeout=600)
+    rank = env.rank
+    out = {"rank": rank, "world": env.world_size,
+           "backend": torch.distributed.get_backend()}
+    rng = np.random.RandomState(78)
+    ids = torch.as_tensor(rng.randint(0, 50304, (2, 1024)), device=dev)
+    labels = torch.as_tensor(rng.randint(0, 50304, (2, 1024)), device=dev)
+
+    def build(**kw):
+        return gpt_124m(device=dev, seed=0, hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0, **kw)
+
+    def adamw(params):
+        return optimizer.AdamW(learning_rate=TRAIN_LR, parameters=params,
+                               grad_clip=optimizer.ClipGradByGlobalNorm(1.0))
+
+    def memory(fn):
+        """(result, peak bytes, bytes at rest after) of ``fn``."""
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return (res, torch.cuda.max_memory_allocated(dev),
+                torch.cuda.memory_allocated(dev) - base)
+
+    ref = None
+    if rank == 0:
+        def dense():
+            model = build()
+            step = TrainStep(model, lambda lg, lb: model.loss(lg, lb),
+                             adamw(model.parameters()))
+            losses, after = [], {}
+            t0 = time.perf_counter()
+            for i in range(HYBRID_STEPS):
+                losses.append(step(ids, labels).item())
+                if i == 0:
+                    t0 = time.perf_counter()
+                if i + 1 in (HYBRID_NO_SP_STEPS, HYBRID_STEPS):
+                    after[i + 1] = {n: p.detach().clone()
+                                    for n, p in model.named_parameters()}
+            ms = (time.perf_counter() - t0) / (HYBRID_STEPS - 1) * 1e3
+            return model, step, losses, after, ms
+
+        (model, step, losses, after, ms), peak, rest = memory(dense)
+        ref = {"losses": losses, "after": after}
+        out["one_process"] = {"ms_per_step": ms, "peak_bytes": peak,
+                              "state_bytes_at_rest": rest}
+        del model, step
+        torch.cuda.empty_cache()
+
+    def train(sp, steps):
+        """``steps`` steps through fleet at mp = 2: losses, the gathered
+        weights, the replicated parameters' digest, ms a step after the
+        first, the collectives' host share and the launches of those
+        steps."""
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 2,
+                                   "pp_degree": 1, "sharding_degree": 1}
+        fleet.init(is_collective=True, device=dev, strategy=strategy)
+        model = build(sequence_parallel=sp)
+        tp = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(adamw(tp.parameters()))
+        step = TrainStep(tp, lambda lg, lb: model.loss(lg, lb), opt)
+        losses = [step(ids, labels).item()]
+        seconds = [0.0]
+        originals = _timed_collectives(mp_layers, seconds)
+        registry.reset_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        try:
+            losses += [step(ids, labels).item() for _ in range(steps - 1)]
+            torch.cuda.synchronize(dev)
+        finally:
+            for n, fn in originals.items():
+                setattr(mp_layers, n, fn)
+        wall = time.perf_counter() - t0
+        launches = {k: registry.counts()[k] for k in _TRAIN_KERNELS}
+        whole = {k: v._data for k, v in tp.state_dict().items()}
+        digest = hashlib.sha256()
+        replicated = []
+        for n, p in model.named_parameters():
+            if "mp" not in (getattr(p, "mesh_axes", None) or ()):
+                replicated.append(n)
+                digest.update(p.detach().cpu().numpy().tobytes())
+        rec = {"losses": losses, "launches": launches,
+               "replicated": len(replicated),
+               "replicated_sha256": digest.hexdigest(),
+               "sp_marked": sum(getattr(p, "sequence_parallel", False)
+                                for p in model.parameters())}
+        if steps > 1:
+            rec["ms_per_step"] = wall / (steps - 1) * 1e3
+            rec["collectives_host_share"] = seconds[0] / wall
+        return rec, whole, model, tp, step
+
+    def against(rec, whole, nsteps):
+        if rank == 0:
+            want = ref["after"][nsteps]
+            rec["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(
+                rec["losses"], ref["losses"][:nsteps]))
+            rec["weight_rel_l2"] = _rel_l2_all(whole, want)
+        got = []
+        dist.all_gather_object(got, rec["replicated_sha256"])
+        rec["replicated_bitwise_across_ranks"] = len(set(got)) == 1
+
+    (rec, whole, model, tp, step), peak, rest = memory(
+        lambda: train(True, HYBRID_STEPS))
+    rec["peak_bytes"], rec["state_bytes_at_rest"] = peak, rest
+    against(rec, whole, HYBRID_STEPS)
+    out["sp"] = rec
+    del whole, model, tp, step
+    torch.cuda.empty_cache()
+    rec, whole, model, tp, step = train(False, HYBRID_NO_SP_STEPS)
+    against(rec, whole, HYBRID_NO_SP_STEPS)
+    out["no_sp"] = rec
+    del whole, model, tp, step, ref
+    torch.cuda.empty_cache()
+
+    # (c) context parallelism over sep = 2, against the dense model
+    mesh = fleet.build_mesh(sep=2)
+
+    def forwards(model):
+        """The logits and the ms of a forward over ``HYBRID_CP_FORWARDS``
+        after one to warm up."""
+        with torch.no_grad(), use_mesh(mesh):
+            got = model(ids)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(HYBRID_CP_FORWARDS):
+                model(ids)
+            torch.cuda.synchronize(dev)
+        return got, (time.perf_counter() - t0) / HYBRID_CP_FORWARDS * 1e3
+
+    dense = build()
+    dense.eval()
+    want, dense_ms = forwards(dense)
+    cp = {"dense_forward_ms": dense_ms, "forwards": HYBRID_CP_FORWARDS}
+    for mode in ("ring", "ulysses"):
+        model = build(cp_mode=mode)
+        model.eval()
+        got, ms = forwards(model)
+        cp[mode] = {"forward_ms": ms,
+                    "logits_rel_l2": _rel_l2_all({"x": got}, {"x": want})}
+        del model, got
+    del want
+    dense.train()
+    dense.loss(dense(ids), labels).backward()
+    want = {n: p.grad for n, p in dense.named_parameters()}
+    model = build(cp_mode="ring")
+    registry.reset_counts()
+    with use_mesh(mesh):
+        loss = model.loss(model(ids), labels)
+        loss.backward()
+    cp["ring_backward"] = {
+        "grad_rel_l2": _rel_l2_all({n: p.grad for n, p in
+                                    model.named_parameters()}, want),
+        "launches": {k: registry.counts()[k] for k in _TRAIN_KERNELS}}
+    out["cp"] = cp
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _hybrid_launcher_phase(smi):
+    """The two-rank checks (``hybrid_rank``) through the launcher;
+    returns the ranks' kernel launches of the mp = 2 steps with and
+    without sequence parallelism, summed."""
+    import shutil
+
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_hybrid")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", "--log_dir",
+         os.path.join(out_dir, "logs"), os.path.join(ROOT, "chip_smoke.py"),
+         "hybrid_rank", out_dir],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        for r in range(2):
+            log = os.path.join(out_dir, "logs", f"workerlog.{r}")
+            if os.path.exists(log):
+                print(f"--- rank {r} log ---\n" + open(log).read()[-4000:],
+                      flush=True)
+        raise RuntimeError(f"the launcher's ranks failed "
+                           f"({proc.returncode}): {proc.stderr[-2000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    say("hybrid_world2", model="gpt_124m (vocab 50304, hidden 768, 12 "
+        "layers, 12 heads)", dtype="float32", backend=r0["backend"],
+        devices="both ranks on cuda:0", parallel="mp_degree=2",
+        batch="2 x 1024 on both ranks", steps=HYBRID_STEPS,
+        no_sp_steps=HYBRID_NO_SP_STEPS,
+        launcher_wall_s=wall, one_process=r0["one_process"],
+        **{f"{level}_{k}": [r[level].get(k) for r in ranks]
+           for level in ("sp", "no_sp")
+           for k in ("losses", "ms_per_step", "collectives_host_share",
+                     "peak_bytes", "state_bytes_at_rest", "launches",
+                     "replicated", "sp_marked")},
+        **{f"{level}_{k}": r0[level][k] for level in ("sp", "no_sp")
+           for k in ("loss_rel", "weight_rel_l2",
+                     "replicated_bitwise_across_ranks")},
+        rel_tol=HYBRID_REL_TOL, nvidia_smi=smi)
+    say("hybrid_sep2", model="gpt_124m", dtype="float32",
+        batch="2 x 1024", cp=[r["cp"] for r in ranks],
+        rel_tol=HYBRID_REL_TOL, nvidia_smi=smi)
+    if any(r["backend"] != "gloo" or r["world"] != 2 for r in ranks):
+        raise RuntimeError(f"the two ranks formed {r0['backend']}")
+    for level in ("sp", "no_sp"):
+        rec = r0[level]
+        if not (rec["loss_rel"] <= HYBRID_REL_TOL
+                and rec["weight_rel_l2"] <= HYBRID_REL_TOL
+                and rec["replicated_bitwise_across_ranks"]):
+            raise RuntimeError(f"mp = 2 {level} drifted from one process: "
+                               f"{rec}")
+    for r in ranks:
+        cp = r["cp"]
+        worst = max(cp["ring"]["logits_rel_l2"],
+                    cp["ulysses"]["logits_rel_l2"],
+                    cp["ring_backward"]["grad_rel_l2"])
+        if not worst <= HYBRID_REL_TOL:
+            raise RuntimeError(f"rank {r['rank']} sep = 2 drifted from the "
+                               f"dense model: {cp}")
+    launches = {k: 0 for k in _TRAIN_KERNELS}
+    for level, steps in (("sp", HYBRID_STEPS), ("no_sp", HYBRID_NO_SP_STEPS)):
+        want = _expected_train_launches(12, steps - 1)
+        for r in ranks:
+            if r[level]["launches"] != want:
+                raise RuntimeError(f"rank {r['rank']} {level} launches "
+                                   f"{r[level]['launches']} != {want}")
+            for k in launches:
+                launches[k] += r[level]["launches"][k]
+    for r in ranks:
+        if r["cp"]["ring_backward"]["launches"] != HYBRID_RING_LAUNCHES:
+            raise RuntimeError(f"rank {r['rank']} ring backward launches "
+                               f"{r['cp']['ring_backward']['launches']} != "
+                               f"{HYBRID_RING_LAUNCHES}")
+    return launches
+
+
+def hybrid_kernels_phase(dev):
+    """B2/B3 at a tensor-parallel rank's attention (2 x 1024 x 6 x 64 f32
+    causal, strided q/k/v as the sliced qkv gives them) and B4a/B4b at
+    its LayerNorm rows (1024 x 768 under sequence parallelism, 2048 x 768
+    without), each against its plain version through the parity rule of
+    the kernel phases, then timed after ``cold_l2`` against the bound,
+    the plain versions and SDPA / ``F.layer_norm``."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import registry
+
+    fwd = registry.KERNELS["flash_attention_fwd"]
+    bwd = registry.KERNELS["flash_attention_bwd"]
+    q, k, v, dout = _flash_inputs(dev, torch.float32, 2, 1024, 6, 64,
+                                  seed=120, packed=True)
+    scale = 0.125
+    out, lse = fwd.kernel(q, k, v, True, scale)
+    grads = bwd.kernel(q, k, v, out, lse, dout, True, scale)
+    torch.cuda.synchronize()
+    want_out, want_lse = fwd.plain(q, k, v, True, scale)
+    want_grads = bwd.plain(q, k, v, out, lse, dout, True, scale)
+    pairs = {"out": (out, want_out, 1e-4), "lse": (lse, want_lse, 1e-4)}
+    pairs.update({f"d{n}": (g, w, 5e-4)
+                  for n, g, w in zip("qkv", grads, want_grads)})
+    report = {name: _parity(*p) for name, p in pairs.items()}
+    _say_parity("flash_attention", "mp2_rank_2x1024x6x64_causal",
+                torch.float32, report, causal=True, strided_qkv=True)
+    if not all(r[3] for r in report.values()):
+        raise RuntimeError(f"flash attention at the mp rank's shape: "
+                           f"{report}")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    _flash_kernel_times(fwd, bwd, dev, torch.float32, (2, 1024, 6, 64),
+                        True, flush, note=" (GPT-124M mp = 2, a rank)")
+    lfwd = registry.KERNELS["layernorm_fwd"]
+    lbwd = registry.KERNELS["layernorm_bwd"]
+    for rows, note in ((1024, "sequence-parallel rank"),
+                       (2048, "mp = 2 rank without SP")):
+        x, g, b, dy = _ln_inputs(dev, torch.float32, rows, 768,
+                                 seed=121 + rows)
+        y, mu, rstd = lfwd.kernel(x, g, b, 1e-5)
+        dx, dg, db = lbwd.kernel(x, g, mu, rstd, dy)
+        torch.cuda.synchronize()
+        wy, wmu, wrstd = lfwd.plain(x, g, b, 1e-5)
+        wdx, wdg, wdb = lbwd.plain(x, g, wmu, wrstd, dy, 1e-5)
+        report = {name: _parity(got, w, tol) for name, got, w, tol in (
+            ("y", y, wy, 1e-5), ("mu", mu, wmu, 1e-5),
+            ("rstd", rstd, wrstd, 1e-5), ("dx", dx, wdx, 1e-4),
+            ("dgamma", dg, wdg, 1e-4), ("dbeta", db, wdb, 1e-4))}
+        _say_parity("layernorm", f"{note.split()[0]}_{rows}x768",
+                    torch.float32, report)
+        if not all(r[3] for r in report.values()):
+            raise RuntimeError(f"layernorm at {rows} x 768: {report}")
+        _ln_kernel_times(lfwd, lbwd, x, g, b, dy, 1e-5, flush,
+                         f"{rows}x768 f32 (GPT-124M {note})")
+
+
+def hybrid_phases(dev, smi):
+    """The hybrid slice: (a) fleet at world size 1 over NCCL, bitwise
+    against the plain step; (d) the kernels at a rank's shapes; (b) and
+    (c) two gloo ranks on the card through the launcher.  Returns
+    B2/B3/B4a/B4b launches of (a) and of both ranks' (b), summed."""
+    import torch
+
+    launches = _hybrid_world1_phase(dev, smi)
+    torch.cuda.empty_cache()
+    hybrid_kernels_phase(dev)
+    torch.cuda.empty_cache()
+    for k, n in _hybrid_launcher_phase(smi).items():
+        launches[k] += n
+    return launches
+
+
 # ------------------------------------------------- the eager Paddle API --
 BERT_BATCH, BERT_SEQ = 8, 512
 # _parity's f32 tolerance for the eager BERT step and forward, kernels
@@ -9894,6 +10365,10 @@ def main():
         # one rank of the distributed phase, started by the launcher
         distributed_rank(sys.argv[2])
         return
+    if sys.argv[1:2] == ["hybrid_rank"] and len(sys.argv) == 3:
+        # one rank of the hybrid phase, started by the launcher
+        hybrid_rank(sys.argv[2])
+        return
     import torch
 
     name, smi = device_phase()
@@ -9971,6 +10446,15 @@ def main():
         t0 = time.perf_counter()
         distributed_phases(dev, smi)
         say("lap", after="distributed", seconds=time.perf_counter() - t0)
+        return
+    if sys.argv[1:] == ["hybrid"]:
+        build_phase()
+        t0 = time.perf_counter()
+        hybrid_phases(dev, smi)
+        say("lap", after="hybrid", seconds=time.perf_counter() - t0)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
         return
     if sys.argv[1:] == ["ops"]:
         build_phase()
@@ -10067,6 +10551,13 @@ def main():
     for kernel, n in distributed_phases(dev, smi).items():
         launches[kernel] += n
     lap("distributed")
+    torch.cuda.empty_cache()
+    # and the hybrid slice: GPT-124M through fleet at world size 1 (NCCL)
+    # and both ranks' mp = 2 steps with and without sequence parallelism
+    # through the launcher (B2, B3, B4a, B4b), each counted alone
+    for kernel, n in hybrid_phases(dev, smi).items():
+        launches[kernel] += n
+    lap("hybrid")
     torch.cuda.empty_cache()
     # and the eager Paddle API's BERT-base paths: the timed training steps
     # (B4a, B4b) and the eval forward (B2, B4a), each counted alone

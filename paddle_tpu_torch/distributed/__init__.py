@@ -19,10 +19,11 @@ Here: the store, ``spawn``, the launcher, ``rpc`` and the elastic
 manager (verbatim copies of the JAX modules), the groups and every
 collective (``group``, ``communication``), ``init_parallel_env`` and a
 bucketed gradient-averaging ``DataParallel`` (``parallel``), the ZeRO
-stages (``sharding``) and the distributed checkpoint (``checkpoint``).
-``fleet``, ``auto_parallel`` and ``ps`` hold only what is ported so far
-(ROADMAP A23b-6b and 6c bring the rest; their names raise
-``NotImplementedError`` naming the item).
+stages (``sharding``), the distributed checkpoint (``checkpoint``),
+fleet's hybrid parallelism (``fleet``: the topology, tensor, sequence
+and context parallelism, recompute, the meta optimizers) and
+``auto_parallel``.  ``ps`` and fleet's dataset come with ROADMAP
+A23b-6c; their names raise ``NotImplementedError`` naming it.
 """
 
 from .communication import (  # noqa: F401

@@ -6,11 +6,9 @@ item that brings it, rather than an ``AttributeError`` that reads as a
 missing API.
 """
 
-A23B6B = ("ROADMAP A23b-6b (fleet topology and HybridCommunicateGroup, "
-          "spmd, the meta_parallel layers, sequence parallel, recompute, "
-          "the meta optimizers and auto_parallel)")
-A23B6C = ("ROADMAP A23b-6c (the parameter server, parallel/, MoE, the CTR "
-          "models, enable_dist_inference and the cross-card SyncBatchNorm)")
+A23B6C = ("ROADMAP A23b-6c (the parameter server and fleet's dataset, "
+          "parallel/, MoE, the CTR models, enable_dist_inference and the "
+          "cross-card SyncBatchNorm)")
 
 
 def later(module, names, item):

@@ -49,6 +49,8 @@ import time
 import numpy as np
 import torch
 
+from ...distributed.fleet.meta_parallel.mp_layers import (  # noqa: F401
+    qkv_head_permutation)
 from ...distributed.group import _group, mp_backend
 from ...framework.device import resolve_device
 from .faults import PoolLostError
@@ -97,16 +99,6 @@ OP_SHUTDOWN, OP_STEP, OP_DRAFT, OP_ADAPTER, OP_STATS = range(5)
 class RankLostError(PoolLostError):
     """A collective or the command channel failed: a rank is gone (or
     out of step), and with it its pool shard."""
-
-
-def qkv_head_permutation(num_heads, head_dim, tp):
-    """Column permutation taking the fused qkv layout (3, NH, D) to
-    (tp, 3, NH/tp, D): a contiguous 1/tp column slice then holds the q, k
-    and v projections of one head group, so rank r's plain column shard
-    is exactly its heads (the JAX engine's ``_qkv_head_permutation``)."""
-    nhl = num_heads // tp
-    return np.arange(3 * num_heads * head_dim).reshape(
-        3, tp, nhl, head_dim).transpose(1, 0, 2, 3).reshape(-1)
 
 
 def params_bytes_per_chip(params, tp):

@@ -14,6 +14,27 @@ kernels on the card; dropout applies in ``train()`` mode where the JAX
 model applies it, drawing from the model's ``torch.Generator``.
 ``greedy_decode`` runs the same forward in eval mode without autograd,
 as the reference the paged engine is held to.
+
+**Parallelism** (``distributed/fleet``).  Each parameter carries its JAX
+``mesh_axes`` (the fused qkv its three parts).  Sliced over an mp group
+(``fleet.distributed_model`` / ``TensorParallel``, or
+``spmd.shard_parameters(model, mesh)``), every module holds the
+``MPContext`` and runs Megatron's layers: the vocab-split embedding, the
+column-parallel qkv and fc_in over the rank's heads and columns, the
+row-parallel proj and fc_out whose partial sums are all-reduced before
+their bias, and a head whose logits are the rank's vocab block, which
+``loss`` takes through the vocab-parallel cross entropy.  With
+``sequence_parallel=True`` the LayerNorms, biases, residuals and hidden
+dropout run on the rank's sequence shard, between an all-gather before
+each column-parallel layer and a reduce-scatter after each row-parallel
+one.  Dropout of a replicated activation draws from the model's
+generator (the same stream on every rank of the group); dropout of a
+sharded one (the attention of the rank's heads, a sequence shard) from
+the group rank's own (``mp_generator``).  ``cp_mode`` ("ring" or
+"ulysses") runs the attention through ``context_parallel_attention``
+over the ``sep`` axis of the active mesh (``spmd.use_mesh``) where the
+JAX model does: with attention dropout 0 or in eval, and a mesh with a
+``sep`` axis.  A model that is not sliced runs the dense forward.
 """
 
 import math
@@ -22,6 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..distributed.fleet.meta_parallel import mp_layers
 from ..framework.device import resolve_device
 from ..nn import functional as F
 
@@ -35,11 +57,7 @@ class GPTConfig:
                  use_flash_attention=True, cp_mode=None):
         # the JAX config's keywords: use_flash_attention is stored and
         # read nowhere, as there; the other two select the sequence- and
-        # context-parallel paths, which come with the distributed slice
-        if sequence_parallel or cp_mode is not None:
-            raise NotImplementedError(
-                "sequence_parallel and cp_mode are not ported yet: they "
-                "come with the distributed slice (ROADMAP A23b-6b)")
+        # context-parallel paths (module docstring)
         self.sequence_parallel = sequence_parallel
         self.use_flash_attention = use_flash_attention
         self.cp_mode = cp_mode
@@ -104,7 +122,8 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """``upscale_in_train`` dropout drawing from the model's generator."""
+    """``upscale_in_train`` dropout drawing from the model's generator
+    (from the mp rank's own when the input is a sequence shard)."""
 
     def __init__(self, p, generator):
         super().__init__()
@@ -112,8 +131,30 @@ class Dropout(nn.Module):
         self.generator = generator
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training,
-                         generator=self.generator)
+        mp = mp_layers.mp_of(self)
+        gen = self.generator
+        if mp is not None and mp.sequence_parallel:
+            gen = mp.generator
+        return F.dropout(x, self.p, training=self.training, generator=gen)
+
+
+def _column(mp, x, linear):
+    """A column-parallel layer: the input copied to (or, under SP,
+    gathered over) the group, the rank's columns; the dense ``linear``
+    in a model that is not sliced (``mp`` None)."""
+    if mp is None:
+        return linear(x)
+    return F.linear(mp.column_in(x), linear.weight, linear.bias)
+
+
+def _row(mp, x, linear):
+    """A row-parallel layer: the rank's partial product summed over the
+    group (reduce-scattered under SP), then the bias; the dense
+    ``linear`` in a model that is not sliced."""
+    if mp is None:
+        return linear(x)
+    out = mp.row_out(torch.matmul(x, linear.weight))
+    return out if linear.bias is None else out + linear.bias
 
 
 class GPTAttention(nn.Module):
@@ -126,19 +167,42 @@ class GPTAttention(nn.Module):
         self.qkv = Linear(h, 3 * h, std, **kw)
         self.proj = Linear(h, h, std / math.sqrt(2 * config.num_layers),
                            **kw)
+        mp_layers.annotate(self.qkv.weight, (None, "mp"), (h, h, h))
+        mp_layers.annotate(self.qkv.bias, ("mp",), (h, h, h))
+        mp_layers.annotate(self.proj.weight, ("mp", None))
+        mp_layers.annotate(self.proj.bias, (None,))
         self.dropout_p = config.attention_probs_dropout_prob
         self.generator = kw["generator"]
         self.resid_drop = Dropout(config.hidden_dropout_prob, kw["generator"])
+        self.cp_mode = config.cp_mode
+
+    def _attend(self, q, k, v, generator):
+        # attention dropout is inactive in eval, so cp only yields to the
+        # dense path when dropout would actually be applied
+        if self.cp_mode and (self.dropout_p == 0.0 or not self.training):
+            from ..distributed.fleet.meta_parallel import \
+                context_parallel_attention
+            from ..distributed.fleet.spmd import current_mesh
+
+            mesh = current_mesh()
+            if mesh is not None and "sep" in mesh.axis_names:
+                return context_parallel_attention(
+                    q, k, v, mesh, axis="sep", mode=self.cp_mode,
+                    is_causal=True)
+        return F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, dropout_p=self.dropout_p,
+            training=self.training, generator=generator)
 
     def forward(self, x):
-        b, t, _ = x.shape
-        qkv = self.qkv(x).reshape(b, t, 3, self.num_heads, self.head_dim)
-        q, k, v = qkv.unbind(dim=2)
-        out = F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, dropout_p=self.dropout_p,
-            training=self.training, generator=self.generator)
-        out = out.reshape(b, t, self.num_heads * self.head_dim)
-        return self.resid_drop(self.proj(out))
+        mp = mp_layers.mp_of(self)
+        heads = self.num_heads if mp is None else self.num_heads // mp.size
+        qkv = _column(mp, x, self.qkv)
+        b, t, _ = qkv.shape
+        q, k, v = qkv.reshape(b, t, 3, heads, self.head_dim).unbind(dim=2)
+        out = self._attend(q, k, v,
+                           self.generator if mp is None else mp.generator)
+        out = out.reshape(b, t, heads * self.head_dim)
+        return self.resid_drop(_row(mp, out, self.proj))
 
 
 class GPTMLP(nn.Module):
@@ -149,10 +213,16 @@ class GPTMLP(nn.Module):
         self.fc_in = Linear(h, inter, std, **kw)
         self.fc_out = Linear(inter, h,
                              std / math.sqrt(2 * config.num_layers), **kw)
+        mp_layers.annotate(self.fc_in.weight, (None, "mp"))
+        mp_layers.annotate(self.fc_in.bias, ("mp",))
+        mp_layers.annotate(self.fc_out.weight, ("mp", None))
+        mp_layers.annotate(self.fc_out.bias, (None,))
         self.drop = Dropout(config.hidden_dropout_prob, kw["generator"])
 
     def forward(self, x):
-        return self.drop(self.fc_out(F.gelu(self.fc_in(x), approximate=True)))
+        mp = mp_layers.mp_of(self)
+        h = F.gelu(_column(mp, x, self.fc_in), approximate=True)
+        return self.drop(_row(mp, h, self.fc_out))
 
 
 class GPTBlock(nn.Module):
@@ -177,12 +247,17 @@ class GPTEmbeddings(nn.Module):
                                          config.hidden_size, std, **kw)
         self.position_embeddings = Embedding(
             config.max_position_embeddings, config.hidden_size, std, **kw)
+        mp_layers.annotate(self.word_embeddings.weight, ("mp", None))
         self.dropout = Dropout(config.hidden_dropout_prob, kw["generator"])
 
     def forward(self, input_ids):
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
-        return self.dropout(self.word_embeddings(input_ids)
-                            + self.position_embeddings(pos))
+        mp = mp_layers.mp_of(self)
+        words = mp_layers.vocab_parallel_embedding(
+            input_ids, self.word_embeddings.weight, mp)
+        if mp is not None:
+            pos = pos[mp.seq_chunk(pos.shape[0])]
+        return self.dropout(words + self.position_embeddings(pos))
 
 
 class GPTModel(nn.Module):
@@ -225,13 +300,16 @@ class GPTForCausalLM(nn.Module):
 
     def forward(self, input_ids):
         hidden = self.gpt(input_ids)
-        return F.linear(hidden, self.gpt.embeddings.word_embeddings.weight.T)
+        w = self.gpt.embeddings.word_embeddings.weight
+        mp = mp_layers.mp_of(self)
+        # a sliced model's logits are the rank's vocab block
+        return F.linear(hidden if mp is None else mp.column_in(hidden), w.T)
 
     def loss(self, logits, labels):
-        """Causal LM loss: logits[:, :-1] vs labels[:, 1:]."""
-        return F.cross_entropy(
-            logits[:, :-1, :].reshape(-1, logits.shape[-1]),
-            labels[:, 1:].reshape(-1))
+        """Causal LM loss: logits[:, :-1] vs labels[:, 1:] (over the
+        vocab-split logits of a sliced model, the vocab-parallel cross
+        entropy)."""
+        return _causal_lm_loss(self, logits, labels)
 
     @torch.no_grad()
     def greedy_decode(self, prompt_ids, max_new_tokens):
@@ -310,6 +388,15 @@ class GPTForCausalLM(nn.Module):
             if not isinstance(value, torch.Tensor):
                 value = torch.from_numpy(np.array(value))
             params[name].copy_(value)
+
+
+def _causal_lm_loss(model, logits, labels):
+    """The shifted-label cross entropy of GPT and Llama."""
+    flat = logits[:, :-1, :].reshape(-1, logits.shape[-1])
+    shifted = labels[:, 1:].reshape(-1)
+    mp = mp_layers.mp_of(model)
+    return mp_layers.parallel_cross_entropy(
+        flat, shifted, None if mp is None else mp.group)
 
 
 def gpt_tiny(device=None, seed=0, dtype=torch.float32, **kw):

@@ -14,6 +14,16 @@ one-token generation against a preallocated cache: it writes the
 token's k/v in place and attends through ``ragged_decode_attention``,
 which reads the compact ``[B, S, Nkv, D]`` cache with the native GQA
 grouping (the dense-cache decode kernel on the card).
+
+Parallelism as GPT's (``models/gpt.py``): the JAX ``mesh_axes`` on every
+parameter (the packed qkv as its q, k and v parts, gate_up as its two),
+so a model sliced over an mp group splits the query heads and the kv
+heads over the ranks (GQA: the kv heads must divide too), runs the
+column- and row-parallel projections with Megatron's collectives, and
+with ``sequence_parallel=True`` keeps its RMSNorms and residuals on the
+rank's sequence shard.  ``functional_decompose`` gives the JAX schema:
+stacked block parameters, their mesh-axis specs and the four pure
+functions.
 """
 
 import math
@@ -22,11 +32,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..distributed.fleet.meta_parallel import mp_layers
 from ..framework.device import resolve_device
 from ..incubate.nn.functional import ragged_decode_attention, swiglu
 from ..nn import RMSNorm
 from ..nn import functional as F
-from .gpt import Embedding, Linear
+from .gpt import Embedding, Linear, _causal_lm_loss, _column, _row
 
 
 class LlamaConfig:
@@ -36,10 +47,6 @@ class LlamaConfig:
                  rope_theta=10000.0, rms_norm_eps=1e-6,
                  initializer_range=0.02, sequence_parallel=False,
                  tie_word_embeddings=False):
-        if sequence_parallel:
-            raise NotImplementedError(
-                "sequence_parallel is not ported yet: it comes with the "
-                "distributed slice (ROADMAP A23b-6b)")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -91,6 +98,9 @@ class LlamaAttention(nn.Module):
         self.qkv = Linear(h, h + 2 * kv_out, std, has_bias=False, **kw)
         self.o_proj = Linear(h, h, std / math.sqrt(2 * config.num_layers),
                              has_bias=False, **kw)
+        mp_layers.annotate(self.qkv.weight, (None, "mp"),
+                           (h, kv_out, kv_out))
+        mp_layers.annotate(self.o_proj.weight, ("mp", None))
         cos, sin = _rope_tables(self.head_dim,
                                 config.max_position_embeddings,
                                 config.rope_theta)
@@ -99,19 +109,28 @@ class LlamaAttention(nn.Module):
         self.register_buffer("_sin", torch.from_numpy(sin).to(kw["device"]),
                              persistent=False)
 
+    def _heads(self):
+        """(query heads, kv heads) this rank holds."""
+        mp = mp_layers.mp_of(self)
+        n = 1 if mp is None else mp.size
+        return self.num_heads // n, self.num_kv_heads // n
+
     def split(self, qkv):
-        """Packed projection [B, T, (Nq + 2 Nkv) D] -> q, k, v."""
+        """Packed projection [B, T, (Nq + 2 Nkv) D] -> q, k, v (the
+        rank's heads in a sliced model)."""
         b, t, _ = qkv.shape
-        nq, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        (nq, nkv), hd = self._heads(), self.head_dim
         q = qkv[..., :nq * hd].reshape(b, t, nq, hd)
         k = qkv[..., nq * hd:(nq + nkv) * hd].reshape(b, t, nkv, hd)
         v = qkv[..., (nq + nkv) * hd:].reshape(b, t, nkv, hd)
         return q, k, v
 
     def forward(self, x):
-        b, t, _ = x.shape
-        nq, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
-        q, k, v = self.split(self.qkv(x))
+        mp = mp_layers.mp_of(self)
+        (nq, nkv), hd = self._heads(), self.head_dim
+        qkv = _column(mp, x, self.qkv)
+        b, t, _ = qkv.shape
+        q, k, v = self.split(qkv)
         cos = self._cos[:t][None, :, None, :]
         sin = self._sin[:t][None, :, None, :]
         # the f32 tables promote; the port keeps the activation dtype
@@ -125,7 +144,8 @@ class LlamaAttention(nn.Module):
             v = v[:, :, :, None].expand(b, t, nkv, rep, hd).reshape(
                 b, t, nq, hd)
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        return self.o_proj(out.reshape(b, t, nq * hd))
+        out = out.reshape(b, t, nq * hd)
+        return _row(mp, out, self.o_proj)
 
 
 class LlamaMLP(nn.Module):
@@ -137,11 +157,15 @@ class LlamaMLP(nn.Module):
         self.gate_up = Linear(h, 2 * inter, std, has_bias=False, **kw)
         self.down = Linear(inter, h, std / math.sqrt(2 * config.num_layers),
                            has_bias=False, **kw)
+        mp_layers.annotate(self.gate_up.weight, (None, "mp"), (inter, inter))
+        mp_layers.annotate(self.down.weight, ("mp", None))
         self._inter = inter
 
     def forward(self, x):
-        gu = self.gate_up(x)
-        return self.down(swiglu(gu[..., :self._inter], gu[..., self._inter:]))
+        mp = mp_layers.mp_of(self)
+        gu = _column(mp, x, self.gate_up)
+        half = gu.shape[-1] // 2     # the rank's columns of each part
+        return _row(mp, swiglu(gu[..., :half], gu[..., half:]), self.down)
 
 
 class LlamaBlock(nn.Module):
@@ -167,13 +191,15 @@ class LlamaModel(nn.Module):
         self.config = config
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       config.initializer_range, **kw)
+        mp_layers.annotate(self.embed_tokens.weight, ("mp", None))
         self.layers = nn.ModuleList([LlamaBlock(config, **kw)
                                      for _ in range(config.num_layers)])
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
                             device=kw["device"], dtype=kw["dtype"])
 
     def forward(self, input_ids):
-        x = self.embed_tokens(input_ids)
+        x = mp_layers.vocab_parallel_embedding(
+            input_ids, self.embed_tokens.weight, mp_layers.mp_of(self))
         for blk in self.layers:
             x = blk(x)
         return self.norm(x)
@@ -200,12 +226,18 @@ class LlamaForCausalLM(nn.Module):
                         Linear(config.hidden_size, config.vocab_size,
                                config.initializer_range, has_bias=False,
                                **kw))
+        if self.lm_head is not None:
+            mp_layers.annotate(self.lm_head.weight, (None, "mp"))
 
     @property
     def device(self):
         return self.llama.norm.weight.device
 
     def _head(self, h):
+        mp = mp_layers.mp_of(self)
+        if mp is not None:
+            # the rank's vocab block of the logits
+            h = mp.column_in(h)
         if self.lm_head is None:
             return F.linear(h, self.llama.embed_tokens.weight.T)
         return self.lm_head(h)
@@ -214,16 +246,78 @@ class LlamaForCausalLM(nn.Module):
         return self._head(self.llama(input_ids))
 
     def loss(self, logits, labels):
-        """Causal LM loss: logits[:, :-1] vs labels[:, 1:]."""
-        return F.cross_entropy(
-            logits[:, :-1, :].reshape(-1, logits.shape[-1]),
-            labels[:, 1:].reshape(-1))
+        """Causal LM loss: logits[:, :-1] vs labels[:, 1:] (the
+        vocab-parallel cross entropy in a sliced model)."""
+        return _causal_lm_loss(self, logits, labels)
 
+    # ---- functional decomposition (the JAX SpmdTrainStep contract) ----
     def functional_decompose(self):
-        raise NotImplementedError(
-            "LlamaForCausalLM.functional_decompose is not ported yet: the "
-            "stacked-layer form feeds the SPMD pipeline trainer, which "
-            "comes with the tensor-parallel and long-tail slices")
+        """``{"params", "specs", "fns", "num_layers"}``, the JAX schema:
+        ``params`` {"embed": {"weight"}, "blocks": the block parameters
+        stacked on a leading layer axis, "head": {"norm.weight"(,
+        "lm_head.weight")}}, ``specs`` their mesh axes (a block leaf's
+        with ``"pp"`` in front), ``fns`` (embed_fn(p, ids), block_fn(p,
+        hidden), head_fn(p, hidden, embed_p), loss_fn(logits, labels)),
+        each a pure function of its parameters through
+        ``torch.func.functional_call``."""
+        from torch.func import functional_call
+
+        embed = self.llama.embed_tokens
+        blocks = list(self.llama.layers)
+        template = blocks[0]
+        norm = self.llama.norm
+
+        embed_params = {k: v.detach() for k, v in embed.named_parameters()}
+        head_params = {"norm." + k: v.detach()
+                       for k, v in norm.named_parameters()}
+        if self.lm_head is not None:
+            head_params.update({"lm_head." + k: v.detach() for k, v in
+                                self.lm_head.named_parameters()})
+        tparams = dict(template.named_parameters())
+        stacked = {n: torch.stack([dict(blk.named_parameters())[n].detach()
+                                   for blk in blocks]) for n in tparams}
+
+        def axes_of(p):
+            return getattr(p, "mesh_axes", None)
+
+        embed_specs = {k: axes_of(v) for k, v in embed.named_parameters()}
+        head_specs = {k: None for k in head_params}
+        if self.lm_head is not None:
+            for k, v in self.lm_head.named_parameters():
+                head_specs["lm_head." + k] = axes_of(v)
+        block_specs = {n: ("pp",) + tuple(axes_of(p) or (None,) * p.dim())
+                       for n, p in tparams.items()}
+
+        def embed_fn(p, input_ids):
+            return functional_call(embed, p, (input_ids,))
+
+        def block_fn(p, hidden):
+            return functional_call(template, p, (hidden,))
+
+        lm_head = self.lm_head
+
+        def head_fn(p, hidden, embed_p):
+            np_ = {k[len("norm."):]: v for k, v in p.items()
+                   if k.startswith("norm.")}
+            h = functional_call(norm, np_, (hidden,))
+            if lm_head is None:
+                return h @ embed_p["weight"].T
+            return h @ p["lm_head.weight"]
+
+        def loss_fn(logits, labels):
+            # the shifted cross entropy of GPTForCausalLM's decomposition
+            return F.cross_entropy(
+                logits[:, :-1, :].reshape(-1, logits.shape[-1]),
+                labels[:, 1:].reshape(-1))
+
+        return {
+            "params": {"embed": embed_params, "blocks": stacked,
+                       "head": head_params},
+            "specs": {"embed": embed_specs, "blocks": block_specs,
+                      "head": head_specs},
+            "fns": (embed_fn, block_fn, head_fn, loss_fn),
+            "num_layers": len(blocks),
+        }
 
     @torch.no_grad()
     def set_state_dict(self, state_dict):

@@ -69,16 +69,21 @@ def test_exports_every_name_of_the_jax_modules():
 
 
 def test_later_names_raise_naming_their_item():
+    """Only the parameter server's names (fleet's dataset with it) wait,
+    for A23b-6c; fleet's topology and auto_parallel came with A23b-6b."""
     from paddle_tpu_torch.distributed import auto_parallel, fleet, ps
 
-    for mod, name, item in ((fleet, "build_mesh", "A23b-6b"),
-                            (fleet, "HybridCommunicateGroup", "A23b-6b"),
-                            (auto_parallel, "ProcessMesh", "A23b-6b"),
+    for mod, name, item in ((fleet, "InMemoryDataset", "A23b-6c"),
+                            (fleet, "QueueDataset", "A23b-6c"),
                             (ps, "SparseTable", "A23b-6c")):
         with pytest.raises(NotImplementedError, match=item):
             getattr(mod, name)
     assert fleet.DistributedStrategy is not None
     assert auto_parallel.Strategy is not None
+    for mod, name in ((fleet, "build_mesh"),
+                      (fleet, "HybridCommunicateGroup"),
+                      (auto_parallel, "ProcessMesh")):
+        assert callable(getattr(mod, name))
 
 
 # ------------------------------------------------------ world size 1 --

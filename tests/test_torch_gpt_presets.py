@@ -56,12 +56,14 @@ def test_gpt_config_takes_the_jax_keywords():
     first is stored and read nowhere, as in the JAX package;
     ``gpt_tiny(use_flash_attention=False)`` builds (the reference
     exporter test's model) with the JAX config's value.  The other two
-    select paths of the distributed slice and raise naming it."""
+    select the sequence- and context-parallel paths (ROADMAP A23b-6b):
+    each builds and stores the JAX config's value."""
     model = PG.gpt_tiny(device="cpu", use_flash_attention=False)
     ref = _config(JG, "gpt_tiny", use_flash_attention=False)
     assert model.config.use_flash_attention is False
     assert ref.use_flash_attention is False
     assert PG.GPTConfig().use_flash_attention is True
     for kw in ({"sequence_parallel": True}, {"cp_mode": "ring"}):
-        with pytest.raises(NotImplementedError, match="A23b-6"):
-            PG.gpt_tiny(device="cpu", **kw)
+        (key, value), = kw.items()
+        assert getattr(PG.gpt_tiny(device="cpu", **kw).config, key) == \
+            getattr(_config(JG, "gpt_tiny", **kw), key) == value

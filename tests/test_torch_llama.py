@@ -159,14 +159,46 @@ def test_rms_norm_matches_jax():
 
 
 def test_trainable_loss_and_no_decompose(carried):
-    _, pm, _ = carried
+    """The loss trains, and ``functional_decompose`` (ported with ROADMAP
+    A23b-6b) gives the JAX schema: the same params (bitwise), specs and
+    num_layers, and its four functions chained equal the JAX chain and
+    the port's own forward and loss."""
+    jm, pm, _ = carried
     ids = torch.from_numpy(_ids(2, 8, seed=9))
     loss = pm.loss(pm(ids), ids)
     loss.backward()
     assert torch.isfinite(loss) and pm.lm_head.weight.grad is not None
     pm.zero_grad()
-    with pytest.raises(NotImplementedError, match="SPMD"):
-        pm.functional_decompose()
+    got, want = pm.functional_decompose(), jm.functional_decompose()
+    assert got["num_layers"] == want["num_layers"] == 2
+    assert got["specs"] == want["specs"]
+    for group in ("embed", "blocks", "head"):
+        assert got["params"][group].keys() == want["params"][group].keys()
+        for k, v in got["params"][group].items():
+            assert np.array_equal(v.numpy(),
+                                  np.asarray(want["params"][group][k])), k
+
+    def chain(d, ids, layer):
+        embed_fn, block_fn, head_fn, loss_fn = d["fns"]
+        p = d["params"]
+        h = embed_fn(p["embed"], ids)
+        for i in range(d["num_layers"]):
+            h = block_fn({k: v[i] for k, v in p["blocks"].items()},
+                         layer(h))
+        logits = head_fn(p["head"], layer(h), p["embed"])
+        return logits, loss_fn(logits, ids)
+
+    logits, closs = chain(got, ids, lambda h: h)
+    jids = paddle.to_tensor(ids.numpy().astype(np.int32))
+    jlogits, jloss = chain(want, jids._data,
+                           lambda h: getattr(h, "_data", h))
+    jlogits = getattr(jlogits, "_data", jlogits)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(float(closs), float(np.asarray(jloss)),
+                               rtol=1e-5)
+    assert torch.equal(logits, pm(ids).detach())
+    assert torch.equal(closs, pm.loss(pm(ids), ids).detach())
 
 
 def test_default_device_is_cuda(monkeypatch):

@@ -135,6 +135,22 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import paddle_tpu_torch.distributed.auto_parallel\n"
         "import paddle_tpu_torch.distributed.auto_parallel.strategy\n"
         "import paddle_tpu_torch.distributed.ps\n"
+        "import paddle_tpu_torch.distributed.fleet.topology\n"
+        "import paddle_tpu_torch.distributed.fleet.spmd\n"
+        "import paddle_tpu_torch.distributed.fleet.recompute\n"
+        "import paddle_tpu_torch.distributed.fleet.meta_optimizers\n"
+        "import paddle_tpu_torch.distributed.fleet.hybrid_parallel_optimizer\n"
+        "import paddle_tpu_torch.distributed.fleet.meta_parallel\n"
+        "import paddle_tpu_torch.distributed.fleet.meta_parallel.mp_layers\n"
+        "import paddle_tpu_torch.distributed.fleet.meta_parallel."
+        "sequence_parallel\n"
+        "import paddle_tpu_torch.distributed.fleet.meta_parallel."
+        "pipeline_parallel\n"
+        "import paddle_tpu_torch.distributed.fleet.utils."
+        "hybrid_parallel_util\n"
+        "import paddle_tpu_torch.distributed.auto_parallel.tuner\n"
+        "import paddle_tpu_torch.distributed.auto_parallel.engine\n"
+        "import paddle_tpu_torch.distributed.auto_parallel.interface\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.') or m == 'google.protobuf' or "

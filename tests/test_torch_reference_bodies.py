@@ -84,10 +84,10 @@ SLICE = {
                             "TestRound4VisionZoo"), True),
     "test_models_asr_ctr.py": (("TestConformer",), True),
 }
-_A23B6B = ("waits for fleet's topology, spmd, the meta_parallel layers and "
-           "auto_parallel (ROADMAP A23b-6b)")
 _A23B6C = ("waits for the parameter server and the CTR models (ROADMAP "
            "A23b-6c)")
+_PARALLEL = ("drives paddle_tpu.parallel's SpmdTrainStep, which comes with "
+             "parallel/ (ROADMAP A23b-6c)")
 _JNP = ("calls jax.numpy on the Tensor's data, which is a torch tensor in "
         "the port; held with the torch spelling in ")
 SLICE_NOT_PORTED = {
@@ -98,7 +98,7 @@ SLICE_NOT_PORTED = {
     "test_models_asr_ctr.py::TestDeepFM::test_over_sharded_ps_service":
         _A23B6C,
     "test_models_zoo.py::TestLlama::test_spmd_train_step_contract":
-        _A23B6B,
+        _PARALLEL,
     "test_api_longtail.py::TestOnnxExport::"
     "test_unsupported_primitive_raises_loudly":
         _JNP + "test_torch_onnx.py",
@@ -137,8 +137,6 @@ FEATURES_NOT_PORTED = {
     "test_exp_sigmoid_tanh_jacobians_match_autodiff":
         "differentiates the transforms with jax.vmap(jax.grad); held with "
         "torch.func in test_torch_namespaces.py",
-    "test_namespaces_transforms.py::TestHybridParallelUtil::"
-    "test_fused_allreduce_gradients_single_dp": _A23B6B,
     "test_autograd.py::TestCreateGraph::"
     "test_backward_create_graph_populates_differentiable_grad":
         "reads the JAX tape's GradNode (_node); the port's grad carries "
@@ -313,7 +311,8 @@ def test_the_feature_bodies_are_collected_whole():
     """Every body of the slice's selection is run or listed as not
     ported, with the counts of ROADMAP A23b-3b and A23b-4 (the seven
     that waited for quantization/, static/, to_static and version/ run
-    since A23b-4b and A23b-5a)."""
+    since A23b-4b and A23b-5a, ``TestHybridParallelUtil`` since
+    A23b-6b)."""
     counts = {}
     for b in FEATURE_BODIES:
         counts[b.split("::")[0]] = counts.get(b.split("::")[0], 0) + 1
@@ -323,7 +322,7 @@ def test_the_feature_bodies_are_collected_whole():
                       "test_api_surfaces.py": 19, "test_jit.py": 2,
                       "test_io.py": 1}
     assert set(FEATURES_NOT_PORTED) <= set(FEATURE_BODIES)
-    assert len(FEATURE_RUN) == 90
+    assert len(FEATURE_RUN) == 91
 
 
 def _grid(fn):
@@ -551,14 +550,19 @@ def test_program_reference_body(body, tmp_path, capsys):
     fn(**kwargs)
 
 
-# The communication layer (ROADMAP A23b-6a): the store and native
-# runtime, the launcher and its elastic relaunch, rpc, the timers, the
-# distributed checkpoint and the ZeRO stages.  Whole files (None) or the
-# classes the slice ports; a parametrised body runs once over its grid,
-# a ``slow`` one keeps the mark.  A body that builds a
-# ``jax.sharding.Mesh``, calls ``shard_map`` or reads ``.sharding`` is
-# listed with the port test that holds its fact in torch, or the part of
-# the port it waits for.
+# The communication layer (ROADMAP A23b-6a) and fleet's hybrid
+# parallelism and auto_parallel (A23b-6b): the store and native runtime,
+# the launcher and its elastic relaunch, rpc, the timers, the distributed
+# checkpoint, the ZeRO stages, the topology, the mp layers, the meta
+# optimizers, the tuner, auto_parallel and sequence parallelism.  Whole
+# files (None) or the classes the slices port; a parametrised body runs
+# once over its grid, a ``slow`` one keeps the mark.  A body that builds
+# a ``jax.sharding.Mesh``, calls ``shard_map``, reads ``.sharding`` or
+# takes a Tensor's data for the global array is listed with the port
+# test that holds its fact in torch, or the part of the port it waits
+# for.  The bodies of ``RANKS8`` build a topology of eight ranks (the
+# JAX package's eight virtual devices): they run on every rank of a pool
+# of eight gloo ranks (``torch_dist_pool``), started only for them.
 DISTRIBUTED = {
     "test_native.py": None,
     "test_launch.py": None,
@@ -567,11 +571,22 @@ DISTRIBUTED = {
     "test_checkpoint.py": None,
     "test_group_sharded.py": None,
     "test_distributed.py": None,
+    "test_meta_optimizers.py": ("TestMetaOptimizers", "TestParallelTuner",
+                                "TestRound4MetaOptimizers"),
+    "test_auto_parallel.py": None,
+    "test_sequence_parallel.py": None,
 }
 _MESH = "builds a jax.sharding.Mesh; held in torch in "
 _SHARD_MAP = ("runs the collective inside shard_map over the 8-device "
               "mesh; held over two gloo ranks in ")
+_SHARDING = "reads the jax array's .sharding; held over two gloo ranks in "
+_GLOBAL = ("reads a Tensor's data as the global array; the port's is the "
+           "rank's block, held over two gloo ranks in ")
 _TD = "test_distributed.py::"
+_TAP = "test_torch_auto_parallel.py::"
+_TSP = "test_torch_sequence_parallel.py::"
+_TTP = "test_torch_tensor_parallel.py::"
+_SP = "test_sequence_parallel.py::"
 DISTRIBUTED_NOT_PORTED = {
     "test_checkpoint.py::test_sharded_save_load_round_trip":
         _MESH + "test_torch_checkpoint.py::"
@@ -584,9 +599,6 @@ DISTRIBUTED_NOT_PORTED = {
     "test_group_sharded.py::test_stage3_params_physically_sharded":
         "reads the jax arrays' .sharding.device_set; held in "
         "test_torch_group_sharded.py::test_what_a_rank_holds_at_rest",
-    **{_TD + f"TestTopology::{t}": _A23B6B for t in (
-        "test_coord_rank_roundtrip", "test_comm_lists_partition",
-        "test_hcg_mesh", "test_build_mesh_too_big")},
     _TD + "TestCollectives::test_all_reduce_in_shard_map":
         _SHARD_MAP + "test_torch_distributed.py::test_psum_of_the_blocks_is_28",
     _TD + "TestCollectives::test_all_gather_in_shard_map":
@@ -602,20 +614,77 @@ DISTRIBUTED_NOT_PORTED = {
     _TD + "TestSpmdTraining::test_dp_sharded_train_step":
         _MESH + "test_torch_distributed.py::"
         "test_data_parallel_matches_the_jax_dp8_step",
-    _TD + "TestSpmdTraining::test_tp_layer_sharding_metadata": _A23B6B,
-    _TD + "TestSpmdTraining::test_tp_forward_sharded_params": _A23B6B,
-    _TD + "TestFleetInit::test_fleet_init_builds_hcg": _A23B6B,
+    _TD + "TestSpmdTraining::test_tp_forward_sharded_params":
+        _SHARDING + _TTP + "test_mp_layer_matches_the_jax_layer",
+    "test_meta_optimizers.py::TestParallelTuner::"
+    "test_gpt124m_pick_is_sane_and_refine_measures":
+        "refines on eight devices of one process through "
+        "paddle_tpu.parallel's SpmdTrainStep (parallel/, ROADMAP A23b-6c) "
+        "with gpt_tiny() on the default device, the card in the port; the "
+        "pick is held in " + _TAP + "test_tuner_decides_as_the_jax_tuner "
+        "and refine over the world's ranks in " + _TAP +
+        "test_refine_times_the_candidates_the_world_holds",
+    "test_meta_optimizers.py::TestRound4MetaOptimizers::"
+    "test_fp16_allreduce_quantizes_grads_before_step":
+        "compares w0 - w with float16(0.1) at rtol 1e-7, which the f32 "
+        "rounding of w0 - 0.1 meets only for weights below 1 in "
+        "magnitude (the JAX seed's; the port's seed-0 weights hold "
+        "-0.90); the gradient's fp16 round trip is held exactly in "
+        "test_torch_fleet_topology.py::"
+        "test_fp16_allreduce_rounds_the_gradient_through_fp16",
+    "test_auto_parallel.py::test_process_mesh_basic":
+        "calls ProcessMesh.jax_mesh(), which has no counterpart; held in " +
+        _TAP + "test_process_mesh_equals_the_jax_one",
+    **{f"test_auto_parallel.py::{t}": _SHARDING + _TAP +
+       "test_shard_reshard_op_and_layer_over_two_ranks" for t in (
+           "test_shard_tensor_placements",
+           "test_shard_tensor_shard_spec_style",
+           "test_shard_layer_replicates")},
+    **{f"test_auto_parallel.py::{t}": _GLOBAL + _TAP +
+       "test_shard_reshard_op_and_layer_over_two_ranks" for t in (
+           "test_reshard_changes_placement",
+           "test_shard_op_constrains_output")},
+    _SP + "test_context_parallel_matches_dense":
+        _SHARD_MAP + _TSP + "test_context_parallel_matches_jax",
+    _SP + "test_context_parallel_grads":
+        _SHARD_MAP + _TSP + "test_context_parallel_matches_jax",
+    _SP + "test_ring_attention_uneven_heads":
+        _SHARD_MAP + _TSP +
+        "test_ring_takes_uneven_heads_and_ulysses_refuses_them",
+    _SP + "test_ulysses_rejects_bad_heads":
+        _SHARD_MAP + _TSP +
+        "test_ring_takes_uneven_heads_and_ulysses_refuses_them",
+    _SP + "test_gpt_context_parallel_matches_dense":
+        "builds gpt_tiny() on the default device, the card in the port, "
+        "over a sep mesh of 8; held over two gloo ranks in " + _TSP +
+        "test_gpt_cp_forward_matches_the_jax_cp_model",
+    _SP + "test_gpt_context_parallel_eager_backward":
+        "builds gpt_tiny() on the default device, the card in the port, "
+        "over a sep mesh of 8; held over two gloo ranks in " + _TSP +
+        "test_gpt_cp_eager_backward_matches_jax",
+    _SP + "test_gpt_sequence_parallel_flag_runs":
+        "builds gpt_tiny() on the default device, the card in the port, "
+        "over an mp mesh of 8; held over two gloo ranks in " + _TTP +
+        "test_gpt_mp2_three_clipped_adamw_steps_match_jax",
+    _SP + "test_mark_sequence_sharded_under_jit":
+        "constrains a jax array under jax.jit; held over two gloo ranks "
+        "in " + _TSP + "test_sequence_marks_split_and_gather",
 }
+RANKS8 = (_TD + "TestTopology::test_hcg_mesh",
+          _TD + "TestFleetInit::test_fleet_init_builds_hcg",
+          "test_meta_optimizers.py::TestParallelTuner::"
+          "test_mapper_builds_mesh")
 DISTRIBUTED_BODIES = [b for b in _bodies(tuple(DISTRIBUTED))
                       if _selected(b, DISTRIBUTED[b.split("::")[0]])]
 DISTRIBUTED_RUN = [pytest.param(b, marks=pytest.mark.slow) if _slow(b)
                    else b for b in DISTRIBUTED_BODIES
-                   if b not in DISTRIBUTED_NOT_PORTED]
+                   if b not in DISTRIBUTED_NOT_PORTED and b not in RANKS8]
 
 
 def test_the_distributed_bodies_are_collected_whole():
-    """Every body of the slice's selection is run or listed as not
-    ported, with the counts of ROADMAP A23b-6a."""
+    """Every body of the slices' selection is run (here or on eight
+    ranks) or listed as not ported, with the counts of ROADMAP A23b-6a
+    and A23b-6b; none waits for A23b-6b."""
     counts = {}
     for b in DISTRIBUTED_BODIES:
         counts[b.split("::")[0]] = counts.get(b.split("::")[0], 0) + 1
@@ -623,15 +692,21 @@ def test_the_distributed_bodies_are_collected_whole():
                       "test_rpc_elastic_inference.py": 6,
                       "test_incubate_extras.py": 1,
                       "test_checkpoint.py": 7, "test_group_sharded.py": 4,
-                      "test_distributed.py": 13}
+                      "test_distributed.py": 13,
+                      "test_meta_optimizers.py": 23,
+                      "test_auto_parallel.py": 8,
+                      "test_sequence_parallel.py": 8}
     assert set(DISTRIBUTED_NOT_PORTED) <= set(DISTRIBUTED_BODIES)
-    assert len(DISTRIBUTED_RUN) == 28
-    assert all("A23b-6b" in why or "A23b-6c" in why or "test_torch_" in why
+    assert set(RANKS8) <= set(DISTRIBUTED_BODIES)
+    assert not set(RANKS8) & set(DISTRIBUTED_NOT_PORTED)
+    assert len(DISTRIBUTED_RUN) == 54
+    assert all("A23b-6c" in why or "test_torch_" in why
                for why in DISTRIBUTED_NOT_PORTED.values())
+    listed = (DISTRIBUTED_NOT_PORTED, FEATURES_NOT_PORTED, SLICE_NOT_PORTED)
+    assert not any("A23b-6b" in why for d in listed for why in d.values())
 
 
-@pytest.mark.parametrize("body", DISTRIBUTED_RUN)
-def test_distributed_reference_body(body, tmp_path, capsys):
+def _run_distributed_body(body, tmp_path, capsys):
     fname, *names = body.split("::")
     mod = _MODULES.get(fname) or _MODULES.setdefault(fname, _load(fname))
     obj = getattr(mod, names[0])
@@ -650,3 +725,29 @@ def test_distributed_reference_body(body, tmp_path, capsys):
         paddle.seed(0)
         np.random.seed(0)
         fn(**kwargs)
+
+
+@pytest.mark.parametrize("body", DISTRIBUTED_RUN)
+def test_distributed_reference_body(body, tmp_path, capsys):
+    _run_distributed_body(body, tmp_path, capsys)
+
+
+def run_on_a_rank(body):
+    """One body of ``RANKS8`` on this rank of a ``torch_dist_pool``
+    pool (a task: the pool's ranks import this module)."""
+    _run_distributed_body(body, None, None)
+    return True
+
+
+@pytest.fixture(scope="module")
+def pool8():
+    import torch_dist_pool as TP
+
+    pool = TP.RankPool(8, timeout=120)
+    yield pool
+    pool.close()
+
+
+@pytest.mark.parametrize("body", RANKS8)
+def test_distributed_reference_body_on_eight_ranks(body, pool8):
+    assert pool8.run(run_on_a_rank, body) == [True] * 8
