@@ -5165,6 +5165,545 @@ def hybrid_phases(dev, smi):
     return launches
 
 
+# ------------------------------------------------ the parallel slice --
+PARALLEL_SEED = 23
+PARALLEL_REL_TOL = 1e-5  # pp = 2, ep = 2 (f32) against one process
+# (a) and (b): GPT-124M f32 over pp = 2, 4 x 1024, 4 microbatches
+PARALLEL = {"preset": "gpt_124m", "batch": 4, "seq": 1024, "micro": 4,
+            "steps": 3, "vpp_steps": 2,
+            "moe": (768, 3072, 8, 4, 1024)}   # d, hidden, experts, b, t
+PS = {"slots": 26, "dim": 10, "hidden": (400, 400, 400), "batch": 2048,
+      "keys": 10 ** 6, "zipf": 1.1, "steps": 20, "capacity": 2 ** 18,
+      "table_lr": 0.01, "lr": 0.001, "eps": 1e-3}
+
+
+def _expected_pp_launches(layers, micro, steps):
+    """A pipeline stage's step: one flash forward and backward per layer
+    per microbatch, two LayerNorms per block per microbatch, and the
+    head's ``ln_f`` once on the replicated output, each forward and
+    backward."""
+    per = layers * micro
+    return {"flash_attention_fwd": per * steps,
+            "flash_attention_bwd": per * steps,
+            "layernorm_fwd": (2 * per + 1) * steps,
+            "layernorm_bwd": (2 * per + 1) * steps}
+
+
+def _memory(dev, fn):
+    """(``fn()``, peak bytes, bytes at rest after) on the card ``dev``."""
+    import torch
+
+    if dev.type != "cuda":
+        raise RuntimeError(f"device memory is read on the card, not {dev}")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    res = fn()
+    torch.cuda.synchronize(dev)
+    return (res, torch.cuda.max_memory_allocated(dev),
+            torch.cuda.memory_allocated(dev) - base)
+
+
+def _timed_calls(targets, seconds):
+    """Wrap each (owner, attribute) of ``targets`` so that its host
+    seconds add up in ``seconds[0]``; returns a function that puts the
+    originals back."""
+    originals = [(o, n, getattr(o, n)) for o, n in targets]
+
+    def timed(fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                seconds[0] += time.perf_counter() - t0
+        return call
+
+    for o, n, fn in originals:
+        setattr(o, n, timed(fn))
+
+    def restore():
+        for o, n, fn in originals:
+            setattr(o, n, fn)
+    return restore
+
+
+def _leaf_rel(got, want):
+    """max over leaves of ||got - want|| / ||want|| and the whole tree's,
+    over {group: {name: tensor}} trees, in f64."""
+    worst, num, den = 0.0, 0.0, 0.0
+    for g in want:
+        for k, w in want[g].items():
+            w = w.double()
+            d = float((got[g][k].double().to(w.device) - w).square().sum())
+            n = float(w.square().sum())
+            worst = max(worst, (d / max(n, 1e-30)) ** 0.5)
+            num, den = num + d, den + n
+    return worst, (num / den) ** 0.5
+
+
+def parallel_rank(out_dir):
+    """One rank of the parallel slice's two-rank checks, started by the
+    launcher (``python -m paddle_tpu_torch.distributed.launch
+    --nproc_per_node 2 chip_smoke.py parallel_rank DIR``), both ranks on
+    the card over gloo, weights from ``PARALLEL_SEED``.  (a) GPT-124M f32
+    (dropout 0, 4 x 1024, 4 microbatches) through ``SpmdTrainStep`` over
+    pp = 2: ``PARALLEL["steps"]`` AdamW steps (epsilon 1e-3) with
+    ``ClipGradByGlobalNorm(1.0)`` against one process's plain
+    ``TrainStep`` on the same weights and batch (rank 0 runs it first):
+    the losses and the gathered ``state_dict`` leaf by leaf; (b) the same
+    with ``virtual_pp=2`` for ``PARALLEL["vpp_steps"]`` steps; each run's
+    launches counted over its steps after the first, ms a step, the
+    pp messages' host share, peak and at-rest bytes.  (c) An
+    expert-parallel ``MoELayer`` (GShard top-2, 8 experts, ep = 2, each
+    rank 4 x 1024 tokens): one forward and backward against one
+    process's layer with the same weights on the rank's tokens (the
+    experts' gradients summed over both ranks' tokens), its ms and the
+    all-to-all's host share.  Writes ``DIR/rank<r>.json``."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        MoELayer, moe_layer)
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.cuda import registry
+    from paddle_tpu_torch.parallel import SpmdTrainStep, pipeline
+
+    cfg = PARALLEL
+    dev = torch.device("cuda", 0)
+    env = dist.init_parallel_env(device="cuda:0", timeout=600)
+    rank = env.rank
+    out = {"rank": rank, "world": env.world_size,
+           "backend": torch.distributed.get_backend()}
+    rng = np.random.RandomState(PARALLEL_SEED)
+    b, t = cfg["batch"], cfg["seq"]
+
+    def build():
+        return getattr(gpt, cfg["preset"])(
+            device=dev, seed=PARALLEL_SEED, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0)
+
+    probe = build().config
+    vocab, layers = probe.vocab_size, probe.num_layers
+    ids = torch.as_tensor(rng.randint(0, vocab, (b, t)), device=dev)
+    labels = torch.as_tensor(rng.randint(0, vocab, (b, t)), device=dev)
+
+    def adamw(params):
+        # epsilon 1e-3, as the CPU parity tests: at 1e-8 an element whose
+        # gradient is rounding noise (attention's key bias) moves by about
+        # the learning rate either way, in either run, and no leaf-by-leaf
+        # comparison holds
+        return optimizer.AdamW(learning_rate=TRAIN_LR, parameters=params,
+                               epsilon=1e-3,
+                               grad_clip=optimizer.ClipGradByGlobalNorm(1.0))
+
+    def params_of(model):
+        return {g: {k: v.detach().clone() for k, v in sub.items()}
+                for g, sub in model.functional_decompose()["params"].items()}
+
+    ref = None
+    if rank == 0:
+        def one_process():
+            model = build()
+            step = TrainStep(model, lambda lg, lb: model.loss(lg, lb),
+                             adamw(model.parameters()))
+            losses, after = [], {}
+            t0 = time.perf_counter()
+            for i in range(cfg["steps"]):
+                losses.append(step(ids, labels).item())
+                if i == 0:
+                    t0 = time.perf_counter()
+                if i + 1 in (cfg["vpp_steps"], cfg["steps"]):
+                    after[i + 1] = params_of(model)
+            ms = (time.perf_counter() - t0) / (cfg["steps"] - 1) * 1e3
+            return losses, after, ms
+
+        (losses, after, ms), peak, rest = _memory(dev, one_process)
+        ref = {"losses": losses, "after": after}
+        out["one_process"] = {"ms_per_step": ms, "peak_bytes": peak,
+                              "state_bytes_at_rest": rest}
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    def train(v, steps):
+        model = build()
+        tr = SpmdTrainStep(model, adamw(model.parameters()),
+                           fleet.build_mesh(pp=2),
+                           n_microbatches=cfg["micro"], virtual_pp=v)
+        losses = [tr.step(ids, labels).item()]
+        seconds = [0.0]
+        restore = _timed_calls(
+            [(pipeline._Link, "isend"), (pipeline._Link, "recv"),
+             (pipeline._Link, "drain"), (torch.distributed, "broadcast")],
+            seconds)
+        registry.reset_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        try:
+            losses += [tr.step(ids, labels).item()
+                       for _ in range(steps - 1)]
+            torch.cuda.synchronize(dev)
+        finally:
+            restore()
+        wall = time.perf_counter() - t0
+        rec = {"losses": losses,
+               "launches": {k: registry.counts()[k] for k in _TRAIN_KERNELS},
+               "ms_per_step": wall / (steps - 1) * 1e3,
+               "p2p_host_share": seconds[0] / wall,
+               "stage_layers": tr.num_layers // 2,
+               "stage_param_bytes": sum(
+                   lf.t.numel() * lf.t.element_size() for lf in tr.leaves
+                   if lf.group == "blocks")}
+        return rec, tr.state_dict()["params"]
+
+    for v, steps in ((1, cfg["steps"]), (2, cfg["vpp_steps"])):
+        (rec, whole), peak, rest = _memory(dev, lambda: train(v, steps))
+        rec["peak_bytes"], rec["state_bytes_at_rest"] = peak, rest
+        rec["expected_launches"] = _expected_pp_launches(
+            layers // 2, cfg["micro"], steps - 1)
+        if rank == 0:
+            rec["loss_rel"] = max(abs(a - c) / abs(c) for a, c in zip(
+                rec["losses"], ref["losses"][:steps]))
+            rec["weight_rel_l2_worst_leaf"], rec["weight_rel_l2"] = \
+                _leaf_rel(whole, ref["after"][steps])
+        out[f"vpp{v}"] = rec
+        del whole
+        torch.cuda.empty_cache()
+
+    # (c) MoE over ep = 2: each rank its tokens, the experts split
+    d, hidden, experts, mb, mt = cfg["moe"]
+    wr = np.random.RandomState(PARALLEL_SEED)
+    sd = {"gate_weight": wr.randn(d, experts) * 0.02,
+          "w1": wr.randn(experts, d, hidden) * 0.02,
+          "b1": wr.randn(experts, hidden) * 0.02,
+          "w2": wr.randn(experts, hidden, d) * 0.02,
+          "b2": wr.randn(experts, d) * 0.02}
+    sd = {k: v.astype(np.float32) for k, v in sd.items()}
+    paddle.set_device("gpu:0")
+    group = dist.new_group([0, 1])
+    k = experts // 2
+    layer = MoELayer(d, hidden, experts, gate="gshard", group=group)
+    layer.set_state_dict({n: paddle.to_tensor(
+        v if n == "gate_weight" else v[rank * k:(rank + 1) * k])
+        for n, v in sd.items()})
+    dense = MoELayer(d, hidden, experts, gate="gshard")
+    dense.set_state_dict({n: paddle.to_tensor(v) for n, v in sd.items()})
+    xr = np.random.RandomState(PARALLEL_SEED + 1 + rank)
+    x_np = xr.randn(mb, mt, d).astype(np.float32)
+    dy = paddle.to_tensor(xr.randn(mb, mt, d).astype(np.float32))
+
+    def fwd_bwd(m):
+        x = paddle.to_tensor(x_np, stop_gradient=False)
+        y = m(x)
+        (y * dy).sum().backward()
+        return y, x
+
+    fwd_bwd(layer)                      # warm up
+    for p in layer.parameters():
+        p._data.grad = None
+    seconds = [0.0]
+    restore = _timed_calls([(moe_layer, "alltoall")], seconds)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    try:
+        y, x = fwd_bwd(layer)
+        torch.cuda.synchronize(dev)
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    wy, wx = fwd_bwd(dense)
+    grads = {n: p.grad._data for n, p in dense.named_parameters()}
+    summed = {}
+    for n in ("w1", "b1", "w2", "b2"):
+        buf = grads[n].cpu().clone()
+        torch.distributed.all_reduce(buf, group=group.process_group)
+        summed[n] = buf[rank * k:(rank + 1) * k].to(dev)
+    summed["gate_weight"] = grads["gate_weight"]
+    rel = {"out": _rel_l2_all({"x": y._data}, {"x": wy._data}),
+           "dx": _rel_l2_all({"x": x.grad._data}, {"x": wx.grad._data}),
+           "grads": _rel_l2_all({n: p.grad._data for n, p in
+                                 layer.named_parameters()}, summed)}
+    out["moe"] = {"ms_fwd_bwd": wall * 1e3,
+                  "all_to_all_host_share": seconds[0] / wall,
+                  "tokens": mb * mt, "rel_l2": rel,
+                  "aux_loss": float(layer.l_aux)}
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _parallel_launcher_phase(smi):
+    """The two-rank checks (``parallel_rank``) through the launcher;
+    returns both ranks' kernel launches of (a) and (b), summed."""
+    import shutil
+
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_parallel")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", "--log_dir",
+         os.path.join(out_dir, "logs"), os.path.join(ROOT, "chip_smoke.py"),
+         "parallel_rank", out_dir],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        for r in range(2):
+            log = os.path.join(out_dir, "logs", f"workerlog.{r}")
+            if os.path.exists(log):
+                print(f"--- rank {r} log ---\n" + open(log).read()[-4000:],
+                      flush=True)
+        raise RuntimeError(f"the launcher's ranks failed "
+                           f"({proc.returncode}): {proc.stderr[-2000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    for v in (1, 2):
+        key = f"vpp{v}"
+        say(f"parallel_pp2_vpp{v}", model=PARALLEL["preset"],
+            dtype="float32", backend=r0["backend"],
+            devices="both ranks on cuda:0", parallel=f"pp=2 virtual_pp={v}",
+            batch=f"{PARALLEL['batch']} x {PARALLEL['seq']}",
+            microbatches=PARALLEL["micro"], launcher_wall_s=wall,
+            one_process=r0.get("one_process"),
+            **{k: [r[key][k] for r in ranks] for k in (
+                "losses", "ms_per_step", "p2p_host_share", "peak_bytes",
+                "state_bytes_at_rest", "stage_param_bytes", "launches",
+                "expected_launches")},
+            **{k: r0[key][k] for k in ("loss_rel", "weight_rel_l2",
+                                       "weight_rel_l2_worst_leaf")},
+            rel_tol=PARALLEL_REL_TOL, nvidia_smi=smi)
+    say("parallel_moe_ep2", d_model=PARALLEL["moe"][0],
+        d_hidden=PARALLEL["moe"][1], experts=PARALLEL["moe"][2],
+        gate="gshard (top-2, capacity factor 2)", dtype="float32",
+        moe=[r["moe"] for r in ranks], rel_tol=PARALLEL_REL_TOL,
+        nvidia_smi=smi)
+    if any(r["backend"] != "gloo" or r["world"] != 2 for r in ranks):
+        raise RuntimeError(f"the two ranks formed {r0['backend']}")
+    launches = {k: 0 for k in _TRAIN_KERNELS}
+    for v in (1, 2):
+        rec = r0[f"vpp{v}"]
+        if not (rec["loss_rel"] <= PARALLEL_REL_TOL
+                and rec["weight_rel_l2_worst_leaf"] <= PARALLEL_REL_TOL):
+            raise RuntimeError(f"pp = 2 virtual_pp = {v} drifted from one "
+                               f"process: {rec}")
+        for r in ranks:
+            got = r[f"vpp{v}"]
+            if got["launches"] != got["expected_launches"]:
+                raise RuntimeError(f"rank {r['rank']} vpp{v} launches "
+                                   f"{got['launches']} != "
+                                   f"{got['expected_launches']}")
+            for k in launches:
+                launches[k] += got["launches"][k]
+    for r in ranks:
+        worst = max(r["moe"]["rel_l2"].values())
+        if not worst <= PARALLEL_REL_TOL:
+            raise RuntimeError(f"rank {r['rank']} ep = 2 drifted from one "
+                               f"process: {r['moe']}")
+    return launches
+
+
+def _zipf_ids(rng, n, keys, a):
+    """``n`` draws of a Zipf(``a``) law truncated to ranks 1..``keys``
+    (inverse CDF), as ids 0..keys-1."""
+    cdf = np.cumsum(np.arange(1, keys + 1, dtype=np.float64) ** -a)
+    cdf /= cdf[-1]
+    return np.minimum(np.searchsorted(cdf, rng.random_sample(n)), keys - 1)
+
+
+def parameter_server_phase(dev, smi):
+    """(d) DeepFM (Criteo's 26 categorical fields, the DeepFM paper's
+    400-400-400 network, embeddings of 10) over batches of 2048 whose
+    ids are Zipf(1.1) over 10^6 keys a slot (seeded), ``PS["steps"]``
+    Adagrad steps (the tables' own Adagrad and the dense one, epsilon
+    1e-3 for the comparison: at the defaults a row element whose
+    gradient is rounding noise moves by the learning rate either way,
+    and no two summation orders agree past 1e-4), three times from the
+    same weights: on the card through ``DistributedEmbedding`` over the
+    host ``SparseTable``, on the card through
+    ``HotRowCache(capacity=2**18)``, and the host-table run on the CPU;
+    then the card's host-table run once more at the optimizers' default
+    epsilons (the table's 1e-8, Adagrad's 1e-6), timed and not compared.
+    Prints ms a step after the first, the share of the step spent inside
+    the tables' pull and push, the cache's hit rate, and the losses of
+    each compared run against the CPU run's."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed.ps import HotRowCache, SparseTable
+    from paddle_tpu_torch.models.deepfm import DeepFM
+
+    rng = np.random.RandomState(PARALLEL_SEED)
+    n = PS["batch"] * PS["slots"]
+    offsets = np.arange(PS["slots"], dtype=np.int64) * PS["keys"]
+    batches = []
+    for _ in range(PS["steps"]):
+        ids = _zipf_ids(rng, n, PS["keys"], PS["zipf"]).reshape(
+            PS["batch"], PS["slots"]) + offsets
+        y = ((ids[:, 0] + ids[:, 1]) % 3 == 0).astype(np.float32)
+        batches.append((ids.astype(np.int64), y[:, None]))
+    before = paddle.get_device()
+
+    def model_on(device, cache, eps=PS["eps"]):
+        paddle.set_device(device)
+        paddle.seed(PARALLEL_SEED)
+        kw = dict(optimizer="adagrad", learning_rate=PS["table_lr"])
+        if eps is not None:
+            kw["epsilon"] = eps
+        fo, emb = SparseTable(1, seed=PARALLEL_SEED, **kw), \
+            SparseTable(PS["dim"], seed=PARALLEL_SEED + 1, **kw)
+        if cache:
+            fo, emb = (HotRowCache(t, capacity=PS["capacity"],
+                                   device=device, **kw) for t in (fo, emb))
+        return DeepFM(sparse_feature_dim=PS["dim"], num_slots=PS["slots"],
+                      hidden_sizes=PS["hidden"], table_lr=PS["table_lr"],
+                      table_optimizer="adagrad", table=emb,
+                      first_order_table=fo)
+
+    gpu = f"gpu:{dev.index or 0}"
+    weights = {k: v.numpy() for k, v in
+               model_on(gpu, False).state_dict().items()}
+
+    def run(device, cache, eps=PS["eps"]):
+        model = model_on(device, cache, eps)
+        model.set_state_dict({k: paddle.to_tensor(v)
+                              for k, v in weights.items()})
+        opt = optimizer.Adagrad(learning_rate=PS["lr"],
+                                parameters=model.parameters(),
+                                **({} if eps is None else {"epsilon": eps}))
+        tables = [model.fo_table.table, model.emb_table.table]
+        seconds = [0.0]
+        restore = _timed_calls([(t, m) for t in tables
+                                for m in ("pull", "push")], seconds)
+        losses = []
+        t0 = time.perf_counter()
+        try:
+            for i, (ids, y) in enumerate(batches):
+                if i == 1:
+                    seconds[0] = 0.0
+                    t0 = time.perf_counter()
+                loss = model.loss(model(paddle.to_tensor(ids)),
+                                  paddle.to_tensor(y))
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                losses.append(float(loss))
+        finally:
+            restore()
+        wall = time.perf_counter() - t0
+        rec = {"ms_per_step": wall / (len(batches) - 1) * 1e3,
+               "table_call_share": seconds[0] / wall, "losses": losses}
+        if cache:
+            rec["cache"] = {name: t.stats() for name, t in
+                            zip(("first_order", "embedding"), tables)}
+        return rec
+
+    try:
+        host = run(gpu, False)
+        cached = run(gpu, True)
+        cpu = run("cpu", False)
+        default_eps = run(gpu, False, eps=None)
+    finally:
+        paddle.set_device(before)
+    for rec in (host, cached):
+        rec["loss_rel_vs_cpu"] = max(abs(a - b) / abs(b) for a, b in
+                                     zip(rec["losses"], cpu["losses"]))
+    cached["loss_rel_vs_host_table"] = max(
+        abs(a - b) / abs(b) for a, b in zip(cached["losses"],
+                                            host["losses"]))
+    say("parallel_parameter_server", model="DeepFM", slots=PS["slots"],
+        embedding_dim=PS["dim"], hidden=PS["hidden"], batch=PS["batch"],
+        ids=f"Zipf({PS['zipf']}) over {PS['keys']} keys a slot",
+        steps=PS["steps"], capacity=PS["capacity"], card_host_table=host,
+        card_hot_row_cache=cached, cpu_host_table=cpu,
+        card_host_table_default_epsilon=default_eps,
+        rel_tol=PARALLEL_REL_TOL, nvidia_smi=smi)
+    for name, rec in (("host table", host), ("hot-row cache", cached)):
+        if not rec["loss_rel_vs_cpu"] <= PARALLEL_REL_TOL:
+            raise RuntimeError(f"DeepFM on the card ({name}) drifted from "
+                               f"the CPU run: {rec['loss_rel_vs_cpu']}")
+    if not cached["loss_rel_vs_host_table"] <= PARALLEL_REL_TOL:
+        raise RuntimeError("the hot-row cache drifted from the host table")
+
+
+def parallel_kernels_phase(dev):
+    """B2/B3 at a pipeline stage's microbatch (1 x 1024 x 12 x 64 f32
+    causal, strided q/k/v as GPT's qkv gives them) and B4a/B4b at its
+    LayerNorm rows (1024 x 768 f32), each against its plain version
+    through the parity rule of the kernel phases, then timed after
+    ``cold_l2`` against the bound, the plain versions and SDPA /
+    ``F.layer_norm``."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import registry
+
+    fwd = registry.KERNELS["flash_attention_fwd"]
+    bwd = registry.KERNELS["flash_attention_bwd"]
+    q, k, v, dout = _flash_inputs(dev, torch.float32, 1, 1024, 12, 64,
+                                  seed=230, packed=True)
+    scale = 0.125
+    out, lse = fwd.kernel(q, k, v, True, scale)
+    grads = bwd.kernel(q, k, v, out, lse, dout, True, scale)
+    torch.cuda.synchronize()
+    want_out, want_lse = fwd.plain(q, k, v, True, scale)
+    want_grads = bwd.plain(q, k, v, out, lse, dout, True, scale)
+    pairs = {"out": (out, want_out, 1e-4), "lse": (lse, want_lse, 1e-4)}
+    pairs.update({f"d{n}": (g, w, 5e-4)
+                  for n, g, w in zip("qkv", grads, want_grads)})
+    report = {name: _parity(*p) for name, p in pairs.items()}
+    _say_parity("flash_attention", "pp_stage_microbatch_1x1024x12x64_causal",
+                torch.float32, report, causal=True, strided_qkv=True)
+    if not all(r[3] for r in report.values()):
+        raise RuntimeError(f"flash attention at the stage's shape: "
+                           f"{report}")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    _flash_kernel_times(fwd, bwd, dev, torch.float32, (1, 1024, 12, 64),
+                        True, flush, note=" (GPT-124M pp = 2, a microbatch)")
+    lfwd = registry.KERNELS["layernorm_fwd"]
+    lbwd = registry.KERNELS["layernorm_bwd"]
+    x, g, b, dy = _ln_inputs(dev, torch.float32, 1024, 768, seed=231)
+    y, mu, rstd = lfwd.kernel(x, g, b, 1e-5)
+    dx, dg, db = lbwd.kernel(x, g, mu, rstd, dy)
+    torch.cuda.synchronize()
+    wy, wmu, wrstd = lfwd.plain(x, g, b, 1e-5)
+    wdx, wdg, wdb = lbwd.plain(x, g, wmu, wrstd, dy, 1e-5)
+    report = {name: _parity(got, w, tol) for name, got, w, tol in (
+        ("y", y, wy, 1e-5), ("mu", mu, wmu, 1e-5),
+        ("rstd", rstd, wrstd, 1e-5), ("dx", dx, wdx, 1e-4),
+        ("dgamma", dg, wdg, 1e-4), ("dbeta", db, wdb, 1e-4))}
+    _say_parity("layernorm", "pp_stage_microbatch_1024x768", torch.float32,
+                report)
+    if not all(r[3] for r in report.values()):
+        raise RuntimeError(f"layernorm at 1024 x 768: {report}")
+    _ln_kernel_times(lfwd, lbwd, x, g, b, dy, 1e-5, flush,
+                     "1024x768 f32 (GPT-124M pp = 2, a microbatch)")
+
+
+def parallel_phases(dev, smi):
+    """The parallel slice: the kernels at a stage's microbatch; (a)-(c)
+    on two gloo ranks on the card through the launcher; (d) the
+    parameter server.  Returns B2/B3/B4a/B4b launches of both ranks' (a)
+    and (b), summed."""
+    import torch
+
+    parallel_kernels_phase(dev)
+    torch.cuda.empty_cache()
+    launches = _parallel_launcher_phase(smi)
+    torch.cuda.empty_cache()
+    parameter_server_phase(dev, smi)
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ------------------------------------------------- the eager Paddle API --
 BERT_BATCH, BERT_SEQ = 8, 512
 # _parity's f32 tolerance for the eager BERT step and forward, kernels
@@ -10369,6 +10908,10 @@ def main():
         # one rank of the hybrid phase, started by the launcher
         hybrid_rank(sys.argv[2])
         return
+    if sys.argv[1:2] == ["parallel_rank"] and len(sys.argv) == 3:
+        # one rank of the parallel phase, started by the launcher
+        parallel_rank(sys.argv[2])
+        return
     import torch
 
     name, smi = device_phase()
@@ -10452,6 +10995,15 @@ def main():
         t0 = time.perf_counter()
         hybrid_phases(dev, smi)
         say("lap", after="hybrid", seconds=time.perf_counter() - t0)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
+    if sys.argv[1:] == ["parallel"]:
+        build_phase()
+        t0 = time.perf_counter()
+        parallel_phases(dev, smi)
+        say("lap", after="parallel", seconds=time.perf_counter() - t0)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -10558,6 +11110,13 @@ def main():
     for kernel, n in hybrid_phases(dev, smi).items():
         launches[kernel] += n
     lap("hybrid")
+    torch.cuda.empty_cache()
+    # and the parallel slice: both ranks' GPT-124M steps through
+    # SpmdTrainStep over pp = 2, plain and interleaved (B2, B3, B4a, B4b),
+    # each counted alone
+    for kernel, n in parallel_phases(dev, smi).items():
+        launches[kernel] += n
+    lap("parallel")
     torch.cuda.empty_cache()
     # and the eager Paddle API's BERT-base paths: the timed training steps
     # (B4a, B4b) and the eval forward (B2, B4a), each counted alone

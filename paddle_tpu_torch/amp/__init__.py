@@ -305,14 +305,18 @@ def scaler_init_state(scaler, device=None):
                                 device=device)}
 
 
-def scaler_apply(scaler, state, grads):
+def scaler_apply(scaler, state, grads, reduce_found=None):
     """Unscale ``grads`` by the state's scale, detect a non-finite one
     and run the dynamic-scale update, all on the device with no host
     read -> (unscaled grads, found_inf as a 0-d bool tensor, new state).
     The JAX ``scaler_apply``: the reference's update_loss_scaling_
-    kernel and fleet's distributed_scaler (fleet/scaler.py:28)."""
+    kernel and fleet's distributed_scaler (fleet/scaler.py:28).  A rank
+    holding part of the gradients passes ``reduce_found``, which makes
+    its local flag the world's (the flag any rank found)."""
     grads, found = _unscale(grads, torch.reciprocal(state["scale"]),
                             scaler._scale_stays_at_least_one())
+    if reduce_found is not None:
+        found = reduce_found(found)
     if not scaler._dynamic:
         return grads, found, state
     zero = torch.zeros_like(state["bad"])

@@ -21,9 +21,9 @@ collective (``group``, ``communication``), ``init_parallel_env`` and a
 bucketed gradient-averaging ``DataParallel`` (``parallel``), the ZeRO
 stages (``sharding``), the distributed checkpoint (``checkpoint``),
 fleet's hybrid parallelism (``fleet``: the topology, tensor, sequence
-and context parallelism, recompute, the meta optimizers) and
-``auto_parallel``.  ``ps`` and fleet's dataset come with ROADMAP
-A23b-6c; their names raise ``NotImplementedError`` naming it.
+and context parallelism, recompute, the meta optimizers, the dataset),
+``auto_parallel`` and the parameter server (``ps``: the host sparse
+tables, their service, the graph tables and the device hot-row cache).
 """
 
 from .communication import (  # noqa: F401

@@ -22,12 +22,10 @@ same ``ClusterSpec`` gives the same decisions.  What the port changes:
   table, or a host without a card, is calibrated by a timed matmul.
 - ``calibrate_dcn`` times an all-gather over the default group
   (``torch.distributed``) instead of ``multihost_utils``.
-- ``refine`` times the port's eager ``TrainStep`` of each candidate that
-  the world can hold: pp == 1 and dp * mp the world size, the model
-  sliced over ``build_mesh(dp=dp, mp=mp)`` and its gradients averaged
-  over dp; any other candidate is recorded with its reason, as the JAX
-  loop records one that fails to build (the pipelined SPMD trainer is
-  ``parallel/``'s, ROADMAP A23b-6c).
+- ``refine`` times the port's ``parallel.SpmdTrainStep`` of each
+  candidate that the world can hold (dp * pp * mp the world size, over
+  ``build_mesh(dp=dp, pp=pp, mp=mp)``); any other candidate is recorded
+  with its reason, as the JAX loop records one that fails to build.
 - ``Mapper`` lays ranks out as a ``fleet.RankMesh``.
 """
 
@@ -317,16 +315,13 @@ class ParallelTuner:
         return best[0] if top_k == 1 else best
 
     def refine(self, model_factory, optimizer_factory, batch_factory,
-               top_k=3, steps=2, loss_fn=None):
-        """Measured refinement: time the port's ``TrainStep`` of each of
-        the analytic top-K that the world can hold (module docstring),
-        return the candidates with ``measured_step_time``, re-ranked by
-        it (reference profile-based tuner parity).  ``loss_fn(out,
-        labels)`` defaults to the model's ``loss``."""
-        from ...jit import TrainStep
-        from ..fleet.spmd import shard_batch, shard_parameters
+               top_k=3, steps=2):
+        """Measured refinement: build + time the port's SpmdTrainStep of
+        each of the analytic top-K that the world can hold (module
+        docstring), return the candidates with ``measured_step_time``,
+        re-ranked by it (reference profile-based tuner parity)."""
+        from ...parallel import SpmdTrainStep
         from ..fleet.topology import build_mesh
-        from ..parallel import DataParallel
 
         cands = self.tune(top_k=top_k)
         if isinstance(cands, dict):  # tune(top_k=1) returns the bare dict
@@ -335,26 +330,24 @@ class ParallelTuner:
         results = []
         for cand in cands:
             try:
-                if cand["pp"] != 1 or cand["dp"] * cand["mp"] != world:
+                if cand["dp"] * cand["pp"] * cand["mp"] != world:
                     raise ValueError(
                         f"dp={cand['dp']} mp={cand['mp']} pp={cand['pp']} "
-                        f"needs pp 1 and dp*mp = the world's {world} ranks")
-                mesh = build_mesh(dp=cand["dp"], mp=cand["mp"])
+                        f"needs dp*pp*mp = the world's {world} ranks")
+                mesh = build_mesh(dp=cand["dp"], pp=cand["pp"],
+                                  mp=cand["mp"])
                 model = model_factory()
-                model.config.sequence_parallel = cand["sp"]
                 opt = optimizer_factory(model)
-                shard_parameters(model, mesh)
-                target = DataParallel(model, group=mesh.group("dp")) \
-                    if cand["dp"] > 1 else model
-                fn = loss_fn or model.loss
-                tr = TrainStep(target, fn, opt, remat=cand["recompute"])
-                ids, labels = shard_batch(batch_factory(cand), mesh)
-                tr(ids, labels)  # warm up
+                tr = SpmdTrainStep(
+                    model, opt, mesh, n_microbatches=cand["n_micro"],
+                    sequence_parallel=cand["sp"], remat=cand["recompute"],
+                    virtual_pp=cand["virtual_pp"])
+                ids, labels = batch_factory(cand)
+                tr.step(ids, labels)  # warm up
                 best = float("inf")
                 for _ in range(steps):
                     t0 = time.perf_counter()
-                    loss = tr(ids, labels)
-                    float(loss)
+                    float(tr.step(ids, labels))
                     best = min(best, time.perf_counter() - t0)
                 results.append(dict(cand, measured_step_time=best))
             except Exception as e:  # candidate failed to build: record why

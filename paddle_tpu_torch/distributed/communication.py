@@ -77,7 +77,7 @@ def _staged(g, t):
     ``t`` (on the host for a gloo group and a CUDA tensor)."""
     t = t.detach()
     if g.backend == "gloo" and t.is_cuda:
-        return t.to("cpu", copy=True)
+        return t.to("cpu", copy=True, memory_format=torch.contiguous_format)
     return t.clone(memory_format=torch.contiguous_format)
 
 

@@ -48,9 +48,9 @@ design mapping), and each rank holds only its own block:
   to choose, ``"cpu"`` in the tests), NCCL when every rank has a card
   of its own, gloo otherwise.
 
-The dataset (``InMemoryDataset``, ``QueueDataset``) belongs with the
-parameter server (ROADMAP A23b-6c); its names raise
-``NotImplementedError`` naming that item.
+The dataset (``InMemoryDataset``, ``QueueDataset``, ``dataset.py``) is
+the JAX module's, the global shuffle reading the port's rank and world
+size.
 """
 
 from .distributed_strategy import DistributedStrategy
@@ -67,10 +67,8 @@ from . import meta_parallel  # noqa: F401
 from . import utils  # noqa: F401
 from .recompute import recompute, recompute_sequential  # noqa: F401
 from .meta_parallel import mp_layers  # noqa: F401
-from .._later import A23B6C, later
-
-__getattr__ = later(__name__, ("InMemoryDataset", "QueueDataset",
-                               "dataset"), A23B6C)
+from . import dataset  # noqa: F401
+from .dataset import InMemoryDataset, QueueDataset  # noqa: F401
 
 
 class _FleetState:

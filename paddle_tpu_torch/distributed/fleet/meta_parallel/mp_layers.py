@@ -71,7 +71,7 @@ def _stage(g, t):
     for a gloo group and a CUDA tensor."""
     t = t.detach()
     if g.backend == "gloo" and t.is_cuda:
-        return t.to("cpu")
+        return t.to("cpu", copy=True, memory_format=torch.contiguous_format)
     return t.contiguous()
 
 
@@ -90,16 +90,38 @@ def all_reduce(t, g, op="sum"):
     return buf.to(t.device)
 
 
+def gather_list(t, g):
+    """Every rank's ``t`` (one shape), in group order, on ``t``'s
+    device."""
+    from torch import distributed as dist
+
+    if _size(g) == 1:
+        return [t]
+    buf = _stage(g, t)
+    parts = [torch.empty_like(buf) for _ in range(g.nranks)]
+    dist.all_gather(parts, buf, group=g.process_group)
+    return [p.to(t.device) for p in parts]
+
+
 def all_gather(t, g, dim):
     """The ranks' ``t`` concatenated along ``dim`` in group order."""
+    if _size(g) == 1:
+        return t
+    return torch.cat(gather_list(t, g), dim=dim)
+
+
+def broadcast(t, g, src=0):
+    """Group rank ``src``'s ``t`` on every rank of ``g`` (a new tensor
+    on ``t``'s device)."""
     from torch import distributed as dist
 
     if _size(g) == 1:
         return t
     buf = _stage(g, t)
-    parts = [torch.empty_like(buf) for _ in range(g.nranks)]
-    dist.all_gather(parts, buf, group=g.process_group)
-    return torch.cat(parts, dim=dim).to(t.device)
+    if buf.data_ptr() == t.data_ptr():
+        buf = buf.clone()
+    dist.broadcast(buf, g.ranks[src], group=g.process_group)
+    return buf.to(t.device)
 
 
 def reduce_scatter(t, g, dim):

@@ -8,8 +8,9 @@ semantics: every stage of a ``PipelineLayer`` is built on the rank (its
 ``PipelineParallel.train_batch`` runs one global batch as
 ``accumulate_steps`` microbatches, accumulating their gradients before
 one optimizer step.  Placing the stages on ranks of the ``pp`` axis and
-exchanging activations between them is ``parallel/``'s work (ROADMAP
-A23b-6c), as it is ``parallel/pipeline.py``'s in the JAX package.
+exchanging activations between them is ``paddle_tpu_torch.parallel``'s
+work (``pipeline.spmd_pipeline``, ``trainer.SpmdTrainStep``), as it is
+``parallel/pipeline.py``'s in the JAX package.
 """
 
 from ....nn.layer_base import Layer

@@ -68,7 +68,7 @@ def _pg(g):
 def _staged(g, t):
     t = t.detach()
     if g.backend == "gloo" and t.is_cuda:
-        return t.to("cpu", copy=True)
+        return t.to("cpu", copy=True, memory_format=torch.contiguous_format)
     return t.contiguous()
 
 

@@ -1,7 +1,7 @@
 """paddle.incubate (port of ``paddle_tpu/incubate``): ``asp``,
-``autograd``, ``nn`` (``FusedMultiTransformer`` and ``functional``'s
-fused functions), ``LookAhead`` and ``ModelAverage``.
-``incubate.distributed`` waits for ROADMAP A23b-6c."""
+``autograd``, ``distributed`` (the MoE layer, its gates and clip),
+``nn`` (``FusedMultiTransformer`` and ``functional``'s fused
+functions), ``LookAhead`` and ``ModelAverage``."""
 
-from . import asp, autograd, nn  # noqa: F401
+from . import asp, autograd, distributed, nn  # noqa: F401
 from .optimizer import LookAhead, ModelAverage  # noqa: F401

@@ -37,6 +37,8 @@ class Config:
         self.memory_optimized = True
         self._enable_profile = False
         self._precision = "float32"
+        self._dist_mesh = None
+        self._dist_batch_axis = "dp"
 
     def set_model(self, model_path, params_path=None):
         self.model_path = model_path
@@ -57,11 +59,15 @@ class Config:
         self._precision = dtype
 
     def enable_dist_inference(self, mesh, batch_axis="dp"):
-        """Distributed inference over a device mesh: the collectives and
-        meshes over the port's groups come with ROADMAP A23b-6c."""
-        raise NotImplementedError(
-            "enable_dist_inference is not ported yet: it comes with "
-            "ROADMAP A23b-6c")
+        """Distributed inference over a rank mesh (``fleet.build_mesh``;
+        reference DistModel / dist inference over FleetExecutor): the
+        Predictor of each rank runs its block of the batch (dim 0 split
+        over ``batch_axis``'s group, parameters replicated) and the
+        outputs are all-gathered, so every rank returns the whole
+        batch's.  The JAX package shards the inputs of one program over
+        the devices of a jax Mesh."""
+        self._dist_mesh = mesh
+        self._dist_batch_axis = batch_axis
 
     def switch_ir_optim(self, flag=True):
         pass  # the traced program is what runs
@@ -179,10 +185,26 @@ class Predictor:
         if self._target is not None:
             datas = [d.to(self._target) if d.is_floating_point() else d
                      for d in datas]
+        group = self._batch_group()
+        if group is not None:
+            datas = [_rank_block(d, group) for d in datas]
         with torch.no_grad():
             out = self._program(*[_wrap(d) for d in datas])
         outs = out if isinstance(out, (tuple, list)) else (out,)
-        return [o._data if isinstance(o, Tensor) else o for o in outs]
+        outs = [o._data if isinstance(o, Tensor) else o for o in outs]
+        if group is not None:
+            from ..distributed.fleet.meta_parallel import mp_layers
+            outs = [mp_layers.all_gather(o, group, 0) for o in outs]
+        return outs
+
+    def _batch_group(self):
+        """The group the batch splits over (``enable_dist_inference``),
+        None for one rank."""
+        mesh = self._config._dist_mesh
+        if mesh is None or mesh.axis_size(self._config._dist_batch_axis) \
+                <= 1:
+            return None
+        return mesh.group(self._config._dist_batch_axis)
 
     def run(self, inputs=None):
         """Either positional (list of np arrays -> list of np arrays) or
@@ -208,6 +230,15 @@ class Predictor:
         if inputs is not None:
             return host
         return True
+
+
+def _rank_block(d, group):
+    n = d.shape[0]
+    if n % group.nranks:
+        raise ValueError(f"batch {n} does not split over the "
+                         f"{group.nranks} ranks of the batch axis")
+    k = n // group.nranks
+    return d[group.rank * k:(group.rank + 1) * k]
 
 
 def create_predictor(config):

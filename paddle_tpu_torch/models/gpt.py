@@ -329,26 +329,87 @@ class GPTForCausalLM(nn.Module):
             self.train(was_training)
         return ids[0].cpu().numpy()
 
-    # ---- the stacked form the serving engine consumes ----
+    # ---- functional decomposition (the JAX SpmdTrainStep contract) ----
     def functional_decompose(self):
-        """``{"params": {"embed", "blocks", "head"}, "num_layers"}`` with
-        per-layer block params stacked on a leading axis — the JAX
-        package's schema (``blocks`` keys are the block state-dict
-        names, ``head`` is the final LayerNorm; the LM head is tied to
-        ``embed["word_embeddings.weight"]``)."""
+        """``{"params", "specs", "fns", "num_layers"}``, the JAX schema:
+        ``params`` {"embed": the embeddings' parameters, "blocks": the
+        block parameters stacked on a leading layer axis (the block
+        state-dict names), "head": the final LayerNorm's}, ``specs``
+        their mesh axes (a block leaf's with ``"pp"`` in front), ``fns``
+        (embed_fn(p, ids), block_fn(p, hidden), head_fn(p, hidden,
+        embed_p), loss_fn(logits, labels)), each a pure function of its
+        parameters through ``torch.func.functional_call``.  The LM head
+        is tied: ``head_fn`` multiplies by ``embed_p["word_embeddings.
+        weight"]``'s transpose.  ``block_fn`` runs the first block as the
+        template in the mode the model is in now and restores the
+        template's own mode after; its ``generators`` are the dropout
+        generators a caller reseeds per layer, (generator, salt) pairs
+        (``parallel.pipeline``).
+        On a model sliced over mp the functions run the Megatron
+        collectives the forward does and the logits are the rank's vocab
+        block, which ``loss_fn`` takes through the vocab-parallel cross
+        entropy.  The serving engine reads ``params``."""
+        from torch.func import functional_call
+
         emb = self.gpt.embeddings
         blocks = list(self.gpt.h)
+        template = blocks[0]
+        ln_f = self.gpt.ln_f
+        tparams = dict(template.named_parameters())
         stacked = {name: torch.stack([dict(b.named_parameters())[name]
                                       .detach() for b in blocks])
-                   for name, _ in blocks[0].named_parameters()}
+                   for name in tparams}
+
+        def axes_of(p):
+            return getattr(p, "mesh_axes", None)
+
+        training = self.training
+        model = self
+
+        def embed_fn(p, input_ids):
+            return functional_call(emb, p, (input_ids,))
+
+        def block_fn(p, hidden):
+            prev = template.training
+            template.train(training)
+            try:
+                return functional_call(template, p, (hidden,))
+            finally:
+                template.train(prev)
+
+        mp = mp_layers.mp_of(self)
+        block_fn.generators = [(g, 0) for g in {
+            id(m.generator): m.generator for m in template.modules()
+            if isinstance(getattr(m, "generator", None),
+                          torch.Generator)}.values()]
+        if mp is not None and mp.generator is not None:
+            block_fn.generators.append((mp.generator, 1 + mp.rank))
+
+        def head_fn(p, hidden, embed_p):
+            h = functional_call(ln_f, p, (hidden,))
+            w = embed_p["word_embeddings.weight"]
+            mp_ = mp_layers.mp_of(model)
+            return F.linear(h if mp_ is None else mp_.column_in(h), w.T)
+
+        def loss_fn(logits, labels):
+            return _causal_lm_loss(model, logits, labels)
+
         return {
             "params": {
                 "embed": {k: v.detach()
                           for k, v in emb.named_parameters()},
                 "blocks": stacked,
                 "head": {k: v.detach()
-                         for k, v in self.gpt.ln_f.named_parameters()},
+                         for k, v in ln_f.named_parameters()},
             },
+            "specs": {
+                "embed": {k: axes_of(v) for k, v in emb.named_parameters()},
+                "blocks": {n: ("pp",) + tuple(axes_of(p) or
+                                              (None,) * p.dim())
+                           for n, p in tparams.items()},
+                "head": {k: None for k, _ in ln_f.named_parameters()},
+            },
+            "fns": (embed_fn, block_fn, head_fn, loss_fn),
             "num_layers": len(blocks),
         }
 

@@ -259,7 +259,10 @@ class LlamaForCausalLM(nn.Module):
         with ``"pp"`` in front), ``fns`` (embed_fn(p, ids), block_fn(p,
         hidden), head_fn(p, hidden, embed_p), loss_fn(logits, labels)),
         each a pure function of its parameters through
-        ``torch.func.functional_call``."""
+        ``torch.func.functional_call``; on a model sliced over mp they
+        run the collectives the forward runs (the vocab-split lookup, the
+        rank's vocab block of the logits, the vocab-parallel cross
+        entropy)."""
         from torch.func import functional_call
 
         embed = self.llama.embed_tokens
@@ -288,8 +291,11 @@ class LlamaForCausalLM(nn.Module):
         block_specs = {n: ("pp",) + tuple(axes_of(p) or (None,) * p.dim())
                        for n, p in tparams.items()}
 
+        model = self
+
         def embed_fn(p, input_ids):
-            return functional_call(embed, p, (input_ids,))
+            return mp_layers.vocab_parallel_embedding(
+                input_ids, p["weight"], mp_layers.mp_of(model))
 
         def block_fn(p, hidden):
             return functional_call(template, p, (hidden,))
@@ -300,15 +306,18 @@ class LlamaForCausalLM(nn.Module):
             np_ = {k[len("norm."):]: v for k, v in p.items()
                    if k.startswith("norm.")}
             h = functional_call(norm, np_, (hidden,))
+            mp = mp_layers.mp_of(model)
+            if mp is not None:
+                # the rank's vocab block of the logits
+                h = mp.column_in(h)
             if lm_head is None:
                 return h @ embed_p["weight"].T
             return h @ p["lm_head.weight"]
 
         def loss_fn(logits, labels):
             # the shifted cross entropy of GPTForCausalLM's decomposition
-            return F.cross_entropy(
-                logits[:, :-1, :].reshape(-1, logits.shape[-1]),
-                labels[:, 1:].reshape(-1))
+            # (vocab-parallel over a sliced model's logits)
+            return _causal_lm_loss(model, logits, labels)
 
         return {
             "params": {"embed": embed_params, "blocks": stacked,
@@ -318,6 +327,28 @@ class LlamaForCausalLM(nn.Module):
             "fns": (embed_fn, block_fn, head_fn, loss_fn),
             "num_layers": len(blocks),
         }
+
+    @torch.no_grad()
+    def load_stacked(self, params):
+        """Write stacked params (the ``functional_decompose`` schema, as
+        numpy arrays or tensors) into the model, casting to each
+        parameter's dtype and device (``SpmdTrainStep.sync_to_model``)."""
+        def put(p, v):
+            p.copy_(torch.as_tensor(v).to(p.device, p.dtype))
+
+        emb = dict(self.llama.embed_tokens.named_parameters())
+        for k, v in params["embed"].items():
+            put(emb[k], v)
+        head = {"norm." + k: p for k, p in self.llama.norm.named_parameters()}
+        if self.lm_head is not None:
+            head.update({"lm_head." + k: p for k, p in
+                         self.lm_head.named_parameters()})
+        for k, v in params["head"].items():
+            put(head[k], v)
+        for i, blk in enumerate(self.llama.layers):
+            sd = dict(blk.named_parameters())
+            for k, v in params["blocks"].items():
+                put(sd[k], v[i])
 
     @torch.no_grad()
     def set_state_dict(self, state_dict):

@@ -29,6 +29,24 @@ from ..framework.dtype import convert_dtype
 from ..ops.dispatch import apply_op
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """``t`` summed over ``group``; the backward sums the gradients over
+    the group the same way."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        from ..distributed.fleet.meta_parallel import mp_layers
+
+        ctx.group = group
+        return mp_layers.all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..distributed.fleet.meta_parallel import mp_layers
+
+        return mp_layers.all_reduce(g, ctx.group), None
+
+
 class SparseTensor:
     """COO sparse tensor handle (``paddle.sparse.sparse_coo_tensor``
     result): host coordinates ``[nnz, sparse_ndim]``, device values,
@@ -514,9 +532,47 @@ def _install_depth():
             return _rebuild(x, out_vals)
 
     class SyncBatchNorm(BatchNorm):
-        """Sparse sync BN (sparse sync_batch_norm_kernel.h): on one card
-        it equals BatchNorm; cross-card statistics wait for the port's
-        ``distributed`` (ROADMAP A23b-6c)."""
+        """Sparse sync BN (sparse sync_batch_norm_kernel.h): in training,
+        with a world of more than one rank, the batch
+        statistics are the world's: each rank's per-channel sum, sum of
+        squares and count over its nonzero sites all-reduced before
+        normalising (an all-reduce whose backward all-reduces the
+        gradients, so they are the gradients of the ranks' summed
+        losses); on one rank it equals BatchNorm."""
+
+        def _group(self):
+            from ..distributed.group import _ensure_default_group
+
+            g = _ensure_default_group()
+            return g if g.process_group is not None and g.nranks > 1 \
+                else None
+
+        def forward(self, x):
+            from .depth import _rebuild, _vals_tensor
+
+            group = self._group()
+            if group is None or not self.training or self.use_global_stats:
+                return super().forward(x)
+            v = _vals_tensor(x)._data
+            c = v.shape[1]
+            local = torch.cat([v.sum(0), (v * v).sum(0),
+                               v.new_full((1,), float(v.shape[0]))])
+            stats = _AllReduceSum.apply(local, group)
+            n = stats[2 * c]
+            mean = stats[:c] / n
+            var = stats[c:2 * c] / n - mean * mean
+            out = (v - mean) * torch.rsqrt(var + self.epsilon)
+            if self.weight is not None:
+                out = out * self.weight._data
+            if self.bias is not None:
+                out = out + self.bias._data
+            m = self.momentum
+            with torch.no_grad():
+                self._mean.set_value(m * self._mean._data +
+                                     (1 - m) * mean.detach())
+                self._variance.set_value(m * self._variance._data +
+                                         (1 - m) * var.detach())
+            return _rebuild(x, _wrap(out))
 
     nn.Conv3D = Conv3D
     nn.SubmConv3D = SubmConv3D

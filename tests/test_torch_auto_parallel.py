@@ -215,18 +215,20 @@ def test_tuner_decides_as_the_jax_tuner(name):
 
 
 def test_refine_times_the_candidates_the_world_holds(pool):
-    """Over two ranks: every candidate with pp 1 and dp * mp = 2 is
-    built, sliced and timed (a finite time), the others are recorded
-    with the reason, and the list is sorted by the measured time."""
+    """Over two ranks: every candidate with dp * pp * mp = 2 is built
+    into an SpmdTrainStep and timed (a finite time; pp = 2 through the
+    pipeline), the others are recorded with the reason, and the list is
+    sorted by the measured time."""
     got = pool.run(H.refine_task)
     for r in got[0]:
-        holds = r["pp"] == 1 and r["dp"] * r["mp"] == 2
+        holds = r["dp"] * r["mp"] * r["pp"] == 2
         assert np.isfinite(r["measured_step_time"]) == holds, r
         assert ("error" in r) != holds
     times = [r["measured_step_time"] for r in got[0]]
     assert times == sorted(times)
-    assert {(r["dp"], r["mp"]) for r in got[0]
-            if np.isfinite(r["measured_step_time"])} == {(2, 1), (1, 2)}
+    assert {(r["dp"], r["mp"], r["pp"]) for r in got[0]
+            if np.isfinite(r["measured_step_time"])} == {
+                (2, 1, 1), (1, 2, 1), (1, 1, 2)}
 
 
 def test_calibrate_dcn_over_two_ranks(pool):

@@ -69,21 +69,24 @@ def test_exports_every_name_of_the_jax_modules():
 
 
 def test_later_names_raise_naming_their_item():
-    """Only the parameter server's names (fleet's dataset with it) wait,
-    for A23b-6c; fleet's topology and auto_parallel came with A23b-6b."""
+    """No name waits for a later part of the port any more: the
+    parameter server, fleet's dataset, fleet's topology and auto_parallel
+    are all ported."""
     from paddle_tpu_torch.distributed import auto_parallel, fleet, ps
 
-    for mod, name, item in ((fleet, "InMemoryDataset", "A23b-6c"),
-                            (fleet, "QueueDataset", "A23b-6c"),
-                            (ps, "SparseTable", "A23b-6c")):
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(mod, name)
+    for mod, name in ((fleet, "InMemoryDataset"), (fleet, "QueueDataset"),
+                      (ps, "SparseTable"), (ps, "DistributedEmbedding"),
+                      (ps, "HotRowCache"), (ps, "PsServer"),
+                      (ps, "GraphTable")):
+        assert callable(getattr(mod, name))
     assert fleet.DistributedStrategy is not None
     assert auto_parallel.Strategy is not None
     for mod, name in ((fleet, "build_mesh"),
                       (fleet, "HybridCommunicateGroup"),
                       (auto_parallel, "ProcessMesh")):
         assert callable(getattr(mod, name))
+    with pytest.raises(AttributeError):
+        ps.no_such_name
 
 
 # ------------------------------------------------------ world size 1 --

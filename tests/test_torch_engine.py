@@ -53,6 +53,10 @@ import paddle_tpu.distributed.fleet.distributed_strategy as jax_dist_strategy
 import paddle_tpu.distributed.fleet.elastic as jax_elastic
 import paddle_tpu.distributed.auto_parallel.strategy as jax_ap_strategy
 import paddle_tpu.distributed.launch.main as jax_launch_main
+import paddle_tpu.distributed.ps.graph as jax_ps_graph
+import paddle_tpu.distributed.ps.service as jax_ps_service
+import paddle_tpu.models.deepfm as jax_deepfm
+import paddle_tpu.models.wide_deep as jax_wide_deep
 import paddle_tpu.io.sampler as jax_sampler
 import paddle_tpu.linalg as jax_linalg_ns
 import paddle_tpu.nn.pooling as jax_pooling
@@ -105,6 +109,10 @@ import paddle_tpu_torch.distributed.fleet.distributed_strategy as port_dist_stra
 import paddle_tpu_torch.distributed.fleet.elastic as port_elastic
 import paddle_tpu_torch.distributed.auto_parallel.strategy as port_ap_strategy
 import paddle_tpu_torch.distributed.launch.main as port_launch_main
+import paddle_tpu_torch.distributed.ps.graph as port_ps_graph
+import paddle_tpu_torch.distributed.ps.service as port_ps_service
+import paddle_tpu_torch.models.deepfm as port_deepfm
+import paddle_tpu_torch.models.wide_deep as port_wide_deep
 import paddle_tpu_torch.io.sampler as port_sampler
 import paddle_tpu_torch.linalg as port_linalg_ns
 import paddle_tpu_torch.nn.pooling as port_pooling
@@ -463,7 +471,9 @@ def test_default_device_needs_cuda(models, monkeypatch):
     (jax_dist_strategy, port_dist_strategy),
     (jax_elastic, port_elastic),
     (jax_ap_strategy, port_ap_strategy),
-    (jax_launch_main, port_launch_main)])
+    (jax_launch_main, port_launch_main),
+    (jax_ps_service, port_ps_service), (jax_ps_graph, port_ps_graph),
+    (jax_deepfm, port_deepfm), (jax_wide_deep, port_wide_deep)])
 def test_host_modules_are_verbatim_copies(jax_mod, port_mod):
     assert inspect.getsource(port_mod) == inspect.getsource(jax_mod)
 

@@ -132,10 +132,13 @@ def test_fleet_init_over_four_ranks_gives_the_jax_hcg(pool4, degrees):
 
 
 def test_the_dataset_waits_for_the_parameter_server():
-    with pytest.raises(NotImplementedError, match="A23b-6c"):
-        fleet.InMemoryDataset
-    with pytest.raises(NotImplementedError, match="A23b-6c"):
-        fleet.QueueDataset
+    """The dataset came with the parameter server: fleet exports the
+    dataset module's classes."""
+    from paddle_tpu_torch.distributed.fleet import dataset
+
+    assert fleet.InMemoryDataset is dataset.InMemoryDataset
+    assert fleet.QueueDataset is dataset.QueueDataset
+    assert issubclass(fleet.InMemoryDataset, dataset.DatasetBase)
 
 
 # ----------------------------------------------------------- recompute --

@@ -70,7 +70,7 @@ def test_decompose_schema_and_values_bitwise(carried):
     jm, pm, params = carried
     got = pm.functional_decompose()
     assert got["num_layers"] == 2
-    assert set(got) == {"params", "num_layers"}
+    assert set(got) == {"params", "specs", "fns", "num_layers"}
     ref = _jax_params(jm)
     for g in ("embed", "blocks", "head"):
         assert set(got["params"][g]) == set(ref[g]), g

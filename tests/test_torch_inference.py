@@ -148,9 +148,24 @@ def test_saved_model_serves_through_the_predictor(tmp_path, twins):
                                rtol=1e-5, atol=1e-6)
 
 
-def test_dist_inference_waits_for_distributed():
-    with pytest.raises(NotImplementedError, match="A23b-6"):
-        inference.Config().enable_dist_inference(mesh=None)
+def test_dist_inference_waits_for_distributed(twins):
+    """``enable_dist_inference`` is ported (the batch split over two ranks
+    is held in ``test_torch_ps.py``): it keeps the mesh and batch axis,
+    and over a mesh whose batch axis has one rank the Predictor runs the
+    whole batch, equal to the JAX Predictor's."""
+    from paddle_tpu_torch.distributed.fleet import build_mesh
+
+    pm, jm = twins
+    cfg, jcfg = inference.Config(), jinf.Config()
+    cfg.set_model_obj(pm)
+    jcfg.set_model_obj(jm)
+    mesh = build_mesh(dp=1)
+    cfg.enable_dist_inference(mesh, batch_axis="dp")
+    assert cfg._dist_mesh is mesh and cfg._dist_batch_axis == "dp"
+    x = _x(4, 8, seed=9)
+    got = inference.create_predictor(cfg).run([x])[0]
+    want = jinf.create_predictor(jcfg).run([x])[0]
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
 def test_predictor_server_round_trip(twins):

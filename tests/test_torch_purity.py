@@ -135,6 +135,18 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import paddle_tpu_torch.distributed.auto_parallel\n"
         "import paddle_tpu_torch.distributed.auto_parallel.strategy\n"
         "import paddle_tpu_torch.distributed.ps\n"
+        "import paddle_tpu_torch.distributed.ps.service\n"
+        "import paddle_tpu_torch.distributed.ps.graph\n"
+        "import paddle_tpu_torch.distributed.ps.heter\n"
+        "import paddle_tpu_torch.distributed.fleet.dataset\n"
+        "import paddle_tpu_torch.parallel, paddle_tpu_torch.parallel.pipeline\n"
+        "import paddle_tpu_torch.parallel.trainer\n"
+        "import paddle_tpu_torch.incubate.distributed.models.moe\n"
+        "import paddle_tpu_torch.incubate.distributed.models.moe.gate\n"
+        "import paddle_tpu_torch.incubate.distributed.models.moe.moe_layer\n"
+        "import paddle_tpu_torch.incubate.distributed.models.moe.grad_clip\n"
+        "import paddle_tpu_torch.models.deepfm\n"
+        "import paddle_tpu_torch.models.wide_deep\n"
         "import paddle_tpu_torch.distributed.fleet.topology\n"
         "import paddle_tpu_torch.distributed.fleet.spmd\n"
         "import paddle_tpu_torch.distributed.fleet.recompute\n"

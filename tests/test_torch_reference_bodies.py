@@ -84,28 +84,24 @@ SLICE = {
                             "TestRound4VisionZoo"), True),
     "test_models_asr_ctr.py": (("TestConformer",), True),
 }
-_A23B6C = ("waits for the parameter server and the CTR models (ROADMAP "
-           "A23b-6c)")
-_PARALLEL = ("drives paddle_tpu.parallel's SpmdTrainStep, which comes with "
-             "parallel/ (ROADMAP A23b-6c)")
 _JNP = ("calls jax.numpy on the Tensor's data, which is a torch tensor in "
         "the port; held with the torch spelling in ")
 SLICE_NOT_PORTED = {
-    "test_models_asr_ctr.py::TestDeepFM::test_fm_math_matches_manual":
-        _A23B6C,
-    "test_models_asr_ctr.py::TestDeepFM::test_converges_on_ctr_task":
-        _A23B6C,
-    "test_models_asr_ctr.py::TestDeepFM::test_over_sharded_ps_service":
-        _A23B6C,
-    "test_models_zoo.py::TestLlama::test_spmd_train_step_contract":
-        _PARALLEL,
     "test_api_longtail.py::TestOnnxExport::"
     "test_unsupported_primitive_raises_loudly":
         _JNP + "test_torch_onnx.py",
 }
-# bodies of those files that drive models of earlier slices, held there
-# by their own parity tests and not part of this slice's reference set
+# bodies of those files that drive models of other slices, held there
+# by their own parity tests (the parameter server's and the hybrid
+# trainer's run in test_torch_reference_bodies_6c.py) and not part of
+# this slice's reference set
 ELSEWHERE = {
+    **{f"test_models_asr_ctr.py::TestDeepFM::{t}":
+       "test_torch_reference_bodies_6c.py" for t in (
+           "test_fm_math_matches_manual", "test_converges_on_ctr_task",
+           "test_over_sharded_ps_service")},
+    "test_models_zoo.py::TestLlama::test_spmd_train_step_contract":
+        "test_torch_reference_bodies_6c.py",
     "test_models_zoo.py::test_vit_trains": "test_torch_vision.py",
     "test_models_zoo.py::test_bert_classification_trains":
         "test_torch_bert.py",
@@ -619,8 +615,8 @@ DISTRIBUTED_NOT_PORTED = {
     "test_meta_optimizers.py::TestParallelTuner::"
     "test_gpt124m_pick_is_sane_and_refine_measures":
         "refines on eight devices of one process through "
-        "paddle_tpu.parallel's SpmdTrainStep (parallel/, ROADMAP A23b-6c) "
-        "with gpt_tiny() on the default device, the card in the port; the "
+        "paddle_tpu.parallel's SpmdTrainStep with gpt_tiny() on the "
+        "default device, the card in the port; the "
         "pick is held in " + _TAP + "test_tuner_decides_as_the_jax_tuner "
         "and refine over the world's ranks in " + _TAP +
         "test_refine_times_the_candidates_the_world_holds",
@@ -700,7 +696,7 @@ def test_the_distributed_bodies_are_collected_whole():
     assert set(RANKS8) <= set(DISTRIBUTED_BODIES)
     assert not set(RANKS8) & set(DISTRIBUTED_NOT_PORTED)
     assert len(DISTRIBUTED_RUN) == 54
-    assert all("A23b-6c" in why or "test_torch_" in why
+    assert all("test_torch_" in why
                for why in DISTRIBUTED_NOT_PORTED.values())
     listed = (DISTRIBUTED_NOT_PORTED, FEATURES_NOT_PORTED, SLICE_NOT_PORTED)
     assert not any("A23b-6b" in why for d in listed for why in d.values())
