@@ -7504,12 +7504,451 @@ def tp_serving_phase(dev, smi):
     return sum(r[0] for r in ranks)
 
 
+# bound of the tp=2 page payload against tp=1's, layer by layer: max |a - b|
+# within 2^-4 of the layer's max |b| (a few bf16 ulps of the K/V values,
+# grown over the layers by the all-reduces' bf16 rounding); the payload
+# with its two ranks' head halves swapped must exceed it
+A20B_PAYLOAD_BOUND = 2.0 ** -4
+
+
+def _counted_tier_bytes(eng):
+    """Sum ``last_tier_bytes`` over every step ``eng`` takes from now on
+    -> a one-element list holding the running total."""
+    moved = [0]
+    step = eng.step
+
+    def counted():
+        out = step()
+        moved[0] += eng.last_tier_bytes
+        return out
+
+    eng.step = counted
+    return moved
+
+
+def _tier_pages(eng):
+    """Pages the tier moved, by its event records: demoted, swapped in,
+    promoted and adopted from the store."""
+    return sum(e[3] if e[1] in ("demote", "swap_in", "store_adopt") else e[2]
+               for e in eng.events
+               if e[1] in ("demote", "swap_in", "store_adopt", "promote"))
+
+
+def _rank_launches(eng, before, kernel):
+    """Each rank's launches of ``kernel`` (0 = B1, 1 = B5) since the
+    ``_rank_stats()`` reading ``before``."""
+    return [r[kernel] for r in _tp_launches(before, eng._rank_stats())]
+
+
+def _per_page_ms(ms, eng, kind):
+    """Host ms a page of the ``kind`` tier moves timed by _timed_hook."""
+    pages = sum(e[3] for e in eng.events if e[1] == kind)
+    return sum(ms) / pages if pages else None
+
+
+def _payload_error(a, b, nh):
+    """Worst ratio, over the layers, of max |a - b| to the bound
+    A20B_PAYLOAD_BOUND x max |b| of the bf16 pages ``a`` / ``b`` (int16 bit
+    patterns [L, n, bs, Nh, D]), and the same for ``a`` with its two
+    ranks' head halves swapped (the control)."""
+    import torch
+
+    def f32(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).view(
+            torch.bfloat16).float()
+
+    a, b = f32(a), f32(b)
+    swapped = torch.cat([a[..., nh // 2:, :], a[..., :nh // 2, :]], dim=-2)
+
+    def worst(x):
+        return max(float((x[l] - b[l]).abs().max())
+                   / (A20B_PAYLOAD_BOUND * float(b[l].abs().max()))
+                   for l in range(b.shape[0]))
+
+    return worst(a), worst(swapped)
+
+
+def _a20b_tier(model, dev, smi, prompts, sampled, layers):
+    """(a): the burst through a tp=2 and a tp=1 engine starved to 72
+    pages (a full-length sequence is 64), ``kv_tier`` at ``"always"``, so
+    that each preempts, demotes and swaps in -> (B1 launches summed over the
+    tp=2 engine's ranks, that engine)."""
+    import torch
+
+    from paddle_tpu_torch.inference.llm import LLMEngine
+    from paddle_tpu_torch.ops.cuda import registry
+
+    tier = {"host_bytes": "2GiB", "store_bytes": "1GiB", "policy": "always"}
+    runs = {}
+    for tp in (1, 2):
+        mesh = dict(mesh=_TP_MESH) if tp > 1 else {}
+        eng = LLMEngine(model, device=dev, num_blocks=72, kv_tier=tier,
+                        **mesh, **_SERVE_ENGINE)
+        eng.warmup()
+        demote_ms, swap_ms = [], []
+        _timed_hook(eng, "demote_hook", "demote", demote_ms)
+        _timed_hook(eng, "swap_in_hook", "swap_in", swap_ms)
+        moved = _counted_tier_bytes(eng)
+        # _fleet_burst zeroes rank 0's counts: read the ranks after that
+        registry.reset_counts()
+        before = eng._rank_stats()
+        steps0 = eng.stats["launches"]
+        outs, _counts, launches, rec = _fleet_burst(eng, dev, new=TP_NEW)
+        ranks = _rank_launches(eng, before, 0)
+        runs[tp] = dict(
+            outs=outs, ranks=ranks, launches=launches,
+            record=rec, tier=eng.tier_stats(), tier_bytes=moved[0],
+            pages=_tier_pages(eng), demote_ms=demote_ms, swap_in_ms=swap_ms,
+            demote_ms_a_page=_per_page_ms(demote_ms, eng, "demote"),
+            swap_in_ms_a_page=_per_page_ms(swap_ms, eng, "swap_in"),
+            preemptions=eng.scheduler.num_preemptions)
+        if any(r != layers * (eng.stats["launches"] - steps0)
+               for r in ranks):
+            raise RuntimeError(f"(a) tp={tp}: B1 launches {ranks} a rank "
+                               f"for {launches} engine launches")
+        if tp == 1:
+            del eng
+            torch.cuda.empty_cache()
+    one, two = runs[1], runs[2]
+    divergences = _burst_divergences(model, dev, sampled, two["outs"],
+                                     one["outs"])
+    want_bytes = two["pages"] * eng.page_bytes * eng.tp
+    say("tp_a20b_tier", nvidia_smi=smi, model="gpt_124m", dtype="bfloat16",
+        seed=24, num_blocks=72, page_bytes_a_rank=eng.page_bytes,
+        tp1={k: v for k, v in one.items() if k != "outs"},
+        tp2={k: v for k, v in two.items() if k != "outs"},
+        tier_stats_equal=two["tier"] == one["tier"],
+        tier_bytes_expected=want_bytes,
+        greedy_divergences=divergences,
+        demote_ms_a_page_ratio=(two["demote_ms_a_page"]
+                                / one["demote_ms_a_page"]
+                                if one["demote_ms_a_page"] else None),
+        swap_in_ms_a_page_ratio=(two["swap_in_ms_a_page"]
+                                 / one["swap_in_ms_a_page"]
+                                 if one["swap_in_ms_a_page"] else None))
+    host = two["tier"]["host_pool"]
+    if (two["tier"] != one["tier"] or two["tier_bytes"] != want_bytes
+            or two["tier_bytes"] != one["tier_bytes"]
+            or not (host["demoted_chains"] and host["swapped_in_chains"])
+            or not two["preemptions"]):
+        raise RuntimeError(f"(a) the tier at tp=2 {two['tier']} moved "
+                           f"{two['tier_bytes']} bytes, tp=1 {one['tier']} "
+                           f"{one['tier_bytes']}, expected {want_bytes}")
+    return sum(two["ranks"]), eng
+
+
+def _a20b_migration(model, dev, smi, prompts, layers):
+    """(b): four running requests exported from a tp=2 engine into a tp=1
+    engine and back, against the unmigrated tp=2 run -> B1 launches
+    summed over the tp=2 engine's ranks and the tp=1 engine's."""
+    import torch
+
+    from paddle_tpu_torch.inference.llm import LLMEngine
+    from paddle_tpu_torch.ops.cuda import registry
+
+    four = prompts[:4]
+    e2 = LLMEngine(model, device=dev, mesh=_TP_MESH, **_SERVE_ENGINE)
+    e1 = LLMEngine(model, device=dev, **_SERVE_ENGINE)
+    e1.warmup()
+    # both engines' rank 0 is this process: its counts hold both, the
+    # worker's its own
+    registry.reset_counts()
+    base = e2._rank_stats()
+    steps2, steps1 = e2.stats["launches"], e1.stats["launches"]
+    # the unmigrated run, with the top-2 logits the gate reads
+    ref_ids = [e2.add_request(p, max_new_tokens=TP_NEW, logprobs=2,
+                              request_id=f"ref{i}")
+               for i, p in enumerate(four)]
+    ref = _drive(e2)
+    # the same requests on both engines up to the first decode steps
+    rids = [f"m{i}" for i in range(4)]
+    for eng in (e2, e1):
+        for rid, p in zip(rids, four):
+            eng.add_request(p, max_new_tokens=TP_NEW, request_id=rid)
+        while eng.scheduler.waiting or not all(
+                r.prefill_done for r in eng.scheduler.running):
+            eng.step()
+        for _ in range(2):
+            eng.step()
+    torch.cuda.synchronize(dev)
+    errors, controls, positions = [], [], []
+    for rid in rids:
+        a, b = e2.export_request(rid), e1.export_request(rid)
+        ids_a, ids_b = a["request"].all_ids, b["request"].all_ids
+        n = min(a["request"].num_cached, b["request"].num_cached)
+        agree = next((i for i in range(n) if ids_a[i] != ids_b[i]), n)
+        pos = agree // e2.block_size
+        positions.append(agree)
+        err, ctl = _payload_error(a["k_pages"][:, :pos], b["k_pages"][:, :pos],
+                                  e2.num_heads)
+        errv, ctlv = _payload_error(a["v_pages"][:, :pos],
+                                    b["v_pages"][:, :pos], e2.num_heads)
+        errors.append(max(err, errv))
+        controls.append(min(ctl, ctlv))
+    for rid in rids:
+        e1.abort_request(rid)
+    _drive(e1)
+    # tp=2 -> tp=1, four decode steps there, then back
+    ms = {"export_2": [], "import_1": [], "export_1": [], "import_2": []}
+
+    def move(src, dst, label_src, label_dst):
+        for rid in rids:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            st = src.export_request(rid)
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            dst.import_request(st["request"], st["seq"], st["k_pages"],
+                               st["v_pages"])
+            torch.cuda.synchronize(dev)
+            t2 = time.perf_counter()
+            src.release_request(rid)
+            ms[label_src].append((t1 - t0) * 1e3)
+            ms[label_dst].append((t2 - t1) * 1e3)
+
+    move(e2, e1, "export_2", "import_1")
+    outs = {}
+    for _ in range(4):
+        for o in e1.step():
+            outs[o.request_id] = o
+    move(e1, e2, "export_1", "import_2")
+    outs.update(_drive(e2))
+    got = [outs[r].output_ids.tolist() for r in rids]
+    want = [ref[r].output_ids.tolist() for r in ref_ids]
+    divergences = _first_divergences(got, want, [ref[r] for r in ref_ids],
+                                     0.5)
+    worker = _rank_launches(e2, base, 0)[1]
+    process = registry.counts()["paged_ragged_attention"]
+    launches2 = e2.stats["launches"] - steps2
+    launches1 = e1.stats["launches"] - steps1
+    say("tp_a20b_migration", nvidia_smi=smi, requests=4,
+        payload_bound=f"max|a-b| <= 2^-4 max|b| a layer",
+        payload_err_over_limit=errors, control_err_over_limit=controls,
+        compared_positions=positions, divergences=divergences,
+        tokens_equal=sum(g == w for g, w in zip(got, want)),
+        ms=ms, ms_median={k: float(np.median(v)) for k, v in ms.items()},
+        page_bytes_global=e2.page_bytes * e2.tp,
+        rank0_process_launches=process, worker_launches=worker,
+        engine_launches_tp2=launches2, engine_launches_tp1=launches1)
+    e2._tp.close()
+    if (max(errors) > 1 or min(controls) <= 1
+            or worker != layers * launches2
+            or process != layers * (launches1 + launches2)):
+        raise RuntimeError(f"(b) payload {errors} (control {controls}) or "
+                           f"launches {process} / {worker} for "
+                           f"{launches1} + {launches2}")
+    return process + worker
+
+
+def _a20b_int8(model, dev, smi, prompts, layers):
+    """(c): eight burst prompts, 16 new tokens, through a tp=2 and a
+    tp=1 int8-KV engine starved to 64 pages under the tier -> B5
+    launches summed over the tp=2 engine's ranks."""
+    from paddle_tpu_torch.inference.llm import LLMEngine
+
+    tier = {"host_bytes": "1GiB", "store_bytes": "512MiB",
+            "policy": "always"}
+    eight = prompts[:8]
+    res = {}
+    for tp in (1, 2):
+        mesh = dict(mesh=_TP_MESH) if tp > 1 else {}
+        eng = LLMEngine(model, device=dev, num_blocks=64, kv_tier=tier,
+                        quantize={"weights": False, "kv_cache": True},
+                        **mesh, **_SERVE_ENGINE)
+        before = eng._rank_stats()
+        steps0 = eng.stats["launches"]
+        rids = [eng.add_request(p, max_new_tokens=16, logprobs=2 if tp == 1
+                                else 0) for p in eight]
+        outs = _drive(eng)
+        res[tp] = dict(outs=[outs[r] for r in rids], tier=eng.tier_stats(),
+                       ranks=_rank_launches(eng, before, 1),
+                       b1=_rank_launches(eng, before, 0),
+                       launches=eng.stats["launches"] - steps0,
+                       preemptions=eng.scheduler.num_preemptions)
+        if eng._tp is not None:
+            eng._tp.close()
+        del eng
+    got = [o.output_ids.tolist() for o in res[2]["outs"]]
+    want = [o.output_ids.tolist() for o in res[1]["outs"]]
+    divergences = _first_divergences(got, want, res[1]["outs"], 0.5)
+    two = res[2]
+    say("tp_a20b_int8", nvidia_smi=smi, requests=8, num_blocks=64,
+        tokens_equal=sum(g == w for g, w in zip(got, want)),
+        divergences=divergences, tier_stats_equal=two["tier"]
+        == res[1]["tier"], tier=two["tier"], preemptions=two["preemptions"],
+        rank_launches_b5=two["ranks"], engine_launches=two["launches"])
+    if (two["tier"] != res[1]["tier"] or not two["preemptions"]
+            or not two["tier"]["host_pool"]["swapped_in_chains"]
+            or any(r != layers * two["launches"] for r in two["ranks"])
+            or any(two["b1"])):
+        raise RuntimeError(f"(c) int8 tier at tp=2: {two['tier']} vs "
+                           f"{res[1]['tier']}, B5 {two['ranks']} B1 "
+                           f"{two['b1']} for {two['launches']} launches")
+    return sum(two["ranks"])
+
+
+def _a20b_fleet(model, dev, smi, prompts, sampled, layers, want):
+    """(d): ``Fleet(replicas=2, tensor_parallel=2)`` on the card, four
+    rank processes: the burst against tp=1's outputs ``want``, then a
+    drain of replica 1 migrating its running requests -> B1 launches
+    summed over the four ranks."""
+    import torch
+
+    from paddle_tpu_torch.inference.llm import Fleet
+    from paddle_tpu_torch.ops.cuda import registry
+
+    t0 = time.perf_counter()
+    fleet = Fleet(model, replicas=2, device=dev, tensor_parallel=2,
+                  migration="always", **_SERVE_ENGINE)
+    build_s = time.perf_counter() - t0
+    engines = [r.engine for r in fleet.replicas]
+
+    def ranks_around(run):
+        """``run()`` with each rank's B1 launches read around it: both
+        replicas' rank 0 is this process (``run`` zeroes its counts),
+        each worker counts its own -> (run's result, the process's
+        launches, each worker's, each engine's launches)."""
+        workers = [e._rank_stats()[1] for e in engines]
+        base = [e.stats["launches"] for e in engines]
+        res = run()
+        process = registry.counts()["paged_ragged_attention"]
+        own = [e._rank_stats()[1]["launches"]["paged_ragged_attention"]
+               - w["launches"]["paged_ragged_attention"]
+               for e, w in zip(engines, workers)]
+        steps = [e.stats["launches"] - n for e, n in zip(engines, base)]
+        if process != layers * sum(steps) or own != [layers * n
+                                                     for n in steps]:
+            raise RuntimeError(f"(d) B1 launches {process} / {own} for "
+                               f"engine launches {steps}")
+        return res, process, own, steps
+
+    (got, _c, _l, rec), p1, w1, n1 = ranks_around(
+        lambda: _fleet_burst(fleet, dev, new=TP_NEW))
+    divergences = _burst_divergences(model, dev, sampled, got, want)
+    stats = [e._rank_stats() for e in engines]
+    (handoffs, outs, _c, _l), p2, w2, n2 = ranks_around(
+        lambda: _drain_migration(fleet, dev, prompts[:8], new=TP_NEW))
+    drain_div = _burst_divergences(model, dev, sampled, outs, want[:8])
+    torch.cuda.synchronize(dev)
+    watched = len(fleet.warmup()._graphs)
+    say("tp_a20b_fleet", nvidia_smi=smi, replicas=2, tensor_parallel=2,
+        rank_processes=sum(len(e._tp.processes) + 1 for e in engines),
+        build_s=build_s, burst=rec, tokens_per_s=rec["tokens_per_s"],
+        greedy_divergences=divergences,
+        rank_device_bytes=[[s["device_bytes"] for s in st] for st in stats],
+        rank_params_bytes=[[s["params_bytes"] for s in st] for st in stats],
+        rank_pool_bytes=[[s["pool_bytes"] for s in st] for st in stats],
+        device_bytes_note="rank 0 of both replicas is this process: its "
+                          "device_bytes is the process's, both replicas' "
+                          "rank 0 and the model",
+        burst_launches={"rank0_process": p1, "workers": w1,
+                        "engines": n1},
+        handoffs=handoffs, migrated=fleet.stats["migrated"],
+        migrated_bytes=fleet.stats["migrated_bytes"],
+        drain_divergences=drain_div,
+        drain_launches={"rank0_process": p2, "workers": w2, "engines": n2},
+        watched_graphs=watched)
+    moved = sum(h["pages"] for h in handoffs) * engines[0].page_bytes * 2
+    if not fleet.stats["migrated"] or watched or \
+            fleet.stats["migrated_bytes"] != moved:
+        raise RuntimeError(f"(d) the drain moved {fleet.stats} (expected "
+                           f"{moved} bytes), or {watched} graphs watched")
+    for e in engines:
+        e._tp.close()
+    del fleet, engines
+    return p1 + sum(w1) + p2 + sum(w2)
+
+
+def _a20b_analysis(eng, dev, smi):
+    """(e): the analysis tools on (a)'s tp=2 engine: findings, the
+    census's collective bytes against the count derived from the body,
+    and the step model's decode step against a measured one."""
+    from paddle_tpu_torch.framework import analysis, cost
+
+    t0 = time.perf_counter()
+    findings = analysis.analyze_engine(eng)
+    census = cost.run_census(eng, profile="h100")
+    model = cost.StepTimeModel.from_engine(eng, profile="h100")
+    tools_s = time.perf_counter() - t0
+    hidden = eng.num_heads * eng.head_dim
+    derived = {e["bucket"]: 2 * eng.num_layers * e["bucket"] * hidden
+               * eng.dtype.itemsize * 2 for e in census.entries}
+    got = {e["bucket"]: e["cost"]["collective_bytes"].get("mp")
+           for e in census.entries}
+    rng = np.random.RandomState(2424)
+    window = [list(rng.randint(0, 50257, 128)) for _ in range(8)]
+    measured = _tp_decode_window(eng, dev, window)
+    predicted = model.times_s[("ragged", 8)] * 1e3
+    say("tp_a20b_analysis", nvidia_smi=smi, tools_s=tools_s,
+        findings=[f.format() for f in findings + census.findings],
+        collective_bytes=got, derived=derived,
+        roofline={e["label"]: e["roofline"] for e in census.entries},
+        predicted_decode_ms=predicted, measured_decode=measured,
+        predicted_over_measured=predicted / measured["wall_ms_per_step"])
+    if findings or census.findings or got != derived:
+        raise RuntimeError(f"(e) findings {findings + census.findings}, "
+                           f"collective bytes {got} != {derived}")
+
+
+def tp_a20b_phase(dev, smi):
+    """A20b on one card: GPT-124M bf16 at the serving settings (random
+    weights from seed 24), ranks on the one card over gloo.  (a) the host
+    KV tier at tp=2 against tp=1 on a pool starved to 72 pages; (b) four
+    running requests migrated tp=2 -> tp=1 -> tp=2, the payload in the
+    global layout against tp=1's; (c) the int8-KV tier at tp=2 (B5); (d)
+    ``Fleet(replicas=2, tensor_parallel=2)``: the burst and a drain that
+    migrates; (e) ``analyze_engine``, ``run_census`` and the step model
+    on (a)'s engine.  Returns (B1, B5) launches summed over the ranks."""
+    import gc
+
+    import torch
+
+    from paddle_tpu_torch.inference.llm import LLMEngine
+    from paddle_tpu_torch.models.gpt import gpt_124m
+
+    model = gpt_124m(device=dev, seed=24, dtype=torch.bfloat16).eval()
+    layers = model.config.num_layers
+    prompts, sampled = _burst_prompts()
+    laps = [time.perf_counter()]
+    b1, eng = _a20b_tier(model, dev, smi, prompts, sampled, layers)
+    _a20b_analysis(eng, dev, smi)
+    eng._tp.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    laps.append(time.perf_counter())
+    b1 += _a20b_migration(model, dev, smi, prompts, layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    laps.append(time.perf_counter())
+    b5 = _a20b_int8(model, dev, smi, prompts, layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    laps.append(time.perf_counter())
+    one = LLMEngine(model, device=dev, **_SERVE_ENGINE)
+    one.warmup()
+    want, _c, _l, _rec = _fleet_burst(one, dev, new=TP_NEW)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    b1 += _a20b_fleet(model, dev, smi, prompts, sampled, layers, want)
+    gc.collect()
+    torch.cuda.empty_cache()
+    laps.append(time.perf_counter())
+    say("tp_a20b", b1_launches=b1, b5_launches=b5,
+        seconds={k: laps[i + 1] - laps[i] for i, k in enumerate(
+            ("tier_and_analysis", "migration", "int8", "fleet"))})
+    del model
+    return b1, b5
+
+
 def tp_phases(dev, smi):
     """The tensor-parallel phases, each main path's launches read around
     it on every rank -> their (B1, B5) launches summed over the ranks."""
     b1, b5 = tp_exactness_phase(dev)
     b1 += tp_serving_phase(dev, smi)
-    return b1, b5
+    a1, a5 = tp_a20b_phase(dev, smi)
+    return b1 + a1, b5 + a5
 
 
 def fleet_phases(dev, smi):

@@ -34,8 +34,9 @@ package's catalog; the port's rules are these:
 - **S001 placements** — each rank's shard of the weights under the
   Megatron layout (``tensor_parallel.TP_BLOCK_SPLITS``, through
   ``shard_params`` on meta tensors: no rank is spawned) covers its leaf
-  exactly and holds the head group its pool holds; at tp = 1, every
-  weight and pool on the engine's device.
+  exactly and holds the head group its pool holds (at tp > 1 over the
+  global shapes rank 0's shard implies), and every weight and pool of
+  the engine's process lies on its device (:func:`check_devices`).
 - **H001 host sync** — an AST lint over ``paddle_tpu_torch/ops/`` and
   ``paddle_tpu_torch/inference/llm/``: ``.item()``, ``.tolist()``,
   ``.cpu()`` and ``.numpy()`` on a tensor value, ``float()`` /
@@ -73,13 +74,9 @@ __all__ = [
     "Finding", "CaptureWatcher", "RecaptureError", "trace_graph",
     "analyze_graph", "analyze_fn", "analyze_engine", "check_dtypes",
     "check_dead_code", "check_captured_state", "check_placements",
+    "check_devices",
     "check_host_sync", "collect_host_sync_sites", "main",
 ]
-
-# what a tensor-parallel engine leaves to the next slice (ROADMAP A20b)
-_A20B = ("is not ported yet for tensor_parallel > 1: it comes with A20b "
-         "(ROADMAP)")
-
 
 class Finding:
     """One structured analysis result.
@@ -296,19 +293,27 @@ def check_placements(params, tp, *, num_heads, head_dim, device=None,
                         f"{head_dim} ({3 * (num_heads // tp) * head_dim} "
                         "columns)"))
     if device is not None:
-        leaves = [(f"{g}.{k}", v) for g, sub in params.items()
-                  for k, v in sub.items()]
-        leaves += sorted((pools or {}).items())
-        want = torch.device(device)
-        for name, t in leaves:
-            if t.device.type != want.type or (
-                    want.index is not None and t.device.index is not None
-                    and t.device.index != want.index):
-                findings.append(Finding(
-                    "S001", ERROR, _loc(label, name),
-                    f"'{name}' lies on {t.device}, the engine's step runs "
-                    f"on {want} — every step would copy "
-                    "it or fail"))
+        findings += check_devices(params, device, pools=pools, label=label)
+    return findings
+
+
+def check_devices(params, device, *, pools=None, label="params"):
+    """S001's placement half: every leaf of ``params`` and every tensor
+    of ``pools`` must lie on ``device``."""
+    findings = []
+    leaves = [(f"{g}.{k}", v) for g, sub in params.items()
+              for k, v in sub.items()]
+    leaves += sorted((pools or {}).items())
+    want = torch.device(device)
+    for name, t in leaves:
+        if t.device.type != want.type or (
+                want.index is not None and t.device.index is not None
+                and t.device.index != want.index):
+            findings.append(Finding(
+                "S001", ERROR, _loc(label, name),
+                f"'{name}' lies on {t.device}, the engine's step runs "
+                f"on {want} — every step would copy "
+                "it or fail"))
     return findings
 
 
@@ -552,9 +557,13 @@ def analyze_engine(engine, rules=None):
 
     Pure analysis: the bodies are traced over fake tensors, so the pools,
     the stats, the block manager and the step graphs stay as they were.
-    A tensor-parallel engine is not covered yet (A20b)."""
-    if getattr(engine, "tp", 1) > 1:
-        raise NotImplementedError(f"analyze_engine() {_A20B}")
+    At tp > 1 the graphs are rank 0's shard bodies (each all-reduce a
+    stand-in node), S001 splits the global shapes rank 0's shard implies
+    (``tensor_parallel.global_meta``) and places rank 0's shard and
+    pools, and D001 reads the addresses of rank 0's state (no step is
+    captured there, but a pool is still never rebound)."""
+    from ..inference.llm.tensor_parallel import global_meta
+
     findings = []
     for kind, bucket, body, operands in engine.executable_grid():
         findings += analyze_fn(body, *operands, rules=rules,
@@ -563,9 +572,17 @@ def analyze_engine(engine, rules=None):
         pools = {f"pools.{k}": v
                  for k, v in engine._pools._asdict().items()
                  if v is not None}
-        findings += check_placements(
-            engine.params, engine.tp, num_heads=engine.num_heads,
-            head_dim=engine.head_dim, device=engine.device, pools=pools)
+        if engine.tp == 1:
+            findings += check_placements(
+                engine.params, 1, num_heads=engine.num_heads,
+                head_dim=engine.head_dim, device=engine.device,
+                pools=pools)
+        else:
+            findings += check_placements(
+                global_meta(engine.params, engine.tp), engine.tp,
+                num_heads=engine.num_heads, head_dim=engine.head_dim)
+            findings += check_devices(engine.params, engine.device,
+                                      pools=pools)
     if _want(rules, "D001"):
         findings += check_captured_state(engine)
     return findings
@@ -729,10 +746,20 @@ def _cli_build_engine(ns):
                      device=ns.device)
 
 
+def _cli_close(eng):
+    """Shut a tensor-parallel engine's workers down once its command is
+    done (the finalizer would only at the engine's collection)."""
+    if eng._tp is not None:
+        eng._tp.close()
+
+
 def _cli_engine(ns):
     eng = _cli_build_engine(ns)
-    eng.warmup()
-    findings = analyze_engine(eng, rules=ns.rules)
+    try:
+        eng.warmup()
+        findings = analyze_engine(eng, rules=ns.rules)
+    finally:
+        _cli_close(eng)
     if ns.rules is None or "H001" in ns.rules:
         findings += check_host_sync()
     return findings
@@ -741,9 +768,12 @@ def _cli_engine(ns):
 def _cli_cost(ns):
     from .cost import run_census
     eng = _cli_build_engine(ns)
-    census = run_census(eng, memory_budget=ns.memory_budget,
-                        host_budget=ns.host_budget, profile=ns.profile,
-                        max_executables=ns.max_executables)
+    try:
+        census = run_census(eng, memory_budget=ns.memory_budget,
+                            host_budget=ns.host_budget, profile=ns.profile,
+                            max_executables=ns.max_executables)
+    finally:
+        _cli_close(eng)
     doc = census.to_dict()
     ns._extra = {"census": doc}
     if not ns.json:
@@ -752,9 +782,11 @@ def _cli_cost(ns):
         print(f"census: {census.compile_count} graph(s) — {fams}")
         for e in doc["entries"]:
             c = e["cost"]
+            comms = "".join(f"{ax}={b:<10} " for ax, b in
+                            c["collective_bytes"].items())
             print(f"  {e['label']:<16} flops={c['flops']:<12} "
                   f"hbm={c['hbm_bytes']:<10} peak={c['peak_bytes']:<10} "
-                  f"{e['roofline']}-bound")
+                  f"{comms}{e['roofline']}-bound")
         mem = doc["memory"]
         line = (f"memory/card (tp={mem['tp']}): weights "
                 f"{mem['weights_bytes']} + kv pool "
@@ -780,7 +812,10 @@ def _cli_cost(ns):
 def _cli_kernels(ns):
     from .kernel_lint import lint_registry
     eng = _cli_build_engine(ns)
-    return lint_registry(eng, rules=ns.rules, profile=ns.profile)
+    try:
+        return lint_registry(eng, rules=ns.rules, profile=ns.profile)
+    finally:
+        _cli_close(eng)
 
 
 def _cli_program(ns):

@@ -23,10 +23,18 @@ memory model: the port of ``paddle_tpu/framework/cost.py``.
 - **The census** (:func:`run_census`) walks ``engine.executable_grid()``
   and reports each bucket's graph, the graph count and the memory model,
   with the rules **M001** (a bucket's estimated device peak over the
-  declared budget, and the host tier over the host budget) and **B001**
-  (the grid's graph count over ``max_executables``).  **C001** has
-  nothing to check at tp = 1 (no collective inside a graph); at tp > 1
-  the census raises NotImplementedError naming A20b.
+  declared budget, and the host tier over the host budget), **C001**
+  (:func:`check_collectives`: an all-reduce that consumes the output of
+  an identical all-reduce on the same mesh axis) and **B001** (the
+  grid's graph count over ``max_executables``).  At tp > 1 a bucket's
+  graph is rank 0's shard body, each row-parallel all-reduce one
+  ``paddle_tpu_torch::mp_all_reduce`` node, whose bytes the walker
+  counts in ``collective_bytes`` (``{axis: bytes}``; an all-reduce moves
+  twice its payload, the JAX ``_collective_payload``'s count) and the
+  roofline prices as ``"comms"``.  The JAX rule's other half, a
+  collective inside a loop body over a loop-invariant value, has
+  nothing to check here: the port's body unrolls its layers, so no
+  graph holds a loop.
 - :class:`StepTimeModel`, the simulator's step clock, prices each bucket
   through the walker, as the JAX one does; :func:`speculative_draft_
   estimate` is the JAX draft-cost estimate.
@@ -58,7 +66,10 @@ import torch
 # constants); the link is the pinned host->device copy rate of 256 MiB
 # copies that chip_smoke.py's kv_tier phase measures (``kv_tier_link``),
 # read on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (device to
-# host: 39.84443247504561 GB/s in the same run).
+# host: 39.84443247504561 GB/s in the same run).  The roofline's
+# "comms" term prices collective bytes at this rate too: the one card's
+# tensor-parallel ranks all-reduce over gloo, which stages each partial
+# through the host over this link (no NVLink path is measured).
 # The "h100" profile also holds the card's per-block limits that the
 # Hopper kernel lint (framework/kernel_lint.py, K002) checks a launch
 # plan against (NVIDIA's Hopper tuning guide, the hopper-kernels notes):
@@ -77,6 +88,7 @@ DEVICE_PROFILES = {
 __all__ = [
     "CostEstimate", "Census", "StepTimeModel", "estimate_graph",
     "estimate_fn", "flop_counter_analysis", "run_census",
+    "check_collectives",
     "engine_memory_model", "derive_max_batch", "migration_estimate",
     "speculative_draft_estimate", "parse_bytes", "DEVICE_PROFILES",
 ]
@@ -209,23 +221,25 @@ def migration_estimate(engine, num_tokens, num_pages, profile="h100",
     """Static move-vs-recompute estimate for one sequence's K/V (the
     tier policy's decision inputs).
 
-    Moving the sequence costs ``num_pages`` pages of ``page_bytes`` over
-    the host<->device link; recomputing it costs a fresh prefill of
-    ``num_tokens`` tokens through the weights (2 FLOPs per parameter per
-    token, every leaf of the engine's params counted — int8 scales and
-    LoRA pools too, as the JAX tree counts them; attention FLOPs and
-    the GEMMs' real efficiency are left out).  ``profile`` (a
+    Moving the sequence costs ``num_pages`` pages of the global payload
+    (``page_bytes * tp``) over the host<->device link; recomputing it
+    costs a fresh prefill of ``num_tokens`` tokens through the weights (2
+    FLOPs per parameter per token, every leaf of the global params
+    counted — int8 scales and LoRA pools too, as the JAX tree counts
+    them; attention FLOPs and the GEMMs' real efficiency are left out).
+    So the estimate, and the tier's decisions, are the same at every
+    tp.  ``profile`` (a
     DEVICE_PROFILES key) converts both to seconds, ``link_bytes_per_s``
     overriding the profile's link rate.
 
     Returns {bytes_moved, migrate_s, recompute_flops, recompute_s,
     prefer} with ``prefer`` in ("migrate", "recompute")."""
     prof = DEVICE_PROFILES[profile]
+    tp = getattr(engine, "tp", 1)
     model = engine_memory_model(engine)
-    bytes_moved = int(num_pages) * model["page_bytes"]
-    n_params = sum(w.numel() for sub in engine.params.values()
-                   for w in sub.values())
-    flops = 2.0 * n_params * int(num_tokens)
+    # the global payload: a page of every rank's heads
+    bytes_moved = int(num_pages) * model["page_bytes"] * tp
+    flops = 2.0 * global_param_count(engine) * int(num_tokens)
     link = (float(link_bytes_per_s) if link_bytes_per_s
             else prof["ici_bytes_per_s"])
     migrate_s = bytes_moved / link
@@ -236,6 +250,15 @@ def migration_estimate(engine, num_tokens, num_pages, profile="h100",
             "recompute_s": recompute_s,
             "prefer": ("migrate" if migrate_s <= recompute_s
                        else "recompute")}
+
+
+def global_param_count(engine):
+    """Elements of the engine's global params: at tp > 1 its ``params``
+    are rank 0's shard, and each split leaf counts ``tp`` times
+    (``tensor_parallel.global_numel``)."""
+    from ..inference.llm.tensor_parallel import global_numel
+
+    return global_numel(engine.params, getattr(engine, "tp", 1))
 
 
 def measured_host_overhead_s(engine):
@@ -421,10 +444,12 @@ class CostEstimate:
                         intermediates alive at once
     resident_bytes   -- the inputs' and weights' bytes (alive throughout)
     kernels          -- {kernel name: launches in the graph}
+    collective_bytes -- {mesh axis: bytes a rank's collectives move}
     """
 
     __slots__ = ("flops", "matmul_flops", "transcendentals", "hbm_bytes",
-                 "access_bytes", "peak_bytes", "resident_bytes", "kernels")
+                 "access_bytes", "peak_bytes", "resident_bytes", "kernels",
+                 "collective_bytes")
 
     def __init__(self):
         self.flops = 0
@@ -435,19 +460,23 @@ class CostEstimate:
         self.peak_bytes = 0
         self.resident_bytes = 0
         self.kernels = {}
+        self.collective_bytes = {}
 
     def arithmetic_intensity(self):
         return self.flops / self.hbm_bytes if self.hbm_bytes else 0.0
 
     def roofline(self, profile="h100"):
-        """Classify the step as compute- or hbm-bound under a device
-        profile (a DEVICE_PROFILES key or a dict): the larger of FLOPs
-        over the peak rate and bytes over the memory rate is the least
-        time the card could take."""
+        """Classify the step as compute-, hbm- or comms-bound under a
+        device profile (a DEVICE_PROFILES key or a dict): the largest of
+        FLOPs over the peak rate, bytes over the memory rate and
+        collective bytes over the link rate is the least time the card
+        could take."""
         p = DEVICE_PROFILES[profile] if isinstance(profile, str) \
             else profile
         times = {"compute": self.flops / p["flops_per_s"],
-                 "hbm": self.hbm_bytes / p["hbm_bytes_per_s"]}
+                 "hbm": self.hbm_bytes / p["hbm_bytes_per_s"],
+                 "comms": sum(self.collective_bytes.values())
+                 / p["ici_bytes_per_s"]}
         bound = max(times, key=times.get)
         return {"bound": bound, "times_s": times}
 
@@ -461,6 +490,8 @@ class CostEstimate:
             "peak_bytes": int(self.peak_bytes),
             "resident_bytes": int(self.resident_bytes),
             "kernels": dict(sorted(self.kernels.items())),
+            "collective_bytes": {k: int(v) for k, v in
+                                 sorted(self.collective_bytes.items())},
             "arithmetic_intensity":
                 round(self.arithmetic_intensity(), 3),
         }
@@ -480,12 +511,19 @@ def _kernel_args(node):
     return [val(a) for a in node.args]
 
 
+def _all_reduce_op():
+    from ..inference.llm.tensor_parallel import mp_all_reduce
+
+    return mp_all_reduce._opoverload
+
+
 def estimate_graph(gm):
     """CostEstimate of a traced graph (``analysis.trace_graph``)."""
     from ..ops.cuda import registry
     from .analysis import _values
 
     kernels = registry.by_op()
+    all_reduce = _all_reduce_op()
     est = CostEstimate()
     nodes = list(gm.graph.nodes)
     value = {}
@@ -511,6 +549,11 @@ def estimate_graph(gm):
             continue
         if node.op != "call_function" or _is_view(node):
             continue
+        if node.target == all_reduce:
+            # a ring all-reduce moves about twice its payload a rank
+            axis = node.args[1]
+            est.collective_bytes[axis] = est.collective_bytes.get(
+                axis, 0) + 2 * _nbytes(_val(node.args[0]))
         entry = kernels.get(node.target)
         packet = _packet(node)
         writes = _mutated(node)
@@ -609,6 +652,35 @@ def flop_counter_analysis(fn, *args):
 
 
 # --------------------------------------------------------------------------
+# C001 — collective placement
+# --------------------------------------------------------------------------
+def check_collectives(gm, label=""):
+    """C001 over a traced graph: an all-reduce
+    (``paddle_tpu_torch::mp_all_reduce``) whose operand is the output of
+    an identical all-reduce on the same mesh axis.  The second sums a
+    value every rank already holds whole: it is redundant, or a scale is
+    missing between the two.  The row-parallel all-reduces of the step
+    body each reduce a fresh partial and stay clean."""
+    from .analysis import ERROR, Finding, _loc
+
+    all_reduce = _all_reduce_op()
+    findings = []
+    for node in gm.graph.nodes:
+        if node.op != "call_function" or node.target != all_reduce:
+            continue
+        src = node.args[0]
+        if isinstance(src, torch.fx.Node) and src.target == all_reduce \
+                and src.args[1] == node.args[1]:
+            findings.append(Finding(
+                "C001", ERROR, _loc(label, f"node {node.name}"),
+                f"all-reduce over '{node.args[1]}' consumes the output of "
+                f"an identical all-reduce ({src.name}) on the same axis — "
+                "back-to-back collectives are redundant (or a missing-"
+                "scale bug)"))
+    return findings
+
+
+# --------------------------------------------------------------------------
 # the census
 # --------------------------------------------------------------------------
 class Census:
@@ -619,7 +691,7 @@ class Census:
     families       -- {kind: count}
     totals         -- summed FLOPs and bytes over the grid
     memory         -- engine_memory_model() breakdown
-    findings       -- M001 / B001 Finding records
+    findings       -- M001 / C001 / B001 Finding records
     """
 
     def __init__(self, entries, families, memory, findings, profile):
@@ -637,6 +709,11 @@ class Census:
         tot = {k: sum(e["cost"][k] for e in self.entries) for k in keys}
         tot["max_peak_bytes"] = max(
             (e["cost"]["peak_bytes"] for e in self.entries), default=0)
+        tot["collective_bytes"] = {}
+        for e in self.entries:
+            for ax, b in e["cost"]["collective_bytes"].items():
+                tot["collective_bytes"][ax] = \
+                    tot["collective_bytes"].get(ax, 0) + b
         return tot
 
     def to_dict(self):
@@ -661,27 +738,27 @@ def run_census(engine, *, memory_budget=None, host_budget=None,
                profile="h100", max_executables=64):
     """Cost every graph of the engine's bucket grid
     (``engine.executable_grid()``, traced over fake tensors: nothing
-    runs, no pool is written, no graph is captured) and run M001/B001.
+    runs, no pool is written, no graph is captured) and run
+    M001/C001/B001.
 
     ``memory_budget`` (bytes or '16GiB') overrides the engine's own
     declared budget for M001; with neither, M001 is skipped and the
     memory model is still reported.  ``host_budget`` declares the
     host-RAM ceiling the KV tier (``kv_tier=``) must fit under — tier
     budgets past it are an M001 too, and every M001 message names both
-    budgets when a host tier is configured.  At tp > 1 (where C001's
-    collectives would live) the census is not ported yet (A20b)."""
-    from .analysis import ERROR, Finding
+    budgets when a host tier is configured.  At tp > 1 every graph is
+    rank 0's shard body and the memory model is per chip, as the JAX
+    census's."""
+    from .analysis import ERROR, Finding, trace_graph
 
-    if getattr(engine, "tp", 1) > 1:
-        raise NotImplementedError(
-            "run_census() is not ported yet for tensor_parallel > 1: C001 "
-            "and the sharded grid come with A20b (ROADMAP)")
     entries = []
     families = {}
     findings = []
     for kind, bucket, body, operands in engine.executable_grid():
         label = f"{kind}[{bucket}]"
-        est = estimate_fn(body, *operands)
+        gm = trace_graph(body, *operands)
+        est = estimate_graph(gm)
+        findings += check_collectives(gm, label=label)
         families[kind] = families.get(kind, 0) + 1
         entries.append({"kind": kind, "bucket": bucket, "label": label,
                         "cost": est.to_dict(),
@@ -779,9 +856,7 @@ def speculative_draft_estimate(engine, profile="h100"):
     if spec is None or not getattr(spec, "uses_draft_model", False):
         return None
     k = int(spec.num_tokens)
-    n_params = sum(w.numel() for sub in engine.params.values()
-                   for w in sub.values())
-    per_tok = 2.0 * n_params
+    per_tok = 2.0 * global_param_count(engine)
     launches = k                      # 1 catch-up + (K-1) chain steps
     draft_flops = per_tok * launches  # ~1 token per launch steady-state
     ratio = draft_flops / per_tok / (1 + k)
@@ -815,18 +890,16 @@ class StepTimeModel:
         each graph of ``engine.executable_grid()`` priced by the census
         walker (:func:`estimate_fn`, over fake tensors: nothing runs)
         and timed at ``max(FLOPs / flops_per_s, hbm_bytes /
-        hbm_bytes_per_s)`` under ``profile`` (a DEVICE_PROFILES key or a
-        dict with the same keys).
+        hbm_bytes_per_s, collective bytes / ici_bytes_per_s)`` under
+        ``profile`` (a DEVICE_PROFILES key or a dict with the same
+        keys); at tp > 1 the graph is rank 0's shard body, whose
+        all-reduces the comms term prices.
 
         A lower bound of a step, not a measurement of it: the kernels'
         launch latency and every efficiency below the peaks are left
         out, and the attention kernels count only the work any
         descriptors need (their pages depend on the data).  A model built
         from measured ``times_s`` prices steps in the card's units."""
-        if getattr(engine, "tp", 1) > 1:
-            raise NotImplementedError(
-                "StepTimeModel.from_engine() is not ported yet for "
-                "tensor_parallel > 1: it comes with A20b (ROADMAP)")
         times = {}
         for kind, bucket, body, operands in engine.executable_grid():
             rl = estimate_fn(body, *operands).roofline(profile)

@@ -105,9 +105,14 @@ BlockManager and sampling; each worker holds its shard of the weights
 and pools of ``nh / tp`` heads.  Every step's packed operands go to
 every rank, each runs the same step body (:class:`_StepShard`) with its
 two all-reduces a layer, and rank 0 alone computes the head.  A tp > 1
-step runs eagerly on every rank: no step graph is captured.
+step runs eagerly on every rank: no step graph is captured.  The tier's
+and migration's page moves gather every rank's head slice to rank 0 and
+scatter it back over the command channel, so their payloads hold the
+global layout, and a request moves between engines of any tp.
 """
 
+import copy
+import math
 import threading
 import time
 import warnings
@@ -176,22 +181,27 @@ from .structured import ConstraintState
 from .tensor_parallel import (
     OP_DRAFT,
     OP_STEP,
+    PAGES_KV,
+    PAGES_SCALES,
     RankLostError,
     TPGroup,
     adapter_half_shard,
+    pack_bytes,
     permute_qkv,
     qkv_head_permutation,
     rank_stats,
     resolve_mesh,
     shard_params,
+    traced_psum,
+    unpack_bytes,
 )
 
-# what a tensor-parallel engine leaves to the next slice (ROADMAP A20b)
-_A20B = ("is not ported yet for tensor_parallel > 1: it comes with A20b "
-         "(ROADMAP)")
 # one model's paged K/V pools (LLMEngine._alloc_pools): the slot rows
 # with their sink, the page views of them, and the int8 pool's scales
 _Pools = namedtuple("_Pools", "k_rows v_rows kc vc ks_flat vs_flat ks vs")
+# the head axis of a page move's pages: K/V [L, n, bs, Nh, D], scales
+# [L, n, Nh, bs]
+_HEAD_AXIS = {PAGES_KV: 3, PAGES_SCALES: 2}
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            "bfloat16": torch.bfloat16, "float16": torch.float16,
            torch.float32: torch.float32, torch.bfloat16: torch.bfloat16,
@@ -238,6 +248,15 @@ def pool_views(k_rows, v_rows, ks_flat=None, vs_flat=None, *, num_blocks,
         ks, vs = (flat.view(nl, nb + 1, nh, bs)[:, :nb]
                   for flat in (ks_flat, vs_flat))
     return _Pools(k_rows, v_rows, kc, vc, ks_flat, vs_flat, ks, vs)
+
+
+def host_pages(t):
+    """A host tensor of pages as the numpy array a page payload holds:
+    bfloat16 pages as their int16 bit patterns (numpy has no bfloat16),
+    float16 pages as numpy float16."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy()  # noqa: H001 (tier / migration page moves are synchronous host copies by design)
 
 
 def lora_delta(p_l, key, x, onehot):
@@ -428,6 +447,48 @@ class _StepShard:
         return self.body(ints, self.draft_layers, self.draft_pools,
                          lora=False)
 
+    def page_pools(self, which):
+        """The pools a page move of ``which`` reads and writes: the K and
+        V pages [L, NB, bs, Nh, D] (:data:`PAGES_KV`) or an int8 pool's
+        scale pages [L, NB, Nh, bs] (:data:`PAGES_SCALES`), Nh this
+        rank's heads."""
+        p = self.pools
+        return (p.kc, p.vc) if which == PAGES_KV else (p.ks, p.vs)
+
+    def page_move_shapes(self, which, n):
+        """The shapes of this rank's slices of ``n`` pages of each pool
+        of :meth:`page_pools`."""
+        return [(pool.shape[0], n, *pool.shape[2:])
+                for pool in self.page_pools(which)]
+
+    def page_move_bytes(self, which, n):
+        """Bytes of this rank's slice of ``n`` pages (:meth:`read_pages`)."""
+        size = self.page_pools(which)[0].element_size()
+        return size * sum(math.prod(shape)
+                          for shape in self.page_move_shapes(which, n))
+
+    def read_pages(self, which, block_ids):
+        """This rank's slice of pages ``block_ids`` of each pool of
+        :meth:`page_pools`, in ``block_ids`` order, as one host byte
+        tensor: an index select on the device, then a synchronous copy of
+        just those rows (queued after the step in flight)."""
+        idx = torch.as_tensor(np.asarray(block_ids, np.int64),  # noqa: H001 (block ids are a host list)
+                              device=self.device)
+        return pack_bytes([pool[:, idx].cpu()  # noqa: H001 (tier / migration page moves are synchronous host copies by design)
+                           for pool in self.page_pools(which)])
+
+    def write_pages(self, which, block_ids, buf):
+        """Write this rank's slice of pages ``block_ids`` from the host
+        bytes ``buf`` (as :meth:`read_pages` lays them out) into its
+        pools in place, on the step's stream: a pool is never rebound."""
+        pools = self.page_pools(which)
+        idx = torch.as_tensor(np.asarray(block_ids, np.int64),  # noqa: H001 (block ids are a host list)
+                              device=self.device)
+        vals = unpack_bytes(buf, self.page_move_shapes(which, len(idx)),
+                            pools[0].dtype)
+        for pool, v in zip(pools, vals):
+            pool[:, idx] = v.to(pool.device)
+
     def copy_on_write(self, cows):
         """Copy each ``(src, dst)`` page's payload (and scales) in every
         layer, on the step's stream."""
@@ -556,9 +617,10 @@ class LLMEngine:
     (``tensor_parallel.py``): on ``cuda:0..N-1``, or with ``device="cpu"``
     N ranks on the host; ``mesh=`` names each rank's device instead
     (``["cuda:0", "cuda:0"]`` puts two ranks on one card).  The
-    attention heads and the MLP width must divide by N.  At tp > 1 the
-    host tier, migration, fleets of such engines and the simulator's
-    step model raise NotImplementedError (ROADMAP A20b).
+    attention heads and the MLP width must divide by N.  The host tier,
+    migration, the analysis tools and fleets serve at tp > 1 as at
+    tp = 1: a page payload is the global layout at every tp, and the
+    tier's bytes are the global payload's (``page_bytes * tp``).
     """
 
     def __init__(self, model, *, block_size=16, num_blocks=None,
@@ -569,13 +631,10 @@ class LLMEngine:
                  clock=None, record_step_gauges=False, detokenizer=None,
                  speculative=None, lookahead=False, lora=None, kv_tier=None,
                  device=None, tensor_parallel=None, mesh=None):
-        # the ranks' devices (rank 0's is this engine's) and what a
-        # tensor-parallel engine does not take yet, before anything is
-        # built or spawned
+        # the ranks' devices (rank 0's is this engine's), before anything
+        # is built or spawned
         devices = resolve_mesh(tensor_parallel, mesh, device)
         self.tp = len(devices)
-        if self.tp > 1 and kv_tier is not None:
-            raise NotImplementedError(f"LLMEngine(kv_tier=...) {_A20B}")
         self._tp = None
         # lifecycle knobs first: a bad config fails at construction
         if max_queue is not None:
@@ -714,7 +773,7 @@ class LLMEngine:
         # quantization (above: a row-parallel weight's per-column scale
         # is taken over all its rows), the head-major qkv permutation,
         # then the Megatron shard — this rank's stays on the device,
-        # the workers' go to the host for the spawn
+        # the workers' go to the host for their start
         self._qkv_perm = None
         worker_shards = []
         if self.tp > 1:
@@ -1313,18 +1372,24 @@ class LLMEngine:
         engine every row on adapter slot 0) followed by the pool
         tensors.  ``framework/analysis.py`` and ``framework/cost.py``
         trace these over fake tensors: nothing runs and no pool is
-        written.  Not at tp > 1 (A20b)."""
-        if self.tp > 1:
-            raise NotImplementedError(f"executable_grid() {_A20B}")
+        written.  At tp > 1 the body is rank 0's shard over its pools,
+        its all-reduces bound to the traceable stand-in
+        ``tensor_parallel.mp_all_reduce`` (one node each in the graph,
+        nothing sent and no worker involved; the served step keeps its
+        channel)."""
         pools = tuple(t for t in (self._k_rows, self._v_rows,
                                   self._ks_flat, self._vs_flat)
                       if t is not None)
         nb, bs = self.num_blocks, self.block_size
+        step = self._ragged_body
+        if self.tp > 1:
+            shard = copy.copy(self._shard)
+            shard.psum = traced_psum
+            step = shard.body
 
         def body(ints, *pools):
-            return self._ragged_body(
-                ints, pools=pool_views(*pools, num_blocks=nb,
-                                       block_size=bs))
+            return step(ints, pools=pool_views(*pools, num_blocks=nb,
+                                               block_size=bs))
 
         dead = (None if self.lora is None
                 else np.zeros(self.max_batch, np.int32))
@@ -2093,54 +2158,92 @@ class LLMEngine:
         """Page rows ``[:, block_ids]`` of one pool as a host numpy array
         in ``block_ids`` order: an index select on the device, then a
         synchronous copy of just those rows (queued after the step in
-        flight, complete before the payload is stored).  bfloat16 pages
-        travel as their int16 bit patterns (numpy has no bfloat16);
-        float16 pages as numpy float16."""
+        flight, complete before the payload is stored), as
+        :func:`host_pages` lays it out."""
         idx = torch.as_tensor(np.asarray(block_ids, np.int64),  # noqa: H001 (block ids are a host list)
                               device=pool.device)
-        sel = pool[:, idx].cpu()  # noqa: H001 (tier / migration page moves are synchronous host copies by design)
-        if sel.dtype == torch.bfloat16:
-            sel = sel.view(torch.int16)
-        return sel.numpy()  # noqa: H001 (tier / migration page moves are synchronous host copies by design)
+        return host_pages(pool[:, idx].cpu())  # noqa: H001 (tier / migration page moves are synchronous host copies by design)
 
-    def _scatter_pool(self, pool, block_ids, pages):
-        """Write host page rows ``pages`` (as :meth:`_gather_pool` made
-        them) into ``pool[:, block_ids]`` in place, on the step's
-        stream."""
+    @staticmethod
+    def _payload_tensor(pool, pages):
+        """Host pages (as :meth:`_gather_pool` made them) as a tensor of
+        the pool's dtype; a payload of another dtype raises."""
         vals = torch.from_numpy(np.ascontiguousarray(pages))
         if pool.dtype == torch.bfloat16:
             vals = vals.view(torch.bfloat16)
         if vals.dtype != pool.dtype:
             raise ValueError(f"page payload {vals.dtype} does not match "
                              f"the pool's {pool.dtype}")
+        return vals
+
+    def _scatter_pool(self, pool, block_ids, pages):
+        """Write host page rows ``pages`` (as :meth:`_gather_pool` made
+        them) into ``pool[:, block_ids]`` in place, on the step's
+        stream."""
+        vals = self._payload_tensor(pool, pages)
         idx = torch.as_tensor(np.asarray(block_ids, np.int64),  # noqa: H001 (block ids are a host list)
                               device=pool.device)
         pool[:, idx] = vals.to(pool.device)
 
+    def _gather_pair(self, which, block_ids):
+        """The pages ``block_ids`` of both pools of ``which`` (K and V,
+        or their scales) as host numpy arrays in the global layout.  At
+        tp > 1 every rank sends its head slice to rank 0
+        (``OP_GATHER``), which joins them on the head axis: the heads in
+        the model's own order, as the head-major permutation gives each
+        rank a contiguous group."""
+        pools = self._shard.page_pools(which)
+        if self._tp is None:
+            return tuple(self._gather_pool(pool, block_ids)
+                         for pool in pools)
+        bufs = self._tp.gather_pages(
+            which, block_ids, self._shard.read_pages(which, block_ids))
+        shapes = self._shard.page_move_shapes(which, len(block_ids))
+        ranks = [unpack_bytes(buf, shapes, pools[0].dtype) for buf in bufs]
+        return tuple(host_pages(torch.cat([r[i] for r in ranks],
+                                          _HEAD_AXIS[which]))
+                     for i in range(len(pools)))
+
+    def _scatter_pair(self, which, block_ids, pages):
+        """Write the global host ``pages`` of both pools of ``which``
+        into the pool rows ``block_ids`` in place.  At tp > 1 every
+        payload's dtype is checked before anything is sent, then rank 0
+        splits the heads and scatters each rank its slice
+        (``OP_SCATTER``), which it writes into its own pools."""
+        pools = self._shard.page_pools(which)
+        if self._tp is None:
+            for pool, p in zip(pools, pages):
+                self._scatter_pool(pool, block_ids, p)
+            return
+        vals = [self._payload_tensor(pool, p) for pool, p in zip(pools,
+                                                                 pages)]
+        n, axis = self._nh_local, _HEAD_AXIS[which]
+        parts = [pack_bytes([v.narrow(axis, r * n, n) for v in vals])
+                 for r in range(self.tp)]
+        self._shard.write_pages(which, block_ids, self._tp.scatter_pages(
+            which, block_ids, parts))
+
     def _gather_pages(self, block_ids):
         """Host-staged page gather -> (k_pages, v_pages), each [L, n, bs,
-        Nh, D] numpy in ``block_ids`` order, the JAX engine's layout.
-        Nothing compiles, so the JAX engine's power-of-two padding of
-        the page count is left out."""
-        return (self._gather_pool(self._kc, block_ids),
-                self._gather_pool(self._vc, block_ids))
+        Nh, D] numpy in ``block_ids`` order: the JAX engine's layout, the
+        global one at every tp (``Nh`` all the model's heads).  Nothing
+        compiles, so the JAX engine's power-of-two padding of the page
+        count is left out."""
+        return self._gather_pair(PAGES_KV, block_ids)
 
     def _gather_scale_pages(self, block_ids):
         """Scale-pool counterpart of :meth:`_gather_pages` for the int8
         pool: [L, n, Nh, bs] f32 numpy in ``block_ids`` order."""
-        return (self._gather_pool(self._ks, block_ids),
-                self._gather_pool(self._vs, block_ids))
+        return self._gather_pair(PAGES_SCALES, block_ids)
 
     def _scatter_pages(self, block_ids, k_pages, v_pages):
         """Host-staged page scatter: the payload's pages into the pool
         rows ``block_ids``, in place (unpadded, as the gather)."""
-        self._scatter_pool(self._kc, block_ids, k_pages)
-        self._scatter_pool(self._vc, block_ids, v_pages)
+        self._scatter_pair(PAGES_KV, block_ids, (k_pages, v_pages))
 
     def _scatter_scale_pages(self, block_ids, k_scales, v_scales):
         """Scale-pool counterpart of :meth:`_scatter_pages`."""
-        self._scatter_pool(self._ks, block_ids, k_scales)
-        self._scatter_pool(self._vs, block_ids, v_scales)
+        self._scatter_pair(PAGES_SCALES, block_ids, (k_scales, v_scales))
 
     # ----------------------------------------------------------- migration --
     def export_request(self, request_id):
@@ -2149,9 +2252,8 @@ class LLMEngine:
         the host-gathered K/V page payload (with the scale pages of an
         int8 pool).  Read-only: the request keeps serving here until
         :meth:`release_request`, so a failed import on the destination
-        costs nothing."""
-        if self.tp > 1:
-            raise NotImplementedError(f"export_request() {_A20B}")
+        costs nothing.  The payload is the global layout at every tp, so
+        engines of different tp exchange requests."""
         req = self._requests.get(request_id)
         if req is None:
             raise KeyError(f"unknown request {request_id!r}")
@@ -2185,13 +2287,13 @@ class LLMEngine:
 
         Guards, in order: the running set has room (MigrationError
         "capacity"), the adapter is servable here (MigrationError
-        "adapter"), the payload's shape, then the scale payload — all
-        before anything is allocated.  All-or-nothing after that: any
-        failure (``fault_hook``, the injected mid-import fault, a dtype
-        mismatch, anything) frees exactly the pages allocated here and
-        re-raises, leaving this engine untouched."""
-        if self.tp > 1:
-            raise NotImplementedError(f"import_request() {_A20B}")
+        "adapter"), the payload's shape, then the scale payload, then
+        every payload's dtype — all before anything is allocated.
+        All-or-nothing after that: any failure (``fault_hook``, the
+        injected mid-import fault, anything) frees exactly the pages
+        allocated here and re-raises, leaving this engine untouched.  The
+        pages are written last, after every guard and the fault hook, so
+        no rank's pools hold a page the books do not own."""
         rid = req.request_id
         if rid in self._requests:
             raise ValueError(f"request {rid!r} already live here")
@@ -2231,6 +2333,11 @@ class LLMEngine:
             raise ValueError(
                 "scale payload offered to a full-precision pool — "
                 "migration requires identically configured engines")
+        for which, pages in ((PAGES_KV, (k_pages, v_pages)),
+                             (PAGES_SCALES, (k_scales, v_scales))):
+            if pages[0] is not None:
+                for pool, p in zip(self._shard.page_pools(which), pages):
+                    self._payload_tensor(pool, p)
         table = self.block_manager.import_seq(rid, seq)
         try:
             if fault_hook is not None:
@@ -2282,7 +2389,8 @@ class LLMEngine:
             return
         seq = bm.export_seq(rid)
         npages = len(seq["block_ids"])
-        nbytes = npages * self.page_bytes
+        # the global payload: every rank's heads
+        nbytes = npages * self.page_bytes * self.tp
         if rid in pool or not pool.fits(nbytes):
             return
         if self.tier_policy.decide(self, victim.num_cached,
@@ -2364,7 +2472,7 @@ class LLMEngine:
             return "retry"
         pool.pop(rid, swapped=True)
         req.num_cached = cached
-        self.last_tier_bytes += moved * self.page_bytes
+        self.last_tier_bytes += moved * self.page_bytes * self.tp
         self.events.append((self._step_index, "swap_in", rid, moved))
         return cached
 
@@ -2424,7 +2532,7 @@ class LLMEngine:
             ks, vs = self._gather_scale_pages([blk])
             entry["k_scales"], entry["v_scales"] = ks, vs
         store.put(block_hash, entry)
-        self.last_tier_bytes += self.page_bytes
+        self.last_tier_bytes += self.page_bytes * self.tp
         self.events.append((self._step_index, "promote", 1))
 
     def _promote_chain(self, entry):
@@ -2449,7 +2557,7 @@ class LLMEngine:
             store.put(h, page)
             promoted += 1
         if promoted:
-            self.last_tier_bytes += promoted * self.page_bytes
+            self.last_tier_bytes += promoted * self.page_bytes * self.tp
             self.events.append((self._step_index, "promote", promoted))
 
     def _tier_forget(self, request_id):

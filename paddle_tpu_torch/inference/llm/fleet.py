@@ -100,6 +100,15 @@ overlap of their host work on multi-core hosts; the GIL serializes
 the Python side and the card runs the replays one after another).
 Results are COLLECTED in replica-index order either way, so the fleet
 event log is identical in both modes.
+
+``tensor_parallel=N`` makes every replica a tensor-parallel engine with
+a group and worker processes of its own (on one card, all its ranks on
+that card).  Migration, drains, failover, disaggregation and the shared
+tier run over the engines' page moves, whose payload is the global
+layout, so a replica's tp changes no fleet decision.  One replica's
+channel is only ever used by one thread at a time: ``parallel_step``
+threads each step their own replica, and migrations run after they
+join.
 """
 
 import threading
@@ -549,18 +558,23 @@ class Fleet:
         """Construct one replica engine and warm it on the building
         thread.  Each engine owns its pools and captures its own step
         graphs over them here, so every bucket is captured before any
-        thread steps it; the timings are kept for :meth:`warmup`.  A
-        fleet of tensor-parallel replicas is not ported yet (ROADMAP
-        A20b)."""
-        kw = self._engine_kwargs
-        if (kw.get("tensor_parallel") or 1) > 1 or (
-                kw.get("mesh") is not None and len(kw["mesh"]) > 1):
-            raise NotImplementedError(
-                "Fleet(tensor_parallel=...) is not ported yet: a fleet of "
-                "tensor-parallel replicas comes with A20b (ROADMAP)")
+        thread steps it; the timings are kept for :meth:`warmup`.
+
+        A tensor-parallel replica (``tensor_parallel=N``) builds a group
+        of its own: its own store, groups and N - 1 worker processes,
+        every rank on the engine's device (``mesh=[device] * N``: the
+        replicas share that card, their ranks over gloo) unless
+        ``mesh=`` places them.  It captures no graph; its workers leave
+        with its group, when the engine is collected or its rank is
+        lost."""
+        kw = dict(self._engine_kwargs)
+        tp = kw.get("tensor_parallel") or 1
+        if tp > 1 and kw.get("mesh") is None:
+            from ...framework.device import resolve_device
+
+            kw["mesh"] = [resolve_device(kw.get("device"))] * tp
         eng = self._engine_factory(
-            self._model, faults=self._engine_faults[index],
-            **self._engine_kwargs)
+            self._model, faults=self._engine_faults[index], **kw)
         self._warmup_ms[index] = eng.warmup().compile_ms
         return eng
 
@@ -571,14 +585,16 @@ class Fleet:
         warmup() timings}``.  Every replica was warmed as it was built
         (on CUDA each captured its own token buckets then), so serving
         captures nothing: ``assert_no_new_captures()`` certifies the
-        whole fleet."""
+        whole fleet.  Tensor-parallel replicas capture no step, so their
+        graphs are not watched."""
         from ...framework.analysis import CaptureWatcher
 
         graphs, labels = [], []
         for r in self.replicas:
             for kind, g in (("ragged", r.engine._graphs),
                             ("draft", r.engine._draft_graphs)):
-                if g is not None:
+                # a tensor-parallel replica captures no step
+                if g is not None and r.engine.tp == 1:
                     graphs.append(g)
                     labels.append(f"replica{r.index}.{kind}")
         watcher = CaptureWatcher(*graphs, labels=labels)

@@ -11,11 +11,14 @@ the ragged attention kernel against its own pool shard.
 Ranks are processes.  The caller's process is rank 0: it owns the
 scheduler, the BlockManager, sampling and the whole public API, and it
 alone computes the head's logits.  Ranks 1..N-1 are worker processes
-(``spawn``: ``fork`` breaks CUDA) that hold their shard of the weights
-and their head slice of the pools and run :func:`_worker_main`'s loop
-over a command channel.  Every rank runs the same step body
-(``engine._StepShard.body``), with :meth:`_Channel.all_reduce` as its
-reduction.
+that hold their shard of the weights and their head slice of the pools
+and run :func:`_worker_main`'s loop over a command channel.  Every rank
+runs the same step body (``engine._StepShard.body``), with
+:meth:`_Channel.all_reduce` as its reduction.  The workers are forked
+from a ``forkserver``: a plain ``fork`` of a process that has used CUDA
+breaks it, and the server never touches CUDA.  It has imported the port
+and ``torch._dynamo`` (which a custom op's first call imports), so a
+worker starts warm, where a ``spawn`` imports torch again.
 
 Two process groups share one ``TCPStore`` bound to port 0 (so parallel
 test processes never collide on a port):
@@ -23,7 +26,15 @@ test processes never collide on a port):
 - ``mp_cpu`` (gloo): the command channel, rank 0 -> workers.  A fixed
   int64 header (op, argument, payload length) is broadcast first, then
   the payload: a step's packed int32 operands with its copy-on-write
-  pairs appended, an adapter slot's halves, or nothing.
+  pairs appended, an adapter slot's halves, a page move's block ids, or
+  nothing.  A page move then gathers every rank's head slice of those
+  pages to rank 0 (``OP_GATHER``: the host tier's demotes and promotes,
+  a migration's export) or scatters rank 0's slices to the ranks, each
+  writing its own into its pools in place (``OP_SCATTER``: swap-ins,
+  store adoptions, a migration's import), as one byte buffer a rank
+  over the same group.  Rank 0 assembles and splits the global layout
+  (``LLMEngine._gather_pages`` / ``_scatter_pages``), so a page payload
+  is the same object at every tp.
 - ``mp`` (the device collectives): NCCL when the mesh names distinct
   CUDA devices; gloo when ranks share a device or run on the CPU, with
   a CUDA tensor staged through the host (gloo's transport).  The
@@ -40,6 +51,7 @@ rank runs its body eagerly.
 """
 
 import datetime
+import math
 import os
 import pickle
 import sys
@@ -64,6 +76,10 @@ GROUP_TIMEOUT_S = 60.0
 SPIN_S = 1e-3
 POLL_S = 1e-4
 _WORKER_WAIT = datetime.timedelta(days=7)
+# what the workers' forkserver imports once, so each worker it forks
+# starts warm: the port's engine and torch._dynamo, which a custom op's
+# first call imports
+_WORKER_PRELOAD = ("paddle_tpu_torch.inference.llm.engine", "torch._dynamo")
 
 # Megatron split of the stacked block leaves ([L, ...]) and of the
 # multi-LoRA pools ([L, A, ...]): the dimension each splits on, as the
@@ -93,7 +109,11 @@ TP_BLOCK_SPLITS = {
 _QKV_PERMUTED = ("attn.qkv.weight", "attn.qkv.bias", "attn.qkv.weight_scale")
 
 # command channel ops
-OP_SHUTDOWN, OP_STEP, OP_DRAFT, OP_ADAPTER, OP_STATS = range(5)
+(OP_SHUTDOWN, OP_STEP, OP_DRAFT, OP_ADAPTER, OP_STATS, OP_GATHER,
+ OP_SCATTER) = range(7)
+# what a page move carries (the op's argument): the K/V pages, or an
+# int8 pool's scale pages
+PAGES_KV, PAGES_SCALES = 0, 1
 
 
 class RankLostError(PoolLostError):
@@ -125,6 +145,74 @@ def permute_qkv(blocks, perm):
             idx = torch.as_tensor(perm, device=out[key].device)
             out[key] = out[key].index_select(out[key].dim() - 1, idx)
     return out
+
+
+def global_numel(params, tp):
+    """Elements of the global params whose rank shard is ``params``: a
+    block leaf of :data:`TP_BLOCK_SPLITS` counts ``tp`` times, every other
+    leaf once (what the JAX engine's global tree holds)."""
+    return sum(w.numel() * (tp if group == "blocks"
+                            and key in TP_BLOCK_SPLITS else 1)
+               for group, sub in params.items() for key, w in sub.items())
+
+
+def global_meta(params, tp):
+    """Meta tensors of the global params' shapes, from rank 0's shard
+    ``params``: each leaf of :data:`TP_BLOCK_SPLITS` ``tp`` times as wide
+    on its split dimension (S001's view of a tensor-parallel engine)."""
+    out = {}
+    for group, sub in params.items():
+        out[group] = {}
+        for key, w in sub.items():
+            shape = list(w.shape)
+            dim = TP_BLOCK_SPLITS.get(key) if group == "blocks" else None
+            if dim is not None:
+                shape[dim] *= tp
+            out[group][key] = torch.empty(shape, dtype=w.dtype,
+                                          device="meta")
+    return out
+
+
+def pack_bytes(tensors):
+    """Host tensors -> one flat uint8 tensor of their bytes, in order (a
+    page move's payload on the command channel)."""
+    return torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors])
+
+
+def unpack_bytes(buf, shapes, dtype):
+    """The tensors :func:`pack_bytes` packed, each of ``dtype`` and its
+    shape in ``shapes`` (views of ``buf``)."""
+    out, at = [], 0
+    size = torch.empty((), dtype=dtype).element_size()
+    for shape in shapes:
+        n = math.prod(shape) * size
+        out.append(buf[at:at + n].view(dtype).view(shape))
+        at += n
+    return out
+
+
+@torch.library.custom_op("paddle_tpu_torch::mp_all_reduce", mutates_args=())
+def mp_all_reduce(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The row-parallel all-reduce over mesh axis ``axis`` as one node of
+    a traced step (``LLMEngine.executable_grid`` at tp > 1): the census
+    prices it and C001 reads it.  It only traces; a served step sums
+    through :meth:`_Channel.all_reduce`."""
+    raise RuntimeError(
+        "paddle_tpu_torch::mp_all_reduce stands in for the all-reduce in "
+        "traced step graphs only; a tensor-parallel step reduces through "
+        "its channel")
+
+
+@mp_all_reduce.register_fake
+def _mp_all_reduce_fake(x, axis):
+    return torch.empty_like(x)
+
+
+def traced_psum(y):
+    """The step body's reduction in a traced graph: :func:`mp_all_reduce`
+    over the ``mp`` axis."""
+    return mp_all_reduce(y, "mp")
 
 
 def _slice(t, dim, rank, tp):
@@ -318,6 +406,38 @@ class _Channel:
         self.allreduces += 1
         return y
 
+    def gather(self, local):
+        """Gather one equal-sized host tensor from every rank to rank 0 on
+        ``mp_cpu`` -> on rank 0 the list in rank order (``local`` first),
+        None on a worker."""
+        from torch import distributed as dist
+
+        opts = dist.GatherOptions()
+        opts.rootRank = 0
+        out = ([[torch.empty_like(local) for _ in range(self.tp)]]
+               if self.rank == 0 else [])
+        try:
+            self._wait(self.ctrl.gather(out, [local], opts))
+        except Exception as e:   # noqa: BLE001 — any channel failure
+            self._lost("command channel", e)
+        return out[0] if self.rank == 0 else None
+
+    def scatter(self, parts=None, like=None):
+        """Scatter rank 0's ``parts`` (one host tensor a rank, in rank
+        order) on ``mp_cpu`` -> this rank's part; a worker passes
+        ``like``, an empty tensor of its part's size and dtype."""
+        from torch import distributed as dist
+
+        opts = dist.ScatterOptions()
+        opts.rootRank = 0
+        out = torch.empty_like(parts[0] if self.rank == 0 else like)
+        try:
+            self._wait(self.ctrl.scatter(
+                [out], [list(parts)] if self.rank == 0 else [], opts))
+        except Exception as e:   # noqa: BLE001 — any channel failure
+            self._lost("command channel", e)
+        return out
+
     def header(self, op=0, arg=0, n=0, m=0):
         return self.bcast(torch.tensor([op, arg, n, m], dtype=torch.int64))
 
@@ -341,7 +461,8 @@ def rank_stats(shard, channel, detail):
     """One rank's report for the stats op: its kernel launch counts,
     device bytes, pool shapes, weight bytes, channel timers, any JAX
     module it imported and, with ``detail``, the float64 sum of each
-    block leaf (what its shard holds)."""
+    block leaf (what its shard holds) and of each of its target pools
+    (what its pools hold)."""
     from ...framework.cost import params_bytes
     from ...ops.cuda import registry
 
@@ -374,6 +495,11 @@ def rank_stats(shard, channel, detail):
         out["leaf_sums"] = {
             f"{g}/{k}": float(v.double().sum())
             for g, sub in shard.params.items() for k, v in sub.items()}
+        out["pool_sums"] = {
+            name: float(t.double().sum())
+            for name, t in pools._asdict().items()
+            if name in ("k_rows", "v_rows", "ks_flat", "vs_flat")
+            and t is not None}
     return out
 
 
@@ -397,7 +523,8 @@ class TPGroup:
         timeout = datetime.timedelta(seconds=GROUP_TIMEOUT_S)
         self._store = dist.TCPStore("127.0.0.1", 0, self.tp, True, timeout,
                                     wait_for_workers=False)
-        ctx = tmp.get_context("spawn")
+        ctx = tmp.get_context("forkserver")
+        ctx.set_forkserver_preload(list(_WORKER_PRELOAD))
         self.processes = []
         self.closed = False
         try:
@@ -446,7 +573,7 @@ class TPGroup:
                     f"(its error is on stderr); a script that builds a "
                     f"tensor-parallel engine runs it under "
                     f"`if __name__ == '__main__':`, as every program "
-                    f"that starts processes by spawn must")
+                    f"that starts processes by forkserver must")
         if "error" in out:
             raise out["error"]
         return out["channel"]
@@ -478,6 +605,24 @@ class TPGroup:
             for half in weights[key]:
                 self.channel.bcast(torch.from_numpy(
                     np.ascontiguousarray(half, np.float32)))
+
+    def gather_pages(self, which, block_ids, local):
+        """``OP_GATHER``: every rank's bytes of pages ``block_ids`` of
+        its pools (``which``: :data:`PAGES_KV` or :data:`PAGES_SCALES`),
+        rank 0's ``local`` first -> the list in rank order."""
+        ids = np.asarray(block_ids, np.int64)  # noqa: H001 (block ids are a host list)
+        self.channel.header(OP_GATHER, which, len(ids))
+        self.channel.bcast(torch.from_numpy(ids))
+        return self.channel.gather(local)
+
+    def scatter_pages(self, which, block_ids, parts):
+        """``OP_SCATTER``: rank r's bytes ``parts[r]`` of pages
+        ``block_ids``, which each worker writes into its pools in place
+        -> rank 0's part, for the caller to write."""
+        ids = np.asarray(block_ids, np.int64)  # noqa: H001 (block ids are a host list)
+        self.channel.header(OP_SCATTER, which, len(ids))
+        self.channel.bcast(torch.from_numpy(ids))
+        return self.channel.scatter(parts)
 
     def stats(self, local, detail=False):
         """Every rank's :func:`rank_stats`, rank 0's (``local``) first."""
@@ -585,6 +730,14 @@ def _worker_main(rank, devices, port, spec, shard, threads, precision,
                         ch.bcast(torch.empty(shape)).numpy()  # noqa: H001 (the command payload is a host tensor)
                         for shape in ((layers, d_in, r), (layers, r, d_out)))
                 st.write_adapter_slot(arg, weights)
+            elif op in (OP_GATHER, OP_SCATTER):
+                ids = ch.bcast(torch.empty(n, dtype=torch.int64)).numpy()  # noqa: H001 (the command payload is a host tensor)
+                if op == OP_GATHER:
+                    ch.gather(st.read_pages(arg, ids))
+                else:
+                    st.write_pages(arg, ids, ch.scatter(
+                        like=torch.empty(st.page_move_bytes(arg, n),
+                                         dtype=torch.uint8)))
             elif op == OP_STATS:
                 blob = pickle.dumps(rank_stats(st, ch, bool(arg)))  # noqa: H001 (the op argument is a host int)
                 lengths = torch.zeros(len(devs), dtype=torch.int64)

@@ -270,12 +270,15 @@ def test_a_bucket_graph_holds_one_b1_node_a_layer(model):
                                               eng.head_dim)
 
 
-def test_analyze_engine_raises_at_tp_above_one():
-    class TwoRanks:
-        tp = 2
-
-    with pytest.raises(NotImplementedError, match="A20b"):
-        analysis.analyze_engine(TwoRanks())
+def test_analyze_engine_takes_tp_above_one(model):
+    """A tp=2 engine's grid is rank 0's shard body with its all-reduces
+    as stand-in nodes: the sweep runs and finds nothing, S001 included
+    (test_torch_tp_analysis.py holds the rest)."""
+    eng = LLMEngine(model, tensor_parallel=2, **ENGINE)
+    try:
+        assert analysis.analyze_engine(eng) == []
+    finally:
+        eng._tp.close()
 
 
 # -------------------------------------------------------- CaptureWatcher --

@@ -185,14 +185,22 @@ def test_step_time_model_prices_the_walker_roofline(models):
     assert all(t > 0 for t in model.times_s.values())
 
 
-def test_census_and_step_time_model_raise_at_tp_above_one():
-    class TwoRanks:
-        tp = 2
-
-    with pytest.raises(NotImplementedError, match="A20b"):
-        cost.run_census(TwoRanks())
-    with pytest.raises(NotImplementedError, match="A20b"):
-        cost.StepTimeModel.from_engine(TwoRanks())
+def test_census_and_step_time_model_take_tp_above_one(models):
+    """At tp=2 the census is clean with collective bytes on the ``mp``
+    axis in every bucket, and the step model prices each bucket at its
+    census roofline, the comms term among them
+    (test_torch_tp_analysis.py holds the counts)."""
+    eng = LLMEngine(models[1], device="cpu", tensor_parallel=2, **ENGINE)
+    try:
+        census = cost.run_census(eng, profile="cpu")
+        model = cost.StepTimeModel.from_engine(eng, profile="cpu")
+    finally:
+        eng._tp.close()
+    assert census.findings == []
+    assert all(e["cost"]["collective_bytes"]["mp"] > 0
+               for e in census.entries)
+    assert model.times_s == {("ragged", e["bucket"]): e["roofline_s"]
+                             for e in census.entries}
 
 
 def test_h100_profile_holds_the_card_limits():

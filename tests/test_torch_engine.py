@@ -328,19 +328,17 @@ def test_logits_pipeline_matches_jax(case):
         np.testing.assert_array_equal(got, logits)
 
 
-# tensor-parallel engines are ported (test_torch_tp.py); what they do
-# not take yet (ROADMAP A20b) still raises: the host tier at tp > 1
-LATER_ENGINE_KWARGS = {
+# keywords that were later work and are ported now (int8 serving, the
+# memory model, the request lifecycle, the request surface, multi-LoRA,
+# the host-RAM KV tier and tensor parallelism, with the tier; speculation,
+# lookahead, LoRA, the tier and tensor parallelism have files of their
+# own, test_torch_spec.py, test_torch_draft_model.py,
+# test_torch_lookahead.py, test_torch_lora.py, test_torch_kv_tier.py,
+# test_torch_tp.py and test_torch_tp_*.py): accepted, and their engines
+# serve
+PORTED_ENGINE_KWARGS = {
     "tensor_parallel": dict(tensor_parallel=2, kv_tier=1 << 20),
     "mesh": dict(mesh=["cpu", "cpu"], kv_tier=1 << 20),
-}
-# keywords that were later work and are ported now (int8 serving, the
-# memory model, the request lifecycle, the request surface, multi-LoRA
-# and the host-RAM KV tier; speculation, lookahead, LoRA and the tier
-# have files of their own, test_torch_spec.py,
-# test_torch_draft_model.py, test_torch_lookahead.py, test_torch_lora.py
-# and test_torch_kv_tier.py): accepted, and their engines serve
-PORTED_ENGINE_KWARGS = {
     "lora": 4, "kv_tier": 1 << 20,
     "quantize": "int8", "memory_budget": "16GiB",
     "faults": lambda: FaultInjector(
@@ -374,19 +372,18 @@ def _detok(ids):
     return "".join(chr(97 + int(t) % 26) for t in ids)
 
 
-@pytest.mark.parametrize("key", list(LATER_ENGINE_KWARGS))
-def test_unported_engine_keywords_raise(models, key):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        LLMEngine(models[1], device="cpu", **LATER_ENGINE_KWARGS[key],
-                  **ENGINE)
-
-
 @pytest.mark.parametrize("key", list(PORTED_ENGINE_KWARGS))
 def test_ported_engine_keywords_accepted(models, key):
     value = PORTED_ENGINE_KWARGS[key]
     value = value() if callable(value) else value
-    eng = LLMEngine(models[1], device="cpu", **{key: value}, **ENGINE)
-    out = eng.generate(_prompts()[:2], max_new_tokens=3)
+    # the tensor-parallel cases take their keywords with the tier's
+    kwargs = value if key in ("tensor_parallel", "mesh") else {key: value}
+    eng = LLMEngine(models[1], device="cpu", **kwargs, **ENGINE)
+    try:
+        out = eng.generate(_prompts()[:2], max_new_tokens=3)
+    finally:
+        if eng._tp is not None:
+            eng._tp.close()
     assert [len(o) for o in out] == [len(p) + 3 for p in _prompts()[:2]]
     assert eng.block_manager.num_free_blocks == eng.num_blocks
 

@@ -747,3 +747,42 @@ def pool8():
 @pytest.mark.parametrize("body", RANKS8)
 def test_distributed_reference_body_on_eight_ranks(body, pool8):
     assert pool8.run(run_on_a_rank, body) == [True] * 8
+
+
+# The tensor-parallel engine's analysis (ROADMAP A20b, one card): the JAX
+# package's tp=2 engine-grid, CLI and census bodies.  Each builds
+# gpt_tiny() and an LLMEngine(tensor_parallel=2) on the default device,
+# the card in the port (its ranks on cuda:0 and cuda:1), so none runs on
+# the CPU here; each is listed with the port test that holds its fact on
+# CPU ranks.
+TP_ANALYSIS = {
+    "test_analysis.py": ("TestCleanRuns::test_engine_grid_zero_findings_tp2",
+                         "TestGraphLintCLI::test_cli_engine_grid_clean",
+                         "TestGraphLintCLI::test_cli_engine_spec_grid_clean"),
+    "test_cost.py": ("TestCensus::test_census_tp2_clean",),
+}
+_TPA = "test_torch_tp_analysis.py::"
+_TP_CARD = ("builds gpt_tiny() and a tensor_parallel=2 engine on the default "
+            "device, the card in the port; held on two CPU ranks in ")
+TP_ANALYSIS_NOT_PORTED = {
+    "test_analysis.py::TestCleanRuns::test_engine_grid_zero_findings_tp2":
+        _TP_CARD + _TPA + "test_analyze_engine_tp2_zero_findings",
+    "test_analysis.py::TestGraphLintCLI::test_cli_engine_grid_clean":
+        _TP_CARD + _TPA + "test_cli_engine_tp2_clean",
+    "test_analysis.py::TestGraphLintCLI::test_cli_engine_spec_grid_clean":
+        _TP_CARD + _TPA + "test_cli_engine_tp2_clean",
+    "test_cost.py::TestCensus::test_census_tp2_clean":
+        _TP_CARD + _TPA + "test_census_tp2_clean_with_derived_collective_bytes",
+}
+TP_ANALYSIS_BODIES = [b for b in _bodies(tuple(TP_ANALYSIS))
+                      if _selected(b, TP_ANALYSIS[b.split("::")[0]])]
+
+
+def test_the_tp_analysis_bodies_are_listed_whole():
+    """The four tp=2 bodies are each listed with a port test that
+    exists."""
+    assert sorted(TP_ANALYSIS_BODIES) == sorted(TP_ANALYSIS_NOT_PORTED)
+    src = open(os.path.join(HERE, _TPA[:-2])).read()
+    for why in TP_ANALYSIS_NOT_PORTED.values():
+        name = why.rsplit("::", 1)[1]
+        assert re.search(rf"^def {name}\(", src, re.M), name

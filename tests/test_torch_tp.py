@@ -18,8 +18,9 @@ sums round differently from one GEMM, so logits are not bitwise: the
 teacher-forced logits of a step at tp=2 sit within 1e-4 of tp=1's.
 Beside them: each rank's pool holds ``nh / tp`` heads and its shards are
 the permuted slices, the memory model is the JAX engine's
-``_params_bytes_per_chip``, the validation errors, the entry points left
-for A20b, a killed worker surfacing as ``PoolLostError`` without a hang,
+``_params_bytes_per_chip``, the validation errors, the entry points that
+take a tp=2 engine (the host tier, fleets, the step model, migration's
+guards) and ``engine_logits``, which refuses it, a killed worker surfacing as ``PoolLostError`` without a hang,
 an SSE request through ``HttpLLMServer``, and workers that import no JAX.
 """
 
@@ -159,7 +160,7 @@ def _lora_weights(eng, seed, scale=0.5):
 
 
 # ------------------------------------------------------------ validation --
-def test_validation_not_divisible_and_disagrees(models):
+def test_validation_not_divisible_and_disagrees(models, spawned):
     with pytest.raises(ValueError, match="not divisible"):
         _port(models, tensor_parallel=3)        # 4 heads
     odd = gpt_tiny(device="cpu", num_layers=1, intermediate_size=66)
@@ -173,11 +174,14 @@ def test_validation_not_divisible_and_disagrees(models):
         _port(models, mesh="cpu")
     with pytest.raises(ValueError, match="all CUDA devices or all CPU"):
         tpmod.resolve_mesh(mesh=["cpu", "meta"])
-    with pytest.raises(NotImplementedError, match="A20b"):
-        _port(models, tensor_parallel=2, kv_tier=1 << 20)
-    with pytest.raises(NotImplementedError, match="A20b"):
-        Fleet(models[1], replicas=2, device="cpu", tensor_parallel=2,
-              **ENGINE)
+    # the host tier and fleets take tensor-parallel engines
+    tiered = _port(models, spawned, tensor_parallel=2, kv_tier=1 << 20)
+    assert tiered.host_pool is not None and tiered._tp is not None
+    fleet = Fleet(models[1], replicas=2, device="cpu", tensor_parallel=2,
+                  **ENGINE)
+    spawned.extend(r.engine for r in fleet.replicas)
+    assert [r.engine.tp for r in fleet.replicas] == [2, 2]
+    assert fleet.replicas[0].engine._tp is not fleet.replicas[1].engine._tp
 
 
 def test_mesh_resolution_and_backend():
@@ -267,15 +271,20 @@ def test_memory_model_is_the_jax_per_chip_model(models, tp2):
     assert [s["params_bytes"] for s in stats] == [mm["weights_bytes"]] * 2
 
 
-def test_entry_points_left_for_a20b(models, tp2):
+def test_entry_points_serve_at_tp2_but_engine_logits(models, tp2):
+    """The step model, export and import take a tp=2 engine (their
+    guards answer, as at tp=1); ``engine_logits`` refuses it, as the JAX
+    one does."""
     with pytest.raises(ValueError, match="tp=1"):
         engine_logits(tp2, [1, 2, 3])
-    with pytest.raises(NotImplementedError, match="A20b"):
-        StepTimeModel.from_engine(tp2)
-    with pytest.raises(NotImplementedError, match="A20b"):
+    model = StepTimeModel.from_engine(tp2, profile="cpu")
+    assert sorted(model.times_s) == [("ragged", 8), ("ragged", 16)]
+    with pytest.raises(KeyError, match="unknown request"):
         tp2.export_request(0)
-    with pytest.raises(NotImplementedError, match="A20b"):
-        tp2.import_request(None, None, None, None)
+    req = type("Req", (), {"request_id": 0, "adapter_id": None})()
+    seq = {"block_ids": [0]}
+    with pytest.raises(ValueError, match="does not fit this pool"):
+        tp2.import_request(req, seq, np.zeros(1), np.zeros(1))
 
 
 def _post_stream(addr, body):
