@@ -8,6 +8,9 @@ one NVIDIA GPU.
                                            # (no contract line)
     python3 chip_smoke.py ln_bwd_designs   # only the LayerNorm backward's
                                            # sizes against alternatives
+    python3 chip_smoke.py flash_f32_designs  # only the f32 flash
+                                           # kernels' tiles against
+                                           # alternatives
     python3 chip_smoke.py lora_tier        # only the multi-LoRA and KV-tier
                                            # phases (no contract line)
     python3 chip_smoke.py fleet            # only the fleet and simulator
@@ -369,9 +372,12 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM HBM3
+# f32 products at f32 accuracy on the tensor cores take three TF32
+# products (495 TFLOP/s dense), the flash kernels' f32 route: 165 TFLOP/s
 PEAK_FLOPS = {"torch.bfloat16": 989e12,        # dense tensor-core bf16
               "torch.float16": 989e12,         # dense tensor-core f16
-              "torch.float32": 67e12}          # f32 outside the tensor cores
+              "torch.float32": 495e12 / 3}     # three dense TF32 products
+F32_SIMT_FLOPS = 67e12      # f32 outside the tensor cores (cuBLAS, TF32 off)
 
 
 _T0 = time.perf_counter()
@@ -806,14 +812,16 @@ def _flash_inputs(dev, dtype, b, s, n, d, seed, packed=False, sk=None):
 
 def flash_attention_phase(entries, dev):
     """B2 and B3 (forward kernel; dq + dk/dv pair) against their plain
-    versions on the card, f32 (SIMT kernels) and bf16 (tensor-core
-    kernels), forward and every gradient, on the CPU test shapes,
-    GPT-124M's, and the shapes only the bf16 tiling can get wrong (head
-    dims padded to the tile, seq_q != seq_k, one row, one row past a
-    tile, D 128); SDPA's forward against the same plain version as an
-    informational ``library_parity`` line.  Then timed at GPT-124M's
-    training shape against the bound, the plain versions and PyTorch's
-    ``scaled_dot_product_attention`` (a yardstick only)."""
+    versions on the card, f32 (three TF32 products a product) and bf16
+    and f16 (16-bit products), forward and every gradient, on the CPU
+    test shapes, GPT-124M's, and the shapes only the tiling can get wrong
+    (head dims padded to the tile, seq_q != seq_k, one row, one row past
+    a tile, D 128); SDPA's forward against the same plain version as an
+    informational ``library_parity`` line (bf16 GPT-124M and every f32
+    case), and the f32 gate's ``control``: one TF32 product must break
+    it.  Then timed at GPT-124M's training shape against the bound, the
+    plain versions and PyTorch's ``scaled_dot_product_attention`` (a
+    yardstick only), and at every f32 shape of the main paths."""
     import torch
 
     fwd = entries["flash_attention_fwd"]
@@ -911,13 +919,17 @@ def flash_attention_phase(entries, dev):
         if label.startswith("gpt124m_8x"):
             main_err["fwd"] = max(report["out"][0], report["lse"][0])
             main_err["bwd"] = max(report[n][0] for n in ("dq", "dk", "dv"))
-            # not a gate: SDPA rounds P to bf16 before P V
+        if label.startswith("gpt124m_8x") or dtype == f32:
+            # not a gate: SDPA rounds P to bf16 before P V; in f32 its
+            # error beside the kernels'
             got = torch.nn.functional.scaled_dot_product_attention(
-                *(x.transpose(1, 2) for x in (q, k, v)), is_causal=True)
+                *(x.transpose(1, 2) for x in (q, k, v)), is_causal=causal)
             lib = _parity(got.transpose(1, 2), want_out, 1e-4)
             say("library_parity", library="F.scaled_dot_product_attention",
                 case=label, dtype=str(dtype), max_abs_err=lib[0],
                 rel_l2_err=lib[1], err_over_limit=lib[2], gate=False)
+        if label == "gpt124m_f32_2x1024x12x64_causal":
+            _tf32_control(label, q, k, v, causal, scale, want_out)
 
     # the f16 backward under loss scaling: dO at 2^16 times the size of
     # the gradient a token-mean loss hands one token, 1/(B*S), at GPT's
@@ -990,6 +1002,11 @@ def flash_attention_phase(entries, dev):
     # above still hold every head dim)
     _flash_kernel_times(fwd, bwd, dev, f32, (16, 250, 4, 36), False, flush,
                         note=" (Conformer eval and step)")
+    # the f32 ranks of the hybrid and parallel phases, strided q/k/v
+    _flash_kernel_times(fwd, bwd, dev, f32, (2, 1024, 6, 64), True, flush,
+                        note=" (GPT-124M mp = 2, a rank)", packed=True)
+    _flash_kernel_times(fwd, bwd, dev, f32, (1, 1024, 12, 64), True, flush,
+                        note=" (GPT-124M pp = 2, a microbatch)", packed=True)
     _flash_kernel_times(fwd, None, dev, bf16, (2, 2048, 32, 128), True,
                         flush, note=" (gpt_6_7b eval forward)")
     _flash_kernel_times(fwd, bwd, dev, f16, (8, 1024, 12, 64), True, flush,
@@ -999,15 +1016,42 @@ def flash_attention_phase(entries, dev):
     return records
 
 
-def _flash_kernel_times(fwd, bwd, dev, dtype, shape, causal, flush,
-                        note=""):
-    """B2 (and B3 unless ``bwd`` is None) timed at one [B, S, N, D] shape
-    against the bound, the plain versions and SDPA (its backward as
-    forward + backward less forward); prints a ``kernel_time`` line
-    each."""
+def _tf32_control(label, q, k, v, causal, scale, want_out):
+    """The f32 gate's control: the plain forward with q, k, v and P each
+    rounded to one TF32 part (``split_tf32``'s hi: what one TF32 product
+    reads of an f32 operand), its products exact in f32, must read
+    ``err_over_limit`` > 1 on out, or the f32 limit would not tell one
+    TF32 product from the kernels' three."""
     import torch
 
-    q, k, v, dout = _flash_inputs(dev, dtype, *shape, seed=95)
+    from paddle_tpu_torch.ops.attention import causal_logits
+    from paddle_tpu_torch.ops.cuda.flash_attention_kernel import split_tf32
+
+    def hi(x):
+        return split_tf32(x)[0]
+
+    p = torch.softmax(causal_logits(hi(q), hi(k), causal, scale), dim=-1)
+    out = torch.einsum("bnts,bsnh->btnh", hi(p), hi(v))
+    report = _parity(out, want_out, 1e-4)
+    say("control", kernel="flash_attention", case=label,
+        what="plain forward, q k v and P rounded to one TF32 part",
+        max_abs_err=report[0], rel_l2_err=report[1],
+        err_over_limit=report[2], must_exceed=1.0)
+    if not report[2] > 1.0:
+        raise RuntimeError(f"flash attention {label}: one TF32 product "
+                           f"reads {report[2]} of the f32 limit, which "
+                           f"then does not separate it")
+
+
+def _flash_kernel_times(fwd, bwd, dev, dtype, shape, causal, flush,
+                        note="", packed=False):
+    """B2 (and B3 unless ``bwd`` is None) timed at one [B, S, N, D] shape
+    (``packed``: q, k, v strided views of one projection) against the
+    bound, the plain versions and SDPA (its backward as forward +
+    backward less forward); prints a ``kernel_time`` line each."""
+    import torch
+
+    q, k, v, dout = _flash_inputs(dev, dtype, *shape, seed=95, packed=packed)
     scale = 1.0 / float(np.sqrt(shape[-1]))
     out, lse = fwd.kernel(q, k, v, causal, scale)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -1019,7 +1063,8 @@ def _flash_kernel_times(fwd, bwd, dev, dtype, shape, causal, flush,
 
     lib_f = time_ms(sdpa, flush)
     label = (f"{'x'.join(map(str, shape))} {str(dtype)[6:]} "
-             f"{'causal' if causal else 'non-causal'}{note}")
+             f"{'causal' if causal else 'non-causal'}"
+             f"{', strided qkv' if packed else ''}{note}")
     runs = [(fwd, (q, k, v, causal, scale), lib_f, "")]
     if bwd is not None:
         lib_fb = time_ms(lambda: torch.autograd.grad(
@@ -1348,6 +1393,136 @@ def ln_bwd_designs_phase(dev, rows=8192, c=768):
                            for k in LN_BWD_KERNELS},
                 dx_equal_chosen=torch.equal(dx, chosen[0]),
                 dgdb_max_diff_chosen=float((dgdb - chosen[1]).abs().max()))
+
+
+# The f32 flash kernels' tiles against alternatives, each a rewrite of
+# flash_attention.cu: 64 streamed rows at DP <= 64 (kBN), 128-row blocks
+# of 8 warps (every DP <= 64 instance; the 16-bit ones of the copy change
+# too, and are not timed), and a conversion without the Inf/NaN branch
+_F32_BN = ("constexpr int kBN = (std::is_same<T, float>::value || "
+           "DP == 128) ? 32 : 64;")
+FLASH_F32_DESIGNS = {
+    "chosen_64x32": [],
+    "64x64": [(_F32_BN, "constexpr int kBN = DP == 128 ? 32 : 64;")],
+    "128x32": [(f"tc::launch_{w}<T, {dp}, 64, tc::kBN<T, {dp}>, V>",
+                f"tc::launch_{w}<T, {dp}, 128, tc::kBN<T, {dp}>, V>")
+               for w in ("fwd", "bwd") for dp in (32, 64)],
+    # the conversion with .satfinite (no Inf/NaN branch: Inf saturates)
+    "cvt_satfinite": [("cvt.rna.tf32.f32 %0, %1;",
+                       "cvt.rna.satfinite.tf32.f32 %0, %1;")],
+    # costs, not designs (their outputs are wrong): the split pass and the
+    # per-use split of dO and V each left without their conversions
+    "split_pass_unconverted": [(
+        "    split_tf32(x.x, h.x, l.x);\n    split_tf32(x.y, h.y, l.y);\n"
+        "    split_tf32(x.z, h.z, l.z);\n    split_tf32(x.w, h.w, l.w);\n",
+        "    h = *reinterpret_cast<const uint4*>(&x);\n"
+        "    l = make_uint4(0u, 0u, 0u, 0u);\n")],
+    "raw_fragments_unconverted": [(
+        "  return frag(p[0], p[8 * LD], p[4], p[8 * LD + 4]);",
+        "  return Frag{{__float_as_uint(p[0]), __float_as_uint(p[8 * LD]), "
+        "__float_as_uint(p[4]), __float_as_uint(p[8 * LD + 4])}, "
+        "{0u, 0u, 0u, 0u}};")],
+}
+# f32 shapes of the main paths: an mp = 2 rank (strided qkv), BERT-base
+# eval, the Conformer
+FLASH_F32_DESIGN_SHAPES = (((2, 1024, 6, 64), True, True),
+                           ((8, 512, 12, 64), False, False),
+                           ((16, 250, 4, 36), False, False))
+
+
+def flash_f32_designs_phase(dev):
+    """``python3 chip_smoke.py flash_f32_designs``: the f32 flash forward
+    and backward as built (``chosen_64x32``) and as each entry of
+    ``FLASH_F32_DESIGNS`` rewrites them, built from copies under
+    ``build/flash_f32_designs/`` and timed in turn, twice, at
+    ``FLASH_F32_DESIGN_SHAPES``: graph-replay ms under ``cold_l2``, the dq
+    and dk/dv kernels' device µs, and the largest difference from the
+    chosen build's outputs."""
+    import ctypes
+
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import _build
+    from paddle_tpu_torch.ops.cuda import flash_attention_kernel as fak
+
+    src = open(os.path.join(_build.CSRC, "flash_attention.cu")).read()
+    out_dir = os.path.join(os.path.dirname(_build.BUILD_DIR),
+                           "flash_f32_designs")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, edits in FLASH_F32_DESIGNS.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"design {name}: {old!r} not in source")
+            text = text.replace(old, new)
+        path = os.path.join(out_dir, name)
+        with open(path + ".cu", "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o",
+             path + ".so", path + ".cu"], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"design {name} failed to build:\n{log}")
+        lib = libs[name] = ctypes.CDLL(os.path.join(out_dir, name + ".so"))
+        for fn, n_ptr in ((lib.flash_attention_fwd, 5),
+                          (lib.flash_attention_bwd, 10)):
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                              ctypes.c_void_p])
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    chosen = {}
+    for rep in range(2):
+        for shape, causal, packed in FLASH_F32_DESIGN_SHAPES:
+            q, k, v, dout = _flash_inputs(dev, torch.float32, *shape,
+                                          seed=96, packed=packed)
+            b, sq, n, d = shape
+            scale = 1.0 / float(np.sqrt(d))
+            out, lse = fak.flash_attention_fwd_cuda(q, k, v, causal, scale)
+            res = [torch.empty_like(x) for x in (out, lse, q, q, q, lse)]
+            st_f = fak._strides((q, k, v, res[0]))
+            st_b = fak._strides((q, k, v, dout, res[2], res[3], res[4], out))
+            for name, lib in libs.items():
+                def fwd_call(lib=lib):
+                    rc = lib.flash_attention_fwd(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        res[0].data_ptr(), res[1].data_ptr(), 0, b, n, sq,
+                        sq, d, st_f, int(causal), scale,
+                        torch.cuda.current_stream().cuda_stream)
+                    if rc:
+                        raise RuntimeError(f"design {name}: CUDA error {rc}")
+
+                def bwd_call(lib=lib):
+                    rc = lib.flash_attention_bwd(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        dout.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                        res[5].data_ptr(), res[2].data_ptr(),
+                        res[3].data_ptr(), res[4].data_ptr(), 0, b, n, sq,
+                        sq, d, st_b, int(causal), scale,
+                        torch.cuda.current_stream().cuda_stream)
+                    if rc:
+                        raise RuntimeError(f"design {name}: CUDA error {rc}")
+
+                fwd_call()
+                bwd_call()
+                torch.cuda.synchronize()
+                key = (shape, causal)
+                if key not in chosen:
+                    chosen[key] = [x.clone() for x in res[:5]]
+                diff = max(float((x - w).abs().max())
+                           for x, w in zip(res[:5], chosen[key]))
+                say("flash_f32_design", design=name, repeat=rep,
+                    shape="x".join(map(str, shape)), causal=causal,
+                    strided_qkv=packed, fwd_ms=time_ms(fwd_call, flush),
+                    bwd_ms=time_ms(bwd_call, flush),
+                    dq_device_us=device_us(bwd_call, flush, ("flash_dq",)),
+                    dkv_device_us=device_us(bwd_call, flush,
+                                            ("flash_dkv",)),
+                    max_diff_chosen=diff)
 
 
 def _ragged_phase(entries, dev):
@@ -5965,7 +6140,7 @@ def eager_api_phase(dev, smi, warmup=3, steps=10):
         losses=losses, ms_per_step=ms,
         tokens_per_s=BERT_BATCH * BERT_SEQ * steps / wall,
         step_flops=flops, flops_over_f32_peak=flops / (ms / 1e3)
-        / PEAK_FLOPS["torch.float32"], peak_memory_bytes=peak,
+        / F32_SIMT_FLOPS, peak_memory_bytes=peak,
         op_calls_per_step=calls["calls"],
         op_host_us_per_call=calls["host_s"] / calls["calls"] * 1e6,
         op_host_ms_per_step=calls["host_s"] * 1e3,
@@ -11357,6 +11532,9 @@ def main():
     dev = torch.device("cuda", 0)
     if sys.argv[1:] == ["ln_bwd_designs"]:
         ln_bwd_designs_phase(dev)
+        return
+    if sys.argv[1:] == ["flash_f32_designs"]:
+        flash_f32_designs_phase(dev)
         return
     if sys.argv[1:] == ["kernels"]:
         build_phase()

@@ -20,12 +20,20 @@
 // seq_q == seq_k there, where it equals the bottom-right alignment of the
 // plain composition.  Products, softmax and accumulators are f32.
 //
-// Which dtype takes which kernels.  bf16 (the O2 training path) takes the
-// tensor-core kernels of namespace ``tc``; f32 takes the SIMT kernels
-// (scalar f32 FMAs), because the tensor cores would read f32 as TF32,
-// about three decimal digits, far outside the f32 tolerance.  The f32
-// backward gets its delta from ``delta_f32_kernel``; the bf16 dq kernel
-// computes delta itself, on the tensor cores (see ``flash_dq_tc``).
+// Which dtype takes which kernels.  All three run on the tensor cores, in
+// one design (below): bf16 and f16 (the O2 paths) in the 16-bit kernels
+// ``flash_*_tc``, f32 in ``flash_*_f32``.  One TF32 product keeps about
+// three decimal digits, far outside the f32 tolerance, so every f32
+// product A B runs as three: each operand splits into hi = tf32(x) and
+// lo = tf32(x - hi) (cvt.rna.tf32.f32: to nearest, not the hardware's
+// truncation of the low 13 bits), and A B = A_lo B_hi + A_hi B_lo +
+// A_hi B_hi on mma.sync.m16n8k8 TF32 with f32 accumulation.  What is left
+// out, A_lo B_lo and the bits past lo, is about 2^-22 of a product, three
+// orders inside the f32 limit: chip_smoke.py's f32 ``kernel_parity``
+// lines hold the kernels to it, beside a control that rounds q, k, v and
+// P to one TF32 part and breaks it; tests/test_torch_flash_attention.py
+// holds the same split (``split_tf32``) to the JAX kernel on the CPU.
+// Both dq kernels compute delta = rowsum(dO * O) for their rows.
 //
 // Bound.  At GPT-124M's training shape ([8, 1024, 12, 64] bf16, causal,
 // 50.4M visible (query, key) pairs) the forward does 4·D FLOPs a pair,
@@ -81,6 +89,40 @@
 // 64x64 wins: its 4-warp blocks give the most blocks and waste the least
 // work on causal diagonal tiles.
 //
+// Design of the f32 kernels.  The 16-bit kernels' grids, warps, masks,
+// row order and softmax over split tiles.  Splitting costs 8 instructions
+// an element (cvt.rna with its Inf/NaN check, twice, and a subtraction),
+// so a streamed element is split once where it lands, not by each of the
+// four warps that read it: a tile arrives raw (16-byte cp.async copies,
+// the next tile in flight while this one computes), the block splits it
+// into a hi plane and a lo plane, and the warps read their B fragments
+// from the planes, no conversion left.  The resident operand is split the
+// same way once (Q; Q and K in the backward passes, whose second resident
+// operand, dO or V, stays raw and is split at each use: its planes would
+// leave one block an SM).  Every tile has a row pitch of DP + 4 floats,
+// so that both fragment reads of m16n8k8 (lane (g, t) reads row g at
+// columns t and t + 4 of an [n][k] tile, or rows 2t and 2t + 1 at column g
+// of a [k][n] tile) take 32 distinct banks at addresses that are the
+// lane's base plus a constant; there is no ldmatrix for 32-bit elements.
+// A C fragment holds columns 2t and 2t + 1 of its rows and an A fragment
+// columns t and t + 4, so P and dS enter the next product with their 8
+// keys relabelled (logical key t is key 2t, t + 4 is 2t + 1) and the B
+// fragment reads its key rows in that order; a sum over keys does not
+// depend on it.  P and dS are split in registers by the warp that owns
+// them.  The blocks stream 32 rows a tile (``kBN``), which keeps two
+// blocks an SM at DP 64.  An f32 product costs 3 MMAs of half the bf16
+// depth: the bound is 165 TFLOP/s (495 / 3), which an mp = 2 rank's
+// [2, 1024, 6, 64] causal call reaches in 0.0098 ms forward and 0.0244 ms
+// backward.  Tiles, timed by ``python3 chip_smoke.py flash_f32_designs``
+// on an H100 80GB HBM3 at 700 W, two runs, ms forward / backward: at the
+// mp = 2 rank's shape 64x32 read 0.091 / 0.311-0.314, 64x64 0.074-0.075 /
+// 0.275-0.277, 128x32 0.108 / 0.372-0.373; at BERT-base's [8, 512, 12, 64]
+// 0.174-0.176 / 0.589-0.592, 0.215 / 0.843, 0.168 / 0.600; at the
+// Conformer's [16, 250, 4, 36] 0.038 / 0.121-0.123, 0.050 / 0.196-0.199,
+// 0.036 / 0.124-0.125.  64x64 (one block an SM) wins only where a causal
+// grid's longest blocks set the time; 64x32 is kept.  cvt.rna.satfinite
+// (no Inf/NaN branch) read slower, 0.097 / 0.346 at the mp = 2 rank.
+//
 // Any head dim.  The Pallas kernel takes every D <= 128 (its block is the
 // whole head dim), so these kernels do too: 1 <= D <= 128, any Sq, Sk >= 1,
 // q/k/v/dO/O read through any strides with the last dim contiguous.  A
@@ -105,474 +147,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "kernel_info.cuh"
 
 namespace {
 
-// ============================================ f32: SIMT kernels ==
-constexpr int kBQ = 64;              // query rows per tile
-constexpr int kBK = 64;              // key rows per tile
-constexpr int kThreads = 256;        // 16 x 16 threads, 4 x 4 scores each
 constexpr int kMaxD = 128;
-constexpr int kPadT = kBQ + 4;       // transposed tile row: float4-aligned
-constexpr float kNegInf = -1e30f;
 
 struct Layout {
   long long b, s, n;  // element strides of batch, sequence, head
   int vw;             // bytes a copy: the widest of 16, 8, 4, 2 aligned
 };
-
-// Elements [0, n) of an 8-element chunk of an f32 row into x, zeros past
-// n, read in copies of vw bytes (n is a multiple of vw / 4: the row and
-// the chunk start are vw-aligned).
-__device__ __forceinline__ void load8(const float* src, int n, int vw,
-                                      float* x) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) x[j] = 0.f;
-  if (vw == 16) {
-#pragma unroll
-    for (int j = 0; j < 8; j += 4)
-      if (j < n) {
-        const float4 a = *reinterpret_cast<const float4*>(src + j);
-        x[j] = a.x; x[j + 1] = a.y; x[j + 2] = a.z; x[j + 3] = a.w;
-      }
-  } else if (vw == 8) {
-#pragma unroll
-    for (int j = 0; j < 8; j += 2)
-      if (j < n) {
-        const float2 a = *reinterpret_cast<const float2*>(src + j);
-        x[j] = a.x; x[j + 1] = a.y;
-      }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (j < n) x[j] = src[j];
-  }
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-// max / sum over the 16 lanes that share a row of the score patch
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Rows [r0, r0 + 64) of one (b, n) slice into shared memory as f32 times
-// ``mul``; rows at or past ``rows`` read as zeros, copies of ``vw`` bytes.
-// Transposed: dst[d][r] with row length kPadT; otherwise dst[r][d] with
-// row length D + 1.  V: every row 16-byte aligned and D % 8 == 0, the
-// launch's common case, compiled without the narrower copies' branches.
-template <bool V, typename T>
-__device__ void load_tile_t(const T* base, long long stride, int vw, int r0,
-                            int rows, int D, float mul, float* dst) {
-  if constexpr (V) vw = 16;
-  const int vecs = (D + 7) / 8;
-  for (int e = threadIdx.x; e < kBQ * vecs; e += kThreads) {
-    const int r = e % kBQ;  // neighbouring lanes: neighbouring rows, so the
-    const int dv = (e / kBQ) * 8;  // transposed stores hit distinct banks
-    float x[8];
-    load8(base + (long long)(r0 + r) * stride + dv,
-          r0 + r < rows ? (V ? 8 : min(8, D - dv)) : 0, vw, x);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (V || dv + j < D) dst[(dv + j) * kPadT + r] = x[j] * mul;
-  }
-}
-
-template <bool V, typename T>
-__device__ void load_tile(const T* base, long long stride, int vw, int r0,
-                          int rows, int D, float* dst) {
-  if constexpr (V) vw = 16;
-  const int vecs = (D + 7) / 8;
-  const int ld = D + 1;
-  for (int e = threadIdx.x; e < kBK * vecs; e += kThreads) {
-    const int r = e / vecs;
-    const int dv = (e % vecs) * 8;
-    float x[8];
-    load8(base + (long long)(r0 + r) * stride + dv,
-          r0 + r < rows ? (V ? 8 : min(8, D - dv)) : 0, vw, x);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (V || dv + j < D) dst[r * ld + dv + j] = x[j];
-  }
-}
-
-// ---------------------------------------------------------------- forward --
-// Grid (ceil(Sq / 64), B * N).  Shared: qT [D][kPadT] (q * scale),
-// ks / vs [64][D + 1], pT [64 keys][kPadT].
-template <typename T, int DC, bool V>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int N, int Sq, int Sk, int D,
-                 Layout lq, Layout lk, Layout lv, Layout lo, int causal,
-                 float scale) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* qT = smem;
-  float* ks = qT + D * kPadT;
-  float* vs = ks + kBK * ld;
-  float* pT = vs + kBK * ld;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const int bn = blockIdx.y;
-  const int b = bn / N, n = bn % N;
-  const int q0 = qt * kBQ;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const T* kb = k + b * lk.b + n * lk.n;
-  const T* vb = v + b * lv.b + n * lv.n;
-
-  load_tile_t<V>(q + b * lq.b + n * lq.n, lq.s, lq.vw, q0, Sq, D, scale, qT);
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  const int kv_end = causal ? min(Sk, q0 + kBQ) : Sk;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<V>(kb, lk.s, lk.vw, k0, Sk, D, ks);
-    load_tile<V>(vb, lv.s, lv.vw, k0, Sk, D, vs);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&qT[d * kPadT + ty * 4]);
-      const float qa[4] = {a.x, a.y, a.z, a.w};
-      float kk[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = ks[(tx + 16 * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += qa[i] * kk[j];
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      bool valid[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        valid[j] = col < Sk && (!causal || row >= col);
-        if (valid[j]) mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
-        sum += p;
-        pT[(tx + 16 * j) * kPadT + ty * 4 + i] = p;
-      }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    const int nk = min(kBK, kv_end - k0);
-    for (int key = 0; key < nk; ++key) {
-      const float4 a = *reinterpret_cast<const float4*>(&pT[key * kPadT + ty * 4]);
-      const float pa[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = tx + 16 * c;
-        const float vv = d < D ? vs[key * ld + d] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] += pa[i] * vv;
-      }
-    }
-  }
-
-  T* ob = out + b * lo.b + n * lo.n;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-    const float lsafe = fmaxf(l[i], 1e-30f);
-    const float inv = 1.f / lsafe;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < D) store(ob + (long long)row * lo.s + d, acc[i][c] * inv);
-    }
-    if (tx == 0) lse[(long long)bn * Sq + row] = m[i] + logf(lsafe);
-  }
-}
-
-// ------------------------------------------------------------ backward dq --
-// Grid (ceil(Sq / 64), B * N).  Shared: qT, doT [D][kPadT], ks, vs
-// [64][D + 1], dsT [64 keys][kPadT].
-template <typename T, int DC, bool V>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int N, int Sq, int Sk, int D, Layout lq, Layout lk,
-                    Layout lv, Layout ldo, Layout ldq, int causal,
-                    float scale) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* qT = smem;
-  float* doT = qT + D * kPadT;
-  float* ks = doT + D * kPadT;
-  float* vs = ks + kBK * ld;
-  float* dsT = vs + kBK * ld;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bn = blockIdx.y;
-  const int b = bn / N, n = bn % N;
-  const int q0 = qt * kBQ;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const T* kb = k + b * lk.b + n * lk.n;
-  const T* vb = v + b * lv.b + n * lv.n;
-
-  load_tile_t<V>(q + b * lq.b + n * lq.n, lq.s, lq.vw, q0, Sq, D, 1.f, qT);
-  load_tile_t<V>(dout + b * ldo.b + n * ldo.n, ldo.s, ldo.vw, q0, Sq, D, 1.f, doT);
-  float lse_r[4], delta_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    lse_r[i] = row < Sq ? lse[(long long)bn * Sq + row] : 0.f;
-    delta_r[i] = row < Sq ? delta[(long long)bn * Sq + row] : 0.f;
-  }
-
-  float acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-
-  const int kv_end = causal ? min(Sk, q0 + kBQ) : Sk;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();
-    load_tile<V>(kb, lk.s, lk.vw, k0, Sk, D, ks);
-    load_tile<V>(vb, lv.s, lv.vw, k0, Sk, D, vs);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&qT[d * kPadT + ty * 4]);
-      const float4 o = *reinterpret_cast<const float4*>(&doT[d * kPadT + ty * 4]);
-      const float qa[4] = {a.x, a.y, a.z, a.w};
-      const float oa[4] = {o.x, o.y, o.z, o.w};
-      float kk[4], vv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kk[j] = ks[(tx + 16 * j) * ld + d];
-        vv[j] = vs[(tx + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] += qa[i] * kk[j];
-          dp[i][j] += oa[i] * vv[j];
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool valid = col < Sk && (!causal || row >= col);
-        const float p = valid ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        dsT[(tx + 16 * j) * kPadT + ty * 4 + i] =
-            p * (dp[i][j] - delta_r[i]) * scale;
-      }
-    }
-    __syncthreads();
-
-    const int nk = min(kBK, kv_end - k0);
-    for (int key = 0; key < nk; ++key) {
-      const float4 a = *reinterpret_cast<const float4*>(&dsT[key * kPadT + ty * 4]);
-      const float da[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = tx + 16 * c;
-        const float kk = d < D ? ks[key * ld + d] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] += da[i] * kk;
-      }
-    }
-  }
-
-  T* out = dq + b * ldq.b + n * ldq.n;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < D) store(out + (long long)row * ldq.s + d, acc[i][c]);
-    }
-  }
-}
-
-// --------------------------------------------------------- backward dk/dv --
-// Grid (ceil(Sk / 64), B * N).  Thread (ty, tx) keeps keys k0 + ty*4 + i
-// and queries q0 + tx + 16 j.  Shared: kT, vT [D][kPadT] (this block's
-// keys), qs, dos [64][D + 1], pS, dsS [64 queries][kPadT], lse, delta.
-template <typename T, int DC, bool V>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int N, int Sq, int Sk, int D,
-                     Layout lq, Layout lk, Layout lv, Layout ldo, Layout ldk,
-                     Layout ldv, int causal, float scale) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* kT = smem;
-  float* vT = kT + D * kPadT;
-  float* qs = vT + D * kPadT;
-  float* dos = qs + kBQ * ld;
-  float* pS = dos + kBQ * ld;
-  float* dsS = pS + kBQ * kPadT;
-  float* lse_s = dsS + kBQ * kPadT;
-  float* delta_s = lse_s + kBQ;
-
-  const int kt = gridDim.x - 1 - blockIdx.x;  // longest causal loops first
-  const int bn = blockIdx.y;
-  const int b = bn / N, n = bn % N;
-  const int k0 = kt * kBK;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const T* qb = q + b * lq.b + n * lq.n;
-  const T* ob = dout + b * ldo.b + n * ldo.n;
-
-  load_tile_t<V>(k + b * lk.b + n * lk.n, lk.s, lk.vw, k0, Sk, D, 1.f, kT);
-  load_tile_t<V>(v + b * lv.b + n * lv.n, lv.s, lv.vw, k0, Sk, D, 1.f, vT);
-
-  float acc_k[4][DC], acc_v[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  // query tiles before this key tile's diagonal see none of its keys
-  const int q_begin = causal ? (k0 / kBQ) * kBQ : 0;
-  for (int q0 = q_begin; q0 < Sq; q0 += kBQ) {
-    __syncthreads();
-    load_tile<V>(qb, lq.s, lq.vw, q0, Sq, D, qs);
-    load_tile<V>(ob, ldo.s, ldo.vw, q0, Sq, D, dos);
-    for (int r = threadIdx.x; r < kBQ; r += kThreads) {
-      const bool live = q0 + r < Sq;
-      lse_s[r] = live ? lse[(long long)bn * Sq + q0 + r] : 0.f;
-      delta_s[r] = live ? delta[(long long)bn * Sq + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&kT[d * kPadT + ty * 4]);
-      const float4 w = *reinterpret_cast<const float4*>(&vT[d * kPadT + ty * 4]);
-      const float ka[4] = {a.x, a.y, a.z, a.w};
-      const float va[4] = {w.x, w.y, w.z, w.w};
-      float qq[4], oo[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qq[j] = qs[(tx + 16 * j) * ld + d];
-        oo[j] = dos[(tx + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] += ka[i] * qq[j];
-          dp[i][j] += va[i] * oo[j];
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qr = tx + 16 * j;
-        const int row = q0 + qr;
-        const bool valid = row < Sq && key < Sk && (!causal || row >= key);
-        const float p = valid ? expf(s[i][j] * scale - lse_s[qr]) : 0.f;
-        pS[qr * kPadT + ty * 4 + i] = p;
-        dsS[qr * kPadT + ty * 4 + i] = p * (dp[i][j] - delta_s[qr]) * scale;
-      }
-    }
-    __syncthreads();
-
-    const int nq = min(kBQ, Sq - q0);
-    for (int r = 0; r < nq; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&pS[r * kPadT + ty * 4]);
-      const float4 g = *reinterpret_cast<const float4*>(&dsS[r * kPadT + ty * 4]);
-      const float pa[4] = {a.x, a.y, a.z, a.w};
-      const float da[4] = {g.x, g.y, g.z, g.w};
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = tx + 16 * c;
-        const float o = d < D ? dos[r * ld + d] : 0.f;
-        const float x = d < D ? qs[r * ld + d] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc_v[i][c] += pa[i] * o;
-          acc_k[i][c] += da[i] * x;
-        }
-      }
-    }
-  }
-
-  T* kout = dk + b * ldk.b + n * ldk.n;
-  T* vout = dv + b * ldv.b + n * ldv.n;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
-    if (key >= Sk) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < D) {
-        store(kout + (long long)key * ldk.s + d, acc_k[i][c]);
-        store(vout + (long long)key * ldv.s + d, acc_v[i][c]);
-      }
-    }
-  }
-}
-
-size_t fwd_smem(int D) { return sizeof(float) * (D * kPadT + 2 * kBK * (D + 1) + kBK * kPadT); }
-size_t dq_smem(int D) { return sizeof(float) * (2 * D * kPadT + 2 * kBK * (D + 1) + kBK * kPadT); }
-size_t dkv_smem(int D) {
-  return sizeof(float) * (2 * D * kPadT + 2 * kBQ * (D + 1) + 2 * kBQ * kPadT + 2 * kBQ);
-}
 
 // The (batch, seq, head) strides of tensor t of ``strides`` and its copy
 // width: the widest of 16, 8, 4 and 2 bytes (at least the element size)
@@ -603,111 +189,6 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   *done = err == cudaSuccess;
   return err;
-}
-
-// delta = rowsum(dO * O) in f32 for the f32 backward: one warp per
-// (b, n, row), written to [B, N, Sq].
-__global__ void __launch_bounds__(256)
-delta_f32_kernel(const float* __restrict__ out, const float* __restrict__ dout,
-                 float* __restrict__ delta, int N, int Sq, int D,
-                 long long rows, Layout lo, Layout ldo) {
-  const long long w = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (w >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const int bn = (int)(w / Sq), r = (int)(w % Sq);
-  const int b = bn / N, n = bn % N;
-  const float* o = out + b * lo.b + n * lo.n + r * lo.s;
-  const float* g = dout + b * ldo.b + n * ldo.n + r * ldo.s;
-  float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc += o[d] * g[d];
-  acc = row_sum(acc);  // each lane: the sum of its half-warp
-  acc += __shfl_xor_sync(0xffffffffu, acc, 16);
-  if (lane == 0) delta[w] = acc;
-}
-
-template <int DC, bool V>
-int launch_fwd(const void* q, const void* k, const void* v, void* out,
-               float* lse, int B, int N, int Sq, int Sk, int D,
-               const long long* st, int causal, float scale, cudaStream_t s) {
-  static bool raised = false;  // per DC
-  const size_t smem = fwd_smem(D);
-  cudaError_t err = allow_smem(flash_fwd_kernel<float, DC, V>, fwd_smem(kMaxD), &raised);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * N);
-  flash_fwd_kernel<float, DC, V><<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, N, Sq, Sk,
-      D, layout(st, 0, q, D, 4), layout(st, 1, k, D, 4),
-      layout(st, 2, v, D, 4), layout(st, 3, out, D, 4), causal, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int DC, bool V>
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
-               const void* out, const float* lse, float* delta, void* dq,
-               void* dk, void* dv, int B, int N, int Sq, int Sk, int D,
-               const long long* st, int causal, float scale, cudaStream_t s) {
-  static bool raised_dq = false, raised_dkv = false;  // per DC
-  const void* ptrs[8] = {q, k, v, dout, dq, dk, dv, out};
-  auto lay = [&](int t) { return layout(st, t, ptrs[t], D, 4); };
-  const long long rows = (long long)B * N * Sq;
-  delta_f32_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
-      static_cast<const float*>(out), static_cast<const float*>(dout), delta,
-      N, Sq, D, rows, lay(7), lay(3));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  size_t smem = dq_smem(D);
-  err = allow_smem(flash_bwd_dq_kernel<float, DC, V>, dq_smem(kMaxD), &raised_dq);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<float, DC, V><<<dim3((Sq + kBQ - 1) / kBQ, B * N),
-                                   kThreads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dq), N, Sq, Sk, D, lay(0), lay(1), lay(2),
-      lay(3), lay(4), causal, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  smem = dkv_smem(D);
-  err = allow_smem(flash_bwd_dkv_kernel<float, DC, V>, dkv_smem(kMaxD), &raised_dkv);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<float, DC, V><<<dim3((Sk + kBK - 1) / kBK, B * N),
-                                    kThreads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dk), static_cast<float*>(dv), N, Sq, Sk, D,
-      lay(0), lay(1), lay(2), lay(3), lay(5), lay(6), causal, scale);
-  return (int)cudaGetLastError();
-}
-
-// The f32 launches at these sizes, as kinfo records.
-template <int DC, bool V>
-int info_fwd(int B, int N, int Sq, int D, int* out) {
-  static bool raised = false;
-  cudaError_t err = allow_smem(flash_fwd_kernel<float, DC, V>, fwd_smem(kMaxD), &raised);
-  if (err != cudaSuccess) return (int)err;
-  return kinfo::record(flash_fwd_kernel<float, DC, V>,
-                       dim3((Sq + kBQ - 1) / kBQ, B * N), kThreads,
-                       fwd_smem(D), out);
-}
-
-template <int DC, bool V>
-int info_bwd(int B, int N, int Sq, int Sk, int D, int* out) {
-  static bool raised_dq = false, raised_dkv = false;
-  const long long rows = (long long)B * N * Sq;
-  int e = kinfo::record(delta_f32_kernel, dim3((unsigned)((rows + 7) / 8)),
-                        256, 0, out);
-  if (e) return e;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<float, DC, V>, dq_smem(kMaxD), &raised_dq);
-  if (err != cudaSuccess) return (int)err;
-  e = kinfo::record(flash_bwd_dq_kernel<float, DC, V>,
-                    dim3((Sq + kBQ - 1) / kBQ, B * N), kThreads, dq_smem(D),
-                    out);
-  if (e) return e;
-  err = allow_smem(flash_bwd_dkv_kernel<float, DC, V>, dkv_smem(kMaxD), &raised_dkv);
-  if (err != cudaSuccess) return (int)err;
-  return kinfo::record(flash_bwd_dkv_kernel<float, DC, V>,
-                       dim3((Sk + kBK - 1) / kBK, B * N), kThreads,
-                       dkv_smem(D), out);
 }
 
 // ========================================= bf16 and f16: tensor cores ==
@@ -752,7 +233,9 @@ __device__ __forceinline__ float2 unpack2(uint32_t u) {
 
 template <typename T>
 __device__ __forceinline__ T to_elem(float x) {
-  if constexpr (IsF16<T>::value)
+  if constexpr (std::is_same<T, float>::value)
+    return x;
+  else if constexpr (IsF16<T>::value)
     return __float2half_rn(x);
   else
     return __float2bfloat16(x);
@@ -939,17 +422,36 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const T* base,
 }
 
 // f32 (x, y) -> T at columns col, col + 1 of the row at p: a pair where
-// both are inside D and p + col is 4-byte aligned (always, under V), else
-// one by one
+// both are inside D and p + col is aligned to the pair (always, under V),
+// else one by one
 template <typename T, bool V>
 __device__ __forceinline__ void store2(T* p, int col, int D, float x,
                                        float y) {
   p += col;
-  if (V || (col + 1 < D && !(reinterpret_cast<uintptr_t>(p) & 3))) {
-    *reinterpret_cast<uint32_t*>(p) = pack2<T>(x, y);
+  if (V || (col + 1 < D && !(reinterpret_cast<uintptr_t>(p) & (2 * sizeof(T) - 1)))) {
+    if constexpr (std::is_same<T, float>::value)
+      *reinterpret_cast<float2*>(p) = make_float2(x, y);
+    else
+      *reinterpret_cast<uint32_t*>(p) = pack2<T>(x, y);
   } else {
     if (col < D) p[0] = to_elem<T>(x);
     if (col + 1 < D) p[1] = to_elem<T>(y);
+  }
+}
+
+// Rows row0 and row1 (those below ``rows``) of a C-fragment accumulator,
+// times x0 and x1, into columns [0, D) of rows of ``base`` ``ld`` apart
+template <typename T, bool V, int ND>
+__device__ __forceinline__ void store_rows(T* base, long long ld, int row0,
+                                           int row1, int rows, int D, int t4,
+                                           const float (&a)[ND][4],
+                                           float x0 = 1.f, float x1 = 1.f) {
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    const int col = j * 8 + t4 * 2;
+    if (col >= D) continue;
+    if (row0 < rows) store2<T, V>(base + (long long)row0 * ld, col, D, a[j][0] * x0, a[j][1] * x0);
+    if (row1 < rows) store2<T, V>(base + (long long)row1 * ld, col, D, a[j][2] * x1, a[j][3] * x1);
   }
 }
 
@@ -962,6 +464,116 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(kFull, x, 1);
   return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+// The forward's step over one tile of scores s, C fragments of rows row0
+// and row1 at columns k0 + 8 j + 2 t + e % 2: columns past Sk or, causal,
+// right of the row masked, then the online softmax with exponent base 2
+// (c = scale log2 e): s becomes P, and o and the lane's sums l are
+// rescaled to the new row maxima m.
+template <int NS, int ND>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS][4],
+                                             float (&o)[ND][4], float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float c, int k0, int w0, int t4,
+                                             int row0, int row1, int Sk,
+                                             int causal) {
+  constexpr int BN = NS * 8;
+  if (k0 + BN > Sk || (causal && k0 + BN - 1 > w0)) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + j * 8 + t4 * 2 + (e & 1);
+        const int row = e < 2 ? row0 : row1;
+        if (col >= Sk || (causal && col > row)) s[j][e] = -INFINITY;
+      }
+  }
+
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+  }
+  mx0 = quad_max(mx0);
+  mx1 = quad_max(mx1);
+  // a row with nothing visible yet keeps m = -inf and exponent base 0
+  const float base0 = mx0 == -INFINITY ? 0.f : mx0 * c;
+  const float base1 = mx1 == -INFINITY ? 0.f : mx1 * c;
+  const float alpha0 = exp2f(m0 * c - base0), alpha1 = exp2f(m1 * c - base1);
+  m0 = mx0;
+  m1 = mx1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    s[j][0] = exp2f(fmaf(s[j][0], c, -base0));
+    s[j][1] = exp2f(fmaf(s[j][1], c, -base0));
+    s[j][2] = exp2f(fmaf(s[j][2], c, -base1));
+    s[j][3] = exp2f(fmaf(s[j][3], c, -base1));
+    sum0 += s[j][0] + s[j][1];
+    sum1 += s[j][2] + s[j][3];
+  }
+  l0 = l0 * alpha0 + sum0;  // this lane's share; the quad sums at the end
+  l1 = l1 * alpha1 + sum1;
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    o[j][0] *= alpha0;
+    o[j][1] *= alpha0;
+    o[j][2] *= alpha1;
+    o[j][3] *= alpha1;
+  }
+}
+
+// dS = P (dP - delta) scale of one tile into s, P = exp2(s c - lb)
+// recomputed from the scores (lb = lse log2 e), 0 where masked: columns
+// past Sk or, causal, right of the row
+template <int NS>
+__device__ __forceinline__ void ds_tile(float (&s)[NS][4],
+                                        const float (&dp)[NS][4], float c,
+                                        float scale, float lb0, float lb1,
+                                        float dl0, float dl1, int k0, int w0,
+                                        int t4, int row0, int row1, int Sk,
+                                        int causal) {
+  constexpr int BN = NS * 8;
+  const bool edge = k0 + BN > Sk || (causal && k0 + BN - 1 > w0);
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + j * 8 + t4 * 2 + (e & 1);
+      const int row = e < 2 ? row0 : row1;
+      const bool ok = !edge || (col < Sk && (!causal || col <= row));
+      const float p = ok ? exp2f(fmaf(s[j][e], c, -(e < 2 ? lb0 : lb1))) : 0.f;
+      s[j][e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1)) * scale;
+    }
+}
+
+// P^T into s and dS^T into dp of one transposed tile (the warp's keys key0
+// and key1 of the block's BM from k0, queries q0 + 8 j + 2 t + e % 2, with
+// their lse and delta in lse_s and dl_s), 0 where masked
+template <int NS, int BM>
+__device__ __forceinline__ void pds_tile(float (&s)[NS][4],
+                                         float (&dp)[NS][4],
+                                         const float* lse_s,
+                                         const float* dl_s, float c,
+                                         float scale, int q0, int k0, int w0,
+                                         int t4, int key0, int key1, int Sq,
+                                         int Sk, int causal) {
+  constexpr int BN = NS * 8;
+  const bool edge = q0 + BN > Sq || k0 + BM > Sk || (causal && q0 < w0 + 15);
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qc = j * 8 + t4 * 2 + (e & 1);
+      const int row = q0 + qc;
+      const int key = e < 2 ? key0 : key1;
+      const bool ok = !edge || (row < Sq && key < Sk && (!causal || row >= key));
+      const float p = ok ? exp2f(fmaf(s[j][e], c, -lse_s[qc] * kLog2e)) : 0.f;
+      dp[j][e] = p * (dp[j][e] - dl_s[qc]) * scale;
+      s[j][e] = p;
+    }
 }
 
 // ---------------------------------------------------------------- forward --
@@ -1035,50 +647,7 @@ flash_fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
         mma<T>(s[j + 1], qf[kk], bf[2], bf[3]);
       }
 
-    if (k0 + BN > Sk || (causal && k0 + BN - 1 > w0)) {
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + j * 8 + t4 * 2 + (e & 1);
-          const int row = e < 2 ? row0 : row1;
-          if (col >= Sk || (causal && col > row)) s[j][e] = -INFINITY;
-        }
-    }
-
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    // a row with nothing visible yet keeps m = -inf and exponent base 0
-    const float base0 = mx0 == -INFINITY ? 0.f : mx0 * c;
-    const float base1 = mx1 == -INFINITY ? 0.f : mx1 * c;
-    const float alpha0 = exp2f(m0 * c - base0), alpha1 = exp2f(m1 * c - base1);
-    m0 = mx0;
-    m1 = mx1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = exp2f(fmaf(s[j][0], c, -base0));
-      s[j][1] = exp2f(fmaf(s[j][1], c, -base0));
-      s[j][2] = exp2f(fmaf(s[j][2], c, -base1));
-      s[j][3] = exp2f(fmaf(s[j][3], c, -base1));
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * alpha0 + sum0;  // this lane's share; the quad sums at the end
-    l1 = l1 * alpha1 + sum1;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      o[j][0] *= alpha0;
-      o[j][1] *= alpha0;
-      o[j][2] *= alpha1;
-      o[j][3] *= alpha1;
-    }
+    softmax_tile(s, o, m0, m1, l0, l1, c, k0, w0, t4, row0, row1, Sk, causal);
 
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
@@ -1099,15 +668,8 @@ flash_fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
 
   l0 = fmaxf(quad_sum(l0), 1e-30f);
   l1 = fmaxf(quad_sum(l1), 1e-30f);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  T* ob = out + b * lo.b + n * lo.n;
-#pragma unroll
-  for (int j = 0; j < ND; ++j) {
-    const int col = j * 8 + t4 * 2;
-    if (col >= D) continue;
-    if (row0 < Sq) store2<T, V>(ob + (long long)row0 * lo.s, col, D, o[j][0] * inv0, o[j][1] * inv0);
-    if (row1 < Sq) store2<T, V>(ob + (long long)row1 * lo.s, col, D, o[j][2] * inv1, o[j][3] * inv1);
-  }
+  store_rows<T, V>(out + b * lo.b + n * lo.n, lo.s, row0, row1, Sq, D, t4, o,
+                    1.f / l0, 1.f / l1);
   if (t4 == 0) {
     if (row0 < Sq) lse[(long long)bn * Sq + row0] = m0 * scale + logf(l0);
     if (row1 < Sq) lse[(long long)bn * Sq + row1] = m1 * scale + logf(l1);
@@ -1225,17 +787,7 @@ flash_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
         mma<T>(dp[j + 1], gf[kk], bf[2], bf[3]);
       }
 
-    const bool edge = k0 + BN > Sk || (causal && k0 + BN - 1 > w0);
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + t4 * 2 + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        const bool ok = !edge || (col < Sk && (!causal || col <= row));
-        const float p = ok ? exp2f(fmaf(s[j][e], c, -(e < 2 ? lb0 : lb1))) : 0.f;
-        s[j][e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1)) * scale;  // dS
-      }
+    ds_tile(s, dp, c, scale, lb0, lb1, dl0, dl1, k0, w0, t4, row0, row1, Sk, causal);
 
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
@@ -1254,14 +806,7 @@ flash_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
 
-  T* ob = dq + b * ldq.b + n * ldq.n;
-#pragma unroll
-  for (int j = 0; j < ND; ++j) {
-    const int col = j * 8 + t4 * 2;
-    if (col >= D) continue;
-    if (row0 < Sq) store2<T, V>(ob + (long long)row0 * ldq.s, col, D, acc[j][0], acc[j][1]);
-    if (row1 < Sq) store2<T, V>(ob + (long long)row1 * ldq.s, col, D, acc[j][2], acc[j][3]);
-  }
+  store_rows<T, V>(dq + b * ldq.b + n * ldq.n, ldq.s, row0, row1, Sq, D, t4, acc);
 }
 
 // --------------------------------------------------------- backward dk/dv --
@@ -1375,19 +920,7 @@ flash_dkv_tc(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    const bool edge = q0 + BN > Sq || k0 + BM > Sk || (causal && q0 < w0 + 15);
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = j * 8 + t4 * 2 + (e & 1);
-        const int row = q0 + qc;
-        const int key = e < 2 ? key0 : key1;
-        const bool ok = !edge || (row < Sq && key < Sk && (!causal || row >= key));
-        const float p = ok ? exp2f(fmaf(s[j][e], c, -lse_s[qc] * kLog2e)) : 0.f;
-        dp[j][e] = p * (dp[j][e] - dl_s[qc]) * scale;  // dS^T
-        s[j][e] = p;                                   // P^T
-      }
+    pds_tile<NS, BM>(s, dp, lse_s, dl_s, c, scale, q0, k0, w0, t4, key0, key1, Sq, Sk, causal);
 
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
@@ -1412,28 +945,537 @@ flash_dkv_tc(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
 
-  T* kout = dk + b * ldk.b + n * ldk.n;
-  T* vout = dv + b * ldv.b + n * ldv.n;
+  store_rows<T, V>(dk + b * ldk.b + n * ldk.n, ldk.s, key0, key1, Sk, D, t4, ak);
+  store_rows<T, V>(dv + b * ldv.b + n * ldv.n, ldv.s, key0, key1, Sk, D, t4, av);
+}
+
+
+// ================================ f32: three TF32 products a product ==
+// The design of the 16-bit kernels above over split f32 tiles (the note
+// at the top): the same grids, warps, masks, row order and softmax.
+
+// x rounded to TF32 (the low 13 mantissa bits zero), to nearest, ties
+// away from zero
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as hi + lo, both TF32: hi = tf32(x), lo = tf32(x - hi).  x - hi is
+// exact, so hi + lo keeps 22 of x's 24 significant bits.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a (16 x 8, row) * b (8 x 8, col), TF32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment (16 x 8) as its TF32 parts.  Lane (g = lane / 4, t =
+// lane % 4) holds, in order, (row g, column t), (g + 8, t), (g, t + 4) and
+// (g + 8, t + 4).
+struct Frag {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ Frag frag(float a0, float a1, float a2, float a3) {
+  Frag f;
+  split_tf32(a0, f.hi[0], f.lo[0]);
+  split_tf32(a1, f.hi[1], f.lo[1]);
+  split_tf32(a2, f.hi[2], f.lo[2]);
+  split_tf32(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+
+// Tiles in shared memory have a row pitch of LD = DP + 4 floats: the
+// fragment reads below (lane (g, t) at row g, columns t and t + 4; or rows
+// 2t and 2t + 1, column g) then take 32 distinct banks, and every address
+// is the lane's base plus a constant.  A raw tile holds f32 values; a
+// split tile [2][rows][LD] holds the hi parts, then the lo parts PL words
+// on.
+
+// The A fragment of rows [r0, r0 + 16) x columns [c0, c0 + 8): of a raw
+// tile, split here; of a split tile, as it is
+template <int LD>
+__device__ __forceinline__ Frag a_raw(const float* s, int r0, int c0, int g,
+                                      int t) {
+  const float* p = s + (r0 + g) * LD + c0 + t;
+  return frag(p[0], p[8 * LD], p[4], p[8 * LD + 4]);
+}
+
+template <int LD, int PL>
+__device__ __forceinline__ Frag a_planes(const uint32_t* s, int r0, int c0,
+                                         int g, int t) {
+  const uint32_t* p = s + (r0 + g) * LD + c0 + t;
+  return Frag{{p[0], p[8 * LD], p[4], p[8 * LD + 4]},
+              {p[PL], p[PL + 8 * LD], p[PL + 4], p[PL + 8 * LD + 4]}};
+}
+
+// A C fragment (16 x 8 of an f32 product; lane (g, t) holds columns 2t and
+// 2t + 1 of rows g and g + 8), split, as the A fragment of the next
+// product, whose k dimension its 8 columns become: logical column t is
+// column 2t and t + 4 is 2t + 1, the order in which mma3_kn reads B's k
+// rows.
+__device__ __forceinline__ Frag a_of_c(const float (&c)[4]) {
+  return frag(c[0], c[2], c[1], c[3]);
+}
+
+// c += a b to f32 accuracy, (h0, l0) and (h1, l1) the lane's two B
+// elements: three TF32 products, the two small ones first (lo lo is below
+// f32's own rounding)
+__device__ __forceinline__ void mma3(float (&c)[4], const Frag& a,
+                                     uint32_t h0, uint32_t l0, uint32_t h1,
+                                     uint32_t l1) {
+  mma_tf32(c, a.lo, h0, h1);
+  mma_tf32(c, a.hi, l0, l1);
+  mma_tf32(c, a.hi, h0, h1);
+}
+
+// c += a B, B the 8 x 8 block of a split [n][k] tile at rows [n0, n0 + 8)
+// and columns [k0, k0 + 8): K for Q K^T, V for dO V^T, Q and dO for the
+// transposed scores of the dk/dv kernel
+template <int LD, int PL>
+__device__ __forceinline__ void mma3_nk(float (&c)[4], const Frag& a,
+                                        const uint32_t* s, int n0, int k0,
+                                        int g, int t) {
+  const uint32_t* p = s + (n0 + g) * LD + k0 + t;
+  mma3(c, a, p[0], p[PL], p[4], p[PL + 4]);
+}
+
+// c += a B, B the 8 x 8 block of a split [k][n] tile at rows [k0, k0 + 8)
+// (in a_of_c's order) and columns [n0, n0 + 8): V for P V, K for dS K, dO
+// and Q for dV and dK
+template <int LD, int PL>
+__device__ __forceinline__ void mma3_kn(float (&c)[4], const Frag& a,
+                                        const uint32_t* s, int k0, int n0,
+                                        int g, int t) {
+  const uint32_t* p = s + (k0 + 2 * t) * LD + n0 + g;
+  mma3(c, a, p[0], p[PL], p[LD], p[PL + LD]);
+}
+
+// Async copy of rows [r0, r0 + ROWS) of one (b, n) slice into a raw
+// [ROWS][DP + 4] tile at shared address ``dst``; rows at or past ``rows``
+// and columns at or past D are zeros.  A 16-byte chunk (4 floats) is one
+// cp.async at copy width 16, two or four at 8 or 4, the pieces past D
+// zero-filled by a source size of 0 (their address is the slice's start,
+// which is not read).
+template <int DP, int ROWS, int NT, bool V>
+__device__ __forceinline__ void load_tile_f32(uint32_t dst, const float* base,
+                                              long long stride, int vw,
+                                              int r0, int rows, int D) {
+  constexpr int R = DP / 4, LD = DP + 4;
+  for (int e = threadIdx.x; e < ROWS * R; e += NT) {
+    const int r = e / R, c = e % R;
+    const uint32_t d = dst + (uint32_t)(r * LD + c * 4) * 4;
+    const int n = r0 + r < rows ? min(4, D - c * 4) : 0;  // live elements
+    const float* src = base + (long long)(r0 + r) * stride + c * 4;
+    if (V || vw == 16) {  // D % 4 == 0: a chunk is all live or all dead
+      cp_async16(d, n > 0 ? src : base, n > 0);
+    } else if (vw == 8) {
+      cp_async8(d, n > 0 ? src : base, n > 0);
+      cp_async8(d + 8, n > 2 ? src + 2 : base, n > 2);
+    } else {
 #pragma unroll
-  for (int j = 0; j < ND; ++j) {
-    const int col = j * 8 + t4 * 2;
-    if (col >= D) continue;
-    if (key0 < Sk) {
-      store2<T, V>(kout + (long long)key0 * ldk.s, col, D, ak[j][0], ak[j][1]);
-      store2<T, V>(vout + (long long)key0 * ldv.s, col, D, av[j][0], av[j][1]);
-    }
-    if (key1 < Sk) {
-      store2<T, V>(kout + (long long)key1 * ldk.s, col, D, ak[j][2], ak[j][3]);
-      store2<T, V>(vout + (long long)key1 * ldv.s, col, D, av[j][2], av[j][3]);
+      for (int i = 0; i < 4; ++i)
+        cp_async4(d + 4 * i, i < n ? src + i : base, i < n);
     }
   }
 }
 
-constexpr size_t fwd_bytes(int DP, int BM, int BN) { return 2 * DP * (BM + 4 * BN); }
-constexpr size_t dq_bytes(int DP, int BM, int BN) { return 2 * DP * (3 * BM + 4 * BN); }
-constexpr size_t dkv_bytes(int DP, int BM, int BN) {
-  return 2 * DP * (2 * BM + 4 * BN) + 16 * BN;
+// A raw [ROWS][DP + 4] tile split into the split tile at ``dst`` by the
+// whole block, four elements a thread at a time (the pad columns, which no
+// fragment reads, are left)
+template <int DP, int ROWS, int NT>
+__device__ __forceinline__ void split_tile(const float* raw, uint32_t* dst) {
+  constexpr int LD = DP + 4, R = DP / 4;
+  for (int e = threadIdx.x; e < ROWS * R; e += NT) {
+    const int i = (e / R) * LD + (e % R) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(raw + i);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(dst + i) = h;
+    *reinterpret_cast<uint4*>(dst + ROWS * LD + i) = l;
+  }
 }
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// ------------------------------------------------------------ f32 forward --
+// flash_fwd_tc over split tiles.  Shared: Q split [2][BM][LD], K and V
+// split [2][BN][LD] each, then raw K and V [BN][LD], which the next tile's
+// copies fill while this one computes (Q's raw rows pass through the K/V
+// split space first).
+template <int DP, int BM, int BN, bool V>
+__global__ void __launch_bounds__(BM * 2, 1)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, int N, int Sq, int Sk, int D, Layout lq,
+    Layout lk, Layout lv, Layout lo, int causal, float scale) {
+  constexpr int NT = BM * 2, LD = DP + 4, KS = DP / 8, NS = BN / 8;
+  constexpr int PQ = BM * LD, PT = BN * LD;  // planes: Q's, a K/V tile's
+  static_assert(BM <= 4 * BN, "Q's raw rows fit the K/V split space");
+  extern __shared__ __align__(128) uint32_t smw[];
+  uint32_t* sq = smw;
+  uint32_t* sk = sq + 2 * PQ;
+  uint32_t* sv = sk + 2 * PT;
+  float* raw = reinterpret_cast<float*>(sv + 2 * PT);
+  const uint32_t raw_a = smem_u32(raw);
+
+  const int bn = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest rows first
+  const int b = bn / N, n = bn % N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int w0 = q0 + warp * 16, row0 = w0 + g, row1 = row0 + 8;
+  const float* kb = k + b * lk.b + n * lk.n;
+  const float* vb = v + b * lv.b + n * lv.n;
+  const int kv_end = causal ? min(Sk, q0 + BM) : Sk;
+  const int tiles = (kv_end + BN - 1) / BN;
+
+  load_tile_f32<DP, BM, NT, V>(smem_u32(sk), q + b * lq.b + n * lq.n, lq.s, lq.vw, q0, Sq, D);
+  load_tile_f32<DP, BN, NT, V>(raw_a, kb, lk.s, lk.vw, 0, Sk, D);
+  load_tile_f32<DP, BN, NT, V>(raw_a + PT * 4, vb, lv.s, lv.vw, 0, Sk, D);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split_tile<DP, BM, NT>(reinterpret_cast<const float*>(sk), sq);
+  __syncthreads();
+  split_tile<DP, BN, NT>(raw, sk);
+  split_tile<DP, BN, NT>(raw + PT, sv);
+  __syncthreads();
+
+  const float c = scale * kLog2e;
+  float o[KS][4];
+#pragma unroll
+  for (int j = 0; j < KS; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * BN;
+    const bool more = it + 1 < tiles;
+    if (more) {  // the next tile's raw rows arrive while this one computes
+      load_tile_f32<DP, BN, NT, V>(raw_a, kb, lk.s, lk.vw, k0 + BN, Sk, D);
+      load_tile_f32<DP, BN, NT, V>(raw_a + PT * 4, vb, lv.s, lv.vw, k0 + BN, Sk, D);
+      cp_async_commit();
+    }
+
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const Frag a = a_planes<LD, PQ>(sq, warp * 16, kk * 8, g, t4);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) mma3_nk<LD, PT>(s[j], a, sk, j * 8, kk * 8, g, t4);
+    }
+
+    softmax_tile(s, o, m0, m1, l0, l1, c, k0, w0, t4, row0, row1, Sk, causal);
+
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {  // 8 keys a step
+      const Frag p = a_of_c(s[kk]);
+#pragma unroll
+      for (int j = 0; j < KS; ++j) mma3_kn<LD, PT>(o[j], p, sv, kk * 8, j * 8, g, t4);
+    }
+    if (more) {
+      cp_async_wait<0>();
+      __syncthreads();  // every warp is done with this tile; the next is in
+      split_tile<DP, BN, NT>(raw, sk);
+      split_tile<DP, BN, NT>(raw + PT, sv);
+      __syncthreads();
+    }
+  }
+
+  l0 = fmaxf(quad_sum(l0), 1e-30f);
+  l1 = fmaxf(quad_sum(l1), 1e-30f);
+  store_rows<float, V>(out + b * lo.b + n * lo.n, lo.s, row0, row1, Sq, D, t4, o,
+                    1.f / l0, 1.f / l1);
+  if (t4 == 0) {
+    if (row0 < Sq) lse[(long long)bn * Sq + row0] = m0 * scale + logf(l0);
+    if (row1 < Sq) lse[(long long)bn * Sq + row1] = m1 * scale + logf(l1);
+  }
+}
+
+// -------------------------------------------------------- f32 backward dq --
+// flash_dq_tc over split tiles.  Shared: Q split [2][BM][LD], dO raw
+// [BM][LD] (its fragments split at each use, which keeps two blocks an
+// SM), K and V split [2][BN][LD] each, raw K and V [BN][LD].  Writes delta
+// for its rows first; the dk/dv kernel, next on the stream, reads it.
+template <int DP, int BM, int BN, bool V>
+__global__ void __launch_bounds__(BM * 2, 1)
+flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ out, const float* __restrict__ lse,
+    float* __restrict__ delta, float* __restrict__ dq, int N, int Sq,
+    int Sk, int D, Layout lq, Layout lk, Layout lv, Layout ldo,
+    Layout lo, Layout ldq, int causal, float scale) {
+  constexpr int NT = BM * 2, LD = DP + 4, KS = DP / 8, NS = BN / 8;
+  constexpr int PQ = BM * LD, PT = BN * LD;
+  static_assert(BM <= 4 * BN, "Q's raw rows fit the K/V split space");
+  extern __shared__ __align__(128) uint32_t smw[];
+  uint32_t* sq = smw;
+  float* sdo = reinterpret_cast<float*>(sq + 2 * PQ);
+  uint32_t* sk = reinterpret_cast<uint32_t*>(sdo + PQ);
+  uint32_t* sv = sk + 2 * PT;
+  float* raw = reinterpret_cast<float*>(sv + 2 * PT);
+  const uint32_t raw_a = smem_u32(raw);
+
+  const int bn = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int b = bn / N, n = bn % N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int w0 = q0 + warp * 16, row0 = w0 + g, row1 = row0 + 8;
+  const float* kb = k + b * lk.b + n * lk.n;
+  const float* vb = v + b * lv.b + n * lv.n;
+  const int kv_end = causal ? min(Sk, q0 + BM) : Sk;
+  const int tiles = (kv_end + BN - 1) / BN;
+
+  load_tile_f32<DP, BM, NT, V>(smem_u32(sk), q + b * lq.b + n * lq.n, lq.s, lq.vw, q0, Sq, D);
+  load_tile_f32<DP, BM, NT, V>(smem_u32(sdo), dout + b * ldo.b + n * ldo.n, ldo.s, ldo.vw, q0, Sq, D);
+  load_tile_f32<DP, BN, NT, V>(raw_a, kb, lk.s, lk.vw, 0, Sk, D);
+  load_tile_f32<DP, BN, NT, V>(raw_a + PT * 4, vb, lv.s, lv.vw, 0, Sk, D);
+  cp_async_commit();
+  const float lb0 = row0 < Sq ? lse[(long long)bn * Sq + row0] * kLog2e : 0.f;
+  const float lb1 = row1 < Sq ? lse[(long long)bn * Sq + row1] * kLog2e : 0.f;
+  cp_async_wait<0>();
+  __syncthreads();
+  split_tile<DP, BM, NT>(reinterpret_cast<const float*>(sk), sq);
+
+  // delta of the warp's 16 rows in f32, a row at a time across the warp:
+  // dO from its tile, O read once from device memory
+  float dl0 = 0.f, dl1 = 0.f;
+  {
+    const float* ob = out + b * lo.b + n * lo.n;
+    for (int r = 0; r < 16; ++r) {
+      const int row = w0 + r;
+      float x = 0.f;
+      if (row < Sq)
+        for (int d = lane; d < D; d += 32)
+          x += sdo[(warp * 16 + r) * LD + d] * ob[(long long)row * lo.s + d];
+      x = warp_sum(x);
+      if (r == g) dl0 = x;
+      if (r == g + 8) dl1 = x;
+      if (lane == 0 && row < Sq) delta[(long long)bn * Sq + row] = x;
+    }
+  }
+  __syncthreads();
+  split_tile<DP, BN, NT>(raw, sk);
+  split_tile<DP, BN, NT>(raw + PT, sv);
+  __syncthreads();
+
+  const float c = scale * kLog2e;
+  float acc[KS][4];
+#pragma unroll
+  for (int j = 0; j < KS; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * BN;
+    const bool more = it + 1 < tiles;
+    if (more) {
+      load_tile_f32<DP, BN, NT, V>(raw_a, kb, lk.s, lk.vw, k0 + BN, Sk, D);
+      load_tile_f32<DP, BN, NT, V>(raw_a + PT * 4, vb, lv.s, lv.vw, k0 + BN, Sk, D);
+      cp_async_commit();
+    }
+
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const Frag a = a_planes<LD, PQ>(sq, warp * 16, kk * 8, g, t4);
+      const Frag gf = a_raw<LD>(sdo, warp * 16, kk * 8, g, t4);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        mma3_nk<LD, PT>(s[j], a, sk, j * 8, kk * 8, g, t4);
+        mma3_nk<LD, PT>(dp[j], gf, sv, j * 8, kk * 8, g, t4);
+      }
+    }
+
+    ds_tile(s, dp, c, scale, lb0, lb1, dl0, dl1, k0, w0, t4, row0, row1, Sk, causal);
+
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      const Frag ds = a_of_c(s[kk]);
+#pragma unroll
+      for (int j = 0; j < KS; ++j) mma3_kn<LD, PT>(acc[j], ds, sk, kk * 8, j * 8, g, t4);
+    }
+    if (more) {
+      cp_async_wait<0>();
+      __syncthreads();
+      split_tile<DP, BN, NT>(raw, sk);
+      split_tile<DP, BN, NT>(raw + PT, sv);
+      __syncthreads();
+    }
+  }
+
+  store_rows<float, V>(dq + b * ldq.b + n * ldq.n, ldq.s, row0, row1, Sq, D, t4, acc);
+}
+
+// ----------------------------------------------------- f32 backward dk/dv --
+// flash_dkv_tc over split tiles.  Shared: K split [2][BM][LD], V raw
+// [BM][LD] (split at each use, as dq's dO), Q and dO split [2][BN][LD]
+// each, raw Q and dO [BN][LD], then lse and delta [BN] in two stages.
+template <int DP, int BM, int BN, bool V>
+__global__ void __launch_bounds__(BM * 2, 1)
+flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int N, int Sq,
+    int Sk, int D, Layout lq, Layout lk, Layout lv, Layout ldo,
+    Layout ldk, Layout ldv, int causal, float scale) {
+  constexpr int NT = BM * 2, LD = DP + 4, KS = DP / 8, NS = BN / 8;
+  constexpr int PK = BM * LD, PT = BN * LD;
+  static_assert(BM <= 4 * BN, "K's raw rows fit the Q/dO split space");
+  extern __shared__ __align__(128) uint32_t smw[];
+  uint32_t* sk = smw;
+  float* sv = reinterpret_cast<float*>(sk + 2 * PK);
+  uint32_t* sq = reinterpret_cast<uint32_t*>(sv + PK);
+  uint32_t* sg = sq + 2 * PT;
+  float* raw = reinterpret_cast<float*>(sg + 2 * PT);
+  float* lsd = raw + 2 * PT;  // [2][lse, delta][BN]
+  const uint32_t raw_a = smem_u32(raw), lsd_a = smem_u32(lsd);
+
+  const int bn = blockIdx.x;
+  const int k0 = blockIdx.y * BM;  // key tile 0 has the longest causal loop
+  const int b = bn / N, n = bn % N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int w0 = k0 + warp * 16, key0 = w0 + g, key1 = key0 + 8;
+  const float* qb = q + b * lq.b + n * lq.n;
+  const float* gb = dout + b * ldo.b + n * ldo.n;
+  const float* lseb = lse + (long long)bn * Sq;
+  const float* dlb = delta + (long long)bn * Sq;
+  // query tiles before this key block's diagonal see none of its keys
+  const int q_begin = causal ? (k0 / BN) * BN : 0;
+  const int tiles = (Sq - q_begin + BN - 1) / BN;
+
+  auto load_stage = [&](int st, int q0) {
+    load_tile_f32<DP, BN, NT, V>(raw_a, qb, lq.s, lq.vw, q0, Sq, D);
+    load_tile_f32<DP, BN, NT, V>(raw_a + PT * 4, gb, ldo.s, ldo.vw, q0, Sq, D);
+    const uint32_t ls = lsd_a + st * 2 * BN * 4;
+    for (int r = threadIdx.x; r < BN; r += NT) {
+      const bool ok = q0 + r < Sq;
+      cp_async4(ls + r * 4, ok ? lseb + q0 + r : lseb, ok);
+      cp_async4(ls + (BN + r) * 4, ok ? dlb + q0 + r : dlb, ok);
+    }
+  };
+
+  load_tile_f32<DP, BM, NT, V>(smem_u32(sq), k + b * lk.b + n * lk.n, lk.s, lk.vw, k0, Sk, D);
+  load_tile_f32<DP, BM, NT, V>(smem_u32(sv), v + b * lv.b + n * lv.n, lv.s, lv.vw, k0, Sk, D);
+  load_stage(0, q_begin);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split_tile<DP, BM, NT>(reinterpret_cast<const float*>(sq), sk);
+  __syncthreads();
+  split_tile<DP, BN, NT>(raw, sq);
+  split_tile<DP, BN, NT>(raw + PT, sg);
+  __syncthreads();
+
+  const float c = scale * kLog2e;
+  float ak[KS][4], av[KS][4];
+#pragma unroll
+  for (int j = 0; j < KS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ak[j][e] = av[j][e] = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int q0 = q_begin + it * BN;
+    const bool more = it + 1 < tiles;
+    if (more) {
+      load_stage((it + 1) & 1, q0 + BN);
+      cp_async_commit();
+    }
+    const float* lse_s = lsd + (it & 1) * 2 * BN;
+    const float* dl_s = lse_s + BN;
+
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const Frag a = a_planes<LD, PK>(sk, warp * 16, kk * 8, g, t4);
+      const Frag w = a_raw<LD>(sv, warp * 16, kk * 8, g, t4);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        mma3_nk<LD, PT>(s[j], a, sq, j * 8, kk * 8, g, t4);
+        mma3_nk<LD, PT>(dp[j], w, sg, j * 8, kk * 8, g, t4);
+      }
+    }
+
+    pds_tile<NS, BM>(s, dp, lse_s, dl_s, c, scale, q0, k0, w0, t4, key0, key1, Sq, Sk, causal);
+
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      const Frag p = a_of_c(s[kk]);
+      const Frag d = a_of_c(dp[kk]);
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        mma3_kn<LD, PT>(av[j], p, sg, kk * 8, j * 8, g, t4);
+        mma3_kn<LD, PT>(ak[j], d, sq, kk * 8, j * 8, g, t4);
+      }
+    }
+    if (more) {
+      cp_async_wait<0>();
+      __syncthreads();
+      split_tile<DP, BN, NT>(raw, sq);
+      split_tile<DP, BN, NT>(raw + PT, sg);
+      __syncthreads();
+    }
+  }
+
+  store_rows<float, V>(dk + b * ldk.b + n * ldk.n, ldk.s, key0, key1, Sk, D, t4, ak);
+  store_rows<float, V>(dv + b * ldv.b + n * ldv.n, ldv.s, key0, key1, Sk, D, t4, av);
+}
+
+// The kernels and dynamic shared bytes of one instance: the 16-bit
+// kernels for bf16 and f16, the f32 ones for float.
+template <typename T, int DP, int BM, int BN, bool V>
+struct Inst {
+  static auto fwd() { return flash_fwd_tc<T, DP, BM, BN, V>; }
+  static auto dq() { return flash_dq_tc<T, DP, BM, BN, V>; }
+  static auto dkv() { return flash_dkv_tc<T, DP, BM, BN, V>; }
+  static constexpr size_t fwd_smem = 2 * DP * (BM + 4 * BN);
+  static constexpr size_t dq_smem = 2 * DP * (3 * BM + 4 * BN);
+  static constexpr size_t dkv_smem = 2 * DP * (2 * BM + 4 * BN) + 16 * BN;
+};
+
+template <int DP, int BM, int BN, bool V>
+struct Inst<float, DP, BM, BN, V> {
+  static auto fwd() { return flash_fwd_f32<DP, BM, BN, V>; }
+  static auto dq() { return flash_dq_f32<DP, BM, BN, V>; }
+  static auto dkv() { return flash_dkv_f32<DP, BM, BN, V>; }
+  static constexpr size_t fwd_smem = 4 * (DP + 4) * (2 * BM + 6 * BN);
+  static constexpr size_t dq_smem = 4 * (DP + 4) * (3 * BM + 6 * BN);
+  static constexpr size_t dkv_smem = 4 * (DP + 4) * (3 * BM + 6 * BN) + 16 * BN;
+};
+
+// The streamed tile's rows (BN) of an instance; BM is 64 throughout.  The
+// 16-bit types take 64 up to DP 64 and 32 at 128; f32 takes 32 at every
+// DP, its streamed tiles being held three times (raw, hi, lo) at twice
+// the bytes.
+template <typename T, int DP>
+constexpr int kBN = (std::is_same<T, float>::value || DP == 128) ? 32 : 64;
 
 // grid rows: (b, n) in x, row tiles in y (at most 65535 of them)
 int check_grid(int S, int BM) {
@@ -1444,16 +1486,18 @@ template <typename T, int DP, int BM, int BN, bool V>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                float* lse, int B, int N, int Sq, int Sk, int D,
                const long long* st, int causal, float scale, cudaStream_t s) {
+  using K = Inst<T, DP, BM, BN, V>;
   static bool raised = false;  // per instantiation
-  constexpr size_t smem = fwd_bytes(DP, BM, BN);
+  const auto kernel = K::fwd();
+  constexpr int es = sizeof(T);
   if (int e = check_grid(Sq, BM)) return e;
-  cudaError_t err = allow_smem(flash_fwd_tc<T, DP, BM, BN, V>, smem, &raised);
+  cudaError_t err = allow_smem(kernel, K::fwd_smem, &raised);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_tc<T, DP, BM, BN, V><<<dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem, s>>>(
+  kernel<<<dim3(B * N, (Sq + BM - 1) / BM), BM * 2, K::fwd_smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, N, Sq, Sk,
-      D, layout(st, 0, q, D, 2), layout(st, 1, k, D, 2),
-      layout(st, 2, v, D, 2), layout(st, 3, out, D, 2), causal, scale);
+      D, layout(st, 0, q, D, es), layout(st, 1, k, D, es),
+      layout(st, 2, v, D, es), layout(st, 3, out, D, es), causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1462,16 +1506,17 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const void* out, const float* lse, float* delta, void* dq,
                void* dk, void* dv, int B, int N, int Sq, int Sk, int D,
                const long long* st, int causal, float scale, cudaStream_t s) {
+  using K = Inst<T, DP, BM, BN, V>;
   static bool raised_dq = false, raised_dkv = false;  // per instantiation
-  constexpr size_t smem_dq = dq_bytes(DP, BM, BN);
-  constexpr size_t smem_dkv = dkv_bytes(DP, BM, BN);
+  const auto kdq = K::dq();
+  const auto kdkv = K::dkv();
   const void* ptrs[8] = {q, k, v, dout, dq, dk, dv, out};
-  auto lay = [&](int t) { return layout(st, t, ptrs[t], D, 2); };
+  auto lay = [&](int t) { return layout(st, t, ptrs[t], D, sizeof(T)); };
   if (int e = check_grid(Sq, BM)) return e;
   if (int e = check_grid(Sk, BM)) return e;
-  cudaError_t err = allow_smem(flash_dq_tc<T, DP, BM, BN, V>, smem_dq, &raised_dq);
+  cudaError_t err = allow_smem(kdq, K::dq_smem, &raised_dq);
   if (err != cudaSuccess) return (int)err;
-  flash_dq_tc<T, DP, BM, BN, V><<<dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem_dq, s>>>(
+  kdq<<<dim3(B * N, (Sq + BM - 1) / BM), BM * 2, K::dq_smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const T*>(out), lse, delta, static_cast<T*>(dq), N,
@@ -1479,9 +1524,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
       scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = allow_smem(flash_dkv_tc<T, DP, BM, BN, V>, smem_dkv, &raised_dkv);
+  err = allow_smem(kdkv, K::dkv_smem, &raised_dkv);
   if (err != cudaSuccess) return (int)err;
-  flash_dkv_tc<T, DP, BM, BN, V><<<dim3(B * N, (Sk + BM - 1) / BM), BM * 2, smem_dkv, s>>>(
+  kdkv<<<dim3(B * N, (Sk + BM - 1) / BM), BM * 2, K::dkv_smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse,
       delta, static_cast<T*>(dk), static_cast<T*>(dv), N, Sq, Sk, D,
@@ -1489,33 +1534,30 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// The bf16 and f16 launches at these sizes, as kinfo records.
+// The launches at these sizes, as kinfo records.
 template <typename T, int DP, int BM, int BN, bool V>
 int info_fwd(int B, int N, int Sq, int* out) {
+  using K = Inst<T, DP, BM, BN, V>;
   static bool raised = false;
-  constexpr size_t smem = fwd_bytes(DP, BM, BN);
-  cudaError_t err = allow_smem(flash_fwd_tc<T, DP, BM, BN, V>, smem, &raised);
+  cudaError_t err = allow_smem(K::fwd(), K::fwd_smem, &raised);
   if (err != cudaSuccess) return (int)err;
-  return kinfo::record(flash_fwd_tc<T, DP, BM, BN, V>,
-                       dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem, out);
+  return kinfo::record(K::fwd(), dim3(B * N, (Sq + BM - 1) / BM), BM * 2,
+                       K::fwd_smem, out);
 }
 
 template <typename T, int DP, int BM, int BN, bool V>
 int info_bwd(int B, int N, int Sq, int Sk, int* out) {
+  using K = Inst<T, DP, BM, BN, V>;
   static bool raised_dq = false, raised_dkv = false;
-  constexpr size_t smem_dq = dq_bytes(DP, BM, BN);
-  constexpr size_t smem_dkv = dkv_bytes(DP, BM, BN);
-  cudaError_t err = allow_smem(flash_dq_tc<T, DP, BM, BN, V>, smem_dq, &raised_dq);
+  cudaError_t err = allow_smem(K::dq(), K::dq_smem, &raised_dq);
   if (err != cudaSuccess) return (int)err;
-  int e = kinfo::record(flash_dq_tc<T, DP, BM, BN, V>,
-                        dim3(B * N, (Sq + BM - 1) / BM), BM * 2, smem_dq,
-                        out);
+  int e = kinfo::record(K::dq(), dim3(B * N, (Sq + BM - 1) / BM), BM * 2,
+                        K::dq_smem, out);
   if (e) return e;
-  err = allow_smem(flash_dkv_tc<T, DP, BM, BN, V>, smem_dkv, &raised_dkv);
+  err = allow_smem(K::dkv(), K::dkv_smem, &raised_dkv);
   if (err != cudaSuccess) return (int)err;
-  return kinfo::record(flash_dkv_tc<T, DP, BM, BN, V>,
-                       dim3(B * N, (Sk + BM - 1) / BM), BM * 2, smem_dkv,
-                       out);
+  return kinfo::record(K::dkv(), dim3(B * N, (Sk + BM - 1) / BM), BM * 2,
+                       K::dkv_smem, out);
 }
 
 }  // namespace tc
@@ -1523,24 +1565,19 @@ int info_bwd(int B, int N, int Sq, int Sk, int* out) {
 template <typename T, bool V>
 int tc_info(int backward, int B, int N, int Sq, int Sk, int D, int* out) {
   if (!backward) {
-    if (D <= 32) return tc::info_fwd<T, 32, 64, 64, V>(B, N, Sq, out);
-    if (D <= 64) return tc::info_fwd<T, 64, 64, 64, V>(B, N, Sq, out);
-    return tc::info_fwd<T, 128, 64, 32, V>(B, N, Sq, out);
+    if (D <= 32) return tc::info_fwd<T, 32, 64, tc::kBN<T, 32>, V>(B, N, Sq, out);
+    if (D <= 64) return tc::info_fwd<T, 64, 64, tc::kBN<T, 64>, V>(B, N, Sq, out);
+    return tc::info_fwd<T, 128, 64, tc::kBN<T, 128>, V>(B, N, Sq, out);
   }
-  if (D <= 32) return tc::info_bwd<T, 32, 64, 64, V>(B, N, Sq, Sk, out);
-  if (D <= 64) return tc::info_bwd<T, 64, 64, 64, V>(B, N, Sq, Sk, out);
-  return tc::info_bwd<T, 128, 64, 32, V>(B, N, Sq, Sk, out);
+  if (D <= 32) return tc::info_bwd<T, 32, 64, tc::kBN<T, 32>, V>(B, N, Sq, Sk, out);
+  if (D <= 64) return tc::info_bwd<T, 64, 64, tc::kBN<T, 64>, V>(B, N, Sq, Sk, out);
+  return tc::info_bwd<T, 128, 64, tc::kBN<T, 128>, V>(B, N, Sq, Sk, out);
 }
 
 template <bool V>
 int info(int backward, int dtype, int B, int N, int Sq, int Sk, int D,
          int* out) {
-  if (dtype == 0 && !backward)
-    return D <= 64 ? info_fwd<4, V>(B, N, Sq, D, out)
-                   : info_fwd<8, V>(B, N, Sq, D, out);
-  if (dtype == 0)
-    return D <= 64 ? info_bwd<4, V>(B, N, Sq, Sk, D, out)
-                   : info_bwd<8, V>(B, N, Sq, Sk, D, out);
+  if (dtype == 0) return tc_info<float, V>(backward, B, N, Sq, Sk, D, out);
   if (dtype == 1) return tc_info<tc::bf16, V>(backward, B, N, Sq, Sk, D, out);
   if (dtype == 2) return tc_info<tc::f16, V>(backward, B, N, Sq, Sk, D, out);
   return (int)cudaErrorInvalidValue;
@@ -1560,18 +1597,16 @@ template <typename T, bool V>
 int tc_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
            int B, int N, int Sq, int Sk, int D, const long long* st,
            int causal, float scale, cudaStream_t s) {
-  if (D <= 32) return tc::launch_fwd<T, 32, 64, 64, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
-  if (D <= 64) return tc::launch_fwd<T, 64, 64, 64, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
-  return tc::launch_fwd<T, 128, 64, 32, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
+  if (D <= 32) return tc::launch_fwd<T, 32, 64, tc::kBN<T, 32>, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
+  if (D <= 64) return tc::launch_fwd<T, 64, 64, tc::kBN<T, 64>, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
+  return tc::launch_fwd<T, 128, 64, tc::kBN<T, 128>, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
 }
 
 template <bool V>
 int fwd(const void* q, const void* k, const void* v, void* out, float* lse,
         int dtype, int B, int N, int Sq, int Sk, int D,
         const long long* st, int causal, float scale, cudaStream_t s) {
-  if (dtype == 0)
-    return D <= 64 ? launch_fwd<4, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s)
-                   : launch_fwd<8, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
+  if (dtype == 0) return tc_fwd<float, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
   if (dtype == 1) return tc_fwd<tc::bf16, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
   if (dtype == 2) return tc_fwd<tc::f16, V>(q, k, v, out, lse, B, N, Sq, Sk, D, st, causal, scale, s);
   return (int)cudaErrorInvalidValue;
@@ -1582,9 +1617,9 @@ int tc_bwd(const void* q, const void* k, const void* v, const void* dout,
            const void* out, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int B, int N, int Sq, int Sk, int D,
            const long long* st, int causal, float scale, cudaStream_t s) {
-  if (D <= 32) return tc::launch_bwd<T, 32, 64, 64, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
-  if (D <= 64) return tc::launch_bwd<T, 64, 64, 64, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
-  return tc::launch_bwd<T, 128, 64, 32, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
+  if (D <= 32) return tc::launch_bwd<T, 32, 64, tc::kBN<T, 32>, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
+  if (D <= 64) return tc::launch_bwd<T, 64, 64, tc::kBN<T, 64>, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
+  return tc::launch_bwd<T, 128, 64, tc::kBN<T, 128>, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
 }
 
 template <bool V>
@@ -1592,9 +1627,7 @@ int bwd(const void* q, const void* k, const void* v, const void* dout,
         const void* out, const float* lse, float* delta, void* dq, void* dk,
         void* dv, int dtype, int B, int N, int Sq, int Sk, int D,
         const long long* st, int causal, float scale, cudaStream_t s) {
-  if (dtype == 0)
-    return D <= 64 ? launch_bwd<4, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s)
-                   : launch_bwd<8, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
+  if (dtype == 0) return tc_bwd<float, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
   if (dtype == 1) return tc_bwd<tc::bf16, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
   if (dtype == 2) return tc_bwd<tc::f16, V>(q, k, v, dout, out, lse, delta, dq, dk, dv, B, N, Sq, Sk, D, st, causal, scale, s);
   return (int)cudaErrorInvalidValue;
@@ -1603,8 +1636,8 @@ int bwd(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // The launch of flash_attention_fwd (backward 0) or flash_attention_bwd
-// (backward 1) at these sizes: out[0] = its kernels (forward 1; bf16
-// backward 2: dq, dk/dv; f32 backward 3: delta, dq, dk/dv), then their
+// (backward 1) at these sizes: out[0] = its kernels (forward 1; backward
+// 2: dq, which also writes delta, then dk/dv), then their
 // kernel_info.cuh records.  Launches nothing.
 extern "C" int flash_attention_info(int backward, int dtype, int B, int N,
                                     int Sq, int Sk, int D, int* out) {
@@ -1632,8 +1665,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   return fwd<false>(q, k, v, out, lse, dtype, B, N, Sq, Sk, D, strides, causal, scale, s);
 }
 
-// Both backward passes on ``stream``: delta = rowsum(dout * out) into
-// ``delta`` ([B, N, Sq] f32 scratch), dq, then dk/dv.  ``strides`` holds
+// Both backward passes on ``stream``: dq, which also writes delta =
+// rowsum(dout * out) into ``delta`` ([B, N, Sq] f32 scratch), then dk/dv.  ``strides`` holds
 // (batch, seq, head) element strides of q, k, v, dout, dq, dk, dv, out;
 // lse is [B, N, Sq] f32.
 extern "C" int flash_attention_bwd(const void* q, const void* k,

@@ -11,7 +11,7 @@ launch at those shapes — for each kernel of the launch its grid, threads
 a block, dynamic shared bytes and the output tile each block writes —
 mirroring ``ragged_attention.cu``'s ``launch`` (split kernel, combine),
 ``decode_attention.cu``'s, ``flash_attention.cu``'s ``launch_fwd`` /
-``launch_bwd`` (f32 SIMT and bf16 tensor-core instances) and
+``launch_bwd`` (the f32, bf16 and f16 tensor-core instances) and
 ``layernorm.cu``'s (``bwd_plan`` sizing the backward's row pass), with
 ``split_kv.plan`` and ``split_kv.ragged_slots``.  Each source's C
 ``*_info`` entry (:func:`card_resources`) reports, on the card, the same
@@ -80,7 +80,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 # constants of the sources, mirrored (tests hold them to the .cu text)
 SPLIT_THREADS = 128         # splitkv::kThreads
-FLASH_SIMT = {"BQ": 64, "BK": 64, "threads": 256, "max_d": 128}
+FLASH_MAX_D = 128           # kMaxD in flash_attention.cu
 LN_FWD_WARPS = 4            # kFwdWarps in layernorm.cu
 LN_RED_THREADS = 256        # kRedThreads in layernorm.cu
 LN_RING_SLOTS = 2           # kRingSlots in layernorm.cu
@@ -314,83 +314,60 @@ def _decode_plan(q, k_cache):
     return [split, combine], dict(splits=splits, keys=s_max, batch=b)
 
 
-def _tc_tiles(d):
-    """(DP, BM, BN) of the bf16 and f16 tensor-core instances for head
-    dim d."""
-    if d <= 32:
-        return 32, 64, 64
-    if d <= 64:
-        return 64, 64, 64
-    return 128, 64, 32
+def _tc_tiles(d, dtype=torch.bfloat16):
+    """(DP, BM, BN) of the tensor-core instance for head dim d and the
+    inputs' dtype (``tc_fwd`` / ``tc_bwd`` and ``kBN`` of
+    flash_attention.cu): BN 32 for f32 and at DP 128, else 64."""
+    dp = 32 if d <= 32 else 64 if d <= 64 else 128
+    return dp, 64, 32 if dtype == torch.float32 or dp == 128 else 64
 
 
-def _simt_smem(kind, d):
-    """fwd_smem / dq_smem / dkv_smem of flash_attention.cu (the dk/dv
-    kernel also keeps its query tile's lse and delta, kBQ f32 each)."""
-    pad = FLASH_SIMT["BQ"] + 4
-    bq, bk = FLASH_SIMT["BQ"], FLASH_SIMT["BK"]
-    if kind == "fwd":
-        return 4 * (d * pad + 2 * bk * (d + 1) + bk * pad)
-    if kind == "dq":
-        return 4 * (2 * d * pad + 2 * bk * (d + 1) + bk * pad)
-    return 4 * (2 * d * pad + 2 * bq * (d + 1) + 2 * bq * pad + 2 * bq)
+def _flash_smem(dtype, dp, bm, bnt):
+    """Dynamic shared bytes of the forward, dq and dk/dv kernels
+    (``Inst<T, DP, BM, BN, V>``).  16-bit: tiles [rows][DP].  f32: tiles
+    [rows][DP + 4] f32 words; the streamed tiles raw and split (hi and lo
+    planes), the resident ones split (Q, K) or raw (dO, V).  The dk/dv
+    kernel also holds lse and delta, BN f32 each, in two stages."""
+    if dtype == torch.float32:
+        row = 4 * (dp + 4)
+        return (row * (2 * bm + 6 * bnt), row * (3 * bm + 6 * bnt),
+                row * (3 * bm + 6 * bnt) + 16 * bnt)
+    return (2 * dp * (bm + 4 * bnt), 2 * dp * (3 * bm + 4 * bnt),
+            2 * dp * (2 * bm + 4 * bnt) + 16 * bnt)
 
 
-def _rows(tile, bn_axis):
+def _rows(tile):
     """Cover of [B*N, seq] rows: block (b, n) x row tile writes ``tile``
-    rows of its (b, n); ``bn_axis`` is the grid axis of (b, n) (0 for
-    the tensor-core kernels, 1 for SIMT), the other one the row tiles."""
+    rows of its (b, n); grid axis 0 is (b, n), axis 1 the row tiles."""
     def cover(counts, grid):
-        span(counts, grid[1 - bn_axis], tile, lead=grid[bn_axis])
+        span(counts, grid[1], tile, lead=grid[0])
     return cover
 
 
-# the tensor-core instances' element types, as the source names them
-_TC_DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16"}
+# the instances' element types and kernel suffixes, as the source names
+# them: the 16-bit kernels flash_*_tc<T, ...>, the f32 ones flash_*_f32
+_FLASH_KINDS = {torch.bfloat16: ("tc", "bf16,"), torch.float16: ("tc", "f16,"),
+                torch.float32: ("f32", "")}
 
 
 def _flash_plan(q, k, backward):
     (b, sq, n, d), qdt = q
     (_, sk, _, _), _ = k
     bn = b * n
-    if qdt in _TC_DTYPES:
-        dp, bm, bnt = _tc_tiles(d)
-        inst = f"<{_TC_DTYPES[qdt]},{dp},{bm},{bnt}>"
-        rows = _rows(bm, 0)
-        if not backward:
-            return [Launch("flash_fwd_tc" + inst, (bn, -(-sq // bm)), bm * 2,
-                           2 * dp * (bm + 4 * bnt),
-                           {"out": ((bn, sq), rows),
-                            "lse": ((bn, sq), rows)})], {}
-        return [
-            Launch("flash_dq_tc" + inst, (bn, -(-sq // bm)), bm * 2,
-                   2 * dp * (3 * bm + 4 * bnt),
-                   {"dq": ((bn, sq), rows), "delta": ((bn, sq), rows)}),
-            Launch("flash_dkv_tc" + inst, (bn, -(-sk // bm)), bm * 2,
-                   2 * dp * (2 * bm + 4 * bnt) + 16 * bnt,
-                   {"dk": ((bn, sk), rows), "dv": ((bn, sk), rows)}),
-        ], {}
-    dc = 4 if d <= 64 else 8
-    bq, bk, th = FLASH_SIMT["BQ"], FLASH_SIMT["BK"], FLASH_SIMT["threads"]
+    dp, bm, bnt = _tc_tiles(d, qdt)
+    kind, tdt = _FLASH_KINDS[qdt]
+    inst = f"_{kind}<{tdt}{dp},{bm},{bnt}>"
+    fwd_smem, dq_smem, dkv_smem = _flash_smem(qdt, dp, bm, bnt)
+    rows = _rows(bm)
     if not backward:
-        return [Launch(f"flash_fwd_kernel<f32,{dc}>", (-(-sq // bq), bn), th,
-                       _simt_smem("fwd", d),
-                       {"out": ((bn, sq), _rows(bq, 1)),
-                        "lse": ((bn, sq), _rows(bq, 1))})], {}
-    rows = bn * sq
-
-    def delta_cover(counts, grid):
-        span(counts, grid[0], 8)             # one warp a row, 8 a block
-
+        return [Launch("flash_fwd" + inst, (bn, -(-sq // bm)), bm * 2,
+                       fwd_smem, {"out": ((bn, sq), rows),
+                                  "lse": ((bn, sq), rows)})], {}
     return [
-        Launch("delta_f32_kernel", (-(-rows // 8),), 256, 0,
-               {"delta": ((rows,), delta_cover)}),
-        Launch(f"flash_bwd_dq_kernel<f32,{dc}>", (-(-sq // bq), bn), th,
-               _simt_smem("dq", d), {"dq": ((bn, sq), _rows(bq, 1))}),
-        Launch(f"flash_bwd_dkv_kernel<f32,{dc}>", (-(-sk // bk), bn), th,
-               _simt_smem("dkv", d),
-               {"dk": ((bn, sk), _rows(bk, 1)),
-                "dv": ((bn, sk), _rows(bk, 1))}),
+        Launch("flash_dq" + inst, (bn, -(-sq // bm)), bm * 2, dq_smem,
+               {"dq": ((bn, sq), rows), "delta": ((bn, sq), rows)}),
+        Launch("flash_dkv" + inst, (bn, -(-sk // bm)), bm * 2, dkv_smem,
+               {"dk": ((bn, sk), rows), "dv": ((bn, sk), rows)}),
     ], {}
 
 

@@ -11,10 +11,16 @@ q, k and v are read in place through their strides (the last dim
 contiguous), so the views of a ``[B, S, 3, N, H]`` projection cost no
 transpose.
 
-bf16 and f16 run on the tensor-core kernels (one template, two
-instances), f32 on the SIMT kernels (the source note says why).  As in
-the JAX kernels, which take any floating dtype and compute in f32, the
-accumulators, lse and delta are f32 whatever the inputs' dtype.  ``fwd_launches`` counts launches of the forward
+Every dtype runs on the tensor cores: bf16 and f16 on the 16-bit
+kernels (one template, two instances), f32 on kernels of the same
+design whose every product is three TF32 products, each operand split
+into ``hi = tf32(x)`` and ``lo = tf32(x - hi)`` (:func:`split_tf32` is
+the torch model of that split; the CPU tests hold a forward built on it
+to the JAX kernel, and ``python3 chip_smoke.py kernels`` holds the f32
+kernels to the plain versions at the f32 limits).  As in the JAX
+kernels, which take any floating dtype and compute in f32, the
+accumulators, lse and delta are f32 whatever the inputs' dtype.
+``fwd_launches`` counts launches of the forward
 kernel and ``bwd_launches`` launches of the backward pair (dq, which
 also computes ``delta = rowsum(dO * O)``, then dk/dv), each incremented
 once per launch and nowhere else.  The wrappers take CUDA tensors only
@@ -147,9 +153,8 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal, scale):
     """Launch the backward pair on the current stream -> (dq, dk, dv),
     each [B, S, N, H] in q's dtype.  ``delta = rowsum(dout * out)``,
     which the JAX package leaves to XLA (``attention_kernel.py:211-213``),
-    is computed on the card into a [B, N, Sq] f32 scratch (by the bf16 dq
-    kernel itself; by a row kernel before the f32 pair).  Raises like
-    the forward."""
+    is computed on the card into a [B, N, Sq] f32 scratch by the dq
+    kernel itself.  Raises like the forward."""
     global bwd_launches
     _check({"q": q, "k": k, "v": v, "out": out, "dout": dout}, causal,
            seq_k_names=("k", "v"))
@@ -216,6 +221,21 @@ def flash_bwd_plain(q, k, v, out, lse, dout, causal, scale):
     dq = torch.einsum("bnts,bsnh->btnh", ds, k.float())
     dk = torch.einsum("bnts,btnh->bsnh", ds, q.float())
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def split_tf32(x):
+    """The f32 kernels' operand split in torch: ``(hi, lo)`` with ``hi``
+    = ``x`` rounded to TF32 (10 explicit mantissa bits; to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32``) and ``lo`` = ``x - hi``
+    rounded the same way, both f32 tensors; ``hi + lo`` keeps 22 of
+    ``x``'s 24 significant bits.  A model for the tests: no kernel's
+    path calls it."""
+    def rna(t):
+        bits = t.float().contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x.float() - hi)
 
 
 # ------------------------------------------------------------------ ops --

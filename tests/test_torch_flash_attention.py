@@ -178,6 +178,74 @@ def test_plain_matches_xla_fallback_off_the_pallas_tiling(shape, seq_k,
                                    atol=5e-4, err_msg=f"d{name}")
 
 
+# ------------------------------------------- the f32 kernels' numerics --
+# The CPU shapes of ``chip_smoke.py``'s f32 parity cases.
+TF32_CASES = [((2, 128, 2, 64), False), ((2, 128, 2, 64), True),
+              ((1, 256, 4, 32), True)]
+
+
+def _fwd_tf32(q, k, v, causal, scale, parts):
+    """(out, lse) with each product (S = Q K^T, O = P V) formed from its
+    operands' TF32 parts (``split_tf32``) as the f32 kernels form it:
+    ``parts`` 3 is their ``lo hi + hi lo + hi hi``, 1 one TF32 product
+    ``hi hi``; softmax, lse and the sums in f32."""
+    def mm(a, b):
+        ah, al = fak.split_tf32(a)
+        bh, bl = fak.split_tf32(b)
+        return ah @ bh if parts == 1 else al @ bh + ah @ bl + ah @ bh
+
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    s = mm(q, k.transpose(-1, -2)) * scale
+    if causal:
+        n = s.shape[-1]
+        s = s.masked_fill(torch.ones(n, n, dtype=torch.bool).triu(1),
+                          float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    return (mm(p, v) / l).transpose(1, 2), (m + torch.log(l))[..., 0]
+
+
+def _over_tf32_limit(shape, causal, parts):
+    """Largest err / limit of ``_fwd_tf32`` against the JAX ``_flash_fwd``
+    (interpret mode) on out and lse, the limit chip_smoke.py's f32 gate:
+    ``1e-4 * max(1, max|want|)``."""
+    b, s, n, h = shape
+    q, k, v = (_rand(shape, seed) for seed in (60, 61, 62))
+    scale = 1.0 / np.sqrt(h)
+    out, lse = _fwd_tf32(*(torch.from_numpy(a) for a in (q, k, v)), causal,
+                         scale, parts)
+
+    def bnsh(a):
+        return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(b * n, s, h))
+
+    jo, jlse = _flash_fwd(bnsh(q), bnsh(k), bnsh(v), causal, scale, 64, 64,
+                          True)
+    got = {"out": out.numpy().transpose(0, 2, 1, 3).reshape(b * n, s, h),
+           "lse": lse.numpy().reshape(b * n, s)}
+    want = {"out": np.asarray(jo), "lse": np.asarray(jlse)[..., 0]}
+    return {name: float(np.abs(got[name] - want[name]).max()
+                        / (1e-4 * max(1.0, float(np.abs(want[name]).max()))))
+            for name in got}
+
+
+@pytest.mark.parametrize("shape,causal", TF32_CASES)
+def test_three_tf32_products_hold_the_f32_limit(shape, causal):
+    """The f32 kernels' products, three TF32 products from each operand's
+    hi and lo parts, give a forward within chip_smoke.py's f32 limit of
+    the JAX kernel on out and lse, with a tenfold margin."""
+    over = _over_tf32_limit(shape, causal, parts=3)
+    assert max(over.values()) < 0.1, over
+
+
+def test_one_tf32_product_breaks_the_f32_limit():
+    """One TF32 product (what the tensor cores make of an f32 operand)
+    falls outside that limit on out: the gate tells the two apart."""
+    over = [_over_tf32_limit(shape, causal, parts=1)["out"]
+            for shape, causal in TF32_CASES]
+    assert max(over) > 1.0, over
+
+
 def test_qkv_views_take_the_same_route():
     """Strided q/k/v views of one [B, S, 3, N, H] projection (what GPT
     passes) give what contiguous copies give."""

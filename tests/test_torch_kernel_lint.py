@@ -281,16 +281,28 @@ def test_mirrored_constants_equal_the_sources():
     assert kl.LN_RING_SLOTS == _constexpr(ln, "kRingSlots")
     assert layernorm_kernel.BWD_WARPS == _constexpr(ln, "kBwdWarps")
     flash = _cu("flash_attention.cu")
-    assert (kl.FLASH_SIMT["BQ"], kl.FLASH_SIMT["BK"],
-            kl.FLASH_SIMT["threads"], kl.FLASH_SIMT["max_d"]) == tuple(
-        _constexpr(flash, n) for n in ("kBQ", "kBK", "kThreads", "kMaxD"))
-    for d, tiles in ((32, (32, 64, 64)), (64, (64, 64, 64)),
-                     (128, (128, 64, 32))):
-        assert kl._tc_tiles(d) == tiles
-        # every instance (T: bf16 or f16; V: the aligned one, or the
-        # general) takes the tiles
-        assert f"tc::launch_fwd<T, {tiles[0]}, {tiles[1]}, {tiles[2]}, V>" \
-            in flash
+    assert kl.FLASH_MAX_D == _constexpr(flash, "kMaxD")
+    # kBN: 32 rows a streamed tile for f32 and at DP 128, else 64
+    assert ("constexpr int kBN = (std::is_same<T, float>::value || "
+            "DP == 128) ? 32 : 64;") in flash
+    for d, dp in ((32, 32), (64, 64), (128, 128)):
+        assert kl._tc_tiles(d, torch.bfloat16) == (dp, 64,
+                                                   32 if dp == 128 else 64)
+        assert kl._tc_tiles(d, torch.float32) == (dp, 64, 32)
+        # every instance (T: f32, bf16 or f16; V: the aligned one, or the
+        # general) takes BM 64 and kBN, forward and backward
+        for fn in ("launch_fwd", "launch_bwd", "info_fwd", "info_bwd"):
+            assert f"tc::{fn}<T, {dp}, 64, tc::kBN<T, {dp}>, V>" in flash
+    # f32 reaches the same table as the 16-bit types
+    for entry in ("tc_fwd", "tc_bwd", "tc_info"):
+        assert f"if (dtype == 0) return {entry}<float, V>" in flash
+    # the plan's shared bytes are Inst's
+    for fn in ("2 * DP * (BM + 4 * BN)", "2 * DP * (3 * BM + 4 * BN)",
+               "2 * DP * (2 * BM + 4 * BN) + 16 * BN",
+               "4 * (DP + 4) * (2 * BM + 6 * BN)",
+               "4 * (DP + 4) * (3 * BM + 6 * BN)",
+               "4 * (DP + 4) * (3 * BM + 6 * BN) + 16 * BN"):
+        assert fn in flash, fn
 
 
 def test_every_source_has_its_info_entry():

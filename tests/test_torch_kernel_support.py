@@ -165,3 +165,28 @@ def test_float16_codes_and_instances_match_the_sources():
                                             "flash_dkv_tc<f16,64,64,64>"]
     launches, _ = kl.launch_plan("layernorm_fwd", x2d=((8192, 768), F16))
     assert launches[0].kernel == "ln_fwd_kernel<f16,3>"
+
+
+def test_float32_instances_run_three_tf32_products():
+    """The f32 flash attention runs on the tensor cores: the launch plan
+    names the f32 instances (two backward kernels, dq writing delta), and
+    the source forms each product from the operands' rounded TF32 parts
+    on the m16n8k8 TF32 MMA."""
+    from paddle_tpu_torch.framework import kernel_lint as kl
+
+    flash = (CSRC / "flash_attention.cu").read_text()
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in flash
+    assert "cvt.rna.tf32.f32" in flash
+    assert "if (dtype == 0) return tc_fwd<float, V>" in flash
+    assert "if (dtype == 0) return tc_bwd<float, V>" in flash
+    f32 = torch.float32
+    launches, _ = kl.launch_plan("flash_attention_fwd",
+                                 q=((2, 1024, 6, 64), f32),
+                                 k=((2, 1024, 6, 64), f32))
+    assert [x.kernel for x in launches] == ["flash_fwd_f32<64,64,32>"]
+    launches, _ = kl.launch_plan("flash_attention_bwd",
+                                 q=((16, 250, 4, 36), f32),
+                                 k=((16, 250, 4, 36), f32))
+    assert [x.kernel for x in launches] == ["flash_dq_f32<64,64,32>",
+                                            "flash_dkv_f32<64,64,32>"]
+    assert "delta" in launches[0].writes
