@@ -224,7 +224,12 @@ and the script exits non-zero:
 9b. distributed — the same GPT-124M steps (10) under ``DataParallel``
               over a one-rank NCCL group, bitwise equal to unwrapped
               (ms a step of both, a profiled step of each, the
-              buckets' all-reduce device ms);
+              buckets' all-reduce device ms); GPT-124M O2 bf16 with
+              residual dropout 0.1 for 3 steps with ``remat=True``
+              against ``remat=False`` under ``DataParallel``, ``os_g``
+              and ``p_g_os`` over the one-rank group, losses and weights
+              bitwise equal (``distributed_remat``: ms a step both ways,
+              launches);
               then ``python -m paddle_tpu_torch.distributed.launch
               --nproc_per_node 2`` starts two ranks on the one card
               (gloo, ``distributed_rank``): every collective on CUDA
@@ -353,8 +358,9 @@ its int8-KV run (B5), the f16 FMT and the decode pass (B6), the IR
 passes' steps (B2, B3, B4a, B4b) and the predictor's runs (B2, B4a),
 and the program tooling's eager GPT-124M forward (B2, B4a) and its
 ``register_pallas_op`` LayerNorm (B4a, B4b), and the distributed phase's
-DataParallel steps at world size 1 and the two ranks' DataParallel and
-``p_g_os`` steps, summed over the ranks (B2, B3, B4a, B4b).
+DataParallel steps at world size 1, its remat leg's steps and the two
+ranks' DataParallel and ``p_g_os`` steps, summed over the ranks (B2, B3,
+B4a, B4b).
 The second-to-last
 line is that JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  The script imports only torch, numpy and the port.
@@ -997,9 +1003,7 @@ def flash_attention_phase(entries, dev):
         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
         library="F.scaled_dot_product_attention")
     # the main paths' other shapes: the Conformer's, gpt_6_7b's forward
-    # and GPT-124M's float16 step (the head-dim sweep's times, the
-    # evidence for C7, are in PERF.md and no main path's: the parity rows
-    # above still hold every head dim)
+    # and GPT-124M's float16 step
     _flash_kernel_times(fwd, bwd, dev, f32, (16, 250, 4, 36), False, flush,
                         note=" (Conformer eval and step)")
     # the f32 ranks of the hybrid and parallel phases, strided q/k/v
@@ -1013,6 +1017,12 @@ def flash_attention_phase(entries, dev):
                         note=" (GPT-124M O2 float16 step)")
     _flash_kernel_times(fwd, None, dev, f16, (64, 197, 12, 64), False, flush,
                         note=" (ViT-B/16 float16 Predictor)")
+    # the head-dim sweep over the JAX kernel's range (no main path's; the
+    # parity rows above hold every head dim): 8 x 512 x 8 x D causal
+    for d in (4, 20, 36, 100):
+        for dtype in (f32, bf16):
+            _flash_kernel_times(fwd, bwd, dev, dtype, (8, 512, 8, d), True,
+                                flush, note=" (head-dim sweep)")
     return records
 
 
@@ -4611,6 +4621,107 @@ def _dist_world1_phase(dev, smi, steps=10):
     return launches
 
 
+REMAT_WRAPPERS = ("dp", "os_g", "p_g_os")
+
+
+def _dist_remat_phase(dev, smi, steps=3):
+    """GPT-124M in O2 bf16 with residual dropout (``FEATURE_DROPOUT``;
+    attention dropout 0, so B2/B3 stay on the path) at 8 x 1024, from
+    seed 0: ``steps`` TrainSteps with ``remat=True`` against
+    ``remat=False`` (AdamW ``TRAIN_LR`` + global-norm clip) under
+    ``DataParallel``, ``os_g`` and ``p_g_os`` over a one-rank NCCL
+    group, the kernel counts set to 0 just before each run and read just
+    after.  The recompute must draw the forward's dropout masks from the
+    generators inside the wrapper: losses and weights (read through the
+    wrapper's ``state_dict()``: ZeRO-3 releases its parameters at rest)
+    bitwise equal, every kernel launched on every layer (the forward's
+    twice under remat).  Prints ms a step both ways and the launches,
+    which it returns, summed."""
+    import torch
+    from torch import distributed as tdist
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.cuda import registry
+
+    batches = _feature_batches(50304, steps, dev, seed=2026)
+    runs = {}    # (wrapper, remat) -> (losses, weights, step ms, launches)
+    env = dist.init_parallel_env(device=dev)
+    try:
+        assert dist.get_world_size() == 1 and env.device_id == dev.index
+        backend = tdist.get_backend()
+        for wrapper in REMAT_WRAPPERS:
+            for remat in (False, True):
+                model = _feature_model(dev, "bfloat16")
+                opt = optimizer.AdamW(
+                    learning_rate=TRAIN_LR, parameters=model.parameters(),
+                    grad_clip=optimizer.ClipGradByGlobalNorm(1.0))
+                if wrapper == "dp":
+                    target = dist.DataParallel(model)
+                else:
+                    target, opt, _ = group_sharded_parallel(model, opt,
+                                                            level=wrapper)
+                step = TrainStep(target,
+                                 lambda lg, lb, m=model: m.loss(lg, lb), opt,
+                                 remat=remat)
+                torch.cuda.synchronize(dev)
+                registry.reset_counts()
+                losses, step_ms = [], []
+                for ids, labels in batches:
+                    t0 = time.perf_counter()
+                    losses.append(step(ids, labels).item())
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize(dev)
+                launches = {k: registry.counts()[k] for k in _TRAIN_KERNELS}
+                weights = {k: (v._data if hasattr(v, "_data") else v)
+                           .detach().clone()
+                           for k, v in target.state_dict().items()}
+                runs[wrapper, remat] = (losses, weights, step_ms, launches)
+                del model, opt, target, step
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    total = {k: 0 for k in _TRAIN_KERNELS}
+    failed = []
+    for wrapper in REMAT_WRAPPERS:
+        (la, wa, ms_a, na), (lb, wb, ms_b, nb) = (runs[wrapper, False],
+                                                  runs[wrapper, True])
+        bitwise = la == lb and wa.keys() == wb.keys() and all(
+            torch.equal(wa[k], wb[k]) for k in wa)
+        want = _expected_train_launches(12, steps)
+        want_remat = dict(want,
+                          flash_attention_fwd=2 * want["flash_attention_fwd"],
+                          layernorm_fwd=2 * want["layernorm_fwd"])
+        say("distributed_remat", wrapper=wrapper, model="gpt_124m",
+            dtype="bfloat16 (O2)", backend=backend,
+            dropout=f"residual {FEATURE_DROPOUT}, attention 0", batch=8,
+            seq=1024, steps=steps, losses_no_remat=la, losses_remat=lb,
+            bitwise_equal=bitwise,
+            step_ms_no_remat=ms_a, step_ms_remat=ms_b,
+            ms_per_step_no_remat=float(np.mean(ms_a[1:])),
+            ms_per_step_remat=float(np.mean(ms_b[1:])),
+            launches_no_remat=na, launches_remat=nb,
+            expected_no_remat=want, expected_remat=want_remat,
+            nvidia_smi=smi)
+        if not bitwise:
+            failed.append(f"{wrapper}: remat is not bitwise equal to "
+                          f"remat=False")
+        if na != want or nb != want_remat:
+            failed.append(f"{wrapper}: launches {na} / {nb} != {want} / "
+                          f"{want_remat}")
+        if not np.isfinite(la).all():
+            failed.append(f"{wrapper}: non-finite losses {la}")
+        for k in total:
+            total[k] += na[k] + nb[k]
+    if backend != "nccl":
+        failed.append(f"a one-card group formed over {backend}")
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    return total
+
+
 def distributed_rank(out_dir):
     """One rank of the world-size-2 check, started by the launcher
     (``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2
@@ -4856,13 +4967,18 @@ def _dist_launcher_phase(smi):
 
 def distributed_phases(dev, smi):
     """The distributed slice: DataParallel at world size 1 over NCCL
-    (bitwise against unwrapped), then two gloo ranks on the card through
+    (bitwise against unwrapped), remat against no remat under
+    DataParallel, os_g and p_g_os at world size 1 (bitwise, with
+    dropout), then two gloo ranks on the card through
     the launcher (collectives, DataParallel and p_g_os against one
     process, the ZeRO-3 checkpoint).  Returns B2/B3/B4a/B4b launches of
-    both, summed."""
+    all three, summed."""
     import torch
 
     launches = _dist_world1_phase(dev, smi)
+    torch.cuda.empty_cache()
+    for k, n in _dist_remat_phase(dev, smi).items():
+        launches[k] += n
     torch.cuda.empty_cache()
     for k, n in _dist_launcher_phase(smi).items():
         launches[k] += n
@@ -11396,9 +11512,14 @@ def custom_ops_phase(dev):
         "smoke_host_scale3", host_fn, out_shape_fn=lambda a: a)
     hx = torch.as_tensor(rng.randn(4, 5).astype(np.float32), device=dev)
     hy = host(paddle.to_tensor(hx))._data
+    _, mu, rstd = layernorm_fwd_cuda(x, g, b, 1e-5)
+    bounds = {name: _bound(registry.KERNELS[name], *args) for name, args in (
+        ("layernorm_fwd", (x, g, b, 1e-5)),
+        ("layernorm_bwd", (x, g, mu, rstd, dy)))}
     say("custom_ops", op="smoke_layernorm_b4",
         tags=list(OPS["smoke_layernorm_b4"].tags), shape=[8192, 768],
-        dtype="bf16",
+        dtype="bf16", bound_ms={k: v[0] for k, v in bounds.items()},
+        bound_by={k: v[1] for k, v in bounds.items()},
         fwd_err_over_limit=fwd_rep[2], dx_err_over_limit=bwd_rep["dx"][2],
         plain_rounded_to_bf16_err_over_limit=rounding,
         bitwise_repeatable=bitwise, launches=launches, fwd_ms=ms,

@@ -134,11 +134,12 @@ _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
 
 
 def decorate(models, optimizers=None, level="O1", dtype="bfloat16",
-             master_weight=None):
+             master_weight=None, save_dtype=None):
     """O2: cast each model's floating parameters to ``dtype`` (in place,
     ``Module.to``).  O1 leaves them as they are.  ``master_weight=True``
     raises NotImplementedError: the optimizers keep no f32 master copy,
-    as the JAX package's do not."""
+    as the JAX package's do not.  ``save_dtype`` is taken and not read,
+    as in the JAX package."""
     if master_weight:
         raise NotImplementedError(
             "amp.decorate(master_weight=True): f32 master weights are not "

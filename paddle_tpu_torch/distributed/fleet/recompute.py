@@ -16,9 +16,11 @@ port's dropout draws from (a model's own, the mp-local one of a sliced
 model, the port's global ones of ``framework/random.py``).  The function
 snapshots each generator it can reach (those held by the Layer or
 module the function is, is bound to, closes over or takes as a default,
-and the global ones) before the forward, sets them back before the recompute and
-afterwards returns them to where they were, so the recompute draws the
-forward's masks and later draws are not repeated.
+a model inside a wrapper included, and the global ones:
+``framework.random.generators_of``) before the forward, sets them back
+before the recompute and afterwards returns them to where they were, so
+the recompute draws the forward's masks and later draws are not
+repeated.
 
 **Policies** (the JAX ``jax.checkpoint_policies`` names): ``None`` /
 ``"full"`` / ``"nothing_saveable"`` save nothing; ``"dots"`` /
@@ -33,6 +35,8 @@ import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from ...framework.random import generators_of
 
 _POLICIES = {
     None: None,
@@ -80,37 +84,17 @@ def _resolve_policy(name):
 def _generators(function):
     """The explicit generators the function can reach (module
     docstring)."""
-    from ...framework import random as _random
-    from ...nn.layer_base import Layer
-
-    found = {}
-
-    def visit(obj):
-        if isinstance(obj, torch.nn.Module):
-            mods = obj.modules()
-        elif isinstance(obj, Layer):
-            mods = obj.sublayers(include_self=True)
-        else:
-            return
-        for m in mods:
-            for v in vars(m).values():
-                if isinstance(v, torch.Generator):
-                    found[id(v)] = v
-
-    visit(function)
-    visit(getattr(function, "__self__", None))
     raw = getattr(function, "__func__", function)
+    reach = [function, getattr(function, "__self__", None)]
     for cell in getattr(raw, "__closure__", None) or ():
         try:
-            visit(cell.cell_contents)
+            reach.append(cell.cell_contents)
         except ValueError:  # empty cell
             pass
     for default in getattr(raw, "__defaults__", None) or ():
-        for obj in default if isinstance(default, (list, tuple)) \
-                else (default,):
-            visit(obj)
-    found.update((id(g), g) for g in _random._generators.values())
-    return list(found.values())
+        reach.extend(default if isinstance(default, (list, tuple))
+                     else (default,))
+    return generators_of(*reach)
 
 
 def recompute(function, *args, use_reentrant=True, preserve_rng_state=True,

@@ -31,6 +31,7 @@ import threading
 import torch
 
 from ...core.tensor import Tensor
+from ...framework.random import modules_of
 from ..parallel import _leaf
 from .meta_parallel import mp_layers
 
@@ -94,12 +95,6 @@ def _params(layer):
     return list(layer.named_parameters())
 
 
-def _modules(layer):
-    if isinstance(layer, torch.nn.Module):
-        return list(layer.modules())
-    return layer.sublayers(include_self=True)
-
-
 def param_shardings(layer, mesh):
     """dict name -> NamedSharding from Parameter.mesh_axes (default
     replicated)."""
@@ -109,7 +104,7 @@ def param_shardings(layer, mesh):
 
 
 def _model_seed(layer):
-    for m in _modules(layer):
+    for m in modules_of(layer):
         g = getattr(m, "generator", None)
         if isinstance(g, torch.Generator):
             return g.initial_seed()
@@ -144,7 +139,7 @@ def shard_parameters(layer, mesh, placement=True):
                 p._rebind(block.requires_grad_(leaf.requires_grad))
             else:
                 p.data = block
-    for m in _modules(layer):
+    for m in modules_of(layer):
         m.__dict__["_mp"] = ctx
         m.__dict__["mp_generator"] = ctx.generator
     return layer

@@ -66,7 +66,10 @@ the explicit ``torch.Generator`` s the port's dropout draws from (the
 model's own, ``models/gpt.py``, and the global ones of
 ``framework/random.py``): the step snapshots each of them before the
 forward and restores it before the recompute, so the recompute draws
-the same masks and the gradients equal those of ``remat=False``.
+the same masks and the gradients equal those of ``remat=False``.  The
+generators are found by ``framework.random.generators_of``, which also
+walks into a model held by a wrapper (``DataParallel``, the ZeRO
+stages).
 
 ``scaler=`` (an enabled ``amp.GradScaler``) composes dynamic loss
 scaling into the step, as the JAX step does: the loss is multiplied by
@@ -495,11 +498,12 @@ class TrainStep:
     (of the scaled loss with ``scaler``), then ``optimizer.step()``
     (which applies the optimizer's ``grad_clip``) or, with ``scaler``,
     the guarded update, and returns the loss.  The parameters and the
-    optimizer state are updated in place.  The reference's ``donate``
-    has no counterpart: the in-place update already reuses the
-    buffers."""
+    optimizer state are updated in place.  ``donate`` is taken and
+    ignored: the in-place update already reuses the buffers the JAX
+    step donates."""
 
-    def __init__(self, model, loss_fn, optimizer, remat=False, scaler=None):
+    def __init__(self, model, loss_fn, optimizer, donate=True, remat=False,
+                 scaler=None):
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -516,23 +520,14 @@ class TrainStep:
         p = self.optimizer._parameters[0]
         return (p._data if isinstance(p, Tensor) else p).device
 
-    def _generators(self):
-        """Every explicit generator the forward may draw from: those the
-        model's modules hold, and the port's global generators (the one
-        of the parameters' device created now if it is not yet)."""
-        _random.generator(self._device())
-        mods = (self.model.modules() if isinstance(self.model,
-                                                   torch.nn.Module)
-                else self.model.sublayers(include_self=True))
-        found = {id(g): g for m in mods for g in vars(m).values()
-                 if isinstance(g, torch.Generator)}
-        found.update((id(g), g) for g in _random._generators.values())
-        return list(found.values())
-
     def _loss(self, inputs, labels):
         if not self.remat:
             return self.loss_fn(self.model(*inputs), *labels)
-        states = [(g, g.get_state()) for g in self._generators()]
+        # the global generator of the parameters' device is created now
+        # if it is not yet, so that the snapshot holds it
+        _random.generator(self._device())
+        states = [(g, g.get_state())
+                  for g in _random.generators_of(self.model)]
 
         def loss_f(*inputs):
             # the forward draws from these states, and so does the
@@ -563,6 +558,11 @@ class TrainStep:
         self.found_inf, self.scaler._compiled_state = scaler_guarded_update(
             self.scaler, state, self.optimizer)
         return loss.detach()
+
+    def sync_to_model(self):
+        """Nothing to do: the JAX step rebinds its updated device arrays
+        into the model's Parameters here, while the port's step updates
+        the parameters in place."""
 
     def state_dict(self):
         return {"params": {k: v.detach() for k, v in

@@ -250,13 +250,17 @@ class GPTEmbeddings(nn.Module):
         mp_layers.annotate(self.word_embeddings.weight, ("mp", None))
         self.dropout = Dropout(config.hidden_dropout_prob, kw["generator"])
 
-    def forward(self, input_ids):
-        pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
+    def forward(self, input_ids, position_ids=None):
+        """``position_ids`` (None: ``arange`` of the sequence) index the
+        position table; under sequence parallelism the rank takes its
+        chunk of them along the sequence (last) dim."""
+        pos = (torch.arange(input_ids.shape[-1], device=input_ids.device)
+               if position_ids is None else position_ids)
         mp = mp_layers.mp_of(self)
         words = mp_layers.vocab_parallel_embedding(
             input_ids, self.word_embeddings.weight, mp)
         if mp is not None:
-            pos = pos[mp.seq_chunk(pos.shape[0])]
+            pos = pos[..., mp.seq_chunk(pos.shape[-1])]
         return self.dropout(words + self.position_embeddings(pos))
 
 
@@ -269,8 +273,8 @@ class GPTModel(nn.Module):
         self.ln_f = LayerNorm(config.hidden_size,
                               config.layer_norm_epsilon, **kw)
 
-    def forward(self, input_ids):
-        x = self.embeddings(input_ids)
+    def forward(self, input_ids, position_ids=None):
+        x = self.embeddings(input_ids, position_ids)
         for block in self.h:
             x = block(x)
         return self.ln_f(x)
@@ -298,8 +302,8 @@ class GPTForCausalLM(nn.Module):
     def device(self):
         return self.gpt.ln_f.weight.device
 
-    def forward(self, input_ids):
-        hidden = self.gpt(input_ids)
+    def forward(self, input_ids, position_ids=None):
+        hidden = self.gpt(input_ids, position_ids)
         w = self.gpt.embeddings.word_embeddings.weight
         mp = mp_layers.mp_of(self)
         # a sliced model's logits are the rank's vocab block

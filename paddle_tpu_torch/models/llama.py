@@ -35,9 +35,25 @@ from torch import nn
 from ..distributed.fleet.meta_parallel import mp_layers
 from ..framework.device import resolve_device
 from ..incubate.nn.functional import ragged_decode_attention, swiglu
-from ..nn import RMSNorm
 from ..nn import functional as F
 from .gpt import Embedding, Linear, _causal_lm_loss, _column, _row
+
+
+class LlamaRMSNorm(nn.Module):
+    """``y = x * rsqrt(mean(x ** 2) + epsilon) * weight`` over the last
+    dim, with ``weight`` [hidden_size] initialised to ones: the Llama
+    model's norm, a ``torch.nn.Module`` like the rest of the model (the
+    Paddle Layer is ``nn.RMSNorm``)."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(hidden_size, device=device,
+                                              dtype=dtype))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, epsilon=self.epsilon)
 
 
 class LlamaConfig:
@@ -172,11 +188,11 @@ class LlamaBlock(nn.Module):
     def __init__(self, config, **kw):
         super().__init__()
         norm_kw = dict(device=kw["device"], dtype=kw["dtype"])
-        self.input_layernorm = RMSNorm(config.hidden_size,
-                                       epsilon=config.rms_norm_eps,
-                                       **norm_kw)
+        self.input_layernorm = LlamaRMSNorm(config.hidden_size,
+                                            epsilon=config.rms_norm_eps,
+                                            **norm_kw)
         self.self_attn = LlamaAttention(config, **kw)
-        self.post_attention_layernorm = RMSNorm(
+        self.post_attention_layernorm = LlamaRMSNorm(
             config.hidden_size, epsilon=config.rms_norm_eps, **norm_kw)
         self.mlp = LlamaMLP(config, **kw)
 
@@ -194,8 +210,9 @@ class LlamaModel(nn.Module):
         mp_layers.annotate(self.embed_tokens.weight, ("mp", None))
         self.layers = nn.ModuleList([LlamaBlock(config, **kw)
                                      for _ in range(config.num_layers)])
-        self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
-                            device=kw["device"], dtype=kw["dtype"])
+        self.norm = LlamaRMSNorm(config.hidden_size,
+                                 epsilon=config.rms_norm_eps,
+                                 device=kw["device"], dtype=kw["dtype"])
 
     def forward(self, input_ids):
         x = mp_layers.vocab_parallel_embedding(

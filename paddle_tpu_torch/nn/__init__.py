@@ -1,6 +1,5 @@
 """paddle_tpu_torch.nn — layers, functional, initializers (port of
-``paddle_tpu/nn``).  ``RMSNorm`` is the ``torch.nn.Module`` the port's
-Llama uses."""
+``paddle_tpu/nn``)."""
 
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401

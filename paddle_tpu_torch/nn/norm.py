@@ -1,9 +1,10 @@
 """Normalization layers (port of ``paddle_tpu/nn/norm.py``).
 
-``LayerNorm``, the batch norms, ``GroupNorm``, ``InstanceNorm2D``,
-``LocalResponseNorm`` and ``SpectralNorm`` are Paddle ``Layer``s with
-the JAX package's parameter and buffer names; ``RMSNorm`` stays the
-``torch.nn.Module`` the port's Llama is built from.
+``LayerNorm``, ``RMSNorm``, the batch norms, ``GroupNorm``,
+``InstanceNorm2D``, ``LocalResponseNorm`` and ``SpectralNorm`` are
+Paddle ``Layer``s with the JAX package's parameter and buffer names.
+The port's Llama, a ``torch.nn.Module``, keeps an RMSNorm module of its
+own (``models/llama.py``).
 
 BatchNorm keeps the JAX running statistics: buffers ``_mean`` and
 ``_variance`` (zeros and ones), updated in training as ``m · old +
@@ -15,7 +16,6 @@ one card, as the JAX one is on one chip.
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..core.tensor import Tensor
 from . import functional as F
@@ -51,16 +51,16 @@ class LayerNorm(Layer):
         return f"normalized_shape={self.normalized_shape}, epsilon={self.epsilon}"
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     """``y = x * rsqrt(mean(x ** 2) + epsilon) * weight`` over the last
-    dim, with ``weight`` [hidden_size] initialised to ones."""
+    dim, with ``weight`` [hidden_size] initialised to ones (the JAX
+    package's Layer, beyond the reference surface)."""
 
-    def __init__(self, hidden_size, epsilon=1e-6, device=None,
-                 dtype=torch.float32):
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None):
         super().__init__()
         self.epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(hidden_size, device=device,
-                                              dtype=dtype))
+        self.weight = self.create_parameter((hidden_size,), attr=weight_attr,
+                                            default_initializer=Constant(1.0))
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, epsilon=self.epsilon)

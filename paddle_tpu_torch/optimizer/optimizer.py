@@ -22,9 +22,11 @@ check hold ``step`` to; nothing on the training path calls it.  The
 state dict has the JAX keys (``param{i}.{name}``, ``step``,
 ``LR_Scheduler``), so a state dict crosses between the packages.
 
-Two JAX behaviours are kept as they are: ``Momentum``'s velocity is in
-the parameter's dtype (not f32), and ``Lamb`` stores
-``exclude_from_weight_decay_fn`` without reading it.
+Three JAX behaviours are kept as they are: ``Momentum``'s velocity is
+in the parameter's dtype (not f32), ``Lamb`` stores
+``exclude_from_weight_decay_fn`` without reading it, and every
+optimizer's ``name=``, ``Adam``'s and ``AdamW``'s ``lazy_mode=`` and
+``AdamW``'s ``lr_ratio=`` are taken and never read.
 """
 
 import numpy as np
@@ -38,7 +40,7 @@ _f32 = np.float32
 
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None):
+                 weight_decay=None, grad_clip=None, name=None):
         self._lr = learning_rate
         self._parameters, self._names = [], {}
         for item in parameters if parameters is not None else []:
@@ -188,7 +190,7 @@ class Optimizer:
 
 class SGD(Optimizer):
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None):
+                 weight_decay=None, grad_clip=None, name=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip)
 
     def _apply(self, params, grads, states, lr, owners):
@@ -233,7 +235,8 @@ class Momentum(Optimizer):
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=None,
-                 grad_clip=None, multi_precision=False):
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 name=None):
         if multi_precision:
             raise NotImplementedError(
                 "multi_precision=True: f32 master weights are not ported "
@@ -296,10 +299,11 @@ class AdamW(Adam):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=0.01,
-                 apply_decay_param_fun=None, grad_clip=None,
-                 multi_precision=False):
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         weight_decay, grad_clip, multi_precision)
+                         weight_decay, grad_clip,
+                         multi_precision=multi_precision)
         self._apply_decay_param_fun = apply_decay_param_fun
         if apply_decay_param_fun is not None:
             self._decay_ids = {

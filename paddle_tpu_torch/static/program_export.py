@@ -2130,17 +2130,9 @@ def _kept_generators(layer):
     """Every torch.Generator the trace could draw from restored after
     it: the port's global ones and those the model's modules hold (the
     JAX exporter saves and restores its key)."""
-    from ..framework import random as _random
+    from ..framework.random import generators_of
 
-    gens = {id(g): g for g in _random._generators.values()}
-    mods = layer.modules() if isinstance(layer, torch.nn.Module) else \
-        (layer.sublayers(include_self=True)
-         if hasattr(layer, "sublayers") else [])
-    for m in mods:
-        for g in vars(m).values():
-            if isinstance(g, torch.Generator):
-                gens[id(g)] = g
-    states = [(g, g.get_state()) for g in gens.values()]
+    states = [(g, g.get_state()) for g in generators_of(layer)]
     try:
         yield
     finally:

@@ -19,7 +19,7 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu.models.llama import llama_tiny as jax_llama_tiny
 from paddle_tpu_torch.models.llama import llama_tiny
-from paddle_tpu_torch.nn import RMSNorm
+from paddle_tpu_torch.models.llama import LlamaRMSNorm as RMSNorm
 from paddle_tpu_torch.nn import functional as F
 
 
