@@ -229,7 +229,12 @@ and the script exits non-zero:
               against ``remat=False`` under ``DataParallel``, ``os_g``
               and ``p_g_os`` over the one-rank group, losses and weights
               bitwise equal (``distributed_remat``: ms a step both ways,
-              launches);
+              launches); after the ``p_g_os`` steps without remat every
+              inner parameter read at rest (``detach().clone()``), the
+              inner ``state_dict()`` and one inner eval forward under
+              no_grad, each bitwise equal to the wrapper's gathered
+              weights and forward, the bytes allocated before and after
+              the reads equal (``distributed_zero3_reads``);
               then ``python -m paddle_tpu_torch.distributed.launch
               --nproc_per_node 2`` starts two ranks on the one card
               (gloo, ``distributed_rank``): every collective on CUDA
@@ -238,7 +243,9 @@ and the script exits non-zero:
               and under ``p_g_os``, each within ``DIST_REL_TOL`` of one
               process's steps over both sequences (ms a step, the
               all-reduce's host share, each rank's peak and at-rest
-              bytes), the ZeRO-3 checkpoint written by both ranks and
+              bytes), the same reads at rest on both ranks (each an
+              all-gather) bitwise against the gathered weights, the
+              ZeRO-3 checkpoint written by both ranks and
               loaded back bitwise (``python3 chip_smoke.py
               distributed`` runs this group alone);
 10. tooling — the analysis tools over GPT-124M bf16 at the serving
@@ -4517,6 +4524,55 @@ def _rel_l2(a, b):
     return float((a - b).norm()) / den if den else float((a - b).norm())
 
 
+def _zero3_reads(model, target, ids, gathered, dev):
+    """Every read of a ``p_g_os`` model's parameters at rest, each
+    against the wrapper's gathered weights (``gathered``) and forward,
+    bitwise: ``p.detach().clone()`` of every inner parameter, the inner
+    ``state_dict()``, one inner eval forward of ``ids`` under no_grad.
+    With the bytes allocated on ``dev`` and held by the inner leaves
+    before and after (the reads' results freed)."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    leaf_before = sum(p.untyped_storage().nbytes()
+                      for p in model.parameters())
+    t0 = time.perf_counter()
+    params = all(torch.equal(p.detach().clone(), gathered[n])
+                 for n, p in model.named_parameters())
+    inner_sd = model.state_dict()
+    state = inner_sd.keys() == gathered.keys() and all(
+        torch.equal(v, gathered[k]) for k, v in inner_sd.items())
+    del inner_sd
+    target.eval()
+    with torch.no_grad():
+        inner = model(ids)
+        outer = target(ids)
+    forward = torch.equal(inner, outer)
+    del inner, outer
+    target.train()
+    torch.cuda.synchronize(dev)
+    return {"params_bitwise": params, "state_dict_bitwise": state,
+            "forward_bitwise": forward,
+            "read_s": time.perf_counter() - t0,
+            "bytes_before_reads": before,
+            "bytes_after_reads": torch.cuda.memory_allocated(dev),
+            "leaf_bytes_before_reads": leaf_before,
+            "leaf_bytes_after_reads": sum(p.untyped_storage().nbytes()
+                                          for p in model.parameters())}
+
+
+def _zero3_read_faults(rec):
+    """What a ``_zero3_reads`` record shows wrong (empty: nothing)."""
+    bad = [k for k in ("params_bitwise", "state_dict_bitwise",
+                       "forward_bitwise") if not rec[k]]
+    if rec["bytes_after_reads"] != rec["bytes_before_reads"]:
+        bad.append("the reads left bytes allocated")
+    if rec["leaf_bytes_before_reads"] or rec["leaf_bytes_after_reads"]:
+        bad.append("a leaf holds bytes at rest")
+    return bad
+
+
 def _dist_world1_phase(dev, smi, steps=10):
     """GPT-124M as the training phase sets it up (bf16 O2, AdamW 1e-4 +
     global-norm clip, 8 x 1024) for ``steps`` steps unwrapped, then the
@@ -4679,12 +4735,19 @@ def _dist_remat_phase(dev, smi, steps=3):
                            .detach().clone()
                            for k, v in target.state_dict().items()}
                 runs[wrapper, remat] = (losses, weights, step_ms, launches)
+                if wrapper == "p_g_os" and not remat:
+                    reads = _zero3_reads(model, target, batches[0][0],
+                                         weights, dev)
+                    reads["ms_per_step"] = float(np.mean(step_ms[1:]))
                 del model, opt, target, step
                 torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     total = {k: 0 for k in _TRAIN_KERNELS}
-    failed = []
+    say("distributed_zero3_reads", model="gpt_124m", dtype="bfloat16 (O2)",
+        backend=backend, world=1, batch=8, seq=1024,
+        steps=steps, **reads, nvidia_smi=smi)
+    failed = [f"p_g_os at rest: {b}" for b in _zero3_read_faults(reads)]
     for wrapper in REMAT_WRAPPERS:
         (la, wa, ms_a, na), (lb, wb, ms_b, nb) = (runs[wrapper, False],
                                                   runs[wrapper, True])
@@ -4874,6 +4937,16 @@ def distributed_rank(out_dir):
             rec["allreduce_host_share"] = (target.stats["allreduce_s"]
                                            / wall)
         if level == "p_g_os":
+            gathered = target.state_dict()
+            rec["reads"] = _zero3_reads(model, target, ids[mine], gathered,
+                                        dev)
+            del gathered
+            torch.cuda.synchronize(dev)
+            rec["state_bytes_at_rest_after_reads"] = (
+                torch.cuda.memory_allocated(dev) - base
+                + sum(p.numel() * p.element_size()
+                      for p in model.parameters()
+                      if p.untyped_storage().nbytes()))
             sd = target.state_dict()
             weights = {n: v for n, v in sd.items()}
             ckpt = os.path.join(out_dir, "zero3")
@@ -4938,6 +5011,9 @@ def _dist_launcher_phase(smi):
            for level in ("dp", "p_g_os")
            for k in ("ms_per_step", "peak_bytes", "state_bytes_at_rest",
                      "allreduce_host_share", "launches")},
+        p_g_os_state_bytes_at_rest_after_reads=[
+            r["p_g_os"]["state_bytes_at_rest_after_reads"] for r in ranks],
+        p_g_os_reads=[r["p_g_os"]["reads"] for r in ranks],
         **{f"{level}_{k}": r0[level][k] for level in ("dp", "p_g_os")
            for k in ("loss_rel", "weight_rel_l2", "worst_param_rel_l2")},
         zero3_checkpoint_bitwise=r0["p_g_os"]["checkpoint_bitwise"],
@@ -4953,6 +5029,13 @@ def _dist_launcher_phase(smi):
     if not r0["p_g_os"]["checkpoint_bitwise"]:
         raise RuntimeError("the ZeRO-3 checkpoint did not load back "
                            "bitwise")
+    for r in ranks:
+        bad = _zero3_read_faults(r["p_g_os"]["reads"])
+        if r["p_g_os"]["state_bytes_at_rest_after_reads"] != \
+                r["p_g_os"]["state_bytes_at_rest"]:
+            bad.append("at-rest bytes changed over the reads")
+        if bad:
+            raise RuntimeError(f"rank {r['rank']} p_g_os at rest: {bad}")
     want = _expected_train_launches(12, DIST_STEPS - 1)
     launches = {k: 0 for k in _TRAIN_KERNELS}
     for r in ranks:

@@ -21,7 +21,16 @@ slicing each tensor along the same axis, rank i holding block i:
   rest.  :class:`GroupShardedStage3` frees each sliced parameter's
   storage, all-gathers it before the forward, frees it after, gathers it
   again when the backward starts (a hook on the forward's outputs) and
-  frees it when the backward ends; the optimizer updates the blocks.
+  frees it when the backward ends; the optimizer updates the blocks.  A
+  parameter read at rest (``numpy()``, ``detach()``, the inner model's
+  ``state_dict()`` or forward, a checkpoint) is the whole tensor, as the
+  JAX placement's: the read all-gathers the blocks into a temporary,
+  which costs one all-gather of that parameter and, at world size > 1,
+  is a collective that every rank must make (a read one rank makes alone
+  raises after the wrapper's ``read_timeout``); a write at rest, on the
+  parameter or through a view of it, lands in the block (the class's
+  docstring).  The leaf's storage still holds 0 bytes:
+  ``untyped_storage()`` and ``numel()`` read the leaf itself.
 
 A tensor no dim of which splits evenly stays whole on every rank (the
 JAX ``P()``), its gradient averaged by an all-reduce.  The global-norm
@@ -33,9 +42,17 @@ gathers the whole tensors and names, in ``shards``, the block each rank
 holds: the distributed checkpoint writes only those blocks.
 """
 
+import contextlib
+import copy
+import datetime
 import os
+import weakref
 
+import numpy as np
 import torch
+from torch._C import DisableTorchFunctionSubclass
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ...core.tensor import Tensor
 from ..communication import _local
@@ -135,10 +152,304 @@ class ShardedStateDict(dict):
         self.shards = dict(shards or {})
 
 
+# ------------------------------------------- a ZeRO-3 parameter at rest --
+# What runs on a leaf at rest as it is: attribute getters and setters
+# and methods that read no element (its true storage and bytes too).
+# Every other function on it reads the whole value (_at_rest_call).
+_ELEMENT_ATTRS = ("data", "real", "imag", "T", "H", "mT", "mH")
+_META = set()
+for _name, _attr in vars(torch._C.TensorBase).items():
+    if type(_attr).__name__ == "getset_descriptor" \
+            and _name not in _ELEMENT_ATTRS:
+        _META.update((getattr(torch.Tensor, _name).__get__,
+                      getattr(torch.Tensor, _name).__set__))
+for _name in ("size", "dim", "numel", "nelement", "element_size", "stride",
+              "storage_offset", "is_contiguous", "is_floating_point",
+              "is_complex", "is_signed", "is_inference", "untyped_storage",
+              "storage", "_typed_storage", "data_ptr", "get_device",
+              "requires_grad_", "detach_", "register_hook",
+              "register_post_accumulate_grad_hook", "retain_grad", "__len__",
+              "_is_view", "is_shared", "is_pinned", "record_stream",
+              "_fix_weakref", "__dir__"):
+    _META.add(getattr(torch.Tensor, _name))
+_ALIASES = (torch.Tensor.detach, torch.Tensor.data.__get__)
+_SET_DATA = torch.Tensor.data.__set__
+
+
+def _holder(t):
+    """(stage, shard) holding ``t`` at rest, or None (``t`` is plain)."""
+    stage = type(t)._stage()
+    if stage is None or not stage._at_rest:
+        return None
+    shard = stage._shards.get(stage._holders.get(t))
+    return None if shard is None else (stage, shard)
+
+
+def _storage_ptr(t):
+    with DisableTorchFunctionSubclass():
+        return t.untyped_storage().data_ptr() \
+            if t.layout == torch.strided else 0
+
+
+class _ReadAtRest(torch.autograd.Function):
+    """The whole value of a leaf at rest; its gradient reaches the leaf
+    whole, as in the wrapper's own forward."""
+
+    @staticmethod
+    def forward(ctx, leaf, g, block, axis):
+        return _gather_axis(g, block, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None, None
+
+
+class _Whole:
+    """A parameter's whole value, all-gathered at rest for an op
+    (``value``), with the block it was gathered from and the versions
+    both had then: an op that bumped ``value``'s version wrote into the
+    parameter, and a view of ``value`` (:class:`_ViewAtRest`) re-reads it
+    where the block has changed since."""
+
+    __slots__ = ("stage", "shard", "value", "block", "version", "seen")
+
+    def __init__(self, stage, shard, given):
+        self.stage, self.shard = stage, shard
+        stage._all_read()
+        if torch.is_grad_enabled() and given.requires_grad:
+            with DisableTorchFunctionSubclass():
+                self.value = _ReadAtRest.apply(given, stage._g, shard.block,
+                                               shard.axis)
+        else:
+            # a normal tensor under inference mode too: it keeps a version
+            with torch.inference_mode(False):
+                self.value = _gather_axis(stage._g, shard.block, shard.axis)
+        self.mark()
+
+    def mark(self):
+        """``value`` is the block's now."""
+        self.block = self.shard.block
+        self.version, self.seen = self.block._version, self.value._version
+
+    def sync(self):
+        """Re-read ``value`` where the block changed since it was read."""
+        if self.shard.block is not self.block \
+                or self.block._version != self.version:
+            self.stage._all_read()
+            with torch.no_grad(), DisableTorchFunctionSubclass():
+                self.value.copy_(_gather_axis(self.stage._g,
+                                              self.shard.block,
+                                              self.shard.axis))
+            self.mark()
+
+    def write_back(self, given):
+        """Where the op wrote into ``value``, make it the parameter's
+        value (its block); an in-place op on a tensor that requires grad
+        raises as torch does and writes nothing."""
+        if self.value._version == self.seen:
+            return
+        if torch.is_grad_enabled() and any(t.requires_grad for t in given):
+            self.version = None     # the next read of a view re-reads
+            raise RuntimeError("a leaf Variable that requires grad is "
+                               "being used in an in-place operation.")
+        self.stage._write_whole(self.shard, self.value)
+        self.mark()
+
+
+_VIEWS = WeakIdKeyDictionary()      # a view of a whole value -> its _Whole
+
+
+def _at_rest_call(func, args, kwargs):
+    flat, spec = tree_flatten((args, kwargs))
+    given, wholes, by_shard = list(flat), {}, {}
+    for i, a in enumerate(flat):
+        if isinstance(a, _ViewAtRest):
+            w = _VIEWS.get(a)
+            if w is not None:
+                wholes[i] = w
+        elif isinstance(a, _AtRest):
+            h = _holder(a)
+            if h is not None:
+                wholes[i] = h
+    if not wholes:
+        with DisableTorchFunctionSubclass():
+            return func(*args, **kwargs)
+    if func in _ALIASES and isinstance(wholes.get(0), tuple):
+        stage, _ = wholes[0]
+        with DisableTorchFunctionSubclass():
+            out = func(*args, **kwargs)
+        out.__class__ = stage._rest_class(type(out))
+        stage._holders[out] = stage._holders[args[0]]
+        return out
+    if func == _SET_DATA and isinstance(wholes.get(0), tuple):
+        stage, shard = wholes[0]
+        return stage._write_whole(shard, args[1])
+    params = {}
+    for i, w in list(wholes.items()):
+        if isinstance(w, _Whole):
+            w.sync()
+            continue
+        stage, shard = w
+        if id(shard) not in by_shard:
+            by_shard[id(shard)] = _Whole(stage, shard, flat[i])
+        w = wholes[i] = by_shard[id(shard)]
+        flat[i] = w.value
+        params[id(w.value)] = given[i]
+    new_args, new_kwargs = tree_unflatten(flat, spec)
+    with DisableTorchFunctionSubclass():
+        out = func(*new_args, **new_kwargs)
+    seen = {}
+    for i, w in wholes.items():
+        seen.setdefault(id(w), (w, []))[1].append(given[i])
+    for w, args_of in seen.values():
+        w.write_back(args_of)
+    values = {_storage_ptr(w.value): w for w, _ in seen.values()}
+    return tree_map(lambda o: _through(o, params, values), out)
+
+
+def _through(o, params, values):
+    """A result of an op at rest: the parameter where it is the value
+    gathered for it (an in-place op's or ``to``'s own input), a view
+    that reads and writes through a value it shares memory with, an
+    array of such a value read-only."""
+    if id(o) in params:
+        return params[id(o)]
+    if isinstance(o, np.ndarray) and not o.flags.owndata:
+        o.flags.writeable = False
+    if isinstance(o, torch.Tensor) and not isinstance(o, _AtRest):
+        w = values.get(_storage_ptr(o))
+        if w is not None and o is not w.value:
+            o.__class__ = _ViewAtRest
+            _VIEWS[o] = w
+    return o
+
+
+def _dispatch(cls, func, types, args=(), kwargs=None):
+    kwargs = kwargs or {}
+    if func in _META or (func == torch.Tensor.type and len(args) == 1
+                         and not kwargs):
+        with DisableTorchFunctionSubclass():
+            return func(*args, **kwargs)
+    return _at_rest_call(func, args, kwargs)
+
+
+class _AtRest:
+    """The mixin of the class a ZeRO-3 leaf takes at rest, and of the
+    aliases ``detach()`` and ``.data`` make of it there; a subclass a
+    stage and leaf class (:meth:`GroupShardedStage3._rest_class`)."""
+
+    __torch_function__ = classmethod(_dispatch)
+
+    def __deepcopy__(self, memo):
+        """A whole copy in the leaf's own class (``Parameter``'s would
+        take this class)."""
+        with torch.no_grad():
+            data = self.clone()
+        out = self._plain(data, self.requires_grad) \
+            if issubclass(self._plain, torch.nn.Parameter) \
+            else data.requires_grad_(self.requires_grad)
+        out.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        memo[id(self)] = out
+        return out
+
+
+class _ViewAtRest(torch.Tensor):
+    """A view of a whole value read at rest (``p.view(-1)``, ``p[0]``,
+    ``p.T``): each op on it first re-reads the value where the block has
+    changed since, and a write into it lands in the block."""
+
+    __torch_function__ = classmethod(_dispatch)
+
+    def __deepcopy__(self, memo):
+        with torch.no_grad():
+            out = self.clone().requires_grad_(self.requires_grad)
+        memo[id(self)] = out
+        return out
+
+    def __reduce_ex__(self, proto):
+        with DisableTorchFunctionSubclass():
+            return self.as_subclass(torch.Tensor).__reduce_ex__(proto)
+
+
+class _Sliced:
+    """The mixin of the class a Paddle ``Parameter`` of stage 3 takes: a
+    rebind of its value at rest (``set_value``, ``copy_``, ``Layer.to``)
+    lands in the block and the leaf stays; it pickles and copies as its
+    own class."""
+
+    def _to_block(self, new):
+        h = _holder(self._data) if isinstance(self._data, _AtRest) else None
+        if h is None or h[1].leaf is not self._data:
+            return False
+        h[0]._write_whole(h[1], new)
+        return True
+
+    def _rebind_value(self, new):
+        return self if self._to_block(new) else super()._rebind_value(new)
+
+    def _rebind(self, data):
+        return self if self._to_block(data) else super()._rebind(data)
+
+    @contextlib.contextmanager
+    def _as_plain(self):
+        cls, self.__class__ = self.__class__, self._plain
+        try:
+            yield self
+        finally:
+            self.__class__ = cls
+
+    def __reduce__(self):
+        with self._as_plain():
+            return self.__reduce__()
+
+    def __deepcopy__(self, memo):
+        with self._as_plain():
+            return self.__deepcopy__(memo)
+
+
+class _Shard:
+    """A sliced parameter: its owner (a Paddle Parameter or a torch
+    leaf), the axis, this rank's block, and the leaf that is freed at
+    rest with its own class and the class it takes there."""
+
+    __slots__ = ("param", "axis", "block", "leaf", "cls", "rest")
+
+    def __init__(self, param, axis, block, rest_class):
+        self.param, self.axis, self.block = param, axis, block
+        self.leaf = _leaf(param)
+        self.cls = type(self.leaf)
+        self.rest = rest_class(self.cls)
+
+
 class GroupShardedStage3(_Wrapper):
     """Parameters kept as this rank's block at rest (module docstring).
     Reference: group_sharded_stage3.py's pre-forward gather and post
-    hooks, at the granularity of the whole model."""
+    hooks, at the granularity of the whole model.
+
+    At rest every sliced leaf holds no bytes and takes a subclass of its
+    own class, so the optimizer, autograd and the model keep the same
+    object.  Its ``__torch_function__`` reads it as the whole tensor:
+    every op on it runs on the blocks all-gathered into a temporary
+    (with grad enabled, a gather whose gradient reaches the leaf whole),
+    which goes when the op's result does.  An op that reads no element
+    (shape, dtype, device, ``grad``, ``requires_grad``, hooks,
+    ``untyped_storage()``, ``data_ptr()``) runs on the leaf itself, so
+    the storage reads 0 bytes.  ``detach()`` and ``.data`` give aliases
+    that read and write the same way.  An op that bumps the temporary's
+    version counter wrote into it (an in-place op, ``out=``, indexing
+    assignment, ``F.relu(p, inplace=True)``), and the temporary becomes
+    the block; so does ``p.data =``, and a Paddle ``set_value``,
+    ``copy_`` or ``Layer.to`` (its parameter takes a subclass too).  A
+    view taken at rest (``view``, indexing, ``.T``) reads and writes
+    through its temporary, which it re-reads first where the block has
+    changed since; an array from ``numpy()`` is read-only.  Each read
+    costs one all-gather of the parameter: at world size > 1 it is a
+    collective, so every rank must read the same parameters in the same
+    order, as ``state_dict()`` requires.  A read that the other ranks do
+    not make within ``read_timeout`` seconds (a barrier on a gloo group
+    of its own) raises instead of hanging.  ``forward`` gathers the
+    leaves in place and restores their class, so the step's own ops pay
+    nothing."""
 
     def __init__(self, layer, optimizer=None, group=None, sync_buffers=False,
                  segment_size=None, offload=False):
@@ -146,9 +457,17 @@ class GroupShardedStage3(_Wrapper):
         self._group = group
         self._g = group if group is not None else _ensure_default_group()
         n, r = self._g.nranks, max(self._g.rank, 0)
-        self._shards = {}     # id(param) -> [param, axis, block]
+        self._shards = {}     # id(param) -> _Shard
         self._names = {}
         self._in_backward = False
+        self._at_rest = False
+        self._rest_classes = {}
+        self._holders = WeakIdKeyDictionary()   # leaf or alias -> id(param)
+        # seconds a read at rest waits for the other ranks to make it too
+        self.read_timeout = 120.0
+        self._reads = None if _pg(self._g) is None else \
+            torch.distributed.new_group(self._g.ranks, backend="gloo",
+                                        use_local_synchronization=True)
         for name, p in self._named():
             p.zero_stage = 3
             axis = _shard_spec(tuple(p.shape), n)
@@ -156,28 +475,107 @@ class GroupShardedStage3(_Wrapper):
             self._names[id(p)] = name
             if axis is not None:
                 block = _block(_leaf(p).detach(), axis, r, n).clone()
-                self._shards[id(p)] = [p, axis, block]
+                self._shards[id(p)] = _Shard(p, axis, block,
+                                             self._rest_class)
+                self._holders[_leaf(p)] = id(p)
+                if isinstance(p, Tensor):
+                    p.__class__ = self._rest_class(type(p), _Sliced, "")
         self._release()
+
+    def _rest_class(self, cls, mixin=_AtRest, suffix="AtRest"):
+        """The class a tensor of class ``cls`` takes at rest here (a
+        Paddle parameter's, ``mixin`` _Sliced, for good)."""
+        out = self._rest_classes.get((cls, mixin))
+        if out is None:
+            out = self._rest_classes[cls, mixin] = type(
+                f"{cls.__name__}{suffix}", (mixin, cls),
+                {"_plain": cls, "_stage": weakref.ref(self)})
+        return out
+
+    def _all_read(self):
+        """Wait for every rank to make this read at rest too: it
+        all-gathers, and a read that one rank makes alone would hang."""
+        if self._reads is None:
+            return
+        try:
+            torch.distributed.monitored_barrier(
+                self._reads,
+                timeout=datetime.timedelta(seconds=self.read_timeout))
+        except RuntimeError as e:
+            raise RuntimeError(
+                "GroupShardedStage3: a parameter read at rest all-gathers "
+                "its blocks, and a rank did not make the read within "
+                f"{self.read_timeout} s; read on every rank (the "
+                "wrapper's state_dict(), then save on one)") from e
 
     def _named(self):
         return list(self._layers.named_parameters())
 
     def shard_of(self, p):
         """This rank's block of parameter ``p`` (None: ``p`` is whole)."""
-        entry = self._shards.get(id(p))
-        return None if entry is None else entry[2]
+        shard = self._shards.get(id(p))
+        return None if shard is None else shard.block
+
+    def _managed(self):
+        """The shards whose leaf is the parameter's value now (a
+        ``functional_call`` or a ``to_static`` trace binds its own
+        values in their place, which the forward then reads)."""
+        return [s for s in self._shards.values() if _leaf(s.param) is s.leaf]
 
     def _gather(self):
-        for p, axis, block in self._shards.values():
-            full = _gather_axis(self._g, block, axis)
-            leaf = _leaf(p)
+        self._at_rest = False
+        for s in self._managed():
+            full = _gather_axis(self._g, s.block, s.axis)
+            leaf = s.leaf
+            leaf.__class__ = s.cls
             leaf.untyped_storage().resize_(leaf.numel()
                                            * leaf.element_size())
             leaf.data.copy_(full)
 
     def _release(self):
-        for p, _, _ in self._shards.values():
-            _leaf(p).untyped_storage().resize_(0)
+        for s in self._managed():
+            s.leaf.untyped_storage().resize_(0)
+            s.leaf.__class__ = s.rest
+        self._at_rest = True
+
+    @contextlib.contextmanager
+    def _own_classes(self):
+        """The leaves at rest in their own classes for the body: the ZeRO
+        step reads and clears their gradients, and reads no element of
+        them (it updates the blocks), so it pays no dispatch."""
+        shards = self._managed() if self._at_rest else []
+        for s in shards:
+            s.leaf.__class__ = s.cls
+        try:
+            yield
+        finally:
+            for s in shards:
+                s.leaf.__class__ = s.rest
+
+    def _write_whole(self, shard, new):
+        """Make ``new``, a whole value of the parameter, its value at
+        rest: this rank's block of it.  A new dtype or device is the
+        leaf's too, which still holds no bytes."""
+        leaf = shard.leaf
+        if tuple(new.shape) != tuple(leaf.shape):
+            raise RuntimeError(
+                f"a ZeRO-3 parameter of shape {tuple(leaf.shape)} at rest "
+                f"cannot take a value of shape {tuple(new.shape)}")
+        n, r = self._g.nranks, max(self._g.rank, 0)
+        with torch.no_grad():
+            block = _block(new.detach(), shard.axis, r, n)
+            if (block.dtype, block.device) == (shard.block.dtype,
+                                               shard.block.device):
+                shard.block.copy_(block)
+                return None
+            with torch.inference_mode(False):
+                shard.block = block.clone()
+            empty = torch.empty(tuple(leaf.shape), dtype=block.dtype,
+                                device=block.device)
+            empty.untyped_storage().resize_(0)
+            with DisableTorchFunctionSubclass():
+                _SET_DATA(leaf, empty)
+        return None
 
     def _pre_backward(self, grad):
         if not self._in_backward:
@@ -223,24 +621,16 @@ class GroupShardedStage3(_Wrapper):
                 out[name] = Tensor(data) if isinstance(v, Tensor) else data
         finally:
             self._release()
-        by_name = {self._names[i]: e for i, e in self._shards.items()}
-        out.shards = {name: (by_name[name][1], max(self._g.rank, 0),
+        by_name = {self._names[i]: s for i, s in self._shards.items()}
+        out.shards = {name: (by_name[name].axis, max(self._g.rank, 0),
                              self._g.nranks)
                       for name in out if name in by_name}
         return out
 
     def set_state_dict(self, sd, *a, **k):
-        """Load whole tensors and keep this rank's blocks of them."""
-        self._gather()
-        try:
-            ret = self._layers.set_state_dict(sd, *a, **k)
-            n, r = self._g.nranks, max(self._g.rank, 0)
-            for entry in self._shards.values():
-                entry[2] = _block(_leaf(entry[0]).detach(), entry[1], r,
-                                  n).clone()
-        finally:
-            self._release()
-        return ret
+        """Load whole tensors: each parameter's write at rest keeps this
+        rank's block of it."""
+        return self._layers.set_state_dict(sd, *a, **k)
 
 
 class GroupShardedStage2(_Wrapper):
@@ -336,8 +726,16 @@ class ShardingOptimizerWrapper:
             out.append((b.float() * scale).to(b.dtype))
         return out
 
-    @torch.no_grad()
+    def _own_classes(self):
+        return self._model._own_classes() if self._level >= 3 \
+            else contextlib.nullcontext()
+
     def step(self):
+        with self._own_classes():
+            self._step()
+
+    @torch.no_grad()
+    def _step(self):
         inner = self._inner_opt
         items = []
         for item in inner._parameters:
@@ -380,7 +778,8 @@ class ShardingOptimizerWrapper:
                     leaf.copy_(_gather_axis(self._g, block, a))
 
     def clear_grad(self, *a, **k):
-        self._inner_opt.clear_grad(*a, **k)
+        with self._own_classes():
+            self._inner_opt.clear_grad(*a, **k)
 
     clear_gradients = clear_grad
 

@@ -137,6 +137,8 @@ def functional_call(layer, values, *args, return_buffers=False,
     names in ``values``.  ``forward_fn`` overrides the callable.  As in
     the JAX package the call records no gradient."""
     sd = layer.state_dict()
+    # the live parameters: a ZeRO-3 wrapper's state_dict() holds copies
+    sd.update(layer.named_parameters())
     saved = []
     for name, val in values.items():
         t = sd[name]
@@ -264,7 +266,7 @@ class StaticFunction:
         self._ir_passes = ir_passes
 
     # ---- signature ----
-    def _key(self, leaves, treedef, t_pos):
+    def _key(self, leaves, treedef, t_pos, state):
         sig = tuple((tuple(leaves[i]._data.shape if isinstance(
             leaves[i], Tensor) else leaves[i].shape),
             (leaves[i]._data if isinstance(leaves[i], Tensor)
@@ -275,7 +277,11 @@ class StaticFunction:
         static = tuple(None if i in t_pos else _hashable(leaves[i])
                        for i in range(len(leaves)))
         training = self._layer.training if self._layer is not None else None
-        return (treedef, tuple(t_pos), sig, static, training)
+        # the weights are graph inputs too: a cast (amp.decorate) or a
+        # move retraces, as the JAX jit keys on their dtypes
+        weights = tuple((t._data.dtype, t._data.device)
+                        for t in state.values())
+        return (treedef, tuple(t_pos), sig, static, training, weights)
 
     def __call__(self, *args, **kwargs):
         if mode.in_trace():
@@ -283,13 +289,14 @@ class StaticFunction:
             return self._function(*args, **kwargs)
         leaves, treedef = _flatten((args, kwargs))
         t_pos = [i for i, x in enumerate(leaves) if _is_tensor(x)]
-        key = self._key(leaves, treedef, t_pos)
+        state = _state(self._layer) if self._layer is not None else {}
+        key = self._key(leaves, treedef, t_pos, state)
         prog = self._cache.get(key)
         if prog is None:
             prog = self._cache[key] = self._trace(leaves, treedef, t_pos)
         datas = [leaves[i]._data if isinstance(leaves[i], Tensor)
                  else leaves[i] for i in t_pos]
-        return self._run(prog, datas)
+        return self._run(prog, datas, state)
 
     # ---- trace ----
     def _trace(self, leaves, treedef, t_pos):
@@ -363,9 +370,7 @@ class StaticFunction:
                         found["kinds"], gen_devices)
 
     # ---- run ----
-    def _run(self, prog, datas):
-        layer = self._layer
-        state = _state(layer) if layer is not None else {}
+    def _run(self, prog, datas, state):
         flat = list(prog.gm(*[state[n]._data for n in prog.state_names],
                             *datas, *[_random.generator(dev)
                                       for dev in prog.gen_devices]))
@@ -385,7 +390,8 @@ class StaticFunction:
         arguments (traced now if it is not yet)."""
         leaves, treedef = _flatten((args, kwargs))
         t_pos = [i for i, x in enumerate(leaves) if _is_tensor(x)]
-        key = self._key(leaves, treedef, t_pos)
+        state = _state(self._layer) if self._layer is not None else {}
+        key = self._key(leaves, treedef, t_pos, state)
         if key not in self._cache:
             self._cache[key] = self._trace(leaves, treedef, t_pos)
         return self._cache[key].gm

@@ -232,7 +232,12 @@ def normalize(x, p=2, axis=1, epsilon=1e-12):
 
 @op()
 def linear(x, weight, bias=None):
-    """y = x @ W + b; weight layout [in, out] (Paddle convention)."""
+    """y = x @ W + b; weight layout [in, out] (Paddle convention).  Mixed
+    dtypes promote, as ``jnp.matmul`` does (an O2 model's bf16 weights
+    on f32 inputs give f32)."""
+    if x.dtype != weight.dtype:
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        x, weight = x.to(dt), weight.to(dt)
     out = torch.matmul(x, weight)
     if bias is not None:
         out = out + bias

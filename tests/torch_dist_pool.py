@@ -432,3 +432,51 @@ def save_sharded_task(path, level):
     sharded_train(model, opt, x, y, steps=2)
     save_group_sharded_model(model, path, optimizer=opt)
     return {k: v.numpy() for k, v in model.state_dict().items()}
+
+
+def zero3_reads_task():
+    """The reference run under ``p_g_os``, then every parameter read at
+    rest on both ranks (each read all-gathers): ``numpy()``,
+    ``detach().clone()``, the inner ``state_dict()``, the inner forward
+    under no_grad; the leaves' bytes and the blocks' shapes before and
+    after the reads, and the wrapper's gathered weights and forward;
+    then the error of a read that rank 0 makes alone."""
+    import torch
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+
+    model, x, y = sharded_model_and_data()
+    opt = optimizer.AdamW(learning_rate=1e-2, parameters=model.parameters())
+    inner = model
+    model, opt, _ = group_sharded_parallel(model, opt, level="p_g_os")
+    sharded_train(model, opt, x, y)
+
+    def held():
+        return {"leaf_bytes": sum(p._data.untyped_storage().nbytes()
+                                  for p in inner.parameters()),
+                "blocks": {k: tuple(model.shard_of(p).shape)
+                           for k, p in inner.named_parameters()
+                           if model.shard_of(p) is not None}}
+
+    out = {"before": held()}
+    out["numpy"] = {k: p.numpy() for k, p in inner.named_parameters()}
+    out["detach_clone"] = {k: p._data.detach().clone().numpy()
+                           for k, p in inner.named_parameters()}
+    out["state_dict"] = {k: v.numpy() for k, v in inner.state_dict().items()}
+    with torch.no_grad():
+        out["forward"] = inner(x).numpy()
+    out["after"] = held()
+    out["gathered"] = {k: v.numpy() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        out["wrapped_forward"] = model(x).numpy()
+    # last, as it leaves the wrapper's barrier group closed: a read that
+    # rank 0 makes alone
+    out["alone"] = None
+    if torch.distributed.get_rank() == 0:
+        model.read_timeout = 2.0
+        try:
+            inner.parameters()[0].numpy()
+        except RuntimeError as e:
+            out["alone"] = str(e)
+    return out
